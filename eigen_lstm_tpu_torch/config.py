@@ -1,0 +1,91 @@
+"""Typed configuration of the PyTorch port, field for field the JAX package's
+``ModelConfig`` (``eigen_lstm_tpu/config.py``) so that one checkpoint and one
+set of flags describe the same model in both packages.
+
+Only what the serving path (held-out eval, sampling) reads is here:
+``ModelConfig`` in full and the split fraction of ``DataConfig``. The
+training configs come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float64": torch.float64,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture and numerics of the stacked char-LSTM LM. The field
+    comments of the JAX ``ModelConfig`` apply unchanged."""
+
+    vocab: int = 256
+    hidden: int = 512
+    num_layers: int = 1
+    cell_variant: str = "reference"   # "reference" | "standard"
+    loss_mode: str = "last"           # "last" | "all"
+    loss_base: str = "e"              # "e" | "2"
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"    # "bfloat16": bf16-rounded matmul inputs
+    init_std: float = 0.01
+    forget_bias: float = 1.0
+    embedding_mode: str = "auto"      # "auto" | "gather" | "onehot"
+    remat: bool = False
+    residual_dtype: str = "float32"   # storage type of the h/c/g sequences
+    scan_chunk: int = 0
+    tie_embeddings: bool = False
+    dropout: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        checks = (
+            ("cell_variant", self.cell_variant in ("reference", "standard")),
+            ("loss_mode", self.loss_mode in ("last", "all")),
+            ("loss_base", self.loss_base in ("e", "2")),
+            ("embedding_mode",
+             self.embedding_mode in ("auto", "gather", "onehot")),
+            ("dropout", 0.0 <= self.dropout < 1.0),
+            ("param_dtype", self.param_dtype in _DTYPES),
+            ("compute_dtype", self.compute_dtype in _DTYPES),
+            ("residual_dtype", self.residual_dtype in _DTYPES),
+        )
+        for name, ok in checks:
+            if not ok:
+                raise ValueError(f"bad {name}: {getattr(self, name)!r}")
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def rdtype(self) -> torch.dtype:
+        """Storage type of the kernels' h/c/g sequences; float64 throughout
+        in the float64 oracle configuration."""
+        if self.compute_dtype == "float64":
+            return torch.float64
+        return _DTYPES[self.residual_dtype]
+
+    @property
+    def adtype(self) -> torch.dtype:
+        """Accumulation and elementwise type: float32 everywhere except the
+        float64 oracle configuration."""
+        return torch.float64 if self.param_dtype == "float64" else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The part of the JAX ``DataConfig`` that eval reads: the corpus and
+    its leading-percentage train/test split."""
+
+    path: str = "data/alice29.txt"
+    train_percent: float = 0.95

@@ -1,0 +1,248 @@
+// Forward LSTM recurrence for Hopper (sm_90a): one timestep per launch, two
+// input modes behind two C launchers, bound from Python through ctypes
+// (eigen_lstm_tpu_torch/ops/cuda_cell.py). No PyTorch headers: the file
+// builds with one plain nvcc call into a shared library.
+//
+// Replaces two TPU kernels of eigen_lstm_tpu/ops/pallas_cell.py:
+//   lstm_fwd_embed_launch <- _fwd_embed_kernel (layer 0, embedding fused):
+//       g = W[ids_t] + round(h_{t-1}) @ U + b
+//   lstm_fwd_scan_launch  <- _fwd_kernel (layers >= 1, xw = x @ W + b
+//       precomputed outside as one large product):
+//       g = xw_t + round(h_{t-1}) @ U
+// then sigma on i, o, f and tanh on u, and the cell update of _cell_fwd:
+// "reference" carries c2 = tanh(i*u + f*c_prev) with h = o*c2; "standard"
+// carries c_raw with h = o*tanh(c_raw). round() is the compute type (bf16
+// or fp32); products accumulate in fp32 and the carry stays fp32.
+//
+// What bounds it on the H100: a window is 2*S*B*N*4N flops of recurrent
+// products (17.2 GFLOP at S = 128, B = 16, N = 1024) against 13-34 MB that
+// the function must move (U once, W rows or the xw stream, the outputs), so
+// its bound is operations: about 17 us at the bf16 tensor-core peak and
+// 256 us at the fp32 peak (the formula is bound() in chip_smoke.py). This
+// design runs far above that bound, for costs of its own, not of the
+// function: it re-reads all of U (8 MB in bf16) at every step, from L2
+// after the first, although a step of B = 16 rows does only 2*B = 32 flops
+// per U element read; its FMAs run on CUDA cores; and the S steps are S
+// dependent launches, each paying launch latency.
+//
+// What the design does about it (simple and right first): each block owns
+// 32 hidden units j (one warp's lanes, so U rows are read coalesced) and
+// BT batch rows, and computes all four gate columns j, N+j, 2N+j, 3N+j so
+// the epilogue fuses in registers. Its KS warps split the reduction over k
+// and meet in shared memory. h_{t-1} comes from h0 at t = 0 and otherwise
+// from an fp32 state buffer that the previous launch wrote; the launcher
+// alternates two buffers so that no block reads what another block of the
+// same launch writes. Tensor cores (wgmma), TMA and one persistent kernel
+// over the whole window (FlashRNN / Appleyard et al.) are later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int kLanes = 32;  // hidden units per block
+constexpr int kKS = 8;      // warps splitting the k reduction
+constexpr int kBT = 4;      // batch rows per block
+constexpr int kKT = 256;    // k tile of h_{t-1} staged in shared memory
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch and JAX
+}
+
+// x rounded to the compute type CT and widened back to fp32.
+template <typename CT> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<CT>(x));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// One timestep. EMBED selects the input: W[ids_t] + b (layer 0) or xw_t.
+// grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
+template <typename CT, typename RT, typename XT, bool EMBED>
+__global__ void __launch_bounds__(kLanes * kKS)
+lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
+              const XT* __restrict__ xw_t,     // (B, 4N), !EMBED
+              const CT* __restrict__ W,        // (M, 4N), EMBED
+              const float* __restrict__ bias,  // (4N,), EMBED
+              const int* __restrict__ ids_t,   // (B,), EMBED
+              const float* __restrict__ h_in,  // (B, N) fp32
+              const float* __restrict__ c_in,  // (B, N) fp32
+              float* __restrict__ h_out,       // (B, N) fp32
+              float* __restrict__ c_out,       // (B, N) fp32
+              RT* __restrict__ hseq_t,         // (B, N)
+              RT* __restrict__ cseq_t,         // (B, N) or null
+              RT* __restrict__ gseq_t,         // (B, 4N) or null
+              int B, int N, int standard) {
+  __shared__ float hs[kBT][kKT];
+  __shared__ float red[kKS][4][kBT][kLanes];
+
+  const int lane = threadIdx.x;
+  const int w = threadIdx.y;
+  const int j = blockIdx.x * kLanes + lane;
+  const int b0 = blockIdx.y * kBT;
+  const int n4 = 4 * N;
+
+  float acc[4][kBT];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) acc[g][r] = 0.0f;
+
+  for (int k0 = 0; k0 < N; k0 += kKT) {
+    const int klen = min(kKT, N - k0);
+    __syncthreads();
+    for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
+      const int r = e / klen, kk = e % klen;
+      const int b = b0 + r;
+      hs[r][kk] = b < B ? round_to<CT>(h_in[(size_t)b * N + k0 + kk]) : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = w; kk < klen; kk += kKS) {
+      const CT* urow = U + (size_t)(k0 + kk) * n4 + j;
+      float u4[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) u4[g] = to_f32(urow[(size_t)g * N]);
+#pragma unroll
+      for (int r = 0; r < kBT; ++r) {
+        const float hv = hs[r][kk];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(hv, u4[g], acc[g][r]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) red[w][g][r][lane] = acc[g][r];
+  __syncthreads();
+
+  // epilogue: warp r < kBT finishes batch row b0 + r for its 32 units
+  const int r = w;
+  const int b = b0 + r;
+  if (r >= kBT || b >= B) return;
+  float gate[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kKS; ++q) s += red[q][g][r][lane];
+    const size_t col = (size_t)g * N + j;
+    if (EMBED) {
+      s += to_f32(W[(size_t)ids_t[b] * n4 + col]) + bias[col];
+    } else {
+      s += to_f32(xw_t[(size_t)b * n4 + col]);
+    }
+    gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
+  }
+  const size_t idx = (size_t)b * N + j;
+  const float c_raw = gate[0] * gate[3] + gate[2] * c_in[idx];
+  float h, c;
+  if (standard) {
+    h = gate[1] * tanhf(c_raw);
+    c = c_raw;
+  } else {
+    c = tanhf(c_raw);
+    h = gate[1] * c;
+  }
+  h_out[idx] = h;
+  c_out[idx] = c;
+  hseq_t[idx] = from_f32<RT>(h);
+  if (cseq_t != nullptr) cseq_t[idx] = from_f32<RT>(c);
+  if (gseq_t != nullptr) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      gseq_t[(size_t)b * n4 + (size_t)g * N + j] = from_f32<RT>(gate[g]);
+  }
+}
+
+// S launches on `stream`. Step t reads the state step t-1 wrote (h0/c0 at
+// t = 0) and writes the other of {hT/cT, h_tmp/c_tmp}, chosen so that the
+// last step lands in hT/cT. Returns the first launch error, else 0.
+template <typename CT, typename RT, typename XT, bool EMBED>
+int run_scan(const void* U, const void* xw, const void* W, const float* bias,
+             const int* ids, const float* h0, const float* c0, float* hT,
+             float* cT, float* h_tmp, float* c_tmp, void* hseq, void* cseq,
+             void* gseq, int S, int B, int N, int standard,
+             cudaStream_t stream) {
+  const dim3 grid(N / kLanes, (B + kBT - 1) / kBT);
+  const dim3 block(kLanes, kKS);
+  const size_t bn = (size_t)B * N, bn4 = 4 * bn;
+  const float* h_in = h0;
+  const float* c_in = c0;
+  for (int t = 0; t < S; ++t) {
+    const bool to_final = ((S - 1 - t) % 2) == 0;
+    float* h_out = to_final ? hT : h_tmp;
+    float* c_out = to_final ? cT : c_tmp;
+    lstm_fwd_step<CT, RT, XT, EMBED><<<grid, block, 0, stream>>>(
+        static_cast<const CT*>(U),
+        EMBED ? nullptr : static_cast<const XT*>(xw) + t * bn4,
+        static_cast<const CT*>(W), bias, EMBED ? ids + (size_t)t * B : nullptr,
+        h_in, c_in, h_out, c_out, static_cast<RT*>(hseq) + t * bn,
+        cseq ? static_cast<RT*>(cseq) + t * bn : nullptr,
+        gseq ? static_cast<RT*>(gseq) + t * bn4 : nullptr, B, N, standard);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    h_in = h_out;
+    c_in = c_out;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Type codes: 0 = fp32, 1 = bf16. The xw stream of the scan launcher has
+// the compute type (bf16 under bf16 compute, pallas_cell.py:475).
+extern "C" int lstm_fwd_embed_launch(
+    int ctype, int rtype, const void* W, const void* U, const void* bias,
+    const void* ids, const void* h0, const void* c0, void* hT, void* cT,
+    void* h_tmp, void* c_tmp, void* hseq, void* cseq, void* gseq, int S,
+    int B, int N, int standard, void* stream) {
+  const auto f = [&](auto run) {
+    return run(U, nullptr, W, static_cast<const float*>(bias),
+               static_cast<const int*>(ids), static_cast<const float*>(h0),
+               static_cast<const float*>(c0), static_cast<float*>(hT),
+               static_cast<float*>(cT), static_cast<float*>(h_tmp),
+               static_cast<float*>(c_tmp), hseq, cseq, gseq, S, B, N,
+               standard, static_cast<cudaStream_t>(stream));
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_scan<float, float, float, true>);
+  if (ctype == 0 && rtype == 1) return f(run_scan<float, bf, float, true>);
+  if (ctype == 1 && rtype == 0) return f(run_scan<bf, float, bf, true>);
+  if (ctype == 1 && rtype == 1) return f(run_scan<bf, bf, bf, true>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int lstm_fwd_scan_launch(
+    int ctype, int rtype, const void* U, const void* xw, const void* h0,
+    const void* c0, void* hT, void* cT, void* h_tmp, void* c_tmp, void* hseq,
+    void* cseq, void* gseq, int S, int B, int N, int standard,
+    void* stream) {
+  const auto f = [&](auto run) {
+    return run(U, xw, nullptr, nullptr, nullptr,
+               static_cast<const float*>(h0), static_cast<const float*>(c0),
+               static_cast<float*>(hT), static_cast<float*>(cT),
+               static_cast<float*>(h_tmp), static_cast<float*>(c_tmp), hseq,
+               cseq, gseq, S, B, N, standard,
+               static_cast<cudaStream_t>(stream));
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_scan<float, float, float, false>);
+  if (ctype == 0 && rtype == 1) return f(run_scan<float, bf, float, false>);
+  if (ctype == 1 && rtype == 0) return f(run_scan<bf, float, bf, false>);
+  if (ctype == 1 && rtype == 1) return f(run_scan<bf, bf, bf, false>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,227 @@
+"""Stacked character-LSTM language model in PyTorch, mirroring
+``eigen_lstm_tpu/models/lstm.py``.
+
+Layer 0 gathers rows of W by byte id; layers >= 1 take the hidden sequence
+of the layer below through one large product x @ W + b outside the
+recurrence. Only h_{t-1} @ U stays inside the per-layer recurrence, which a
+``cell_fn`` (``ops/dispatch.py``) may replace with a kernel.
+
+Parameters are plain tensors in dataclasses, keyed like the JAX package's
+npz checkpoints (``params.layers[i].W`` ...; ``train/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..ops import cell as cell_ops
+
+LN2 = 0.6931471805599453
+
+
+@dataclasses.dataclass
+class LayerParams:
+    """One layer. W: (in_dim, 4N); U: (N, 4N); b: (4N,)."""
+
+    W: torch.Tensor
+    U: torch.Tensor
+    b: torch.Tensor
+
+
+@dataclasses.dataclass
+class LSTMParams:
+    """Stacked layers plus the softmax head Why: (N, M), by: (M,)."""
+
+    layers: Tuple[LayerParams, ...]
+    Why: torch.Tensor
+    by: torch.Tensor
+
+    def named_tensors(self):
+        """(npz key, tensor) pairs under the JAX checkpoint's keys."""
+        for i, layer in enumerate(self.layers):
+            for name in ("W", "U", "b"):
+                yield f"params.layers[{i}].{name}", getattr(layer, name)
+        yield "params.Why", self.Why
+        yield "params.by", self.by
+
+    def to(self, dtype: torch.dtype) -> "LSTMParams":
+        return LSTMParams(
+            tuple(LayerParams(l.W.to(dtype), l.U.to(dtype), l.b.to(dtype))
+                  for l in self.layers),
+            self.Why.to(dtype), self.by.to(dtype),
+        )
+
+
+def init_params(
+    cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> LSTMParams:
+    """W, U, Why ~ N(0, init_std), biases 0, forget-gate bias
+    ``forget_bias``. Seeded by ``generator`` (default: one seeded with
+    ``cfg.seed``); the numbers differ from the JAX package's."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    n, m, dt = cfg.hidden, cfg.vocab, cfg.pdtype
+
+    def normal(*shape):
+        x = torch.randn(*shape, generator=generator, dtype=torch.float32)
+        return (x * cfg.init_std).to(dt).to(device)
+
+    layers = []
+    for l in range(cfg.num_layers):
+        in_dim = n if (l == 0 and cfg.tie_embeddings) else (m if l == 0 else n)
+        W = normal(in_dim, 4 * n)
+        U = normal(n, 4 * n)
+        b = torch.zeros(4 * n, dtype=dt, device=device)
+        b[cell_ops.gate_slices(n)[2]] = cfg.forget_bias
+        layers.append(LayerParams(W, U, b))
+    Why = normal(n, m)
+    by = torch.zeros(m, dtype=dt, device=device)
+    return LSTMParams(tuple(layers), Why, by)
+
+
+def init_state(
+    cfg: ModelConfig, batch: int, device="cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h, c), each (L, B, N) zeros: the state every eval stream and sample
+    starts from. The reset noise of training (``reset_std``) comes with the
+    training slice."""
+    shape = (cfg.num_layers, batch, cfg.hidden)
+    return (torch.zeros(shape, dtype=cfg.pdtype, device=device),
+            torch.zeros(shape, dtype=cfg.pdtype, device=device))
+
+
+def _scan_layer(
+    layer: LayerParams, xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The recurrence h_t = cell(xw_t + h_{t-1} @ U, c_{t-1}) as a loop,
+    with the carry in the param type (the JAX ``lax.scan``). xw: (S, B, 4N)
+    with the bias folded in. Returns (h_seq, (hT, cT)).
+
+    This is the counterpart of the JAX package's XLA path (``cell_fn=None``),
+    not of its kernels: xw stays unrounded under bf16 compute, and layer 0
+    may take the one-hot or tied embedding. The kernels' plain versions in
+    ``ops/cuda_cell.py`` repeat the Pallas path's arithmetic instead; the
+    two differ in bf16 (2.276534 against 2.276745 bits/char on the
+    flagship's 4096-byte held-out slice, in the JAX package on the CPU)."""
+    n = cfg.hidden
+    h, c = h0.to(cfg.pdtype), c0.to(cfg.pdtype)
+    hs = []
+    for t in range(xw.shape[0]):
+        g_pre = xw[t] + cell_ops.matmul(h, layer.U, cfg.cdtype)
+        h, c = cell_ops.cell_step(g_pre, c.to(cfg.adtype), n, cfg.cell_variant)
+        h, c = h.to(cfg.pdtype), c.to(cfg.pdtype)
+        hs.append(h)
+    return torch.stack(hs), (h, c)
+
+
+def _substitute_tied_embed(params: LSTMParams, cfg: ModelConfig) -> LSTMParams:
+    """Tied embeddings: layer 0's input weight becomes W_eff = Why^T @ W0.
+    No-op when untied."""
+    if not cfg.tie_embeddings:
+        return params
+    l0 = params.layers[0]
+    w_eff = cell_ops.matmul(
+        params.Why.T, l0.W, cfg.cdtype, cfg.adtype
+    ).to(cfg.pdtype)
+    return dataclasses.replace(
+        params, layers=(dataclasses.replace(l0, W=w_eff),) + params.layers[1:]
+    )
+
+
+def forward(
+    params: LSTMParams,
+    ids: torch.Tensor,           # (S, B) int byte ids
+    h0: torch.Tensor,            # (L, B, N)
+    c0: torch.Tensor,            # (L, B, N)
+    cfg: ModelConfig,
+    cell_fn=None,
+    dropout_key=None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full forward: (h_seq of the top layer (S, B, N), (hL, cL) stacked).
+
+    ``cell_fn(layer, xw, h0, c0, cfg) -> (h_seq, (hT, cT))`` replaces the
+    per-layer recurrence, and its ``embed_layer0(layer, ids, h0, c0, cfg)``
+    attribute, when present, replaces layer 0 with the embedding fused in.
+    Dropout (``dropout_key``) and ``scan_chunk`` belong to training and are
+    not ported yet."""
+    if dropout_key is not None and cfg.dropout > 0.0:
+        raise NotImplementedError("dropout: training slice, not ported yet")
+    if cfg.scan_chunk:
+        raise NotImplementedError("scan_chunk: training slice, not ported yet")
+    scan_fn = cell_fn or _scan_layer
+    embed_fn = getattr(cell_fn, "embed_layer0", None)
+    s, b_ = ids.shape
+    x = None
+    h_last, c_last = [], []
+    params = _substitute_tied_embed(params, cfg)
+    for l, layer in enumerate(params.layers):
+        if l == 0 and embed_fn is not None:
+            h_seq, (hT, cT) = embed_fn(layer, ids, h0[0], c0[0], cfg)
+        else:
+            if l == 0:
+                if cfg.embedding_mode == "onehot":
+                    oh = cell_ops.one_hot(ids, cfg.vocab, cfg.cdtype)
+                    xw = cell_ops.matmul(
+                        oh.reshape(s * b_, cfg.vocab), layer.W, cfg.cdtype,
+                        cfg.adtype,
+                    ).reshape(s, b_, -1)
+                else:
+                    # "auto" and "gather" agree in the forward: a row gather
+                    xw = cell_ops.embed(layer.W, ids, cfg.cdtype, cfg.adtype)
+            else:
+                xw = cell_ops.matmul(
+                    x.reshape(s * b_, -1), layer.W, cfg.cdtype
+                ).reshape(s, b_, -1)
+            xw = xw + layer.b.to(cfg.adtype)
+            h_seq, (hT, cT) = scan_fn(layer, xw, h0[l], c0[l], cfg)
+        x = h_seq
+        h_last.append(hT)
+        c_last.append(cT)
+    return x, (torch.stack(h_last), torch.stack(c_last))
+
+
+def logits_from_h(params: LSTMParams, h: torch.Tensor, cfg: ModelConfig):
+    """y = h @ Why + by. (..., N) -> (..., M), in the accumulation type."""
+    flat = h.reshape(-1, h.shape[-1])
+    y = cell_ops.matmul(flat, params.Why, cfg.cdtype) + params.by.to(cfg.adtype)
+    return y.reshape(*h.shape[:-1], cfg.vocab)
+
+
+def softmax_xent_bits(logits: torch.Tensor, targets: torch.Tensor):
+    """Per-example -log2 p(target). logits (..., M), targets (...)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll / LN2
+
+
+def forward_step(
+    params: LSTMParams,
+    ids: torch.Tensor,           # (B,) one byte per stream
+    h: torch.Tensor,             # (L, B, N)
+    c: torch.Tensor,             # (L, B, N)
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One timestep of every layer: (logits (B, M), (h, c))."""
+    params = _substitute_tied_embed(params, cfg)
+    x = None
+    hs, cs = [], []
+    for l, layer in enumerate(params.layers):
+        if l == 0:
+            g_in = layer.W[ids.long()].to(cfg.adtype)
+        else:
+            g_in = cell_ops.matmul(x, layer.W, cfg.cdtype)
+        g_pre = (g_in + cell_ops.matmul(h[l], layer.U, cfg.cdtype)
+                 + layer.b.to(cfg.adtype))
+        hl, cl = cell_ops.cell_step(
+            g_pre, c[l].to(cfg.adtype), cfg.hidden, cfg.cell_variant
+        )
+        x = hl
+        hs.append(hl.to(cfg.pdtype))
+        cs.append(cl.to(cfg.pdtype))
+    return logits_from_h(params, x, cfg), (torch.stack(hs), torch.stack(cs))

@@ -1,0 +1,118 @@
+"""Builds the port's CUDA sources with one plain ``nvcc`` call and loads the
+result with ``ctypes``.
+
+The sources (``csrc/*.cu``) include no PyTorch header and export C
+functions, so the build is a few seconds of ``nvcc`` and needs neither
+``torch.utils.cpp_extension`` nor ``ninja``. The library goes to
+``eigen_lstm_tpu_torch/_build/`` under a name that carries a hash of the
+sources, so an edited source is rebuilt and an unchanged one is loaded as it
+is. Nothing is built on import: ``load_library`` runs at the first kernel
+launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every exported launcher: c_void_p for pointers and the
+# stream, c_int for ints (an unset argtype would pass a pointer as a 32-bit
+# int and cut it)
+SIGNATURES = {
+    "lstm_fwd_embed_launch": [_I, _I] + [_P] * 13 + [_I] * 4 + [_P],
+    "lstm_fwd_scan_launch": [_I, _I] + [_P] * 11 + [_I] * 4 + [_P],
+}
+
+
+class _State:
+    lib: Optional[ctypes.CDLL] = None
+    build_seconds: Optional[float] = None
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, then
+    ``PATH``; raises with the places searched."""
+    searched = []
+    cuda_home = os.environ.get("CUDA_HOME")
+    for d in ([os.path.join(cuda_home, "bin")] if cuda_home else []) + [
+        "/usr/local/cuda/bin"
+    ]:
+        path = os.path.join(d, "nvcc")
+        searched.append(path)
+        if os.access(path, os.X_OK):
+            return path
+    found = shutil.which("nvcc")
+    searched.append("PATH=" + os.environ.get("PATH", ""))
+    if found:
+        return found
+    raise FileNotFoundError("nvcc not found; searched: " + ", ".join(searched))
+
+
+def library_path() -> str:
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"liblstm_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compiles every source into one shared library unless a library of
+    the same sources is there already. Returns its path; raises with
+    nvcc's output when the build fails."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", tmp] + sources()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _State.build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the nvcc call of this process took; None if the library was
+    already built."""
+    return _State.build_seconds
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built at the first call of the process."""
+    if _State.lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _State.lib = lib
+    return _State.lib

@@ -1,0 +1,48 @@
+"""Recurrence backend selection, the port's ``eigen_lstm_tpu/ops/dispatch.py``.
+
+The TPU package gates its Pallas kernels on VMEM budgets
+(``dispatch.py:24-55``, ``pallas_cell.py:1100-1110``): U had to sit in
+16 MB of VMEM beside the step's blocks. Those budgets describe the TPU and
+are not carried over. The H100 kernels read U from device memory and L2 at
+every step and keep only a (4, 256) tile of h and the reduction in shared
+memory, so their gate is alignment alone, and it lives in the wrappers
+(``cuda_cell.shape_ok``: the hidden width a multiple of 32), which raise on
+a shape they do not take.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..config import ModelConfig
+from . import cuda_cell
+
+
+def _with_embed(scan_fn, embed_fn):
+    cell_fn = functools.partial(scan_fn)
+    cell_fn.embed_layer0 = embed_fn
+    return cell_fn
+
+
+def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
+    """A ``cell_fn`` for ``models.lstm.forward`` with ``.embed_layer0``.
+
+    ``"cuda"``: the kernels; raises unless ``device`` is a CUDA device.
+    ``"plain"``: the kernels' plain versions, on any device. ``"auto"``: the
+    kernels on a CUDA device, the plain versions on the CPU. The signature
+    is the JAX package's; ``cfg`` and ``batch`` select nothing here, since
+    the kernels take any batch and check the hidden width themselves."""
+    del cfg, batch
+    dev = torch.device(device)
+    if backend == "auto":
+        backend = "cuda" if dev.type == "cuda" else "plain"
+    if backend == "plain":
+        return _with_embed(cuda_cell.scan_layer_plain,
+                           cuda_cell.embed_layer0_plain)
+    if backend == "cuda":
+        if dev.type != "cuda":
+            raise ValueError(f"cuda backend on device {dev}")
+        return _with_embed(cuda_cell.scan_layer, cuda_cell.embed_layer0)
+    raise ValueError(f"unknown backend {backend!r}")

@@ -1,0 +1,101 @@
+"""Held-out evaluation: bits/char over the test split, as
+``eigen_lstm_tpu/train/evaluator.py`` scores it.
+
+The test bytes are folded into E contiguous streams, scored chunk by chunk
+with the hidden state carried from one chunk to the next; padding past a
+stream's own span is masked out, so every byte is scored exactly once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models import lstm as model
+
+
+def _score_streams(
+    params: model.LSTMParams,
+    x: torch.Tensor,        # (T, E) inputs, T = n_chunks * chunk
+    t: torch.Tensor,        # (T, E) next-byte targets
+    mask: torch.Tensor,     # (T, E) float, 1 where the position is real
+    cfg: ModelConfig,
+    chunk: int,
+    n_chunks: int,
+    cell_fn=None,
+) -> torch.Tensor:
+    """Sum of -log2 p(target) over the masked positions, as a float32
+    tensor on the inputs' device (no host sync inside the loop)."""
+    e = x.shape[1]
+    h, c = model.init_state(cfg, e, device=x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for k in range(n_chunks):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        h_seq, (h, c) = model.forward(params, x[sl], h, c, cfg, cell_fn=cell_fn)
+        logits = model.logits_from_h(params, h_seq, cfg)
+        bits = model.softmax_xent_bits(logits, t[sl])
+        total = total + torch.sum(bits * mask[sl]).to(torch.float32)
+    return total
+
+
+def _build_streams(test_data, eval_batch: int, chunk: int, max_chars):
+    """(x, t, mask, usable, eval_batch, chunk, n_chunks): the held-out bytes
+    as E contiguous streams of ceil-sized spans, the padded tail masked."""
+    data = test_data
+    if max_chars is not None and len(data) > max_chars + 1:
+        data = data[: max_chars + 1]
+    usable = len(data) - 1
+    if usable < 1:
+        raise ValueError("test split too small to evaluate")
+    if usable < eval_batch * chunk:
+        eval_batch = 1
+    span = -(-usable // eval_batch)
+    chunk = min(chunk, span)
+    n_chunks = -(-span // chunk)
+    span_pad = n_chunks * chunk
+    need = (eval_batch - 1) * span + span_pad + 1
+    if need > len(data):
+        data = np.concatenate(
+            [data, np.zeros(need - len(data), dtype=data.dtype)]
+        )
+    starts = np.arange(eval_batch) * span
+    x = np.stack([data[s: s + span_pad] for s in starts], axis=1)
+    t = np.stack([data[s + 1: s + span_pad + 1] for s in starts], axis=1)
+    local = np.arange(span_pad)[:, None]
+    idx = starts[None, :] + local
+    mask = (idx < usable) & (local < span)
+    return x, t, mask, usable, eval_batch, chunk, n_chunks
+
+
+def evaluate_bpc(
+    params: model.LSTMParams,
+    test_data: np.ndarray,
+    cfg: ModelConfig,
+    eval_batch: int = 16,
+    chunk: int = 128,
+    max_chars: Optional[int] = None,
+    cell_fn=None,
+) -> float:
+    """bits/char on the held-out split; the parameters' device runs it.
+    ``max_chars`` caps the scored bytes; ``cell_fn`` is the recurrence
+    backend (``ops.dispatch.select_cell_fn``), used as given. The JAX
+    evaluator re-gates its Pallas kernels for the eval batch's VMEM; the
+    H100 kernels take any batch, so nothing is re-gated here."""
+    x, t, mask, usable, eval_batch, chunk, n_chunks = _build_streams(
+        test_data, eval_batch, chunk, max_chars
+    )
+    dev = params.Why.device
+    total = _score_streams(
+        params,
+        torch.from_numpy(x.astype(np.int32)).to(dev),
+        torch.from_numpy(t.astype(np.int32)).to(dev),
+        torch.from_numpy(mask.astype(np.float32)).to(dev),
+        cfg,
+        chunk,
+        n_chunks,
+        cell_fn,
+    )
+    return float(total) / usable

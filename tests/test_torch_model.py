@@ -1,0 +1,218 @@
+"""The port's model, checkpoint and data modules against the JAX package:
+parameter transfer, the corpus split and eval streams byte for byte, and
+the forward pass of both shipped checkpoints on the same bytes.
+
+Tolerance of the float32 forward: rtol 1e-5 / atol 1e-6 (the JAX package's
+kernel parity tolerance, tests/test_pallas_cell.py:60-87); the two
+frameworks sum the products in another order.
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eigen_lstm_tpu import ModelConfig as JConfig
+from eigen_lstm_tpu.data import corpus as jcorpus
+from eigen_lstm_tpu.models import lstm as jmodel
+from eigen_lstm_tpu.train import checkpoint as jckpt
+from eigen_lstm_tpu.train import evaluator as jeval
+from eigen_lstm_tpu_torch import ModelConfig as TConfig
+from eigen_lstm_tpu_torch.data import corpus as tcorpus
+from eigen_lstm_tpu_torch.models import lstm as tmodel
+from eigen_lstm_tpu_torch.train import checkpoint as tckpt
+from eigen_lstm_tpu_torch.train import evaluator as teval
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(ROOT, "data/cantrbry/bible.txt")
+CKPTS = {
+    "flagship": (os.path.join(ROOT, "artifacts/flagship_drop/ckpt_best.npz"), 1024, 3),
+    "h512": (os.path.join(ROOT, "artifacts/bible_h512/ckpt.npz"), 512, 1),
+}
+FP32 = dict(rtol=1e-5, atol=1e-6)
+
+
+def _jax_flat(params):
+    return jckpt._flatten(params, "params")
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_params_from_numpy_round_trip(tie):
+    jcfg = JConfig(hidden=64, num_layers=2, vocab=32, init_std=0.3,
+                   tie_embeddings=tie)
+    tcfg = TConfig(hidden=64, num_layers=2, vocab=32, tie_embeddings=tie)
+    flat = _jax_flat(jmodel.init_params(jcfg, jax.random.PRNGKey(3)))
+    params = tckpt.params_from_numpy(flat, tcfg, "cpu")
+    got = {k: v.numpy() for k, v in params.named_tensors()}
+    assert sorted(got) == sorted(flat)
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(got[key], arr)
+
+
+def test_params_from_numpy_refuses_bad_checkpoints():
+    cfg = TConfig(hidden=64, num_layers=1, vocab=32)
+    flat = _jax_flat(jmodel.init_params(JConfig(hidden=64, vocab=32)))
+    missing = {k: v for k, v in flat.items() if k != "params.by"}
+    with pytest.raises(KeyError):
+        tckpt.params_from_numpy(missing, cfg, "cpu")
+    with pytest.raises(ValueError):
+        tckpt.params_from_numpy(flat, TConfig(hidden=32, vocab=32), "cpu")
+
+
+def test_init_params_shapes_and_forget_bias():
+    cfg = TConfig(hidden=32, num_layers=2, vocab=16, forget_bias=1.0)
+    p = tmodel.init_params(cfg, device="cpu")
+    j = jmodel.init_params(JConfig(hidden=32, num_layers=2, vocab=16))
+    for (kt, vt), (kj, vj) in zip(p.named_tensors(), _jax_flat(j).items()):
+        assert kt == kj and tuple(vt.shape) == vj.shape
+    np.testing.assert_array_equal(p.layers[1].b.numpy(), np.asarray(j.layers[1].b))
+    h, c = tmodel.init_state(cfg, 3, device="cpu")
+    assert h.shape == c.shape == (2, 3, 32) and float(h.abs().sum()) == 0.0
+
+
+def test_model_config_checks_and_dtypes():
+    with pytest.raises(ValueError):
+        TConfig(cell_variant="bogus")
+    with pytest.raises(ValueError):
+        TConfig(dropout=1.0)
+    cfg = TConfig(compute_dtype="bfloat16")
+    assert cfg.cdtype == torch.bfloat16 and cfg.pdtype == torch.float32
+    assert cfg.adtype == torch.float32
+    assert TConfig(param_dtype="float64").adtype == torch.float64
+    assert ([f.name for f in dataclasses.fields(TConfig)]
+            == [f.name for f in dataclasses.fields(JConfig)])
+    assert ([f.default for f in dataclasses.fields(TConfig)]
+            == [f.default for f in dataclasses.fields(JConfig)])
+
+
+@pytest.mark.parametrize("percent", [0.95, 0.5, 0.999])
+def test_rawread_and_split_byte_exact(percent):
+    jd = jcorpus.rawread(CORPUS)
+    td = tcorpus.rawread(CORPUS)
+    np.testing.assert_array_equal(td, jd)
+    for a, b in zip(tcorpus.split(td, percent), jcorpus.split(jd, percent)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,eval_batch,chunk,max_chars", [
+    (202370, 16, 128, 4096), (202370, 16, 128, 100000), (300, 16, 128, None),
+    (5000, 7, 33, 4000), (2, 16, 128, None),
+])
+def test_build_streams_byte_exact(n, eval_batch, chunk, max_chars):
+    data = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    got = teval._build_streams(data, eval_batch, chunk, max_chars)
+    want = jeval._build_streams(data, eval_batch, chunk, max_chars)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_evaluate_bpc_uses_the_given_cell_fn():
+    """The evaluator never swaps the cell_fn it was given for the model's
+    own loop, not even at a hidden width the kernels refuse (100 % 32 != 0):
+    on the card such a width must reach the kernel's wrapper and raise."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+
+    cfg = TConfig(hidden=100, vocab=256, init_std=0.3)
+    p = tmodel.init_params(cfg, device="cpu")
+    calls = []
+
+    def embed(*args, **kw):
+        calls.append("embed")
+        return cuda_cell.embed_layer0_plain(*args, **kw)
+
+    cell_fn = lambda *a, **kw: cuda_cell.scan_layer_plain(*a, **kw)
+    cell_fn.embed_layer0 = embed
+    data = np.random.default_rng(3).integers(0, 256, 300).astype(np.uint8)
+    got = teval.evaluate_bpc(p, data, cfg, eval_batch=2, chunk=16,
+                             cell_fn=cell_fn)
+    want = teval.evaluate_bpc(p, data, cfg, eval_batch=2, chunk=16)
+    assert calls, "the evaluator did not call the cell_fn it was given"
+    np.testing.assert_allclose(got, want, rtol=1e-5)   # fp32, as FP32 above
+
+
+def test_forward_raises_for_training_options():
+    cfg = TConfig(hidden=32, vocab=16, dropout=0.5)
+    p = tmodel.init_params(cfg, device="cpu")
+    h, c = tmodel.init_state(cfg, 2, device="cpu")
+    ids = torch.zeros(4, 2, dtype=torch.int64)
+    with pytest.raises(NotImplementedError):
+        tmodel.forward(p, ids, h, c, cfg, dropout_key=1)
+    with pytest.raises(NotImplementedError):
+        tmodel.forward(p, ids, h, c, TConfig(hidden=32, vocab=16, scan_chunk=2))
+
+
+@pytest.fixture(scope="module")
+def window():
+    data = jcorpus.rawread(CORPUS)
+    rng = np.random.default_rng(0)
+    starts = rng.integers(0, len(data) - 40, 4)
+    return np.stack([data[s:s + 24] for s in starts], axis=1).astype(np.int32)
+
+
+# float64: the same algorithm in both frameworks, so only rounding in the
+# last bits differs. float32 on a trained 3-layer checkpoint: the two differ
+# by 7e-6 on h here, and the JAX package's float32 forward alone moves by up
+# to 2.2e-5 with XLA's float64 mode switched on (its distance from its own
+# float64 forward; the port's is 3.5e-6), so h and c are held at atol 5e-5
+# and the per-byte bits, which sum 1024-wide products, at atol 2e-4.
+CKPT_TOL = {
+    "float64": dict(state=dict(rtol=1e-10, atol=1e-12), out=dict(rtol=1e-10, atol=1e-10)),
+    "float32": dict(state=dict(rtol=1e-5, atol=5e-5), out=dict(rtol=1e-4, atol=2e-4)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["flagship", "h512"])
+def test_forward_matches_jax_on_checkpoint(name, dtype, window, request):
+    if dtype == "float64":
+        request.getfixturevalue("x64")
+    path, hidden, layers = CKPTS[name]
+    kw = dict(hidden=hidden, num_layers=layers, param_dtype=dtype,
+              compute_dtype=dtype)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    tol = CKPT_TOL[dtype]
+    jp = jckpt.load_params(path, jmodel.init_params(jcfg))
+    tp = tckpt.load_params(path, tcfg, "cpu")
+    b = window.shape[1]
+    rng = np.random.default_rng(1)
+    h0 = (rng.normal(size=(layers, b, hidden)) * 0.1).astype(dtype)
+    c0 = (rng.normal(size=(layers, b, hidden)) * 0.1).astype(dtype)
+    hj, (hLj, cLj) = jmodel.forward(jp, jnp.asarray(window), jnp.asarray(h0),
+                                    jnp.asarray(c0), jcfg)
+    ht, (hLt, cLt) = tmodel.forward(tp, torch.from_numpy(window),
+                                    torch.from_numpy(h0), torch.from_numpy(c0), tcfg)
+    for got, want in ((ht, hj), (hLt, hLj), (cLt, cLj)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol["state"])
+    lj = jmodel.logits_from_h(jp, hj, jcfg)
+    lt = tmodel.logits_from_h(tp, ht, tcfg)
+    tgt = np.roll(window, -1, axis=0)
+    bj = jmodel.softmax_xent_bits(lj, jnp.asarray(tgt))
+    bt = tmodel.softmax_xent_bits(lt, torch.from_numpy(tgt))
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), **tol["out"])
+    # one more step from the carried state
+    ids = window[0]
+    sj, (h1j, c1j) = jmodel.forward_step(jp, jnp.asarray(ids), hLj, cLj, jcfg)
+    st, (h1t, c1t) = tmodel.forward_step(tp, torch.from_numpy(ids), hLt, cLt, tcfg)
+    np.testing.assert_allclose(h1t.numpy(), np.asarray(h1j), **tol["state"])
+    np.testing.assert_allclose(c1t.numpy(), np.asarray(c1j), **tol["state"])
+    np.testing.assert_array_equal(st.argmax(-1).numpy(), np.asarray(sj).argmax(-1))
+
+
+@pytest.mark.parametrize("mode", ["auto", "onehot"])
+def test_forward_tied_and_onehot_match_jax(mode):
+    jcfg = JConfig(hidden=64, num_layers=2, vocab=32, init_std=0.3,
+                   tie_embeddings=True, embedding_mode=mode)
+    tcfg = TConfig(hidden=64, num_layers=2, vocab=32, tie_embeddings=True,
+                   embedding_mode=mode)
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(5))
+    tp = tckpt.params_from_numpy(_jax_flat(jp), tcfg, "cpu")
+    ids = np.random.default_rng(6).integers(0, 32, (10, 3)).astype(np.int32)
+    h0 = np.zeros((2, 3, 64), np.float32)
+    hj, _ = jmodel.forward(jp, jnp.asarray(ids), jnp.asarray(h0), jnp.asarray(h0), jcfg)
+    ht, _ = tmodel.forward(tp, torch.from_numpy(ids), torch.from_numpy(h0),
+                           torch.from_numpy(h0), tcfg)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **FP32)
