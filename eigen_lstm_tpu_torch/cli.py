@@ -1,12 +1,19 @@
-"""Command line of the PyTorch port: ``eval`` and ``sample`` of a checkpoint,
-with the JAX CLI's model and data flags (``eigen_lstm_tpu/cli.py``).
+"""Command line of the PyTorch port, with the JAX CLI's commands and flags
+(``eigen_lstm_tpu/cli.py``) for what the port runs.
 
 Usage:
-  python -m eigen_lstm_tpu_torch.cli eval   --ckpt ckpt.npz --data PATH [--device cuda]
+  python -m eigen_lstm_tpu_torch.cli train  --data PATH [--hidden 512 --batch 128 ...]
+  python -m eigen_lstm_tpu_torch.cli bench  --data PATH [--hidden 512 ...]
+  python -m eigen_lstm_tpu_torch.cli eval   --ckpt ckpt.npz --data PATH
   python -m eigen_lstm_tpu_torch.cli sample --ckpt ckpt.npz --data PATH [--length 1000]
 
-``eval`` prints ``{"test_bpc": ...}`` as the JAX CLI does. ``train`` and
-``bench`` are not ported yet and exit with a message saying so.
+Every command runs on the card (``--device cuda``) unless ``--device cpu``
+asks for the CPU. ``eval`` prints ``{"test_bpc": ...}`` and ``bench`` one
+JSON line, as the JAX CLI does. ``train --profile DIR`` traces five
+supersteps after a warm-up one with ``torch.profiler`` and writes the trace
+and a table of device time by kernel into DIR. The parallel flags,
+``--gradcheck`` and ``--crosscheck`` are not ported yet, nor ``bench
+--profile``.
 """
 
 from __future__ import annotations
@@ -15,67 +22,218 @@ import argparse
 import json
 import sys
 
-NOT_PORTED = ("train", "bench")
 
-
-def _add_args(p: argparse.ArgumentParser):
+def _add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--hidden", type=int, default=512)
     p.add_argument("--layers", type=int, default=1)
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--cell", choices=["reference", "standard"], default="reference")
+    p.add_argument("--loss-mode", choices=["last", "all"], default="all")
+    p.add_argument("--loss-base", choices=["e", "2"], default="e")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                    help="matmul compute dtype (params stay fp32)")
     p.add_argument("--residual-dtype", choices=["auto", "float32", "bfloat16"],
                    default="auto",
                    help="storage dtype of the h/c/g sequences. auto: bfloat16 "
-                        "under --dtype bfloat16 when hidden >= 2048, as the "
-                        "JAX CLI resolves it at its default window")
+                        "under --dtype bfloat16 when hidden >= 2048 or "
+                        "seq >= 512, as the JAX CLI resolves it")
+    p.add_argument("--forget-bias", type=float, default=1.0)
+    p.add_argument("--embedding", choices=["auto", "gather", "onehot"],
+                   default="auto")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data", required=True, help="byte corpus path")
-    p.add_argument("--train-percent", type=float, default=0.95)
-    p.add_argument("--ckpt", required=True)
+    p.add_argument("--backend", choices=["auto", "cuda", "plain"],
+                   default="auto",
+                   help="auto: the kernels on the card, their plain "
+                        "versions on the CPU")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="eigen_lstm_tpu_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p_eval = sub.add_parser("eval", help="bits/char on the held-out split")
-    _add_args(p_eval)
-    p_eval.add_argument("--eval-chars", type=int, default=100000)
-    p_eval.set_defaults(fn=cmd_eval)
-    p_sample = sub.add_parser("sample", help="generate text from a checkpoint")
-    _add_args(p_sample)
-    p_sample.add_argument("--length", type=int, default=1000)
-    p_sample.add_argument("--temperature", type=float, default=1.0)
-    p_sample.set_defaults(fn=cmd_sample)
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not ported yet", add_help=False)
-    return ap
+def _add_data_args(p: argparse.ArgumentParser, train: bool):
+    p.add_argument("--data", required=True, help="byte corpus path")
+    p.add_argument("--train-percent", type=float, default=0.95)
+    if not train:
+        return
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--seq", type=int, default=100)
+    p.add_argument("--stride", type=int, default=None,
+                   help="cursor stride (default: seq, segment mode)")
+    p.add_argument("--no-carry", action="store_true",
+                   help="reset h/c each window instead of carrying")
+    p.add_argument("--reset-std", type=float, default=0.0)
+    p.add_argument("--stream-data", dest="stream_data", action="store_true",
+                   default=True,
+                   help="keep the corpus on the host and feed windows per "
+                        "superstep (the default)")
+    p.add_argument("--resident-data", dest="stream_data", action="store_false",
+                   help="copy the corpus to the device and gather windows there")
+
+
+def _add_train_args(p: argparse.ArgumentParser):
+    p.add_argument("--lr", type=float, default=None,
+                   help="default: 0.1 below hidden 512, 0.02 for one layer "
+                        "below 1024, else 0.005 (the JAX CLI's ladder)")
+    p.add_argument("--adagrad-eps", type=float, default=1e-10)
+    p.add_argument("--clip-norm", type=float, default=None)
+    p.add_argument("--warmup", type=int, default=None,
+                   help="lr = 0 steps while Adagrad's m accumulates; default "
+                        "min(50*seq, steps//10)")
+    p.add_argument("--lr-cycle-steps", type=int, default=0)
+    p.add_argument("--lr-cycle-min-frac", type=float, default=0.1)
+    p.add_argument("--steps", type=int, default=10000)
+    p.add_argument("--epochs", type=float, default=None)
+    p.add_argument("--superstep", type=int, default=50)
+    p.add_argument("--log-every", type=int, default=500)
+    p.add_argument("--eval-every-s", type=float, default=60.0)
+    p.add_argument("--eval-chars", type=int, default=100000)
+    p.add_argument("--sample-chars", type=int, default=1000)
+    p.add_argument("--ckpt-dir", type=str, default=None)
+    p.add_argument("--results", type=str, default=None,
+                   help="JSONL results-table path")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint (of either package) to resume")
+    p.add_argument("--keep-snapshots", action="store_true")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="train: trace five supersteps with torch.profiler "
+                        "into DIR (bench: not ported yet)")
 
 
 def _configs(args):
-    from .config import DataConfig, ModelConfig
+    """(ModelConfig, DataConfig, TrainConfig) from the flags, with the JAX
+    CLI's resolution of the residual type, lr, warm-up and seed."""
+    from .config import DataConfig, ModelConfig, TrainConfig
 
+    seq = getattr(args, "seq", 100)
     residual = args.residual_dtype
     if residual == "auto":
-        residual = (
-            "bfloat16" if args.dtype == "bfloat16" and args.hidden >= 2048
-            else "float32"
-        )
+        residual = ("bfloat16" if args.dtype == "bfloat16"
+                    and (args.hidden >= 2048 or seq >= 512) else "float32")
     mcfg = ModelConfig(
         vocab=args.vocab, hidden=args.hidden, num_layers=args.layers,
-        cell_variant=args.cell, compute_dtype=args.dtype,
-        residual_dtype=residual, seed=args.seed,
+        cell_variant=args.cell, loss_mode=args.loss_mode,
+        loss_base=args.loss_base, compute_dtype=args.dtype,
+        residual_dtype=residual, forget_bias=args.forget_bias,
+        embedding_mode=args.embedding, seed=args.seed,
     )
-    return mcfg, DataConfig(path=args.data, train_percent=args.train_percent)
+    dcfg = DataConfig(
+        path=args.data, train_percent=args.train_percent,
+        batch=getattr(args, "batch", 128), seq=seq,
+        stride=getattr(args, "stride", None),
+        carry_state=not getattr(args, "no_carry", False),
+        reset_std=getattr(args, "reset_std", 0.0),
+    )
+    lr = getattr(args, "lr", None)
+    if lr is None:
+        lr = (0.1 if args.hidden < 512
+              else 0.02 if args.hidden < 1024 and args.layers == 1 else 0.005)
+    steps = getattr(args, "steps", 10000)
+    warmup = getattr(args, "warmup", None)
+    if warmup is None:
+        warmup = (50 * seq if getattr(args, "epochs", None)
+                  else min(50 * seq, steps // 10))
+    tcfg = TrainConfig(
+        lr=lr, adagrad_eps=getattr(args, "adagrad_eps", 1e-10),
+        clip_norm=getattr(args, "clip_norm", None), warmup_steps=warmup,
+        lr_cycle_steps=getattr(args, "lr_cycle_steps", 0),
+        lr_cycle_min_frac=getattr(args, "lr_cycle_min_frac", 0.1),
+        steps=steps, superstep=getattr(args, "superstep", 50),
+        log_every=getattr(args, "log_every", 500),
+        eval_every_s=getattr(args, "eval_every_s", 60.0),
+        eval_chars=getattr(args, "eval_chars", 100000),
+        sample_chars=getattr(args, "sample_chars", 1000),
+        checkpoint_dir=getattr(args, "ckpt_dir", None),
+        keep_snapshots=getattr(args, "keep_snapshots", False),
+        seed=args.seed + 1,
+    )
+    return mcfg, dcfg, tcfg
 
 
 def _load(args):
     from .train.checkpoint import load_params
 
-    mcfg, dcfg = _configs(args)
+    mcfg, dcfg, _ = _configs(args)
     return mcfg, dcfg, load_params(args.ckpt, mcfg, args.device)
+
+
+def _make_trainer(args):
+    import numpy as np
+
+    from .data import corpus as corpus_mod
+    from .data import streaming as streaming_mod
+    from .ops.dispatch import select_cell_fn
+    from .train.trainer import Trainer
+
+    mcfg, dcfg, tcfg = _configs(args)
+    if args.stream_data:
+        train, test = corpus_mod.split(
+            streaming_mod.load_corpus_mmap(dcfg.path), dcfg.train_percent)
+        test = np.asarray(test)
+    else:
+        train, test = corpus_mod.load_dataset(dcfg)
+    cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch, args.device)
+    trainer = Trainer(mcfg, dcfg, tcfg, train, test, cell_fn=cell_fn,
+                      results_path=args.results, streaming=args.stream_data,
+                      device=args.device)
+    if args.resume:
+        trainer.restore(args.resume)
+        print(f"resumed from {args.resume} at step {trainer.step}", flush=True)
+    return trainer
+
+
+def profile_supersteps(trainer, out_dir: str, supersteps: int = 5) -> str:
+    """One warm-up superstep, then ``supersteps`` under ``torch.profiler``
+    (the card's kernels too when the trainer is on it). Writes
+    ``trace.json`` and ``kernels.txt`` (time by kernel) into ``out_dir``
+    and returns the table."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = trainer.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    trainer.run(steps=trainer.tcfg.superstep, quiet=True)
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        trainer.run(steps=supersteps * trainer.tcfg.superstep, quiet=True)
+        sync()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    key = "self_device_time_total" if on_card else "self_cpu_time_total"
+    table = prof.key_averages().table(sort_by=key, row_limit=30)
+    with open(os.path.join(out_dir, "kernels.txt"), "w") as f:
+        f.write(table)
+    return table
+
+
+def cmd_train(args):
+    trainer = _make_trainer(args)
+    if args.profile:
+        print(profile_supersteps(trainer, args.profile), flush=True)
+        print(f"profile trace written to {args.profile}", flush=True)
+    steps = args.steps
+    if args.epochs:
+        chars_per_step = trainer.dcfg.batch * trainer.dcfg.effective_stride
+        steps = max(1, int(args.epochs * len(trainer.train_np) / chars_per_step))
+        print(f"--epochs {args.epochs} -> {steps} steps", flush=True)
+    trainer.run(steps)
+    if trainer.test_np is not None and len(trainer.test_np) > 1:
+        print(f"final test bpc: {trainer.evaluate():.4f}", flush=True)
+    if args.ckpt_dir:
+        trainer.save(f"{args.ckpt_dir}/ckpt.npz")
+        print(f"saved {args.ckpt_dir}/ckpt.npz", flush=True)
+    if args.sample_chars:
+        print("--- sample ---", flush=True)
+        print(trainer.sample(args.sample_chars), flush=True)
+
+
+def cmd_bench(args):
+    from .bench import run_benchmark
+
+    if args.profile:
+        raise SystemExit("eigen_lstm_tpu_torch: bench --profile is not "
+                         "ported yet; use train --profile")
+    print(json.dumps(run_benchmark(args)), flush=True)
 
 
 def cmd_eval(args):
@@ -86,7 +244,7 @@ def cmd_eval(args):
     mcfg, dcfg, params = _load(args)
     _, test = split(rawread(dcfg.path), dcfg.train_percent)
     eval_batch = 16
-    cell_fn = select_cell_fn("auto", mcfg, eval_batch, args.device)
+    cell_fn = select_cell_fn(args.backend, mcfg, eval_batch, args.device)
     bpc = evaluate_bpc(params, test, mcfg, eval_batch=eval_batch,
                        max_chars=args.eval_chars, cell_fn=cell_fn)
     print(json.dumps({"test_bpc": bpc}), flush=True)
@@ -103,14 +261,37 @@ def cmd_sample(args):
                       temperature=args.temperature), flush=True)
 
 
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="eigen_lstm_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p_train = sub.add_parser("train", help="train a char-LSTM LM")
+    p_bench = sub.add_parser("bench", help="training throughput benchmark")
+    for p in (p_train, p_bench):
+        _add_model_args(p)
+        _add_data_args(p, train=True)
+        _add_train_args(p)
+    p_train.set_defaults(fn=cmd_train)
+    p_bench.add_argument("--bench-steps", type=int, default=200)
+    p_bench.add_argument("--warmup-steps", type=int, default=20)
+    p_bench.set_defaults(fn=cmd_bench)
+    p_eval = sub.add_parser("eval", help="bits/char on the held-out split")
+    _add_model_args(p_eval)
+    _add_data_args(p_eval, train=False)
+    p_eval.add_argument("--ckpt", required=True)
+    p_eval.add_argument("--eval-chars", type=int, default=100000)
+    p_eval.set_defaults(fn=cmd_eval)
+    p_sample = sub.add_parser("sample", help="generate text from a checkpoint")
+    _add_model_args(p_sample)
+    _add_data_args(p_sample, train=False)
+    p_sample.add_argument("--ckpt", required=True)
+    p_sample.add_argument("--length", type=int, default=1000)
+    p_sample.add_argument("--temperature", type=float, default=1.0)
+    p_sample.set_defaults(fn=cmd_sample)
+    return ap
+
+
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        raise SystemExit(
-            f"eigen_lstm_tpu_torch: '{argv[0]}' is not ported yet; "
-            f"use python -m eigen_lstm_tpu.cli {argv[0]}"
-        )
-    args = build_parser().parse_args(argv)
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     args.fn(args)
 
 

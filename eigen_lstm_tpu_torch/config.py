@@ -2,14 +2,17 @@
 ``ModelConfig`` (``eigen_lstm_tpu/config.py``) so that one checkpoint and one
 set of flags describe the same model in both packages.
 
-Only what the serving path (held-out eval, sampling) reads is here:
-``ModelConfig`` in full and the split fraction of ``DataConfig``. The
-training configs come with the training slice.
+``ModelConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX
+package's fields with the same defaults and meanings. ``MeshConfig`` and
+the parallel paths are not ported yet; the ``TrainConfig`` fields that only
+they or the live checks read are accepted, and the trainer refuses the
+checks when they are set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -84,8 +87,47 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The part of the JAX ``DataConfig`` that eval reads: the corpus and
-    its leading-percentage train/test split."""
+    """Corpus and batching: B stream cursors over the corpus, windows of S
+    bytes advanced by ``stride`` (None: S, segment mode with the state
+    carried), EOF wrap with the stream's state reset to N(0, reset_std)."""
 
     path: str = "data/alice29.txt"
     train_percent: float = 0.95
+    batch: int = 128
+    seq: int = 100
+    stride: Optional[int] = None
+    carry_state: bool = True
+    reset_std: float = 0.0
+
+    @property
+    def effective_stride(self) -> int:
+        return self.seq if self.stride is None else self.stride
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization and schedule: Adagrad, optional global-norm clipping,
+    lr = 0 for ``warmup_steps`` (while the accumulators still fill), an
+    optional cyclic decay after it, the non-finite skip, and the host
+    cadence of logs, evals, samples and checkpoints."""
+
+    lr: float = 0.1
+    adagrad_eps: float = 1e-10
+    clip_norm: Optional[float] = None
+    warmup_steps: int = 0
+    lr_cycle_steps: int = 0
+    lr_cycle_min_frac: float = 0.1
+    skip_nonfinite: bool = True
+    steps: int = 10_000
+    log_every: int = 100
+    eval_every_s: float = 60.0
+    eval_chars: int = 100_000
+    sample_chars: int = 1000
+    checkpoint_dir: Optional[str] = None
+    superstep: int = 50
+    pp_chunks: int = 4               # pipeline parallelism: not ported yet
+    crosscheck_every: Optional[int] = None   # not ported yet
+    gradcheck_every: Optional[int] = None    # not ported yet
+    gradcheck_samples: int = 20
+    keep_snapshots: bool = False
+    seed: int = 1234

@@ -1,0 +1,202 @@
+// Helpers shared by the port's kernels: type conversion and rounding to the
+// compute type, the gate nonlinearity, and the two fixed-order reductions
+// that the backward kernels use for their weight gradients:
+//
+//   atb_gemm: C (I, J) = sum_r round(A[r, :])^T round(B[r, :]), a hand-written
+//     tiled product on CUDA cores, the reduction over r split across blocks
+//     into partial slabs that a second launch adds in a fixed order;
+//   colsum:   out (J,) = sum_r X[r, :], in 128-row chunks and then over the
+//     chunks, both in a fixed order.
+//
+// Both are deterministic: the same inputs give the same bits on every run.
+// Everything here has internal linkage (an unnamed namespace), so each
+// translation unit that includes it gets its own copy of every kernel.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch and JAX
+}
+
+// x rounded to the compute type CT and widened back to fp32.
+template <typename CT> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<CT>(x));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// ---------------------------------------------------------------------------
+// atb_gemm. Row r of A is A0[r] for r < R0 and A1[r - R0] after (the layer-0
+// backward's h_{t-1}: h0 for t = 0, then h_seq); both have I columns. B is
+// (R, J) fp32. Operands are rounded to CT as they are staged, products and
+// sums are fp32. Block tile 128 x 128, r tile 8, 256 threads each owning an
+// 8 x 8 patch (two 4-wide strips in each direction, read as float4).
+// grid = (ceil(J/128), ceil(I/128), splits); split z sums its r range into
+// out + z*I*J (the final C when splits == 1).
+constexpr int kGT = 128;  // output tile edge
+constexpr int kGR = 8;    // r tile
+
+template <typename CT, typename AT>
+__global__ void __launch_bounds__(256)
+atb_gemm(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
+         const float* __restrict__ Bm, float* __restrict__ out, int R, int I,
+         int J, int r_chunk) {
+  __shared__ __align__(16) float As[kGR][kGT];
+  __shared__ __align__(16) float Bs[kGR][kGT];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
+  const int r_begin = blockIdx.z * r_chunk;
+  const int r_end = min(R, r_begin + r_chunk);
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+
+  // staging: thread loads 4 consecutive columns of one r row of each tile
+  const int lr = tid / 32, lc = (tid % 32) * 4;
+  for (int r0 = r_begin; r0 < r_end; r0 += kGR) {
+    const int r = r0 + lr;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + lc + q, j = j0 + lc + q;
+      float av = 0.0f, bv = 0.0f;
+      if (r < r_end && i < I)
+        av = r < R0 ? A0[(size_t)r * I + i] : to_f32(A1[(size_t)(r - R0) * I + i]);
+      if (r < r_end && j < J) bv = Bm[(size_t)r * J + j];
+      As[lr][lc + q] = round_to<CT>(av);
+      Bs[lr][lc + q] = round_to<CT>(bv);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kGR; ++rr) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[rr][ty * 4 + 64]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4 + 64]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    }
+    __syncthreads();
+  }
+  float* C = out + (size_t)blockIdx.z * I * J;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = i0 + ty * 4 + (a % 4) + (a / 4) * 64;
+    if (i >= I) continue;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int j = j0 + tx * 4 + (b % 4) + (b / 4) * 64;
+      if (j < J) C[(size_t)i * J + j] = acc[a][b];
+    }
+  }
+}
+
+// out[e] = sum_z part[z*n + e] for z = 0..splits-1 in order.
+__global__ void sum_slabs(const float* __restrict__ part, float* __restrict__ out,
+                          int splits, size_t n) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.0f;
+  for (int z = 0; z < splits; ++z) s += part[(size_t)z * n + e];
+  out[e] = s;
+}
+
+// C = A^T B as above on `stream`: one launch when the tiles alone fill the
+// card, else a split over r into `work` (splits * I * J floats) and one
+// fixed-order sum. Adds its launches to *launches; returns the first error.
+constexpr int kMaxSplits = 32;
+
+inline int atb_splits(int R, int I, int J) {
+  const int tiles = ((I + kGT - 1) / kGT) * ((J + kGT - 1) / kGT);
+  int splits = (264 + tiles - 1) / tiles;  // about two blocks per SM
+  splits = splits < 1 ? 1 : (splits > kMaxSplits ? kMaxSplits : splits);
+  const int max_by_r = (R + 63) / 64;      // at least 64 rows a split
+  return splits > max_by_r ? (max_by_r < 1 ? 1 : max_by_r) : splits;
+}
+
+template <typename CT, typename AT>
+int run_atb(const float* A0, const AT* A1, int R0, const float* Bm, float* C,
+            float* work, int R, int I, int J, cudaStream_t stream,
+            int* launches) {
+  const int splits = atb_splits(R, I, J);
+  int r_chunk = (R + splits - 1) / splits;
+  r_chunk = (r_chunk + kGR - 1) / kGR * kGR;
+  const dim3 grid((J + kGT - 1) / kGT, (I + kGT - 1) / kGT, splits);
+  atb_gemm<CT, AT><<<grid, 256, 0, stream>>>(A0, A1, R0, Bm,
+                                             splits == 1 ? C : work, R, I, J,
+                                             r_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  if (splits > 1) {
+    const size_t n = (size_t)I * J;
+    sum_slabs<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(work, C, splits, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return 0;
+}
+
+// Scratch floats run_atb needs at (R, I, J).
+inline size_t atb_work_floats(int R, int I, int J) {
+  const int splits = atb_splits(R, I, J);
+  return splits > 1 ? (size_t)splits * I * J : 0;
+}
+
+// ---------------------------------------------------------------------------
+// colsum: part[c, j] = sum of X rows 128c .. 128c+127 in order; then
+// out[j] = sum_c part[c, j] in order. grid = (ceil(J/256), chunks).
+constexpr int kColChunk = 128;
+
+__global__ void colsum_chunks(const float* __restrict__ X, float* __restrict__ part,
+                              int R, int J) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= J) return;
+  const int r0 = blockIdx.y * kColChunk, r1 = min(R, r0 + kColChunk);
+  float s = 0.0f;
+  for (int r = r0; r < r1; ++r) s += X[(size_t)r * J + j];
+  part[(size_t)blockIdx.y * J + j] = s;
+}
+
+inline int colsum_chunks_of(int R) { return (R + kColChunk - 1) / kColChunk; }
+
+// out = column sums of X (R, J) through `work` (chunks * J floats).
+inline int run_colsum(const float* X, float* out, float* work, int R, int J,
+                      cudaStream_t stream, int* launches) {
+  const int chunks = colsum_chunks_of(R);
+  colsum_chunks<<<dim3((J + 255) / 256, chunks), 256, 0, stream>>>(X, work, R, J);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  sum_slabs<<<(J + 255) / 256, 256, 0, stream>>>(work, out, chunks, (size_t)J);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
+}
+
+}  // namespace

@@ -1,0 +1,253 @@
+// Layer-0 LSTM backward for Hopper (sm_90a), bound from Python through
+// ctypes (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers.
+//
+// Replaces eigen_lstm_tpu/ops/pallas_cell.py:_bwd_embed_fused_kernel (the
+// reverse-time backward of the fused-embedding layer 0, with its gate
+// backward _gate_bwd). For t = S-1 .. 0, with dh_{S-1} carried from dhT and
+// dc from dcT:
+//   dh_total = dh_seq[t] + dh_rec,   dh_rec = round(dg_{t+1}) @ U^T (fp32)
+//   dg_t     = gate backward of (g_t, c_t, c_{t-1}, dh_total, dc) in fp32
+//   dc       = dc_raw * f
+// then dh0 = round(dg_0) @ U^T, dc0 = dc, and the weight gradients
+//   dU = sum_t round(h_{t-1})^T round(dg_t)    (h_{-1} = h0)
+//   dW[v] = sum_{(t,b): ids = v} round(dg_t[b])  (the one-hot product)
+//   db = sum_{t,b} dg_t[b]                      (unrounded fp32 dg)
+// round() is the compute type (bf16 or fp32); every sum is fp32.
+//
+// What bounds it on the H100: a window at the bench shapes (S = 100,
+// B = 128, N = 512, M = 256) is 2*S*B*4N*N flops for dh_rec plus as many
+// for dU (53.7 GFLOP; the one-hot product is a gather-add and counted as
+// no flops), against ~190 MB the function must move (the fp32 g, c and h
+// residuals are 157 MB of it, then the dh_seq cotangent, U and dWU). In
+// bf16 the two bounds are close, 58 us for the bytes and 54 us for the
+// operations at the tensor-core peak; in fp32 the operations bound, at
+// ~800 us (bound() in chip_smoke.py). This first design runs on CUDA
+// cores, in fp32 FMAs, far above both.
+//
+// Design. The TPU kernel keeps dWU (3 MB fp32) resident in VMEM and
+// accumulates it step by step; a Hopper block has 227 KB, so the weight
+// gradients move out of the recurrence instead:
+//   * lstm_bwd_step, one launch per reverse timestep, mirrors the forward
+//     kernel's ownership: a block owns 32 hidden units (one warp's lanes)
+//     and 4 batch rows, its 8 warps split the 4N-long reduction of
+//     dg_{t+1} @ U^T (read as U^T, (4N, N), so the lanes read coalesced),
+//     and the gate backward of all four gate columns of its units runs in
+//     registers. dg_t goes to an (S, B, 4N) fp32 scratch that the next
+//     launch reads whole: nothing a block reads is written by its own
+//     launch. dc is updated in place: each (b, j) belongs to one thread.
+//   * after the loop, one more reduction launch gives dh0, then three
+//     hand-written reductions over the S*B rows of the dg scratch:
+//     atb_gemm for dU, embed_grad for dW (for each byte v, the rows whose
+//     id is v, found by a ballot compaction, summed in row order: a
+//     deterministic segmented sum, no atomics) and colsum for db.
+// Every sum has a fixed order, so the kernel is deterministic.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kLanes = 32;  // hidden units per block
+constexpr int kKS = 8;      // warps splitting the k reduction
+constexpr int kBT = 4;      // batch rows per block
+constexpr int kKT = 256;    // k tile of dg_{t+1} staged in shared memory
+
+// One reverse timestep, or (dh_seq_t == null) the final dh0 reduction.
+// grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+lstm_bwd_step(const CT* __restrict__ UT,          // (4N, N) = U^T
+              const float* __restrict__ dg_next,  // (B, 4N) dg_{t+1}, or null
+              const float* __restrict__ dh_in,    // (B, N) dhT, when no dg_next
+              const float* __restrict__ dh_seq_t, // (B, N), null: final mode
+              const RT* __restrict__ g_t,         // (B, 4N) activated gates
+              const RT* __restrict__ c_t,         // (B, N) carried cell
+              const RT* __restrict__ c_prev_t,    // (B, N) c_{t-1}, null at t=0
+              const float* __restrict__ c0,       // (B, N)
+              float* __restrict__ dc,             // (B, N) in place
+              float* __restrict__ dg_t,           // (B, 4N) out
+              float* __restrict__ dh_out,         // (B, N) final mode out
+              int B, int N, int standard) {
+  __shared__ float ds[kBT][kKT];
+  __shared__ float red[kKS][kBT][kLanes];
+
+  const int lane = threadIdx.x;
+  const int w = threadIdx.y;
+  const int j = blockIdx.x * kLanes + lane;
+  const int b0 = blockIdx.y * kBT;
+  const int n4 = 4 * N;
+
+  if (dg_next != nullptr) {
+    float acc[kBT];
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) acc[r] = 0.0f;
+    for (int k0 = 0; k0 < n4; k0 += kKT) {
+      const int klen = min(kKT, n4 - k0);
+      __syncthreads();
+      for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
+        const int r = e / klen, kk = e % klen;
+        const int b = b0 + r;
+        ds[r][kk] = b < B ? round_to<CT>(dg_next[(size_t)b * n4 + k0 + kk]) : 0.0f;
+      }
+      __syncthreads();
+      for (int kk = w; kk < klen; kk += kKS) {
+        const float u = to_f32(UT[(size_t)(k0 + kk) * N + j]);
+#pragma unroll
+        for (int r = 0; r < kBT; ++r) acc[r] = fmaf(ds[r][kk], u, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) red[w][r][lane] = acc[r];
+    __syncthreads();
+  }
+
+  // epilogue: warp r < kBT finishes batch row b0 + r for its 32 units
+  const int r = w;
+  const int b = b0 + r;
+  if (r >= kBT || b >= B) return;
+  const size_t idx = (size_t)b * N + j;
+  float dh_rec;
+  if (dg_next != nullptr) {
+    dh_rec = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kKS; ++q) dh_rec += red[q][r][lane];
+  } else {
+    dh_rec = dh_in[idx];
+  }
+  if (dh_seq_t == nullptr) {
+    dh_out[idx] = dh_rec;
+    return;
+  }
+  const size_t gb = (size_t)b * n4 + j;
+  const float gi = to_f32(g_t[gb]), go = to_f32(g_t[gb + N]);
+  const float gf = to_f32(g_t[gb + 2 * (size_t)N]);
+  const float gu = to_f32(g_t[gb + 3 * (size_t)N]);
+  const float ct = to_f32(c_t[idx]);
+  const float cp = c_prev_t != nullptr ? to_f32(c_prev_t[idx]) : c0[idx];
+  const float dh_total = dh_seq_t[idx] + dh_rec;
+  float dc_raw, d_o;
+  if (standard) {
+    const float tc = tanhf(ct);
+    dc_raw = dh_total * go * (1.0f - tc * tc) + dc[idx];
+    d_o = dh_total * tc;
+  } else {
+    const float dct = dh_total * go + dc[idx];
+    dc_raw = dct * (1.0f - ct * ct);
+    d_o = dh_total * ct;
+  }
+  const float di = dc_raw * gu, du = dc_raw * gi, df = dc_raw * cp;
+  dg_t[gb] = di * gi * (1.0f - gi);
+  dg_t[gb + N] = d_o * go * (1.0f - go);
+  dg_t[gb + 2 * (size_t)N] = df * gf * (1.0f - gf);
+  dg_t[gb + 3 * (size_t)N] = du * (1.0f - gu * gu);
+  dc[idx] = dc_raw * gf;
+}
+
+// dW[v, col] = sum over rows r (in order) with ids[r] == v of round(dg[r, col]).
+// grid = (M, ceil(4N / 256)), block = 256: the block scans the ids in
+// chunks of 256, compacts the matching rows (ballot, in row order) into
+// shared memory, and each thread adds its column of those rows.
+template <typename CT>
+__global__ void __launch_bounds__(256)
+embed_grad(const int* __restrict__ ids, const float* __restrict__ dg,
+           float* __restrict__ dW, int R, int C) {
+  __shared__ int rows[256];
+  __shared__ int warp_count[8];
+  const int v = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int col = blockIdx.y * 256 + tid;
+  float acc = 0.0f;
+  for (int base = 0; base < R; base += 256) {
+    const int r = base + tid;
+    const bool hit = r < R && ids[r] == v;
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_count[warp] = __popc(mask);
+    __syncthreads();
+    int offset = 0, total = 0;
+    for (int q = 0; q < 8; ++q) {
+      offset += q < warp ? warp_count[q] : 0;
+      total += warp_count[q];
+    }
+    if (hit) rows[offset + __popc(mask & ((1u << lane) - 1u))] = r;
+    __syncthreads();
+    if (col < C)
+      for (int q = 0; q < total; ++q)
+        acc += round_to<CT>(dg[(size_t)rows[q] * C + col]);
+    __syncthreads();
+  }
+  if (col < C) dW[(size_t)v * C + col] = acc;
+}
+
+template <typename CT, typename RT>
+int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
+            const void* h_seq, const int* ids, const float* h0,
+            const float* c0, const float* dh_seq, const float* dhT, float* dc,
+            float* dg, float* dWU, float* db, float* dh0, float* work, int S,
+            int B, int N, int M, int standard, cudaStream_t stream,
+            int* launches) {
+  const dim3 grid(N / kLanes, (B + kBT - 1) / kBT);
+  const dim3 block(kLanes, kKS);
+  const size_t bn = (size_t)B * N, bn4 = 4 * bn;
+  const CT* ut = static_cast<const CT*>(UT);
+  const RT* gs = static_cast<const RT*>(g_seq);
+  const RT* cs = static_cast<const RT*>(c_seq);
+  cudaError_t err;
+  for (int t = S - 1; t >= -1; --t) {
+    // t = -1: the final reduction, dh0 = round(dg_0) @ U^T
+    const bool last = t == -1;
+    lstm_bwd_step<CT, RT><<<grid, block, 0, stream>>>(
+        ut, t < S - 1 ? dg + (t + 1) * bn4 : nullptr, dhT,
+        last ? nullptr : dh_seq + t * bn, last ? nullptr : gs + t * bn4,
+        last ? nullptr : cs + t * bn, t > 0 ? cs + (t - 1) * bn : nullptr, c0,
+        dc, last ? nullptr : dg + t * bn4, dh0, B, N, standard);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  const int R = S * B, C = 4 * N;
+  // dU = h_prev^T dg: rows r < B of h_prev are h0, then h_seq[r - B]
+  int e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg,
+                          dWU + (size_t)M * C, work, R, N, C, stream, launches);
+  if (e != 0) return e;
+  embed_grad<CT><<<dim3(M, (C + 255) / 256), 256, 0, stream>>>(ids, dg, dWU, R, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return run_colsum(dg, db, work, R, C, stream, launches);
+}
+
+}  // namespace
+
+// Scratch floats lstm_bwd_embed_launch needs in `work`.
+extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N) {
+  const size_t gemm = atb_work_floats(S * B, N, 4 * N);
+  const size_t col = (size_t)colsum_chunks_of(S * B) * 4 * N;
+  return gemm > col ? gemm : col;
+}
+
+// Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N) in the compute type;
+// the residual sequences have the residual type; h0, c0, dh_seq, dhT and the
+// outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
+// (S, B, 4N) fp32 scratch. Adds its kernel launches to *launches.
+extern "C" int lstm_bwd_embed_launch(
+    int ctype, int rtype, const void* UT, const void* g_seq,
+    const void* c_seq, const void* h_seq, const void* ids, const void* h0,
+    const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dg,
+    void* dWU, void* db, void* dh0, void* work, int S, int B, int N, int M,
+    int standard, void* stream, int* launches) {
+  const auto f = [&](auto run) {
+    return run(UT, g_seq, c_seq, h_seq, static_cast<const int*>(ids),
+               static_cast<const float*>(h0), static_cast<const float*>(c0),
+               static_cast<const float*>(dh_seq),
+               static_cast<const float*>(dhT), static_cast<float*>(dc),
+               static_cast<float*>(dg), static_cast<float*>(dWU),
+               static_cast<float*>(db), static_cast<float*>(dh0),
+               static_cast<float*>(work), S, B, N, M, standard,
+               static_cast<cudaStream_t>(stream), launches);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_bwd<float, float>);
+  if (ctype == 0 && rtype == 1) return f(run_bwd<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(run_bwd<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(run_bwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

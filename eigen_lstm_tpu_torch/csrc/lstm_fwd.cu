@@ -35,8 +35,7 @@
 // same launch writes. Tensor cores (wgmma), TMA and one persistent kernel
 // over the whole window (FlashRNN / Appleyard et al.) are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 namespace {
 
@@ -44,29 +43,6 @@ constexpr int kLanes = 32;  // hidden units per block
 constexpr int kKS = 8;      // warps splitting the k reduction
 constexpr int kBT = 4;      // batch rows per block
 constexpr int kKT = 256;    // k tile of h_{t-1} staged in shared memory
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch and JAX
-}
-
-// x rounded to the compute type CT and widened back to fp32.
-template <typename CT> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<CT>(x));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // One timestep. EMBED selects the input: W[ids_t] + b (layer 0) or xw_t.
 // grid = (N / 32, ceil(B / kBT)), block = (32, kKS).

@@ -85,14 +85,19 @@ def init_params(
 
 
 def init_state(
-    cfg: ModelConfig, batch: int, device="cuda"
+    cfg: ModelConfig, batch: int, device="cuda", reset_std: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(h, c), each (L, B, N) zeros: the state every eval stream and sample
-    starts from. The reset noise of training (``reset_std``) comes with the
-    training slice."""
+    """(h, c), each (L, B, N): zeros, or N(0, reset_std) drawn from
+    ``generator`` (on ``device``) when both are given. The draws differ
+    from the JAX package's."""
     shape = (cfg.num_layers, batch, cfg.hidden)
-    return (torch.zeros(shape, dtype=cfg.pdtype, device=device),
-            torch.zeros(shape, dtype=cfg.pdtype, device=device))
+    if reset_std == 0.0 or generator is None:
+        return (torch.zeros(shape, dtype=cfg.pdtype, device=device),
+                torch.zeros(shape, dtype=cfg.pdtype, device=device))
+    h = torch.randn(shape, generator=generator, device=device) * reset_std
+    c = torch.randn(shape, generator=generator, device=device) * reset_std
+    return h.to(cfg.pdtype), c.to(cfg.pdtype)
 
 
 def _scan_layer(
@@ -148,12 +153,13 @@ def forward(
     ``cell_fn(layer, xw, h0, c0, cfg) -> (h_seq, (hT, cT))`` replaces the
     per-layer recurrence, and its ``embed_layer0(layer, ids, h0, c0, cfg)``
     attribute, when present, replaces layer 0 with the embedding fused in.
-    Dropout (``dropout_key``) and ``scan_chunk`` belong to training and are
-    not ported yet."""
+    Gradients flow through both (``ops.cuda_cell_bwd``) and through the
+    plain loop. Dropout (``dropout_key``) and ``scan_chunk`` are not ported
+    yet."""
     if dropout_key is not None and cfg.dropout > 0.0:
-        raise NotImplementedError("dropout: training slice, not ported yet")
+        raise NotImplementedError("dropout: not ported yet")
     if cfg.scan_chunk:
-        raise NotImplementedError("scan_chunk: training slice, not ported yet")
+        raise NotImplementedError("scan_chunk: not ported yet")
     scan_fn = cell_fn or _scan_layer
     embed_fn = getattr(cell_fn, "embed_layer0", None)
     s, b_ = ids.shape
@@ -198,6 +204,46 @@ def softmax_xent_bits(logits: torch.Tensor, targets: torch.Tensor):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     return nll / LN2
+
+
+def loss_fn(
+    params: LSTMParams,
+    ids: torch.Tensor,           # (S, B)
+    targets: torch.Tensor,       # (S, B)
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    cfg: ModelConfig,
+    cell_fn=None,
+    dropout_key=None,
+):
+    """Training objective: (loss, ((hL, cL), mean bits/char)).
+
+    ``loss_mode="last"`` counts only t = S-1, ``"all"`` every step; the
+    loss is in bits (``loss_base="2"``) or nats (``"e"``), the metric always
+    in bits. Under ``"all"`` the fused head of ``cell_fn`` takes the loss
+    where its gate holds (``cell_fn.fused_head.supported``: what its kernels
+    take), and raises for a CUDA tensor outside it; logits and log-softmax
+    go in the open without a fused head, on the CPU outside the gate, and
+    under ``"last"``."""
+    h_seq, state = forward(params, ids, h0, c0, cfg, cell_fn=cell_fn,
+                           dropout_key=dropout_key)
+    s, b_ = ids.shape
+    head_fn = getattr(cell_fn, "fused_head", None)
+    if cfg.loss_mode == "last":
+        logits = logits_from_h(params, h_seq[-1], cfg)
+        mean_bits = torch.mean(softmax_xent_bits(logits, targets[-1]))
+    elif head_fn is not None and head_fn.supported(cfg):
+        bits_sum = head_fn(params, h_seq.reshape(s * b_, -1),
+                           targets.reshape(-1), cfg)
+        mean_bits = bits_sum / (s * b_)
+    elif head_fn is not None and h_seq.is_cuda:
+        raise ValueError(f"the fused head's kernels do not take a "
+                         f"vocabulary of {cfg.vocab}")
+    else:
+        logits = logits_from_h(params, h_seq, cfg)
+        mean_bits = torch.mean(softmax_xent_bits(logits, targets))
+    loss = mean_bits if cfg.loss_base == "2" else mean_bits * LN2
+    return loss, (state, mean_bits)
 
 
 def forward_step(

@@ -1,13 +1,13 @@
 """Builds the port's CUDA sources with one plain ``nvcc`` call and loads the
 result with ``ctypes``.
 
-The sources (``csrc/*.cu``) include no PyTorch header and export C
-functions, so the build is a few seconds of ``nvcc`` and needs neither
-``torch.utils.cpp_extension`` nor ``ninja``. The library goes to
-``eigen_lstm_tpu_torch/_build/`` under a name that carries a hash of the
-sources, so an edited source is rebuilt and an unchanged one is loaded as it
-is. Nothing is built on import: ``load_library`` runs at the first kernel
-launch.
+The sources (``csrc/*.cu``, with the shared ``csrc/*.cuh``) include no
+PyTorch header and export C functions, so the build is seconds of ``nvcc``
+and needs neither ``torch.utils.cpp_extension`` nor ``ninja``. The library
+goes to ``eigen_lstm_tpu_torch/_build/`` under a name that carries a hash
+of the sources, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is built on import: ``load_library`` runs at the
+first kernel launch.
 """
 
 from __future__ import annotations
@@ -31,12 +31,21 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of every exported launcher: c_void_p for pointers and the
-# stream, c_int for ints (an unset argtype would pass a pointer as a 32-bit
-# int and cut it)
+_IP = ctypes.POINTER(ctypes.c_int)
+_Z = ctypes.c_size_t
+# (restype, argtypes) of every exported function: c_void_p for pointers and
+# the stream, c_int for ints (an unset argtype would pass a pointer as a
+# 32-bit int and cut it). The backward and head launchers add the number
+# of kernels they launched to their last argument.
 SIGNATURES = {
-    "lstm_fwd_embed_launch": [_I, _I] + [_P] * 13 + [_I] * 4 + [_P],
-    "lstm_fwd_scan_launch": [_I, _I] + [_P] * 11 + [_I] * 4 + [_P],
+    "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 13 + [_I] * 4 + [_P]),
+    "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 4 + [_P]),
+    "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 5 + [_P, _IP]),
+    "lstm_bwd_embed_work_floats": (_Z, [_I] * 3),
+    "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 3 + [_P, _IP]),
+    "head_bwd_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_P, _IP]),
+    "head_fwd_work_floats": (_Z, [_I]),
+    "head_bwd_work_floats": (_Z, [_I] * 3),
 }
 
 
@@ -47,6 +56,10 @@ class _State:
 
 def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def find_nvcc() -> str:
@@ -70,7 +83,7 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -110,9 +123,9 @@ def load_library() -> ctypes.CDLL:
     """The kernels' library, built at the first call of the process."""
     if _State.lib is None:
         lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
+        for name, (restype, argtypes) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
         _State.lib = lib
     return _State.lib

@@ -90,13 +90,58 @@ def one_hot(ids: torch.Tensor, vocab: int, dtype=torch.float32) -> torch.Tensor:
     return torch.nn.functional.one_hot(ids.long(), vocab).to(dtype)
 
 
+def gate_bwd(g, c_t, c_prev, dh_total, dc, hidden: int,
+             variant: str = "reference"):
+    """Gate backward of one step from the activated gates g (..., 4N), the
+    carried cell c_t, the previous carry and the cotangents of h and of the
+    carry: ``_gate_bwd`` of ``eigen_lstm_tpu/ops/pallas_cell.py``. Returns
+    (dg (..., 4N) w.r.t. the pre-activations, dc carried to t-1)."""
+    si, so, sf, su = gate_slices(hidden)
+    i, o, f, u = g[..., si], g[..., so], g[..., sf], g[..., su]
+    if variant == "reference":
+        dct = dh_total * o + dc
+        dc_raw = dct * (1.0 - c_t * c_t)
+        do = dh_total * c_t
+    elif variant == "standard":
+        tc = torch.tanh(c_t)
+        dc_raw = dh_total * o * (1.0 - tc * tc) + dc
+        do = dh_total * tc
+    else:
+        raise ValueError(f"unknown cell variant: {variant}")
+    di, du, df = dc_raw * u, dc_raw * i, dc_raw * c_prev
+    dg = torch.cat([di * i * (1.0 - i), do * o * (1.0 - o),
+                    df * f * (1.0 - f), du * (1.0 - u * u)], dim=-1)
+    return dg, dc_raw * f
+
+
+class _Embed(torch.autograd.Function):
+    """``W[ids]`` in the accumulation type, whose backward is the JAX
+    package's one-hot product (``eigen_lstm_tpu/ops/cell.py:_make_embed``):
+    the cotangent rounded to the compute type, summed per byte id in the
+    accumulation type, returned in W's type."""
+
+    @staticmethod
+    def forward(ctx, W, ids, compute_dtype, accum_dtype):
+        ctx.save_for_backward(ids)
+        ctx.shape, ctx.dtypes = W.shape, (W.dtype, compute_dtype, accum_dtype)
+        return W.to(accum_dtype)[ids.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        wdtype, cdtype, adtype = ctx.dtypes
+        g_c = g.reshape(-1, g.shape[-1]).to(cdtype).to(adtype)
+        dW = torch.zeros(ctx.shape, dtype=adtype, device=g.device)
+        dW.index_add_(0, ids.reshape(-1).long(), g_c)
+        return dW.to(wdtype), None, None, None
+
+
 def embed(
     W: torch.Tensor, ids: torch.Tensor, compute_dtype=torch.float32,
     accum_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Forward embedding: the row gather ``W[ids]`` in ``accum_dtype``
-    (a one-hot product collapses to it). ``compute_dtype`` is accepted for
-    the JAX signature; it shapes only the backward, which comes with the
-    training slice."""
-    del compute_dtype
-    return W.to(accum_dtype)[ids.long()]
+    """Embedding lookup: the row gather ``W[ids]`` in ``accum_dtype`` (a
+    one-hot product collapses to it). Its gradient is the one-hot product
+    of the JAX package's custom VJP, with the cotangent rounded to
+    ``compute_dtype``."""
+    return _Embed.apply(W, ids, compute_dtype, accum_dtype)

@@ -17,6 +17,11 @@ repeats the kernel's arithmetic in PyTorch:
 
 Each wrapper counts in ``.launches`` the kernel launches it makes: S per
 call, one per timestep.
+
+None of these functions is differentiable by itself, and each raises when
+asked for a gradient rather than return a result that autograd cannot
+follow: the gradient of layer 0 goes through ``cuda_cell_bwd`` (its
+backward kernel), and the backward of layers >= 1 is not ported yet.
 """
 
 from __future__ import annotations
@@ -74,10 +79,22 @@ def _embed_weights(layer, cfg: ModelConfig):
     return WU[:m], WU[m:], layer.b.to(_acc_dtype(cfg)).contiguous()
 
 
+def _refuse_grad(layer, seq, h0, c0, embed: bool):
+    if torch.is_grad_enabled() and any(
+        x.requires_grad for x in (layer.W, layer.U, layer.b, seq, h0, c0)
+    ):
+        raise NotImplementedError(
+            "layer 0 is differentiated through "
+            "ops.cuda_cell_bwd.differentiable_embed_layer0" if embed else
+            "the backward of the layers >= 1 kernel is not ported yet"
+        )
+
+
 def embed_layer0_plain(layer, ids, h0, c0, cfg: ModelConfig,
                        residuals: bool = False):
     """Plain version of the layer-0 kernel. With ``residuals`` it also
     returns the (S, B, N) cell and (S, B, 4N) activated gate sequences."""
+    _refuse_grad(layer, ids, h0, c0, embed=True)
     W_c, U_c, bias = _embed_weights(layer, cfg)
     af = _acc_dtype(cfg)
     ids = ids.long()
@@ -95,6 +112,7 @@ def _xw_stream(xw, cfg: ModelConfig):
 def scan_layer_plain(layer, xw, h0, c0, cfg: ModelConfig,
                      residuals: bool = False):
     """Plain version of the layers >= 1 kernel (bias folded into xw)."""
+    _refuse_grad(layer, xw, h0, c0, embed=False)
     U_c = layer.U.to(cfg.cdtype)
     xs = _xw_stream(xw, cfg)
     af = _acc_dtype(cfg)
@@ -104,7 +122,8 @@ def scan_layer_plain(layer, xw, h0, c0, cfg: ModelConfig,
 
 def _validate(layer, seq, h0, c0, cfg: ModelConfig, embed: bool):
     """Raises on inputs that neither the kernel nor its plain version
-    takes: wrong shapes, types or devices."""
+    takes: wrong shapes, types or devices, or a request for a gradient."""
+    _refuse_grad(layer, seq, h0, c0, embed)
     n = cfg.hidden
     if embed:
         if seq.dim() != 2:

@@ -7,7 +7,8 @@ are not carried over. The H100 kernels read U from device memory and L2 at
 every step and keep only a (4, 256) tile of h and the reduction in shared
 memory, so their gate is alignment alone, and it lives in the wrappers
 (``cuda_cell.shape_ok``: the hidden width a multiple of 32), which raise on
-a shape they do not take.
+a shape they do not take. The fused head's gate is what its kernels take
+(``head.head_supported``).
 """
 
 from __future__ import annotations
@@ -17,17 +18,25 @@ import functools
 import torch
 
 from ..config import ModelConfig
-from . import cuda_cell
+from . import cuda_cell, cuda_cell_bwd, head
 
 
-def _with_embed(scan_fn, embed_fn):
-    cell_fn = functools.partial(scan_fn)
-    cell_fn.embed_layer0 = embed_fn
+def _cell_fn(plain: bool):
+    cell_fn = functools.partial(
+        cuda_cell.scan_layer_plain if plain else cuda_cell.scan_layer)
+    cell_fn.embed_layer0 = functools.partial(
+        cuda_cell_bwd.differentiable_embed_layer0, plain=plain)
+    fused_head = functools.partial(head.fused_head_bits, plain=plain)
+    fused_head.supported = head.head_supported
+    cell_fn.fused_head = fused_head
     return cell_fn
 
 
 def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
-    """A ``cell_fn`` for ``models.lstm.forward`` with ``.embed_layer0``.
+    """A ``cell_fn`` for ``models.lstm.forward`` with ``.embed_layer0`` (the
+    layer-0 recurrence, differentiable) and ``.fused_head`` (the fused
+    softmax cross-entropy head, with its ``.supported`` gate, which
+    ``models.lstm.loss_fn`` checks per shape).
 
     ``"cuda"``: the kernels; raises unless ``device`` is a CUDA device.
     ``"plain"``: the kernels' plain versions, on any device. ``"auto"``: the
@@ -39,10 +48,9 @@ def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
     if backend == "auto":
         backend = "cuda" if dev.type == "cuda" else "plain"
     if backend == "plain":
-        return _with_embed(cuda_cell.scan_layer_plain,
-                           cuda_cell.embed_layer0_plain)
+        return _cell_fn(plain=True)
     if backend == "cuda":
         if dev.type != "cuda":
             raise ValueError(f"cuda backend on device {dev}")
-        return _with_embed(cuda_cell.scan_layer, cuda_cell.embed_layer0)
+        return _cell_fn(plain=False)
     raise ValueError(f"unknown backend {backend!r}")

@@ -1,14 +1,23 @@
-"""Loading the JAX package's npz checkpoints into the port.
+"""npz checkpoints in the JAX package's format, read and written
+(``eigen_lstm_tpu/train/checkpoint.py``): one uncompressed ``.npz`` with
+the parameters under ``params.layers[i].W``, ``.U``, ``.b``, ``params.Why``
+and ``params.by``, the Adagrad accumulators under the same names with the
+prefix ``opt``, the stream state ``data/positions``, ``data/stream_h`` and
+``data/stream_c``, the raw PRNG key ``data/rng_key`` and ``meta/json``
+(the step and model shape). A checkpoint of either package loads in the
+other.
 
-A checkpoint holds the parameters under the keys ``params.layers[i].W``,
-``.U``, ``.b``, ``params.Why`` and ``params.by``, beside optimizer, stream
-and metadata entries that serving does not read
-(``eigen_lstm_tpu/train/checkpoint.py``).
+The JAX key has no counterpart in torch: the port reads it and does not use
+it, and writes the raw ``jax.random.PRNGKey(seed)`` of its trainer's seed so
+that a JAX restore finds a key. The port's own random streams are
+``torch.Generator``s, which a checkpoint does not hold.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,3 +69,67 @@ def load_params(path: str, cfg: ModelConfig, device="cuda") -> LSTMParams:
     with np.load(path) as z:
         arrays = {k: z[k] for k in _expected_shapes(cfg) if k in z.files}
     return params_from_numpy(arrays, cfg, device)
+
+
+def _tensors(params: LSTMParams, prefix: str) -> Dict[str, np.ndarray]:
+    return {prefix + key[len("params"):]: t.detach().cpu().numpy()
+            for key, t in params.named_tensors()}
+
+
+def save_checkpoint(
+    path: str,
+    params: LSTMParams,
+    opt_state: LSTMParams,
+    step: int,
+    positions=None,
+    stream_h=None,
+    stream_c=None,
+    rng_key: Optional[np.ndarray] = None,
+    meta: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Atomic save (a temporary file, then a rename) of the full training
+    state, uncompressed."""
+    payload: Dict[str, np.ndarray] = {}
+    payload.update(_tensors(params, "params"))
+    payload.update(_tensors(opt_state, "opt"))
+    for name, x in (("positions", positions), ("stream_h", stream_h),
+                    ("stream_c", stream_c)):
+        if x is not None:
+            payload[f"data/{name}"] = (x.detach().cpu().numpy()
+                                       if torch.is_tensor(x) else np.asarray(x))
+    if rng_key is not None:
+        payload["data/rng_key"] = np.asarray(rng_key, np.uint32)
+    payload["meta/json"] = np.frombuffer(
+        json.dumps({"step": int(step), **(meta or {})}).encode(), dtype=np.uint8
+    )
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, cfg: ModelConfig, device="cuda"
+                    ) -> Tuple[LSTMParams, LSTMParams, int, Dict[str, Any]]:
+    """(params, opt_state, step, extras) of a checkpoint, on ``device``.
+    ``extras`` holds ``meta`` and, where present, ``positions`` (int32),
+    ``stream_h``, ``stream_c`` (tensors on ``device``) and ``rng_key`` (the
+    raw JAX key, unused)."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    params = params_from_numpy(arrays, cfg, device)
+    opt = params_from_numpy(
+        {"params" + k[len("opt"):]: v for k, v in arrays.items()
+         if k.startswith("opt")}, cfg, device)
+    meta = json.loads(bytes(arrays["meta/json"]).decode())
+    extras: Dict[str, Any] = {"meta": meta}
+    if "data/positions" in arrays:
+        extras["positions"] = torch.from_numpy(
+            arrays["data/positions"].astype(np.int32)).to(device)
+    for name in ("stream_h", "stream_c"):
+        if f"data/{name}" in arrays:
+            extras[name] = torch.tensor(arrays[f"data/{name}"],
+                                        dtype=cfg.pdtype, device=device)
+    if "data/rng_key" in arrays:
+        extras["rng_key"] = arrays["data/rng_key"]
+    return params, opt, int(meta["step"]), extras

@@ -1,0 +1,339 @@
+"""The training loop, as ``eigen_lstm_tpu/train/trainer.py`` runs it on one
+device: K-step supersteps of (loss and gradients through ``loss_fn``, the
+non-finite skip, the cursor advance with the wrap reset of (h, c), Adagrad),
+with the host reading the metrics once per superstep at most, and a
+wall-clock cadence of eval, checkpoint and sample.
+
+PyTorch runs eagerly, so a superstep is a Python loop of K steps whose
+kernels queue on the card; nothing in it waits for the device. The step
+counter and the lr schedule live on the host (the schedule is a function
+of the step alone); the cursors, the stream state and the metrics stay on
+the device. In streamed mode (``data/streaming.py``) the next superstep's
+windows are built and copied while the current one runs.
+
+Not ported yet, and refused when asked for: meshes (data, tensor, sequence
+and pipeline parallelism), dropout, the live ``crosscheck`` and
+``gradcheck``, and training through the layers >= 1 kernel (its backward).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import DataConfig, ModelConfig, TrainConfig
+from ..data import corpus as corpus_mod
+from ..data import streaming as streaming_mod
+from ..models import lstm as model
+from ..models import sampler as sampler_mod
+from . import checkpoint as ckpt_mod
+from . import evaluator as eval_mod
+from . import metrics as metrics_mod
+from . import optimizer as opt_mod
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Parameters, Adagrad accumulators, the (L, B, N) stream state, the
+    (B,) int32 cursors (on the device) and the global step (on the host)."""
+
+    params: model.LSTMParams
+    m: model.LSTMParams
+    h: torch.Tensor
+    c: torch.Tensor
+    positions: torch.Tensor
+    step: int
+
+
+def loss_and_grads(params, x, t, h, c, mcfg: ModelConfig, cell_fn=None):
+    """``loss_fn`` and its gradient in every parameter: (loss, (hL, cL),
+    mean bits, grads), all detached."""
+    leaves = [p.detach().requires_grad_() for p in opt_mod.tensors(params)]
+    with torch.enable_grad():
+        loss, ((h2, c2), bits) = model.loss_fn(
+            opt_mod.like(params, leaves), x, t, h, c, mcfg, cell_fn)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), (h2.detach(), c2.detach()), bits.detach(),
+            opt_mod.like(params, grads))
+
+
+def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
+               tcfg: TrainConfig, length: int, cell_fn=None,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[TrainState, Tuple[torch.Tensor, torch.Tensor]]:
+    """One step on the windows (x, t): returns (state, (bits, grad norm)).
+    ``generator`` draws the reset noise when ``dcfg.reset_std > 0``."""
+    loss, (h2, c2), bits, grads = loss_and_grads(
+        state.params, x, t, state.h, state.c, mcfg, cell_fn)
+    if tcfg.skip_nonfinite:
+        # a non-finite loss zeroes the update and keeps the pre-step state
+        finite = torch.isfinite(loss)
+        grads = opt_mod.like(grads, (torch.where(finite, g, torch.zeros_like(g))
+                                     for g in opt_mod.tensors(grads)))
+        h2 = torch.where(finite, h2, state.h.to(h2.dtype))
+        c2 = torch.where(finite, c2, state.c.to(c2.dtype))
+    newpos, wrapped = corpus_mod.advance_positions(
+        state.positions, dcfg.effective_stride, length, dcfg.seq)
+    if dcfg.carry_state:
+        mask = wrapped[None, :, None]
+        if dcfg.reset_std > 0.0:
+            rh = torch.randn(h2.shape, generator=generator, device=h2.device)
+            rc = torch.randn(c2.shape, generator=generator, device=c2.device)
+            rh, rc = (rh * dcfg.reset_std).to(h2.dtype), (rc * dcfg.reset_std).to(c2.dtype)
+        else:
+            rh, rc = torch.zeros_like(h2), torch.zeros_like(c2)
+        h2 = torch.where(mask, rh, h2)
+        c2 = torch.where(mask, rc, c2)
+    else:
+        h2, c2 = torch.zeros_like(state.h), torch.zeros_like(state.c)
+    params, m, gnorm = opt_mod.apply_updates(state.params, grads, state.m,
+                                             state.step, tcfg)
+    return TrainState(params, m, h2, c2, newpos, state.step + 1), (bits, gnorm)
+
+
+def _metrics(bits, gnorms) -> Dict[str, torch.Tensor]:
+    bits, gnorms = torch.stack(bits), torch.stack(gnorms)
+    return {"bits_mean": bits.mean(), "bits_last": bits[-1],
+            "gnorm_mean": gnorms.mean(), "gnorm_max": gnorms.max()}
+
+
+class Trainer:
+    """The host-side loop: the superstep, the timed eval / sample /
+    checkpoint cadence and the results table, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+
+    def __init__(
+        self,
+        mcfg: ModelConfig,
+        dcfg: DataConfig,
+        tcfg: TrainConfig,
+        train_data: np.ndarray,
+        test_data: Optional[np.ndarray] = None,
+        cell_fn=None,
+        results_path: Optional[str] = None,
+        mesh=None,
+        streaming: bool = False,
+        device="cuda",
+    ):
+        """``cell_fn``: ``ops.dispatch.select_cell_fn``'s kernels (or their
+        plain versions), or None for the model's own loop. ``streaming``
+        keeps the corpus on the host and feeds windows per superstep."""
+        if mesh is not None:
+            raise NotImplementedError("mesh (parallel) training: not ported yet")
+        if mcfg.dropout > 0.0:
+            raise NotImplementedError("dropout: not ported yet")
+        if tcfg.crosscheck_every or tcfg.gradcheck_every:
+            raise NotImplementedError("crosscheck / gradcheck: not ported yet")
+        if cell_fn is not None and mcfg.num_layers > 1:
+            raise NotImplementedError(
+                "training more than one layer through the kernels: the "
+                "layers >= 1 backward kernel is not ported yet")
+        self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
+        self.device = torch.device(device)
+        self.train_np = train_data
+        self.test_np = test_data
+        self.cell_fn = cell_fn
+        self.length = int(len(train_data))
+        # reset noise and sampling draw from this device generator
+        self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        self._best_bpc = None
+        self._next_windows = None
+        if streaming:
+            self.corpus = None
+            self.feeder = streaming_mod.WindowFeeder(
+                train_data, dcfg, tcfg.superstep, device=self.device)
+        else:
+            self.corpus = torch.tensor(np.asarray(train_data),
+                                       dtype=torch.uint8, device=self.device)
+            self.feeder = None
+        self.meter = metrics_mod.ThroughputMeter(mcfg, self.device.type)
+        self.table = metrics_mod.ResultsTable(results_path)
+        self.state = self._init_state()
+        if self.feeder is not None:
+            self.feeder.set_positions(self.state.positions.cpu().numpy())
+        self.last_metrics: Dict[str, float] = {}
+
+    def _init_state(self) -> TrainState:
+        gen = torch.Generator().manual_seed(self.tcfg.seed)
+        params = model.init_params(self.mcfg, gen, self.device)
+        h, c = model.init_state(self.mcfg, self.dcfg.batch, self.device,
+                                self.dcfg.reset_std, self.generator)
+        positions = corpus_mod.init_positions(
+            gen, self.dcfg.batch, self.length, self.dcfg.seq).to(self.device)
+        return TrainState(params, opt_mod.adagrad_init(params), h, c,
+                          positions, 0)
+
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    def chars_per_superstep(self) -> int:
+        return self.dcfg.batch * self.dcfg.effective_stride * self.tcfg.superstep
+
+    def superstep(self, state: TrainState, windows: Optional[torch.Tensor] = None):
+        """K steps from ``state``: the windows gathered on the device from
+        the resident corpus, or taken from ``windows`` (K, S+1, B).
+        Returns (state, metrics), the metrics on the device."""
+        steps = self.tcfg.superstep if windows is None else windows.shape[0]
+        win = None if windows is None else windows.to(torch.int32)
+        bits, gnorms = [], []
+        for k in range(steps):
+            if win is None:
+                x, t = corpus_mod.make_windows(self.corpus, state.positions,
+                                               self.dcfg.seq)
+            else:
+                x, t = win[k, :-1], win[k, 1:]
+            state, (b, g) = train_step(state, x, t, self.mcfg, self.dcfg,
+                                       self.tcfg, self.length, self.cell_fn,
+                                       self.generator)
+            bits.append(b)
+            gnorms.append(g)
+        return state, _metrics(bits, gnorms)
+
+    def dispatch_superstep(self):
+        """One superstep from the current state. Streamed, the next batch
+        is built and copied right after this one is queued, so the host
+        work overlaps the card's."""
+        if self.feeder is None:
+            return self.superstep(self.state)
+        if self._next_windows is None:
+            self._next_windows = self.feeder.next_device_batch()
+        out = self.superstep(self.state, self._next_windows)
+        self._next_windows = self.feeder.next_device_batch()
+        return out
+
+    def run(self, steps: Optional[int] = None,
+            on_report: Optional[Callable[[Dict[str, float]], None]] = None,
+            quiet: bool = False) -> Dict[str, float]:
+        """Train ``steps`` steps (rounded up to supersteps). The metrics are
+        read back at the log cadence, once per superstep at most."""
+        total = steps if steps is not None else self.tcfg.steps
+        n_super = max(1, -(-total // self.tcfg.superstep))
+        timer = metrics_mod.Timer()
+        eval_timer = metrics_mod.Timer()
+        chars_done = 0
+        gmax_window = None
+        log_every = max(1, self.tcfg.log_every // self.tcfg.superstep)
+        for k in range(n_super):
+            self.state, metrics = self.dispatch_superstep()
+            chars_done += self.chars_per_superstep()
+            # running max since the last log line, kept on the device
+            g = metrics["gnorm_max"]
+            gmax_window = g if gmax_window is None else torch.maximum(gmax_window, g)
+            if (k + 1) % log_every == 0 or k == n_super - 1:
+                bits = float(metrics["bits_mean"])
+                gmax = float(gmax_window)
+                gmax_window = None
+                cps, gflops, mfu = self.meter.rates(chars_done, timer.elapsed())
+                self.last_metrics = {
+                    "step": float(self.step), "train_bpc": bits,
+                    "gnorm_max": gmax, "chars_per_sec": cps,
+                    "gflops": gflops, "mfu": mfu,
+                }
+                if not quiet:
+                    eta = timer.elapsed() / (k + 1) * (n_super - k - 1)
+                    print(f"step {self.step:>8d}  bpc {bits:6.3f}  "
+                          f"gmax {gmax:7.2f}  {cps:,.0f} chars/s  "
+                          f"{gflops:,.0f} GF/s  mfu {mfu:5.1%}  eta {eta:,.0f}s",
+                          flush=True)
+                if on_report:
+                    on_report(self.last_metrics)
+            if (self.test_np is not None and len(self.test_np) > 1
+                    and eval_timer.elapsed() >= self.tcfg.eval_every_s):
+                if "train_bpc" not in self.last_metrics:
+                    self.last_metrics["train_bpc"] = float(metrics["bits_mean"])
+                self.report_eval(timer.elapsed(), chars_done, quiet=quiet)
+                eval_timer.start()
+        return self.last_metrics
+
+    def crosscheck(self, *args, **kwargs):
+        raise NotImplementedError("crosscheck: not ported yet")
+
+    def gradcheck(self, *args, **kwargs):
+        raise NotImplementedError("gradcheck: not ported yet")
+
+    def _best_test_bpc(self) -> float:
+        """Best held-out bpc of ``ckpt_best.npz``, seeded from the file's
+        metadata so that a resumed run keeps a better earlier snapshot."""
+        if self._best_bpc is None:
+            self._best_bpc = float("inf")
+            path = (os.path.join(self.tcfg.checkpoint_dir, "ckpt_best.npz")
+                    if self.tcfg.checkpoint_dir else None)
+            if path and os.path.exists(path):
+                with np.load(path) as z:
+                    meta = json.loads(bytes(z["meta/json"]).decode())
+                self._best_bpc = float(meta.get("test_bpc", "inf"))
+        return self._best_bpc
+
+    def report_eval(self, wall_s: float, chars_done: int, quiet: bool = False):
+        """Held-out eval, a results row, and with a checkpoint directory the
+        rolling checkpoint, the best one, snapshots and a sample."""
+        test_bpc = self.evaluate()
+        cps, gflops, mfu = self.meter.rates(chars_done, wall_s)
+        row = metrics_mod.ResultRow(
+            idx=len(self.table.rows), step=self.step,
+            chars_trained=chars_done, wall_s=wall_s,
+            train_bpc=self.last_metrics.get("train_bpc", float("nan")),
+            test_bpc=test_bpc, gflops=gflops, chars_per_sec=cps, mfu=mfu,
+        )
+        self.table.append(row)
+        if not quiet:
+            print(f"[eval] step {self.step} test bpc {test_bpc:.3f} "
+                  f"(train {row.train_bpc:.3f})", flush=True)
+        d = self.tcfg.checkpoint_dir
+        if d:
+            self.save(os.path.join(d, "ckpt.npz"))
+            if self.tcfg.keep_snapshots:
+                self.save(os.path.join(d, f"ckpt_step{self.step}.npz"),
+                          extra_meta={"test_bpc": float(test_bpc)})
+            if test_bpc < self._best_test_bpc():
+                self._best_bpc = test_bpc
+                self.save(os.path.join(d, "ckpt_best.npz"),
+                          extra_meta={"test_bpc": float(test_bpc)})
+            if self.tcfg.sample_chars:
+                with open(os.path.join(d, f"sample_step{self.step}.txt"), "w") as f:
+                    f.write(self.sample(self.tcfg.sample_chars))
+        return row
+
+    def sample(self, length: Optional[int] = None, temperature: float = 1.0) -> str:
+        with torch.no_grad():
+            return sampler_mod.sample_text(
+                self.state.params, self.mcfg, self.generator,
+                length or self.tcfg.sample_chars, temperature=temperature)
+
+    def evaluate(self, max_chars: Optional[int] = None) -> float:
+        if self.test_np is None:
+            raise ValueError("no test split configured")
+        with torch.no_grad():
+            return eval_mod.evaluate_bpc(
+                self.state.params, self.test_np, self.mcfg,
+                max_chars=max_chars or self.tcfg.eval_chars,
+                cell_fn=self.cell_fn)
+
+    def save(self, path: str, extra_meta: Optional[Dict] = None):
+        ckpt_mod.save_checkpoint(
+            path, self.state.params, self.state.m, self.step,
+            positions=self.state.positions, stream_h=self.state.h,
+            stream_c=self.state.c,
+            rng_key=np.array([0, self.tcfg.seed & 0xFFFFFFFF], np.uint32),
+            meta={"hidden": self.mcfg.hidden,
+                  "num_layers": self.mcfg.num_layers, **(extra_meta or {})},
+        )
+
+    def restore(self, path: str):
+        """The full state of a checkpoint of either package; its JAX key is
+        not used."""
+        params, m, step, extras = ckpt_mod.load_checkpoint(path, self.mcfg,
+                                                           self.device)
+        self.state = TrainState(
+            params, m, extras.get("stream_h", self.state.h),
+            extras.get("stream_c", self.state.c),
+            extras.get("positions", self.state.positions), step)
+        if self.feeder is not None:
+            self.feeder.set_positions(self.state.positions.cpu().numpy())
+            self._next_windows = None

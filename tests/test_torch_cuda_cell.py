@@ -27,7 +27,7 @@ from eigen_lstm_tpu.ops.pallas_cell import pallas_embed_layer0, pallas_scan_laye
 import eigen_lstm_tpu_torch
 from eigen_lstm_tpu_torch import ModelConfig as TConfig
 from eigen_lstm_tpu_torch.models import lstm as tmodel
-from eigen_lstm_tpu_torch.ops import _build, cuda_cell, dispatch
+from eigen_lstm_tpu_torch.ops import _build, cuda_cell, cuda_cell_bwd, dispatch, head
 
 S, B, N, M = 12, 8, 128, 256
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=0, atol=2e-2)}
@@ -159,7 +159,10 @@ def test_dispatch_backends():
     cfg = TConfig(hidden=N)
     plain = dispatch.select_cell_fn("plain", cfg, 16, "cpu")
     assert plain.func is cuda_cell.scan_layer_plain
-    assert plain.embed_layer0 is cuda_cell.embed_layer0_plain
+    assert plain.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
+    assert plain.embed_layer0.keywords == {"plain": True}
+    assert plain.fused_head.keywords == {"plain": True}
+    assert plain.fused_head.supported is head.head_supported
     auto = dispatch.select_cell_fn("auto", cfg, 16, "cpu")
     assert auto.func is cuda_cell.scan_layer_plain
     with pytest.raises(ValueError):
@@ -167,7 +170,10 @@ def test_dispatch_backends():
     # the hidden-width gate is the wrappers' alone (_kernel_types raises)
     kern = dispatch.select_cell_fn("cuda", TConfig(hidden=100), 16, "cuda")
     assert kern.func is cuda_cell.scan_layer
-    assert kern.embed_layer0 is cuda_cell.embed_layer0
+    assert kern.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
+    assert kern.embed_layer0.keywords == {"plain": False}
+    assert kern.fused_head.func is head.fused_head_bits
+    assert kern.fused_head.keywords == {"plain": False}
     with pytest.raises(ValueError):
         dispatch.select_cell_fn("bogus", cfg, 16, "cpu")
 
@@ -181,7 +187,9 @@ def test_build_reports_missing_nvcc(monkeypatch):
     path = _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert re.fullmatch(r"liblstm_kernels_[0-9a-f]{16}\.so", os.path.basename(path))
-    assert [os.path.basename(p) for p in _build.sources()] == ["lstm_fwd.cu"]
+    assert [os.path.basename(p) for p in _build.sources()] == [
+        "head.cu", "lstm_bwd.cu", "lstm_fwd.cu"]
+    assert [os.path.basename(p) for p in _build.headers()] == ["common.cuh"]
 
 
 def test_port_imports_no_jax():
