@@ -38,6 +38,10 @@ def _add_model_args(p: argparse.ArgumentParser):
                         "under --dtype bfloat16 when hidden >= 2048 or "
                         "seq >= 512, as the JAX CLI resolves it")
     p.add_argument("--forget-bias", type=float, default=1.0)
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="dropout rate of each layer's output stream, between "
+                        "the layers and before the head (training only), "
+                        "fused into the recurrence kernels")
     p.add_argument("--embedding", choices=["auto", "gather", "onehot"],
                    default="auto")
     p.add_argument("--seed", type=int, default=0)
@@ -90,7 +94,10 @@ def _add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--results", type=str, default=None,
                    help="JSONL results-table path")
     p.add_argument("--resume", type=str, default=None,
-                   help="checkpoint (of either package) to resume")
+                   help="checkpoint (of either package) to resume; a "
+                        "saved cursor outside --data's corpus is replaced "
+                        "by a fresh one, with a reset stream state, and "
+                        "the run says so")
     p.add_argument("--keep-snapshots", action="store_true")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="train: trace five supersteps with torch.profiler "
@@ -112,7 +119,7 @@ def _configs(args):
         cell_variant=args.cell, loss_mode=args.loss_mode,
         loss_base=args.loss_base, compute_dtype=args.dtype,
         residual_dtype=residual, forget_bias=args.forget_bias,
-        embedding_mode=args.embedding, seed=args.seed,
+        embedding_mode=args.embedding, dropout=args.dropout, seed=args.seed,
     )
     dcfg = DataConfig(
         path=args.data, train_percent=args.train_percent,

@@ -43,6 +43,35 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// The dropout keep-mask, _keep_mask of eigen_lstm_tpu/ops/pallas_cell.py:84:
+// a murmur3-finalizer hash of (seed, timestep tau, global element index
+// b * N + j), all in wrapping uint32 arithmetic, kept where the hash is
+// <= keep. keep = int((1 - rate) * 0xFFFFFFFF) and inv = fp32(1 / (1 - rate))
+// come from the host; seed is the layer's int32 seed with the same bits. A
+// kernel that masks rebuilds the bits from (seed, tau) instead of reading
+// them, and indexes elements globally, so no blocking changes them.
+struct Dropout {
+  int on;          // 0: no dropout (the other fields are not read)
+  unsigned seed;
+  unsigned keep;
+  float inv;
+};
+
+__device__ __forceinline__ unsigned fmix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ bool keep_bit(const Dropout& d, int tau, size_t idx) {
+  const unsigned base = fmix32(d.seed ^ (static_cast<unsigned>(tau) * 0x9E3779B9u));
+  return fmix32((static_cast<unsigned>(idx) * 0x85EBCA6Bu) ^ base) <= d.keep;
+}
+
+// ---------------------------------------------------------------------------
 // atb_gemm. Row r of A is A0[r] for r < R0 and A1[r - R0] after (the layer-0
 // backward's h_{t-1}: h0 for t = 0, then h_seq); both have I columns. B is
 // (R, J) fp32. Operands are rounded to CT as they are staged, products and

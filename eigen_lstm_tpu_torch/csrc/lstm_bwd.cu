@@ -1,20 +1,40 @@
-// Layer-0 LSTM backward for Hopper (sm_90a), bound from Python through
-// ctypes (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers.
+// LSTM backward for Hopper (sm_90a), bound from Python through ctypes
+// (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Two C
+// launchers share one reverse-time step kernel:
+//   lstm_bwd_embed_launch (K3) <- pallas_cell.py:_bwd_embed_fused_kernel,
+//       layer 0 with its weight gradients dW, dU, db;
+//   lstm_bwd_scan_launch (K6)  <- pallas_cell.py:_bwd_kernel with the dU
+//       product of _bwd_core (:393-414), layers >= 1: dg_seq, dU, dh0, dc0.
 //
-// Replaces eigen_lstm_tpu/ops/pallas_cell.py:_bwd_embed_fused_kernel (the
-// reverse-time backward of the fused-embedding layer 0, with its gate
-// backward _gate_bwd). For t = S-1 .. 0, with dh_{S-1} carried from dhT and
-// dc from dcT:
-//   dh_total = dh_seq[t] + dh_rec,   dh_rec = round(dg_{t+1}) @ U^T (fp32)
+// The reverse step (the gate backward _gate_bwd). For t = S-1 .. 0, with
+// dh_{S-1} carried from dhT and dc from dcT:
+//   dh_cot   = dh_seq[t], or with dropout where(keep(seed, t), dh_seq[t] *
+//              inv, 0): the cotangent is the masked stream's, and the mask
+//              is rebuilt from (seed, t) as the forward drew it
+//              (pallas_cell.py:629-634; t is the timestep, not the
+//              iteration)
+//   dh_total = dh_cot + dh_rec,      dh_rec = round(dg_{t+1}) @ U^T (fp32)
 //   dg_t     = gate backward of (g_t, c_t, c_{t-1}, dh_total, dc) in fp32
 //   dc       = dc_raw * f
-// then dh0 = round(dg_0) @ U^T, dc0 = dc, and the weight gradients
+// then dh0 = round(dg_0) @ U^T, dc0 = dc, and
 //   dU = sum_t round(h_{t-1})^T round(dg_t)    (h_{-1} = h0)
+// K3 adds
 //   dW[v] = sum_{(t,b): ids = v} round(dg_t[b])  (the one-hot product)
 //   db = sum_{t,b} dg_t[b]                      (unrounded fp32 dg)
+// and K6 hands dg_seq out in the xw type (bf16 under bf16 compute,
+// pallas_cell.py:299, :365): dW, db and dx of layers >= 1 follow from it
+// outside, in torch (x @ W stays a plain large product, as in XLA). K6's
+// h_{-1} arrives rounded to the residual type, as _bwd_core rounds h0.
 // round() is the compute type (bf16 or fp32); every sum is fp32.
 //
-// What bounds it on the H100: a window at the bench shapes (S = 100,
+// What bounds K6 on the H100: the flagship's training window (S = 256,
+// B = 128, N = 1024) is 2*S*B*4N*N flops for dh_rec plus as many for dU
+// (550 GFLOP) against ~1.2 GB that the function must move (the fp32 g, c
+// and h residuals are 0.8 GB of it), so operations bound it, at 0.56 ms in
+// bf16 and 8.2 ms in fp32 (k6_bound() in chip_smoke.py). It runs on CUDA
+// cores like K3, one launch per reverse step, far above that.
+//
+// What bounds K3 on the H100: a window at the bench shapes (S = 100,
 // B = 128, N = 512, M = 256) is 2*S*B*4N*N flops for dh_rec plus as many
 // for dU (53.7 GFLOP; the one-hot product is a gather-add and counted as
 // no flops), against ~190 MB the function must move (the fp32 g, c and h
@@ -40,7 +60,13 @@
 //     atb_gemm for dU, embed_grad for dW (for each byte v, the rows whose
 //     id is v, found by a ballot compaction, summed in row order: a
 //     deterministic segmented sum, no atomics) and colsum for db.
-// Every sum has a fixed order, so the kernel is deterministic.
+//   * K6 is the same reverse loop (run_reverse) and the same atb_gemm for
+//     dU; the TPU's _bwd_kernel already left dU to one product outside the
+//     recurrence. Under bf16 compute one store_as launch writes dg_seq in
+//     bf16: S + 1 step launches, one or two for dU, and that one.
+//   * The dropout mask costs no bytes: each thread hashes its own (t, b, j)
+//     in the step's epilogue, where it reads dh_seq[t].
+// Every sum has a fixed order, so the kernels are deterministic.
 
 #include "common.cuh"
 
@@ -66,7 +92,7 @@ lstm_bwd_step(const CT* __restrict__ UT,          // (4N, N) = U^T
               float* __restrict__ dc,             // (B, N) in place
               float* __restrict__ dg_t,           // (B, 4N) out
               float* __restrict__ dh_out,         // (B, N) final mode out
-              int B, int N, int standard) {
+              Dropout drop, int tau, int B, int N, int standard) {
   __shared__ float ds[kBT][kKT];
   __shared__ float red[kKS][kBT][kLanes];
 
@@ -123,7 +149,10 @@ lstm_bwd_step(const CT* __restrict__ UT,          // (4N, N) = U^T
   const float gu = to_f32(g_t[gb + 3 * (size_t)N]);
   const float ct = to_f32(c_t[idx]);
   const float cp = c_prev_t != nullptr ? to_f32(c_prev_t[idx]) : c0[idx];
-  const float dh_total = dh_seq_t[idx] + dh_rec;
+  float dh_cot = dh_seq_t[idx];
+  // __fmul_rn: the product rounds before the add, as in the TPU kernel
+  if (drop.on) dh_cot = keep_bit(drop, tau, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
+  const float dh_total = dh_cot + dh_rec;
   float dc_raw, d_o;
   if (standard) {
     const float tc = tanhf(ct);
@@ -177,20 +206,28 @@ embed_grad(const int* __restrict__ ids, const float* __restrict__ dg,
   if (col < C) dW[(size_t)v * C + col] = acc;
 }
 
+// out[e] = x[e] in the type XT.
+template <typename XT>
+__global__ void store_as(const float* __restrict__ x, XT* __restrict__ out,
+                         size_t n) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) out[e] = from_f32<XT>(x[e]);
+}
+
+// The S reverse steps and the final dh0 reduction: S + 1 launches. dg is
+// the (S, B, 4N) fp32 dg sequence, dc holds dcT on entry and dc0 after.
 template <typename CT, typename RT>
-int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
-            const void* h_seq, const int* ids, const float* h0,
-            const float* c0, const float* dh_seq, const float* dhT, float* dc,
-            float* dg, float* dWU, float* db, float* dh0, float* work, int S,
-            int B, int N, int M, int standard, cudaStream_t stream,
-            int* launches) {
+int run_reverse(const void* UT, const void* g_seq, const void* c_seq,
+                const float* c0, const float* dh_seq, const float* dhT,
+                float* dc, float* dg, float* dh0, int S, int B, int N,
+                int standard, Dropout drop, cudaStream_t stream,
+                int* launches) {
   const dim3 grid(N / kLanes, (B + kBT - 1) / kBT);
   const dim3 block(kLanes, kKS);
   const size_t bn = (size_t)B * N, bn4 = 4 * bn;
   const CT* ut = static_cast<const CT*>(UT);
   const RT* gs = static_cast<const RT*>(g_seq);
   const RT* cs = static_cast<const RT*>(c_seq);
-  cudaError_t err;
   for (int t = S - 1; t >= -1; --t) {
     // t = -1: the final reduction, dh0 = round(dg_0) @ U^T
     const bool last = t == -1;
@@ -198,21 +235,60 @@ int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
         ut, t < S - 1 ? dg + (t + 1) * bn4 : nullptr, dhT,
         last ? nullptr : dh_seq + t * bn, last ? nullptr : gs + t * bn4,
         last ? nullptr : cs + t * bn, t > 0 ? cs + (t - 1) * bn : nullptr, c0,
-        dc, last ? nullptr : dg + t * bn4, dh0, B, N, standard);
-    err = cudaGetLastError();
+        dc, last ? nullptr : dg + t * bn4, dh0, drop, t, B, N, standard);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
   }
+  return 0;
+}
+
+template <typename CT, typename RT>
+int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
+            const void* h_seq, const int* ids, const float* h0,
+            const float* c0, const float* dh_seq, const float* dhT, float* dc,
+            float* dg, float* dWU, float* db, float* dh0, float* work, int S,
+            int B, int N, int M, int standard, Dropout drop,
+            cudaStream_t stream, int* launches) {
+  int e = run_reverse<CT, RT>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0,
+                              S, B, N, standard, drop, stream, launches);
+  if (e != 0) return e;
   const int R = S * B, C = 4 * N;
   // dU = h_prev^T dg: rows r < B of h_prev are h0, then h_seq[r - B]
-  int e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg,
-                          dWU + (size_t)M * C, work, R, N, C, stream, launches);
+  e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg,
+                      dWU + (size_t)M * C, work, R, N, C, stream, launches);
   if (e != 0) return e;
   embed_grad<CT><<<dim3(M, (C + 255) / 256), 256, 0, stream>>>(ids, dg, dWU, R, C);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
   return run_colsum(dg, db, work, R, C, stream, launches);
+}
+
+// K6: the reverse steps, dU over the fp32 dg (round_c(dg) is the xw-type
+// dg's own rounding: the xw type is the compute type), then dg_seq in the
+// xw type CT, unless dgx is dg itself (fp32).
+template <typename CT, typename RT>
+int run_bwd_scan(const void* UT, const void* g_seq, const void* c_seq,
+                 const void* h_seq, const float* h0, const float* c0,
+                 const float* dh_seq, const float* dhT, float* dc, float* dg,
+                 void* dgx, float* dU, float* dh0, float* work, int S, int B,
+                 int N, int standard, Dropout drop, cudaStream_t stream,
+                 int* launches) {
+  int e = run_reverse<CT, RT>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0,
+                              S, B, N, standard, drop, stream, launches);
+  if (e != 0) return e;
+  const int R = S * B;
+  e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg, dU, work, R,
+                      N, 4 * N, stream, launches);
+  if (e != 0 || dgx == static_cast<void*>(dg)) return e;
+  const size_t n = (size_t)R * 4 * N;
+  store_as<CT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      dg, static_cast<CT*>(dgx), n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
 }
 
 }  // namespace
@@ -227,13 +303,17 @@ extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N) {
 // Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N) in the compute type;
 // the residual sequences have the residual type; h0, c0, dh_seq, dhT and the
 // outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
-// (S, B, 4N) fp32 scratch. Adds its kernel launches to *launches.
+// (S, B, 4N) fp32 scratch. drop_on, seed, keep, inv: the dropout of the
+// forward's masked stream (pallas_cell.py:_keep_mask). Adds its kernel
+// launches to *launches.
 extern "C" int lstm_bwd_embed_launch(
     int ctype, int rtype, const void* UT, const void* g_seq,
     const void* c_seq, const void* h_seq, const void* ids, const void* h0,
     const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dg,
     void* dWU, void* db, void* dh0, void* work, int S, int B, int N, int M,
-    int standard, void* stream, int* launches) {
+    int standard, int drop_on, unsigned seed, unsigned keep, float inv,
+    void* stream, int* launches) {
+  const Dropout drop{drop_on, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(UT, g_seq, c_seq, h_seq, static_cast<const int*>(ids),
                static_cast<const float*>(h0), static_cast<const float*>(c0),
@@ -241,7 +321,7 @@ extern "C" int lstm_bwd_embed_launch(
                static_cast<const float*>(dhT), static_cast<float*>(dc),
                static_cast<float*>(dg), static_cast<float*>(dWU),
                static_cast<float*>(db), static_cast<float*>(dh0),
-               static_cast<float*>(work), S, B, N, M, standard,
+               static_cast<float*>(work), S, B, N, M, standard, drop,
                static_cast<cudaStream_t>(stream), launches);
   };
   using bf = __nv_bfloat16;
@@ -249,5 +329,39 @@ extern "C" int lstm_bwd_embed_launch(
   if (ctype == 0 && rtype == 1) return f(run_bwd<float, bf>);
   if (ctype == 1 && rtype == 0) return f(run_bwd<bf, float>);
   if (ctype == 1 && rtype == 1) return f(run_bwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Scratch floats lstm_bwd_scan_launch needs in `work`.
+extern "C" size_t lstm_bwd_scan_work_floats(int S, int B, int N) {
+  return atb_work_floats(S * B, N, 4 * N);
+}
+
+// K6. As lstm_bwd_embed_launch, without ids, dW and db; h0 is h_{-1}
+// rounded to the residual type; dg is the (S, B, 4N) fp32 scratch and dgx
+// receives dg_seq in the compute type (dgx == dg under fp32 compute); dU
+// (N, 4N) fp32.
+extern "C" int lstm_bwd_scan_launch(
+    int ctype, int rtype, const void* UT, const void* g_seq,
+    const void* c_seq, const void* h_seq, const void* h0, const void* c0,
+    const void* dh_seq, const void* dhT, void* dc, void* dg, void* dgx,
+    void* dU, void* dh0, void* work, int S, int B, int N, int standard,
+    int drop_on, unsigned seed, unsigned keep, float inv, void* stream,
+    int* launches) {
+  const Dropout drop{drop_on, seed, keep, inv};
+  const auto f = [&](auto run) {
+    return run(UT, g_seq, c_seq, h_seq, static_cast<const float*>(h0),
+               static_cast<const float*>(c0),
+               static_cast<const float*>(dh_seq),
+               static_cast<const float*>(dhT), static_cast<float*>(dc),
+               static_cast<float*>(dg), dgx, static_cast<float*>(dU),
+               static_cast<float*>(dh0), static_cast<float*>(work), S, B, N,
+               standard, drop, static_cast<cudaStream_t>(stream), launches);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_bwd_scan<float, float>);
+  if (ctype == 0 && rtype == 1) return f(run_bwd_scan<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(run_bwd_scan<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(run_bwd_scan<bf, bf>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // Forward LSTM recurrence for Hopper (sm_90a): one timestep per launch, two
 // input modes behind two C launchers, bound from Python through ctypes
 // (eigen_lstm_tpu_torch/ops/cuda_cell.py). No PyTorch headers: the file
-// builds with one plain nvcc call into a shared library.
+// builds with a plain nvcc call, linked into one shared library.
 //
 // Replaces two TPU kernels of eigen_lstm_tpu/ops/pallas_cell.py:
 //   lstm_fwd_embed_launch <- _fwd_embed_kernel (layer 0, embedding fused):
@@ -13,6 +13,10 @@
 // "reference" carries c2 = tanh(i*u + f*c_prev) with h = o*c2; "standard"
 // carries c_raw with h = o*tanh(c_raw). round() is the compute type (bf16
 // or fp32); products accumulate in fp32 and the carry stays fp32.
+// With dropout (a non-null hdrop) each step also writes the masked stream
+// where(keep(seed, t), h * inv, 0) in the residual type, the epilogue of
+// both TPU kernels (pallas_cell.py:221-224, :546-553): the product in fp32
+// before the one rounding. h_seq and the carry stay unmasked.
 //
 // What bounds it on the H100: a window is 2*S*B*N*4N flops of recurrent
 // products (17.2 GFLOP at S = 128, B = 16, N = 1024) against 13-34 MB that
@@ -44,9 +48,11 @@ constexpr int kKS = 8;      // warps splitting the k reduction
 constexpr int kBT = 4;      // batch rows per block
 constexpr int kKT = 256;    // k tile of h_{t-1} staged in shared memory
 
-// One timestep. EMBED selects the input: W[ids_t] + b (layer 0) or xw_t.
+// One timestep. EMBED selects the input: W[ids_t] + b (layer 0) or xw_t;
+// DROP adds the masked stream (a template flag, so that the kernel without
+// dropout carries no code for it).
 // grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
-template <typename CT, typename RT, typename XT, bool EMBED>
+template <typename CT, typename RT, typename XT, bool EMBED, bool DROP>
 __global__ void __launch_bounds__(kLanes * kKS)
 lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
               const XT* __restrict__ xw_t,     // (B, 4N), !EMBED
@@ -60,7 +66,8 @@ lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
               RT* __restrict__ hseq_t,         // (B, N)
               RT* __restrict__ cseq_t,         // (B, N) or null
               RT* __restrict__ gseq_t,         // (B, 4N) or null
-              int B, int N, int standard) {
+              RT* __restrict__ hdrop_t,        // (B, N), DROP
+              Dropout drop, int tau, int B, int N, int standard) {
   __shared__ float hs[kBT][kKT];
   __shared__ float red[kKS][4][kBT][kLanes];
 
@@ -136,6 +143,8 @@ lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
   h_out[idx] = h;
   c_out[idx] = c;
   hseq_t[idx] = from_f32<RT>(h);
+  if (DROP)
+    hdrop_t[idx] = from_f32<RT>(keep_bit(drop, tau, idx) ? h * drop.inv : 0.0f);
   if (cseq_t != nullptr) cseq_t[idx] = from_f32<RT>(c);
   if (gseq_t != nullptr) {
 #pragma unroll
@@ -151,8 +160,8 @@ template <typename CT, typename RT, typename XT, bool EMBED>
 int run_scan(const void* U, const void* xw, const void* W, const float* bias,
              const int* ids, const float* h0, const float* c0, float* hT,
              float* cT, float* h_tmp, float* c_tmp, void* hseq, void* cseq,
-             void* gseq, int S, int B, int N, int standard,
-             cudaStream_t stream) {
+             void* gseq, void* hdrop, Dropout drop, int S, int B, int N,
+             int standard, cudaStream_t stream) {
   const dim3 grid(N / kLanes, (B + kBT - 1) / kBT);
   const dim3 block(kLanes, kKS);
   const size_t bn = (size_t)B * N, bn4 = 4 * bn;
@@ -162,13 +171,17 @@ int run_scan(const void* U, const void* xw, const void* W, const float* bias,
     const bool to_final = ((S - 1 - t) % 2) == 0;
     float* h_out = to_final ? hT : h_tmp;
     float* c_out = to_final ? cT : c_tmp;
-    lstm_fwd_step<CT, RT, XT, EMBED><<<grid, block, 0, stream>>>(
+    const auto step = hdrop ? lstm_fwd_step<CT, RT, XT, EMBED, true>
+                            : lstm_fwd_step<CT, RT, XT, EMBED, false>;
+    step<<<grid, block, 0, stream>>>(
         static_cast<const CT*>(U),
         EMBED ? nullptr : static_cast<const XT*>(xw) + t * bn4,
         static_cast<const CT*>(W), bias, EMBED ? ids + (size_t)t * B : nullptr,
         h_in, c_in, h_out, c_out, static_cast<RT*>(hseq) + t * bn,
         cseq ? static_cast<RT*>(cseq) + t * bn : nullptr,
-        gseq ? static_cast<RT*>(gseq) + t * bn4 : nullptr, B, N, standard);
+        gseq ? static_cast<RT*>(gseq) + t * bn4 : nullptr,
+        hdrop ? static_cast<RT*>(hdrop) + t * bn : nullptr, drop, t, B, N,
+        standard);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     h_in = h_out;
@@ -180,19 +193,22 @@ int run_scan(const void* U, const void* xw, const void* W, const float* bias,
 }  // namespace
 
 // Type codes: 0 = fp32, 1 = bf16. The xw stream of the scan launcher has
-// the compute type (bf16 under bf16 compute, pallas_cell.py:475).
+// the compute type (bf16 under bf16 compute, pallas_cell.py:475). hdrop,
+// null for no dropout, receives the masked stream of (seed, keep, inv).
 extern "C" int lstm_fwd_embed_launch(
     int ctype, int rtype, const void* W, const void* U, const void* bias,
     const void* ids, const void* h0, const void* c0, void* hT, void* cT,
-    void* h_tmp, void* c_tmp, void* hseq, void* cseq, void* gseq, int S,
-    int B, int N, int standard, void* stream) {
+    void* h_tmp, void* c_tmp, void* hseq, void* cseq, void* gseq,
+    void* hdrop, int S, int B, int N, int standard, unsigned seed,
+    unsigned keep, float inv, void* stream) {
+  const Dropout drop{hdrop != nullptr, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, nullptr, W, static_cast<const float*>(bias),
                static_cast<const int*>(ids), static_cast<const float*>(h0),
                static_cast<const float*>(c0), static_cast<float*>(hT),
                static_cast<float*>(cT), static_cast<float*>(h_tmp),
-               static_cast<float*>(c_tmp), hseq, cseq, gseq, S, B, N,
-               standard, static_cast<cudaStream_t>(stream));
+               static_cast<float*>(c_tmp), hseq, cseq, gseq, hdrop, drop, S,
+               B, N, standard, static_cast<cudaStream_t>(stream));
   };
   using bf = __nv_bfloat16;
   if (ctype == 0 && rtype == 0) return f(run_scan<float, float, float, true>);
@@ -205,14 +221,15 @@ extern "C" int lstm_fwd_embed_launch(
 extern "C" int lstm_fwd_scan_launch(
     int ctype, int rtype, const void* U, const void* xw, const void* h0,
     const void* c0, void* hT, void* cT, void* h_tmp, void* c_tmp, void* hseq,
-    void* cseq, void* gseq, int S, int B, int N, int standard,
-    void* stream) {
+    void* cseq, void* gseq, void* hdrop, int S, int B, int N, int standard,
+    unsigned seed, unsigned keep, float inv, void* stream) {
+  const Dropout drop{hdrop != nullptr, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, xw, nullptr, nullptr, nullptr,
                static_cast<const float*>(h0), static_cast<const float*>(c0),
                static_cast<float*>(hT), static_cast<float*>(cT),
                static_cast<float*>(h_tmp), static_cast<float*>(c_tmp), hseq,
-               cseq, gseq, S, B, N, standard,
+               cseq, gseq, hdrop, drop, S, B, N, standard,
                static_cast<cudaStream_t>(stream));
   };
   using bf = __nv_bfloat16;

@@ -34,7 +34,9 @@ def split(data: np.ndarray, train_percent: float) -> Tuple[np.ndarray, np.ndarra
     return data[:n_train], data[n_train:]
 
 
-def _limit(corpus_len: int, seq: int) -> int:
+def corpus_limit(corpus_len: int, seq: int) -> int:
+    """The largest cursor: the window of S+1 bytes there ends at the last
+    byte. Fresh cursors are drawn below it; an advanced one may reach it."""
     return corpus_len - seq - 1
 
 
@@ -42,7 +44,7 @@ def init_positions(generator: torch.Generator, batch: int, corpus_len: int,
                    seq: int) -> torch.Tensor:
     """Random window starts in [0, corpus_len - seq - 1), (B,) int32 on the
     generator's device. The draws differ from the JAX package's."""
-    limit = _limit(corpus_len, seq)
+    limit = corpus_limit(corpus_len, seq)
     if limit <= 0:
         raise ValueError(f"corpus too short: len={corpus_len} seq={seq}")
     return torch.randint(0, limit, (batch,), generator=generator,
@@ -62,7 +64,7 @@ def advance_positions(positions: torch.Tensor, stride: int, corpus_len: int,
                       seq: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cursors advanced by ``stride``, wrapped modulo the last valid start
     past it: (new positions (B,) int32, wrapped (B,) bool)."""
-    limit = _limit(corpus_len, seq)
+    limit = corpus_limit(corpus_len, seq)
     nxt = positions.to(torch.int64) + stride
     wrapped = nxt > limit
     nxt = torch.where(wrapped, nxt % max(limit, 1), nxt)

@@ -21,6 +21,7 @@ from ..config import ModelConfig
 from ..ops import cell as cell_ops
 
 LN2 = 0.6931471805599453
+_M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -125,6 +126,43 @@ def _scan_layer(
     return torch.stack(hs), (h, c)
 
 
+def step_key(seed: int, step: int) -> int:
+    """The dropout key of training step ``step`` of a run seeded ``seed``: a
+    pure function of the two, so a resumed run draws the masks a straight
+    run would (the JAX trainer's ``fold_in(key, step)``,
+    ``trainer.py:89-92``; the bits differ from the JAX package's)."""
+    return cell_ops.hash32(cell_ops.hash32(seed) ^ ((step * 0x9E3779B9) & _M32))
+
+
+def _drop_seed(key, l: int) -> int:
+    """The int32 seed of layer ``l``'s dropout mask: a pure function of the
+    step's key and the layer, so masks differ across layers and steps (the
+    JAX ``_drop_seed``, ``models/lstm.py:186-194``, with other bits). A
+    ``key`` that is a sequence of per-layer seeds gives them as they are:
+    the tests pass the JAX package's."""
+    if isinstance(key, (tuple, list)):
+        return int(key[l])
+    h = cell_ops.hash32
+    x = h(h(key) ^ h(l ^ 0x632BE5AB))
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout of the model's own loop (``cell_fn=None``), the JAX
+    ``_dropout`` (``models/lstm.py:166-183``): keep where 32 random bits
+    are <= int(keep * (2**32 - 1)), then x / keep. The bits come from a
+    torch generator seeded with the layer's seed on x's device; the JAX
+    package's RBG bits cannot be reproduced."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(seed & _M32)
+    bits = torch.randint(0, 1 << 32, x.shape, generator=gen,
+                         dtype=torch.int64, device=x.device)
+    thresh = int(keep * (2**32 - 1))
+    return torch.where(bits <= thresh,
+                       x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+                       torch.zeros_like(x))
+
+
 def _substitute_tied_embed(params: LSTMParams, cfg: ModelConfig) -> LSTMParams:
     """Tied embeddings: layer 0's input weight becomes W_eff = Why^T @ W0.
     No-op when untied."""
@@ -154,12 +192,23 @@ def forward(
     per-layer recurrence, and its ``embed_layer0(layer, ids, h0, c0, cfg)``
     attribute, when present, replaces layer 0 with the embedding fused in.
     Gradients flow through both (``ops.cuda_cell_bwd``) and through the
-    plain loop. Dropout (``dropout_key``) and ``scan_chunk`` are not ported
-    yet."""
-    if dropout_key is not None and cfg.dropout > 0.0:
-        raise NotImplementedError("dropout: not ported yet")
+    plain loop.
+
+    ``dropout_key`` (an int, ``step_key``'s; or a sequence of per-layer
+    int32 seeds) with ``cfg.dropout > 0`` drops out each layer's output
+    stream, between the layers and before the head; None is eval. A
+    ``cell_fn`` with ``fused_dropout`` takes ``dropout=(rate, seed)`` and
+    masks in its kernels with ``_keep_mask``'s bits, one seed per layer
+    from ``_drop_seed``; the carried (hT, cT) stay unmasked. Otherwise
+    ``_dropout`` masks the stream. ``scan_chunk`` is not ported yet."""
     if cfg.scan_chunk:
         raise NotImplementedError("scan_chunk: not ported yet")
+    drop = cfg.dropout if dropout_key is not None else 0.0
+    if drop > 0.0 and isinstance(dropout_key, (tuple, list)) \
+            and len(dropout_key) != cfg.num_layers:
+        raise ValueError(f"{len(dropout_key)} dropout seeds for "
+                         f"{cfg.num_layers} layers")
+    fdrop = drop > 0.0 and getattr(cell_fn, "fused_dropout", False)
     scan_fn = cell_fn or _scan_layer
     embed_fn = getattr(cell_fn, "embed_layer0", None)
     s, b_ = ids.shape
@@ -167,8 +216,9 @@ def forward(
     h_last, c_last = [], []
     params = _substitute_tied_embed(params, cfg)
     for l, layer in enumerate(params.layers):
+        kw = {"dropout": (drop, _drop_seed(dropout_key, l))} if fdrop else {}
         if l == 0 and embed_fn is not None:
-            h_seq, (hT, cT) = embed_fn(layer, ids, h0[0], c0[0], cfg)
+            h_seq, (hT, cT) = embed_fn(layer, ids, h0[0], c0[0], cfg, **kw)
         else:
             if l == 0:
                 if cfg.embedding_mode == "onehot":
@@ -185,7 +235,9 @@ def forward(
                     x.reshape(s * b_, -1), layer.W, cfg.cdtype
                 ).reshape(s, b_, -1)
             xw = xw + layer.b.to(cfg.adtype)
-            h_seq, (hT, cT) = scan_fn(layer, xw, h0[l], c0[l], cfg)
+            h_seq, (hT, cT) = scan_fn(layer, xw, h0[l], c0[l], cfg, **kw)
+        if drop > 0.0 and not fdrop:
+            h_seq = _dropout(h_seq, drop, _drop_seed(dropout_key, l))
         x = h_seq
         h_last.append(hT)
         c_last.append(cT)

@@ -1,9 +1,10 @@
-"""Builds the port's CUDA sources with one plain ``nvcc`` call and loads the
+"""Builds the port's CUDA sources with plain ``nvcc`` calls and loads the
 result with ``ctypes``.
 
 The sources (``csrc/*.cu``, with the shared ``csrc/*.cuh``) include no
 PyTorch header and export C functions, so the build is seconds of ``nvcc``
-and needs neither ``torch.utils.cpp_extension`` nor ``ninja``. The library
+and needs neither ``torch.utils.cpp_extension`` nor ``ninja``: one ``nvcc
+-c`` per source, all started together, then one link. The library
 goes to ``eigen_lstm_tpu_torch/_build/`` under a name that carries a hash
 of the sources, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing is built on import: ``load_library`` runs at the
@@ -26,22 +27,29 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _Z = ctypes.c_size_t
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_DROP = [_U, _U, _F]   # the dropout's seed (int32 bits), keep threshold, inv
 # (restype, argtypes) of every exported function: c_void_p for pointers and
 # the stream, c_int for ints (an unset argtype would pass a pointer as a
 # 32-bit int and cut it). The backward and head launchers add the number
 # of kernels they launched to their last argument.
 SIGNATURES = {
-    "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 13 + [_I] * 4 + [_P]),
-    "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 4 + [_P]),
-    "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 5 + [_P, _IP]),
+    "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 4 + _DROP + [_P]),
+    "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 12 + [_I] * 4 + _DROP + [_P]),
+    "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 6 + _DROP
+                              + [_P, _IP]),
     "lstm_bwd_embed_work_floats": (_Z, [_I] * 3),
+    "lstm_bwd_scan_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 5 + _DROP
+                             + [_P, _IP]),
+    "lstm_bwd_scan_work_floats": (_Z, [_I] * 3),
     "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 3 + [_P, _IP]),
     "head_bwd_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_P, _IP]),
     "head_fwd_work_floats": (_Z, [_I]),
@@ -91,31 +99,50 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"liblstm_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Runs the commands side by side and waits for all of them; raises
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compiles every source into one shared library unless a library of
-    the same sources is there already. Returns its path; raises with
-    nvcc's output when the build fails."""
+    the same sources is there already: one ``nvcc -c`` per source, all at
+    once, then one link. Returns its path; raises with nvcc's output when
+    the build fails."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", tmp] + sources()
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run_all([[nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+                  for src, obj in zip(sources(), objs)])
+        tmp = f"{out}.{tag}"
+        _run_all([[nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     _State.build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     return out
 
 
 def build_seconds() -> Optional[float]:
-    """Seconds the nvcc call of this process took; None if the library was
-    already built."""
+    """Seconds the nvcc calls of this process took; None if the library
+    was already built."""
     return _State.build_seconds
 
 

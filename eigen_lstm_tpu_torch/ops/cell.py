@@ -85,6 +85,17 @@ def matmul(
     )
 
 
+def hash32(x: int) -> int:
+    """murmur3's 32-bit finalizer (the ``_fmix32`` of
+    ``eigen_lstm_tpu/ops/pallas_cell.py``) on a host integer, mod 2**32."""
+    x &= 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & 0xFFFFFFFF
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & 0xFFFFFFFF
+    return x ^ (x >> 16)
+
+
 def one_hot(ids: torch.Tensor, vocab: int, dtype=torch.float32) -> torch.Tensor:
     """Byte ids -> one-hot rows."""
     return torch.nn.functional.one_hot(ids.long(), vocab).to(dtype)

@@ -15,19 +15,28 @@ repeats the kernel's arithmetic in PyTorch:
 * products in fp32 (float64 in the float64 oracle configuration), the
   carry in fp32 between steps, the sequences stored in the residual type.
 
+With ``dropout=(rate, seed)`` both also return the masked stream
+where(keep, h * inv, 0) in the residual type, the fused dropout of the TPU
+kernels (``pallas_cell.py:221-224``, ``:546-553``): ``keep`` is
+``_keep_mask``'s hash of (seed, timestep, global element index), of which
+this module keeps the port's own copies (``_fmix32``, ``_keep_u32``,
+``host_keep_mask`` in numpy, ``keep_mask`` in torch, bit for bit the same),
+``inv`` = fp32(1 / (1 - rate)), the product in fp32 before the rounding.
+h_seq and the carried (hT, cT) stay unmasked.
+
 Each wrapper counts in ``.launches`` the kernel launches it makes: S per
 call, one per timestep.
 
 None of these functions is differentiable by itself, and each raises when
 asked for a gradient rather than return a result that autograd cannot
-follow: the gradient of layer 0 goes through ``cuda_cell_bwd`` (its
-backward kernel), and the backward of layers >= 1 is not ported yet.
+follow: gradients go through ``cuda_cell_bwd`` (the backward kernels).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
@@ -41,27 +50,127 @@ def _acc_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.float64 if cfg.cdtype == torch.float64 else torch.float32
 
 
+# --- the dropout keep-mask (pallas_cell.py:70-144) ---------------------------
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(x):
+    """murmur3's 32-bit finalizer on numpy uint32 values."""
+    x = x ^ (x >> np.uint32(16))
+    x = (x * np.uint32(0x7FEB352D)).astype(np.uint32)
+    x = x ^ (x >> np.uint32(15))
+    x = (x * np.uint32(0x846CA68B)).astype(np.uint32)
+    return x ^ (x >> np.uint32(16))
+
+
+def _keep_u32(drop: float) -> int:
+    """The keep threshold: an element stays where its hash is <= this."""
+    return int((1.0 - drop) * 0xFFFFFFFF)
+
+
+def _mask_base(seed: int, tau: int) -> int:
+    """The hash of (seed, timestep); seed is an int32 read as its bits."""
+    return cell_ops.hash32((seed & _M32) ^ ((tau * 0x9E3779B9) & _M32))
+
+
+def host_keep_mask(seed: int, tau: int, b: int, n: int, drop: float):
+    """(B, N) bool numpy keep-mask of timestep ``tau``: the hash of
+    (seed, tau, row * N + col) <= ``_keep_u32(drop)``, as the kernels draw
+    it."""
+    base = np.uint32(_mask_base(seed, tau))
+    with np.errstate(over="ignore"):
+        rows = np.arange(b, dtype=np.uint32)[:, None]
+        lanes = np.arange(n, dtype=np.uint32)[None, :]
+        idx = (rows * np.uint32(n) + lanes).astype(np.uint32)
+        bits = _fmix32((idx * np.uint32(0x85EBCA6B)).astype(np.uint32) ^ base)
+    return bits <= np.uint32(_keep_u32(drop))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), in 16-bit halves of c
+    so that no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32_torch(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_mask(seed: int, tau: int, b: int, n: int, drop: float,
+              device=None) -> torch.Tensor:
+    """``host_keep_mask`` as a (B, N) bool tensor on ``device``, computed
+    there in int64 (torch has no wrapping uint32 product)."""
+    idx = torch.arange(b * n, dtype=torch.int64, device=device).reshape(b, n)
+    bits = _fmix32_torch(_mul32(idx & _M32, 0x85EBCA6B)
+                         ^ _mask_base(seed, tau))
+    return bits <= _keep_u32(drop)
+
+
+def drop_scalars(dropout):
+    """(seed bits, keep threshold, fp32 inv) of ``dropout=(rate, seed)``
+    for the C launchers, or None when there is no dropout."""
+    if dropout is None or dropout[0] == 0.0:
+        return None
+    rate, seed = dropout
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside (0, 1)")
+    return int(seed) & _M32, _keep_u32(rate), float(np.float32(1.0 / (1.0 - rate)))
+
+
+def apply_keep(x: torch.Tensor, dropout, tau: int, af: torch.dtype):
+    """where(keep(seed, tau), x * inv, 0) in ``af``: the masked stream of
+    a forward step, or the cotangent of a backward step."""
+    rate, seed = dropout
+    inv = torch.tensor(1.0 / (1.0 - rate), dtype=af)
+    b, n = x.shape
+    keep = keep_mask(seed, tau, b, n, rate, x.device)
+    return torch.where(keep, x.to(af) * inv.to(x.device),
+                       torch.zeros((), dtype=af, device=x.device))
+
+
+# --- the recurrence ----------------------------------------------------------
+
+
 def _plain_recurrence(g_in, steps, U_c, h0, c0, cfg: ModelConfig,
-                      residuals: bool):
+                      residuals: bool, dropout=None):
     """g_pre_t = g_in(t) + round(h_{t-1}) @ U_c for t < steps, fp32 carry.
     ``g_in(t)`` gives the (B, 4N) input term of step t."""
     af = _acc_dtype(cfg)
     rd = cfg.rdtype
     n = cfg.hidden
+    drop = drop_scalars(dropout) is not None
     h, c = h0.to(af), c0.to(af)
-    hs, cs, gs = [], [], []
+    hs, cs, gs, hds = [], [], [], []
     for t in range(steps):
         g_pre = g_in(t) + cell_ops.matmul(h, U_c, cfg.cdtype, af)
         g = cell_ops.gate_activations(g_pre, n)
         h, c = cell_ops.cell_update(g, c, n, cfg.cell_variant)
         hs.append(h.to(rd))
+        if drop:
+            hds.append(apply_keep(h, dropout, t, af).to(rd))
         if residuals:
             cs.append(c.to(rd))
             gs.append(g.to(rd))
-    out = _finish(torch.stack(hs), h, c, cfg)
-    if residuals:
-        return out + (torch.stack(cs), torch.stack(gs))
-    return out
+    stack = lambda xs: torch.stack(xs) if xs else None
+    return _assemble(torch.stack(hs), h, c, cfg, residuals, stack(cs),
+                     stack(gs), stack(hds))
+
+
+def _assemble(h_seq, hT, cT, cfg: ModelConfig, residuals: bool, c_seq,
+              g_seq, hd_seq):
+    """The wrappers' return value: (h_out, (hT, cT)), h_out the masked
+    stream under dropout; with ``residuals`` (h_seq, (hT, cT), c_seq,
+    g_seq), and the masked stream last under dropout."""
+    if not residuals:
+        return _finish(h_seq if hd_seq is None else hd_seq, hT, cT, cfg)
+    out = _finish(h_seq, hT, cT, cfg) + (c_seq, g_seq)
+    return out if hd_seq is None else out + (hd_seq,)
 
 
 def _finish(h_seq, hT, cT, cfg: ModelConfig):
@@ -86,12 +195,13 @@ def _refuse_grad(layer, seq, h0, c0, embed: bool):
         raise NotImplementedError(
             "layer 0 is differentiated through "
             "ops.cuda_cell_bwd.differentiable_embed_layer0" if embed else
-            "the backward of the layers >= 1 kernel is not ported yet"
+            "layers >= 1 are differentiated through "
+            "ops.cuda_cell_bwd.differentiable_scan_layer"
         )
 
 
 def embed_layer0_plain(layer, ids, h0, c0, cfg: ModelConfig,
-                       residuals: bool = False):
+                       residuals: bool = False, dropout=None):
     """Plain version of the layer-0 kernel. With ``residuals`` it also
     returns the (S, B, N) cell and (S, B, 4N) activated gate sequences."""
     _refuse_grad(layer, ids, h0, c0, embed=True)
@@ -99,25 +209,30 @@ def embed_layer0_plain(layer, ids, h0, c0, cfg: ModelConfig,
     af = _acc_dtype(cfg)
     ids = ids.long()
     return _plain_recurrence(lambda t: W_c[ids[t]].to(af) + bias,
-                             ids.shape[0], U_c, h0, c0, cfg, residuals)
+                             ids.shape[0], U_c, h0, c0, cfg, residuals,
+                             dropout)
+
+
+def xw_type(cfg: ModelConfig) -> torch.dtype:
+    """The type of the xw stream and of its cotangent dg_seq: bf16 under
+    bf16 compute, else the accumulation type (``pallas_cell.py:475``)."""
+    return torch.bfloat16 if cfg.cdtype == torch.bfloat16 else _acc_dtype(cfg)
 
 
 def _xw_stream(xw, cfg: ModelConfig):
-    """xw as the kernel reads it: bf16 under bf16 compute, else the
-    accumulation type."""
-    return xw.to(torch.bfloat16 if cfg.cdtype == torch.bfloat16
-                 else _acc_dtype(cfg)).contiguous()
+    """xw as the kernel reads it, in ``xw_type``."""
+    return xw.to(xw_type(cfg)).contiguous()
 
 
 def scan_layer_plain(layer, xw, h0, c0, cfg: ModelConfig,
-                     residuals: bool = False):
+                     residuals: bool = False, dropout=None):
     """Plain version of the layers >= 1 kernel (bias folded into xw)."""
     _refuse_grad(layer, xw, h0, c0, embed=False)
     U_c = layer.U.to(cfg.cdtype)
     xs = _xw_stream(xw, cfg)
     af = _acc_dtype(cfg)
     return _plain_recurrence(lambda t: xs[t].to(af), xs.shape[0], U_c,
-                             h0, c0, cfg, residuals)
+                             h0, c0, cfg, residuals, dropout)
 
 
 def _validate(layer, seq, h0, c0, cfg: ModelConfig, embed: bool):
@@ -173,18 +288,17 @@ def shape_ok(cfg: ModelConfig) -> bool:
     return cfg.hidden % 32 == 0
 
 
-def _outputs(s, b, n, cfg: ModelConfig, device, residuals: bool):
+def _outputs(s, b, n, cfg: ModelConfig, device, residuals: bool,
+             drop: bool):
     f32 = dict(dtype=torch.float32, device=device)
-    outs = dict(
+    seq = lambda *shape: torch.empty(s, b, *shape, dtype=cfg.rdtype, device=device)
+    return dict(
         hT=torch.empty(b, n, **f32), cT=torch.empty(b, n, **f32),
         h_tmp=torch.empty(b, n, **f32), c_tmp=torch.empty(b, n, **f32),
-        hseq=torch.empty(s, b, n, dtype=cfg.rdtype, device=device),
-        cseq=None, gseq=None,
+        hseq=seq(n), cseq=seq(n) if residuals else None,
+        gseq=seq(4 * n) if residuals else None,
+        hdrop=seq(n) if drop else None,
     )
-    if residuals:
-        outs["cseq"] = torch.empty(s, b, n, dtype=cfg.rdtype, device=device)
-        outs["gseq"] = torch.empty(s, b, 4 * n, dtype=cfg.rdtype, device=device)
-    return outs
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -192,8 +306,8 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _result(o, cfg: ModelConfig, residuals: bool):
-    out = _finish(o["hseq"], o["hT"], o["cT"], cfg)
-    return out + (o["cseq"], o["gseq"]) if residuals else out
+    return _assemble(o["hseq"], o["hT"], o["cT"], cfg, residuals, o["cseq"],
+                     o["gseq"], o["hdrop"])
 
 
 def _raise_on(err: int, name: str):
@@ -202,14 +316,16 @@ def _raise_on(err: int, name: str):
 
 
 def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
-                 residuals: bool = False):
+                 residuals: bool = False, dropout=None):
     """Layer-0 recurrence with the embedding fused in: the kernel on a CUDA
     tensor, the plain version on a CPU tensor. ids: (S, B) byte ids;
     h0, c0: (B, N). Returns (h_seq, (hT, cT)), and with ``residuals`` also
-    the cell and activated gate sequences."""
+    the cell and activated gate sequences. ``dropout=(rate, seed)``: see
+    ``_assemble`` for where the masked stream goes."""
     _validate(layer, ids, h0, c0, cfg, embed=True)
+    drop = drop_scalars(dropout)
     if ids.device.type == "cpu":
-        return embed_layer0_plain(layer, ids, h0, c0, cfg, residuals)
+        return embed_layer0_plain(layer, ids, h0, c0, cfg, residuals, dropout)
     ctype, rtype = _kernel_types(cfg, ids.device)
     s, b = ids.shape
     n = cfg.hidden
@@ -218,7 +334,7 @@ def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     ids32 = ids.to(torch.int32).contiguous()
     h0f = h0.to(torch.float32).contiguous()
     c0f = c0.to(torch.float32).contiguous()
-    o = _outputs(s, b, n, cfg, dev, residuals)
+    o = _outputs(s, b, n, cfg, dev, residuals, drop is not None)
     lib = _build.load_library()
     err = lib.lstm_fwd_embed_launch(
         ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
@@ -226,21 +342,23 @@ def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
         o["hT"].data_ptr(), o["cT"].data_ptr(),
         o["h_tmp"].data_ptr(), o["c_tmp"].data_ptr(),
         o["hseq"].data_ptr(), _ptr(o["cseq"]), _ptr(o["gseq"]),
-        s, b, n, int(cfg.cell_variant == "standard"),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(o["hdrop"]), s, b, n, int(cfg.cell_variant == "standard"),
+        *(drop or (0, 0, 0.0)), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "lstm_fwd_embed_launch")
     embed_layer0.launches += s
     return _result(o, cfg, residuals)
 
 
-def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False):
+def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False,
+               dropout=None):
     """Recurrence of a layer >= 1 from the precomputed xw = x @ W + b:
     the kernel on a CUDA tensor, the plain version on a CPU tensor.
     xw: (S, B, 4N); h0, c0: (B, N). Returns as ``embed_layer0``."""
     _validate(layer, xw, h0, c0, cfg, embed=False)
+    drop = drop_scalars(dropout)
     if xw.device.type == "cpu":
-        return scan_layer_plain(layer, xw, h0, c0, cfg, residuals)
+        return scan_layer_plain(layer, xw, h0, c0, cfg, residuals, dropout)
     ctype, rtype = _kernel_types(cfg, xw.device)
     s, b, _ = xw.shape
     n = cfg.hidden
@@ -249,15 +367,15 @@ def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False):
     xs = _xw_stream(xw, cfg)
     h0f = h0.to(torch.float32).contiguous()
     c0f = c0.to(torch.float32).contiguous()
-    o = _outputs(s, b, n, cfg, dev, residuals)
+    o = _outputs(s, b, n, cfg, dev, residuals, drop is not None)
     lib = _build.load_library()
     err = lib.lstm_fwd_scan_launch(
         ctype, rtype, U_c.data_ptr(), xs.data_ptr(), h0f.data_ptr(),
         c0f.data_ptr(), o["hT"].data_ptr(), o["cT"].data_ptr(),
         o["h_tmp"].data_ptr(), o["c_tmp"].data_ptr(),
         o["hseq"].data_ptr(), _ptr(o["cseq"]), _ptr(o["gseq"]),
-        s, b, n, int(cfg.cell_variant == "standard"),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(o["hdrop"]), s, b, n, int(cfg.cell_variant == "standard"),
+        *(drop or (0, 0, 0.0)), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "lstm_fwd_scan_launch")
     scan_layer.launches += s

@@ -1,21 +1,35 @@
-"""The layer-0 backward kernel, its plain version, and layer 0 as an
-autograd function.
+"""The backward kernels of the recurrence, their plain versions, and the
+layers as autograd functions.
 
-``embed_layer0_bwd`` replaces ``pallas_cell.py:_bwd_embed_fused_kernel``
+``embed_layer0_bwd`` (K3) replaces ``pallas_cell.py:_bwd_embed_fused_kernel``
 (the backward of ``pallas_embed_layer0``'s custom VJP, ``:1027-1068``): from
 the forward's residuals and the cotangents of (h_seq, hT, cT) it returns
-dWU (M+N, 4N), db (4N,), dh0 and dc0 (B, N), all fp32. For a CUDA tensor
-it launches ``lstm_bwd_embed_launch`` of ``csrc/lstm_bwd.cu`` or raises;
-for a CPU tensor it runs ``embed_layer0_bwd_plain``, which repeats the
-kernel's arithmetic: dg in fp32, db from the unrounded dg, dg rounded to
-the compute type before dh_{t-1} = dg_c @ U_c^T, dU += round(h_{t-1})^T dg_c
-and dW[ids_t] += dg_c, with h_{-1} = h0 and c_{-1} = c0.
+dWU (M+N, 4N), db (4N,), dh0 and dc0 (B, N), all fp32.
 
-``differentiable_embed_layer0`` is layer 0 as ``models.lstm.forward`` calls
-it: the forward kernel (with residuals) and this backward inside a
-``torch.autograd.Function`` when a gradient is wanted, the forward kernel
-alone otherwise. Like the JAX custom VJP, it hands dW and dU back rounded
-to the compute type (``dWU.astype(WU.dtype)``, ``pallas_cell.py:1039``).
+``scan_layer_bwd`` (K6) replaces ``pallas_cell.py:_bwd_kernel`` (:227) with
+the dU product of ``_bwd_core`` (:393-414), the backward of
+``pallas_scan_layer``: it returns dg_seq (S, B, 4N) in the xw type (bf16
+under bf16 compute), dU (N, 4N), dh0 and dc0, fp32. dg_seq is the
+cotangent of xw = x @ W + b, from which autograd takes db, dW and dx.
+
+For a CUDA tensor each launches ``lstm_bwd_embed_launch`` or
+``lstm_bwd_scan_launch`` of ``csrc/lstm_bwd.cu`` or raises; for a CPU
+tensor it runs its plain version, which repeats the kernel's arithmetic:
+dg in fp32 (``_reverse_plain``), rounded to the compute type before
+dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c, with h_{-1} = h0
+(rounded to the residual type for K6, as ``_bwd_core`` rounds it); K3 adds
+dW[ids_t] += dg_c and db from the unrounded dg. With ``dropout=(rate,
+seed)`` the cotangent of h_seq is the masked stream's: step t masks it with
+the forward's keep(seed, t) and scales it by inv before it meets the
+recurrent dh (``pallas_cell.py:629-634``).
+
+``differentiable_embed_layer0`` and ``differentiable_scan_layer`` are the
+layers as ``models.lstm.forward`` calls them: the forward kernel (with
+residuals) and the backward kernel inside a ``torch.autograd.Function``
+when a gradient is wanted, the forward kernel alone otherwise. As the JAX
+custom VJPs do, they hand dW and dU back rounded to the compute type
+(``dWU.astype(WU.dtype)``, ``pallas_cell.py:1039``; ``dU.astype(U.dtype)``,
+``:409``), and dh0, dc0 from fp32.
 """
 
 from __future__ import annotations
@@ -31,38 +45,74 @@ from . import cell as cell_ops
 from . import cuda_cell
 
 
-def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
-                           dhT, dcT, cfg: ModelConfig, dg_out=None):
-    """Plain version of the layer-0 backward kernel; ``dg_out`` as the
-    kernel's."""
+def _reverse_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
+                   dropout):
+    """The reverse steps both kernels take: the (S, B, 4N) dg sequence,
+    dh0 = round(dg_0) @ U^T and dc0, in the accumulation type."""
     af = cuda_cell._acc_dtype(cfg)
-    s, b = ids.shape
     n = cfg.hidden
+    s = g_seq.shape[0]
+    drop = cuda_cell.drop_scalars(dropout) is not None
     U_a = U_c.to(af)
     dh, dc = dhT.to(af), dcT.to(af)
     dgs = [None] * s
     for t in reversed(range(s)):
         c_prev = c_seq[t - 1] if t > 0 else c0
-        dg, dc = cell_ops.gate_bwd(
-            g_seq[t].to(af), c_seq[t].to(af), c_prev.to(af),
-            dh_seq[t].to(af) + dh, dc, n, cfg.cell_variant,
+        dh_cot = (cuda_cell.apply_keep(dh_seq[t], dropout, t, af) if drop
+                  else dh_seq[t].to(af))
+        dgs[t], dc = cell_ops.gate_bwd(
+            g_seq[t].to(af), c_seq[t].to(af), c_prev.to(af), dh_cot + dh, dc,
+            n, cfg.cell_variant,
         )
-        dgs[t] = dg
-        dh = dg.to(cfg.cdtype).to(af) @ U_a.T
+        dh = dgs[t].to(cfg.cdtype).to(af) @ U_a.T
+    return torch.stack(dgs), dh, dc
+
+
+def _round(x, cfg: ModelConfig):
+    return x.to(cfg.cdtype).to(cuda_cell._acc_dtype(cfg))
+
+
+def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
+                           dhT, dcT, cfg: ModelConfig, dg_out=None,
+                           dropout=None):
+    """Plain version of the layer-0 backward kernel; ``dg_out`` as the
+    kernel's."""
+    af = cuda_cell._acc_dtype(cfg)
+    s, b = ids.shape
+    n = cfg.hidden
+    dg, dh, dc = _reverse_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
+                                dropout)
     if dg_out is not None:
-        dg_out.copy_(torch.stack(dgs))
-    dg = torch.stack(dgs).reshape(s * b, 4 * n)
-    dg_c = dg.to(cfg.cdtype).to(af)
+        dg_out.copy_(dg)
+    dg = dg.reshape(s * b, 4 * n)
+    dg_c = _round(dg, cfg)
     h_prev = torch.cat([h0.to(af)[None], h_seq[:-1].to(af)]).reshape(s * b, n)
-    dU = h_prev.to(cfg.cdtype).to(af).T @ dg_c
+    dU = _round(h_prev, cfg).T @ dg_c
     dW = torch.zeros(cfg.vocab, 4 * n, dtype=af, device=dg.device)
     dW.index_add_(0, ids.reshape(-1).long(), dg_c)
     return torch.cat([dW, dU]), dg.sum(0), dh, dc
 
 
-def _validate(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
-              cfg: ModelConfig):
-    s, b = ids.shape
+def scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
+                         cfg: ModelConfig, dg_out=None, dropout=None):
+    """Plain version of the layers >= 1 backward kernel; ``dg_out`` as the
+    kernel's."""
+    af = cuda_cell._acc_dtype(cfg)
+    s, b, n = h_seq.shape
+    dg, dh, dc = _reverse_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
+                                dropout)
+    if dg_out is not None:
+        dg_out.copy_(dg)
+    dg_x = dg.to(cuda_cell.xw_type(cfg))
+    h_prev = torch.cat([h0.to(cfg.rdtype)[None], h_seq[:-1].to(cfg.rdtype)])
+    dU = (_round(h_prev.reshape(s * b, n), cfg).T
+          @ _round(dg_x.reshape(s * b, 4 * n), cfg))
+    return dg_x, dU, dh, dc
+
+
+def _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
+              cfg: ModelConfig, dg_out):
+    s, b = h_seq.shape[:2]
     n = cfg.hidden
     expected = (("U", U_c, (n, 4 * n)), ("g_seq", g_seq, (s, b, 4 * n)),
                 ("c_seq", c_seq, (s, b, n)), ("h_seq", h_seq, (s, b, n)),
@@ -72,39 +122,64 @@ def _validate(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
     for name, x, shape in expected:
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-        if x.device != ids.device:
-            raise ValueError(f"{name} on {x.device}, ids on {ids.device}")
-    if ids.dtype.is_floating_point or ids.dtype == torch.bool:
-        raise TypeError(f"ids must be integer byte ids, got {ids.dtype}")
+        if x.device != h_seq.device:
+            raise ValueError(f"{name} on {x.device}, h_seq on {h_seq.device}")
+    if dg_out is not None and (
+            tuple(dg_out.shape) != (s, b, 4 * n) or dg_out.dtype != torch.float32
+            or dg_out.device != h_seq.device or not dg_out.is_contiguous()):
+        raise ValueError("dg_out must be a contiguous (S, B, 4N) fp32 tensor "
+                         "on the device of the sequences")
+
+
+def _dg_scratch(dg_out, s, b, n, device):
+    """The kernels' (S, B, 4N) fp32 dg sequence: ``dg_out`` when given (for
+    a check that replays each step from it), else a new tensor."""
+    if dg_out is None:
+        return torch.empty(s, b, 4 * n, dtype=torch.float32, device=device)
+    return dg_out
+
+
+def _kernel_inputs(U_c, seqs, cfg: ModelConfig, *fp32):
+    """U^T in the compute type, the residual sequences in the residual type
+    and the rest in fp32, all contiguous."""
+    UT = U_c.to(cfg.cdtype).t().contiguous()
+    return (UT, [x.to(cfg.rdtype).contiguous() for x in seqs],
+            [x.to(torch.float32).contiguous() for x in fp32])
+
+
+def _launch_args(cfg: ModelConfig, dropout, device):
+    drop = cuda_cell.drop_scalars(dropout)
+    return ((int(cfg.cell_variant == "standard"), int(drop is not None))
+            + (drop or (0, 0, 0.0))
+            + (torch.cuda.current_stream(device).cuda_stream,))
 
 
 def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
-                     cfg: ModelConfig, dg_out=None):
+                     cfg: ModelConfig, dg_out=None, dropout=None):
     """Layer-0 backward: the kernel on a CUDA tensor, the plain version on
     a CPU tensor. U_c: (N, 4N) in the compute type; g_seq (S, B, 4N), c_seq
     and h_seq (S, B, N) in the residual type; ids (S, B); h0, c0, dh_seq,
     dhT, dcT fp32. Returns (dWU (M+N, 4N), db (4N,), dh0, dc0) in fp32.
-    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence (for
-    a check that replays each step from it)."""
-    _validate(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT, cfg)
+    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence."""
+    _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
+    if tuple(ids.shape) != tuple(h_seq.shape[:2]) or ids.device != h_seq.device:
+        raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
+                         f"match h_seq {tuple(h_seq.shape)} on {h_seq.device}")
+    if ids.dtype.is_floating_point or ids.dtype == torch.bool:
+        raise TypeError(f"ids must be integer byte ids, got {ids.dtype}")
     if ids.device.type == "cpu":
         return embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
-                                      dh_seq, dhT, dcT, cfg, dg_out)
+                                      dh_seq, dhT, dcT, cfg, dg_out, dropout)
     ctype, rtype = cuda_cell._kernel_types(cfg, ids.device)
     s, b = ids.shape
     n, m = cfg.hidden, cfg.vocab
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
-    UT = U_c.to(cfg.cdtype).t().contiguous()
-    seqs = [x.to(cfg.rdtype).contiguous() for x in (g_seq, c_seq, h_seq)]
-    ins = [x.to(torch.float32).contiguous() for x in (h0, c0, dh_seq, dhT)]
+    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg, h0, c0,
+                                   dh_seq, dhT)
     ids32 = ids.to(torch.int32).contiguous()
     dc = dcT.to(torch.float32).clone().contiguous()
-    dg = torch.empty(s, b, 4 * n, **f32) if dg_out is None else dg_out
-    if tuple(dg.shape) != (s, b, 4 * n) or dg.dtype != torch.float32 \
-            or dg.device != dev or not dg.is_contiguous():
-        raise ValueError("dg_out must be a contiguous (S, B, 4N) fp32 tensor "
-                         "on the device of ids")
+    dg = _dg_scratch(dg_out, s, b, n, dev)
     dWU = torch.empty(m + n, 4 * n, **f32)
     db = torch.empty(4 * n, **f32)
     dh0 = torch.empty(b, n, **f32)
@@ -115,15 +190,75 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
         ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
         ids32.data_ptr(), *(x.data_ptr() for x in ins), dc.data_ptr(),
         dg.data_ptr(), dWU.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-        work.data_ptr(), s, b, n, m, int(cfg.cell_variant == "standard"),
-        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
+        work.data_ptr(), s, b, n, m, *_launch_args(cfg, dropout, dev),
+        ctypes.byref(launched),
     )
     embed_layer0_bwd.launches += launched.value
     cuda_cell._raise_on(err, "lstm_bwd_embed_launch")
     return dWU, db, dh0, dc
 
 
+def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
+                   cfg: ModelConfig, dg_out=None, dropout=None):
+    """Layers >= 1 backward: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor. Inputs as ``embed_layer0_bwd`` without ids. Returns
+    (dg_seq (S, B, 4N) in ``cuda_cell.xw_type``, dU (N, 4N), dh0, dc0),
+    fp32 but dg_seq. ``dg_out`` receives the fp32 dg sequence."""
+    _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
+    if h_seq.device.type == "cpu":
+        return scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq,
+                                    dhT, dcT, cfg, dg_out, dropout)
+    ctype, rtype = cuda_cell._kernel_types(cfg, h_seq.device)
+    s, b, n = h_seq.shape
+    dev = h_seq.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # h_{-1} rounded to the residual type, as _bwd_core concatenates it
+    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
+                                   h0.to(cfg.rdtype), c0, dh_seq, dhT)
+    dc = dcT.to(torch.float32).clone().contiguous()
+    dg = _dg_scratch(dg_out, s, b, n, dev)
+    dgx = (dg if cuda_cell.xw_type(cfg) == torch.float32
+           else torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=dev))
+    dU = torch.empty(n, 4 * n, **f32)
+    dh0 = torch.empty(b, n, **f32)
+    lib = _build.load_library()
+    work = torch.empty(max(1, lib.lstm_bwd_scan_work_floats(s, b, n)), **f32)
+    launched = ctypes.c_int(0)
+    err = lib.lstm_bwd_scan_launch(
+        ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
+        *(x.data_ptr() for x in ins), dc.data_ptr(), dg.data_ptr(),
+        dgx.data_ptr(), dU.data_ptr(), dh0.data_ptr(), work.data_ptr(),
+        s, b, n, *_launch_args(cfg, dropout, dev), ctypes.byref(launched),
+    )
+    scan_layer_bwd.launches += launched.value
+    cuda_cell._raise_on(err, "lstm_bwd_scan_launch")
+    return dgx, dU, dh0, dc
+
+
 embed_layer0_bwd.launches = 0
+scan_layer_bwd.launches = 0
+
+
+def _cotangents(ctx, dh_out, dhT, dcT, h_seq, h0, c0):
+    """(dh_seq, dhT, dcT) in the accumulation type: zeros for an output
+    that autograd did not reach; hT and cT left the forward in the residual
+    type, as in the JAX VJP."""
+    cfg = ctx.cfg
+    af = cuda_cell._acc_dtype(cfg)
+
+    def cot(x, like, rounded):
+        if x is None:
+            return torch.zeros(like.shape, dtype=af, device=like.device)
+        return (x.to(cfg.rdtype) if rounded else x).to(af)
+
+    return cot(dh_out, h_seq, False), cot(dhT, h0, True), cot(dcT, c0, True)
+
+
+def _layer_out(out):
+    """(the stream the layer hands on, hT, cT) of a forward wrapper's
+    residual result: the masked stream under dropout, else h_seq."""
+    h_seq, (hT, cT) = out[0], out[1]
+    return (out[4] if len(out) == 5 else h_seq), hT, cT
 
 
 class EmbedLayer0(torch.autograd.Function):
@@ -132,54 +267,94 @@ class EmbedLayer0(torch.autograd.Function):
     With ``plain`` both halves run their plain versions, on any device."""
 
     @staticmethod
-    def forward(ctx, W, U, b, ids, h0, c0, cfg: ModelConfig, plain: bool):
+    def forward(ctx, W, U, b, ids, h0, c0, cfg: ModelConfig, plain: bool,
+                dropout):
         layer = LayerParams(W, U, b)
         fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
-        h_seq, (hT, cT), c_seq, g_seq = fwd(layer, ids, h0, c0, cfg,
-                                            residuals=True)
-        ctx.save_for_backward(U, h_seq, c_seq, g_seq, ids, h0, c0)
-        ctx.cfg, ctx.plain = cfg, plain
+        out = fwd(layer, ids, h0, c0, cfg, residuals=True, dropout=dropout)
+        ctx.save_for_backward(U, out[0], out[2], out[3], ids, h0, c0)
+        ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
         ctx.dtypes = (W.dtype, U.dtype, b.dtype, h0.dtype, c0.dtype)
-        return h_seq, hT, cT
+        return _layer_out(out)
 
     @staticmethod
-    def backward(ctx, dh_seq, dhT, dcT):
+    def backward(ctx, dh_out, dhT, dcT):
         U, h_seq, c_seq, g_seq, ids, h0, c0 = ctx.saved_tensors
         cfg = ctx.cfg
-        f32 = torch.float32
-
-        def cot(x, like):
-            # an output autograd did not reach has no cotangent; hT and cT
-            # left the forward in the residual type, as in the JAX VJP
-            if x is None:
-                return torch.zeros(like.shape, dtype=f32, device=like.device)
-            return x.to(cfg.rdtype).to(f32)
-
+        af = cuda_cell._acc_dtype(cfg)
         bwd = embed_layer0_bwd_plain if ctx.plain else embed_layer0_bwd
         m = cfg.vocab
         dWU, db, dh0, dc0 = bwd(
-            U.to(cfg.cdtype), g_seq, c_seq, h_seq, ids, h0.to(f32),
-            c0.to(f32),
-            (torch.zeros(h_seq.shape, dtype=f32, device=h_seq.device)
-             if dh_seq is None else dh_seq.to(f32)),
-            cot(dhT, h0), cot(dcT, c0), cfg,
+            U.to(cfg.cdtype), g_seq, c_seq, h_seq, ids, h0.to(af), c0.to(af),
+            *_cotangents(ctx, dh_out, dhT, dcT, h_seq, h0, c0), cfg,
+            dropout=ctx.dropout,
         )
         dWU = dWU.to(cfg.cdtype)
         wd, ud, bd, hd, cd = ctx.dtypes
         return (dWU[:m].to(wd), dWU[m:].to(ud), db.to(bd), None,
-                dh0.to(hd), dc0.to(cd), None, None)
+                dh0.to(hd), dc0.to(cd), None, None, None)
+
+
+class ScanLayer(torch.autograd.Function):
+    """A layer >= 1, differentiable in U, xw, h0 and c0: the forward kernel
+    with residuals, then ``scan_layer_bwd``; W and b take their gradients
+    through xw = x @ W + b outside. ``layer`` travels as a plain object (its
+    W and b are only checked for shape). With ``plain`` both halves run
+    their plain versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, layer, U, xw, h0, c0, cfg: ModelConfig, plain: bool,
+                dropout):
+        fwd = cuda_cell.scan_layer_plain if plain else cuda_cell.scan_layer
+        out = fwd(LayerParams(layer.W, U, layer.b), xw, h0, c0, cfg,
+                  residuals=True, dropout=dropout)
+        ctx.save_for_backward(U, out[0], out[2], out[3], h0, c0)
+        ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
+        ctx.dtypes = (U.dtype, xw.dtype, h0.dtype, c0.dtype)
+        return _layer_out(out)
+
+    @staticmethod
+    def backward(ctx, dh_out, dhT, dcT):
+        U, h_seq, c_seq, g_seq, h0, c0 = ctx.saved_tensors
+        cfg = ctx.cfg
+        af = cuda_cell._acc_dtype(cfg)
+        bwd = scan_layer_bwd_plain if ctx.plain else scan_layer_bwd
+        dg, dU, dh0, dc0 = bwd(
+            U.to(cfg.cdtype), g_seq, c_seq, h_seq, h0.to(af), c0.to(af),
+            *_cotangents(ctx, dh_out, dhT, dcT, h_seq, h0, c0), cfg,
+            dropout=ctx.dropout,
+        )
+        ud, xd, hd, cd = ctx.dtypes
+        return (None, dU.to(cfg.cdtype).to(ud), dg.to(xd), dh0.to(hd),
+                dc0.to(cd), None, None, None)
+
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def differentiable_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
-                                plain: bool = False):
-    """``cell_fn.embed_layer0`` of ``ops.dispatch``: (h_seq, (hT, cT)) of
-    layer 0, through ``EmbedLayer0`` when autograd needs a gradient of its
-    inputs, else through the forward kernel alone (no residuals)."""
-    if torch.is_grad_enabled() and any(
-        x.requires_grad for x in (layer.W, layer.U, layer.b, h0, c0)
-    ):
-        h_seq, hT, cT = EmbedLayer0.apply(layer.W, layer.U, layer.b, ids, h0,
-                                          c0, cfg, plain)
-        return h_seq, (hT, cT)
+                                dropout=None, plain: bool = False):
+    """``cell_fn.embed_layer0`` of ``ops.dispatch``: (h_out, (hT, cT)) of
+    layer 0, h_out the masked stream under ``dropout=(rate, seed)``,
+    through ``EmbedLayer0`` when autograd needs a gradient of its inputs,
+    else through the forward kernel alone (no residuals)."""
+    if _wants_grad(layer.W, layer.U, layer.b, h0, c0):
+        h_out, hT, cT = EmbedLayer0.apply(layer.W, layer.U, layer.b, ids, h0,
+                                          c0, cfg, plain, dropout)
+        return h_out, (hT, cT)
     fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
-    return fwd(layer, ids, h0, c0, cfg)
+    return fwd(layer, ids, h0, c0, cfg, dropout=dropout)
+
+
+def differentiable_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
+                              dropout=None, plain: bool = False):
+    """The ``cell_fn`` of ``ops.dispatch``: (h_out, (hT, cT)) of a layer
+    >= 1 from xw = x @ W + b, as ``differentiable_embed_layer0``, through
+    ``ScanLayer`` when autograd needs a gradient."""
+    if _wants_grad(layer.W, layer.U, layer.b, xw, h0, c0):
+        h_out, hT, cT = ScanLayer.apply(layer, layer.U, xw, h0, c0, cfg,
+                                        plain, dropout)
+        return h_out, (hT, cT)
+    fwd = cuda_cell.scan_layer_plain if plain else cuda_cell.scan_layer
+    return fwd(layer, xw, h0, c0, cfg, dropout=dropout)

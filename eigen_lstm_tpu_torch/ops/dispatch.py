@@ -22,8 +22,11 @@ from . import cuda_cell, cuda_cell_bwd, head
 
 
 def _cell_fn(plain: bool):
-    cell_fn = functools.partial(
-        cuda_cell.scan_layer_plain if plain else cuda_cell.scan_layer)
+    cell_fn = functools.partial(cuda_cell_bwd.differentiable_scan_layer,
+                                plain=plain)
+    # both layer hooks fuse the dropout of their output stream, with the
+    # mask bits of pallas_cell.py:_keep_mask (the JAX dispatch.py:103-106)
+    cell_fn.fused_dropout = True
     cell_fn.embed_layer0 = functools.partial(
         cuda_cell_bwd.differentiable_embed_layer0, plain=plain)
     fused_head = functools.partial(head.fused_head_bits, plain=plain)
@@ -33,10 +36,12 @@ def _cell_fn(plain: bool):
 
 
 def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
-    """A ``cell_fn`` for ``models.lstm.forward`` with ``.embed_layer0`` (the
-    layer-0 recurrence, differentiable) and ``.fused_head`` (the fused
-    softmax cross-entropy head, with its ``.supported`` gate, which
-    ``models.lstm.loss_fn`` checks per shape).
+    """A ``cell_fn`` for ``models.lstm.forward``: the layers >= 1
+    recurrence, differentiable, with ``.embed_layer0`` (the layer-0
+    recurrence, differentiable), both taking ``dropout=(rate, seed)``
+    (``.fused_dropout``), and ``.fused_head`` (the fused softmax
+    cross-entropy head, which reads the masked top stream, with its
+    ``.supported`` gate, which ``models.lstm.loss_fn`` checks per shape).
 
     ``"cuda"``: the kernels; raises unless ``device`` is a CUDA device.
     ``"plain"``: the kernels' plain versions, on any device. ``"auto"``: the

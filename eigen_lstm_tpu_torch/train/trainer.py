@@ -11,9 +11,13 @@ of the step alone); the cursors, the stream state and the metrics stay on
 the device. In streamed mode (``data/streaming.py``) the next superstep's
 windows are built and copied while the current one runs.
 
+With ``ModelConfig.dropout > 0`` each step's dropout key is
+``models.lstm.step_key(TrainConfig.seed, step)``: derived, not drawn from
+the generator of the reset noise, so a resumed run draws the masks of a
+straight one (the JAX trainer's ``fold_in(key, step)``).
+
 Not ported yet, and refused when asked for: meshes (data, tensor, sequence
-and pipeline parallelism), dropout, the live ``crosscheck`` and
-``gradcheck``, and training through the layers >= 1 kernel (its backward).
+and pipeline parallelism) and the live ``crosscheck`` and ``gradcheck``.
 """
 
 from __future__ import annotations
@@ -50,13 +54,15 @@ class TrainState:
     step: int
 
 
-def loss_and_grads(params, x, t, h, c, mcfg: ModelConfig, cell_fn=None):
+def loss_and_grads(params, x, t, h, c, mcfg: ModelConfig, cell_fn=None,
+                   dropout_key=None):
     """``loss_fn`` and its gradient in every parameter: (loss, (hL, cL),
     mean bits, grads), all detached."""
     leaves = [p.detach().requires_grad_() for p in opt_mod.tensors(params)]
     with torch.enable_grad():
         loss, ((h2, c2), bits) = model.loss_fn(
-            opt_mod.like(params, leaves), x, t, h, c, mcfg, cell_fn)
+            opt_mod.like(params, leaves), x, t, h, c, mcfg, cell_fn,
+            dropout_key)
         grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), (h2.detach(), c2.detach()), bits.detach(),
             opt_mod.like(params, grads))
@@ -68,8 +74,10 @@ def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
                ) -> Tuple[TrainState, Tuple[torch.Tensor, torch.Tensor]]:
     """One step on the windows (x, t): returns (state, (bits, grad norm)).
     ``generator`` draws the reset noise when ``dcfg.reset_std > 0``."""
+    dkey = (model.step_key(tcfg.seed, state.step) if mcfg.dropout > 0.0
+            else None)
     loss, (h2, c2), bits, grads = loss_and_grads(
-        state.params, x, t, state.h, state.c, mcfg, cell_fn)
+        state.params, x, t, state.h, state.c, mcfg, cell_fn, dkey)
     if tcfg.skip_nonfinite:
         # a non-finite loss zeroes the update and keeps the pre-step state
         finite = torch.isfinite(loss)
@@ -98,7 +106,7 @@ def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
 
 def _metrics(bits, gnorms) -> Dict[str, torch.Tensor]:
     bits, gnorms = torch.stack(bits), torch.stack(gnorms)
-    return {"bits_mean": bits.mean(), "bits_last": bits[-1],
+    return {"bits": bits, "bits_mean": bits.mean(), "bits_last": bits[-1],
             "gnorm_mean": gnorms.mean(), "gnorm_max": gnorms.max()}
 
 
@@ -125,14 +133,8 @@ class Trainer:
         keeps the corpus on the host and feeds windows per superstep."""
         if mesh is not None:
             raise NotImplementedError("mesh (parallel) training: not ported yet")
-        if mcfg.dropout > 0.0:
-            raise NotImplementedError("dropout: not ported yet")
         if tcfg.crosscheck_every or tcfg.gradcheck_every:
             raise NotImplementedError("crosscheck / gradcheck: not ported yet")
-        if cell_fn is not None and mcfg.num_layers > 1:
-            raise NotImplementedError(
-                "training more than one layer through the kernels: the "
-                "layers >= 1 backward kernel is not ported yet")
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
         self.device = torch.device(device)
         self.train_np = train_data
@@ -327,13 +329,32 @@ class Trainer:
 
     def restore(self, path: str):
         """The full state of a checkpoint of either package; its JAX key is
-        not used."""
+        not used. A stream whose saved cursor lies outside this corpus (the
+        checkpoint trained on another one) takes this trainer's fresh
+        cursor and a reset state, as at a wrap, and says so: the JAX
+        package's gather would clamp such a cursor without a word."""
         params, m, step, extras = ckpt_mod.load_checkpoint(path, self.mcfg,
                                                            self.device)
-        self.state = TrainState(
-            params, m, extras.get("stream_h", self.state.h),
-            extras.get("stream_c", self.state.c),
-            extras.get("positions", self.state.positions), step)
+        h = extras.get("stream_h", self.state.h)
+        c = extras.get("stream_c", self.state.c)
+        pos = extras.get("positions", self.state.positions)
+        if pos.shape != self.state.positions.shape or h.shape != self.state.h.shape:
+            raise ValueError(
+                f"{path} holds {tuple(pos.shape)} cursors and a "
+                f"{tuple(h.shape)} stream state; this trainer runs "
+                f"{tuple(self.state.h.shape)} (layers, batch, hidden)")
+        limit = corpus_mod.corpus_limit(self.length, self.dcfg.seq)
+        outside = (pos < 0) | (pos > limit)
+        if bool(outside.any()):
+            print(f"restore: {int(outside.sum())} of {len(pos)} cursors of "
+                  f"{path} lie outside this corpus ({self.length} bytes): "
+                  f"those streams take fresh cursors and a reset state",
+                  flush=True)
+            pos = torch.where(outside, self.state.positions, pos)
+            mask = outside[None, :, None]
+            h = torch.where(mask, self.state.h, h)
+            c = torch.where(mask, self.state.c, c)
+        self.state = TrainState(params, m, h, c, pos, step)
         if self.feeder is not None:
             self.feeder.set_positions(self.state.positions.cpu().numpy())
             self._next_windows = None

@@ -158,18 +158,21 @@ def test_cpu_tensors_launch_nothing():
 def test_dispatch_backends():
     cfg = TConfig(hidden=N)
     plain = dispatch.select_cell_fn("plain", cfg, 16, "cpu")
-    assert plain.func is cuda_cell.scan_layer_plain
+    assert plain.func is cuda_cell_bwd.differentiable_scan_layer
+    assert plain.keywords == {"plain": True} and plain.fused_dropout
     assert plain.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
     assert plain.embed_layer0.keywords == {"plain": True}
     assert plain.fused_head.keywords == {"plain": True}
     assert plain.fused_head.supported is head.head_supported
     auto = dispatch.select_cell_fn("auto", cfg, 16, "cpu")
-    assert auto.func is cuda_cell.scan_layer_plain
+    assert auto.func is cuda_cell_bwd.differentiable_scan_layer
+    assert auto.keywords == {"plain": True}
     with pytest.raises(ValueError):
         dispatch.select_cell_fn("cuda", cfg, 16, "cpu")
     # the hidden-width gate is the wrappers' alone (_kernel_types raises)
     kern = dispatch.select_cell_fn("cuda", TConfig(hidden=100), 16, "cuda")
-    assert kern.func is cuda_cell.scan_layer
+    assert kern.func is cuda_cell_bwd.differentiable_scan_layer
+    assert kern.keywords == {"plain": False} and kern.fused_dropout
     assert kern.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
     assert kern.embed_layer0.keywords == {"plain": False}
     assert kern.fused_head.func is head.fused_head_bits

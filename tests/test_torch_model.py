@@ -135,12 +135,19 @@ def test_evaluate_bpc_uses_the_given_cell_fn():
 
 
 def test_forward_raises_for_training_options():
-    cfg = TConfig(hidden=32, vocab=16, dropout=0.5)
+    """Dropout runs (a key drops about the rate's share of the top stream;
+    no key is eval); a seed list of the wrong length and ``scan_chunk``
+    raise."""
+    cfg = TConfig(hidden=32, vocab=16, dropout=0.5, init_std=0.3)
     p = tmodel.init_params(cfg, device="cpu")
     h, c = tmodel.init_state(cfg, 2, device="cpu")
     ids = torch.zeros(4, 2, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tmodel.forward(p, ids, h, c, cfg, dropout_key=1)
+    h_drop, _ = tmodel.forward(p, ids, h, c, cfg, dropout_key=1)
+    h_eval, _ = tmodel.forward(p, ids, h, c, cfg)
+    assert 0.3 < float((h_drop == 0).float().mean()) < 0.7
+    assert float((h_eval == 0).float().mean()) == 0.0
+    with pytest.raises(ValueError, match="seeds"):
+        tmodel.forward(p, ids, h, c, cfg, dropout_key=(1, 2))
     with pytest.raises(NotImplementedError):
         tmodel.forward(p, ids, h, c, TConfig(hidden=32, vocab=16, scan_chunk=2))
 

@@ -137,24 +137,31 @@ def test_layer0_autograd_matches_pallas_vjp(dtype, variant):
 
 def test_forward_wrappers_refuse_a_gradient():
     """A forward wrapper never returns a result that autograd cannot
-    follow: layer 0 points at its differentiable form, layers >= 1 say
-    their backward is not ported."""
+    follow: both point at their differentiable forms, and those give the
+    gradient the wrappers refuse."""
     _, tcfg = _cfgs("float32")
     W, U, b, ids, h0, c0, *_ = _layer_inputs(2)
     layer = tmodel.LayerParams(torch.from_numpy(W).requires_grad_(),
                                torch.from_numpy(U), torch.from_numpy(b))
-    with pytest.raises(NotImplementedError, match="differentiable"):
+    with pytest.raises(NotImplementedError, match="differentiable_embed"):
         cuda_cell.embed_layer0(layer, torch.from_numpy(ids),
                                torch.from_numpy(h0), torch.from_numpy(c0), tcfg)
     upper = tmodel.LayerParams(torch.zeros(N, 4 * N, requires_grad=True),
-                               torch.from_numpy(U), torch.from_numpy(b))
+                               torch.from_numpy(U).requires_grad_(),
+                               torch.from_numpy(b))
     xw = torch.zeros(S, B, 4 * N)
     for fn in (cuda_cell.scan_layer, cuda_cell.scan_layer_plain):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NotImplementedError, match="differentiable_scan"):
             fn(upper, xw, torch.from_numpy(h0), torch.from_numpy(c0), tcfg)
     with torch.no_grad():   # eval still runs
-        cuda_cell.scan_layer(upper, xw, torch.from_numpy(h0),
-                             torch.from_numpy(c0), tcfg)
+        want = cuda_cell.scan_layer(upper, xw, torch.from_numpy(h0),
+                                    torch.from_numpy(c0), tcfg)
+    h_seq, (hT, cT) = cuda_cell_bwd.differentiable_scan_layer(
+        upper, xw, torch.from_numpy(h0), torch.from_numpy(c0), tcfg)
+    torch.testing.assert_close(h_seq, want[0], rtol=0, atol=0)
+    dU, = torch.autograd.grad(h_seq.sum() + hT.sum(), [upper.U])
+    assert dU.shape == (N, 4 * N) and bool(torch.isfinite(dU).all())
+    assert float(dU.abs().max()) > 0
 
 
 def _head_inputs(seed, t=S * B):

@@ -282,21 +282,30 @@ def test_trainer_run_eval_checkpoint_and_resume(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Meshes and the live checks are refused when the trainer is built,
+    ``scan_chunk`` at the first step; dropout and several layers through
+    the kernels' plain versions now train."""
     data = jcorpus.rawread(ALICE)[:5000]
-    d, t = TData(batch=4, seq=8), TTrain()
+    d, t = TData(batch=4, seq=8), TTrain(superstep=2)
     cfg = TConfig(hidden=32)
     cases = (
-        (dict(mcfg=TConfig(hidden=32, dropout=0.1)), "dropout"),
         (dict(tcfg=TTrain(crosscheck_every=2)), "crosscheck"),
         (dict(mesh=object()), "mesh"),
-        (dict(mcfg=TConfig(hidden=32, num_layers=2),
-              cell_fn=tselect("plain", cfg, 4, "cpu")), "layers >= 1"),
     )
     for kw, match in cases:
         args = dict(mcfg=cfg, dcfg=d, tcfg=t, train_data=data, device="cpu")
         args.update(kw)
         with pytest.raises(NotImplementedError, match=match):
             TTrainer(**args)
+    deep = TConfig(hidden=32, num_layers=2, dropout=0.1, loss_mode="all")
+    tr = TTrainer(deep, d, t, data, None, cell_fn=tselect("plain", deep, 4, "cpu"),
+                  device="cpu")
+    tr.state, met = tr.dispatch_superstep()
+    assert tr.step == 2 and np.isfinite(float(met["bits_mean"]))
+    chunked = TTrainer(TConfig(hidden=32, scan_chunk=4), d, t, data, None,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="scan_chunk"):
+        chunked.dispatch_superstep()
     tr = TTrainer(cfg, d, t, data, None, device="cpu")
     for fn in (tr.crosscheck, tr.gradcheck):
         with pytest.raises(NotImplementedError, match="not ported"):
