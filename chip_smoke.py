@@ -15,7 +15,10 @@ Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
          the kernels, with the launch counts reset before and read after;
          then kernel against plain on a 4096-byte slice; the same for the
          1x512 checkpoint.
-Phase 4  greedy and T = 0.7 samples from the flagship on the card.
+Phase 4  the CLI's sample path: 1000-byte greedy and T = 0.7 samples of
+         the flagship (bf16, B = 1) through ``sample_text``, so through the
+         generation kernel K7, its launches counted; the loop backend's
+         bytes/s beside.
 Phase 5  the training kernels (layer-0 backward, fused head forward and
          backward) against their plain versions at the bench's shapes
          (S = 100, B = 128, N = 512, M = 256) with the 1x512 checkpoint's
@@ -43,6 +46,13 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          chars/s, launches against what the shapes give, each kernel's
          share, the bits of every step; then 2 fp32 steps from the run's
          state, kernels against plain.
+
+Phase 8  generation: K7 against its plain version with the flagship's
+         weights, fp32 and bf16, B = 1 and 128, T = 0 and 0.7, 256 tokens
+         from primed states: every step replayed by the plain version from
+         K7's own state and token (gated), the free runs compared (printed);
+         1000-token calls timed beside the bound, the plain version and the
+         loop backend; ``sample_ids`` at B = 128 on the default backend.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -375,21 +385,47 @@ def phase3(test):
     return counts
 
 
+SAMPLE_CHARS, LOOP_CHARS = 1000, 200
+
+
 def phase4():
-    from eigen_lstm_tpu_torch.models.sampler import sample_text
+    """The CLI's ``sample`` path: ``sample_text`` of the flagship (bf16,
+    B = 1, the default backend, so K7), greedy and at T = 0.7, with K7's
+    launch count reset before and read after; the ``"loop"`` backend's
+    bytes/s from the same start beside it. Returns K7's launches."""
+    from eigen_lstm_tpu_torch.models import lstm as model
+    from eigen_lstm_tpu_torch.models.sampler import sample_ids, sample_text
+    from eigen_lstm_tpu_torch.ops import cuda_sampler
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
 
     cfg = flagship_cfg("bfloat16")
     params = load_params(FLAGSHIP, cfg, DEVICE)
+    h, c = model.init_state(cfg, 1, device=DEVICE)
+    first = torch.tensor([10], device=DEVICE)
+    torch.cuda.synchronize()
+    cuda_sampler.generate.launches = 0
     for temp in (0.0, 0.7):
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         t0 = time.perf_counter()
-        text = sample_text(params, cfg, gen, 200, temperature=temp)
+        text = sample_text(params, cfg, gen, SAMPLE_CHARS, temperature=temp)
         dt = time.perf_counter() - t0
-        if len(text) != 200:
-            fail(f"sample at T={temp}: {len(text)} chars, expected 200")
-        print(f"  sample T={temp} ({200 / dt:.1f} chars/s): {text[:60]!r}",
+        if len(text) != SAMPLE_CHARS:
+            fail(f"sample at T={temp}: {len(text)} chars, expected "
+                 f"{SAMPLE_CHARS}")
+        t0 = time.perf_counter()
+        sample_ids(params, cfg, gen, first, h, c, LOOP_CHARS, temp,
+                   backend="loop")
+        torch.cuda.synchronize()
+        dt_loop = time.perf_counter() - t0
+        print(f"  sample T={temp}: {SAMPLE_CHARS / dt:,.1f} bytes/s through "
+              f"K7 ({SAMPLE_CHARS} bytes in {dt:.3f} s); the loop backend "
+              f"{LOOP_CHARS / dt_loop:,.1f} bytes/s; {text[:60]!r}",
               flush=True)
+    launches = cuda_sampler.generate.launches
+    print(f"  sample_text launched K7 {launches} times", flush=True)
+    if launches != 2:
+        fail(f"sample_text launched K7 {launches} times, expected 2")
+    return launches
 
 
 # --- the training path (bench shapes: S = 100, B = 128, N = 512, M = 256) ---
@@ -1268,6 +1304,166 @@ def phase7c(per_call, records):
     return counts, step_ms
 
 
+# --- generation (3x1024 flagship, B = 1 and 128, 256 and 1000 tokens) -----
+GEN_TOKENS, GEN_TIME_TOKENS, GEN_PRIME = 256, 1000, 64
+GEN_SEED = -123456789        # a negative int32: its bits seed the draws
+# Phase 8's gate, a teacher-forced replay: from K7's own state after step
+# t-1 and its token, with each layer fed K7's own h of the layer below
+# (and the head K7's top h), the plain version's step gives h and c within
+# GEN_ATOL of K7's (the fp32 sums in another order only, as phase 7a), and
+# K7's token scores within GEN_SCORE_RTOL * (1 + |max|) of the plain step's
+# largest score: the hash is exact and the two logs agree to an ulp. Fed
+# its own h instead, a layer of a bf16 step can see a flipped bf16
+# rounding of its input, which moves its h by more than GEN_ATOL.
+GEN_ATOL = 1e-4
+GEN_SCORE_RTOL = 1e-4
+
+
+def gen_bound(cfg, b, length):
+    """K7's least time, ms: bytes = every layer's [W; U] and Why once in the
+    compute type, b and by in fp32, the first tokens, h0 and c0 in and hT
+    and cT out in fp32, the ids; flops = 2 * length * B * the elements of
+    the products, layer 0's one-hot rows left out (a gather: K7 adds the
+    row W_0[ch], as K1's and K3's bounds count it). Also the time to read
+    the weights once at the memory rate, which a design that streams them
+    at every token pays each token."""
+    n, m, L = cfg.hidden, cfg.vocab, cfg.num_layers
+    elems = (m + n) * 4 * n + (L - 1) * 2 * n * 4 * n + n * m
+    elems_ops = elems - m * 4 * n
+    csz = torch.finfo(cfg.cdtype).bits // 8
+    weights = elems * csz + (L * 4 * n + m) * 4
+    nbytes = weights + b * 4 + 4 * L * b * n * 4 + length * b * 4
+    ms, by = _bound(nbytes, 2 * length * b * elems_ops, cfg)
+    return ms, by, weights / HBM_BYTES_PER_S * 1e3
+
+
+def primed(params, cfg, test, b):
+    """(first, h, c) of B streams after GEN_PRIME bytes of the held-out
+    split, each stream at its own offset, through the eval path's kernels."""
+    from eigen_lstm_tpu_torch.models import lstm as model
+    from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
+
+    starts = np.arange(b) * ((len(test) - GEN_PRIME - 1) // b)
+    win = np.stack([test[s:s + GEN_PRIME + 1] for s in starts]).T
+    ids = torch.from_numpy(win.astype(np.int32)).to(DEVICE)
+    h0, c0 = model.init_state(cfg, b, device=DEVICE)
+    with torch.no_grad():
+        _, (h, c) = model.forward(params, ids[:-1], h0, c0, cfg,
+                                  select_cell_fn("auto", cfg, b, DEVICE))
+    return ids[-1], h, c
+
+
+def gen_replay(params, cfg, first, h0, c0, temp, label):
+    """K7 for GEN_TOKENS tokens with its state after every token, each step
+    replayed by the plain version (gated), then the plain version's own
+    free run (printed). Returns the largest h/c error of the replay."""
+    from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
+
+    ids, (hT, cT), (th, tc) = cs.generate(params, cfg, GEN_SEED, first, h0,
+                                          c0, GEN_TOKENS, temp, trace=True)
+    torch.cuda.synchronize()
+    s, L, b, n = th.shape
+    if (not torch.isfinite(th).all() or not torch.isfinite(tc).all()
+            or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab):
+        fail(f"K7 {label}: non-finite state or ids outside the vocabulary")
+    if not (torch.equal(hT, th[-1].to(cfg.pdtype))
+            and torch.equal(cT, tc[-1].to(cfg.pdtype))):
+        fail(f"K7 {label}: (hT, cT) is not the state after the last token")
+    rows_of = lambda x: x.permute(1, 0, 2, 3).reshape(L, s * b, n)
+    h_prev = rows_of(torch.cat([h0.float()[None], th[:-1]]))
+    c_prev = rows_of(torch.cat([c0.float()[None], tc[:-1]]))
+    ch_prev = torch.cat([first.to(torch.int32)[None], ids[:-1]]).reshape(-1)
+    packed = cs.pack_weights(params, cfg)
+    wus = [w.float() for w in cs.layer_weights(packed.WU, cfg)]
+    steps = torch.arange(s, device=DEVICE).repeat_interleave(b)
+    rows = torch.arange(b, device=DEVICE).repeat(s)
+    h_k, c_k = rows_of(th), rows_of(tc)
+    h_r, c_r, scores = cs.plain_step(wus, packed, h_prev, c_prev, ch_prev,
+                                     cfg, GEN_SEED, steps, rows, temp,
+                                     inputs=h_k)
+    err = max(max_err(h_r, h_k)[0], max_err(c_r, c_k)[0])
+    mx = scores.max(dim=-1).values
+    chosen = scores.gather(-1, ids.reshape(-1, 1).long())[:, 0]
+    short = float(((mx - chosen) / (1 + mx.abs())).max())
+    ids_p = cs.generate_plain(params, cfg, GEN_SEED, first, h0, c0,
+                              GEN_TOKENS, temp)[0]
+    same = (ids_p == ids)
+    diverged = (~same).any(dim=1).nonzero()
+    print(f"  K7 {label}: {s} steps replayed, h/c within {err:.3e} (atol "
+          f"{GEN_ATOL:g}), its tokens within {short:.3e} of the plain "
+          f"step's best score (rtol {GEN_SCORE_RTOL:g}); free runs: "
+          f"{int(same.sum())} of {same.numel()} tokens equal, first "
+          f"difference at step "
+          f"{int(diverged[0]) if len(diverged) else 'none'} (not gated)",
+          flush=True)
+    if not err <= GEN_ATOL or not short <= GEN_SCORE_RTOL:
+        fail(f"K7 {label}: the replay is out of tolerance")
+    return err
+
+
+def phase8(test, records):
+    """K7 against its plain version with the flagship's weights, fp32 and
+    bf16, B = 1 and 128, T = 0 and 0.7, from primed states; then the
+    times of 1000-token calls beside the bound, the plain version and the
+    loop backend; then ``sample_ids`` at B = 128 on the default backend
+    with K7's count reset before and read after. Returns that count."""
+    from eigen_lstm_tpu_torch.models.sampler import sample_ids
+    from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    params = load_params(FLAGSHIP, flagship_cfg("float32"), DEVICE)
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_cfg(dtype)
+        for b in (1, 128):
+            first, h0, c0 = primed(params, cfg, test, b)
+            err = max(gen_replay(params, cfg, first, h0, c0, temp,
+                                 f"{dtype} B={b} T={temp}")
+                      for temp in (0.0, 0.7))
+            n_tok = GEN_TIME_TOKENS
+            run = lambda fn, **kw: fn(params, cfg, GEN_SEED, first, h0, c0,
+                                      n_tok, 0.7, **kw)
+            ms = cuda_ms(lambda: run(cs.generate), reps=1, windows=3)
+            plain_ms = cuda_ms(lambda: run(cs.generate_plain), reps=1,
+                               windows=1)
+            loop_ms = cuda_ms(lambda: sample_ids(params, cfg, None, first, h0,
+                                                 c0, n_tok, 0.7,
+                                                 backend="loop"),
+                              reps=1, windows=1)
+            bound_ms, bound_by, read_ms = gen_bound(cfg, b, n_tok)
+            print(f"  K7 {dtype} B={b}, {n_tok} tokens: {ms:.3f} ms "
+                  f"({1e3 * ms / n_tok:.2f} us a token, "
+                  f"{b * n_tok / ms * 1e3:,.0f} bytes/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; the weights read once "
+                  f"{1e3 * read_ms:.2f} us), plain {plain_ms:.1f} ms, the "
+                  f"loop backend {loop_ms:.1f} ms "
+                  f"({b * n_tok / loop_ms * 1e3:,.0f} bytes/s)", flush=True)
+            records[("gen", dtype, b)] = dict(
+                name="gen", route="cuda",
+                source="eigen_lstm_tpu_torch/csrc/sampler.cu",
+                replaces="eigen_lstm_tpu/ops/pallas_sampler.py:37",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print("  library: no single PyTorch call generates tokens through an "
+          "LSTM stack with a draw; the loop backend above is what the port "
+          "ran before K7, not a yardstick", flush=True)
+    cfg = flagship_cfg("bfloat16")
+    first, h0, c0 = primed(params, cfg, test, 128)
+    torch.cuda.synchronize()
+    cs.generate.launches = 0
+    t0 = time.perf_counter()
+    ids, _ = sample_ids(params, cfg, torch.Generator(device=DEVICE).manual_seed(1),
+                        first, h0, c0, GEN_TIME_TOKENS, 0.7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = cs.generate.launches
+    print(f"  sample_ids bf16 B=128, {GEN_TIME_TOKENS} tokens on the default "
+          f"backend: {ids.numel() / dt:,.0f} bytes/s ({dt:.3f} s), K7 "
+          f"launched {launches} times", flush=True)
+    if launches != 1 or tuple(ids.shape) != (GEN_TIME_TOKENS, 128):
+        fail("sample_ids at B = 128 did not run K7 once")
+    return launches
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -1281,7 +1477,7 @@ def main():
     check_budget("phase 2 (kernels against plain)")
     emb, scan = phase3(test)
     check_budget("phase 3 (eval path)")
-    phase4()
+    gen_launches = phase4()
     check_budget("phase 4 (sampling)")
     per_call = phase5(records)
     check_budget("phase 5 (training kernels against plain)")
@@ -1302,6 +1498,8 @@ def main():
     check_budget("phase 7b (flagship loss and gradients)")
     flag_counts, _ = phase7c(flag_call, records)
     check_budget("phase 7c (flagship training steps)")
+    gen_launches += phase8(test, records)
+    check_budget("phase 8 (generation)")
     kernels = []
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
                         ("lstm_bwd_embed", counts["lstm_bwd_embed"]),
@@ -1311,6 +1509,7 @@ def main():
         kernels.append(rec)
     kernels.append(dict(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
                         launches=flag_counts["lstm_bwd_scan"]))
+    kernels.append(dict(records[("gen", "bfloat16", 1)], launches=gen_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,8 @@ SIGNATURES = {
     "head_bwd_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_P, _IP]),
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
+    "gen_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_U, _F, _P]),
+    "gen_work_floats": (_Z, [_I] * 3),
 }
 
 

@@ -30,7 +30,9 @@ from eigen_lstm_tpu.train import checkpoint as jckpt
 from eigen_lstm_tpu.train import evaluator as jeval
 from eigen_lstm_tpu_torch import ModelConfig as TConfig
 from eigen_lstm_tpu_torch import cli as tcli
+from eigen_lstm_tpu_torch.models import lstm as tmodel
 from eigen_lstm_tpu_torch.models import sampler as tsampler
+from eigen_lstm_tpu_torch.ops import _build as tbuild
 from eigen_lstm_tpu_torch.ops import dispatch as tdispatch
 from eigen_lstm_tpu_torch.train import checkpoint as tckpt
 from eigen_lstm_tpu_torch.train import evaluator as teval
@@ -101,16 +103,36 @@ def test_temperature_sample_is_seeded(arrays):
     assert all(len(d) == 48 for d in draws)
 
 
-def test_sample_ids_leaves_batched_cuda_sampling_to_the_next_slice():
+def test_sample_ids_leaves_batched_cuda_sampling_to_the_next_slice(monkeypatch):
+    """Batched sampling on the card, which this test once showed raising as
+    left to a later slice, goes to the generation kernel: a CUDA tensor
+    under "auto" or "cuda" reaches the kernel's launcher (stubbed here to
+    raise) and never the forward_step loop."""
     class FakeCuda(torch.Tensor):
         @property
         def device(self):
             return torch.device("cuda")
 
+    def launcher():
+        raise RuntimeError("launcher reached")
+
+    def no_loop(*args, **kwargs):
+        raise AssertionError("the forward_step loop ran")
+
+    monkeypatch.setattr(tbuild, "load_library", launcher)
+    monkeypatch.setattr(tmodel, "forward_step", no_loop)
     cfg = TConfig(hidden=32, vocab=16)
-    first = torch.zeros(8, dtype=torch.int64).as_subclass(FakeCuda)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tsampler.sample_ids(None, cfg, None, first, None, None, 4)
+    fake = lambda x: x.as_subclass(FakeCuda)
+    params = tmodel.init_params(cfg, device="cpu")
+    params = tmodel.LSTMParams(
+        tuple(tmodel.LayerParams(fake(l.W), fake(l.U), fake(l.b))
+              for l in params.layers), fake(params.Why), fake(params.by))
+    h0, c0 = tmodel.init_state(cfg, 8, device="cpu")
+    first = fake(torch.zeros(8, dtype=torch.int64))
+    for backend in ("auto", "cuda"):
+        with pytest.raises(RuntimeError, match="launcher reached"):
+            tsampler.sample_ids(params, cfg, torch.Generator(), first,
+                                fake(h0), fake(c0), 4, backend=backend)
 
 
 def test_cli_eval_prints_the_jax_bpc(arrays, test_split, capsys):
