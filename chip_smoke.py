@@ -45,7 +45,10 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          from ckpt_best.npz's weights and accumulators: step time,
          chars/s, launches against what the shapes give, each kernel's
          share, the bits of every step; then 2 fp32 steps from the run's
-         state, kernels against plain.
+         state, kernels against plain (fp32 at N = 1024 takes the tiled
+         family, as in the JAX package: K8, K9, K10, their launches
+         counted). K3 runs the JAX VJP the flagship takes in bf16, the GEMM
+         fall-back (db from the rounded dg).
 
 Phase 8  generation: K7 against its plain version with the flagship's
          weights, fp32 and bf16, B = 1 and 128, T = 0 and 0.7, 256 tokens
@@ -53,6 +56,20 @@ Phase 8  generation: K7 against its plain version with the flagship's
          K7's own state and token (gated), the free runs compared (printed);
          1000-token calls timed beside the bound, the plain version and the
          loop backend; ``sample_ids`` at B = 128 on the default backend.
+Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
+         S = 100, bf16, bf16 residuals, enwik6): (a) K8, K9 and K10
+         against their plain versions at those shapes, without and with
+         dropout, and in fp32 at the flagship's fp32 shapes (S = 256,
+         N = 1024): every step replayed, the masked streams against the
+         numpy keep-mask bit for bit; times beside the bound, the plain
+         version, K1/K2/K6 at the same shapes and cuDNN; (b) one window's
+         loss and all gradients of a 2x2048 model with dropout 0.35,
+         kernels against plain; (c) the 5b recipe through the CLI's
+         Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
+         step time, chars/s, the bits of each superstep, the launches
+         against what the shapes give; then held-out bits/char of those
+         weights on enwik6's last 1 % at eval batch 16 through K8, kernels
+         against plain.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -229,22 +246,20 @@ def replay_steps(plain, layer, seq, h0, c0, cfg, out_k):
     return {k: one[k][0].reshape(out_k[k].shape) for k in ("h_seq", "c_seq", "g_seq")}
 
 
-def check_bf16_residuals(name, dtype, kern, layer, seq, h0, c0, out_k):
-    """The bf16-residual instantiations: the carry stays fp32 whatever the
-    residual type, so every output must be the fp32-residual run's own,
-    rounded once to bf16, bit for bit."""
-    out_r = _named(kern(layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
-                        residuals=True))
-    for label in OUTPUTS:
-        want = out_k[label].to(torch.bfloat16).float()
-        if label.endswith("_seq") and out_r[label].dtype != torch.bfloat16:
-            fail(f"{name} {dtype} bf16 residuals {label}: {out_r[label].dtype}")
-        if not torch.equal(out_r[label].float(), want):
-            err = max_err(out_r[label], want)[0]
-            fail(f"{name} {dtype} bf16 residuals {label}: not the fp32 run "
+def check_bf16_residuals(label, out_r, out_f):
+    """A bf16-residual run of a forward kernel: its sequences in bf16, and
+    every output the fp32-residual run's (the carry is fp32 whatever the
+    residual type) rounded once to bf16, bit for bit."""
+    flat = lambda out: [out[0], out[1][0], out[1][1]] + list(out[2:])
+    for i, (got, ref) in enumerate(zip(flat(out_r), flat(out_f))):
+        if i not in (1, 2) and got.dtype != torch.bfloat16:
+            fail(f"{label}: bf16-residual output {i} in {got.dtype}")
+        if not torch.equal(got.float(), ref.to(torch.bfloat16).float()):
+            err = max_err(got, ref.to(torch.bfloat16))[0]
+            fail(f"{label}: bf16-residual output {i} is not the fp32 run "
                  f"rounded to bf16 (max abs {err:.3e})")
-    print(f"  {name} {dtype}: bf16 residuals equal the fp32 run rounded to "
-          f"bf16 on every output", flush=True)
+    print(f"  {label}: bf16 residuals equal the fp32 run rounded to bf16 on "
+          f"every output", flush=True)
 
 
 def phase2(test, records):
@@ -278,7 +293,8 @@ def phase2(test, records):
              n, h_l0.float()),
         )
         for name, kind, layer, seq, kern, plain, replaces, in_dim, lib_x in cases:
-            out_k = _named(kern(layer, seq, h0, c0, cfg, residuals=True))
+            raw_k = kern(layer, seq, h0, c0, cfg, residuals=True)
+            out_k = _named(raw_k)
             out_p = _named(plain(layer, seq, h0, c0, cfg, residuals=True))
             torch.cuda.synchronize()
             for label in OUTPUTS:
@@ -314,7 +330,9 @@ def phase2(test, records):
                    "version")
             print(f"  {name} {dtype} window, max abs against plain ({how}): "
                   + ", ".join(window), flush=True)
-            check_bf16_residuals(name, dtype, kern, layer, seq, h0, c0, out_k)
+            check_bf16_residuals(f"{name} {dtype}", kern(
+                layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
+                residuals=True), raw_k)
             ms = cuda_ms(lambda: kern(layer, seq, h0, c0, cfg), reps=10)
             plain_ms = cuda_ms(lambda: plain(layer, seq, h0, c0, cfg), reps=2,
                                windows=3)
@@ -483,9 +501,15 @@ def train_cfg(dtype: str):
 def bible_window(gen, s, b):
     """(x, t) of S+1 bytes of the training split of bible.txt at cursors
     drawn from ``gen``, on the card."""
+    return corpus_window(CORPUS, 0.95, gen, s, b)
+
+
+def corpus_window(path, train_percent, gen, s, b):
+    """(x, t) of S+1 bytes of a corpus's training split at cursors drawn
+    from ``gen``, on the card."""
     from eigen_lstm_tpu_torch.data.corpus import make_windows, rawread, split
 
-    train = split(rawread(CORPUS), 0.95)[0]
+    train = split(rawread(path), train_percent)[0]
     pos = torch.randint(0, len(train) - s - 1, (b,), generator=gen,
                         dtype=torch.int32).to(DEVICE)
     return make_windows(torch.from_numpy(train).to(DEVICE), pos, s)
@@ -551,20 +575,24 @@ def reverse_replay(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg, dg_k):
 
 
 def k3_replay(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT, cfg,
-              dg_k):
+              dg_k, fused_accum=True):
     """``reverse_replay``, then the weight gradients over the kernel's dg:
-    (dg sequence, dh0, dc0, dWU, db)."""
+    (dg sequence, dh0, dc0, dWU, db). Without ``fused_accum`` (the JAX
+    GEMM fall-back) h_{-1} is h0 in the residual type and db sums dg
+    rounded to the xw type."""
     s, b = ids.shape
     n = cfg.hidden
     f32 = torch.float32
     rnd = lambda x: x.to(cfg.cdtype).to(f32)
     flat = rnd(dg_k).reshape(s * b, 4 * n)
-    h_prev = torch.cat([h0[None], h_seq[:-1].to(f32)]).reshape(s * b, n)
+    h_m1 = h0 if fused_accum else h0.to(cfg.rdtype).to(f32)
+    h_prev = torch.cat([h_m1[None], h_seq[:-1].to(f32)]).reshape(s * b, n)
     dW = torch.zeros(cfg.vocab, 4 * n, dtype=f32, device=flat.device)
     dW.index_add_(0, ids.reshape(-1).long(), flat)
     dWU = torch.cat([dW, rnd(h_prev).T @ flat])
+    dg_db = dg_k if fused_accum else rnd(dg_k)
     return reverse_replay(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
-                          dg_k) + (dWU, dg_k.reshape(s * b, 4 * n).sum(0))
+                          dg_k) + (dWU, dg_db.reshape(s * b, 4 * n).sum(0))
 
 
 def k6_replay(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_k):
@@ -993,11 +1021,13 @@ def masked(x, mask, inv):
 
 
 def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
-              inv, tag, per_call):
+              inv, tag, per_call, source="eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
+              time_cfg=None):
     """A forward kernel at the training shapes, with residuals: every step
     against its plain replay, and under dropout the masked stream, the
     kernel's and the plain version's, against the numpy mask of their own
-    h_seq, bit for bit. Returns (output, record)."""
+    h_seq, bit for bit. The times are taken at ``time_cfg`` (default
+    ``cfg``). Returns (output, record)."""
     s, b = seq.shape[:2]
     before = kern.launches
     out = kern(layer, seq, h0, c0, cfg, residuals=True, dropout=dropout)
@@ -1023,13 +1053,13 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
                  f"for bit, kernel and plain ({float((~mask).float().mean()):.4f} "
                  "dropped)")
     print(f"  {name} {tag}: {line}", flush=True)
-    call = lambda fn: fn(layer, seq, h0, c0, cfg, residuals=True, dropout=dropout)
+    tc = time_cfg or cfg
+    call = lambda fn: fn(layer, seq, h0, c0, tc, residuals=True, dropout=dropout)
     ms = cuda_ms(lambda: call(kern), reps=2, windows=3)
     plain_ms = cuda_ms(lambda: call(plain), reps=1, windows=2)
-    bound_ms, bound_by = bound(kind, cfg, s, b, cfg.hidden, cfg.vocab,
+    bound_ms, bound_by = bound(kind, tc, s, b, cfg.hidden, cfg.vocab,
                                train=True, drop=dropout is not None)
-    return out, dict(name=name, route="cuda",
-                     source="eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
+    return out, dict(name=name, route="cuda", source=source,
                      launches=None, max_abs_err=step_err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1039,9 +1069,11 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
     """K3 (``ids``) or K6 at the training shapes: every reverse step
     replayed from the kernel's own dg with the explicitly masked
     cotangent, and the whole window against the plain version given the
-    explicitly masked cotangent (fp32 gated, bf16 printed). Returns the
-    record."""
+    explicitly masked cotangent (fp32 gated, bf16 printed). K3 runs the
+    layer-0 VJP the JAX package takes at these shapes
+    (``dispatch.fused_accum_ok``). Returns the record."""
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
 
     h_seq, c_seq, g_seq = fwd_out[0], fwd_out[2], fwd_out[3]
     s, b, n = h_seq.shape
@@ -1055,17 +1087,19 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
         kern, plain = cuda_cell_bwd.scan_layer_bwd, cuda_cell_bwd.scan_layer_bwd_plain
         args = (U_c, g_seq, c_seq, h_seq, h0, c0)
         names = ("dg_seq", "dU", "dh0", "dc0")
+    kw = {} if ids is None else {"fused_accum": fused_accum_ok(cfg, b)}
     dg_k = torch.empty(s, b, 4 * n, device=DEVICE)
     before = kern.launches
-    out_k = kern(*args, dh_seq, dhT, dcT, cfg, dg_out=dg_k, dropout=dropout)
+    out_k = kern(*args, dh_seq, dhT, dcT, cfg, dg_out=dg_k, dropout=dropout,
+                 **kw)
     per_call[name] = kern.launches - before
-    out_p = plain(*args, dh_eff, dhT, dcT, cfg)
+    out_p = plain(*args, dh_eff, dhT, dcT, cfg, **kw)
     torch.cuda.synchronize()
     for label, got in zip(names, out_k):
         if not torch.isfinite(got.float()).all():
             fail(f"{name} {tag} {label}: non-finite values")
     if ids is not None:
-        rep = k3_replay(*args, dh_eff, dhT, dcT, cfg, dg_k)
+        rep = k3_replay(*args, dh_eff, dhT, dcT, cfg, dg_k, **kw)
         pairs = (("dg", dg_k, rep[0]), ("dh0", out_k[2], rep[1]),
                  ("dc0", out_k[3], rep[2]), ("dWU", out_k[0], rep[3]),
                  ("db", out_k[1], rep[4]))
@@ -1088,16 +1122,18 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
         window.append(f"{label} {err:.3e}")
         if cfg.cdtype == torch.float32 and err > TRAIN_TOL:
             fail(f"{name} {tag} window {label}: {err:.3e}")
-    print(f"  {name} {tag}: every reverse step and the outputs within "
+    vjp = ("" if ids is None else " (the fused VJP's db)"
+           if kw["fused_accum"] else " (the GEMM fall-back's db)")
+    print(f"  {name} {tag}{vjp}: every reverse step and the outputs within "
           f"{step_err:.3e} (normalised) of the plain replay from the "
           f"kernel's own dg{' with the host mask' if dropout else ''} (tol "
           f"{TRAIN_TOL:g}); window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
-    call = lambda: kern(*args, dh_seq, dhT, dcT, cfg, dropout=dropout)
+    call = lambda: kern(*args, dh_seq, dhT, dcT, cfg, dropout=dropout, **kw)
     ms = cuda_ms(call, reps=1, windows=3)
     plain_ms = cuda_ms(lambda: plain(*args, dh_seq, dhT, dcT, cfg,
-                                     dropout=dropout), reps=1, windows=2)
+                                     dropout=dropout, **kw), reps=1, windows=2)
     if ids is not None:
         bound_ms, bound_by = k3_bound(cfg, s, b, n, cfg.vocab)
     else:
@@ -1223,12 +1259,15 @@ def phase7c(per_call, records):
     """FLAG_STEPS steps of the flagship recipe through the CLI's Trainer
     from ckpt_best.npz, with the launch counts reset before and read after;
     the step time, chars/s, each kernel's share and the trajectory; then 2
-    steps from the run's state in fp32, kernels against plain."""
+    steps from the run's state in fp32, kernels against plain, with the
+    tiled kernels' launches reset before and read after (returned with the
+    bf16 run's counts and step time)."""
     import dataclasses
 
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
     from eigen_lstm_tpu_torch.models.lstm import step_key
-    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    from eigen_lstm_tpu_torch.ops import (cuda_cell, cuda_cell_bwd,
+                                          cuda_cell_tiled, head)
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
 
@@ -1274,10 +1313,16 @@ def phase7c(per_call, records):
         ms *= per_step.get(name, 1)
         print(f"  {name}: {ms:.3f} ms a step, {100 * ms / step_ms:.1f} % of "
               f"the {step_ms:.2f} ms flagship step", flush=True)
-    # two more steps from the run's state in fp32, kernels against plain
+    # two more steps from the run's state in fp32, kernels against plain:
+    # fp32 at N = 1024 takes the tiled family, as in the JAX package (U is
+    # 16 MB in fp32), so K8, K9 and K10 and none of K1, K2, K3, K6
     cfg32 = dataclasses.replace(trainer.mcfg, compute_dtype="float32")
     paths = [select_cell_fn(b_, cfg32, FLAG_B, DEVICE) for b_ in ("cuda", "plain")]
     st, worst = trainer.state, {}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    cuda_cell_tiled.reset_launches()
     for _ in range(2):
         win = trainer.feeder.next_device_batch()[0].to(torch.int32)
         x, t = win[:-1], win[1:]
@@ -1293,15 +1338,27 @@ def phase7c(per_call, records):
             worst[name] = max(worst.get(name, 0.0), err)
         st, _ = train_step(st, x, t, cfg32, trainer.dcfg, trainer.tcfg,
                            trainer.length, paths[0], trainer.generator)
+    torch.cuda.synchronize()
+    tiled = dict(zip(TILED, cuda_cell_tiled.launches()))
+    # two kernel runs a step (the gated loss_and_grads, then train_step),
+    # each K8 once, K9 for layers 1 and 2, K10 for all three, S launches
+    want = {"tiled_fwd_embed": 4 * FLAG_S, "tiled_fwd_scan": 8 * FLAG_S,
+            "tiled_bwd": 12 * FLAG_S}
     print(f"  flagship fp32, 2 steps from the run's state, plain at the same "
           f"seeds: bits rel (tol {LOSS_RTOL['float32']:g}) and gradients "
           f"normalised (tol {TRAIN_TOL:g}) within: "
-          + ", ".join(f"{k} {e:.3e}" for k, e in worst.items()), flush=True)
+          + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+          + f"; launches {tiled}", flush=True)
     for name, err in worst.items():
         tol = LOSS_RTOL["float32"] if name == "bits" else TRAIN_TOL
         if not np.isfinite(err) or err > tol:
             fail(f"flagship fp32 {name}: kernels against plain {err:.3e}")
-    return counts, step_ms
+    resident = {name: fn.launches for name, fn in counters.items()
+                if not name.startswith("head")}
+    if tiled != want or any(resident.values()):
+        fail(f"flagship fp32 steps: tiled launches {tiled} (the shapes give "
+             f"{want}), resident launches {resident} (expected none)")
+    return counts, step_ms, tiled
 
 
 # --- generation (3x1024 flagship, B = 1 and 128, 256 and 1000 tokens) -----
@@ -1464,6 +1521,347 @@ def phase8(test, records):
     return launches
 
 
+# --- the tiled-U regime (scripts/run_configs.py 5b: 1x2048, B = 128, S = 100)
+TILED = ("tiled_fwd_embed", "tiled_fwd_scan", "tiled_bwd")
+TILED_REPLACES = {
+    "tiled_fwd_embed": "eigen_lstm_tpu/ops/pallas_cell_tiled.py:429",
+    "tiled_fwd_scan": "eigen_lstm_tpu/ops/pallas_cell_tiled.py:52",
+    "tiled_bwd": "eigen_lstm_tpu/ops/pallas_cell_tiled.py:106",
+}
+TILED_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tiled.cu"
+# the resident design's kernel for the same work, timed beside each
+RESIDENT = {"tiled_fwd_embed": "K1", "tiled_fwd_scan": "K2",
+            "tiled_bwd": "K6, with its dU and dh0"}
+B5_S, B5_B, B5_N = 100, 128, 2048
+ENWIK6 = "data/enwik6.txt"
+# The 5b recipe as the CLI takes it (run_configs.py:114-120: 1x2048, loss on
+# every step, bf16, enwik6 with 99 % for training, B = 128, S = 100, lr
+# 0.005 after 200 warm-up steps at lr 0, supersteps of 10, seed 0;
+# ``--residual-dtype auto`` resolves to bf16 at hidden 2048, as 5b sets it).
+# The run there is 400 steps; here the warm-up and 100 steps at lr 0.005.
+B5_WARMUP, B5_STEPS = 200, 300
+B5_ARGV = [
+    "train", "--data", ENWIK6, "--train-percent", "0.99", "--hidden", "2048",
+    "--layers", "1", "--batch", str(B5_B), "--seq", str(B5_S), "--dtype",
+    "bfloat16", "--loss-mode", "all", "--lr", "0.005", "--warmup",
+    str(B5_WARMUP), "--superstep", "10", "--steps", str(B5_STEPS),
+    "--sample-chars", "0", "--seed", "0",
+]
+# K10 stores dg in the xw type: under bf16 the kernel's dg_t must be the
+# bf16 rounding (within 2^-8 of the value) of a value within TRAIN_TOL
+# (normalised) of the plain replay's fp32 dg_t.
+BF16_ROUNDING = 2.0 ** -8
+
+
+def b5_cfg(residual="bfloat16", **kw):
+    from eigen_lstm_tpu_torch import ModelConfig
+
+    return ModelConfig(hidden=B5_N, num_layers=1, loss_mode="all",
+                       compute_dtype="bfloat16", residual_dtype=residual, **kw)
+
+
+def tiled_bound(cfg, s, b, n):
+    """K10's least time, ms: bytes = U + the g and c residuals + c0, dhT,
+    dcT, dc0 + the dh_seq cotangent and dg_seq, both in the xw type;
+    flops = 2*S*B*4N*N for dg @ U^T (dh0 and the weight gradients are
+    products outside the kernel, as in the JAX VJP)."""
+    csz = torch.finfo(cfg.cdtype).bits // 8
+    rsz = 2 if cfg.residual_dtype == "bfloat16" else 4
+    nbytes = (n * 4 * n * csz + s * b * 5 * n * rsz + 4 * b * n * 4
+              + s * b * n * csz + s * b * 4 * n * csz)
+    return _bound(nbytes, 2 * s * b * 4 * n * n, cfg)
+
+
+def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
+                    inv, tag, per_call):
+    """K10 at the training shapes: every reverse step replayed from the
+    kernel's own dg_{t+1} with the cotangent rounded to the xw type and
+    masked explicitly, and the window against the plain version given the
+    explicitly masked cotangent (fp32 gated, bf16 printed). Returns the
+    record."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    g_seq, c_seq = fwd_out[3], fwd_out[2]
+    s, b, n = c_seq.shape
+    _, _, xd = ct.types(cfg)
+    before = ct.tiled_bwd.launches
+    dg_k, dc_k = ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
+                              dropout=dropout)
+    per_call["tiled_bwd"] = ct.tiled_bwd.launches - before
+    dh_x = dh_seq.to(xd).float()
+    dh_eff = dh_x if dropout is None else masked(dh_x, mask, inv)
+    dg_p, dc_p = ct.tiled_bwd_plain(U, g_seq, c_seq, c0, dh_eff, dhT, dcT, cfg)
+    torch.cuda.synchronize()
+    if dg_k.dtype != xd or not torch.isfinite(dg_k.float()).all() \
+            or not torch.isfinite(dc_k).all():
+        fail(f"tiled_bwd {tag}: dg_seq not finite or not in the xw type {xd}")
+    rep_dg, _, rep_dc = reverse_replay(U.to(cfg.cdtype), g_seq, c_seq, c0,
+                                       dh_eff, dhT, dcT, cfg, dg_k.float())
+    slack = BF16_ROUNDING if xd == torch.bfloat16 else 0.0
+    dg_err = float(((dg_k.float() - rep_dg).abs() - slack * rep_dg.abs())
+                   .clamp_min(0).max() / rep_dg.abs().max())
+    step_err = max(dg_err, norm_err(dc_k, rep_dc))
+    if not np.isfinite(step_err) or step_err > TRAIN_TOL:
+        fail(f"tiled_bwd {tag}: {step_err:.3e} of its plain replay > "
+             f"{TRAIN_TOL:g}")
+    window = [f"dg_seq {norm_err(dg_k, dg_p):.3e}", f"dc0 {norm_err(dc_k, dc_p):.3e}"]
+    if cfg.cdtype == torch.float32 and max(norm_err(dg_k, dg_p),
+                                           norm_err(dc_k, dc_p)) > TRAIN_TOL:
+        fail(f"tiled_bwd {tag} window: {window}")
+    print(f"  tiled_bwd {tag}: every reverse step and dc0 within "
+          f"{step_err:.3e} (normalised"
+          + (", beyond dg's bf16 rounding" if slack else "") + ") of the plain "
+          f"replay from the kernel's own dg{' with the host mask' if dropout else ''}"
+          f" (tol {TRAIN_TOL:g}); window against plain with explicit masks ("
+          + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
+             "bf16, not gated") + "): " + ", ".join(window), flush=True)
+    ms = cuda_ms(lambda: ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT, dcT,
+                                      cfg, dropout=dropout), reps=1, windows=3)
+    plain_ms = cuda_ms(lambda: ct.tiled_bwd_plain(U, g_seq, c_seq, c0, dh_seq,
+                                                  dhT, dcT, cfg, dropout),
+                       reps=1, windows=2)
+    bound_ms, bound_by = tiled_bound(cfg, s, b, n)
+    return dict(name="tiled_bwd", route="cuda", source=TILED_SOURCE,
+                replaces=TILED_REPLACES["tiled_bwd"], launches=None,
+                max_abs_err=step_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase9a(records):
+    """K8, K9 and K10 against their plain versions at the 5b shapes (bf16;
+    random weights that make the gates move, as the 5b recipe trains from
+    random weights) and at the flagship's fp32 training shapes (its layers
+    0 and 1), without and with dropout 0.35; times beside the bound, the
+    plain version, K1/K2/K6 at the same shapes and cuDNN; the heads'
+    launches at the 5b shapes. Returns the launches of one call of each."""
+    from eigen_lstm_tpu_torch.models.lstm import LayerParams
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    per_call = {}
+    inv = torch.tensor(float(np.float32(1.0 / (1.0 - FLAG_DROP))), device=DEVICE)
+    m = 256
+    for dtype, s, n in (("bfloat16", B5_S, B5_N), ("float32", FLAG_S, 1024)):
+        b = B5_B
+        gen = torch.Generator().manual_seed(9)
+        rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
+        if dtype == "bfloat16":
+            # the step replay reads the fp32 carry from fp32 residuals; the
+            # path's bf16 residuals are checked against that run rounded
+            cfg, run_cfg = b5_cfg("float32"), b5_cfg()
+            lay = lambda in_dim: LayerParams(
+                rand(in_dim, 4 * n, sd=0.3), rand(n, 4 * n, sd=0.3 / (n / 16) ** 0.5),
+                rand(4 * n, sd=0.3))
+            l0, l1 = lay(m), lay(n)
+            x = corpus_window(ENWIK6, 0.99, gen, s, b)[0]
+        else:
+            cfg = run_cfg = flag_train_cfg("float32")
+            params = load_params(FLAGSHIP, cfg, DEVICE)
+            l0, l1 = params.layers[0], params.layers[1]
+            x = corpus_window(CORPUS, 0.95, gen, s, b)[0]
+        h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+        dh_seq = rand(s, b, n, sd=1e-3)
+        dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
+        masks = [host_masks(sd, s, b, n, FLAG_DROP) for sd in FLAG_SEEDS]
+        onehot = torch.nn.functional.one_hot(x.long(), m).float()
+        for drop in (0.0, FLAG_DROP):
+            tag = f"{dtype} N={n} S={s} drop {drop:g}"
+            dr = [(drop, sd) if drop else None for sd in FLAG_SEEDS]
+            out1, rec8 = fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+                                   ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg,
+                                   dr[0], masks[0], inv, tag, per_call,
+                                   TILED_SOURCE, run_cfg)
+            h_in = (out1[4] if drop else out1[0]).float()
+            xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
+                  .reshape(s, b, 4 * n) + l1.b)
+            out2, rec9 = fwd_check("tiled_fwd_scan", "scan", ct.tiled_scan_layer,
+                                   ct.tiled_scan_layer_plain, l1, xw, h0, c0, cfg,
+                                   dr[1], masks[1], inv, tag, per_call,
+                                   TILED_SOURCE, run_cfg)
+            if run_cfg is not cfg:
+                for name, fn, lay_, seq, d, ref in (
+                        ("tiled_fwd_embed", ct.tiled_embed_layer0, l0, x, dr[0], out1),
+                        ("tiled_fwd_scan", ct.tiled_scan_layer, l1, xw, dr[1], out2)):
+                    check_bf16_residuals(f"{name} {tag}", fn(
+                        lay_, seq, h0, c0, run_cfg, residuals=True, dropout=d), ref)
+                out2 = ct.tiled_scan_layer(l1, xw, h0, c0, run_cfg,
+                                           residuals=True, dropout=dr[1])
+            rec10 = tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT,
+                                    run_cfg, dr[1], masks[1], inv, tag, per_call)
+            # the resident kernels at the same shapes (the path's types)
+            k1 = cuda_ms(lambda: cuda_cell.embed_layer0(
+                l0, x, h0, c0, run_cfg, residuals=True, dropout=dr[0]),
+                reps=1, windows=3)
+            k2 = cuda_ms(lambda: cuda_cell.scan_layer(
+                l1, xw, h0, c0, run_cfg, residuals=True, dropout=dr[1]),
+                reps=1, windows=3)
+            res = cuda_cell.scan_layer(l1, xw, h0, c0, run_cfg, residuals=True)
+            k6 = cuda_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
+                l1.U.to(run_cfg.cdtype), res[3], res[2], res[0], h0, c0, dh_seq,
+                dhT, dcT, run_cfg, dropout=dr[1]), reps=1, windows=3)
+            libs = (library_ms(m, run_cfg, onehot, h0, c0),
+                    library_ms(n, run_cfg, h_in, h0, c0),
+                    library_lstm_bwd(run_cfg, h_in, h0, c0, dh_seq))
+            for rec, lib, resident in zip((rec8, rec9, rec10), libs, (k1, k2, k6)):
+                rec.update(replaces=TILED_REPLACES[rec["name"]], library_ms=lib,
+                           resident_ms=resident)
+                records[("9a", rec["name"], dtype, drop)] = rec
+                print(f"  {rec['name']} {tag}: {rec['ms']:.4f} ms per window "
+                      f"({per_call[rec['name']]} launches), plain "
+                      f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+                      f"({rec['bound_by']}), the resident kernel "
+                      f"({RESIDENT[rec['name']]}) {resident:.4f} ms, cuDNN nn.LSTM "
+                      f"{'backward ' if 'bwd' in rec['name'] else ''}"
+                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+        if dtype == "bfloat16":
+            # the heads at the 5b shapes (T = S*B, N = 2048): launches a
+            # call and times
+            t = s * b
+            h_c = out1[0].reshape(t, n).to(cfg.cdtype)
+            Why_c, by = rand(n, m, sd=0.01).to(cfg.cdtype), torch.zeros(m, device=DEVICE)
+            tg, cot = x.reshape(t), torch.tensor(LN2 / t, device=DEVICE)
+            before = head.head_fwd.launches
+            _, lse = head.head_fwd(Why_c, by, h_c, tg, cfg)
+            per_call["head_fwd"] = head.head_fwd.launches - before
+            before = head.head_bwd.launches
+            head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
+            per_call["head_bwd"] = head.head_bwd.launches - before
+            for name, fn in (("head_fwd", lambda: head.head_fwd(Why_c, by, h_c, tg, cfg)),
+                             ("head_bwd", lambda: head.head_bwd(Why_c, by, h_c, tg,
+                                                                lse, cot, cfg))):
+                records[("9a", name)] = cuda_ms(fn, reps=5, windows=3)
+    return per_call
+
+
+def phase9b():
+    """One enwik6 window through ``loss_fn`` of a 2x2048 model (the 5b
+    widths at depth 2, so that K9 is on a model path; bf16 with bf16
+    residuals, dropout 0.35, the recipe's random initialisation, a random
+    carried state): the loss and all eight gradients through the kernels
+    against the plain path, gated as phase 7b. The fp32 run, the control,
+    keeps fp32 residuals: fp32 compute with bf16 residuals would round h to
+    bf16 where an fp32 sum's order can flip it."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.models.lstm import init_params, step_key
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+    from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
+
+    base = dataclasses.replace(b5_cfg(dropout=FLAG_DROP), num_layers=2)
+    gen = torch.Generator().manual_seed(10)
+    x, t = corpus_window(ENWIK6, 0.99, gen, B5_S, B5_B)
+    h = (torch.randn(2, B5_B, B5_N, generator=gen) * 0.1).to(DEVICE)
+    c = (torch.randn(2, B5_B, B5_N, generator=gen) * 0.1).to(DEVICE)
+    params = init_params(base, device=DEVICE)
+    key = step_key(1, 250)
+    res = {}
+    ct.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=dtype, residual_dtype=(
+            "float32" if dtype == "float32" else base.residual_dtype))
+        print(f"  2x2048 {dtype}: families (layers >= 1, layer 0) "
+              f"{families(cfg, B5_B)}", flush=True)
+        for backend in ("cuda", "plain"):
+            cell_fn = select_cell_fn(backend, cfg, B5_B, DEVICE)
+            loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg,
+                                               cell_fn, key)
+            res[(dtype, backend)] = (loss, dict(grads.named_tensors()))
+    torch.cuda.synchronize()
+    launched = dict(zip(TILED, ct.launches()))
+    print(f"  2x2048: tiled launches {launched}", flush=True)
+    if min(launched.values()) <= 0:
+        fail(f"2x2048 loss_fn: a tiled kernel was not launched: {launched}")
+    compare_paths("2x2048 loss_fn", res, lambda k: k.endswith(FLAG_ROUNDED),
+                  vs_drift=FLAG_BF16_VS_DRIFT)
+
+
+def phase9c(per_call, records):
+    """The 5b recipe through the CLI's Trainer, with every kernel's launch
+    count reset before and read after: the step time, chars/s and the mean
+    bits of each superstep, gated finite, the last below 8.0 and below the
+    first; the launches against what the shapes give (K8, K10, K4, K5) and
+    none of K1, K2, K3, K6. Then held-out bits/char of the trained weights
+    on enwik6's last 1 % at eval batch 16 through K8, kernels against
+    plain. Returns the launch counts of the training run."""
+    from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+    from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
+    from eigen_lstm_tpu_torch.train.evaluator import evaluate_bpc
+
+    trainer = _make_trainer(build_parser().parse_args(B5_ARGV))
+    cfg = trainer.mcfg
+    print(f"  5b: {cfg.hidden} hidden, residual {cfg.residual_dtype}, families "
+          f"(layers >= 1, layer 0) at B={B5_B} {families(cfg, B5_B)}, at the "
+          f"eval batch {EVAL_BATCH} {families(cfg, EVAL_BATCH)}", flush=True)
+    counters = {"tiled_fwd_embed": ct.tiled_embed_layer0,
+                "tiled_fwd_scan": ct.tiled_scan_layer,
+                "tiled_bwd": ct.tiled_bwd,
+                "lstm_fwd_embed": cuda_cell.embed_layer0,
+                "lstm_fwd_scan": cuda_cell.scan_layer,
+                "lstm_bwd_embed": cuda_cell_bwd.embed_layer0_bwd,
+                "lstm_bwd_scan": cuda_cell_bwd.scan_layer_bwd,
+                "head_fwd": head.head_fwd, "head_bwd": head.head_bwd}
+    k = trainer.tcfg.superstep
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bits = []
+    for _ in range(B5_STEPS // k):
+        trainer.state, met = trainer.dispatch_superstep()
+        bits.append(met["bits"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    bits = torch.cat(bits).tolist()
+    means = [statistics.fmean(bits[i:i + k]) for i in range(0, len(bits), k)]
+    step_ms = dt * 1e3 / B5_STEPS
+    print(f"  5b steps: {B5_STEPS} steps ({B5_WARMUP} at lr 0) in {dt:.2f} s: "
+          f"{step_ms:.2f} ms a step, {B5_S * B5_B * B5_STEPS / dt:,.0f} chars/s; "
+          f"launches {counts}", flush=True)
+    print("  5b steps, mean bits of each superstep: "
+          + " ".join(f"{v:.4f}" for v in means), flush=True)
+    for name in ("tiled_fwd_embed", "tiled_bwd", "head_fwd", "head_bwd"):
+        ms = (records[("9a", name)] if name.startswith("head")
+              else records[("9a", name, "bfloat16", 0.0)]["ms"])
+        print(f"  {name}: {ms:.3f} ms a step, {100 * ms / step_ms:.1f} % of "
+              f"the {step_ms:.2f} ms 5b step", flush=True)
+    if not all(np.isfinite(bits)) or not means[-1] < min(8.0, means[0]):
+        fail(f"5b steps: bits not finite, or the last superstep's mean "
+             f"{means[-1]:.4f} not below 8.0 and the first's {means[0]:.4f}")
+    want = {name: 0 for name in counters}
+    want.update(tiled_fwd_embed=B5_STEPS * B5_S, tiled_bwd=B5_STEPS * B5_S,
+                head_fwd=B5_STEPS * per_call["head_fwd"],
+                head_bwd=B5_STEPS * per_call["head_bwd"])
+    if counts != want:
+        fail(f"5b steps: launches {counts}, the path's shapes give {want}")
+    test = trainer.test_np
+    kern = select_cell_fn("auto", cfg, EVAL_BATCH, DEVICE)
+    plain = select_cell_fn("plain", cfg, EVAL_BATCH, DEVICE)
+    params = trainer.state.params
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bpc_k = evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, None, kern)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eval_counts = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    bpc_p = evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, None, plain)
+    rel = abs(bpc_k - bpc_p) / bpc_p
+    print(f"  5b eval, enwik6's last {len(test)} bytes at B={EVAL_BATCH}: "
+          f"kernels {bpc_k:.6f} plain {bpc_p:.6f} (rel {rel:.2e}, rtol "
+          f"{BPC_RTOL:g}), {len(test) / dt:,.0f} bytes/s, launches "
+          f"{eval_counts}", flush=True)
+    if not np.isfinite(bpc_k) or rel > BPC_RTOL or set(eval_counts) != {"tiled_fwd_embed"}:
+        fail("5b eval: bits/char out of tolerance, or not through K8 alone")
+    return counts, step_ms
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -1496,10 +1894,16 @@ def main():
     check_budget("phase 7a (flagship training kernels against plain)")
     phase7b()
     check_budget("phase 7b (flagship loss and gradients)")
-    flag_counts, _ = phase7c(flag_call, records)
+    flag_counts, _, fp32_tiled = phase7c(flag_call, records)
     check_budget("phase 7c (flagship training steps)")
     gen_launches += phase8(test, records)
     check_budget("phase 8 (generation)")
+    tiled_call = phase9a(records)
+    check_budget("phase 9a (tiled kernels against plain)")
+    phase9b()
+    check_budget("phase 9b (2x2048 loss and gradients)")
+    b5_counts, _ = phase9c(tiled_call, records)
+    check_budget("phase 9c (the 5b recipe)")
     kernels = []
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
                         ("lstm_bwd_embed", counts["lstm_bwd_embed"]),
@@ -1510,6 +1914,13 @@ def main():
     kernels.append(dict(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
                         launches=flag_counts["lstm_bwd_scan"]))
     kernels.append(dict(records[("gen", "bfloat16", 1)], launches=gen_launches))
+    # K8 and K10 on the 5b path (9c), K9 on the flagship's fp32 steps (7c)
+    for name, count in (("tiled_fwd_embed", b5_counts["tiled_fwd_embed"]),
+                        ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),
+                        ("tiled_bwd", b5_counts["tiled_bwd"])):
+        rec = dict(records[("9a", name, "bfloat16", 0.0)], launches=count)
+        rec.pop("resident_ms")
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

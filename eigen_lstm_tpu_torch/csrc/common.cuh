@@ -5,8 +5,9 @@
 //   atb_gemm: C (I, J) = sum_r round(A[r, :])^T round(B[r, :]), a hand-written
 //     tiled product on CUDA cores, the reduction over r split across blocks
 //     into partial slabs that a second launch adds in a fixed order;
-//   colsum:   out (J,) = sum_r X[r, :], in 128-row chunks and then over the
-//     chunks, both in a fixed order.
+//   colsum:   out (J,) = sum_r X[r, :], each term optionally rounded to a
+//     type XT first, in 128-row chunks and then over the chunks, both in a
+//     fixed order.
 //
 // Both are deterministic: the same inputs give the same bits on every run.
 // Everything here has internal linkage (an unnamed namespace), so each
@@ -197,27 +198,31 @@ inline size_t atb_work_floats(int R, int I, int J) {
 }
 
 // ---------------------------------------------------------------------------
-// colsum: part[c, j] = sum of X rows 128c .. 128c+127 in order; then
-// out[j] = sum_c part[c, j] in order. grid = (ceil(J/256), chunks).
+// colsum: part[c, j] = sum of round_to<XT>(X) rows 128c .. 128c+127 in
+// order (XT = float: X as it is); then out[j] = sum_c part[c, j] in order.
+// grid = (ceil(J/256), chunks).
 constexpr int kColChunk = 128;
 
+template <typename XT>
 __global__ void colsum_chunks(const float* __restrict__ X, float* __restrict__ part,
                               int R, int J) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= J) return;
   const int r0 = blockIdx.y * kColChunk, r1 = min(R, r0 + kColChunk);
   float s = 0.0f;
-  for (int r = r0; r < r1; ++r) s += X[(size_t)r * J + j];
+  for (int r = r0; r < r1; ++r) s += round_to<XT>(X[(size_t)r * J + j]);
   part[(size_t)blockIdx.y * J + j] = s;
 }
 
 inline int colsum_chunks_of(int R) { return (R + kColChunk - 1) / kColChunk; }
 
-// out = column sums of X (R, J) through `work` (chunks * J floats).
-inline int run_colsum(const float* X, float* out, float* work, int R, int J,
-                      cudaStream_t stream, int* launches) {
+// out = column sums of X (R, J), each term rounded to XT, through `work`
+// (chunks * J floats).
+template <typename XT = float>
+int run_colsum(const float* X, float* out, float* work, int R, int J,
+               cudaStream_t stream, int* launches) {
   const int chunks = colsum_chunks_of(R);
-  colsum_chunks<<<dim3((J + 255) / 256, chunks), 256, 0, stream>>>(X, work, R, J);
+  colsum_chunks<XT><<<dim3((J + 255) / 256, chunks), 256, 0, stream>>>(X, work, R, J);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;

@@ -20,7 +20,11 @@
 //   dU = sum_t round(h_{t-1})^T round(dg_t)    (h_{-1} = h0)
 // K3 adds
 //   dW[v] = sum_{(t,b): ids = v} round(dg_t[b])  (the one-hot product)
-//   db = sum_{t,b} dg_t[b]                      (unrounded fp32 dg)
+//   db = sum_{t,b} dg_t[b]
+// where db sums the unrounded fp32 dg when the JAX package takes the fused
+// VJP (pallas_cell.py:1031-1042, where fused_accum_ok holds) and dg rounded
+// to the xw type when it takes the GEMM fall-back (:1044-1066, which sums
+// the xw-type dg that _bwd_kernel emits): the launcher's round_db.
 // and K6 hands dg_seq out in the xw type (bf16 under bf16 compute,
 // pallas_cell.py:299, :365): dW, db and dx of layers >= 1 follow from it
 // outside, in torch (x @ W stays a plain large product, as in XLA). K6's
@@ -248,7 +252,7 @@ int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
             const void* h_seq, const int* ids, const float* h0,
             const float* c0, const float* dh_seq, const float* dhT, float* dc,
             float* dg, float* dWU, float* db, float* dh0, float* work, int S,
-            int B, int N, int M, int standard, Dropout drop,
+            int B, int N, int M, int standard, int round_db, Dropout drop,
             cudaStream_t stream, int* launches) {
   int e = run_reverse<CT, RT>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0,
                               S, B, N, standard, drop, stream, launches);
@@ -262,7 +266,9 @@ int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
-  return run_colsum(dg, db, work, R, C, stream, launches);
+  // the xw type is the compute type on the card (bf16 or fp32)
+  return round_db ? run_colsum<CT>(dg, db, work, R, C, stream, launches)
+                  : run_colsum(dg, db, work, R, C, stream, launches);
 }
 
 // K6: the reverse steps, dU over the fp32 dg (round_c(dg) is the xw-type
@@ -303,16 +309,17 @@ extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N) {
 // Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N) in the compute type;
 // the residual sequences have the residual type; h0, c0, dh_seq, dhT and the
 // outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
-// (S, B, 4N) fp32 scratch. drop_on, seed, keep, inv: the dropout of the
-// forward's masked stream (pallas_cell.py:_keep_mask). Adds its kernel
-// launches to *launches.
+// (S, B, 4N) fp32 scratch. round_db: db sums dg rounded to the compute
+// type (the GEMM fall-back VJP) instead of the fp32 dg (the fused VJP).
+// drop_on, seed, keep, inv: the dropout of the forward's masked stream
+// (pallas_cell.py:_keep_mask). Adds its kernel launches to *launches.
 extern "C" int lstm_bwd_embed_launch(
     int ctype, int rtype, const void* UT, const void* g_seq,
     const void* c_seq, const void* h_seq, const void* ids, const void* h0,
     const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dg,
     void* dWU, void* db, void* dh0, void* work, int S, int B, int N, int M,
-    int standard, int drop_on, unsigned seed, unsigned keep, float inv,
-    void* stream, int* launches) {
+    int standard, int round_db, int drop_on, unsigned seed, unsigned keep,
+    float inv, void* stream, int* launches) {
   const Dropout drop{drop_on, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(UT, g_seq, c_seq, h_seq, static_cast<const int*>(ids),
@@ -321,8 +328,8 @@ extern "C" int lstm_bwd_embed_launch(
                static_cast<const float*>(dhT), static_cast<float*>(dc),
                static_cast<float*>(dg), static_cast<float*>(dWU),
                static_cast<float*>(db), static_cast<float*>(dh0),
-               static_cast<float*>(work), S, B, N, M, standard, drop,
-               static_cast<cudaStream_t>(stream), launches);
+               static_cast<float*>(work), S, B, N, M, standard, round_db,
+               drop, static_cast<cudaStream_t>(stream), launches);
   };
   using bf = __nv_bfloat16;
   if (ctype == 0 && rtype == 0) return f(run_bwd<float, float>);

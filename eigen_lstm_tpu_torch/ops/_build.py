@@ -44,7 +44,7 @@ _DROP = [_U, _U, _F]   # the dropout's seed (int32 bits), keep threshold, inv
 SIGNATURES = {
     "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 4 + _DROP + [_P]),
     "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 12 + [_I] * 4 + _DROP + [_P]),
-    "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 6 + _DROP
+    "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 7 + _DROP
                               + [_P, _IP]),
     "lstm_bwd_embed_work_floats": (_Z, [_I] * 3),
     "lstm_bwd_scan_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 5 + _DROP
@@ -55,6 +55,11 @@ SIGNATURES = {
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
     "gen_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_U, _F, _P]),
+    "tiled_fwd_embed_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 4 + _DROP
+                               + [_P]),
+    "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 4 + _DROP
+                              + [_P]),
+    "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 8 + [_I] * 5 + _DROP + [_P]),
     "gen_work_floats": (_Z, [_I] * 3),
 }
 

@@ -18,7 +18,15 @@ tensor it runs its plain version, which repeats the kernel's arithmetic:
 dg in fp32 (``_reverse_plain``), rounded to the compute type before
 dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c, with h_{-1} = h0
 (rounded to the residual type for K6, as ``_bwd_core`` rounds it); K3 adds
-dW[ids_t] += dg_c and db from the unrounded dg. With ``dropout=(rate,
+dW[ids_t] += dg_c and db.
+
+K3 copies whichever of the JAX package's two layer-0 VJPs the config takes
+(``ops.dispatch.fused_accum_ok``). With ``fused_accum`` (the fused VJP,
+``pallas_cell.py:1031-1042``) db is the sum of the unrounded fp32 dg and
+h_{-1} = h0 as it is. Without it (the GEMM fall-back, ``:1044-1066``, which
+the flagship takes in bf16) db is the fp32 sum of dg rounded to the xw
+type, which ``_bwd_kernel`` emits, and h_{-1} = h0 rounded to the residual
+type, as ``_bwd_core`` concatenates it. With ``dropout=(rate,
 seed)`` the cotangent of h_seq is the masked stream's: step t masks it with
 the forward's keep(seed, t) and scales it by inv before it meets the
 recurrent dh (``pallas_cell.py:629-634``).
@@ -72,11 +80,17 @@ def _round(x, cfg: ModelConfig):
     return x.to(cfg.cdtype).to(cuda_cell._acc_dtype(cfg))
 
 
+def _h_minus_1(h0, cfg: ModelConfig, fused_accum: bool):
+    """K3's h_{-1}: h0 as it is for the fused VJP, rounded to the residual
+    type for the GEMM fall-back."""
+    return h0 if fused_accum else h0.to(cfg.rdtype)
+
+
 def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                            dhT, dcT, cfg: ModelConfig, dg_out=None,
-                           dropout=None):
-    """Plain version of the layer-0 backward kernel; ``dg_out`` as the
-    kernel's."""
+                           dropout=None, fused_accum: bool = True):
+    """Plain version of the layer-0 backward kernel; ``dg_out`` and
+    ``fused_accum`` as the kernel's."""
     af = cuda_cell._acc_dtype(cfg)
     s, b = ids.shape
     n = cfg.hidden
@@ -86,11 +100,13 @@ def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
         dg_out.copy_(dg)
     dg = dg.reshape(s * b, 4 * n)
     dg_c = _round(dg, cfg)
+    h0 = _h_minus_1(h0, cfg, fused_accum)
     h_prev = torch.cat([h0.to(af)[None], h_seq[:-1].to(af)]).reshape(s * b, n)
     dU = _round(h_prev, cfg).T @ dg_c
     dW = torch.zeros(cfg.vocab, 4 * n, dtype=af, device=dg.device)
     dW.index_add_(0, ids.reshape(-1).long(), dg_c)
-    return torch.cat([dW, dU]), dg.sum(0), dh, dc
+    db = dg if fused_accum else dg.to(cuda_cell.xw_type(cfg)).to(af)
+    return torch.cat([dW, dU]), db.sum(0), dh, dc
 
 
 def scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
@@ -147,20 +163,25 @@ def _kernel_inputs(U_c, seqs, cfg: ModelConfig, *fp32):
             [x.to(torch.float32).contiguous() for x in fp32])
 
 
-def _launch_args(cfg: ModelConfig, dropout, device):
+def _launch_args(cfg: ModelConfig, dropout, device, *flags):
+    """The launchers' trailing arguments: the cell variant, ``flags``, the
+    dropout's and the stream."""
     drop = cuda_cell.drop_scalars(dropout)
-    return ((int(cfg.cell_variant == "standard"), int(drop is not None))
-            + (drop or (0, 0, 0.0))
+    return ((int(cfg.cell_variant == "standard"),) + flags
+            + (int(drop is not None),) + (drop or (0, 0, 0.0))
             + (torch.cuda.current_stream(device).cuda_stream,))
 
 
 def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
-                     cfg: ModelConfig, dg_out=None, dropout=None):
+                     cfg: ModelConfig, dg_out=None, dropout=None,
+                     fused_accum: bool = True):
     """Layer-0 backward: the kernel on a CUDA tensor, the plain version on
     a CPU tensor. U_c: (N, 4N) in the compute type; g_seq (S, B, 4N), c_seq
     and h_seq (S, B, N) in the residual type; ids (S, B); h0, c0, dh_seq,
     dhT, dcT fp32. Returns (dWU (M+N, 4N), db (4N,), dh0, dc0) in fp32.
-    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence."""
+    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence.
+    ``fused_accum``: the JAX VJP copied, fused (True) or the GEMM fall-back
+    (the module docstring)."""
     _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
     if tuple(ids.shape) != tuple(h_seq.shape[:2]) or ids.device != h_seq.device:
         raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
@@ -169,13 +190,15 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
         raise TypeError(f"ids must be integer byte ids, got {ids.dtype}")
     if ids.device.type == "cpu":
         return embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
-                                      dh_seq, dhT, dcT, cfg, dg_out, dropout)
+                                      dh_seq, dhT, dcT, cfg, dg_out, dropout,
+                                      fused_accum)
     ctype, rtype = cuda_cell._kernel_types(cfg, ids.device)
     s, b = ids.shape
     n, m = cfg.hidden, cfg.vocab
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
-    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg, h0, c0,
+    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
+                                   _h_minus_1(h0, cfg, fused_accum), c0,
                                    dh_seq, dhT)
     ids32 = ids.to(torch.int32).contiguous()
     dc = dcT.to(torch.float32).clone().contiguous()
@@ -190,7 +213,8 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
         ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
         ids32.data_ptr(), *(x.data_ptr() for x in ins), dc.data_ptr(),
         dg.data_ptr(), dWU.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-        work.data_ptr(), s, b, n, m, *_launch_args(cfg, dropout, dev),
+        work.data_ptr(), s, b, n, m,
+        *_launch_args(cfg, dropout, dev, int(not fused_accum)),
         ctypes.byref(launched),
     )
     embed_layer0_bwd.launches += launched.value
@@ -268,12 +292,13 @@ class EmbedLayer0(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, W, U, b, ids, h0, c0, cfg: ModelConfig, plain: bool,
-                dropout):
+                dropout, fused_accum: bool):
         layer = LayerParams(W, U, b)
         fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
         out = fwd(layer, ids, h0, c0, cfg, residuals=True, dropout=dropout)
         ctx.save_for_backward(U, out[0], out[2], out[3], ids, h0, c0)
         ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
+        ctx.fused_accum = fused_accum
         ctx.dtypes = (W.dtype, U.dtype, b.dtype, h0.dtype, c0.dtype)
         return _layer_out(out)
 
@@ -287,12 +312,12 @@ class EmbedLayer0(torch.autograd.Function):
         dWU, db, dh0, dc0 = bwd(
             U.to(cfg.cdtype), g_seq, c_seq, h_seq, ids, h0.to(af), c0.to(af),
             *_cotangents(ctx, dh_out, dhT, dcT, h_seq, h0, c0), cfg,
-            dropout=ctx.dropout,
+            dropout=ctx.dropout, fused_accum=ctx.fused_accum,
         )
         dWU = dWU.to(cfg.cdtype)
         wd, ud, bd, hd, cd = ctx.dtypes
         return (dWU[:m].to(wd), dWU[m:].to(ud), db.to(bd), None,
-                dh0.to(hd), dc0.to(cd), None, None, None)
+                dh0.to(hd), dc0.to(cd), None, None, None, None)
 
 
 class ScanLayer(torch.autograd.Function):
@@ -334,14 +359,17 @@ def _wants_grad(*xs) -> bool:
 
 
 def differentiable_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
-                                dropout=None, plain: bool = False):
+                                dropout=None, plain: bool = False,
+                                fused_accum: bool = True):
     """``cell_fn.embed_layer0`` of ``ops.dispatch``: (h_out, (hT, cT)) of
     layer 0, h_out the masked stream under ``dropout=(rate, seed)``,
     through ``EmbedLayer0`` when autograd needs a gradient of its inputs,
-    else through the forward kernel alone (no residuals)."""
+    else through the forward kernel alone (no residuals). ``fused_accum``
+    picks the JAX VJP that K3 copies (the module docstring)."""
     if _wants_grad(layer.W, layer.U, layer.b, h0, c0):
         h_out, hT, cT = EmbedLayer0.apply(layer.W, layer.U, layer.b, ids, h0,
-                                          c0, cfg, plain, dropout)
+                                          c0, cfg, plain, dropout,
+                                          fused_accum)
         return h_out, (hT, cT)
     fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
     return fwd(layer, ids, h0, c0, cfg, dropout=dropout)

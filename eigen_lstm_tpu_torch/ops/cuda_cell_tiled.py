@@ -1,0 +1,458 @@
+"""The tiled-U recurrence of the port: the counterpart of
+``eigen_lstm_tpu/ops/pallas_cell_tiled.py``, the regime where U no longer
+fits a TPU core's VMEM (N >= 2048 in bf16, N >= 1024 in fp32; the families
+are chosen in ``ops/dispatch.py``).
+
+Three kernels of ``csrc/lstm_tiled.cu``, each with a wrapper that
+validates, casts, launches and counts its launches in ``.launches`` (S per
+call, one per timestep), and a plain version beside it that repeats the
+kernel's arithmetic step by step; a wrapper runs the plain version for a
+CPU tensor and for a CUDA tensor launches the kernel or raises:
+
+* ``tiled_embed_layer0`` (K8, ``_fwd_tiled_embed_kernel`` :429): layer 0,
+  g = (W_c[ids_t] + round(h_{t-1}) @ U_c) + b (``:454-457``, the one-hot
+  rows of [onehot | h] @ [W; U] as a gather);
+* ``tiled_scan_layer`` (K9, ``_fwd_tiled_kernel`` :52): layers >= 1,
+  g = xw_t + round(h_{t-1}) @ U_c, xw in the xw type (``:73-76``);
+* ``tiled_bwd`` (K10, ``_bwd_tiled_kernel`` :106): the reverse steps of
+  both tiled VJPs, dh_t = round(dg_{t+1}) @ U_c^T + dh_cot_t, then the gate
+  backward; returns dg_seq in the xw type and dc0 in fp32.
+
+The types are the tiled JAX functions' (``:222-225``, ``:673``): the
+residual type is fp32 only where ``residual_dtype`` is ``"float32"``, else
+bf16; the xw type is bf16 under bf16 compute, else fp32; every product,
+carry and sum is fp32, also under float64 compute, which the tiled JAX path
+runs in fp32. The forward wrappers return as those of ``cuda_cell``:
+``(h_out, (hT, cT))``, with ``residuals`` ``(h_seq, (hT, cT), c_seq,
+g_seq)`` and the masked stream last under ``dropout=(rate, seed)``.
+
+``TiledEmbedLayer0`` and ``TiledScanLayer`` are the VJPs of
+``_make_tiled_embed_seq`` and ``_make_tiled_seq`` (``:338-415``,
+``:589-653``): the cotangent of h_seq rounded to the xw type before K10,
+those of hT and cT through the residual type; then, outside the kernel as
+in JAX, dh0 = round(dg_0) @ U_c^T, dU = round(h_prev)^T round(dg) with
+h_{-1} = h0 in the residual type, dW = onehot(ids)^T round(dg) and db the
+fp32 sum of the rounded dg, all fp32 products (``ops/cell.py:matmul``,
+without TF32); dW and dU are handed back rounded to the compute type
+(``:377``, ``:622``) and dxw is dg in the xw type.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..models.lstm import LayerParams
+from . import _build
+from . import cell as cell_ops
+from . import cuda_cell
+
+AF = torch.float32   # every product, carry and sum of the tiled path
+
+
+def types(cfg: ModelConfig) -> Tuple[torch.dtype, torch.dtype, torch.dtype]:
+    """(compute, residual, xw) types of the tiled path."""
+    rd = torch.float32 if cfg.residual_dtype == "float32" else torch.bfloat16
+    xd = torch.bfloat16 if cfg.cdtype == torch.bfloat16 else torch.float32
+    return cfg.cdtype, rd, xd
+
+
+def _mm(a, w, cfg: ModelConfig):
+    """a @ w with both rounded to the compute type, the product in fp32."""
+    return cell_ops.matmul(a, w, cfg.cdtype, AF)
+
+
+# --- the forward: plain versions ---------------------------------------------
+
+
+def _recurrence_plain(g_of, steps, U_c, h0, c0, cfg: ModelConfig,
+                      residuals: bool, dropout):
+    """The forward steps: g_of(t, round(h_{t-1}) @ U_c) is step t's
+    pre-activation, the carry fp32."""
+    _, rd, _ = types(cfg)
+    n = cfg.hidden
+    drop = cuda_cell.drop_scalars(dropout) is not None
+    h, c = h0.to(AF), c0.to(AF)
+    hs, cs, gs, hds = [], [], [], []
+    for t in range(steps):
+        g = cell_ops.gate_activations(g_of(t, _mm(h, U_c, cfg)), n)
+        h, c = cell_ops.cell_update(g, c, n, cfg.cell_variant)
+        hs.append(h.to(rd))
+        if drop:
+            hds.append(cuda_cell.apply_keep(h, dropout, t, AF).to(rd))
+        if residuals:
+            cs.append(c.to(rd))
+            gs.append(g.to(rd))
+    stack = lambda xs: torch.stack(xs) if xs else None
+    return _assemble(torch.stack(hs), h, c, cfg, residuals, stack(cs),
+                     stack(gs), stack(hds))
+
+
+def _assemble(h_seq, hT, cT, cfg: ModelConfig, residuals: bool, c_seq,
+              g_seq, hd_seq):
+    # (hT, cT) leave as h_seq[-1], c_seq[-1] in the residual type, then the
+    # param type (pallas_cell_tiled.py:390, :696)
+    _, rd, _ = types(cfg)
+    last = (hT.to(rd).to(cfg.pdtype), cT.to(rd).to(cfg.pdtype))
+    if not residuals:
+        return (h_seq if hd_seq is None else hd_seq), last
+    out = (h_seq, last, c_seq, g_seq)
+    return out if hd_seq is None else out + (hd_seq,)
+
+
+def _embed_weights(layer, cfg: ModelConfig):
+    """W and U in the compute type, cut from the stacked [W; U] as
+    ``pallas_tiled_embed_layer0`` builds it, and b in fp32."""
+    m = layer.W.shape[0]
+    WU = torch.cat([layer.W, layer.U], dim=0).to(cfg.cdtype).contiguous()
+    return WU[:m], WU[m:], layer.b.to(AF).contiguous()
+
+
+def _refuse_grad(layer, seq, h0, c0):
+    if torch.is_grad_enabled() and any(
+        x.requires_grad for x in (layer.W, layer.U, layer.b, seq, h0, c0)
+    ):
+        raise NotImplementedError(
+            "the tiled layers are differentiated through "
+            "ops.cuda_cell_tiled.differentiable_tiled_embed_layer0 and "
+            "differentiable_tiled_scan_layer")
+
+
+def tiled_embed_layer0_plain(layer, ids, h0, c0, cfg: ModelConfig,
+                             residuals: bool = False, dropout=None):
+    """Plain version of K8."""
+    _refuse_grad(layer, ids, h0, c0)
+    W_c, U_c, bias = _embed_weights(layer, cfg)
+    ids = ids.long()
+    return _recurrence_plain(lambda t, hu: (W_c[ids[t]].to(AF) + hu) + bias,
+                             ids.shape[0], U_c, h0, c0, cfg, residuals,
+                             dropout)
+
+
+def tiled_scan_layer_plain(layer, xw, h0, c0, cfg: ModelConfig,
+                           residuals: bool = False, dropout=None):
+    """Plain version of K9 (bias folded into xw)."""
+    _refuse_grad(layer, xw, h0, c0)
+    xs = xw.to(types(cfg)[2])
+    return _recurrence_plain(lambda t, hu: xs[t].to(AF) + hu, xs.shape[0],
+                             layer.U.to(cfg.cdtype), h0, c0, cfg, residuals,
+                             dropout)
+
+
+# --- the forward: the kernels ------------------------------------------------
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address, as cp.async reads it."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _kernel_codes(cfg: ModelConfig, device: torch.device):
+    """Type codes of the compute and residual types; raises on what the
+    kernels do not take (another device, a width not a multiple of 32,
+    float64)."""
+    cuda_cell._kernel_types(cfg, device)
+    _, rd, _ = types(cfg)
+    return cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd]
+
+
+def _fwd_buffers(h0, c0, s, b, n, cfg: ModelConfig, residuals: bool,
+                 drop: bool):
+    _, rd, _ = types(cfg)
+    dev = h0.device
+    seq = lambda *shape: torch.empty(s, b, *shape, dtype=rd, device=dev)
+    hc = torch.empty(2, b, n, dtype=cfg.cdtype, device=dev)
+    hc[0].copy_(h0)   # round(h0); the halves alternate between steps
+    return dict(
+        hc=hc, c=c0.to(AF).clone().contiguous(),
+        hT=torch.empty(b, n, dtype=AF, device=dev), hseq=seq(n),
+        cseq=seq(n) if residuals else None,
+        gseq=seq(4 * n) if residuals else None,
+        hdrop=seq(n) if drop else None,
+    )
+
+
+def _ptrs(o):
+    p = lambda x: None if x is None else x.data_ptr()
+    return (o["hc"].data_ptr(), o["c"].data_ptr(), o["hT"].data_ptr(),
+            o["hseq"].data_ptr(), p(o["cseq"]), p(o["gseq"]), p(o["hdrop"]))
+
+
+def _fwd_result(o, cfg: ModelConfig, residuals: bool):
+    return _assemble(o["hseq"], o["hT"], o["c"], cfg, residuals, o["cseq"],
+                     o["gseq"], o["hdrop"])
+
+
+def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
+                       residuals: bool = False, dropout=None):
+    """Layer 0, K8 on a CUDA tensor, the plain version on a CPU tensor.
+    ids (S, B) byte ids; h0, c0 (B, N)."""
+    _refuse_grad(layer, ids, h0, c0)
+    cuda_cell._validate(layer, ids, h0, c0, cfg, embed=True)
+    drop = cuda_cell.drop_scalars(dropout)
+    if ids.device.type == "cpu":
+        return tiled_embed_layer0_plain(layer, ids, h0, c0, cfg, residuals,
+                                        dropout)
+    ctype, rtype = _kernel_codes(cfg, ids.device)
+    s, b = ids.shape
+    n = cfg.hidden
+    W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
+    ids32 = ids.to(torch.int32).contiguous()
+    o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
+    err = _build.load_library().tiled_fwd_embed_launch(
+        ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
+        ids32.data_ptr(), *_ptrs(o), s, b, n,
+        int(cfg.cell_variant == "standard"), *(drop or (0, 0, 0.0)),
+        torch.cuda.current_stream(ids.device).cuda_stream,
+    )
+    cuda_cell._raise_on(err, "tiled_fwd_embed_launch")
+    tiled_embed_layer0.launches += s
+    return _fwd_result(o, cfg, residuals)
+
+
+def tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
+                     residuals: bool = False, dropout=None):
+    """A layer >= 1 from xw = x @ W + b (S, B, 4N), K9 on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    _refuse_grad(layer, xw, h0, c0)
+    cuda_cell._validate(layer, xw, h0, c0, cfg, embed=False)
+    drop = cuda_cell.drop_scalars(dropout)
+    if xw.device.type == "cpu":
+        return tiled_scan_layer_plain(layer, xw, h0, c0, cfg, residuals,
+                                      dropout)
+    ctype, rtype = _kernel_codes(cfg, xw.device)
+    s, b, _ = xw.shape
+    n = cfg.hidden
+    U_c = _aligned(layer.U.to(cfg.cdtype))
+    xs = _aligned(xw.to(types(cfg)[2]))
+    o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
+    err = _build.load_library().tiled_fwd_scan_launch(
+        ctype, rtype, U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
+        int(cfg.cell_variant == "standard"), *(drop or (0, 0, 0.0)),
+        torch.cuda.current_stream(xw.device).cuda_stream,
+    )
+    cuda_cell._raise_on(err, "tiled_fwd_scan_launch")
+    tiled_scan_layer.launches += s
+    return _fwd_result(o, cfg, residuals)
+
+
+# --- the reverse steps -------------------------------------------------------
+
+
+def tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT,
+                    cfg: ModelConfig, dropout=None):
+    """Plain version of K10: (dg_seq (S, B, 4N) in the xw type, dc0)."""
+    _, _, xd = types(cfg)
+    n = cfg.hidden
+    s = g_seq.shape[0]
+    drop = cuda_cell.drop_scalars(dropout) is not None
+    U_a = U_c.to(cfg.cdtype).to(AF)
+    dh_rec, dc = dhT.to(AF), dcT.to(AF)
+    dgs = [None] * s
+    for t in reversed(range(s)):
+        c_prev = c_seq[t - 1] if t > 0 else c0
+        cot = dh_seq[t].to(xd)
+        dh_cot = (cuda_cell.apply_keep(cot, dropout, t, AF) if drop
+                  else cot.to(AF))
+        dg, dc = cell_ops.gate_bwd(
+            g_seq[t].to(AF), c_seq[t].to(AF), c_prev.to(AF), dh_cot + dh_rec,
+            dc, n, cfg.cell_variant)
+        dgs[t] = dg.to(xd)
+        dh_rec = dgs[t].to(cfg.cdtype).to(AF) @ U_a.T
+    return torch.stack(dgs), dc
+
+
+def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
+              dropout=None):
+    """The reverse steps, K10 on a CUDA tensor, the plain version on a CPU
+    tensor. U_c (N, 4N); g_seq (S, B, 4N), c_seq (S, B, N) in the residual
+    type; c0, dhT, dcT (B, N); dh_seq (S, B, N), the cotangent of h_seq (or
+    of the masked stream under ``dropout``), rounded to the xw type here.
+    Returns (dg_seq (S, B, 4N) in the xw type, dc0 fp32)."""
+    s, b = c_seq.shape[:2]
+    n = cfg.hidden
+    expected = (("U", U_c, (n, 4 * n)), ("g_seq", g_seq, (s, b, 4 * n)),
+                ("c_seq", c_seq, (s, b, n)), ("c0", c0, (b, n)),
+                ("dh_seq", dh_seq, (s, b, n)), ("dhT", dhT, (b, n)),
+                ("dcT", dcT, (b, n)))
+    for name, x, shape in expected:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if x.device != c_seq.device:
+            raise ValueError(f"{name} on {x.device}, c_seq on {c_seq.device}")
+    if c_seq.device.type == "cpu":
+        return tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
+                               dropout)
+    ctype, rtype = _kernel_codes(cfg, c_seq.device)
+    _, rd, xd = types(cfg)
+    dev = c_seq.device
+    UT = _aligned(U_c.to(cfg.cdtype).t())
+    seqs = [_aligned(x.to(rd)) for x in (g_seq, c_seq)]
+    c0f, dhTf = (x.to(AF).contiguous() for x in (c0, dhT))
+    dh = _aligned(dh_seq.to(xd))
+    dc = dcT.to(AF).clone().contiguous()
+    dg = torch.empty(s, b, 4 * n, dtype=xd, device=dev)
+    drop = cuda_cell.drop_scalars(dropout)
+    err = _build.load_library().tiled_bwd_launch(
+        ctype, rtype, UT.data_ptr(), seqs[0].data_ptr(), seqs[1].data_ptr(),
+        c0f.data_ptr(), dh.data_ptr(), dhTf.data_ptr(), dc.data_ptr(),
+        dg.data_ptr(), s, b, n, int(cfg.cell_variant == "standard"),
+        int(drop is not None), *(drop or (0, 0, 0.0)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_cell._raise_on(err, "tiled_bwd_launch")
+    tiled_bwd.launches += s
+    return dg, dc
+
+
+tiled_embed_layer0.launches = 0
+tiled_scan_layer.launches = 0
+tiled_bwd.launches = 0
+
+
+def reset_launches():
+    tiled_embed_layer0.launches = 0
+    tiled_scan_layer.launches = 0
+    tiled_bwd.launches = 0
+
+
+def launches() -> Tuple[int, int, int]:
+    """(K8, K9, K10) launches so far."""
+    return (tiled_embed_layer0.launches, tiled_scan_layer.launches,
+            tiled_bwd.launches)
+
+
+# --- the VJPs ------------------------------------------------------------------
+
+
+def _cotangents(cfg: ModelConfig, dh_out, dhT, dcT, h_seq, c0):
+    """(dh_seq in the xw type, dhT, dcT in fp32): zeros, shaped as h_seq
+    and c0, for an output that autograd did not reach; all three left the
+    forward in the residual type (``:355-356``, ``:596-597``)."""
+    _, rd, xd = types(cfg)
+
+    def cot(x, like, to):
+        if x is None:
+            return torch.zeros(like.shape, dtype=to, device=like.device)
+        return x.to(rd).to(to)
+
+    return cot(dh_out, h_seq, xd), cot(dhT, c0, AF), cot(dcT, c0, AF)
+
+
+def _reverse(ctx, U, h_seq, c_seq, g_seq, c0, dh_out, dhT, dcT):
+    """K10 (or its plain version) from the autograd cotangents; returns
+    (dg_seq in the xw type, dh0, dc0), dh0 = round(dg_0) @ U_c^T."""
+    cfg = ctx.cfg
+    bwd = tiled_bwd_plain if ctx.plain else tiled_bwd
+    U_c = U.to(cfg.cdtype)
+    dg, dc0 = bwd(U_c, g_seq, c_seq, c0.to(AF),
+                  *_cotangents(cfg, dh_out, dhT, dcT, h_seq, c0), cfg,
+                  dropout=ctx.dropout)
+    return dg, _mm(dg[0], U_c.T, cfg), dc0
+
+
+def _dU(dg, h_seq, h0, cfg: ModelConfig):
+    """round(h_prev)^T round(dg), h_{-1} = h0 in the residual type."""
+    _, rd, _ = types(cfg)
+    s, b, n = h_seq.shape
+    h_prev = torch.cat([h0.to(rd)[None], h_seq[:-1]]).reshape(s * b, n)
+    return _mm(h_prev.T, dg.reshape(s * b, 4 * n), cfg)
+
+
+def _layer_out(out):
+    h_seq, (hT, cT) = out[0], out[1]
+    return (out[4] if len(out) == 5 else h_seq), hT, cT
+
+
+class TiledEmbedLayer0(torch.autograd.Function):
+    """Layer 0 of the tiled family, differentiable in W, U, b, h0 and c0:
+    K8 with residuals, then K10 and the products of the module docstring.
+    With ``plain`` both halves run their plain versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, W, U, b, ids, h0, c0, cfg: ModelConfig, plain: bool,
+                dropout):
+        fwd = tiled_embed_layer0_plain if plain else tiled_embed_layer0
+        out = fwd(LayerParams(W, U, b), ids, h0, c0, cfg, residuals=True,
+                  dropout=dropout)
+        ctx.save_for_backward(U, out[0], out[2], out[3], ids, h0, c0)
+        ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
+        ctx.dtypes = (W.dtype, U.dtype, b.dtype, h0.dtype, c0.dtype)
+        return _layer_out(out)
+
+    @staticmethod
+    def backward(ctx, dh_out, dhT, dcT):
+        U, h_seq, c_seq, g_seq, ids, h0, c0 = ctx.saved_tensors
+        cfg = ctx.cfg
+        s, b = ids.shape
+        dg, dh0, dc0 = _reverse(ctx, U, h_seq, c_seq, g_seq, c0, dh_out, dhT,
+                                dcT)
+        onehot = cell_ops.one_hot(ids.reshape(s * b), cfg.vocab, AF)
+        dW = _mm(onehot.T, dg.reshape(s * b, -1), cfg)
+        dU = _dU(dg, h_seq, h0, cfg)
+        db = dg.to(AF).sum((0, 1))
+        wd, ud, bd, hd, cd = ctx.dtypes
+        return (dW.to(cfg.cdtype).to(wd), dU.to(cfg.cdtype).to(ud), db.to(bd),
+                None, dh0.to(hd), dc0.to(cd), None, None, None)
+
+
+class TiledScanLayer(torch.autograd.Function):
+    """A layer >= 1 of the tiled family, differentiable in U, xw, h0 and
+    c0: K9 with residuals, then K10, dh0 and dU; W and b take their
+    gradients through xw = x @ W + b outside. With ``plain`` both halves
+    run their plain versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, layer, U, xw, h0, c0, cfg: ModelConfig, plain: bool,
+                dropout):
+        fwd = tiled_scan_layer_plain if plain else tiled_scan_layer
+        out = fwd(LayerParams(layer.W, U, layer.b), xw, h0, c0, cfg,
+                  residuals=True, dropout=dropout)
+        ctx.save_for_backward(U, out[0], out[2], out[3], h0, c0)
+        ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
+        ctx.dtypes = (U.dtype, xw.dtype, h0.dtype, c0.dtype)
+        return _layer_out(out)
+
+    @staticmethod
+    def backward(ctx, dh_out, dhT, dcT):
+        U, h_seq, c_seq, g_seq, h0, c0 = ctx.saved_tensors
+        cfg = ctx.cfg
+        dg, dh0, dc0 = _reverse(ctx, U, h_seq, c_seq, g_seq, c0, dh_out, dhT,
+                                dcT)
+        dU = _dU(dg, h_seq, h0, cfg)
+        ud, xd, hd, cd = ctx.dtypes
+        return (None, dU.to(cfg.cdtype).to(ud), dg.to(xd), dh0.to(hd),
+                dc0.to(cd), None, None, None)
+
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def differentiable_tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
+                                      dropout=None, plain: bool = False):
+    """``cell_fn.embed_layer0`` of the tiled family: (h_out, (hT, cT)) of
+    layer 0, through ``TiledEmbedLayer0`` when autograd needs a gradient,
+    else through K8 alone (no residuals)."""
+    if _wants_grad(layer.W, layer.U, layer.b, h0, c0):
+        h_out, hT, cT = TiledEmbedLayer0.apply(layer.W, layer.U, layer.b, ids,
+                                               h0, c0, cfg, plain, dropout)
+        return h_out, (hT, cT)
+    fwd = tiled_embed_layer0_plain if plain else tiled_embed_layer0
+    return fwd(layer, ids, h0, c0, cfg, dropout=dropout)
+
+
+def differentiable_tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
+                                    dropout=None, plain: bool = False):
+    """The ``cell_fn`` of the tiled family: (h_out, (hT, cT)) of a layer
+    >= 1, through ``TiledScanLayer`` when autograd needs a gradient, else
+    through K9 alone."""
+    if _wants_grad(layer.W, layer.U, layer.b, xw, h0, c0):
+        h_out, hT, cT = TiledScanLayer.apply(layer, layer.U, xw, h0, c0, cfg,
+                                             plain, dropout)
+        return h_out, (hT, cT)
+    fwd = tiled_scan_layer_plain if plain else tiled_scan_layer
+    return fwd(layer, xw, h0, c0, cfg, dropout=dropout)

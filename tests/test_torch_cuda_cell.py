@@ -161,7 +161,7 @@ def test_dispatch_backends():
     assert plain.func is cuda_cell_bwd.differentiable_scan_layer
     assert plain.keywords == {"plain": True} and plain.fused_dropout
     assert plain.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
-    assert plain.embed_layer0.keywords == {"plain": True}
+    assert plain.embed_layer0.keywords == {"plain": True, "fused_accum": True}
     assert plain.fused_head.keywords == {"plain": True}
     assert plain.fused_head.supported is head.head_supported
     auto = dispatch.select_cell_fn("auto", cfg, 16, "cpu")
@@ -174,7 +174,7 @@ def test_dispatch_backends():
     assert kern.func is cuda_cell_bwd.differentiable_scan_layer
     assert kern.keywords == {"plain": False} and kern.fused_dropout
     assert kern.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
-    assert kern.embed_layer0.keywords == {"plain": False}
+    assert kern.embed_layer0.keywords == {"plain": False, "fused_accum": True}
     assert kern.fused_head.func is head.fused_head_bits
     assert kern.fused_head.keywords == {"plain": False}
     with pytest.raises(ValueError):
@@ -191,7 +191,7 @@ def test_build_reports_missing_nvcc(monkeypatch):
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert re.fullmatch(r"liblstm_kernels_[0-9a-f]{16}\.so", os.path.basename(path))
     assert [os.path.basename(p) for p in _build.sources()] == [
-        "head.cu", "lstm_bwd.cu", "lstm_fwd.cu", "sampler.cu"]
+        "head.cu", "lstm_bwd.cu", "lstm_fwd.cu", "lstm_tiled.cu", "sampler.cu"]
     assert [os.path.basename(p) for p in _build.headers()] == ["common.cuh"]
 
 
