@@ -71,6 +71,24 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          weights on enwik6's last 1 % at eval batch 16 through K8, kernels
          against plain.
 
+Phase 10 the last two single-card kernels and the modules of this path:
+         (a) the fused Adagrad K11 against its plain version on the
+         flagship's weights and accumulators, 5b's and the bench's sets (m
+         bit for bit, p within an ulp, one launch a call), times beside the
+         bound, the plain version and ``torch._foreach_*``; (b) the two-step
+         layer-0 backward K12 against K3 at the bench's shapes, B = 64 with
+         fp32 residuals and B = 128 with bf16 residuals, bf16 and fp32,
+         dropout 0 and 0.35: every output bit for bit; (c) the port's bench
+         at the documented unroll-2 run's configuration (1x512, B = 64),
+         with EIGEN_LSTM_BWD_UNROLL=2 (K12, never K3) and without (K3,
+         never K12), K11 once a step, train_bpc equal; (d) ``cli train``
+         at the bench's configuration with ``--crosscheck 50
+         --gradcheck-every 100`` (0 failures), then ``Trainer.crosscheck``
+         at phase 7c's flagship state; (e) the flagship's loss and eleven
+         gradients in fp32 with scan_chunk = 64 against 0, with the peak
+         device memory of both; (f) ``evaluate_ensemble_bpc`` of the
+         flagship and the 1x512 checkpoint, kernels against plain.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
 of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
@@ -875,11 +893,11 @@ def phase6b(per_call):
     returns the kernels' launch counts of this run."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
-    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell, cuda_cell_bwd, head
 
     args = build_parser().parse_args(bench.DEFAULT_ARGV)
     counters = (cuda_cell.embed_layer0, cuda_cell_bwd.embed_layer0_bwd,
-                head.head_fwd, head.head_bwd)
+                head.head_fwd, head.head_bwd, cuda_adagrad.adagrad_update_fused)
     for fn in counters:
         fn.launches = 0
     cuda_cell.reset_launches()
@@ -887,7 +905,7 @@ def phase6b(per_call):
     result = bench.run_benchmark(args)
     dt = time.perf_counter() - t0
     counts = dict(zip(("lstm_fwd_embed", "lstm_bwd_embed", "head_fwd",
-                       "head_bwd"), (fn.launches for fn in counters)))
+                       "head_bwd", "adagrad"), (fn.launches for fn in counters)))
     print(json.dumps(result), flush=True)
     warmup, windows, per_window = bench.schedule(args)
     steps = (warmup + windows * per_window) * args.superstep
@@ -903,7 +921,7 @@ def phase6b(per_call):
         fail("bench: not on the card")
     if not (np.isfinite(bpc) and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]):
         fail(f"bench: train_bpc {bpc} outside {SANITY_BAND}")
-    want = dict(per_call, lstm_fwd_embed=TRAIN_S)
+    want = dict(per_call, lstm_fwd_embed=TRAIN_S, adagrad=1)
     for name, n_call in want.items():
         if counts[name] != steps * n_call:
             fail(f"bench: {name} launched {counts[name]} times, the path's "
@@ -1261,12 +1279,13 @@ def phase7c(per_call, records):
     the step time, chars/s, each kernel's share and the trajectory; then 2
     steps from the run's state in fp32, kernels against plain, with the
     tiled kernels' launches reset before and read after (returned with the
-    bf16 run's counts and step time)."""
+    bf16 run's counts and step time, and the trainer at the bf16 run's
+    state)."""
     import dataclasses
 
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
     from eigen_lstm_tpu_torch.models.lstm import step_key
-    from eigen_lstm_tpu_torch.ops import (cuda_cell, cuda_cell_bwd,
+    from eigen_lstm_tpu_torch.ops import (cuda_adagrad, cuda_cell, cuda_cell_bwd,
                                           cuda_cell_tiled, head)
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
@@ -1278,8 +1297,9 @@ def phase7c(per_call, records):
                 "lstm_bwd_scan": cuda_cell_bwd.scan_layer_bwd,
                 "head_fwd": head.head_fwd, "head_bwd": head.head_bwd}
     per_step = {"lstm_fwd_scan": 2, "lstm_bwd_scan": 2}   # layers 1 and 2
+    k11 = cuda_adagrad.adagrad_update_fused   # one launch a step
     torch.cuda.synchronize()
-    for fn in counters.values():
+    for fn in list(counters.values()) + [k11]:
         fn.launches = 0
     t0 = time.perf_counter()
     bits = []
@@ -1289,6 +1309,7 @@ def phase7c(per_call, records):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
+    counts["adagrad"] = k11.launches
     bits = torch.cat(bits).tolist()
     step_ms = dt * 1e3 / FLAG_STEPS
     cps = FLAG_S * FLAG_B * FLAG_STEPS / dt
@@ -1302,7 +1323,7 @@ def phase7c(per_call, records):
     if not all(np.isfinite(bits)) or last >= 3.0:
         fail(f"flagship steps: bits not finite or the last superstep's "
              f"mean {last:.4f} not below 3.0")
-    for name, n_call in per_call.items():
+    for name, n_call in dict(per_call, adagrad=1).items():
         want = FLAG_STEPS * n_call * per_step.get(name, 1)
         if counts[name] != want:
             fail(f"flagship steps: {name} launched {counts[name]} times, "
@@ -1320,7 +1341,7 @@ def phase7c(per_call, records):
     paths = [select_cell_fn(b_, cfg32, FLAG_B, DEVICE) for b_ in ("cuda", "plain")]
     st, worst = trainer.state, {}
     torch.cuda.synchronize()
-    for fn in counters.values():
+    for fn in list(counters.values()) + [k11]:
         fn.launches = 0
     cuda_cell_tiled.reset_launches()
     for _ in range(2):
@@ -1348,17 +1369,18 @@ def phase7c(per_call, records):
           f"seeds: bits rel (tol {LOSS_RTOL['float32']:g}) and gradients "
           f"normalised (tol {TRAIN_TOL:g}) within: "
           + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
-          + f"; launches {tiled}", flush=True)
+          + f"; launches {tiled}, adagrad {k11.launches}", flush=True)
     for name, err in worst.items():
         tol = LOSS_RTOL["float32"] if name == "bits" else TRAIN_TOL
         if not np.isfinite(err) or err > tol:
             fail(f"flagship fp32 {name}: kernels against plain {err:.3e}")
     resident = {name: fn.launches for name, fn in counters.items()
                 if not name.startswith("head")}
-    if tiled != want or any(resident.values()):
+    if tiled != want or any(resident.values()) or k11.launches != 2:
         fail(f"flagship fp32 steps: tiled launches {tiled} (the shapes give "
-             f"{want}), resident launches {resident} (expected none)")
-    return counts, step_ms, tiled
+             f"{want}), resident launches {resident} (expected none), "
+             f"adagrad {k11.launches} (expected 2)")
+    return counts, step_ms, tiled, trainer
 
 
 # --- generation (3x1024 flagship, B = 1 and 128, 256 and 1000 tokens) -----
@@ -1787,7 +1809,7 @@ def phase9c(per_call, records):
     on enwik6's last 1 % at eval batch 16 through K8, kernels against
     plain. Returns the launch counts of the training run."""
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
-    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
     from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
     from eigen_lstm_tpu_torch.train.evaluator import evaluate_bpc
@@ -1804,7 +1826,8 @@ def phase9c(per_call, records):
                 "lstm_fwd_scan": cuda_cell.scan_layer,
                 "lstm_bwd_embed": cuda_cell_bwd.embed_layer0_bwd,
                 "lstm_bwd_scan": cuda_cell_bwd.scan_layer_bwd,
-                "head_fwd": head.head_fwd, "head_bwd": head.head_bwd}
+                "head_fwd": head.head_fwd, "head_bwd": head.head_bwd,
+                "adagrad": cuda_adagrad.adagrad_update_fused}
     k = trainer.tcfg.superstep
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -1836,7 +1859,7 @@ def phase9c(per_call, records):
     want = {name: 0 for name in counters}
     want.update(tiled_fwd_embed=B5_STEPS * B5_S, tiled_bwd=B5_STEPS * B5_S,
                 head_fwd=B5_STEPS * per_call["head_fwd"],
-                head_bwd=B5_STEPS * per_call["head_bwd"])
+                head_bwd=B5_STEPS * per_call["head_bwd"], adagrad=B5_STEPS)
     if counts != want:
         fail(f"5b steps: launches {counts}, the path's shapes give {want}")
     test = trainer.test_np
@@ -1860,6 +1883,411 @@ def phase9c(per_call, records):
     if not np.isfinite(bpc_k) or rel > BPC_RTOL or set(eval_counts) != {"tiled_fwd_embed"}:
         fail("5b eval: bits/char out of tolerance, or not through K8 alone")
     return counts, step_ms
+
+
+# --- phase 10: fused Adagrad (K11), the two-step layer-0 backward (K12),
+# the live checks, scan_chunk and the ensemble -------------------------------
+ADAGRAD_SOURCE = "eigen_lstm_tpu_torch/csrc/adagrad.cu"
+ADAGRAD_REPLACES = "eigen_lstm_tpu/ops/pallas_adagrad.py:35"
+K12_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_bwd.cu"
+K12_REPLACES = "eigen_lstm_tpu/ops/pallas_cell.py:689"
+# The documented unroll-2 run (docs/PERFORMANCE.md:478-515): 1x512, B = 64,
+# S = 100, bf16 with fp32 residuals (the CLI's auto rule there), enwik6,
+# lr 0.02 after 20 warm-up steps; a short schedule: 100 warm-up steps and
+# 500 timed steps of the port's bench.
+U2_ARGV = ["--batch", "64", "--warmup-steps", "100", "--bench-steps", "500"]
+# Phase 10d: the bench's configuration through ``cli train`` with both live
+# checks; supersteps of one step, so that their cadence (in supersteps)
+# reads in steps.
+CHECK_STEPS = 200
+CHECK_ARGV = [
+    "train", "--data", ENWIK6, "--train-percent", "1.0", "--hidden", "512",
+    "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--dtype", "bfloat16",
+    "--lr", "0.02", "--warmup", "20", "--superstep", "1", "--steps",
+    str(CHECK_STEPS), "--crosscheck", "50", "--gradcheck-every", "100",
+    "--sample-chars", "0", "--log-every", "50",
+]
+# Phase 10e: the chunked run sums each chunk's dU and dW in another order,
+# so each gradient is held within 1e-5 of its largest magnitude; the loss
+# must be equal or within rel 1e-6 (PERF.md names the cause).
+CHUNK_GRAD_TOL, CHUNK_LOSS_RTOL, FLAG_CHUNK = 1e-5, 1e-6, 64
+
+
+def adagrad_bound(numel: int):
+    """K11's least time, ms: 20 bytes an element (p, g, m read; p', m'
+    written) at the memory rate; its ~5 flops an element are far below the
+    fp32 peak."""
+    t_bytes = 20 * numel / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * numel / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def foreach_adagrad(ps, gs, ms, lr, eps):
+    """The same update in ``torch._foreach_*`` ops, out of place: the
+    library yardstick, never called by the port."""
+    m2 = torch._foreach_addcmul(ms, gs, gs)
+    d = torch._foreach_add(m2, eps)
+    torch._foreach_rsqrt_(d)
+    torch._foreach_mul_(d, gs)
+    return torch._foreach_add(ps, d, alpha=-float(lr)), m2
+
+
+def phase10a(records):
+    """K11 against its plain version on the flagship's weights and Adagrad
+    accumulators, 5b's initial weights and the bench's (1x512), with
+    seeded gradients: m bit for bit, p within one ulp (the ulp differences
+    counted), one launch a call; times beside the bound, the plain version
+    and the ``_foreach`` yardstick."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.models.lstm import init_params, like, tensors
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad as ca
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+    from eigen_lstm_tpu_torch.train.optimizer import adagrad_init
+
+    lr, eps = np.float32(0.005), 1e-10
+    flag_p, flag_m, _, _ = load_checkpoint(FLAGSHIP, flag_train_cfg("bfloat16"),
+                                           DEVICE)
+    b5 = init_params(b5_cfg(), device=DEVICE)
+    bench = init_params(ModelConfig(hidden=512), device=DEVICE)
+    gen = torch.Generator().manual_seed(11)
+    for name, params, m in (("flagship", flag_p, flag_m),
+                            ("5b", b5, adagrad_init(b5)),
+                            ("bench", bench, adagrad_init(bench))):
+        grads = like(params, ((torch.randn(t.shape, generator=gen) * 1e-2)
+                              .to(DEVICE) for t in tensors(params)))
+        numel = sum(t.numel() for t in tensors(params))
+        before = ca.adagrad_update_fused.launches
+        pk, mk = ca.adagrad_update_fused(params, grads, m, lr, eps)
+        launches = ca.adagrad_update_fused.launches - before
+        pp, mp = ca.adagrad_update_plain(params, grads, m, lr, eps)
+        torch.cuda.synchronize()
+        m_equal = all(torch.equal(a, b) for a, b in zip(tensors(mk), tensors(mp)))
+        ulps = torch.cat([(a.view(torch.int32).long() - b.view(torch.int32).long())
+                          .abs().flatten() for a, b in zip(tensors(pk), tensors(pp))])
+        max_ulp, n_ulp = int(ulps.max()), int((ulps > 0).sum())
+        err = max(float((a - b).abs().max()) for a, b in zip(tensors(pk), tensors(pp)))
+        print(f"  K11 {name}: {numel:,} parameters in {len(tensors(params))} "
+              f"tensors, {launches} launch; m bit for bit {m_equal}; p within "
+              f"{max_ulp} ulp of plain ({n_ulp} elements differ by an ulp), "
+              f"max |dp| {err:.3e}", flush=True)
+        if launches != 1 or not m_equal or max_ulp > 1:
+            fail(f"K11 {name}: {launches} launches, m equal {m_equal}, p "
+                 f"{max_ulp} ulp from the plain version")
+        ps, gs, ms = tensors(params), tensors(grads), tensors(m)
+        ms_k = cuda_ms(lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
+                       reps=20)
+        plain_ms = cuda_ms(lambda: ca.adagrad_update_plain(params, grads, m, lr, eps),
+                           reps=5)
+        lib_ms = cuda_ms(lambda: foreach_adagrad(ps, gs, ms, lr, eps), reps=5)
+        bound_ms, bound_by = adagrad_bound(numel)
+        print(f"  K11 {name}: {ms_k:.4f} ms a step, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, torch._foreach_* "
+              f"{lib_ms:.4f} ms", flush=True)
+        records[("10a", name)] = dict(
+            name="adagrad", route="cuda", source=ADAGRAD_SOURCE,
+            replaces=ADAGRAD_REPLACES, launches=None, max_abs_err=err, ms=ms_k,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms)
+
+
+def phase10b(records):
+    """K12 at the bench's shapes (1x512, S = 100) with the 1x512
+    checkpoint's weights: B = 64 with fp32 residuals and B = 128 with bf16
+    residuals, bf16 and fp32 compute, dropout 0 and 0.35. Every reverse
+    step, dh0, dc0, dWU and db within TRAIN_TOL of the plain replay from
+    K12's own dg (as phase 5 holds K3); the window against its plain
+    version given the explicitly masked cotangent (fp32 gated, bf16
+    printed); dg, dWU, db, dh0 and dc0 equal to K3's bit for bit. Times
+    beside K3's and the bound; the launches of one call of each. Returns
+    K12's launches a call at the documented run's shapes (B = 64, bf16,
+    fp32 residuals) and K3's."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd as cb
+    from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    s, per_call = TRAIN_S, None
+    inv = torch.tensor(float(np.float32(1.0 / (1.0 - FLAG_DROP))), device=DEVICE)
+    names = ("dWU", "db", "dh0", "dc0")
+    n = train_cfg("float32").hidden
+    for b, residual in ((64, "float32"), (128, "bfloat16")):
+        mask = host_masks(FLAG_SEEDS[0], s, b, n, FLAG_DROP)
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(train_cfg(dtype), residual_dtype=residual)
+            layer = load_params(H512, cfg, DEVICE).layers[0]
+            gen = torch.Generator().manual_seed(12)
+            x, _ = bible_window(gen, s, b)
+            rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen)
+                                           * sd).to(DEVICE)
+            h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+            dh_seq, dhT, dcT = (rand(s, b, n, sd=1e-3), rand(b, n, sd=1e-3),
+                                rand(b, n, sd=1e-3))
+            fused = fused_accum_ok(cfg, b)
+            onehot = torch.nn.functional.one_hot(x.long(), cfg.vocab).float()
+            lib_ms = library_lstm_bwd(cfg, onehot, h0, c0, dh_seq)
+            for drop in (0.0, FLAG_DROP):
+                dr = (drop, FLAG_SEEDS[0]) if drop else None
+                dh_eff = masked(dh_seq, mask, inv) if drop else dh_seq
+                out = cuda_cell.embed_layer0(layer, x, h0, c0, cfg,
+                                             residuals=True, dropout=dr)
+                fwd = (layer.U.to(cfg.cdtype), out[3], out[2], out[0], x, h0, c0)
+                args = fwd + (dh_seq, dhT, dcT, cfg)
+                res, launched = {}, {}
+                for name, fn in (("K3", cb.embed_layer0_bwd),
+                                 ("K12", cb.embed_layer0_bwd_unroll2)):
+                    dg = torch.empty(s, b, 4 * n, device=DEVICE)
+                    before = fn.launches
+                    res[name] = (dg,) + fn(*args, dg_out=dg, dropout=dr,
+                                           fused_accum=fused)
+                    launched[name] = fn.launches - before
+                dg_k, out_k = res["K12"][0], res["K12"][1:]
+                rep = k3_replay(*fwd, dh_eff, dhT, dcT, cfg, dg_k,
+                                fused_accum=fused)
+                out_p = cb.embed_layer0_bwd_unroll2_plain(
+                    *fwd, dh_eff, dhT, dcT, cfg, fused_accum=fused)
+                torch.cuda.synchronize()
+                tag = (f"B={b} {dtype} residual {residual} drop {drop:g} "
+                       f"({'fused' if fused else 'fall-back'} VJP)")
+                for label, got in zip(names, out_k):
+                    if not torch.isfinite(got).all():
+                        fail(f"K12 {tag} {label}: non-finite values")
+                step_err = 0.0
+                for label, got, want in (("dg", dg_k, rep[0]),
+                                         ("dh0", out_k[2], rep[1]),
+                                         ("dc0", out_k[3], rep[2]),
+                                         ("dWU", out_k[0], rep[3]),
+                                         ("db", out_k[1], rep[4])):
+                    err = norm_err(got, want)
+                    step_err = max(step_err, err)
+                    if not np.isfinite(err) or err > TRAIN_TOL:
+                        fail(f"K12 {tag} {label}: {err:.3e} of its plain "
+                             f"replay > {TRAIN_TOL:g}")
+                window = []
+                for label, got, want in zip(names, out_k, out_p):
+                    err = norm_err(got, want)
+                    window.append(f"{label} {err:.3e}")
+                    if cfg.cdtype == torch.float32 and err > TRAIN_TOL:
+                        fail(f"K12 {tag} window {label}: {err:.3e} of its "
+                             f"plain version > {TRAIN_TOL:g}")
+                same = [torch.equal(a, b_) for a, b_ in zip(res["K3"], res["K12"])]
+                if not all(same):
+                    fail(f"K12 {tag}: dg, dWU, db, dh0, dc0 equal to K3's: {same}")
+                print(f"  K12 {tag}: every reverse step, dh0, dc0, dWU and db "
+                      f"within {step_err:.3e} (normalised) of the plain replay "
+                      f"from K12's own dg (tol {TRAIN_TOL:g}); window against "
+                      f"its plain version with explicit masks ("
+                      + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32
+                         else "bf16, not gated") + "): " + ", ".join(window)
+                      + "; dg, dWU, db, dh0, dc0 bit for bit K3's", flush=True)
+                ms, host = {}, {}
+                for name, fn in (("K3", cb.embed_layer0_bwd),
+                                 ("K12", cb.embed_layer0_bwd_unroll2)):
+                    call = lambda fn=fn: fn(*args, dropout=dr, fused_accum=fused)
+                    ms[name] = cuda_ms(call, reps=3, windows=3)
+                    # the host's time to issue one call, the card idle
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    host[name] = (time.perf_counter() - t0) * 1e3
+                    torch.cuda.synchronize()
+                plain_ms = cuda_ms(lambda: cb.embed_layer0_bwd_unroll2_plain(
+                    *args, dropout=dr, fused_accum=fused), reps=1, windows=2)
+                bound_ms, bound_by = k3_bound(cfg, s, b, n, cfg.vocab)
+                print(f"  K12 {tag}: {ms['K12']:.4f} ms ({launched['K12']} "
+                      f"launches) against K3's {ms['K3']:.4f} ms "
+                      f"({launched['K3']} launches), bound {bound_ms:.5f} ms "
+                      f"({bound_by}), plain {plain_ms:.4f} ms, cuDNN nn.LSTM "
+                      f"backward {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+                      f"the host issues a call in {host['K12']:.3f} ms (K3 "
+                      f"{host['K3']:.3f} ms)", flush=True)
+                records[("10b", b, dtype, drop)] = dict(
+                    name="lstm_bwd_embed_unroll2", route="cuda",
+                    source=K12_SOURCE, replaces=K12_REPLACES, launches=None,
+                    max_abs_err=step_err, ms=ms["K12"], plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                if (b, dtype, drop) == (64, "bfloat16", 0.0):
+                    per_call = launched
+    return per_call
+
+
+def phase10c(per_call, records):
+    """The port's bench at the documented unroll-2 run's configuration,
+    with ``EIGEN_LSTM_BWD_UNROLL=2`` and then without: the first launches
+    K12 as the shapes give and K3 never, the second the reverse; K11 once
+    a step in both; train_bpc equal. Returns the launch counts of the
+    unroll-2 run and its step time."""
+    import os
+
+    from eigen_lstm_tpu_torch import bench
+    from eigen_lstm_tpu_torch.cli import build_parser
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell_bwd as cb
+
+    args = build_parser().parse_args(bench.DEFAULT_ARGV + U2_ARGV)
+    warmup, windows, per_window = bench.schedule(args)
+    steps = (warmup + windows * per_window) * args.superstep
+    counters = {"lstm_bwd_embed": cb.embed_layer0_bwd,
+                "lstm_bwd_embed_unroll2": cb.embed_layer0_bwd_unroll2,
+                "adagrad": cuda_adagrad.adagrad_update_fused}
+    runs = {}
+    for unroll in ("2", "1"):
+        os.environ["EIGEN_LSTM_BWD_UNROLL"] = unroll
+        try:
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            result = bench.run_benchmark(args)
+        finally:
+            del os.environ["EIGEN_LSTM_BWD_UNROLL"]
+        counts = {name: fn.launches for name, fn in counters.items()}
+        step_ms = TRAIN_S * 64 / result["value"] * 1e3
+        runs[unroll] = (result, counts, step_ms)
+        print(f"  bench B=64 EIGEN_LSTM_BWD_UNROLL={unroll}: {json.dumps(result)}",
+              flush=True)
+        print(f"  bench B=64 unroll {unroll}: {steps} steps, {step_ms:.3f} ms a "
+              f"step (median window), launches {counts}", flush=True)
+    want = {"2": dict(lstm_bwd_embed=0,
+                      lstm_bwd_embed_unroll2=steps * per_call["K12"],
+                      adagrad=steps),
+            "1": dict(lstm_bwd_embed=steps * per_call["K3"],
+                      lstm_bwd_embed_unroll2=0, adagrad=steps)}
+    for unroll, (result, counts, _) in runs.items():
+        if counts != want[unroll]:
+            fail(f"bench unroll {unroll}: launches {counts}, the shapes give "
+                 f"{want[unroll]}")
+        if result["platform"] != "cuda":
+            fail("bench: not on the card")
+    bpc = [runs[u][0]["train_bpc"] for u in ("2", "1")]
+    k11_ms = records[("10a", "bench")]["ms"]
+    print(f"  bench B=64: train_bpc {bpc[0]} (unroll 2) and {bpc[1]} (unroll 1); "
+          f"{runs['2'][2]:.3f} and {runs['1'][2]:.3f} ms a step; K11 "
+          f"{k11_ms:.4f} ms, {100 * k11_ms / runs['2'][2]:.2f} % of the step",
+          flush=True)
+    if bpc[0] != bpc[1] or not np.isfinite(bpc[0]):
+        fail(f"bench B=64: train_bpc {bpc[0]} with K12, {bpc[1]} with K3")
+    return runs["2"][1]
+
+
+def phase10d(flag_trainer):
+    """``cli train`` at the bench's configuration for CHECK_STEPS steps with
+    ``--crosscheck 50 --gradcheck-every 100``: every check passes. Then one
+    ``Trainer.crosscheck`` (tol 2e-2) at the flagship's state of phase 7c."""
+    import contextlib
+    import io
+
+    from eigen_lstm_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(CHECK_ARGV)
+    dt = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}", flush=True)
+    cross = [l for l in lines if l.startswith("[crosscheck]")]
+    grad = [l for l in lines if l.startswith("[gradcheck]")]
+    bad = [l for l in cross + grad if not l.endswith(" ok")]
+    print(f"  cli train with the checks: {CHECK_STEPS} steps in {dt:.1f} s, "
+          f"{len(cross)} crosschecks, {len(grad)} gradcheck lines, "
+          f"{len(bad)} failures", flush=True)
+    if len(cross) != CHECK_STEPS // 50 or len(grad) != 5 * CHECK_STEPS // 100 or bad:
+        fail(f"cli train checks: {len(cross)} crosschecks, {len(grad)} "
+             f"gradcheck lines, failures {bad}")
+    t0 = time.perf_counter()
+    res = flag_trainer.crosscheck(tol=2e-2)
+    print(f"  flagship crosscheck at step {flag_trainer.step} in "
+          f"{time.perf_counter() - t0:.1f} s: {res}", flush=True)
+    if not res["ok"] or flag_trainer.crosscheck_failures:
+        fail("flagship crosscheck: the kernels and the plain loop disagree")
+
+
+def phase10e():
+    """The flagship's loss and eleven gradients on one bible.txt window in
+    fp32 without dropout, through the kernels, with scan_chunk = 64 and
+    without: the loss equal (or within rel 1e-6), each gradient within 1e-5
+    of its largest magnitude; the forward kernels' launches and the peak
+    device memory of both runs."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+    from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
+
+    base = dataclasses.replace(flag_train_cfg("float32"), dropout=0.0)
+    params = load_params(FLAGSHIP, base, DEVICE)
+    gen = torch.Generator().manual_seed(13)
+    x, t = bible_window(gen, FLAG_S, FLAG_B)
+    h = (torch.randn(3, FLAG_B, 1024, generator=gen) * 0.1).to(DEVICE)
+    c = (torch.randn(3, FLAG_B, 1024, generator=gen) * 0.1).to(DEVICE)
+    res = {}
+    for chunk in (0, FLAG_CHUNK):
+        cfg = dataclasses.replace(base, scan_chunk=chunk)
+        cell_fn = select_cell_fn("auto", cfg, FLAG_B, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ct.reset_launches()
+        loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg, cell_fn)
+        torch.cuda.synchronize()
+        res[chunk] = (float(loss), dict(grads.named_tensors()),
+                      dict(zip(TILED, ct.launches())),
+                      torch.cuda.max_memory_allocated())
+    (l0, g0, n0, mem0), (l1, g1, n1, mem1) = res[0], res[FLAG_CHUNK]
+    errs = {k[len("params."):]: norm_err(g1[k], g0[k]) for k in g0}
+    rel = abs(l1 - l0) / abs(l0)
+    print(f"  flagship fp32 scan_chunk {FLAG_CHUNK} against 0: loss {l1!r} and "
+          f"{l0!r} (rel {rel:.2e}, tol {CHUNK_LOSS_RTOL:g}); gradients "
+          f"normalised (tol {CHUNK_GRAD_TOL:g}): "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+    print(f"  flagship fp32 launches: unchunked {n0}, chunked {n1} (the "
+          f"forward again in the backward); peak device memory "
+          f"{mem0 / 2**30:.3f} GiB unchunked, {mem1 / 2**30:.3f} GiB chunked",
+          flush=True)
+    if rel > CHUNK_LOSS_RTOL or max(errs.values()) > CHUNK_GRAD_TOL \
+            or not np.isfinite(l1):
+        fail("scan_chunk: the chunked loss or gradients out of tolerance")
+    if n1["tiled_fwd_embed"] != 2 * n0["tiled_fwd_embed"]:
+        fail(f"scan_chunk: K8 launched {n1['tiled_fwd_embed']} times chunked, "
+             f"expected twice the unchunked {n0['tiled_fwd_embed']}")
+
+
+def phase10f(test):
+    """``evaluate_ensemble_bpc`` of the flagship and the 1x512 checkpoint
+    (bf16) on SLICE_CHARS held-out bytes, kernels against plain at
+    BPC_RTOL; each member's bits/char beside the ensemble's."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+    from eigen_lstm_tpu_torch.train.evaluator import (evaluate_bpc,
+                                                      evaluate_ensemble_bpc)
+
+    cfgs = ((FLAGSHIP, flagship_cfg("bfloat16")),
+            (H512, ModelConfig(hidden=512, num_layers=1, compute_dtype="bfloat16")))
+    params = [load_params(path, cfg, DEVICE) for path, cfg in cfgs]
+    bpc = {}
+    for backend in ("auto", "plain"):
+        members = [(p, cfg, select_cell_fn(backend, cfg, EVAL_BATCH, DEVICE))
+                   for p, (_, cfg) in zip(params, cfgs)]
+        torch.cuda.synchronize()
+        cuda_cell.reset_launches()
+        t0 = time.perf_counter()
+        ens = evaluate_ensemble_bpc(members, test, EVAL_BATCH, CHUNK, SLICE_CHARS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        singles = [evaluate_bpc(p, test, cfg, EVAL_BATCH, CHUNK, SLICE_CHARS, cf)
+                   for p, cfg, cf in members]
+        bpc[backend] = ens
+        print(f"  ensemble ({backend}): {ens:.6f} bits/char over {SLICE_CHARS} "
+              f"bytes in {dt:.2f} s (launches {cuda_cell.launches()} before the "
+              f"single runs); flagship alone {singles[0]:.6f}, 1x512 alone "
+              f"{singles[1]:.6f}", flush=True)
+    rel = abs(bpc["auto"] - bpc["plain"]) / bpc["plain"]
+    print(f"  ensemble kernels against plain: rel {rel:.2e} (rtol {BPC_RTOL:g})",
+          flush=True)
+    if rel > BPC_RTOL or not bpc["auto"] < 3.0:
+        fail("ensemble bits/char out of tolerance")
 
 
 def main():
@@ -1894,7 +2322,7 @@ def main():
     check_budget("phase 7a (flagship training kernels against plain)")
     phase7b()
     check_budget("phase 7b (flagship loss and gradients)")
-    flag_counts, _, fp32_tiled = phase7c(flag_call, records)
+    flag_counts, _, fp32_tiled, flag_trainer = phase7c(flag_call, records)
     check_budget("phase 7c (flagship training steps)")
     gen_launches += phase8(test, records)
     check_budget("phase 8 (generation)")
@@ -1904,6 +2332,19 @@ def main():
     check_budget("phase 9b (2x2048 loss and gradients)")
     b5_counts, _ = phase9c(tiled_call, records)
     check_budget("phase 9c (the 5b recipe)")
+    phase10a(records)
+    check_budget("phase 10a (fused Adagrad against plain)")
+    u2_call = phase10b(records)
+    check_budget("phase 10b (the two-step backward against K3)")
+    u2_counts = phase10c(u2_call, records)
+    check_budget("phase 10c (the bench with and without unroll 2)")
+    phase10d(flag_trainer)
+    del flag_trainer
+    check_budget("phase 10d (crosscheck and gradcheck)")
+    phase10e()
+    check_budget("phase 10e (scan_chunk)")
+    phase10f(test)
+    check_budget("phase 10f (the ensemble)")
     kernels = []
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
                         ("lstm_bwd_embed", counts["lstm_bwd_embed"]),
@@ -1921,6 +2362,11 @@ def main():
         rec = dict(records[("9a", name, "bfloat16", 0.0)], launches=count)
         rec.pop("resident_ms")
         kernels.append(rec)
+    # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
+    # its B = 64 shapes
+    kernels.append(dict(records[("10a", "bench")], launches=u2_counts["adagrad"]))
+    kernels.append(dict(records[("10b", 64, "bfloat16", 0.0)],
+                        launches=u2_counts["lstm_bwd_embed_unroll2"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,11 @@ Every command runs on the card (``--device cuda``) unless ``--device cpu``
 asks for the CPU. ``eval`` prints ``{"test_bpc": ...}`` and ``bench`` one
 JSON line, as the JAX CLI does. ``train --profile DIR`` traces five
 supersteps after a warm-up one with ``torch.profiler`` and writes the trace
-and a table of device time by kernel into DIR. The parallel flags,
-``--gradcheck`` and ``--crosscheck`` are not ported yet, nor ``bench
---profile``.
+and a table of device time by kernel into DIR. ``train --crosscheck K``
+holds the kernels' loss and gradient norm against the model's own loop
+every K supersteps, ``--gradcheck`` runs the finite-difference check once
+before training and ``--gradcheck-every K`` every K supersteps. The
+parallel flags are not ported yet, nor ``bench --profile``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ def _add_model_args(p: argparse.ArgumentParser):
                         "under --dtype bfloat16 when hidden >= 2048 or "
                         "seq >= 512, as the JAX CLI resolves it")
     p.add_argument("--forget-bias", type=float, default=1.0)
+    p.add_argument("--scan-chunk", type=int, default=0,
+                   help="rematerialise the recurrence in chunks of this many "
+                        "steps in the backward (must divide --seq; 0 = off): "
+                        "only one chunk's residuals are held at a time")
     p.add_argument("--dropout", type=float, default=0.0,
                    help="dropout rate of each layer's output stream, between "
                         "the layers and before the head (training only), "
@@ -99,6 +105,17 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "by a fresh one, with a reset stream state, and "
                         "the run says so")
     p.add_argument("--keep-snapshots", action="store_true")
+    p.add_argument("--gradcheck", action="store_true",
+                   help="train: a finite-difference gradient check before "
+                        "training")
+    p.add_argument("--gradcheck-every", type=int, default=None, metavar="K",
+                   help="every K supersteps, the finite-difference check of "
+                        "the live training point (float64 shadow on the CPU "
+                        "unless the model is float64)")
+    p.add_argument("--crosscheck", type=int, default=None, metavar="K",
+                   help="every K supersteps, the kernels' loss and gradient "
+                        "norm against the model's own loop at the live "
+                        "training point")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="train: trace five supersteps with torch.profiler "
                         "into DIR (bench: not ported yet)")
@@ -120,6 +137,7 @@ def _configs(args):
         loss_base=args.loss_base, compute_dtype=args.dtype,
         residual_dtype=residual, forget_bias=args.forget_bias,
         embedding_mode=args.embedding, dropout=args.dropout, seed=args.seed,
+        scan_chunk=args.scan_chunk,
     )
     dcfg = DataConfig(
         path=args.data, train_percent=args.train_percent,
@@ -149,6 +167,8 @@ def _configs(args):
         sample_chars=getattr(args, "sample_chars", 1000),
         checkpoint_dir=getattr(args, "ckpt_dir", None),
         keep_snapshots=getattr(args, "keep_snapshots", False),
+        crosscheck_every=getattr(args, "crosscheck", None),
+        gradcheck_every=getattr(args, "gradcheck_every", None),
         seed=args.seed + 1,
     )
     return mcfg, dcfg, tcfg
@@ -215,6 +235,8 @@ def profile_supersteps(trainer, out_dir: str, supersteps: int = 5) -> str:
 
 def cmd_train(args):
     trainer = _make_trainer(args)
+    if args.gradcheck:
+        trainer.gradcheck(samples_per_tensor=50)
     if args.profile:
         print(profile_supersteps(trainer, args.profile), flush=True)
         print(f"profile trace written to {args.profile}", flush=True)

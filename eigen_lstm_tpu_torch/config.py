@@ -5,8 +5,7 @@ set of flags describe the same model in both packages.
 ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX
 package's fields with the same defaults and meanings. ``MeshConfig`` and
 the parallel paths are not ported yet; the ``TrainConfig`` fields that only
-they or the live checks read are accepted, and the trainer refuses the
-checks when they are set.
+they read are accepted and unused.
 """
 
 from __future__ import annotations
@@ -126,8 +125,8 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     superstep: int = 50
     pp_chunks: int = 4               # pipeline parallelism: not ported yet
-    crosscheck_every: Optional[int] = None   # not ported yet
-    gradcheck_every: Optional[int] = None    # not ported yet
+    crosscheck_every: Optional[int] = None   # in supersteps
+    gradcheck_every: Optional[int] = None    # in supersteps
     gradcheck_samples: int = 20
     keep_snapshots: bool = False
     seed: int = 1234

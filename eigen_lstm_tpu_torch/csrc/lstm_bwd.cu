@@ -1,8 +1,10 @@
 // LSTM backward for Hopper (sm_90a), bound from Python through ctypes
-// (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Two C
-// launchers share one reverse-time step kernel:
+// (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Three C
+// launchers share one reverse-time step body (bwd_tile):
 //   lstm_bwd_embed_launch (K3) <- pallas_cell.py:_bwd_embed_fused_kernel,
 //       layer 0 with its weight gradients dW, dU, db;
+//   lstm_bwd_embed_unroll2_launch (K12) <- pallas_cell.py:
+//       _bwd_embed_unroll2_kernel, K3's function, two reverse steps a launch;
 //   lstm_bwd_scan_launch (K6)  <- pallas_cell.py:_bwd_kernel with the dU
 //       product of _bwd_core (:393-414), layers >= 1: dg_seq, dU, dh0, dc0.
 //
@@ -70,9 +72,22 @@
 //     bf16: S + 1 step launches, one or two for dU, and that one.
 //   * The dropout mask costs no bytes: each thread hashes its own (t, b, j)
 //     in the step's epilogue, where it reads dh_seq[t].
+//   * K12 computes K3's function through the same step body, so its dg, dc,
+//     dh0 and weight gradients are K3's bit for bit. The TPU kernel unrolls
+//     two reverse steps to overlap step tau1's weight-gradient products with
+//     tau0's gate backward; here the weight gradients already sit outside
+//     the recurrence, so what carries over is two steps a launch: a
+//     cooperative launch of at most the resident blocks, each looping over
+//     the (32-unit, 4-row) tiles, with a grid barrier between tau1 and tau0
+//     (tau0's dh_rec reads the whole dg_{tau1}). That halves the step
+//     launches (S / 2 + 1 against S + 1); its bound is K3's.
 // Every sum has a fixed order, so the kernels are deterministic.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -81,29 +96,33 @@ constexpr int kKS = 8;      // warps splitting the k reduction
 constexpr int kBT = 4;      // batch rows per block
 constexpr int kKT = 256;    // k tile of dg_{t+1} staged in shared memory
 
-// One reverse timestep, or (dh_seq_t == null) the final dh0 reduction.
-// grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
+// One reverse timestep of one tile (32 hidden units, kBT batch rows: tile
+// bx, by), or (dh_seq_t == null) the final dh0 reduction of the tile. The
+// step body of both K3 (a block a tile, one launch a step) and K12 (two
+// steps a cooperative launch, blocks looping over the tiles): the same
+// arithmetic in the same order, so the two give the same bits. Every
+// thread of the block calls it, with the same tile.
 template <typename CT, typename RT>
-__global__ void __launch_bounds__(kLanes * kKS)
-lstm_bwd_step(const CT* __restrict__ UT,          // (4N, N) = U^T
-              const float* __restrict__ dg_next,  // (B, 4N) dg_{t+1}, or null
-              const float* __restrict__ dh_in,    // (B, N) dhT, when no dg_next
-              const float* __restrict__ dh_seq_t, // (B, N), null: final mode
-              const RT* __restrict__ g_t,         // (B, 4N) activated gates
-              const RT* __restrict__ c_t,         // (B, N) carried cell
-              const RT* __restrict__ c_prev_t,    // (B, N) c_{t-1}, null at t=0
-              const float* __restrict__ c0,       // (B, N)
-              float* __restrict__ dc,             // (B, N) in place
-              float* __restrict__ dg_t,           // (B, 4N) out
-              float* __restrict__ dh_out,         // (B, N) final mode out
-              Dropout drop, int tau, int B, int N, int standard) {
+__device__ __forceinline__ void
+bwd_tile(const CT* __restrict__ UT,          // (4N, N) = U^T
+         const float* __restrict__ dg_next,  // (B, 4N) dg_{t+1}, or null
+         const float* __restrict__ dh_in,    // (B, N) dhT, when no dg_next
+         const float* __restrict__ dh_seq_t, // (B, N), null: final mode
+         const RT* __restrict__ g_t,         // (B, 4N) activated gates
+         const RT* __restrict__ c_t,         // (B, N) carried cell
+         const RT* __restrict__ c_prev_t,    // (B, N) c_{t-1}, null at t=0
+         const float* __restrict__ c0,       // (B, N)
+         float* __restrict__ dc,             // (B, N) in place
+         float* __restrict__ dg_t,           // (B, 4N) out
+         float* __restrict__ dh_out,         // (B, N) final mode out
+         Dropout drop, int tau, int B, int N, int standard, int bx, int by) {
   __shared__ float ds[kBT][kKT];
   __shared__ float red[kKS][kBT][kLanes];
 
   const int lane = threadIdx.x;
   const int w = threadIdx.y;
-  const int j = blockIdx.x * kLanes + lane;
-  const int b0 = blockIdx.y * kBT;
+  const int j = bx * kLanes + lane;
+  const int b0 = by * kBT;
   const int n4 = 4 * N;
 
   if (dg_next != nullptr) {
@@ -173,6 +192,49 @@ lstm_bwd_step(const CT* __restrict__ UT,          // (4N, N) = U^T
   dg_t[gb + 2 * (size_t)N] = df * gf * (1.0f - gf);
   dg_t[gb + 3 * (size_t)N] = du * (1.0f - gu * gu);
   dc[idx] = dc_raw * gf;
+}
+
+// K3's step: one reverse timestep, or the final dh0 reduction, a block a
+// tile. grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+lstm_bwd_step(const CT* __restrict__ UT, const float* __restrict__ dg_next,
+              const float* __restrict__ dh_in,
+              const float* __restrict__ dh_seq_t, const RT* __restrict__ g_t,
+              const RT* __restrict__ c_t, const RT* __restrict__ c_prev_t,
+              const float* __restrict__ c0, float* __restrict__ dc,
+              float* __restrict__ dg_t, float* __restrict__ dh_out,
+              Dropout drop, int tau, int B, int N, int standard) {
+  bwd_tile<CT, RT>(UT, dg_next, dh_in, dh_seq_t, g_t, c_t, c_prev_t, c0, dc,
+                   dg_t, dh_out, drop, tau, B, N, standard, blockIdx.x,
+                   blockIdx.y);
+}
+
+// K12's launch: the reverse steps tau1 and tau1 - 1, a grid barrier between
+// them (tau1 - 1 reads the whole dg_{tau1}). A grid of at most what is
+// resident at once (a barrier waits for every block), each block walking
+// the (N / 32) x ceil(B / kBT) tiles from its index in steps of the grid.
+// dg is the (S, B, 4N) dg sequence; dc holds the carried dc in place.
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+lstm_bwd_pair(const CT* __restrict__ UT, const RT* __restrict__ g_seq,
+              const RT* __restrict__ c_seq, const float* __restrict__ c0,
+              const float* __restrict__ dh_seq, const float* __restrict__ dhT,
+              float* __restrict__ dc, float* __restrict__ dg, Dropout drop,
+              int tau1, int S, int B, int N, int standard) {
+  const int tiles_x = N / kLanes;
+  const int tiles = tiles_x * ((B + kBT - 1) / kBT);
+  const size_t bn = (size_t)B * N, bn4 = 4 * bn;
+  for (int q = 0; q < 2; ++q) {
+    const int t = tau1 - q;
+    if (q == 1) cg::this_grid().sync();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      bwd_tile<CT, RT>(UT, t < S - 1 ? dg + (t + 1) * bn4 : nullptr, dhT,
+                       dh_seq + t * bn, g_seq + t * bn4, c_seq + t * bn,
+                       t > 0 ? c_seq + (t - 1) * bn : nullptr, c0, dc,
+                       dg + t * bn4, nullptr, drop, t, B, N, standard,
+                       tile % tiles_x, tile / tiles_x);
+  }
 }
 
 // dW[v, col] = sum over rows r (in order) with ids[r] == v of round(dg[r, col]).
@@ -247,15 +309,66 @@ int run_reverse(const void* UT, const void* g_seq, const void* c_seq,
   return 0;
 }
 
+// K12's reverse loop: S / 2 cooperative launches of two steps each (S
+// even), then K3's final dh0 reduction: S / 2 + 1 launches, with run_reverse's
+// arguments and results.
+template <typename CT, typename RT>
+int run_reverse2(const void* UT, const void* g_seq, const void* c_seq,
+                 const float* c0, const float* dh_seq, const float* dhT,
+                 float* dc, float* dg, float* dh0, int S, int B, int N,
+                 int standard, Dropout drop, cudaStream_t stream,
+                 int* launches) {
+  if (S < 2 || S % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = lstm_bwd_pair<CT, RT>;
+  const dim3 block(kLanes, kKS);
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kLanes * kKS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  // every block must be resident at once, or the grid barrier never opens
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int tiles = (N / kLanes) * ((B + kBT - 1) / kBT);
+  const dim3 grid(tiles < sms * per_sm ? tiles : sms * per_sm);
+  const CT* ut = static_cast<const CT*>(UT);
+  const RT* gs = static_cast<const RT*>(g_seq);
+  const RT* cs = static_cast<const RT*>(c_seq);
+  for (int tau1 = S - 1; tau1 >= 1; tau1 -= 2) {
+    void* args[] = {&ut, &gs, &cs, &c0, &dh_seq, &dhT, &dc, &dg, &drop,
+                    &tau1, &S, &B, &N, &standard};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                      grid, block, args, 0, stream);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  // dh0 = round(dg_0) @ U^T, as run_reverse's last launch
+  lstm_bwd_step<CT, RT><<<dim3(N / kLanes, (B + kBT - 1) / kBT), block, 0,
+                          stream>>>(ut, dg, dhT, nullptr, nullptr, nullptr,
+                                    nullptr, c0, dc, nullptr, dh0, drop, -1, B,
+                                    N, standard);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
+}
+
 template <typename CT, typename RT>
 int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
             const void* h_seq, const int* ids, const float* h0,
             const float* c0, const float* dh_seq, const float* dhT, float* dc,
             float* dg, float* dWU, float* db, float* dh0, float* work, int S,
-            int B, int N, int M, int standard, int round_db, Dropout drop,
-            cudaStream_t stream, int* launches) {
-  int e = run_reverse<CT, RT>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0,
-                              S, B, N, standard, drop, stream, launches);
+            int B, int N, int M, int standard, int round_db, int unroll2,
+            Dropout drop, cudaStream_t stream, int* launches) {
+  const auto reverse = unroll2 ? run_reverse2<CT, RT> : run_reverse<CT, RT>;
+  int e = reverse(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0, S, B, N,
+                  standard, drop, stream, launches);
   if (e != 0) return e;
   const int R = S * B, C = 4 * N;
   // dU = h_prev^T dg: rows r < B of h_prev are h0, then h_seq[r - B]
@@ -306,6 +419,36 @@ extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N) {
   return gemm > col ? gemm : col;
 }
 
+namespace {
+
+int bwd_embed(int unroll2, int ctype, int rtype, const void* UT,
+              const void* g_seq, const void* c_seq, const void* h_seq,
+              const void* ids, const void* h0, const void* c0,
+              const void* dh_seq, const void* dhT, void* dc, void* dg,
+              void* dWU, void* db, void* dh0, void* work, int S, int B, int N,
+              int M, int standard, int round_db, int drop_on, unsigned seed,
+              unsigned keep, float inv, void* stream, int* launches) {
+  const Dropout drop{drop_on, seed, keep, inv};
+  const auto f = [&](auto run) {
+    return run(UT, g_seq, c_seq, h_seq, static_cast<const int*>(ids),
+               static_cast<const float*>(h0), static_cast<const float*>(c0),
+               static_cast<const float*>(dh_seq),
+               static_cast<const float*>(dhT), static_cast<float*>(dc),
+               static_cast<float*>(dg), static_cast<float*>(dWU),
+               static_cast<float*>(db), static_cast<float*>(dh0),
+               static_cast<float*>(work), S, B, N, M, standard, round_db,
+               unroll2, drop, static_cast<cudaStream_t>(stream), launches);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_bwd<float, float>);
+  if (ctype == 0 && rtype == 1) return f(run_bwd<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(run_bwd<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(run_bwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
 // Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N) in the compute type;
 // the residual sequences have the residual type; h0, c0, dh_seq, dhT and the
 // outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
@@ -320,23 +463,26 @@ extern "C" int lstm_bwd_embed_launch(
     void* dWU, void* db, void* dh0, void* work, int S, int B, int N, int M,
     int standard, int round_db, int drop_on, unsigned seed, unsigned keep,
     float inv, void* stream, int* launches) {
-  const Dropout drop{drop_on, seed, keep, inv};
-  const auto f = [&](auto run) {
-    return run(UT, g_seq, c_seq, h_seq, static_cast<const int*>(ids),
-               static_cast<const float*>(h0), static_cast<const float*>(c0),
-               static_cast<const float*>(dh_seq),
-               static_cast<const float*>(dhT), static_cast<float*>(dc),
-               static_cast<float*>(dg), static_cast<float*>(dWU),
-               static_cast<float*>(db), static_cast<float*>(dh0),
-               static_cast<float*>(work), S, B, N, M, standard, round_db,
-               drop, static_cast<cudaStream_t>(stream), launches);
-  };
-  using bf = __nv_bfloat16;
-  if (ctype == 0 && rtype == 0) return f(run_bwd<float, float>);
-  if (ctype == 0 && rtype == 1) return f(run_bwd<float, bf>);
-  if (ctype == 1 && rtype == 0) return f(run_bwd<bf, float>);
-  if (ctype == 1 && rtype == 1) return f(run_bwd<bf, bf>);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_embed(0, ctype, rtype, UT, g_seq, c_seq, h_seq, ids, h0, c0,
+                   dh_seq, dhT, dc, dg, dWU, db, dh0, work, S, B, N, M,
+                   standard, round_db, drop_on, seed, keep, inv, stream,
+                   launches);
+}
+
+// K12 <- pallas_cell.py:_bwd_embed_unroll2_kernel: K3's function, bit for
+// bit, two reverse steps a cooperative launch (S even): S / 2 + 1 step
+// launches against K3's S + 1. Arguments as lstm_bwd_embed_launch's.
+extern "C" int lstm_bwd_embed_unroll2_launch(
+    int ctype, int rtype, const void* UT, const void* g_seq,
+    const void* c_seq, const void* h_seq, const void* ids, const void* h0,
+    const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dg,
+    void* dWU, void* db, void* dh0, void* work, int S, int B, int N, int M,
+    int standard, int round_db, int drop_on, unsigned seed, unsigned keep,
+    float inv, void* stream, int* launches) {
+  return bwd_embed(1, ctype, rtype, UT, g_seq, c_seq, h_seq, ids, h0, c0,
+                   dh_seq, dhT, dc, dg, dWU, db, dh0, work, S, B, N, M,
+                   standard, round_db, drop_on, seed, keep, inv, stream,
+                   launches);
 }
 
 // Scratch floats lstm_bwd_scan_launch needs in `work`.

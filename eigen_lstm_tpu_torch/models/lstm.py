@@ -16,6 +16,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import ModelConfig
 from ..ops import cell as cell_ops
@@ -55,6 +56,21 @@ class LSTMParams:
                   for l in self.layers),
             self.Why.to(dtype), self.by.to(dtype),
         )
+
+
+def tensors(p: LSTMParams):
+    """The parameter set's tensors in checkpoint order (W, U, b of each
+    layer, then Why, by)."""
+    return [t for _, t in p.named_tensors()]
+
+
+def like(p: LSTMParams, ts) -> LSTMParams:
+    """An ``LSTMParams`` with ``p``'s structure holding ``ts`` in the order
+    of ``tensors``."""
+    ts = list(ts)
+    layers = tuple(LayerParams(*ts[3 * i: 3 * i + 3])
+                   for i in range(len(p.layers)))
+    return LSTMParams(layers, ts[-2], ts[-1])
 
 
 def init_params(
@@ -177,6 +193,31 @@ def _substitute_tied_embed(params: LSTMParams, cfg: ModelConfig) -> LSTMParams:
     )
 
 
+def _chunked_seq(fn, seq_arg: torch.Tensor, h0: torch.Tensor,
+                 c0: torch.Tensor, chunk: int):
+    """A whole-sequence layer op run chunk by chunk with rematerialisation
+    (the JAX ``_chunked_seq``, ``models/lstm.py:138-156``): ``fn(x_chunk,
+    h, c) -> (h_seq, (hT, cT))`` on each ``chunk`` steps under
+    ``torch.utils.checkpoint``, the state carried from one chunk to the
+    next, so the backward holds one chunk's residuals at a time and
+    recomputes each chunk from its starting (h, c): the backward calls
+    ``fn`` again, so it must bind its layer rather than read a loop
+    variable."""
+    hs = []
+    h, c = h0, c0
+    for k in range(seq_arg.shape[0] // chunk):
+        h_seq, (h, c) = torch.utils.checkpoint.checkpoint(
+            fn, seq_arg[k * chunk:(k + 1) * chunk], h, c, use_reentrant=False)
+        hs.append(h_seq)
+    return torch.cat(hs), (h, c)
+
+
+def _maybe_chunk(cfg: ModelConfig, s: int) -> int:
+    """The chunk of this window, or 0 (off, or not dividing S)."""
+    ck = cfg.scan_chunk
+    return ck if ck and 0 < ck < s and s % ck == 0 else 0
+
+
 def forward(
     params: LSTMParams,
     ids: torch.Tensor,           # (S, B) int byte ids
@@ -192,33 +233,41 @@ def forward(
     per-layer recurrence, and its ``embed_layer0(layer, ids, h0, c0, cfg)``
     attribute, when present, replaces layer 0 with the embedding fused in.
     Gradients flow through both (``ops.cuda_cell_bwd``) and through the
-    plain loop.
+    plain loop. With ``cfg.scan_chunk`` dividing S, each layer's recurrence
+    runs in chunks under ``_chunked_seq``.
 
     ``dropout_key`` (an int, ``step_key``'s; or a sequence of per-layer
     int32 seeds) with ``cfg.dropout > 0`` drops out each layer's output
     stream, between the layers and before the head; None is eval. A
     ``cell_fn`` with ``fused_dropout`` takes ``dropout=(rate, seed)`` and
     masks in its kernels with ``_keep_mask``'s bits, one seed per layer
-    from ``_drop_seed``; the carried (hT, cT) stay unmasked. Otherwise
-    ``_dropout`` masks the stream. ``scan_chunk`` is not ported yet."""
-    if cfg.scan_chunk:
-        raise NotImplementedError("scan_chunk: not ported yet")
+    from ``_drop_seed``; the carried (hT, cT) stay unmasked. Otherwise,
+    and always under ``scan_chunk`` (a chunk's kernel would draw the mask
+    of its own timesteps, as in the JAX package), ``_dropout`` masks the
+    stream."""
     drop = cfg.dropout if dropout_key is not None else 0.0
     if drop > 0.0 and isinstance(dropout_key, (tuple, list)) \
             and len(dropout_key) != cfg.num_layers:
         raise ValueError(f"{len(dropout_key)} dropout seeds for "
                          f"{cfg.num_layers} layers")
-    fdrop = drop > 0.0 and getattr(cell_fn, "fused_dropout", False)
+    s, b_ = ids.shape
+    ck = _maybe_chunk(cfg, s)
+    fdrop = drop > 0.0 and not ck and getattr(cell_fn, "fused_dropout", False)
     scan_fn = cell_fn or _scan_layer
     embed_fn = getattr(cell_fn, "embed_layer0", None)
-    s, b_ = ids.shape
     x = None
     h_last, c_last = [], []
     params = _substitute_tied_embed(params, cfg)
     for l, layer in enumerate(params.layers):
         kw = {"dropout": (drop, _drop_seed(dropout_key, l))} if fdrop else {}
         if l == 0 and embed_fn is not None:
-            h_seq, (hT, cT) = embed_fn(layer, ids, h0[0], c0[0], cfg, **kw)
+            if ck:
+                h_seq, (hT, cT) = _chunked_seq(
+                    lambda x_c, h, c, layer=layer: embed_fn(layer, x_c, h, c,
+                                                            cfg),
+                    ids, h0[0], c0[0], ck)
+            else:
+                h_seq, (hT, cT) = embed_fn(layer, ids, h0[0], c0[0], cfg, **kw)
         else:
             if l == 0:
                 if cfg.embedding_mode == "onehot":
@@ -235,7 +284,13 @@ def forward(
                     x.reshape(s * b_, -1), layer.W, cfg.cdtype
                 ).reshape(s, b_, -1)
             xw = xw + layer.b.to(cfg.adtype)
-            h_seq, (hT, cT) = scan_fn(layer, xw, h0[l], c0[l], cfg, **kw)
+            if ck:
+                h_seq, (hT, cT) = _chunked_seq(
+                    lambda x_c, h, c, layer=layer: scan_fn(layer, x_c, h, c,
+                                                           cfg),
+                    xw, h0[l], c0[l], ck)
+            else:
+                h_seq, (hT, cT) = scan_fn(layer, xw, h0[l], c0[l], cfg, **kw)
         if drop > 0.0 and not fdrop:
             h_seq = _dropout(h_seq, drop, _drop_seed(dropout_key, l))
         x = h_seq

@@ -46,6 +46,8 @@ SIGNATURES = {
     "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 12 + [_I] * 4 + _DROP + [_P]),
     "lstm_bwd_embed_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 7 + _DROP
                               + [_P, _IP]),
+    "lstm_bwd_embed_unroll2_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 7
+                                      + _DROP + [_P, _IP]),
     "lstm_bwd_embed_work_floats": (_Z, [_I] * 3),
     "lstm_bwd_scan_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 5 + _DROP
                              + [_P, _IP]),
@@ -61,6 +63,7 @@ SIGNATURES = {
                               + [_P]),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 8 + [_I] * 5 + _DROP + [_P]),
     "gen_work_floats": (_Z, [_I] * 3),
+    "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
 }
 
 

@@ -5,6 +5,10 @@ layers as autograd functions.
 (the backward of ``pallas_embed_layer0``'s custom VJP, ``:1027-1068``): from
 the forward's residuals and the cotangents of (h_seq, hT, cT) it returns
 dWU (M+N, 4N), db (4N,), dh0 and dc0 (B, N), all fp32.
+``embed_layer0_bwd_unroll2`` (K12) replaces
+``pallas_cell.py:_bwd_embed_unroll2_kernel``: the same function, bit for
+bit, two reverse steps a cooperative launch, where the JAX package runs
+that kernel (``EIGEN_LSTM_BWD_UNROLL=2``; ``ops.dispatch.bwd_unroll2``).
 
 ``scan_layer_bwd`` (K6) replaces ``pallas_cell.py:_bwd_kernel`` (:227) with
 the dU product of ``_bwd_core`` (:393-414), the backward of
@@ -12,8 +16,9 @@ the dU product of ``_bwd_core`` (:393-414), the backward of
 under bf16 compute), dU (N, 4N), dh0 and dc0, fp32. dg_seq is the
 cotangent of xw = x @ W + b, from which autograd takes db, dW and dx.
 
-For a CUDA tensor each launches ``lstm_bwd_embed_launch`` or
-``lstm_bwd_scan_launch`` of ``csrc/lstm_bwd.cu`` or raises; for a CPU
+For a CUDA tensor each launches ``lstm_bwd_embed_launch``,
+``lstm_bwd_embed_unroll2_launch`` or ``lstm_bwd_scan_launch`` of
+``csrc/lstm_bwd.cu`` or raises; for a CPU
 tensor it runs its plain version, which repeats the kernel's arithmetic:
 dg in fp32 (``_reverse_plain``), rounded to the compute type before
 dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c, with h_{-1} = h0
@@ -89,7 +94,7 @@ def _h_minus_1(h0, cfg: ModelConfig, fused_accum: bool):
 def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                            dhT, dcT, cfg: ModelConfig, dg_out=None,
                            dropout=None, fused_accum: bool = True):
-    """Plain version of the layer-0 backward kernel; ``dg_out`` and
+    """Plain version of the layer-0 backward kernel K3; ``dg_out`` and
     ``fused_accum`` as the kernel's."""
     af = cuda_cell._acc_dtype(cfg)
     s, b = ids.shape
@@ -107,6 +112,21 @@ def embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
     dW.index_add_(0, ids.reshape(-1).long(), dg_c)
     db = dg if fused_accum else dg.to(cuda_cell.xw_type(cfg)).to(af)
     return torch.cat([dW, dU]), db.sum(0), dh, dc
+
+
+def embed_layer0_bwd_unroll2_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
+                                   dh_seq, dhT, dcT, cfg: ModelConfig,
+                                   dg_out=None, dropout=None,
+                                   fused_accum: bool = True):
+    """Plain version of K12 (S even): K3's plain version. K12's pairs
+    (tau1 = S-1-2i, then tau1-1) visit the same reverse steps in the same
+    order as K3, so the function is the same, bit for bit."""
+    if ids.shape[0] % 2 != 0:
+        raise ValueError(f"the two-step backward takes an even S, got "
+                         f"{ids.shape[0]}")
+    return embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
+                                  dh_seq, dhT, dcT, cfg, dg_out, dropout,
+                                  fused_accum)
 
 
 def scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
@@ -172,28 +192,24 @@ def _launch_args(cfg: ModelConfig, dropout, device, *flags):
             + (torch.cuda.current_stream(device).cuda_stream,))
 
 
-def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
-                     cfg: ModelConfig, dg_out=None, dropout=None,
-                     fused_accum: bool = True):
-    """Layer-0 backward: the kernel on a CUDA tensor, the plain version on
-    a CPU tensor. U_c: (N, 4N) in the compute type; g_seq (S, B, 4N), c_seq
-    and h_seq (S, B, N) in the residual type; ids (S, B); h0, c0, dh_seq,
-    dhT, dcT fp32. Returns (dWU (M+N, 4N), db (4N,), dh0, dc0) in fp32.
-    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence.
-    ``fused_accum``: the JAX VJP copied, fused (True) or the GEMM fall-back
-    (the module docstring)."""
+def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
+               dhT, dcT, cfg: ModelConfig, dg_out, dropout, fused_accum: bool):
+    """K3 (``unroll2`` False) or K12 on a CUDA tensor, their plain versions
+    on a CPU tensor; returns (outputs, kernel launches)."""
     _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
     if tuple(ids.shape) != tuple(h_seq.shape[:2]) or ids.device != h_seq.device:
         raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
                          f"match h_seq {tuple(h_seq.shape)} on {h_seq.device}")
     if ids.dtype.is_floating_point or ids.dtype == torch.bool:
         raise TypeError(f"ids must be integer byte ids, got {ids.dtype}")
+    s, b = ids.shape
+    if unroll2 and (s < 2 or s % 2 != 0):
+        raise ValueError(f"the two-step backward takes an even S, got {s}")
     if ids.device.type == "cpu":
         return embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
                                       dh_seq, dhT, dcT, cfg, dg_out, dropout,
-                                      fused_accum)
+                                      fused_accum), 0
     ctype, rtype = cuda_cell._kernel_types(cfg, ids.device)
-    s, b = ids.shape
     n, m = cfg.hidden, cfg.vocab
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -209,7 +225,9 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
     lib = _build.load_library()
     work = torch.empty(max(1, lib.lstm_bwd_embed_work_floats(s, b, n)), **f32)
     launched = ctypes.c_int(0)
-    err = lib.lstm_bwd_embed_launch(
+    name = ("lstm_bwd_embed_unroll2_launch" if unroll2
+            else "lstm_bwd_embed_launch")
+    err = getattr(lib, name)(
         ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
         ids32.data_ptr(), *(x.data_ptr() for x in ins), dc.data_ptr(),
         dg.data_ptr(), dWU.data_ptr(), db.data_ptr(), dh0.data_ptr(),
@@ -217,9 +235,40 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
         *_launch_args(cfg, dropout, dev, int(not fused_accum)),
         ctypes.byref(launched),
     )
-    embed_layer0_bwd.launches += launched.value
-    cuda_cell._raise_on(err, "lstm_bwd_embed_launch")
-    return dWU, db, dh0, dc
+    cuda_cell._raise_on(err, name)
+    return (dWU, db, dh0, dc), launched.value
+
+
+def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
+                     cfg: ModelConfig, dg_out=None, dropout=None,
+                     fused_accum: bool = True):
+    """Layer-0 backward (K3): the kernel on a CUDA tensor, the plain version
+    on a CPU tensor. U_c: (N, 4N) in the compute type; g_seq (S, B, 4N),
+    c_seq and h_seq (S, B, N) in the residual type; ids (S, B); h0, c0,
+    dh_seq, dhT, dcT fp32. Returns (dWU (M+N, 4N), db (4N,), dh0, dc0) in
+    fp32. ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence.
+    ``fused_accum``: the JAX VJP copied, fused (True) or the GEMM fall-back
+    (the module docstring)."""
+    out, launched = _embed_bwd(False, U_c, g_seq, c_seq, h_seq, ids, h0, c0,
+                               dh_seq, dhT, dcT, cfg, dg_out, dropout,
+                               fused_accum)
+    embed_layer0_bwd.launches += launched
+    return out
+
+
+def embed_layer0_bwd_unroll2(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
+                             dhT, dcT, cfg: ModelConfig, dg_out=None,
+                             dropout=None, fused_accum: bool = True):
+    """Layer-0 backward through K12, which replaces
+    ``pallas_cell.py:_bwd_embed_unroll2_kernel``: K3's function, bit for
+    bit, two reverse steps a cooperative launch; S must be even. The kernel
+    on a CUDA tensor, ``embed_layer0_bwd_unroll2_plain`` on a CPU tensor;
+    arguments and results as ``embed_layer0_bwd``'s."""
+    out, launched = _embed_bwd(True, U_c, g_seq, c_seq, h_seq, ids, h0, c0,
+                               dh_seq, dhT, dcT, cfg, dg_out, dropout,
+                               fused_accum)
+    embed_layer0_bwd_unroll2.launches += launched
+    return out
 
 
 def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
@@ -260,6 +309,7 @@ def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
 
 
 embed_layer0_bwd.launches = 0
+embed_layer0_bwd_unroll2.launches = 0
 scan_layer_bwd.launches = 0
 
 
@@ -287,18 +337,19 @@ def _layer_out(out):
 
 class EmbedLayer0(torch.autograd.Function):
     """Layer 0 with the embedding fused in, differentiable in W, U, b, h0
-    and c0: the forward kernel with residuals, then ``embed_layer0_bwd``.
-    With ``plain`` both halves run their plain versions, on any device."""
+    and c0: the forward kernel with residuals, then ``embed_layer0_bwd``
+    (K3), or with ``unroll2`` ``embed_layer0_bwd_unroll2`` (K12). With
+    ``plain`` both halves run their plain versions, on any device."""
 
     @staticmethod
     def forward(ctx, W, U, b, ids, h0, c0, cfg: ModelConfig, plain: bool,
-                dropout, fused_accum: bool):
+                dropout, fused_accum: bool, unroll2: bool):
         layer = LayerParams(W, U, b)
         fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
         out = fwd(layer, ids, h0, c0, cfg, residuals=True, dropout=dropout)
         ctx.save_for_backward(U, out[0], out[2], out[3], ids, h0, c0)
         ctx.cfg, ctx.plain, ctx.dropout = cfg, plain, dropout
-        ctx.fused_accum = fused_accum
+        ctx.fused_accum, ctx.unroll2 = fused_accum, unroll2
         ctx.dtypes = (W.dtype, U.dtype, b.dtype, h0.dtype, c0.dtype)
         return _layer_out(out)
 
@@ -307,7 +358,11 @@ class EmbedLayer0(torch.autograd.Function):
         U, h_seq, c_seq, g_seq, ids, h0, c0 = ctx.saved_tensors
         cfg = ctx.cfg
         af = cuda_cell._acc_dtype(cfg)
-        bwd = embed_layer0_bwd_plain if ctx.plain else embed_layer0_bwd
+        if ctx.unroll2:
+            bwd = (embed_layer0_bwd_unroll2_plain if ctx.plain
+                   else embed_layer0_bwd_unroll2)
+        else:
+            bwd = embed_layer0_bwd_plain if ctx.plain else embed_layer0_bwd
         m = cfg.vocab
         dWU, db, dh0, dc0 = bwd(
             U.to(cfg.cdtype), g_seq, c_seq, h_seq, ids, h0.to(af), c0.to(af),
@@ -317,7 +372,7 @@ class EmbedLayer0(torch.autograd.Function):
         dWU = dWU.to(cfg.cdtype)
         wd, ud, bd, hd, cd = ctx.dtypes
         return (dWU[:m].to(wd), dWU[m:].to(ud), db.to(bd), None,
-                dh0.to(hd), dc0.to(cd), None, None, None, None)
+                dh0.to(hd), dc0.to(cd), None, None, None, None, None)
 
 
 class ScanLayer(torch.autograd.Function):
@@ -365,11 +420,18 @@ def differentiable_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     layer 0, h_out the masked stream under ``dropout=(rate, seed)``,
     through ``EmbedLayer0`` when autograd needs a gradient of its inputs,
     else through the forward kernel alone (no residuals). ``fused_accum``
-    picks the JAX VJP that K3 copies (the module docstring)."""
+    picks the JAX VJP that K3 copies (the module docstring). The backward
+    is K12 where the JAX package takes its unroll-2 kernel
+    (``ops.dispatch.bwd_unroll2``: ``EIGEN_LSTM_BWD_UNROLL=2``, read at
+    each call as the JAX package reads it), else K3."""
+    from .dispatch import bwd_unroll2   # dispatch imports this module
+
+    unroll2 = bwd_unroll2(cfg, ids.shape[0], ids.shape[1], fused_accum,
+                          0.0 if dropout is None else dropout[0])
     if _wants_grad(layer.W, layer.U, layer.b, h0, c0):
         h_out, hT, cT = EmbedLayer0.apply(layer.W, layer.U, layer.b, ids, h0,
                                           c0, cfg, plain, dropout,
-                                          fused_accum)
+                                          fused_accum, unroll2)
         return h_out, (hT, cT)
     fwd = cuda_cell.embed_layer0_plain if plain else cuda_cell.embed_layer0
     return fwd(layer, ids, h0, c0, cfg, dropout=dropout)

@@ -28,6 +28,7 @@ what its kernels take (``head.head_supported``).
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -140,6 +141,59 @@ def fused_accum_ok(cfg: ModelConfig, batch: int) -> bool:
     cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
     return ((m + n) * 4 * n * 4 + n * 4 * n * cbytes + 2 * b * 4 * n * rbytes
             + 6 * b * n * rbytes + 2 * b * n * 4 + 6 * b * n * 4) <= 16 * _MB
+
+
+def unroll2_vmem_ok(cfg: ModelConfig, batch: int) -> bool:
+    """``unroll2_vmem_ok`` of ``pallas_cell.py:951-958``: the unroll-2
+    kernel's working set (the fp32 dWU block, U, and two-step time blocks
+    for g, c, h and dh, double-buffered) within 16 MB of VMEM."""
+    n, m, b = cfg.hidden, cfg.vocab, batch
+    rbytes = 2 if _rdtype_name(cfg) == "bfloat16" else 4
+    cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
+    return ((m + n) * 4 * n * 4 + n * 4 * n * cbytes
+            + 2 * 2 * b * 4 * n * rbytes + 2 * 2 * b * n * rbytes * 4
+            + 2 * 2 * b * n * 4 + 6 * b * n * 4) <= 16 * _MB
+
+
+def bwd_unroll2(cfg: ModelConfig, s: int, batch: int, fused_accum: bool,
+                drop: float = 0.0) -> bool:
+    """Whether layer 0's backward runs K12 (``pallas_cell.py:
+    _bwd_embed_unroll2_kernel``'s counterpart) instead of K3: where the JAX
+    package runs its unroll-2 kernel, ``use_unroll2`` of
+    ``pallas_cell.py:959-961`` taken inside its fused VJP (``:1031``):
+    ``EIGEN_LSTM_BWD_UNROLL=2``, S even, ``EIGEN_LSTM_BWD_DEFER`` not 1,
+    ``fused_accum`` and ``unroll2_vmem_ok``. The environment is read at
+    each call, as ``pallas_embed_layer0`` reads it (``:1132-1135``). Where
+    unroll 2 is asked for and not taken, the JAX package's line is printed
+    once per shape and config (``:962-969``) and K3 runs. The knob applies
+    only where the JAX package runs its resident layer-0 kernel at all
+    (``families``: ``"embed_fused"`` or ``"embed_fallback"``).
+
+    ``unroll2_vmem_ok`` describes the TPU's VMEM and picks which kernel the
+    JAX package runs; it is not the H100's capacity: K12 takes any shape
+    K3 takes with an even S. ``EIGEN_LSTM_BSPLIT`` and
+    ``EIGEN_LSTM_BSPLIT_BWD`` get no counterpart: they only block the
+    TPU's batch in halves, with bitwise identical results."""
+    if int(os.environ.get("EIGEN_LSTM_BWD_UNROLL", "1")) != 2:
+        return False
+    if families(cfg, batch)[1] not in ("embed_fused", "embed_fallback"):
+        return False
+    defer = os.environ.get("EIGEN_LSTM_BWD_DEFER", "0") == "1"
+    return _unroll2_choice(cfg, s, batch, defer, float(drop)) and fused_accum
+
+
+@functools.lru_cache(maxsize=None)
+def _unroll2_choice(cfg: ModelConfig, s: int, batch: int, defer: bool,
+                    drop: float) -> bool:
+    # cached on (shape, config), so the fall-back line prints once, as the
+    # JAX package's lru_cache'd _make_fused_embed_seq prints it
+    vmem_ok = unroll2_vmem_ok(cfg, batch)
+    use = s % 2 == 0 and not defer and vmem_ok
+    if not use:
+        print(f"[pallas_cell] EIGEN_LSTM_BWD_UNROLL=2 requested but falling "
+              f"back to unroll-1 (s={s} even={s % 2 == 0}, defer={defer}, "
+              f"vmem_ok={vmem_ok})", flush=True)
+    return use
 
 
 def families(cfg: ModelConfig, batch: int):

@@ -4,6 +4,8 @@
 The test bytes are folded into E contiguous streams, scored chunk by chunk
 with the hidden state carried from one chunk to the next; padding past a
 stream's own span is masked out, so every byte is scored exactly once.
+``evaluate_ensemble_bpc`` scores a probability-space mixture of models the
+same way.
 """
 
 from __future__ import annotations
@@ -98,4 +100,60 @@ def evaluate_bpc(
         n_chunks,
         cell_fn,
     )
+    return float(total) / usable
+
+
+def _score_streams_ensemble(members, x, t, mask, chunk: int,
+                            n_chunks: int) -> torch.Tensor:
+    """Sum of -log2(mean_i p_i(target)) over the masked positions, each
+    member carrying its own state across chunks; the mixture is
+    logsumexp of the members' fp32 log-probabilities less log k."""
+    e = x.shape[1]
+    states = [model.init_state(cfg, e, device=x.device)
+              for _, cfg, _ in members]
+    log_k = torch.log(torch.tensor(float(len(members)), device=x.device))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for k in range(n_chunks):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        logps = []
+        for i, (params, cfg, cell_fn) in enumerate(members):
+            h, c = states[i]
+            h_seq, states[i] = model.forward(params, x[sl], h, c, cfg,
+                                             cell_fn=cell_fn)
+            logits = model.logits_from_h(params, h_seq, cfg)
+            logps.append(torch.log_softmax(logits.to(torch.float32), dim=-1))
+        mix = torch.logsumexp(torch.stack(logps), dim=0) - log_k
+        nll = -torch.gather(mix, -1, t[sl].long()[..., None])[..., 0]
+        total = total + torch.sum(nll / model.LN2 * mask[sl])
+    return total
+
+
+def evaluate_ensemble_bpc(
+    members,
+    test_data: np.ndarray,
+    eval_batch: int = 16,
+    chunk: int = 128,
+    max_chars: Optional[int] = None,
+) -> float:
+    """bits/char of a probability-space ensemble on the held-out split
+    (``eigen_lstm_tpu/train/evaluator.py:134-219``). ``members``: a
+    sequence of ``(params, cfg, cell_fn)``, architectures free to differ
+    but sharing one vocabulary; each member's ``cell_fn`` is used as given.
+    The first member's device runs it. One member gives ``evaluate_bpc``'s
+    value."""
+    if not members:
+        raise ValueError("need at least one ensemble member")
+    vocabs = {m[1].vocab for m in members}
+    if len(vocabs) > 1:
+        raise ValueError(
+            f"ensemble members must share one vocab, got {sorted(vocabs)}")
+    x, t, mask, usable, eval_batch, chunk, n_chunks = _build_streams(
+        test_data, eval_batch, chunk, max_chars)
+    dev = members[0][0].Why.device
+    total = _score_streams_ensemble(
+        members,
+        torch.from_numpy(x.astype(np.int32)).to(dev),
+        torch.from_numpy(t.astype(np.int32)).to(dev),
+        torch.from_numpy(mask.astype(np.float32)).to(dev),
+        chunk, n_chunks)
     return float(total) / usable

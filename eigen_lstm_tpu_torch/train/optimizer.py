@@ -1,11 +1,14 @@
 """Adagrad with the JAX package's extensions (``eigen_lstm_tpu/train/
 optimizer.py``): global-norm clipping, lr = 0 warm-up and the cyclic decay,
-in plain torch ops on ``LSTMParams``-shaped parameter sets.
+on ``LSTMParams``-shaped parameter sets.
 
 m += g^2 on every step, warm-up included (the accumulators fill while
 lr = 0), then p -= lr * g * rsqrt(m + eps) with eps = 1e-10 inside the
-rsqrt. The functions return new tensors and leave their inputs as they
-were, as the JAX functions do.
+rsqrt: on the card one launch of the fused kernel K11 for the whole set
+(``ops/cuda_adagrad.py``), on the CPU its plain version. Clipping and the
+global norm stay torch ops, as the JAX package leaves them to XLA. The
+functions return new tensors and leave their inputs as they were, as the
+JAX functions do.
 """
 
 from __future__ import annotations
@@ -16,22 +19,8 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
-from ..models.lstm import LayerParams, LSTMParams
-
-
-def tensors(p: LSTMParams):
-    """The parameter set's tensors in checkpoint order (W, U, b of each
-    layer, then Why, by)."""
-    return [t for _, t in p.named_tensors()]
-
-
-def like(p: LSTMParams, ts) -> LSTMParams:
-    """An ``LSTMParams`` with ``p``'s structure holding ``ts`` in the order
-    of ``tensors``."""
-    ts = list(ts)
-    layers = tuple(LayerParams(*ts[3 * i: 3 * i + 3])
-                   for i in range(len(p.layers)))
-    return LSTMParams(layers, ts[-2], ts[-1])
+from ..models.lstm import LSTMParams, like, tensors
+from ..ops.cuda_adagrad import adagrad_update_fused
 
 
 def adagrad_init(params: LSTMParams) -> LSTMParams:
@@ -75,28 +64,15 @@ def schedule_lr(cfg: TrainConfig, step: int) -> np.float32:
     return lr
 
 
-def adagrad_update(params: LSTMParams, grads: LSTMParams, m: LSTMParams,
-                   lr, eps: float = 1e-10) -> Tuple[LSTMParams, LSTMParams]:
-    """One Adagrad step: (new params, new accumulators)."""
-    f32 = torch.float32
-    new_m, new_p = [], []
-    for p, g, mm in zip(tensors(params), tensors(grads), tensors(m)):
-        g32 = g.to(f32)
-        m2 = mm.to(f32) + torch.square(g32)
-        new_m.append(m2.to(mm.dtype))
-        step = float(lr) * g32 * torch.rsqrt(new_m[-1].to(f32) + eps)
-        new_p.append((p.to(f32) - step).to(p.dtype))
-    return like(params, new_p), like(m, new_m)
-
-
 def apply_updates(params: LSTMParams, grads: LSTMParams, m: LSTMParams,
                   step: int, cfg: TrainConfig
                   ) -> Tuple[LSTMParams, LSTMParams, torch.Tensor]:
-    """Clip, then the scheduled lr, then Adagrad: (params, m, grad norm)."""
+    """Clip, then the scheduled lr, then Adagrad (``adagrad_update_fused``):
+    (params, m, grad norm)."""
     if cfg.clip_norm is not None:
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     else:
         gnorm = global_norm(grads)
     lr = schedule_lr(cfg, step)
-    params, m = adagrad_update(params, grads, m, lr, cfg.adagrad_eps)
+    params, m = adagrad_update_fused(params, grads, m, lr, cfg.adagrad_eps)
     return params, m, gnorm

@@ -16,8 +16,13 @@ With ``ModelConfig.dropout > 0`` each step's dropout key is
 the generator of the reset noise, so a resumed run draws the masks of a
 straight one (the JAX trainer's ``fold_in(key, step)``).
 
+The live checks of the JAX trainer run on the same cadence, in
+supersteps: ``crosscheck`` holds the loss and gradient norm of the kernels
+against the model's own loop at the current windows, ``gradcheck`` the
+backward against finite differences in float64 (``utils/gradcheck.py``).
+
 Not ported yet, and refused when asked for: meshes (data, tensor, sequence
-and pipeline parallelism) and the live ``crosscheck`` and ``gradcheck``.
+and pipeline parallelism).
 """
 
 from __future__ import annotations
@@ -133,8 +138,6 @@ class Trainer:
         keeps the corpus on the host and feeds windows per superstep."""
         if mesh is not None:
             raise NotImplementedError("mesh (parallel) training: not ported yet")
-        if tcfg.crosscheck_every or tcfg.gradcheck_every:
-            raise NotImplementedError("crosscheck / gradcheck: not ported yet")
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
         self.device = torch.device(device)
         self.train_np = train_data
@@ -145,6 +148,8 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self._best_bpc = None
         self._next_windows = None
+        self.crosscheck_failures = 0
+        self.gradcheck_failures = 0
         if streaming:
             self.corpus = None
             self.feeder = streaming_mod.WindowFeeder(
@@ -245,6 +250,15 @@ class Trainer:
                           flush=True)
                 if on_report:
                     on_report(self.last_metrics)
+            if (self.tcfg.crosscheck_every and self.cell_fn is not None
+                    and (k + 1) % self.tcfg.crosscheck_every == 0):
+                self.crosscheck(quiet=quiet)
+            if (self.tcfg.gradcheck_every
+                    and (k + 1) % self.tcfg.gradcheck_every == 0):
+                # mid-run, entries ~1e8x below a tensor's gradient scale
+                # are truncation noise (utils/gradcheck.py's rel_floor)
+                self.gradcheck(samples_per_tensor=self.tcfg.gradcheck_samples,
+                               quiet=quiet, rel_floor=1e-4)
             if (self.test_np is not None and len(self.test_np) > 1
                     and eval_timer.elapsed() >= self.tcfg.eval_every_s):
                 if "train_bpc" not in self.last_metrics:
@@ -253,11 +267,94 @@ class Trainer:
                 eval_timer.start()
         return self.last_metrics
 
-    def crosscheck(self, *args, **kwargs):
-        raise NotImplementedError("crosscheck: not ported yet")
+    def _current_windows(self):
+        """(x, t), each (S, B) int32 on the device, at the current cursors:
+        the next step's windows."""
+        if self.corpus is not None:
+            return corpus_mod.make_windows(self.corpus, self.state.positions,
+                                           self.dcfg.seq)
+        win = torch.from_numpy(self.feeder.build(
+            self.state.positions.cpu().numpy())).to(self.device, torch.int32)
+        return win[:-1], win[1:]
 
-    def gradcheck(self, *args, **kwargs):
-        raise NotImplementedError("gradcheck: not ported yet")
+    def crosscheck(self, tol: Optional[float] = None, quiet: bool = False):
+        """The loss and the gradients' global norm at the current windows
+        and state, computed two ways on the trainer's device: through the
+        trainer's ``cell_fn`` (the kernels) and through the model's own
+        loop (``cell_fn=None``, ``models.lstm._scan_layer``, the
+        counterpart of the JAX package's XLA scan, its oracle), without
+        dropout (the JAX ``crosscheck``). Only this check runs the plain
+        loop on the card. A relative difference above ``tol`` (2e-2 in
+        bf16, 1e-3 otherwise) is counted in ``crosscheck_failures``, not
+        raised. Returns both values and the differences."""
+        if tol is None:
+            tol = 2e-2 if self.mcfg.compute_dtype == "bfloat16" else 1e-3
+        x, t = self._current_windows()
+        st = self.state
+        vals = []
+        for cell_fn in (self.cell_fn, None):
+            loss, _, _, grads = loss_and_grads(st.params, x, t, st.h, st.c,
+                                               self.mcfg, cell_fn)
+            vals.append((float(loss), float(opt_mod.global_norm(grads))))
+        (l_k, g_k), (l_p, g_p) = vals
+        dl = abs(l_k - l_p) / max(abs(l_p), 1e-12)
+        dg = abs(g_k - g_p) / max(abs(g_p), 1e-12)
+        ok = dl <= tol and dg <= tol
+        if not ok:
+            self.crosscheck_failures += 1
+        if not quiet:
+            print(f"[crosscheck] step {self.step} loss kernels {l_k:.6f} "
+                  f"plain {l_p:.6f} (Δ{dl:.2e})  gnorm kernels {g_k:.4f} "
+                  f"plain {g_p:.4f} (Δ{dg:.2e})  "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        return {"loss_kernels": l_k, "loss_plain": l_p, "rel_loss": dl,
+                "gnorm_kernels": g_k, "gnorm_plain": g_p, "rel_gnorm": dg,
+                "ok": ok}
+
+    def gradcheck(self, samples_per_tensor: int = 100, quiet: bool = False,
+                  check_seq: int = 16, check_batch: int = 8,
+                  rel_floor: float = 0.0) -> bool:
+        """Central differences against the backward at the current point,
+        on the first ``check_seq`` steps and ``check_batch`` streams of the
+        current windows (the JAX ``gradcheck``). A float64 config checks
+        the live backward, its ``cell_fn``'s. Any other config checks a
+        float64 shadow without dropout, on the host CPU, through the
+        model's own loop: the live kernels are held to that path by
+        ``crosscheck``. A failing tensor is counted in
+        ``gradcheck_failures`` and printed. Returns whether all passed."""
+        from ..utils import gradcheck as gc
+
+        x, t = self._current_windows()
+        s = min(check_seq, int(x.shape[0]))
+        b = min(check_batch, int(x.shape[1]))
+        x, t = x[:s, :b], t[:s, :b]
+        h, c = self.state.h[:, :b], self.state.c[:, :b]
+        params, cfg, cell_fn = self.state.params, self.mcfg, self.cell_fn
+        if cfg.param_dtype != "float64":
+            cfg = dataclasses.replace(
+                cfg, param_dtype="float64", compute_dtype="float64",
+                residual_dtype="float64", dropout=0.0)
+            cpu64 = lambda a: a.detach().to("cpu", torch.float64)
+            params = opt_mod.like(params, map(cpu64, opt_mod.tensors(params)))
+            h, c, x, t, cell_fn = cpu64(h), cpu64(c), x.cpu(), t.cpu(), None
+
+        def scalar_loss(p):
+            return model.loss_fn(p, x, t, h, c, cfg, cell_fn)[0]
+
+        grads = loss_and_grads(params, x, t, h, c, cfg, cell_fn)[3]
+        results = gc.check_gradients(scalar_loss, params, grads,
+                                     samples_per_tensor=samples_per_tensor,
+                                     rel_floor=rel_floor)
+        ok = all(r.passed for r in results.values())
+        if not ok:
+            self.gradcheck_failures += 1
+        for name, r in results.items():
+            if not quiet or not r.passed:
+                print(f"[gradcheck] step {self.step} {name:30s} "
+                      f"max {r.max_rel_err:.2e} mean {r.mean_rel_err:.2e} "
+                      f"({r.n_checked} samples) "
+                      f"{'ok' if r.passed else 'FAIL'}", flush=True)
+        return ok
 
     def _best_test_bpc(self) -> float:
         """Best held-out bpc of ``ckpt_best.npz``, seeded from the file's

@@ -136,8 +136,8 @@ def test_evaluate_bpc_uses_the_given_cell_fn():
 
 def test_forward_raises_for_training_options():
     """Dropout runs (a key drops about the rate's share of the top stream;
-    no key is eval); a seed list of the wrong length and ``scan_chunk``
-    raise."""
+    no key is eval); a seed list of the wrong length raises; ``scan_chunk``
+    runs and gives the unchunked forward."""
     cfg = TConfig(hidden=32, vocab=16, dropout=0.5, init_std=0.3)
     p = tmodel.init_params(cfg, device="cpu")
     h, c = tmodel.init_state(cfg, 2, device="cpu")
@@ -148,8 +148,9 @@ def test_forward_raises_for_training_options():
     assert float((h_eval == 0).float().mean()) == 0.0
     with pytest.raises(ValueError, match="seeds"):
         tmodel.forward(p, ids, h, c, cfg, dropout_key=(1, 2))
-    with pytest.raises(NotImplementedError):
-        tmodel.forward(p, ids, h, c, TConfig(hidden=32, vocab=16, scan_chunk=2))
+    chunked, _ = tmodel.forward(p, ids, h, c, TConfig(hidden=32, vocab=16,
+                                                      scan_chunk=2))
+    torch.testing.assert_close(chunked, h_eval, rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")

@@ -281,35 +281,37 @@ def test_trainer_run_eval_checkpoint_and_resume(tmp_path):
     assert len(fresh.sample(20, temperature=0.0)) == 20
 
 
-def test_trainer_refuses_what_is_not_ported():
-    """Meshes and the live checks are refused when the trainer is built,
-    ``scan_chunk`` at the first step; dropout and several layers through
-    the kernels' plain versions now train."""
+def test_trainer_refuses_what_is_not_ported(capsys):
+    """Meshes are refused when the trainer is built; dropout and several
+    layers through the kernels' plain versions, ``scan_chunk`` and the live
+    checks (``crosscheck``, ``gradcheck``) now run."""
     data = jcorpus.rawread(ALICE)[:5000]
     d, t = TData(batch=4, seq=8), TTrain(superstep=2)
     cfg = TConfig(hidden=32)
-    cases = (
-        (dict(tcfg=TTrain(crosscheck_every=2)), "crosscheck"),
-        (dict(mesh=object()), "mesh"),
-    )
-    for kw, match in cases:
-        args = dict(mcfg=cfg, dcfg=d, tcfg=t, train_data=data, device="cpu")
-        args.update(kw)
-        with pytest.raises(NotImplementedError, match=match):
-            TTrainer(**args)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TTrainer(mcfg=cfg, dcfg=d, tcfg=t, train_data=data, mesh=object(),
+                 device="cpu")
     deep = TConfig(hidden=32, num_layers=2, dropout=0.1, loss_mode="all")
     tr = TTrainer(deep, d, t, data, None, cell_fn=tselect("plain", deep, 4, "cpu"),
                   device="cpu")
     tr.state, met = tr.dispatch_superstep()
     assert tr.step == 2 and np.isfinite(float(met["bits_mean"]))
-    chunked = TTrainer(TConfig(hidden=32, scan_chunk=4), d, t, data, None,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_chunk"):
-        chunked.dispatch_superstep()
-    tr = TTrainer(cfg, d, t, data, None, device="cpu")
-    for fn in (tr.crosscheck, tr.gradcheck):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn()
+    chunked = TTrainer(TConfig(hidden=32, scan_chunk=4), d,
+                       TTrain(superstep=2, crosscheck_every=1), data, None,
+                       cell_fn=tselect("plain", cfg, 4, "cpu"), device="cpu")
+    met = chunked.run(steps=2)   # one superstep, then its crosscheck
+    assert chunked.step == 2 and np.isfinite(met["train_bpc"])
+    cross = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[crosscheck]")]
+    assert len(cross) == 1 and cross[0].endswith(" ok"), cross
+    assert chunked.crosscheck_failures == 0
+    # weights large enough that the float64 central differences of every
+    # sampled entry stand above their roundoff
+    tr = TTrainer(TConfig(hidden=32, init_std=0.3), d, t, data, None,
+                  device="cpu")
+    assert tr.crosscheck(quiet=True)["ok"]
+    assert tr.gradcheck(samples_per_tensor=2, quiet=True)
+    assert tr.crosscheck_failures == tr.gradcheck_failures == 0
     with pytest.raises(ValueError, match="no test split"):
         tr.evaluate()
 
