@@ -88,6 +88,17 @@ Phase 10 the last two single-card kernels and the modules of this path:
          gradients in fp32 with scan_chunk = 64 against 0, with the peak
          device memory of both; (f) ``evaluate_ensemble_bpc`` of the
          flagship and the 1x512 checkpoint, kernels against plain.
+Phase 11 tensor parallelism on the one card (D = 1) through the four TP
+         kernels: (a) K13 and K14 (the per-step pair) at the flagship's
+         shapes as one shard of D = 1, 2 and 4, K15 and K16 (the window
+         pair) at the bench's, bf16 and fp32, against their plain versions
+         with every step replayed; times beside the bound, the plain
+         version, ``torch.lstm_cell`` or cuDNN; (b) ``cli train --tp 1`` at
+         the bench's configuration, 300 steps, through K15/K16 and, with
+         EIGEN_LSTM_TP_SEQ=0, K13/K14, launches counted, train_bpc against
+         the single-device run's from the same seed; (c) the flagship recipe
+         at --tp 1 for 4 steps through K13/K14, then one window's TP loss
+         and eleven gradients, kernels against plain.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -96,6 +107,7 @@ of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -2290,6 +2302,389 @@ def phase10f(test):
         fail("ensemble bits/char out of tolerance")
 
 
+# --- phase 11: tensor parallelism at D = 1 (K13-K16) -----------------------
+TP_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp.cu"
+TP_REPLACES = {
+    "tp_step_fwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:72",
+    "tp_step_bwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:82",
+    "tp_seq_fwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:59",
+    "tp_seq_bwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:125",
+}
+TP_STEPS, TP_SUPERSTEP = 300, 50
+# 11b: the root bench's configuration through ``cli train`` (its lr warm-up
+# of 20 steps), 300 steps from the same seed under --tp 1 and on one device
+TP_ARGV = [
+    "train", "--data", ENWIK6, "--train-percent", "1.0", "--hidden", "512",
+    "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--dtype", "bfloat16",
+    "--lr", "0.02", "--warmup", "20", "--superstep", str(TP_SUPERSTEP),
+    "--steps", str(TP_STEPS), "--log-every", str(TP_SUPERSTEP),
+    "--sample-chars", "0",
+]
+# 11b's gate on train_bpc against the single-device run: both paths start
+# from the same weights, cursors and windows; the single-device path takes
+# K1 (W rounded to bf16 in the forward) and the fused head, whose bf16
+# roundings differ, so the two trajectories are not bitwise. A broken path
+# reads ~8 bits.
+TP_BPC_TOL = 5e-2
+# 11c: the flagship recipe under --tp 1, a few steps
+TP_FLAG_STEPS = 4
+
+
+def tp_step_bound(cfg, b, n, nd, backward: bool):
+    """K13's least time, ms: bytes = U_d + h_full (compute type) + xw, c
+    in + h2, c2, g out (fp32); flops = 2*B*N*4nd. K14's: g, c2, c_prev,
+    dh, dc in + dg, dc_prev out (fp32), ~30 flops an element."""
+    csz = torch.finfo(cfg.cdtype).bits // 8
+    if backward:
+        return _bound(b * nd * 4 * (4 + 4 + 4 + 1), 30 * b * nd,
+                      dataclasses.replace(cfg, compute_dtype="float32"))
+    nbytes = n * 4 * nd * csz + b * n * csz + b * 4 * nd * 4 * 2 + b * nd * 4 * 3
+    return _bound(nbytes, 2 * b * n * 4 * nd, cfg)
+
+
+def tp_seq_bound(cfg, s, b, n, backward: bool):
+    """K15's least time, ms: bytes = U + xw + h0, c0 in, h_seq (fp32), g,
+    c_prev (residual type), hT, cT out; K16's: U + g, c_prev + cT, dh_seq,
+    dhT, dcT in, dg (fp32), dh0, dc0 out; flops = 2*S*B*N*4N for each
+    (K16's dU is a product outside)."""
+    csz = torch.finfo(cfg.cdtype).bits // 8
+    rsz = torch.finfo(cfg.rdtype).bits // 8
+    u = n * 4 * n * csz
+    if backward:
+        nbytes = (u + s * b * 5 * n * rsz + s * b * n * 4 + 3 * b * n * 4
+                  + s * b * 4 * n * 4 + 2 * b * n * 4)
+    else:
+        nbytes = (u + s * b * 4 * n * 4 + 2 * b * n * 4 + s * b * n * 4
+                  + s * b * 5 * n * rsz + 2 * b * n * 4)
+    return _bound(nbytes, 2 * s * b * n * 4 * n, cfg)
+
+
+def _tp_record(name, err, ms, plain_ms, bound, lib_ms):
+    return dict(name=name, route="cuda", source=TP_SOURCE,
+                replaces=TP_REPLACES[name], launches=None, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=lib_ms)
+
+
+def lstm_cell_ms(cfg, h_full, h_d, c_d, U_d, bias):
+    """One ``torch.lstm_cell`` call over the same step (the standard cell,
+    h_full as its input, U_d^T its input weight, the xw term folded into
+    a bias, and a hidden product of its own): a yardstick only."""
+    w_hh = torch.zeros(U_d.shape[1], h_d.shape[1], device=DEVICE, dtype=cfg.cdtype)
+    args = (h_full.to(cfg.cdtype), (h_d.to(cfg.cdtype), c_d.to(cfg.cdtype)),
+            U_d.T.contiguous().to(cfg.cdtype), w_hh, bias.to(cfg.cdtype),
+            torch.zeros_like(bias, dtype=cfg.cdtype))
+    try:
+        with torch.no_grad():
+            return cuda_ms(lambda: torch.lstm_cell(*args), reps=50)
+    except RuntimeError as e:   # the fused cell may not take this type
+        print(f"  library: torch.lstm_cell in {cfg.cdtype} refused: {e}",
+              flush=True)
+        return None
+
+
+def phase11a(records):
+    """K13 and K14 at the flagship's shapes (N = 1024, B = 128) as one
+    shard of D = 1, 2 and 4 (nd = 1024, 512, 256, the full h), from the
+    flagship's layer-1 weights permuted for D; K15 and K16 at the bench's
+    (N = 512, B = 128, S = 100, fp32 residuals) from the 1x512
+    checkpoint's weights on a bible.txt window; bf16 and fp32. Each call
+    against its plain version, every step of the windows replayed from the
+    kernel's own state (TRAIN_TOL, normalised); times beside the bound, the
+    plain version and the library yardstick (``torch.lstm_cell`` for K13,
+    cuDNN ``nn.LSTM`` forward and backward for K15 and K16, none for K14);
+    K15 beside 100 launches of K13 at the same shapes."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell as tc, cuda_tp_seq as ts
+    from eigen_lstm_tpu_torch.parallel.tp import permute_params_for_tp
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    gen = torch.Generator().manual_seed(11)
+    rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
+    b, n = FLAG_B, 1024
+    for dtype in ("float32", "bfloat16"):
+        cfg = flag_train_cfg(dtype)
+        flag = load_params(FLAGSHIP, cfg, DEVICE)
+        for ndev in (1, 2, 4):
+            nd = n // ndev
+            layer = permute_params_for_tp(flag, ndev).layers[1]
+            U_d = layer.U[:, :4 * nd].contiguous()
+            h_full = torch.tanh(rand(b, n, sd=0.5)).to(cfg.cdtype)
+            xw = rand(b, 4 * nd, sd=0.5) + layer.b[:4 * nd]
+            c_d = rand(b, nd, sd=0.3)
+            before = tc.tp_step_fwd.launches
+            out_k = tc.tp_step_fwd(U_d, xw, h_full, c_d, cfg)
+            per_call = tc.tp_step_fwd.launches - before
+            out_p = tc.tp_step_plain(U_d, xw, h_full, c_d, cfg)
+            dh, dc = rand(b, nd, sd=1e-2), rand(b, nd, sd=1e-2)
+            bwd_k = tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg)
+            bwd_p = tc.tp_step_bwd_plain(out_k[2], out_k[1], c_d, dh, dc, cfg)
+            torch.cuda.synchronize()
+            errs = {f"K13 {k}": norm_err(a, p) for k, a, p in zip(("h2", "c2", "g"), out_k, out_p)}
+            errs.update({f"K14 {k}": norm_err(a, p) for k, a, p in zip(("dg", "dc_prev"), bwd_k, bwd_p)})
+            bad = {k: e for k, e in errs.items() if not np.isfinite(e) or e > TRAIN_TOL}
+            print(f"  K13/K14 {dtype} D={ndev} (nd={nd}): against plain, normalised "
+                  f"(tol {TRAIN_TOL:g}): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()),
+                  flush=True)
+            if bad or per_call != 1:
+                fail(f"K13/K14 {dtype} D={ndev}: {bad}, {per_call} launches a call")
+            ms13 = cuda_ms(lambda: tc.tp_step_fwd(U_d, xw, h_full, c_d, cfg), reps=50)
+            plain13 = cuda_ms(lambda: tc.tp_step_plain(U_d, xw, h_full, c_d, cfg), reps=20)
+            lib13 = lstm_cell_ms(cfg, h_full, c_d, c_d, U_d, xw[0])
+            ms14 = cuda_ms(lambda: tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg), reps=50)
+            plain14 = cuda_ms(lambda: tc.tp_step_bwd_plain(out_k[2], out_k[1], c_d, dh, dc, cfg),
+                              reps=20)
+            b13 = tp_step_bound(cfg, b, n, nd, False)
+            b14 = tp_step_bound(cfg, b, n, nd, True)
+            print(f"  K13 {dtype} D={ndev}: {ms13:.4f} ms a step (1 launch), bound "
+                  f"{b13[0]:.5f} ms "
+                  f"({b13[1]}), plain {plain13:.4f} ms, torch.lstm_cell "
+                  f"{'n/a' if lib13 is None else f'{lib13:.4f} ms'}; K14: {ms14:.4f} "
+                  f"ms (1 launch), bound {b14[0]:.5f} ms ({b14[1]}), plain "
+                  f"{plain14:.4f} ms, library n/a", flush=True)
+            records[("11a", "tp_step_fwd", dtype, ndev)] = _tp_record(
+                "tp_step_fwd", max(errs[f"K13 {k}"] for k in ("h2", "c2", "g")),
+                ms13, plain13, b13, lib13)
+            records[("11a", "tp_step_bwd", dtype, ndev)] = _tp_record(
+                "tp_step_bwd", max(errs["K14 dg"], errs["K14 dc_prev"]), ms14,
+                plain14, b14, None)
+    s, b = TRAIN_S, TRAIN_B
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(hidden=512, compute_dtype=dtype, residual_dtype="float32")
+        n = cfg.hidden
+        layer = load_params(H512, cfg, DEVICE).layers[0]
+        x, _ = bible_window(gen, s, b)
+        xw = layer.W[x.long()] + layer.b
+        h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+        U_c = layer.U.to(cfg.cdtype)
+        fwd_k = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
+        fwd_p = ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg)
+        h_seq, g_seq, c_prev, hT, cT = fwd_k
+        # every step from the kernel's own (h_{t-1}, c_{t-1}), as S*B rows
+        h_prev = torch.cat([h0[None], h_seq[:-1]]).reshape(s * b, n)
+        h2, c2, g = tc.tp_step_plain(U_c, xw.reshape(s * b, 4 * n),
+                                     h_prev.to(cfg.cdtype),
+                                     c_prev.reshape(s * b, n), cfg)
+        c_next = torch.cat([c_prev[1:], cT[None]]).reshape(s * b, n)
+        step_err = max(norm_err(h_seq.reshape(s * b, n), h2),
+                       norm_err(c_next, c2), norm_err(g_seq.reshape(s * b, 4 * n), g),
+                       norm_err(hT, h2[-b:]))
+        win = [norm_err(a, p) for a, p in zip(fwd_k, fwd_p)]
+        dh_seq = rand(s, b, n, sd=1e-2)
+        dhT, dcT = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
+        bargs = (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg)
+        bwd_k = ts.tp_seq_bwd(*bargs)
+        bwd_p = ts.tp_seq_bwd_plain(*bargs)
+        # the reverse steps from the kernel's own dg_{t+1}: c_t is c_prev[t+1]
+        rep = reverse_replay(U_c, g_seq, torch.cat([c_prev[1:], cT[None]]),
+                             c_prev[0], dh_seq, dhT, dcT, cfg, bwd_k[0])
+        torch.cuda.synchronize()
+        bstep = max(norm_err(a, p) for a, p in zip(bwd_k, rep))
+        bwin = [norm_err(a, p) for a, p in zip(bwd_k, bwd_p)]
+        print(f"  K15 {dtype}: every step within {step_err:.3e} of its plain replay "
+              f"(tol {TRAIN_TOL:g}); the window against plain (h_seq, g, c_prev, hT, "
+              f"cT): " + ", ".join(f"{e:.3e}" for e in win), flush=True)
+        print(f"  K16 {dtype}: every reverse step, dh0, dc0 within {bstep:.3e} of the "
+              f"plain replay from its own dg (tol {TRAIN_TOL:g}); the window against "
+              f"plain (dg, dh0, dc0): " + ", ".join(f"{e:.3e}" for e in bwin), flush=True)
+        gated = [step_err, bstep] + (win + bwin if dtype == "float32" else [])
+        if not all(np.isfinite(e) and e <= TRAIN_TOL for e in gated):
+            fail(f"K15/K16 {dtype}: replay {step_err:.3e}/{bstep:.3e}, windows "
+                 f"{win} {bwin} (the windows gated in fp32 only)")
+        for name, counter in (("K15", ts.tp_seq_fwd), ("K16", ts.tp_seq_bwd)):
+            before = counter.launches
+            (ts.tp_seq_fwd(U_c, xw, h0, c0, cfg) if name == "K15" else ts.tp_seq_bwd(*bargs))
+            if counter.launches - before != 1:
+                fail(f"{name}: {counter.launches - before} launches a call")
+        ms15 = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
+        plain15 = cuda_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg), reps=1, windows=3)
+        ms16 = cuda_ms(lambda: ts.tp_seq_bwd(*bargs), reps=5)
+        plain16 = cuda_ms(lambda: ts.tp_seq_bwd_plain(*bargs), reps=1, windows=3)
+        h_in = torch.tanh(rand(s, b, n))
+        lib15 = library_ms(n, cfg, h_in, h0, c0)
+        lib16 = library_lstm_bwd(cfg, h_in, h0, c0, dh_seq)
+        hc0 = h0.to(cfg.cdtype)
+        per_step = cuda_ms(lambda: [tc.tp_step_fwd(U_c, xw[t], hc0, c0, cfg)
+                                    for t in range(s)], reps=1)
+        b15, b16 = tp_seq_bound(cfg, s, b, n, False), tp_seq_bound(cfg, s, b, n, True)
+        print(f"  K15 {dtype}: {ms15:.4f} ms a window (1 launch), bound {b15[0]:.5f} ms "
+              f"({b15[1]}), plain {plain15:.4f} ms, cuDNN nn.LSTM "
+              f"{'n/a' if lib15 is None else f'{lib15:.4f} ms'}; {s} launches of K13 "
+              f"at these shapes {per_step:.4f} ms", flush=True)
+        print(f"  K16 {dtype}: {ms16:.4f} ms a window (1 launch), bound {b16[0]:.5f} ms "
+              f"({b16[1]}), plain {plain16:.4f} ms, cuDNN nn.LSTM backward "
+              f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}", flush=True)
+        records[("11a", "tp_seq_fwd", dtype)] = _tp_record(
+            "tp_seq_fwd", step_err, ms15, plain15, b15, lib15)
+        records[("11a", "tp_seq_bwd", dtype)] = _tp_record(
+            "tp_seq_bwd", bstep, ms16, plain16, b16, lib16)
+        records[("11a", "k13x100", dtype)] = per_step
+
+
+def _tp_counters():
+    from eigen_lstm_tpu_torch.ops import (cuda_adagrad, cuda_cell, cuda_cell_bwd,
+                                          cuda_cell_tiled, cuda_tp_cell, cuda_tp_seq,
+                                          head)
+
+    return {"tp_step_fwd": cuda_tp_cell.tp_step_fwd,
+            "tp_step_bwd": cuda_tp_cell.tp_step_bwd,
+            "tp_seq_fwd": cuda_tp_seq.tp_seq_fwd,
+            "tp_seq_bwd": cuda_tp_seq.tp_seq_bwd,
+            "adagrad": cuda_adagrad.adagrad_update_fused,
+            "lstm_fwd_embed": cuda_cell.embed_layer0,
+            "lstm_fwd_scan": cuda_cell.scan_layer,
+            "lstm_bwd_embed": cuda_cell_bwd.embed_layer0_bwd,
+            "lstm_bwd_embed_unroll2": cuda_cell_bwd.embed_layer0_bwd_unroll2,
+            "lstm_bwd_scan": cuda_cell_bwd.scan_layer_bwd,
+            "head_fwd": head.head_fwd, "head_bwd": head.head_bwd,
+            "tiled": cuda_cell_tiled}
+
+
+def _tp_run(argv, steps):
+    """The CLI's Trainer from ``argv``: one superstep, then ``steps`` -
+    superstep more timed on the host clock around synchronised supersteps,
+    the launch counts reset just before the run and read after. Returns
+    (counts, ms a step over the timed part, chars/s, train_bpc, backend,
+    the trainer)."""
+    from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
+
+    trainer = _make_trainer(build_parser().parse_args(argv))
+    counters = _tp_counters()
+    try:
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            if name == "tiled":
+                fn.reset_launches()
+            else:
+                fn.launches = 0
+        trainer.run(steps=trainer.tcfg.superstep, quiet=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = trainer.run(steps=steps - trainer.tcfg.superstep, quiet=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    except BaseException:
+        if trainer.tp is not None:
+            trainer.tp.group.close()
+        raise
+    counts = {name: (sum(fn.launches()) if name == "tiled" else fn.launches)
+              for name, fn in counters.items()}
+    timed = steps - trainer.tcfg.superstep
+    cps = trainer.dcfg.batch * trainer.dcfg.seq * timed / dt
+    backend = None if trainer.tp is None else trainer.tp.backend
+    return counts, dt * 1e3 / timed, cps, met["train_bpc"], backend, trainer
+
+
+def phase11b(records):
+    """``cli train --tp 1`` at the root bench's configuration, TP_STEPS
+    steps, with EIGEN_LSTM_TP_SEQ unset (K15, K16 once a step) and 0 (K13,
+    K14 S times a step), K11 once a step and none of K1-K10, K12 in both;
+    then the same run on one device. train_bpc in the JAX bench's sanity
+    band and within TP_BPC_TOL of the single-device run's. Returns the
+    launch counts of both TP runs."""
+    import os
+
+    runs = {}
+    for label, env, extra in (("tp seq", None, ["--tp", "1"]),
+                              ("tp step", "0", ["--tp", "1"]),
+                              ("single", None, [])):
+        trainer = None
+        if env is not None:
+            os.environ["EIGEN_LSTM_TP_SEQ"] = env
+        try:
+            counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_ARGV + extra, TP_STEPS)
+        finally:
+            os.environ.pop("EIGEN_LSTM_TP_SEQ", None)
+            if trainer is not None and trainer.tp is not None:
+                trainer.tp.group.close()
+        runs[label] = (counts, step_ms, bpc, backend)
+        print(f"  cli train {' '.join(extra) or '(one device)'}"
+              f"{' EIGEN_LSTM_TP_SEQ=' + env if env else ''}: family {backend}, "
+              f"{TP_STEPS} steps, {step_ms:.3f} ms a step over the last "
+              f"{TP_STEPS - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
+              f"launches {counts}", flush=True)
+    zero = ("lstm_fwd_embed", "lstm_fwd_scan", "lstm_bwd_embed",
+            "lstm_bwd_embed_unroll2", "lstm_bwd_scan", "head_fwd", "head_bwd", "tiled")
+    want = {"tp seq": dict(tp_seq_fwd=TP_STEPS, tp_seq_bwd=TP_STEPS, tp_step_fwd=0,
+                           tp_step_bwd=0, adagrad=TP_STEPS),
+            "tp step": dict(tp_seq_fwd=0, tp_seq_bwd=0, tp_step_fwd=TP_STEPS * TRAIN_S,
+                            tp_step_bwd=TP_STEPS * TRAIN_S, adagrad=TP_STEPS)}
+    for label, fam in (("tp seq", "pallas_seq"), ("tp step", "pallas")):
+        counts, _, bpc, backend = runs[label]
+        w = dict(want[label], **{k: 0 for k in zero})
+        if counts != w or backend != fam:
+            fail(f"cli train --tp 1 ({label}): family {backend} (expected {fam}), "
+                 f"launches {counts}, the path gives {w}")
+        ref = runs["single"][2]
+        if not (np.isfinite(bpc) and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]
+                and abs(bpc - ref) <= TP_BPC_TOL):
+            fail(f"cli train --tp 1 ({label}): train_bpc {bpc:.4f}, the single "
+                 f"device's {ref:.4f} (tol {TP_BPC_TOL:g}), band {SANITY_BAND}")
+    print(f"  --tp 1 train_bpc {runs['tp seq'][2]:.4f} (K15/K16), "
+          f"{runs['tp step'][2]:.4f} (K13/K14), one device {runs['single'][2]:.4f} "
+          f"(tol {TP_BPC_TOL:g}, band {SANITY_BAND}); step "
+          f"{runs['tp seq'][1]:.3f}, {runs['tp step'][1]:.3f} and "
+          f"{runs['single'][1]:.3f} ms", flush=True)
+    records[("11b", "step_ms")] = {k: v[1] for k, v in runs.items()}
+    return runs["tp seq"][0], runs["tp step"][0]
+
+
+def phase11c():
+    """The flagship recipe at --tp 1 from ckpt_best.npz for TP_FLAG_STEPS
+    steps with dropout 0.35 through K13/K14 (launches counted, bits
+    finite and below 3.0); then one bible.txt window's TP loss and eleven
+    gradients, the kernels against their plain versions, at phase 7b's
+    rules. Returns the run's launch counts."""
+    from eigen_lstm_tpu_torch.models.lstm import step_key
+    from eigen_lstm_tpu_torch.parallel import tp as tp_mod
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+
+    argv = FLAG_ARGV[:FLAG_ARGV.index("--superstep")] + [
+        "--superstep", "2", "--steps", str(TP_FLAG_STEPS), "--sample-chars", "0",
+        "--resume", FLAGSHIP, "--tp", "1"]
+    trainer = None
+    try:
+        counts, step_ms, cps, bpc, backend, trainer = _tp_run(argv, TP_FLAG_STEPS)
+        group = trainer.tp.group
+        print(f"  flagship --tp 1: family {backend}, {TP_FLAG_STEPS} steps, "
+              f"{step_ms:.2f} ms a step over the last {TP_FLAG_STEPS - 2}, "
+              f"{cps:,.0f} chars/s, bits {bpc:.4f}; launches {counts}", flush=True)
+        per = TP_FLAG_STEPS * 3 * FLAG_S
+        w = dict({k: 0 for k in counts}, tp_step_fwd=per, tp_step_bwd=per,
+                 adagrad=TP_FLAG_STEPS)
+        if backend != "pallas" or counts != w:
+            fail(f"flagship --tp 1: family {backend}, launches {counts}, the path "
+                 f"gives {w}")
+        if not (np.isfinite(bpc) and bpc < 3.0):
+            fail(f"flagship --tp 1: bits {bpc}")
+        gen = torch.Generator().manual_seed(12)
+        x, t = bible_window(gen, FLAG_S, FLAG_B)
+        key = step_key(1235, 785000)
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = flag_train_cfg(dtype)
+            params, _, _, extras = load_checkpoint(FLAGSHIP, cfg, DEVICE)
+            shard = tp_mod.shard_params(params, cfg, group.rank, group.size)
+            h, c = (extras[k][:, :FLAG_B] for k in ("stream_h", "stream_c"))
+            for path, plain in (("cuda", False), ("plain", True)):
+                loss, _, _, grads = tp_mod.tp_loss_and_grads(
+                    shard, x, t, h, c, cfg, group, "pallas", key, plain)
+                grads = tp_mod.unshard_params(grads, cfg, group)
+                res[(dtype, path)] = (loss, dict(grads.named_tensors()))
+        torch.cuda.synchronize()
+        # the per-step family's bf16 values: W of layers >= 1 (x @ W in the
+        # compute type) and Why (the head's product); W0's gather, every U
+        # (TPStep hands dU back in fp32) and the biases are not
+        compare_paths("flagship TP loss", res,
+                      lambda k: k.endswith(".Why") or (k.endswith(".W")
+                                                       and "[0]" not in k),
+                      vs_drift=FLAG_BF16_VS_DRIFT)
+        return counts
+    finally:
+        if trainer is not None:
+            trainer.tp.group.close()
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -2345,6 +2740,12 @@ def main():
     check_budget("phase 10e (scan_chunk)")
     phase10f(test)
     check_budget("phase 10f (the ensemble)")
+    phase11a(records)
+    check_budget("phase 11a (the TP kernels against plain)")
+    seq_counts, step_counts = phase11b(records)
+    check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
+    flag_tp_counts = phase11c()
+    check_budget("phase 11c (the flagship at --tp 1)")
     kernels = []
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
                         ("lstm_bwd_embed", counts["lstm_bwd_embed"]),
@@ -2367,6 +2768,14 @@ def main():
     kernels.append(dict(records[("10a", "bench")], launches=u2_counts["adagrad"]))
     kernels.append(dict(records[("10b", 64, "bfloat16", 0.0)],
                         launches=u2_counts["lstm_bwd_embed_unroll2"]))
+    # K13 and K14 on the flagship's --tp 1 run (11c) at its shapes (D = 1);
+    # K15 and K16 on the bench's --tp 1 run (11b) at its shapes
+    for name in ("tp_step_fwd", "tp_step_bwd"):
+        kernels.append(dict(records[("11a", name, "bfloat16", 1)],
+                            launches=flag_tp_counts[name]))
+    for name in ("tp_seq_fwd", "tp_seq_bwd"):
+        kernels.append(dict(records[("11a", name, "bfloat16")],
+                            launches=seq_counts[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

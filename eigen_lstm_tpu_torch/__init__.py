@@ -1,8 +1,9 @@
 """PyTorch and CUDA port of ``eigen_lstm_tpu`` for an NVIDIA H100.
 
-The serving path (held-out bits/char and sampling) runs here; its two
-recurrence kernels are CUDA C++ under ``csrc/``. The JAX package beside
-this one is the reference the tests hold the port against.
+Serving (held-out bits/char and sampling), single-card training and
+tensor-parallel training (``parallel/``) run here; every kernel of those
+paths is CUDA C++ under ``csrc/``. The JAX package beside this one is the
+reference the tests hold the port against.
 """
 
 from .config import ModelConfig

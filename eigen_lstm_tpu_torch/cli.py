@@ -14,8 +14,12 @@ supersteps after a warm-up one with ``torch.profiler`` and writes the trace
 and a table of device time by kernel into DIR. ``train --crosscheck K``
 holds the kernels' loss and gradient norm against the model's own loop
 every K supersteps, ``--gradcheck`` runs the finite-difference check once
-before training and ``--gradcheck-every K`` every K supersteps. The
-parallel flags are not ported yet, nor ``bench --profile``.
+before training and ``--gradcheck-every K`` every K supersteps.
+``train --tp N`` trains tensor-parallel over N devices, one process a
+device (``torchrun --nproc_per_node N`` for N > 1; on one card, or on the
+CPU, N = 1 needs no launcher). ``--dp``, ``--sp`` and ``--pp``, alone or
+with ``--tp``, are not ported yet, nor ``bench --tp`` or ``bench
+--profile``.
 """
 
 from __future__ import annotations
@@ -119,6 +123,14 @@ def _add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="train: trace five supersteps with torch.profiler "
                         "into DIR (bench: not ported yet)")
+    p.add_argument("--tp", type=int, default=None, metavar="N",
+                   help="train: tensor-parallel over N devices (gate-sharded "
+                        "weights; --hidden must divide by N), one process a "
+                        "device: torchrun --nproc_per_node N for N > 1")
+    for flag, what in (("--dp", "data-parallel"), ("--sp", "sequence-pipelined"),
+                       ("--pp", "pipeline-parallel")):
+        p.add_argument(flag, type=int, default=None, metavar="N",
+                       help=f"{what} over N devices: not ported yet")
 
 
 def _configs(args):
@@ -181,25 +193,45 @@ def _load(args):
     return mcfg, dcfg, load_params(args.ckpt, mcfg, args.device)
 
 
+def _parallel_flags(args):
+    """Refuses the parallel flags the port does not run yet."""
+    asked = [f"--{k} {v}" for k, v in (("dp", args.dp), ("sp", args.sp),
+                                       ("pp", args.pp)) if v]
+    if asked:
+        raise SystemExit(f"{' '.join(asked)}"
+                         f"{' with --tp' if args.tp else ''}: data, sequence "
+                         f"and pipeline parallelism are not ported yet (a "
+                         f"later slice of the port)")
+    if args.tp and (args.crosscheck or args.gradcheck or args.gradcheck_every):
+        raise SystemExit("--crosscheck and --gradcheck with --tp: not ported yet")
+
+
 def _make_trainer(args):
     import numpy as np
 
     from .data import corpus as corpus_mod
     from .data import streaming as streaming_mod
     from .ops.dispatch import select_cell_fn
+    from .parallel.mesh import init_tp_group
     from .train.trainer import Trainer
 
+    _parallel_flags(args)
     mcfg, dcfg, tcfg = _configs(args)
+    group, device = None, args.device
+    if args.tp:
+        group = init_tp_group(args.tp, args.device)
+        device = group.device
+        print(f"tensor-parallel over {args.tp} devices", flush=True)
     if args.stream_data:
         train, test = corpus_mod.split(
             streaming_mod.load_corpus_mmap(dcfg.path), dcfg.train_percent)
         test = np.asarray(test)
     else:
         train, test = corpus_mod.load_dataset(dcfg)
-    cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch, args.device)
+    cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch, device)
     trainer = Trainer(mcfg, dcfg, tcfg, train, test, cell_fn=cell_fn,
                       results_path=args.results, streaming=args.stream_data,
-                      device=args.device)
+                      device=device, mesh=group)
     if args.resume:
         trainer.restore(args.resume)
         print(f"resumed from {args.resume} at step {trainer.step}", flush=True)
@@ -235,6 +267,14 @@ def profile_supersteps(trainer, out_dir: str, supersteps: int = 5) -> str:
 
 def cmd_train(args):
     trainer = _make_trainer(args)
+    try:
+        _train(args, trainer)
+    finally:
+        if trainer.tp is not None:
+            trainer.tp.group.close()
+
+
+def _train(args, trainer):
     if args.gradcheck:
         trainer.gradcheck(samples_per_tensor=50)
     if args.profile:
@@ -262,6 +302,9 @@ def cmd_bench(args):
     if args.profile:
         raise SystemExit("eigen_lstm_tpu_torch: bench --profile is not "
                          "ported yet; use train --profile")
+    if args.tp or args.dp or args.sp or args.pp:
+        raise SystemExit("eigen_lstm_tpu_torch: bench over several devices "
+                         "is not ported yet; use train --tp")
     print(json.dumps(run_benchmark(args)), flush=True)
 
 

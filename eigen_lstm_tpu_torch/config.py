@@ -3,9 +3,11 @@
 set of flags describe the same model in both packages.
 
 ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX
-package's fields with the same defaults and meanings. ``MeshConfig`` and
-the parallel paths are not ported yet; the ``TrainConfig`` fields that only
-they read are accepted and unused.
+package's fields with the same defaults and meanings. ``MeshConfig`` has
+no counterpart: tensor parallelism takes its model axis from
+``parallel/mesh.py``, and data, sequence and pipeline parallelism are not
+ported yet; the ``TrainConfig`` fields that only they read are accepted
+and unused.
 """
 
 from __future__ import annotations

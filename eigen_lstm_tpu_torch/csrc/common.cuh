@@ -1,6 +1,8 @@
 // Helpers shared by the port's kernels: type conversion and rounding to the
-// compute type, the gate nonlinearity, and the two fixed-order reductions
-// that the backward kernels use for their weight gradients:
+// compute type, the gate nonlinearity, the cell update and the gate
+// backward, the two product tiles of a recurrent step (gate_sums_tile,
+// rec_tile), and the two fixed-order reductions that the backward kernels
+// use for their weight gradients:
 //
 //   atb_gemm: C (I, J) = sum_r round(A[r, :])^T round(B[r, :]), a hand-written
 //     tiled product on CUDA cores, the reduction over r split across blocks
@@ -41,6 +43,179 @@ template <typename CT> __device__ __forceinline__ float round_to(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// _cell_fwd of the TPU kernels: "reference" carries c = tanh(i*u + f*c_prev)
+// with h = o*c; "standard" carries c_raw with h = o*tanh(c_raw). gate holds
+// the activated [i|o|f|u].
+__device__ __forceinline__ void cell(const float gate[4], float c_prev,
+                                     int standard, float* h, float* c) {
+  const float c_raw = gate[0] * gate[3] + gate[2] * c_prev;
+  if (standard) {
+    *h = gate[1] * tanhf(c_raw);
+    *c = c_raw;
+  } else {
+    *c = tanhf(c_raw);
+    *h = gate[1] * *c;
+  }
+}
+
+// _gate_bwd of the TPU kernels: from the activated gates, the carried cell
+// ct, c_{t-1} cp, dh_total and the carried dc, the pre-activation dg
+// ([i|o|f|u], fp32) and the dc carried to t-1.
+__device__ __forceinline__ void gate_bwd(float gi, float go, float gf,
+                                         float gu, float ct, float cp,
+                                         float dh_total, float dc,
+                                         int standard, float dg[4],
+                                         float* dc_prev) {
+  float dc_raw, d_o;
+  if (standard) {
+    const float tc = tanhf(ct);
+    dc_raw = dh_total * go * (1.0f - tc * tc) + dc;
+    d_o = dh_total * tc;
+  } else {
+    const float dct = dh_total * go + dc;
+    dc_raw = dct * (1.0f - ct * ct);
+    d_o = dh_total * ct;
+  }
+  const float di = dc_raw * gu, du = dc_raw * gi, df = dc_raw * cp;
+  dg[0] = di * gi * (1.0f - gi);
+  dg[1] = d_o * go * (1.0f - go);
+  dg[2] = df * gf * (1.0f - gf);
+  dg[3] = du * (1.0f - gu * gu);
+  *dc_prev = dc_raw * gf;
+}
+
+// ---------------------------------------------------------------------------
+// The product tiles of one recurrent step, on CUDA cores, shared by the
+// one-step kernels (K1/K2 forward, K3/K6/K12 reverse) and the
+// tensor-parallel ones (K13, K15, K16). A block of (kLanes, kKS) threads
+// owns 32 units j (one warp's lanes, so weight rows are read coalesced) and
+// kBT batch rows b0..b0+kBT-1 (tile bx, by); its kKS warps split the
+// reduction over k, staged kKT at a time in shared memory, and meet in
+// shared memory in a fixed order. Every thread of the block calls a tile
+// with the same (bx, by); warp r < kBT then returns true for row b0 + r < B
+// with its sums for its lane's unit.
+constexpr int kLanes = 32;  // hidden units per block
+constexpr int kKS = 8;      // warps splitting the k reduction
+constexpr int kBT = 4;      // batch rows per block
+constexpr int kKT = 256;    // k tile staged in shared memory
+
+// The four gate sums s[g] = sum_k round(h[b, k]) * U[k, g*nd + j] over the
+// K-long k axis, with h (B, K) in HT, U (K, 4nd) in CT and round() to CT
+// (nd = K for one device; under tensor parallelism the shard's width).
+template <typename CT, typename HT>
+__device__ __forceinline__ bool
+gate_sums_tile(const CT* __restrict__ U, const HT* __restrict__ h, int B,
+               int K, int nd, int bx, int by, float s[4], int* b_out,
+               int* j_out) {
+  __shared__ float hs[kBT][kKT];
+  __shared__ float red[kKS][4][kBT][kLanes];
+
+  const int lane = threadIdx.x;
+  const int w = threadIdx.y;
+  const int j = bx * kLanes + lane;
+  const int b0 = by * kBT;
+  const int n4 = 4 * nd;
+
+  float acc[4][kBT];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) acc[g][r] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += kKT) {
+    const int klen = min(kKT, K - k0);
+    __syncthreads();
+    for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
+      const int r = e / klen, kk = e % klen;
+      const int b = b0 + r;
+      hs[r][kk] = b < B ? round_to<CT>(to_f32(h[(size_t)b * K + k0 + kk])) : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = w; kk < klen; kk += kKS) {
+      const CT* urow = U + (size_t)(k0 + kk) * n4 + j;
+      float u4[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) u4[g] = to_f32(urow[(size_t)g * nd]);
+#pragma unroll
+      for (int r = 0; r < kBT; ++r) {
+        const float hv = hs[r][kk];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(hv, u4[g], acc[g][r]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) red[w][g][r][lane] = acc[g][r];
+  __syncthreads();
+
+  const int r = w;
+  const int b = b0 + r;
+  if (r >= kBT || b >= B) return false;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kKS; ++q) v += red[q][g][r][lane];
+    s[g] = v;
+  }
+  *b_out = b;
+  *j_out = j;
+  return true;
+}
+
+// The recurrent dh of the reverse step: *dh = sum_k round(dg[b, k]) *
+// UT[k, j] over the K-long gate axis (K = 4nd), with dg (B, K) fp32, UT
+// (K, N) = U^T in CT (read as U^T so that the lanes read coalesced) and
+// round() to CT; j runs over the N-wide h.
+template <typename CT>
+__device__ __forceinline__ bool
+rec_tile(const CT* __restrict__ UT, const float* __restrict__ dg, int B,
+         int N, int K, int bx, int by, float* dh, int* b_out, int* j_out) {
+  __shared__ float ds[kBT][kKT];
+  __shared__ float red[kKS][kBT][kLanes];
+
+  const int lane = threadIdx.x;
+  const int w = threadIdx.y;
+  const int j = bx * kLanes + lane;
+  const int b0 = by * kBT;
+
+  float acc[kBT];
+#pragma unroll
+  for (int r = 0; r < kBT; ++r) acc[r] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kKT) {
+    const int klen = min(kKT, K - k0);
+    __syncthreads();
+    for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
+      const int r = e / klen, kk = e % klen;
+      const int b = b0 + r;
+      ds[r][kk] = b < B ? round_to<CT>(dg[(size_t)b * K + k0 + kk]) : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = w; kk < klen; kk += kKS) {
+      const float u = to_f32(UT[(size_t)(k0 + kk) * N + j]);
+#pragma unroll
+      for (int r = 0; r < kBT; ++r) acc[r] = fmaf(ds[r][kk], u, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kBT; ++r) red[w][r][lane] = acc[r];
+  __syncthreads();
+
+  const int r = w;
+  const int b = b0 + r;
+  if (r >= kBT || b >= B) return false;
+  float v = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kKS; ++q) v += red[q][r][lane];
+  *dh = v;
+  *b_out = b;
+  *j_out = j;
+  return true;
 }
 
 // ---------------------------------------------------------------------------

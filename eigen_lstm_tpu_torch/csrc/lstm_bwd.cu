@@ -91,17 +91,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kLanes = 32;  // hidden units per block
-constexpr int kKS = 8;      // warps splitting the k reduction
-constexpr int kBT = 4;      // batch rows per block
-constexpr int kKT = 256;    // k tile of dg_{t+1} staged in shared memory
-
 // One reverse timestep of one tile (32 hidden units, kBT batch rows: tile
 // bx, by), or (dh_seq_t == null) the final dh0 reduction of the tile. The
 // step body of both K3 (a block a tile, one launch a step) and K12 (two
 // steps a cooperative launch, blocks looping over the tiles): the same
 // arithmetic in the same order, so the two give the same bits. Every
-// thread of the block calls it, with the same tile.
+// thread of the block calls it, with the same tile. dh_rec is common.cuh's
+// rec_tile over the 4N-long gate axis, the gate backward its gate_bwd.
 template <typename CT, typename RT>
 __device__ __forceinline__ void
 bwd_tile(const CT* __restrict__ UT,          // (4N, N) = U^T
@@ -116,82 +112,30 @@ bwd_tile(const CT* __restrict__ UT,          // (4N, N) = U^T
          float* __restrict__ dg_t,           // (B, 4N) out
          float* __restrict__ dh_out,         // (B, N) final mode out
          Dropout drop, int tau, int B, int N, int standard, int bx, int by) {
-  __shared__ float ds[kBT][kKT];
-  __shared__ float red[kKS][kBT][kLanes];
-
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int j = bx * kLanes + lane;
-  const int b0 = by * kBT;
-  const int n4 = 4 * N;
-
-  if (dg_next != nullptr) {
-    float acc[kBT];
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) acc[r] = 0.0f;
-    for (int k0 = 0; k0 < n4; k0 += kKT) {
-      const int klen = min(kKT, n4 - k0);
-      __syncthreads();
-      for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
-        const int r = e / klen, kk = e % klen;
-        const int b = b0 + r;
-        ds[r][kk] = b < B ? round_to<CT>(dg_next[(size_t)b * n4 + k0 + kk]) : 0.0f;
-      }
-      __syncthreads();
-      for (int kk = w; kk < klen; kk += kKS) {
-        const float u = to_f32(UT[(size_t)(k0 + kk) * N + j]);
-#pragma unroll
-        for (int r = 0; r < kBT; ++r) acc[r] = fmaf(ds[r][kk], u, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) red[w][r][lane] = acc[r];
-    __syncthreads();
-  }
-
-  // epilogue: warp r < kBT finishes batch row b0 + r for its 32 units
-  const int r = w;
-  const int b = b0 + r;
-  if (r >= kBT || b >= B) return;
-  const size_t idx = (size_t)b * N + j;
   float dh_rec;
+  int b = by * kBT + threadIdx.y, j = bx * kLanes + threadIdx.x;
   if (dg_next != nullptr) {
-    dh_rec = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kKS; ++q) dh_rec += red[q][r][lane];
+    if (!rec_tile<CT>(UT, dg_next, B, N, 4 * N, bx, by, &dh_rec, &b, &j)) return;
   } else {
-    dh_rec = dh_in[idx];
+    if (threadIdx.y >= kBT || b >= B) return;
+    dh_rec = dh_in[(size_t)b * N + j];
   }
+  const size_t idx = (size_t)b * N + j;
   if (dh_seq_t == nullptr) {
     dh_out[idx] = dh_rec;
     return;
   }
-  const size_t gb = (size_t)b * n4 + j;
-  const float gi = to_f32(g_t[gb]), go = to_f32(g_t[gb + N]);
-  const float gf = to_f32(g_t[gb + 2 * (size_t)N]);
-  const float gu = to_f32(g_t[gb + 3 * (size_t)N]);
-  const float ct = to_f32(c_t[idx]);
+  const size_t gb = (size_t)b * 4 * N + j;
   const float cp = c_prev_t != nullptr ? to_f32(c_prev_t[idx]) : c0[idx];
   float dh_cot = dh_seq_t[idx];
   // __fmul_rn: the product rounds before the add, as in the TPU kernel
   if (drop.on) dh_cot = keep_bit(drop, tau, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
-  const float dh_total = dh_cot + dh_rec;
-  float dc_raw, d_o;
-  if (standard) {
-    const float tc = tanhf(ct);
-    dc_raw = dh_total * go * (1.0f - tc * tc) + dc[idx];
-    d_o = dh_total * tc;
-  } else {
-    const float dct = dh_total * go + dc[idx];
-    dc_raw = dct * (1.0f - ct * ct);
-    d_o = dh_total * ct;
-  }
-  const float di = dc_raw * gu, du = dc_raw * gi, df = dc_raw * cp;
-  dg_t[gb] = di * gi * (1.0f - gi);
-  dg_t[gb + N] = d_o * go * (1.0f - go);
-  dg_t[gb + 2 * (size_t)N] = df * gf * (1.0f - gf);
-  dg_t[gb + 3 * (size_t)N] = du * (1.0f - gu * gu);
-  dc[idx] = dc_raw * gf;
+  float d[4];
+  gate_bwd(to_f32(g_t[gb]), to_f32(g_t[gb + N]), to_f32(g_t[gb + 2 * (size_t)N]),
+           to_f32(g_t[gb + 3 * (size_t)N]), to_f32(c_t[idx]), cp,
+           dh_cot + dh_rec, dc[idx], standard, d, &dc[idx]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dg_t[gb + (size_t)q * N] = d[q];
 }
 
 // K3's step: one reverse timestep, or the final dh0 reduction, a block a

@@ -43,15 +43,11 @@
 
 namespace {
 
-constexpr int kLanes = 32;  // hidden units per block
-constexpr int kKS = 8;      // warps splitting the k reduction
-constexpr int kBT = 4;      // batch rows per block
-constexpr int kKT = 256;    // k tile of h_{t-1} staged in shared memory
-
 // One timestep. EMBED selects the input: W[ids_t] + b (layer 0) or xw_t;
 // DROP adds the masked stream (a template flag, so that the kernel without
-// dropout carries no code for it).
-// grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
+// dropout carries no code for it). The products are common.cuh's
+// gate_sums_tile over the whole width (nd = N), the epilogue runs in
+// registers. grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
 template <typename CT, typename RT, typename XT, bool EMBED, bool DROP>
 __global__ void __launch_bounds__(kLanes * kKS)
 lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
@@ -68,60 +64,15 @@ lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
               RT* __restrict__ gseq_t,         // (B, 4N) or null
               RT* __restrict__ hdrop_t,        // (B, N), DROP
               Dropout drop, int tau, int B, int N, int standard) {
-  __shared__ float hs[kBT][kKT];
-  __shared__ float red[kKS][4][kBT][kLanes];
-
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int j = blockIdx.x * kLanes + lane;
-  const int b0 = blockIdx.y * kBT;
-  const int n4 = 4 * N;
-
-  float acc[4][kBT];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) acc[g][r] = 0.0f;
-
-  for (int k0 = 0; k0 < N; k0 += kKT) {
-    const int klen = min(kKT, N - k0);
-    __syncthreads();
-    for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
-      const int r = e / klen, kk = e % klen;
-      const int b = b0 + r;
-      hs[r][kk] = b < B ? round_to<CT>(h_in[(size_t)b * N + k0 + kk]) : 0.0f;
-    }
-    __syncthreads();
-    for (int kk = w; kk < klen; kk += kKS) {
-      const CT* urow = U + (size_t)(k0 + kk) * n4 + j;
-      float u4[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) u4[g] = to_f32(urow[(size_t)g * N]);
-#pragma unroll
-      for (int r = 0; r < kBT; ++r) {
-        const float hv = hs[r][kk];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(hv, u4[g], acc[g][r]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) red[w][g][r][lane] = acc[g][r];
-  __syncthreads();
-
-  // epilogue: warp r < kBT finishes batch row b0 + r for its 32 units
-  const int r = w;
-  const int b = b0 + r;
-  if (r >= kBT || b >= B) return;
   float gate[4];
+  int b, j;
+  if (!gate_sums_tile<CT, float>(U, h_in, B, N, N, blockIdx.x, blockIdx.y,
+                                 gate, &b, &j))
+    return;
+  const int n4 = 4 * N;
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    float s = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kKS; ++q) s += red[q][g][r][lane];
+    float s = gate[g];
     const size_t col = (size_t)g * N + j;
     if (EMBED) {
       s += to_f32(W[(size_t)ids_t[b] * n4 + col]) + bias[col];
@@ -131,15 +82,8 @@ lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
     gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
   }
   const size_t idx = (size_t)b * N + j;
-  const float c_raw = gate[0] * gate[3] + gate[2] * c_in[idx];
   float h, c;
-  if (standard) {
-    h = gate[1] * tanhf(c_raw);
-    c = c_raw;
-  } else {
-    c = tanhf(c_raw);
-    h = gate[1] * c;
-  }
+  cell(gate, c_in[idx], standard, &h, &c);
   h_out[idx] = h;
   c_out[idx] = c;
   hseq_t[idx] = from_f32<RT>(h);

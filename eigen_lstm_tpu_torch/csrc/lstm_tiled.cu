@@ -211,15 +211,8 @@ tiled_fwd_step(const CT* __restrict__ U,        // (N, 4N)
       gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
     }
     const size_t idx = (size_t)b * N + j;
-    const float c_raw = gate[0] * gate[3] + gate[2] * c[idx];
     float h, cc;
-    if (standard) {
-      h = gate[1] * tanhf(c_raw);
-      cc = c_raw;
-    } else {
-      cc = tanhf(c_raw);
-      h = gate[1] * cc;
-    }
+    cell(gate, c[idx], standard, &h, &cc);
     c[idx] = cc;
     hT[idx] = h;
     hc_out[idx] = from_f32<CT>(h);
@@ -314,29 +307,14 @@ tiled_bwd_step(const CT* __restrict__ UT,        // (4N, N) = U^T
     float dh_cot = to_f32(dhseq_t[idx]);
     // __fmul_rn: the product rounds before the add, as in the TPU kernel
     if (drop.on) dh_cot = keep_bit(drop, tau, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
-    const float dh_total = dh_cot + dh_rec;
     const size_t gb = (size_t)b * n4 + j;
-    const float gi = to_f32(g_t[gb]), go = to_f32(g_t[gb + N]);
-    const float gf = to_f32(g_t[gb + 2 * (size_t)N]);
-    const float gu = to_f32(g_t[gb + 3 * (size_t)N]);
-    const float ct = to_f32(c_t[idx]);
     const float cp = c_prev_t != nullptr ? to_f32(c_prev_t[idx]) : c0[idx];
-    float dc_raw, d_o;
-    if (standard) {
-      const float tc = tanhf(ct);
-      dc_raw = dh_total * go * (1.0f - tc * tc) + dc[idx];
-      d_o = dh_total * tc;
-    } else {
-      const float dct = dh_total * go + dc[idx];
-      dc_raw = dct * (1.0f - ct * ct);
-      d_o = dh_total * ct;
-    }
-    const float di = dc_raw * gu, du = dc_raw * gi, df = dc_raw * cp;
-    dg_t[gb] = from_f32<CT>(di * gi * (1.0f - gi));
-    dg_t[gb + N] = from_f32<CT>(d_o * go * (1.0f - go));
-    dg_t[gb + 2 * (size_t)N] = from_f32<CT>(df * gf * (1.0f - gf));
-    dg_t[gb + 3 * (size_t)N] = from_f32<CT>(du * (1.0f - gu * gu));
-    dc[idx] = dc_raw * gf;
+    float d[4];
+    gate_bwd(to_f32(g_t[gb]), to_f32(g_t[gb + N]), to_f32(g_t[gb + 2 * (size_t)N]),
+             to_f32(g_t[gb + 3 * (size_t)N]), to_f32(c_t[idx]), cp,
+             dh_cot + dh_rec, dc[idx], standard, d, &dc[idx]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dg_t[gb + (size_t)q * N] = from_f32<CT>(d[q]);
   }
 }
 

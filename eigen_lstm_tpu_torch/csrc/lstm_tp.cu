@@ -1,0 +1,373 @@
+// Tensor-parallel LSTM kernels for Hopper (sm_90a), bound from Python
+// through ctypes (eigen_lstm_tpu_torch/ops/cuda_tp_cell.py and
+// cuda_tp_seq.py). No PyTorch headers. Under gate-sharded tensor
+// parallelism over D devices, device d holds U_d (N, 4nd), nd = N / D: the
+// columns of the gates [i|o|f|u] of its own nd hidden units
+// (parallel/tp.py), and every step needs the full h_{t-1} (B, N).
+//
+// Replaces four TPU kernels:
+//   tp_step_fwd_launch (K13) <- pallas_tp_cell.py:_step_fwd_kernel (:72):
+//       one step, g = xw + round(h_full) @ U_d (xw fp32 with the bias,
+//       h_full and U_d in the compute type, fp32 sums), sigma on [i|o|f],
+//       tanh on u, the cell update of _cell_fwd; out h2, c2 (B, nd) and the
+//       activated g (B, 4nd), all fp32.
+//   tp_step_bwd_launch (K14) <- pallas_tp_cell.py:_step_bwd_kernel (:82):
+//       the gate backward _gate_bwd of one step, elementwise: from g, c2,
+//       c_prev, dh, dc (fp32) to dg (B, 4nd) and dc_prev (B, nd), fp32.
+//   tp_seq_fwd_launch (K15) <- pallas_tp_seq.py:_fwd_kernel (:59): the
+//       whole S-step window in one launch, at D = 1. Each step rounds the
+//       carried h and c to the param type (fp32 here), stores h_seq in the
+//       param type, g and c_prev in the residual type, and hands h on to
+//       the next step through the exchange buffer in the compute type.
+//   tp_seq_bwd_launch (K16) <- pallas_tp_seq.py:_bwd_kernel (:125): the
+//       reverse window in one launch, at D = 1: dh_t = dh_seq[t] + (dhT at
+//       t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, dg in fp32;
+//       then dh0 = round(dg_0) @ U^T and dc0.
+// K13 and K14 run at any D (the all-gather of h sits between launches, in
+// torch.distributed); K15 and K16 only at D = 1, where the TPU kernel's
+// in-kernel exchange writes its own slot (pallas_tp_seq.py:121-122,
+// :178-179). The D > 1 exchange, peer stores over NVLink with flags, waits
+// for a machine with D cards.
+//
+// What bounds them on the H100. K13 at the flagship's shapes (B = 128,
+// N = 1024, D = 1) is 2*B*N*4nd = 1.07 GFLOP against ~9 MB that it must
+// move (U_d once, h_full, xw, c, the outputs): operations bound it at
+// 1.1 us in bf16, 16 us in fp32. K14 moves ~4 MB and computes little: bytes
+// bound it, ~1.2 us. K15 and K16 at the bench's (S = 100, B = 128,
+// N = nd = 512) are 2*S*B*N*4nd = 26.8 GFLOP each (K16: dh_rec only, dU is
+// a product outside) against 60-80 MB: operations, 27 us in bf16 and
+// 400 us in fp32 (the formulas are in chip_smoke.py, phase 11a).
+//
+// Design (simple and right first): the step tiles of K2 and K3
+// (common.cuh's gate_sums_tile and rec_tile, with cell and gate_bwd) with
+// the shard's widths: a block owns 32 hidden units of the shard (one
+// warp's lanes, so U rows are read coalesced) with all four gate columns,
+// and kBT batch rows; its kKS warps split the N-long reduction over h and
+// meet in shared memory, and the epilogue runs in registers. K13 is one
+// launch a step, a block a tile. K15 and K16 are one cooperative launch a
+// window, a grid of at most what is resident at once, each block walking
+// the tiles, with a grid barrier between steps; K15 alternates two h
+// buffers (a step reads one, writes the other; after the barrier no block
+// reads what the next step writes), where the TPU kernel needs three for
+// its one-step lead between devices. U_d stays in L2 across the window
+// (0.5 MB in bf16 at the bench's shapes, of 50 MB) rather than in shared
+// memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
+// does. Tensor cores and U held in shared memory are later work. Every sum
+// has a fixed order, so the kernels are deterministic.
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// The activated gates of tile (bx, by) of a shard: common.cuh's
+// gate_sums_tile over the full h (K = N) against the shard's 4nd columns,
+// plus xw, then sigma on [i|o|f] and tanh on u. Warp r < kBT returns true
+// for row b0 + r < B with gate[g] at column g*nd + j.
+template <typename CT>
+__device__ __forceinline__ bool
+fwd_tile(const CT* __restrict__ U,      // (N, 4nd)
+         const float* __restrict__ xw,  // (B, 4nd) fp32, bias folded in
+         const CT* __restrict__ h,      // (B, N), the full h_{t-1}
+         int B, int N, int nd, int bx, int by, float gate[4], int* b,
+         int* j) {
+  if (!gate_sums_tile<CT, CT>(U, h, B, N, nd, bx, by, gate, b, j)) return false;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float s = gate[g] + xw[(size_t)*b * 4 * nd + (size_t)g * nd + *j];
+    gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
+  }
+  return true;
+}
+
+// K13: one step, a block a tile. grid = (nd / 32, ceil(B / kBT)),
+// block = (32, kKS).
+template <typename CT>
+__global__ void __launch_bounds__(kLanes * kKS)
+tp_step_fwd(const CT* __restrict__ U, const float* __restrict__ xw,
+            const CT* __restrict__ h, const float* __restrict__ c_in,
+            float* __restrict__ h_out, float* __restrict__ c_out,
+            float* __restrict__ g_out, int B, int N, int nd, int standard) {
+  float gate[4];
+  int b, j;
+  if (!fwd_tile<CT>(U, xw, h, B, N, nd, blockIdx.x, blockIdx.y, gate, &b, &j))
+    return;
+  const size_t idx = (size_t)b * nd + j;
+  float hv, cv;
+  cell(gate, c_in[idx], standard, &hv, &cv);
+  h_out[idx] = hv;
+  c_out[idx] = cv;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    g_out[(size_t)b * 4 * nd + (size_t)g * nd + j] = gate[g];
+}
+
+// K14: the gate backward of one step, a thread an element (b, j).
+__global__ void __launch_bounds__(256)
+tp_step_bwd(const float* __restrict__ g, const float* __restrict__ c2,
+            const float* __restrict__ c_prev, const float* __restrict__ dh,
+            const float* __restrict__ dc, float* __restrict__ dg,
+            float* __restrict__ dc_prev, int B, int nd, int standard) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)B * nd) return;
+  const size_t b = e / nd, j = e % nd;
+  const size_t gb = b * 4 * nd + j;
+  float d[4];
+  gate_bwd(g[gb], g[gb + nd], g[gb + 2 * (size_t)nd], g[gb + 3 * (size_t)nd],
+           c2[e], c_prev[e], dh[e], dc[e], standard, d, &dc_prev[e]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dg[gb + (size_t)q * nd] = d[q];
+}
+
+// K15: the window at D = 1 (N == nd). hbuf (2, B, N) in the compute type
+// holds h0 in slot 0 on entry; c (B, nd) fp32 holds c0 and is carried in
+// place (each element belongs to one thread). Step t reads slot t % 2 and
+// writes slot (t + 1) % 2; a grid barrier separates the steps.
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+tp_seq_fwd(const CT* __restrict__ U, const float* __restrict__ xw,
+           CT* __restrict__ hbuf, float* __restrict__ c,
+           float* __restrict__ hseq, RT* __restrict__ gseq,
+           RT* __restrict__ cprev, float* __restrict__ hT,
+           float* __restrict__ cT, int S, int B, int N, int nd, int standard) {
+  const int tiles_x = nd / kLanes;
+  const int tiles = tiles_x * ((B + kBT - 1) / kBT);
+  const size_t bn = (size_t)B * nd, bn4 = 4 * bn, bN = (size_t)B * N;
+  for (int t = 0; t < S; ++t) {
+    if (t > 0) cg::this_grid().sync();
+    const CT* h_in = hbuf + (size_t)(t % 2) * bN;
+    CT* h_next = hbuf + (size_t)((t + 1) % 2) * bN;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      float gate[4];
+      int b, j;
+      if (!fwd_tile<CT>(U, xw + t * bn4, h_in, B, N, nd, tile % tiles_x,
+                        tile / tiles_x, gate, &b, &j))
+        continue;
+      const size_t idx = (size_t)b * nd + j;
+      const float cp = c[idx];
+      cprev[t * bn + idx] = from_f32<RT>(cp);
+      float hv, cv;
+      cell(gate, cp, standard, &hv, &cv);
+      hseq[t * bn + idx] = hv;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        gseq[t * bn4 + (size_t)b * 4 * nd + (size_t)g * nd + j] =
+            from_f32<RT>(gate[g]);
+      c[idx] = cv;
+      h_next[(size_t)b * N + j] = from_f32<CT>(hv);
+      if (t == S - 1) {
+        hT[idx] = hv;
+        cT[idx] = cv;
+      }
+    }
+  }
+}
+
+// K16: the reverse window at D = 1 (N == nd), then dh0. dc (B, nd) fp32
+// holds dcT on entry and dc0 on exit; dg (S, B, 4nd) fp32 is the output.
+// Reverse step t reads the whole dg_{t+1} (a barrier after step t + 1).
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+tp_seq_bwd(const CT* __restrict__ UT, const RT* __restrict__ gseq,
+           const RT* __restrict__ cprev, const float* __restrict__ cT,
+           const float* __restrict__ dhseq, const float* __restrict__ dhT,
+           float* __restrict__ dc, float* __restrict__ dg,
+           float* __restrict__ dh0, int S, int B, int N, int nd,
+           int standard) {
+  const int tiles_x = N / kLanes;
+  const int tiles = tiles_x * ((B + kBT - 1) / kBT);
+  const size_t bn = (size_t)B * nd, bn4 = 4 * bn;
+  for (int t = S - 1; t >= -1; --t) {
+    if (t < S - 1) cg::this_grid().sync();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      float rec;
+      int b, j;
+      if (t == S - 1) {
+        // no product: dh_rec is dhT
+        b = (tile / tiles_x) * kBT + threadIdx.y;
+        j = (tile % tiles_x) * kLanes + threadIdx.x;
+        if (threadIdx.y >= kBT || b >= B) continue;
+        rec = dhT[(size_t)b * nd + j];
+      } else if (!rec_tile<CT>(UT, dg + (t + 1) * bn4, B, N, 4 * nd,
+                               tile % tiles_x, tile / tiles_x, &rec, &b, &j)) {
+        continue;
+      }
+      const size_t idx = (size_t)b * nd + j;
+      if (t == -1) {
+        dh0[idx] = rec;
+        continue;
+      }
+      const size_t gb = t * bn4 + (size_t)b * 4 * nd + j;
+      const float ct = t == S - 1 ? cT[idx] : to_f32(cprev[(t + 1) * bn + idx]);
+      float d[4];
+      gate_bwd(to_f32(gseq[gb]), to_f32(gseq[gb + nd]),
+               to_f32(gseq[gb + 2 * (size_t)nd]),
+               to_f32(gseq[gb + 3 * (size_t)nd]), ct,
+               to_f32(cprev[t * bn + idx]), dhseq[t * bn + idx] + rec, dc[idx],
+               standard, d, &dc[idx]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dg[gb + (size_t)q * nd] = d[q];
+    }
+  }
+}
+
+// The grid of a cooperative launch of `kernel`: the tiles, at most what is
+// resident at once (a grid barrier waits for every block). 0 and an error
+// code when the card cannot take it.
+template <typename K>
+int coop_grid(K kernel, int tiles, int* grid) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kLanes * kKS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  return 0;
+}
+
+template <typename CT>
+int run_step_fwd(const void* U, const void* xw, const void* h,
+                 const void* c_in, void* h_out, void* c_out, void* g_out,
+                 int B, int N, int nd, int standard, cudaStream_t stream) {
+  const dim3 grid(nd / kLanes, (B + kBT - 1) / kBT);
+  tp_step_fwd<CT><<<grid, dim3(kLanes, kKS), 0, stream>>>(
+      static_cast<const CT*>(U), static_cast<const float*>(xw),
+      static_cast<const CT*>(h), static_cast<const float*>(c_in),
+      static_cast<float*>(h_out), static_cast<float*>(c_out),
+      static_cast<float*>(g_out), B, N, nd, standard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT, typename RT>
+int run_seq_fwd(const void* U, const void* xw, void* hbuf, void* c,
+                void* hseq, void* gseq, void* cprev, void* hT, void* cT,
+                int S, int B, int N, int nd, int standard,
+                cudaStream_t stream) {
+  const auto kernel = tp_seq_fwd<CT, RT>;
+  int grid = 0;
+  const int err = coop_grid(kernel, (nd / kLanes) * ((B + kBT - 1) / kBT), &grid);
+  if (err != 0) return err;
+  const CT* u = static_cast<const CT*>(U);
+  const float* x = static_cast<const float*>(xw);
+  CT* hb = static_cast<CT*>(hbuf);
+  float* cc = static_cast<float*>(c);
+  float* hs = static_cast<float*>(hseq);
+  RT* gs = static_cast<RT*>(gseq);
+  RT* cs = static_cast<RT*>(cprev);
+  float* ht = static_cast<float*>(hT);
+  float* ct = static_cast<float*>(cT);
+  void* args[] = {&u, &x, &hb, &cc, &hs, &gs, &cs, &ht, &ct,
+                  &S, &B, &N, &nd, &standard};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kLanes, kKS),
+      args, 0, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+template <typename CT, typename RT>
+int run_seq_bwd(const void* UT, const void* gseq, const void* cprev,
+                const void* cT, const void* dhseq, const void* dhT, void* dc,
+                void* dg, void* dh0, int S, int B, int N, int nd,
+                int standard, cudaStream_t stream) {
+  const auto kernel = tp_seq_bwd<CT, RT>;
+  int grid = 0;
+  const int err = coop_grid(kernel, (N / kLanes) * ((B + kBT - 1) / kBT), &grid);
+  if (err != 0) return err;
+  const CT* ut = static_cast<const CT*>(UT);
+  const RT* gs = static_cast<const RT*>(gseq);
+  const RT* cs = static_cast<const RT*>(cprev);
+  const float* ct = static_cast<const float*>(cT);
+  const float* dhs = static_cast<const float*>(dhseq);
+  const float* dht = static_cast<const float*>(dhT);
+  float* dcc = static_cast<float*>(dc);
+  float* dgs = static_cast<float*>(dg);
+  float* d0 = static_cast<float*>(dh0);
+  void* args[] = {&ut, &gs, &cs, &ct, &dhs, &dht, &dcc, &dgs, &d0,
+                  &S, &B, &N, &nd, &standard};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kLanes, kKS),
+      args, 0, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Type codes: 0 = fp32, 1 = bf16. Each launcher makes one launch and
+// returns its error code (0: launched).
+extern "C" int tp_step_fwd_launch(int ctype, const void* U, const void* xw,
+                                  const void* h, const void* c_in,
+                                  void* h_out, void* c_out, void* g_out,
+                                  int B, int N, int nd, int standard,
+                                  void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (ctype == 0)
+    return run_step_fwd<float>(U, xw, h, c_in, h_out, c_out, g_out, B, N, nd,
+                               standard, s);
+  if (ctype == 1)
+    return run_step_fwd<__nv_bfloat16>(U, xw, h, c_in, h_out, c_out, g_out, B,
+                                       N, nd, standard, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int tp_step_bwd_launch(const void* g, const void* c2,
+                                  const void* c_prev, const void* dh,
+                                  const void* dc, void* dg, void* dc_prev,
+                                  int B, int nd, int standard, void* stream) {
+  const size_t n = (size_t)B * nd;
+  tp_step_bwd<<<(unsigned)((n + 255) / 256), 256, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(c2),
+      static_cast<const float*>(c_prev), static_cast<const float*>(dh),
+      static_cast<const float*>(dc), static_cast<float*>(dg),
+      static_cast<float*>(dc_prev), B, nd, standard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tp_seq_fwd_launch(int ctype, int rtype, const void* U,
+                                 const void* xw, void* hbuf, void* c,
+                                 void* hseq, void* gseq, void* cprev,
+                                 void* hT, void* cT, int S, int B, int N,
+                                 int nd, int standard, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto f = [&](auto run) {
+    return run(U, xw, hbuf, c, hseq, gseq, cprev, hT, cT, S, B, N, nd,
+               standard, s);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_seq_fwd<float, float>);
+  if (ctype == 0 && rtype == 1) return f(run_seq_fwd<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(run_seq_fwd<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(run_seq_fwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int tp_seq_bwd_launch(int ctype, int rtype, const void* UT,
+                                 const void* gseq, const void* cprev,
+                                 const void* cT, const void* dhseq,
+                                 const void* dhT, void* dc, void* dg,
+                                 void* dh0, int S, int B, int N, int nd,
+                                 int standard, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto f = [&](auto run) {
+    return run(UT, gseq, cprev, cT, dhseq, dhT, dc, dg, dh0, S, B, N, nd,
+               standard, s);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(run_seq_bwd<float, float>);
+  if (ctype == 0 && rtype == 1) return f(run_seq_bwd<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(run_seq_bwd<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(run_seq_bwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -174,15 +174,8 @@ __device__ void epilogue(const Gen& p, int l, int t) {
       gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
     }
     const size_t idx = ((size_t)l * B + b) * N + j;
-    const float c_raw = gate[0] * gate[3] + gate[2] * p.c[idx];
     float h, c;
-    if (p.standard) {
-      h = gate[1] * tanhf(c_raw);
-      c = c_raw;
-    } else {
-      c = tanhf(c_raw);
-      h = gate[1] * c;
-    }
+    cell(gate, p.c[idx], p.standard, &h, &c);
     p.h[idx] = h;
     p.c[idx] = c;
     if (p.trace_h != nullptr) {

@@ -1,0 +1,194 @@
+"""The per-step tensor-parallel kernels (K13, K14), their plain versions and
+one TP step as an autograd function: the port's
+``eigen_lstm_tpu/ops/pallas_tp_cell.py``.
+
+Under gate-sharded tensor parallelism over D devices a shard holds U_d
+(N, 4nd), nd = N / D, with its gates in the shard-local order [i|o|f|u],
+each nd wide (``parallel/tp.py``), and every step needs the full h (B, N),
+all-gathered between steps. ``tp_step_fwd`` (K13) replaces
+``_step_fwd_kernel`` (:72): g = xw + round(h_full) @ U_d with xw in fp32
+(the bias folded in), h_full and U_d in the compute type and fp32 sums,
+then the activations and the cell update; it returns (h2, c2, g), with g
+the activated gates, all fp32 (``pallas_tp_cell.py:116``: this family
+keeps g in fp32). ``tp_step_bwd`` (K14) replaces ``_step_bwd_kernel``
+(:82): the gate backward, (g, c2, c_prev, dh, dc) -> (dg, dc_prev) in fp32.
+For a CUDA tensor each launches its kernel of ``csrc/lstm_tp.cu`` or
+raises; for a CPU tensor each runs its plain version, ``tp_step_plain`` or
+``tp_step_bwd_plain`` (``_fwd_math``, ``_bwd_math``), which the card's
+comparisons also call by name. The plain versions compute in the
+accumulation type (float64 in the float64 oracle configuration, where the
+JAX functions stay in float32). Each wrapper counts its launches in
+``.launches``, one a call.
+
+``fused_tp_step`` is the JAX function of that name: the autograd function
+``TPStep``, whose backward is ``tp_step_bwd`` (:136-154): K14 gives dg and
+dc_prev; dh_full = round(dg) @ round(U)^T and dU = round(h_full)^T
+round(dg) are products outside in the compute type with fp32 results, as
+the JAX ``dot_general`` s are. As there, dU comes back in U's type (fp32:
+not rounded) and dh_full in h_full's, the compute type (bf16 under bf16
+compute). ``tp_pallas_supported`` is the JAX gate, copied to pick the
+family as the JAX package does, not as a capacity limit of the card.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import ModelConfig
+from . import _build
+from . import cell as cell_ops
+from . import cuda_cell
+
+
+def tp_pallas_supported(cfg: ModelConfig, batch: int, ndev: int) -> bool:
+    """``pallas_tp_cell.py:tp_pallas_supported``: shard slices 128-lane
+    aligned, the batch a multiple of 8 and the vocabulary of 128."""
+    nd = cfg.hidden // ndev
+    return (cfg.hidden % ndev == 0 and nd % 128 == 0 and batch % 8 == 0
+            and cfg.vocab % 128 == 0)
+
+
+def tp_step_plain(U, xw, h_full, c_d, cfg: ModelConfig):
+    """``_fwd_math``: (h2, c2, g) of one step; nd is c_d's width."""
+    af = cuda_cell._acc_dtype(cfg)
+    nd = c_d.shape[-1]
+    g_pre = xw.to(af) + cell_ops.matmul(h_full, U, cfg.cdtype, af)
+    g = cell_ops.gate_activations(g_pre, nd)
+    h2, c2 = cell_ops.cell_update(g, c_d.to(af), nd, cfg.cell_variant)
+    return h2, c2, g
+
+
+def tp_step_bwd_plain(g, c2, c_prev, dh, dc, cfg: ModelConfig):
+    """``_bwd_math``: (dg, dc_prev) of one step."""
+    af = cuda_cell._acc_dtype(cfg)
+    return cell_ops.gate_bwd(g.to(af), c2.to(af), c_prev.to(af), dh.to(af),
+                             dc.to(af), c2.shape[-1], cfg.cell_variant)
+
+
+def _check(name, x, shape, device):
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"{name} must be floating point, got {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, xw on {device}")
+
+
+def _card(cfg: ModelConfig, device: torch.device, nd: int) -> int:
+    """The compute type's code for the kernels; raises on what they do not
+    take."""
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if nd % 32 != 0:
+        raise ValueError(f"shard width {nd} is not a multiple of 32")
+    if cfg.cdtype not in cuda_cell._TYPE_CODES:
+        raise TypeError(f"the TP kernels take float32/bfloat16 compute, not "
+                        f"{cfg.compute_dtype}")
+    return cuda_cell._TYPE_CODES[cfg.cdtype]
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def tp_step_fwd(U, xw, h_full, c_d, cfg: ModelConfig):
+    """One TP step: (U (N, 4nd), xw (B, 4nd), h_full (B, N), c_d (B, nd))
+    -> (h2, c2, g), K13 on the card, the plain version on the CPU."""
+    b, n = h_full.shape
+    nd = c_d.shape[-1]
+    dev = xw.device
+    for name, x, shape in (("U", U, (n, 4 * nd)), ("xw", xw, (b, 4 * nd)),
+                           ("h_full", h_full, (b, n)), ("c_d", c_d, (b, nd))):
+        _check(name, x, shape, dev)
+    if dev.type == "cpu":
+        return tp_step_plain(U, xw, h_full, c_d, cfg)
+    ctype = _card(cfg, dev, nd)
+    lib = _build.load_library()
+    f32 = torch.float32
+    U_c = U.to(cfg.cdtype).contiguous()
+    h_c = h_full.to(cfg.cdtype).contiguous()
+    xw32, c32 = xw.to(f32).contiguous(), c_d.to(f32).contiguous()
+    h2, c2 = (torch.empty(b, nd, dtype=f32, device=dev) for _ in range(2))
+    g = torch.empty(b, 4 * nd, dtype=f32, device=dev)
+    err = lib.tp_step_fwd_launch(
+        ctype, U_c.data_ptr(), xw32.data_ptr(), h_c.data_ptr(),
+        c32.data_ptr(), h2.data_ptr(), c2.data_ptr(), g.data_ptr(), b, n, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev))
+    cuda_cell._raise_on(err, "tp_step_fwd_launch")
+    tp_step_fwd.launches += 1
+    return h2, c2, g
+
+
+def tp_step_bwd(g, c2, c_prev, dh, dc, cfg: ModelConfig):
+    """The gate backward of one TP step: (dg (B, 4nd), dc_prev (B, nd)),
+    K14 on the card, the plain version on the CPU."""
+    b, nd = c2.shape
+    dev = g.device
+    for name, x, shape in (("g", g, (b, 4 * nd)), ("c2", c2, (b, nd)),
+                           ("c_prev", c_prev, (b, nd)), ("dh", dh, (b, nd)),
+                           ("dc", dc, (b, nd))):
+        _check(name, x, shape, dev)
+    if dev.type == "cpu":
+        return tp_step_bwd_plain(g, c2, c_prev, dh, dc, cfg)
+    _card(cfg, dev, nd)
+    lib = _build.load_library()
+    f32 = torch.float32
+    ins = [x.to(f32).contiguous() for x in (g, c2, c_prev, dh, dc)]
+    dg = torch.empty(b, 4 * nd, dtype=f32, device=dev)
+    dcp = torch.empty(b, nd, dtype=f32, device=dev)
+    err = lib.tp_step_bwd_launch(
+        *(x.data_ptr() for x in ins), dg.data_ptr(), dcp.data_ptr(), b, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev))
+    cuda_cell._raise_on(err, "tp_step_bwd_launch")
+    tp_step_bwd.launches += 1
+    return dg, dcp
+
+
+tp_step_fwd.launches = 0
+tp_step_bwd.launches = 0
+
+
+class TPStep(torch.autograd.Function):
+    """One TP step, differentiable in U, xw, h_full and c_d: the JAX custom
+    VJP of ``_make_tp_step``. With ``plain`` both halves run their plain
+    versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, U, xw, h_full, c_d, cfg: ModelConfig, plain: bool):
+        fwd = tp_step_plain if plain else tp_step_fwd
+        h2, c2, g = fwd(U, xw, h_full, c_d, cfg)
+        ctx.save_for_backward(U, g, c2, c_d, h_full)
+        ctx.cfg, ctx.plain, ctx.xw_dtype = cfg, plain, xw.dtype
+        return h2, c2
+
+    @staticmethod
+    def backward(ctx, dh2, dc2):
+        U, g, c2, c_prev, h_full = ctx.saved_tensors
+        cfg = ctx.cfg
+        af = cuda_cell._acc_dtype(cfg)
+        dh2 = torch.zeros_like(c2) if dh2 is None else dh2
+        dc2 = torch.zeros_like(c2) if dc2 is None else dc2
+        bwd = tp_step_bwd_plain if ctx.plain else tp_step_bwd
+        dg, dcp = bwd(g, c2, c_prev.to(af), dh2.to(af), dc2.to(af), cfg)
+        dh_full = cell_ops.matmul(dg, U.T, cfg.cdtype, af)
+        dU = cell_ops.matmul(h_full.T, dg, cfg.cdtype, af)
+        return (dU.to(U.dtype), dg.to(ctx.xw_dtype), dh_full.to(h_full.dtype),
+                dcp.to(c_prev.dtype), None, None)
+
+
+def fused_tp_step(U, xw, h_full, c_d, cfg: ModelConfig, plain: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pallas_tp_cell.py:fused_tp_step``: (h_d, c_d) of one step in the
+    accumulation type, with h_full cast to the compute type and c_d to the
+    accumulation type first; through ``TPStep`` when autograd needs a
+    gradient, else the forward alone."""
+    af = cuda_cell._acc_dtype(cfg)
+    h_c, c_a = h_full.to(cfg.cdtype), c_d.to(af)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (U, xw, h_c, c_a)):
+        return TPStep.apply(U, xw, h_c, c_a, cfg, plain)
+    fwd = tp_step_plain if plain else tp_step_fwd
+    return fwd(U, xw, h_c, c_a, cfg)[:2]

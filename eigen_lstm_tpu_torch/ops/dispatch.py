@@ -22,7 +22,10 @@ multiple of 32), which the wrappers check, raising on a shape they do not
 take. Where the JAX package takes the XLA scan (``_shape_ok`` fails, or
 no Pallas kernel fits), the port runs its resident kernels, with the fused
 VJP's db: the H100 kernels take those shapes. The fused head's gate is
-what its kernels take (``head.head_supported``).
+what its kernels take (``head.head_supported``). ``select_tp_backend``
+picks the tensor-parallel family as the JAX trainer does, with the TP
+gates copied in ``cuda_tp_cell`` and ``cuda_tp_seq`` (their VMEM budget,
+too, describes the TPU).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import os
 import torch
 
 from ..config import ModelConfig
-from . import cuda_cell_bwd, cuda_cell_tiled, head
+from . import cuda_cell_bwd, cuda_cell_tiled, cuda_tp_cell, cuda_tp_seq, head
 
 _MB = 1024 * 1024
 VMEM_BUDGET = 14 * _MB     # pallas_cell_tiled.py:49
@@ -241,6 +244,7 @@ def _cell_fn(cfg: ModelConfig, batch: int, plain: bool):
     fused_head = functools.partial(head.fused_head_bits, plain=plain)
     fused_head.supported = head.head_supported
     cell_fn.fused_head = fused_head
+    cell_fn.plain = plain
     return cell_fn
 
 
@@ -267,3 +271,26 @@ def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
             raise ValueError(f"cuda backend on device {dev}")
         return _cell_fn(cfg, batch, plain=False)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def select_tp_backend(cfg: ModelConfig, batch: int, ndev: int, cell_fn,
+                      device="cuda") -> str:
+    """The tensor-parallel family of ``_select_tp_backend``
+    (``eigen_lstm_tpu/train/trainer.py:213-229``): ``"pallas_seq"`` (K15,
+    K16) where ``cuda_tp_seq.tp_seq_supported`` holds and
+    ``EIGEN_LSTM_TP_SEQ`` is not ``0``, else ``"pallas"`` (K13, K14) where
+    ``cuda_tp_cell.tp_pallas_supported`` holds, else ``"xla"``; ``"xla"``
+    without a ``cell_fn``. On a CUDA ``device`` a ``cell_fn`` never gets
+    ``"xla"``: where the JAX package would take its XLA TP scan the card
+    runs the per-step kernels, as ``select_cell_fn`` runs the resident
+    kernels where the JAX package takes its XLA scan. ``batch`` is the
+    batch each kernel sees. The environment is read at each call."""
+    if cell_fn is None:
+        return "xla"
+    if os.environ.get("EIGEN_LSTM_TP_SEQ", "1") != "0":
+        if cuda_tp_seq.tp_seq_supported(cfg, batch, ndev):
+            return "pallas_seq"
+    if (cuda_tp_cell.tp_pallas_supported(cfg, batch, ndev)
+            or torch.device(device).type == "cuda"):
+        return "pallas"
+    return "xla"

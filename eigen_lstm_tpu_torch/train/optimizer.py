@@ -9,11 +9,17 @@ rsqrt: on the card one launch of the fused kernel K11 for the whole set
 global norm stay torch ops, as the JAX package leaves them to XLA. The
 functions return new tensors and leave their inputs as they were, as the
 JAX functions do.
+
+Under tensor parallelism (``group``) each rank updates its own shards, and
+the global norm sums the ranks' squared sums over the group, with the
+tensors that ``replicated`` marks (by, which every rank holds whole)
+counted once: their squared sum is divided by the axis size first
+(``eigen_lstm_tpu/train/optimizer.py:36-60``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +27,7 @@ import torch
 from ..config import TrainConfig
 from ..models.lstm import LSTMParams, like, tensors
 from ..ops.cuda_adagrad import adagrad_update_fused
+from ..parallel import mesh
 
 
 def adagrad_init(params: LSTMParams) -> LSTMParams:
@@ -28,17 +35,24 @@ def adagrad_init(params: LSTMParams) -> LSTMParams:
     return like(params, (torch.zeros_like(t) for t in tensors(params)))
 
 
-def global_norm(grads: LSTMParams) -> torch.Tensor:
-    """L2 norm over every tensor, in fp32."""
-    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-             for g in tensors(grads))
-    return torch.sqrt(sq)
+def global_norm(grads: LSTMParams, group: Optional[mesh.TPGroup] = None,
+                replicated: Optional[LSTMParams] = None) -> torch.Tensor:
+    """L2 norm over every tensor, in fp32; with ``group`` over every rank's
+    shards, the ``replicated`` tensors counted once."""
+    leaves = tensors(grads)
+    rep = (tensors(replicated) if group is not None and replicated is not None
+           else [False] * len(leaves))
+    sqs = (torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+    sq = sum(s / group.size if r else s for s, r in zip(sqs, rep))
+    return torch.sqrt(mesh.all_reduce(sq, group))
 
 
-def clip_by_global_norm(grads: LSTMParams, max_norm: float
+def clip_by_global_norm(grads: LSTMParams, max_norm: float,
+                        group: Optional[mesh.TPGroup] = None,
+                        replicated: Optional[LSTMParams] = None
                         ) -> Tuple[LSTMParams, torch.Tensor]:
     """Grads scaled so that their global norm is at most ``max_norm``."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group, replicated)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-20), max=1.0)
     return like(grads, (g * scale.to(g.dtype) for g in tensors(grads))), gnorm
 
@@ -65,14 +79,17 @@ def schedule_lr(cfg: TrainConfig, step: int) -> np.float32:
 
 
 def apply_updates(params: LSTMParams, grads: LSTMParams, m: LSTMParams,
-                  step: int, cfg: TrainConfig
+                  step: int, cfg: TrainConfig,
+                  group: Optional[mesh.TPGroup] = None,
+                  replicated: Optional[LSTMParams] = None
                   ) -> Tuple[LSTMParams, LSTMParams, torch.Tensor]:
     """Clip, then the scheduled lr, then Adagrad (``adagrad_update_fused``):
-    (params, m, grad norm)."""
+    (params, m, grad norm). ``group``, ``replicated``: as ``global_norm``."""
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, group,
+                                           replicated)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, group, replicated)
     lr = schedule_lr(cfg, step)
     params, m = adagrad_update_fused(params, grads, m, lr, cfg.adagrad_eps)
     return params, m, gnorm

@@ -21,8 +21,17 @@ supersteps: ``crosscheck`` holds the loss and gradient norm of the kernels
 against the model's own loop at the current windows, ``gradcheck`` the
 backward against finite differences in float64 (``utils/gradcheck.py``).
 
-Not ported yet, and refused when asked for: meshes (data, tensor, sequence
-and pipeline parallelism).
+Tensor parallelism (``mesh`` a ``parallel.mesh.TPGroup``, the JAX
+``make_tp_superstep``, ``tp.py:301-448``):
+each rank holds its shards of the permuted parameters and accumulators and
+of the stream state (L, B, nd), reads the same windows as every other rank,
+and updates its own shards; the global norm counts by once. The wrap
+reset's noise comes from a generator seeded with the rank folded in, as the
+JAX superstep folds in ``axis_index``. Checkpoints, eval and samples work
+on the canonical parameters (all-gathered, then unpermuted), so a TP
+checkpoint is an ordinary one; rank 0 writes it. The live checks are not
+taken under TP. Data, sequence and pipeline parallelism are not ported
+yet, and are refused when asked for.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from ..data import corpus as corpus_mod
 from ..data import streaming as streaming_mod
 from ..models import lstm as model
 from ..models import sampler as sampler_mod
+from ..ops import cell as cell_ops
+from ..parallel import mesh as mesh_mod
+from ..parallel import tp as tp_mod
 from . import checkpoint as ckpt_mod
 from . import evaluator as eval_mod
 from . import metrics as metrics_mod
@@ -75,14 +87,25 @@ def loss_and_grads(params, x, t, h, c, mcfg: ModelConfig, cell_fn=None,
 
 def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
                tcfg: TrainConfig, length: int, cell_fn=None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               tp: Optional[tp_mod.TPPlan] = None
                ) -> Tuple[TrainState, Tuple[torch.Tensor, torch.Tensor]]:
     """One step on the windows (x, t): returns (state, (bits, grad norm)).
-    ``generator`` draws the reset noise when ``dcfg.reset_std > 0``."""
+    ``generator`` draws the reset noise when ``dcfg.reset_std > 0``.
+    ``tp``: the step of one rank of tensor parallelism, on its shards
+    (``cell_fn`` is then not read)."""
     dkey = (model.step_key(tcfg.seed, state.step) if mcfg.dropout > 0.0
             else None)
-    loss, (h2, c2), bits, grads = loss_and_grads(
-        state.params, x, t, state.h, state.c, mcfg, cell_fn, dkey)
+    if tp is None:
+        loss, (h2, c2), bits, grads = loss_and_grads(
+            state.params, x, t, state.h, state.c, mcfg, cell_fn, dkey)
+        norm_kw = {}
+    else:
+        loss, (h2, c2), bits, grads = tp_mod.tp_loss_and_grads(
+            state.params, x, t, state.h, state.c, mcfg, tp.group, tp.backend,
+            dkey, tp.plain)
+        norm_kw = dict(group=tp.group,
+                       replicated=tp_mod.tp_replicated_mask(mcfg))
     if tcfg.skip_nonfinite:
         # a non-finite loss zeroes the update and keeps the pre-step state
         finite = torch.isfinite(loss)
@@ -105,7 +128,7 @@ def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
     else:
         h2, c2 = torch.zeros_like(state.h), torch.zeros_like(state.c)
     params, m, gnorm = opt_mod.apply_updates(state.params, grads, state.m,
-                                             state.step, tcfg)
+                                             state.step, tcfg, **norm_kw)
     return TrainState(params, m, h2, c2, newpos, state.step + 1), (bits, gnorm)
 
 
@@ -135,9 +158,24 @@ class Trainer:
     ):
         """``cell_fn``: ``ops.dispatch.select_cell_fn``'s kernels (or their
         plain versions), or None for the model's own loop. ``streaming``
-        keeps the corpus on the host and feeds windows per superstep."""
+        keeps the corpus on the host and feeds windows per superstep.
+        ``mesh``: a ``parallel.mesh.TPGroup``, the model axis of tensor
+        parallelism (the module docstring), with the family
+        ``ops.dispatch.select_tp_backend`` picks at (config, batch, D,
+        cell_fn, device); any other mesh (data, sequence or pipeline
+        parallelism) is refused."""
+        self.tp = None
         if mesh is not None:
-            raise NotImplementedError("mesh (parallel) training: not ported yet")
+            if not isinstance(mesh, mesh_mod.TPGroup):
+                raise NotImplementedError(
+                    f"mesh training over a {type(mesh).__name__} (data, "
+                    f"sequence or pipeline parallelism): not ported yet")
+            from ..ops.dispatch import select_tp_backend
+
+            backend = select_tp_backend(mcfg, dcfg.batch, mesh.size, cell_fn,
+                                        device)
+            self.tp = tp_mod.TPPlan(mesh, backend,
+                                    bool(getattr(cell_fn, "plain", False)))
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
         self.device = torch.device(device)
         self.train_np = train_data
@@ -146,6 +184,11 @@ class Trainer:
         self.length = int(len(train_data))
         # reset noise and sampling draw from this device generator
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        # the reset noise of a rank's shard: the rank folded into the seed
+        self.noise = (self.generator if self.tp is None else
+                      torch.Generator(device=self.device).manual_seed(
+                          cell_ops.hash32(cell_ops.hash32(tcfg.seed)
+                                          ^ cell_ops.hash32(self.tp.rank))))
         self._best_bpc = None
         self._next_windows = None
         self.crosscheck_failures = 0
@@ -172,8 +215,33 @@ class Trainer:
                                 self.dcfg.reset_std, self.generator)
         positions = corpus_mod.init_positions(
             gen, self.dcfg.batch, self.length, self.dcfg.seq).to(self.device)
-        return TrainState(params, opt_mod.adagrad_init(params), h, c,
-                          positions, 0)
+        return self._sharded(TrainState(params, opt_mod.adagrad_init(params),
+                                        h, c, positions, 0))
+
+    def _sharded(self, state: TrainState) -> TrainState:
+        """A canonical state as this trainer holds it: under TP this rank's
+        shards of the permuted params and accumulators and of (h, c)."""
+        if self.tp is None:
+            return state
+        rank, size = self.tp.rank, self.tp.size
+        shard = lambda p: tp_mod.shard_params(p, self.mcfg, rank, size)
+        nd = self.mcfg.hidden // size
+        cut = lambda x: x[..., rank * nd:(rank + 1) * nd].contiguous()
+        return TrainState(shard(state.params), shard(state.m), cut(state.h),
+                          cut(state.c), state.positions, state.step)
+
+    def canonical_state(self) -> TrainState:
+        """The state of a single-device trainer: under TP every rank's
+        shards gathered and unpermuted (all ranks take part)."""
+        st = self.state
+        if self.tp is None:
+            return st
+        g = self.tp.group
+        return TrainState(self._params(),
+                          tp_mod.unshard_params(st.m, self.mcfg, g),
+                          mesh_mod.all_gather(st.h, 2, g),
+                          mesh_mod.all_gather(st.c, 2, g), st.positions,
+                          st.step)
 
     @property
     def step(self) -> int:
@@ -197,7 +265,7 @@ class Trainer:
                 x, t = win[k, :-1], win[k, 1:]
             state, (b, g) = train_step(state, x, t, self.mcfg, self.dcfg,
                                        self.tcfg, self.length, self.cell_fn,
-                                       self.generator)
+                                       self.noise, self.tp)
             bits.append(b)
             gnorms.append(g)
         return state, _metrics(bits, gnorms)
@@ -287,6 +355,7 @@ class Trainer:
         loop on the card. A relative difference above ``tol`` (2e-2 in
         bf16, 1e-3 otherwise) is counted in ``crosscheck_failures``, not
         raised. Returns both values and the differences."""
+        self._not_under_tp("crosscheck")
         if tol is None:
             tol = 2e-2 if self.mcfg.compute_dtype == "bfloat16" else 1e-3
         x, t = self._current_windows()
@@ -324,6 +393,7 @@ class Trainer:
         ``gradcheck_failures`` and printed. Returns whether all passed."""
         from ..utils import gradcheck as gc
 
+        self._not_under_tp("gradcheck")
         x, t = self._current_windows()
         s = min(check_seq, int(x.shape[0]))
         b = min(check_batch, int(x.shape[1]))
@@ -355,6 +425,11 @@ class Trainer:
                       f"({r.n_checked} samples) "
                       f"{'ok' if r.passed else 'FAIL'}", flush=True)
         return ok
+
+    def _not_under_tp(self, what: str):
+        if self.tp is not None:
+            raise NotImplementedError(f"{what} under tensor parallelism: not "
+                                      f"ported yet")
 
     def _best_test_bpc(self) -> float:
         """Best held-out bpc of ``ckpt_best.npz``, seeded from the file's
@@ -399,10 +474,16 @@ class Trainer:
                     f.write(self.sample(self.tcfg.sample_chars))
         return row
 
+    def _params(self) -> model.LSTMParams:
+        """The canonical parameters (gathered under TP)."""
+        return (self.state.params if self.tp is None else
+                tp_mod.unshard_params(self.state.params, self.mcfg,
+                                      self.tp.group))
+
     def sample(self, length: Optional[int] = None, temperature: float = 1.0) -> str:
         with torch.no_grad():
             return sampler_mod.sample_text(
-                self.state.params, self.mcfg, self.generator,
+                self._params(), self.mcfg, self.generator,
                 length or self.tcfg.sample_chars, temperature=temperature)
 
     def evaluate(self, max_chars: Optional[int] = None) -> float:
@@ -410,15 +491,20 @@ class Trainer:
             raise ValueError("no test split configured")
         with torch.no_grad():
             return eval_mod.evaluate_bpc(
-                self.state.params, self.test_np, self.mcfg,
+                self._params(), self.test_np, self.mcfg,
                 max_chars=max_chars or self.tcfg.eval_chars,
                 cell_fn=self.cell_fn)
 
     def save(self, path: str, extra_meta: Optional[Dict] = None):
+        """The checkpoint of the canonical state (under TP gathered on every
+        rank and written by rank 0)."""
+        st = self.canonical_state()
+        if self.tp is not None and self.tp.rank != 0:
+            return
         ckpt_mod.save_checkpoint(
-            path, self.state.params, self.state.m, self.step,
-            positions=self.state.positions, stream_h=self.state.h,
-            stream_c=self.state.c,
+            path, st.params, st.m, self.step,
+            positions=st.positions, stream_h=st.h,
+            stream_c=st.c,
             rng_key=np.array([0, self.tcfg.seed & 0xFFFFFFFF], np.uint32),
             meta={"hidden": self.mcfg.hidden,
                   "num_layers": self.mcfg.num_layers, **(extra_meta or {})},
@@ -432,14 +518,15 @@ class Trainer:
         package's gather would clamp such a cursor without a word."""
         params, m, step, extras = ckpt_mod.load_checkpoint(path, self.mcfg,
                                                            self.device)
-        h = extras.get("stream_h", self.state.h)
-        c = extras.get("stream_c", self.state.c)
-        pos = extras.get("positions", self.state.positions)
-        if pos.shape != self.state.positions.shape or h.shape != self.state.h.shape:
+        now = self.canonical_state()
+        h = extras.get("stream_h", now.h)
+        c = extras.get("stream_c", now.c)
+        pos = extras.get("positions", now.positions)
+        if pos.shape != now.positions.shape or h.shape != now.h.shape:
             raise ValueError(
                 f"{path} holds {tuple(pos.shape)} cursors and a "
                 f"{tuple(h.shape)} stream state; this trainer runs "
-                f"{tuple(self.state.h.shape)} (layers, batch, hidden)")
+                f"{tuple(now.h.shape)} (layers, batch, hidden)")
         limit = corpus_mod.corpus_limit(self.length, self.dcfg.seq)
         outside = (pos < 0) | (pos > limit)
         if bool(outside.any()):
@@ -447,11 +534,11 @@ class Trainer:
                   f"{path} lie outside this corpus ({self.length} bytes): "
                   f"those streams take fresh cursors and a reset state",
                   flush=True)
-            pos = torch.where(outside, self.state.positions, pos)
+            pos = torch.where(outside, now.positions, pos)
             mask = outside[None, :, None]
-            h = torch.where(mask, self.state.h, h)
-            c = torch.where(mask, self.state.c, c)
-        self.state = TrainState(params, m, h, c, pos, step)
+            h = torch.where(mask, now.h, h)
+            c = torch.where(mask, now.c, c)
+        self.state = self._sharded(TrainState(params, m, h, c, pos, step))
         if self.feeder is not None:
             self.feeder.set_positions(self.state.positions.cpu().numpy())
             self._next_windows = None
