@@ -39,15 +39,19 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          plain versions with the flagship's weights, fp32 and bf16, without
          and with dropout: every step replayed, the masked streams against
          the numpy keep-mask bit for bit, the backward with explicit masks;
-         times, bounds, cuDNN yardsticks; (b) the flagship's loss and eleven
-         gradients with dropout, kernels against plain, fp32 and bf16;
+         times, bounds, cuDNN yardsticks; K6's design (persistent in bf16,
+         per-step in fp32) and launches a call, and in bf16 the per-step
+         design held to the same gates on the same inputs, the persistent
+         design's reverse launch and dU timed apart beside its time;
+         (b) the flagship's loss and eleven gradients with dropout,
+         kernels against plain, fp32 and bf16;
          (c) 100 steps of the flagship recipe through the CLI's Trainer
          from ckpt_best.npz's weights and accumulators: step time,
          chars/s, launches against what the shapes give, each kernel's
          share, the bits of every step; then 2 fp32 steps from the run's
          state, kernels against plain (fp32 at N = 1024 takes the tiled
          family, as in the JAX package: K8, K9, K10, their launches
-         counted). K3 runs the JAX VJP the flagship takes in bf16, the GEMM
+         counted), and both against the plain path in float64. K3 runs the JAX VJP the flagship takes in bf16, the GEMM
          fall-back (db from the rounded dg).
 
 Phase 8  generation: K7 against its plain version with the flagship's
@@ -62,7 +66,8 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          dropout, and in fp32 at the flagship's fp32 shapes (S = 256,
          N = 1024): every step replayed, the masked streams against the
          numpy keep-mask bit for bit; times beside the bound, the plain
-         version, K1/K2/K6 at the same shapes and cuDNN; (b) one window's
+         version, K1/K2/K6 at the same shapes (K6 on its per-step design,
+         gated) and cuDNN; (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
          kernels against plain; (c) the 5b recipe through the CLI's
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
@@ -107,6 +112,7 @@ of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -649,6 +655,86 @@ def k6_bound(cfg, s, b, n):
     return _bound(nbytes, 2 * (2 * s * b * 4 * n * n), cfg)
 
 
+# K6's per-step design (one launch a reverse step) as PERF.md §6 row 3
+# records it (NVIDIA H100 80GB HBM3, 700 W): bf16 at the flagship's
+# training shapes, without and with dropout 0.35
+K6_PER_STEP_RECORDED_MS = {0.0: 42.31, 0.35: 42.55}
+
+
+def k6_design(cfg, b, n):
+    """K6's design at these shapes on this card, as its wrapper chooses it
+    (``cuda_cell_bwd.k6_plan``): a label, and whether it is persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_bwd import device_k6_plan
+
+    plan = device_k6_plan(cfg, b, n)
+    if plan is None:
+        return "the per-step design (one launch a reverse step)", False
+    units, rows = plan
+    groups, parts = n // units, -(-b // rows)
+    return (f"the persistent design ({groups} groups of {units} units x "
+            f"{parts} parts of {rows} batch rows = {groups * parts} blocks, "
+            f"one cooperative launch a window)"), True
+
+
+def k6_split_ms(call, reps: int = 5):
+    """The persistent K6's reverse launch and its dU launches, each timed by
+    CUDA events around its C launcher within the wrapper's calls; then the
+    per-step design's whole call on the same inputs (the wrapper's choice
+    overridden here only) and its launches. Returns (reverse ms, dU ms,
+    per-step ms, per-step launches), medians."""
+    from eigen_lstm_tpu_torch.ops import _build, cuda_cell_bwd
+
+    lib = _build.load_library()
+    names = ("lstm_bwd_scan_persist_launch", "lstm_bwd_scan_dU_launch")
+    real = {nm: getattr(lib, nm) for nm in names}
+    events = {nm: [] for nm in names}
+
+    def timed(nm):
+        def launch(*a):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            err = real[nm](*a)
+            e1.record()
+            events[nm].append((e0, e1))
+            return err
+        return launch
+
+    call()
+    torch.cuda.synchronize()
+    try:
+        for nm in names:
+            setattr(lib, nm, timed(nm))
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    finally:
+        for nm in names:
+            setattr(lib, nm, real[nm])
+    rev, du = (statistics.median(a.elapsed_time(b) for a, b in events[nm])
+               for nm in names)
+    with per_step_k6():
+        before = cuda_cell_bwd.scan_layer_bwd.launches
+        call()
+        launched = cuda_cell_bwd.scan_layer_bwd.launches - before
+        per_step = cuda_ms(call, reps=1, windows=3)
+    return rev, du, per_step, launched
+
+
+@contextlib.contextmanager
+def per_step_k6():
+    """K6's wrapper takes its per-step design inside the block, whatever
+    ``k6_plan`` would choose: for the checks and times of that design where
+    the main path takes the persistent one."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
+
+    plan = cuda_cell_bwd.device_k6_plan
+    cuda_cell_bwd.device_k6_plan = lambda *a: None
+    try:
+        yield
+    finally:
+        cuda_cell_bwd.device_k6_plan = plan
+
+
 def library_lstm_bwd(cfg, x, h0, c0, dh_seq):
     """One cuDNN ``torch.nn.LSTM`` backward over the same window (the
     standard cell, with the input product and its weight gradient); a
@@ -1095,13 +1181,14 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
 
 
 def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
-              mask, inv, tag, per_call):
+              mask, inv, tag, per_call, timed=True):
     """K3 (``ids``) or K6 at the training shapes: every reverse step
     replayed from the kernel's own dg with the explicitly masked
     cotangent, and the whole window against the plain version given the
     explicitly masked cotangent (fp32 gated, bf16 printed). K3 runs the
     layer-0 VJP the JAX package takes at these shapes
-    (``dispatch.fused_accum_ok``). Returns the record."""
+    (``dispatch.fused_accum_ok``). Returns the record, or with ``timed``
+    False nothing (the checks alone)."""
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
     from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
 
@@ -1160,6 +1247,8 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
           f"{TRAIN_TOL:g}); window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
+    if not timed:
+        return None
     call = lambda: kern(*args, dh_seq, dhT, dcT, cfg, dropout=dropout, **kw)
     ms = cuda_ms(call, reps=1, windows=3)
     plain_ms = cuda_ms(lambda: plain(*args, dh_seq, dhT, dcT, cfg,
@@ -1189,7 +1278,7 @@ def phase7a(records):
     plain version and cuDNN ``nn.LSTM``; the heads' launches and times at
     these shapes. Returns the launches of one call of each kernel."""
     from eigen_lstm_tpu_torch.ops import cell as cell_ops
-    from eigen_lstm_tpu_torch.ops import cuda_cell, head
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
 
     s, b = FLAG_S, FLAG_B
@@ -1224,6 +1313,27 @@ def phase7a(records):
                              dhT, dcT, cfg, dr[0], masks[0], inv, tag, per_call)
             rec6 = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
                              dhT, dcT, cfg, dr[1], masks[1], inv, tag, per_call)
+            design, persistent = k6_design(cfg, b, n)
+            print(f"  lstm_bwd_scan {tag}: {design}, {per_call['lstm_bwd_scan']} "
+                  f"launches a call", flush=True)
+            if persistent != (dtype == "bfloat16"):
+                fail(f"lstm_bwd_scan {tag}: {design}; the flagship's shapes "
+                     f"take the persistent design in bf16 alone")
+            if persistent:
+                # the per-step design, which k6_plan keeps for other shapes
+                # and cards, held to the same gates on the same inputs
+                with per_step_k6():
+                    bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
+                              dhT, dcT, cfg, dr[1], masks[1], inv,
+                              tag + " (the per-step design)", {}, timed=False)
+                rev, du, old, old_n = k6_split_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
+                    l1.U.to(cfg.cdtype), out2[3], out2[2], out2[0], h0, c0, dh_seq,
+                    dhT, dcT, cfg, dropout=dr[1]))
+                print(f"  lstm_bwd_scan {tag}: reverse launch {rev:.4f} ms "
+                      f"({1e3 * rev / (s + 1):.2f} us a step), dU {du:.4f} ms; "
+                      f"the per-step design {old:.4f} ms in this run "
+                      f"({old_n} launches), {K6_PER_STEP_RECORDED_MS[drop]} ms "
+                      f"as PERF.md records it", flush=True)
             libs = (library_ms(m, cfg, onehot, h0, c0), library_ms(n, cfg, h_in, h0, c0),
                     library_lstm_bwd(cfg, onehot, h0, c0, dh_seq),
                     library_lstm_bwd(cfg, h_in, h0, c0, dh_seq))
@@ -1285,6 +1395,27 @@ def phase7b():
                   vs_drift=FLAG_BF16_VS_DRIFT)
 
 
+def plain64_cell_fn():
+    """The resident family's plain versions as a ``cell_fn``, fused dropout
+    and head included: in the float64 oracle configuration they keep
+    float64 throughout, so they give the exact gradient that both fp32
+    paths are read against. (``select_cell_fn`` would pick the tiled family
+    at N = 1024 in float64, which sums in fp32 and stores its residuals in
+    bf16 there, as the JAX tiled path does.)"""
+    import functools
+
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd, head
+
+    cell_fn = functools.partial(cuda_cell_bwd.differentiable_scan_layer,
+                                plain=True)
+    cell_fn.fused_dropout = cell_fn.plain = True
+    cell_fn.embed_layer0 = functools.partial(
+        cuda_cell_bwd.differentiable_embed_layer0, plain=True, fused_accum=True)
+    cell_fn.fused_head = functools.partial(head.fused_head_bits, plain=True)
+    cell_fn.fused_head.supported = head.head_supported
+    return cell_fn
+
+
 def phase7c(per_call, records):
     """FLAG_STEPS steps of the flagship recipe through the CLI's Trainer
     from ckpt_best.npz, with the launch counts reset before and read after;
@@ -1296,7 +1427,7 @@ def phase7c(per_call, records):
     import dataclasses
 
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
-    from eigen_lstm_tpu_torch.models.lstm import step_key
+    from eigen_lstm_tpu_torch.models.lstm import like, step_key, tensors
     from eigen_lstm_tpu_torch.ops import (cuda_adagrad, cuda_cell, cuda_cell_bwd,
                                           cuda_cell_tiled, head)
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
@@ -1351,7 +1482,13 @@ def phase7c(per_call, records):
     # 16 MB in fp32), so K8, K9 and K10 and none of K1, K2, K3, K6
     cfg32 = dataclasses.replace(trainer.mcfg, compute_dtype="float32")
     paths = [select_cell_fn(b_, cfg32, FLAG_B, DEVICE) for b_ in ("cuda", "plain")]
-    st, worst = trainer.state, {}
+    # the witness: both fp32 paths against the plain path in float64 at the
+    # same seeds, so that a gap of the kernels near the gate can be read
+    # against how far fp32 itself lies from the exact gradient at this state
+    cfg64 = dataclasses.replace(cfg32, param_dtype="float64",
+                                compute_dtype="float64", residual_dtype="float64")
+    plain64 = plain64_cell_fn()
+    st, worst, worst64 = trainer.state, {}, {}
     torch.cuda.synchronize()
     for fn in list(counters.values()) + [k11]:
         fn.launches = 0
@@ -1369,6 +1506,17 @@ def phase7c(per_call, records):
                     zip(gk.named_tensors(), gp.named_tensors()))
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0.0), err)
+        p64 = like(st.params, [p.double() for p in tensors(st.params)])
+        g64 = loss_and_grads(p64, x, t, st.h.double(), st.c.double(), cfg64,
+                             plain64, key)[3]
+        for (key_, a), (_, b_), (_, r) in zip(gk.named_tensors(),
+                                              gp.named_tensors(),
+                                              g64.named_tensors()):
+            name = f"d{key_[len('params.'):]}"
+            ek, ep = worst64.get(name, (0.0, 0.0))
+            worst64[name] = (max(ek, norm_err(a.double(), r)),
+                             max(ep, norm_err(b_.double(), r)))
+        del p64, g64
         st, _ = train_step(st, x, t, cfg32, trainer.dcfg, trainer.tcfg,
                            trainer.length, paths[0], trainer.generator)
     torch.cuda.synchronize()
@@ -1382,6 +1530,10 @@ def phase7c(per_call, records):
           f"normalised (tol {TRAIN_TOL:g}) within: "
           + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
           + f"; launches {tiled}, adagrad {k11.launches}", flush=True)
+    print("  flagship fp32 against the plain path in float64 (not gated), "
+          "normalised, kernels/plain: "
+          + ", ".join(f"{k} {ek:.3e}/{ep:.3e}" for k, (ek, ep) in worst64.items()),
+          flush=True)
     for name, err in worst.items():
         tol = LOSS_RTOL["float32"] if name == "bits" else TRAIN_TOL
         if not np.isfinite(err) or err > tol:
@@ -1732,6 +1884,11 @@ def phase9a(records):
                 l1, xw, h0, c0, run_cfg, residuals=True, dropout=dr[1]),
                 reps=1, windows=3)
             res = cuda_cell.scan_layer(l1, xw, h0, c0, run_cfg, residuals=True)
+            design, persistent = k6_design(run_cfg, b, n)
+            print(f"  lstm_bwd_scan {tag}: {design}", flush=True)
+            if persistent:
+                fail(f"lstm_bwd_scan {tag}: the persistent design where the "
+                     f"per-step one applies")
             k6 = cuda_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
                 l1.U.to(run_cfg.cdtype), res[3], res[2], res[0], h0, c0, dh_seq,
                 dhT, dcT, run_cfg, dropout=dr[1]), reps=1, windows=3)
@@ -1796,8 +1953,13 @@ def phase9b():
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, compute_dtype=dtype, residual_dtype=(
             "float32" if dtype == "float32" else base.residual_dtype))
+        design, persistent = k6_design(cfg, B5_B, B5_N)
         print(f"  2x2048 {dtype}: families (layers >= 1, layer 0) "
-              f"{families(cfg, B5_B)}", flush=True)
+              f"{families(cfg, B5_B)}; K6 at these shapes: {design}",
+              flush=True)
+        if persistent:
+            fail(f"2x2048 {dtype}: K6's persistent design where the per-step "
+                 f"one applies")
         for backend in ("cuda", "plain"):
             cell_fn = select_cell_fn(backend, cfg, B5_B, DEVICE)
             loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg,

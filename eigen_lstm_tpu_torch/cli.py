@@ -52,6 +52,9 @@ def _add_model_args(p: argparse.ArgumentParser):
                    help="dropout rate of each layer's output stream, between "
                         "the layers and before the head (training only), "
                         "fused into the recurrence kernels")
+    p.add_argument("--tie-embeddings", action="store_true",
+                   help="share the head's Why^T as the input embedding "
+                        "(layer 0 gets an (N, 4N) projection)")
     p.add_argument("--embedding", choices=["auto", "gather", "onehot"],
                    default="auto")
     p.add_argument("--seed", type=int, default=0)
@@ -62,11 +65,9 @@ def _add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
 
-def _add_data_args(p: argparse.ArgumentParser, train: bool):
+def _add_data_args(p: argparse.ArgumentParser):
     p.add_argument("--data", required=True, help="byte corpus path")
     p.add_argument("--train-percent", type=float, default=0.95)
-    if not train:
-        return
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--seq", type=int, default=100)
     p.add_argument("--stride", type=int, default=None,
@@ -135,53 +136,45 @@ def _add_train_args(p: argparse.ArgumentParser):
 
 def _configs(args):
     """(ModelConfig, DataConfig, TrainConfig) from the flags, with the JAX
-    CLI's resolution of the residual type, lr, warm-up and seed."""
+    CLI's resolution of the residual type, lr, warm-up and seed. Every
+    subcommand takes the model, data and train flags, as in the JAX CLI."""
     from .config import DataConfig, ModelConfig, TrainConfig
 
-    seq = getattr(args, "seq", 100)
     residual = args.residual_dtype
     if residual == "auto":
         residual = ("bfloat16" if args.dtype == "bfloat16"
-                    and (args.hidden >= 2048 or seq >= 512) else "float32")
+                    and (args.hidden >= 2048 or args.seq >= 512) else "float32")
     mcfg = ModelConfig(
         vocab=args.vocab, hidden=args.hidden, num_layers=args.layers,
         cell_variant=args.cell, loss_mode=args.loss_mode,
         loss_base=args.loss_base, compute_dtype=args.dtype,
         residual_dtype=residual, forget_bias=args.forget_bias,
-        embedding_mode=args.embedding, dropout=args.dropout, seed=args.seed,
+        embedding_mode=args.embedding, dropout=args.dropout,
+        tie_embeddings=args.tie_embeddings, seed=args.seed,
         scan_chunk=args.scan_chunk,
     )
     dcfg = DataConfig(
-        path=args.data, train_percent=args.train_percent,
-        batch=getattr(args, "batch", 128), seq=seq,
-        stride=getattr(args, "stride", None),
-        carry_state=not getattr(args, "no_carry", False),
-        reset_std=getattr(args, "reset_std", 0.0),
+        path=args.data, train_percent=args.train_percent, batch=args.batch,
+        seq=args.seq, stride=args.stride, carry_state=not args.no_carry,
+        reset_std=args.reset_std,
     )
-    lr = getattr(args, "lr", None)
+    lr = args.lr
     if lr is None:
         lr = (0.1 if args.hidden < 512
               else 0.02 if args.hidden < 1024 and args.layers == 1 else 0.005)
-    steps = getattr(args, "steps", 10000)
-    warmup = getattr(args, "warmup", None)
+    warmup = args.warmup
     if warmup is None:
-        warmup = (50 * seq if getattr(args, "epochs", None)
-                  else min(50 * seq, steps // 10))
+        warmup = (50 * args.seq if args.epochs
+                  else min(50 * args.seq, args.steps // 10))
     tcfg = TrainConfig(
-        lr=lr, adagrad_eps=getattr(args, "adagrad_eps", 1e-10),
-        clip_norm=getattr(args, "clip_norm", None), warmup_steps=warmup,
-        lr_cycle_steps=getattr(args, "lr_cycle_steps", 0),
-        lr_cycle_min_frac=getattr(args, "lr_cycle_min_frac", 0.1),
-        steps=steps, superstep=getattr(args, "superstep", 50),
-        log_every=getattr(args, "log_every", 500),
-        eval_every_s=getattr(args, "eval_every_s", 60.0),
-        eval_chars=getattr(args, "eval_chars", 100000),
-        sample_chars=getattr(args, "sample_chars", 1000),
-        checkpoint_dir=getattr(args, "ckpt_dir", None),
-        keep_snapshots=getattr(args, "keep_snapshots", False),
-        crosscheck_every=getattr(args, "crosscheck", None),
-        gradcheck_every=getattr(args, "gradcheck_every", None),
-        seed=args.seed + 1,
+        lr=lr, adagrad_eps=args.adagrad_eps, clip_norm=args.clip_norm,
+        warmup_steps=warmup, lr_cycle_steps=args.lr_cycle_steps,
+        lr_cycle_min_frac=args.lr_cycle_min_frac, steps=args.steps,
+        superstep=args.superstep, log_every=args.log_every,
+        eval_every_s=args.eval_every_s, eval_chars=args.eval_chars,
+        sample_chars=args.sample_chars, checkpoint_dir=args.ckpt_dir,
+        keep_snapshots=args.keep_snapshots, crosscheck_every=args.crosscheck,
+        gradcheck_every=args.gradcheck_every, seed=args.seed + 1,
     )
     return mcfg, dcfg, tcfg
 
@@ -334,27 +327,25 @@ def cmd_sample(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's subcommands, each with the model, data and train flags
+    (a flag that only training reads is accepted and ignored by ``eval``
+    and ``sample``, as in the JAX package)."""
     ap = argparse.ArgumentParser(prog="eigen_lstm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="train a char-LSTM LM")
     p_bench = sub.add_parser("bench", help="training throughput benchmark")
-    for p in (p_train, p_bench):
+    p_eval = sub.add_parser("eval", help="bits/char on the held-out split")
+    p_sample = sub.add_parser("sample", help="generate text from a checkpoint")
+    for p in (p_train, p_bench, p_eval, p_sample):
         _add_model_args(p)
-        _add_data_args(p, train=True)
+        _add_data_args(p)
         _add_train_args(p)
     p_train.set_defaults(fn=cmd_train)
     p_bench.add_argument("--bench-steps", type=int, default=200)
     p_bench.add_argument("--warmup-steps", type=int, default=20)
     p_bench.set_defaults(fn=cmd_bench)
-    p_eval = sub.add_parser("eval", help="bits/char on the held-out split")
-    _add_model_args(p_eval)
-    _add_data_args(p_eval, train=False)
     p_eval.add_argument("--ckpt", required=True)
-    p_eval.add_argument("--eval-chars", type=int, default=100000)
     p_eval.set_defaults(fn=cmd_eval)
-    p_sample = sub.add_parser("sample", help="generate text from a checkpoint")
-    _add_model_args(p_sample)
-    _add_data_args(p_sample, train=False)
     p_sample.add_argument("--ckpt", required=True)
     p_sample.add_argument("--length", type=int, default=1000)
     p_sample.add_argument("--temperature", type=float, default=1.0)

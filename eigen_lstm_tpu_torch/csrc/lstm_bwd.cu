@@ -5,8 +5,14 @@
 //       layer 0 with its weight gradients dW, dU, db;
 //   lstm_bwd_embed_unroll2_launch (K12) <- pallas_cell.py:
 //       _bwd_embed_unroll2_kernel, K3's function, two reverse steps a launch;
-//   lstm_bwd_scan_launch (K6)  <- pallas_cell.py:_bwd_kernel with the dU
-//       product of _bwd_core (:393-414), layers >= 1: dg_seq, dU, dh0, dc0.
+//   lstm_bwd_scan_launch (K6, the per-step design) <- pallas_cell.py:
+//       _bwd_kernel with the dU product of _bwd_core (:393-414), layers
+//       >= 1: dg_seq, dU, dh0, dc0;
+// and K6's persistent design has its own launchers and kernels, the same
+// function under bf16 compute where a resident grid can hold U in shared
+// memory (ops/cuda_cell_bwd.py:k6_plan chooses):
+//   lstm_bwd_scan_persist_launch: the reverse steps and dh0, one launch;
+//   lstm_bwd_scan_dU_launch: dU on tensor cores.
 //
 // The reverse step (the gate backward _gate_bwd). For t = S-1 .. 0, with
 // dh_{S-1} carried from dhT and dc from dcT:
@@ -37,8 +43,31 @@
 // B = 128, N = 1024) is 2*S*B*4N*N flops for dh_rec plus as many for dU
 // (550 GFLOP) against ~1.2 GB that the function must move (the fp32 g, c
 // and h residuals are 0.8 GB of it), so operations bound it, at 0.56 ms in
-// bf16 and 8.2 ms in fp32 (k6_bound() in chip_smoke.py). It runs on CUDA
-// cores like K3, one launch per reverse step, far above that.
+// bf16 and 8.2 ms in fp32 (k6_bound() in chip_smoke.py). The per-step
+// design ran it at 42.55 ms in bf16 (PERF.md): 257 launches of 1024
+// blocks, each block re-reading its 256 KB slab of U^T from L2 for 4 batch
+// rows, fp32 FMAs on CUDA cores, dg written in fp32 and again in bf16.
+//
+// The persistent design (bf16 compute; lstm_bwd_persist, atb_mma) answers
+// each of those: one cooperative launch a window with a grid barrier
+// between steps; a block's U rows (16 units x 4N, 128 KB at N = 1024) held
+// in shared memory for the whole window; dh_rec and dU on tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 sums; csrc/mma.cuh); dg stored once,
+// in bf16, which both the next step's product and dU read. What bounds it
+// then is the recurrence's dependence: every step each of the N / 16 unit
+// groups reads the whole dg_{t+1} of its batch rows from L2 (64 MB a step
+// at the flagship, 1 MB per group) and waits at the grid barrier, while
+// its products take a few microseconds. Wider groups would read less but
+// their U rows would not fit: 16 units x 4N bf16 plus the dg ring fills
+// 179 KB of the 227 KB; so the flagship's grid is 64 groups x 2 batch
+// halves = 128 blocks, one an SM. On the H100 a step then takes ~23 us:
+// ~5 us for the grid barrier and the epilogue, the rest the product,
+// whose 64 MB of dg reads run at ~4 TB/s across the SMs (PERF.md;
+// eigen_lstm_tpu_torch/tools/k6_variants.py). Left for later: wgmma in place of
+// mma.sync, TMA multicast of dg_{t+1} over a cluster of blocks that share
+// batch rows (cutting the L2 reads by the cluster size), and fp32 compute
+// (TF32 is off for fp32 products, so the tensor cores cannot serve it: the
+// per-step design runs it, and shapes whose grid would not be resident).
 //
 // What bounds K3 on the H100: a window at the bench shapes (S = 100,
 // B = 128, N = 512, M = 256) is 2*S*B*4N*N flops for dh_rec plus as many
@@ -66,10 +95,12 @@
 //     atb_gemm for dU, embed_grad for dW (for each byte v, the rows whose
 //     id is v, found by a ballot compaction, summed in row order: a
 //     deterministic segmented sum, no atomics) and colsum for db.
-//   * K6 is the same reverse loop (run_reverse) and the same atb_gemm for
-//     dU; the TPU's _bwd_kernel already left dU to one product outside the
-//     recurrence. Under bf16 compute one store_as launch writes dg_seq in
-//     bf16: S + 1 step launches, one or two for dU, and that one.
+//   * K6's per-step design is the same reverse loop (run_reverse) and the
+//     same atb_gemm for dU; the TPU's _bwd_kernel already left dU to one
+//     product outside the recurrence. Under bf16 compute one store_as
+//     launch writes dg_seq in bf16: S + 1 step launches, one or two for
+//     dU, and that one. It runs fp32 compute and the shapes the
+//     persistent design does not take (N = 2048 in bf16).
 //   * The dropout mask costs no bytes: each thread hashes its own (t, b, j)
 //     in the step's epilogue, where it reads dh_seq[t].
 //   * K12 computes K3's function through the same step body, so its dg, dc,
@@ -86,6 +117,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -354,6 +386,441 @@ int run_bwd_scan(const void* UT, const void* g_seq, const void* c_seq,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K6 under bf16 compute: one persistent cooperative launch for the S reverse
+// steps and dh0, U in shared memory, dh_rec on tensor cores.
+//
+// A block owns kUnits = 8 * NT hidden units j0..j0+kUnits-1 (the rows of U
+// whose products give their dh_rec; the gate backward then writes their
+// four gate columns j + qN) and `rows` batch rows b0.. (a part of the
+// batch), so the grid is (N / kUnits) * ceil(B / rows) blocks, at most what
+// is resident. Its U rows (kUnits x 4N bf16) are loaded into shared memory
+// once. Each step, the block's 8 warps split the 4N-long gate axis: dg_{t+1}
+// (its rows, bf16) streams through a ring of kPStages chunks of kPKC gate
+// columns by cp.async (L2 only: other blocks wrote it before the barrier),
+// and in each chunk warp w takes the 16 columns 16w.. as one k step of
+// mma.sync m16n8k16 for every (16-row, 8-unit) tile; the 8 partial sums of
+// each (b, j) meet in shared memory and are added in warp order. The owner
+// thread of (b, j) then runs the gate backward in registers, with dc carried
+// in its registers across the window, and writes dg_t once in bf16 (and in
+// fp32 into dg32 when asked for). A grid barrier closes each step. The
+// step's g, c, c_{t-1} and dh_seq[t] do not depend on the recurrence: each
+// thread loads its own before the barrier that precedes the step.
+constexpr int kPThreads = 256;  // 8 warps
+constexpr int kPWarps = kPThreads / 32;
+constexpr int kPRows = 64;      // batch rows of a block at most: 4 m tiles
+constexpr int kPKC = 16 * kPWarps;  // gate columns of a staged chunk
+constexpr int kPStages = 3;
+// bf16 of padding per shared row: rows of an odd number of 16-byte units,
+// so the eight row addresses of an ldmatrix fall in distinct banks
+constexpr int kPPad = 8;
+constexpr int kPRingPitch = kPKC + kPPad;
+constexpr int kMaxDevices = 64;
+
+// Dynamic shared memory of the persistent K6 (mirrored by
+// ops/cuda_cell_bwd.py:persist_smem_bytes, which holds itself to
+// lstm_bwd_persist_smem_bytes once a card): the group's U rows, then the
+// ring of dg chunks, whose space the cross-warp sums reuse.
+inline size_t persist_smem_bytes(int N, int units) {
+  return 2 * ((size_t)units * (4 * N + kPPad) +
+              (size_t)kPStages * kPRows * kPRingPitch);
+}
+
+template <typename RT, int NT>
+__global__ void __launch_bounds__(kPThreads, 1)
+lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
+                 const RT* __restrict__ g_seq,         // (S, B, 4N)
+                 const RT* __restrict__ c_seq,         // (S, B, N)
+                 const float* __restrict__ c0, const float* __restrict__ dh_seq,
+                 const float* __restrict__ dhT,
+                 float* __restrict__ dc,  // (B, N): dcT in, dc0 out
+                 // (S, B, 4N) dg_seq: written and read within the launch,
+                 // so neither const nor __restrict__ (no non-coherent loads)
+                 __nv_bfloat16* dgx,
+                 float* __restrict__ dg32,  // (S, B, 4N) fp32 dg, or null
+                 float* __restrict__ dh0, Dropout drop, int S, int B, int N,
+                 int rows, int standard) {
+  constexpr int kUnits = 8 * NT;
+  constexpr int kElems = kPRows * kUnits / kPThreads;  // (b, j) a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = 4 * N;
+  const int upitch = K + kPPad;
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Us + (size_t)kUnits * upitch;
+  float* red = reinterpret_cast<float*>(ring);  // [kPWarps][kPRows][kUnits]
+
+  const int groups = N / kUnits;
+  const int j0 = (blockIdx.x % groups) * kUnits;
+  const int b0 = (blockIdx.x / groups) * rows;
+  const int nrows = min(rows, B - b0);
+  const int mtiles = (nrows + 15) / 16;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const size_t bn = (size_t)B * N, bk = (size_t)B * K;
+  cg::grid_group grid = cg::this_grid();
+
+  // U's rows j0.. into shared memory, once
+  for (int p = tid; p < kUnits * (K / 8); p += kPThreads) {
+    const int u = p / (K / 8), k = (p % (K / 8)) * 8;
+    cp_async_16(Us + (size_t)u * upitch + k, U + (size_t)(j0 + u) * K + k, 16);
+  }
+  cp_async_commit();
+
+  // this thread's (b, j): element e = tid + kPThreads * i of the block's
+  // kPRows x kUnits, row-major; valid when its row lies in the block's part
+  int eb[kElems], ej[kElems];
+  bool ev[kElems];
+  float dcr[kElems], gin[kElems][4], cin[kElems], cpin[kElems], dhin[kElems];
+#pragma unroll
+  for (int i = 0; i < kElems; ++i) {
+    const int e = tid + kPThreads * i;
+    eb[i] = b0 + e / kUnits;
+    ej[i] = j0 + e % kUnits;
+    ev[i] = e / kUnits < nrows;
+    dcr[i] = ev[i] ? dc[(size_t)eb[i] * N + ej[i]] : 0.0f;
+  }
+  // the step's inputs that do not depend on the recurrence
+  const auto load_inputs = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      if (!ev[i]) continue;
+      const size_t idx = (size_t)eb[i] * N + ej[i];
+      const size_t gb = t * bk + (size_t)eb[i] * K + ej[i];
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) gin[i][qq] = to_f32(g_seq[gb + (size_t)qq * N]);
+      cin[i] = to_f32(c_seq[t * bn + idx]);
+      cpin[i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
+      dhin[i] = dh_seq[t * bn + idx];
+    }
+  };
+  load_inputs(S - 1);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nchunks = K / kPKC;
+  for (int t = S - 1; t >= -1; --t) {
+    float dh_rec[kElems];
+    if (t == S - 1) {
+#pragma unroll
+      for (int i = 0; i < kElems; ++i)
+        dh_rec[i] = ev[i] ? dhT[(size_t)eb[i] * N + ej[i]] : 0.0f;
+    } else {
+      // dh_rec = round(dg_{t+1}) @ U^T over the block's rows and units
+      const __nv_bfloat16* dgn = dgx + (t + 1) * bk;
+      const auto load_chunk = [&](int c) {
+        __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
+        for (int p = tid; p < mtiles * 16 * (kPKC / 8); p += kPThreads) {
+          const int r = p / (kPKC / 8), k = (p % (kPKC / 8)) * 8;
+          const bool in = r < nrows;
+          cp_async_16(slot + r * kPRingPitch + k,
+                      in ? dgn + (size_t)(b0 + r) * K + c * kPKC + k : dgn,
+                      in ? 16 : 0);
+        }
+      };
+      float acc[4][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kPStages - 1; ++c) {
+        if (c < nchunks) load_chunk(c);
+        cp_async_commit();
+      }
+      for (int c = 0; c < nchunks; ++c) {
+        cp_async_wait<kPStages - 2>();
+        __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
+        if (c + kPStages - 1 < nchunks) load_chunk(c + kPStages - 1);
+        cp_async_commit();
+        const __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
+        const int kk = warp * 16;
+        unsigned bq[4];
+        const __nv_bfloat16* urow =
+            Us + (size_t)(lane % 8 + 8 * (lane / 16)) * upitch + c * kPKC + kk +
+            8 * ((lane / 8) % 2);
+        if (NT == 2)
+          ldmatrix_x4(bq, urow);
+        else
+          ldmatrix_x2(bq, urow);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt >= mtiles) break;
+          unsigned a[4];
+          ldmatrix_x4(a, slot + (mt * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kPRingPitch +
+                             kk + 8 * (lane / 16));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a, bq + 2 * nt);
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // every warp is done with the ring: reuse it as red
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mtiles) break;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* dst = red + ((size_t)warp * kPRows + mt * 16 + g + 8 * h) * kUnits +
+                         nt * 8 + 2 * q;
+            dst[0] = acc[mt][nt][2 * h];
+            dst[1] = acc[mt][nt][2 * h + 1];
+          }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) {
+        const int e = tid + kPThreads * i;
+        float v = 0.0f;
+        if (ev[i])
+#pragma unroll
+          for (int w = 0; w < kPWarps; ++w) v += red[(size_t)w * kPRows * kUnits + e];
+        dh_rec[i] = v;
+      }
+    }
+    if (t == -1) {
+#pragma unroll
+      for (int i = 0; i < kElems; ++i)
+        if (ev[i]) {
+          dh0[(size_t)eb[i] * N + ej[i]] = dh_rec[i];
+          dc[(size_t)eb[i] * N + ej[i]] = dcr[i];
+        }
+      break;
+    }
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      if (!ev[i]) continue;
+      const size_t idx = (size_t)eb[i] * N + ej[i];
+      float dh_cot = dhin[i];
+      // __fmul_rn: the product rounds before the add, as in the TPU kernel
+      if (drop.on) dh_cot = keep_bit(drop, t, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
+      float d[4];
+      gate_bwd(gin[i][0], gin[i][1], gin[i][2], gin[i][3], cin[i], cpin[i],
+               dh_cot + dh_rec[i], dcr[i], standard, d, &dcr[i]);
+      const size_t gb = t * bk + (size_t)eb[i] * K + ej[i];
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        dgx[gb + (size_t)qq * N] = __float2bfloat16(d[qq]);
+        if (dg32 != nullptr) dg32[gb + (size_t)qq * N] = d[qq];
+      }
+    }
+    if (t > 0) load_inputs(t - 1);
+    grid.sync();  // dg_t is complete before any block reads it
+  }
+}
+
+// dU-style products on tensor cores: C (I, J) = sum_r round(A[r, :])^T B[r, :]
+// with A's rows as atb_gemm's (A0 for r < R0, then A1), rounded to bf16 as
+// they are staged, and B (R, J) already bf16. Block tile kGT x kGT (as
+// atb_gemm, so atb_splits and atb_work_floats apply), r chunks of kMR
+// through two shared-memory buffers (the next chunk is loaded into
+// registers while the current one is multiplied). 8 warps, each a 64 x 32
+// tile (4 x 4 mma tiles); both operands are stored [r][.] and enter the
+// products through ldmatrix .trans. Split z sums its r range into
+// out + z*I*J. I is a multiple of 16, J of kGT.
+constexpr int kMR = 32;
+constexpr int kMPitch = kGT + 8;
+
+__device__ __forceinline__ void load16(const float* p, float v[16]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float4 f = *reinterpret_cast<const float4*>(p + 4 * x);
+    v[4 * x] = f.x; v[4 * x + 1] = f.y; v[4 * x + 2] = f.z; v[4 * x + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float v[16]) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p + 8 * x);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+    for (int y = 0; y < 8; ++y) v[8 * x + y] = __bfloat162float(h[y]);
+  }
+}
+
+template <typename AT>
+__global__ void __launch_bounds__(256)
+atb_mma(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
+        const __nv_bfloat16* __restrict__ Bm, float* __restrict__ out, int R,
+        int I, int J, int r_chunk) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][kMR][kMPitch];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][kMR][kMPitch];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wi = (warp / 4) * 64, wj = (warp % 4) * 32;
+  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
+  const int r_begin = blockIdx.z * r_chunk;
+  const int r_end = min(R, r_begin + r_chunk);
+  // staging: this thread's row of a chunk and its 16 columns
+  const int sr = tid / 8, sc = (tid % 8) * 16;
+  float av[16];
+  uint4 bv[2];
+  const auto load = [&](int r0) {
+    const int r = r0 + sr;
+    const bool in_a = r < r_end && i0 + sc < I, in_b = r < r_end;
+#pragma unroll
+    for (int x = 0; x < 16; ++x) av[x] = 0.0f;
+    if (in_a) {
+      if (r < R0)
+        load16(A0 + (size_t)r * I + i0 + sc, av);
+      else
+        load16(A1 + (size_t)(r - R0) * I + i0 + sc, av);
+    }
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    const uint4* src = reinterpret_cast<const uint4*>(Bm + (size_t)r * J + j0 + sc);
+    bv[0] = in_b ? src[0] : zero;
+    bv[1] = in_b ? src[1] : zero;
+  };
+  const auto store = [&](int buf) {
+    uint4* da = reinterpret_cast<uint4*>(&As[buf][sr][sc]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      da[x] = make_uint4(pack_bf16x2(av[8 * x], av[8 * x + 1]),
+                         pack_bf16x2(av[8 * x + 2], av[8 * x + 3]),
+                         pack_bf16x2(av[8 * x + 4], av[8 * x + 5]),
+                         pack_bf16x2(av[8 * x + 6], av[8 * x + 7]));
+    uint4* db = reinterpret_cast<uint4*>(&Bs[buf][sr][sc]);
+    db[0] = bv[0];
+    db[1] = bv[1];
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[a][b][x] = 0.0f;
+
+  load(r_begin);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += kMR) {
+    const bool more = r0 + kMR < r_end;
+    if (more) load(r0 + kMR);
+#pragma unroll
+    for (int ks = 0; ks < kMR; ks += 16) {
+      unsigned a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4_trans(a[mt], &As[buf][ks + lane % 8 + 8 * (lane / 16)]
+                                     [wi + mt * 16 + 8 * ((lane / 8) % 2)]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned x[4];
+        ldmatrix_x4_trans(x, &Bs[buf][ks + lane % 8 + 8 * ((lane / 8) % 2)]
+                                [wj + np * 16 + 8 * (lane / 16)]);
+        b[2 * np][0] = x[0];
+        b[2 * np][1] = x[1];
+        b[2 * np + 1][0] = x[2];
+        b[2 * np + 1][1] = x[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+    }
+    if (more) store(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+  float* C = out + (size_t)blockIdx.z * I * J;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wi + mt * 16 + g + 8 * h;
+      if (i >= I) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(C + (size_t)i * J + j0 + wj + nt * 8 + 2 * q) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+    }
+}
+
+// C = A^T B through atb_mma on `stream`, split over r as run_atb splits it
+// (through `work`, then sum_slabs in a fixed order).
+template <typename AT>
+int run_atb_mma(const float* A0, const AT* A1, int R0, const __nv_bfloat16* Bm,
+                float* C, float* work, int R, int I, int J, cudaStream_t stream,
+                int* launches) {
+  const int splits = atb_splits(R, I, J);
+  int r_chunk = (R + splits - 1) / splits;
+  r_chunk = (r_chunk + kMR - 1) / kMR * kMR;
+  const dim3 grid(J / kGT, (I + kGT - 1) / kGT, splits);
+  atb_mma<AT><<<grid, 256, 0, stream>>>(A0, A1, R0, Bm, splits == 1 ? C : work,
+                                        R, I, J, r_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  if (splits > 1) {
+    const size_t n = (size_t)I * J;
+    sum_slabs<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(work, C, splits, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return 0;
+}
+
+// K6 under bf16 compute, the persistent reverse launch: dg_seq (bf16, and
+// fp32 into dg32 unless null), dh0 and dc0. units: 8 or 16 hidden units a
+// block; rows: 16, 32, 48 or 64 batch rows a block.
+template <typename RT>
+int run_persist(const void* U, const void* g_seq, const void* c_seq,
+                const float* c0, const float* dh_seq, const float* dhT,
+                float* dc, __nv_bfloat16* dgx, float* dg32, float* dh0, int S,
+                int B, int N, int units, int rows, int standard, Dropout drop,
+                cudaStream_t stream, int* launches) {
+  if ((4 * N) % kPKC != 0 || (units != 8 && units != 16) || N % units != 0 ||
+      rows < 16 || rows > kPRows || rows % 16 != 0 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = units == 16 ? lstm_bwd_persist<RT, 2> : lstm_bwd_persist<RT, 1>;
+  const size_t smem = persist_smem_bytes(N, units);
+  // per card, read once: cooperative launch support and the SMs; each
+  // kernel's shared-memory limit raised when a launch needs more
+  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
+  static size_t cap[kMaxDevices][2];
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !ready[dev]) {
+    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) ready[dev] = 1;
+  }
+  size_t* limit = err == cudaSuccess ? &cap[dev][units / 16] : nullptr;
+  if (err == cudaSuccess && *limit < smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess) *limit = smem;
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kPThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
+  const int grid = (N / units) * ((B + rows - 1) / rows);
+  // every block must be resident at once, or the grid barrier never opens
+  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const __nv_bfloat16* u = static_cast<const __nv_bfloat16*>(U);
+  const RT* gs = static_cast<const RT*>(g_seq);
+  const RT* cs = static_cast<const RT*>(c_seq);
+  void* args[] = {&u, &gs, &cs, &c0, &dh_seq, &dhT, &dc, &dgx, &dg32, &dh0,
+                  &drop, &S, &B, &N, &rows, &standard};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(grid), dim3(kPThreads), args, smem,
+                                    stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
+}
+
 }  // namespace
 
 // Scratch floats lstm_bwd_embed_launch needs in `work`.
@@ -460,5 +927,70 @@ extern "C" int lstm_bwd_scan_launch(
   if (ctype == 0 && rtype == 1) return f(run_bwd_scan<float, bf>);
   if (ctype == 1 && rtype == 0) return f(run_bwd_scan<bf, float>);
   if (ctype == 1 && rtype == 1) return f(run_bwd_scan<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The device's SMs and the shared memory a block may opt in to, for the
+// choice between K6's two designs (ops/cuda_cell_bwd.py:k6_plan).
+extern "C" int lstm_bwd_device_limits(int* sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
+}
+
+// Bytes of dynamic shared memory a persistent K6 block of `units` units
+// takes at hidden size N.
+extern "C" size_t lstm_bwd_persist_smem_bytes(int N, int units) {
+  return persist_smem_bytes(N, units);
+}
+
+// K6 under bf16 compute, the persistent design's reverse launch: the S
+// reverse steps and dh0 in one cooperative launch. U is (N, 4N) in bf16
+// (not transposed); the residual sequences have the residual type (rtype
+// 0 = fp32, 1 = bf16). dgx receives dg_seq (S, B, 4N) in bf16, dg32 the fp32
+// dg or is null. units, rows: ops/cuda_cell_bwd.py:k6_plan. Other
+// arguments and results as lstm_bwd_scan_launch's.
+extern "C" int lstm_bwd_scan_persist_launch(
+    int rtype, const void* U, const void* g_seq, const void* c_seq,
+    const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dgx,
+    void* dg32, void* dh0, int S, int B, int N, int units, int rows,
+    int standard, int drop_on, unsigned seed, unsigned keep, float inv,
+    void* stream, int* launches) {
+  const Dropout drop{drop_on, seed, keep, inv};
+  const auto f = [&](auto run) {
+    return run(U, g_seq, c_seq, static_cast<const float*>(c0),
+               static_cast<const float*>(dh_seq),
+               static_cast<const float*>(dhT), static_cast<float*>(dc),
+               static_cast<__nv_bfloat16*>(dgx), static_cast<float*>(dg32),
+               static_cast<float*>(dh0), S, B, N, units, rows, standard, drop,
+               static_cast<cudaStream_t>(stream), launches);
+  };
+  if (rtype == 0) return f(run_persist<float>);
+  if (rtype == 1) return f(run_persist<__nv_bfloat16>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The persistent design's dU = round(h_{t-1})^T dg_seq on tensor cores, one
+// launch or a split and a fixed-order sum: h0 is h_{-1} rounded to the
+// residual type, in fp32, h_seq has the residual type, dgx is dg_seq in
+// bf16; work as lstm_bwd_scan_work_floats. N a multiple of 32.
+extern "C" int lstm_bwd_scan_dU_launch(int rtype, const void* h_seq,
+                                       const void* h0, const void* dgx,
+                                       void* dU, void* work, int S, int B,
+                                       int N, void* stream, int* launches) {
+  if (N % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [&](auto* a1) {
+    return run_atb_mma(static_cast<const float*>(h0), a1, B,
+                       static_cast<const __nv_bfloat16*>(dgx),
+                       static_cast<float*>(dU), static_cast<float*>(work),
+                       S * B, N, 4 * N, static_cast<cudaStream_t>(stream),
+                       launches);
+  };
+  if (rtype == 0) return f(static_cast<const float*>(h_seq));
+  if (rtype == 1) return f(static_cast<const __nv_bfloat16*>(h_seq));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,10 +14,16 @@ that kernel (``EIGEN_LSTM_BWD_UNROLL=2``; ``ops.dispatch.bwd_unroll2``).
 the dU product of ``_bwd_core`` (:393-414), the backward of
 ``pallas_scan_layer``: it returns dg_seq (S, B, 4N) in the xw type (bf16
 under bf16 compute), dU (N, 4N), dh0 and dc0, fp32. dg_seq is the
-cotangent of xw = x @ W + b, from which autograd takes db, dW and dx.
+cotangent of xw = x @ W + b, from which autograd takes db, dW and dx. K6
+has two designs (``csrc/lstm_bwd.cu``), the same function: under bf16
+compute, where its grid can be resident, one persistent launch for the
+reverse steps with U in shared memory and tensor-core products
+(``lstm_bwd_scan_persist_launch``); elsewhere (fp32 compute, or N = 2048 in
+bf16) one launch a reverse step (``lstm_bwd_scan_launch``). ``k6_plan``
+chooses from the shape, the type and the device's SMs and shared memory.
 
 For a CUDA tensor each launches ``lstm_bwd_embed_launch``,
-``lstm_bwd_embed_unroll2_launch`` or ``lstm_bwd_scan_launch`` of
+``lstm_bwd_embed_unroll2_launch`` or K6's launchers of
 ``csrc/lstm_bwd.cu`` or raises; for a CPU
 tensor it runs its plain version, which repeats the kernel's arithmetic:
 dg in fp32 (``_reverse_plain``), rounded to the compute type before
@@ -48,6 +54,7 @@ custom VJPs do, they hand dW and dU back rounded to the compute type
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -146,6 +153,66 @@ def scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
     return dg_x, dU, dh, dc
 
 
+# The persistent K6's shared-memory layout, as csrc/lstm_bwd.cu lays it out
+# (persist_smem_bytes; ``_device_limits`` holds the two equal): a group's U
+# rows, each 4N + PAD bf16, then a ring of STAGES chunks of at most ROWS
+# batch rows by KC gate columns, each row KC + PAD bf16.
+PERSIST_ROWS, PERSIST_KC, PERSIST_STAGES, PERSIST_PAD = 64, 128, 3, 8
+
+
+def persist_smem_bytes(n: int, units: int) -> int:
+    """Bytes of dynamic shared memory a persistent K6 block takes."""
+    return 2 * (units * (4 * n + PERSIST_PAD)
+                + PERSIST_STAGES * PERSIST_ROWS * (PERSIST_KC + PERSIST_PAD))
+
+
+def k6_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int):
+    """K6's design at (config, batch, hidden) on a device of ``sms`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory: (units,
+    rows) for the persistent design, a block holding ``units`` rows of U
+    and ``rows`` batch rows, its grid (n / units) * ceil(b / rows) blocks
+    at one a SM; None for the per-step design.
+
+    The persistent design needs bf16 compute (the tensor cores; fp32
+    products keep TF32 off) and a grid that is resident at once. Units: 16
+    where their U rows fit, else 8 (fewer, wider groups read dg_{t+1} from
+    L2 fewer times a step); rows: the fewest of 16, 32, 48, 64 whose grid
+    fits the SMs (more blocks share the same reads)."""
+    if cfg.cdtype != torch.bfloat16 or n % 32 != 0:
+        return None
+    fits = [u for u in (16, 8) if persist_smem_bytes(n, u) <= smem_limit]
+    if not fits:
+        return None
+    units = fits[0]
+    for rows in (16, 32, 48, PERSIST_ROWS):
+        if n // units * -(-b // rows) <= sms:
+            return units, rows
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SMs, shared memory a block may opt in to) of card ``index``, read
+    once; checks that the library lays out the persistent K6's shared
+    memory as ``persist_smem_bytes`` does."""
+    lib = _build.load_library()
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        cuda_cell._raise_on(lib.lstm_bwd_device_limits(ctypes.byref(sms),
+                                                       ctypes.byref(smem)),
+                            "lstm_bwd_device_limits")
+    for n, units in ((1024, 8), (1024, 16), (2048, 16)):
+        if lib.lstm_bwd_persist_smem_bytes(n, units) != persist_smem_bytes(n, units):
+            raise RuntimeError("persist_smem_bytes disagrees with "
+                               "csrc/lstm_bwd.cu's layout")
+    return sms.value, smem.value
+
+
+def device_k6_plan(cfg: ModelConfig, b: int, n: int):
+    """``k6_plan`` with the current card's SMs and shared-memory limit."""
+    return k6_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
 def _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
               cfg: ModelConfig, dg_out):
     s, b = h_seq.shape[:2]
@@ -175,11 +242,12 @@ def _dg_scratch(dg_out, s, b, n, device):
     return dg_out
 
 
-def _kernel_inputs(U_c, seqs, cfg: ModelConfig, *fp32):
-    """U^T in the compute type, the residual sequences in the residual type
-    and the rest in fp32, all contiguous."""
-    UT = U_c.to(cfg.cdtype).t().contiguous()
-    return (UT, [x.to(cfg.rdtype).contiguous() for x in seqs],
+def _kernel_inputs(U_c, seqs, cfg: ModelConfig, *fp32, transpose=True):
+    """U^T (U with ``transpose`` False) in the compute type, the residual
+    sequences in the residual type and the rest in fp32, all contiguous."""
+    U_k = U_c.to(cfg.cdtype)
+    return ((U_k.t() if transpose else U_k).contiguous(),
+            [x.to(cfg.rdtype).contiguous() for x in seqs],
             [x.to(torch.float32).contiguous() for x in fp32])
 
 
@@ -285,26 +353,51 @@ def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
     s, b, n = h_seq.shape
     dev = h_seq.device
     f32 = dict(dtype=torch.float32, device=dev)
+    plan = device_k6_plan(cfg, b, n)
     # h_{-1} rounded to the residual type, as _bwd_core concatenates it
-    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
-                                   h0.to(cfg.rdtype), c0, dh_seq, dhT)
+    U_k, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
+                                    h0.to(cfg.rdtype), c0, dh_seq, dhT,
+                                    transpose=plan is None)
     dc = dcT.to(torch.float32).clone().contiguous()
-    dg = _dg_scratch(dg_out, s, b, n, dev)
-    dgx = (dg if cuda_cell.xw_type(cfg) == torch.float32
-           else torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=dev))
     dU = torch.empty(n, 4 * n, **f32)
     dh0 = torch.empty(b, n, **f32)
     lib = _build.load_library()
     work = torch.empty(max(1, lib.lstm_bwd_scan_work_floats(s, b, n)), **f32)
     launched = ctypes.c_int(0)
-    err = lib.lstm_bwd_scan_launch(
-        ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
-        *(x.data_ptr() for x in ins), dc.data_ptr(), dg.data_ptr(),
-        dgx.data_ptr(), dU.data_ptr(), dh0.data_ptr(), work.data_ptr(),
-        s, b, n, *_launch_args(cfg, dropout, dev), ctypes.byref(launched),
-    )
+    if plan is not None:
+        # dg_seq written once, in bf16; the fp32 dg only into dg_out
+        g_k, c_k, h_k = seqs
+        h0_k, c0_k, dh_k, dhT_k = ins
+        dgx = torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=dev)
+        name = "lstm_bwd_scan_persist_launch"
+        err = lib.lstm_bwd_scan_persist_launch(
+            rtype, U_k.data_ptr(), g_k.data_ptr(), c_k.data_ptr(),
+            c0_k.data_ptr(), dh_k.data_ptr(), dhT_k.data_ptr(), dc.data_ptr(),
+            dgx.data_ptr(), None if dg_out is None else dg_out.data_ptr(),
+            dh0.data_ptr(), s, b, n, *plan, *_launch_args(cfg, dropout, dev),
+            ctypes.byref(launched),
+        )
+        if err == 0:
+            name = "lstm_bwd_scan_dU_launch"
+            err = lib.lstm_bwd_scan_dU_launch(
+                rtype, h_k.data_ptr(), h0_k.data_ptr(), dgx.data_ptr(),
+                dU.data_ptr(), work.data_ptr(), s, b, n,
+                torch.cuda.current_stream(dev).cuda_stream,
+                ctypes.byref(launched))
+    else:
+        dg = _dg_scratch(dg_out, s, b, n, dev)
+        dgx = (dg if cuda_cell.xw_type(cfg) == torch.float32
+               else torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=dev))
+        name = "lstm_bwd_scan_launch"
+        err = lib.lstm_bwd_scan_launch(
+            ctype, rtype, U_k.data_ptr(),
+            *(x.data_ptr() for x in seqs), *(x.data_ptr() for x in ins),
+            dc.data_ptr(), dg.data_ptr(), dgx.data_ptr(), dU.data_ptr(),
+            dh0.data_ptr(), work.data_ptr(), s, b, n,
+            *_launch_args(cfg, dropout, dev), ctypes.byref(launched),
+        )
     scan_layer_bwd.launches += launched.value
-    cuda_cell._raise_on(err, "lstm_bwd_scan_launch")
+    cuda_cell._raise_on(err, name)
     return dgx, dU, dh0, dc
 
 

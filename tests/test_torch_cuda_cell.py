@@ -193,7 +193,8 @@ def test_build_reports_missing_nvcc(monkeypatch):
     assert [os.path.basename(p) for p in _build.sources()] == [
         "adagrad.cu", "head.cu", "lstm_bwd.cu", "lstm_fwd.cu", "lstm_tiled.cu",
         "lstm_tp.cu", "sampler.cu"]
-    assert [os.path.basename(p) for p in _build.headers()] == ["common.cuh"]
+    assert [os.path.basename(p) for p in _build.headers()] == [
+        "common.cuh", "mma.cuh"]
 
 
 def test_port_imports_no_jax():
