@@ -33,7 +33,11 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          launch counts of the run against what its shapes give, and each
          kernel's share of the step; (c) 100 steps of the bench's Trainer
          in fp32 through the kernels, each step's loss and gradients held
-         against the plain versions from the same state.
+         against the plain versions from the same state; (d) the bench's
+         schedule once more from the JAX bench's step-0 state
+         (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
+         parameters, accumulators, cursors and stream state), train_bpc
+         beside the JAX package's 2.5572 and the root band (reported).
 Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          (a) K1, K2, K3 and K6 (the layers >= 1 backward) against their
          plain versions with the flagship's weights, fp32 and bf16, without
@@ -65,16 +69,21 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          against their plain versions at those shapes, without and with
          dropout, and in fp32 at the flagship's fp32 shapes (S = 256,
          N = 1024): every step replayed, the masked streams against the
-         numpy keep-mask bit for bit; times beside the bound, the plain
-         version, K1/K2/K6 at the same shapes (K6 on its per-step design,
-         gated) and cuDNN; (b) one window's
+         numpy keep-mask bit for bit; K8 and K9 in bf16 in their
+         persistent design (one launch a call, gated) and, forced, their
+         per-step one (S launches), both held to those gates; times of
+         both designs beside the bound,
+         the plain version, K1/K2/K6 at the same shapes (K6 on its
+         per-step design, gated) and cuDNN, and at the eval batch of 16;
+         fp32 on the per-step design (gated); (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
          kernels against plain; (c) the 5b recipe through the CLI's
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
          step time, chars/s, the bits of each superstep, the launches
-         against what the shapes give; then held-out bits/char of those
-         weights on enwik6's last 1 % at eval batch 16 through K8, kernels
-         against plain.
+         against what the shapes give (K8 as many a step as one call of
+         9a), K8's share of the step; then held-out bits/char of those
+         weights on enwik6's last 1 % at eval batch 16 through K8 alone,
+         one launch a window, kernels against plain.
 
 Phase 10 the last two single-card kernels and the modules of this path:
          (a) the fused Adagrad K11 against its plain version on the
@@ -1024,7 +1033,48 @@ def phase6b(per_call):
         if counts[name] != steps * n_call:
             fail(f"bench: {name} launched {counts[name]} times, the path's "
                  f"shapes give {steps} x {n_call}")
-    return counts, step_ms
+    return counts, step_ms, bpc
+
+
+# The JAX bench's step-0 state (tests/jax_bench_start.py writes it with the
+# JAX Trainer.save; tests/test_torch_bench_start.py holds it to the JAX
+# package and to the port's restore) and the JAX package's train_bpc of
+# the bench on its TPU from that start (BENCH_r05.json)
+JAX_BENCH_START = "artifacts/bench_jax_start/state0.npz"
+JAX_BENCH_BPC = 2.5572
+
+
+def phase6d(own_bpc):
+    """The port's bench schedule once more, from the JAX bench's step-0
+    state restored into the port's bench Trainer: the parameters,
+    accumulators, cursors and stream state the JAX PRNG drew, then the same
+    steps on the card. train_bpc printed beside the JAX package's, the
+    root band and the port's own start (6b): reported, not gated."""
+    from eigen_lstm_tpu_torch import bench
+    from eigen_lstm_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(bench.DEFAULT_ARGV)
+    trainer = bench.make_trainer(args)
+    trainer.restore(JAX_BENCH_START)
+    start = trainer.step
+    warmup, windows, per_window = bench.schedule(args)
+    first = None
+    t0 = time.perf_counter()
+    for _ in range(warmup + windows * per_window):
+        trainer.state, metrics = trainer.dispatch_superstep()
+        if first is None:
+            first = float(metrics["bits_mean"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    bpc = float(metrics["bits_mean"])
+    lo, hi = bench.BPC_BAND
+    print(f"  bench from the JAX start ({JAX_BENCH_START}, step {start} on "
+          f"restore): {trainer.step - start} steps in {dt:.1f} s; mean bits of the "
+          f"first superstep {first:.4f}, train_bpc {bpc:.4f} (the last "
+          f"superstep's mean) against the JAX package's {JAX_BENCH_BPC} on its "
+          f"TPU: {bpc - JAX_BENCH_BPC:+.4f}; the root band ({lo}, {hi}) "
+          f"{'met' if lo <= bpc <= hi else 'NOT met'}; from the port's own "
+          f"start (6b) {own_bpc} (reported, not gated)", flush=True)
 
 
 def phase6c():
@@ -1138,12 +1188,13 @@ def masked(x, mask, inv):
 
 def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
               inv, tag, per_call, source="eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
-              time_cfg=None):
+              time_cfg=None, timed=True):
     """A forward kernel at the training shapes, with residuals: every step
     against its plain replay, and under dropout the masked stream, the
     kernel's and the plain version's, against the numpy mask of their own
     h_seq, bit for bit. The times are taken at ``time_cfg`` (default
-    ``cfg``). Returns (output, record)."""
+    ``cfg``). Returns (output, record), the record None when not
+    ``timed``."""
     s, b = seq.shape[:2]
     before = kern.launches
     out = kern(layer, seq, h0, c0, cfg, residuals=True, dropout=dropout)
@@ -1169,6 +1220,8 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
                  f"for bit, kernel and plain ({float((~mask).float().mean()):.4f} "
                  "dropped)")
     print(f"  {name} {tag}: {line}", flush=True)
+    if not timed:
+        return out, None
     tc = time_cfg or cfg
     call = lambda fn: fn(layer, seq, h0, c0, tc, residuals=True, dropout=dropout)
     ms = cuda_ms(lambda: call(kern), reps=2, windows=3)
@@ -1813,24 +1866,103 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# K8 and K9's per-step design (one launch a step) as PERF.md §6 rows 6 and
+# 8 record it (NVIDIA H100 80GB HBM3, 700 W): bf16 at the 5b shapes and
+# fp32 at the flagship's, without and with dropout 0.35
+TILED_PER_STEP_RECORDED_MS = {
+    ("tiled_fwd_embed", "bfloat16"): {0.0: 16.70, FLAG_DROP: 16.68},
+    ("tiled_fwd_scan", "bfloat16"): {0.0: 17.02, FLAG_DROP: 16.84},
+    ("tiled_fwd_embed", "float32"): {0.0: 22.11, FLAG_DROP: 22.54},
+    ("tiled_fwd_scan", "float32"): {0.0: 23.97, FLAG_DROP: 24.14},
+}
+
+
+def tiled_design(cfg, b, n):
+    """K8/K9's design at these shapes on this card, as their wrappers
+    choose it (``cuda_cell_tiled.tiled_fwd_plan``): a label, and whether
+    it is persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (PERSIST_UNITS,
+                                                          device_tiled_fwd_plan)
+
+    kres = device_tiled_fwd_plan(cfg, b, n)
+    if kres is None:
+        return "the per-step design (one launch a step)", False
+    return (f"the persistent design ({n // PERSIST_UNITS} blocks of "
+            f"{PERSIST_UNITS} units and all {b} batch rows, {kres} of U's {n} "
+            f"rows in shared memory, one cooperative launch a window)"), True
+
+
+@contextlib.contextmanager
+def per_step_tiled():
+    """K8 and K9 take their per-step design inside the block, whatever
+    ``tiled_fwd_plan`` would choose: for the checks and times of that
+    design where the main path takes the persistent one."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    plan = ct.device_tiled_fwd_plan
+    ct.device_tiled_fwd_plan = lambda *a: None
+    try:
+        yield
+    finally:
+        ct.device_tiled_fwd_plan = plan
+
+
+def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
+                     per_call, timed=True):
+    """K8, then K9 on layer 1's xw from K8's stream, through the
+    ``fwd_check`` gates, and where ``run_cfg`` keeps bf16 residuals the
+    bf16-residual rule on both; returns (K8's output, K9's output in the
+    residual type of ``run_cfg``, xw, K8's record, K9's record)."""
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    s, b = x.shape
+    n = cfg.hidden
+    out1, rec8 = fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+                           ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg,
+                           dr[0], masks[0], inv, tag, per_call, TILED_SOURCE,
+                           run_cfg, timed)
+    h_in = (out1[4] if dr[0] else out1[0]).float()
+    xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
+          .reshape(s, b, 4 * n) + l1.b)
+    out2, rec9 = fwd_check("tiled_fwd_scan", "scan", ct.tiled_scan_layer,
+                           ct.tiled_scan_layer_plain, l1, xw, h0, c0, cfg,
+                           dr[1], masks[1], inv, tag, per_call, TILED_SOURCE,
+                           run_cfg, timed)
+    if run_cfg is not cfg:
+        for name, fn, lay_, seq, d, ref in (
+                ("tiled_fwd_embed", ct.tiled_embed_layer0, l0, x, dr[0], out1),
+                ("tiled_fwd_scan", ct.tiled_scan_layer, l1, xw, dr[1], out2)):
+            check_bf16_residuals(f"{name} {tag}", fn(
+                lay_, seq, h0, c0, run_cfg, residuals=True, dropout=d), ref)
+        out2 = ct.tiled_scan_layer(l1, xw, h0, c0, run_cfg, residuals=True,
+                                   dropout=dr[1])
+    return out1, out2, xw, rec8, rec9
+
+
 def phase9a(records):
     """K8, K9 and K10 against their plain versions at the 5b shapes (bf16;
     random weights that make the gates move, as the 5b recipe trains from
     random weights) and at the flagship's fp32 training shapes (its layers
-    0 and 1), without and with dropout 0.35; times beside the bound, the
-    plain version, K1/K2/K6 at the same shapes and cuDNN; the heads'
-    launches at the 5b shapes. Returns the launches of one call of each."""
+    0 and 1), without and with dropout 0.35; in bf16 K8 and K9's persistent
+    design and, forced, their per-step one, each held to the same gates
+    and timed in this run, and both at the eval batch of 16; times beside
+    the bound, the plain version, K1/K2/K6 at the same shapes and cuDNN;
+    the heads' launches at the 5b shapes. Returns the launches of one call
+    of each at the 5b shapes."""
     from eigen_lstm_tpu_torch.models.lstm import LayerParams
-    from eigen_lstm_tpu_torch.ops import cell as cell_ops
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
 
-    per_call = {}
+    calls = {}
     inv = torch.tensor(float(np.float32(1.0 / (1.0 - FLAG_DROP))), device=DEVICE)
     m = 256
+    fwd = {"tiled_fwd_embed": ct.tiled_embed_layer0,
+           "tiled_fwd_scan": ct.tiled_scan_layer}
     for dtype, s, n in (("bfloat16", B5_S, B5_N), ("float32", FLAG_S, 1024)):
         b = B5_B
+        per_call = {}
         gen = torch.Generator().manual_seed(9)
         rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
         if dtype == "bfloat16":
@@ -1855,25 +1987,37 @@ def phase9a(records):
         for drop in (0.0, FLAG_DROP):
             tag = f"{dtype} N={n} S={s} drop {drop:g}"
             dr = [(drop, sd) if drop else None for sd in FLAG_SEEDS]
-            out1, rec8 = fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
-                                   ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg,
-                                   dr[0], masks[0], inv, tag, per_call,
-                                   TILED_SOURCE, run_cfg)
-            h_in = (out1[4] if drop else out1[0]).float()
-            xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
-                  .reshape(s, b, 4 * n) + l1.b)
-            out2, rec9 = fwd_check("tiled_fwd_scan", "scan", ct.tiled_scan_layer,
-                                   ct.tiled_scan_layer_plain, l1, xw, h0, c0, cfg,
-                                   dr[1], masks[1], inv, tag, per_call,
-                                   TILED_SOURCE, run_cfg)
-            if run_cfg is not cfg:
-                for name, fn, lay_, seq, d, ref in (
-                        ("tiled_fwd_embed", ct.tiled_embed_layer0, l0, x, dr[0], out1),
-                        ("tiled_fwd_scan", ct.tiled_scan_layer, l1, xw, dr[1], out2)):
-                    check_bf16_residuals(f"{name} {tag}", fn(
-                        lay_, seq, h0, c0, run_cfg, residuals=True, dropout=d), ref)
-                out2 = ct.tiled_scan_layer(l1, xw, h0, c0, run_cfg,
-                                           residuals=True, dropout=dr[1])
+            design, persistent = tiled_design(run_cfg, b, n)
+            print(f"  tiled_fwd_embed, tiled_fwd_scan {tag}: {design}", flush=True)
+            if persistent != (dtype == "bfloat16"):
+                fail(f"tiled forward {tag}: {design}; these shapes take the "
+                     f"persistent design in bf16 alone")
+            out1, out2, xw, rec8, rec9 = tiled_fwd_checks(
+                l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag, per_call)
+            seqs = {"tiled_fwd_embed": (l0, x, dr[0]),
+                    "tiled_fwd_scan": (l1, xw, dr[1])}
+            if persistent:
+                # the per-step design, which tiled_fwd_plan keeps for fp32
+                # and other shapes and cards, held to the same gates on the
+                # same inputs and timed in this run
+                step_call = {}
+                with per_step_tiled():
+                    tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks,
+                                     inv, tag + " (the per-step design)",
+                                     step_call, timed=False)
+                    for rec in (rec8, rec9):
+                        lay_, seq, d = seqs[rec["name"]]
+                        rec["per_step_ms"] = cuda_ms(
+                            lambda: fwd[rec["name"]](lay_, seq, h0, c0, run_cfg,
+                                                     residuals=True, dropout=d),
+                            reps=2, windows=3)
+                if any(step_call[k] != s for k in fwd):
+                    fail(f"tiled forward {tag}, the per-step design: launches "
+                         f"{step_call}, one a step gives {s}")
+            want = 1 if persistent else s
+            if any(per_call[k] != want for k in fwd):
+                fail(f"tiled forward {tag}: launches a call {per_call}, "
+                     f"{design} gives {want}")
             rec10 = tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT,
                                     run_cfg, dr[1], masks[1], inv, tag, per_call)
             # the resident kernels at the same shapes (the path's types)
@@ -1883,10 +2027,11 @@ def phase9a(records):
             k2 = cuda_ms(lambda: cuda_cell.scan_layer(
                 l1, xw, h0, c0, run_cfg, residuals=True, dropout=dr[1]),
                 reps=1, windows=3)
+            h_in = (out1[4] if drop else out1[0]).float()
             res = cuda_cell.scan_layer(l1, xw, h0, c0, run_cfg, residuals=True)
-            design, persistent = k6_design(run_cfg, b, n)
-            print(f"  lstm_bwd_scan {tag}: {design}", flush=True)
-            if persistent:
+            design6, persistent6 = k6_design(run_cfg, b, n)
+            print(f"  lstm_bwd_scan {tag}: {design6}", flush=True)
+            if persistent6:
                 fail(f"lstm_bwd_scan {tag}: the persistent design where the "
                      f"per-step one applies")
             k6 = cuda_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
@@ -1899,14 +2044,23 @@ def phase9a(records):
                 rec.update(replaces=TILED_REPLACES[rec["name"]], library_ms=lib,
                            resident_ms=resident)
                 records[("9a", rec["name"], dtype, drop)] = rec
+                line = ""
+                if rec["name"] in fwd:
+                    old = TILED_PER_STEP_RECORDED_MS[(rec["name"], dtype)][drop]
+                    line = (f"; the per-step design {rec['per_step_ms']:.4f} ms "
+                            f"in this run ({s} launches)" if persistent else "")
+                    line += f"; PERF.md's per-step row {old} ms"
                 print(f"  {rec['name']} {tag}: {rec['ms']:.4f} ms per window "
                       f"({per_call[rec['name']]} launches), plain "
                       f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
                       f"({rec['bound_by']}), the resident kernel "
                       f"({RESIDENT[rec['name']]}) {resident:.4f} ms, cuDNN nn.LSTM "
                       f"{'backward ' if 'bwd' in rec['name'] else ''}"
-                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}{line}",
+                      flush=True)
         if dtype == "bfloat16":
+            calls = per_call
+            tiled_eval_times(l0, l1, gen, n, run_cfg)
             # the heads at the 5b shapes (T = S*B, N = 2048): launches a
             # call and times
             t = s * b
@@ -1915,15 +2069,50 @@ def phase9a(records):
             tg, cot = x.reshape(t), torch.tensor(LN2 / t, device=DEVICE)
             before = head.head_fwd.launches
             _, lse = head.head_fwd(Why_c, by, h_c, tg, cfg)
-            per_call["head_fwd"] = head.head_fwd.launches - before
+            calls["head_fwd"] = head.head_fwd.launches - before
             before = head.head_bwd.launches
             head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
-            per_call["head_bwd"] = head.head_bwd.launches - before
+            calls["head_bwd"] = head.head_bwd.launches - before
             for name, fn in (("head_fwd", lambda: head.head_fwd(Why_c, by, h_c, tg, cfg)),
                              ("head_bwd", lambda: head.head_bwd(Why_c, by, h_c, tg,
                                                                 lse, cot, cfg))):
                 records[("9a", name)] = cuda_ms(fn, reps=5, windows=3)
-    return per_call
+    return calls
+
+
+def tiled_eval_times(l0, l1, gen, n, cfg):
+    """K8 and K9 at the eval batch of 16 (one CHUNK-step window, no
+    residuals, as ``evaluate_bpc`` calls them), both designs: launches a
+    call, the times in this run beside the bound; the persistent design is
+    gated as the one these shapes take."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    s, b = CHUNK, EVAL_BATCH
+    x = corpus_window(ENWIK6, 0.99, gen, s, b)[0]
+    xw = (torch.randn(s, b, 4 * n, generator=gen) * 0.3).to(DEVICE)
+    h0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
+    c0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
+    design, persistent = tiled_design(cfg, b, n)
+    if not persistent:
+        fail(f"tiled forward at the eval batch {b}: {design}")
+    for name, fn, layer, seq, kind in (
+            ("tiled_fwd_embed", ct.tiled_embed_layer0, l0, x, "embed"),
+            ("tiled_fwd_scan", ct.tiled_scan_layer, l1, xw, "scan")):
+        call = lambda: fn(layer, seq, h0, c0, cfg)
+        before = fn.launches
+        call()
+        launched = fn.launches - before
+        ms = cuda_ms(call, reps=2, windows=3)
+        with per_step_tiled():
+            step_ms = cuda_ms(call, reps=2, windows=3)
+        bound_ms, bound_by = bound(kind, cfg, s, b, n, cfg.vocab)
+        print(f"  {name} at the eval batch (B={b}, S={s}, N={n}, bf16, no "
+              f"residuals): {design}; {ms:.4f} ms a window ({launched} "
+              f"launches), the per-step design {step_ms:.4f} ms in this run, "
+              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+        if launched != 1:
+            fail(f"{name} at the eval batch: {launched} launches a call, the "
+                 f"persistent design gives 1")
 
 
 def phase9b():
@@ -1986,7 +2175,7 @@ def phase9c(per_call, records):
     from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
     from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
-    from eigen_lstm_tpu_torch.train.evaluator import evaluate_bpc
+    from eigen_lstm_tpu_torch.train.evaluator import _build_streams, evaluate_bpc
 
     trainer = _make_trainer(build_parser().parse_args(B5_ARGV))
     cfg = trainer.mcfg
@@ -2030,13 +2219,17 @@ def phase9c(per_call, records):
     if not all(np.isfinite(bits)) or not means[-1] < min(8.0, means[0]):
         fail(f"5b steps: bits not finite, or the last superstep's mean "
              f"{means[-1]:.4f} not below 8.0 and the first's {means[0]:.4f}")
+    # K8 as many launches a step as one call at these shapes gives (its
+    # design's: 1 persistent, S per-step; 9a), K10 S
     want = {name: 0 for name in counters}
-    want.update(tiled_fwd_embed=B5_STEPS * B5_S, tiled_bwd=B5_STEPS * B5_S,
+    want.update(tiled_fwd_embed=B5_STEPS * per_call["tiled_fwd_embed"],
+                tiled_bwd=B5_STEPS * per_call["tiled_bwd"],
                 head_fwd=B5_STEPS * per_call["head_fwd"],
                 head_bwd=B5_STEPS * per_call["head_bwd"], adagrad=B5_STEPS)
     if counts != want:
         fail(f"5b steps: launches {counts}, the path's shapes give {want}")
     test = trainer.test_np
+    design, _ = tiled_design(cfg, EVAL_BATCH, cfg.hidden)
     kern = select_cell_fn("auto", cfg, EVAL_BATCH, DEVICE)
     plain = select_cell_fn("plain", cfg, EVAL_BATCH, DEVICE)
     params = trainer.state.params
@@ -2048,14 +2241,23 @@ def phase9c(per_call, records):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     eval_counts = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    t0 = time.perf_counter()
+    evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, None, kern)
+    torch.cuda.synchronize()
+    warm = len(test) / (time.perf_counter() - t0)
     bpc_p = evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, None, plain)
     rel = abs(bpc_k - bpc_p) / bpc_p
+    # one K8 call a CHUNK-step window of the eval streams, one launch a call
+    windows = _build_streams(test, EVAL_BATCH, CHUNK, None)[-1]
     print(f"  5b eval, enwik6's last {len(test)} bytes at B={EVAL_BATCH}: "
           f"kernels {bpc_k:.6f} plain {bpc_p:.6f} (rel {rel:.2e}, rtol "
-          f"{BPC_RTOL:g}), {len(test) / dt:,.0f} bytes/s, launches "
-          f"{eval_counts}", flush=True)
-    if not np.isfinite(bpc_k) or rel > BPC_RTOL or set(eval_counts) != {"tiled_fwd_embed"}:
-        fail("5b eval: bits/char out of tolerance, or not through K8 alone")
+          f"{BPC_RTOL:g}), {len(test) / dt:,.0f} bytes/s (a second call "
+          f"{warm:,.0f}), launches "
+          f"{eval_counts} over {windows} windows; K8's design: {design}",
+          flush=True)
+    if not np.isfinite(bpc_k) or rel > BPC_RTOL or eval_counts != {"tiled_fwd_embed": windows}:
+        fail(f"5b eval: bits/char out of tolerance, or not through K8 alone, "
+             f"one launch a window ({windows})")
     return counts, step_ms
 
 
@@ -2866,13 +3068,15 @@ def main():
     check_budget("phase 5 (training kernels against plain)")
     phase6a()
     check_budget("phase 6a (loss and gradients, kernels against plain)")
-    counts, step_ms = phase6b(per_call)
+    counts, step_ms, own_bpc = phase6b(per_call)
     for name in ("lstm_fwd_embed", "lstm_bwd_embed", "head_fwd", "head_bwd"):
         ms = (records[("k1_train", "bfloat16")] if name == "lstm_fwd_embed"
               else records[(name, "bfloat16")]["ms"])
         print(f"  {name}: {ms:.4f} ms a step, {100 * ms / step_ms:.1f} % of "
               f"the {step_ms:.3f} ms bench step", flush=True)
     check_budget("phase 6b (the bench)")
+    phase6d(own_bpc)
+    check_budget("phase 6d (the bench from the JAX start)")
     phase6c()
     check_budget("phase 6c (100 fp32 training steps)")
     flag_call = phase7a(records)
@@ -2924,6 +3128,7 @@ def main():
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
         rec = dict(records[("9a", name, "bfloat16", 0.0)], launches=count)
         rec.pop("resident_ms")
+        rec.pop("per_step_ms", None)
         kernels.append(rec)
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
     # its B = 64 shapes

@@ -62,9 +62,8 @@
 // 179 KB of the 227 KB; so the flagship's grid is 64 groups x 2 batch
 // halves = 128 blocks, one an SM. On the H100 a step then takes ~23 us:
 // ~5 us for the grid barrier and the epilogue, the rest the product,
-// whose 64 MB of dg reads run at ~4 TB/s across the SMs (PERF.md;
-// eigen_lstm_tpu_torch/tools/k6_variants.py). Left for later: wgmma in place of
-// mma.sync, TMA multicast of dg_{t+1} over a cluster of blocks that share
+// whose 64 MB of dg reads run at ~4 TB/s across the SMs (PERF.md). Left
+// for later: wgmma in place of mma.sync, TMA multicast of dg_{t+1} over a cluster of blocks that share
 // batch rows (cutting the L2 reads by the cluster size), and fp32 compute
 // (TF32 is off for fp32 products, so the tensor cores cannot serve it: the
 // per-step design runs it, and shapes whose grid would not be resident).

@@ -1,7 +1,7 @@
 // The tiled-U LSTM recurrence for Hopper (sm_90a): the kernels of the
 // regime where U no longer fits a core's fast memory, bound from Python
 // through ctypes (eigen_lstm_tpu_torch/ops/cuda_cell_tiled.py). No PyTorch
-// headers. Three C launchers, one launch per timestep each:
+// headers. Three C launchers:
 //
 //   tiled_fwd_embed_launch (K8) <- pallas_cell_tiled.py:_fwd_tiled_embed_kernel
 //       (layer 0, :429): g = W[ids_t] + round(h_{t-1}) @ U, then + b
@@ -33,7 +33,32 @@
 // block can hold and the ~30 MB of all 132 SMs' shared memory together,
 // less than the 50 MB L2.
 //
-// Design (simple and right first). The TPU kernel streams (N, wt) U tiles
+// K8 and K9 have two designs of one function (ops/cuda_cell_tiled.py:
+// tiled_fwd_plan chooses from the type, the shape and the card):
+//
+// The persistent design (bf16 compute, B <= 128, N / 16 blocks resident;
+// tiled_fwd_persist). One cooperative launch a window, a grid barrier
+// between steps. A block owns 16 hidden units with their four gate columns
+// and every batch row, so each step's epilogue needs nothing of another
+// block; as many rows of its N x 64 slice of U as fit beside the ring stay
+// in shared memory for the window (1024 of 2048 at 5b's B = 128, 1344 at
+// the eval batch of 16), the rest stream every step with the round(h_{t-1})
+// chunks through a three-slot cp.async ring; the products are mma.sync
+// m16n8k16 (bf16 in, fp32 sums; csrc/mma.cuh), and the fp32 carry stays in
+// registers. What bounds it then is the recurrence's dependence, not the
+// products: every step each of the 128 blocks reads all of round(h_{t-1})
+// from L2 (512 KB a block, 64 MB in all at B = 128), feeds it through
+// ldmatrix and mma.sync, and waits at the grid barrier; on the H100 a step
+// takes ~44 us at B = 128 and ~20 us at B = 16 (PERF.md), against ~4 us of
+// the products at the tensor cores' peak. Holding more of U on chip moves
+// little (U's rows are ~1/5 of the step's reads at B = 128). Left for later:
+// TMA multicast of each h chunk over a cluster of blocks (cutting the L2
+// reads by the cluster size), wgmma in place of mma.sync (B read from
+// shared memory by the tensor cores, no ldmatrix), and K10, the backward,
+// still on the per-step design below.
+//
+// The per-step design (fp32 compute, and the shapes the persistent design
+// does not take; K10 always). The TPU kernel streams (N, wt) U tiles
 // through VMEM in a sequential grid and gathers a step's gate chunks in
 // scratch before the cell epilogue; Hopper blocks run in parallel and in
 // no order, so the blocking is turned around:
@@ -58,10 +83,14 @@
 //     written by its own launch (h_c alternates between two buffers; c and
 //     K10's dc are updated in place, each element by the thread that owns
 //     it).
-// Tensor cores (wgmma), TMA and a persistent kernel that keeps U's slices
-// on chip across steps are later work.
+// TF32 stays off for fp32 products, so fp32 keeps the CUDA cores.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,18 +103,6 @@ template <typename T> struct Vec {
   static constexpr int V = 16 / (int)sizeof(T);
   static constexpr int KC = 64 / (int)sizeof(T);
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Element v of a 16-byte vector of T, widened to fp32.
 template <typename T> __device__ __forceinline__ float lane_of(const uint4& p, int v);
@@ -110,7 +127,7 @@ __device__ __forceinline__ void stage_rows(T (*xs)[Vec<T>::KC], const T* X,
   for (int e = tid; e < BT * per_row; e += kJT * kWarps) {
     const int r = e / per_row, q = e % per_row;
     const int b = min(b0 + r, B - 1);
-    cp_async16(&xs[r][q * Vec<T>::V], X + (size_t)b * ld + k0 + q * Vec<T>::V);
+    cp_async_16(&xs[r][q * Vec<T>::V], X + (size_t)b * ld + k0 + q * Vec<T>::V, 16);
   }
 }
 
@@ -148,8 +165,8 @@ tiled_fwd_step(const CT* __restrict__ U,        // (N, 4N)
   const auto stage = [&](int st, int k0) {
     for (int e = tid; e < KC * 4 * CH; e += kJT * kWarps) {
       const int kk = e / (4 * CH), g = (e / CH) % 4, q = e % CH;
-      cp_async16(&Us[st][kk][g][q * V],
-                 U + (size_t)(k0 + kk) * n4 + (size_t)g * N + j0 + q * V);
+      cp_async_16(&Us[st][kk][g][q * V],
+                  U + (size_t)(k0 + kk) * n4 + (size_t)g * N + j0 + q * V, 16);
     }
     stage_rows<CT, BT>(Hs[st], hc_in, b0, B, N, k0, tid);
     cp_async_commit();
@@ -265,7 +282,7 @@ tiled_bwd_step(const CT* __restrict__ UT,        // (4N, N) = U^T
     const auto stage = [&](int st, int k0) {
       for (int e = tid; e < KC * CH; e += kJT * kWarps) {
         const int kk = e / CH, q = e % CH;
-        cp_async16(&Us[st][kk][q * V], UT + (size_t)(k0 + kk) * N + j0 + q * V);
+        cp_async_16(&Us[st][kk][q * V], UT + (size_t)(k0 + kk) * N + j0 + q * V, 16);
       }
       stage_rows<CT, BT>(Ds[st], dg_next, b0, B, n4, k0, tid);
       cp_async_commit();
@@ -318,6 +335,259 @@ tiled_bwd_step(const CT* __restrict__ UT,        // (4N, N) = U^T
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8 / K9 under bf16 compute: one persistent cooperative launch for the S
+// forward steps (tiled_fwd_persist; ops/cuda_cell_tiled.py:tiled_fwd_plan
+// chooses it).
+//
+// A block owns kFUnits = 16 hidden units j0.. with all four of their gate
+// columns and every batch row (B <= kFMaxRows), so the grid is N / 16
+// blocks, at most what is resident (128 at N = 2048). Its slice of U, the
+// N x 64 columns of its units, is stored [k][gate][unit]: the first kres
+// rows sit in shared memory for the whole window, the rest stream every
+// step through the ring beside the round(h_{t-1}) chunks. Each chunk of
+// kFKC k rows arrives by cp.async (L2 only: other blocks wrote h_{t-1}
+// before the barrier) into a ring of kFStages slots. The 8 warps form a
+// WM x WK grid: warp (wm, wk) takes the 16-row m tile wm and the k steps
+// s (of 16) with s % WK == wk; WM = 8 at B = 128 (no k split), 1 at the
+// eval batch of 16 (the k axis split 8 ways, the partial sums added in
+// warp order through shared memory). Products are mma.sync m16n8k16, bf16
+// in, fp32 sums; with the [gate][unit] columns the C fragment's n tile
+// 2 * gate + unit / 8 gives lane (g, q) all four gates of rows g, g + 8
+// and units 2q, 2q + 1, 8 + 2q, 9 + 2q, so the epilogue runs in the
+// registers of the wk = 0 warps: the W-row gather or the xw values (loaded
+// for step t + 1 before the barrier that precedes it), the gates, the cell,
+// the carry c (in registers for the whole window), round(h_t) into the
+// other half of hc. A grid barrier closes each step.
+constexpr int kFUnits = 16;
+constexpr int kFCols = 4 * kFUnits;       // [gate][unit]
+constexpr int kFThreads = 256;
+constexpr int kFWarps = kFThreads / 32;
+constexpr int kFMaxRows = 16 * kFWarps;   // one m tile a warp
+constexpr int kFKC = 64;                  // k rows of a chunk
+constexpr int kFStages = 3;
+// bf16 of padding per shared row: rows of an odd number of 16-byte units,
+// so the eight row addresses of an ldmatrix fall in distinct banks
+constexpr int kFPad = 8;
+constexpr int kFUPitch = kFCols + kFPad;
+constexpr int kFAPitch = kFKC + kFPad;
+constexpr int kMaxDevices = 64;
+
+// Warp rows of the WM x WK grid: the fewest powers of two that cover the
+// m tiles.
+inline __host__ __device__ int fwd_warp_rows(int B) {
+  const int mt = (B + 15) / 16;
+  return mt <= 1 ? 1 : mt <= 2 ? 2 : mt <= 4 ? 4 : 8;
+}
+
+// Dynamic shared memory of the persistent K8/K9 (mirrored by
+// ops/cuda_cell_tiled.py:persist_smem_bytes, which holds itself to
+// tiled_fwd_persist_smem_bytes once a card): kres rows of the U slice, then
+// the ring, each slot an h chunk of the m tiles' rows and a U chunk; the
+// cross-warp partial sums (one 32 x 32 float tile a warp) reuse the ring.
+inline size_t fwd_persist_smem_bytes(int B, int N, int kres) {
+  const size_t slot = 2 * ((size_t)(B + 15) / 16 * 16 * kFAPitch +
+                           (size_t)kFKC * kFUPitch);
+  const size_t red = fwd_warp_rows(B) < kFWarps ? (size_t)kFWarps * 32 * 32 * 4 : 0;
+  const size_t ring = kFStages * slot > red ? kFStages * slot : red;
+  return 2 * (size_t)kres * kFUPitch + ring;
+}
+
+template <typename RT, bool EMBED>
+__global__ void __launch_bounds__(kFThreads, 1)
+tiled_fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
+                  const __nv_bfloat16* __restrict__ xw,  // (S, B, 4N), !EMBED
+                  const __nv_bfloat16* __restrict__ W,   // (M, 4N), EMBED
+                  const float* __restrict__ bias,        // (4N,), EMBED
+                  const int* __restrict__ ids,           // (S, B), EMBED
+                  // (2, B, N) round(h): written and read within the launch,
+                  // so neither const nor __restrict__ (no non-coherent loads)
+                  __nv_bfloat16* hc,
+                  float* __restrict__ c,      // (B, N): c0 in, cT out
+                  float* __restrict__ hT,     // (B, N)
+                  RT* __restrict__ hseq,      // (S, B, N)
+                  RT* __restrict__ cseq,      // (S, B, N) or null
+                  RT* __restrict__ gseq,      // (S, B, 4N) or null
+                  RT* __restrict__ hdrop,     // (S, B, N) under dropout
+                  Dropout drop, int S, int B, int N, int kres, int standard) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Us + (size_t)kres * kFUPitch;
+  float* red = reinterpret_cast<float*>(ring);
+  const int mtiles = (B + 15) / 16;
+  const int rows = 16 * mtiles;
+  const int WM = fwd_warp_rows(B), WK = kFWarps / WM;
+  const int aslot = rows * kFAPitch;           // bf16 of a slot's h chunk
+  const int slot = aslot + kFKC * kFUPitch;    // bf16 of a slot
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % WM, wk = warp / WM;
+  const int g = lane / 4, q = lane % 4;
+  const int j0 = blockIdx.x * kFUnits;
+  const bool owner = wk == 0 && wm < mtiles;   // runs the epilogue
+  const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
+  cg::grid_group grid = cg::this_grid();
+
+  // the block's 64 columns of U's row k into dst, 16 bytes a copy p < 8
+  const auto u_copy = [&](__nv_bfloat16* dst, int k, int p) {
+    const int gate = p / 2, half = p % 2;
+    cp_async_16(dst + gate * kFUnits + half * 8,
+                U + (size_t)k * n4 + (size_t)gate * N + j0 + half * 8, 16);
+  };
+  for (int e = tid; e < kres * 8; e += kFThreads)
+    u_copy(Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
+  cp_async_commit();
+
+  // this thread's (b, j), when it is an owner: p = 4 hh + 2 uh + e for
+  // row 16 wm + g + 8 hh and unit 8 uh + 2q + e; acc[2 gate + uh][2 hh + e]
+  // holds its gate sum, bs[gate][2 uh + e] its bias
+  float cr[8], pin[8][4], bs[4][4];
+  const auto row_of = [&](int hh) { return 16 * wm + g + 8 * hh; };
+  const auto load_inputs = [&](int t) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int b = row_of(hh);
+      if (b >= B) continue;
+      const __nv_bfloat16* src =
+          EMBED ? W + (size_t)ids[(size_t)t * B + b] * n4
+                : xw + ((size_t)t * B + b) * n4;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+        for (int uh = 0; uh < 2; ++uh) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              src + (size_t)gate * N + j0 + 8 * uh + 2 * q);
+          pin[4 * hh + 2 * uh][gate] = __low2float(v);
+          pin[4 * hh + 2 * uh + 1][gate] = __high2float(v);
+        }
+    }
+  };
+  if (owner) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int b = row_of(p / 4);
+      cr[p] = b < B ? c[(size_t)b * N + j0 + 8 * ((p / 2) % 2) + 2 * q + p % 2] : 0.0f;
+    }
+    if (EMBED)
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          bs[gate][u] = bias[(size_t)gate * N + j0 + 8 * (u / 2) + 2 * q + u % 2];
+    load_inputs(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nchunks = N / kFKC, cres = kres / kFKC;
+  for (int t = 0; t < S; ++t) {
+    const __nv_bfloat16* hin = hc + (size_t)(t % 2) * bn;
+    __nv_bfloat16* hout = hc + (size_t)((t + 1) % 2) * bn;
+    // chunk ch: h_{t-1}'s columns ch * kFKC.. for the m tiles' rows (rows
+    // past B zero-filled), and the U rows when they are not resident
+    const auto load_chunk = [&](int ch) {
+      __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * slot;
+      for (int e = tid; e < rows * 8; e += kFThreads) {
+        const int r = e / 8, p = e % 8;
+        const bool in = r < B;
+        cp_async_16(st + r * kFAPitch + p * 8,
+                    in ? hin + (size_t)r * N + ch * kFKC + p * 8 : hin, in ? 16 : 0);
+      }
+      if (ch >= cres)
+        for (int e = tid; e < kFKC * 8; e += kFThreads)
+          u_copy(st + aslot + (e / 8) * kFUPitch, ch * kFKC + e / 8, e % 8);
+    };
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[nt][x] = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < kFStages - 1; ++ch) {
+      if (ch < nchunks) load_chunk(ch);
+      cp_async_commit();
+    }
+    for (int ch = 0; ch < nchunks; ++ch) {
+      cp_async_wait<kFStages - 2>();
+      __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
+      if (ch + kFStages - 1 < nchunks) load_chunk(ch + kFStages - 1);
+      cp_async_commit();
+      if (wm >= mtiles) continue;
+      const __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * slot;
+      const __nv_bfloat16* ub = ch < cres ? Us + (size_t)ch * kFKC * kFUPitch : st + aslot;
+#pragma unroll
+      for (int ks = 0; ks < kFKC / 16; ++ks) {
+        if ((ch * (kFKC / 16) + ks) % WK != wk) continue;
+        unsigned a[4];
+        ldmatrix_x4(a, st + (wm * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kFAPitch +
+                           ks * 16 + 8 * (lane / 16));
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          // (k 0-7 | 8-15) x (units 0-7 | 8-15) of this gate, transposed:
+          // b0, b1 of n tile 2 gate, then of n tile 2 gate + 1
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, ub + (ks * 16 + 8 * ((lane / 8) % 2) + lane % 8) * kFUPitch +
+                                    gate * kFUnits + 8 * (lane / 16));
+          mma_bf16_16816(acc[2 * gate], a, bq);
+          mma_bf16_16816(acc[2 * gate + 1], a, bq + 2);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring: reuse it as red
+    if (WK > 1) {
+      if (wk > 0 && wm < mtiles)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            red[((size_t)warp * 32 + 4 * nt + x) * 32 + lane] = acc[nt][x];
+      __syncthreads();
+      if (owner)
+        for (int k = 1; k < WK; ++k)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              acc[nt][x] += red[((size_t)(wm + k * WM) * 32 + 4 * nt + x) * 32 + lane];
+    }
+    if (owner) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int hh = p / 4, uh = (p / 2) % 2, e = p % 2;
+        const int b = row_of(hh);
+        if (b >= B) continue;
+        const int j = j0 + 8 * uh + 2 * q + e;
+        float gate[4];
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) {
+          float s = acc[2 * gt + uh][2 * hh + e];
+          s = EMBED ? (s + pin[p][gt]) + bs[gt][2 * uh + e] : s + pin[p][gt];
+          gate[gt] = gt < 3 ? sigmoid(s) : tanhf(s);
+        }
+        const size_t idx = (size_t)b * N + j, ts = (size_t)t * bn;
+        float h, cc;
+        cell(gate, cr[p], standard, &h, &cc);
+        cr[p] = cc;
+        hout[idx] = __float2bfloat16(h);
+        hseq[ts + idx] = from_f32<RT>(h);
+        if (drop.on)
+          hdrop[ts + idx] = from_f32<RT>(keep_bit(drop, t, idx) ? h * drop.inv : 0.0f);
+        if (cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cc);
+        if (gseq != nullptr)
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt)
+            gseq[4 * ts + (size_t)b * n4 + (size_t)gt * N + j] = from_f32<RT>(gate[gt]);
+        if (t == S - 1) {
+          hT[idx] = h;
+          c[idx] = cc;
+        }
+      }
+      if (t + 1 < S) load_inputs(t + 1);
+    }
+    if (t + 1 < S) grid.sync();  // h_t is complete before any block reads it
+  }
+}
+
 // Rows per warp: 8 at training batches (each U element then feeds 8 rows
 // of a tile of 64), 2 at small ones (a tile of 16, no rows wasted at the
 // eval batch of 16).
@@ -327,7 +597,7 @@ template <typename CT, typename RT, bool EMBED, bool DROP, int R>
 int run_fwd_r(const void* U, const void* xw, const void* W, const float* bias,
               const int* ids, void* hc, float* c, float* hT, void* hseq,
               void* cseq, void* gseq, void* hdrop, Dropout drop, int S, int B,
-              int N, int standard, cudaStream_t stream) {
+              int N, int standard, cudaStream_t stream, int* launches) {
   const dim3 grid(N / kJT, (B + kWarps * R - 1) / (kWarps * R));
   const dim3 block(kJT, kWarps);
   const size_t bn = (size_t)B * N, bn4 = 4 * bn;
@@ -345,26 +615,112 @@ int run_fwd_r(const void* U, const void* xw, const void* W, const float* bias,
         standard);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
   }
   return 0;
 }
 
-// S launches. hc: (2, B, N) in CT, round(h0) in its first half on entry
-// (the halves alternate between steps); c: c0 on entry, cT after; hT out.
+// The per-step design, S launches. hc: (2, B, N) in CT, round(h0) in its
+// first half on entry (the halves alternate between steps); c: c0 on entry,
+// cT after; hT out.
 template <typename CT, typename RT, bool EMBED>
 int run_fwd(const void* U, const void* xw, const void* W, const float* bias,
             const int* ids, void* hc, float* c, float* hT, void* hseq,
             void* cseq, void* gseq, void* hdrop, Dropout drop, int S, int B,
-            int N, int standard, cudaStream_t stream) {
+            int N, int standard, cudaStream_t stream, int* launches) {
   const auto f = [&](auto run) {
     return run(U, xw, W, bias, ids, hc, c, hT, hseq, cseq, gseq, hdrop, drop,
-               S, B, N, standard, stream);
+               S, B, N, standard, stream, launches);
   };
   if (hdrop != nullptr)
     return wide_tile(B) ? f(run_fwd_r<CT, RT, EMBED, true, 8>)
                         : f(run_fwd_r<CT, RT, EMBED, true, 2>);
   return wide_tile(B) ? f(run_fwd_r<CT, RT, EMBED, false, 8>)
                       : f(run_fwd_r<CT, RT, EMBED, false, 2>);
+}
+
+// The persistent design under bf16 compute, one cooperative launch: the
+// same buffers as run_fwd, kres rows of U held in shared memory.
+template <typename RT, bool EMBED>
+int run_fwd_persist(const void* U, const void* xw, const void* W,
+                    const float* bias, const int* ids, void* hc, float* c,
+                    float* hT, void* hseq, void* cseq, void* gseq, void* hdrop,
+                    Dropout drop, int S, int B, int N, int kres, int standard,
+                    cudaStream_t stream, int* launches) {
+  if (N % kFKC != 0 || B < 1 || B > kFMaxRows || S < 1 || kres < 0 ||
+      kres > N || kres % kFKC != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = tiled_fwd_persist<RT, EMBED>;
+  const size_t smem = fwd_persist_smem_bytes(B, N, kres);
+  // per card, read once: cooperative launch support and the SMs
+  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !ready[dev]) {
+    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) ready[dev] = 1;
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kFThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
+  const int grid = N / kFUnits;
+  // every block must be resident at once, or the grid barrier never opens
+  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  using bf = __nv_bfloat16;
+  const bf* u = static_cast<const bf*>(U);
+  const bf* x = static_cast<const bf*>(xw);
+  const bf* w = static_cast<const bf*>(W);
+  bf* h = static_cast<bf*>(hc);
+  RT* hs = static_cast<RT*>(hseq);
+  RT* cs = static_cast<RT*>(cseq);
+  RT* gs = static_cast<RT*>(gseq);
+  RT* hd = static_cast<RT*>(hdrop);
+  void* args[] = {&u, &x, &w, &bias, &ids, &h, &c, &hT, &hs, &cs, &gs, &hd,
+                  &drop, &S, &B, &N, &kres, &standard};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(grid), dim3(kFThreads), args, smem,
+                                    stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
+}
+
+// K8 or K9: the persistent design when kres >= 0 (bf16 compute only), else
+// the per-step one.
+template <bool EMBED>
+int fwd(int ctype, int rtype, const void* U, const void* xw, const void* W,
+        const float* bias, const int* ids, void* hc, float* c, float* hT,
+        void* hseq, void* cseq, void* gseq, void* hdrop, Dropout drop, int S,
+        int B, int N, int standard, int kres, cudaStream_t stream,
+        int* launches) {
+  using bf = __nv_bfloat16;
+  if (kres >= 0) {
+    const auto f = [&](auto run) {
+      return run(U, xw, W, bias, ids, hc, c, hT, hseq, cseq, gseq, hdrop, drop,
+                 S, B, N, kres, standard, stream, launches);
+    };
+    if (ctype == 1 && rtype == 0) return f(run_fwd_persist<float, EMBED>);
+    if (ctype == 1 && rtype == 1) return f(run_fwd_persist<bf, EMBED>);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto f = [&](auto run) {
+    return run(U, xw, W, bias, ids, hc, c, hT, hseq, cseq, gseq, hdrop, drop,
+               S, B, N, standard, stream, launches);
+  };
+  if (ctype == 0 && rtype == 0) return f(run_fwd<float, float, EMBED>);
+  if (ctype == 0 && rtype == 1) return f(run_fwd<float, bf, EMBED>);
+  if (ctype == 1 && rtype == 0) return f(run_fwd<bf, float, EMBED>);
+  if (ctype == 1 && rtype == 1) return f(run_fwd<bf, bf, EMBED>);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // S launches, t = S-1 .. 0. dg: the (S, B, 4N) dg sequence out, in CT;
@@ -411,44 +767,39 @@ int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
 // stream are in the compute type; bias, c and hT fp32; ids int32 (S, B);
 // hc (2, B, N) in the compute type with round(h0) in its first half; the
 // sequences in the residual type; hdrop null for no dropout, else the
-// masked stream of (seed, keep, inv).
+// masked stream of (seed, keep, inv). kres >= 0: the persistent design
+// with kres rows of U in shared memory (ops/cuda_cell_tiled.py:
+// tiled_fwd_plan; bf16 compute, N a multiple of 64, B <= 128); -1: the
+// per-step design. Adds its kernel launches to *launches.
 extern "C" int tiled_fwd_embed_launch(
     int ctype, int rtype, const void* W, const void* U, const void* bias,
     const void* ids, void* hc, void* c, void* hT, void* hseq, void* cseq,
-    void* gseq, void* hdrop, int S, int B, int N, int standard, unsigned seed,
-    unsigned keep, float inv, void* stream) {
+    void* gseq, void* hdrop, int S, int B, int N, int standard, int kres,
+    unsigned seed, unsigned keep, float inv, void* stream, int* launches) {
   const Dropout drop{hdrop != nullptr, seed, keep, inv};
-  const auto f = [&](auto run) {
-    return run(U, nullptr, W, static_cast<const float*>(bias),
-               static_cast<const int*>(ids), hc, static_cast<float*>(c),
-               static_cast<float*>(hT), hseq, cseq, gseq, hdrop, drop, S, B, N,
-               standard, static_cast<cudaStream_t>(stream));
-  };
-  using bf = __nv_bfloat16;
-  if (ctype == 0 && rtype == 0) return f(run_fwd<float, float, true>);
-  if (ctype == 0 && rtype == 1) return f(run_fwd<float, bf, true>);
-  if (ctype == 1 && rtype == 0) return f(run_fwd<bf, float, true>);
-  if (ctype == 1 && rtype == 1) return f(run_fwd<bf, bf, true>);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd<true>(ctype, rtype, U, nullptr, W, static_cast<const float*>(bias),
+                   static_cast<const int*>(ids), hc, static_cast<float*>(c),
+                   static_cast<float*>(hT), hseq, cseq, gseq, hdrop, drop, S, B,
+                   N, standard, kres, static_cast<cudaStream_t>(stream),
+                   launches);
 }
 
 extern "C" int tiled_fwd_scan_launch(
     int ctype, int rtype, const void* U, const void* xw, void* hc, void* c,
     void* hT, void* hseq, void* cseq, void* gseq, void* hdrop, int S, int B,
-    int N, int standard, unsigned seed, unsigned keep, float inv,
-    void* stream) {
+    int N, int standard, int kres, unsigned seed, unsigned keep, float inv,
+    void* stream, int* launches) {
   const Dropout drop{hdrop != nullptr, seed, keep, inv};
-  const auto f = [&](auto run) {
-    return run(U, xw, nullptr, nullptr, nullptr, hc, static_cast<float*>(c),
-               static_cast<float*>(hT), hseq, cseq, gseq, hdrop, drop, S, B, N,
-               standard, static_cast<cudaStream_t>(stream));
-  };
-  using bf = __nv_bfloat16;
-  if (ctype == 0 && rtype == 0) return f(run_fwd<float, float, false>);
-  if (ctype == 0 && rtype == 1) return f(run_fwd<float, bf, false>);
-  if (ctype == 1 && rtype == 0) return f(run_fwd<bf, float, false>);
-  if (ctype == 1 && rtype == 1) return f(run_fwd<bf, bf, false>);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd<false>(ctype, rtype, U, xw, nullptr, nullptr, nullptr, hc,
+                    static_cast<float*>(c), static_cast<float*>(hT), hseq, cseq,
+                    gseq, hdrop, drop, S, B, N, standard, kres,
+                    static_cast<cudaStream_t>(stream), launches);
+}
+
+// Bytes of dynamic shared memory a persistent K8/K9 block takes at batch B,
+// hidden N and kres resident rows of U.
+extern "C" size_t tiled_fwd_persist_smem_bytes(int B, int N, int kres) {
+  return fwd_persist_smem_bytes(B, N, kres);
 }
 
 // K10. UT is U^T (4N, N) and dh_seq (S, B, N) in the compute type (the xw

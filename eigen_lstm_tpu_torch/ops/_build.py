@@ -39,8 +39,8 @@ _F = ctypes.c_float
 _DROP = [_U, _U, _F]   # the dropout's seed (int32 bits), keep threshold, inv
 # (restype, argtypes) of every exported function: c_void_p for pointers and
 # the stream, c_int for ints (an unset argtype would pass a pointer as a
-# 32-bit int and cut it). The backward and head launchers add the number
-# of kernels they launched to their last argument.
+# 32-bit int and cut it). The backward, head and tiled forward launchers
+# add the number of kernels they launched to their last argument.
 SIGNATURES = {
     "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 4 + _DROP + [_P]),
     "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 12 + [_I] * 4 + _DROP + [_P]),
@@ -62,10 +62,11 @@ SIGNATURES = {
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
     "gen_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_U, _F, _P]),
-    "tiled_fwd_embed_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 4 + _DROP
-                               + [_P]),
-    "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 4 + _DROP
-                              + [_P]),
+    "tiled_fwd_embed_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 5 + _DROP
+                               + [_P, _IP]),
+    "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + _DROP
+                              + [_P, _IP]),
+    "tiled_fwd_persist_smem_bytes": (_Z, [_I] * 3),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 8 + [_I] * 5 + _DROP + [_P]),
     "gen_work_floats": (_Z, [_I] * 3),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),

@@ -4,10 +4,10 @@ fits a TPU core's VMEM (N >= 2048 in bf16, N >= 1024 in fp32; the families
 are chosen in ``ops/dispatch.py``).
 
 Three kernels of ``csrc/lstm_tiled.cu``, each with a wrapper that
-validates, casts, launches and counts its launches in ``.launches`` (S per
-call, one per timestep), and a plain version beside it that repeats the
-kernel's arithmetic step by step; a wrapper runs the plain version for a
-CPU tensor and for a CUDA tensor launches the kernel or raises:
+validates, casts, launches and counts its launches in ``.launches``, and a
+plain version beside it that repeats the kernel's arithmetic step by step;
+a wrapper runs the plain version for a CPU tensor and for a CUDA tensor
+launches the kernel or raises:
 
 * ``tiled_embed_layer0`` (K8, ``_fwd_tiled_embed_kernel`` :429): layer 0,
   g = (W_c[ids_t] + round(h_{t-1}) @ U_c) + b (``:454-457``, the one-hot
@@ -17,6 +17,15 @@ CPU tensor and for a CUDA tensor launches the kernel or raises:
 * ``tiled_bwd`` (K10, ``_bwd_tiled_kernel`` :106): the reverse steps of
   both tiled VJPs, dh_t = round(dg_{t+1}) @ U_c^T + dh_cot_t, then the gate
   backward; returns dg_seq in the xw type and dc0 in fp32.
+
+K8 and K9 have two designs of one function on the card
+(``tiled_fwd_plan`` chooses from the type, the shape and the card's SMs
+and shared memory): under bf16 compute, where its grid of N / 16 blocks
+can be resident, one persistent cooperative launch a window with as many
+of U's rows as fit in shared memory and the product on tensor cores;
+elsewhere (fp32 compute, B > 128, a grid too large for the card) one
+launch a step. The C launcher counts the launches (1 or S a call). K10
+keeps one launch a reverse step (S a call).
 
 The types are the tiled JAX functions' (``:222-225``, ``:673``): the
 residual type is fp32 only where ``residual_dtype`` is ``"float32"``, else
@@ -39,7 +48,9 @@ without TF32); dW and dU are handed back rounded to the compute type
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +59,7 @@ from ..models.lstm import LayerParams
 from . import _build
 from . import cell as cell_ops
 from . import cuda_cell
+from . import cuda_cell_bwd
 
 AF = torch.float32   # every product, carry and sum of the tiled path
 
@@ -159,6 +171,83 @@ def _kernel_codes(cfg: ModelConfig, device: torch.device):
     return cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd]
 
 
+# The persistent K8/K9's shared-memory layout, as csrc/lstm_tiled.cu lays
+# it out (fwd_persist_smem_bytes; ``_device_limits`` holds the two equal):
+# kres rows of the block's U slice (UNITS units x 4 gates), each
+# 4 * UNITS + PAD bf16, then a ring of STAGES slots, each the h chunk of
+# the batch's 16-row m tiles (KC + PAD bf16 a row) and a KC-row U chunk;
+# below 8 warp rows the cross-warp partial sums (8 warps x 32 x 32 fp32)
+# reuse the ring.
+PERSIST_UNITS, PERSIST_KC, PERSIST_STAGES, PERSIST_PAD = 16, 64, 3, 8
+PERSIST_ROWS = 128   # batch rows at most: one 16-row m tile a warp
+_WARPS = 8
+
+
+def _warp_rows(b: int) -> int:
+    """Warp rows of the kernel's 8 warps: the fewest of 1, 2, 4, 8 that
+    cover the batch's 16-row m tiles (the rest split the k axis)."""
+    tiles = -(-b // 16)
+    return next(w for w in (1, 2, 4, 8) if w >= tiles)
+
+
+def persist_smem_bytes(b: int, n: int, kres: int) -> int:
+    """Bytes of dynamic shared memory a persistent K8/K9 block takes at
+    batch ``b``, hidden ``n``, with ``kres`` rows of U held."""
+    pitch_u = 4 * PERSIST_UNITS + PERSIST_PAD
+    slot = 2 * (-(-b // 16) * 16 * (PERSIST_KC + PERSIST_PAD)
+                + PERSIST_KC * pitch_u)
+    red = _WARPS * 32 * 32 * 4 if _warp_rows(b) < _WARPS else 0
+    return 2 * kres * pitch_u + max(PERSIST_STAGES * slot, red)
+
+
+def tiled_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                   smem_limit: int) -> Optional[int]:
+    """K8/K9's design at (config, batch, hidden) on a device of ``sms``
+    SMs whose blocks may take ``smem_limit`` bytes of shared memory: the
+    rows of U a block holds in shared memory (whole KC-row chunks, the
+    first of its slice; the rest stream each step) for the persistent
+    design, None for the per-step design.
+
+    The persistent design needs bf16 compute (the tensor cores; fp32
+    products keep TF32 off), N a multiple of KC, at most 128 batch rows
+    (one m tile a warp), and its grid of N / 16 blocks resident at one a
+    SM. It holds as many of U's rows as fit beside its ring."""
+    if cfg.cdtype != torch.bfloat16 or n % PERSIST_KC != 0:
+        return None
+    if not 1 <= b <= PERSIST_ROWS or n // PERSIST_UNITS > sms:
+        return None
+    free = smem_limit - persist_smem_bytes(b, n, 0)
+    if free < 0:
+        return None
+    row = 2 * (4 * PERSIST_UNITS + PERSIST_PAD)
+    return min(n, free // row // PERSIST_KC * PERSIST_KC)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SMs, shared memory a block may opt in to) of card ``index``, read
+    once; checks that the library lays out the persistent K8/K9's shared
+    memory as ``persist_smem_bytes`` does."""
+    lib = _build.load_library()
+    for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0)):
+        if lib.tiled_fwd_persist_smem_bytes(b, n, kres) != persist_smem_bytes(b, n, kres):
+            raise RuntimeError("persist_smem_bytes disagrees with "
+                               "csrc/lstm_tiled.cu's layout")
+    return cuda_cell_bwd._device_limits(index)
+
+
+def device_tiled_fwd_plan(cfg: ModelConfig, b: int, n: int) -> Optional[int]:
+    """``tiled_fwd_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tiled_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+def _kres_arg(cfg: ModelConfig, b: int, n: int) -> int:
+    """The launchers' kres: the plan's, or -1 for the per-step design."""
+    kres = device_tiled_fwd_plan(cfg, b, n)
+    return -1 if kres is None else kres
+
+
 def _fwd_buffers(h0, c0, s, b, n, cfg: ModelConfig, residuals: bool,
                  drop: bool):
     _, rd, _ = types(cfg)
@@ -202,14 +291,17 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
     ids32 = ids.to(torch.int32).contiguous()
     o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
+    launched = ctypes.c_int(0)
     err = _build.load_library().tiled_fwd_embed_launch(
         ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
         ids32.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), *(drop or (0, 0, 0.0)),
+        int(cfg.cell_variant == "standard"), _kres_arg(cfg, b, n),
+        *(drop or (0, 0, 0.0)),
         torch.cuda.current_stream(ids.device).cuda_stream,
+        ctypes.byref(launched),
     )
+    tiled_embed_layer0.launches += launched.value
     cuda_cell._raise_on(err, "tiled_fwd_embed_launch")
-    tiled_embed_layer0.launches += s
     return _fwd_result(o, cfg, residuals)
 
 
@@ -229,13 +321,16 @@ def tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
     U_c = _aligned(layer.U.to(cfg.cdtype))
     xs = _aligned(xw.to(types(cfg)[2]))
     o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
+    launched = ctypes.c_int(0)
     err = _build.load_library().tiled_fwd_scan_launch(
         ctype, rtype, U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), *(drop or (0, 0, 0.0)),
+        int(cfg.cell_variant == "standard"), _kres_arg(cfg, b, n),
+        *(drop or (0, 0, 0.0)),
         torch.cuda.current_stream(xw.device).cuda_stream,
+        ctypes.byref(launched),
     )
+    tiled_scan_layer.launches += launched.value
     cuda_cell._raise_on(err, "tiled_fwd_scan_launch")
-    tiled_scan_layer.launches += s
     return _fwd_result(o, cfg, residuals)
 
 
