@@ -24,7 +24,9 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          (S = 100, B = 128, N = 512, M = 256) with the 1x512 checkpoint's
          weights, in fp32 and bf16: each reverse step of the backward
          replayed from the kernel's own state, the whole window, times,
-         bounds and library yardsticks; K1's time at the same shapes.
+         bounds and library yardsticks; K1's time at the same shapes. K4
+         takes its tensor-core design in bf16 (its CUDA-core design, which
+         fp32 keeps, held to the same gate and timed in the same call).
 Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          gradients through the kernels against the plain path, fp32 and
          bf16; (b) the port's bench (python -m eigen_lstm_tpu_torch.bench)
@@ -37,7 +39,13 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          schedule once more from the JAX bench's step-0 state
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
          parameters, accumulators, cursors and stream state), train_bpc
-         beside the JAX package's 2.5572 and the root band (reported).
+         beside the JAX package's 2.5572 on its TPU and its CPU value from
+         the same start, the root band, and the same run with K4's
+         CUDA-core design; then each of the first six supersteps' mean
+         bits beside the JAX package's and the port's on the CPU from the
+         same start (the committed trajectories), against the spread of
+         the port's own-start bench over three seeds and the port's own
+         order spread, and the first superstep past each (reported).
 Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          (a) K1, K2, K3 and K6 (the layers >= 1 backward) against their
          plain versions with the flagship's weights, fp32 and bf16, without
@@ -69,10 +77,12 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          against their plain versions at those shapes, without and with
          dropout, and in fp32 at the flagship's fp32 shapes (S = 256,
          N = 1024): every step replayed, the masked streams against the
-         numpy keep-mask bit for bit; K8 and K9 in bf16 in their
-         persistent design (one launch a call, gated) and, forced, their
-         per-step one (S launches), both held to those gates; times of
-         both designs beside the bound,
+         numpy keep-mask bit for bit; K8, K9 and K10 in bf16 in their
+         persistent design (one launch a call, gated; K10's bf16 dg its
+         fp32 dg rounded, bit for bit) and, forced, their per-step one (S
+         launches), both held to those gates; K10's dh0 and the
+         tensor-core dU against the fp32 products; times of both designs
+         beside the bound,
          the plain version, K1/K2/K6 at the same shapes (K6 on its
          per-step design, gated) and cuDNN, and at the eval batch of 16;
          fp32 on the per-step design (gated); (b) one window's
@@ -81,7 +91,8 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
          step time, chars/s, the bits of each superstep, the launches
          against what the shapes give (K8 as many a step as one call of
-         9a), K8's share of the step; then held-out bits/char of those
+         9a, K10 likewise), K8's and K10's shares of the step; then
+         held-out bits/char of those
          weights on enwik6's last 1 % at eval batch 16 through K8 alone,
          one launch a window, kernels against plain.
 
@@ -865,11 +876,30 @@ def phase5(records):
         bwd_p = head.head_bwd_plain(Why_c, by, h_c, tg, lse_k, cot, cfg)
         torch.cuda.synchronize()
         fwd_err = max(norm_err(bits_k, bits_p), norm_err(lse_k, lse_p))
-        print(f"  head_fwd {dtype}: bits {float(bits_k):.4f} plain "
+        tc = head.fwd_tensor_cores(cfg, n, m)
+        print(f"  head_fwd {dtype}: the {'tensor-core' if tc else 'CUDA-core'} "
+              f"design; bits {float(bits_k):.4f} plain "
               f"{float(bits_p):.4f}, bits and lse within {fwd_err:.3e} "
               f"(tol {TRAIN_TOL:g})", flush=True)
         if not np.isfinite(fwd_err) or fwd_err > TRAIN_TOL:
             fail(f"head_fwd {dtype}: {fwd_err:.3e} > {TRAIN_TOL:g}")
+        if tc != (dtype == "bfloat16"):
+            fail(f"head_fwd {dtype}: tensor cores {tc}; these shapes take "
+                 f"them in bf16 alone")
+        if tc:
+            # the CUDA-core design, which fp32 keeps, held to the same gate
+            # on the same inputs and timed in this run
+            with cuda_core_head():
+                bits_o, lse_o = head.head_fwd(Why_c, by, h_c, tg, cfg)
+                core_ms = cuda_ms(lambda: head.head_fwd(Why_c, by, h_c, tg, cfg),
+                                  reps=10)
+            core_err = max(norm_err(bits_o, bits_p), norm_err(lse_o, lse_p))
+            print(f"  head_fwd {dtype}, the CUDA-core design: within "
+                  f"{core_err:.3e} of plain (tol {TRAIN_TOL:g}), {core_ms:.4f} "
+                  f"ms a call in this run", flush=True)
+            if not np.isfinite(core_err) or core_err > TRAIN_TOL:
+                fail(f"head_fwd {dtype}, the CUDA-core design: {core_err:.3e}")
+            records[("head_fwd_core", dtype)] = core_ms
         bwd_err, line = 0.0, []
         for label, got, want in zip(("dh", "dWhy", "dby"), bwd_k, bwd_p):
             tol = DH_BF16_TOL if label == "dh" and dtype == "bfloat16" else TRAIN_TOL
@@ -892,10 +922,13 @@ def phase5(records):
             ms = cuda_ms(kern, reps=10)
             plain_ms = cuda_ms(plain, reps=5)
             bound_ms, bound_by = head_bound(cfg, t, n, m, bwd)
+            core = records.get(("head_fwd_core", dtype)) if not bwd else None
             print(f"  {name} {dtype}: {ms:.4f} ms per call "
                   f"({per_call[name]} launches), plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}), library "
-                  f"{'n/a' if lib_t is None else f'{lib_t:.4f} ms'}", flush=True)
+                  f"{'n/a' if lib_t is None else f'{lib_t:.4f} ms'}"
+                  + ("" if core is None else
+                     f"; the CUDA-core design {core:.4f} ms"), flush=True)
             records[(name, dtype)] = dict(
                 name=name, route="cuda", source="eigen_lstm_tpu_torch/csrc/head.cu",
                 replaces=("eigen_lstm_tpu/ops/pallas_head.py:81" if bwd
@@ -903,6 +936,21 @@ def phase5(records):
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_t)
     return per_call
+
+
+@contextlib.contextmanager
+def cuda_core_head():
+    """K4 takes its CUDA-core design inside the block, whatever
+    ``head.fwd_tensor_cores`` would choose: for the check and time of that
+    design where the main path takes the tensor cores."""
+    from eigen_lstm_tpu_torch.ops import head
+
+    choose = head.fwd_tensor_cores
+    head.fwd_tensor_cores = lambda *a: False
+    try:
+        yield
+    finally:
+        head.fwd_tensor_cores = choose
 
 
 def head_library(h_c, Why_c, by, tg):
@@ -1044,37 +1092,124 @@ JAX_BENCH_START = "artifacts/bench_jax_start/state0.npz"
 JAX_BENCH_BPC = 2.5572
 
 
-def phase6d(own_bpc):
-    """The port's bench schedule once more, from the JAX bench's step-0
-    state restored into the port's bench Trainer: the parameters,
-    accumulators, cursors and stream state the JAX PRNG drew, then the same
-    steps on the card. train_bpc printed beside the JAX package's, the
-    root band and the port's own start (6b): reported, not gated."""
+# The JAX package's first supersteps of the bench on the CPU from that
+# start (tests/jax_bench_trajectory.py), and the port's on the CPU through
+# the plain versions (tests/torch_bench_trajectory.py)
+JAX_TRAJECTORY = "artifacts/bench_jax_start/trajectory.json"
+PORT_CPU_TRAJECTORY = "artifacts/bench_jax_start/port_cpu_trajectory.json"
+# and its whole schedule: the last superstep's mean is the JAX package's
+# train_bpc on the CPU from the same start
+JAX_FULL_TRAJECTORY = "artifacts/bench_jax_start/trajectory_full.json"
+# One of phase 6d's thresholds for "the card parts from JAX" at superstep
+# k: the spread (max - min) of superstep k's mean bits over the port's
+# bench from its own start at these seeds
+SPREAD_SEEDS = (0, 1, 2)
+
+
+def bench_means(argv, supersteps):
+    """Mean bits of the first ``supersteps`` supersteps of the port's bench
+    Trainer at ``argv`` (``bench.DEFAULT_ARGV`` plus these), from its own
+    start."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
 
-    args = build_parser().parse_args(bench.DEFAULT_ARGV)
+    trainer = bench.make_trainer(build_parser().parse_args(
+        bench.DEFAULT_ARGV + list(argv)))
+    means = []
+    for _ in range(supersteps):
+        trainer.state, metrics = trainer.dispatch_superstep()
+        means.append(float(metrics["bits_mean"]))
+    return means
+
+
+def bench_from_jax_start(args):
+    """The bench's whole schedule from the JAX bench's step-0 state through
+    the port's bench Trainer on the card: (step on restore, steps run,
+    seconds, the warm-up supersteps' mean bits, train_bpc)."""
+    from eigen_lstm_tpu_torch import bench
+
     trainer = bench.make_trainer(args)
     trainer.restore(JAX_BENCH_START)
     start = trainer.step
     warmup, windows, per_window = bench.schedule(args)
-    first = None
+    means = []
     t0 = time.perf_counter()
     for _ in range(warmup + windows * per_window):
         trainer.state, metrics = trainer.dispatch_superstep()
-        if first is None:
-            first = float(metrics["bits_mean"])
+        if len(means) < warmup:
+            means.append(float(metrics["bits_mean"]))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    bpc = float(metrics["bits_mean"])
+    return (start, trainer.step - start, time.perf_counter() - t0, means,
+            float(metrics["bits_mean"]))
+
+
+def phase6d(own_bpc):
+    """The port's bench schedule once more, from the JAX bench's step-0
+    state restored into the port's bench Trainer: the parameters,
+    accumulators, cursors and stream state the JAX PRNG drew, then the same
+    steps on the card. train_bpc printed beside the JAX package's on its
+    TPU and on the CPU from the same start, the root band and the port's
+    own start (6b). The same run again with K4 on
+    its CUDA-core design, whose bits and lse differ only in the order of
+    fp32 sums (phase 5). Then the first supersteps beside the JAX
+    package's and the port's on the CPU from the same start (the committed
+    trajectories), each difference against two thresholds: the spread of
+    the port's own-start bench over SPREAD_SEEDS, and the order spread,
+    max - min over the port's three runs from the JAX start (the kernels,
+    the kernels with K4's other design, the plain versions on the CPU),
+    which differ only in the order of fp32 sums; the first superstep past
+    each is named. Reported, not gated."""
+    from eigen_lstm_tpu_torch import bench
+    from eigen_lstm_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(bench.DEFAULT_ARGV)
+    start, steps, dt, means, bpc = bench_from_jax_start(args)
+    with cuda_core_head():
+        _, _, _, means_o, bpc_o = bench_from_jax_start(args)
+    with open(JAX_FULL_TRAJECTORY) as f:
+        jax_cpu_bpc = json.load(f)["supersteps"][-1]["bits_mean"]
     lo, hi = bench.BPC_BAND
     print(f"  bench from the JAX start ({JAX_BENCH_START}, step {start} on "
-          f"restore): {trainer.step - start} steps in {dt:.1f} s; mean bits of the "
-          f"first superstep {first:.4f}, train_bpc {bpc:.4f} (the last "
+          f"restore): {steps} steps in {dt:.1f} s; mean bits of the "
+          f"first superstep {means[0]:.4f}, train_bpc {bpc:.4f} (the last "
           f"superstep's mean) against the JAX package's {JAX_BENCH_BPC} on its "
-          f"TPU: {bpc - JAX_BENCH_BPC:+.4f}; the root band ({lo}, {hi}) "
+          f"TPU: {bpc - JAX_BENCH_BPC:+.4f}, and its {jax_cpu_bpc:.4f} on the "
+          f"CPU from the same start: {bpc - jax_cpu_bpc:+.4f}; the root band ({lo}, {hi}) "
           f"{'met' if lo <= bpc <= hi else 'NOT met'}; from the port's own "
-          f"start (6b) {own_bpc} (reported, not gated)", flush=True)
+          f"start (6b) {own_bpc}; from the JAX start with K4's CUDA-core "
+          f"design (only the order of the head's fp32 sums differs) "
+          f"{bpc_o:.4f} (reported, not gated)", flush=True)
+    with open(JAX_TRAJECTORY) as f:
+        jax_means = [x["bits_mean"] for x in json.load(f)["supersteps"]]
+    with open(PORT_CPU_TRAJECTORY) as f:
+        cpu_means = [x["bits_mean"] for x in json.load(f)["supersteps"]]
+    k = min(len(jax_means), len(cpu_means), len(means))
+    seeds = [bench_means(["--seed", str(sd)], k) for sd in SPREAD_SEEDS]
+    parted = {"seed spread": None, "order spread": None}
+    for i in range(k):
+        spread = max(x[i] for x in seeds) - min(x[i] for x in seeds)
+        own = (means[i], means_o[i], cpu_means[i])
+        order = max(own) - min(own)
+        diff = means[i] - jax_means[i]
+        for name, thr in (("seed spread", spread), ("order spread", order)):
+            if parted[name] is None and abs(diff) > thr:
+                parted[name] = i
+        print(f"  6d superstep {i} (steps {i * args.superstep}-"
+              f"{(i + 1) * args.superstep - 1}): mean bits on the card "
+              f"{means[i]:.4f}, the JAX package on the CPU {jax_means[i]:.4f} "
+              f"(card - JAX {diff:+.4f}), the port on the CPU {cpu_means[i]:.4f} "
+              f"(CPU port - JAX {cpu_means[i] - jax_means[i]:+.4f}), the card "
+              f"with K4's CUDA-core design {means_o[i]:.4f}; thresholds: the "
+              f"spread over the port's own-start seeds {SPREAD_SEEDS} "
+              f"{spread:.4f}, the order spread (the port's three runs from this "
+              f"start, which differ only in the order of fp32 sums) "
+              f"{order:.4f}", flush=True)
+    print("  6d: the card's supersteps part from the JAX package's on the CPU "
+          + "; ".join(f"beyond the {name} "
+                      + (f"first at superstep {i}" if i is not None
+                         else f"at none of the first {k}")
+                      for name, i in parted.items())
+          + " (reported, not gated)", flush=True)
 
 
 def phase6c():
@@ -1812,34 +1947,48 @@ def tiled_bound(cfg, s, b, n):
 
 
 def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
-                    inv, tag, per_call):
+                    inv, tag, per_call, persistent, timed=True):
     """K10 at the training shapes: every reverse step replayed from the
     kernel's own dg_{t+1} with the cotangent rounded to the xw type and
-    masked explicitly, and the window against the plain version given the
-    explicitly masked cotangent (fp32 gated, bf16 printed). Returns the
-    record."""
+    masked explicitly, dh0 against round(dg_0) @ U^T in fp32, and the
+    window against the plain version given the explicitly masked cotangent
+    (fp32 gated, bf16 printed). The persistent design hands out its fp32 dg
+    too: that is held to the replay, and its bf16 dg must be it rounded,
+    bit for bit; the per-step design's bf16 dg is held beyond its own
+    rounding. Returns the record (its time when ``timed``)."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
     g_seq, c_seq = fwd_out[3], fwd_out[2]
     s, b, n = c_seq.shape
     _, _, xd = ct.types(cfg)
+    dg32 = torch.empty(s, b, 4 * n, device=DEVICE) if persistent else None
+    dh0_k = torch.empty(b, n, device=DEVICE)
     before = ct.tiled_bwd.launches
     dg_k, dc_k = ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
-                              dropout=dropout)
+                              dropout=dropout, dh0_out=dh0_k, dg_out=dg32)
     per_call["tiled_bwd"] = ct.tiled_bwd.launches - before
     dh_x = dh_seq.to(xd).float()
     dh_eff = dh_x if dropout is None else masked(dh_x, mask, inv)
     dg_p, dc_p = ct.tiled_bwd_plain(U, g_seq, c_seq, c0, dh_eff, dhT, dcT, cfg)
     torch.cuda.synchronize()
     if dg_k.dtype != xd or not torch.isfinite(dg_k.float()).all() \
-            or not torch.isfinite(dc_k).all():
-        fail(f"tiled_bwd {tag}: dg_seq not finite or not in the xw type {xd}")
-    rep_dg, _, rep_dc = reverse_replay(U.to(cfg.cdtype), g_seq, c_seq, c0,
-                                       dh_eff, dhT, dcT, cfg, dg_k.float())
-    slack = BF16_ROUNDING if xd == torch.bfloat16 else 0.0
-    dg_err = float(((dg_k.float() - rep_dg).abs() - slack * rep_dg.abs())
-                   .clamp_min(0).max() / rep_dg.abs().max())
-    step_err = max(dg_err, norm_err(dc_k, rep_dc))
+            or not torch.isfinite(dc_k).all() or not torch.isfinite(dh0_k).all():
+        fail(f"tiled_bwd {tag}: dg_seq, dc0 or dh0 not finite, or dg_seq not "
+             f"in the xw type {xd}")
+    rep_dg, rep_dh0, rep_dc = reverse_replay(U.to(cfg.cdtype), g_seq, c_seq, c0,
+                                             dh_eff, dhT, dcT, cfg, dg_k.float())
+    if persistent:
+        dg_err = norm_err(dg32, rep_dg)
+        if not torch.equal(dg_k, dg32.to(xd)):
+            fail(f"tiled_bwd {tag}: the persistent design's dg_seq is not its "
+                 f"fp32 dg rounded to {xd}")
+        how = "fp32 dg; its bf16 dg that rounded, bit for bit"
+    else:
+        slack = BF16_ROUNDING if xd == torch.bfloat16 else 0.0
+        dg_err = float(((dg_k.float() - rep_dg).abs() - slack * rep_dg.abs())
+                       .clamp_min(0).max() / rep_dg.abs().max())
+        how = "beyond dg's bf16 rounding" if slack else "fp32 dg"
+    step_err = max(dg_err, norm_err(dc_k, rep_dc), norm_err(dh0_k, rep_dh0))
     if not np.isfinite(step_err) or step_err > TRAIN_TOL:
         fail(f"tiled_bwd {tag}: {step_err:.3e} of its plain replay > "
              f"{TRAIN_TOL:g}")
@@ -1847,23 +1996,52 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
     if cfg.cdtype == torch.float32 and max(norm_err(dg_k, dg_p),
                                            norm_err(dc_k, dc_p)) > TRAIN_TOL:
         fail(f"tiled_bwd {tag} window: {window}")
-    print(f"  tiled_bwd {tag}: every reverse step and dc0 within "
-          f"{step_err:.3e} (normalised"
-          + (", beyond dg's bf16 rounding" if slack else "") + ") of the plain "
-          f"replay from the kernel's own dg{' with the host mask' if dropout else ''}"
-          f" (tol {TRAIN_TOL:g}); window against plain with explicit masks ("
+    print(f"  tiled_bwd {tag}: {per_call['tiled_bwd']} launches; every reverse "
+          f"step, dh0 and dc0 within {step_err:.3e} (normalised; {how}) of the "
+          f"plain replay from the kernel's own dg"
+          f"{' with the host mask' if dropout else ''} (tol {TRAIN_TOL:g}); "
+          f"window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
-    ms = cuda_ms(lambda: ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT, dcT,
-                                      cfg, dropout=dropout), reps=1, windows=3)
-    plain_ms = cuda_ms(lambda: ct.tiled_bwd_plain(U, g_seq, c_seq, c0, dh_seq,
-                                                  dhT, dcT, cfg, dropout),
-                       reps=1, windows=2)
-    bound_ms, bound_by = tiled_bound(cfg, s, b, n)
-    return dict(name="tiled_bwd", route="cuda", source=TILED_SOURCE,
-                replaces=TILED_REPLACES["tiled_bwd"], launches=None,
-                max_abs_err=step_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    rec = dict(name="tiled_bwd", route="cuda", source=TILED_SOURCE,
+               replaces=TILED_REPLACES["tiled_bwd"], launches=None,
+               max_abs_err=step_err, dg=dg_k)
+    if not timed:
+        return rec
+    rec["ms"] = cuda_ms(lambda: ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT,
+                                             dcT, cfg, dropout=dropout),
+                        reps=1, windows=3)
+    rec["plain_ms"] = cuda_ms(lambda: ct.tiled_bwd_plain(
+        U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg, dropout), reps=1, windows=2)
+    rec["bound_ms"], rec["bound_by"] = tiled_bound(cfg, s, b, n)
+    return rec
+
+
+def tiled_products_check(dg, h_seq, h0, cfg, tag, per_call):
+    """The tiled VJPs' dU under bf16 compute: on tensor cores
+    (``tensor_core_dU``, K6's dU kernel; dh0, the persistent K10's own last
+    product, is held in ``tiled_bwd_check``) against the fp32 product of
+    ``_mm`` on the same bf16 inputs.
+    bf16 products are exact in fp32, so only the order of the fp32 sums
+    differs: gated at TRAIN_TOL, normalised. Returns (dU's time on tensor
+    cores, through ``_mm``), ms."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    before = ct.tensor_core_dU.launches
+    dU = ct.tensor_core_dU(dg, h_seq, h0, cfg)
+    per_call["tiled_dU"] = ct.tensor_core_dU.launches - before
+    ref = ct._dU(dg, h_seq, h0, cfg, plain=True)
+    torch.cuda.synchronize()
+    err = norm_err(dU, ref)
+    tc_ms = cuda_ms(lambda: ct.tensor_core_dU(dg, h_seq, h0, cfg), reps=2, windows=3)
+    mm_ms = cuda_ms(lambda: ct._dU(dg, h_seq, h0, cfg, plain=True), reps=2, windows=3)
+    print(f"  tiled dU {tag}: tensor cores ({per_call['tiled_dU']} launches) "
+          f"within {err:.3e} of _mm's fp32 product (normalised, tol "
+          f"{TRAIN_TOL:g}); {tc_ms:.4f} ms against _mm's {mm_ms:.4f} ms",
+          flush=True)
+    if not np.isfinite(err) or err > TRAIN_TOL:
+        fail(f"tiled dU {tag}: {err:.3e} of _mm's > {TRAIN_TOL:g}")
+    return tc_ms, mm_ms
 
 
 # K8 and K9's per-step design (one launch a step) as PERF.md §6 rows 6 and
@@ -1874,6 +2052,8 @@ TILED_PER_STEP_RECORDED_MS = {
     ("tiled_fwd_scan", "bfloat16"): {0.0: 17.02, FLAG_DROP: 16.84},
     ("tiled_fwd_embed", "float32"): {0.0: 22.11, FLAG_DROP: 22.54},
     ("tiled_fwd_scan", "float32"): {0.0: 23.97, FLAG_DROP: 24.14},
+    ("tiled_bwd", "bfloat16"): {0.0: 29.62, FLAG_DROP: 30.03},
+    ("tiled_bwd", "float32"): {0.0: 46.33, FLAG_DROP: 46.42},
 }
 
 
@@ -1892,19 +2072,39 @@ def tiled_design(cfg, b, n):
             f"rows in shared memory, one cooperative launch a window)"), True
 
 
+def tiled_bwd_design(cfg, b, n):
+    """K10's design at these shapes on this card, as its wrapper chooses
+    it (``cuda_cell_tiled.tiled_bwd_plan``): a label, and whether it is
+    persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (BWD_KC, BWD_UNITS,
+                                                          device_tiled_bwd_plan)
+
+    plan = device_tiled_bwd_plan(cfg, b, n)
+    if plan is None:
+        return "the per-step design (one launch a step)", False
+    rows, cres = plan
+    return (f"the persistent design ({n // BWD_UNITS * -(-b // rows)} blocks "
+            f"of {BWD_UNITS} units and {rows} batch rows, {cres} of U's "
+            f"{4 * n // BWD_KC} chunks in shared memory, one cooperative "
+            f"launch a window)"), True
+
+
 @contextlib.contextmanager
-def per_step_tiled():
-    """K8 and K9 take their per-step design inside the block, whatever
-    ``tiled_fwd_plan`` would choose: for the checks and times of that
-    design where the main path takes the persistent one."""
+def per_step_tiled(names=("device_tiled_fwd_plan",)):
+    """The tiled kernels whose plans are ``names`` (K8 and K9's by
+    default; K10's is ``device_tiled_bwd_plan``) take their per-step design
+    inside the block, whatever the plan would choose: for the checks and
+    times of that design where the main path takes the persistent one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
-    plan = ct.device_tiled_fwd_plan
-    ct.device_tiled_fwd_plan = lambda *a: None
+    plans = {name: getattr(ct, name) for name in names}
+    for name in names:
+        setattr(ct, name, lambda *a: None)
     try:
         yield
     finally:
-        ct.device_tiled_fwd_plan = plan
+        for name, plan in plans.items():
+            setattr(ct, name, plan)
 
 
 def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
@@ -2018,8 +2218,35 @@ def phase9a(records):
             if any(per_call[k] != want for k in fwd):
                 fail(f"tiled forward {tag}: launches a call {per_call}, "
                      f"{design} gives {want}")
-            rec10 = tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT,
-                                    run_cfg, dr[1], masks[1], inv, tag, per_call)
+            design10, persistent10 = tiled_bwd_design(run_cfg, b, n)
+            print(f"  tiled_bwd {tag}: {design10}", flush=True)
+            if persistent10 != (dtype == "bfloat16"):
+                fail(f"tiled_bwd {tag}: {design10}; these shapes take the "
+                     f"persistent design in bf16 alone")
+            bwd_args = (l1.U, out2, h0, c0, dh_seq, dhT, dcT, run_cfg, dr[1],
+                        masks[1], inv)
+            rec10 = tiled_bwd_check(*bwd_args, tag, per_call, persistent10)
+            dg10 = rec10.pop("dg")
+            if per_call["tiled_bwd"] != (1 if persistent10 else s):
+                fail(f"tiled_bwd {tag}: {per_call['tiled_bwd']} launches a "
+                     f"call, {design10} gives {1 if persistent10 else s}")
+            if persistent10:
+                # the per-step design, which tiled_bwd_plan keeps for fp32
+                # and other shapes and cards, held to its gates on the same
+                # inputs and timed in this run; then dU (and dh0) on tensor
+                # cores against _mm
+                step_call = {}
+                with per_step_tiled(("device_tiled_bwd_plan",)):
+                    tiled_bwd_check(*bwd_args, tag + " (the per-step design)",
+                                    step_call, False, timed=False)
+                    rec10["per_step_ms"] = cuda_ms(lambda: ct.tiled_bwd(
+                        l1.U, out2[3], out2[2], c0, dh_seq, dhT, dcT, run_cfg,
+                        dropout=dr[1]), reps=1, windows=3)
+                if step_call["tiled_bwd"] != s:
+                    fail(f"tiled_bwd {tag}, the per-step design: "
+                         f"{step_call['tiled_bwd']} launches, one a step gives {s}")
+                rec10["dU_ms"], rec10["dU_mm_ms"] = tiled_products_check(
+                    dg10, out2[0], h0, run_cfg, tag, per_call)
             # the resident kernels at the same shapes (the path's types)
             k1 = cuda_ms(lambda: cuda_cell.embed_layer0(
                 l0, x, h0, c0, run_cfg, residuals=True, dropout=dr[0]),
@@ -2044,12 +2271,14 @@ def phase9a(records):
                 rec.update(replaces=TILED_REPLACES[rec["name"]], library_ms=lib,
                            resident_ms=resident)
                 records[("9a", rec["name"], dtype, drop)] = rec
-                line = ""
-                if rec["name"] in fwd:
-                    old = TILED_PER_STEP_RECORDED_MS[(rec["name"], dtype)][drop]
-                    line = (f"; the per-step design {rec['per_step_ms']:.4f} ms "
-                            f"in this run ({s} launches)" if persistent else "")
-                    line += f"; PERF.md's per-step row {old} ms"
+                old = TILED_PER_STEP_RECORDED_MS[(rec["name"], dtype)][drop]
+                line = (f"; the per-step design {rec['per_step_ms']:.4f} ms "
+                        f"in this run ({s} launches)" if "per_step_ms" in rec
+                        else "")
+                line += f"; PERF.md's per-step row {old} ms"
+                if "dU_ms" in rec:
+                    line += (f"; dU on tensor cores {rec['dU_ms']:.4f} ms, "
+                             f"through _mm {rec['dU_mm_ms']:.4f} ms")
                 print(f"  {rec['name']} {tag}: {rec['ms']:.4f} ms per window "
                       f"({per_call[rec['name']]} launches), plain "
                       f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
@@ -2167,8 +2396,8 @@ def phase9c(per_call, records):
     """The 5b recipe through the CLI's Trainer, with every kernel's launch
     count reset before and read after: the step time, chars/s and the mean
     bits of each superstep, gated finite, the last below 8.0 and below the
-    first; the launches against what the shapes give (K8, K10, K4, K5) and
-    none of K1, K2, K3, K6. Then held-out bits/char of the trained weights
+    first; the launches against what the shapes give (K8, K10, the
+    tensor-core dU, K4, K5) and none of K1, K2, K3, K6. Then held-out bits/char of the trained weights
     on enwik6's last 1 % at eval batch 16 through K8, kernels against
     plain. Returns the launch counts of the training run."""
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
@@ -2184,7 +2413,7 @@ def phase9c(per_call, records):
           f"eval batch {EVAL_BATCH} {families(cfg, EVAL_BATCH)}", flush=True)
     counters = {"tiled_fwd_embed": ct.tiled_embed_layer0,
                 "tiled_fwd_scan": ct.tiled_scan_layer,
-                "tiled_bwd": ct.tiled_bwd,
+                "tiled_bwd": ct.tiled_bwd, "tiled_dU": ct.tensor_core_dU,
                 "lstm_fwd_embed": cuda_cell.embed_layer0,
                 "lstm_fwd_scan": cuda_cell.scan_layer,
                 "lstm_bwd_embed": cuda_cell_bwd.embed_layer0_bwd,
@@ -2211,19 +2440,24 @@ def phase9c(per_call, records):
           f"launches {counts}", flush=True)
     print("  5b steps, mean bits of each superstep: "
           + " ".join(f"{v:.4f}" for v in means), flush=True)
-    for name in ("tiled_fwd_embed", "tiled_bwd", "head_fwd", "head_bwd"):
+    k10 = records[("9a", "tiled_bwd", "bfloat16", 0.0)]
+    for name in ("tiled_fwd_embed", "tiled_bwd", "tiled_dU", "head_fwd",
+                 "head_bwd"):
         ms = (records[("9a", name)] if name.startswith("head")
+              else k10["dU_ms"] if name == "tiled_dU"
               else records[("9a", name, "bfloat16", 0.0)]["ms"])
         print(f"  {name}: {ms:.3f} ms a step, {100 * ms / step_ms:.1f} % of "
               f"the {step_ms:.2f} ms 5b step", flush=True)
     if not all(np.isfinite(bits)) or not means[-1] < min(8.0, means[0]):
         fail(f"5b steps: bits not finite, or the last superstep's mean "
              f"{means[-1]:.4f} not below 8.0 and the first's {means[0]:.4f}")
-    # K8 as many launches a step as one call at these shapes gives (its
-    # design's: 1 persistent, S per-step; 9a), K10 S
+    # K8 and K10 as many launches a step as one call at these shapes gives
+    # (their designs': 1 persistent, S per-step; 9a), dU on tensor cores
+    # as one call of 9a
     want = {name: 0 for name in counters}
     want.update(tiled_fwd_embed=B5_STEPS * per_call["tiled_fwd_embed"],
                 tiled_bwd=B5_STEPS * per_call["tiled_bwd"],
+                tiled_dU=B5_STEPS * per_call["tiled_dU"],
                 head_fwd=B5_STEPS * per_call["head_fwd"],
                 head_bwd=B5_STEPS * per_call["head_bwd"], adagrad=B5_STEPS)
     if counts != want:
@@ -3127,8 +3361,8 @@ def main():
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
         rec = dict(records[("9a", name, "bfloat16", 0.0)], launches=count)
-        rec.pop("resident_ms")
-        rec.pop("per_step_ms", None)
+        for extra in ("resident_ms", "per_step_ms", "dU_ms", "dU_mm_ms"):
+            rec.pop(extra, None)
         kernels.append(rec)
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
     # its B = 64 shapes

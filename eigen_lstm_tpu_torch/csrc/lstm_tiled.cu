@@ -15,7 +15,9 @@
 //       dh_cot_t is the cotangent of h_seq in the xw type (the VJPs round
 //       it, :355, :596), masked and scaled by inv under dropout (:162-170).
 //       dh0 = round(dg_0) @ U^T and the weight gradients are products
-//       outside the kernel, as in the JAX VJPs (:359-375, :599-623).
+//       outside the kernel in the JAX VJPs (:359-375, :599-623); here dh0
+//       is the persistent K10's last product, and dU is K6's tensor-core
+//       product (lstm_bwd.cu:lstm_bwd_scan_dU_launch) under bf16 compute.
 // The forward epilogue: sigma on i, o, f, tanh on u, the cell update of
 // _cell_fwd ("reference" carries tanh(i*u + f*c_prev), "standard" the raw
 // cell), h_seq and c_seq and the activated gates in the residual type, the
@@ -53,12 +55,30 @@
 // the products at the tensor cores' peak. Holding more of U on chip moves
 // little (U's rows are ~1/5 of the step's reads at B = 128). Left for later:
 // TMA multicast of each h chunk over a cluster of blocks (cutting the L2
-// reads by the cluster size), wgmma in place of mma.sync (B read from
-// shared memory by the tensor cores, no ldmatrix), and K10, the backward,
-// still on the per-step design below.
+// reads by the cluster size), and wgmma in place of mma.sync (B read from
+// shared memory by the tensor cores, no ldmatrix).
 //
-// The per-step design (fp32 compute, and the shapes the persistent design
-// does not take; K10 always). The TPU kernel streams (N, wt) U tiles
+// K10 has two designs of one function as well (tiled_bwd_plan):
+//
+// The persistent design (bf16 compute, N a multiple of 32, a resident grid;
+// tiled_bwd_persist), K6's persistent design (lstm_bwd.cu) with U streamed
+// where it does not fit. The per-step K10 (below) spent ~296 us a step at
+// 5b's shapes: 100 launches, fp32 FMAs, all of U^T (32 MB) through a
+// two-stage ring every step, and a fresh U^T copy a call. Here a block owns
+// 32 hidden units (U's rows, read in place) and 64 batch rows at B = 128
+// (128 blocks, one an SM), the gate backward and the dc carry in the
+// registers of the thread that owns (b, j); 14 of its 64 chunks of U's
+// rows (128 gate columns each) sit in shared memory for the window, the
+// other 50 stream each step beside round(dg_{t+1}) through a four-slot
+// cp.async ring; dh_rec is mma.sync m16n8k16; dg is written once, in bf16.
+// What bounds it is again each step's L2 reads and the barrier: a block
+// reads 1 MB of dg_{t+1} and ~0.4 MB of U a step, ~183 MB over the grid,
+// against ~4.3 us of products at the bf16 peak (PERF.md). Wider unit
+// groups would read dg fewer times but hold less of U; a cluster sharing
+// each dg chunk (TMA multicast) would cut those reads, not built.
+//
+// The per-step design (fp32 compute, and the shapes the persistent designs
+// do not take). The TPU kernel streams (N, wt) U tiles
 // through VMEM in a sequential grid and gathers a step's gate chunks in
 // scratch before the cell epilogue; Hopper blocks run in parallel and in
 // no order, so the blocking is turned around:
@@ -588,6 +608,233 @@ tiled_fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K10 under bf16 compute: one persistent cooperative launch for the S
+// reverse steps and dh0 (tiled_bwd_persist; ops/cuda_cell_tiled.py:
+// tiled_bwd_plan chooses it). K6's persistent design (csrc/lstm_bwd.cu:
+// lstm_bwd_persist) where U does not fit the resident grid's shared memory.
+//
+// A block owns kBUnits = 32 hidden units j0.. (U's rows j0.., read in place:
+// no U^T) and `rows` batch rows b0.., so the grid is (N / 32) *
+// ceil(B / rows) blocks, at most what is resident (64 x 2 = 128 at 5b's
+// B = 128). The 4N-long gate axis is walked in chunks of kBKC columns: the
+// first cres chunks of the block's U rows sit in shared memory for the
+// whole window ([chunk][unit][column]), the rest stream every step through
+// a ring of kBStages slots beside the chunks of round(dg_{t+1}) (cp.async,
+// L2 only: other blocks wrote dg_{t+1} before the barrier). In each chunk
+// warp w takes the 16 columns 16w.. as one k step of mma.sync m16n8k16
+// (bf16 in, fp32 sums) for every (16-row, 8-unit) tile; the 8 partial sums
+// of each (b, j) meet in shared memory and are added in warp order. Thread
+// (warp, lane) owns unit j0 + lane of rows b0 + warp + 8i: it runs the gate
+// backward in registers, the fp32 dc carried there for the window, and
+// writes dg_t once, in bf16. A grid barrier closes each step; each step's
+// g, c, c_{t-1} and dh_seq[t] are loaded before the barrier that precedes
+// it. After step 0 one more product gives dh0 = round(dg_0) @ U^T.
+constexpr int kBUnits = 32;
+constexpr int kBThreads = 256;
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kBMaxRows = 64;             // batch rows of a block: 4 m tiles
+constexpr int kBKC = 16 * kBWarps;        // gate columns of a chunk
+constexpr int kBStages = 4;  // three and five slots were slower at 5b's shapes
+constexpr int kBPitch = kBKC + kFPad;     // bf16 of a shared row
+constexpr int kBRedPitch = kBUnits + 8;   // floats: float2 stores without conflicts
+constexpr int kBElems = kBMaxRows / kBWarps;
+
+// Dynamic shared memory of the persistent K10 (mirrored by
+// ops/cuda_cell_tiled.py:bwd_persist_smem_bytes, which holds itself to
+// tiled_bwd_persist_smem_bytes once a card): cres resident U chunks, then
+// the ring, each slot a dg chunk of the block's m tiles and a U chunk; the
+// cross-warp partial sums reuse the ring.
+inline size_t bwd_persist_smem_bytes(int rows, int cres) {
+  const size_t r16 = (size_t)(rows + 15) / 16 * 16;
+  const size_t ring = 2 * (size_t)kBStages * (r16 + kBUnits) * kBPitch;
+  const size_t red = (size_t)kBWarps * r16 * kBRedPitch * 4;
+  return 2 * (size_t)cres * kBUnits * kBPitch + (ring > red ? ring : red);
+}
+
+template <typename RT>
+__global__ void __launch_bounds__(kBThreads, 1)
+tiled_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
+                  const RT* __restrict__ g_seq,         // (S, B, 4N)
+                  const RT* __restrict__ c_seq,         // (S, B, N)
+                  const float* __restrict__ c0,         // (B, N)
+                  const __nv_bfloat16* __restrict__ dh_seq,  // (S, B, N)
+                  const float* __restrict__ dhT,        // (B, N)
+                  float* __restrict__ dc,               // (B, N): dcT in, dc0 out
+                  // (S, B, 4N) dg_seq: written and read within the launch,
+                  // so neither const nor __restrict__ (no non-coherent loads)
+                  __nv_bfloat16* dg,
+                  float* __restrict__ dg32,  // (S, B, 4N) fp32 dg, or null
+                  float* __restrict__ dh0,   // (B, N)
+                  Dropout drop, int S, int B, int N, int rows, int cres,
+                  int standard) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = 4 * N;
+  const int r16 = (rows + 15) / 16 * 16;
+  const int aslot = r16 * kBPitch;              // bf16 of a slot's dg chunk
+  const int slot = aslot + kBUnits * kBPitch;   // bf16 of a slot
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Us + (size_t)cres * kBUnits * kBPitch;
+  float* red = reinterpret_cast<float*>(ring);  // [warp][row][unit]
+  const int groups = N / kBUnits;
+  const int j0 = (blockIdx.x % groups) * kBUnits;
+  const int b0 = (blockIdx.x / groups) * rows;
+  const int nrows = min(rows, B - b0);
+  const int mtiles = (nrows + 15) / 16;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int j = j0 + lane;
+  const size_t bn = (size_t)B * N, bk = (size_t)B * K;
+  cg::grid_group grid = cg::this_grid();
+
+  // 16 bytes e < kBUnits * 16 of the block's U rows in chunk c into dst
+  const auto u_copy = [&](__nv_bfloat16* dst, int c, int e) {
+    const int u = e / 16, p = e % 16;
+    cp_async_16(dst + u * kBPitch + p * 8,
+                U + (size_t)(j0 + u) * K + (size_t)c * kBKC + p * 8, 16);
+  };
+  for (int e = tid; e < cres * kBUnits * 16; e += kBThreads) {
+    const int c = e / (kBUnits * 16);
+    u_copy(Us + (size_t)c * kBUnits * kBPitch, c, e % (kBUnits * 16));
+  }
+  cp_async_commit();
+
+  // this thread's (b, j): rows b0 + warp + 8i that lie in the block's part
+  float dcr[kBElems], gin[kBElems][4], cin[kBElems], cpin[kBElems], dhin[kBElems];
+  const auto valid = [&](int i) { return warp + 8 * i < nrows; };
+  const auto index = [&](int i) { return (size_t)(b0 + warp + 8 * i) * N + j; };
+#pragma unroll
+  for (int i = 0; i < kBElems; ++i) dcr[i] = valid(i) ? dc[index(i)] : 0.0f;
+  const auto load_inputs = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kBElems; ++i) {
+      if (!valid(i)) continue;
+      const size_t idx = index(i);
+      const size_t gb = t * bk + (size_t)(b0 + warp + 8 * i) * K + j;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) gin[i][qq] = to_f32(g_seq[gb + (size_t)qq * N]);
+      cin[i] = to_f32(c_seq[t * bn + idx]);
+      cpin[i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
+      dhin[i] = __bfloat162float(dh_seq[t * bn + idx]);
+    }
+  };
+  load_inputs(S - 1);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nchunks = K / kBKC;
+  for (int t = S - 1; t >= -1; --t) {
+    float dh_rec[kBElems];
+    if (t == S - 1) {
+#pragma unroll
+      for (int i = 0; i < kBElems; ++i) dh_rec[i] = valid(i) ? dhT[index(i)] : 0.0f;
+    } else {
+      // dh_rec = round(dg_{t+1}) @ U^T over the block's rows and units
+      const __nv_bfloat16* dgn = dg + (t + 1) * bk;
+      const auto load_chunk = [&](int c) {
+        __nv_bfloat16* st = ring + (size_t)(c % kBStages) * slot;
+        for (int p = tid; p < mtiles * 16 * (kBKC / 8); p += kBThreads) {
+          const int r = p / (kBKC / 8), k = (p % (kBKC / 8)) * 8;
+          const bool in = r < nrows;
+          cp_async_16(st + r * kBPitch + k,
+                      in ? dgn + (size_t)(b0 + r) * K + (size_t)c * kBKC + k : dgn,
+                      in ? 16 : 0);
+        }
+        if (c >= cres)
+          for (int e = tid; e < kBUnits * 16; e += kBThreads) u_copy(st + aslot, c, e);
+      };
+      float acc[4][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kBStages - 1; ++c) {
+        if (c < nchunks) load_chunk(c);
+        cp_async_commit();
+      }
+      for (int c = 0; c < nchunks; ++c) {
+        cp_async_wait<kBStages - 2>();
+        __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
+        if (c + kBStages - 1 < nchunks) load_chunk(c + kBStages - 1);
+        cp_async_commit();
+        const __nv_bfloat16* st = ring + (size_t)(c % kBStages) * slot;
+        const __nv_bfloat16* ub = c < cres ? Us + (size_t)c * kBUnits * kBPitch : st + aslot;
+        const int kk = warp * 16;
+        // units 16h.. (k 0-7 | 8-15) x (units 0-7 | 8-15): b0, b1 of n
+        // tile 2h, then of n tile 2h + 1
+        unsigned bq[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          ldmatrix_x4(bq[h], ub + (16 * h + lane % 8 + 8 * (lane / 16)) * kBPitch + kk +
+                                 8 * ((lane / 8) % 2));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt >= mtiles) break;
+          unsigned a[4];
+          ldmatrix_x4(a, st + (mt * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kBPitch + kk +
+                             8 * (lane / 16));
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a, bq[nt / 2] + 2 * (nt % 2));
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // every warp is done with the ring: reuse it as red
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mtiles) break;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(
+                red + ((size_t)warp * r16 + mt * 16 + g + 8 * h) * kBRedPitch + nt * 8 + 2 * q) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kBElems; ++i) {
+        float v = 0.0f;
+        if (valid(i))
+#pragma unroll
+          for (int w = 0; w < kBWarps; ++w)
+            v += red[((size_t)w * r16 + warp + 8 * i) * kBRedPitch + lane];
+        dh_rec[i] = v;
+      }
+    }
+    if (t == -1) {
+#pragma unroll
+      for (int i = 0; i < kBElems; ++i)
+        if (valid(i)) {
+          dh0[index(i)] = dh_rec[i];
+          dc[index(i)] = dcr[i];
+        }
+      break;
+    }
+#pragma unroll
+    for (int i = 0; i < kBElems; ++i) {
+      if (!valid(i)) continue;
+      const size_t idx = index(i);
+      float dh_cot = dhin[i];
+      // __fmul_rn: the product rounds before the add, as in the TPU kernel
+      if (drop.on) dh_cot = keep_bit(drop, t, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
+      float d[4];
+      gate_bwd(gin[i][0], gin[i][1], gin[i][2], gin[i][3], cin[i], cpin[i],
+               dh_cot + dh_rec[i], dcr[i], standard, d, &dcr[i]);
+      const size_t gb = t * bk + (size_t)(b0 + warp + 8 * i) * K + j;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        dg[gb + (size_t)qq * N] = __float2bfloat16(d[qq]);
+        if (dg32 != nullptr) dg32[gb + (size_t)qq * N] = d[qq];
+      }
+    }
+    if (t > 0) load_inputs(t - 1);
+    grid.sync();  // dg_t is complete before any block reads it
+  }
+}
+
 // Rows per warp: 8 at training batches (each U element then feeds 8 rows
 // of a tile of 64), 2 at small ones (a tile of 16, no rows wasted at the
 // eval batch of 16).
@@ -752,12 +999,66 @@ template <typename CT, typename RT>
 int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
             const float* c0, const void* dh_seq, const float* dhT, float* dc,
             void* dg, Dropout drop, int S, int B, int N, int standard,
-            cudaStream_t stream) {
-  return wide_tile(B)
-             ? run_bwd_r<CT, RT, 8>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg,
-                                    drop, S, B, N, standard, stream)
-             : run_bwd_r<CT, RT, 2>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg,
-                                    drop, S, B, N, standard, stream);
+            cudaStream_t stream, int* launches) {
+  const int err =
+      wide_tile(B)
+          ? run_bwd_r<CT, RT, 8>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg,
+                                 drop, S, B, N, standard, stream)
+          : run_bwd_r<CT, RT, 2>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg,
+                                 drop, S, B, N, standard, stream);
+  if (err == 0) *launches += S;
+  return err;
+}
+
+// The persistent K10 under bf16 compute, one cooperative launch: U (N, 4N)
+// in bf16, rows batch rows a block, cres chunks of U resident; dh0 out.
+template <typename RT>
+int run_bwd_persist(const void* U, const void* g_seq, const void* c_seq,
+                    const float* c0, const void* dh_seq, const float* dhT,
+                    float* dc, void* dg, float* dg32, float* dh0, Dropout drop, int S,
+                    int B, int N, int rows, int cres, int standard,
+                    cudaStream_t stream, int* launches) {
+  if (N % kBUnits != 0 || rows < 16 || rows > kBMaxRows || rows % 16 != 0 ||
+      S < 1 || cres < 0 || cres > 4 * N / kBKC || dh0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = tiled_bwd_persist<RT>;
+  const size_t smem = bwd_persist_smem_bytes(rows, cres);
+  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !ready[dev]) {
+    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) ready[dev] = 1;
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
+  const int grid = (N / kBUnits) * ((B + rows - 1) / rows);
+  // every block must be resident at once, or the grid barrier never opens
+  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  using bf = __nv_bfloat16;
+  const bf* u = static_cast<const bf*>(U);
+  const RT* gs = static_cast<const RT*>(g_seq);
+  const RT* cs = static_cast<const RT*>(c_seq);
+  const bf* dh = static_cast<const bf*>(dh_seq);
+  bf* d = static_cast<bf*>(dg);
+  void* args[] = {&u, &gs, &cs, &c0, &dh, &dhT, &dc, &d, &dg32, &dh0, &drop,
+                  &S, &B, &N, &rows, &cres, &standard};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(grid), dim3(kBThreads), args, smem,
+                                    stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
 }
 
 }  // namespace
@@ -802,23 +1103,48 @@ extern "C" size_t tiled_fwd_persist_smem_bytes(int B, int N, int kres) {
   return fwd_persist_smem_bytes(B, N, kres);
 }
 
-// K10. UT is U^T (4N, N) and dh_seq (S, B, N) in the compute type (the xw
-// type); the residual sequences in the residual type; c0 and dhT fp32; dc
-// holds dcT on entry and dc0 on return; dg receives the (S, B, 4N) dg
-// sequence in the compute type. drop_on, seed, keep, inv: the dropout of
-// the forward's masked stream.
+// Bytes of dynamic shared memory a persistent K10 block takes with `rows`
+// batch rows and cres resident chunks of U.
+extern "C" size_t tiled_bwd_persist_smem_bytes(int rows, int cres) {
+  return bwd_persist_smem_bytes(rows, cres);
+}
+
+// K10. dh_seq (S, B, N) in the compute type (the xw type); the residual
+// sequences in the residual type; c0 and dhT fp32; dc holds dcT on entry
+// and dc0 on return; dg receives the (S, B, 4N) dg sequence in the compute
+// type. drop_on, seed, keep, inv: the dropout of the forward's masked
+// stream. rows >= 0: the persistent design (bf16 compute;
+// ops/cuda_cell_tiled.py:tiled_bwd_plan gives rows and cres), U is U
+// (N, 4N), dh0 (B, N) fp32 receives round(dg_0) @ U^T and dg32, unless
+// null, the (S, B, 4N) fp32 dg; rows -1: the per-step design, U is U^T
+// (4N, N) and dg32, dh0 are not written. Adds its kernel launches to
+// *launches.
 extern "C" int tiled_bwd_launch(
-    int ctype, int rtype, const void* UT, const void* g_seq, const void* c_seq,
+    int ctype, int rtype, const void* U, const void* g_seq, const void* c_seq,
     const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dg,
-    int S, int B, int N, int standard, int drop_on, unsigned seed,
-    unsigned keep, float inv, void* stream) {
+    void* dg32, void* dh0, int S, int B, int N, int standard, int rows, int cres,
+    int drop_on, unsigned seed, unsigned keep, float inv, void* stream,
+    int* launches) {
   const Dropout drop{drop_on, seed, keep, inv};
-  const auto f = [&](auto run) {
-    return run(UT, g_seq, c_seq, static_cast<const float*>(c0), dh_seq,
-               static_cast<const float*>(dhT), static_cast<float*>(dc), dg,
-               drop, S, B, N, standard, static_cast<cudaStream_t>(stream));
-  };
   using bf = __nv_bfloat16;
+  if (rows >= 0) {
+    const auto f = [&](auto run) {
+      return run(U, g_seq, c_seq, static_cast<const float*>(c0), dh_seq,
+                 static_cast<const float*>(dhT), static_cast<float*>(dc), dg,
+                 static_cast<float*>(dg32), static_cast<float*>(dh0), drop, S, B,
+                 N, rows, cres, standard,
+                 static_cast<cudaStream_t>(stream), launches);
+    };
+    if (ctype == 1 && rtype == 0) return f(run_bwd_persist<float>);
+    if (ctype == 1 && rtype == 1) return f(run_bwd_persist<bf>);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto f = [&](auto run) {
+    return run(U, g_seq, c_seq, static_cast<const float*>(c0), dh_seq,
+               static_cast<const float*>(dhT), static_cast<float*>(dc), dg,
+               drop, S, B, N, standard, static_cast<cudaStream_t>(stream),
+               launches);
+  };
   if (ctype == 0 && rtype == 0) return f(run_bwd<float, float>);
   if (ctype == 0 && rtype == 1) return f(run_bwd<float, bf>);
   if (ctype == 1 && rtype == 0) return f(run_bwd<bf, float>);

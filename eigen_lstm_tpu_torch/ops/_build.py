@@ -39,8 +39,8 @@ _F = ctypes.c_float
 _DROP = [_U, _U, _F]   # the dropout's seed (int32 bits), keep threshold, inv
 # (restype, argtypes) of every exported function: c_void_p for pointers and
 # the stream, c_int for ints (an unset argtype would pass a pointer as a
-# 32-bit int and cut it). The backward, head and tiled forward launchers
-# add the number of kernels they launched to their last argument.
+# 32-bit int and cut it). The backward, head and tiled launchers add the
+# number of kernels they launched to their last argument.
 SIGNATURES = {
     "lstm_fwd_embed_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 4 + _DROP + [_P]),
     "lstm_fwd_scan_launch": (_I, [_I, _I] + [_P] * 12 + [_I] * 4 + _DROP + [_P]),
@@ -57,7 +57,7 @@ SIGNATURES = {
     "lstm_bwd_scan_dU_launch": (_I, [_I] + [_P] * 5 + [_I] * 3 + [_P, _IP]),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
     "lstm_bwd_persist_smem_bytes": (_Z, [_I, _I]),
-    "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 3 + [_P, _IP]),
+    "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P, _IP]),
     "head_bwd_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_P, _IP]),
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
@@ -67,7 +67,9 @@ SIGNATURES = {
     "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + _DROP
                               + [_P, _IP]),
     "tiled_fwd_persist_smem_bytes": (_Z, [_I] * 3),
-    "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 8 + [_I] * 5 + _DROP + [_P]),
+    "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
+                         + [_P, _IP]),
+    "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),
     "gen_work_floats": (_Z, [_I] * 3),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P]),

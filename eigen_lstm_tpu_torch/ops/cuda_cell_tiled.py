@@ -24,8 +24,12 @@ and shared memory): under bf16 compute, where its grid of N / 16 blocks
 can be resident, one persistent cooperative launch a window with as many
 of U's rows as fit in shared memory and the product on tensor cores;
 elsewhere (fp32 compute, B > 128, a grid too large for the card) one
-launch a step. The C launcher counts the launches (1 or S a call). K10
-keeps one launch a reverse step (S a call).
+launch a step. K10 has two such designs too (``tiled_bwd_plan``): under
+bf16 compute, where its grid of (N / 32) * ceil(B / rows) blocks can be
+resident, one persistent cooperative launch a window that also gives dh0,
+with as many chunks of U's rows as fit in shared memory and dh_rec on
+tensor cores; elsewhere one launch a reverse step. The C launchers count
+the launches (1 or S a call).
 
 The types are the tiled JAX functions' (``:222-225``, ``:673``): the
 residual type is fp32 only where ``residual_dtype`` is ``"float32"``, else
@@ -43,7 +47,10 @@ in JAX, dh0 = round(dg_0) @ U_c^T, dU = round(h_prev)^T round(dg) with
 h_{-1} = h0 in the residual type, dW = onehot(ids)^T round(dg) and db the
 fp32 sum of the rounded dg, all fp32 products (``ops/cell.py:matmul``,
 without TF32); dW and dU are handed back rounded to the compute type
-(``:377``, ``:622``) and dxw is dg in the xw type.
+(``:377``, ``:622``) and dxw is dg in the xw type. Under bf16 compute on
+the card dU runs on tensor cores (``tensor_core_dU``: bf16 in, fp32 sums,
+as the JAX product's ``preferred_element_type``, so only the order of the
+sums moves) and dh0 is the persistent K10's own last product.
 """
 
 from __future__ import annotations
@@ -226,12 +233,17 @@ def tiled_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent K8/K9's shared
-    memory as ``persist_smem_bytes`` does."""
+    once; checks that the library lays out the persistent K8/K9's and
+    K10's shared memory as ``persist_smem_bytes`` and
+    ``bwd_persist_smem_bytes`` do."""
     lib = _build.load_library()
     for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0)):
         if lib.tiled_fwd_persist_smem_bytes(b, n, kres) != persist_smem_bytes(b, n, kres):
             raise RuntimeError("persist_smem_bytes disagrees with "
+                               "csrc/lstm_tiled.cu's layout")
+    for rows, cres in ((64, 14), (32, 18), (16, 0), (48, 5)):
+        if lib.tiled_bwd_persist_smem_bytes(rows, cres) != bwd_persist_smem_bytes(rows, cres):
+            raise RuntimeError("bwd_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
     return cuda_cell_bwd._device_limits(index)
 
@@ -240,6 +252,59 @@ def device_tiled_fwd_plan(cfg: ModelConfig, b: int, n: int) -> Optional[int]:
     """``tiled_fwd_plan`` with the current card's SMs and shared-memory
     limit."""
     return tiled_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+# The persistent K10's shared-memory layout, as csrc/lstm_tiled.cu lays it
+# out (bwd_persist_smem_bytes; ``_device_limits`` holds the two equal): cres
+# resident chunks of the block's U rows (BWD_UNITS rows of BWD_KC gate
+# columns, each BWD_KC + PERSIST_PAD bf16), then a ring of BWD_STAGES
+# slots, each the dg chunk of the block's 16-row m tiles and a U chunk; the
+# cross-warp partial sums (8 warps x rows x BWD_RED_PITCH fp32) reuse it.
+BWD_UNITS, BWD_KC, BWD_STAGES, BWD_RED_PITCH = 32, 128, 4, 40
+BWD_ROWS = (16, 32, 48, 64)   # batch rows a block: the fewest that fit
+
+
+def bwd_persist_smem_bytes(rows: int, cres: int) -> int:
+    """Bytes of dynamic shared memory a persistent K10 block takes with
+    ``rows`` batch rows and ``cres`` chunks of U held."""
+    r16 = -(-rows // 16) * 16
+    pitch = BWD_KC + PERSIST_PAD
+    ring = 2 * BWD_STAGES * (r16 + BWD_UNITS) * pitch
+    red = _WARPS * r16 * BWD_RED_PITCH * 4
+    return 2 * cres * BWD_UNITS * pitch + max(ring, red)
+
+
+def tiled_bwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                   smem_limit: int) -> Optional[Tuple[int, int]]:
+    """K10's design at (config, batch, hidden) on a device of ``sms`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory: (rows,
+    cres) for the persistent design, a block owning BWD_UNITS hidden units
+    and ``rows`` batch rows and holding the first ``cres`` of its 4N /
+    BWD_KC chunks of U in shared memory (the rest stream each step); None
+    for the per-step design.
+
+    The persistent design needs bf16 compute (the tensor cores; fp32
+    products keep TF32 off), N a multiple of BWD_UNITS, and its grid of
+    (N / BWD_UNITS) * ceil(B / rows) blocks resident at one a SM: rows is
+    the fewest of BWD_ROWS whose grid fits the SMs (more blocks share the
+    dg reads). It holds as many chunks of U as fit beside its ring."""
+    if cfg.cdtype != torch.bfloat16 or n % BWD_UNITS != 0:
+        return None
+    rows = next((r for r in BWD_ROWS if n // BWD_UNITS * -(-b // r) <= sms),
+                None)
+    if rows is None:
+        return None
+    free = smem_limit - bwd_persist_smem_bytes(rows, 0)
+    if free < 0:
+        return None
+    chunk = 2 * BWD_UNITS * (BWD_KC + PERSIST_PAD)
+    return rows, min(4 * n // BWD_KC, free // chunk)
+
+
+def device_tiled_bwd_plan(cfg: ModelConfig, b: int, n: int):
+    """``tiled_bwd_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tiled_bwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
 
 
 def _kres_arg(cfg: ModelConfig, b: int, n: int) -> int:
@@ -361,12 +426,17 @@ def tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT,
 
 
 def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
-              dropout=None):
+              dropout=None, dh0_out=None, dg_out=None):
     """The reverse steps, K10 on a CUDA tensor, the plain version on a CPU
     tensor. U_c (N, 4N); g_seq (S, B, 4N), c_seq (S, B, N) in the residual
     type; c0, dhT, dcT (B, N); dh_seq (S, B, N), the cotangent of h_seq (or
     of the masked stream under ``dropout``), rounded to the xw type here.
-    Returns (dg_seq (S, B, 4N) in the xw type, dc0 fp32)."""
+    Returns (dg_seq (S, B, 4N) in the xw type, dc0 fp32). ``dh0_out``, a
+    (B, N) fp32 tensor, receives dh0 = round(dg_0) @ U_c^T: from the
+    persistent design's own last product, else through ``_mm``. ``dg_out``,
+    an (S, B, 4N) fp32 tensor, receives the persistent design's fp32 dg
+    (the check that its bf16 dg is that rounded); the other designs refuse
+    it."""
     s, b = c_seq.shape[:2]
     n = cfg.hidden
     expected = (("U", U_c, (n, 4 * n)), ("g_seq", g_seq, (s, b, 4 * n)),
@@ -378,40 +448,97 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
         if x.device != c_seq.device:
             raise ValueError(f"{name} on {x.device}, c_seq on {c_seq.device}")
+    if dh0_out is not None and (
+            tuple(dh0_out.shape) != (b, n) or dh0_out.dtype != AF
+            or dh0_out.device != c_seq.device or not dh0_out.is_contiguous()):
+        raise ValueError("dh0_out must be a contiguous (B, N) fp32 tensor on "
+                         "the device of the sequences")
+    if dg_out is not None and (
+            tuple(dg_out.shape) != (s, b, 4 * n) or dg_out.dtype != AF
+            or dg_out.device != c_seq.device or not dg_out.is_contiguous()):
+        raise ValueError("dg_out must be a contiguous (S, B, 4N) fp32 tensor "
+                         "on the device of the sequences")
     if c_seq.device.type == "cpu":
-        return tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
-                               dropout)
+        if dg_out is not None:
+            raise ValueError("dg_out is written by K10's persistent design alone")
+        dg, dc = tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
+                                 dropout)
+        if dh0_out is not None:
+            dh0_out.copy_(_mm(dg[0], U_c.T, cfg))
+        return dg, dc
     ctype, rtype = _kernel_codes(cfg, c_seq.device)
     _, rd, xd = types(cfg)
     dev = c_seq.device
-    UT = _aligned(U_c.to(cfg.cdtype).t())
+    plan = device_tiled_bwd_plan(cfg, b, n)
+    if dg_out is not None and plan is None:
+        raise ValueError("dg_out is written by K10's persistent design alone")
+    # the persistent design reads U's rows in place, the per-step one U^T
+    U_k = U_c.to(cfg.cdtype)
+    U_k = _aligned(U_k if plan is not None else U_k.t())
     seqs = [_aligned(x.to(rd)) for x in (g_seq, c_seq)]
     c0f, dhTf = (x.to(AF).contiguous() for x in (c0, dhT))
     dh = _aligned(dh_seq.to(xd))
     dc = dcT.to(AF).clone().contiguous()
     dg = torch.empty(s, b, 4 * n, dtype=xd, device=dev)
+    dh0 = dh0_out
+    if dh0 is None and plan is not None:   # the persistent launch writes it
+        dh0 = torch.empty(b, n, dtype=AF, device=dev)
     drop = cuda_cell.drop_scalars(dropout)
+    launched = ctypes.c_int(0)
     err = _build.load_library().tiled_bwd_launch(
-        ctype, rtype, UT.data_ptr(), seqs[0].data_ptr(), seqs[1].data_ptr(),
+        ctype, rtype, U_k.data_ptr(), seqs[0].data_ptr(), seqs[1].data_ptr(),
         c0f.data_ptr(), dh.data_ptr(), dhTf.data_ptr(), dc.data_ptr(),
-        dg.data_ptr(), s, b, n, int(cfg.cell_variant == "standard"),
+        dg.data_ptr(), None if dg_out is None else dg_out.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), s, b, n,
+        int(cfg.cell_variant == "standard"), *(plan or (-1, 0)),
         int(drop is not None), *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
     )
+    tiled_bwd.launches += launched.value
     cuda_cell._raise_on(err, "tiled_bwd_launch")
-    tiled_bwd.launches += s
+    if plan is None and dh0_out is not None:
+        dh0_out.copy_(_mm(dg[0], U_c.T, cfg))
     return dg, dc
+
+
+def tensor_core_dU(dg, h_seq, h0, cfg: ModelConfig):
+    """dU = round(h_prev)^T round(dg) under bf16 compute on the card, on
+    tensor cores (K6's ``lstm_bwd_scan_dU_launch``: bf16 in, fp32 sums),
+    h_{-1} = h0 in the residual type; dg (S, B, 4N) in bf16. Counts its
+    launches in ``.launches``."""
+    _, rd, _ = types(cfg)
+    s, b, n = h_seq.shape
+    dev = h_seq.device
+    if cfg.cdtype != torch.bfloat16 or dg.dtype != torch.bfloat16:
+        raise TypeError("tensor_core_dU takes bf16 compute and a bf16 dg")
+    lib = _build.load_library()
+    f32 = dict(dtype=AF, device=dev)
+    h_k = _aligned(h_seq.to(rd))
+    h0_k = h0.to(rd).to(AF).contiguous()
+    dg_k = _aligned(dg)
+    dU = torch.empty(n, 4 * n, **f32)
+    work = torch.empty(max(1, lib.lstm_bwd_scan_work_floats(s, b, n)), **f32)
+    launched = ctypes.c_int(0)
+    err = lib.lstm_bwd_scan_dU_launch(
+        cuda_cell._TYPE_CODES[rd], h_k.data_ptr(), h0_k.data_ptr(),
+        dg_k.data_ptr(), dU.data_ptr(), work.data_ptr(), s, b, n,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    tensor_core_dU.launches += launched.value
+    cuda_cell._raise_on(err, "lstm_bwd_scan_dU_launch")
+    return dU
 
 
 tiled_embed_layer0.launches = 0
 tiled_scan_layer.launches = 0
 tiled_bwd.launches = 0
+tensor_core_dU.launches = 0
 
 
 def reset_launches():
     tiled_embed_layer0.launches = 0
     tiled_scan_layer.launches = 0
     tiled_bwd.launches = 0
+    tensor_core_dU.launches = 0
 
 
 def launches() -> Tuple[int, int, int]:
@@ -441,16 +568,24 @@ def _reverse(ctx, U, h_seq, c_seq, g_seq, c0, dh_out, dhT, dcT):
     """K10 (or its plain version) from the autograd cotangents; returns
     (dg_seq in the xw type, dh0, dc0), dh0 = round(dg_0) @ U_c^T."""
     cfg = ctx.cfg
-    bwd = tiled_bwd_plain if ctx.plain else tiled_bwd
     U_c = U.to(cfg.cdtype)
-    dg, dc0 = bwd(U_c, g_seq, c_seq, c0.to(AF),
-                  *_cotangents(cfg, dh_out, dhT, dcT, h_seq, c0), cfg,
-                  dropout=ctx.dropout)
-    return dg, _mm(dg[0], U_c.T, cfg), dc0
+    args = (U_c, g_seq, c_seq, c0.to(AF),
+            *_cotangents(cfg, dh_out, dhT, dcT, h_seq, c0), cfg)
+    if ctx.plain:
+        dg, dc0 = tiled_bwd_plain(*args, dropout=ctx.dropout)
+        return dg, _mm(dg[0], U_c.T, cfg), dc0
+    dh0 = torch.empty(c0.shape, dtype=AF, device=c0.device)
+    dg, dc0 = tiled_bwd(*args, dropout=ctx.dropout, dh0_out=dh0)
+    return dg, dh0, dc0
 
 
-def _dU(dg, h_seq, h0, cfg: ModelConfig):
-    """round(h_prev)^T round(dg), h_{-1} = h0 in the residual type."""
+def _dU(dg, h_seq, h0, cfg: ModelConfig, plain: bool):
+    """round(h_prev)^T round(dg), h_{-1} = h0 in the residual type: on the
+    card under bf16 compute through ``tensor_core_dU``, else through
+    ``_mm`` (fp32 products, TF32 off)."""
+    if (not plain and h_seq.device.type == "cuda"
+            and cfg.cdtype == torch.bfloat16):
+        return tensor_core_dU(dg, h_seq, h0, cfg)
     _, rd, _ = types(cfg)
     s, b, n = h_seq.shape
     h_prev = torch.cat([h0.to(rd)[None], h_seq[:-1]]).reshape(s * b, n)
@@ -487,7 +622,7 @@ class TiledEmbedLayer0(torch.autograd.Function):
                                 dcT)
         onehot = cell_ops.one_hot(ids.reshape(s * b), cfg.vocab, AF)
         dW = _mm(onehot.T, dg.reshape(s * b, -1), cfg)
-        dU = _dU(dg, h_seq, h0, cfg)
+        dU = _dU(dg, h_seq, h0, cfg, ctx.plain)
         db = dg.to(AF).sum((0, 1))
         wd, ud, bd, hd, cd = ctx.dtypes
         return (dW.to(cfg.cdtype).to(wd), dU.to(cfg.cdtype).to(ud), db.to(bd),
@@ -517,7 +652,7 @@ class TiledScanLayer(torch.autograd.Function):
         cfg = ctx.cfg
         dg, dh0, dc0 = _reverse(ctx, U, h_seq, c_seq, g_seq, c0, dh_out, dhT,
                                 dcT)
-        dU = _dU(dg, h_seq, h0, cfg)
+        dU = _dU(dg, h_seq, h0, cfg, ctx.plain)
         ud, xd, hd, cd = ctx.dtypes
         return (None, dU.to(cfg.cdtype).to(ud), dg.to(xd), dh0.to(hd),
                 dc0.to(cd), None, None, None)

@@ -4,7 +4,9 @@ versions, and the head as an autograd function.
 ``head_fwd`` and ``head_bwd`` replace ``pallas_head.py:_fwd_head_kernel``
 and ``_bwd_head_kernel``. For a CUDA tensor they launch ``head_fwd_launch``
 and ``head_bwd_launch`` of ``csrc/head.cu`` or raise; for a CPU tensor they
-run the plain versions beside them, which repeat the kernels' arithmetic:
+run the plain versions beside them, which repeat the kernels' arithmetic
+(the forward on tensor cores under bf16 compute where
+``fwd_tensor_cores`` holds, on CUDA cores otherwise):
 
 * forward: logits = h_c @ Why_c + by in fp32, lse = max + log sum exp, and
   the sum over rows of (lse - logits[target]) / ln 2, with lse kept;
@@ -41,6 +43,19 @@ def head_supported(cfg: ModelConfig) -> bool:
     row tile is masked); the TPU's alignment and VMEM budget are not carried
     over."""
     return cfg.vocab <= MAX_VOCAB
+
+
+# K4's tensor-core design: 64-row tiles, N in chunks of 64 (csrc/head.cu:
+# head_fwd_mma), Why's columns copied 8 bf16 at a time
+TC_KC, TC_COLS = 64, 8
+
+
+def fwd_tensor_cores(cfg: ModelConfig, n: int, m: int) -> bool:
+    """Whether K4 takes its tensor-core design at hidden ``n`` and
+    vocabulary ``m``: bf16 compute (fp32 products keep TF32 off, so fp32
+    keeps the CUDA-core design), N a multiple of TC_KC and M of TC_COLS."""
+    return (cfg.cdtype == torch.bfloat16 and n % TC_KC == 0
+            and m % TC_COLS == 0 and m <= MAX_VOCAB)
 
 
 def _logits(Why_c, by, h_c, af):
@@ -119,6 +134,7 @@ def head_fwd(Why_c, by, h_c, tgt, cfg: ModelConfig):
     err = lib.head_fwd_launch(
         ctype, *(x.data_ptr() for x in ins), lse.data_ptr(),
         partial.data_ptr(), bits.data_ptr(), t, n, cfg.vocab,
+        int(fwd_tensor_cores(cfg, n, cfg.vocab)),
         torch.cuda.current_stream(h_c.device).cuda_stream,
         ctypes.byref(launched),
     )

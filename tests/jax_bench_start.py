@@ -32,14 +32,16 @@ ROOT_BENCH_ARGV = [
 ]
 
 
-def jax_bench_trainer():
-    """The JAX bench's ``Trainer`` at step 0, on JAX's default device."""
+def jax_bench_trainer(superstep: int = 50):
+    """The JAX bench's ``Trainer`` at step 0, on JAX's default device, with
+    supersteps of ``superstep`` steps (the bench's 50 by default)."""
     from eigen_lstm_tpu.cli import _configs, build_parser
     from eigen_lstm_tpu.data import corpus as corpus_mod
     from eigen_lstm_tpu.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu.train.trainer import Trainer
 
-    args = build_parser().parse_args(ROOT_BENCH_ARGV)
+    args = build_parser().parse_args(ROOT_BENCH_ARGV
+                                     + ["--superstep", str(superstep)])
     mcfg, dcfg, tcfg = _configs(args)
     train, _ = corpus_mod.load_dataset(dcfg)
     cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch)

@@ -100,10 +100,12 @@ def _close_grad(got, want, dtype, what):
         np.testing.assert_allclose(got, want, err_msg=what, **FP32_GRAD)
 
 
-def _run_both(dtype, variant, embed, drop, s=S, residual="float32", n=N):
+def _run_both(dtype, variant, embed, drop, s=S, residual="float32", n=N,
+              plain=True):
     """The JAX tiled function's outputs and VJP, and the port's autograd
-    function's, on the same inputs. Returns (JAX, port) pairs of (output
-    stream, hT, cT, gradients)."""
+    function's (its plain versions, or with ``plain`` False its wrappers,
+    which run them on the CPU), on the same inputs. Returns (JAX, port)
+    pairs of (output stream, hT, cT, gradients)."""
     W, U, b, h0, c0, xw, ids, dh, dhT, dcT = _layer(M if embed else n, 1, s, n)
     kw = dict(vocab=M, hidden=n, cell_variant=variant, compute_dtype=dtype,
               residual_dtype=residual,
@@ -134,13 +136,13 @@ def _run_both(dtype, variant, embed, drop, s=S, residual="float32", n=N):
     if embed:
         th, (thT, tcT) = ct.differentiable_tiled_embed_layer0(
             tmodel.LayerParams(*leaves[:3]), torch.from_numpy(ids), leaves[3],
-            leaves[4], tcfg, dropout=tdrop, plain=True)
+            leaves[4], tcfg, dropout=tdrop, plain=plain)
     else:
         layer = tmodel.LayerParams(torch.from_numpy(W), leaves[0],
                                    torch.from_numpy(b))
         th, (thT, tcT) = ct.differentiable_tiled_scan_layer(
             layer, leaves[1], leaves[2], leaves[3], tcfg, dropout=tdrop,
-            plain=True)
+            plain=plain)
     obj = ((th.to(leaves[0].dtype) * torch.from_numpy(dh)).sum()
            + (thT * torch.from_numpy(dhT)).sum()
            + (tcT * torch.from_numpy(dcT)).sum())
@@ -148,11 +150,11 @@ def _run_both(dtype, variant, embed, drop, s=S, residual="float32", n=N):
     return (jh, jhT, jcT, jg), (th.detach(), thT.detach(), tcT.detach(), tg)
 
 
-def _compare(dtype, variant, embed, drop):
+def _compare(dtype, variant, embed, drop, plain=True):
     """bf16 with bf16 residuals, as 5b runs; the rest with fp32 ones."""
     residual = "bfloat16" if dtype == "bfloat16" else "float32"
-    (jh, jhT, jcT, jg), (th, thT, tcT, tg) = _run_both(dtype, variant, embed,
-                                                       drop, residual=residual)
+    (jh, jhT, jcT, jg), (th, thT, tcT, tg) = _run_both(
+        dtype, variant, embed, drop, residual=residual, plain=plain)
     assert th.dtype == getattr(torch, residual)      # the residual type
     assert np.dtype(jh.dtype).name == residual
     val = FP32_VAL if dtype != "bfloat16" else dict(rtol=0, atol=BF16_ATOL)
