@@ -24,9 +24,15 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          (S = 100, B = 128, N = 512, M = 256) with the 1x512 checkpoint's
          weights, in fp32 and bf16: each reverse step of the backward
          replayed from the kernel's own state, the whole window, times,
-         bounds and library yardsticks; K1's time at the same shapes. K4
-         takes its tensor-core design in bf16 (its CUDA-core design, which
-         fp32 keeps, held to the same gate and timed in the same call).
+         bounds and library yardsticks; K1's time at the same shapes. K3
+         (the fused VJP) without and with dropout 0.35: in bf16 its
+         persistent design (one cooperative launch a window and a tensor-core
+         dWU, its bf16 dg its fp32 dg rounded, bit for bit) and, forced, its
+         per-step design, which fp32 keeps, held to the same gates; the
+         reverse launch and the tail timed apart, the per-step design's call
+         in the same run. K4 takes its tensor-core design in bf16 (its
+         CUDA-core design, which fp32 keeps, held to the same gate and timed
+         in the same call).
 Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          gradients through the kernels against the plain path, fp32 and
          bf16; (b) the port's bench (python -m eigen_lstm_tpu_torch.bench)
@@ -35,7 +41,8 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          launch counts of the run against what its shapes give, and each
          kernel's share of the step; (c) 100 steps of the bench's Trainer
          in fp32 through the kernels, each step's loss and gradients held
-         against the plain versions from the same state; (d) the bench's
+         against the plain versions from the same state, K3's launches
+         counted (fp32 takes its per-step design); (d) the bench's
          schedule once more from the JAX bench's step-0 state
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
          parameters, accumulators, cursors and stream state), train_bpc
@@ -51,10 +58,11 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          plain versions with the flagship's weights, fp32 and bf16, without
          and with dropout: every step replayed, the masked streams against
          the numpy keep-mask bit for bit, the backward with explicit masks;
-         times, bounds, cuDNN yardsticks; K6's design (persistent in bf16,
-         per-step in fp32) and launches a call, and in bf16 the per-step
-         design held to the same gates on the same inputs, the persistent
-         design's reverse launch and dU timed apart beside its time;
+         times, bounds, cuDNN yardsticks; K3's (the GEMM fall-back) and K6's
+         design (persistent in bf16, per-step in fp32) and launches a call,
+         and in bf16 the per-step design held to the same gates on the same
+         inputs, the persistent design's reverse launch and tail timed apart
+         beside its time;
          (b) the flagship's loss and eleven gradients with dropout,
          kernels against plain, fp32 and bf16;
          (c) 100 steps of the flagship recipe through the CLI's Trainer
@@ -102,8 +110,9 @@ Phase 10 the last two single-card kernels and the modules of this path:
          bit for bit, p within an ulp, one launch a call), times beside the
          bound, the plain version and ``torch._foreach_*``; (b) the two-step
          layer-0 backward K12 against K3 at the bench's shapes, B = 64 with
-         fp32 residuals and B = 128 with bf16 residuals, bf16 and fp32,
-         dropout 0 and 0.35: every output bit for bit; (c) the port's bench
+         fp32 residuals and B = 128 with bf16 residuals, bf16 (both in the
+         persistent design) and fp32 (both per-step), dropout 0 and 0.35:
+         every output bit for bit; (c) the port's bench
          at the documented unroll-2 run's configuration (1x512, B = 64),
          with EIGEN_LSTM_BWD_UNROLL=2 (K12, never K3) and without (K3,
          never K12), K11 once a step, train_bpc equal; (d) ``cli train``
@@ -675,15 +684,10 @@ def k6_bound(cfg, s, b, n):
     return _bound(nbytes, 2 * (2 * s * b * 4 * n * n), cfg)
 
 
-# K6's per-step design (one launch a reverse step) as PERF.md §6 row 3
-# records it (NVIDIA H100 80GB HBM3, 700 W): bf16 at the flagship's
-# training shapes, without and with dropout 0.35
-K6_PER_STEP_RECORDED_MS = {0.0: 42.31, 0.35: 42.55}
-
-
 def k6_design(cfg, b, n):
-    """K6's design at these shapes on this card, as its wrapper chooses it
-    (``cuda_cell_bwd.k6_plan``): a label, and whether it is persistent."""
+    """The design K6, K3 and K12 take at these shapes on this card, as
+    their wrappers choose it (``cuda_cell_bwd.k6_plan``): a label, and
+    whether it is persistent."""
     from eigen_lstm_tpu_torch.ops.cuda_cell_bwd import device_k6_plan
 
     plan = device_k6_plan(cfg, b, n)
@@ -696,16 +700,18 @@ def k6_design(cfg, b, n):
             f"one cooperative launch a window)"), True
 
 
-def k6_split_ms(call, reps: int = 5):
-    """The persistent K6's reverse launch and its dU launches, each timed by
-    CUDA events around its C launcher within the wrapper's calls; then the
-    per-step design's whole call on the same inputs (the wrapper's choice
-    overridden here only) and its launches. Returns (reverse ms, dU ms,
-    per-step ms, per-step launches), medians."""
-    from eigen_lstm_tpu_torch.ops import _build, cuda_cell_bwd
+def persist_split_ms(call, counter, reps: int = 5):
+    """The persistent design's reverse launch and its weight-gradient
+    launches (K6's dU, K3's dWU: the tail), each timed by CUDA events
+    around its C launcher within the wrapper's calls; then the per-step
+    design's whole call on the same inputs (the wrapper's choice
+    overridden here only) and its launches, read from ``counter``, the
+    wrapper. Returns (reverse ms, tail ms, per-step ms, per-step
+    launches), medians."""
+    from eigen_lstm_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    names = ("lstm_bwd_scan_persist_launch", "lstm_bwd_scan_dU_launch")
+    names = ("lstm_bwd_persist_launch", "lstm_bwd_dWU_launch")
     real = {nm: getattr(lib, nm) for nm in names}
     events = {nm: [] for nm in names}
 
@@ -730,21 +736,21 @@ def k6_split_ms(call, reps: int = 5):
     finally:
         for nm in names:
             setattr(lib, nm, real[nm])
-    rev, du = (statistics.median(a.elapsed_time(b) for a, b in events[nm])
-               for nm in names)
+    rev, tail = (statistics.median(a.elapsed_time(b) for a, b in events[nm])
+                 for nm in names)
     with per_step_k6():
-        before = cuda_cell_bwd.scan_layer_bwd.launches
+        before = counter.launches
         call()
-        launched = cuda_cell_bwd.scan_layer_bwd.launches - before
+        launched = counter.launches - before
         per_step = cuda_ms(call, reps=1, windows=3)
-    return rev, du, per_step, launched
+    return rev, tail, per_step, launched
 
 
 @contextlib.contextmanager
 def per_step_k6():
-    """K6's wrapper takes its per-step design inside the block, whatever
-    ``k6_plan`` would choose: for the checks and times of that design where
-    the main path takes the persistent one."""
+    """K6's, K3's and K12's wrappers take their per-step design inside the
+    block, whatever ``k6_plan`` would choose: for the checks and times of
+    that design where the main path takes the persistent one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
 
     plan = cuda_cell_bwd.device_k6_plan
@@ -753,6 +759,26 @@ def per_step_k6():
         yield
     finally:
         cuda_cell_bwd.device_k6_plan = plan
+
+
+@contextlib.contextmanager
+def kept_dgx():
+    """A list that receives, inside the block, every bf16 dg sequence the
+    persistent design writes, so that a check can hold it to the fp32 dg of
+    the same call."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
+
+    new, kept = cuda_cell_bwd._new_dgx, []
+
+    def keep(*a):
+        kept.append(new(*a))
+        return kept[-1]
+
+    cuda_cell_bwd._new_dgx = keep
+    try:
+        yield kept
+    finally:
+        cuda_cell_bwd._new_dgx = new
 
 
 def library_lstm_bwd(cfg, x, h0, c0, dh_seq):
@@ -778,13 +804,16 @@ def library_lstm_bwd(cfg, x, h0, c0, dh_seq):
 
 def phase5(records):
     """K3, K4, K5 against their plain versions at the bench shapes, with
-    the 1x512 checkpoint's weights, in fp32 and bf16; K1's time at the same
-    shapes for the step breakdown."""
-    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
+    the 1x512 checkpoint's weights, in fp32 and bf16; K3 without and with
+    dropout, in bf16 in both its designs; K1's time at the same shapes for
+    the step breakdown."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell, head
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
 
     s, b = TRAIN_S, TRAIN_B
     per_call = {}
+    mask = host_masks(FLAG_SEEDS[0], s, b, train_cfg("float32").hidden, FLAG_DROP)
+    inv = torch.tensor(float(np.float32(1.0 / (1.0 - FLAG_DROP))), device=DEVICE)
     for dtype in ("float32", "bfloat16"):
         cfg = train_cfg(dtype)
         n, m = cfg.hidden, cfg.vocab
@@ -796,67 +825,37 @@ def phase5(records):
         h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
         # --- K1 at these shapes (forward with residuals), for the breakdown
         fwd = cuda_cell.embed_layer0(layer, x, h0, c0, cfg, residuals=True)
-        h_seq, _, c_seq, g_seq = fwd
+        h_seq = fwd[0]
         k1_ms = cuda_ms(lambda: cuda_cell.embed_layer0(
             layer, x, h0, c0, cfg, residuals=True), reps=10)
-        # --- K3
-        U_c = layer.U.to(cfg.cdtype)
+        # --- K3, in the fused VJP the bench takes, without and with
+        # dropout; in bf16 both designs
         dh_seq = rand(s, b, n, sd=1e-3)
         dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
-        args = (U_c, g_seq, c_seq, h_seq, x, h0, c0, dh_seq, dhT, dcT, cfg)
-        dg_k = torch.empty(s, b, 4 * n, device=DEVICE)
-        before = cuda_cell_bwd.embed_layer0_bwd.launches
-        out_k = cuda_cell_bwd.embed_layer0_bwd(*args, dg_out=dg_k)
-        per_call["lstm_bwd_embed"] = cuda_cell_bwd.embed_layer0_bwd.launches - before
-        out_p = cuda_cell_bwd.embed_layer0_bwd_plain(*args)
-        rep = k3_replay(*args, dg_k)
-        torch.cuda.synchronize()
-        names = ("dWU", "db", "dh0", "dc0")
-        for label, got in zip(names, out_k):
-            if not torch.isfinite(got).all():
-                fail(f"lstm_bwd_embed {dtype} {label}: non-finite values")
-        step_err = 0.0
-        for label, got, want in (("dg", dg_k, rep[0]),
-                                 ("dh0", out_k[2], rep[1]),
-                                 ("dc0", out_k[3], rep[2]),
-                                 ("dWU", out_k[0], rep[3]),
-                                 ("db", out_k[1], rep[4])):
-            err = norm_err(got, want)
-            step_err = max(step_err, err)
-            if err > TRAIN_TOL:
-                fail(f"lstm_bwd_embed {dtype} {label}: {err:.3e} of its plain "
-                     f"replay > {TRAIN_TOL:g}")
-        print(f"  lstm_bwd_embed {dtype}: every reverse step, dh0, dc0, dWU "
-              f"and db within {step_err:.3e} (normalised) of the plain replay "
-              f"from the kernel's own dg (tol {TRAIN_TOL:g})", flush=True)
-        window = []
-        for label, got, want in zip(names, out_k, out_p):
-            err = norm_err(got, want)
-            window.append(f"{label} {err:.3e}")
-            if cfg.cdtype == torch.float32 and err > TRAIN_TOL:
-                fail(f"lstm_bwd_embed {dtype} window {label}: {err:.3e}")
-        how = (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
-               "not gated: the bf16 rounding of dg flips with the order of "
-               "fp32 sums, and the recurrence carries it")
-        print(f"  lstm_bwd_embed {dtype} window against plain ({how}): "
-              + ", ".join(window), flush=True)
-        ms = cuda_ms(lambda: cuda_cell_bwd.embed_layer0_bwd(*args), reps=5)
-        plain_ms = cuda_ms(lambda: cuda_cell_bwd.embed_layer0_bwd_plain(*args),
-                           reps=2, windows=3)
-        bound_ms, bound_by = k3_bound(cfg, s, b, n, m)
         onehot = torch.nn.functional.one_hot(x.long(), m).float()
         lib_ms = library_lstm_bwd(cfg, onehot, h0, c0, dh_seq)
-        print(f"  lstm_bwd_embed {dtype}: {ms:.4f} ms per window "
-              f"({per_call['lstm_bwd_embed']} launches), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}), cuDNN nn.LSTM backward "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; K1 at these "
-              f"shapes {k1_ms:.4f} ms", flush=True)
-        records[("lstm_bwd_embed", dtype)] = dict(
-            name="lstm_bwd_embed", route="cuda",
-            source="eigen_lstm_tpu_torch/csrc/lstm_bwd.cu",
-            replaces="eigen_lstm_tpu/ops/pallas_cell.py:556", launches=None,
-            max_abs_err=step_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms)
+        design, persistent = k6_design(cfg, b, n)
+        if persistent != (dtype == "bfloat16"):
+            fail(f"lstm_bwd_embed {dtype}: {design}; the bench's shapes take "
+                 f"the persistent design in bf16 alone")
+        for drop in (0.0, FLAG_DROP):
+            tag = f"{dtype} drop {drop:g}"
+            dr = (drop, FLAG_SEEDS[0]) if drop else None
+            rec = bwd_check("lstm_bwd_embed", layer.U, fwd, x, h0, c0, dh_seq,
+                            dhT, dcT, cfg, dr, mask, inv, tag, per_call)
+            rec.update(replaces="eigen_lstm_tpu/ops/pallas_cell.py:556",
+                       library_ms=lib_ms)
+            if persistent:
+                rec.update(other_designs("lstm_bwd_embed", layer.U, fwd, x,
+                                         h0, c0, dh_seq, dhT, dcT, cfg, dr,
+                                         mask, inv, tag))
+            print(f"  lstm_bwd_embed {tag}: {rec['ms']:.4f} ms per window "
+                  f"({per_call['lstm_bwd_embed']} launches), plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+                  f"({rec['bound_by']}), cuDNN nn.LSTM backward "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; K1 at "
+                  f"these shapes {k1_ms:.4f} ms", flush=True)
+            records[("lstm_bwd_embed", dtype, drop)] = rec
         records[("k1_train", dtype)] = k1_ms
         # --- K4 and K5 on this window's hidden states
         t = s * b
@@ -1216,14 +1215,18 @@ def phase6c():
     """TRAJ_STEPS steps of the bench's Trainer in fp32 through the kernels.
     At every step the loss and five gradients through the plain versions,
     from the kernel run's own state, are gated; a second run through the
-    plain versions alone is printed beside it."""
+    plain versions alone is printed beside it. Returns the launches of K3,
+    whose per-step design fp32 takes."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
 
     runs = [bench.make_trainer(build_parser().parse_args(
         bench.DEFAULT_ARGV + ["--dtype", "float32", "--backend", backend]))
         for backend in ("cuda", "plain")]
+    k3 = cuda_cell_bwd.embed_layer0_bwd
+    k3.launches = 0
     states = [tr.state for tr in runs]
     k_steps = runs[0].tcfg.superstep
     worst, bits = {}, [[], []]
@@ -1266,6 +1269,15 @@ def phase6c():
           f"and {last[1]:.7f}, parameters "
           + ", ".join(f"{key[len('params.'):]} {norm_err(pk[key], pp[key]):.2e}"
                       for key in pp), flush=True)
+    # two K3 calls a step (the gated loss_and_grads, then train_step), each
+    # in the per-step design: more than S launches a call
+    per_call = k3.launches / (2 * TRAJ_STEPS)
+    print(f"  steps fp32: K3 {k3.launches} launches, {per_call:g} a call (the "
+          f"per-step design)", flush=True)
+    if per_call != int(per_call) or per_call <= TRAIN_S:
+        fail(f"steps fp32: K3 launched {k3.launches} times in {TRAJ_STEPS} "
+             f"steps, not the per-step design's count")
+    return k3.launches
 
 
 # --- the flagship's training (S = 256, B = 128, N = 1024, M = 256) ---------
@@ -1370,13 +1382,16 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
 
 def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
               mask, inv, tag, per_call, timed=True):
-    """K3 (``ids``) or K6 at the training shapes: every reverse step
-    replayed from the kernel's own dg with the explicitly masked
-    cotangent, and the whole window against the plain version given the
-    explicitly masked cotangent (fp32 gated, bf16 printed). K3 runs the
-    layer-0 VJP the JAX package takes at these shapes
-    (``dispatch.fused_accum_ok``). Returns the record, or with ``timed``
-    False nothing (the checks alone)."""
+    """K3 (``ids``) or K6 at the training shapes, in the design its wrapper
+    takes (``k6_design``): every reverse step replayed from the kernel's
+    own dg with the explicitly masked cotangent, and the whole window
+    against the plain version given the explicitly masked cotangent (fp32
+    gated, bf16 printed); the persistent design's bf16 dg its fp32 dg
+    rounded, bit for bit, and 2 or 3 launches a call (the reverse launch
+    and the weight-gradient product, split or not), the per-step design's
+    more than S. K3 runs the layer-0 VJP the JAX package takes at these
+    shapes (``dispatch.fused_accum_ok``). Returns the record, or with
+    ``timed`` False nothing (the checks alone)."""
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
     from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
 
@@ -1393,16 +1408,25 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
         args = (U_c, g_seq, c_seq, h_seq, h0, c0)
         names = ("dg_seq", "dU", "dh0", "dc0")
     kw = {} if ids is None else {"fused_accum": fused_accum_ok(cfg, b)}
+    design, persistent = k6_design(cfg, b, n)
     dg_k = torch.empty(s, b, 4 * n, device=DEVICE)
     before = kern.launches
-    out_k = kern(*args, dh_seq, dhT, dcT, cfg, dg_out=dg_k, dropout=dropout,
-                 **kw)
-    per_call[name] = kern.launches - before
+    with kept_dgx() as kept:
+        out_k = kern(*args, dh_seq, dhT, dcT, cfg, dg_out=dg_k,
+                     dropout=dropout, **kw)
+    launched = kern.launches - before
+    per_call[name] = launched
     out_p = plain(*args, dh_eff, dhT, dcT, cfg, **kw)
     torch.cuda.synchronize()
     for label, got in zip(names, out_k):
         if not torch.isfinite(got.float()).all():
             fail(f"{name} {tag} {label}: non-finite values")
+    if persistent != (len(kept) == 1) or (
+            persistent and not torch.equal(kept[0], dg_k.to(torch.bfloat16))):
+        fail(f"{name} {tag}: {design}, {len(kept)} bf16 dg sequences written; "
+             f"the persistent design's bf16 dg must be its fp32 dg rounded")
+    if not (2 <= launched <= 3 if persistent else launched > s):
+        fail(f"{name} {tag}: {design}, {launched} launches a call")
     if ids is not None:
         rep = k3_replay(*args, dh_eff, dhT, dcT, cfg, dg_k, **kw)
         pairs = (("dg", dg_k, rep[0]), ("dh0", out_k[2], rep[1]),
@@ -1414,10 +1438,11 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
                  ("dc0", out_k[3], rep[2]), ("dU", out_k[1], rep[3]))
         if not torch.equal(out_k[0], dg_k.to(cuda_cell.xw_type(cfg))):
             fail(f"{name} {tag}: dg_seq is not its fp32 dg in the xw type")
-    step_err = 0.0
+    step_err, each = 0.0, []
     for label, got, want in pairs:
         err = norm_err(got, want)
         step_err = max(step_err, err)
+        each.append(f"{label} {err:.1e}")
         if not np.isfinite(err) or err > TRAIN_TOL:
             fail(f"{name} {tag} {label}: {err:.3e} of its plain replay > "
                  f"{TRAIN_TOL:g}")
@@ -1429,10 +1454,12 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
             fail(f"{name} {tag} window {label}: {err:.3e}")
     vjp = ("" if ids is None else " (the fused VJP's db)"
            if kw["fused_accum"] else " (the GEMM fall-back's db)")
-    print(f"  {name} {tag}{vjp}: every reverse step and the outputs within "
-          f"{step_err:.3e} (normalised) of the plain replay from the "
-          f"kernel's own dg{' with the host mask' if dropout else ''} (tol "
-          f"{TRAIN_TOL:g}); window against plain with explicit masks ("
+    print(f"  {name} {tag}{vjp}, {design}, {launched} launches: every "
+          f"reverse step and the outputs within {step_err:.3e} (normalised: "
+          f"{', '.join(each)}) of the plain replay from the kernel's own dg"
+          f"{' with the host mask' if dropout else ''} (tol {TRAIN_TOL:g})"
+          + ("; its bf16 dg its fp32 dg rounded, bit for bit" if persistent
+             else "") + "; window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
     if not timed:
@@ -1451,6 +1478,54 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def other_designs(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg,
+                  dropout, mask, inv, tag):
+    """Where K3 (``ids``) or K6 takes the persistent design: the per-step
+    design, which ``k6_plan`` keeps for fp32 and other shapes and cards,
+    held to ``bwd_check``'s gates on the same inputs; the persistent
+    design's reverse launch and tail timed apart, and the per-step design's
+    call in the same run. Returns those times for the record."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
+
+    with per_step_k6():
+        bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg,
+                  dropout, mask, inv, tag + " (the per-step design)", {},
+                  timed=False)
+    h_seq, c_seq, g_seq = fwd_out[0], fwd_out[2], fwd_out[3]
+    s, b = h_seq.shape[:2]
+    U_c = U.to(cfg.cdtype)
+    if ids is None:
+        kern = cuda_cell_bwd.scan_layer_bwd
+        call = lambda: kern(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT,
+                            dcT, cfg, dropout=dropout)
+    else:
+        kern = cuda_cell_bwd.embed_layer0_bwd
+        call = lambda: kern(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT,
+                            dcT, cfg, dropout=dropout,
+                            fused_accum=fused_accum_ok(cfg, b))
+    rev, tail, old, old_n = persist_split_ms(call, kern)
+    what = "dU"
+    if ids is not None:
+        # K3's tail is one product over [one-hot(ids) | h_{t-1}]: the same
+        # product without the one-hot rows (K6's) says what dW takes
+        from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import tensor_core_dU
+
+        with kept_dgx() as kept:
+            call()
+        du = cuda_ms(lambda: tensor_core_dU(kept[0], h_seq, h0, cfg), reps=5)
+        what = f"dW and dU; dU alone {du:.4f} ms"
+    print(f"  {name} {tag}: reverse launch {rev:.4f} ms ({1e3 * rev / (s + 1):.2f} "
+          f"us a step), tail ({what}) {tail:.4f} ms; the per-step design "
+          f"{old:.4f} ms in this run ({old_n} launches)", flush=True)
+    return dict(reverse_ms=rev, tail_ms=tail, per_step_ms=old,
+                per_step_launches=old_n)
+
+
+# The keys of an entry of the kernels line; a record may hold more
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 REPLACES = {
     "lstm_fwd_embed": "eigen_lstm_tpu/ops/pallas_cell.py:495",
     "lstm_fwd_scan": "eigen_lstm_tpu/ops/pallas_cell.py:184",
@@ -1502,26 +1577,16 @@ def phase7a(records):
             rec6 = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
                              dhT, dcT, cfg, dr[1], masks[1], inv, tag, per_call)
             design, persistent = k6_design(cfg, b, n)
-            print(f"  lstm_bwd_scan {tag}: {design}, {per_call['lstm_bwd_scan']} "
-                  f"launches a call", flush=True)
             if persistent != (dtype == "bfloat16"):
-                fail(f"lstm_bwd_scan {tag}: {design}; the flagship's shapes "
-                     f"take the persistent design in bf16 alone")
+                fail(f"lstm_bwd_embed, lstm_bwd_scan {tag}: {design}; the "
+                     f"flagship's shapes take the persistent design in bf16 "
+                     f"alone")
             if persistent:
-                # the per-step design, which k6_plan keeps for other shapes
-                # and cards, held to the same gates on the same inputs
-                with per_step_k6():
-                    bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
-                              dhT, dcT, cfg, dr[1], masks[1], inv,
-                              tag + " (the per-step design)", {}, timed=False)
-                rev, du, old, old_n = k6_split_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
-                    l1.U.to(cfg.cdtype), out2[3], out2[2], out2[0], h0, c0, dh_seq,
-                    dhT, dcT, cfg, dropout=dr[1]))
-                print(f"  lstm_bwd_scan {tag}: reverse launch {rev:.4f} ms "
-                      f"({1e3 * rev / (s + 1):.2f} us a step), dU {du:.4f} ms; "
-                      f"the per-step design {old:.4f} ms in this run "
-                      f"({old_n} launches), {K6_PER_STEP_RECORDED_MS[drop]} ms "
-                      f"as PERF.md records it", flush=True)
+                for rec, U, out, ids, i in ((rec3, l0.U, out1, x, 0),
+                                            (rec6, l1.U, out2, None, 1)):
+                    rec.update(other_designs(rec["name"], U, out, ids, h0, c0,
+                                             dh_seq, dhT, dcT, cfg, dr[i],
+                                             masks[i], inv, tag))
             libs = (library_ms(m, cfg, onehot, h0, c0), library_ms(n, cfg, h_in, h0, c0),
                     library_lstm_bwd(cfg, onehot, h0, c0, dh_seq),
                     library_lstm_bwd(cfg, h_in, h0, c0, dh_seq))
@@ -2607,7 +2672,8 @@ def phase10b(records):
     step, dh0, dc0, dWU and db within TRAIN_TOL of the plain replay from
     K12's own dg (as phase 5 holds K3); the window against its plain
     version given the explicitly masked cotangent (fp32 gated, bf16
-    printed); dg, dWU, db, dh0 and dc0 equal to K3's bit for bit. Times
+    printed); dg, dWU, db, dh0 and dc0 equal to K3's bit for bit, both in
+    the persistent design in bf16 and the per-step one in fp32. Times
     beside K3's and the bound; the launches of one call of each. Returns
     K12's launches a call at the documented run's shapes (B = 64, bf16,
     fp32 residuals) and K3's."""
@@ -2651,6 +2717,12 @@ def phase10b(records):
                     res[name] = (dg,) + fn(*args, dg_out=dg, dropout=dr,
                                            fused_accum=fused)
                     launched[name] = fn.launches - before
+                design, persistent = k6_design(cfg, b, n)
+                if persistent != (dtype == "bfloat16") or (
+                        persistent and launched["K12"] != launched["K3"]):
+                    fail(f"K12 B={b} {dtype} drop {drop:g}: {design}, "
+                         f"launches {launched}; bf16 takes the persistent "
+                         f"design (both kernels alike), fp32 the per-step one")
                 dg_k, out_k = res["K12"][0], res["K12"][1:]
                 rep = k3_replay(*fwd, dh_eff, dhT, dcT, cfg, dg_k,
                                 fused_accum=fused)
@@ -2689,7 +2761,8 @@ def phase10b(records):
                       f"its plain version with explicit masks ("
                       + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32
                          else "bf16, not gated") + "): " + ", ".join(window)
-                      + "; dg, dWU, db, dh0, dc0 bit for bit K3's", flush=True)
+                      + f"; dg, dWU, db, dh0, dc0 bit for bit K3's, both in "
+                      f"{design}", flush=True)
                 ms, host = {}, {}
                 for name, fn in (("K3", cb.embed_layer0_bwd),
                                  ("K12", cb.embed_layer0_bwd_unroll2)):
@@ -3305,13 +3378,14 @@ def main():
     counts, step_ms, own_bpc = phase6b(per_call)
     for name in ("lstm_fwd_embed", "lstm_bwd_embed", "head_fwd", "head_bwd"):
         ms = (records[("k1_train", "bfloat16")] if name == "lstm_fwd_embed"
-              else records[(name, "bfloat16")]["ms"])
+              else records[("lstm_bwd_embed", "bfloat16", 0.0)]["ms"]
+              if name == "lstm_bwd_embed" else records[(name, "bfloat16")]["ms"])
         print(f"  {name}: {ms:.4f} ms a step, {100 * ms / step_ms:.1f} % of "
               f"the {step_ms:.3f} ms bench step", flush=True)
     check_budget("phase 6b (the bench)")
     phase6d(own_bpc)
     check_budget("phase 6d (the bench from the JAX start)")
-    phase6c()
+    k3_fp32_launches = phase6c()
     check_budget("phase 6c (100 fp32 training steps)")
     flag_call = phase7a(records)
     check_budget("phase 7a (flagship training kernels against plain)")
@@ -3347,36 +3421,39 @@ def main():
     flag_tp_counts = phase11c()
     check_budget("phase 11c (the flagship at --tp 1)")
     kernels = []
+
+    def add(rec, launches, **kw):
+        kernels.append(dict({key: rec[key] for key in KERNEL_KEYS},
+                            launches=launches, **kw))
+
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
-                        ("lstm_bwd_embed", counts["lstm_bwd_embed"]),
                         ("head_fwd", counts["head_fwd"]),
                         ("head_bwd", counts["head_bwd"])):
-        rec = dict(records[(name, "bfloat16")], launches=count)
-        kernels.append(rec)
-    kernels.append(dict(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
-                        launches=flag_counts["lstm_bwd_scan"]))
-    kernels.append(dict(records[("gen", "bfloat16", 1)], launches=gen_launches))
+        add(records[(name, "bfloat16")], count)
+    # K3 in both designs: the persistent one on the bench (6b, bf16), the
+    # per-step one on its fp32 steps (6c)
+    add(records[("lstm_bwd_embed", "bfloat16", 0.0)], counts["lstm_bwd_embed"])
+    add(records[("lstm_bwd_embed", "float32", 0.0)], k3_fp32_launches,
+        name="lstm_bwd_embed_per_step")
+    add(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
+        flag_counts["lstm_bwd_scan"])
+    add(records[("gen", "bfloat16", 1)], gen_launches)
     # K8 and K10 on the 5b path (9c), K9 on the flagship's fp32 steps (7c)
     for name, count in (("tiled_fwd_embed", b5_counts["tiled_fwd_embed"]),
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
-        rec = dict(records[("9a", name, "bfloat16", 0.0)], launches=count)
-        for extra in ("resident_ms", "per_step_ms", "dU_ms", "dU_mm_ms"):
-            rec.pop(extra, None)
-        kernels.append(rec)
+        add(records[("9a", name, "bfloat16", 0.0)], count)
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
     # its B = 64 shapes
-    kernels.append(dict(records[("10a", "bench")], launches=u2_counts["adagrad"]))
-    kernels.append(dict(records[("10b", 64, "bfloat16", 0.0)],
-                        launches=u2_counts["lstm_bwd_embed_unroll2"]))
+    add(records[("10a", "bench")], u2_counts["adagrad"])
+    add(records[("10b", 64, "bfloat16", 0.0)],
+        u2_counts["lstm_bwd_embed_unroll2"])
     # K13 and K14 on the flagship's --tp 1 run (11c) at its shapes (D = 1);
     # K15 and K16 on the bench's --tp 1 run (11b) at its shapes
     for name in ("tp_step_fwd", "tp_step_bwd"):
-        kernels.append(dict(records[("11a", name, "bfloat16", 1)],
-                            launches=flag_tp_counts[name]))
+        add(records[("11a", name, "bfloat16", 1)], flag_tp_counts[name])
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
-        kernels.append(dict(records[("11a", name, "bfloat16")],
-                            launches=seq_counts[name]))
+        add(records[("11a", name, "bfloat16")], seq_counts[name])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

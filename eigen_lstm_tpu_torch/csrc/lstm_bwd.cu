@@ -1,18 +1,22 @@
 // LSTM backward for Hopper (sm_90a), bound from Python through ctypes
-// (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Three C
-// launchers share one reverse-time step body (bwd_tile):
-//   lstm_bwd_embed_launch (K3) <- pallas_cell.py:_bwd_embed_fused_kernel,
-//       layer 0 with its weight gradients dW, dU, db;
-//   lstm_bwd_embed_unroll2_launch (K12) <- pallas_cell.py:
-//       _bwd_embed_unroll2_kernel, K3's function, two reverse steps a launch;
-//   lstm_bwd_scan_launch (K6, the per-step design) <- pallas_cell.py:
-//       _bwd_kernel with the dU product of _bwd_core (:393-414), layers
-//       >= 1: dg_seq, dU, dh0, dc0;
-// and K6's persistent design has its own launchers and kernels, the same
-// function under bf16 compute where a resident grid can hold U in shared
-// memory (ops/cuda_cell_bwd.py:k6_plan chooses):
-//   lstm_bwd_scan_persist_launch: the reverse steps and dh0, one launch;
-//   lstm_bwd_scan_dU_launch: dU on tensor cores.
+// (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Three
+// kernels of the JAX package, each with two designs of one function:
+//   K3  <- pallas_cell.py:_bwd_embed_fused_kernel, layer 0 with its weight
+//          gradients dW, dU, db;
+//   K12 <- pallas_cell.py:_bwd_embed_unroll2_kernel, K3's function bit for
+//          bit, two reverse steps at a time;
+//   K6  <- pallas_cell.py:_bwd_kernel with the dU product of _bwd_core
+//          (:393-414), layers >= 1: dg_seq, dU, dh0, dc0.
+// Under bf16 compute, where a resident grid can hold U's rows in shared
+// memory (ops/cuda_cell_bwd.py:k6_plan chooses), all three take the
+// persistent design: one cooperative launch a window, lstm_bwd_persist
+// through lstm_bwd_persist_launch (K12 with its steps in pairs, K3 and K12
+// with db), then their weight gradients on tensor cores through
+// lstm_bwd_dWU_launch (K6 dU; K3 and K12 dW and dU in one product). fp32
+// compute, and shapes the persistent design does not take, keep the per-step
+// design: one launch a reverse step (lstm_bwd_embed_launch,
+// lstm_bwd_embed_unroll2_launch with two steps a cooperative launch,
+// lstm_bwd_scan_launch), then CUDA-core reductions.
 //
 // The reverse step (the gate backward _gate_bwd). For t = S-1 .. 0, with
 // dh_{S-1} carried from dhT and dc from dcT:
@@ -26,92 +30,77 @@
 //   dc       = dc_raw * f
 // then dh0 = round(dg_0) @ U^T, dc0 = dc, and
 //   dU = sum_t round(h_{t-1})^T round(dg_t)    (h_{-1} = h0)
-// K3 adds
+// K3 and K12 add
 //   dW[v] = sum_{(t,b): ids = v} round(dg_t[b])  (the one-hot product)
 //   db = sum_{t,b} dg_t[b]
 // where db sums the unrounded fp32 dg when the JAX package takes the fused
 // VJP (pallas_cell.py:1031-1042, where fused_accum_ok holds) and dg rounded
 // to the xw type when it takes the GEMM fall-back (:1044-1066, which sums
-// the xw-type dg that _bwd_kernel emits): the launcher's round_db.
-// and K6 hands dg_seq out in the xw type (bf16 under bf16 compute,
-// pallas_cell.py:299, :365): dW, db and dx of layers >= 1 follow from it
-// outside, in torch (x @ W stays a plain large product, as in XLA). K6's
-// h_{-1} arrives rounded to the residual type, as _bwd_core rounds h0.
-// round() is the compute type (bf16 or fp32); every sum is fp32.
+// the xw-type dg that _bwd_kernel emits): the launchers' round_db. There
+// h_{-1} is h0 rounded to the residual type, as _bwd_core concatenates it
+// (the wrapper rounds it), and so is K6's. K6 hands dg_seq out in the xw
+// type (bf16 under bf16 compute, pallas_cell.py:299, :365): dW, db and dx of
+// layers >= 1 follow from it outside, in torch (x @ W stays a plain large
+// product, as in XLA). round() is the compute type (bf16 or fp32); every
+// sum is fp32.
 //
-// What bounds K6 on the H100: the flagship's training window (S = 256,
-// B = 128, N = 1024) is 2*S*B*4N*N flops for dh_rec plus as many for dU
-// (550 GFLOP) against ~1.2 GB that the function must move (the fp32 g, c
-// and h residuals are 0.8 GB of it), so operations bound it, at 0.56 ms in
-// bf16 and 8.2 ms in fp32 (k6_bound() in chip_smoke.py). The per-step
-// design ran it at 42.55 ms in bf16 (PERF.md): 257 launches of 1024
-// blocks, each block re-reading its 256 KB slab of U^T from L2 for 4 batch
-// rows, fp32 FMAs on CUDA cores, dg written in fp32 and again in bf16.
+// What bounds them on the H100. K6 at the flagship's training window
+// (S = 256, B = 128, N = 1024) is 2*S*B*4N*N flops for dh_rec plus as many
+// for dU (550 GFLOP) against ~1.2 GB that the function must move (the fp32
+// g, c and h residuals are 0.8 GB of it): operations bound it, at 0.56 ms in
+// bf16 and 8.2 ms in fp32 (k6_bound() in chip_smoke.py). K3 at the bench
+// shapes (S = 100, B = 128, N = 512, M = 256) is 53.7 GFLOP (the one-hot
+// product counted as no flops) against ~190 MB (the fp32 residuals are 157
+// MB of it): in bf16 the two bounds are close, 58 us for the bytes and 54 us
+// for the operations; in fp32 the operations bound, at ~800 us (k3_bound()).
 //
-// The persistent design (bf16 compute; lstm_bwd_persist, atb_mma) answers
-// each of those: one cooperative launch a window with a grid barrier
-// between steps; a block's U rows (16 units x 4N, 128 KB at N = 1024) held
-// in shared memory for the whole window; dh_rec and dU on tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 sums; csrc/mma.cuh); dg stored once,
-// in bf16, which both the next step's product and dU read. What bounds it
-// then is the recurrence's dependence: every step each of the N / 16 unit
-// groups reads the whole dg_{t+1} of its batch rows from L2 (64 MB a step
-// at the flagship, 1 MB per group) and waits at the grid barrier, while
-// its products take a few microseconds. Wider groups would read less but
-// their U rows would not fit: 16 units x 4N bf16 plus the dg ring fills
-// 179 KB of the 227 KB; so the flagship's grid is 64 groups x 2 batch
-// halves = 128 blocks, one an SM. On the H100 a step then takes ~23 us:
-// ~5 us for the grid barrier and the epilogue, the rest the product,
-// whose 64 MB of dg reads run at ~4 TB/s across the SMs (PERF.md). Left
-// for later: wgmma in place of mma.sync, TMA multicast of dg_{t+1} over a cluster of blocks that share
-// batch rows (cutting the L2 reads by the cluster size), and fp32 compute
-// (TF32 is off for fp32 products, so the tensor cores cannot serve it: the
-// per-step design runs it, and shapes whose grid would not be resident).
+// The per-step design: lstm_bwd_step, one launch a reverse timestep, a
+// block a tile of 32 hidden units (one warp's lanes) and kBT = 4 batch rows,
+// its 8 warps splitting the 4N-long reduction of dg_{t+1} @ U^T (read as
+// U^T, (4N, N), so the lanes read coalesced) on CUDA cores in fp32 FMAs, the
+// gate backward of the four gate columns of its units in registers. dg_t
+// goes to an (S, B, 4N) fp32 scratch that the next launch reads whole; dc
+// is updated in place (each (b, j) belongs to one thread). After the loop
+// one more launch gives dh0, then hand-written reductions over the S*B rows
+// of the scratch: atb_gemm for dU, embed_grad for dW (for each byte v, the
+// rows whose id is v, found by a ballot compaction, summed in row order)
+// and colsum for db (K3, K12); K6 writes dg_seq in bf16 with store_as under
+// bf16 compute. K12's per-step design takes two reverse steps a cooperative
+// launch of at most the resident blocks, each looping over the tiles, with
+// a grid barrier between tau1 and tau0 (tau0's dh_rec reads the whole
+// dg_{tau1}). At the flagship's window the per-step K6 ran 42.55 ms in bf16
+// (PERF.md): 257 launches of 1024 blocks, each block re-reading its 256 KB
+// slab of U^T from L2 for 4 batch rows, fp32 FMAs, dg written in fp32.
 //
-// What bounds K3 on the H100: a window at the bench shapes (S = 100,
-// B = 128, N = 512, M = 256) is 2*S*B*4N*N flops for dh_rec plus as many
-// for dU (53.7 GFLOP; the one-hot product is a gather-add and counted as
-// no flops), against ~190 MB the function must move (the fp32 g, c and h
-// residuals are 157 MB of it, then the dh_seq cotangent, U and dWU). In
-// bf16 the two bounds are close, 58 us for the bytes and 54 us for the
-// operations at the tensor-core peak; in fp32 the operations bound, at
-// ~800 us (bound() in chip_smoke.py). This first design runs on CUDA
-// cores, in fp32 FMAs, far above both.
+// The persistent design answers each of those: one cooperative launch a
+// window with a grid barrier between steps; a block's U rows (16 units x 4N,
+// 128 KB at N = 1024) held in shared memory for the whole window; dh_rec on
+// tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums; csrc/mma.cuh); dg
+// stored once, in bf16, which the next step's product and the weight
+// gradients read; db summed in registers from the fp32 dg as the steps go,
+// so no fp32 dg stream (it is written only when a check asks for it); dW and
+// dU one tensor-core product over [one-hot(ids) | round(h_{t-1})] (atb_mma),
+// no per-byte scan. What bounds it then is the recurrence's dependence:
+// every step each of the N / 16 unit groups reads the whole dg_{t+1} of its
+// batch rows from L2 (64 MB a step at the flagship, 1 MB per group) and
+// waits at the grid barrier, while its products take a few microseconds.
+// Wider groups would read less but their U rows would not fit: 16 units x 4N
+// bf16 plus the dg ring fills 179 KB of the 227 KB; so the flagship's grid is
+// 64 groups x 2 batch halves = 128 blocks, one an SM. On the H100 a step then
+// takes ~23 us: ~5 us for the grid barrier and the epilogue, the rest the
+// product, whose 64 MB of dg reads run at ~4 TB/s across the SMs (PERF.md).
+// K12 takes the same steps with the same arithmetic, only each pair's
+// recurrence-free loads issued together (the TPU kernel pairs steps to
+// overlap off-path work with the serial chain; here the weight gradients
+// already sit outside the recurrence), so its outputs are K3's bit for bit.
+// Left for later: wgmma in place of mma.sync, TMA multicast of dg_{t+1} over
+// a cluster of blocks that share batch rows (cutting the L2 reads by the
+// cluster size), and fp32 compute (TF32 is off for fp32 products, so the
+// tensor cores cannot serve it).
 //
-// Design. The TPU kernel keeps dWU (3 MB fp32) resident in VMEM and
-// accumulates it step by step; a Hopper block has 227 KB, so the weight
-// gradients move out of the recurrence instead:
-//   * lstm_bwd_step, one launch per reverse timestep, mirrors the forward
-//     kernel's ownership: a block owns 32 hidden units (one warp's lanes)
-//     and 4 batch rows, its 8 warps split the 4N-long reduction of
-//     dg_{t+1} @ U^T (read as U^T, (4N, N), so the lanes read coalesced),
-//     and the gate backward of all four gate columns of its units runs in
-//     registers. dg_t goes to an (S, B, 4N) fp32 scratch that the next
-//     launch reads whole: nothing a block reads is written by its own
-//     launch. dc is updated in place: each (b, j) belongs to one thread.
-//   * after the loop, one more reduction launch gives dh0, then three
-//     hand-written reductions over the S*B rows of the dg scratch:
-//     atb_gemm for dU, embed_grad for dW (for each byte v, the rows whose
-//     id is v, found by a ballot compaction, summed in row order: a
-//     deterministic segmented sum, no atomics) and colsum for db.
-//   * K6's per-step design is the same reverse loop (run_reverse) and the
-//     same atb_gemm for dU; the TPU's _bwd_kernel already left dU to one
-//     product outside the recurrence. Under bf16 compute one store_as
-//     launch writes dg_seq in bf16: S + 1 step launches, one or two for
-//     dU, and that one. It runs fp32 compute and the shapes the
-//     persistent design does not take (N = 2048 in bf16).
-//   * The dropout mask costs no bytes: each thread hashes its own (t, b, j)
-//     in the step's epilogue, where it reads dh_seq[t].
-//   * K12 computes K3's function through the same step body, so its dg, dc,
-//     dh0 and weight gradients are K3's bit for bit. The TPU kernel unrolls
-//     two reverse steps to overlap step tau1's weight-gradient products with
-//     tau0's gate backward; here the weight gradients already sit outside
-//     the recurrence, so what carries over is two steps a launch: a
-//     cooperative launch of at most the resident blocks, each looping over
-//     the (32-unit, 4-row) tiles, with a grid barrier between tau1 and tau0
-//     (tau0's dh_rec reads the whole dg_{tau1}). That halves the step
-//     launches (S / 2 + 1 against S + 1); its bound is K3's.
-// Every sum has a fixed order, so the kernels are deterministic.
+// The dropout mask costs no bytes: each thread hashes its own (t, b, j) in
+// the step's epilogue, where it reads dh_seq[t]. Every sum has a fixed
+// order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
 
@@ -123,11 +112,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 // One reverse timestep of one tile (32 hidden units, kBT batch rows: tile
-// bx, by), or (dh_seq_t == null) the final dh0 reduction of the tile. The
-// step body of both K3 (a block a tile, one launch a step) and K12 (two
-// steps a cooperative launch, blocks looping over the tiles): the same
-// arithmetic in the same order, so the two give the same bits. Every
-// thread of the block calls it, with the same tile. dh_rec is common.cuh's
+// bx, by), or (dh_seq_t == null) the final dh0 reduction of the tile: the
+// per-step design's step body, of K3 and K6 (a block a tile, one launch a
+// step) and K12 (two steps a cooperative launch, blocks looping over the
+// tiles): the same arithmetic in the same order, so K3 and K12 give the
+// same bits. Every thread of the block calls it, with the same tile.
+// dh_rec is common.cuh's
 // rec_tile over the 4N-long gate axis, the gate backward its gate_bwd.
 template <typename CT, typename RT>
 __device__ __forceinline__ void
@@ -169,7 +159,7 @@ bwd_tile(const CT* __restrict__ UT,          // (4N, N) = U^T
   for (int q = 0; q < 4; ++q) dg_t[gb + (size_t)q * N] = d[q];
 }
 
-// K3's step: one reverse timestep, or the final dh0 reduction, a block a
+// The per-step design's step: one reverse timestep, or the final dh0 reduction, a block a
 // tile. grid = (N / 32, ceil(B / kBT)), block = (32, kKS).
 template <typename CT, typename RT>
 __global__ void __launch_bounds__(kLanes * kKS)
@@ -185,7 +175,7 @@ lstm_bwd_step(const CT* __restrict__ UT, const float* __restrict__ dg_next,
                    blockIdx.y);
 }
 
-// K12's launch: the reverse steps tau1 and tau1 - 1, a grid barrier between
+// K12's per-step design: the reverse steps tau1 and tau1 - 1, a grid barrier between
 // them (tau1 - 1 reads the whole dg_{tau1}). A grid of at most what is
 // resident at once (a barrier waits for every block), each block walking
 // the (N / 32) x ceil(B / kBT) tiles from its index in steps of the grid.
@@ -334,6 +324,7 @@ int run_reverse2(const void* UT, const void* g_seq, const void* c_seq,
   return 0;
 }
 
+// K3 and K12 in the per-step design: the reverse steps, then dU, dW and db.
 template <typename CT, typename RT>
 int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
             const void* h_seq, const int* ids, const float* h0,
@@ -386,8 +377,10 @@ int run_bwd_scan(const void* UT, const void* g_seq, const void* c_seq,
 }
 
 // ---------------------------------------------------------------------------
-// K6 under bf16 compute: one persistent cooperative launch for the S reverse
-// steps and dh0, U in shared memory, dh_rec on tensor cores.
+// The persistent reverse launch under bf16 compute, shared by K6, K3 and K12:
+// the S reverse steps and dh0 in one cooperative launch, U in shared memory,
+// dh_rec on tensor cores. K3 and K12 add db (kDb); K12 takes the steps in
+// pairs (kSteps = 2). All three run the same step arithmetic.
 //
 // A block owns kUnits = 8 * NT hidden units j0..j0+kUnits-1 (the rows of U
 // whose products give their dh_rec; the gate backward then writes their
@@ -403,8 +396,16 @@ int run_bwd_scan(const void* UT, const void* g_seq, const void* c_seq,
 // thread of (b, j) then runs the gate backward in registers, with dc carried
 // in its registers across the window, and writes dg_t once in bf16 (and in
 // fp32 into dg32 when asked for). A grid barrier closes each step. The
-// step's g, c, c_{t-1} and dh_seq[t] do not depend on the recurrence: each
-// thread loads its own before the barrier that precedes the step.
+// steps' g, c, c_{t-1} and dh_seq[t] do not depend on the recurrence: each
+// thread loads its own for the next kSteps steps before the barrier that
+// precedes them (K12: both steps of a pair at once, the loads the TPU
+// kernel's unrolling overlaps with the serial chain).
+//
+// db (kDb): each thread sums its elements' dg over the steps (the fp32 dg,
+// or with round_db the bf16 one), the block adds its threads' sums in
+// thread order into one row of db_part per part of the batch, and after a
+// last grid barrier the blocks of part 0 add the parts in order. Every sum
+// has a fixed order, so K12 gives K3's bits.
 constexpr int kPThreads = 256;  // 8 warps
 constexpr int kPWarps = kPThreads / 32;
 constexpr int kPRows = 64;      // batch rows of a block at most: 4 m tiles
@@ -416,16 +417,16 @@ constexpr int kPPad = 8;
 constexpr int kPRingPitch = kPKC + kPPad;
 constexpr int kMaxDevices = 64;
 
-// Dynamic shared memory of the persistent K6 (mirrored by
+// Dynamic shared memory of the persistent launch (mirrored by
 // ops/cuda_cell_bwd.py:persist_smem_bytes, which holds itself to
 // lstm_bwd_persist_smem_bytes once a card): the group's U rows, then the
-// ring of dg chunks, whose space the cross-warp sums reuse.
+// ring of dg chunks, whose space the cross-warp sums and db's reuse.
 inline size_t persist_smem_bytes(int N, int units) {
   return 2 * ((size_t)units * (4 * N + kPPad) +
               (size_t)kPStages * kPRows * kPRingPitch);
 }
 
-template <typename RT, int NT>
+template <typename RT, int NT, int kSteps, bool kDb>
 __global__ void __launch_bounds__(kPThreads, 1)
 lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
                  const RT* __restrict__ g_seq,         // (S, B, 4N)
@@ -437,8 +438,11 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
                  // so neither const nor __restrict__ (no non-coherent loads)
                  __nv_bfloat16* dgx,
                  float* __restrict__ dg32,  // (S, B, 4N) fp32 dg, or null
-                 float* __restrict__ dh0, Dropout drop, int S, int B, int N,
-                 int rows, int standard) {
+                 float* __restrict__ dh0,
+                 float* __restrict__ db,  // (4N,), kDb
+                 float* db_part,          // (parts, 4N) scratch, kDb; as dgx
+                 Dropout drop, int S, int B, int N, int rows, int standard,
+                 int round_db) {
   constexpr int kUnits = 8 * NT;
   constexpr int kElems = kPRows * kUnits / kPThreads;  // (b, j) a thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -449,8 +453,9 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
   float* red = reinterpret_cast<float*>(ring);  // [kPWarps][kPRows][kUnits]
 
   const int groups = N / kUnits;
+  const int part = blockIdx.x / groups;
   const int j0 = (blockIdx.x % groups) * kUnits;
-  const int b0 = (blockIdx.x / groups) * rows;
+  const int b0 = part * rows;
   const int nrows = min(rows, B - b0);
   const int mtiles = (nrows + 15) / 16;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -469,7 +474,11 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
   // kPRows x kUnits, row-major; valid when its row lies in the block's part
   int eb[kElems], ej[kElems];
   bool ev[kElems];
-  float dcr[kElems], gin[kElems][4], cin[kElems], cpin[kElems], dhin[kElems];
+  float dcr[kElems];
+  // the recurrence-free inputs of the next kSteps steps, slot p for step t - p
+  float gin[kSteps][kElems][4], cin[kSteps][kElems], cpin[kSteps][kElems],
+      dhin[kSteps][kElems];
+  float dbs[kDb ? kElems : 1][4];  // this thread's db sums
 #pragma unroll
   for (int i = 0; i < kElems; ++i) {
     const int e = tid + kPThreads * i;
@@ -478,147 +487,201 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
     ev[i] = e / kUnits < nrows;
     dcr[i] = ev[i] ? dc[(size_t)eb[i] * N + ej[i]] : 0.0f;
   }
-  // the step's inputs that do not depend on the recurrence
-  const auto load_inputs = [&](int t) {
+#pragma unroll
+  for (int i = 0; i < (kDb ? kElems : 1); ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dbs[i][x] = 0.0f;
+  const auto load_inputs = [&](int p, int t) {
 #pragma unroll
     for (int i = 0; i < kElems; ++i) {
       if (!ev[i]) continue;
       const size_t idx = (size_t)eb[i] * N + ej[i];
       const size_t gb = t * bk + (size_t)eb[i] * K + ej[i];
 #pragma unroll
-      for (int qq = 0; qq < 4; ++qq) gin[i][qq] = to_f32(g_seq[gb + (size_t)qq * N]);
-      cin[i] = to_f32(c_seq[t * bn + idx]);
-      cpin[i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
-      dhin[i] = dh_seq[t * bn + idx];
+      for (int qq = 0; qq < 4; ++qq) gin[p][i][qq] = to_f32(g_seq[gb + (size_t)qq * N]);
+      cin[p][i] = to_f32(c_seq[t * bn + idx]);
+      cpin[p][i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
+      dhin[p][i] = dh_seq[t * bn + idx];
     }
   };
-  load_inputs(S - 1);
-  cp_async_wait<0>();
-  __syncthreads();
 
+  // dh_rec = round(dg_next) @ U^T over the block's rows and units
   const int nchunks = K / kPKC;
-  for (int t = S - 1; t >= -1; --t) {
-    float dh_rec[kElems];
-    if (t == S - 1) {
-#pragma unroll
-      for (int i = 0; i < kElems; ++i)
-        dh_rec[i] = ev[i] ? dhT[(size_t)eb[i] * N + ej[i]] : 0.0f;
-    } else {
-      // dh_rec = round(dg_{t+1}) @ U^T over the block's rows and units
-      const __nv_bfloat16* dgn = dgx + (t + 1) * bk;
-      const auto load_chunk = [&](int c) {
-        __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
-        for (int p = tid; p < mtiles * 16 * (kPKC / 8); p += kPThreads) {
-          const int r = p / (kPKC / 8), k = (p % (kPKC / 8)) * 8;
-          const bool in = r < nrows;
-          cp_async_16(slot + r * kPRingPitch + k,
-                      in ? dgn + (size_t)(b0 + r) * K + c * kPKC + k : dgn,
-                      in ? 16 : 0);
-        }
-      };
-      float acc[4][NT][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kPStages - 1; ++c) {
-        if (c < nchunks) load_chunk(c);
-        cp_async_commit();
+  const auto rec = [&](const __nv_bfloat16* dgn, float (&dh_rec)[kElems]) {
+    const auto load_chunk = [&](int c) {
+      __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
+      for (int p = tid; p < mtiles * 16 * (kPKC / 8); p += kPThreads) {
+        const int r = p / (kPKC / 8), k = (p % (kPKC / 8)) * 8;
+        const bool in = r < nrows;
+        cp_async_16(slot + r * kPRingPitch + k,
+                    in ? dgn + (size_t)(b0 + r) * K + c * kPKC + k : dgn,
+                    in ? 16 : 0);
       }
-      for (int c = 0; c < nchunks; ++c) {
-        cp_async_wait<kPStages - 2>();
-        __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
-        if (c + kPStages - 1 < nchunks) load_chunk(c + kPStages - 1);
-        cp_async_commit();
-        const __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
-        const int kk = warp * 16;
-        unsigned bq[4];
-        const __nv_bfloat16* urow =
-            Us + (size_t)(lane % 8 + 8 * (lane / 16)) * upitch + c * kPKC + kk +
-            8 * ((lane / 8) % 2);
-        if (NT == 2)
-          ldmatrix_x4(bq, urow);
-        else
-          ldmatrix_x2(bq, urow);
+    };
+    float acc[4][NT][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (mt >= mtiles) break;
-          unsigned a[4];
-          ldmatrix_x4(a, slot + (mt * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kPRingPitch +
-                             kk + 8 * (lane / 16));
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a, bq + 2 * nt);
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every warp is done with the ring: reuse it as red
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPStages - 1; ++c) {
+      if (c < nchunks) load_chunk(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      cp_async_wait<kPStages - 2>();
+      __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
+      if (c + kPStages - 1 < nchunks) load_chunk(c + kPStages - 1);
+      cp_async_commit();
+      const __nv_bfloat16* slot = ring + (size_t)(c % kPStages) * kPRows * kPRingPitch;
+      const int kk = warp * 16;
+      unsigned bq[4];
+      const __nv_bfloat16* urow =
+          Us + (size_t)(lane % 8 + 8 * (lane / 16)) * upitch + c * kPKC + kk +
+          8 * ((lane / 8) % 2);
+      if (NT == 2)
+        ldmatrix_x4(bq, urow);
+      else
+        ldmatrix_x2(bq, urow);
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         if (mt >= mtiles) break;
+        unsigned a[4];
+        ldmatrix_x4(a, slot + (mt * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kPRingPitch +
+                           kk + 8 * (lane / 16));
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float* dst = red + ((size_t)warp * kPRows + mt * 16 + g + 8 * h) * kUnits +
-                         nt * 8 + 2 * q;
-            dst[0] = acc[mt][nt][2 * h];
-            dst[1] = acc[mt][nt][2 * h + 1];
-          }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kElems; ++i) {
-        const int e = tid + kPThreads * i;
-        float v = 0.0f;
-        if (ev[i])
-#pragma unroll
-          for (int w = 0; w < kPWarps; ++w) v += red[(size_t)w * kPRows * kUnits + e];
-        dh_rec[i] = v;
+        for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a, bq + 2 * nt);
       }
     }
-    if (t == -1) {
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring: reuse it as red
 #pragma unroll
-      for (int i = 0; i < kElems; ++i)
-        if (ev[i]) {
-          dh0[(size_t)eb[i] * N + ej[i]] = dh_rec[i];
-          dc[(size_t)eb[i] * N + ej[i]] = dcr[i];
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt >= mtiles) break;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* dst = red + ((size_t)warp * kPRows + mt * 16 + g + 8 * h) * kUnits +
+                       nt * 8 + 2 * q;
+          dst[0] = acc[mt][nt][2 * h];
+          dst[1] = acc[mt][nt][2 * h + 1];
         }
-      break;
     }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int e = tid + kPThreads * i;
+      float v = 0.0f;
+      if (ev[i])
+#pragma unroll
+        for (int w = 0; w < kPWarps; ++w) v += red[(size_t)w * kPRows * kUnits + e];
+      dh_rec[i] = v;
+    }
+  };
+
+  // the gate backward of step t from the inputs in slot p
+  const auto gate_step = [&](int p, int t, const float (&dh_rec)[kElems]) {
 #pragma unroll
     for (int i = 0; i < kElems; ++i) {
       if (!ev[i]) continue;
       const size_t idx = (size_t)eb[i] * N + ej[i];
-      float dh_cot = dhin[i];
+      float dh_cot = dhin[p][i];
       // __fmul_rn: the product rounds before the add, as in the TPU kernel
       if (drop.on) dh_cot = keep_bit(drop, t, idx) ? __fmul_rn(dh_cot, drop.inv) : 0.0f;
       float d[4];
-      gate_bwd(gin[i][0], gin[i][1], gin[i][2], gin[i][3], cin[i], cpin[i],
-               dh_cot + dh_rec[i], dcr[i], standard, d, &dcr[i]);
+      gate_bwd(gin[p][i][0], gin[p][i][1], gin[p][i][2], gin[p][i][3], cin[p][i],
+               cpin[p][i], dh_cot + dh_rec[i], dcr[i], standard, d, &dcr[i]);
       const size_t gb = t * bk + (size_t)eb[i] * K + ej[i];
 #pragma unroll
       for (int qq = 0; qq < 4; ++qq) {
-        dgx[gb + (size_t)qq * N] = __float2bfloat16(d[qq]);
+        const __nv_bfloat16 r = __float2bfloat16(d[qq]);
+        dgx[gb + (size_t)qq * N] = r;
         if (dg32 != nullptr) dg32[gb + (size_t)qq * N] = d[qq];
+        if (kDb) dbs[kDb ? i : 0][qq] += round_db ? __bfloat162float(r) : d[qq];
       }
     }
-    if (t > 0) load_inputs(t - 1);
-    grid.sync();  // dg_t is complete before any block reads it
+  };
+
+#pragma unroll
+  for (int p = 0; p < kSteps; ++p) load_inputs(p, S - 1 - p);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int t1 = S - 1; t1 >= 0; t1 -= kSteps) {
+#pragma unroll
+    for (int p = 0; p < kSteps; ++p) {
+      const int t = t1 - p;
+      float dh_rec[kElems];
+      if (t == S - 1) {
+#pragma unroll
+        for (int i = 0; i < kElems; ++i)
+          dh_rec[i] = ev[i] ? dhT[(size_t)eb[i] * N + ej[i]] : 0.0f;
+      } else {
+        rec(dgx + (t + 1) * bk, dh_rec);
+      }
+      gate_step(p, t, dh_rec);
+      if (p == kSteps - 1 && t > 0)
+#pragma unroll
+        for (int p2 = 0; p2 < kSteps; ++p2) load_inputs(p2, t - 1 - p2);
+      grid.sync();  // dg_t is complete before any block reads it
+    }
+  }
+  {
+    // dh0 = round(dg_0) @ U^T, and dc0
+    float dh_rec[kElems];
+    rec(dgx, dh_rec);
+#pragma unroll
+    for (int i = 0; i < kElems; ++i)
+      if (ev[i]) {
+        dh0[(size_t)eb[i] * N + ej[i]] = dh_rec[i];
+        dc[(size_t)eb[i] * N + ej[i]] = dcr[i];
+      }
+  }
+  if (kDb) {
+    // thread tid holds unit tid % kUnits of rows tid / kUnits + (kPThreads /
+    // kUnits) * i: its sums over i, then over the threads of a unit in order
+    constexpr int kPer = kPThreads / kUnits;
+    float* sums = red;  // [kPer][4][kUnits]
+    __syncthreads();    // rec's reads of red are done
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float v = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) v += dbs[kDb ? i : 0][x];
+      sums[(tid / kUnits) * 4 * kUnits + x * kUnits + tid % kUnits] = v;
+    }
+    __syncthreads();
+    const int col = (tid / kUnits) * N + j0 + tid % kUnits;  // gate q = tid / kUnits
+    if (tid < 4 * kUnits) {
+      float v = 0.0f;
+      for (int w = 0; w < kPer; ++w) v += sums[w * 4 * kUnits + tid];
+      db_part[(size_t)part * K + col] = v;
+    }
+    grid.sync();  // every part's sums are in db_part
+    if (part == 0 && tid < 4 * kUnits) {
+      float v = 0.0f;
+      for (int p = 0; p < (int)gridDim.x / groups; ++p)
+        v += __ldcg(db_part + (size_t)p * K + col);
+      db[col] = v;
+    }
   }
 }
 
 // dU-style products on tensor cores: C (I, J) = sum_r round(A[r, :])^T B[r, :]
 // with A's rows as atb_gemm's (A0 for r < R0, then A1), rounded to bf16 as
-// they are staged, and B (R, J) already bf16. Block tile kGT x kGT (as
-// atb_gemm, so atb_splits and atb_work_floats apply), r chunks of kMR
-// through two shared-memory buffers (the next chunk is loaded into
-// registers while the current one is multiplied). 8 warps, each a 64 x 32
-// tile (4 x 4 mma tiles); both operands are stored [r][.] and enter the
-// products through ldmatrix .trans. Split z sums its r range into
-// out + z*I*J. I is a multiple of 16, J of kGT.
+// they are staged, and B (R, J) already bf16; with ids (K3's dW), the M rows
+// before them are the one-hot product, dW[v, :] = sum_{r: ids[r] = v} B[r, :]
+// (0 and 1 are exact in bf16, so its sums are the rows' own in fp32). Block
+// tile kGT x kGT (as atb_gemm, so atb_splits and atb_work_floats apply),
+// the one-hot rows' tiles first, r chunks of kMR through two shared-memory
+// buffers (the next chunk is loaded into registers while the current one is
+// multiplied). 8 warps, each a 64 x 32 tile (4 x 4 mma tiles); both
+// operands are stored [r][.] and enter the products through ldmatrix
+// .trans. Split z sums its r range into out + z*(M+I)*J. I is a multiple
+// of 16, J of kGT.
 constexpr int kMR = 32;
 constexpr int kMPitch = kGT + 8;
 
@@ -642,15 +705,19 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float v[16]) {
 
 template <typename AT>
 __global__ void __launch_bounds__(256)
-atb_mma(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
-        const __nv_bfloat16* __restrict__ Bm, float* __restrict__ out, int R,
-        int I, int J, int r_chunk) {
+atb_mma(const int* __restrict__ ids, int M, const float* __restrict__ A0,
+        const AT* __restrict__ A1, int R0, const __nv_bfloat16* __restrict__ Bm,
+        float* __restrict__ out, int R, int I, int J, int r_chunk) {
   __shared__ __align__(16) __nv_bfloat16 As[2][kMR][kMPitch];
   __shared__ __align__(16) __nv_bfloat16 Bs[2][kMR][kMPitch];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;
   const int wi = (warp / 4) * 64, wj = (warp % 4) * 32;
-  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
+  const int onehot_tiles = (M + kGT - 1) / kGT;
+  const bool onehot = (int)blockIdx.y < onehot_tiles;
+  const int rows_out = onehot ? M : I;
+  const int i0 = (onehot ? blockIdx.y : blockIdx.y - onehot_tiles) * kGT;
+  const int j0 = blockIdx.x * kGT;
   const int r_begin = blockIdx.z * r_chunk;
   const int r_end = min(R, r_begin + r_chunk);
   // staging: this thread's row of a chunk and its 16 columns
@@ -662,7 +729,11 @@ atb_mma(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
     const bool in_a = r < r_end && i0 + sc < I, in_b = r < r_end;
 #pragma unroll
     for (int x = 0; x < 16; ++x) av[x] = 0.0f;
-    if (in_a) {
+    if (onehot) {
+      const int v = r < r_end ? ids[r] : -1;
+#pragma unroll
+      for (int x = 0; x < 16; ++x) av[x] = i0 + sc + x == v ? 1.0f : 0.0f;
+    } else if (in_a) {
       if (r < R0)
         load16(A0 + (size_t)r * I + i0 + sc, av);
       else
@@ -726,13 +797,13 @@ atb_mma(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
     __syncthreads();
     buf ^= 1;
   }
-  float* C = out + (size_t)blockIdx.z * I * J;
+  float* C = out + (size_t)blockIdx.z * (M + I) * J + (onehot ? 0 : (size_t)M * J);
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = i0 + wi + mt * 16 + g + 8 * h;
-      if (i >= I) continue;
+      if (i >= rows_out) continue;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
         *reinterpret_cast<float2*>(C + (size_t)i * J + j0 + wj + nt * 8 + 2 * q) =
@@ -740,23 +811,24 @@ atb_mma(const float* __restrict__ A0, const AT* __restrict__ A1, int R0,
     }
 }
 
-// C = A^T B through atb_mma on `stream`, split over r as run_atb splits it
-// (through `work`, then sum_slabs in a fixed order).
+// C = A^T B through atb_mma on `stream` (with ids, the M one-hot rows
+// before it), split over r as run_atb splits it (through `work`, then
+// sum_slabs in a fixed order).
 template <typename AT>
-int run_atb_mma(const float* A0, const AT* A1, int R0, const __nv_bfloat16* Bm,
-                float* C, float* work, int R, int I, int J, cudaStream_t stream,
-                int* launches) {
-  const int splits = atb_splits(R, I, J);
+int run_atb_mma(const int* ids, int M, const float* A0, const AT* A1, int R0,
+                const __nv_bfloat16* Bm, float* C, float* work, int R, int I,
+                int J, cudaStream_t stream, int* launches) {
+  const int splits = atb_splits(R, M + I, J);
   int r_chunk = (R + splits - 1) / splits;
   r_chunk = (r_chunk + kMR - 1) / kMR * kMR;
-  const dim3 grid(J / kGT, (I + kGT - 1) / kGT, splits);
-  atb_mma<AT><<<grid, 256, 0, stream>>>(A0, A1, R0, Bm, splits == 1 ? C : work,
-                                        R, I, J, r_chunk);
+  const dim3 grid(J / kGT, (M + kGT - 1) / kGT + (I + kGT - 1) / kGT, splits);
+  atb_mma<AT><<<grid, 256, 0, stream>>>(ids, M, A0, A1, R0, Bm,
+                                        splits == 1 ? C : work, R, I, J, r_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
   if (splits > 1) {
-    const size_t n = (size_t)I * J;
+    const size_t n = (size_t)(M + I) * J;
     sum_slabs<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(work, C, splits, n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -765,24 +837,37 @@ int run_atb_mma(const float* A0, const AT* A1, int R0, const __nv_bfloat16* Bm,
   return 0;
 }
 
-// K6 under bf16 compute, the persistent reverse launch: dg_seq (bf16, and
-// fp32 into dg32 unless null), dh0 and dc0. units: 8 or 16 hidden units a
-// block; rows: 16, 32, 48 or 64 batch rows a block.
+// The persistent reverse launch under bf16 compute: dg_seq (bf16, and fp32
+// into dg32 unless null), dh0 and dc0; with db (K3, K12) also db, through
+// db_part ((B / 16 + 1) x 4N floats at most), summing the bf16 dg with
+// round_db. units: 8 or 16 hidden units a block; rows: 16, 32, 48 or 64
+// batch rows a block; steps: 1, or 2 (K12, S even, with db).
 template <typename RT>
 int run_persist(const void* U, const void* g_seq, const void* c_seq,
                 const float* c0, const float* dh_seq, const float* dhT,
-                float* dc, __nv_bfloat16* dgx, float* dg32, float* dh0, int S,
-                int B, int N, int units, int rows, int standard, Dropout drop,
+                float* dc, __nv_bfloat16* dgx, float* dg32, float* dh0,
+                float* db, float* db_part, int S, int B, int N, int units,
+                int rows, int steps, int standard, int round_db, Dropout drop,
                 cudaStream_t stream, int* launches) {
   if ((4 * N) % kPKC != 0 || (units != 8 && units != 16) || N % units != 0 ||
-      rows < 16 || rows > kPRows || rows % 16 != 0 || S < 1)
+      rows < 16 || rows > kPRows || rows % 16 != 0 || S < 1 ||
+      (steps != 1 && steps != 2) || S % steps != 0 ||
+      (steps == 2 && db == nullptr) || (db != nullptr && db_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = units == 16 ? lstm_bwd_persist<RT, 2> : lstm_bwd_persist<RT, 1>;
+  // [units / 16][0: K6, 1: K3, 2: K12]
+  using Kernel = decltype(&lstm_bwd_persist<RT, 1, 1, false>);
+  static const Kernel kernels[2][3] = {
+      {lstm_bwd_persist<RT, 1, 1, false>, lstm_bwd_persist<RT, 1, 1, true>,
+       lstm_bwd_persist<RT, 1, 2, true>},
+      {lstm_bwd_persist<RT, 2, 1, false>, lstm_bwd_persist<RT, 2, 1, true>,
+       lstm_bwd_persist<RT, 2, 2, true>}};
+  const int mode = db == nullptr ? 0 : steps;
+  const Kernel kernel = kernels[units / 16][mode];
   const size_t smem = persist_smem_bytes(N, units);
   // per card, read once: cooperative launch support and the SMs; each
   // kernel's shared-memory limit raised when a launch needs more
   static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
-  static size_t cap[kMaxDevices][2];
+  static size_t cap[kMaxDevices][2][3];
   int dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
@@ -792,7 +877,7 @@ int run_persist(const void* U, const void* g_seq, const void* c_seq,
       err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) ready[dev] = 1;
   }
-  size_t* limit = err == cudaSuccess ? &cap[dev][units / 16] : nullptr;
+  size_t* limit = err == cudaSuccess ? &cap[dev][units / 16][mode] : nullptr;
   if (err == cudaSuccess && *limit < smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -810,7 +895,8 @@ int run_persist(const void* U, const void* g_seq, const void* c_seq,
   const RT* gs = static_cast<const RT*>(g_seq);
   const RT* cs = static_cast<const RT*>(c_seq);
   void* args[] = {&u, &gs, &cs, &c0, &dh_seq, &dhT, &dc, &dgx, &dg32, &dh0,
-                  &drop, &S, &B, &N, &rows, &standard};
+                  &db, &db_part, &drop, &S, &B, &N, &rows, &standard,
+                  &round_db};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(grid), dim3(kPThreads), args, smem,
                                     stream);
@@ -822,11 +908,17 @@ int run_persist(const void* U, const void* g_seq, const void* c_seq,
 
 }  // namespace
 
-// Scratch floats lstm_bwd_embed_launch needs in `work`.
-extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N) {
-  const size_t gemm = atb_work_floats(S * B, N, 4 * N);
-  const size_t col = (size_t)colsum_chunks_of(S * B) * 4 * N;
-  return gemm > col ? gemm : col;
+// Scratch floats `work` holds for K3 and K12 in either design: the per-step
+// design's dU split and colsum chunks; the persistent design's db parts,
+// then (after the reverse launch) its dWU split.
+extern "C" size_t lstm_bwd_embed_work_floats(int S, int B, int N, int M) {
+  const size_t sizes[] = {atb_work_floats(S * B, N, 4 * N),
+                          (size_t)colsum_chunks_of(S * B) * 4 * N,
+                          (size_t)((B + 15) / 16) * 4 * N,
+                          atb_work_floats(S * B, M + N, 4 * N)};
+  size_t most = 0;
+  for (const size_t n : sizes) most = n > most ? n : most;
+  return most;
 }
 
 namespace {
@@ -859,9 +951,9 @@ int bwd_embed(int unroll2, int ctype, int rtype, const void* UT,
 
 }  // namespace
 
-// Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N) in the compute type;
-// the residual sequences have the residual type; h0, c0, dh_seq, dhT and the
-// outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
+// K3's per-step design. Type codes: 0 = fp32, 1 = bf16. UT is U^T (4N, N)
+// in the compute type; the residual sequences have the residual type; h0,
+// c0, dh_seq, dhT and the outputs are fp32. dc holds dcT on entry and dc0 on return. dg is an
 // (S, B, 4N) fp32 scratch. round_db: db sums dg rounded to the compute
 // type (the GEMM fall-back VJP) instead of the fp32 dg (the fused VJP).
 // drop_on, seed, keep, inv: the dropout of the forward's masked stream
@@ -879,9 +971,9 @@ extern "C" int lstm_bwd_embed_launch(
                    launches);
 }
 
-// K12 <- pallas_cell.py:_bwd_embed_unroll2_kernel: K3's function, bit for
-// bit, two reverse steps a cooperative launch (S even): S / 2 + 1 step
-// launches against K3's S + 1. Arguments as lstm_bwd_embed_launch's.
+// K12's per-step design: K3's function, bit for bit, two reverse steps a
+// cooperative launch (S even): S / 2 + 1 step launches against K3's S + 1.
+// Arguments as lstm_bwd_embed_launch's.
 extern "C" int lstm_bwd_embed_unroll2_launch(
     int ctype, int rtype, const void* UT, const void* g_seq,
     const void* c_seq, const void* h_seq, const void* ids, const void* h0,
@@ -895,12 +987,12 @@ extern "C" int lstm_bwd_embed_unroll2_launch(
                    launches);
 }
 
-// Scratch floats lstm_bwd_scan_launch needs in `work`.
+// Scratch floats K6 needs in `work`, in either design.
 extern "C" size_t lstm_bwd_scan_work_floats(int S, int B, int N) {
   return atb_work_floats(S * B, N, 4 * N);
 }
 
-// K6. As lstm_bwd_embed_launch, without ids, dW and db; h0 is h_{-1}
+// K6's per-step design. As lstm_bwd_embed_launch, without ids, dW and db; h0 is h_{-1}
 // rounded to the residual type; dg is the (S, B, 4N) fp32 scratch and dgx
 // receives dg_seq in the compute type (dgx == dg under fp32 compute); dU
 // (N, 4N) fp32.
@@ -930,7 +1022,7 @@ extern "C" int lstm_bwd_scan_launch(
 }
 
 // The device's SMs and the shared memory a block may opt in to, for the
-// choice between K6's two designs (ops/cuda_cell_bwd.py:k6_plan).
+// choice between the two designs (ops/cuda_cell_bwd.py:k6_plan).
 extern "C" int lstm_bwd_device_limits(int* sms, int* smem_optin) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -941,51 +1033,62 @@ extern "C" int lstm_bwd_device_limits(int* sms, int* smem_optin) {
   return static_cast<int>(err);
 }
 
-// Bytes of dynamic shared memory a persistent K6 block of `units` units
-// takes at hidden size N.
+// Bytes of dynamic shared memory a persistent block of `units` units takes
+// at hidden size N.
 extern "C" size_t lstm_bwd_persist_smem_bytes(int N, int units) {
   return persist_smem_bytes(N, units);
 }
 
-// K6 under bf16 compute, the persistent design's reverse launch: the S
-// reverse steps and dh0 in one cooperative launch. U is (N, 4N) in bf16
-// (not transposed); the residual sequences have the residual type (rtype
-// 0 = fp32, 1 = bf16). dgx receives dg_seq (S, B, 4N) in bf16, dg32 the fp32
-// dg or is null. units, rows: ops/cuda_cell_bwd.py:k6_plan. Other
-// arguments and results as lstm_bwd_scan_launch's.
-extern "C" int lstm_bwd_scan_persist_launch(
+// The persistent design's reverse launch under bf16 compute (K6, K3, K12):
+// the S reverse steps and dh0 in one cooperative launch. U is (N, 4N) in
+// bf16 (not transposed); the residual sequences have the residual type
+// (rtype 0 = fp32, 1 = bf16). dgx receives dg_seq (S, B, 4N) in bf16, dg32
+// the fp32 dg or is null. db null: K6; else K3 (steps 1) or K12 (steps 2)
+// with db (4N,) the sum of the fp32 dg, or of the bf16 dg with round_db,
+// through `work` (lstm_bwd_embed_work_floats). units, rows:
+// ops/cuda_cell_bwd.py:k6_plan. Other arguments and results as
+// lstm_bwd_scan_launch's.
+extern "C" int lstm_bwd_persist_launch(
     int rtype, const void* U, const void* g_seq, const void* c_seq,
     const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dgx,
-    void* dg32, void* dh0, int S, int B, int N, int units, int rows,
-    int standard, int drop_on, unsigned seed, unsigned keep, float inv,
-    void* stream, int* launches) {
+    void* dg32, void* dh0, void* db, void* work, int S, int B, int N,
+    int units, int rows, int steps, int standard, int round_db, int drop_on,
+    unsigned seed, unsigned keep, float inv, void* stream, int* launches) {
   const Dropout drop{drop_on, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, g_seq, c_seq, static_cast<const float*>(c0),
                static_cast<const float*>(dh_seq),
                static_cast<const float*>(dhT), static_cast<float*>(dc),
                static_cast<__nv_bfloat16*>(dgx), static_cast<float*>(dg32),
-               static_cast<float*>(dh0), S, B, N, units, rows, standard, drop,
-               static_cast<cudaStream_t>(stream), launches);
+               static_cast<float*>(dh0), static_cast<float*>(db),
+               static_cast<float*>(work), S, B, N, units, rows, steps,
+               standard, round_db, drop, static_cast<cudaStream_t>(stream),
+               launches);
   };
   if (rtype == 0) return f(run_persist<float>);
   if (rtype == 1) return f(run_persist<__nv_bfloat16>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The persistent design's dU = round(h_{t-1})^T dg_seq on tensor cores, one
-// launch or a split and a fixed-order sum: h0 is h_{-1} rounded to the
-// residual type, in fp32, h_seq has the residual type, dgx is dg_seq in
-// bf16; work as lstm_bwd_scan_work_floats. N a multiple of 32.
-extern "C" int lstm_bwd_scan_dU_launch(int rtype, const void* h_seq,
-                                       const void* h0, const void* dgx,
-                                       void* dU, void* work, int S, int B,
-                                       int N, void* stream, int* launches) {
-  if (N % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+// The persistent design's weight gradients on tensor cores, one launch or a
+// split and a fixed-order sum: dU = round(h_{t-1})^T dg_seq into out (N, 4N)
+// (K6), or with ids (S * B int32) and M > 0 dWU = [dW; dU] into out
+// (M + N, 4N) (K3, K12), dW the one-hot product. h0 is h_{-1} in fp32, h_seq
+// has the residual type, dgx is dg_seq in bf16; work as
+// lstm_bwd_scan_work_floats (K6) or lstm_bwd_embed_work_floats. N a multiple
+// of 32.
+extern "C" int lstm_bwd_dWU_launch(int rtype, const void* h_seq,
+                                   const void* h0, const void* ids,
+                                   const void* dgx, void* out, void* work,
+                                   int S, int B, int N, int M, void* stream,
+                                   int* launches) {
+  if (N % 32 != 0 || M < 0 || (M > 0) != (ids != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [&](auto* a1) {
-    return run_atb_mma(static_cast<const float*>(h0), a1, B,
+    return run_atb_mma(static_cast<const int*>(ids), M,
+                       static_cast<const float*>(h0), a1, B,
                        static_cast<const __nv_bfloat16*>(dgx),
-                       static_cast<float*>(dU), static_cast<float*>(work),
+                       static_cast<float*>(out), static_cast<float*>(work),
                        S * B, N, 4 * N, static_cast<cudaStream_t>(stream),
                        launches);
   };

@@ -17,7 +17,7 @@
 //       dh0 = round(dg_0) @ U^T and the weight gradients are products
 //       outside the kernel in the JAX VJPs (:359-375, :599-623); here dh0
 //       is the persistent K10's last product, and dU is K6's tensor-core
-//       product (lstm_bwd.cu:lstm_bwd_scan_dU_launch) under bf16 compute.
+//       product (lstm_bwd.cu:lstm_bwd_dWU_launch) under bf16 compute.
 // The forward epilogue: sigma on i, o, f, tanh on u, the cell update of
 // _cell_fwd ("reference" carries tanh(i*u + f*c_prev), "standard" the raw
 // cell), h_seq and c_seq and the activated gates in the residual type, the

@@ -20,8 +20,11 @@
 // for B stored as [n][k] two matrices (k 0-7, k 8-15) give b0, b1; operands
 // stored the other way round ([k][m], [k][n]) take .trans.
 //
-// The product of two bf16 values is exact in fp32; only the order of the
-// fp32 sums inside a tensor-core instruction is the hardware's.
+// The product of two bf16 values is exact in fp32; the sums inside a
+// tensor-core instruction take the hardware's order and rounding, not
+// fp32's round to nearest, so a sum carried through thousands of
+// instructions drifts further from the fp32 one than a sum order alone
+// would move it (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>

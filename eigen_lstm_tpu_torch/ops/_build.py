@@ -48,13 +48,13 @@ SIGNATURES = {
                               + [_P, _IP]),
     "lstm_bwd_embed_unroll2_launch": (_I, [_I, _I] + [_P] * 15 + [_I] * 7
                                       + _DROP + [_P, _IP]),
-    "lstm_bwd_embed_work_floats": (_Z, [_I] * 3),
+    "lstm_bwd_embed_work_floats": (_Z, [_I] * 4),
     "lstm_bwd_scan_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 5 + _DROP
                              + [_P, _IP]),
     "lstm_bwd_scan_work_floats": (_Z, [_I] * 3),
-    "lstm_bwd_scan_persist_launch": (_I, [_I] + [_P] * 10 + [_I] * 7 + _DROP
-                                     + [_P, _IP]),
-    "lstm_bwd_scan_dU_launch": (_I, [_I] + [_P] * 5 + [_I] * 3 + [_P, _IP]),
+    "lstm_bwd_persist_launch": (_I, [_I] + [_P] * 12 + [_I] * 9 + _DROP
+                                + [_P, _IP]),
+    "lstm_bwd_dWU_launch": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_P, _IP]),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
     "lstm_bwd_persist_smem_bytes": (_Z, [_I, _I]),
     "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P, _IP]),

@@ -7,29 +7,31 @@ the forward's residuals and the cotangents of (h_seq, hT, cT) it returns
 dWU (M+N, 4N), db (4N,), dh0 and dc0 (B, N), all fp32.
 ``embed_layer0_bwd_unroll2`` (K12) replaces
 ``pallas_cell.py:_bwd_embed_unroll2_kernel``: the same function, bit for
-bit, two reverse steps a cooperative launch, where the JAX package runs
-that kernel (``EIGEN_LSTM_BWD_UNROLL=2``; ``ops.dispatch.bwd_unroll2``).
-
+bit, two reverse steps at a time, where the JAX package runs that kernel
+(``EIGEN_LSTM_BWD_UNROLL=2``; ``ops.dispatch.bwd_unroll2``).
 ``scan_layer_bwd`` (K6) replaces ``pallas_cell.py:_bwd_kernel`` (:227) with
 the dU product of ``_bwd_core`` (:393-414), the backward of
 ``pallas_scan_layer``: it returns dg_seq (S, B, 4N) in the xw type (bf16
 under bf16 compute), dU (N, 4N), dh0 and dc0, fp32. dg_seq is the
-cotangent of xw = x @ W + b, from which autograd takes db, dW and dx. K6
-has two designs (``csrc/lstm_bwd.cu``), the same function: under bf16
-compute, where its grid can be resident, one persistent launch for the
-reverse steps with U in shared memory and tensor-core products
-(``lstm_bwd_scan_persist_launch``); elsewhere (fp32 compute, or N = 2048 in
-bf16) one launch a reverse step (``lstm_bwd_scan_launch``). ``k6_plan``
-chooses from the shape, the type and the device's SMs and shared memory.
+cotangent of xw = x @ W + b, from which autograd takes db, dW and dx.
 
-For a CUDA tensor each launches ``lstm_bwd_embed_launch``,
-``lstm_bwd_embed_unroll2_launch`` or K6's launchers of
-``csrc/lstm_bwd.cu`` or raises; for a CPU
-tensor it runs its plain version, which repeats the kernel's arithmetic:
-dg in fp32 (``_reverse_plain``), rounded to the compute type before
-dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c, with h_{-1} = h0
-(rounded to the residual type for K6, as ``_bwd_core`` rounds it); K3 adds
-dW[ids_t] += dg_c and db.
+The three have two designs each (``csrc/lstm_bwd.cu``), the same function.
+Under bf16 compute, where a resident grid can hold U's rows in shared
+memory, they share one persistent kernel: one cooperative launch for the
+reverse steps with tensor-core products (``lstm_bwd_persist_launch``; K12
+takes its steps in pairs, K3 and K12 sum db in it), then the weight
+gradients in one tensor-core product (``lstm_bwd_dWU_launch``: K6's dU, K3's
+and K12's dW and dU). Elsewhere (fp32 compute, or N = 2048 in bf16) each
+takes one launch a reverse step (K12 two steps a cooperative launch) and
+CUDA-core reductions (``lstm_bwd_embed_launch``,
+``lstm_bwd_embed_unroll2_launch``, ``lstm_bwd_scan_launch``). ``k6_plan``
+chooses for all three from the shape, the type and the device's SMs and
+shared memory. For a CUDA tensor each wrapper launches the design its plan
+gives or raises; for a CPU tensor it runs its plain version, which repeats
+the kernels' arithmetic: dg in fp32 (``_reverse_plain``), rounded to the
+compute type before dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c,
+with h_{-1} = h0 (rounded to the residual type for K6, as ``_bwd_core``
+rounds it); K3 adds dW[ids_t] += dg_c and db.
 
 K3 copies whichever of the JAX package's two layer-0 VJPs the config takes
 (``ops.dispatch.fused_accum_ok``). With ``fused_accum`` (the fused VJP,
@@ -153,7 +155,7 @@ def scan_layer_bwd_plain(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
     return dg_x, dU, dh, dc
 
 
-# The persistent K6's shared-memory layout, as csrc/lstm_bwd.cu lays it out
+# The persistent design's shared-memory layout, as csrc/lstm_bwd.cu lays it out
 # (persist_smem_bytes; ``_device_limits`` holds the two equal): a group's U
 # rows, each 4N + PAD bf16, then a ring of STAGES chunks of at most ROWS
 # batch rows by KC gate columns, each row KC + PAD bf16.
@@ -161,17 +163,17 @@ PERSIST_ROWS, PERSIST_KC, PERSIST_STAGES, PERSIST_PAD = 64, 128, 3, 8
 
 
 def persist_smem_bytes(n: int, units: int) -> int:
-    """Bytes of dynamic shared memory a persistent K6 block takes."""
+    """Bytes of dynamic shared memory a persistent block takes."""
     return 2 * (units * (4 * n + PERSIST_PAD)
                 + PERSIST_STAGES * PERSIST_ROWS * (PERSIST_KC + PERSIST_PAD))
 
 
 def k6_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int):
-    """K6's design at (config, batch, hidden) on a device of ``sms`` SMs
-    whose blocks may take ``smem_limit`` bytes of shared memory: (units,
-    rows) for the persistent design, a block holding ``units`` rows of U
-    and ``rows`` batch rows, its grid (n / units) * ceil(b / rows) blocks
-    at one a SM; None for the per-step design.
+    """The design of K6, K3 and K12 at (config, batch, hidden) on a device
+    of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: (units, rows) for the persistent design, a block holding
+    ``units`` rows of U and ``rows`` batch rows, its grid (n / units) *
+    ceil(b / rows) blocks at one a SM; None for the per-step design.
 
     The persistent design needs bf16 compute (the tensor cores; fp32
     products keep TF32 off) and a grid that is resident at once. Units: 16
@@ -193,7 +195,7 @@ def k6_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int):
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent K6's shared
+    once; checks that the library lays out the persistent design's shared
     memory as ``persist_smem_bytes`` does."""
     lib = _build.load_library()
     sms, smem = ctypes.c_int(0), ctypes.c_int(0)
@@ -260,10 +262,54 @@ def _launch_args(cfg: ModelConfig, dropout, device, *flags):
             + (torch.cuda.current_stream(device).cuda_stream,))
 
 
+def _new_dgx(s: int, b: int, n: int, device):
+    """The persistent design's (S, B, 4N) bf16 dg sequence, which its two
+    launches write and read (a function, so that a check on the card can
+    keep the buffer it returns)."""
+    return torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=device)
+
+
+def _persist(plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg_out, dh0, out,
+             work, dropout, launched, ids=None, db=None, round_db=False,
+             steps=1):
+    """The persistent design on the card: the reverse launch (db when
+    given, K3 and K12), then the weight-gradient product into ``out`` (dU,
+    or with ``ids`` dWU). ``seqs`` and ``ins`` as ``_kernel_inputs`` gives
+    them, with h_{-1} first in ``ins``. Returns (the bf16 dg sequence,
+    error code, name of the launcher that returned it)."""
+    g_k, c_k, h_k = seqs
+    h_m1, c0_k, dh_k, dhT_k = ins
+    s, b, n = h_k.shape
+    dev = h_k.device
+    rtype = cuda_cell._TYPE_CODES[cfg.rdtype]
+    lib = _build.load_library()
+    dgx = _new_dgx(s, b, n, dev)
+    name = "lstm_bwd_persist_launch"
+    err = lib.lstm_bwd_persist_launch(
+        rtype, U_k.data_ptr(), g_k.data_ptr(), c_k.data_ptr(), c0_k.data_ptr(),
+        dh_k.data_ptr(), dhT_k.data_ptr(), dc.data_ptr(), dgx.data_ptr(),
+        None if dg_out is None else dg_out.data_ptr(), dh0.data_ptr(),
+        None if db is None else db.data_ptr(), work.data_ptr(), s, b, n,
+        *plan, steps, *_launch_args(cfg, dropout, dev, int(round_db)),
+        ctypes.byref(launched),
+    )
+    if err == 0:
+        name = "lstm_bwd_dWU_launch"
+        err = lib.lstm_bwd_dWU_launch(
+            rtype, h_k.data_ptr(), h_m1.data_ptr(),
+            None if ids is None else ids.data_ptr(), dgx.data_ptr(),
+            out.data_ptr(), work.data_ptr(), s, b, n,
+            0 if ids is None else cfg.vocab,
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    return dgx, err, name
+
+
 def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                dhT, dcT, cfg: ModelConfig, dg_out, dropout, fused_accum: bool):
-    """K3 (``unroll2`` False) or K12 on a CUDA tensor, their plain versions
-    on a CPU tensor; returns (outputs, kernel launches)."""
+    """K3 (``unroll2`` False) or K12 on a CUDA tensor, in the design
+    ``k6_plan`` gives, their plain versions on a CPU tensor; returns
+    (outputs, kernel launches, error code, the launcher that returned
+    it)."""
     _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
     if tuple(ids.shape) != tuple(h_seq.shape[:2]) or ids.device != h_seq.device:
         raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
@@ -276,35 +322,42 @@ def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
     if ids.device.type == "cpu":
         return embed_layer0_bwd_plain(U_c, g_seq, c_seq, h_seq, ids, h0, c0,
                                       dh_seq, dhT, dcT, cfg, dg_out, dropout,
-                                      fused_accum), 0
+                                      fused_accum), 0, 0, ""
     ctype, rtype = cuda_cell._kernel_types(cfg, ids.device)
     n, m = cfg.hidden, cfg.vocab
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
-    UT, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
-                                   _h_minus_1(h0, cfg, fused_accum), c0,
-                                   dh_seq, dhT)
+    plan = device_k6_plan(cfg, b, n)
+    U_k, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
+                                    _h_minus_1(h0, cfg, fused_accum), c0,
+                                    dh_seq, dhT, transpose=plan is None)
     ids32 = ids.to(torch.int32).contiguous()
     dc = dcT.to(torch.float32).clone().contiguous()
-    dg = _dg_scratch(dg_out, s, b, n, dev)
     dWU = torch.empty(m + n, 4 * n, **f32)
     db = torch.empty(4 * n, **f32)
     dh0 = torch.empty(b, n, **f32)
     lib = _build.load_library()
-    work = torch.empty(max(1, lib.lstm_bwd_embed_work_floats(s, b, n)), **f32)
+    work = torch.empty(max(1, lib.lstm_bwd_embed_work_floats(s, b, n, m)), **f32)
     launched = ctypes.c_int(0)
-    name = ("lstm_bwd_embed_unroll2_launch" if unroll2
-            else "lstm_bwd_embed_launch")
-    err = getattr(lib, name)(
-        ctype, rtype, UT.data_ptr(), *(x.data_ptr() for x in seqs),
-        ids32.data_ptr(), *(x.data_ptr() for x in ins), dc.data_ptr(),
-        dg.data_ptr(), dWU.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-        work.data_ptr(), s, b, n, m,
-        *_launch_args(cfg, dropout, dev, int(not fused_accum)),
-        ctypes.byref(launched),
-    )
-    cuda_cell._raise_on(err, name)
-    return (dWU, db, dh0, dc), launched.value
+    if plan is not None:
+        # dg stored once, in bf16; the fp32 dg only into dg_out
+        _, err, name = _persist(plan, cfg, seqs, ins, U_k, dc, dg_out, dh0,
+                                dWU, work, dropout, launched, ids=ids32, db=db,
+                                round_db=not fused_accum,
+                                steps=2 if unroll2 else 1)
+    else:
+        dg = _dg_scratch(dg_out, s, b, n, dev)
+        name = ("lstm_bwd_embed_unroll2_launch" if unroll2
+                else "lstm_bwd_embed_launch")
+        err = getattr(lib, name)(
+            ctype, rtype, U_k.data_ptr(), *(x.data_ptr() for x in seqs),
+            ids32.data_ptr(), *(x.data_ptr() for x in ins), dc.data_ptr(),
+            dg.data_ptr(), dWU.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+            work.data_ptr(), s, b, n, m,
+            *_launch_args(cfg, dropout, dev, int(not fused_accum)),
+            ctypes.byref(launched),
+        )
+    return (dWU, db, dh0, dc), launched.value, err, name
 
 
 def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
@@ -317,10 +370,11 @@ def embed_layer0_bwd(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT, dcT,
     fp32. ``dg_out``, an (S, B, 4N) fp32 tensor, receives the dg sequence.
     ``fused_accum``: the JAX VJP copied, fused (True) or the GEMM fall-back
     (the module docstring)."""
-    out, launched = _embed_bwd(False, U_c, g_seq, c_seq, h_seq, ids, h0, c0,
-                               dh_seq, dhT, dcT, cfg, dg_out, dropout,
-                               fused_accum)
+    out, launched, err, name = _embed_bwd(False, U_c, g_seq, c_seq, h_seq,
+                                          ids, h0, c0, dh_seq, dhT, dcT, cfg,
+                                          dg_out, dropout, fused_accum)
     embed_layer0_bwd.launches += launched
+    cuda_cell._raise_on(err, name)
     return out
 
 
@@ -329,13 +383,15 @@ def embed_layer0_bwd_unroll2(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                              dropout=None, fused_accum: bool = True):
     """Layer-0 backward through K12, which replaces
     ``pallas_cell.py:_bwd_embed_unroll2_kernel``: K3's function, bit for
-    bit, two reverse steps a cooperative launch; S must be even. The kernel
-    on a CUDA tensor, ``embed_layer0_bwd_unroll2_plain`` on a CPU tensor;
-    arguments and results as ``embed_layer0_bwd``'s."""
-    out, launched = _embed_bwd(True, U_c, g_seq, c_seq, h_seq, ids, h0, c0,
-                               dh_seq, dhT, dcT, cfg, dg_out, dropout,
-                               fused_accum)
+    bit, the reverse steps in pairs (the persistent design issues a pair's
+    loads together, the per-step one launches a pair at a time); S must be
+    even. The kernel on a CUDA tensor, ``embed_layer0_bwd_unroll2_plain``
+    on a CPU tensor; arguments and results as ``embed_layer0_bwd``'s."""
+    out, launched, err, name = _embed_bwd(True, U_c, g_seq, c_seq, h_seq,
+                                          ids, h0, c0, dh_seq, dhT, dcT, cfg,
+                                          dg_out, dropout, fused_accum)
     embed_layer0_bwd_unroll2.launches += launched
+    cuda_cell._raise_on(err, name)
     return out
 
 
@@ -366,24 +422,8 @@ def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
     launched = ctypes.c_int(0)
     if plan is not None:
         # dg_seq written once, in bf16; the fp32 dg only into dg_out
-        g_k, c_k, h_k = seqs
-        h0_k, c0_k, dh_k, dhT_k = ins
-        dgx = torch.empty(s, b, 4 * n, dtype=torch.bfloat16, device=dev)
-        name = "lstm_bwd_scan_persist_launch"
-        err = lib.lstm_bwd_scan_persist_launch(
-            rtype, U_k.data_ptr(), g_k.data_ptr(), c_k.data_ptr(),
-            c0_k.data_ptr(), dh_k.data_ptr(), dhT_k.data_ptr(), dc.data_ptr(),
-            dgx.data_ptr(), None if dg_out is None else dg_out.data_ptr(),
-            dh0.data_ptr(), s, b, n, *plan, *_launch_args(cfg, dropout, dev),
-            ctypes.byref(launched),
-        )
-        if err == 0:
-            name = "lstm_bwd_scan_dU_launch"
-            err = lib.lstm_bwd_scan_dU_launch(
-                rtype, h_k.data_ptr(), h0_k.data_ptr(), dgx.data_ptr(),
-                dU.data_ptr(), work.data_ptr(), s, b, n,
-                torch.cuda.current_stream(dev).cuda_stream,
-                ctypes.byref(launched))
+        dgx, err, name = _persist(plan, cfg, seqs, ins, U_k, dc, dg_out, dh0,
+                                  dU, work, dropout, launched)
     else:
         dg = _dg_scratch(dg_out, s, b, n, dev)
         dgx = (dg if cuda_cell.xw_type(cfg) == torch.float32

@@ -503,7 +503,7 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
 
 def tensor_core_dU(dg, h_seq, h0, cfg: ModelConfig):
     """dU = round(h_prev)^T round(dg) under bf16 compute on the card, on
-    tensor cores (K6's ``lstm_bwd_scan_dU_launch``: bf16 in, fp32 sums),
+    tensor cores (K6's ``lstm_bwd_dWU_launch``: bf16 in, fp32 sums),
     h_{-1} = h0 in the residual type; dg (S, B, 4N) in bf16. Counts its
     launches in ``.launches``."""
     _, rd, _ = types(cfg)
@@ -519,12 +519,12 @@ def tensor_core_dU(dg, h_seq, h0, cfg: ModelConfig):
     dU = torch.empty(n, 4 * n, **f32)
     work = torch.empty(max(1, lib.lstm_bwd_scan_work_floats(s, b, n)), **f32)
     launched = ctypes.c_int(0)
-    err = lib.lstm_bwd_scan_dU_launch(
-        cuda_cell._TYPE_CODES[rd], h_k.data_ptr(), h0_k.data_ptr(),
-        dg_k.data_ptr(), dU.data_ptr(), work.data_ptr(), s, b, n,
+    err = lib.lstm_bwd_dWU_launch(
+        cuda_cell._TYPE_CODES[rd], h_k.data_ptr(), h0_k.data_ptr(), None,
+        dg_k.data_ptr(), dU.data_ptr(), work.data_ptr(), s, b, n, 0,
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     tensor_core_dU.launches += launched.value
-    cuda_cell._raise_on(err, "lstm_bwd_scan_dU_launch")
+    cuda_cell._raise_on(err, "lstm_bwd_dWU_launch")
     return dU
 
 
