@@ -30,9 +30,9 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          dWU, its bf16 dg its fp32 dg rounded, bit for bit) and, forced, its
          per-step design, which fp32 keeps, held to the same gates; the
          reverse launch and the tail timed apart, the per-step design's call
-         in the same run. K4 takes its tensor-core design in bf16 (its
-         CUDA-core design, which fp32 keeps, held to the same gate and timed
-         in the same call).
+         in the same run. K4 and K5 take their tensor-core designs in bf16
+         (their CUDA-core designs, which fp32 keeps, held to the same gates
+         and timed in the same call; K5's launches a call gated).
 Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          gradients through the kernels against the plain path, fp32 and
          bf16; (b) the port's bench (python -m eigen_lstm_tpu_torch.bench)
@@ -62,7 +62,8 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          design (persistent in bf16, per-step in fp32) and launches a call,
          and in bf16 the per-step design held to the same gates on the same
          inputs, the persistent design's reverse launch and tail timed apart
-         beside its time;
+         beside its time; K5 against its plain version at T = 32768
+         (printed) and the heads' times;
          (b) the flagship's loss and eleven gradients with dropout,
          kernels against plain, fp32 and bf16;
          (c) 100 steps of the flagship recipe through the CLI's Trainer
@@ -93,6 +94,8 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          beside the bound,
          the plain version, K1/K2/K6 at the same shapes (K6 on its
          per-step design, gated) and cuDNN, and at the eval batch of 16;
+         K5 at the 5b shapes against its plain version (gated as in phase
+         5) and beside its CUDA-core design;
          fp32 on the per-step design (gated); (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
          kernels against plain; (c) the 5b recipe through the CLI's
@@ -126,11 +129,16 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          kernels: (a) K13 and K14 (the per-step pair) at the flagship's
          shapes as one shard of D = 1, 2 and 4, K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
-         with every step replayed; times beside the bound, the plain
-         version, ``torch.lstm_cell`` or cuDNN; (b) ``cli train --tp 1`` at
-         the bench's configuration, 300 steps, through K15/K16 and, with
-         EIGEN_LSTM_TP_SEQ=0, K13/K14, launches counted, train_bpc against
-         the single-device run's from the same seed; (c) the flagship recipe
+         with every step replayed; K16 in bf16 on K6's persistent kernel
+         (one launch a call), its dg, dh0 and dc0 bit for bit K6's
+         persistent reverse launch on the same inputs, a call with bf16
+         residuals and its cooperative design (forced) held to the replay;
+         times beside the bound, the plain version, ``torch.lstm_cell`` or
+         cuDNN; (b) ``cli train --tp 1`` at the bench's configuration, 300
+         steps, through K15/K16 and, with EIGEN_LSTM_TP_SEQ=0, K13/K14,
+         launches counted, train_bpc against the single-device run's from
+         the same seed, K15's and K16's shares of the step; (c) the
+         flagship recipe
          at --tp 1 for 4 steps through K13/K14, then one window's TP loss
          and eleven gradients, kernels against plain.
 
@@ -519,6 +527,8 @@ TRAIN_S, TRAIN_B = 100, 128
 # and bf16, on every fp32 output. The head's dh is stored in bf16 under bf16
 # compute: one ulp there is 2^-8, so its bf16 gate is two ulps.
 TRAIN_TOL = 1e-4
+# K3, K6, K12 and, in bf16, K16: the persistent kernel and the per-step one
+BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_bwd.cu"
 DH_BF16_TOL = 2.0 ** -7
 # Phase 6a, the loss and gradients of one window through the kernels
 # against the plain path: fp32 rel 1e-5 on the loss, 1e-4 normalised on
@@ -749,8 +759,9 @@ def persist_split_ms(call, counter, reps: int = 5):
 @contextlib.contextmanager
 def per_step_k6():
     """K6's, K3's and K12's wrappers take their per-step design inside the
-    block, whatever ``k6_plan`` would choose: for the checks and times of
-    that design where the main path takes the persistent one."""
+    block, and K16's its cooperative one, whatever ``k6_plan`` would
+    choose: for the checks and times of that design where the main path
+    takes the persistent one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
 
     plan = cuda_cell_bwd.device_k6_plan
@@ -899,15 +910,25 @@ def phase5(records):
             if not np.isfinite(core_err) or core_err > TRAIN_TOL:
                 fail(f"head_fwd {dtype}, the CUDA-core design: {core_err:.3e}")
             records[("head_fwd_core", dtype)] = core_ms
-        bwd_err, line = 0.0, []
-        for label, got, want in zip(("dh", "dWhy", "dby"), bwd_k, bwd_p):
-            tol = DH_BF16_TOL if label == "dh" and dtype == "bfloat16" else TRAIN_TOL
-            err = norm_err(got, want)
-            bwd_err = max(bwd_err, err)
-            line.append(f"{label} {err:.3e} (tol {tol:g})")
-            if not np.isfinite(err) or err > tol:
-                fail(f"head_bwd {dtype} {label}: {err:.3e} > {tol:g}")
-        print(f"  head_bwd {dtype}: " + ", ".join(line), flush=True)
+        btc = head.bwd_tensor_cores(cfg, n, m)
+        if btc != (dtype == "bfloat16"):
+            fail(f"head_bwd {dtype}: tensor cores {btc}; these shapes take "
+                 f"them in bf16 alone")
+        bwd_err = head_bwd_check(f"head_bwd {dtype}, the "
+                                 f"{'tensor-core' if btc else 'CUDA-core'} design",
+                                 bwd_k, bwd_p, per_call["head_bwd"], dtype)
+        if btc:
+            # the CUDA-core design, which fp32 keeps, held to the same gates
+            # on the same inputs and timed in this run
+            with cuda_core_head(("bwd_tensor_cores",)):
+                before = head.head_bwd.launches
+                bwd_o = head.head_bwd(Why_c, by, h_c, tg, lse_k, cot, cfg)
+                core_calls = head.head_bwd.launches - before
+                head_bwd_check(f"head_bwd {dtype}, the CUDA-core design", bwd_o,
+                               bwd_p, core_calls, dtype)
+                records[("head_bwd_core", dtype)] = cuda_ms(
+                    lambda: head.head_bwd(Why_c, by, h_c, tg, lse_k, cot, cfg),
+                    reps=10)
         logits_in = (h_c, Why_c, by, tg)
         lib = head_library(*logits_in)
         for name, kern, plain, bwd, err, lib_t in (
@@ -921,7 +942,7 @@ def phase5(records):
             ms = cuda_ms(kern, reps=10)
             plain_ms = cuda_ms(plain, reps=5)
             bound_ms, bound_by = head_bound(cfg, t, n, m, bwd)
-            core = records.get(("head_fwd_core", dtype)) if not bwd else None
+            core = records.get((f"{name}_core", dtype))
             print(f"  {name} {dtype}: {ms:.4f} ms per call "
                   f"({per_call[name]} launches), plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({bound_by}), library "
@@ -937,19 +958,46 @@ def phase5(records):
     return per_call
 
 
+# K5's launches a call: the main pass, dby's sum over the blocks, the dWhy
+# product and, where it splits over the rows, its fixed-order sum
+HEAD_BWD_LAUNCHES = (3, 4)
+
+
+def head_bwd_check(label, got, want, launches, dtype):
+    """K5's outputs against its plain version's from the same lse (dh
+    within DH_BF16_TOL in bf16, else TRAIN_TOL, normalised) and its
+    launches a call; returns the largest error."""
+    worst, line = 0.0, []
+    for name, g, w in zip(("dh", "dWhy", "dby"), got, want):
+        tol = DH_BF16_TOL if name == "dh" and dtype == "bfloat16" else TRAIN_TOL
+        err = norm_err(g, w)
+        worst = max(worst, err)
+        line.append(f"{name} {err:.3e} (tol {tol:g})")
+        if not np.isfinite(err) or err > tol:
+            fail(f"{label} {name}: {err:.3e} > {tol:g}")
+    print(f"  {label}: " + ", ".join(line) + f"; {launches} launches a call",
+          flush=True)
+    if launches not in HEAD_BWD_LAUNCHES:
+        fail(f"{label}: {launches} launches a call, not {HEAD_BWD_LAUNCHES}")
+    return worst
+
+
 @contextlib.contextmanager
-def cuda_core_head():
-    """K4 takes its CUDA-core design inside the block, whatever
-    ``head.fwd_tensor_cores`` would choose: for the check and time of that
-    design where the main path takes the tensor cores."""
+def cuda_core_head(names=("fwd_tensor_cores",)):
+    """K4 (``head.fwd_tensor_cores``) or K5 (``head.bwd_tensor_cores``),
+    as ``names`` says, takes its CUDA-core design inside the block,
+    whatever its plan would choose: for the check and time of that design
+    where the main path takes the tensor cores."""
     from eigen_lstm_tpu_torch.ops import head
 
-    choose = head.fwd_tensor_cores
-    head.fwd_tensor_cores = lambda *a: False
+    chosen = {nm: getattr(head, nm) for nm in names}
+    for nm in names:
+        setattr(head, nm, lambda *a: False)
     try:
         yield
     finally:
-        head.fwd_tensor_cores = choose
+        for nm, fn in chosen.items():
+            setattr(head, nm, fn)
 
 
 def head_library(h_c, Why_c, by, tg):
@@ -1473,7 +1521,7 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
     else:
         bound_ms, bound_by = k6_bound(cfg, s, b, n)
     return dict(name=name, route="cuda",
-                source="eigen_lstm_tpu_torch/csrc/lstm_bwd.cu",
+                source=BWD_SOURCE,
                 launches=None, max_abs_err=step_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1608,8 +1656,18 @@ def phase7a(records):
         _, lse = head.head_fwd(Why_c, by, h_c, tg, cfg)
         per_call["head_fwd"] = head.head_fwd.launches - before
         before = head.head_bwd.launches
-        head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
+        bwd_k = head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
         per_call["head_bwd"] = head.head_bwd.launches - before
+        # K5's sums over T = 32768 rows (tensor cores in bf16), printed
+        # beside phase 5's gates, which hold at the bench's 12800
+        bwd_p = head.head_bwd_plain(Why_c, by, h_c, tg, lse, cot, cfg)
+        print(f"  head_bwd {dtype} at T={t}, N={n} against plain (not gated; "
+              f"phase 5's tolerances {DH_BF16_TOL:g} on bf16 dh, else "
+              f"{TRAIN_TOL:g}): " + ", ".join(
+                  f"{k} {norm_err(a, b_):.3e}"
+                  for k, a, b_ in zip(("dh", "dWhy", "dby"), bwd_k, bwd_p)),
+              flush=True)
+        del bwd_k, bwd_p
         for name, fn in (("head_fwd", lambda: head.head_fwd(Why_c, by, h_c, tg, cfg)),
                          ("head_bwd", lambda: head.head_bwd(Why_c, by, h_c, tg,
                                                             lse, cot, cfg))):
@@ -2365,12 +2423,24 @@ def phase9a(records):
             _, lse = head.head_fwd(Why_c, by, h_c, tg, cfg)
             calls["head_fwd"] = head.head_fwd.launches - before
             before = head.head_bwd.launches
-            head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
+            bwd_k = head.head_bwd(Why_c, by, h_c, tg, lse, cot, cfg)
             calls["head_bwd"] = head.head_bwd.launches - before
+            head_bwd_check(f"head_bwd {dtype} at T={t}, N={n}", bwd_k,
+                           head.head_bwd_plain(Why_c, by, h_c, tg, lse, cot, cfg),
+                           calls["head_bwd"], dtype)
+            del bwd_k
             for name, fn in (("head_fwd", lambda: head.head_fwd(Why_c, by, h_c, tg, cfg)),
                              ("head_bwd", lambda: head.head_bwd(Why_c, by, h_c, tg,
                                                                 lse, cot, cfg))):
                 records[("9a", name)] = cuda_ms(fn, reps=5, windows=3)
+            with cuda_core_head(("bwd_tensor_cores",)):
+                core = cuda_ms(lambda: head.head_bwd(Why_c, by, h_c, tg, lse,
+                                                     cot, cfg), reps=5, windows=3)
+            print(f"  head_bwd {dtype} at T={t}, N={n}: "
+                  f"{records[('9a', 'head_bwd')]:.4f} ms a call "
+                  f"({'tensor-core' if head.bwd_tensor_cores(cfg, n, m) else 'CUDA-core'}"
+                  f" design), the CUDA-core design {core:.4f} ms, bound "
+                  f"{head_bound(cfg, t, n, m, True)[0]:.5f} ms", flush=True)
     return calls
 
 
@@ -2564,7 +2634,6 @@ def phase9c(per_call, records):
 # the live checks, scan_chunk and the ensemble -------------------------------
 ADAGRAD_SOURCE = "eigen_lstm_tpu_torch/csrc/adagrad.cu"
 ADAGRAD_REPLACES = "eigen_lstm_tpu/ops/pallas_adagrad.py:35"
-K12_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_bwd.cu"
 K12_REPLACES = "eigen_lstm_tpu/ops/pallas_cell.py:689"
 # The documented unroll-2 run (docs/PERFORMANCE.md:478-515): 1x512, B = 64,
 # S = 100, bf16 with fp32 residuals (the CLI's auto rule there), enwik6,
@@ -2786,7 +2855,7 @@ def phase10b(records):
                       f"{host['K3']:.3f} ms)", flush=True)
                 records[("10b", b, dtype, drop)] = dict(
                     name="lstm_bwd_embed_unroll2", route="cuda",
-                    source=K12_SOURCE, replaces=K12_REPLACES, launches=None,
+                    source=BWD_SOURCE, replaces=K12_REPLACES, launches=None,
                     max_abs_err=step_err, ms=ms["K12"], plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
                 if (b, dtype, drop) == (64, "bfloat16", 0.0):
@@ -3167,6 +3236,7 @@ def phase11a(records):
             (ts.tp_seq_fwd(U_c, xw, h0, c0, cfg) if name == "K15" else ts.tp_seq_bwd(*bargs))
             if counter.launches - before != 1:
                 fail(f"{name}: {counter.launches - before} launches a call")
+        coop16 = k16_designs(bwd_k, bargs, cfg) if dtype == "bfloat16" else None
         ms15 = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
         plain15 = cuda_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg), reps=1, windows=3)
         ms16 = cuda_ms(lambda: ts.tp_seq_bwd(*bargs), reps=5)
@@ -3184,12 +3254,74 @@ def phase11a(records):
               f"at these shapes {per_step:.4f} ms", flush=True)
         print(f"  K16 {dtype}: {ms16:.4f} ms a window (1 launch), bound {b16[0]:.5f} ms "
               f"({b16[1]}), plain {plain16:.4f} ms, cuDNN nn.LSTM backward "
-              f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}", flush=True)
+              f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}"
+              + ("" if coop16 is None else
+                 f"; the cooperative CUDA-core design {coop16:.4f} ms"), flush=True)
         records[("11a", "tp_seq_fwd", dtype)] = _tp_record(
             "tp_seq_fwd", step_err, ms15, plain15, b15, lib15)
         records[("11a", "tp_seq_bwd", dtype)] = _tp_record(
             "tp_seq_bwd", bstep, ms16, plain16, b16, lib16)
+        if coop16 is not None:   # bf16: K6's persistent kernel
+            records[("11a", "tp_seq_bwd", dtype)]["source"] = BWD_SOURCE
         records[("11a", "k13x100", dtype)] = per_step
+
+
+def k16_designs(out, bargs, cfg):
+    """K16 under bf16 compute at the bench's shapes, beyond 11a's replay
+    gate: the design it took (K6's persistent kernel, through
+    ``lstm_bwd_persist_launch`` once a call); its dg, dh0 and dc0 equal, bit
+    for bit, to K6's persistent reverse launch (``scan_layer_bwd``) on the
+    same inputs in K6's layout (c_seq = c_prev[1:] then cT, c0 = c_prev[0];
+    exact with these fp32 residuals); a call with bf16 residuals held to
+    the replay from its own dg; and the cooperative CUDA-core design,
+    forced, held to the same replay gate. Returns the latter's time, ms a
+    window."""
+    from eigen_lstm_tpu_torch.ops import _build, cuda_cell_bwd, cuda_tp_seq as ts
+
+    U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT = bargs[:7]
+    s, b, nd = c_prev.shape
+    lib = _build.load_library()
+    real, calls = lib.lstm_bwd_persist_launch, []
+    lib.lstm_bwd_persist_launch = lambda *a: calls.append(a) or real(*a)
+    try:
+        ts.tp_seq_bwd(*bargs)
+    finally:
+        lib.lstm_bwd_persist_launch = real
+    if len(calls) != 1:
+        fail(f"K16 bf16: {len(calls)} launches of lstm_bwd_persist_launch a "
+             f"call; k6_plan gives {cuda_cell_bwd.device_k6_plan(cfg, b, nd)}")
+    c_seq = torch.cat([c_prev[1:], cT[None]])
+    zeros = torch.zeros(s, b, nd, device=DEVICE)
+    dg6 = torch.empty(s, b, 4 * nd, device=DEVICE)
+    _, _, dh0_6, dc0_6 = cuda_cell_bwd.scan_layer_bwd(
+        U_c, g_seq, c_seq, zeros, zeros[0], c_prev[0], dh_seq, dhT, dcT, cfg,
+        dg_out=dg6)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b_) for a, b_ in zip(out, (dg6, dh0_6, dc0_6))]
+    print(f"  K16 bf16 against K6's persistent reverse launch on the same "
+          f"inputs: dg, dh0, dc0 bit for bit {same}", flush=True)
+    if not all(same):
+        fail(f"K16 bf16: dg, dh0, dc0 not K6's bits: {same}")
+    # bf16 residuals: c_{S-1} stays the fp32 cT
+    g_r, c_r = g_seq.to(torch.bfloat16), c_prev.to(torch.bfloat16)
+    out_r = ts.tp_seq_bwd(U_c, g_r, c_r, cT, dh_seq, dhT, dcT, cfg)
+    rep_r = reverse_replay(U_c, g_r, torch.cat([c_r[1:].float(), cT[None]]),
+                           c_r[0].float(), dh_seq, dhT, dcT, cfg, out_r[0])
+    with per_step_k6():
+        out_c = ts.tp_seq_bwd(*bargs)
+        rep_c = reverse_replay(U_c, g_seq, c_seq, c_prev[0], dh_seq, dhT, dcT,
+                               cfg, out_c[0])
+        coop_ms = cuda_ms(lambda: ts.tp_seq_bwd(*bargs), reps=5)
+    torch.cuda.synchronize()
+    errs = {label: max(norm_err(a, p) for a, p in zip(o, r))
+            for label, o, r in (("bf16 residuals", out_r, rep_r),
+                                ("the cooperative design", out_c, rep_c))}
+    print("  K16 bf16, every reverse step, dh0, dc0 against the replay from its "
+          "own dg (tol " + f"{TRAIN_TOL:g}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
+    if not all(np.isfinite(e) and e <= TRAIN_TOL for e in errs.values()):
+        fail(f"K16 bf16: {errs}")
+    return coop_ms
 
 
 def _tp_counters():
@@ -3297,6 +3429,10 @@ def phase11b(records):
           f"{runs['tp seq'][1]:.3f}, {runs['tp step'][1]:.3f} and "
           f"{runs['single'][1]:.3f} ms", flush=True)
     records[("11b", "step_ms")] = {k: v[1] for k, v in runs.items()}
+    for name in ("tp_seq_fwd", "tp_seq_bwd"):
+        ms = records[("11a", name, "bfloat16")]["ms"]
+        print(f"  {name}: {ms:.4f} ms a step, {100 * ms / runs['tp seq'][1]:.1f} % "
+              f"of the {runs['tp seq'][1]:.3f} ms --tp 1 step", flush=True)
     return runs["tp seq"][0], runs["tp step"][0]
 
 

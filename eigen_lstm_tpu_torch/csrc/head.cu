@@ -29,7 +29,7 @@
 // in the C fragments for the row reductions (ops/head.py:fwd_tensor_cores
 // chooses it): 0.057 ms at the bench shapes (PERF.md), still 14x its byte
 // bound, each of the 200 blocks reading all of Why from L2 (51 MB). fp32
-// (TF32 stays off) and the backward keep the first design:
+// (TF32 stays off) keeps the first design:
 //
 // Design. A block owns 32 token rows and one thread per vocabulary column
 // (M <= 256): it stages the rows' h in shared memory, k-tile by k-tile,
@@ -38,12 +38,22 @@
 // bf16, resident in L2) coalesced. The forward's row reductions (max, sum
 // of exp, the target logit) run one warp per 4 rows over shared memory;
 // the block's bits go to a per-block partial that a second launch adds in
-// block order, so the total has a fixed order. The backward keeps the
-// block's round(dlog) tile in shared memory for dh (threads own columns of
-// N, reading Why^T coalesced). The TPU kernel accumulates dWhy and dby in
-// VMEM across its sequential grid; Hopper blocks run in no order, so dlog
-// goes to an fp32 (T, M) scratch and dWhy and dby come from the fixed-order
-// reductions of common.cuh (atb_gemm, colsum). Deterministic throughout.
+// block order, so the total has a fixed order.
+//
+// The backward's first design was that one too (0.74 ms at the bench
+// shapes in either type, PERF.md): 32-row blocks that recomputed the
+// logits against all of Why and read all of a Why^T copy again for dh
+// (~200 MB of L2 reads for a 26 MB function), dlog through an fp32 (T, M)
+// scratch, and dWhy, dby from CUDA-core reductions, 5 launches. Now both
+// of its designs take 64-row blocks and keep dlog in registers: under bf16
+// compute head_bwd_mma (tensor cores for the logits, dh and, through
+// mma.cuh's atb_mma, dWhy; no fp32 scratch, no Why^T copy), elsewhere
+// head_bwd_core (CUDA cores, 8 x 8 register tiles). The TPU kernel
+// accumulates dWhy and dby in VMEM across its sequential grid; Hopper
+// blocks run in no order, so each block writes its column sums of dlog to
+// a row of parts that a second launch adds in block order (dby), and dWhy
+// is a product over the rows, split and summed in a fixed order.
+// Deterministic throughout.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -166,21 +176,18 @@ inline size_t fwd_mma_smem_bytes() {
   return 2 * (size_t)kTStages * (kTRows * kTAPitch + kTKC * kTBPitch);
 }
 
-__global__ void __launch_bounds__(kCols)
-head_fwd_mma(const __nv_bfloat16* __restrict__ h,    // (T, N)
-             const __nv_bfloat16* __restrict__ Why,  // (N, M)
-             const float* __restrict__ by, const int* __restrict__ tgt,
-             float* __restrict__ lse, float* __restrict__ partial, int T,
-             int N, int M) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+// The logits of the block's kTRows token rows on tensor cores, without by,
+// into the C fragments acc of warp (wm, wn) as above: the main loop of
+// head_fwd_mma and of the backward's head_bwd_mma. Returns when every copy
+// has landed; the caller syncs before it reuses the ring.
+__device__ __forceinline__ void logits_mma(const __nv_bfloat16* __restrict__ h,
+                                           const __nv_bfloat16* __restrict__ Why,
+                                           int row0, int T, int N, int M,
+                                           __nv_bfloat16* ring, float (&acc)[16][4]) {
   constexpr int aslot = kTRows * kTAPitch;
   constexpr int slot = aslot + kTKC * kTBPitch;
-  __shared__ float rmax[2][kTRows], rsum[2][kTRows], tlog[kTRows], row_bits[kTRows];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;
   const int wm = warp % 4, wn = warp / 4;
-  const int row0 = blockIdx.x * kTRows;
 
   const auto load_chunk = [&](int ch) {
     __nv_bfloat16* st = ring + (size_t)(ch % kTStages) * slot;
@@ -198,7 +205,6 @@ head_fwd_mma(const __nv_bfloat16* __restrict__ h,    // (T, N)
                   in ? Why + (size_t)(k0 + k) * M + p * 8 : Why, in ? 16 : 0);
     }
   };
-  float acc[16][4];
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
@@ -234,6 +240,22 @@ head_fwd_mma(const __nv_bfloat16* __restrict__ h,    // (T, N)
     }
   }
   cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(kCols)
+head_fwd_mma(const __nv_bfloat16* __restrict__ h,    // (T, N)
+             const __nv_bfloat16* __restrict__ Why,  // (N, M)
+             const float* __restrict__ by, const int* __restrict__ tgt,
+             float* __restrict__ lse, float* __restrict__ partial, int T,
+             int N, int M) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float rmax[2][kTRows], rsum[2][kTRows], tlog[kTRows], row_bits[kTRows];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
+  const int row0 = blockIdx.x * kTRows;
+  float acc[16][4];
+  logits_mma(h, Why, row0, T, N, M, reinterpret_cast<__nv_bfloat16*>(smem), acc);
 
   // logits: + by, columns past M out of the reductions
   float mx[2] = {-INFINITY, -INFINITY};
@@ -305,54 +327,301 @@ __global__ void sum_in_order(const float* __restrict__ partial,
   out[0] = s;
 }
 
-// grid = ceil(T / 32), block = 256. dlog (T, M) fp32, dh (T, N) in CT.
-template <typename CT>
+// ---------------------------------------------------------------------------
+// The backward under bf16 compute on tensor cores (head_bwd_mma). A block
+// owns kTRows = 64 token rows and first runs head_fwd_mma's main loop
+// (logits_mma), so the logits lie in its warps' C fragments. In registers:
+// dlog = (exp(logit + by - lse) - onehot) * cot / ln 2 in fp32. The block's
+// column sums of that fp32 dlog (rows g and g + 8 of a lane, over the eight
+// g of a warp by shuffles, then over the four m tiles in order) go to its
+// row of `parts`, which sum_slabs adds in block order into dby. dlog rounded
+// to bf16 goes to shared memory (64 x M) and to the (T, M) bf16 buffer that
+// the dWhy product reads. Then dh = round(dlog) @ Why^T on mma.sync over N
+// in chunks of kDN: Why's rows (N, M), the [n][k] layout of B, stream
+// through a second ring of kDStages slots by cp.async (the first chunk's
+// copies issued before the epilogue), each warp a 16-row m tile by 32
+// columns of the chunk; dh is stored in bf16. dWhy = h^T round(dlog) is
+// mma.cuh's atb_mma over the bf16 buffer (run_bwd). No fp32 (T, M) scratch
+// and no Why^T copy.
+constexpr int kDN = 64;              // Why rows (dh columns) a chunk
+constexpr int kDStages = 2;
+constexpr int kDPitch = kCols + 8;   // bf16 rows of the dlog tile and of Why
+
+inline size_t bwd_mma_smem_bytes() {
+  const size_t dh = 2 * (size_t)(kTRows + kDStages * kDN) * kDPitch;
+  const size_t fwd = fwd_mma_smem_bytes();
+  return dh > fwd ? dh : fwd;
+}
+
+// grid = ceil(T / kTRows), block = kCols; dlog (T, M), dh (T, N) bf16,
+// parts (grid, M) fp32. N a multiple of kDN, M of 16 and at most kCols.
 __global__ void __launch_bounds__(kCols)
-head_bwd(const CT* __restrict__ h, const CT* __restrict__ Why,
-         const CT* __restrict__ WhyT, const float* __restrict__ by,
-         const int* __restrict__ tgt, const float* __restrict__ lse,
-         const float* __restrict__ cot, float* __restrict__ dlog,
-         CT* __restrict__ dh, int T, int N, int M) {
-  __shared__ __align__(16) float hsT[kKt][kPad];
-  __shared__ __align__(16) float dlT[kCols][kPad];
-  const int row0 = blockIdx.x * kRows;
-  const int m = threadIdx.x;
-  float acc[kRows];
-  row_logits<CT>(h, Why, row0, T, N, M, hsT, acc);
+head_bwd_mma(const __nv_bfloat16* __restrict__ h,    // (T, N)
+             const __nv_bfloat16* __restrict__ Why,  // (N, M)
+             const float* __restrict__ by, const int* __restrict__ tgt,
+             const float* __restrict__ lse, const float* __restrict__ cot,
+             __nv_bfloat16* __restrict__ dlog, __nv_bfloat16* __restrict__ dh,
+             float* __restrict__ parts, int T, int N, int M) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __shared__ float csum[4][kCols];  // each m tile's column sums
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
+  const int row0 = blockIdx.x * kTRows;
+  float acc[16][4];
+  logits_mma(h, Why, row0, T, N, M, ring, acc);
+  __syncthreads();  // every warp is done with the ring
+
+  __nv_bfloat16* dls = ring;                                // [kTRows][kDPitch]
+  __nv_bfloat16* wring = ring + (size_t)kTRows * kDPitch;   // kDStages x [kDN][kDPitch]
+  const auto load_rows = [&](int c) {
+    __nv_bfloat16* st = wring + (size_t)(c % kDStages) * kDN * kDPitch;
+    for (int e = tid; e < kDN * (M / 8); e += kCols) {
+      const int r = e / (M / 8), p = e % (M / 8);
+      cp_async_16(st + r * kDPitch + p * 8, Why + (size_t)(c * kDN + r) * M + p * 8, 16);
+    }
+  };
+  load_rows(0);
+  cp_async_commit();
+
   const float scale = cot[0] * kInvLn2;
-  if (m < M) {
-    const float bm = by[m];
+  const int rl[2] = {wm * 16 + g, wm * 16 + g + 8};  // the block's rows
+  float lr[2];
+  int tr[2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      float d = 0.0f;
-      if (row < T) {
-        const float p = expf(acc[r] + bm - lse[row]);
-        d = (p - (tgt[row] == m ? 1.0f : 0.0f)) * scale;
-        dlog[(size_t)row * M + m] = d;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + rl[hh];
+    lr[hh] = row < T ? lse[row] : 0.0f;
+    tr[hh] = row < T ? tgt[row] : -1;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int col0 = 128 * wn + 8 * nt + 2 * q;
+    float d[2][2];  // [row g | g + 8][column col0 | col0 + 1]
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + e;
+      const float bm = col < M ? by[col] : 0.0f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = 0.0f;
+        if (col < M && row0 + rl[hh] < T) {
+          const float p = expf(acc[nt][2 * hh + e] + bm - lr[hh]);
+          v = (p - (col == tr[hh] ? 1.0f : 0.0f)) * scale;
+        }
+        d[hh][e] = v;
       }
-      dlT[m][r] = round_to<CT>(d);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const unsigned pk = pack_bf16x2(d[hh][0], d[hh][1]);
+      *reinterpret_cast<unsigned*>(dls + rl[hh] * kDPitch + col0) = pk;
+      if (col0 < M && row0 + rl[hh] < T)
+        *reinterpret_cast<unsigned*>(dlog + (size_t)(row0 + rl[hh]) * M + col0) = pk;
+    }
+    // the m tile's column sums of the fp32 dlog: rows g, g + 8, then over g
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float cs = d[0][e] + d[1][e];
+#pragma unroll
+      for (int o = 4; o < 32; o *= 2) cs += __shfl_xor_sync(0xffffffffu, cs, o);
+      if (g == 0) csum[wm][col0 + e] = cs;
     }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < N; k += kCols) {
-    float a2[kRows];
+  if (tid < M)
+    parts[(size_t)blockIdx.x * M + tid] =
+        ((csum[0][tid] + csum[1][tid]) + csum[2][tid]) + csum[3][tid];
+
+  // dh = round(dlog) @ Why^T, kDN columns a chunk
+  const int nch = N / kDN;
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<kDStages - 2>();
+    __syncthreads();  // chunk c is in, dls is written, and chunk c - 1's slot is free
+    if (c + kDStages - 1 < nch) load_rows(c + kDStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* st = wring + (size_t)(c % kDStages) * kDN * kDPitch;
+    float acc2[4][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) a2[r] = 0.0f;
-    for (int c = 0; c < M; ++c) {
-      const float wv = to_f32(WhyT[(size_t)c * N + k]);
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int r4 = 0; r4 < kRows / 4; ++r4) {
-        const float4 dv = *reinterpret_cast<const float4*>(&dlT[c][r4 * 4]);
-        a2[r4 * 4 + 0] = fmaf(dv.x, wv, a2[r4 * 4 + 0]);
-        a2[r4 * 4 + 1] = fmaf(dv.y, wv, a2[r4 * 4 + 1]);
-        a2[r4 * 4 + 2] = fmaf(dv.z, wv, a2[r4 * 4 + 2]);
-        a2[r4 * 4 + 3] = fmaf(dv.w, wv, a2[r4 * 4 + 3]);
+      for (int x = 0; x < 4; ++x) acc2[nt][x] = 0.0f;
+    for (int ks = 0; ks < M / 16; ++ks) {
+      unsigned a[4];
+      ldmatrix_x4(a, dls + (wm * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kDPitch +
+                         ks * 16 + 8 * (lane / 16));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        // Why rows (n 0-7 | 8-15) x (k 0-7 | 8-15): b0, b1 of n tile 2 np,
+        // then of n tile 2 np + 1
+        unsigned bq[4];
+        ldmatrix_x4(bq, st + (32 * wn + 16 * np + lane % 8 + 8 * (lane / 16)) * kDPitch +
+                            ks * 16 + 8 * ((lane / 8) % 2));
+        mma_bf16_16816(acc2[2 * np], a, bq);
+        mma_bf16_16816(acc2[2 * np + 1], a, bq + 2);
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (row0 + r < T) dh[(size_t)(row0 + r) * N + k] = from_f32<CT>(a2[r]);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + rl[hh];
+      if (row >= T) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<unsigned*>(dh + (size_t)row * N + c * kDN + 32 * wn + 8 * nt +
+                                     2 * q) = pack_bf16x2(acc2[nt][2 * hh], acc2[nt][2 * hh + 1]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// The backward on CUDA cores (head_bwd_core): fp32 compute (TF32 stays off),
+// and bf16 where head_bwd_mma does not apply (ops/head.py:bwd_tensor_cores).
+// A block owns kTRows = 64 token rows and all M <= 256 columns; its thread
+// (ty, tx) = (warp, lane) a register tile of 8 rows (8 ty ..) by 8 columns
+// (4 tx .. and 128 + 4 tx ..). The logits: h (transposed) and Why staged in
+// shared memory kCK values of k at a time, each k two broadcast float4 of h
+// and two float4 of Why for 64 FMAs. dlog in registers as in head_bwd_mma;
+// the block's column sums (each thread's 8 rows in order, then the 8 warps
+// in order) go to its row of `parts`; the fp32 dlog goes to the (T, M)
+// scratch that atb_gemm reads for dWhy (its staging rounds to the compute
+// type) and round(dlog) into shared memory, transposed. Then dh =
+// round(dlog) @ Why^T over N in chunks of kCols columns, Why's rows staged
+// transposed kCK columns at a time, with the same register tile. Sums run
+// over k in order, as in the first design (32-row blocks, one column a
+// thread: 0.74 ms at the bench's shapes in either type, PERF.md).
+constexpr int kCK = 16;                 // k values staged at a time
+constexpr int kCHPitch = kTRows + 4;    // floats: transposed 64-row tiles
+constexpr int kCWPitch = kCols + 4;     // floats: staged Why tiles
+
+inline size_t bwd_core_smem_bytes() {
+  return sizeof(float) * ((size_t)kCols * kCHPitch + kCK * kCHPitch +
+                          kCK * kCWPitch + 8 * kCols);
+}
+
+// grid = ceil(T / kTRows), block = kCols; dlog (T, M) fp32, dh (T, N) in
+// CT, parts (grid, M) fp32.
+template <typename CT>
+__global__ void __launch_bounds__(kCols)
+head_bwd_core(const CT* __restrict__ h, const CT* __restrict__ Why,
+              const float* __restrict__ by, const int* __restrict__ tgt,
+              const float* __restrict__ lse, const float* __restrict__ cot,
+              float* __restrict__ dlog, CT* __restrict__ dh,
+              float* __restrict__ parts, int T, int N, int M) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dlT = reinterpret_cast<float*>(smem);   // [kCols][kCHPitch]
+  float* hsT = dlT + kCols * kCHPitch;           // [kCK][kCHPitch]
+  float* ws = hsT + kCK * kCHPitch;              // [kCK][kCWPitch]
+  float* csum = ws + kCK * kCWPitch;             // [8][kCols]
+  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+  const int row0 = blockIdx.x * kTRows;
+  // the thread's columns: 4 tx .. 4 tx + 3, then 128 + 4 tx ..
+  const auto colof = [&](int b) { return (b / 4) * 128 + 4 * tx + b % 4; };
+  const auto micro = [&](const float* a, const float* w, float (&acc)[8][8]) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + 4);
+    const float4 w0 = *reinterpret_cast<const float4*>(w + 4 * tx);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + 128 + 4 * tx);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[r][b] = fmaf(av[r], wv[b], acc[r][b]);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[r][b] = 0.0f;
+  for (int k0 = 0; k0 < N; k0 += kCK) {
+    __syncthreads();
+    for (int e = tid; e < kTRows * kCK; e += kCols) {
+      const int r = e / kCK, kk = e % kCK;
+      const int row = row0 + r, k = k0 + kk;
+      hsT[kk * kCHPitch + r] = row < T && k < N ? to_f32(h[(size_t)row * N + k]) : 0.0f;
+    }
+    for (int e = tid; e < kCK * kCols; e += kCols) {
+      const int kk = e / kCols, m = e % kCols, k = k0 + kk;
+      ws[kk * kCWPitch + m] = k < N && m < M ? to_f32(Why[(size_t)k * M + m]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kCK; ++kk) micro(hsT + kk * kCHPitch + 8 * ty, ws + kk * kCWPitch, acc);
+  }
+
+  const float scale = cot[0] * kInvLn2;
+  float bm[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b) bm[b] = colof(b) < M ? by[colof(b)] : 0.0f;
+  float cs[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b) cs[b] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = row0 + 8 * ty + r;
+    const float l = row < T ? lse[row] : 0.0f;
+    const int tg = row < T ? tgt[row] : -1;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int col = colof(b);
+      float d = 0.0f;
+      if (row < T && col < M) {
+        const float p = expf(acc[r][b] + bm[b] - l);
+        d = (p - (col == tg ? 1.0f : 0.0f)) * scale;
+        dlog[(size_t)row * M + col] = d;
+      }
+      acc[r][b] = d;
+      cs[b] += d;
+    }
+  }
+  // round(dlog) into dlT[col][row]; the column sums into csum[ty]
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    float* dst = dlT + colof(b) * kCHPitch + 8 * ty;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(round_to<CT>(acc[0][b]), round_to<CT>(acc[1][b]),
+                    round_to<CT>(acc[2][b]), round_to<CT>(acc[3][b]));
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(round_to<CT>(acc[4][b]), round_to<CT>(acc[5][b]),
+                    round_to<CT>(acc[6][b]), round_to<CT>(acc[7][b]));
+    csum[ty * kCols + colof(b)] = cs[b];
+  }
+  __syncthreads();
+  if (tid < M) {
+    float v = 0.0f;
+    for (int w = 0; w < 8; ++w) v += csum[w * kCols + tid];
+    parts[(size_t)blockIdx.x * M + tid] = v;
+  }
+
+  // dh = round(dlog) @ Why^T, kCols columns of N a chunk
+  for (int n0 = 0; n0 < N; n0 += kCols) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[r][b] = 0.0f;
+    for (int k0 = 0; k0 < M; k0 += kCK) {
+      __syncthreads();
+      for (int e = tid; e < kCols * kCK; e += kCols) {
+        const int n = e / kCK, kk = e % kCK, k = k0 + kk;
+        ws[kk * kCWPitch + n] =
+            n0 + n < N && k < M ? to_f32(Why[(size_t)(n0 + n) * M + k]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kCK; ++kk)
+        micro(dlT + (k0 + kk) * kCHPitch + 8 * ty, ws + kk * kCWPitch, acc);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = row0 + 8 * ty + r;
+      if (row >= T) continue;
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (n0 + colof(b) < N) dh[(size_t)row * N + n0 + colof(b)] = from_f32<CT>(acc[r][b]);
+    }
   }
 }
 
@@ -390,22 +659,57 @@ int run_fwd(const void* h, const void* Why, const float* by, const int* tgt,
   return 0;
 }
 
+// The backward: the main pass (head_bwd_mma when tensor_cores: bf16, N a
+// multiple of kDN, M of kGT; else head_bwd_core), dby as the block parts'
+// sum in block order, then dWhy = h^T round(dlog) (atb_mma over the bf16
+// dlog, or atb_gemm over the fp32 dlog), split over r and summed in a fixed
+// order where the tiles alone do not fill the card: 3 or 4 launches. dlog
+// is (T, M) bf16 with tensor_cores, else fp32; work holds the parts, then
+// the product's split.
 template <typename CT>
-int run_bwd(const void* h, const void* Why, const void* WhyT, const float* by,
-            const int* tgt, const float* lse, const float* cot, float* dlog,
-            void* dh, float* dWhy, float* dby, float* work, int T, int N,
-            int M, cudaStream_t stream, int* launches) {
-  const CT* hc = static_cast<const CT*>(h);
-  head_bwd<CT><<<(T + kRows - 1) / kRows, kCols, 0, stream>>>(
-      hc, static_cast<const CT*>(Why), static_cast<const CT*>(WhyT), by, tgt,
-      lse, cot, dlog, static_cast<CT*>(dh), T, N, M);
-  cudaError_t err = cudaGetLastError();
+int run_bwd(const void* h, const void* Why, const float* by, const int* tgt,
+            const float* lse, const float* cot, void* dlog, void* dh,
+            float* dWhy, float* dby, float* work, int T, int N, int M,
+            int tensor_cores, cudaStream_t stream, int* launches) {
+  const int blocks = (T + kTRows - 1) / kTRows;
+  float* parts = work;
+  float* split = work + (size_t)blocks * M;
+  cudaError_t err = cudaSuccess;
+  if (tensor_cores) {
+    if (sizeof(CT) != 2 || N % kDN != 0 || M % kGT != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_mma_smem_bytes();
+    err = cudaFuncSetAttribute(head_bwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    head_bwd_mma<<<blocks, kCols, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(Why),
+        by, tgt, lse, cot, static_cast<__nv_bfloat16*>(dlog),
+        static_cast<__nv_bfloat16*>(dh), parts, T, N, M);
+  } else {
+    const size_t smem = bwd_core_smem_bytes();
+    err = cudaFuncSetAttribute(head_bwd_core<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    head_bwd_core<CT><<<blocks, kCols, smem, stream>>>(
+        static_cast<const CT*>(h), static_cast<const CT*>(Why), by, tgt, lse,
+        cot, static_cast<float*>(dlog), static_cast<CT*>(dh), parts, T, N, M);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
-  const int e = run_atb<CT, CT>(nullptr, hc, 0, dlog, dWhy, work, T, N, M,
-                                stream, launches);
-  if (e != 0) return e;
-  return run_colsum(dlog, dby, work, T, M, stream, launches);
+  sum_slabs<<<(M + 255) / 256, 256, 0, stream>>>(parts, dby, blocks, (size_t)M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  if (tensor_cores)
+    return run_atb_mma<__nv_bfloat16>(nullptr, 0, nullptr,
+                                      static_cast<const __nv_bfloat16*>(h), 0,
+                                      static_cast<const __nv_bfloat16*>(dlog), dWhy,
+                                      split, T, N, M, stream, launches);
+  return run_atb<CT, CT>(nullptr, static_cast<const CT*>(h), 0,
+                         static_cast<const float*>(dlog), dWhy, split, T, N, M,
+                         stream, launches);
 }
 
 }  // namespace
@@ -414,9 +718,7 @@ int run_bwd(const void* h, const void* Why, const void* WhyT, const float* by,
 extern "C" size_t head_fwd_work_floats(int T) { return (T + kRows - 1) / kRows; }
 
 extern "C" size_t head_bwd_work_floats(int T, int N, int M) {
-  const size_t gemm = atb_work_floats(T, N, M);
-  const size_t col = (size_t)colsum_chunks_of(T) * M;
-  return gemm > col ? gemm : col;
+  return (size_t)((T + kTRows - 1) / kTRows) * M + atb_work_floats(T, N, M);
 }
 
 // Type code 0 = fp32, 1 = bf16: the type of h and Why. by, lse, bits are
@@ -440,20 +742,23 @@ extern "C" int head_fwd_launch(int ctype, const void* h, const void* Why,
 }
 
 // cot: the scalar cotangent of the bits sum, on the device. dh has the
-// type of h; dlog (T, M), dWhy (N, M), dby (M,) are fp32.
+// type of h; dWhy (N, M), dby (M,) are fp32; dlog is a (T, M) scratch, bf16
+// with tensor_cores, else fp32. tensor_cores: the tensor-core design (bf16,
+// N a multiple of 64, M of 128; ops/head.py:bwd_tensor_cores), else the
+// CUDA-core one. Why is (N, M), as the forward takes it.
 extern "C" int head_bwd_launch(int ctype, const void* h, const void* Why,
-                               const void* WhyT, const void* by,
-                               const void* tgt, const void* lse,
-                               const void* cot, void* dlog, void* dh,
-                               void* dWhy, void* dby, void* work, int T,
-                               int N, int M, void* stream, int* launches) {
+                               const void* by, const void* tgt,
+                               const void* lse, const void* cot, void* dlog,
+                               void* dh, void* dWhy, void* dby, void* work,
+                               int T, int N, int M, int tensor_cores,
+                               void* stream, int* launches) {
   if (M > kCols) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [&](auto run) {
-    return run(h, Why, WhyT, static_cast<const float*>(by),
+    return run(h, Why, static_cast<const float*>(by),
                static_cast<const int*>(tgt), static_cast<const float*>(lse),
-               static_cast<const float*>(cot), static_cast<float*>(dlog), dh,
+               static_cast<const float*>(cot), dlog, dh,
                static_cast<float*>(dWhy), static_cast<float*>(dby),
-               static_cast<float*>(work), T, N, M,
+               static_cast<float*>(work), T, N, M, tensor_cores,
                static_cast<cudaStream_t>(stream), launches);
   };
   if (ctype == 0) return f(run_bwd<float>);

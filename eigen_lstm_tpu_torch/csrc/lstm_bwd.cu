@@ -16,7 +16,10 @@
 // compute, and shapes the persistent design does not take, keep the per-step
 // design: one launch a reverse step (lstm_bwd_embed_launch,
 // lstm_bwd_embed_unroll2_launch with two steps a cooperative launch,
-// lstm_bwd_scan_launch), then CUDA-core reductions.
+// lstm_bwd_scan_launch), then CUDA-core reductions. The persistent reverse
+// launch also serves K16, the tensor-parallel window's backward at D = 1
+// (ops/cuda_tp_seq.py), which is K6's reverse recurrence with its dg kept
+// in fp32 and its dU taken outside.
 //
 // The reverse step (the gate backward _gate_bwd). For t = S-1 .. 0, with
 // dh_{S-1} carried from dhT and dc from dcT:
@@ -79,7 +82,8 @@
 // stored once, in bf16, which the next step's product and the weight
 // gradients read; db summed in registers from the fp32 dg as the steps go,
 // so no fp32 dg stream (it is written only when a check asks for it); dW and
-// dU one tensor-core product over [one-hot(ids) | round(h_{t-1})] (atb_mma),
+// dU one tensor-core product over [one-hot(ids) | round(h_{t-1})] (mma.cuh's
+// atb_mma),
 // no per-byte scan. What bounds it then is the recurrence's dependence:
 // every step each of the N / 16 unit groups reads the whole dg_{t+1} of its
 // batch rows from L2 (64 MB a step at the flagship, 1 MB per group) and
@@ -431,7 +435,11 @@ __global__ void __launch_bounds__(kPThreads, 1)
 lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
                  const RT* __restrict__ g_seq,         // (S, B, 4N)
                  const RT* __restrict__ c_seq,         // (S, B, N)
-                 const float* __restrict__ c0, const float* __restrict__ dh_seq,
+                 const float* __restrict__ c0,
+                 // (B, N) c_{S-1} in fp32, read in place of c_seq[S-1], or
+                 // null (K16: c_seq then stops at S-2)
+                 const float* __restrict__ c_last,
+                 const float* __restrict__ dh_seq,
                  const float* __restrict__ dhT,
                  float* __restrict__ dc,  // (B, N): dcT in, dc0 out
                  // (S, B, 4N) dg_seq: written and read within the launch,
@@ -499,7 +507,9 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
       const size_t gb = t * bk + (size_t)eb[i] * K + ej[i];
 #pragma unroll
       for (int qq = 0; qq < 4; ++qq) gin[p][i][qq] = to_f32(g_seq[gb + (size_t)qq * N]);
-      cin[p][i] = to_f32(c_seq[t * bn + idx]);
+      // with c_last, no load touches c_seq[S-1] (cpin reads t - 1 < S - 1)
+      cin[p][i] = t == S - 1 && c_last != nullptr ? c_last[idx]
+                                                  : to_f32(c_seq[t * bn + idx]);
       cpin[p][i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
       dhin[p][i] = dh_seq[t * bn + idx];
     }
@@ -670,173 +680,6 @@ lstm_bwd_persist(const __nv_bfloat16* __restrict__ U,  // (N, 4N)
   }
 }
 
-// dU-style products on tensor cores: C (I, J) = sum_r round(A[r, :])^T B[r, :]
-// with A's rows as atb_gemm's (A0 for r < R0, then A1), rounded to bf16 as
-// they are staged, and B (R, J) already bf16; with ids (K3's dW), the M rows
-// before them are the one-hot product, dW[v, :] = sum_{r: ids[r] = v} B[r, :]
-// (0 and 1 are exact in bf16, so its sums are the rows' own in fp32). Block
-// tile kGT x kGT (as atb_gemm, so atb_splits and atb_work_floats apply),
-// the one-hot rows' tiles first, r chunks of kMR through two shared-memory
-// buffers (the next chunk is loaded into registers while the current one is
-// multiplied). 8 warps, each a 64 x 32 tile (4 x 4 mma tiles); both
-// operands are stored [r][.] and enter the products through ldmatrix
-// .trans. Split z sums its r range into out + z*(M+I)*J. I is a multiple
-// of 16, J of kGT.
-constexpr int kMR = 32;
-constexpr int kMPitch = kGT + 8;
-
-__device__ __forceinline__ void load16(const float* p, float v[16]) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const float4 f = *reinterpret_cast<const float4*>(p + 4 * x);
-    v[4 * x] = f.x; v[4 * x + 1] = f.y; v[4 * x + 2] = f.z; v[4 * x + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float v[16]) {
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const uint4 w = *reinterpret_cast<const uint4*>(p + 8 * x);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-    for (int y = 0; y < 8; ++y) v[8 * x + y] = __bfloat162float(h[y]);
-  }
-}
-
-template <typename AT>
-__global__ void __launch_bounds__(256)
-atb_mma(const int* __restrict__ ids, int M, const float* __restrict__ A0,
-        const AT* __restrict__ A1, int R0, const __nv_bfloat16* __restrict__ Bm,
-        float* __restrict__ out, int R, int I, int J, int r_chunk) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kMR][kMPitch];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kMR][kMPitch];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;
-  const int wi = (warp / 4) * 64, wj = (warp % 4) * 32;
-  const int onehot_tiles = (M + kGT - 1) / kGT;
-  const bool onehot = (int)blockIdx.y < onehot_tiles;
-  const int rows_out = onehot ? M : I;
-  const int i0 = (onehot ? blockIdx.y : blockIdx.y - onehot_tiles) * kGT;
-  const int j0 = blockIdx.x * kGT;
-  const int r_begin = blockIdx.z * r_chunk;
-  const int r_end = min(R, r_begin + r_chunk);
-  // staging: this thread's row of a chunk and its 16 columns
-  const int sr = tid / 8, sc = (tid % 8) * 16;
-  float av[16];
-  uint4 bv[2];
-  const auto load = [&](int r0) {
-    const int r = r0 + sr;
-    const bool in_a = r < r_end && i0 + sc < I, in_b = r < r_end;
-#pragma unroll
-    for (int x = 0; x < 16; ++x) av[x] = 0.0f;
-    if (onehot) {
-      const int v = r < r_end ? ids[r] : -1;
-#pragma unroll
-      for (int x = 0; x < 16; ++x) av[x] = i0 + sc + x == v ? 1.0f : 0.0f;
-    } else if (in_a) {
-      if (r < R0)
-        load16(A0 + (size_t)r * I + i0 + sc, av);
-      else
-        load16(A1 + (size_t)(r - R0) * I + i0 + sc, av);
-    }
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    const uint4* src = reinterpret_cast<const uint4*>(Bm + (size_t)r * J + j0 + sc);
-    bv[0] = in_b ? src[0] : zero;
-    bv[1] = in_b ? src[1] : zero;
-  };
-  const auto store = [&](int buf) {
-    uint4* da = reinterpret_cast<uint4*>(&As[buf][sr][sc]);
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-      da[x] = make_uint4(pack_bf16x2(av[8 * x], av[8 * x + 1]),
-                         pack_bf16x2(av[8 * x + 2], av[8 * x + 3]),
-                         pack_bf16x2(av[8 * x + 4], av[8 * x + 5]),
-                         pack_bf16x2(av[8 * x + 6], av[8 * x + 7]));
-    uint4* db = reinterpret_cast<uint4*>(&Bs[buf][sr][sc]);
-    db[0] = bv[0];
-    db[1] = bv[1];
-  };
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[a][b][x] = 0.0f;
-
-  load(r_begin);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int r0 = r_begin; r0 < r_end; r0 += kMR) {
-    const bool more = r0 + kMR < r_end;
-    if (more) load(r0 + kMR);
-#pragma unroll
-    for (int ks = 0; ks < kMR; ks += 16) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4_trans(a[mt], &As[buf][ks + lane % 8 + 8 * (lane / 16)]
-                                     [wi + mt * 16 + 8 * ((lane / 8) % 2)]);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        unsigned x[4];
-        ldmatrix_x4_trans(x, &Bs[buf][ks + lane % 8 + 8 * ((lane / 8) % 2)]
-                                [wj + np * 16 + 8 * (lane / 16)]);
-        b[2 * np][0] = x[0];
-        b[2 * np][1] = x[1];
-        b[2 * np + 1][0] = x[2];
-        b[2 * np + 1][1] = x[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-  float* C = out + (size_t)blockIdx.z * (M + I) * J + (onehot ? 0 : (size_t)M * J);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wi + mt * 16 + g + 8 * h;
-      if (i >= rows_out) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        *reinterpret_cast<float2*>(C + (size_t)i * J + j0 + wj + nt * 8 + 2 * q) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-    }
-}
-
-// C = A^T B through atb_mma on `stream` (with ids, the M one-hot rows
-// before it), split over r as run_atb splits it (through `work`, then
-// sum_slabs in a fixed order).
-template <typename AT>
-int run_atb_mma(const int* ids, int M, const float* A0, const AT* A1, int R0,
-                const __nv_bfloat16* Bm, float* C, float* work, int R, int I,
-                int J, cudaStream_t stream, int* launches) {
-  const int splits = atb_splits(R, M + I, J);
-  int r_chunk = (R + splits - 1) / splits;
-  r_chunk = (r_chunk + kMR - 1) / kMR * kMR;
-  const dim3 grid(J / kGT, (M + kGT - 1) / kGT + (I + kGT - 1) / kGT, splits);
-  atb_mma<AT><<<grid, 256, 0, stream>>>(ids, M, A0, A1, R0, Bm,
-                                        splits == 1 ? C : work, R, I, J, r_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ++*launches;
-  if (splits > 1) {
-    const size_t n = (size_t)(M + I) * J;
-    sum_slabs<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(work, C, splits, n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ++*launches;
-  }
-  return 0;
-}
-
 // The persistent reverse launch under bf16 compute: dg_seq (bf16, and fp32
 // into dg32 unless null), dh0 and dc0; with db (K3, K12) also db, through
 // db_part ((B / 16 + 1) x 4N floats at most), summing the bf16 dg with
@@ -844,7 +687,8 @@ int run_atb_mma(const int* ids, int M, const float* A0, const AT* A1, int R0,
 // batch rows a block; steps: 1, or 2 (K12, S even, with db).
 template <typename RT>
 int run_persist(const void* U, const void* g_seq, const void* c_seq,
-                const float* c0, const float* dh_seq, const float* dhT,
+                const float* c0, const float* c_last, const float* dh_seq,
+                const float* dhT,
                 float* dc, __nv_bfloat16* dgx, float* dg32, float* dh0,
                 float* db, float* db_part, int S, int B, int N, int units,
                 int rows, int steps, int standard, int round_db, Dropout drop,
@@ -894,9 +738,9 @@ int run_persist(const void* U, const void* g_seq, const void* c_seq,
   const __nv_bfloat16* u = static_cast<const __nv_bfloat16*>(U);
   const RT* gs = static_cast<const RT*>(g_seq);
   const RT* cs = static_cast<const RT*>(c_seq);
-  void* args[] = {&u, &gs, &cs, &c0, &dh_seq, &dhT, &dc, &dgx, &dg32, &dh0,
-                  &db, &db_part, &drop, &S, &B, &N, &rows, &standard,
-                  &round_db};
+  void* args[] = {&u, &gs, &cs, &c0, &c_last, &dh_seq, &dhT, &dc, &dgx,
+                  &dg32, &dh0, &db, &db_part, &drop, &S, &B, &N, &rows,
+                  &standard, &round_db};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(grid), dim3(kPThreads), args, smem,
                                     stream);
@@ -1039,24 +883,30 @@ extern "C" size_t lstm_bwd_persist_smem_bytes(int N, int units) {
   return persist_smem_bytes(N, units);
 }
 
-// The persistent design's reverse launch under bf16 compute (K6, K3, K12):
-// the S reverse steps and dh0 in one cooperative launch. U is (N, 4N) in
-// bf16 (not transposed); the residual sequences have the residual type
-// (rtype 0 = fp32, 1 = bf16). dgx receives dg_seq (S, B, 4N) in bf16, dg32
-// the fp32 dg or is null. db null: K6; else K3 (steps 1) or K12 (steps 2)
+// The persistent design's reverse launch under bf16 compute (K6, K3, K12,
+// and K16 of lstm_tp.cu's family at D = 1): the S reverse steps and dh0 in
+// one cooperative launch. U is (N, 4N) in bf16 (not transposed); the
+// residual sequences have the residual type (rtype 0 = fp32, 1 = bf16).
+// c_last, (B, N) fp32 or null, is read in place of c_seq[S-1]: K16 hands
+// c_{S-1} (its cT) apart, in fp32, and its c_prev stream advanced by a step
+// as c_seq, which then ends at S-2. dgx receives dg_seq (S, B, 4N) in bf16,
+// dg32 the fp32 dg or is null. db null: K6 (and K16); else K3 (steps 1) or
+// K12 (steps 2)
 // with db (4N,) the sum of the fp32 dg, or of the bf16 dg with round_db,
 // through `work` (lstm_bwd_embed_work_floats). units, rows:
 // ops/cuda_cell_bwd.py:k6_plan. Other arguments and results as
 // lstm_bwd_scan_launch's.
 extern "C" int lstm_bwd_persist_launch(
     int rtype, const void* U, const void* g_seq, const void* c_seq,
-    const void* c0, const void* dh_seq, const void* dhT, void* dc, void* dgx,
-    void* dg32, void* dh0, void* db, void* work, int S, int B, int N,
+    const void* c0, const void* c_last, const void* dh_seq, const void* dhT,
+    void* dc, void* dgx, void* dg32, void* dh0, void* db, void* work, int S,
+    int B, int N,
     int units, int rows, int steps, int standard, int round_db, int drop_on,
     unsigned seed, unsigned keep, float inv, void* stream, int* launches) {
   const Dropout drop{drop_on, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, g_seq, c_seq, static_cast<const float*>(c0),
+               static_cast<const float*>(c_last),
                static_cast<const float*>(dh_seq),
                static_cast<const float*>(dhT), static_cast<float*>(dc),
                static_cast<__nv_bfloat16*>(dgx), static_cast<float*>(dg32),

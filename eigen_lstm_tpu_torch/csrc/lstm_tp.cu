@@ -22,7 +22,12 @@
 //   tp_seq_bwd_launch (K16) <- pallas_tp_seq.py:_bwd_kernel (:125): the
 //       reverse window in one launch, at D = 1: dh_t = dh_seq[t] + (dhT at
 //       t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, dg in fp32;
-//       then dh0 = round(dg_0) @ U^T and dc0.
+//       then dh0 = round(dg_0) @ U^T and dc0. This is K16's design for fp32
+//       compute and for shapes K6's persistent layout does not take; under
+//       bf16 compute elsewhere K16 is lstm_bwd.cu's persistent kernel
+//       (ops/cuda_cell_bwd.py:k6_plan), the same recurrence with U in
+//       shared memory and dh_rec on tensor cores: 0.93 ms against this
+//       design's 4.28 at the bench's shapes (PERF.md).
 // K13 and K14 run at any D (the all-gather of h sits between launches, in
 // torch.distributed); K15 and K16 only at D = 1, where the TPU kernel's
 // in-kernel exchange writes its own slot (pallas_tp_seq.py:121-122,
@@ -52,8 +57,9 @@
 // its one-step lead between devices. U_d stays in L2 across the window
 // (0.5 MB in bf16 at the bench's shapes, of 50 MB) rather than in shared
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
-// does. Tensor cores and U held in shared memory are later work. Every sum
-// has a fixed order, so the kernels are deterministic.
+// does (K16's bf16 design holds U in shared memory instead, above). For
+// K13 and K15, tensor cores and U held in shared memory are later work.
+// Every sum has a fixed order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
 

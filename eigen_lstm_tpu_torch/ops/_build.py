@@ -52,13 +52,13 @@ SIGNATURES = {
     "lstm_bwd_scan_launch": (_I, [_I, _I] + [_P] * 14 + [_I] * 5 + _DROP
                              + [_P, _IP]),
     "lstm_bwd_scan_work_floats": (_Z, [_I] * 3),
-    "lstm_bwd_persist_launch": (_I, [_I] + [_P] * 12 + [_I] * 9 + _DROP
+    "lstm_bwd_persist_launch": (_I, [_I] + [_P] * 13 + [_I] * 9 + _DROP
                                 + [_P, _IP]),
     "lstm_bwd_dWU_launch": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_P, _IP]),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
     "lstm_bwd_persist_smem_bytes": (_Z, [_I, _I]),
     "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P, _IP]),
-    "head_bwd_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_P, _IP]),
+    "head_bwd_launch": (_I, [_I] + [_P] * 11 + [_I] * 4 + [_P, _IP]),
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
     "gen_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_U, _F, _P]),

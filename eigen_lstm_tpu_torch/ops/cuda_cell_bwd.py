@@ -287,7 +287,7 @@ def _persist(plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg_out, dh0, out,
     name = "lstm_bwd_persist_launch"
     err = lib.lstm_bwd_persist_launch(
         rtype, U_k.data_ptr(), g_k.data_ptr(), c_k.data_ptr(), c0_k.data_ptr(),
-        dh_k.data_ptr(), dhT_k.data_ptr(), dc.data_ptr(), dgx.data_ptr(),
+        None, dh_k.data_ptr(), dhT_k.data_ptr(), dc.data_ptr(), dgx.data_ptr(),
         None if dg_out is None else dg_out.data_ptr(), dh0.data_ptr(),
         None if db is None else db.data_ptr(), work.data_ptr(), s, b, n,
         *plan, steps, *_launch_args(cfg, dropout, dev, int(round_db)),

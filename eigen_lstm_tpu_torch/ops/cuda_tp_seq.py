@@ -12,7 +12,7 @@ h_seq in the param type, g (activated) and c_prev in the residual type
 replaces ``_bwd_kernel`` (:125): the reverse window, dh_t = dh_seq[t] +
 (dhT at t = S-1, else the reduce-scattered round(dg_{t+1}) @ U_d^T), the
 gate backward, dg (S, B, 4nd) in fp32, dh0 and dc0. For a CUDA tensor each
-launches its kernel of ``csrc/lstm_tp.cu`` at D = 1, and raises at D > 1:
+launches its kernel at D = 1, and raises at D > 1:
 the kernels' in-kernel exchange of h across D cards (the TPU kernel's
 remote DMAs) is not written; there is no fall-back. For a CPU tensor each
 runs its plain version, ``tp_seq_fwd_plain`` or ``tp_seq_bwd_plain``: the
@@ -20,6 +20,16 @@ per-step math of ``pallas_tp_cell.py`` over the window with the h exchange
 as an all-gather over the group and the dh partials reduce-scattered, so
 the plain versions are exact at any D. Each wrapper counts its launches in
 ``.launches``, one a call.
+
+K15 is ``tp_seq_fwd_launch`` of ``csrc/lstm_tp.cu``. K16 has two designs of
+one function. At D = 1 it is K6's reverse recurrence, so under bf16
+compute, wherever ``cuda_cell_bwd.k6_plan`` gives a layout, it is K6's
+persistent kernel (``lstm_bwd_persist_launch``: U in shared memory, dh_rec
+on tensor cores, dg written in fp32 as well), given K16's c layout without
+a copy of the stream: c_prev advanced by one step as c_seq, c_prev[0] as
+c0 and cT, in fp32, as c_{S-1}. Elsewhere (fp32, or no layout) it is
+``tp_seq_bwd_launch``, one cooperative launch of CUDA-core step tiles over
+U^T.
 
 ``tp_seq_lstm`` is the JAX function of that name: U cast to the compute
 type and xw, h0, c0 to the accumulation type before ``TPSeq``, whose
@@ -34,6 +44,7 @@ does; the budget describes the TPU, not the card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -43,6 +54,7 @@ from ..parallel import mesh
 from . import _build
 from . import cell as cell_ops
 from . import cuda_cell
+from . import cuda_cell_bwd
 from .cuda_tp_cell import _card, _check, _stream, tp_step_bwd_plain, tp_step_plain
 
 VMEM_BUDGET = 14 * 1024 * 1024   # pallas_tp_seq.py:56
@@ -158,8 +170,9 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
 
 def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
-    """The TP reverse window: K16 on the card (D = 1), the plain version
-    on the CPU. Returns as ``tp_seq_bwd_plain``."""
+    """The TP reverse window: K16 on the card (D = 1), in the design
+    ``cuda_cell_bwd.device_k6_plan`` gives, the plain version on the CPU.
+    Returns as ``tp_seq_bwd_plain``."""
     s, b, nd4 = g_seq.shape
     nd = nd4 // 4
     n = U_c.shape[0]
@@ -179,18 +192,36 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
     rtype = cuda_cell._TYPE_CODES[g_seq.dtype]
     lib = _build.load_library()
     f32 = torch.float32
-    UT = U_c.to(cfg.cdtype).T.contiguous()
     gs, cs = g_seq.contiguous(), c_prev.contiguous()
     cT32, dh32, dhT32 = (x.to(f32).contiguous() for x in (cT, dh_seq, dhT))
     dc = dcT.to(f32).clone().contiguous()
     dg = torch.empty(s, b, 4 * nd, dtype=f32, device=dev)
     dh0 = torch.empty(b, nd, dtype=f32, device=dev)
-    err = lib.tp_seq_bwd_launch(
-        ctype, rtype, UT.data_ptr(), gs.data_ptr(), cs.data_ptr(),
-        cT32.data_ptr(), dh32.data_ptr(), dhT32.data_ptr(), dc.data_ptr(),
-        dg.data_ptr(), dh0.data_ptr(), s, b, n, nd,
-        int(cfg.cell_variant == "standard"), _stream(dev))
-    cuda_cell._raise_on(err, "tp_seq_bwd_launch")
+    plan = cuda_cell_bwd.device_k6_plan(cfg, b, nd)
+    if plan is not None:
+        # K6's persistent reverse launch: U as it is, c_seq = c_prev advanced
+        # a step (c_seq[t] = c_prev[t + 1] below S-1), c0 = c_prev[0], c_{S-1}
+        # = cT; the fp32 dg into dg, its bf16 rounding (which the next step's
+        # product reads) into a scratch; no db, no dropout, a step at a time
+        name = "lstm_bwd_persist_launch"
+        U_k, c0 = U_c.to(torch.bfloat16).contiguous(), cs[0].to(f32)
+        dgx = torch.empty(s, b, 4 * nd, dtype=torch.bfloat16, device=dev)
+        err = lib.lstm_bwd_persist_launch(
+            rtype, U_k.data_ptr(), gs.data_ptr(), cs[1:].data_ptr(),
+            c0.data_ptr(), cT32.data_ptr(), dh32.data_ptr(), dhT32.data_ptr(),
+            dc.data_ptr(), dgx.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
+            None, None, s, b, nd, *plan, 1,
+            int(cfg.cell_variant == "standard"), 0, 0, 0, 0, 0.0, _stream(dev),
+            ctypes.byref(ctypes.c_int(0)))
+    else:
+        name = "tp_seq_bwd_launch"
+        UT = U_c.to(cfg.cdtype).T.contiguous()
+        err = lib.tp_seq_bwd_launch(
+            ctype, rtype, UT.data_ptr(), gs.data_ptr(), cs.data_ptr(),
+            cT32.data_ptr(), dh32.data_ptr(), dhT32.data_ptr(), dc.data_ptr(),
+            dg.data_ptr(), dh0.data_ptr(), s, b, n, nd,
+            int(cfg.cell_variant == "standard"), _stream(dev))
+    cuda_cell._raise_on(err, name)
     tp_seq_bwd.launches += 1
     return dg, dh0, dc
 

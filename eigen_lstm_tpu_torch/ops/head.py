@@ -5,8 +5,8 @@ versions, and the head as an autograd function.
 and ``_bwd_head_kernel``. For a CUDA tensor they launch ``head_fwd_launch``
 and ``head_bwd_launch`` of ``csrc/head.cu`` or raise; for a CPU tensor they
 run the plain versions beside them, which repeat the kernels' arithmetic
-(the forward on tensor cores under bf16 compute where
-``fwd_tensor_cores`` holds, on CUDA cores otherwise):
+(on tensor cores under bf16 compute where ``fwd_tensor_cores`` and
+``bwd_tensor_cores`` hold, on CUDA cores otherwise):
 
 * forward: logits = h_c @ Why_c + by in fp32, lse = max + log sum exp, and
   the sum over rows of (lse - logits[target]) / ln 2, with lse kept;
@@ -56,6 +56,21 @@ def fwd_tensor_cores(cfg: ModelConfig, n: int, m: int) -> bool:
     keeps the CUDA-core design), N a multiple of TC_KC and M of TC_COLS."""
     return (cfg.cdtype == torch.bfloat16 and n % TC_KC == 0
             and m % TC_COLS == 0 and m <= MAX_VOCAB)
+
+
+# K5's tensor-core design: 64-row blocks, dh over N in chunks of 64
+# (csrc/head.cu: head_bwd_mma), dWhy through mma.cuh's atb_mma, whose
+# column tiles are 128 wide
+TC_DWHY_COLS = 128
+
+
+def bwd_tensor_cores(cfg: ModelConfig, n: int, m: int) -> bool:
+    """Whether K5 takes its tensor-core design at hidden ``n`` and
+    vocabulary ``m``: bf16 compute, N a multiple of TC_KC and M of
+    TC_DWHY_COLS (at most MAX_VOCAB); else its CUDA-core design, which
+    fp32 always takes."""
+    return (cfg.cdtype == torch.bfloat16 and n % TC_KC == 0
+            and m % TC_DWHY_COLS == 0 and m <= MAX_VOCAB)
 
 
 def _logits(Why_c, by, h_c, af):
@@ -156,20 +171,23 @@ def head_bwd(Why_c, by, h_c, tgt, lse, cot, cfg: ModelConfig):
     ctype = _kernel_type(cfg, h_c.device)
     f32 = dict(dtype=torch.float32, device=h_c.device)
     lib = _build.load_library()
-    Why_c = Why_c.to(cfg.cdtype).contiguous()
     ins = [x.contiguous() for x in (
-        h_c.to(cfg.cdtype), Why_c, Why_c.t(), by.to(torch.float32),
+        h_c.to(cfg.cdtype), Why_c.to(cfg.cdtype), by.to(torch.float32),
         tgt.to(torch.int32), lse.to(torch.float32),
         cot.to(torch.float32).reshape(1))]
-    dlog = torch.empty(t, m, **f32)
+    tc = bwd_tensor_cores(cfg, n, m)
+    # the (T, M) dlog the dWhy product reads: round(dlog) in bf16 for the
+    # tensor cores, the fp32 dlog for the CUDA-core design
+    dlog = torch.empty(t, m, dtype=torch.bfloat16 if tc else torch.float32,
+                       device=h_c.device)
     dh = torch.empty(t, n, dtype=cfg.cdtype, device=h_c.device)
     dWhy = torch.empty(n, m, **f32)
     dby = torch.empty(m, **f32)
-    work = torch.empty(max(1, lib.head_bwd_work_floats(t, n, m)), **f32)
+    work = torch.empty(lib.head_bwd_work_floats(t, n, m), **f32)
     launched = ctypes.c_int(0)
     err = lib.head_bwd_launch(
         ctype, *(x.data_ptr() for x in ins), dlog.data_ptr(), dh.data_ptr(),
-        dWhy.data_ptr(), dby.data_ptr(), work.data_ptr(), t, n, m,
+        dWhy.data_ptr(), dby.data_ptr(), work.data_ptr(), t, n, m, int(tc),
         torch.cuda.current_stream(h_c.device).cuda_stream,
         ctypes.byref(launched),
     )

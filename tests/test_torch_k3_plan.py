@@ -143,9 +143,11 @@ def test_wrapper_launches_the_plan_s_design(routed, dtype, name, kw, b, fused,
                      "lstm_bwd_dWU_launch"]
     work, persist, dWU_call = (call[1] for call in routed.calls)
     assert work == (4, b, n, M)
-    # (..., S, B, N, units, rows, steps, standard, round_db, drop_on, ...)
-    assert persist[13:19] == (4, b, n) + plan + (2 if unroll2 else 1,)
-    assert persist[20] == int(not fused) and persist[21] == 0
+    # (..., c_last, ..., S, B, N, units, rows, steps, standard, round_db,
+    #  drop_on, ...): no c_last, which only K16 hands over
+    assert persist[5] is None
+    assert persist[14:20] == (4, b, n) + plan + (2 if unroll2 else 1,)
+    assert persist[21] == int(not fused) and persist[22] == 0
     assert dWU_call[7:11] == (4, b, n, M)
 
 
