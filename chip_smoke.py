@@ -10,11 +10,14 @@ Phase 2  runs each kernel against its plain PyTorch version on the card, at
          flagship's weights, in bf16 and fp32: every step of the window
          replayed by the plain version, the whole window, and the bf16
          residual type; prints errors, times, bounds and the cuDNN LSTM's
-         time as a yardstick.
+         time as a yardstick. K2 in bf16 takes K9's persistent design (one
+         launch a call, gated); its per-step design, forced, is held to the
+         same gates and timed in the same call.
 Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
-         the kernels, with the launch counts reset before and read after;
-         then kernel against plain on a 4096-byte slice; the same for the
-         1x512 checkpoint.
+         the kernels, with the launch counts reset before and read after
+         (K2 one launch a chunk and layer), and once more with K2's
+         per-step design forced (one a step); then kernel against plain on
+         a 4096-byte slice; the same for the 1x512 checkpoint.
 Phase 4  the CLI's sample path: 1000-byte greedy and T = 0.7 samples of
          the flagship (bf16, B = 1) through ``sample_text``, so through the
          generation kernel K7, its launches counted; the loop backend's
@@ -58,7 +61,9 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          plain versions with the flagship's weights, fp32 and bf16, without
          and with dropout: every step replayed, the masked streams against
          the numpy keep-mask bit for bit, the backward with explicit masks;
-         times, bounds, cuDNN yardsticks; K3's (the GEMM fall-back) and K6's
+         times, bounds, cuDNN yardsticks; K2's design (K9's persistent one
+         in bf16, one launch a call; the per-step one, forced, held to the
+         same gates and timed in the same call); K3's (the GEMM fall-back) and K6's
          design (persistent in bf16, per-step in fp32) and launches a call,
          and in bf16 the per-step design held to the same gates on the same
          inputs, the persistent design's reverse launch and tail timed apart
@@ -127,7 +132,10 @@ Phase 10 the last two single-card kernels and the modules of this path:
          flagship and the 1x512 checkpoint, kernels against plain.
 Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          kernels: (a) K13 and K14 (the per-step pair) at the flagship's
-         shapes as one shard of D = 1, 2 and 4, K15 and K16 (the window
+         shapes as one shard of D = 1, 2 and 4 (K13 in bf16 on tensor
+         cores, its kernel alone timed beside the wrapper call, and its
+         CUDA-core design, forced, held to the same gate and timed in the
+         same call), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
          with every step replayed; K16 in bf16 on K6's persistent kernel
          (one launch a call), its dg, dh0 and dc0 bit for bit K6's
@@ -137,10 +145,11 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          cuDNN; (b) ``cli train --tp 1`` at the bench's configuration, 300
          steps, through K15/K16 and, with EIGEN_LSTM_TP_SEQ=0, K13/K14,
          launches counted, train_bpc against the single-device run's from
-         the same seed, K15's and K16's shares of the step; (c) the
+         the same seed, K15's, K16's and K13's shares of the step; (c) the
          flagship recipe
-         at --tp 1 for 4 steps through K13/K14, then one window's TP loss
-         and eleven gradients, kernels against plain.
+         at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
+         one window's TP loss and eleven gradients, kernels against plain
+         (the fp32 window's K13 launches, its CUDA-core design, counted).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -366,24 +375,11 @@ def phase2(test, records):
              n, h_l0.float()),
         )
         for name, kind, layer, seq, kern, plain, replaces, in_dim, lib_x in cases:
-            raw_k = kern(layer, seq, h0, c0, cfg, residuals=True)
-            out_k = _named(raw_k)
+            before = kern.launches
+            raw_k, out_k, step_err = eval_window_check(
+                name, dtype, kern, plain, layer, seq, h0, c0, cfg)
+            calls = kern.launches - before
             out_p = _named(plain(layer, seq, h0, c0, cfg, residuals=True))
-            torch.cuda.synchronize()
-            for label in OUTPUTS:
-                if not torch.isfinite(out_k[label].float()).all():
-                    fail(f"{name} {dtype} {label}: non-finite values")
-            step_err = 0.0
-            replay = replay_steps(plain, layer, seq, h0, c0, cfg, out_k)
-            for label, ref in replay.items():
-                err = max_err(out_k[label], ref)[0]
-                step_err = max(step_err, err)
-                if err > STEP_ATOL:
-                    fail(f"{name} {dtype} {label}: a step of the window is "
-                         f"{err:.3e} from its plain replay > {STEP_ATOL:g}")
-            print(f"  {name} {dtype}: all {s} steps of the window within "
-                  f"{step_err:.3e} of their plain replay (atol {STEP_ATOL:g})",
-                  flush=True)
             if dtype == "float32":
                 plain_f32[name] = out_p
             window = []
@@ -406,23 +402,81 @@ def phase2(test, records):
             check_bf16_residuals(f"{name} {dtype}", kern(
                 layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
                 residuals=True), raw_k)
+            persistent = False
+            if kind == "scan":
+                # K2: K9's persistent design in bf16, one launch a call, and
+                # (forced) the per-step design, which fp32 keeps, held to the
+                # same gates on the same inputs and timed in this call
+                design, persistent = tiled_design(cfg, b, n)
+                print(f"  {name} {dtype}: {design}", flush=True)
+                if persistent != (dtype == "bfloat16") or calls != (1 if persistent else s):
+                    fail(f"{name} {dtype}: {design}, {calls} launches a call; "
+                         f"the eval shapes take the persistent design in bf16 "
+                         f"alone, one launch a call (S in fp32)")
+            if persistent:
+                with per_step_tiled():
+                    before = kern.launches
+                    raw_s, _, err_s = eval_window_check(
+                        name, dtype + " (the per-step design)", kern, plain,
+                        layer, seq, h0, c0, cfg)
+                    calls_s = kern.launches - before
+                    check_bf16_residuals(f"{name} {dtype} (the per-step design)",
+                                         kern(layer, seq, h0, c0,
+                                              flagship_cfg(dtype, "bfloat16"),
+                                              residuals=True), raw_s)
+                    ms_s = cuda_ms(lambda: kern(layer, seq, h0, c0, cfg), reps=10)
+                if calls_s != s:
+                    fail(f"{name} {dtype}, the per-step design: {calls_s} "
+                         f"launches a call, one a step gives {s}")
             ms = cuda_ms(lambda: kern(layer, seq, h0, c0, cfg), reps=10)
             plain_ms = cuda_ms(lambda: plain(layer, seq, h0, c0, cfg), reps=2,
                                windows=3)
             bound_ms, bound_by = bound(kind, cfg, s, b, n, m)
             lib_ms = library_ms(in_dim, cfg, lib_x, h0, c0)
             print(f"  {name} {dtype}: {ms:.4f} ms per window per layer "
-                  f"(S={s} launches), plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.5f} ms ({bound_by}), cuDNN nn.LSTM "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}",
-                  flush=True)
-            records[(name, dtype)] = dict(
+                  f"({calls} launch{'es' if calls > 1 else ''}), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"cuDNN nn.LSTM "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  + (f"; the per-step design {ms_s:.4f} ms in this call "
+                     f"({s} launches)" if persistent else ""), flush=True)
+            rec = dict(
                 name=name, route="cuda",
-                source="eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
+                source=TILED_SOURCE if persistent else
+                "eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
                 replaces=replaces, launches=None, max_abs_err=step_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms,
             )
+            records[(name, dtype)] = rec
+            if persistent:
+                records[(name + "_per_step", dtype)] = dict(
+                    rec, name=name + "_per_step",
+                    source="eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
+                    max_abs_err=err_s, ms=ms_s)
+
+
+def eval_window_check(name, tag, kern, plain, layer, seq, h0, c0, cfg):
+    """A forward kernel's window with residuals: finite, and every step
+    within STEP_ATOL of its plain replay from the kernel's own state.
+    Returns (the raw output, the named output, the replay error)."""
+    raw_k = kern(layer, seq, h0, c0, cfg, residuals=True)
+    out_k = _named(raw_k)
+    torch.cuda.synchronize()
+    for label in OUTPUTS:
+        if not torch.isfinite(out_k[label].float()).all():
+            fail(f"{name} {tag} {label}: non-finite values")
+    step_err = 0.0
+    for label, ref in replay_steps(plain, layer, seq, h0, c0, cfg, out_k).items():
+        err = max_err(out_k[label], ref)[0]
+        step_err = max(step_err, err)
+        if err > STEP_ATOL:
+            fail(f"{name} {tag} {label}: a step of the window is {err:.3e} "
+                 f"from its plain replay > {STEP_ATOL:g}")
+    print(f"  {name} {tag}: all {seq.shape[0]} steps of the window within "
+          f"{step_err:.3e} of their plain replay (atol {STEP_ATOL:g})",
+          flush=True)
+    return raw_k, out_k, step_err
 
 
 def eval_check(path, cfg, test, label):
@@ -466,14 +520,34 @@ def eval_check(path, cfg, test, label):
 
 
 def phase3(test):
+    """The eval path of both checkpoints; the flagship's K2 in its
+    persistent design (one launch a chunk and layer), then once more with
+    K2's per-step design forced (one a step). Returns the launch counts of
+    the first flagship run and K2's launches in the forced one."""
     from eigen_lstm_tpu_torch import ModelConfig
 
-    counts = eval_check(FLAGSHIP, flagship_cfg("bfloat16"), test,
-                        "flagship 3x1024 bf16")
+    cfg = flagship_cfg("bfloat16")
+    label = "flagship 3x1024 bf16"
+    counts = eval_check(FLAGSHIP, cfg, test, label)
+    with per_step_tiled():
+        step_counts = eval_check(FLAGSHIP, cfg, test,
+                                 label + " (K2's per-step design, forced)")
+    # K1 takes one launch a step: counts[0] steps of CHUNK-step chunks
+    chunks, upper = counts[0] // CHUNK, cfg.num_layers - 1
+    design, persistent = tiled_design(cfg, EVAL_BATCH, cfg.hidden)
+    want = (chunks * upper, chunks * upper * CHUNK)
+    print(f"  {label}: K2 in {design}: {counts[1]} launches, forced per-step "
+          f"{step_counts[1]} (the shapes give {want[0]} and {want[1]})",
+          flush=True)
+    if not persistent or (counts[1], step_counts[1]) != want \
+            or step_counts[0] != counts[0]:
+        fail(f"{label}: K2 launched {counts[1]} and {step_counts[1]} times "
+             f"(persistent, per-step), the path gives {want}; K1 "
+             f"{counts[0]} and {step_counts[0]}")
     eval_check(H512, ModelConfig(hidden=512, num_layers=1,
                                  compute_dtype="bfloat16"),
                test, "bible_h512 1x512 bf16")
-    return counts
+    return counts, step_counts[1]
 
 
 SAMPLE_CHARS, LOOP_CHARS = 1000, 200
@@ -1620,6 +1694,34 @@ def phase7a(records):
             out2, rec2 = fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
                                    cuda_cell.scan_layer_plain, l1, xw, h0, c0,
                                    cfg, dr[1], masks[1], inv, tag, per_call)
+            design2, persistent2 = tiled_design(cfg, b, n)
+            print(f"  lstm_fwd_scan {tag}: {design2}", flush=True)
+            if persistent2 != (dtype == "bfloat16") or \
+                    per_call["lstm_fwd_scan"] != (1 if persistent2 else s):
+                fail(f"lstm_fwd_scan {tag}: {design2}, "
+                     f"{per_call['lstm_fwd_scan']} launches a call; the "
+                     f"flagship's shapes take the persistent design in bf16 "
+                     f"alone, one launch a call (S in fp32)")
+            if persistent2:
+                # K2's per-step design, which fp32 keeps, held to the same
+                # gates on the same inputs and timed in this call
+                rec2["source"] = TILED_SOURCE
+                step_call = {}
+                with per_step_tiled():
+                    fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
+                              cuda_cell.scan_layer_plain, l1, xw, h0, c0, cfg,
+                              dr[1], masks[1], inv,
+                              tag + " (the per-step design)", step_call,
+                              timed=False)
+                    rec2["per_step_ms"] = cuda_ms(
+                        lambda: cuda_cell.scan_layer(l1, xw, h0, c0, cfg,
+                                                     residuals=True,
+                                                     dropout=dr[1]),
+                        reps=2, windows=3)
+                if step_call["lstm_fwd_scan"] != s:
+                    fail(f"lstm_fwd_scan {tag}, the per-step design: "
+                         f"{step_call['lstm_fwd_scan']} launches, one a step "
+                         f"gives {s}")
             rec3 = bwd_check("lstm_bwd_embed", l0.U, out1, x, h0, c0, dh_seq,
                              dhT, dcT, cfg, dr[0], masks[0], inv, tag, per_call)
             rec6 = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
@@ -1646,7 +1748,11 @@ def phase7a(records):
                       f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
                       f"({rec['bound_by']}), cuDNN nn.LSTM "
                       f"{'backward ' if 'bwd' in rec['name'] else ''}"
-                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
+                      + (f"; the per-step design {rec['per_step_ms']:.4f} ms "
+                         f"in this call ({s} launches)"
+                         if rec is rec2 and "per_step_ms" in rec else ""),
+                      flush=True)
         # the heads at these shapes (T = S*B, N = 1024): launches and times
         t = s * b
         h_c = out2[0].reshape(t, n).to(cfg.cdtype)
@@ -3031,10 +3137,16 @@ def phase10f(test):
         singles = [evaluate_bpc(p, test, cfg, EVAL_BATCH, CHUNK, SLICE_CHARS, cf)
                    for p, cfg, cf in members]
         bpc[backend] = ens
+        emb, scan = cuda_cell.launches()
         print(f"  ensemble ({backend}): {ens:.6f} bits/char over {SLICE_CHARS} "
-              f"bytes in {dt:.2f} s (launches {cuda_cell.launches()} before the "
+              f"bytes in {dt:.2f} s (launches {(emb, scan)} before the "
               f"single runs); flagship alone {singles[0]:.6f}, 1x512 alone "
               f"{singles[1]:.6f}", flush=True)
+        # K1 a step of each member's chunks, K2 (persistent in bf16) a chunk
+        # of the flagship's two layers >= 1: scan * CHUNK == emb
+        if (backend == "auto") != (emb > 0) or scan * CHUNK != emb:
+            fail(f"ensemble ({backend}): launches {(emb, scan)}; the path "
+                 f"gives K2 one launch a chunk and layer, K1 one a step")
     rel = abs(bpc["auto"] - bpc["plain"]) / bpc["plain"]
     print(f"  ensemble kernels against plain: rel {rel:.2e} (rtol {BPC_RTOL:g})",
           flush=True)
@@ -3123,6 +3235,74 @@ def lstm_cell_ms(cfg, h_full, h_d, c_d, U_d, bias):
         return None
 
 
+def k13_design(rows, b, nd):
+    """A label of K13's design as ``tp_step_plan`` chose it."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import PERSIST_UNITS
+
+    if rows is None:
+        return "the CUDA-core design (32 units x 4 batch rows a block)"
+    grid = nd // PERSIST_UNITS * -(-b // rows)
+    return (f"the tensor-core design ({grid} blocks of {PERSIST_UNITS} units "
+            f"and {rows} batch rows, U_d read {-(-b // rows)} times a step)")
+
+
+def k13_check(tc, U_c, xw, h_full, c_d, cfg, tag):
+    """One call of K13 against its plain version on the same inputs
+    (TRAIN_TOL, normalised, on h2, c2 and g) and one launch a call.
+    Returns (the output, the errors)."""
+    before = tc.tp_step_fwd.launches
+    out_k = tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg)
+    calls = tc.tp_step_fwd.launches - before
+    out_p = tc.tp_step_plain(U_c, xw, h_full, c_d, cfg)
+    torch.cuda.synchronize()
+    errs = {k: norm_err(a, p) for k, a, p in zip(("h2", "c2", "g"), out_k, out_p)}
+    print(f"  K13 {tag}: against plain, normalised (tol {TRAIN_TOL:g}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; {calls} launch a call", flush=True)
+    if calls != 1 or not all(np.isfinite(e) and e <= TRAIN_TOL for e in errs.values()):
+        fail(f"K13 {tag}: {errs}, {calls} launches a call")
+    return out_k, errs
+
+
+def k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows):
+    """K13's C launcher alone between CUDA events, its buffers made once
+    (``rows``: the tensor-core design's, None for the CUDA-core one)."""
+    import ctypes
+
+    from eigen_lstm_tpu_torch.ops import _build
+
+    b, n = h_full.shape
+    nd = c_d.shape[1]
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    outs = (torch.empty(b, nd, **f32), torch.empty(b, nd, **f32),
+            torch.empty(b, 4 * nd, **f32))
+    launched = ctypes.c_int(0)
+    args = ((1 if cfg.cdtype == torch.bfloat16 else 0), U_c.data_ptr(),
+            xw.data_ptr(), h_full.data_ptr(), c_d.data_ptr(),
+            *(o.data_ptr() for o in outs), b, n, nd,
+            int(cfg.cell_variant == "standard"), -1 if rows is None else rows,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    lib = _build.load_library()
+    if lib.tp_step_fwd_launch(*args) != 0:
+        fail("tp_step_fwd_launch refused the call")
+    return cuda_ms(lambda: lib.tp_step_fwd_launch(*args), reps=50)
+
+
+@contextlib.contextmanager
+def cuda_core_k13():
+    """K13's wrapper takes its CUDA-core design inside the block, whatever
+    ``tp_step_plan`` would choose: for the check and time of that design
+    where the main path takes the tensor cores."""
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell
+
+    plan = cuda_tp_cell.device_tp_step_plan
+    cuda_tp_cell.device_tp_step_plan = lambda *a: None
+    try:
+        yield
+    finally:
+        cuda_tp_cell.device_tp_step_plan = plan
+
+
 def phase11a(records):
     """K13 and K14 at the flagship's shapes (N = 1024, B = 128) as one
     shard of D = 1, 2 and 4 (nd = 1024, 512, 256, the full h), from the
@@ -3149,42 +3329,62 @@ def phase11a(records):
             nd = n // ndev
             layer = permute_params_for_tp(flag, ndev).layers[1]
             U_d = layer.U[:, :4 * nd].contiguous()
+            # the path casts U once a window (parallel/tp.py) and hands each
+            # step U_c: the wrapper's call as the path makes it
+            U_c = U_d.to(cfg.cdtype)
             h_full = torch.tanh(rand(b, n, sd=0.5)).to(cfg.cdtype)
             xw = rand(b, 4 * nd, sd=0.5) + layer.b[:4 * nd]
             c_d = rand(b, nd, sd=0.3)
-            before = tc.tp_step_fwd.launches
-            out_k = tc.tp_step_fwd(U_d, xw, h_full, c_d, cfg)
-            per_call = tc.tp_step_fwd.launches - before
-            out_p = tc.tp_step_plain(U_d, xw, h_full, c_d, cfg)
+            rows = tc.device_tp_step_plan(cfg, b, n, nd)
+            design = k13_design(rows, b, nd)
+            print(f"  K13 {dtype} D={ndev} (nd={nd}): {design}", flush=True)
+            if (rows is not None) != (dtype == "bfloat16"):
+                fail(f"K13 {dtype} D={ndev}: {design}; the tensor cores in "
+                     f"bf16 alone")
+            out_k, errs13 = k13_check(tc, U_c, xw, h_full, c_d, cfg,
+                                      f"{dtype} D={ndev}")
             dh, dc = rand(b, nd, sd=1e-2), rand(b, nd, sd=1e-2)
             bwd_k = tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg)
             bwd_p = tc.tp_step_bwd_plain(out_k[2], out_k[1], c_d, dh, dc, cfg)
             torch.cuda.synchronize()
-            errs = {f"K13 {k}": norm_err(a, p) for k, a, p in zip(("h2", "c2", "g"), out_k, out_p)}
-            errs.update({f"K14 {k}": norm_err(a, p) for k, a, p in zip(("dg", "dc_prev"), bwd_k, bwd_p)})
+            errs = {f"K14 {k}": norm_err(a, p) for k, a, p in zip(("dg", "dc_prev"), bwd_k, bwd_p)}
             bad = {k: e for k, e in errs.items() if not np.isfinite(e) or e > TRAIN_TOL}
-            print(f"  K13/K14 {dtype} D={ndev} (nd={nd}): against plain, normalised "
+            print(f"  K14 {dtype} D={ndev} (nd={nd}): against plain, normalised "
                   f"(tol {TRAIN_TOL:g}): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()),
                   flush=True)
-            if bad or per_call != 1:
-                fail(f"K13/K14 {dtype} D={ndev}: {bad}, {per_call} launches a call")
-            ms13 = cuda_ms(lambda: tc.tp_step_fwd(U_d, xw, h_full, c_d, cfg), reps=50)
-            plain13 = cuda_ms(lambda: tc.tp_step_plain(U_d, xw, h_full, c_d, cfg), reps=20)
+            if bad:
+                fail(f"K14 {dtype} D={ndev}: {bad}")
+            ms13 = cuda_ms(lambda: tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg), reps=50)
+            alone13 = k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows)
+            line = ""
+            if rows is not None:
+                # the CUDA-core design, which fp32 keeps, held to the same
+                # gates on the same inputs and timed in this call
+                with cuda_core_k13():
+                    k13_check(tc, U_c, xw, h_full, c_d, cfg,
+                              f"{dtype} D={ndev} (the CUDA-core design)")
+                    core13 = cuda_ms(lambda: tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg),
+                                     reps=50)
+                core_alone = k13_alone_ms(U_c, xw, h_full, c_d, cfg, None)
+                line = (f"; the CUDA-core design {core13:.4f} ms, its kernel "
+                        f"alone {core_alone:.4f} ms, in this call")
+            plain13 = cuda_ms(lambda: tc.tp_step_plain(U_c, xw, h_full, c_d, cfg), reps=20)
             lib13 = lstm_cell_ms(cfg, h_full, c_d, c_d, U_d, xw[0])
             ms14 = cuda_ms(lambda: tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg), reps=50)
             plain14 = cuda_ms(lambda: tc.tp_step_bwd_plain(out_k[2], out_k[1], c_d, dh, dc, cfg),
                               reps=20)
             b13 = tp_step_bound(cfg, b, n, nd, False)
             b14 = tp_step_bound(cfg, b, n, nd, True)
-            print(f"  K13 {dtype} D={ndev}: {ms13:.4f} ms a step (1 launch), bound "
-                  f"{b13[0]:.5f} ms "
-                  f"({b13[1]}), plain {plain13:.4f} ms, torch.lstm_cell "
-                  f"{'n/a' if lib13 is None else f'{lib13:.4f} ms'}; K14: {ms14:.4f} "
+            print(f"  K13 {dtype} D={ndev}: {ms13:.4f} ms a step (the wrapper, U "
+                  f"cast already; 1 launch), its kernel alone {alone13:.4f} ms, "
+                  f"bound {b13[0]:.5f} ms ({b13[1]}), plain {plain13:.4f} ms, "
+                  f"torch.lstm_cell {'n/a' if lib13 is None else f'{lib13:.4f} ms'}"
+                  f"{line}; K14: {ms14:.4f} "
                   f"ms (1 launch), bound {b14[0]:.5f} ms ({b14[1]}), plain "
                   f"{plain14:.4f} ms, library n/a", flush=True)
-            records[("11a", "tp_step_fwd", dtype, ndev)] = _tp_record(
-                "tp_step_fwd", max(errs[f"K13 {k}"] for k in ("h2", "c2", "g")),
-                ms13, plain13, b13, lib13)
+            records[("11a", "tp_step_fwd", dtype, ndev)] = dict(_tp_record(
+                "tp_step_fwd", max(errs13.values()), ms13, plain13, b13, lib13),
+                alone_ms=alone13)
             records[("11a", "tp_step_bwd", dtype, ndev)] = _tp_record(
                 "tp_step_bwd", max(errs["K14 dg"], errs["K14 dc_prev"]), ms14,
                 plain14, b14, None)
@@ -3433,16 +3633,22 @@ def phase11b(records):
         ms = records[("11a", name, "bfloat16")]["ms"]
         print(f"  {name}: {ms:.4f} ms a step, {100 * ms / runs['tp seq'][1]:.1f} % "
               f"of the {runs['tp seq'][1]:.3f} ms --tp 1 step", flush=True)
+    ms = records[("11a", "k13x100", "bfloat16")]
+    print(f"  tp_step_fwd: {TRAIN_S} calls {ms:.4f} ms a step (11a), "
+          f"{100 * ms / runs['tp step'][1]:.1f} % of the {runs['tp step'][1]:.3f} "
+          f"ms per-step --tp 1 step", flush=True)
     return runs["tp seq"][0], runs["tp step"][0]
 
 
-def phase11c():
+def phase11c(records):
     """The flagship recipe at --tp 1 from ckpt_best.npz for TP_FLAG_STEPS
     steps with dropout 0.35 through K13/K14 (launches counted, bits
     finite and below 3.0); then one bible.txt window's TP loss and eleven
     gradients, the kernels against their plain versions, at phase 7b's
-    rules. Returns the run's launch counts."""
+    rules. Returns the run's launch counts and K13's launches on the fp32
+    window (its CUDA-core design)."""
     from eigen_lstm_tpu_torch.models.lstm import step_key
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell
     from eigen_lstm_tpu_torch.parallel import tp as tp_mod
     from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -3464,6 +3670,15 @@ def phase11c():
                  f"gives {w}")
         if not (np.isfinite(bpc) and bpc < 3.0):
             fail(f"flagship --tp 1: bits {bpc}")
+        ms = records[("11a", "tp_step_fwd", "bfloat16", 1)]["ms"] * 3 * FLAG_S
+        print(f"  tp_step_fwd: {3 * FLAG_S} calls {ms:.3f} ms a step (11a), "
+              f"{100 * ms / step_ms:.1f} % of the {step_ms:.2f} ms flagship "
+              f"--tp 1 step", flush=True)
+        rows = cuda_tp_cell.device_tp_step_plan(trainer.mcfg, FLAG_B, 1024, 1024)
+        print(f"  flagship --tp 1: K13 in {k13_design(rows, FLAG_B, 1024)}",
+              flush=True)
+        if rows is None:
+            fail("flagship --tp 1: K13 not on the tensor cores in bf16")
         gen = torch.Generator().manual_seed(12)
         x, t = bible_window(gen, FLAG_S, FLAG_B)
         key = step_key(1235, 785000)
@@ -3474,11 +3689,21 @@ def phase11c():
             shard = tp_mod.shard_params(params, cfg, group.rank, group.size)
             h, c = (extras[k][:, :FLAG_B] for k in ("stream_h", "stream_c"))
             for path, plain in (("cuda", False), ("plain", True)):
+                before = cuda_tp_cell.tp_step_fwd.launches
                 loss, _, _, grads = tp_mod.tp_loss_and_grads(
                     shard, x, t, h, c, cfg, group, "pallas", key, plain)
+                if dtype == "float32" and not plain:
+                    # fp32 keeps K13's CUDA-core design: its launches on
+                    # this window, one a layer and step
+                    core = cuda_tp_cell.tp_step_fwd.launches - before
                 grads = tp_mod.unshard_params(grads, cfg, group)
                 res[(dtype, path)] = (loss, dict(grads.named_tensors()))
         torch.cuda.synchronize()
+        print(f"  flagship TP fp32 window: K13 (the CUDA-core design) "
+              f"launched {core} times", flush=True)
+        if core != 3 * FLAG_S:
+            fail(f"flagship TP fp32 window: K13 launched {core} times, the "
+                 f"path gives {3 * FLAG_S}")
         # the per-step family's bf16 values: W of layers >= 1 (x @ W in the
         # compute type) and Why (the head's product); W0's gather, every U
         # (TPStep hands dU back in fp32) and the biases are not
@@ -3486,7 +3711,7 @@ def phase11c():
                       lambda k: k.endswith(".Why") or (k.endswith(".W")
                                                        and "[0]" not in k),
                       vs_drift=FLAG_BF16_VS_DRIFT)
-        return counts
+        return counts, core
     finally:
         if trainer is not None:
             trainer.tp.group.close()
@@ -3503,7 +3728,7 @@ def main():
     records = {}
     phase2(test, records)
     check_budget("phase 2 (kernels against plain)")
-    emb, scan = phase3(test)
+    (emb, scan), scan_step = phase3(test)
     check_budget("phase 3 (eval path)")
     gen_launches = phase4()
     check_budget("phase 4 (sampling)")
@@ -3554,7 +3779,7 @@ def main():
     check_budget("phase 11a (the TP kernels against plain)")
     seq_counts, step_counts = phase11b(records)
     check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
-    flag_tp_counts = phase11c()
+    flag_tp_counts, k13_core = phase11c(records)
     check_budget("phase 11c (the flagship at --tp 1)")
     kernels = []
 
@@ -3562,7 +3787,10 @@ def main():
         kernels.append(dict({key: rec[key] for key in KERNEL_KEYS},
                             launches=launches, **kw))
 
+    # K2 in both designs on the flagship's eval path (phase 3): the
+    # persistent one, and the per-step one forced
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
+                        ("lstm_fwd_scan_per_step", scan_step),
                         ("head_fwd", counts["head_fwd"]),
                         ("head_bwd", counts["head_bwd"])):
         add(records[(name, "bfloat16")], count)
@@ -3588,6 +3816,9 @@ def main():
     # K15 and K16 on the bench's --tp 1 run (11b) at its shapes
     for name in ("tp_step_fwd", "tp_step_bwd"):
         add(records[("11a", name, "bfloat16", 1)], flag_tp_counts[name])
+    # K13's CUDA-core design, which fp32 keeps, on 11c's fp32 window
+    add(records[("11a", "tp_step_fwd", "float32", 1)], k13_core,
+        name="tp_step_fwd_cuda_core")
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
         add(records[("11a", name, "bfloat16")], seq_counts[name])
     print(json.dumps({"kernels": kernels}), flush=True)

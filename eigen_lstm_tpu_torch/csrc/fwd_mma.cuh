@@ -1,0 +1,246 @@
+// The tensor-core forward step, shared by the persistent forward of
+// lstm_tiled.cu (tiled_fwd_persist: K8, K9, and K2 under bf16 compute) and
+// the tensor-core K13 of lstm_tp.cu (tp_step_fwd_mma): one block's product
+// of a step,
+//
+//   acc = round(h)[b0 .. b0 + rows) @ U[:, the block's 4 x kFUnits columns]
+//
+// with h (B, K) and U (K, 4 gs) in bf16, and the loads of its input term.
+// A block owns kFUnits = 16 hidden units j0.. with their four gate columns
+// gate * gs + j0 + u (gs: the gate stride, N for K8/K9, the shard width nd
+// for K13) and `rows` batch rows b0.. (rows past B zero-filled, their
+// results dropped). Its slice of U is stored [k][gate][unit]: the first
+// kres rows may sit in shared memory (the persistent design holds them for
+// a window), the rest stream through the ring beside the round(h) chunks.
+// Each chunk of kFKC k rows arrives by cp.async (L2 only: in the persistent
+// design other blocks wrote h before the grid barrier) into a ring of
+// kFStages slots. The 8 warps form a WM x WK grid: warp (wm, wk) takes the
+// 16-row m tile wm and the k steps s (of 16) with s % WK == wk; WM = 8 at
+// 128 rows (no k split), 1 at 16 (the k axis split 8 ways, the partial sums
+// added in warp order through shared memory). Products are mma.sync
+// m16n8k16, bf16 in, fp32 sums; with the [gate][unit] columns the C
+// fragment's n tile 2 * gate + unit / 8 gives lane (g, q) all four gates of
+// rows g, g + 8 and units 2q, 2q + 1, 8 + 2q, 9 + 2q, so the caller's
+// epilogue runs in the registers of the wk = 0 warps (the owners):
+// acc[2 gate + uh][2 hh + e] is the sum of row fwd_row(hh), unit
+// fwd_unit(uh, e).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+constexpr int kFUnits = 16;
+constexpr int kFCols = 4 * kFUnits;       // [gate][unit]
+constexpr int kFThreads = 256;
+constexpr int kFWarps = kFThreads / 32;
+constexpr int kFMaxRows = 16 * kFWarps;   // one m tile a warp
+constexpr int kFKC = 64;                  // k rows of a chunk
+constexpr int kFStages = 3;
+// bf16 of padding per shared row: rows of an odd number of 16-byte units,
+// so the eight row addresses of an ldmatrix fall in distinct banks
+constexpr int kFPad = 8;
+constexpr int kFUPitch = kFCols + kFPad;
+constexpr int kFAPitch = kFKC + kFPad;
+
+// Warp rows of the WM x WK grid: the fewest powers of two that cover the
+// m tiles of `rows` batch rows.
+inline __host__ __device__ int fwd_warp_rows(int rows) {
+  const int mt = (rows + 15) / 16;
+  return mt <= 1 ? 1 : mt <= 2 ? 2 : mt <= 4 ? 4 : 8;
+}
+
+// Dynamic shared memory of a block of `rows` batch rows holding kres rows
+// of its U slice (mirrored by ops/cuda_cell_tiled.py:persist_smem_bytes,
+// which holds itself to tiled_fwd_persist_smem_bytes once a card): the
+// kres rows, then the ring, each slot an h chunk of the m tiles' rows and a
+// U chunk; the cross-warp partial sums (one 32 x 32 float tile a warp)
+// reuse the ring.
+inline size_t fwd_smem_bytes(int rows, int kres) {
+  const size_t slot = 2 * ((size_t)(rows + 15) / 16 * 16 * kFAPitch +
+                           (size_t)kFKC * kFUPitch);
+  const size_t red = fwd_warp_rows(rows) < kFWarps ? (size_t)kFWarps * 32 * 32 * 4 : 0;
+  const size_t ring = kFStages * slot > red ? kFStages * slot : red;
+  return 2 * (size_t)kres * kFUPitch + ring;
+}
+
+// One block's place in the step.
+struct FwdTile {
+  int K;       // the contraction: h's width, U's rows
+  int gs;      // the gate stride of U's columns and of the input term
+  int j0;      // the block's first unit
+  int b0, B;   // its first batch row; rows at or past B are not real
+  int mtiles, WM, WK;
+  int aslot, slot;   // bf16 of a ring slot's h chunk, of a slot
+  int lane, warp, wm, wk, g, q;
+  bool owner;  // runs the epilogue: wk == 0 with an m tile of its own
+};
+
+__device__ __forceinline__ FwdTile fwd_mma_tile(int K, int gs, int j0, int b0,
+                                                int B, int rows) {
+  FwdTile f;
+  f.K = K;
+  f.gs = gs;
+  f.j0 = j0;
+  f.b0 = b0;
+  f.B = B;
+  f.mtiles = (rows + 15) / 16;
+  f.WM = fwd_warp_rows(rows);
+  f.WK = kFWarps / f.WM;
+  f.aslot = 16 * f.mtiles * kFAPitch;
+  f.slot = f.aslot + kFKC * kFUPitch;
+  f.lane = threadIdx.x % 32;
+  f.warp = threadIdx.x / 32;
+  f.wm = f.warp % f.WM;
+  f.wk = f.warp / f.WM;
+  f.g = f.lane / 4;
+  f.q = f.lane % 4;
+  f.owner = f.wk == 0 && f.wm < f.mtiles;
+  return f;
+}
+
+// The batch row of the owner lane's fragment half hh, and the unit of its
+// pair uh, element e.
+__device__ __forceinline__ int fwd_row(const FwdTile& f, int hh) {
+  return f.b0 + 16 * f.wm + f.g + 8 * hh;
+}
+__device__ __forceinline__ int fwd_unit(const FwdTile& f, int uh, int e) {
+  return f.j0 + 8 * uh + 2 * f.q + e;
+}
+
+// The block's 64 columns of U's row k into dst, 16 bytes a copy p < 8.
+__device__ __forceinline__ void fwd_u_copy(const FwdTile& f,
+                                           const __nv_bfloat16* U,
+                                           __nv_bfloat16* dst, int k, int p) {
+  const int gate = p / 2, half = p % 2;
+  cp_async_16(dst + gate * kFUnits + half * 8,
+              U + (size_t)k * 4 * f.gs + (size_t)gate * f.gs + f.j0 + half * 8, 16);
+}
+
+template <typename XT>
+__device__ __forceinline__ void load_pair(const XT* p, float* lo, float* hi);
+template <>
+__device__ __forceinline__ void load_pair<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                         float* lo, float* hi) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  *lo = __low2float(v);
+  *hi = __high2float(v);
+}
+template <>
+__device__ __forceinline__ void load_pair<float>(const float* p, float* lo,
+                                                 float* hi) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  *lo = v.x;
+  *hi = v.y;
+}
+
+// The owner lane's input term, widened to fp32: pin[4 hh + 2 uh + e][gate]
+// of row fwd_row(hh), unit fwd_unit(uh, e), read from row src(b) of an
+// input of type XT with the gate stride gs.
+template <typename XT, typename Src>
+__device__ __forceinline__ void fwd_inputs(const FwdTile& f, Src src,
+                                           float (&pin)[8][4]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int b = fwd_row(f, hh);
+    if (b >= f.B) continue;
+    const XT* row = src(b);
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+      for (int uh = 0; uh < 2; ++uh)
+        load_pair<XT>(row + (size_t)gate * f.gs + f.j0 + 8 * uh + 2 * f.q,
+                      &pin[4 * hh + 2 * uh][gate], &pin[4 * hh + 2 * uh + 1][gate]);
+  }
+}
+
+// The step's product for the block (module comment), summed in the owner
+// lanes' acc: h (B, K), its rows read from L2; the first cres chunks of U
+// from Us (kres = cres * kFKC rows, [k][gate][unit] with pitch kFUPitch),
+// the rest through the ring. Every thread of the block calls it; on return
+// the ring may be reused.
+__device__ __forceinline__ void fwd_products(const FwdTile& f,
+                                             const __nv_bfloat16* U,
+                                             const __nv_bfloat16* h,
+                                             const __nv_bfloat16* Us, int cres,
+                                             __nv_bfloat16* ring,
+                                             float (&acc)[8][4]) {
+  const int tid = threadIdx.x, lane = f.lane;
+  const int rows = 16 * f.mtiles, nchunks = f.K / kFKC;
+  // chunk ch: h's columns ch * kFKC.. for the m tiles' rows (rows past B
+  // zero-filled), and the U rows when they are not resident
+  const auto load_chunk = [&](int ch) {
+    __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * f.slot;
+    for (int e = tid; e < rows * 8; e += kFThreads) {
+      const int r = e / 8, p = e % 8;
+      const bool in = f.b0 + r < f.B;
+      cp_async_16(st + r * kFAPitch + p * 8,
+                  in ? h + (size_t)(f.b0 + r) * f.K + ch * kFKC + p * 8 : h,
+                  in ? 16 : 0);
+    }
+    if (ch >= cres)
+      for (int e = tid; e < kFKC * 8; e += kFThreads)
+        fwd_u_copy(f, U, st + f.aslot + (e / 8) * kFUPitch, ch * kFKC + e / 8, e % 8);
+  };
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[nt][x] = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < kFStages - 1; ++ch) {
+    if (ch < nchunks) load_chunk(ch);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
+    if (ch + kFStages - 1 < nchunks) load_chunk(ch + kFStages - 1);
+    cp_async_commit();
+    if (f.wm >= f.mtiles) continue;
+    const __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * f.slot;
+    const __nv_bfloat16* ub =
+        ch < cres ? Us + (size_t)ch * kFKC * kFUPitch : st + f.aslot;
+#pragma unroll
+    for (int ks = 0; ks < kFKC / 16; ++ks) {
+      if ((ch * (kFKC / 16) + ks) % f.WK != f.wk) continue;
+      unsigned a[4];
+      ldmatrix_x4(a, st + (f.wm * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kFAPitch +
+                         ks * 16 + 8 * (lane / 16));
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        // (k 0-7 | 8-15) x (units 0-7 | 8-15) of this gate, transposed:
+        // b0, b1 of n tile 2 gate, then of n tile 2 gate + 1
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, ub + (ks * 16 + 8 * ((lane / 8) % 2) + lane % 8) * kFUPitch +
+                                  gate * kFUnits + 8 * (lane / 16));
+        mma_bf16_16816(acc[2 * gate], a, bq);
+        mma_bf16_16816(acc[2 * gate + 1], a, bq + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: reuse it as red
+  if (f.WK > 1) {
+    float* red = reinterpret_cast<float*>(ring);
+    if (f.wk > 0 && f.wm < f.mtiles)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          red[((size_t)f.warp * 32 + 4 * nt + x) * 32 + lane] = acc[nt][x];
+    __syncthreads();
+    if (f.owner)
+      for (int k = 1; k < f.WK; ++k)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            acc[nt][x] += red[((size_t)(f.wm + k * f.WM) * 32 + 4 * nt + x) * 32 + lane];
+  }
+}
+
+}  // namespace

@@ -36,10 +36,16 @@
 // less than the 50 MB L2.
 //
 // K8 and K9 have two designs of one function (ops/cuda_cell_tiled.py:
-// tiled_fwd_plan chooses from the type, the shape and the card):
+// tiled_fwd_plan chooses from the type, the shape and the card). K2, the
+// resident family's layers >= 1 forward (lstm_fwd.cu), computes K9's
+// function, so under bf16 compute ops/cuda_cell.py:scan_layer runs it on
+// the persistent design too, through tiled_fwd_scan_launch with its own
+// residual type (at the flagship's N = 1024 all of U's rows stay in shared
+// memory).
 //
 // The persistent design (bf16 compute, B <= 128, N / 16 blocks resident;
-// tiled_fwd_persist). One cooperative launch a window, a grid barrier
+// tiled_fwd_persist; its step is fwd_mma.cuh's, which the tensor-core K13
+// of lstm_tp.cu shares). One cooperative launch a window, a grid barrier
 // between steps. A block owns 16 hidden units with their four gate columns
 // and every batch row, so each step's epilogue needs nothing of another
 // block; as many rows of its N x 64 slice of U as fit beside the ring stay
@@ -108,6 +114,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "fwd_mma.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -356,62 +363,20 @@ tiled_bwd_step(const CT* __restrict__ UT,        // (4N, N) = U^T
 }
 
 // ---------------------------------------------------------------------------
-// K8 / K9 under bf16 compute: one persistent cooperative launch for the S
+// K8 / K9 under bf16 compute, and K2 (lstm_fwd.cu's function, routed here by
+// ops/cuda_cell.py:scan_layer): one persistent cooperative launch for the S
 // forward steps (tiled_fwd_persist; ops/cuda_cell_tiled.py:tiled_fwd_plan
-// chooses it).
-//
-// A block owns kFUnits = 16 hidden units j0.. with all four of their gate
-// columns and every batch row (B <= kFMaxRows), so the grid is N / 16
-// blocks, at most what is resident (128 at N = 2048). Its slice of U, the
-// N x 64 columns of its units, is stored [k][gate][unit]: the first kres
-// rows sit in shared memory for the whole window, the rest stream every
-// step through the ring beside the round(h_{t-1}) chunks. Each chunk of
-// kFKC k rows arrives by cp.async (L2 only: other blocks wrote h_{t-1}
-// before the barrier) into a ring of kFStages slots. The 8 warps form a
-// WM x WK grid: warp (wm, wk) takes the 16-row m tile wm and the k steps
-// s (of 16) with s % WK == wk; WM = 8 at B = 128 (no k split), 1 at the
-// eval batch of 16 (the k axis split 8 ways, the partial sums added in
-// warp order through shared memory). Products are mma.sync m16n8k16, bf16
-// in, fp32 sums; with the [gate][unit] columns the C fragment's n tile
-// 2 * gate + unit / 8 gives lane (g, q) all four gates of rows g, g + 8
-// and units 2q, 2q + 1, 8 + 2q, 9 + 2q, so the epilogue runs in the
-// registers of the wk = 0 warps: the W-row gather or the xw values (loaded
-// for step t + 1 before the barrier that precedes it), the gates, the cell,
-// the carry c (in registers for the whole window), round(h_t) into the
-// other half of hc. A grid barrier closes each step.
-constexpr int kFUnits = 16;
-constexpr int kFCols = 4 * kFUnits;       // [gate][unit]
-constexpr int kFThreads = 256;
-constexpr int kFWarps = kFThreads / 32;
-constexpr int kFMaxRows = 16 * kFWarps;   // one m tile a warp
-constexpr int kFKC = 64;                  // k rows of a chunk
-constexpr int kFStages = 3;
-// bf16 of padding per shared row: rows of an odd number of 16-byte units,
-// so the eight row addresses of an ldmatrix fall in distinct banks
-constexpr int kFPad = 8;
-constexpr int kFUPitch = kFCols + kFPad;
-constexpr int kFAPitch = kFKC + kFPad;
+// chooses it). Each step is fwd_mma.cuh's tensor-core step with the gate
+// stride N over every batch row (B <= kFMaxRows), so the grid is N / 16
+// blocks, at most what is resident (128 at N = 2048): as many rows of a
+// block's N x 64 slice of U as fit beside the ring stay in shared memory
+// for the window, the rest stream every step with the round(h_{t-1})
+// chunks. The epilogue runs in the owners' registers: the W-row gather or
+// the xw values (loaded for step t + 1 before the barrier that precedes
+// it), the gates, the cell, the carry c (in registers for the whole
+// window), round(h_t) into the other half of hc. A grid barrier closes each
+// step.
 constexpr int kMaxDevices = 64;
-
-// Warp rows of the WM x WK grid: the fewest powers of two that cover the
-// m tiles.
-inline __host__ __device__ int fwd_warp_rows(int B) {
-  const int mt = (B + 15) / 16;
-  return mt <= 1 ? 1 : mt <= 2 ? 2 : mt <= 4 ? 4 : 8;
-}
-
-// Dynamic shared memory of the persistent K8/K9 (mirrored by
-// ops/cuda_cell_tiled.py:persist_smem_bytes, which holds itself to
-// tiled_fwd_persist_smem_bytes once a card): kres rows of the U slice, then
-// the ring, each slot an h chunk of the m tiles' rows and a U chunk; the
-// cross-warp partial sums (one 32 x 32 float tile a warp) reuse the ring.
-inline size_t fwd_persist_smem_bytes(int B, int N, int kres) {
-  const size_t slot = 2 * ((size_t)(B + 15) / 16 * 16 * kFAPitch +
-                           (size_t)kFKC * kFUPitch);
-  const size_t red = fwd_warp_rows(B) < kFWarps ? (size_t)kFWarps * 32 * 32 * 4 : 0;
-  const size_t ring = kFStages * slot > red ? kFStages * slot : red;
-  return 2 * (size_t)kres * kFUPitch + ring;
-}
 
 template <typename RT, bool EMBED>
 __global__ void __launch_bounds__(kFThreads, 1)
@@ -433,150 +398,54 @@ tiled_fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ring = Us + (size_t)kres * kFUPitch;
-  float* red = reinterpret_cast<float*>(ring);
-  const int mtiles = (B + 15) / 16;
-  const int rows = 16 * mtiles;
-  const int WM = fwd_warp_rows(B), WK = kFWarps / WM;
-  const int aslot = rows * kFAPitch;           // bf16 of a slot's h chunk
-  const int slot = aslot + kFKC * kFUPitch;    // bf16 of a slot
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp % WM, wk = warp / WM;
-  const int g = lane / 4, q = lane % 4;
-  const int j0 = blockIdx.x * kFUnits;
-  const bool owner = wk == 0 && wm < mtiles;   // runs the epilogue
+  const FwdTile f = fwd_mma_tile(N, N, blockIdx.x * kFUnits, 0, B, B);
   const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
   cg::grid_group grid = cg::this_grid();
 
-  // the block's 64 columns of U's row k into dst, 16 bytes a copy p < 8
-  const auto u_copy = [&](__nv_bfloat16* dst, int k, int p) {
-    const int gate = p / 2, half = p % 2;
-    cp_async_16(dst + gate * kFUnits + half * 8,
-                U + (size_t)k * n4 + (size_t)gate * N + j0 + half * 8, 16);
-  };
-  for (int e = tid; e < kres * 8; e += kFThreads)
-    u_copy(Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
+  for (int e = threadIdx.x; e < kres * 8; e += kFThreads)
+    fwd_u_copy(f, U, Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
   cp_async_commit();
 
   // this thread's (b, j), when it is an owner: p = 4 hh + 2 uh + e for
-  // row 16 wm + g + 8 hh and unit 8 uh + 2q + e; acc[2 gate + uh][2 hh + e]
+  // row fwd_row(hh) and unit fwd_unit(uh, e); acc[2 gate + uh][2 hh + e]
   // holds its gate sum, bs[gate][2 uh + e] its bias
   float cr[8], pin[8][4], bs[4][4];
-  const auto row_of = [&](int hh) { return 16 * wm + g + 8 * hh; };
   const auto load_inputs = [&](int t) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int b = row_of(hh);
-      if (b >= B) continue;
-      const __nv_bfloat16* src =
-          EMBED ? W + (size_t)ids[(size_t)t * B + b] * n4
-                : xw + ((size_t)t * B + b) * n4;
-#pragma unroll
-      for (int gate = 0; gate < 4; ++gate)
-#pragma unroll
-        for (int uh = 0; uh < 2; ++uh) {
-          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-              src + (size_t)gate * N + j0 + 8 * uh + 2 * q);
-          pin[4 * hh + 2 * uh][gate] = __low2float(v);
-          pin[4 * hh + 2 * uh + 1][gate] = __high2float(v);
-        }
-    }
+    fwd_inputs<__nv_bfloat16>(f, [&](int b) {
+      return EMBED ? W + (size_t)ids[(size_t)t * B + b] * n4
+                   : xw + ((size_t)t * B + b) * n4;
+    }, pin);
   };
-  if (owner) {
+  if (f.owner) {
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
-      const int b = row_of(p / 4);
-      cr[p] = b < B ? c[(size_t)b * N + j0 + 8 * ((p / 2) % 2) + 2 * q + p % 2] : 0.0f;
+      const int b = fwd_row(f, p / 4);
+      cr[p] = b < B ? c[(size_t)b * N + fwd_unit(f, (p / 2) % 2, p % 2)] : 0.0f;
     }
     if (EMBED)
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate)
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          bs[gate][u] = bias[(size_t)gate * N + j0 + 8 * (u / 2) + 2 * q + u % 2];
+          bs[gate][u] = bias[(size_t)gate * N + fwd_unit(f, u / 2, u % 2)];
     load_inputs(0);
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  const int nchunks = N / kFKC, cres = kres / kFKC;
+  const int cres = kres / kFKC;
   for (int t = 0; t < S; ++t) {
     const __nv_bfloat16* hin = hc + (size_t)(t % 2) * bn;
     __nv_bfloat16* hout = hc + (size_t)((t + 1) % 2) * bn;
-    // chunk ch: h_{t-1}'s columns ch * kFKC.. for the m tiles' rows (rows
-    // past B zero-filled), and the U rows when they are not resident
-    const auto load_chunk = [&](int ch) {
-      __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * slot;
-      for (int e = tid; e < rows * 8; e += kFThreads) {
-        const int r = e / 8, p = e % 8;
-        const bool in = r < B;
-        cp_async_16(st + r * kFAPitch + p * 8,
-                    in ? hin + (size_t)r * N + ch * kFKC + p * 8 : hin, in ? 16 : 0);
-      }
-      if (ch >= cres)
-        for (int e = tid; e < kFKC * 8; e += kFThreads)
-          u_copy(st + aslot + (e / 8) * kFUPitch, ch * kFKC + e / 8, e % 8);
-    };
     float acc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[nt][x] = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < kFStages - 1; ++ch) {
-      if (ch < nchunks) load_chunk(ch);
-      cp_async_commit();
-    }
-    for (int ch = 0; ch < nchunks; ++ch) {
-      cp_async_wait<kFStages - 2>();
-      __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
-      if (ch + kFStages - 1 < nchunks) load_chunk(ch + kFStages - 1);
-      cp_async_commit();
-      if (wm >= mtiles) continue;
-      const __nv_bfloat16* st = ring + (size_t)(ch % kFStages) * slot;
-      const __nv_bfloat16* ub = ch < cres ? Us + (size_t)ch * kFKC * kFUPitch : st + aslot;
-#pragma unroll
-      for (int ks = 0; ks < kFKC / 16; ++ks) {
-        if ((ch * (kFKC / 16) + ks) % WK != wk) continue;
-        unsigned a[4];
-        ldmatrix_x4(a, st + (wm * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * kFAPitch +
-                           ks * 16 + 8 * (lane / 16));
-#pragma unroll
-        for (int gate = 0; gate < 4; ++gate) {
-          // (k 0-7 | 8-15) x (units 0-7 | 8-15) of this gate, transposed:
-          // b0, b1 of n tile 2 gate, then of n tile 2 gate + 1
-          unsigned bq[4];
-          ldmatrix_x4_trans(bq, ub + (ks * 16 + 8 * ((lane / 8) % 2) + lane % 8) * kFUPitch +
-                                    gate * kFUnits + 8 * (lane / 16));
-          mma_bf16_16816(acc[2 * gate], a, bq);
-          mma_bf16_16816(acc[2 * gate + 1], a, bq + 2);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the ring: reuse it as red
-    if (WK > 1) {
-      if (wk > 0 && wm < mtiles)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            red[((size_t)warp * 32 + 4 * nt + x) * 32 + lane] = acc[nt][x];
-      __syncthreads();
-      if (owner)
-        for (int k = 1; k < WK; ++k)
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              acc[nt][x] += red[((size_t)(wm + k * WM) * 32 + 4 * nt + x) * 32 + lane];
-    }
-    if (owner) {
+    fwd_products(f, U, hin, Us, cres, ring, acc);
+    if (f.owner) {
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
         const int hh = p / 4, uh = (p / 2) % 2, e = p % 2;
-        const int b = row_of(hh);
+        const int b = fwd_row(f, hh);
         if (b >= B) continue;
-        const int j = j0 + 8 * uh + 2 * q + e;
+        const int j = fwd_unit(f, uh, e);
         float gate[4];
 #pragma unroll
         for (int gt = 0; gt < 4; ++gt) {
@@ -898,7 +767,7 @@ int run_fwd_persist(const void* U, const void* xw, const void* W,
       kres > N || kres % kFKC != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = tiled_fwd_persist<RT, EMBED>;
-  const size_t smem = fwd_persist_smem_bytes(B, N, kres);
+  const size_t smem = fwd_smem_bytes(B, kres);
   // per card, read once: cooperative launch support and the SMs
   static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
   int dev = 0, per_sm = 0;
@@ -1100,7 +969,7 @@ extern "C" int tiled_fwd_scan_launch(
 // Bytes of dynamic shared memory a persistent K8/K9 block takes at batch B,
 // hidden N and kres resident rows of U.
 extern "C" size_t tiled_fwd_persist_smem_bytes(int B, int N, int kres) {
-  return fwd_persist_smem_bytes(B, N, kres);
+  return fwd_smem_bytes(B, kres);
 }
 
 // Bytes of dynamic shared memory a persistent K10 block takes with `rows`

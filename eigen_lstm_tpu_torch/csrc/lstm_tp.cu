@@ -10,7 +10,10 @@
 //       one step, g = xw + round(h_full) @ U_d (xw fp32 with the bias,
 //       h_full and U_d in the compute type, fp32 sums), sigma on [i|o|f],
 //       tanh on u, the cell update of _cell_fwd; out h2, c2 (B, nd) and the
-//       activated g (B, 4nd), all fp32.
+//       activated g (B, 4nd), all fp32. Under bf16 compute with B <= 128
+//       it is the tensor-core step of fwd_mma.cuh (tp_step_fwd_mma, below;
+//       ops/cuda_tp_cell.py:tp_step_plan chooses it), elsewhere the
+//       CUDA-core step tile (tp_step_fwd).
 //   tp_step_bwd_launch (K14) <- pallas_tp_cell.py:_step_bwd_kernel (:82):
 //       the gate backward _gate_bwd of one step, elementwise: from g, c2,
 //       c_prev, dh, dc (fp32) to dg (B, 4nd) and dc_prev (B, nd), fp32.
@@ -35,9 +38,9 @@
 // for a machine with D cards.
 //
 // What bounds them on the H100. K13 at the flagship's shapes (B = 128,
-// N = 1024, D = 1) is 2*B*N*4nd = 1.07 GFLOP against ~9 MB that it must
-// move (U_d once, h_full, xw, c, the outputs): operations bound it at
-// 1.1 us in bf16, 16 us in fp32. K14 moves ~4 MB and computes little: bytes
+// N = 1024, D = 1) is 2*B*N*4nd = 1.07 GFLOP against ~14 MB that it must
+// move (U_d once, h_full, xw, c, the outputs): bytes bound it at 4.3 us in
+// bf16, operations at 16 us in fp32. K14 moves ~4 MB and computes little: bytes
 // bound it, ~1.2 us. K15 and K16 at the bench's (S = 100, B = 128,
 // N = nd = 512) are 2*S*B*N*4nd = 26.8 GFLOP each (K16: dh_rec only, dU is
 // a product outside) against 60-80 MB: operations, 27 us in bf16 and
@@ -49,7 +52,10 @@
 // warp's lanes, so U rows are read coalesced) with all four gate columns,
 // and kBT batch rows; its kKS warps split the N-long reduction over h and
 // meet in shared memory, and the epilogue runs in registers. K13 is one
-// launch a step, a block a tile. K15 and K16 are one cooperative launch a
+// launch a step, a block a tile; that design reads U_d from L2 once per 4
+// batch rows (32 times a step at B = 128, ~256 MB at the flagship's D = 1),
+// so under bf16 compute K13 takes the tensor-core step instead, whose
+// blocks own all the batch rows or a large share of them. K15 and K16 are one cooperative launch a
 // window, a grid of at most what is resident at once, each block walking
 // the tiles, with a grid barrier between steps; K15 alternates two h
 // buffers (a step reads one, writes the other; after the barrier no block
@@ -58,12 +64,14 @@
 // (0.5 MB in bf16 at the bench's shapes, of 50 MB) rather than in shared
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
 // does (K16's bf16 design holds U in shared memory instead, above). For
-// K13 and K15, tensor cores and U held in shared memory are later work.
+// K15, tensor cores and U held in shared memory are later work (K9's
+// persistent forward at D = 1).
 // Every sum has a fixed order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "fwd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -109,6 +117,62 @@ tp_step_fwd(const CT* __restrict__ U, const float* __restrict__ xw,
 #pragma unroll
   for (int g = 0; g < 4; ++g)
     g_out[(size_t)b * 4 * nd + (size_t)g * nd + j] = gate[g];
+}
+
+// K13 under bf16 compute (ops/cuda_tp_cell.py:tp_step_plan chooses it):
+// fwd_mma.cuh's tensor-core step with the shard's widths. A block owns
+// kFUnits = 16 units j0.. of the shard with their four gate columns (gate
+// stride nd) and `rows` batch rows b0.. (a multiple of 16, rows past B
+// zero-filled), so the grid is (nd / 16, ceil(B / rows)) and each step
+// reads U_d ceil(B / rows) times over the grid, against 32 times in the
+// CUDA-core design (whose blocks own 4 rows); the contraction runs over the
+// full h (K = N), U streamed through the ring beside the h chunks (one step
+// has nothing to hold it for). The epilogue runs in the owners' registers
+// and writes h2, c2 and the activated g in fp32, two units a store.
+__global__ void __launch_bounds__(kFThreads, 1)
+tp_step_fwd_mma(const __nv_bfloat16* __restrict__ U,  // (N, 4nd)
+                const float* __restrict__ xw,         // (B, 4nd)
+                const __nv_bfloat16* __restrict__ h,  // (B, N)
+                const float* __restrict__ c_in, float* __restrict__ h_out,
+                float* __restrict__ c_out, float* __restrict__ g_out, int B,
+                int N, int nd, int rows, int standard) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const FwdTile f = fwd_mma_tile(N, nd, blockIdx.x * kFUnits, blockIdx.y * rows, B, rows);
+  const size_t n4 = 4 * (size_t)nd;
+  float pin[8][4];
+  if (f.owner)
+    fwd_inputs<float>(f, [&](int b) { return xw + (size_t)b * n4; }, pin);
+  float acc[8][4];
+  fwd_products(f, U, h, nullptr, 0, ring, acc);
+  if (!f.owner) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int b = fwd_row(f, hh);
+    if (b >= B) continue;
+#pragma unroll
+    for (int uh = 0; uh < 2; ++uh) {
+      const int j = fwd_unit(f, uh, 0);
+      const size_t idx = (size_t)b * nd + j;
+      const float2 cp = *reinterpret_cast<const float2*>(c_in + idx);
+      float gate[2][4], hv[2], cv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) {
+          const float s = acc[2 * gt + uh][2 * hh + e] + pin[4 * hh + 2 * uh + e][gt];
+          gate[e][gt] = gt < 3 ? sigmoid(s) : tanhf(s);
+        }
+        cell(gate[e], e ? cp.y : cp.x, standard, &hv[e], &cv[e]);
+      }
+      *reinterpret_cast<float2*>(h_out + idx) = make_float2(hv[0], hv[1]);
+      *reinterpret_cast<float2*>(c_out + idx) = make_float2(cv[0], cv[1]);
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt)
+        *reinterpret_cast<float2*>(g_out + (size_t)b * n4 + (size_t)gt * nd + j) =
+            make_float2(gate[0][gt], gate[1][gt]);
+    }
+  }
 }
 
 // K14: the gate backward of one step, a thread an element (b, j).
@@ -254,6 +318,28 @@ int run_step_fwd(const void* U, const void* xw, const void* h,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core K13: U, h in bf16, `rows` batch rows a block.
+int run_step_fwd_mma(const void* U, const void* xw, const void* h,
+                     const void* c_in, void* h_out, void* c_out, void* g_out,
+                     int B, int N, int nd, int rows, int standard,
+                     cudaStream_t stream) {
+  if (N % kFKC != 0 || nd % kFUnits != 0 || B < 1 || rows < 16 ||
+      rows > kFMaxRows || rows % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_smem_bytes(rows, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      tp_step_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(nd / kFUnits, (B + rows - 1) / rows);
+  tp_step_fwd_mma<<<grid, kFThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(U), static_cast<const float*>(xw),
+      static_cast<const __nv_bfloat16*>(h), static_cast<const float*>(c_in),
+      static_cast<float*>(h_out), static_cast<float*>(c_out),
+      static_cast<float*>(g_out), B, N, nd, rows, standard);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename CT, typename RT>
 int run_seq_fwd(const void* U, const void* xw, void* hbuf, void* c,
                 void* hseq, void* gseq, void* cprev, void* hT, void* cT,
@@ -312,19 +398,31 @@ int run_seq_bwd(const void* UT, const void* gseq, const void* cprev,
 
 // Type codes: 0 = fp32, 1 = bf16. Each launcher makes one launch and
 // returns its error code (0: launched).
+//
+// K13. rows >= 0: the tensor-core design with `rows` batch rows a block
+// (bf16 compute; ops/cuda_tp_cell.py:tp_step_plan gives rows; U and h
+// 16-byte aligned, N a multiple of 64, nd of 16); -1: the CUDA-core
+// design. Adds its launch to *launches.
 extern "C" int tp_step_fwd_launch(int ctype, const void* U, const void* xw,
                                   const void* h, const void* c_in,
                                   void* h_out, void* c_out, void* g_out,
-                                  int B, int N, int nd, int standard,
-                                  void* stream) {
+                                  int B, int N, int nd, int standard, int rows,
+                                  void* stream, int* launches) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (ctype == 0)
-    return run_step_fwd<float>(U, xw, h, c_in, h_out, c_out, g_out, B, N, nd,
-                               standard, s);
-  if (ctype == 1)
-    return run_step_fwd<__nv_bfloat16>(U, xw, h, c_in, h_out, c_out, g_out, B,
-                                       N, nd, standard, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (rows >= 0) {
+    if (ctype == 1)
+      err = run_step_fwd_mma(U, xw, h, c_in, h_out, c_out, g_out, B, N, nd,
+                             rows, standard, s);
+  } else if (ctype == 0) {
+    err = run_step_fwd<float>(U, xw, h, c_in, h_out, c_out, g_out, B, N, nd,
+                              standard, s);
+  } else if (ctype == 1) {
+    err = run_step_fwd<__nv_bfloat16>(U, xw, h, c_in, h_out, c_out, g_out, B,
+                                      N, nd, standard, s);
+  }
+  if (err == 0) ++*launches;
+  return err;
 }
 
 extern "C" int tp_step_bwd_launch(const void* g, const void* c2,

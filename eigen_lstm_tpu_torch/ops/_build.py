@@ -72,7 +72,7 @@ SIGNATURES = {
     "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),
     "gen_work_floats": (_Z, [_I] * 3),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
-    "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P]),
+    "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),
     "tp_seq_bwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),

@@ -25,7 +25,17 @@ this module keeps the port's own copies (``_fmix32``, ``_keep_u32``,
 h_seq and the carried (hT, cT) stay unmasked.
 
 Each wrapper counts in ``.launches`` the kernel launches it makes: S per
-call, one per timestep.
+call, one per timestep, except where ``scan_layer`` takes its persistent
+design. The layers >= 1 recurrence computes the function of K9
+(``cuda_cell_tiled.tiled_scan_layer``), so under bf16 compute, wherever
+``cuda_cell_tiled.tiled_fwd_plan`` gives a layout (N a multiple of 64,
+B <= 128, a grid of N / 16 blocks resident), it is K9's persistent kernel
+(``csrc/lstm_tiled.cu:tiled_fwd_persist``: one cooperative launch a window,
+U's rows in shared memory, the products on tensor cores) with this
+kernel's residual type and xw stream: only the order of the product's fp32
+sums moves. Elsewhere (fp32 compute, B > 128, N not a multiple of 64, a
+grid the card cannot hold) it is ``csrc/lstm_fwd.cu``'s one launch a step.
+The plan decides before the launch; a failed launch raises.
 
 None of these functions is differentiable by itself, and each raises when
 asked for a gradient rather than return a result that autograd cannot
@@ -353,8 +363,10 @@ def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
 def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False,
                dropout=None):
     """Recurrence of a layer >= 1 from the precomputed xw = x @ W + b:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor.
-    xw: (S, B, 4N); h0, c0: (B, N). Returns as ``embed_layer0``."""
+    the kernel on a CUDA tensor (the persistent design of the module
+    docstring where the plan gives one, else one launch a step), the plain
+    version on a CPU tensor. xw: (S, B, 4N); h0, c0: (B, N). Returns as
+    ``embed_layer0``."""
     _validate(layer, xw, h0, c0, cfg, embed=False)
     drop = drop_scalars(dropout)
     if xw.device.type == "cpu":
@@ -363,12 +375,21 @@ def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False,
     s, b, _ = xw.shape
     n = cfg.hidden
     dev = xw.device
+    # cuda_cell_tiled imports this module, so it is imported here
+    from . import cuda_cell_tiled as ct
+
+    lib = _build.load_library()
+    kres = ct.device_tiled_fwd_plan(cfg, b, n)
+    if kres is not None:   # K9's persistent kernel, K2's residual type
+        o = ct.scan_launch(scan_layer, layer, xw, h0, c0, cfg, cfg.rdtype,
+                           kres, residuals, dropout)
+        return _assemble(o["hseq"], o["hT"], o["c"], cfg, residuals,
+                         o["cseq"], o["gseq"], o["hdrop"])
     U_c = layer.U.to(cfg.cdtype).contiguous()
     xs = _xw_stream(xw, cfg)
     h0f = h0.to(torch.float32).contiguous()
     c0f = c0.to(torch.float32).contiguous()
     o = _outputs(s, b, n, cfg, dev, residuals, drop is not None)
-    lib = _build.load_library()
     err = lib.lstm_fwd_scan_launch(
         ctype, rtype, U_c.data_ptr(), xs.data_ptr(), h0f.data_ptr(),
         c0f.data_ptr(), o["hT"].data_ptr(), o["cT"].data_ptr(),

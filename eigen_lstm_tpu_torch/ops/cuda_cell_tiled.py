@@ -313,9 +313,9 @@ def _kres_arg(cfg: ModelConfig, b: int, n: int) -> int:
     return -1 if kres is None else kres
 
 
-def _fwd_buffers(h0, c0, s, b, n, cfg: ModelConfig, residuals: bool,
-                 drop: bool):
-    _, rd, _ = types(cfg)
+def _fwd_buffers(h0, c0, s, b, n, cfg: ModelConfig, rd: torch.dtype,
+                 residuals: bool, drop: bool):
+    """The forward launchers' buffers, the sequences in ``rd``."""
     dev = h0.device
     seq = lambda *shape: torch.empty(s, b, *shape, dtype=rd, device=dev)
     hc = torch.empty(2, b, n, dtype=cfg.cdtype, device=dev)
@@ -355,7 +355,8 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     n = cfg.hidden
     W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
     ids32 = ids.to(torch.int32).contiguous()
-    o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
+    o = _fwd_buffers(h0, c0, s, b, n, cfg, types(cfg)[1], residuals,
+                     drop is not None)
     launched = ctypes.c_int(0)
     err = _build.load_library().tiled_fwd_embed_launch(
         ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
@@ -370,32 +371,45 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     return _fwd_result(o, cfg, residuals)
 
 
+def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
+                rd: torch.dtype, kres: int, residuals: bool, dropout):
+    """One call of K9's launcher, which K2 (``cuda_cell.scan_layer``)
+    takes too: U and the xw stream in the compute type, the sequences in
+    ``rd``, ``kres`` the persistent design's resident rows (-1: the
+    per-step design). Adds the launches made to ``counter.launches``, then
+    raises on a failed launch; returns the buffers."""
+    s, b, _ = xw.shape
+    n = cfg.hidden
+    U_c = _aligned(layer.U.to(cfg.cdtype))
+    xs = _aligned(xw.to(types(cfg)[2]))
+    drop = cuda_cell.drop_scalars(dropout)
+    o = _fwd_buffers(h0, c0, s, b, n, cfg, rd, residuals, drop is not None)
+    launched = ctypes.c_int(0)
+    err = _build.load_library().tiled_fwd_scan_launch(
+        cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
+        U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
+        int(cfg.cell_variant == "standard"), kres, *(drop or (0, 0, 0.0)),
+        torch.cuda.current_stream(xw.device).cuda_stream,
+        ctypes.byref(launched),
+    )
+    counter.launches += launched.value
+    cuda_cell._raise_on(err, "tiled_fwd_scan_launch")
+    return o
+
+
 def tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
                      residuals: bool = False, dropout=None):
     """A layer >= 1 from xw = x @ W + b (S, B, 4N), K9 on a CUDA tensor,
     the plain version on a CPU tensor."""
     _refuse_grad(layer, xw, h0, c0)
     cuda_cell._validate(layer, xw, h0, c0, cfg, embed=False)
-    drop = cuda_cell.drop_scalars(dropout)
     if xw.device.type == "cpu":
         return tiled_scan_layer_plain(layer, xw, h0, c0, cfg, residuals,
                                       dropout)
-    ctype, rtype = _kernel_codes(cfg, xw.device)
-    s, b, _ = xw.shape
-    n = cfg.hidden
-    U_c = _aligned(layer.U.to(cfg.cdtype))
-    xs = _aligned(xw.to(types(cfg)[2]))
-    o = _fwd_buffers(h0, c0, s, b, n, cfg, residuals, drop is not None)
-    launched = ctypes.c_int(0)
-    err = _build.load_library().tiled_fwd_scan_launch(
-        ctype, rtype, U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), _kres_arg(cfg, b, n),
-        *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(xw.device).cuda_stream,
-        ctypes.byref(launched),
-    )
-    tiled_scan_layer.launches += launched.value
-    cuda_cell._raise_on(err, "tiled_fwd_scan_launch")
+    _kernel_codes(cfg, xw.device)
+    b = xw.shape[1]
+    o = scan_launch(tiled_scan_layer, layer, xw, h0, c0, cfg, types(cfg)[1],
+                    _kres_arg(cfg, b, cfg.hidden), residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 

@@ -20,19 +20,36 @@ accumulation type (float64 in the float64 oracle configuration, where the
 JAX functions stay in float32). Each wrapper counts its launches in
 ``.launches``, one a call.
 
+K13 has two designs of one function on the card (``tp_step_plan`` chooses
+from the type, the shape and the card's SMs and shared memory, before the
+launch; a failed launch raises). Under bf16 compute with at most 128 batch
+rows it is the tensor-core step that K8/K9's persistent forward runs each
+step (``csrc/fwd_mma.cuh``): a block owns 16 units of the shard with their
+four gate columns and ``rows`` batch rows, U_d and h_full stream through a
+``cp.async`` ring, the products are ``mma.sync``, so U_d is read ceil(B /
+rows) times a step over the grid. Elsewhere (fp32 compute, B > 128, widths
+the tiles do not take) it is the CUDA-core step tile of K2 with the shard's
+widths, a block 32 units x 4 rows. One launch a call either way; the C
+launcher counts it.
+
 ``fused_tp_step`` is the JAX function of that name: the autograd function
 ``TPStep``, whose backward is ``tp_step_bwd`` (:136-154): K14 gives dg and
 dc_prev; dh_full = round(dg) @ round(U)^T and dU = round(h_full)^T
 round(dg) are products outside in the compute type with fp32 results, as
 the JAX ``dot_general`` s are. As there, dU comes back in U's type (fp32:
 not rounded) and dh_full in h_full's, the compute type (bf16 under bf16
-compute). ``tp_pallas_supported`` is the JAX gate, copied to pick the
-family as the JAX package does, not as a capacity limit of the card.
+compute). The caller casts U to the compute type once a window
+(``parallel/tp.py:_tp_scan_layer``) and hands that U_c to every step beside
+U, as an input autograd does not differentiate: the kernel and dh_full read
+U_c, while dU goes to U itself, so the cast's backward never rounds it.
+``tp_pallas_supported`` is the JAX gate, copied to pick the family as the
+JAX package does, not as a capacity limit of the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +57,7 @@ from ..config import ModelConfig
 from . import _build
 from . import cell as cell_ops
 from . import cuda_cell
+from . import cuda_cell_tiled as ct
 
 
 def tp_pallas_supported(cfg: ModelConfig, batch: int, ndev: int) -> bool:
@@ -94,9 +112,44 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def tp_step_plan(cfg: ModelConfig, b: int, n: int, nd: int, sms: int,
+                 smem_limit: int) -> Optional[int]:
+    """K13's design at (config, batch, full width n, shard width nd) on a
+    device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
+    shared memory: the batch rows a block takes in the tensor-core design,
+    None for the CUDA-core design.
+
+    The tensor-core design needs bf16 compute (fp32 products keep TF32
+    off), n a multiple of the ring's k chunk, nd of the block's units and
+    at most 128 batch rows (one 16-row m tile a warp). A block owns 16
+    units of the shard and ``rows`` batch rows: all of them where the grid
+    of nd / 16 blocks reaches half the card's SMs, else the fewest (the m
+    tiles split 2, 4 or 8 ways) whose grid does, so that the step runs on
+    enough SMs to draw on L2 at more than a few blocks' rate; U_d is then
+    read ceil(B / rows) times a step over the grid."""
+    if (cfg.cdtype != torch.bfloat16 or n % ct.PERSIST_KC != 0
+            or nd % ct.PERSIST_UNITS != 0 or not 1 <= b <= ct.PERSIST_ROWS):
+        return None
+    tiles = -(-b // 16)
+    for split in (1, 2, 4, 8):
+        rows = 16 * -(-tiles // split)
+        if 2 * (nd // ct.PERSIST_UNITS) * -(-b // rows) >= sms or rows == 16:
+            break
+    return rows if ct.persist_smem_bytes(rows, n, 0) <= smem_limit else None
+
+
+def device_tp_step_plan(cfg: ModelConfig, b: int, n: int, nd: int):
+    """``tp_step_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tp_step_plan(cfg, b, n, nd,
+                        *ct._device_limits(torch.cuda.current_device()))
+
+
 def tp_step_fwd(U, xw, h_full, c_d, cfg: ModelConfig):
     """One TP step: (U (N, 4nd), xw (B, 4nd), h_full (B, N), c_d (B, nd))
-    -> (h2, c2, g), K13 on the card, the plain version on the CPU."""
+    -> (h2, c2, g), K13 on the card, the plain version on the CPU. U is
+    cast to the compute type here unless it is in it already (the TP
+    recurrence hands in U_c, cast once a window)."""
     b, n = h_full.shape
     nd = c_d.shape[-1]
     dev = xw.device
@@ -107,18 +160,20 @@ def tp_step_fwd(U, xw, h_full, c_d, cfg: ModelConfig):
         return tp_step_plain(U, xw, h_full, c_d, cfg)
     ctype = _card(cfg, dev, nd)
     lib = _build.load_library()
+    rows = device_tp_step_plan(cfg, b, n, nd)
     f32 = torch.float32
-    U_c = U.to(cfg.cdtype).contiguous()
-    h_c = h_full.to(cfg.cdtype).contiguous()
-    xw32, c32 = xw.to(f32).contiguous(), c_d.to(f32).contiguous()
+    U_c, h_c = (ct._aligned(x.to(cfg.cdtype)) for x in (U, h_full))
+    xw32, c32 = (ct._aligned(x.to(f32)) for x in (xw, c_d))
     h2, c2 = (torch.empty(b, nd, dtype=f32, device=dev) for _ in range(2))
     g = torch.empty(b, 4 * nd, dtype=f32, device=dev)
+    launched = ctypes.c_int(0)
     err = lib.tp_step_fwd_launch(
         ctype, U_c.data_ptr(), xw32.data_ptr(), h_c.data_ptr(),
         c32.data_ptr(), h2.data_ptr(), c2.data_ptr(), g.data_ptr(), b, n, nd,
-        int(cfg.cell_variant == "standard"), _stream(dev))
+        int(cfg.cell_variant == "standard"), -1 if rows is None else rows,
+        _stream(dev), ctypes.byref(launched))
+    tp_step_fwd.launches += launched.value
     cuda_cell._raise_on(err, "tp_step_fwd_launch")
-    tp_step_fwd.launches += 1
     return h2, c2, g
 
 
@@ -153,42 +208,49 @@ tp_step_bwd.launches = 0
 
 class TPStep(torch.autograd.Function):
     """One TP step, differentiable in U, xw, h_full and c_d: the JAX custom
-    VJP of ``_make_tp_step``. With ``plain`` both halves run their plain
-    versions, on any device."""
+    VJP of ``_make_tp_step``. U_c is U in the compute type, an input that
+    is not differentiated: the forward and dh_full read it, dU is U's.
+    With ``plain`` both halves run their plain versions, on any device."""
 
     @staticmethod
-    def forward(ctx, U, xw, h_full, c_d, cfg: ModelConfig, plain: bool):
+    def forward(ctx, U, U_c, xw, h_full, c_d, cfg: ModelConfig, plain: bool):
         fwd = tp_step_plain if plain else tp_step_fwd
-        h2, c2, g = fwd(U, xw, h_full, c_d, cfg)
-        ctx.save_for_backward(U, g, c2, c_d, h_full)
-        ctx.cfg, ctx.plain, ctx.xw_dtype = cfg, plain, xw.dtype
+        h2, c2, g = fwd(U_c, xw, h_full, c_d, cfg)
+        ctx.save_for_backward(U_c, g, c2, c_d, h_full)
+        ctx.cfg, ctx.plain = cfg, plain
+        ctx.u_dtype, ctx.xw_dtype = U.dtype, xw.dtype
         return h2, c2
 
     @staticmethod
     def backward(ctx, dh2, dc2):
-        U, g, c2, c_prev, h_full = ctx.saved_tensors
+        U_c, g, c2, c_prev, h_full = ctx.saved_tensors
         cfg = ctx.cfg
         af = cuda_cell._acc_dtype(cfg)
         dh2 = torch.zeros_like(c2) if dh2 is None else dh2
         dc2 = torch.zeros_like(c2) if dc2 is None else dc2
         bwd = tp_step_bwd_plain if ctx.plain else tp_step_bwd
         dg, dcp = bwd(g, c2, c_prev.to(af), dh2.to(af), dc2.to(af), cfg)
-        dh_full = cell_ops.matmul(dg, U.T, cfg.cdtype, af)
+        dh_full = cell_ops.matmul(dg, U_c.T, cfg.cdtype, af)
         dU = cell_ops.matmul(h_full.T, dg, cfg.cdtype, af)
-        return (dU.to(U.dtype), dg.to(ctx.xw_dtype), dh_full.to(h_full.dtype),
-                dcp.to(c_prev.dtype), None, None)
+        return (dU.to(ctx.u_dtype), None, dg.to(ctx.xw_dtype),
+                dh_full.to(h_full.dtype), dcp.to(c_prev.dtype), None, None)
 
 
-def fused_tp_step(U, xw, h_full, c_d, cfg: ModelConfig, plain: bool = False
+def fused_tp_step(U, xw, h_full, c_d, cfg: ModelConfig, plain: bool = False,
+                  U_c: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``pallas_tp_cell.py:fused_tp_step``: (h_d, c_d) of one step in the
     accumulation type, with h_full cast to the compute type and c_d to the
     accumulation type first; through ``TPStep`` when autograd needs a
-    gradient, else the forward alone."""
+    gradient, else the forward alone. ``U_c``: U already cast to the
+    compute type, outside autograd (the TP recurrence casts it once a
+    window); cast here when None."""
     af = cuda_cell._acc_dtype(cfg)
     h_c, c_a = h_full.to(cfg.cdtype), c_d.to(af)
+    if U_c is None:
+        U_c = U.detach().to(cfg.cdtype)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (U, xw, h_c, c_a)):
-        return TPStep.apply(U, xw, h_c, c_a, cfg, plain)
+        return TPStep.apply(U, U_c, xw, h_c, c_a, cfg, plain)
     fwd = tp_step_plain if plain else tp_step_fwd
-    return fwd(U, xw, h_c, c_a, cfg)[:2]
+    return fwd(U_c, xw, h_c, c_a, cfg)[:2]

@@ -173,12 +173,15 @@ def _tp_scan_layer(layer, xw, h0_d, c0_d, cfg: ModelConfig,
     h, c = h0_d.to(cfg.pdtype), c0_d.to(cfg.pdtype)
     if backend == "pallas_seq":
         return cuda_tp_seq.tp_seq_lstm(layer.U, xw, h, c, cfg, group, plain)
+    # the per-step family's U in the compute type, cast once a window and
+    # outside autograd (dU goes to layer.U unrounded, as in JAX)
+    U_c = layer.U.detach().to(cfg.cdtype) if backend == "pallas" else None
     hs = []
     for t in range(xw.shape[0]):
         h_full = all_gather(h, 1, group)
         if backend == "pallas":
             h, c = cuda_tp_cell.fused_tp_step(layer.U, xw[t], h_full, c, cfg,
-                                              plain)
+                                              plain, U_c)
         elif backend == "xla":
             g_pre = xw[t] + cell_ops.matmul(h_full, layer.U, cfg.cdtype)
             h, c = cell_ops.cell_step(g_pre, c.to(cfg.adtype), nd,

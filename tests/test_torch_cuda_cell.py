@@ -194,7 +194,7 @@ def test_build_reports_missing_nvcc(monkeypatch):
         "adagrad.cu", "head.cu", "lstm_bwd.cu", "lstm_fwd.cu", "lstm_tiled.cu",
         "lstm_tp.cu", "sampler.cu"]
     assert [os.path.basename(p) for p in _build.headers()] == [
-        "common.cuh", "mma.cuh"]
+        "common.cuh", "fwd_mma.cuh", "mma.cuh"]
 
 
 def test_port_imports_no_jax():
