@@ -10,14 +10,15 @@ Phase 2  runs each kernel against its plain PyTorch version on the card, at
          flagship's weights, in bf16 and fp32: every step of the window
          replayed by the plain version, the whole window, and the bf16
          residual type; prints errors, times, bounds and the cuDNN LSTM's
-         time as a yardstick. K2 in bf16 takes K9's persistent design (one
-         launch a call, gated); its per-step design, forced, is held to the
-         same gates and timed in the same call.
+         time as a yardstick. K1 and K2 in bf16 take the persistent
+         tensor-core forward (one launch a call, gated); their per-step
+         design, forced, is held to the same gates and timed in the same
+         call.
 Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
          the kernels, with the launch counts reset before and read after
-         (K2 one launch a chunk and layer), and once more with K2's
-         per-step design forced (one a step); then kernel against plain on
-         a 4096-byte slice; the same for the 1x512 checkpoint.
+         (K1 one launch a chunk, K2 one a chunk and layer), and once more
+         with K2's per-step design forced (one a step); then kernel against
+         plain on a 4096-byte slice; the same for the 1x512 checkpoint.
 Phase 4  the CLI's sample path: 1000-byte greedy and T = 0.7 samples of
          the flagship (bf16, B = 1) through ``sample_text``, so through the
          generation kernel K7, its launches counted; the loop backend's
@@ -27,7 +28,10 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          (S = 100, B = 128, N = 512, M = 256) with the 1x512 checkpoint's
          weights, in fp32 and bf16: each reverse step of the backward
          replayed from the kernel's own state, the whole window, times,
-         bounds and library yardsticks; K1's time at the same shapes. K3
+         bounds and library yardsticks; K1 at the same shapes without and
+         with dropout, gated as in phase 7a (in bf16 its persistent design
+         with the batch split, one launch a call, beside the unsplit layout
+         and the per-step design, both forced, in the same call). K3
          (the fused VJP) without and with dropout 0.35: in bf16 its
          persistent design (one cooperative launch a window and a tensor-core
          dWU, its bf16 dg its fp32 dg rounded, bit for bit) and, forced, its
@@ -61,9 +65,11 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          plain versions with the flagship's weights, fp32 and bf16, without
          and with dropout: every step replayed, the masked streams against
          the numpy keep-mask bit for bit, the backward with explicit masks;
-         times, bounds, cuDNN yardsticks; K2's design (K9's persistent one
-         in bf16, one launch a call; the per-step one, forced, held to the
-         same gates and timed in the same call); K3's (the GEMM fall-back) and K6's
+         times, bounds, cuDNN yardsticks; K1's and K2's design (the
+         persistent one in bf16, one launch a call; the per-step one and,
+         for K1, the unsplit layout, forced, held to the same gates and
+         timed in the same call; K1's bf16-residual run its fp32 run
+         rounded); K3's (the GEMM fall-back) and K6's
          design (persistent in bf16, per-step in fp32) and launches a call,
          and in bf16 the per-step design held to the same gates on the same
          inputs, the persistent design's reverse launch and tail timed apart
@@ -123,13 +129,15 @@ Phase 10 the last two single-card kernels and the modules of this path:
          every output bit for bit; (c) the port's bench
          at the documented unroll-2 run's configuration (1x512, B = 64),
          with EIGEN_LSTM_BWD_UNROLL=2 (K12, never K3) and without (K3,
-         never K12), K11 once a step, train_bpc equal; (d) ``cli train``
+         never K12), K1 (16 rows a block) and K11 once a step, train_bpc
+         equal; (d) ``cli train``
          at the bench's configuration with ``--crosscheck 50
          --gradcheck-every 100`` (0 failures), then ``Trainer.crosscheck``
          at phase 7c's flagship state; (e) the flagship's loss and eleven
          gradients in fp32 with scan_chunk = 64 against 0, with the peak
          device memory of both; (f) ``evaluate_ensemble_bpc`` of the
-         flagship and the 1x512 checkpoint, kernels against plain.
+         flagship and the 1x512 checkpoint, kernels against plain, K1 one
+         launch a chunk and member, K2 one a chunk and layer.
 Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          kernels: (a) K13 and K14 (the per-step pair) at the flagship's
          shapes as one shard of D = 1, 2 and 4 (K13 in bf16 on tensor
@@ -137,7 +145,9 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          CUDA-core design, forced, held to the same gate and timed in the
          same call), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
-         with every step replayed; K16 in bf16 on K6's persistent kernel
+         with every step replayed (K15 within 1e-4, c_prev[0] = c0; in bf16
+         the persistent tensor-core forward, its cooperative design and the
+         unsplit layout, forced, held to the same gates and timed); K16 in bf16 on K6's persistent kernel
          (one launch a call), its dg, dh0 and dc0 bit for bit K6's
          persistent reverse launch on the same inputs, a call with bf16
          residuals and its cooperative design (forced) held to the replay;
@@ -154,6 +164,11 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
 of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
+
+``python3 chip_smoke.py --gate-spread`` runs instead the gates that stand
+near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
+train_bpc gap) with K1 and K15 in three sum orders (their other design,
+the persistent design unsplit, and split) and prints the spread.
 """
 
 from __future__ import annotations
@@ -402,19 +417,19 @@ def phase2(test, records):
             check_bf16_residuals(f"{name} {dtype}", kern(
                 layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
                 residuals=True), raw_k)
-            persistent = False
-            if kind == "scan":
-                # K2: K9's persistent design in bf16, one launch a call, and
-                # (forced) the per-step design, which fp32 keeps, held to the
-                # same gates on the same inputs and timed in this call
-                design, persistent = tiled_design(cfg, b, n)
-                print(f"  {name} {dtype}: {design}", flush=True)
-                if persistent != (dtype == "bfloat16") or calls != (1 if persistent else s):
-                    fail(f"{name} {dtype}: {design}, {calls} launches a call; "
-                         f"the eval shapes take the persistent design in bf16 "
-                         f"alone, one launch a call (S in fp32)")
+            # K1 and K2: the persistent design in bf16, one launch a call,
+            # and (forced) the per-step design, which fp32 keeps, held to
+            # the same gates on the same inputs and timed in this call
+            design, persistent = (split_design if kind == "embed"
+                                  else tiled_design)(cfg, b, n)
+            print(f"  {name} {dtype}: {design}", flush=True)
+            if persistent != (dtype == "bfloat16") or calls != (1 if persistent else s):
+                fail(f"{name} {dtype}: {design}, {calls} launches a call; "
+                     f"the eval shapes take the persistent design in bf16 "
+                     f"alone, one launch a call (S in fp32)")
             if persistent:
-                with per_step_tiled():
+                with per_step_tiled(SPLIT_PLAN if kind == "embed"
+                                    else ("device_tiled_fwd_plan",)):
                     before = kern.launches
                     raw_s, _, err_s = eval_window_check(
                         name, dtype + " (the per-step design)", kern, plain,
@@ -442,7 +457,7 @@ def phase2(test, records):
                      f"({s} launches)" if persistent else ""), flush=True)
             rec = dict(
                 name=name, route="cuda",
-                source=TILED_SOURCE if persistent else
+                source=FWD_SOURCE if persistent else
                 "eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
                 replaces=replaces, launches=None, max_abs_err=step_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -481,11 +496,13 @@ def eval_window_check(name, tag, kern, plain, layer, seq, h0, c0, cfg):
 
 def eval_check(path, cfg, test, label):
     """Path run at PATH_CHARS through the kernels, then kernel against
-    plain on SLICE_CHARS. Returns the launch counts of the path run."""
+    plain on SLICE_CHARS. Returns the launch counts of the path run and
+    its number of chunks, after gating K1's: one a chunk in its
+    persistent design, one a step in the other."""
     from eigen_lstm_tpu_torch.ops import cuda_cell
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
-    from eigen_lstm_tpu_torch.train.evaluator import evaluate_bpc
+    from eigen_lstm_tpu_torch.train.evaluator import _build_streams, evaluate_bpc
 
     params = load_params(path, cfg, DEVICE)
     kern = select_cell_fn("auto", cfg, EVAL_BATCH, DEVICE)
@@ -507,6 +524,13 @@ def eval_check(path, cfg, test, label):
     for have, need, kname in zip(counts, want, ("embed", "scan")):
         if need and have <= 0:
             fail(f"{label}: the {kname} kernel was not launched on the path")
+    chunks = _build_streams(test, EVAL_BATCH, CHUNK, PATH_CHARS)[-1]
+    design, persistent = split_design(cfg, EVAL_BATCH, cfg.hidden)
+    k1 = chunks * (1 if persistent else CHUNK)
+    print(f"  {label}: K1 in {design}: {counts[0]} launches (the path's "
+          f"{chunks} chunks give {k1})", flush=True)
+    if counts[0] != k1:
+        fail(f"{label}: K1 launched {counts[0]} times, the path gives {k1}")
     bpc_k = evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, SLICE_CHARS, kern)
     bpc_p = evaluate_bpc(params, test, cfg, EVAL_BATCH, CHUNK, SLICE_CHARS, plain)
     rel_p = abs(bpc_k - bpc_p) / bpc_p
@@ -516,24 +540,24 @@ def eval_check(path, cfg, test, label):
           f"(rel {rel_j:.2e}), rtol {BPC_RTOL:g}", flush=True)
     if rel_p > BPC_RTOL or rel_j > BPC_RTOL or bpc_k >= 3.0:
         fail(f"{label}: {SLICE_CHARS}-char bpc out of tolerance")
-    return counts
+    return counts, chunks, bpc_k
 
 
 def phase3(test):
-    """The eval path of both checkpoints; the flagship's K2 in its
-    persistent design (one launch a chunk and layer), then once more with
-    K2's per-step design forced (one a step). Returns the launch counts of
-    the first flagship run and K2's launches in the forced one."""
+    """The eval path of both checkpoints; K1 in its persistent design (one
+    launch a chunk, both checkpoints), the flagship's K2 in its persistent
+    design (one launch a chunk and layer), then once more with K2's
+    per-step design forced (one a step). Returns the launch counts of the
+    first flagship run and K2's launches in the forced one."""
     from eigen_lstm_tpu_torch import ModelConfig
 
     cfg = flagship_cfg("bfloat16")
     label = "flagship 3x1024 bf16"
-    counts = eval_check(FLAGSHIP, cfg, test, label)
+    counts, chunks, _ = eval_check(FLAGSHIP, cfg, test, label)
     with per_step_tiled():
         step_counts = eval_check(FLAGSHIP, cfg, test,
-                                 label + " (K2's per-step design, forced)")
-    # K1 takes one launch a step: counts[0] steps of CHUNK-step chunks
-    chunks, upper = counts[0] // CHUNK, cfg.num_layers - 1
+                                 label + " (K2's per-step design, forced)")[0]
+    upper = cfg.num_layers - 1
     design, persistent = tiled_design(cfg, EVAL_BATCH, cfg.hidden)
     want = (chunks * upper, chunks * upper * CHUNK)
     print(f"  {label}: K2 in {design}: {counts[1]} launches, forced per-step "
@@ -908,16 +932,35 @@ def phase5(records):
         x, tgt = bible_window(gen, s, b)
         rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
         h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
-        # --- K1 at these shapes (forward with residuals), for the breakdown
-        fwd = cuda_cell.embed_layer0(layer, x, h0, c0, cfg, residuals=True)
+        onehot = torch.nn.functional.one_hot(x.long(), m).float()
+        # --- K1 at these shapes, without and with dropout: in bf16 its
+        # persistent design (the batch split, one launch a call) and, in
+        # this call, the unsplit layout and the per-step design (forced)
+        k1_lib = library_ms(m, cfg, onehot, h0, c0)
+        for drop in (0.0, FLAG_DROP):
+            tag = f"{dtype} drop {drop:g}"
+            dr = (drop, FLAG_SEEDS[0]) if drop else None
+            out, rec = fwd_check("lstm_fwd_embed", "embed", cuda_cell.embed_layer0,
+                                 cuda_cell.embed_layer0_plain, layer, x, h0, c0,
+                                 cfg, dr, mask, inv, tag, per_call)
+            k1_designs(layer, x, h0, c0, cfg, dr, mask, inv, tag, out, rec,
+                       per_call["lstm_fwd_embed"])
+            rec.update(replaces=REPLACES["lstm_fwd_embed"], library_ms=k1_lib)
+            print(f"  lstm_fwd_embed {tag}: {rec['ms']:.4f} ms per window "
+                  f"({per_call['lstm_fwd_embed']} launches), plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+                  f"({rec['bound_by']}), cuDNN nn.LSTM "
+                  f"{'n/a' if k1_lib is None else f'{k1_lib:.4f} ms'}"
+                  + design_times(rec, s), flush=True)
+            records[("5", "lstm_fwd_embed", dtype, drop)] = rec
+            if not drop:
+                fwd = out
         h_seq = fwd[0]
-        k1_ms = cuda_ms(lambda: cuda_cell.embed_layer0(
-            layer, x, h0, c0, cfg, residuals=True), reps=10)
+        k1_ms = records[("5", "lstm_fwd_embed", dtype, 0.0)]["ms"]
         # --- K3, in the fused VJP the bench takes, without and with
         # dropout; in bf16 both designs
         dh_seq = rand(s, b, n, sd=1e-3)
         dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
-        onehot = torch.nn.functional.one_hot(x.long(), m).float()
         lib_ms = library_lstm_bwd(cfg, onehot, h0, c0, dh_seq)
         design, persistent = k6_design(cfg, b, n)
         if persistent != (dtype == "bfloat16"):
@@ -1121,7 +1164,9 @@ def compare_paths(label, res, rounded, vs_drift=None):
     tolerances; under bf16 the plain path's drift from its fp32 run is the
     control that must exceed the gate (with ``vs_drift``, the gate is
     ``vs_drift`` times the control instead), and exactly the gradients for
-    which ``rounded(key)`` holds must be bf16 values, on both paths."""
+    which ``rounded(key)`` holds must be bf16 values, on both paths.
+    Returns each bf16 gradient's distance over its control."""
+    ratios = {}
     for dtype in ("float32", "bfloat16"):
         (lk, gk), (lp, gp) = res[(dtype, "cuda")], res[(dtype, "plain")]
         rel = abs(float(lk) - float(lp)) / abs(float(lp))
@@ -1144,6 +1189,7 @@ def compare_paths(label, res, rounded, vs_drift=None):
             exact = [bool((g == g.bfloat16().float()).all())
                      for g in (gk[key], gp[key])]
             line[-1] += f" (control {control:.3e}, {exact[0]}/{exact[1]})"
+            ratios[key] = err / control
             if vs_drift is not None:
                 if not np.isfinite(err) or err > vs_drift * control:
                     fail(f"{label} bf16 gradient {key}: {err:.3e} > "
@@ -1162,6 +1208,7 @@ def compare_paths(label, res, rounded, vs_drift=None):
                     "kernels/plain")
         print(f"  {label} {dtype} gradients against plain, normalised ("
               f"{how}): " + ", ".join(line), flush=True)
+    return ratios
 
 
 def phase6b(per_call):
@@ -1197,7 +1244,8 @@ def phase6b(per_call):
         fail("bench: not on the card")
     if not (np.isfinite(bpc) and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]):
         fail(f"bench: train_bpc {bpc} outside {SANITY_BAND}")
-    want = dict(per_call, lstm_fwd_embed=TRAIN_S, adagrad=1)
+    # K1 as phase 5's bf16 call (its persistent design: one launch a step)
+    want = dict(per_call, adagrad=1)
     for name, n_call in want.items():
         if counts[name] != steps * n_call:
             fail(f"bench: {name} launched {counts[name]} times, the path's "
@@ -1337,18 +1385,18 @@ def phase6c():
     """TRAJ_STEPS steps of the bench's Trainer in fp32 through the kernels.
     At every step the loss and five gradients through the plain versions,
     from the kernel run's own state, are gated; a second run through the
-    plain versions alone is printed beside it. Returns the launches of K3,
-    whose per-step design fp32 takes."""
+    plain versions alone is printed beside it. Returns the launches of K3
+    and K1, whose per-step designs fp32 takes."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
-    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
 
     runs = [bench.make_trainer(build_parser().parse_args(
         bench.DEFAULT_ARGV + ["--dtype", "float32", "--backend", backend]))
         for backend in ("cuda", "plain")]
-    k3 = cuda_cell_bwd.embed_layer0_bwd
-    k3.launches = 0
+    k3, k1 = cuda_cell_bwd.embed_layer0_bwd, cuda_cell.embed_layer0
+    k3.launches = k1.launches = 0
     states = [tr.state for tr in runs]
     k_steps = runs[0].tcfg.superstep
     worst, bits = {}, [[], []]
@@ -1399,7 +1447,13 @@ def phase6c():
     if per_call != int(per_call) or per_call <= TRAIN_S:
         fail(f"steps fp32: K3 launched {k3.launches} times in {TRAJ_STEPS} "
              f"steps, not the per-step design's count")
-    return k3.launches
+    # and two K1 calls a step in its per-step design, which fp32 keeps
+    print(f"  steps fp32: K1 {k1.launches} launches (the per-step design)",
+          flush=True)
+    if k1.launches != 2 * TRAJ_STEPS * TRAIN_S:
+        fail(f"steps fp32: K1 launched {k1.launches} times, the per-step "
+             f"design gives {2 * TRAJ_STEPS * TRAIN_S}")
+    return k3.launches, k1.launches
 
 
 # --- the flagship's training (S = 256, B = 128, N = 1024, M = 256) ---------
@@ -1500,6 +1554,56 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
     return out, dict(name=name, route="cuda", source=source,
                      launches=None, max_abs_err=step_err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_designs(layer, x, h0, c0, cfg, dropout, mask, inv, tag, out, rec,
+               calls):
+    """K1 at training shapes beyond ``fwd_check`` (its output ``out``, its
+    record ``rec`` and launches ``calls`` of that call): the design and
+    launches a call (the persistent one in bf16, one launch; S in fp32);
+    the bf16-residual run the fp32 run rounded, bit for bit; in bf16 the
+    per-step design and the unsplit layout (both forced) held to
+    ``fwd_check``'s gates on the same inputs and timed in this call
+    (``rec["per_step_ms"]``, ``rec["unsplit_ms"]``)."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+
+    s, b = x.shape
+    design, persistent = split_design(cfg, b, cfg.hidden)
+    print(f"  lstm_fwd_embed {tag}: {design}", flush=True)
+    if persistent != (cfg.cdtype == torch.bfloat16) or calls != (1 if persistent else s):
+        fail(f"lstm_fwd_embed {tag}: {design}, {calls} launches a call; these "
+             f"shapes take the persistent design in bf16 alone, one launch a "
+             f"call (S in fp32)")
+    kern, plain = cuda_cell.embed_layer0, cuda_cell.embed_layer0_plain
+    check_bf16_residuals(f"lstm_fwd_embed {tag}", kern(
+        layer, x, h0, c0, dataclasses.replace(cfg, residual_dtype="bfloat16"),
+        residuals=True, dropout=dropout), out)
+    if not persistent:
+        return
+    rec["source"] = FWD_SOURCE
+    for key, label, force, want in (
+            ("per_step_ms", "the per-step design", per_step_tiled(SPLIT_PLAN), s),
+            ("unsplit_ms", "the unsplit layout", unsplit_fwd(), 1)):
+        other = {}
+        with force:
+            fwd_check("lstm_fwd_embed", "embed", kern, plain, layer, x, h0, c0,
+                      cfg, dropout, mask, inv, f"{tag} ({label})", other,
+                      timed=False)
+            rec[key] = cuda_ms(lambda: kern(layer, x, h0, c0, cfg, residuals=True,
+                                            dropout=dropout), reps=2, windows=3)
+        if other["lstm_fwd_embed"] != want:
+            fail(f"lstm_fwd_embed {tag}, {label}: {other['lstm_fwd_embed']} "
+                 f"launches a call, not {want}")
+
+
+def design_times(rec, s):
+    """The other designs' times of a record, as a line's suffix."""
+    out = ""
+    if "unsplit_ms" in rec:
+        out += f"; the unsplit layout {rec['unsplit_ms']:.4f} ms"
+    if "per_step_ms" in rec:
+        out += f"; the per-step design {rec['per_step_ms']:.4f} ms ({s} launches)"
+    return out + (" in this call" if out else "")
 
 
 def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
@@ -1688,6 +1792,8 @@ def phase7a(records):
             out1, rec1 = fwd_check("lstm_fwd_embed", "embed", cuda_cell.embed_layer0,
                                    cuda_cell.embed_layer0_plain, l0, x, h0, c0,
                                    cfg, dr[0], masks[0], inv, tag, per_call)
+            k1_designs(l0, x, h0, c0, cfg, dr[0], masks[0], inv, tag, out1, rec1,
+                       per_call["lstm_fwd_embed"])
             h_in = (out1[4] if drop else out1[0]).float()
             xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
                   .reshape(s, b, 4 * n) + l1.b)
@@ -1705,7 +1811,7 @@ def phase7a(records):
             if persistent2:
                 # K2's per-step design, which fp32 keeps, held to the same
                 # gates on the same inputs and timed in this call
-                rec2["source"] = TILED_SOURCE
+                rec2["source"] = FWD_SOURCE
                 step_call = {}
                 with per_step_tiled():
                     fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
@@ -1749,9 +1855,7 @@ def phase7a(records):
                       f"({rec['bound_by']}), cuDNN nn.LSTM "
                       f"{'backward ' if 'bwd' in rec['name'] else ''}"
                       f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
-                      + (f"; the per-step design {rec['per_step_ms']:.4f} ms "
-                         f"in this call ({s} launches)"
-                         if rec is rec2 and "per_step_ms" in rec else ""),
+                      + (design_times(rec, s) if rec is rec1 or rec is rec2 else ""),
                       flush=True)
         # the heads at these shapes (T = S*B, N = 1024): launches and times
         t = s * b
@@ -1788,7 +1892,8 @@ def phase7a(records):
 def phase7b():
     """The flagship's ``loss_fn`` with dropout on one bible.txt window, from
     ckpt_best.npz's weights and stream state, fixed layer seeds: the loss
-    and all eleven gradients through the kernels against the plain path."""
+    and all eleven gradients through the kernels against the plain path.
+    Returns each bf16 gradient's distance over its control."""
     from eigen_lstm_tpu_torch.models.lstm import step_key
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
@@ -1808,8 +1913,9 @@ def phase7b():
                                                cell_fn, key)
             res[(dtype, backend)] = (loss, dict(grads.named_tensors()))
     torch.cuda.synchronize()
-    compare_paths("flagship loss_fn", res, lambda k: k.endswith(FLAG_ROUNDED),
-                  vs_drift=FLAG_BF16_VS_DRIFT)
+    return compare_paths("flagship loss_fn", res,
+                         lambda k: k.endswith(FLAG_ROUNDED),
+                         vs_drift=FLAG_BF16_VS_DRIFT)
 
 
 def plain64_cell_fn():
@@ -2336,6 +2442,50 @@ def per_step_tiled(names=("device_tiled_fwd_plan",)):
             setattr(ct, name, plan)
 
 
+# K1's and K15's plan (``cuda_cell_tiled.split_fwd_plan``), the name that
+# ``per_step_tiled`` replaces to force their other design
+SPLIT_PLAN = ("device_split_fwd_plan",)
+# the persistent tensor-core forward: K2, K8, K9 and, in bf16, K1 and K15
+FWD_SOURCE = "eigen_lstm_tpu_torch/csrc/fwd_mma.cuh"
+
+
+def split_design(cfg, b, n):
+    """K1's and K15's design at these shapes on this card, as their
+    wrappers choose it (``cuda_cell_tiled.split_fwd_plan``): a label, and
+    whether it is persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (PERSIST_UNITS,
+                                                          device_split_fwd_plan)
+
+    layout = device_split_fwd_plan(cfg, b, n)
+    if layout is None:
+        return "its other design (K1: one launch a step; K15: cooperative)", False
+    kres, rows = layout
+    return (f"the persistent design ({n // PERSIST_UNITS} x {-(-b // rows)} "
+            f"blocks of {PERSIST_UNITS} units and {rows} batch rows, {kres} of "
+            f"U's {n} rows in shared memory, one cooperative launch a "
+            f"window)"), True
+
+
+@contextlib.contextmanager
+def unsplit_fwd():
+    """K1's and K15's wrappers take the persistent design with every batch
+    row in a block (K2's layout, ``tiled_fwd_plan``) inside the block: the
+    control of their split layout."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    plan = ct.device_split_fwd_plan
+
+    def unsplit(cfg, b, n):
+        kres = ct.device_tiled_fwd_plan(cfg, b, n)
+        return None if kres is None else (kres, b)
+
+    ct.device_split_fwd_plan = unsplit
+    try:
+        yield
+    finally:
+        ct.device_split_fwd_plan = plan
+
+
 def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
                      per_call, timed=True):
     """K8, then K9 on layer 1's xw from K8's stream, through the
@@ -2347,16 +2497,18 @@ def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
 
     s, b = x.shape
     n = cfg.hidden
+    # the persistent design's kernel (bf16) lives in fwd_mma.cuh
+    source = FWD_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_SOURCE
     out1, rec8 = fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
                            ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg,
-                           dr[0], masks[0], inv, tag, per_call, TILED_SOURCE,
+                           dr[0], masks[0], inv, tag, per_call, source,
                            run_cfg, timed)
     h_in = (out1[4] if dr[0] else out1[0]).float()
     xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
           .reshape(s, b, 4 * n) + l1.b)
     out2, rec9 = fwd_check("tiled_fwd_scan", "scan", ct.tiled_scan_layer,
                            ct.tiled_scan_layer_plain, l1, xw, h0, c0, cfg,
-                           dr[1], masks[1], inv, tag, per_call, TILED_SOURCE,
+                           dr[1], masks[1], inv, tag, per_call, source,
                            run_cfg, timed)
     if run_cfg is not cfg:
         for name, fn, lay_, seq, d, ref in (
@@ -2979,14 +3131,19 @@ def phase10c(per_call, records):
 
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
-    from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell_bwd as cb
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad, cuda_cell, cuda_cell_bwd as cb
 
     args = build_parser().parse_args(bench.DEFAULT_ARGV + U2_ARGV)
     warmup, windows, per_window = bench.schedule(args)
     steps = (warmup + windows * per_window) * args.superstep
-    counters = {"lstm_bwd_embed": cb.embed_layer0_bwd,
+    counters = {"lstm_fwd_embed": cuda_cell.embed_layer0,
+                "lstm_bwd_embed": cb.embed_layer0_bwd,
                 "lstm_bwd_embed_unroll2": cb.embed_layer0_bwd_unroll2,
                 "adagrad": cuda_adagrad.adagrad_update_fused}
+    # K1 at B = 64: the persistent design (16 rows a block), one launch a step
+    design, persistent = split_design(train_cfg("bfloat16"), args.batch, 512)
+    k1 = steps * (1 if persistent else TRAIN_S)
+    print(f"  bench B=64: K1 in {design}", flush=True)
     runs = {}
     for unroll in ("2", "1"):
         os.environ["EIGEN_LSTM_BWD_UNROLL"] = unroll
@@ -3004,10 +3161,10 @@ def phase10c(per_call, records):
               flush=True)
         print(f"  bench B=64 unroll {unroll}: {steps} steps, {step_ms:.3f} ms a "
               f"step (median window), launches {counts}", flush=True)
-    want = {"2": dict(lstm_bwd_embed=0,
+    want = {"2": dict(lstm_fwd_embed=k1, lstm_bwd_embed=0,
                       lstm_bwd_embed_unroll2=steps * per_call["K12"],
                       adagrad=steps),
-            "1": dict(lstm_bwd_embed=steps * per_call["K3"],
+            "1": dict(lstm_fwd_embed=k1, lstm_bwd_embed=steps * per_call["K3"],
                       lstm_bwd_embed_unroll2=0, adagrad=steps)}
     for unroll, (result, counts, _) in runs.items():
         if counts != want[unroll]:
@@ -3118,12 +3275,18 @@ def phase10f(test):
     from eigen_lstm_tpu_torch.ops import cuda_cell
     from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
-    from eigen_lstm_tpu_torch.train.evaluator import (evaluate_bpc,
+    from eigen_lstm_tpu_torch.train.evaluator import (_build_streams, evaluate_bpc,
                                                       evaluate_ensemble_bpc)
 
     cfgs = ((FLAGSHIP, flagship_cfg("bfloat16")),
             (H512, ModelConfig(hidden=512, num_layers=1, compute_dtype="bfloat16")))
     params = [load_params(path, cfg, DEVICE) for path, cfg in cfgs]
+    # each chunk runs K1 once per member (one launch in its persistent
+    # design, CHUNK in the other) and K2 once per layer >= 1 of the flagship
+    chunks = _build_streams(test, EVAL_BATCH, CHUNK, SLICE_CHARS)[-1]
+    k1 = sum(chunks * (1 if split_design(cfg, EVAL_BATCH, cfg.hidden)[1] else CHUNK)
+             for _, cfg in cfgs)
+    k2 = chunks * (cfgs[0][1].num_layers - 1)
     bpc = {}
     for backend in ("auto", "plain"):
         members = [(p, cfg, select_cell_fn(backend, cfg, EVAL_BATCH, DEVICE))
@@ -3134,19 +3297,18 @@ def phase10f(test):
         ens = evaluate_ensemble_bpc(members, test, EVAL_BATCH, CHUNK, SLICE_CHARS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        emb, scan = cuda_cell.launches()
         singles = [evaluate_bpc(p, test, cfg, EVAL_BATCH, CHUNK, SLICE_CHARS, cf)
                    for p, cfg, cf in members]
         bpc[backend] = ens
-        emb, scan = cuda_cell.launches()
         print(f"  ensemble ({backend}): {ens:.6f} bits/char over {SLICE_CHARS} "
               f"bytes in {dt:.2f} s (launches {(emb, scan)} before the "
               f"single runs); flagship alone {singles[0]:.6f}, 1x512 alone "
               f"{singles[1]:.6f}", flush=True)
-        # K1 a step of each member's chunks, K2 (persistent in bf16) a chunk
-        # of the flagship's two layers >= 1: scan * CHUNK == emb
-        if (backend == "auto") != (emb > 0) or scan * CHUNK != emb:
+        want = (k1, k2) if backend == "auto" else (0, 0)
+        if (emb, scan) != want:
             fail(f"ensemble ({backend}): launches {(emb, scan)}; the path "
-                 f"gives K2 one launch a chunk and layer, K1 one a step")
+                 f"gives {want}")
     rel = abs(bpc["auto"] - bpc["plain"]) / bpc["plain"]
     print(f"  ensemble kernels against plain: rel {rel:.2e} (rtol {BPC_RTOL:g})",
           flush=True)
@@ -3397,19 +3559,24 @@ def phase11a(records):
         xw = layer.W[x.long()] + layer.b
         h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
         U_c = layer.U.to(cfg.cdtype)
-        fwd_k = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
+        design15, persistent15 = split_design(cfg, b, n)
+        print(f"  K15 {dtype}: {design15}", flush=True)
+        if persistent15 != (dtype == "bfloat16"):
+            fail(f"K15 {dtype}: {design15}; the persistent design in bf16 alone")
+        fwd_k, step_err = k15_check(ts, tc, U_c, xw, h0, c0, cfg, dtype)
         fwd_p = ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg)
         h_seq, g_seq, c_prev, hT, cT = fwd_k
-        # every step from the kernel's own (h_{t-1}, c_{t-1}), as S*B rows
-        h_prev = torch.cat([h0[None], h_seq[:-1]]).reshape(s * b, n)
-        h2, c2, g = tc.tp_step_plain(U_c, xw.reshape(s * b, 4 * n),
-                                     h_prev.to(cfg.cdtype),
-                                     c_prev.reshape(s * b, n), cfg)
-        c_next = torch.cat([c_prev[1:], cT[None]]).reshape(s * b, n)
-        step_err = max(norm_err(h_seq.reshape(s * b, n), h2),
-                       norm_err(c_next, c2), norm_err(g_seq.reshape(s * b, 4 * n), g),
-                       norm_err(hT, h2[-b:]))
         win = [norm_err(a, p) for a, p in zip(fwd_k, fwd_p)]
+        others15 = {}
+        if persistent15:
+            # the cooperative design, which fp32 keeps, and the unsplit
+            # layout, held to the same gates and timed in this call
+            for key, force in (("cooperative", per_step_tiled(SPLIT_PLAN)),
+                               ("unsplit", unsplit_fwd())):
+                with force:
+                    k15_check(ts, tc, U_c, xw, h0, c0, cfg, f"{dtype} ({key})")
+                    others15[key] = cuda_ms(
+                        lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
         dh_seq = rand(s, b, n, sd=1e-2)
         dhT, dcT = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
         bargs = (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg)
@@ -3421,8 +3588,7 @@ def phase11a(records):
         torch.cuda.synchronize()
         bstep = max(norm_err(a, p) for a, p in zip(bwd_k, rep))
         bwin = [norm_err(a, p) for a, p in zip(bwd_k, bwd_p)]
-        print(f"  K15 {dtype}: every step within {step_err:.3e} of its plain replay "
-              f"(tol {TRAIN_TOL:g}); the window against plain (h_seq, g, c_prev, hT, "
+        print(f"  K15 {dtype}: the window against plain (h_seq, g, c_prev, hT, "
               f"cT): " + ", ".join(f"{e:.3e}" for e in win), flush=True)
         print(f"  K16 {dtype}: every reverse step, dh0, dc0 within {bstep:.3e} of the "
               f"plain replay from its own dg (tol {TRAIN_TOL:g}); the window against "
@@ -3431,11 +3597,10 @@ def phase11a(records):
         if not all(np.isfinite(e) and e <= TRAIN_TOL for e in gated):
             fail(f"K15/K16 {dtype}: replay {step_err:.3e}/{bstep:.3e}, windows "
                  f"{win} {bwin} (the windows gated in fp32 only)")
-        for name, counter in (("K15", ts.tp_seq_fwd), ("K16", ts.tp_seq_bwd)):
-            before = counter.launches
-            (ts.tp_seq_fwd(U_c, xw, h0, c0, cfg) if name == "K15" else ts.tp_seq_bwd(*bargs))
-            if counter.launches - before != 1:
-                fail(f"{name}: {counter.launches - before} launches a call")
+        before = ts.tp_seq_bwd.launches
+        ts.tp_seq_bwd(*bargs)
+        if ts.tp_seq_bwd.launches - before != 1:
+            fail(f"K16: {ts.tp_seq_bwd.launches - before} launches a call")
         coop16 = k16_designs(bwd_k, bargs, cfg) if dtype == "bfloat16" else None
         ms15 = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
         plain15 = cuda_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg), reps=1, windows=3)
@@ -3451,19 +3616,56 @@ def phase11a(records):
         print(f"  K15 {dtype}: {ms15:.4f} ms a window (1 launch), bound {b15[0]:.5f} ms "
               f"({b15[1]}), plain {plain15:.4f} ms, cuDNN nn.LSTM "
               f"{'n/a' if lib15 is None else f'{lib15:.4f} ms'}; {s} launches of K13 "
-              f"at these shapes {per_step:.4f} ms", flush=True)
+              f"at these shapes {per_step:.4f} ms"
+              + "".join(f"; the {k} design {v:.4f} ms in this call"
+                        for k, v in others15.items()), flush=True)
         print(f"  K16 {dtype}: {ms16:.4f} ms a window (1 launch), bound {b16[0]:.5f} ms "
               f"({b16[1]}), plain {plain16:.4f} ms, cuDNN nn.LSTM backward "
               f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}"
               + ("" if coop16 is None else
                  f"; the cooperative CUDA-core design {coop16:.4f} ms"), flush=True)
-        records[("11a", "tp_seq_fwd", dtype)] = _tp_record(
-            "tp_seq_fwd", step_err, ms15, plain15, b15, lib15)
+        records[("11a", "tp_seq_fwd", dtype)] = dict(_tp_record(
+            "tp_seq_fwd", step_err, ms15, plain15, b15, lib15), **others15)
+        if persistent15:   # the persistent tensor-core forward
+            records[("11a", "tp_seq_fwd", dtype)]["source"] = FWD_SOURCE
         records[("11a", "tp_seq_bwd", dtype)] = _tp_record(
             "tp_seq_bwd", bstep, ms16, plain16, b16, lib16)
         if coop16 is not None:   # bf16: K6's persistent kernel
             records[("11a", "tp_seq_bwd", dtype)]["source"] = BWD_SOURCE
         records[("11a", "k13x100", dtype)] = per_step
+
+
+def k15_check(ts, tc, U_c, xw, h0, c0, cfg, tag):
+    """One call of K15 with every step replayed by K13's plain version from
+    the kernel's own (h_{t-1}, c_{t-1}) as S*B rows: h_seq, g, c_{t+1} (the
+    next step's c_prev, cT at the last) and hT within STEP_ATOL and, as
+    before, TRAIN_TOL normalised; c_prev[0] is c0 in the residual type, bit
+    for bit; one launch a call. Returns (the output, the normalised
+    error)."""
+    s, b, n4 = xw.shape
+    n = n4 // 4
+    before = ts.tp_seq_fwd.launches
+    out = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
+    calls = ts.tp_seq_fwd.launches - before
+    h_seq, g_seq, c_prev, hT, cT = out
+    h_prev = torch.cat([h0[None], h_seq[:-1]]).reshape(s * b, n)
+    h2, c2, g = tc.tp_step_plain(U_c, xw.reshape(s * b, n4), h_prev.to(cfg.cdtype),
+                                 c_prev.reshape(s * b, n), cfg)
+    c_next = torch.cat([c_prev[1:], cT[None]]).reshape(s * b, n)
+    pairs = ((h_seq.reshape(s * b, n), h2), (c_next, c2),
+             (g_seq.reshape(s * b, n4), g), (hT, h2[-b:]))
+    torch.cuda.synchronize()
+    rel = max(norm_err(a, p) for a, p in pairs)
+    err = max(max_err(a, p)[0] for a, p in pairs)
+    first = torch.equal(c_prev[0], c0.to(c_prev.dtype))
+    print(f"  K15 {tag}: every step within {err:.3e} of its plain replay (atol "
+          f"{STEP_ATOL:g}; normalised {rel:.3e}, tol {TRAIN_TOL:g}); c_prev[0] "
+          f"{'is' if first else 'is NOT'} c0; {calls} launch a call", flush=True)
+    if not (np.isfinite(err) and err <= STEP_ATOL and rel <= TRAIN_TOL) \
+            or not first or calls != 1:
+        fail(f"K15 {tag}: replay {err:.3e} ({rel:.3e}), c_prev[0] = c0 {first}, "
+             f"{calls} launches a call")
+    return out, rel
 
 
 def k16_designs(out, bargs, cfg):
@@ -3746,7 +3948,7 @@ def main():
     check_budget("phase 6b (the bench)")
     phase6d(own_bpc)
     check_budget("phase 6d (the bench from the JAX start)")
-    k3_fp32_launches = phase6c()
+    k3_fp32_launches, k1_fp32_launches = phase6c()
     check_budget("phase 6c (100 fp32 training steps)")
     flag_call = phase7a(records)
     check_budget("phase 7a (flagship training kernels against plain)")
@@ -3787,13 +3989,16 @@ def main():
         kernels.append(dict({key: rec[key] for key in KERNEL_KEYS},
                             launches=launches, **kw))
 
-    # K2 in both designs on the flagship's eval path (phase 3): the
-    # persistent one, and the per-step one forced
+    # K1 and K2 on the flagship's eval path (phase 3): K2 in both designs,
+    # the persistent one and the per-step one forced
     for name, count in (("lstm_fwd_embed", emb), ("lstm_fwd_scan", scan),
                         ("lstm_fwd_scan_per_step", scan_step),
                         ("head_fwd", counts["head_fwd"]),
                         ("head_bwd", counts["head_bwd"])):
         add(records[(name, "bfloat16")], count)
+    # K1's per-step design, which fp32 keeps, on 6c's fp32 steps
+    add(records[("lstm_fwd_embed", "float32")], k1_fp32_launches,
+        name="lstm_fwd_embed_per_step")
     # K3 in both designs: the persistent one on the bench (6b, bf16), the
     # per-step one on its fp32 steps (6c)
     add(records[("lstm_bwd_embed", "bfloat16", 0.0)], counts["lstm_bwd_embed"])
@@ -3827,5 +4032,71 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def _cli_bpc(argv):
+    """train_bpc of ``_tp_run(argv, TP_STEPS)``, its TP group closed."""
+    trainer = None
+    try:
+        *_, bpc, _, trainer = _tp_run(argv, TP_STEPS)
+    finally:
+        if trainer is not None and trainer.tp is not None:
+            trainer.tp.group.close()
+    return bpc
+
+
+def gate_spread():
+    """``python3 chip_smoke.py --gate-spread``: the gates that stand near
+    their noise read with K1 and K15 in three sum orders, their other
+    design forced (K1 per-step, K15 cooperative), the persistent design
+    with every batch row in a block, and split (the main path's): phase
+    3's flagship bits against the JAX package's, 7b's bf16 gradients over
+    their controls (gate 2), 11b's train_bpc of ``--tp 1`` (K15) and of the
+    per-step TP family (K13/K14, once) against the single device's (K1;
+    gate 0.05). Each gate applies as in the main run; the spread over the
+    orders is printed."""
+    import os
+
+    from eigen_lstm_tpu_torch.data.corpus import rawread, split
+
+    phase0()
+    phase1()
+    test = split(rawread(CORPUS), 0.95)[1]
+    os.environ["EIGEN_LSTM_TP_SEQ"] = "0"
+    try:
+        tp_step = _cli_bpc(TP_ARGV + ["--tp", "1"])
+    finally:
+        del os.environ["EIGEN_LSTM_TP_SEQ"]
+    rows = {}
+    for order, force in (("other design", lambda: per_step_tiled(SPLIT_PLAN)),
+                         ("unsplit", unsplit_fwd),
+                         ("split", contextlib.nullcontext)):
+        with force():
+            bpc = eval_check(FLAGSHIP, flagship_cfg("bfloat16"), test,
+                             f"flagship 3x1024 bf16 ({order})")[2]
+            ratios = phase7b()
+            single = _cli_bpc(TP_ARGV)
+            tp_seq = _cli_bpc(TP_ARGV + ["--tp", "1"])
+        rows[order] = dict(
+            bits=bpc, rel_jax=abs(bpc - JAX_BPC[FLAGSHIP]) / JAX_BPC[FLAGSHIP],
+            ratio_max=max(ratios.values()), single=single, tp_seq=tp_seq,
+            gap_seq=abs(tp_seq - single), gap_step=abs(tp_step - single))
+        print(f"  gate spread, K1/K15 {order}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in rows[order].items())
+            + "; 7b: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()),
+            flush=True)
+        if rows[order]["gap_seq"] > TP_BPC_TOL or rows[order]["gap_step"] > TP_BPC_TOL:
+            fail(f"gate spread ({order}): 11b's gap past {TP_BPC_TOL:g}")
+    print(f"  gate spread: the per-step TP family's train_bpc {tp_step:.6g}; "
+          "over the three orders: " + ", ".join(
+              f"{k} {min(r[k] for r in rows.values()):.6g} to "
+              f"{max(r[k] for r in rows.values()):.6g}" for k in rows["split"]),
+          flush=True)
+    print(json.dumps({"gate_spread": rows}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--gate-spread"]:
+        gate_spread()
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}; the one option is --gate-spread")
+    else:
+        main()

@@ -1,17 +1,18 @@
-// The tensor-core forward step, shared by the persistent forward of
-// lstm_tiled.cu (tiled_fwd_persist: K8, K9, and K2 under bf16 compute) and
-// the tensor-core K13 of lstm_tp.cu (tp_step_fwd_mma): one block's product
-// of a step,
+// The tensor-core forward of the port: the step, shared by the persistent
+// forward below (fwd_persist: K8, K9, and under bf16 compute K1, K2 and, at
+// D = 1, K15) and the tensor-core K13 of lstm_tp.cu (tp_step_fwd_mma): one
+// block's product of a step,
 //
 //   acc = round(h)[b0 .. b0 + rows) @ U[:, the block's 4 x kFUnits columns]
 //
 // with h (B, K) and U (K, 4 gs) in bf16, and the loads of its input term.
 // A block owns kFUnits = 16 hidden units j0.. with their four gate columns
-// gate * gs + j0 + u (gs: the gate stride, N for K8/K9, the shard width nd
-// for K13) and `rows` batch rows b0.. (rows past B zero-filled, their
-// results dropped). Its slice of U is stored [k][gate][unit]: the first
-// kres rows may sit in shared memory (the persistent design holds them for
-// a window), the rest stream through the ring beside the round(h) chunks.
+// gate * gs + j0 + u (gs: the gate stride, N for the persistent forward,
+// the shard width nd for K13) and `rows` batch rows b0.. (rows past B
+// zero-filled, their results dropped). Its slice of U is stored
+// [k][gate][unit]: the first kres rows may sit in shared memory (the
+// persistent design holds them for a window), the rest stream through the
+// ring beside the round(h) chunks.
 // Each chunk of kFKC k rows arrives by cp.async (L2 only: in the persistent
 // design other blocks wrote h before the grid barrier) into a ring of
 // kFStages slots. The 8 warps form a WM x WK grid: warp (wm, wk) takes the
@@ -26,8 +27,11 @@
 // fwd_unit(uh, e).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -241,6 +245,192 @@ __device__ __forceinline__ void fwd_products(const FwdTile& f,
           for (int x = 0; x < 4; ++x)
             acc[nt][x] += red[((size_t)(f.wm + k * f.WM) * 32 + 4 * nt + x) * 32 + lane];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent forward: one cooperative launch for the S steps of a window
+// (bf16 compute; ops/cuda_cell_tiled.py:fwd_layout chooses it and its
+// layout). Each step is the tensor-core step above with the gate stride N.
+// The grid is (N / kFUnits) x ceil(B / rows) blocks, at most what is
+// resident: a block owns 16 hidden units and `rows` batch rows (all B for
+// K8, K9 and K2; fewer for K1 and K15 where N / 16 blocks would leave most
+// SMs idle: ops/cuda_cell_tiled.py:split_rows); as many rows of its N x 64
+// slice of U as fit beside the ring stay in shared memory for the window,
+// the rest stream every step with the block's rows of round(h_{t-1})
+// through the ring. The epilogue runs in the owners' registers: the W-row
+// gather and the bias (EMBED) or the input stream (loaded for step t + 1
+// before the barrier that precedes it), the gates, the cell, the carry c
+// (in registers for the whole window), round(h_t) into the other half of
+// hc. A grid barrier closes each step.
+//
+// Two sets of streams. K8, K9, K1 and K2 (TP false): the input stream xw
+// in bf16, the sum (acc + W_row) + b or acc + xw_t, h_seq, c_seq = c_t, the
+// activated gates and the masked stream in the residual type RT. K15 at
+// D = 1 (TP true, lstm_tp.cu:tp_seq_fwd_launch): xw in fp32 with the bias
+// folded in, the sum acc + xw_t, h_seq in fp32 (K15's param type), and in
+// cseq c_prev[t] = c_{t-1}, the carry before the step's update, in RT; no
+// dropout. hc holds round(h0) in its first half on entry in both.
+constexpr int kMaxDevices = 64;
+
+template <typename RT, bool EMBED, bool TP,
+          typename XT = typename std::conditional<TP, float, __nv_bfloat16>::type,
+          typename HT = typename std::conditional<TP, float, RT>::type>
+__global__ void __launch_bounds__(kFThreads, 1)
+fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
+            const XT* __restrict__ xw,             // (S, B, 4N), !EMBED
+            const __nv_bfloat16* __restrict__ W,   // (M, 4N), EMBED
+            const float* __restrict__ bias,        // (4N,), EMBED
+            const int* __restrict__ ids,           // (S, B), EMBED
+            // (2, B, N) round(h): written and read within the launch, so
+            // neither const nor __restrict__ (no non-coherent loads)
+            __nv_bfloat16* hc,
+            float* __restrict__ c,      // (B, N): c0 in, cT out
+            float* __restrict__ hT,     // (B, N)
+            HT* __restrict__ hseq,      // (S, B, N)
+            RT* __restrict__ cseq,      // (S, B, N) or null
+            RT* __restrict__ gseq,      // (S, B, 4N) or null
+            RT* __restrict__ hdrop,     // (S, B, N) under dropout
+            Dropout drop, int S, int B, int N, int rows, int kres, int standard) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Us + (size_t)kres * kFUPitch;
+  const FwdTile f = fwd_mma_tile(N, N, blockIdx.x * kFUnits, blockIdx.y * rows, B, rows);
+  const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  for (int e = threadIdx.x; e < kres * 8; e += kFThreads)
+    fwd_u_copy(f, U, Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
+  cp_async_commit();
+
+  // this thread's (b, j), when it is an owner: p = 4 hh + 2 uh + e for
+  // row fwd_row(hh) and unit fwd_unit(uh, e); acc[2 gate + uh][2 hh + e]
+  // holds its gate sum, bs[gate][2 uh + e] its bias
+  float cr[8], pin[8][4], bs[4][4];
+  const auto load_inputs = [&](int t) {
+    if (EMBED)
+      fwd_inputs<__nv_bfloat16>(
+          f, [&](int b) { return W + (size_t)ids[(size_t)t * B + b] * n4; }, pin);
+    else
+      fwd_inputs<XT>(f, [&](int b) { return xw + ((size_t)t * B + b) * n4; }, pin);
+  };
+  if (f.owner) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int b = fwd_row(f, p / 4);
+      cr[p] = b < B ? c[(size_t)b * N + fwd_unit(f, (p / 2) % 2, p % 2)] : 0.0f;
+    }
+    if (EMBED)
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          bs[gate][u] = bias[(size_t)gate * N + fwd_unit(f, u / 2, u % 2)];
+    load_inputs(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int cres = kres / kFKC;
+  for (int t = 0; t < S; ++t) {
+    const __nv_bfloat16* hin = hc + (size_t)(t % 2) * bn;
+    __nv_bfloat16* hout = hc + (size_t)((t + 1) % 2) * bn;
+    float acc[8][4];
+    fwd_products(f, U, hin, Us, cres, ring, acc);
+    if (f.owner) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int hh = p / 4, uh = (p / 2) % 2, e = p % 2;
+        const int b = fwd_row(f, hh);
+        if (b >= B) continue;
+        const int j = fwd_unit(f, uh, e);
+        float gate[4];
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) {
+          float s = acc[2 * gt + uh][2 * hh + e];
+          s = EMBED ? (s + pin[p][gt]) + bs[gt][2 * uh + e] : s + pin[p][gt];
+          gate[gt] = gt < 3 ? sigmoid(s) : tanhf(s);
+        }
+        const size_t idx = (size_t)b * N + j, ts = (size_t)t * bn;
+        if (TP && cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cr[p]);
+        float h, cc;
+        cell(gate, cr[p], standard, &h, &cc);
+        cr[p] = cc;
+        hout[idx] = __float2bfloat16(h);
+        hseq[ts + idx] = from_f32<HT>(h);
+        if (!TP && drop.on)
+          hdrop[ts + idx] = from_f32<RT>(keep_bit(drop, t, idx) ? h * drop.inv : 0.0f);
+        if (!TP && cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cc);
+        if (gseq != nullptr)
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt)
+            gseq[4 * ts + (size_t)b * n4 + (size_t)gt * N + j] = from_f32<RT>(gate[gt]);
+        if (t == S - 1) {
+          hT[idx] = h;
+          c[idx] = cc;
+        }
+      }
+      if (t + 1 < S) load_inputs(t + 1);
+    }
+    if (t + 1 < S) grid.sync();  // h_t is complete before any block reads it
+  }
+}
+
+// One cooperative launch of fwd_persist<RT, EMBED, TP> on `stream`, rows
+// batch rows a block (rows >= B: one block row; else a multiple of 16) and
+// kres rows of U held. Returns 0 and adds the launch to *launches, or the
+// error (the grid must be resident at once, or its barrier never opens).
+template <typename RT, bool EMBED, bool TP>
+int run_fwd_persist(const void* U, const void* xw, const void* W,
+                    const float* bias, const int* ids, void* hc, float* c,
+                    float* hT, void* hseq, void* cseq, void* gseq, void* hdrop,
+                    Dropout drop, int S, int B, int N, int rows, int kres,
+                    int standard, cudaStream_t stream, int* launches) {
+  if (N % kFKC != 0 || B < 1 || S < 1 || rows < 1 || rows > kFMaxRows ||
+      (rows < B && rows % 16 != 0) || kres < 0 || kres > N || kres % kFKC != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = fwd_persist<RT, EMBED, TP>;
+  const size_t smem = fwd_smem_bytes(rows, kres);
+  // per card, read once: cooperative launch support and the SMs
+  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !ready[dev]) {
+    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) ready[dev] = 1;
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kFThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
+  const dim3 grid(N / kFUnits, (B + rows - 1) / rows);
+  if ((int)(grid.x * grid.y) > sms[dev] * per_sm)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  using bf = __nv_bfloat16;
+  using XT = typename std::conditional<TP, float, bf>::type;
+  using HT = typename std::conditional<TP, float, RT>::type;
+  const bf* u = static_cast<const bf*>(U);
+  const XT* x = static_cast<const XT*>(xw);
+  const bf* w = static_cast<const bf*>(W);
+  bf* h = static_cast<bf*>(hc);
+  HT* hs = static_cast<HT*>(hseq);
+  RT* cs = static_cast<RT*>(cseq);
+  RT* gs = static_cast<RT*>(gseq);
+  RT* hd = static_cast<RT*>(hdrop);
+  void* args[] = {&u, &x, &w, &bias, &ids, &h, &c, &hT, &hs, &cs, &gs, &hd,
+                  &drop, &S, &B, &N, &rows, &kres, &standard};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                    dim3(kFThreads), args, smem, stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  return 0;
 }
 
 }  // namespace

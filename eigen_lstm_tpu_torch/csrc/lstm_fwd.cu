@@ -4,11 +4,18 @@
 // builds with a plain nvcc call, linked into one shared library.
 //
 // Replaces two TPU kernels of eigen_lstm_tpu/ops/pallas_cell.py:
-//   lstm_fwd_embed_launch <- _fwd_embed_kernel (layer 0, embedding fused):
-//       g = W[ids_t] + round(h_{t-1}) @ U + b
-//   lstm_fwd_scan_launch  <- _fwd_kernel (layers >= 1, xw = x @ W + b
+//   lstm_fwd_embed_launch <- _fwd_embed_kernel (K1: layer 0, embedding
+//       fused): g = (round(h_{t-1}) @ U + W[ids_t]) + b, the JAX kernel's
+//       dot([onehot | h], [W; U]) then + b (:522-528)
+//   lstm_fwd_scan_launch  <- _fwd_kernel (K2: layers >= 1, xw = x @ W + b
 //       precomputed outside as one large product):
 //       g = xw_t + round(h_{t-1}) @ U
+// This file is their design for fp32 compute and for the shapes the
+// persistent design does not take (B > 128, N not a multiple of 64, a grid
+// the card cannot hold). Under bf16 compute elsewhere both run on the
+// persistent tensor-core forward of fwd_mma.cuh (fwd_persist, through
+// lstm_tiled.cu's launchers; ops/cuda_cell.py chooses), the same function
+// with the same sum order around the product.
 // then sigma on i, o, f and tanh on u, and the cell update of _cell_fwd:
 // "reference" carries c2 = tanh(i*u + f*c_prev) with h = o*c2; "standard"
 // carries c_raw with h = o*tanh(c_raw). round() is the compute type (bf16
@@ -36,8 +43,9 @@
 // and meet in shared memory. h_{t-1} comes from h0 at t = 0 and otherwise
 // from an fp32 state buffer that the previous launch wrote; the launcher
 // alternates two buffers so that no block reads what another block of the
-// same launch writes. Tensor cores (wgmma), TMA and one persistent kernel
-// over the whole window (FlashRNN / Appleyard et al.) are later work.
+// same launch writes. Under bf16 compute the persistent design of
+// fwd_mma.cuh answers the three costs (one launch a window, U's rows in
+// shared memory, mma.sync); fp32 keeps this design, TF32 off.
 
 #include "common.cuh"
 
@@ -75,7 +83,7 @@ lstm_fwd_step(const CT* __restrict__ U,        // (N, 4N)
     float s = gate[g];
     const size_t col = (size_t)g * N + j;
     if (EMBED) {
-      s += to_f32(W[(size_t)ids_t[b] * n4 + col]) + bias[col];
+      s = (s + to_f32(W[(size_t)ids_t[b] * n4 + col])) + bias[col];
     } else {
       s += to_f32(xw_t[(size_t)b * n4 + col]);
     }

@@ -36,22 +36,24 @@
 // less than the 50 MB L2.
 //
 // K8 and K9 have two designs of one function (ops/cuda_cell_tiled.py:
-// tiled_fwd_plan chooses from the type, the shape and the card). K2, the
-// resident family's layers >= 1 forward (lstm_fwd.cu), computes K9's
-// function, so under bf16 compute ops/cuda_cell.py:scan_layer runs it on
-// the persistent design too, through tiled_fwd_scan_launch with its own
-// residual type (at the flagship's N = 1024 all of U's rows stay in shared
-// memory).
+// tiled_fwd_plan chooses from the type, the shape and the card). K2 and K1,
+// the resident family's forwards (lstm_fwd.cu), compute K9's and K8's
+// functions, so under bf16 compute ops/cuda_cell.py:scan_layer and
+// embed_layer0 run them on the persistent design too, through
+// tiled_fwd_scan_launch and tiled_fwd_embed_launch with their own residual
+// type (at the flagship's N = 1024 all of U's rows stay in shared memory);
+// K1's blocks take a share of the batch rows (ops/cuda_cell_tiled.py:
+// split_fwd_plan), K2's, K8's and K9's all of them.
 //
-// The persistent design (bf16 compute, B <= 128, N / 16 blocks resident;
-// tiled_fwd_persist; its step is fwd_mma.cuh's, which the tensor-core K13
-// of lstm_tp.cu shares). One cooperative launch a window, a grid barrier
-// between steps. A block owns 16 hidden units with their four gate columns
-// and every batch row, so each step's epilogue needs nothing of another
-// block; as many rows of its N x 64 slice of U as fit beside the ring stay
-// in shared memory for the window (1024 of 2048 at 5b's B = 128, 1344 at
-// the eval batch of 16), the rest stream every step with the round(h_{t-1})
-// chunks through a three-slot cp.async ring; the products are mma.sync
+// The persistent design (bf16 compute, B <= 128, a resident grid;
+// fwd_mma.cuh:fwd_persist, which K15 of lstm_tp.cu takes too, on the step
+// that the tensor-core K13 shares). One cooperative launch a window, a grid
+// barrier between steps. A block owns 16 hidden units with their four gate
+// columns and its batch rows (all of them here), so each step's epilogue
+// needs nothing of another block; as many rows of its N x 64 slice of U
+// as fit beside the ring stay in shared memory for the window (1024 of 2048
+// at 5b's B = 128, 1344 at the eval batch of 16), the rest stream every
+// step with the round(h_{t-1}) chunks through a three-slot cp.async ring; the products are mma.sync
 // m16n8k16 (bf16 in, fp32 sums; csrc/mma.cuh), and the fp32 carry stays in
 // registers. What bounds it then is the recurrence's dependence, not the
 // products: every step each of the 128 blocks reads all of round(h_{t-1})
@@ -363,121 +365,6 @@ tiled_bwd_step(const CT* __restrict__ UT,        // (4N, N) = U^T
 }
 
 // ---------------------------------------------------------------------------
-// K8 / K9 under bf16 compute, and K2 (lstm_fwd.cu's function, routed here by
-// ops/cuda_cell.py:scan_layer): one persistent cooperative launch for the S
-// forward steps (tiled_fwd_persist; ops/cuda_cell_tiled.py:tiled_fwd_plan
-// chooses it). Each step is fwd_mma.cuh's tensor-core step with the gate
-// stride N over every batch row (B <= kFMaxRows), so the grid is N / 16
-// blocks, at most what is resident (128 at N = 2048): as many rows of a
-// block's N x 64 slice of U as fit beside the ring stay in shared memory
-// for the window, the rest stream every step with the round(h_{t-1})
-// chunks. The epilogue runs in the owners' registers: the W-row gather or
-// the xw values (loaded for step t + 1 before the barrier that precedes
-// it), the gates, the cell, the carry c (in registers for the whole
-// window), round(h_t) into the other half of hc. A grid barrier closes each
-// step.
-constexpr int kMaxDevices = 64;
-
-template <typename RT, bool EMBED>
-__global__ void __launch_bounds__(kFThreads, 1)
-tiled_fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
-                  const __nv_bfloat16* __restrict__ xw,  // (S, B, 4N), !EMBED
-                  const __nv_bfloat16* __restrict__ W,   // (M, 4N), EMBED
-                  const float* __restrict__ bias,        // (4N,), EMBED
-                  const int* __restrict__ ids,           // (S, B), EMBED
-                  // (2, B, N) round(h): written and read within the launch,
-                  // so neither const nor __restrict__ (no non-coherent loads)
-                  __nv_bfloat16* hc,
-                  float* __restrict__ c,      // (B, N): c0 in, cT out
-                  float* __restrict__ hT,     // (B, N)
-                  RT* __restrict__ hseq,      // (S, B, N)
-                  RT* __restrict__ cseq,      // (S, B, N) or null
-                  RT* __restrict__ gseq,      // (S, B, 4N) or null
-                  RT* __restrict__ hdrop,     // (S, B, N) under dropout
-                  Dropout drop, int S, int B, int N, int kres, int standard) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = Us + (size_t)kres * kFUPitch;
-  const FwdTile f = fwd_mma_tile(N, N, blockIdx.x * kFUnits, 0, B, B);
-  const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
-  cg::grid_group grid = cg::this_grid();
-
-  for (int e = threadIdx.x; e < kres * 8; e += kFThreads)
-    fwd_u_copy(f, U, Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
-  cp_async_commit();
-
-  // this thread's (b, j), when it is an owner: p = 4 hh + 2 uh + e for
-  // row fwd_row(hh) and unit fwd_unit(uh, e); acc[2 gate + uh][2 hh + e]
-  // holds its gate sum, bs[gate][2 uh + e] its bias
-  float cr[8], pin[8][4], bs[4][4];
-  const auto load_inputs = [&](int t) {
-    fwd_inputs<__nv_bfloat16>(f, [&](int b) {
-      return EMBED ? W + (size_t)ids[(size_t)t * B + b] * n4
-                   : xw + ((size_t)t * B + b) * n4;
-    }, pin);
-  };
-  if (f.owner) {
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int b = fwd_row(f, p / 4);
-      cr[p] = b < B ? c[(size_t)b * N + fwd_unit(f, (p / 2) % 2, p % 2)] : 0.0f;
-    }
-    if (EMBED)
-#pragma unroll
-      for (int gate = 0; gate < 4; ++gate)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          bs[gate][u] = bias[(size_t)gate * N + fwd_unit(f, u / 2, u % 2)];
-    load_inputs(0);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int cres = kres / kFKC;
-  for (int t = 0; t < S; ++t) {
-    const __nv_bfloat16* hin = hc + (size_t)(t % 2) * bn;
-    __nv_bfloat16* hout = hc + (size_t)((t + 1) % 2) * bn;
-    float acc[8][4];
-    fwd_products(f, U, hin, Us, cres, ring, acc);
-    if (f.owner) {
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int hh = p / 4, uh = (p / 2) % 2, e = p % 2;
-        const int b = fwd_row(f, hh);
-        if (b >= B) continue;
-        const int j = fwd_unit(f, uh, e);
-        float gate[4];
-#pragma unroll
-        for (int gt = 0; gt < 4; ++gt) {
-          float s = acc[2 * gt + uh][2 * hh + e];
-          s = EMBED ? (s + pin[p][gt]) + bs[gt][2 * uh + e] : s + pin[p][gt];
-          gate[gt] = gt < 3 ? sigmoid(s) : tanhf(s);
-        }
-        const size_t idx = (size_t)b * N + j, ts = (size_t)t * bn;
-        float h, cc;
-        cell(gate, cr[p], standard, &h, &cc);
-        cr[p] = cc;
-        hout[idx] = __float2bfloat16(h);
-        hseq[ts + idx] = from_f32<RT>(h);
-        if (drop.on)
-          hdrop[ts + idx] = from_f32<RT>(keep_bit(drop, t, idx) ? h * drop.inv : 0.0f);
-        if (cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cc);
-        if (gseq != nullptr)
-#pragma unroll
-          for (int gt = 0; gt < 4; ++gt)
-            gseq[4 * ts + (size_t)b * n4 + (size_t)gt * N + j] = from_f32<RT>(gate[gt]);
-        if (t == S - 1) {
-          hT[idx] = h;
-          c[idx] = cc;
-        }
-      }
-      if (t + 1 < S) load_inputs(t + 1);
-    }
-    if (t + 1 < S) grid.sync();  // h_t is complete before any block reads it
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K10 under bf16 compute: one persistent cooperative launch for the S
 // reverse steps and dh0 (tiled_bwd_persist; ops/cuda_cell_tiled.py:
 // tiled_bwd_plan chooses it). K6's persistent design (csrc/lstm_bwd.cu:
@@ -755,77 +642,23 @@ int run_fwd(const void* U, const void* xw, const void* W, const float* bias,
                       : f(run_fwd_r<CT, RT, EMBED, false, 2>);
 }
 
-// The persistent design under bf16 compute, one cooperative launch: the
-// same buffers as run_fwd, kres rows of U held in shared memory.
-template <typename RT, bool EMBED>
-int run_fwd_persist(const void* U, const void* xw, const void* W,
-                    const float* bias, const int* ids, void* hc, float* c,
-                    float* hT, void* hseq, void* cseq, void* gseq, void* hdrop,
-                    Dropout drop, int S, int B, int N, int kres, int standard,
-                    cudaStream_t stream, int* launches) {
-  if (N % kFKC != 0 || B < 1 || B > kFMaxRows || S < 1 || kres < 0 ||
-      kres > N || kres % kFKC != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = tiled_fwd_persist<RT, EMBED>;
-  const size_t smem = fwd_smem_bytes(B, kres);
-  // per card, read once: cooperative launch support and the SMs
-  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
-  int dev = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
-  if (err == cudaSuccess && !ready[dev]) {
-    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) ready[dev] = 1;
-  }
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kFThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
-  const int grid = N / kFUnits;
-  // every block must be resident at once, or the grid barrier never opens
-  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  using bf = __nv_bfloat16;
-  const bf* u = static_cast<const bf*>(U);
-  const bf* x = static_cast<const bf*>(xw);
-  const bf* w = static_cast<const bf*>(W);
-  bf* h = static_cast<bf*>(hc);
-  RT* hs = static_cast<RT*>(hseq);
-  RT* cs = static_cast<RT*>(cseq);
-  RT* gs = static_cast<RT*>(gseq);
-  RT* hd = static_cast<RT*>(hdrop);
-  void* args[] = {&u, &x, &w, &bias, &ids, &h, &c, &hT, &hs, &cs, &gs, &hd,
-                  &drop, &S, &B, &N, &kres, &standard};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(grid), dim3(kFThreads), args, smem,
-                                    stream);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ++*launches;
-  return 0;
-}
-
-// K8 or K9: the persistent design when kres >= 0 (bf16 compute only), else
-// the per-step one.
+// K8 or K9 (and K1, K2): the persistent design of fwd_mma.cuh when
+// kres >= 0 (bf16 compute only), rows batch rows a block, else the per-step
+// one.
 template <bool EMBED>
 int fwd(int ctype, int rtype, const void* U, const void* xw, const void* W,
         const float* bias, const int* ids, void* hc, float* c, float* hT,
         void* hseq, void* cseq, void* gseq, void* hdrop, Dropout drop, int S,
-        int B, int N, int standard, int kres, cudaStream_t stream,
+        int B, int N, int standard, int kres, int rows, cudaStream_t stream,
         int* launches) {
   using bf = __nv_bfloat16;
   if (kres >= 0) {
     const auto f = [&](auto run) {
       return run(U, xw, W, bias, ids, hc, c, hT, hseq, cseq, gseq, hdrop, drop,
-                 S, B, N, kres, standard, stream, launches);
+                 S, B, N, rows, kres, standard, stream, launches);
     };
-    if (ctype == 1 && rtype == 0) return f(run_fwd_persist<float, EMBED>);
-    if (ctype == 1 && rtype == 1) return f(run_fwd_persist<bf, EMBED>);
+    if (ctype == 1 && rtype == 0) return f(run_fwd_persist<float, EMBED, false>);
+    if (ctype == 1 && rtype == 1) return f(run_fwd_persist<bf, EMBED, false>);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto f = [&](auto run) {
@@ -938,38 +771,40 @@ int run_bwd_persist(const void* U, const void* g_seq, const void* c_seq,
 // hc (2, B, N) in the compute type with round(h0) in its first half; the
 // sequences in the residual type; hdrop null for no dropout, else the
 // masked stream of (seed, keep, inv). kres >= 0: the persistent design
-// with kres rows of U in shared memory (ops/cuda_cell_tiled.py:
-// tiled_fwd_plan; bf16 compute, N a multiple of 64, B <= 128); -1: the
-// per-step design. Adds its kernel launches to *launches.
+// with kres rows of U in shared memory and `rows` batch rows a block
+// (ops/cuda_cell_tiled.py:fwd_layout; bf16 compute, N a multiple of 64,
+// B <= 128; rows = B for K8, K9 and K2, fewer for K1); -1: the per-step
+// design, rows unread. Adds its kernel launches to *launches.
 extern "C" int tiled_fwd_embed_launch(
     int ctype, int rtype, const void* W, const void* U, const void* bias,
     const void* ids, void* hc, void* c, void* hT, void* hseq, void* cseq,
     void* gseq, void* hdrop, int S, int B, int N, int standard, int kres,
-    unsigned seed, unsigned keep, float inv, void* stream, int* launches) {
+    int rows, unsigned seed, unsigned keep, float inv, void* stream,
+    int* launches) {
   const Dropout drop{hdrop != nullptr, seed, keep, inv};
   return fwd<true>(ctype, rtype, U, nullptr, W, static_cast<const float*>(bias),
                    static_cast<const int*>(ids), hc, static_cast<float*>(c),
                    static_cast<float*>(hT), hseq, cseq, gseq, hdrop, drop, S, B,
-                   N, standard, kres, static_cast<cudaStream_t>(stream),
+                   N, standard, kres, rows, static_cast<cudaStream_t>(stream),
                    launches);
 }
 
 extern "C" int tiled_fwd_scan_launch(
     int ctype, int rtype, const void* U, const void* xw, void* hc, void* c,
     void* hT, void* hseq, void* cseq, void* gseq, void* hdrop, int S, int B,
-    int N, int standard, int kres, unsigned seed, unsigned keep, float inv,
-    void* stream, int* launches) {
+    int N, int standard, int kres, int rows, unsigned seed, unsigned keep,
+    float inv, void* stream, int* launches) {
   const Dropout drop{hdrop != nullptr, seed, keep, inv};
   return fwd<false>(ctype, rtype, U, xw, nullptr, nullptr, nullptr, hc,
                     static_cast<float*>(c), static_cast<float*>(hT), hseq, cseq,
-                    gseq, hdrop, drop, S, B, N, standard, kres,
+                    gseq, hdrop, drop, S, B, N, standard, kres, rows,
                     static_cast<cudaStream_t>(stream), launches);
 }
 
-// Bytes of dynamic shared memory a persistent K8/K9 block takes at batch B,
-// hidden N and kres resident rows of U.
-extern "C" size_t tiled_fwd_persist_smem_bytes(int B, int N, int kres) {
-  return fwd_smem_bytes(B, kres);
+// Bytes of dynamic shared memory a persistent forward block takes with
+// `rows` batch rows, at hidden N, with kres resident rows of U.
+extern "C" size_t tiled_fwd_persist_smem_bytes(int rows, int N, int kres) {
+  return fwd_smem_bytes(rows, kres);
 }
 
 // Bytes of dynamic shared memory a persistent K10 block takes with `rows`

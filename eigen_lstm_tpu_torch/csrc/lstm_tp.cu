@@ -22,6 +22,12 @@
 //       carried h and c to the param type (fp32 here), stores h_seq in the
 //       param type, g and c_prev in the residual type, and hands h on to
 //       the next step through the exchange buffer in the compute type.
+//       Under bf16 compute, where ops/cuda_cell_tiled.py:split_fwd_plan
+//       gives a layout, it is the persistent tensor-core forward of
+//       fwd_mma.cuh (fwd_persist with K15's streams: xw fp32, h_seq fp32,
+//       c_prev = c_{t-1}; U's rows in shared memory, mma.sync, a share of
+//       the batch rows a block); elsewhere (fp32) the cooperative design
+//       below.
 //   tp_seq_bwd_launch (K16) <- pallas_tp_seq.py:_bwd_kernel (:125): the
 //       reverse window in one launch, at D = 1: dh_t = dh_seq[t] + (dhT at
 //       t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, dg in fp32;
@@ -63,9 +69,9 @@
 // its one-step lead between devices. U_d stays in L2 across the window
 // (0.5 MB in bf16 at the bench's shapes, of 50 MB) rather than in shared
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
-// does (K16's bf16 design holds U in shared memory instead, above). For
-// K15, tensor cores and U held in shared memory are later work (K9's
-// persistent forward at D = 1).
+// does. Under bf16 compute both take the persistent designs named above,
+// with U's rows in shared memory and their products on tensor cores; fp32
+// keeps these.
 // Every sum has a fixed order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
@@ -439,22 +445,46 @@ extern "C" int tp_step_bwd_launch(const void* g, const void* c2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K15. hbuf (2, B, N) in the compute type holds h0 in its first half; c
+// (B, nd) fp32 holds c0 (the launch's scratch after); xw (S, B, 4nd) fp32.
+// kres >= 0: the persistent design of fwd_mma.cuh (bf16 compute, D = 1 so
+// nd == N; ops/cuda_cell_tiled.py:split_fwd_plan gives kres and rows, U and
+// hbuf 16-byte aligned), then cT copied from its carry; -1: the cooperative
+// CUDA-core design. Adds its launch to *launches.
 extern "C" int tp_seq_fwd_launch(int ctype, int rtype, const void* U,
                                  const void* xw, void* hbuf, void* c,
                                  void* hseq, void* gseq, void* cprev,
                                  void* hT, void* cT, int S, int B, int N,
-                                 int nd, int standard, void* stream) {
+                                 int nd, int standard, int kres, int rows,
+                                 void* stream, int* launches) {
   const auto s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (kres >= 0) {
+    if (ctype != 1 || nd != N) return err;
+    const auto f = [&](auto run) {
+      return run(U, xw, nullptr, nullptr, nullptr, hbuf, static_cast<float*>(c),
+                 static_cast<float*>(hT), hseq, cprev, gseq, nullptr,
+                 Dropout{0, 0, 0, 0.0f}, S, B, N, rows, kres, standard, s,
+                 launches);
+    };
+    if (rtype == 0) err = f(run_fwd_persist<float, false, true>);
+    if (rtype == 1) err = f(run_fwd_persist<bf, false, true>);
+    if (err == 0)
+      err = static_cast<int>(cudaMemcpyAsync(cT, c, (size_t)B * N * sizeof(float),
+                                             cudaMemcpyDeviceToDevice, s));
+    return err;
+  }
   const auto f = [&](auto run) {
     return run(U, xw, hbuf, c, hseq, gseq, cprev, hT, cT, S, B, N, nd,
                standard, s);
   };
-  using bf = __nv_bfloat16;
-  if (ctype == 0 && rtype == 0) return f(run_seq_fwd<float, float>);
-  if (ctype == 0 && rtype == 1) return f(run_seq_fwd<float, bf>);
-  if (ctype == 1 && rtype == 0) return f(run_seq_fwd<bf, float>);
-  if (ctype == 1 && rtype == 1) return f(run_seq_fwd<bf, bf>);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (ctype == 0 && rtype == 0) err = f(run_seq_fwd<float, float>);
+  if (ctype == 0 && rtype == 1) err = f(run_seq_fwd<float, bf>);
+  if (ctype == 1 && rtype == 0) err = f(run_seq_fwd<bf, float>);
+  if (ctype == 1 && rtype == 1) err = f(run_seq_fwd<bf, bf>);
+  if (err == 0) ++*launches;
+  return err;
 }
 
 extern "C" int tp_seq_bwd_launch(int ctype, int rtype, const void* UT,

@@ -62,9 +62,9 @@ SIGNATURES = {
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
     "gen_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_U, _F, _P]),
-    "tiled_fwd_embed_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 5 + _DROP
+    "tiled_fwd_embed_launch": (_I, [_I, _I] + [_P] * 11 + [_I] * 6 + _DROP
                                + [_P, _IP]),
-    "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + _DROP
+    "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 6 + _DROP
                               + [_P, _IP]),
     "tiled_fwd_persist_smem_bytes": (_Z, [_I] * 3),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
@@ -74,7 +74,7 @@ SIGNATURES = {
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),
-    "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),
+    "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _IP]),
     "tp_seq_bwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),
 }
 

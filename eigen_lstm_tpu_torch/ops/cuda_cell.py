@@ -7,9 +7,10 @@ type)``. For a CUDA tensor they launch the kernel of ``csrc/lstm_fwd.cu``
 or raise; for a CPU tensor they run the plain version beside them, which
 repeats the kernel's arithmetic in PyTorch:
 
-* layer 0: g = W_c[ids_t] + round_c(h_{t-1}) @ U_c + b, with W and U
+* layer 0: g = (round_c(h_{t-1}) @ U_c + W_c[ids_t]) + b, with W and U
   rounded to the compute type c and b in fp32 (``pallas_cell.py:1143``,
-  ``:524-528``);
+  ``:524-528``: the one-hot rows of dot([onehot | h], [W; U]) as a gather,
+  then + b);
 * layers >= 1: g = xw_t + round_c(h_{t-1}) @ U_c, with xw rounded to bf16
   under bf16 compute (``pallas_cell.py:475``);
 * products in fp32 (float64 in the float64 oracle configuration), the
@@ -24,18 +25,23 @@ this module keeps the port's own copies (``_fmix32``, ``_keep_u32``,
 ``inv`` = fp32(1 / (1 - rate)), the product in fp32 before the rounding.
 h_seq and the carried (hT, cT) stay unmasked.
 
-Each wrapper counts in ``.launches`` the kernel launches it makes: S per
-call, one per timestep, except where ``scan_layer`` takes its persistent
-design. The layers >= 1 recurrence computes the function of K9
-(``cuda_cell_tiled.tiled_scan_layer``), so under bf16 compute, wherever
-``cuda_cell_tiled.tiled_fwd_plan`` gives a layout (N a multiple of 64,
-B <= 128, a grid of N / 16 blocks resident), it is K9's persistent kernel
-(``csrc/lstm_tiled.cu:tiled_fwd_persist``: one cooperative launch a window,
+Each wrapper counts in ``.launches`` the kernel launches it makes: one a
+call in the persistent design, S (one a timestep) in the per-step one.
+The two recurrences compute the functions of K8 and K9
+(``cuda_cell_tiled.tiled_embed_layer0`` and ``tiled_scan_layer``), so under
+bf16 compute, wherever the plan gives a layout, each is their persistent
+kernel (``csrc/fwd_mma.cuh:fwd_persist``: one cooperative launch a window,
 U's rows in shared memory, the products on tensor cores) with this
-kernel's residual type and xw stream: only the order of the product's fp32
-sums moves. Elsewhere (fp32 compute, B > 128, N not a multiple of 64, a
-grid the card cannot hold) it is ``csrc/lstm_fwd.cu``'s one launch a step.
-The plan decides before the launch; a failed launch raises.
+module's residual type and streams: only the order of the product's fp32
+sums moves. ``scan_layer`` (K2) takes K9's layout
+(``cuda_cell_tiled.tiled_fwd_plan``: N a multiple of 64, B <= 128, a grid
+of N / 16 blocks resident, every batch row in a block); ``embed_layer0``
+(K1) splits the batch over the blocks where N / 16 blocks would leave most
+SMs idle (``cuda_cell_tiled.split_fwd_plan``: 32 of the bench's 128 rows
+at N = 512, 128 blocks). Elsewhere (fp32 compute, B > 128, N not a
+multiple of 64, a grid the card cannot hold) each is ``csrc/lstm_fwd.cu``'s
+one launch a step. The plan decides before the launch; a failed launch
+raises.
 
 None of these functions is differentiable by itself, and each raises when
 asked for a gradient rather than return a result that autograd cannot
@@ -147,10 +153,10 @@ def apply_keep(x: torch.Tensor, dropout, tau: int, af: torch.dtype):
 # --- the recurrence ----------------------------------------------------------
 
 
-def _plain_recurrence(g_in, steps, U_c, h0, c0, cfg: ModelConfig,
+def _plain_recurrence(g_of, steps, U_c, h0, c0, cfg: ModelConfig,
                       residuals: bool, dropout=None):
-    """g_pre_t = g_in(t) + round(h_{t-1}) @ U_c for t < steps, fp32 carry.
-    ``g_in(t)`` gives the (B, 4N) input term of step t."""
+    """g_pre_t = g_of(t, round(h_{t-1}) @ U_c) for t < steps, fp32 carry:
+    ``g_of`` adds step t's (B, 4N) input term to the product."""
     af = _acc_dtype(cfg)
     rd = cfg.rdtype
     n = cfg.hidden
@@ -158,7 +164,7 @@ def _plain_recurrence(g_in, steps, U_c, h0, c0, cfg: ModelConfig,
     h, c = h0.to(af), c0.to(af)
     hs, cs, gs, hds = [], [], [], []
     for t in range(steps):
-        g_pre = g_in(t) + cell_ops.matmul(h, U_c, cfg.cdtype, af)
+        g_pre = g_of(t, cell_ops.matmul(h, U_c, cfg.cdtype, af))
         g = cell_ops.gate_activations(g_pre, n)
         h, c = cell_ops.cell_update(g, c, n, cfg.cell_variant)
         hs.append(h.to(rd))
@@ -218,7 +224,7 @@ def embed_layer0_plain(layer, ids, h0, c0, cfg: ModelConfig,
     W_c, U_c, bias = _embed_weights(layer, cfg)
     af = _acc_dtype(cfg)
     ids = ids.long()
-    return _plain_recurrence(lambda t: W_c[ids[t]].to(af) + bias,
+    return _plain_recurrence(lambda t, hu: (hu + W_c[ids[t]].to(af)) + bias,
                              ids.shape[0], U_c, h0, c0, cfg, residuals,
                              dropout)
 
@@ -241,8 +247,8 @@ def scan_layer_plain(layer, xw, h0, c0, cfg: ModelConfig,
     U_c = layer.U.to(cfg.cdtype)
     xs = _xw_stream(xw, cfg)
     af = _acc_dtype(cfg)
-    return _plain_recurrence(lambda t: xs[t].to(af), xs.shape[0], U_c,
-                             h0, c0, cfg, residuals, dropout)
+    return _plain_recurrence(lambda t, hu: xs[t].to(af) + hu, xs.shape[0],
+                             U_c, h0, c0, cfg, residuals, dropout)
 
 
 def _validate(layer, seq, h0, c0, cfg: ModelConfig, embed: bool):
@@ -328,7 +334,9 @@ def _raise_on(err: int, name: str):
 def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
                  residuals: bool = False, dropout=None):
     """Layer-0 recurrence with the embedding fused in: the kernel on a CUDA
-    tensor, the plain version on a CPU tensor. ids: (S, B) byte ids;
+    tensor (the persistent design of the module docstring where the plan
+    gives one, else one launch a step), the plain version on a CPU tensor.
+    ids: (S, B) byte ids;
     h0, c0: (B, N). Returns (h_seq, (hT, cT)), and with ``residuals`` also
     the cell and activated gate sequences. ``dropout=(rate, seed)``: see
     ``_assemble`` for where the masked stream goes."""
@@ -340,12 +348,21 @@ def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     s, b = ids.shape
     n = cfg.hidden
     dev = ids.device
+    # cuda_cell_tiled imports this module, so it is imported here
+    from . import cuda_cell_tiled as ct
+
+    lib = _build.load_library()
+    layout = ct.device_split_fwd_plan(cfg, b, n)
+    if layout is not None:   # K8's persistent kernel, K1's residual type
+        o = ct.embed_launch(embed_layer0, layer, ids, h0, c0, cfg, cfg.rdtype,
+                            layout, residuals, dropout)
+        return _assemble(o["hseq"], o["hT"], o["c"], cfg, residuals,
+                         o["cseq"], o["gseq"], o["hdrop"])
     W_c, U_c, bias = _embed_weights(layer, cfg)
     ids32 = ids.to(torch.int32).contiguous()
     h0f = h0.to(torch.float32).contiguous()
     c0f = c0.to(torch.float32).contiguous()
     o = _outputs(s, b, n, cfg, dev, residuals, drop is not None)
-    lib = _build.load_library()
     err = lib.lstm_fwd_embed_launch(
         ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
         ids32.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
@@ -382,7 +399,7 @@ def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False,
     kres = ct.device_tiled_fwd_plan(cfg, b, n)
     if kres is not None:   # K9's persistent kernel, K2's residual type
         o = ct.scan_launch(scan_layer, layer, xw, h0, c0, cfg, cfg.rdtype,
-                           kres, residuals, dropout)
+                           (kres, b), residuals, dropout)
         return _assemble(o["hseq"], o["hT"], o["c"], cfg, residuals,
                          o["cseq"], o["gseq"], o["hdrop"])
     U_c = layer.U.to(cfg.cdtype).contiguous()

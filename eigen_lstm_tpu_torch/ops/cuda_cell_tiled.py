@@ -24,7 +24,12 @@ and shared memory): under bf16 compute, where its grid of N / 16 blocks
 can be resident, one persistent cooperative launch a window with as many
 of U's rows as fit in shared memory and the product on tensor cores;
 elsewhere (fp32 compute, B > 128, a grid too large for the card) one
-launch a step. K10 has two such designs too (``tiled_bwd_plan``): under
+launch a step. The resident family's forwards compute the same functions
+and take the persistent design through the same launchers under bf16
+compute (``embed_launch`` for K1, ``scan_launch`` for K2), as does K15
+(``cuda_tp_seq``); K1's and K15's blocks take a share of the batch rows
+where N / 16 blocks would leave most SMs idle (``split_fwd_plan``). K10
+has two such designs too (``tiled_bwd_plan``): under
 bf16 compute, where its grid of (N / 32) * ceil(B / rows) blocks can be
 resident, one persistent cooperative launch a window that also gives dh0,
 with as many chunks of U's rows as fit in shared memory and dh_rec on
@@ -207,37 +212,80 @@ def persist_smem_bytes(b: int, n: int, kres: int) -> int:
     return 2 * kres * pitch_u + max(PERSIST_STAGES * slot, red)
 
 
-def tiled_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
-                   smem_limit: int) -> Optional[int]:
-    """K8/K9's design at (config, batch, hidden) on a device of ``sms``
-    SMs whose blocks may take ``smem_limit`` bytes of shared memory: the
-    rows of U a block holds in shared memory (whole KC-row chunks, the
-    first of its slice; the rest stream each step) for the persistent
-    design, None for the per-step design.
+def split_rows(b: int, blocks: int, sms: int) -> int:
+    """Batch rows a block of the tensor-core forward takes when ``blocks``
+    column blocks would leave the card's ``sms`` SMs idle: all of them
+    where the grid reaches half the SMs, else the fewest (the 16-row m
+    tiles split 2, 4 or 8 ways) whose grid does, so that the step draws on
+    L2 from enough SMs; 16 at most 8 ways."""
+    tiles = -(-b // 16)
+    for split in (1, 2, 4):
+        rows = 16 * -(-tiles // split)
+        if 2 * blocks * -(-b // rows) >= sms or rows == 16:
+            return rows
+    return 16 * -(-tiles // 8)
+
+
+def fwd_layout(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int,
+               split: bool) -> Optional[Tuple[int, int]]:
+    """The persistent forward's layout at (config, batch, hidden) on a
+    device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
+    shared memory: (kres, rows), a block owning PERSIST_UNITS hidden units
+    and ``rows`` batch rows and holding the first ``kres`` rows of its U
+    slice in shared memory (whole KC-row chunks; the rest stream each
+    step); None for the per-step design.
 
     The persistent design needs bf16 compute (the tensor cores; fp32
     products keep TF32 off), N a multiple of KC, at most 128 batch rows
-    (one m tile a warp), and its grid of N / 16 blocks resident at one a
-    SM. It holds as many of U's rows as fit beside its ring."""
+    (one m tile a warp), and its grid of (N / 16) * ceil(B / rows) blocks
+    resident at one a SM. ``rows`` is B, or with ``split`` the rows of
+    ``split_rows`` (K1 and K15: at the bench's N = 512 a grid of N / 16 =
+    32 blocks leaves most SMs idle). It holds as many of U's rows as fit
+    beside its ring."""
     if cfg.cdtype != torch.bfloat16 or n % PERSIST_KC != 0:
         return None
-    if not 1 <= b <= PERSIST_ROWS or n // PERSIST_UNITS > sms:
+    if not 1 <= b <= PERSIST_ROWS:
         return None
-    free = smem_limit - persist_smem_bytes(b, n, 0)
+    blocks = n // PERSIST_UNITS
+    rows = min(b, split_rows(b, blocks, sms)) if split else b
+    if blocks * -(-b // rows) > sms:
+        return None
+    free = smem_limit - persist_smem_bytes(rows, n, 0)
     if free < 0:
         return None
     row = 2 * (4 * PERSIST_UNITS + PERSIST_PAD)
-    return min(n, free // row // PERSIST_KC * PERSIST_KC)
+    return min(n, free // row // PERSIST_KC * PERSIST_KC), rows
+
+
+def tiled_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                   smem_limit: int) -> Optional[int]:
+    """K8/K9's design (and K2's) at (config, batch, hidden) on a device of
+    ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: the rows of U a block holds in shared memory for the
+    persistent design, its blocks owning every batch row (``fwd_layout``
+    unsplit), None for the per-step design."""
+    layout = fwd_layout(cfg, b, n, sms, smem_limit, split=False)
+    return None if layout is None else layout[0]
+
+
+def split_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                   smem_limit: int) -> Optional[Tuple[int, int]]:
+    """K1's and K15's design: (kres, rows) of the persistent design with
+    the batch split over the blocks (``fwd_layout`` with ``split``), None
+    for their other design."""
+    return fwd_layout(cfg, b, n, sms, smem_limit, split=True)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent K8/K9's and
+    once; checks that the library lays out the persistent forward's and
     K10's shared memory as ``persist_smem_bytes`` and
-    ``bwd_persist_smem_bytes`` do."""
+    ``bwd_persist_smem_bytes`` do (the forward's also at K1's split
+    layouts: 32 and 16 of 128 rows at N = 512, 64 at N = 1024)."""
     lib = _build.load_library()
-    for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0)):
+    for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0),
+                       (32, 512, 512), (16, 512, 512), (64, 1024, 1024)):
         if lib.tiled_fwd_persist_smem_bytes(b, n, kres) != persist_smem_bytes(b, n, kres):
             raise RuntimeError("persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
@@ -252,6 +300,12 @@ def device_tiled_fwd_plan(cfg: ModelConfig, b: int, n: int) -> Optional[int]:
     """``tiled_fwd_plan`` with the current card's SMs and shared-memory
     limit."""
     return tiled_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+def device_split_fwd_plan(cfg: ModelConfig, b: int, n: int):
+    """``split_fwd_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return split_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
 
 
 # The persistent K10's shared-memory layout, as csrc/lstm_tiled.cu lays it
@@ -340,42 +394,57 @@ def _fwd_result(o, cfg: ModelConfig, residuals: bool):
                      o["gseq"], o["hdrop"])
 
 
+def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
+                 rd: torch.dtype, layout: Tuple[int, int], residuals: bool,
+                 dropout):
+    """One call of K8's launcher, which K1 (``cuda_cell.embed_layer0``)
+    takes too: W and U in the compute type, b in fp32, the sequences in
+    ``rd``, ``layout`` the persistent design's (kres, rows) (kres -1: the
+    per-step design). Adds the launches made to ``counter.launches``, then
+    raises on a failed launch; returns the buffers."""
+    s, b = ids.shape
+    n = cfg.hidden
+    W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
+    ids32 = ids.to(torch.int32).contiguous()
+    drop = cuda_cell.drop_scalars(dropout)
+    o = _fwd_buffers(h0, c0, s, b, n, cfg, rd, residuals, drop is not None)
+    launched = ctypes.c_int(0)
+    err = _build.load_library().tiled_fwd_embed_launch(
+        cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
+        W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(), ids32.data_ptr(),
+        *_ptrs(o), s, b, n, int(cfg.cell_variant == "standard"), *layout,
+        *(drop or (0, 0, 0.0)),
+        torch.cuda.current_stream(ids.device).cuda_stream,
+        ctypes.byref(launched),
+    )
+    counter.launches += launched.value
+    cuda_cell._raise_on(err, "tiled_fwd_embed_launch")
+    return o
+
+
 def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
                        residuals: bool = False, dropout=None):
     """Layer 0, K8 on a CUDA tensor, the plain version on a CPU tensor.
     ids (S, B) byte ids; h0, c0 (B, N)."""
     _refuse_grad(layer, ids, h0, c0)
     cuda_cell._validate(layer, ids, h0, c0, cfg, embed=True)
-    drop = cuda_cell.drop_scalars(dropout)
     if ids.device.type == "cpu":
         return tiled_embed_layer0_plain(layer, ids, h0, c0, cfg, residuals,
                                         dropout)
-    ctype, rtype = _kernel_codes(cfg, ids.device)
-    s, b = ids.shape
-    n = cfg.hidden
-    W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
-    ids32 = ids.to(torch.int32).contiguous()
-    o = _fwd_buffers(h0, c0, s, b, n, cfg, types(cfg)[1], residuals,
-                     drop is not None)
-    launched = ctypes.c_int(0)
-    err = _build.load_library().tiled_fwd_embed_launch(
-        ctype, rtype, W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(),
-        ids32.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), _kres_arg(cfg, b, n),
-        *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(ids.device).cuda_stream,
-        ctypes.byref(launched),
-    )
-    tiled_embed_layer0.launches += launched.value
-    cuda_cell._raise_on(err, "tiled_fwd_embed_launch")
+    _kernel_codes(cfg, ids.device)
+    b = ids.shape[1]
+    o = embed_launch(tiled_embed_layer0, layer, ids, h0, c0, cfg,
+                     types(cfg)[1], (_kres_arg(cfg, b, cfg.hidden), b),
+                     residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 
 def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
-                rd: torch.dtype, kres: int, residuals: bool, dropout):
+                rd: torch.dtype, layout: Tuple[int, int], residuals: bool,
+                dropout):
     """One call of K9's launcher, which K2 (``cuda_cell.scan_layer``)
     takes too: U and the xw stream in the compute type, the sequences in
-    ``rd``, ``kres`` the persistent design's resident rows (-1: the
+    ``rd``, ``layout`` the persistent design's (kres, rows) (kres -1: the
     per-step design). Adds the launches made to ``counter.launches``, then
     raises on a failed launch; returns the buffers."""
     s, b, _ = xw.shape
@@ -388,7 +457,7 @@ def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
     err = _build.load_library().tiled_fwd_scan_launch(
         cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
         U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), kres, *(drop or (0, 0, 0.0)),
+        int(cfg.cell_variant == "standard"), *layout, *(drop or (0, 0, 0.0)),
         torch.cuda.current_stream(xw.device).cuda_stream,
         ctypes.byref(launched),
     )
@@ -409,7 +478,7 @@ def tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
     _kernel_codes(cfg, xw.device)
     b = xw.shape[1]
     o = scan_launch(tiled_scan_layer, layer, xw, h0, c0, cfg, types(cfg)[1],
-                    _kres_arg(cfg, b, cfg.hidden), residuals, dropout)
+                    (_kres_arg(cfg, b, cfg.hidden), b), residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 

@@ -130,11 +130,7 @@ def tp_step_plan(cfg: ModelConfig, b: int, n: int, nd: int, sms: int,
     if (cfg.cdtype != torch.bfloat16 or n % ct.PERSIST_KC != 0
             or nd % ct.PERSIST_UNITS != 0 or not 1 <= b <= ct.PERSIST_ROWS):
         return None
-    tiles = -(-b // 16)
-    for split in (1, 2, 4, 8):
-        rows = 16 * -(-tiles // split)
-        if 2 * (nd // ct.PERSIST_UNITS) * -(-b // rows) >= sms or rows == 16:
-            break
+    rows = ct.split_rows(b, nd // ct.PERSIST_UNITS, sms)
     return rows if ct.persist_smem_bytes(rows, n, 0) <= smem_limit else None
 
 

@@ -21,8 +21,16 @@ as an all-gather over the group and the dh partials reduce-scattered, so
 the plain versions are exact at any D. Each wrapper counts its launches in
 ``.launches``, one a call.
 
-K15 is ``tp_seq_fwd_launch`` of ``csrc/lstm_tp.cu``. K16 has two designs of
-one function. At D = 1 it is K6's reverse recurrence, so under bf16
+K15 has two designs of one function, both behind ``tp_seq_fwd_launch`` of
+``csrc/lstm_tp.cu``. Under bf16 compute, wherever
+``cuda_cell_tiled.split_fwd_plan`` gives a layout, it is the persistent
+tensor-core forward of K8/K9 (``csrc/fwd_mma.cuh:fwd_persist``: U's rows
+in shared memory, the products on tensor cores, a share of the batch rows
+a block) with K15's own streams: xw in fp32 with the bias, the exchange
+buffer's round(h) in the compute type, h_seq in fp32, g and c_prev =
+c_{t-1} in the residual type; only the order of the product's fp32 sums
+moves. Elsewhere (fp32) it is one cooperative launch of CUDA-core step
+tiles. K16 has two designs of one function too. At D = 1 it is K6's reverse recurrence, so under bf16
 compute, wherever ``cuda_cell_bwd.k6_plan`` gives a layout, it is K6's
 persistent kernel (``lstm_bwd_persist_launch``: U in shared memory, dh_rec
 on tensor cores, dg written in fp32 as well), given K16's c layout without
@@ -55,6 +63,7 @@ from . import _build
 from . import cell as cell_ops
 from . import cuda_cell
 from . import cuda_cell_bwd
+from . import cuda_cell_tiled as ct
 from .cuda_tp_cell import _card, _check, _stream, tp_step_bwd_plain, tp_step_plain
 
 VMEM_BUDGET = 14 * 1024 * 1024   # pallas_tp_seq.py:56
@@ -130,8 +139,9 @@ def _d1(group, dev, what: str):
 
 def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
-    """The TP window: K15 on the card (D = 1), the plain version on the
-    CPU. Returns as ``tp_seq_fwd_plain``."""
+    """The TP window: K15 on the card (D = 1), in the design
+    ``cuda_cell_tiled.device_split_fwd_plan`` gives, the plain version on
+    the CPU. Returns as ``tp_seq_fwd_plain``."""
     s, b, nd4 = xw.shape
     nd = nd4 // 4
     n = h0_full.shape[1]
@@ -148,9 +158,10 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
                         f"residuals, not {cfg.param_dtype}/{cfg.residual_dtype}")
     rtype = cuda_cell._TYPE_CODES[cfg.rdtype]
     lib = _build.load_library()
+    layout = ct.device_split_fwd_plan(cfg, b, n)   # D = 1: nd == n
     f32 = torch.float32
-    U_k = U_c.to(cfg.cdtype).contiguous()
-    xw32 = xw.to(f32).contiguous()
+    U_k = ct._aligned(U_c.to(cfg.cdtype))
+    xw32 = ct._aligned(xw.to(f32))
     hbuf = torch.empty(2, b, n, dtype=cfg.cdtype, device=dev)
     hbuf[0] = h0_full
     c = c0.to(f32).clone().contiguous()
@@ -158,13 +169,15 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
     g_seq = torch.empty(s, b, 4 * nd, dtype=cfg.rdtype, device=dev)
     c_prev = torch.empty(s, b, nd, dtype=cfg.rdtype, device=dev)
     hT, cT = (torch.empty(b, nd, dtype=f32, device=dev) for _ in range(2))
+    launched = ctypes.c_int(0)
     err = lib.tp_seq_fwd_launch(
         ctype, rtype, U_k.data_ptr(), xw32.data_ptr(), hbuf.data_ptr(),
         c.data_ptr(), h_seq.data_ptr(), g_seq.data_ptr(), c_prev.data_ptr(),
         hT.data_ptr(), cT.data_ptr(), s, b, n, nd,
-        int(cfg.cell_variant == "standard"), _stream(dev))
+        int(cfg.cell_variant == "standard"), *(layout or (-1, 0)),
+        _stream(dev), ctypes.byref(launched))
+    tp_seq_fwd.launches += launched.value
     cuda_cell._raise_on(err, "tp_seq_fwd_launch")
-    tp_seq_fwd.launches += 1
     return h_seq, g_seq, c_prev, hT, cT
 
 

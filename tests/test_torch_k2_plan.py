@@ -128,16 +128,16 @@ def test_card_path_launches_k9_s_persistent_kernel(routed, b, residual, dropout)
     assert [c[0] for c in lib.calls] == ["tiled_fwd_scan_launch"]
     a = lib.calls[0][1]
     # (ctype, rtype, U, xw, hc, c, hT, hseq, cseq, gseq, hdrop, S, B, N,
-    #  standard, kres, seed, keep, inv, stream, launched)
+    #  standard, kres, rows, seed, keep, inv, stream, launched)
     assert a[0] == 1 and a[1] == cuda_cell._TYPE_CODES[cfg.rdtype]
     owned = {ptr(x) >> 32 for x in (layer.W, layer.U, layer.b, xw, h0, c0)}
     assert a[2] >> 32 not in owned and a[3] >> 32 not in owned
     h_seq, (hT, cT), c_seq, g_seq = out[:4]
     assert a[7] == ptr(h_seq) and a[8] == ptr(c_seq) and a[9] == ptr(g_seq)
-    assert a[11:16] == (s, b, n, 0, 1024)
+    assert a[11:17] == (s, b, n, 0, 1024, b)
     assert (a[10] is None) == (dropout is None)
     drop = cuda_cell.drop_scalars(dropout)
-    assert a[16:19] == (drop or (0, 0, 0.0))
+    assert a[17:20] == (drop or (0, 0, 0.0))
     assert h_seq.dtype == c_seq.dtype == g_seq.dtype == cfg.rdtype
     assert hT.dtype == cT.dtype == cfg.pdtype
     if dropout is not None:
