@@ -21,8 +21,8 @@ Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
          plain on a 4096-byte slice; the same for the 1x512 checkpoint.
 Phase 4  the CLI's sample path: 1000-byte greedy and T = 0.7 samples of
          the flagship (bf16, B = 1) through ``sample_text``, so through the
-         generation kernel K7, its launches counted; the loop backend's
-         bytes/s beside.
+         generation kernel K7 in its persistent design, its launches
+         counted; the loop backend's bytes/s beside.
 Phase 5  the training kernels (layer-0 backward, fused head forward and
          backward) against their plain versions at the bench's shapes
          (S = 100, B = 128, N = 512, M = 256) with the 1x512 checkpoint's
@@ -89,9 +89,15 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
 Phase 8  generation: K7 against its plain version with the flagship's
          weights, fp32 and bf16, B = 1 and 128, T = 0 and 0.7, 256 tokens
          from primed states: every step replayed by the plain version from
-         K7's own state and token (gated), the free runs compared (printed);
-         1000-token calls timed beside the bound, the plain version and the
-         loop backend; ``sample_ids`` at B = 128 on the default backend.
+         K7's own state and token (gated), a second call from the same
+         state the same bits (gated), the free runs compared (printed); in
+         bf16 its persistent design (gated: fp32 takes the first), and
+         forced the first design and at B = 1 the other product (mma or
+         gemv), held to the same gates; 1000-token calls timed beside the
+         bound, the plain version and the loop backend, every design in
+         the same call (the persistent design gated faster than the first);
+         ``sample_ids`` at B = 128 on the default backend, bf16 (one
+         persistent launch) and fp32 (one launch of the first design).
 Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          S = 100, bf16, bf16 residuals, enwik6): (a) K8, K9 and K10
          against their plain versions at those shapes, without and with
@@ -141,7 +147,7 @@ Phase 10 the last two single-card kernels and the modules of this path:
 Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          kernels: (a) K13 and K14 (the per-step pair) at the flagship's
          shapes as one shard of D = 1, 2 and 4 (K13 in bf16 on tensor
-         cores, its kernel alone timed beside the wrapper call, and its
+         cores, its kernel and K14's alone timed beside the wrapper calls, and its
          CUDA-core design, forced, held to the same gate and timed in the
          same call), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
@@ -579,9 +585,10 @@ SAMPLE_CHARS, LOOP_CHARS = 1000, 200
 
 def phase4():
     """The CLI's ``sample`` path: ``sample_text`` of the flagship (bf16,
-    B = 1, the default backend, so K7), greedy and at T = 0.7, with K7's
-    launch count reset before and read after; the ``"loop"`` backend's
-    bytes/s from the same start beside it. Returns K7's launches."""
+    B = 1, the default backend, so K7 in its persistent design), greedy
+    and at T = 0.7, with K7's launch counts reset before and read after;
+    the ``"loop"`` backend's bytes/s from the same start beside it. Returns
+    the persistent design's launches."""
     from eigen_lstm_tpu_torch.models import lstm as model
     from eigen_lstm_tpu_torch.models.sampler import sample_ids, sample_text
     from eigen_lstm_tpu_torch.ops import cuda_sampler
@@ -593,6 +600,7 @@ def phase4():
     first = torch.tensor([10], device=DEVICE)
     torch.cuda.synchronize()
     cuda_sampler.generate.launches = 0
+    cuda_sampler.generate.persistent_launches = 0
     for temp in (0.0, 0.7):
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         t0 = time.perf_counter()
@@ -611,10 +619,13 @@ def phase4():
               f"{LOOP_CHARS / dt_loop:,.1f} bytes/s; {text[:60]!r}",
               flush=True)
     launches = cuda_sampler.generate.launches
-    print(f"  sample_text launched K7 {launches} times", flush=True)
-    if launches != 2:
-        fail(f"sample_text launched K7 {launches} times, expected 2")
-    return launches
+    persistent = cuda_sampler.generate.persistent_launches
+    print(f"  sample_text launched K7 {launches} times, {persistent} in its "
+          f"persistent design ({gen_design(cfg, 1)[0]})", flush=True)
+    if launches != 2 or persistent != 2:
+        fail(f"sample_text launched K7 {launches} times, {persistent} in its "
+             f"persistent design; expected 2 and 2")
+    return persistent
 
 
 # --- the training path (bench shapes: S = 100, B = 128, N = 512, M = 256) ---
@@ -2122,11 +2133,15 @@ def primed(params, cfg, test, b):
 def gen_replay(params, cfg, first, h0, c0, temp, label):
     """K7 for GEN_TOKENS tokens with its state after every token, each step
     replayed by the plain version (gated), then the plain version's own
-    free run (printed). Returns the largest h/c error of the replay."""
+    free run (printed); a second call from the same state must give the
+    same ids and (hT, cT) bit for bit (gated). Returns the largest h/c
+    error of the replay."""
     from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
 
     ids, (hT, cT), (th, tc) = cs.generate(params, cfg, GEN_SEED, first, h0,
                                           c0, GEN_TOKENS, temp, trace=True)
+    ids2, (hT2, cT2) = cs.generate(params, cfg, GEN_SEED, first, h0, c0,
+                                   GEN_TOKENS, temp)
     torch.cuda.synchronize()
     s, L, b, n = th.shape
     if (not torch.isfinite(th).all() or not torch.isfinite(tc).all()
@@ -2135,6 +2150,9 @@ def gen_replay(params, cfg, first, h0, c0, temp, label):
     if not (torch.equal(hT, th[-1].to(cfg.pdtype))
             and torch.equal(cT, tc[-1].to(cfg.pdtype))):
         fail(f"K7 {label}: (hT, cT) is not the state after the last token")
+    if not (torch.equal(ids, ids2) and torch.equal(hT, hT2)
+            and torch.equal(cT, cT2)):
+        fail(f"K7 {label}: two calls from the same state differ")
     rows_of = lambda x: x.permute(1, 0, 2, 3).reshape(L, s * b, n)
     h_prev = rows_of(torch.cat([h0.float()[None], th[:-1]]))
     c_prev = rows_of(torch.cat([c0.float()[None], tc[:-1]]))
@@ -2157,7 +2175,8 @@ def gen_replay(params, cfg, first, h0, c0, temp, label):
     diverged = (~same).any(dim=1).nonzero()
     print(f"  K7 {label}: {s} steps replayed, h/c within {err:.3e} (atol "
           f"{GEN_ATOL:g}), its tokens within {short:.3e} of the plain "
-          f"step's best score (rtol {GEN_SCORE_RTOL:g}); free runs: "
+          f"step's best score (rtol {GEN_SCORE_RTOL:g}); a second call the "
+          f"same bits; free runs: "
           f"{int(same.sum())} of {same.numel()} tokens equal, first "
           f"difference at step "
           f"{int(diverged[0]) if len(diverged) else 'none'} (not gated)",
@@ -2167,12 +2186,45 @@ def gen_replay(params, cfg, first, h0, c0, temp, label):
     return err
 
 
+def gen_design(cfg, b):
+    """A label of K7's design as ``gen_plan`` chose it, and its layout."""
+    from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
+
+    lay = cs.device_gen_plan(cfg, b)
+    if lay is None:
+        return "the first design (2L + 1 barriers a token, partial sums)", None
+    return (f"the persistent design ({lay.design} product, {lay.grid} blocks, "
+            f"tiles of {lay.units} units x 4 gates and {lay.rows} rows, head "
+            f"items of {lay.head_rows} rows, {lay.resident_rows} weight rows "
+            f"held a block, {lay.smem} bytes of shared memory)", lay)
+
+
+@contextlib.contextmanager
+def gen_forced(layout):
+    """K7's wrapper takes ``layout`` (None: the first design), whatever
+    ``gen_plan`` would choose: for the checks and times of the designs the
+    main path does not take."""
+    from eigen_lstm_tpu_torch.ops import cuda_sampler
+
+    plan = cuda_sampler.device_gen_plan
+    cuda_sampler.device_gen_plan = lambda *a, **k: layout
+    try:
+        yield
+    finally:
+        cuda_sampler.device_gen_plan = plan
+
+
 def phase8(test, records):
     """K7 against its plain version with the flagship's weights, fp32 and
-    bf16, B = 1 and 128, T = 0 and 0.7, from primed states; then the
-    times of 1000-token calls beside the bound, the plain version and the
-    loop backend; then ``sample_ids`` at B = 128 on the default backend
-    with K7's count reset before and read after. Returns that count."""
+    bf16, B = 1 and 128, T = 0 and 0.7, from primed states, every design
+    the card runs (bf16: the persistent design, and forced the first
+    design and, at B = 1, the tensor-core product; fp32: the first
+    design); then the times of 1000-token calls beside the bound, the
+    plain version and the loop backend, every design in the same call;
+    then ``sample_ids`` at B = 128 on the
+    default backend, bf16 (the persistent design) and fp32 (the first),
+    with K7's counts reset before and read after. Returns (the persistent
+    design's launches, the first design's) of those two calls."""
     from eigen_lstm_tpu_torch.models.sampler import sample_ids
     from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
@@ -2182,13 +2234,42 @@ def phase8(test, records):
         cfg = flagship_cfg(dtype)
         for b in (1, 128):
             first, h0, c0 = primed(params, cfg, test, b)
+            label, lay = gen_design(cfg, b)
+            print(f"  K7 {dtype} B={b}: {label}", flush=True)
+            if (lay is not None) != (dtype == "bfloat16"):
+                fail(f"K7 {dtype} B={b}: {label}; the persistent design in "
+                     f"bf16 alone")
+            # the designs this call checks and times: the main path's, then
+            # forced the first design and B = 1's other product
+            others = {}
+            if lay is not None:
+                others["first design"] = None
+                if b == 1:
+                    alt = "mma" if lay.design == "gemv" else "gemv"
+                    others[f"{alt} product"] = cs.device_gen_plan(cfg, b, design=alt)
+            before = (cs.generate.launches, cs.generate.persistent_launches)
             err = max(gen_replay(params, cfg, first, h0, c0, temp,
                                  f"{dtype} B={b} T={temp}")
                       for temp in (0.0, 0.7))
+            made = (cs.generate.launches - before[0],
+                    cs.generate.persistent_launches - before[1])
+            if made != (4, 4 if lay is not None else 0):
+                fail(f"K7 {dtype} B={b}: {made} (all, persistent) launches "
+                     f"in four calls")
+            for key, other in others.items():
+                with gen_forced(other):
+                    for temp in (0.0, 0.7):
+                        gen_replay(params, cfg, first, h0, c0, temp,
+                                   f"{dtype} B={b} T={temp} ({key})")
             n_tok = GEN_TIME_TOKENS
             run = lambda fn, **kw: fn(params, cfg, GEN_SEED, first, h0, c0,
                                       n_tok, 0.7, **kw)
             ms = cuda_ms(lambda: run(cs.generate), reps=1, windows=3)
+            times = {}
+            for key, other in others.items():
+                with gen_forced(other):
+                    times[key] = cuda_ms(lambda: run(cs.generate), reps=1,
+                                         windows=3)
             plain_ms = cuda_ms(lambda: run(cs.generate_plain), reps=1,
                                windows=1)
             loop_ms = cuda_ms(lambda: sample_ids(params, cfg, None, first, h0,
@@ -2202,32 +2283,47 @@ def phase8(test, records):
                   f"{bound_ms:.4f} ms ({bound_by}; the weights read once "
                   f"{1e3 * read_ms:.2f} us), plain {plain_ms:.1f} ms, the "
                   f"loop backend {loop_ms:.1f} ms "
-                  f"({b * n_tok / loop_ms * 1e3:,.0f} bytes/s)", flush=True)
+                  f"({b * n_tok / loop_ms * 1e3:,.0f} bytes/s)"
+                  + "".join(f"; {k} {v:.3f} ms" for k, v in times.items())
+                  + (" in this call" if times else ""), flush=True)
+            if lay is not None and not ms < times["first design"]:
+                fail(f"K7 {dtype} B={b}: the persistent design ({ms:.3f} ms) "
+                     f"is not faster than the first ({times['first design']:.3f})")
             records[("gen", dtype, b)] = dict(
-                name="gen", route="cuda",
+                name="gen" if lay is not None else "gen_first_design",
+                route="cuda",
                 source="eigen_lstm_tpu_torch/csrc/sampler.cu",
                 replaces="eigen_lstm_tpu/ops/pallas_sampler.py:37",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                **{k.replace(" ", "_") + "_ms": v for k, v in times.items()})
     print("  library: no single PyTorch call generates tokens through an "
           "LSTM stack with a draw; the loop backend above is what the port "
           "ran before K7, not a yardstick", flush=True)
-    cfg = flagship_cfg("bfloat16")
-    first, h0, c0 = primed(params, cfg, test, 128)
-    torch.cuda.synchronize()
-    cs.generate.launches = 0
-    t0 = time.perf_counter()
-    ids, _ = sample_ids(params, cfg, torch.Generator(device=DEVICE).manual_seed(1),
-                        first, h0, c0, GEN_TIME_TOKENS, 0.7)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = cs.generate.launches
-    print(f"  sample_ids bf16 B=128, {GEN_TIME_TOKENS} tokens on the default "
-          f"backend: {ids.numel() / dt:,.0f} bytes/s ({dt:.3f} s), K7 "
-          f"launched {launches} times", flush=True)
-    if launches != 1 or tuple(ids.shape) != (GEN_TIME_TOKENS, 128):
-        fail("sample_ids at B = 128 did not run K7 once")
-    return launches
+    made = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg(dtype)
+        first, h0, c0 = primed(params, cfg, test, 128)
+        torch.cuda.synchronize()
+        cs.generate.launches = cs.generate.persistent_launches = 0
+        t0 = time.perf_counter()
+        ids, _ = sample_ids(params, cfg,
+                            torch.Generator(device=DEVICE).manual_seed(1),
+                            first, h0, c0, GEN_TIME_TOKENS, 0.7)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, persistent = cs.generate.launches, cs.generate.persistent_launches
+        print(f"  sample_ids {dtype} B=128, {GEN_TIME_TOKENS} tokens on the "
+              f"default backend: {ids.numel() / dt:,.0f} bytes/s ({dt:.3f} s), "
+              f"K7 launched {launches} times, {persistent} in its persistent "
+              f"design", flush=True)
+        want = 1 if dtype == "bfloat16" else 0
+        if (launches != 1 or persistent != want
+                or tuple(ids.shape) != (GEN_TIME_TOKENS, 128)):
+            fail(f"sample_ids {dtype} at B = 128 did not run K7 once in its "
+                 f"{'persistent' if want else 'first'} design")
+        made.append(persistent if want else launches)
+    return tuple(made)
 
 
 # --- the tiled-U regime (scripts/run_configs.py 5b: 1x2048, B = 128, S = 100)
@@ -3450,6 +3546,24 @@ def k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows):
     return cuda_ms(lambda: lib.tp_step_fwd_launch(*args), reps=50)
 
 
+def k14_alone_ms(g, c2, c_prev, dh, dc, cfg):
+    """K14's C launcher alone between CUDA events, its fp32 inputs and
+    outputs made once: the wrapper's casts and allocations left out."""
+    from eigen_lstm_tpu_torch.ops import _build
+
+    b, nd = c2.shape
+    ins = [x.to(torch.float32).contiguous() for x in (g, c2, c_prev, dh, dc)]
+    outs = (torch.empty(b, 4 * nd, dtype=torch.float32, device=DEVICE),
+            torch.empty(b, nd, dtype=torch.float32, device=DEVICE))
+    args = (*(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs), b,
+            nd, int(cfg.cell_variant == "standard"),
+            torch.cuda.current_stream().cuda_stream)
+    lib = _build.load_library()
+    if lib.tp_step_bwd_launch(*args) != 0:
+        fail("tp_step_bwd_launch refused the call")
+    return cuda_ms(lambda: lib.tp_step_bwd_launch(*args), reps=50)
+
+
 @contextlib.contextmanager
 def cuda_core_k13():
     """K13's wrapper takes its CUDA-core design inside the block, whatever
@@ -3533,6 +3647,7 @@ def phase11a(records):
             plain13 = cuda_ms(lambda: tc.tp_step_plain(U_c, xw, h_full, c_d, cfg), reps=20)
             lib13 = lstm_cell_ms(cfg, h_full, c_d, c_d, U_d, xw[0])
             ms14 = cuda_ms(lambda: tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg), reps=50)
+            alone14 = k14_alone_ms(out_k[2], out_k[1], c_d, dh, dc, cfg)
             plain14 = cuda_ms(lambda: tc.tp_step_bwd_plain(out_k[2], out_k[1], c_d, dh, dc, cfg),
                               reps=20)
             b13 = tp_step_bound(cfg, b, n, nd, False)
@@ -3542,14 +3657,14 @@ def phase11a(records):
                   f"bound {b13[0]:.5f} ms ({b13[1]}), plain {plain13:.4f} ms, "
                   f"torch.lstm_cell {'n/a' if lib13 is None else f'{lib13:.4f} ms'}"
                   f"{line}; K14: {ms14:.4f} "
-                  f"ms (1 launch), bound {b14[0]:.5f} ms ({b14[1]}), plain "
+                  f"ms (1 launch), its kernel alone {alone14:.4f} ms, bound {b14[0]:.5f} ms ({b14[1]}), plain "
                   f"{plain14:.4f} ms, library n/a", flush=True)
             records[("11a", "tp_step_fwd", dtype, ndev)] = dict(_tp_record(
                 "tp_step_fwd", max(errs13.values()), ms13, plain13, b13, lib13),
                 alone_ms=alone13)
-            records[("11a", "tp_step_bwd", dtype, ndev)] = _tp_record(
+            records[("11a", "tp_step_bwd", dtype, ndev)] = dict(_tp_record(
                 "tp_step_bwd", max(errs["K14 dg"], errs["K14 dc_prev"]), ms14,
-                plain14, b14, None)
+                plain14, b14, None), alone_ms=alone14)
     s, b = TRAIN_S, TRAIN_B
     for dtype in ("float32", "bfloat16"):
         cfg = ModelConfig(hidden=512, compute_dtype=dtype, residual_dtype="float32")
@@ -3956,7 +4071,8 @@ def main():
     check_budget("phase 7b (flagship loss and gradients)")
     flag_counts, _, fp32_tiled, flag_trainer = phase7c(flag_call, records)
     check_budget("phase 7c (flagship training steps)")
-    gen_launches += phase8(test, records)
+    gen_new, gen_first = phase8(test, records)
+    gen_launches += gen_new
     check_budget("phase 8 (generation)")
     tiled_call = phase9a(records)
     check_budget("phase 9a (tiled kernels against plain)")
@@ -4006,7 +4122,10 @@ def main():
         name="lstm_bwd_embed_per_step")
     add(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
         flag_counts["lstm_bwd_scan"])
+    # K7: the persistent design on the CLI's sample (phase 4) and bf16
+    # sample_ids (8); the first design, which fp32 keeps, on fp32 sample_ids
     add(records[("gen", "bfloat16", 1)], gen_launches)
+    add(records[("gen", "float32", 128)], gen_first)
     # K8 and K10 on the 5b path (9c), K9 on the flagship's fp32 steps (7c)
     for name, count in (("tiled_fwd_embed", b5_counts["tiled_fwd_embed"]),
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),

@@ -71,6 +71,10 @@ SIGNATURES = {
                          + [_P, _IP]),
     "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),
     "gen_work_floats": (_Z, [_I] * 3),
+    "gen_persist_launch": (_I, [_P] * 11 + [_I] * 7 + [_U, _F] + [_I] * 5
+                           + [_P, _IP]),
+    "gen_persist_smem_bytes": (_Z, [_I] * 5),
+    "gen_persist_work_bytes": (_Z, [_I] * 4),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),

@@ -21,12 +21,25 @@ The draws are not ``jax.random``'s: the JAX package's seed is
 ``jax.random.bits(key)`` read as int32, which torch cannot reproduce; the
 callers pass a seed, and tests pass the JAX one.
 
-``generate.launches`` counts kernel launches: one a call.
+K7 has two designs on the card (``gen_plan`` chooses from the type, the
+batch, the shape and the card's SMs and shared memory, before the launch;
+a failed launch raises): under bf16 compute the persistent design of
+``csrc/sampler.cu`` (``gen_persist``: each block owns fixed columns of
+every layer and of the head for the call and holds as many of their weight
+rows in shared memory as fit, L + 1 grid barriers a token, the products on
+tensor cores, or at B = 1 a gemv), elsewhere the first design
+(``gen_kernel``: partial sums and an epilogue phase a layer, 2L + 1
+barriers a token, the weights streamed from L2 at every token).
+
+``generate.launches`` counts kernel launches of either design, one a call;
+``generate.persistent_launches`` those of the persistent design.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,19 +47,172 @@ import torch
 from ..config import ModelConfig
 from . import _build
 from . import cell as cell_ops
+from . import cuda_cell_tiled as ct
 from .cuda_cell import _M32, _TYPE_CODES, _acc_dtype, _fmix32_torch, _mul32, _raise_on
 from .head import MAX_VOCAB
 
 
 def supported(cfg: ModelConfig, batch: int) -> bool:
-    """What the kernel takes: a hidden width that is a multiple of 32 (a
-    warp's lanes own 32 units of each gate), at most 256 bytes of
-    vocabulary (as ``head.head_supported``), any batch >= 1, and an fp32 or
-    bf16 compute type. There is no capacity gate: the weights stream from
-    device memory and L2 at every token, and the TPU's 13 MB VMEM budget
-    (``pallas_sampler.py:121-134``) describes the TPU."""
+    """What the first design takes, the whole domain of the kernel: a
+    hidden width that is a multiple of 32 (a warp's lanes own 32 units of
+    each gate), at most 256 bytes of vocabulary (as
+    ``head.head_supported``), any batch >= 1, and an fp32 or bf16 compute
+    type. It streams the weights from device memory and L2 at every token,
+    so it has no capacity gate (the TPU's 13 MB VMEM budget,
+    ``pallas_sampler.py:121-134``, describes the TPU). Within it
+    ``gen_plan`` picks the persistent design where it gives a layout: bf16
+    compute, N a multiple of 64, M of 64 (32 for B = 1's gemv product), at
+    most 128 streams and 8 layers, each phase's tiles within the SMs; it
+    holds about two thirds of the flagship's weights on chip for the whole
+    call."""
     return (cfg.hidden % 32 == 0 and 0 < cfg.vocab <= MAX_VOCAB
             and batch >= 1 and cfg.cdtype in _TYPE_CODES)
+
+
+# The persistent design's layout, as csrc/sampler.cu lays it out
+# (gen_smem_bytes; ``_layout_checked`` holds the two equal): each block
+# holds `resident_rows` weight rows ([k][gate][unit], 4 * units + pad bf16
+# a row for the tensor-core product, 4 * units for gemv), then its scratch
+# (the tensor-core ring of ``cuda_cell_tiled.persist_smem_bytes`` for the
+# larger of rows and head_rows; gemv: round(x) of 2N in bf16 and the warps'
+# sums, 9 x 32 fp32), then 128 + 4 * 9 ints (its rows' tokens, its phases'
+# items).
+GEN_UNITS = {"mma": ct.PERSIST_UNITS, "gemv": 8}
+GEN_PITCH = {"mma": 4 * ct.PERSIST_UNITS + ct.PERSIST_PAD, "gemv": 4 * 8}
+GEN_MAX_ROWS, GEN_MAX_LAYERS = ct.PERSIST_ROWS, 8
+
+
+class GenLayout(NamedTuple):
+    design: str          # "mma" (tensor cores) or "gemv" (B = 1)
+    units: int           # hidden units of a block's layer tile (x 4 gates)
+    rows: int            # batch rows of a layer item
+    head_rows: int       # batch rows of a head item (its tile: 4 x units logits)
+    grid: int            # blocks, one a SM
+    resident_rows: int   # weight rows a block holds in shared memory
+    smem: int            # its bytes of dynamic shared memory
+
+
+def gen_K(ph: int, L: int, n: int) -> int:
+    """Phase ph's contraction: N for layer 0 (its U rows) and the head
+    (ph == L), 2N for the layers between ([x_l, h_l])."""
+    return n if ph in (0, L) else 2 * n
+
+
+def gen_items(ph: int, L: int, b: int, n: int, m: int, units: int,
+              rows: int, head_rows: int) -> int:
+    """Phase ph's items: tiles of ``units`` units (the head: of the M / 4
+    columns of a gate stride) times the groups of rows."""
+    r = rows if ph < L else head_rows
+    return (n if ph < L else m // 4) // units * -(-b // r)
+
+
+def gen_smem_bytes(design: str, rows: int, head_rows: int, n: int,
+                   resident_rows: int) -> int:
+    """A block's dynamic shared memory (``gen_smem_bytes`` of the source)."""
+    if design == "mma":
+        scratch = max(ct.persist_smem_bytes(r, n, 0) for r in (rows, head_rows))
+    else:
+        scratch = 4 * n + 9 * 4 * GEN_UNITS["gemv"] * 4
+    return (2 * GEN_PITCH[design] * resident_rows + scratch
+            + (GEN_MAX_ROWS + 4 * (GEN_MAX_LAYERS + 1)) * 4)
+
+
+def block_phases(cfg: ModelConfig, b: int, layout: GenLayout, block: int):
+    """The kernel's assignment for one block: per phase (the layers, then
+    the head) its (item or None, resident rows, first resident row). The
+    items of phase p go to blocks (offset_p + i) % grid; resident rows fill
+    in phase order, whole chunks of 64."""
+    L, n, m = cfg.num_layers, cfg.hidden, cfg.vocab
+    left, row, before, out = layout.resident_rows // ct.PERSIST_KC, 0, 0, []
+    for ph in range(L + 1):
+        count = gen_items(ph, L, b, n, m, layout.units, layout.rows,
+                          layout.head_rows)
+        i = (block - before) % layout.grid
+        item = i if i < count else None
+        cres = 0 if item is None else min(gen_K(ph, L, n) // ct.PERSIST_KC, left)
+        out.append((item, cres * ct.PERSIST_KC, row))
+        left -= cres
+        row += cres * ct.PERSIST_KC
+        before += count
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def gen_plan(cfg: ModelConfig, b: int, sms: int, smem_limit: int,
+             design: Optional[str] = None) -> Optional[GenLayout]:
+    """K7's design at (config, batch) on a device of ``sms`` SMs whose
+    blocks may take ``smem_limit`` bytes of shared memory: the persistent
+    design's layout, or None for the first design.
+
+    The persistent design needs bf16 compute (the tensor cores; fp32
+    products keep TF32 off), N a multiple of the 64-row chunk, 1 to 8
+    layers, at most 128 streams and 256 bytes, and every phase's items
+    within one a block on a grid of one block a SM. Its product is
+    ``design``, by default "mma" (the tensor-core step of
+    ``csrc/fwd_mma.cuh``: 16 units a tile, M a multiple of 64) and at
+    B = 1 "gemv" (8 units a tile, M a multiple of 32; it beat the
+    tensor-core product at B = 1 on the H100, PERF.md §6 row 11). A
+    layer item takes ``cuda_cell_tiled.split_rows`` batch rows (all of
+    them where N / 16 tiles reach half the SMs, else fewer, as K1 and K13
+    split), a head item likewise over its M / 64 tiles. A block holds as
+    many weight rows as fit beside its scratch, at most what its items
+    have. Cached: ``generate`` asks for the plan at every call."""
+    n, m, L = cfg.hidden, cfg.vocab, cfg.num_layers
+    if (cfg.cdtype != torch.bfloat16 or n % ct.PERSIST_KC != 0
+            or not 1 <= L <= GEN_MAX_LAYERS or not 1 <= b <= GEN_MAX_ROWS
+            or not 0 < m <= MAX_VOCAB):
+        return None
+    if design is None:
+        # B = 1 falls back to the tensor cores where gemv's tiles do not fit
+        first = gen_plan(cfg, b, sms, smem_limit, "gemv") if b == 1 else None
+        return first or gen_plan(cfg, b, sms, smem_limit, "mma")
+    units = GEN_UNITS[design]
+    if m % (4 * units) != 0 or (design == "gemv" and b != 1):
+        return None
+    if design == "mma":
+        rows = min(b, ct.split_rows(b, n // units, sms))
+        head_rows = min(b, ct.split_rows(b, m // 4 // units, sms))
+    else:
+        rows = head_rows = 1
+    if any(gen_items(ph, L, b, n, m, units, rows, head_rows) > sms
+           for ph in range(L + 1)):
+        return None
+    free = smem_limit - gen_smem_bytes(design, rows, head_rows, n, 0)
+    if free < 0:
+        return None
+    fit = free // (2 * GEN_PITCH[design]) // ct.PERSIST_KC * ct.PERSIST_KC
+    layout = GenLayout(design, units, rows, head_rows, sms, fit, 0)
+    # no more than the most any block's items have
+    need = max(sum(gen_K(ph, L, n) for ph, (item, _, _) in
+                   enumerate(block_phases(cfg, b, layout._replace(
+                       resident_rows=0), blk)) if item is not None)
+               for blk in range(sms))
+    resident = min(fit, need)
+    return layout._replace(resident_rows=resident, smem=gen_smem_bytes(
+        design, rows, head_rows, n, resident))
+
+
+def device_gen_plan(cfg: ModelConfig, b: int,
+                    design: Optional[str] = None) -> Optional[GenLayout]:
+    """``gen_plan`` with the current card's SMs and shared-memory limit."""
+    return gen_plan(cfg, b, *ct._device_limits(torch.cuda.current_device()),
+                    design=design)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_checked() -> bool:
+    """Holds ``gen_smem_bytes`` to the library's layout once a process."""
+    lib = _build.load_library()
+    for design, rows, head_rows, n, res in (("mma", 64, 16, 1024, 1216),
+                                            ("mma", 128, 16, 1024, 1024),
+                                            ("mma", 1, 1, 2048, 0),
+                                            ("gemv", 1, 1, 1024, 3392)):
+        if lib.gen_persist_smem_bytes(int(design == "mma"), rows, head_rows, n,
+                                      res) != gen_smem_bytes(design, rows,
+                                                             head_rows, n, res):
+            raise RuntimeError("gen_smem_bytes disagrees with csrc/sampler.cu's "
+                               "layout")
+    return True
 
 
 class Packed(NamedTuple):
@@ -245,6 +411,16 @@ def generate(params, cfg: ModelConfig, seed: int, first, h0, c0,
     if first.device.type != "cuda" or not supported(cfg, b):
         raise ValueError(f"no generation kernel for {cfg} at B = {b} on "
                          f"{first.device}")
+    return _launch(params, cfg, seed, first, h0, c0, length, temperature,
+                   trace)
+
+
+def _launch(params, cfg: ModelConfig, seed: int, first, h0, c0, length: int,
+            temperature: float, trace: bool):
+    """``generate``'s card path on validated inputs: one launch of the
+    design ``device_gen_plan`` chooses (None: the first design), counted
+    in ``generate.launches`` (and ``generate.persistent_launches``)."""
+    b = first.shape[0]
     lib = _build.load_library()
     dev = first.device
     n, m, L = cfg.hidden, cfg.vocab, cfg.num_layers
@@ -253,24 +429,42 @@ def generate(params, cfg: ModelConfig, seed: int, first, h0, c0,
     c = c0.to(torch.float32).contiguous().clone()
     ch = first.to(torch.int32).contiguous().clone()
     ids = torch.empty(length, b, dtype=torch.int32, device=dev)
-    work = torch.empty(lib.gen_work_floats(b, n, m), dtype=torch.float32,
-                       device=dev)
     states = None
     if trace:
         states = tuple(torch.empty(length, L, b, n, dtype=torch.float32,
                                    device=dev) for _ in range(2))
-    err = lib.gen_launch(
-        _TYPE_CODES[cfg.cdtype], packed.WU.data_ptr(), packed.b.data_ptr(),
-        packed.Why.data_ptr(), packed.by.data_ptr(), h.data_ptr(),
-        c.data_ptr(), ch.data_ptr(), ids.data_ptr(), work.data_ptr(),
-        *((None, None) if states is None else (s.data_ptr() for s in states)),
-        L, b, n, m, length, int(cfg.cell_variant == "standard"),
-        int(temperature == 0.0), int(seed) & _M32,
-        inv_temperature(temperature), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, "gen_launch")
-    generate.launches += 1
+    traces = (None, None) if states is None else (s.data_ptr() for s in states)
+    tail = (L, b, n, m, length, int(cfg.cell_variant == "standard"),
+            int(temperature == 0.0), int(seed) & _M32,
+            inv_temperature(temperature))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    layout = device_gen_plan(cfg, b)
+    if layout is None:
+        work = torch.empty(lib.gen_work_floats(b, n, m), dtype=torch.float32,
+                           device=dev)
+        err = lib.gen_launch(
+            _TYPE_CODES[cfg.cdtype], packed.WU.data_ptr(), packed.b.data_ptr(),
+            packed.Why.data_ptr(), packed.by.data_ptr(), h.data_ptr(),
+            c.data_ptr(), ch.data_ptr(), ids.data_ptr(), work.data_ptr(),
+            *traces, *tail, stream)
+        _raise_on(err, "gen_launch")
+        generate.launches += 1
+        return _finish(ids, h, c, cfg, states)
+    _layout_checked()
+    work = torch.empty(lib.gen_persist_work_bytes(b, n, m, L),
+                       dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
+    err = lib.gen_persist_launch(
+        packed.WU.data_ptr(), packed.b.data_ptr(), packed.Why.data_ptr(),
+        packed.by.data_ptr(), ch.data_ptr(), h.data_ptr(), c.data_ptr(),
+        ids.data_ptr(), work.data_ptr(), *traces, *tail,
+        int(layout.design == "mma"), layout.rows, layout.head_rows,
+        layout.resident_rows, layout.grid, stream, ctypes.byref(launched))
+    generate.launches += launched.value
+    generate.persistent_launches += launched.value
+    _raise_on(err, "gen_persist_launch")
     return _finish(ids, h, c, cfg, states)
 
 
 generate.launches = 0
+generate.persistent_launches = 0
