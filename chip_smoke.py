@@ -166,6 +166,17 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
          one window's TP loss and eleven gradients, kernels against plain
          (the fp32 window's K13 launches, its CUDA-core design, counted).
+Phase 12 data parallelism at D = 1 on the paths of 11b, through
+         ``cli train`` at the bench's configuration: (a) ``--dp 1
+         --stream-data`` (the data group, NCCL's all-reduce and the mean;
+         the single-device run's data path), its launches those of 11b's
+         single-device run and its train_bpc within 1e-6 of it; (b) ``--dp
+         1 --tp 1`` (the 2-D mesh and its two groups, the resident corpus
+         read through the native IO library), the window family, K15, K16
+         and K11 once a step and nothing else, train_bpc within 1e-6 of
+         11b's ``--tp 1`` window-family run; step time and chars/s of both
+         beside 11b's; (c) ``cli train --tp 1 --gradcheck-every 2``, the
+         float64 shadow check on the canonical state, 0 failures.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -3884,8 +3895,8 @@ def _tp_run(argv, steps):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     except BaseException:
-        if trainer.tp is not None:
-            trainer.tp.group.close()
+        if trainer.mesh is not None:
+            trainer.mesh.close()
         raise
     counts = {name: (sum(fn.launches()) if name == "tiled" else fn.launches)
               for name, fn in counters.items()}
@@ -3954,7 +3965,7 @@ def phase11b(records):
     print(f"  tp_step_fwd: {TRAIN_S} calls {ms:.4f} ms a step (11a), "
           f"{100 * ms / runs['tp step'][1]:.1f} % of the {runs['tp step'][1]:.3f} "
           f"ms per-step --tp 1 step", flush=True)
-    return runs["tp seq"][0], runs["tp step"][0]
+    return runs
 
 
 def phase11c(records):
@@ -4034,6 +4045,82 @@ def phase11c(records):
             trainer.tp.group.close()
 
 
+# --- phase 12: data parallelism at D = 1 (the DP and DP x TP paths) -------
+# 12a/12b: the same bits as 11b's runs (the all-reduce of one rank is the
+# identity and the mean divides by 1)
+DP_BPC_TOL = 1e-6
+# 12c: cli train --tp 1 with the shadow check after its second superstep
+DP_GC_STEPS, DP_GC_EVERY = 100, 2
+
+
+def _argv_with(argv, **flags):
+    """``argv`` with each ``--flag value`` of ``flags`` replaced."""
+    out = list(argv)
+    for name, value in flags.items():
+        out[out.index("--" + name.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+def phase12(runs11b):
+    """``cli train --dp 1 --stream-data`` and ``--dp 1 --tp 1`` at the
+    bench's configuration, TP_STEPS steps each, held to 11b's
+    single-device and ``--tp 1`` window-family runs (the same launches,
+    train_bpc within DP_BPC_TOL); the corpus of the resident run read
+    through the native IO library; then ``--tp 1 --gradcheck-every`` with
+    0 failures."""
+    import io
+
+    from eigen_lstm_tpu_torch import cli
+    from eigen_lstm_tpu_torch.utils import native
+
+    native.calls.clear()
+    runs = {}
+    for label, extra in (("dp", ["--dp", "1", "--stream-data"]),
+                         ("dp x tp", ["--dp", "1", "--tp", "1"])):
+        counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_ARGV + extra,
+                                                              TP_STEPS)
+        trainer.mesh.close()
+        runs[label] = (counts, step_ms, cps, bpc, backend)
+        print(f"  cli train {' '.join(extra)}: family {backend}, {TP_STEPS} "
+              f"steps, {step_ms:.3f} ms a step over the last "
+              f"{TP_STEPS - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc "
+              f"{bpc:.6f}; launches {counts}", flush=True)
+    for label, ref_label, fam in (("dp", "single", None),
+                                  ("dp x tp", "tp seq", "pallas_seq")):
+        counts, step_ms, cps, bpc, backend = runs[label]
+        ref_counts, ref_ms, ref_bpc, _ = runs11b[ref_label]
+        gap = abs(bpc - ref_bpc)
+        print(f"  {label}: train_bpc {bpc:.6f} against 11b's {ref_label} run's "
+              f"{ref_bpc:.6f} (gap {gap:.3g}, tol {DP_BPC_TOL:g}); step "
+              f"{step_ms:.3f} ms against {ref_ms:.3f}", flush=True)
+        if counts != ref_counts or backend != fam or not gap <= DP_BPC_TOL:
+            fail(f"phase 12 {label}: family {backend} (expected {fam}), "
+                 f"launches {counts} (11b's {ref_label}: {ref_counts}), "
+                 f"train_bpc gap {gap}")
+    native.lib()   # raises with g++'s output if the build failed
+    reads = native.calls["read_file"]
+    print(f"  corpus read through the native IO library "
+          f"({native.library_path()}): {reads} reads", flush=True)
+    if reads < 1:
+        fail("phase 12: the resident run did not read its corpus natively")
+    argv = _argv_with(TP_ARGV, steps=DP_GC_STEPS) + [
+        "--tp", "1", "--gradcheck-every", str(DP_GC_EVERY)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    dt = time.perf_counter() - t0
+    lines = [l for l in out.getvalue().splitlines() if l.startswith("[gradcheck]")]
+    for line in lines:
+        print(f"  | {line}", flush=True)
+    bad = [l for l in lines if not l.endswith(" ok")]
+    print(f"  cli train --tp 1 --gradcheck-every {DP_GC_EVERY}: {DP_GC_STEPS} "
+          f"steps in {dt:.1f} s, {len(lines)} gradcheck lines, {len(bad)} "
+          f"failures", flush=True)
+    if len(lines) != 5 * DP_GC_STEPS // (DP_GC_EVERY * TP_SUPERSTEP) or bad:
+        fail(f"phase 12 gradcheck under --tp 1: lines {lines}")
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -4095,10 +4182,13 @@ def main():
     check_budget("phase 10f (the ensemble)")
     phase11a(records)
     check_budget("phase 11a (the TP kernels against plain)")
-    seq_counts, step_counts = phase11b(records)
+    runs11b = phase11b(records)
+    seq_counts = runs11b["tp seq"][0]
     check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
     flag_tp_counts, k13_core = phase11c(records)
     check_budget("phase 11c (the flagship at --tp 1)")
+    phase12(runs11b)
+    check_budget("phase 12 (cli train --dp 1, --dp 1 --tp 1, gradcheck under --tp 1)")
     kernels = []
 
     def add(rec, launches, **kw):

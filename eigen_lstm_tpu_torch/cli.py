@@ -15,11 +15,16 @@ and a table of device time by kernel into DIR. ``train --crosscheck K``
 holds the kernels' loss and gradient norm against the model's own loop
 every K supersteps, ``--gradcheck`` runs the finite-difference check once
 before training and ``--gradcheck-every K`` every K supersteps.
-``train --tp N`` trains tensor-parallel over N devices, one process a
-device (``torchrun --nproc_per_node N`` for N > 1; on one card, or on the
-CPU, N = 1 needs no launcher). ``--dp``, ``--sp`` and ``--pp``, alone or
-with ``--tp``, are not ported yet, nor ``bench --tp`` or ``bench
---profile``.
+``train --tp N`` trains tensor-parallel over N devices, ``train --dp N``
+data-parallel, and ``train --dp N --tp M`` on an N x M mesh, one process a
+device (``torchrun --nproc_per_node N*M`` for more than one; on one card,
+or on the CPU, one process needs no launcher). A mesh trains on the
+resident corpus unless ``--stream-data`` asks for streaming, as the JAX
+CLI does; one device streams unless ``--resident-data`` is given.
+``--gradcheck`` and ``--gradcheck-every`` run under a mesh on the
+canonical state; ``--crosscheck`` runs on one device only. ``--sp`` and
+``--pp`` are not ported yet, nor ``bench`` over several devices or
+``bench --profile``.
 """
 
 from __future__ import annotations
@@ -76,9 +81,10 @@ def _add_data_args(p: argparse.ArgumentParser):
                    help="reset h/c each window instead of carrying")
     p.add_argument("--reset-std", type=float, default=0.0)
     p.add_argument("--stream-data", dest="stream_data", action="store_true",
-                   default=True,
+                   default=None,
                    help="keep the corpus on the host and feed windows per "
-                        "superstep (the default)")
+                        "superstep (the default on one device; a mesh "
+                        "defaults to the resident corpus)")
     p.add_argument("--resident-data", dest="stream_data", action="store_false",
                    help="copy the corpus to the device and gather windows there")
 
@@ -128,7 +134,12 @@ def _add_train_args(p: argparse.ArgumentParser):
                    help="train: tensor-parallel over N devices (gate-sharded "
                         "weights; --hidden must divide by N), one process a "
                         "device: torchrun --nproc_per_node N for N > 1")
-    for flag, what in (("--dp", "data-parallel"), ("--sp", "sequence-pipelined"),
+    p.add_argument("--dp", type=int, default=None, metavar="N",
+                   help="train: data-parallel over N devices (the batch "
+                        "split into N shards; with --tp M an N x M mesh), "
+                        "one process a device: torchrun --nproc_per_node "
+                        "N*M for more than one")
+    for flag, what in (("--sp", "sequence-pipelined"),
                        ("--pp", "pipeline-parallel")):
         p.add_argument(flag, type=int, default=None, metavar="N",
                        help=f"{what} over N devices: not ported yet")
@@ -187,47 +198,68 @@ def _load(args):
 
 
 def _parallel_flags(args):
-    """Refuses the parallel flags the port does not run yet."""
-    asked = [f"--{k} {v}" for k, v in (("dp", args.dp), ("sp", args.sp),
-                                       ("pp", args.pp)) if v]
+    """The JAX CLI's rules for combining the parallel flags, with its
+    messages (``eigen_lstm_tpu/cli.py:263-266``), then refuses what the
+    port does not run yet."""
+    if args.pp and (args.tp or args.sp):
+        raise SystemExit("--pp combines only with --dp")
+    if sum(map(bool, (args.dp, args.tp, args.sp, args.pp))) > 2:
+        raise SystemExit("at most two parallel axes may be combined")
+    asked = [f"--{k} {v}" for k, v in (("sp", args.sp), ("pp", args.pp)) if v]
     if asked:
-        raise SystemExit(f"{' '.join(asked)}"
-                         f"{' with --tp' if args.tp else ''}: data, sequence "
-                         f"and pipeline parallelism are not ported yet (a "
-                         f"later slice of the port)")
-    if args.tp and (args.crosscheck or args.gradcheck or args.gradcheck_every):
-        raise SystemExit("--crosscheck and --gradcheck with --tp: not ported yet")
+        raise SystemExit(f"{' '.join(asked)}: sequence and pipeline "
+                         f"parallelism are not ported yet (a later slice of "
+                         f"the port)")
+    if (args.dp or args.tp) and args.crosscheck:
+        raise SystemExit("--crosscheck with --dp or --tp: it runs on one "
+                         "device only (the JAX trainer skips it under a mesh)")
 
 
 def _make_trainer(args):
     import numpy as np
 
+    from .config import MeshConfig
     from .data import corpus as corpus_mod
     from .data import streaming as streaming_mod
     from .ops.dispatch import select_cell_fn
-    from .parallel.mesh import init_tp_group
+    from .parallel.mesh import init_mesh, init_tp_group
     from .train.trainer import Trainer
 
     _parallel_flags(args)
     mcfg, dcfg, tcfg = _configs(args)
-    group, device = None, args.device
-    if args.tp:
-        group = init_tp_group(args.tp, args.device)
-        device = group.device
+    mesh, device = None, args.device
+    if args.dp:
+        mesh = init_mesh(MeshConfig(num_devices=args.dp,
+                                    model_devices=args.tp), args.device)
+        print(f"2-D mesh: {args.dp} data x {args.tp} model devices"
+              if args.tp else f"data-parallel over {args.dp} devices",
+              flush=True)
+    elif args.tp:
+        mesh = init_tp_group(args.tp, args.device)
         print(f"tensor-parallel over {args.tp} devices", flush=True)
-    if args.stream_data:
-        train, test = corpus_mod.split(
-            streaming_mod.load_corpus_mmap(dcfg.path), dcfg.train_percent)
-        test = np.asarray(test)
-    else:
-        train, test = corpus_mod.load_dataset(dcfg)
-    cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch, device)
-    trainer = Trainer(mcfg, dcfg, tcfg, train, test, cell_fn=cell_fn,
-                      results_path=args.results, streaming=args.stream_data,
-                      device=device, mesh=group)
-    if args.resume:
-        trainer.restore(args.resume)
-        print(f"resumed from {args.resume} at step {trainer.step}", flush=True)
+    if mesh is not None:
+        device = mesh.device
+    print("data: " + ("streamed from the host" if args.stream_data
+                      else "resident on the device"), flush=True)
+    try:
+        if args.stream_data:
+            train, test = corpus_mod.split(
+                streaming_mod.load_corpus_mmap(dcfg.path), dcfg.train_percent)
+            test = np.asarray(test)
+        else:
+            train, test = corpus_mod.load_dataset(dcfg)
+        cell_fn = select_cell_fn(args.backend, mcfg, dcfg.batch, device)
+        trainer = Trainer(mcfg, dcfg, tcfg, train, test, cell_fn=cell_fn,
+                          results_path=args.results,
+                          streaming=args.stream_data, device=device, mesh=mesh)
+        if args.resume:
+            trainer.restore(args.resume)
+            print(f"resumed from {args.resume} at step {trainer.step}",
+                  flush=True)
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
     return trainer
 
 
@@ -263,8 +295,8 @@ def cmd_train(args):
     try:
         _train(args, trainer)
     finally:
-        if trainer.tp is not None:
-            trainer.tp.group.close()
+        if trainer.mesh is not None:
+            trainer.mesh.close()
 
 
 def _train(args, trainer):
@@ -297,7 +329,7 @@ def cmd_bench(args):
                          "ported yet; use train --profile")
     if args.tp or args.dp or args.sp or args.pp:
         raise SystemExit("eigen_lstm_tpu_torch: bench over several devices "
-                         "is not ported yet; use train --tp")
+                         "is not ported yet; use train --dp or --tp")
     print(json.dumps(run_benchmark(args)), flush=True)
 
 
@@ -326,11 +358,23 @@ def cmd_sample(args):
                       temperature=args.temperature), flush=True)
 
 
+class _Parser(argparse.ArgumentParser):
+    """Resolves ``--stream-data``'s default once the flags are read: the
+    resident corpus under a mesh, streaming on one device
+    (``eigen_lstm_tpu/cli.py:240-246``)."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        ns, rest = super().parse_known_args(args, namespace)
+        if getattr(ns, "stream_data", False) is None:
+            ns.stream_data = not (ns.dp or ns.tp or ns.sp or ns.pp)
+        return ns, rest
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The JAX CLI's subcommands, each with the model, data and train flags
     (a flag that only training reads is accepted and ignored by ``eval``
     and ``sample``, as in the JAX package)."""
-    ap = argparse.ArgumentParser(prog="eigen_lstm_tpu_torch")
+    ap = _Parser(prog="eigen_lstm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="train a char-LSTM LM")
     p_bench = sub.add_parser("bench", help="training throughput benchmark")

@@ -3,9 +3,9 @@
 set of flags describe the same model in both packages.
 
 ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX
-package's fields with the same defaults and meanings. ``MeshConfig`` has
-no counterpart: tensor parallelism takes its model axis from
-``parallel/mesh.py``, and data, sequence and pipeline parallelism are not
+package's fields with the same defaults and meanings. ``MeshConfig`` is
+the JAX one with the model axis of ``--tp`` beside its data axis
+(``parallel/mesh.py:init_mesh``). Sequence and pipeline parallelism are not
 ported yet; the ``TrainConfig`` fields that only they read are accepted
 and unused.
 """
@@ -132,3 +132,16 @@ class TrainConfig:
     gradcheck_samples: int = 20
     keep_snapshots: bool = False
     seed: int = 1234
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The process mesh of data parallelism, alone or with tensor
+    parallelism (``parallel/mesh.py:init_mesh``): ``num_devices`` data rows
+    (the JAX ``MeshConfig``'s field) by ``model_devices`` model columns
+    (None: no model axis, ``--dp`` alone). The axes are "data" and
+    "model", as in the JAX 2-D mesh; the JAX ``data_axis`` name has no
+    counterpart."""
+
+    num_devices: int = 1
+    model_devices: Optional[int] = None

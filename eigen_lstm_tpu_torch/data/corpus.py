@@ -20,8 +20,11 @@ from ..config import DataConfig
 
 
 def rawread(path: str) -> np.ndarray:
-    """Whole file -> uint8 array."""
-    data = np.fromfile(path, dtype=np.uint8)
+    """Whole file -> uint8 array, through the native reader
+    (``utils/native.py``), as the JAX ``rawread`` reads it."""
+    from ..utils import native
+
+    data = native.read_file(path)
     if len(data) == 0:
         raise ValueError(f"empty corpus: {path}")
     return data

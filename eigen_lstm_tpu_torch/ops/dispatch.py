@@ -274,7 +274,7 @@ def select_cell_fn(backend: str, cfg: ModelConfig, batch: int, device="cuda"):
 
 
 def select_tp_backend(cfg: ModelConfig, batch: int, ndev: int, cell_fn,
-                      device="cuda") -> str:
+                      device="cuda", allow_per_step: bool = True) -> str:
     """The tensor-parallel family of ``_select_tp_backend``
     (``eigen_lstm_tpu/train/trainer.py:213-229``): ``"pallas_seq"`` (K15,
     K16) where ``cuda_tp_seq.tp_seq_supported`` holds and
@@ -284,13 +284,16 @@ def select_tp_backend(cfg: ModelConfig, batch: int, ndev: int, cell_fn,
     ``"xla"``: where the JAX package would take its XLA TP scan the card
     runs the per-step kernels, as ``select_cell_fn`` runs the resident
     kernels where the JAX package takes its XLA scan. ``batch`` is the
-    batch each kernel sees. The environment is read at each call."""
+    batch each kernel sees. ``allow_per_step=False`` (the data x model
+    mesh, JAX ``trainer.py:351-358``) leaves the per-step family out of the
+    ladder: ``"pallas_seq"`` or ``"xla"``, on any device. The environment
+    is read at each call."""
     if cell_fn is None:
         return "xla"
     if os.environ.get("EIGEN_LSTM_TP_SEQ", "1") != "0":
         if cuda_tp_seq.tp_seq_supported(cfg, batch, ndev):
             return "pallas_seq"
-    if (cuda_tp_cell.tp_pallas_supported(cfg, batch, ndev)
-            or torch.device(device).type == "cuda"):
+    if allow_per_step and (cuda_tp_cell.tp_pallas_supported(cfg, batch, ndev)
+                           or torch.device(device).type == "cuda"):
         return "pallas"
     return "xla"

@@ -12,9 +12,12 @@ hidden units and updates its c_d, h_d shard locally:
 
 W, U and b are sharded along the gate axis, Why along its rows (the hidden
 units, in their canonical order), and by is replicated. Each rank is one
-process; the collectives are ``torch.autograd.Function`` s over
-``parallel/mesh.py``, each with the JAX transpose: the all-gather's
-backward reduce-scatters (sums) the cotangent; the psum's backward is the
+process. The model axis is a ``TPGroup`` of ``parallel/mesh.py`` (the
+whole run under ``--tp`` alone, a row of the mesh under ``--dp --tp``),
+and every collective runs on its group. The collectives are
+``torch.autograd.Function`` s over ``parallel/mesh.py``, each with the JAX
+transpose: the all-gather's backward reduce-scatters (sums) the
+cotangent; the psum's backward is the
 identity, since every rank already holds the same cotangent
 (``torch.distributed.nn.functional.all_reduce`` would all-reduce it again
 and multiply it by D, which no D = 1 run can show). At D = 1 they still go
@@ -293,3 +296,8 @@ class TPPlan:
     @property
     def size(self) -> int:
         return 1 if self.group is None else self.group.size
+
+    def norm_kw(self, cfg: ModelConfig):
+        """``optimizer.apply_updates``'s global norm over the model axis,
+        by counted once."""
+        return dict(group=self.group, replicated=tp_replicated_mask(cfg))

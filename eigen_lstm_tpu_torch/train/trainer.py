@@ -21,17 +21,21 @@ supersteps: ``crosscheck`` holds the loss and gradient norm of the kernels
 against the model's own loop at the current windows, ``gradcheck`` the
 backward against finite differences in float64 (``utils/gradcheck.py``).
 
-Tensor parallelism (``mesh`` a ``parallel.mesh.TPGroup``, the JAX
+Tensor parallelism (``mesh`` a ``parallel.mesh.AxisGroup``, the JAX
 ``make_tp_superstep``, ``tp.py:301-448``):
 each rank holds its shards of the permuted parameters and accumulators and
 of the stream state (L, B, nd), reads the same windows as every other rank,
-and updates its own shards; the global norm counts by once. The wrap
-reset's noise comes from a generator seeded with the rank folded in, as the
-JAX superstep folds in ``axis_index``. Checkpoints, eval and samples work
-on the canonical parameters (all-gathered, then unpermuted), so a TP
-checkpoint is an ordinary one; rank 0 writes it. The live checks are not
-taken under TP. Data, sequence and pipeline parallelism are not ported
-yet, and are refused when asked for.
+and updates its own shards; the global norm counts by once. Data
+parallelism (``mesh`` a ``parallel.mesh.ProcessMesh`` without a model
+axis, ``parallel/dp.py``) splits the streams over the data axis and
+averages the gradients; with a model axis (``parallel/dp_tp.py``) each row
+of the mesh runs tensor parallelism on its streams. The wrap reset's noise
+comes from a generator seeded with the shard's ranks folded in, as the JAX
+supersteps fold in ``axis_index``. Checkpoints, eval, samples and
+``gradcheck`` work on the canonical state (gathered, then unpermuted), so a
+mesh's checkpoint is an ordinary one; rank 0 writes it. ``crosscheck``
+runs on one device only, as in the JAX trainer. Sequence and pipeline
+parallelism are not ported yet, and are refused when asked for.
 """
 
 from __future__ import annotations
@@ -85,6 +89,45 @@ def loss_and_grads(params, x, t, h, c, mcfg: ModelConfig, cell_fn=None,
             opt_mod.like(params, grads))
 
 
+def skip_nonfinite(loss, grads, h2, c2, state: TrainState):
+    """A non-finite ``loss`` zeroes the gradients and keeps the pre-step
+    stream state, so one bad step cannot poison the streams until they
+    wrap: (grads, h2, c2)."""
+    finite = torch.isfinite(loss)
+    grads = opt_mod.like(grads, (torch.where(finite, g, torch.zeros_like(g))
+                                 for g in opt_mod.tensors(grads)))
+    h2 = torch.where(finite, h2, state.h.to(h2.dtype))
+    c2 = torch.where(finite, c2, state.c.to(c2.dtype))
+    return grads, h2, c2
+
+
+def finish_step(state: TrainState, h2, c2, grads, bits, dcfg: DataConfig,
+                tcfg: TrainConfig, length: int,
+                generator: Optional[torch.Generator] = None, **norm_kw
+                ) -> Tuple[TrainState, Tuple[torch.Tensor, torch.Tensor]]:
+    """The step after the gradients: the cursor advance with the wrap reset
+    of (h, c) (noise from ``generator`` when ``dcfg.reset_std > 0``), then
+    clipping and Adagrad (``norm_kw``: the global norm's group and
+    replicated mask under TP). Returns (state, (bits, grad norm))."""
+    newpos, wrapped = corpus_mod.advance_positions(
+        state.positions, dcfg.effective_stride, length, dcfg.seq)
+    if dcfg.carry_state:
+        mask = wrapped[None, :, None]
+        if dcfg.reset_std > 0.0:
+            rh = torch.randn(h2.shape, generator=generator, device=h2.device)
+            rc = torch.randn(c2.shape, generator=generator, device=c2.device)
+            rh, rc = (rh * dcfg.reset_std).to(h2.dtype), (rc * dcfg.reset_std).to(c2.dtype)
+        else:
+            rh, rc = torch.zeros_like(h2), torch.zeros_like(c2)
+        h2 = torch.where(mask, rh, h2)
+        c2 = torch.where(mask, rc, c2)
+    else:
+        h2, c2 = torch.zeros_like(state.h), torch.zeros_like(state.c)
+    params, m, gnorm = opt_mod.apply_updates(state.params, grads, state.m,
+                                             state.step, tcfg, **norm_kw)
+    return TrainState(params, m, h2, c2, newpos, state.step + 1), (bits, gnorm)
+
+
 def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
                tcfg: TrainConfig, length: int, cell_fn=None,
                generator: Optional[torch.Generator] = None,
@@ -104,32 +147,11 @@ def train_step(state: TrainState, x, t, mcfg: ModelConfig, dcfg: DataConfig,
         loss, (h2, c2), bits, grads = tp_mod.tp_loss_and_grads(
             state.params, x, t, state.h, state.c, mcfg, tp.group, tp.backend,
             dkey, tp.plain)
-        norm_kw = dict(group=tp.group,
-                       replicated=tp_mod.tp_replicated_mask(mcfg))
+        norm_kw = tp.norm_kw(mcfg)
     if tcfg.skip_nonfinite:
-        # a non-finite loss zeroes the update and keeps the pre-step state
-        finite = torch.isfinite(loss)
-        grads = opt_mod.like(grads, (torch.where(finite, g, torch.zeros_like(g))
-                                     for g in opt_mod.tensors(grads)))
-        h2 = torch.where(finite, h2, state.h.to(h2.dtype))
-        c2 = torch.where(finite, c2, state.c.to(c2.dtype))
-    newpos, wrapped = corpus_mod.advance_positions(
-        state.positions, dcfg.effective_stride, length, dcfg.seq)
-    if dcfg.carry_state:
-        mask = wrapped[None, :, None]
-        if dcfg.reset_std > 0.0:
-            rh = torch.randn(h2.shape, generator=generator, device=h2.device)
-            rc = torch.randn(c2.shape, generator=generator, device=c2.device)
-            rh, rc = (rh * dcfg.reset_std).to(h2.dtype), (rc * dcfg.reset_std).to(c2.dtype)
-        else:
-            rh, rc = torch.zeros_like(h2), torch.zeros_like(c2)
-        h2 = torch.where(mask, rh, h2)
-        c2 = torch.where(mask, rc, c2)
-    else:
-        h2, c2 = torch.zeros_like(state.h), torch.zeros_like(state.c)
-    params, m, gnorm = opt_mod.apply_updates(state.params, grads, state.m,
-                                             state.step, tcfg, **norm_kw)
-    return TrainState(params, m, h2, c2, newpos, state.step + 1), (bits, gnorm)
+        grads, h2, c2 = skip_nonfinite(loss, grads, h2, c2, state)
+    return finish_step(state, h2, c2, grads, bits, dcfg, tcfg, length,
+                       generator, **norm_kw)
 
 
 def _metrics(bits, gnorms) -> Dict[str, torch.Tensor]:
@@ -159,22 +181,34 @@ class Trainer:
         """``cell_fn``: ``ops.dispatch.select_cell_fn``'s kernels (or their
         plain versions), or None for the model's own loop. ``streaming``
         keeps the corpus on the host and feeds windows per superstep.
-        ``mesh``: a ``parallel.mesh.TPGroup``, the model axis of tensor
-        parallelism (the module docstring), with the family
-        ``ops.dispatch.select_tp_backend`` picks at (config, batch, D,
-        cell_fn, device); any other mesh (data, sequence or pipeline
-        parallelism) is refused."""
-        self.tp = None
-        if mesh is not None:
-            if not isinstance(mesh, mesh_mod.TPGroup):
-                raise NotImplementedError(
-                    f"mesh training over a {type(mesh).__name__} (data, "
-                    f"sequence or pipeline parallelism): not ported yet")
+        ``mesh``: a ``parallel.mesh.AxisGroup``, the model axis of tensor
+        parallelism, or a ``parallel.mesh.ProcessMesh``, data parallelism
+        alone or with a model axis (the module docstring); the TP family is
+        the one ``ops.dispatch.select_tp_backend`` picks at (config, the
+        batch of a data shard, the model axis's size, cell_fn, device). Any
+        other mesh (sequence or pipeline parallelism) is refused."""
+        self.tp = self.dp = None
+        model_axis = None
+        if isinstance(mesh, mesh_mod.ProcessMesh):
+            from ..parallel import dp as dp_mod
+
+            self.dp, model_axis = mesh.data, mesh.model
+            dp_mod.local_batch(dcfg, self.dp,
+                               "devices" if model_axis is None else "")
+        elif isinstance(mesh, mesh_mod.AxisGroup):
+            model_axis = mesh
+        elif mesh is not None:
+            raise NotImplementedError(
+                f"mesh training over a {type(mesh).__name__} (sequence or "
+                f"pipeline parallelism): not ported yet")
+        self.mesh = mesh
+        if model_axis is not None:
             from ..ops.dispatch import select_tp_backend
 
-            backend = select_tp_backend(mcfg, dcfg.batch, mesh.size, cell_fn,
-                                        device)
-            self.tp = tp_mod.TPPlan(mesh, backend,
+            backend = select_tp_backend(
+                mcfg, dcfg.batch // self.n_data, model_axis.size, cell_fn,
+                device, allow_per_step=self.dp is None)
+            self.tp = tp_mod.TPPlan(model_axis, backend,
                                     bool(getattr(cell_fn, "plain", False)))
         self.mcfg, self.dcfg, self.tcfg = mcfg, dcfg, tcfg
         self.device = torch.device(device)
@@ -184,19 +218,26 @@ class Trainer:
         self.length = int(len(train_data))
         # reset noise and sampling draw from this device generator
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-        # the reset noise of a rank's shard: the rank folded into the seed
-        self.noise = (self.generator if self.tp is None else
-                      torch.Generator(device=self.device).manual_seed(
-                          cell_ops.hash32(cell_ops.hash32(tcfg.seed)
-                                          ^ cell_ops.hash32(self.tp.rank))))
+        # the reset noise of a shard: its data rank, then its model rank,
+        # folded into the seed
+        seed = tcfg.seed
+        for axis in (self.dp, self.tp and self.tp.group):
+            if axis is not None:
+                seed = cell_ops.hash32(cell_ops.hash32(seed)
+                                       ^ cell_ops.hash32(axis.rank))
+        self.noise = (self.generator if mesh is None else
+                      torch.Generator(device=self.device).manual_seed(seed))
         self._best_bpc = None
         self._next_windows = None
         self.crosscheck_failures = 0
         self.gradcheck_failures = 0
         if streaming:
             self.corpus = None
+            # a data shard is fed its own streams' windows
             self.feeder = streaming_mod.WindowFeeder(
-                train_data, dcfg, tcfg.superstep, device=self.device)
+                train_data, dataclasses.replace(
+                    dcfg, batch=dcfg.batch // self.n_data),
+                tcfg.superstep, device=self.device)
         else:
             self.corpus = torch.tensor(np.asarray(train_data),
                                        dtype=torch.uint8, device=self.device)
@@ -218,22 +259,42 @@ class Trainer:
         return self._sharded(TrainState(params, opt_mod.adagrad_init(params),
                                         h, c, positions, 0))
 
+    @property
+    def n_data(self) -> int:
+        """The data axis's size: 1 without data parallelism."""
+        return 1 if self.dp is None else self.dp.size
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the run (0 on one device)."""
+        return 0 if self.mesh is None else self.mesh.rank
+
     def _sharded(self, state: TrainState) -> TrainState:
         """A canonical state as this trainer holds it: under TP this rank's
-        shards of the permuted params and accumulators and of (h, c)."""
-        if self.tp is None:
-            return state
-        rank, size = self.tp.rank, self.tp.size
-        shard = lambda p: tp_mod.shard_params(p, self.mcfg, rank, size)
-        nd = self.mcfg.hidden // size
-        cut = lambda x: x[..., rank * nd:(rank + 1) * nd].contiguous()
-        return TrainState(shard(state.params), shard(state.m), cut(state.h),
-                          cut(state.c), state.positions, state.step)
+        shards of the permuted params and accumulators and of (h, c) along
+        the hidden units; under DP its streams of (h, c) and the cursors."""
+        if self.tp is not None:
+            rank, size = self.tp.rank, self.tp.size
+            shard = lambda p: tp_mod.shard_params(p, self.mcfg, rank, size)
+            nd = self.mcfg.hidden // size
+            cut = lambda x: x[..., rank * nd:(rank + 1) * nd].contiguous()
+            state = TrainState(shard(state.params), shard(state.m),
+                               cut(state.h), cut(state.c), state.positions,
+                               state.step)
+        if self.dp is not None:
+            from ..parallel import dp as dp_mod
+
+            state = dp_mod.shard_state(state, self.dp)
+        return state
 
     def canonical_state(self) -> TrainState:
-        """The state of a single-device trainer: under TP every rank's
-        shards gathered and unpermuted (all ranks take part)."""
+        """The state of a single-device trainer: every shard gathered, the
+        parameters unpermuted (all ranks take part)."""
         st = self.state
+        if self.dp is not None:
+            from ..parallel import dp as dp_mod
+
+            st = dp_mod.gather_state(st, self.dp)
         if self.tp is None:
             return st
         g = self.tp.group
@@ -254,6 +315,9 @@ class Trainer:
         """K steps from ``state``: the windows gathered on the device from
         the resident corpus, or taken from ``windows`` (K, S+1, B).
         Returns (state, metrics), the metrics on the device."""
+        from ..parallel import dp as dp_mod
+        from ..parallel import dp_tp as dp_tp_mod
+
         steps = self.tcfg.superstep if windows is None else windows.shape[0]
         win = None if windows is None else windows.to(torch.int32)
         bits, gnorms = [], []
@@ -263,9 +327,16 @@ class Trainer:
                                                self.dcfg.seq)
             else:
                 x, t = win[k, :-1], win[k, 1:]
-            state, (b, g) = train_step(state, x, t, self.mcfg, self.dcfg,
-                                       self.tcfg, self.length, self.cell_fn,
-                                       self.noise, self.tp)
+            args = (state, x, t, self.mcfg, self.dcfg, self.tcfg, self.length)
+            if self.dp is None:
+                state, (b, g) = train_step(*args, self.cell_fn, self.noise,
+                                           self.tp)
+            elif self.tp is None:
+                state, (b, g) = dp_mod.dp_train_step(*args, self.cell_fn,
+                                                     self.noise, self.dp)
+            else:
+                state, (b, g) = dp_tp_mod.dp_tp_train_step(
+                    *args, self.noise, self.dp, self.tp)
             bits.append(b)
             gnorms.append(g)
         return state, _metrics(bits, gnorms)
@@ -319,6 +390,7 @@ class Trainer:
                 if on_report:
                     on_report(self.last_metrics)
             if (self.tcfg.crosscheck_every and self.cell_fn is not None
+                    and self.mesh is None
                     and (k + 1) % self.tcfg.crosscheck_every == 0):
                 self.crosscheck(quiet=quiet)
             if (self.tcfg.gradcheck_every
@@ -335,14 +407,14 @@ class Trainer:
                 eval_timer.start()
         return self.last_metrics
 
-    def _current_windows(self):
-        """(x, t), each (S, B) int32 on the device, at the current cursors:
-        the next step's windows."""
+    def _current_windows(self, positions: Optional[torch.Tensor] = None):
+        """(x, t), each (S, B) int32 on the device, at ``positions`` (the
+        current cursors by default): the next step's windows."""
+        pos = self.state.positions if positions is None else positions
         if self.corpus is not None:
-            return corpus_mod.make_windows(self.corpus, self.state.positions,
-                                           self.dcfg.seq)
+            return corpus_mod.make_windows(self.corpus, pos, self.dcfg.seq)
         win = torch.from_numpy(self.feeder.build(
-            self.state.positions.cpu().numpy())).to(self.device, torch.int32)
+            pos.cpu().numpy())).to(self.device, torch.int32)
         return win[:-1], win[1:]
 
     def crosscheck(self, tol: Optional[float] = None, quiet: bool = False):
@@ -354,8 +426,12 @@ class Trainer:
         dropout (the JAX ``crosscheck``). Only this check runs the plain
         loop on the card. A relative difference above ``tol`` (2e-2 in
         bf16, 1e-3 otherwise) is counted in ``crosscheck_failures``, not
-        raised. Returns both values and the differences."""
-        self._not_under_tp("crosscheck")
+        raised. Returns both values and the differences. One device only:
+        the JAX trainer skips it under a mesh (``trainer.py:593``)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "crosscheck under a mesh: it runs on one device only, as the "
+                "JAX trainer skips it under a mesh")
         if tol is None:
             tol = 2e-2 if self.mcfg.compute_dtype == "bfloat16" else 1e-3
         x, t = self._current_windows()
@@ -385,22 +461,25 @@ class Trainer:
                   rel_floor: float = 0.0) -> bool:
         """Central differences against the backward at the current point,
         on the first ``check_seq`` steps and ``check_batch`` streams of the
-        current windows (the JAX ``gradcheck``). A float64 config checks
+        current windows (the JAX ``gradcheck``), at the canonical state
+        under any mesh (every rank takes part in the gathers and computes
+        the same check). A float64 config on one device or under DP checks
         the live backward, its ``cell_fn``'s. Any other config checks a
         float64 shadow without dropout, on the host CPU, through the
         model's own loop: the live kernels are held to that path by
         ``crosscheck``. A failing tensor is counted in
-        ``gradcheck_failures`` and printed. Returns whether all passed."""
+        ``gradcheck_failures`` and printed; under a mesh a failure on any
+        rank counts on every rank. Returns whether all passed."""
         from ..utils import gradcheck as gc
 
-        self._not_under_tp("gradcheck")
-        x, t = self._current_windows()
+        st = self.state if self.mesh is None else self.canonical_state()
+        x, t = self._current_windows(st.positions)
         s = min(check_seq, int(x.shape[0]))
         b = min(check_batch, int(x.shape[1]))
         x, t = x[:s, :b], t[:s, :b]
-        h, c = self.state.h[:, :b], self.state.c[:, :b]
-        params, cfg, cell_fn = self.state.params, self.mcfg, self.cell_fn
-        if cfg.param_dtype != "float64":
+        h, c = st.h[:, :b], st.c[:, :b]
+        params, cfg, cell_fn = st.params, self.mcfg, self.cell_fn
+        if cfg.param_dtype != "float64" or self.tp is not None:
             cfg = dataclasses.replace(
                 cfg, param_dtype="float64", compute_dtype="float64",
                 residual_dtype="float64", dropout=0.0)
@@ -416,6 +495,8 @@ class Trainer:
                                      samples_per_tensor=samples_per_tensor,
                                      rel_floor=rel_floor)
         ok = all(r.passed for r in results.values())
+        if self.mesh is not None:
+            ok = mesh_mod.all_true(ok, self.device)
         if not ok:
             self.gradcheck_failures += 1
         for name, r in results.items():
@@ -425,11 +506,6 @@ class Trainer:
                       f"({r.n_checked} samples) "
                       f"{'ok' if r.passed else 'FAIL'}", flush=True)
         return ok
-
-    def _not_under_tp(self, what: str):
-        if self.tp is not None:
-            raise NotImplementedError(f"{what} under tensor parallelism: not "
-                                      f"ported yet")
 
     def _best_test_bpc(self) -> float:
         """Best held-out bpc of ``ckpt_best.npz``, seeded from the file's
@@ -496,10 +572,10 @@ class Trainer:
                 cell_fn=self.cell_fn)
 
     def save(self, path: str, extra_meta: Optional[Dict] = None):
-        """The checkpoint of the canonical state (under TP gathered on every
-        rank and written by rank 0)."""
+        """The checkpoint of the canonical state (under a mesh gathered on
+        every rank and written by rank 0)."""
         st = self.canonical_state()
-        if self.tp is not None and self.tp.rank != 0:
+        if self.rank != 0:
             return
         ckpt_mod.save_checkpoint(
             path, st.params, st.m, self.step,
