@@ -177,6 +177,39 @@ Phase 12 data parallelism at D = 1 on the paths of 11b, through
          11b's ``--tp 1`` window-family run; step time and chars/s of both
          beside 11b's; (c) ``cli train --tp 1 --gradcheck-every 2``, the
          float64 shadow check on the canonical state, 0 failures.
+Phase 13 sequence pipelining at D = 1 on the paths of 11b and 7c: (k)
+         each kernel at a chunk's rows (B / C = 32) against its plain
+         replay at the tolerances of 5, 7a and 9a: the bench's K1 and K3,
+         the flagship's K1, K2, K3 and K6 in bf16 without dropout and at
+         0.35 (K1's and K2's other designs too) and K8, K9 and K10 in
+         fp32, each design and its launches a call against the plans (K3
+         3 at the bench, 2 at the flagship, K6 3); (a) ``cli train --sp
+         1`` at the bench's configuration with the batch in 4 and in 1
+         microchunks (``--pp-chunks``): launches a step C times the plans'
+         for a chunk (K1 1, K3 3) and K11 once, nothing else, one chunk
+         rerun printed beside them; train_bpc in the sanity band, its gap
+         to 11b's single device and both step times printed; K1's and K3's
+         time a call at 32 and 128 rows; (b) ``--dp 1 --sp 1`` at C = 4:
+         (a)'s launches and train_bpc within 1e-6; (c) ``--sp 1 --tp 1``
+         (the torch-op TP scan, as the JAX tp_sp mesh takes its XLA scan),
+         16 steps in supersteps of 4 after a 4-step warm-up: K11 the only
+         kernel, the bits finite and the last superstep's below the
+         first's; (d) the flagship's bible.txt window (dropout 0) in 4
+         chunks through ``sp_loss_and_grads`` against one device's
+         ``loss_and_grads``, both through the kernels, launches against
+         the plans: fp32 (the tiled family) against the whole batch, loss
+         rel 1e-5 and each gradient 1e-4 of its largest magnitude; bf16
+         against one device on each chunk's 32 rows, loss rel 1e-3 and
+         each gradient within 2x its control (7b's rule; the bf16-value
+         rule does not apply: a sum of chunks' bf16 gradients is not a
+         bf16 value); bf16 against the fp32 whole batch: the top layer's
+         h, the median stream's largest distance within 2x the plain
+         path's, and the gradients over the plain path's drift printed
+         for SP, the chunks, the whole batch and the chunks through K1's
+         per-step design; K1's and K3's time a call at 32 and 128 rows;
+         then 4 steps of the flagship recipe under ``--sp 1``: launches a
+         step C times the plans' for a chunk (K1 1, K2 2, K3 2, K6 6), bits
+         finite and below 3.0.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -186,6 +219,10 @@ of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
 near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
+``python3 chip_smoke.py --sp-spread`` reads 13d's bf16 gradients against
+the fp32 whole batch on three flagship windows, as drawn and with the
+streams that leave fp32 replaced, through the plain path, the kernels on
+128 and 32 rows, SP and the kernels' other designs, and prints the spread.
 """
 
 from __future__ import annotations
@@ -3871,6 +3908,13 @@ def _tp_counters():
             "tiled": cuda_cell_tiled}
 
 
+def _launch_counts(counters):
+    """Each counter of ``_tp_counters`` as it reads now (the tiled kernels
+    summed)."""
+    return {name: (sum(fn.launches()) if name == "tiled" else fn.launches)
+            for name, fn in counters.items()}
+
+
 def _tp_run(argv, steps):
     """The CLI's Trainer from ``argv``: one superstep, then ``steps`` -
     superstep more timed on the host clock around synchronised supersteps,
@@ -3898,8 +3942,7 @@ def _tp_run(argv, steps):
         if trainer.mesh is not None:
             trainer.mesh.close()
         raise
-    counts = {name: (sum(fn.launches()) if name == "tiled" else fn.launches)
-              for name, fn in counters.items()}
+    counts = _launch_counts(counters)
     timed = steps - trainer.tcfg.superstep
     cps = trainer.dcfg.batch * trainer.dcfg.seq * timed / dt
     backend = None if trainer.tp is None else trainer.tp.backend
@@ -4121,6 +4164,547 @@ def phase12(runs11b):
         fail(f"phase 12 gradcheck under --tp 1: lines {lines}")
 
 
+# --- phase 13: sequence pipelining at D = 1 (the paths of 11b and 7c) -----
+# 13a: 11b's configuration through cli train --sp 1, the batch in C
+# microchunks (B = 128: 32 rows a kernel call at C = 4, 128 at C = 1)
+SP_CHUNKS = (4, 1)
+# 13c: --sp 1 --tp 1 runs the torch-op TP scan (the JAX tp_sp mesh's XLA
+# scan), a launch for each op of each timestep and chunk: 831 ms a step at
+# C = 4 on an H100 (700 W), so 16 steps in supersteps of 4, the lr
+# warm-up cut to 4 steps so that 12 of them update
+SP_TP_STEPS, SP_TP_SUPERSTEP, SP_TP_WARMUP = 16, 4, 4
+# 13d: the flagship's window in C = 4 chunks, then SP_FLAG_STEPS steps of
+# its recipe under --sp 1
+SP_FLAG_CHUNKS, SP_FLAG_STEPS = 4, 4
+# 13d in bf16 against the fp32 whole batch (7b's rule, 2x the plain
+# path's drift) is printed, not gated: three trained layers over 256 steps
+# carry a bf16 rounding flip in a few streams apart, and the reading moves
+# with any sum order (an H100 at 700 W, 6 flagship windows with and
+# without those streams): the 128-row kernels of 7b read 1.48-5.15x,
+# the 32-row chunks 0.95-5.11x, K1's per-step design on 32 rows 1.14-28x,
+# K3 and K6 forced per-step leave it as it is. What holds at 32 rows: each
+# kernel against its plain replay (13k), fp32 against the whole batch, SP
+# against one device on the same rows, and the top layer's h: the median
+# stream's largest distance to fp32 within 2x the plain path's (a fault in
+# the math moves every stream; a flip, a few).
+SP_STREAM_VS_PLAIN = 2.0
+
+
+def atb_splits(r, i, j):
+    """``atb_splits`` of csrc/common.cuh: the r splits of the persistent
+    backward's weight-gradient product (r rows, i x j out), a launch of
+    its own summing them where there are more than one."""
+    tiles = -(-i // 128) * -(-j // 128)
+    splits = min(max(-(-264 // tiles), 1), 32)
+    return min(splits, max(-(-r // 64), 1))
+
+
+def bwd_launches(cfg, s, b, m):
+    """K3's (``m`` the vocabulary) or K6's (``m`` 0) launches a call in the
+    persistent design: the reverse launch, the weight-gradient product and
+    the sum of its splits where it splits; None where the plan takes the
+    per-step design."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_bwd import device_k6_plan
+
+    n = cfg.hidden
+    if device_k6_plan(cfg, b, n) is None:
+        return None
+    return 2 + (atb_splits(s * b, m + n, 4 * n) > 1)
+
+
+# K3's and K6's launches a call on the SP paths, as their persistent design
+# gives them at 32 and at 128 rows: the bench's K3 3 (its dWU product splits
+# in 3), the flagship's K3 2 and K6 3
+SP_BWD_LAUNCHES = {"bench": {"lstm_bwd_embed": 3},
+                   "flagship": {"lstm_bwd_embed": 2, "lstm_bwd_scan": 3}}
+
+
+def sp_plan_launches(cfg, s, rows, where):
+    """One chunk's launches of each kernel of the bf16 SP path (``where``
+    "bench" or "flagship", ``rows`` the chunk's): K1 one (its persistent
+    design), K2 one a layer, K3 and K6 SP_BWD_LAUNCHES, each K6 call a
+    layer >= 1; fails where the plans at ``rows`` give other designs."""
+    n, layers = cfg.hidden, cfg.num_layers
+    want = SP_BWD_LAUNCHES[where]
+    got = {"lstm_bwd_embed": bwd_launches(cfg, s, rows, cfg.vocab),
+           "lstm_bwd_scan": bwd_launches(cfg, s, rows, 0) if layers > 1 else None}
+    if not split_design(cfg, rows, n)[1] or (
+            layers > 1 and not tiled_design(cfg, rows, n)[1]) or any(
+            got[k] != v for k, v in want.items()):
+        fail(f"the {where}'s SP path at {rows} rows: K1 in "
+             f"{split_design(cfg, rows, n)[0]}, K2 in "
+             f"{tiled_design(cfg, rows, n)[0]}, K3/K6 launches a call {got}; "
+             f"the persistent designs and {want}")
+    out = {"lstm_fwd_embed": 1, "lstm_fwd_scan": layers - 1,
+           "lstm_bwd_embed": want["lstm_bwd_embed"],
+           "lstm_bwd_scan": (layers - 1) * want.get("lstm_bwd_scan", 0)}
+    return out
+
+
+def phase13k():
+    """Each kernel of the SP paths at a chunk's rows (B / C = 32) against
+    its plain replay, at the tolerances of phases 5, 7a and 9a: the
+    bench's K1 and K3 (1x512 bf16, the 1x512 checkpoint's weights), the
+    flagship's K1, K2, K3 and K6 in bf16 without dropout and at 0.35, and
+    its fp32 window's K8, K9 and K10 (the flagship's weights, layers 0 and
+    1); each kernel's design and launches a call, K3's and K6's against
+    SP_BWD_LAUNCHES."""
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    inv = torch.tensor(float(np.float32(1.0 / (1.0 - FLAG_DROP))), device=DEVICE)
+    for where, path, s, chunks in (("bench", H512, TRAIN_S, SP_CHUNKS[0]),
+                                   ("flagship", FLAGSHIP, FLAG_S, SP_FLAG_CHUNKS)):
+        b = (TRAIN_B if where == "bench" else FLAG_B) // chunks
+        gen = torch.Generator().manual_seed(131)
+        x, _ = bible_window(gen, s, b)
+        dtypes = ("bfloat16",) if where == "bench" else ("bfloat16", "float32")
+        for dtype in dtypes:
+            cfg = train_cfg(dtype) if where == "bench" else flag_train_cfg(dtype)
+            n = cfg.hidden
+            rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen)
+                                           * sd).to(DEVICE)
+            h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+            dh_seq = rand(s, b, n, sd=1e-3)
+            dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
+            params = load_params(path, cfg, DEVICE)
+            l0 = params.layers[0]
+            l1 = params.layers[1] if cfg.num_layers > 1 else None
+            drops = (0.0,) if where == "bench" or dtype == "float32" else (0.0, FLAG_DROP)
+            for drop in drops:
+                tag = f"SP {where} {dtype} drop {drop:g}, {b} rows"
+                dr = [(drop, sd) if drop else None for sd in FLAG_SEEDS]
+                masks = [host_masks(sd, s, b, n, drop) if drop else None
+                         for sd in FLAG_SEEDS]
+                calls = {}
+                if dtype == "float32":
+                    out1, out2, _, _, _ = tiled_fwd_checks(
+                        l0, l1, x, h0, c0, cfg, cfg, dr, masks, inv, tag, calls,
+                        timed=False)
+                    persistent = tiled_bwd_design(cfg, b, n)[1]
+                    tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT, cfg,
+                                    dr[1], masks[1], inv, tag, calls, persistent,
+                                    timed=False)
+                    print(f"  {tag}: K8/K9 in {tiled_design(cfg, b, n)[0]}, K10 "
+                          f"in {tiled_bwd_design(cfg, b, n)[0]}; launches a "
+                          f"call {calls}", flush=True)
+                    if calls != {k: s for k in TILED}:
+                        fail(f"{tag}: launches a call {calls}, one a step each")
+                    continue
+                want = sp_plan_launches(cfg, s, b, where)
+                out1, _ = fwd_check("lstm_fwd_embed", "embed", cuda_cell.embed_layer0,
+                                    cuda_cell.embed_layer0_plain, l0, x, h0, c0,
+                                    cfg, dr[0], masks[0], inv, tag, calls,
+                                    timed=False)
+                bwd_check("lstm_bwd_embed", l0.U, out1, x, h0, c0, dh_seq, dhT,
+                          dcT, cfg, dr[0], masks[0], inv, tag, calls, timed=False)
+                if l1 is not None:
+                    h_in = (out1[4] if drop else out1[0]).float()
+                    xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
+                          .reshape(s, b, 4 * n) + l1.b)
+                    out2, _ = fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
+                                        cuda_cell.scan_layer_plain, l1, xw, h0, c0,
+                                        cfg, dr[1], masks[1], inv, tag, calls,
+                                        timed=False)
+                    bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
+                              dhT, dcT, cfg, dr[1], masks[1], inv, tag, calls,
+                              timed=False)
+                if where == "flagship" and not drop:
+                    # K1's and K2's other designs on the same rows, which
+                    # 13d reads beside the split layout
+                    for label, force, kern, plain, lay, seq, want_n in (
+                            ("K1 per-step", per_step_tiled(SPLIT_PLAN),
+                             cuda_cell.embed_layer0, cuda_cell.embed_layer0_plain,
+                             l0, x, s),
+                            ("K1 unsplit", unsplit_fwd(), cuda_cell.embed_layer0,
+                             cuda_cell.embed_layer0_plain, l0, x, 1),
+                            ("K2 per-step", per_step_tiled(), cuda_cell.scan_layer,
+                             cuda_cell.scan_layer_plain, l1, xw, s)):
+                        other = {}
+                        name = ("lstm_fwd_embed" if kern is cuda_cell.embed_layer0
+                                else "lstm_fwd_scan")
+                        with force:
+                            fwd_check(name, "embed", kern, plain, lay, seq, h0, c0,
+                                      cfg, None, None, inv, f"{tag} ({label})",
+                                      other, timed=False)
+                        if other[name] != want_n:
+                            fail(f"{tag} ({label}): {other[name]} launches a "
+                                 f"call, not {want_n}")
+                per_layer = {k: v if k in ("lstm_fwd_embed", "lstm_bwd_embed")
+                             else v // (cfg.num_layers - 1)
+                             for k, v in want.items() if v}
+                print(f"  {tag}: K1 in {split_design(cfg, b, n)[0]}; K2 in "
+                      f"{tiled_design(cfg, b, n)[0]}; K3, K6 in "
+                      f"{k6_design(cfg, b, n)[0]}; launches a call {calls} (the "
+                      f"plans give {per_layer})", flush=True)
+                if calls != per_layer:
+                    fail(f"{tag}: launches a call {calls}, the plans give "
+                         f"{per_layer}")
+            del params
+
+
+def sp_chunk_launches(trainer, rows, dropout_key=None):
+    """What one chunk of a step launches: ``sp_loss_and_grads`` on the
+    first ``rows`` streams of the trainer's current windows and state, one
+    segment and one chunk, through the trainer's cell_fn; the launches of
+    each kernel."""
+    from eigen_lstm_tpu_torch.parallel.sp import sp_loss_and_grads
+
+    counters = _tp_counters()
+    x, t = trainer._current_windows()
+    st = trainer.state
+    torch.cuda.synchronize()
+    before = _launch_counts(counters)
+    sp_loss_and_grads(st.params, x[:, :rows], t[:, :rows], st.h[:, :rows],
+                      st.c[:, :rows], trainer.mcfg, 1, None, trainer.cell_fn,
+                      dropout_key=dropout_key)
+    torch.cuda.synchronize()
+    after = _launch_counts(counters)
+    return {k: after[k] - before[k] for k in after}
+
+
+def chunk_kernel_ms(cfg, layer, x, h, c, rows_list):
+    """K1's and K3's time a call (CUDA events around their wrappers) on the
+    first ``rows`` streams of a window, for each of ``rows_list``: what a
+    microchunk costs the layer-0 kernels. {rows: (K1 ms, K3 ms)}."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
+
+    U_c = layer.U.to(cfg.cdtype)
+    out = {}
+    for rows in rows_list:
+        ids = x[:, :rows].contiguous()
+        h0, c0 = h[:rows].contiguous(), c[:rows].contiguous()
+        fwd = lambda: cuda_cell.embed_layer0(layer, ids, h0, c0, cfg,
+                                             residuals=True)
+        res = fwd()
+        h_seq, c_seq, g_seq = res[0], res[2], res[3]
+        dh = torch.full_like(h_seq, 1e-3, dtype=torch.float32)
+        zero = torch.zeros_like(h0, dtype=torch.float32)
+        fused = fused_accum_ok(cfg, rows)
+        bwd = lambda: cuda_cell_bwd.embed_layer0_bwd(
+            U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh, zero, zero, cfg,
+            fused_accum=fused)
+        out[rows] = (cuda_ms(fwd, reps=5), cuda_ms(bwd, reps=5))
+    return out
+
+
+def _print_chunk_ms(label, chunks, times):
+    """One line: K1's and K3's time a call at each row count, and C calls
+    of the chunk's rows against one call of the whole batch's."""
+    rows = sorted(times)
+    small, whole = times[rows[0]], times[rows[-1]]
+    print(f"  {label}: " + "; ".join(
+        f"{r} rows K1 {times[r][0]:.4f} ms, K3 {times[r][1]:.4f} ms"
+        for r in rows) + f"; {chunks} calls of {rows[0]} rows "
+        f"{chunks * sum(small):.4f} ms against one of {rows[-1]} "
+        f"{sum(whole):.4f} ({chunks * sum(small) / sum(whole):.2f}x)",
+        flush=True)
+
+
+def _sp_launch_gate(label, counts, plan, per_chunk, steps, chunks):
+    """``counts`` of a run of ``steps`` steps in ``chunks`` chunks against
+    ``chunks`` times the plan's launches of a chunk (``sp_plan_launches``)
+    a step, K11 once a step and nothing else (no SP path launches the
+    fused head, sp.py:143-153, the TP kernels, tp_sp taking the torch-op
+    scan, or K12, EIGEN_LSTM_BWD_UNROLL unset); ``per_chunk``, one chunk
+    rerun through the run's cell_fn, printed beside it as a cross-check."""
+    want = {k: steps * chunks * plan.get(k, 0) for k in counts}
+    want["adagrad"] = steps
+    print(f"  {label}: launches a chunk by the plans {plan}; one chunk rerun "
+          f"{ {k: v for k, v in per_chunk.items() if v} }", flush=True)
+    if counts != want:
+        fail(f"{label}: launches {counts}, the plans give {want} ({chunks} "
+             f"chunks of {plan} a step, K11 once, nothing else)")
+
+
+def phase13a(runs11b):
+    """``cli train --sp 1`` at 11b's configuration in C = 4 and 1 chunks
+    (13a), then ``--dp 1 --sp 1`` at C = 4 (13b). Returns the runs."""
+    from eigen_lstm_tpu_torch.ops import dispatch
+
+    runs = {}
+    for label, extra in (("sp C=4", ["--sp", "1", "--pp-chunks", "4"]),
+                         ("sp C=1", ["--sp", "1", "--pp-chunks", "1"]),
+                         ("dp x sp C=4", ["--dp", "1", "--sp", "1",
+                                          "--pp-chunks", "4"])):
+        chunks = int(extra[-1])
+        rows = TRAIN_B // chunks
+        trainer = None
+        try:
+            counts, step_ms, cps, bpc, _, trainer = _tp_run(TP_ARGV + extra,
+                                                            TP_STEPS)
+            per_chunk = sp_chunk_launches(trainer, rows)
+            cfg = trainer.mcfg
+            if label == "sp C=4":
+                x, _ = trainer._current_windows()
+                st = trainer.state
+                times = chunk_kernel_ms(cfg, st.params.layers[0], x, st.h[0],
+                                        st.c[0], (rows, TRAIN_B))
+        finally:
+            if trainer is not None:
+                trainer.mesh.close()
+        runs[label] = (counts, step_ms, bpc)
+        fused = dispatch.fused_accum_ok(cfg, rows)
+        print(f"  cli train {' '.join(extra)}: {TP_STEPS} steps, {step_ms:.3f} "
+              f"ms a step over the last {TP_STEPS - TP_SUPERSTEP}, {cps:,.0f} "
+              f"chars/s, train_bpc {bpc:.6f}; launches {counts}; a chunk of "
+              f"{rows} rows: {per_chunk}", flush=True)
+        print(f"  {label}: K1 in {split_design(cfg, rows, cfg.hidden)[0]}; K3 in "
+              f"{k6_design(cfg, rows, cfg.hidden)[0]}, "
+              f"{per_chunk['lstm_bwd_embed']} launches a call, the "
+              f"{'fused VJP' if fused else 'GEMM fall-back'} at {rows} rows; "
+              f"K12 taken: {dispatch.bwd_unroll2(cfg, TRAIN_S, rows, fused)}",
+              flush=True)
+        _sp_launch_gate(f"cli train {' '.join(extra)}", counts,
+                        sp_plan_launches(cfg, TRAIN_S, rows, "bench"), per_chunk,
+                        TP_STEPS, chunks)
+        if not (np.isfinite(bpc) and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]):
+            fail(f"cli train {' '.join(extra)}: train_bpc {bpc}, band {SANITY_BAND}")
+    _print_chunk_ms("the bench's layer 0 a call", 4, times)
+    single = runs11b["single"]
+    for label in ("sp C=4", "sp C=1"):
+        _, step_ms, bpc = runs[label]
+        print(f"  {label}: train_bpc {bpc:.6f} against 11b's single device "
+              f"{single[2]:.6f} (gap {abs(bpc - single[2]):.3g}, not gated); "
+              f"step {step_ms:.3f} ms against {single[1]:.3f} "
+              f"({step_ms / single[1]:.2f}x)", flush=True)
+    (ca, _, ba), (cb, mb, bb) = runs["sp C=4"], runs["dp x sp C=4"]
+    gap = abs(bb - ba)
+    print(f"  dp x sp: train_bpc {bb:.6f} against --sp 1's {ba:.6f} (gap "
+          f"{gap:.3g}, tol {DP_BPC_TOL:g}); step {mb:.3f} ms", flush=True)
+    if cb != ca or not gap <= DP_BPC_TOL:
+        fail(f"phase 13b: launches {cb} (--sp 1: {ca}), train_bpc gap {gap}")
+    return runs
+
+
+def phase13c():
+    """``cli train --sp 1 --tp 1`` at 11b's configuration for SP_TP_STEPS
+    steps in supersteps of SP_TP_SUPERSTEP, SP_TP_WARMUP of them at lr 0:
+    the torch-op TP scan, K11 the only kernel; the bits finite, the last
+    superstep's below the first's."""
+    from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
+
+    argv = _argv_with(TP_ARGV, steps=SP_TP_STEPS, superstep=SP_TP_SUPERSTEP,
+                      log_every=SP_TP_SUPERSTEP, warmup=SP_TP_WARMUP) + [
+                          "--sp", "1", "--tp", "1"]
+    trainer = _make_trainer(build_parser().parse_args(argv))
+    try:
+        counters = _tp_counters()
+        torch.cuda.synchronize()
+        before = _launch_counts(counters)
+        t0 = time.perf_counter()
+        bits = []
+        for _ in range(SP_TP_STEPS // SP_TP_SUPERSTEP):
+            trainer.state, met = trainer.dispatch_superstep()
+            bits.append(float(met["bits_mean"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _launch_counts(counters)
+        backend = trainer.tp.backend
+    finally:
+        trainer.mesh.close()
+    counts = {k: after[k] - before[k] for k in after}
+    step_ms = dt * 1e3 / SP_TP_STEPS
+    print(f"  cli train --sp 1 --tp 1: family {backend}, {SP_TP_STEPS} steps "
+          f"in {dt:.2f} s ({step_ms:.2f} ms a step), superstep bits "
+          + " ".join(f"{b:.4f}" for b in bits) + f"; launches {counts}",
+          flush=True)
+    want = dict({k: 0 for k in counts}, adagrad=SP_TP_STEPS)
+    if backend != "xla" or counts != want:
+        fail(f"--sp 1 --tp 1: family {backend} (expected xla), launches "
+             f"{counts}, the path gives {want}")
+    if not (all(np.isfinite(bits)) and bits[-1] < bits[0]):
+        fail(f"--sp 1 --tp 1: superstep bits {bits}")
+    return step_ms
+
+
+def top_h(params, x, h, c, cfg, cell_fn):
+    """The top layer's h over the window, fp32, without autograd."""
+    from eigen_lstm_tpu_torch.models import lstm as model
+
+    with torch.no_grad():
+        return model.forward(params, x, h, c, cfg, cell_fn)[0].float()
+
+
+def phase13d():
+    """The flagship at full width: one bible.txt window from ckpt_best.npz
+    with dropout 0, ``sp_loss_and_grads`` in SP_FLAG_CHUNKS chunks at
+    D = 1 against the single device's ``loss_and_grads``, both through the
+    kernels, the launches of the chunked window against the plans. fp32
+    (the tiled family): against the single device on the whole batch.
+    bf16 (K1, K2, K3, K6): against the single device on each chunk's rows
+    (the mean of its C calls) at 7b's rule; the top layer's h against the
+    fp32 whole batch, the median stream within SP_STREAM_VS_PLAIN of the
+    plain path's; the gradients of SP, the chunks, the whole batch and the
+    chunks through K1's per-step design against the fp32 whole batch over
+    the plain path's drift printed (the note at SP_STREAM_VS_PLAIN).
+    Then SP_FLAG_STEPS steps of the flagship recipe through ``cli train
+    --sp 1``."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.models.lstm import step_key
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled
+    from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
+    from eigen_lstm_tpu_torch.parallel.sp import sp_loss_and_grads
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
+
+    gen = torch.Generator().manual_seed(13)
+    x, t = bible_window(gen, FLAG_S, FLAG_B)
+    rows = FLAG_B // SP_FLAG_CHUNKS
+    chunk = lambda a, j: (a[..., j * rows:(j + 1) * rows, :] if a.dim() == 3
+                          else a[:, j * rows:(j + 1) * rows]).contiguous()
+
+    def chunked(fn, *args):
+        """fn on each chunk's rows of (x, t, h, c): loss_and_grads's loss
+        and gradients, the means over the chunks."""
+        parts = [fn(*(chunk(a, j) for a in args)) for j in range(SP_FLAG_CHUNKS)]
+        keys = [k for k, _ in parts[0][3].named_tensors()]
+        return (statistics.fmean(float(p[0]) for p in parts),
+                {k: sum(dict(p[3].named_tensors())[k] for p in parts)
+                 / SP_FLAG_CHUNKS for k in keys})
+
+    counters = _tp_counters()
+    res, windows, tops = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(flag_train_cfg(dtype), dropout=0.0)
+        params, _, _, extras = load_checkpoint(FLAGSHIP, cfg, DEVICE)
+        h, c = (extras[k][:, :FLAG_B] for k in ("stream_h", "stream_c"))
+        cell_fn = select_cell_fn("cuda", cfg, FLAG_B, DEVICE)
+        torch.cuda.synchronize()
+        before = _launch_counts(counters)
+        tiled0 = cuda_cell_tiled.launches()
+        loss, _, _, grads = sp_loss_and_grads(params, x, t, h, c, cfg,
+                                              SP_FLAG_CHUNKS, None, cell_fn)
+        torch.cuda.synchronize()
+        after = _launch_counts(counters)
+        counts = {k: after[k] - before[k] for k in after if k != "tiled"}
+        counts.update((k, b - a) for k, a, b in
+                      zip(TILED, tiled0, cuda_cell_tiled.launches()))
+        windows[dtype] = counts
+        res[(dtype, "sp")] = (float(loss), dict(grads.named_tensors()))
+        one = loss_and_grads(params, x, t, h, c, cfg, cell_fn)
+        res[(dtype, "one")] = (float(one[0]), dict(one[3].named_tensors()))
+        tops[(dtype, "one")] = top_h(params, x, h, c, cfg, cell_fn)
+        if dtype == "bfloat16":
+            times = chunk_kernel_ms(cfg, params.layers[0], x, h[0], c[0],
+                                    (rows, FLAG_B))
+            step = lambda *a: loss_and_grads(params, *a, cfg, cell_fn)
+            res[(dtype, "rows")] = chunked(step, x, t, h, c)
+            tops[(dtype, "rows")] = torch.cat(
+                [top_h(params, chunk(x, j), chunk(h, j), chunk(c, j), cfg,
+                       cell_fn) for j in range(SP_FLAG_CHUNKS)], dim=1)
+            with per_step_tiled(SPLIT_PLAN):
+                res[(dtype, "rows, K1 per-step")] = chunked(step, x, t, h, c)
+            plain_fn = select_cell_fn("plain", cfg, FLAG_B, DEVICE)
+            one = loss_and_grads(params, x, t, h, c, cfg, plain_fn)
+            res[(dtype, "plain")] = (float(one[0]), dict(one[3].named_tensors()))
+            tops[(dtype, "plain")] = top_h(params, x, h, c, cfg, plain_fn)
+        del params, grads, one
+    torch.cuda.synchronize()
+    cfg16 = flag_train_cfg("bfloat16")
+    cfg32 = flag_train_cfg("float32")
+    print(f"  flagship SP window ({SP_FLAG_CHUNKS} chunks of {rows} rows): fp32 "
+          f"K8/K9 in {tiled_design(cfg32, rows, 1024)[0]}, K10 in "
+          f"{tiled_bwd_design(cfg32, rows, 1024)[0]}; launches {windows['float32']}",
+          flush=True)
+    print(f"  flagship SP window bf16: K1 in {split_design(cfg16, rows, 1024)[0]}, "
+          f"K2 in {tiled_design(cfg16, rows, 1024)[0]}, K3 and K6 in "
+          f"{k6_design(cfg16, rows, 1024)[0]}; launches {windows['bfloat16']}",
+          flush=True)
+    c_, s_ = SP_FLAG_CHUNKS, FLAG_S
+    want32 = {"tiled_fwd_embed": c_ * s_, "tiled_fwd_scan": 2 * c_ * s_,
+              "tiled_bwd": 3 * c_ * s_}
+    got32 = {k: windows["float32"][k] for k in TILED}
+    if got32 != want32 or windows["float32"]["lstm_fwd_embed"]:
+        fail(f"flagship SP fp32 window: tiled launches {got32} (the chunks "
+             f"give {want32}), K1 {windows['float32']['lstm_fwd_embed']}")
+    _print_chunk_ms("the flagship's layer 0 a call (bf16)", SP_FLAG_CHUNKS,
+                    times)
+    w16 = windows["bfloat16"]
+    plan16 = sp_plan_launches(cfg16, FLAG_S, rows, "flagship")
+    want16 = {k: c_ * plan16.get(k, 0) for k in w16}
+    if w16 != want16:
+        fail(f"flagship SP bf16 window: launches {w16}, the plans give {want16}")
+    # the gates: fp32 against the whole batch, bf16 against one device on
+    # the same rows (the schedule)
+    for dtype, ref in (("float32", "one"), ("bfloat16", "rows")):
+        (ls, gs), (l1, g1) = res[(dtype, "sp")], res[(dtype, ref)]
+        rel = abs(ls - l1) / abs(l1)
+        line, bad = [], []
+        for key in g1:
+            err = norm_err(gs[key], g1[key])
+            if dtype == "float32":
+                ok, tol = err <= TRAIN_TOL, f"{TRAIN_TOL:g}"
+            else:
+                control = norm_err(res[(dtype, "one")][1][key],
+                                   res[("float32", "one")][1][key])
+                ok = err <= FLAG_BF16_VS_DRIFT * control
+                tol = f"{FLAG_BF16_VS_DRIFT:g} x {control:.3e}"
+            line.append(f"d{key[len('params.'):]} {err:.3e} ({tol})")
+            if not np.isfinite(err) or not ok:
+                bad.append(key)
+        what = ("one device" if ref == "one" else
+                f"one device on each chunk's {rows} rows")
+        print(f"  flagship SP {dtype}: loss {ls:.6f}, {what} {l1:.6f} (rel "
+              f"{rel:.2e}, tol {LOSS_RTOL[dtype]:g}); gradients against "
+              f"{what}, normalised: " + ", ".join(line), flush=True)
+        if not rel <= LOSS_RTOL[dtype] or bad:
+            fail(f"flagship SP {dtype}: loss rel {rel:.2e}, gradients past "
+                 f"their gate: {bad}")
+    # bf16 against the fp32 whole batch: the top layer's h gated, the
+    # gradients at 7b's rule printed (the note at SP_STREAM_VS_PLAIN)
+    f32 = tops[("float32", "one")]
+    stream = {k: (tops[("bfloat16", k)] - f32).abs().amax(dim=(0, 2))
+              for k in ("rows", "one", "plain")}
+    med = {k: float(v.median()) for k, v in stream.items()}
+    print(f"  flagship bf16 top layer h against fp32, the median stream's "
+          f"largest distance: {rows}-row chunks {med['rows']:.3e}, one device "
+          f"{med['one']:.3e}, the plain path {med['plain']:.3e} (tol "
+          f"{SP_STREAM_VS_PLAIN:g} x the plain path's); streams past 0.1: "
+          + ", ".join(f"{k} {int((v > 0.1).sum())}" for k, v in stream.items()),
+          flush=True)
+    if not med["rows"] <= SP_STREAM_VS_PLAIN * med["plain"]:
+        fail(f"flagship SP bf16: the median stream's top h {med['rows']:.3e} "
+             f"from fp32, past {SP_STREAM_VS_PLAIN:g} x the plain path's")
+    g32 = res[("float32", "one")][1]
+    drift = {k: norm_err(v, g32[k]) for k, v in res[("bfloat16", "plain")][1].items()}
+    for label in ("sp", "rows", "one", "rows, K1 per-step"):
+        ratio = {k: norm_err(v, g32[k]) / drift[k]
+                 for k, v in res[("bfloat16", label)][1].items()}
+        worst = max(ratio, key=ratio.get)
+        print(f"  flagship bf16 {label} against fp32, over the plain path's "
+              f"drift (7b's rule 2, not gated here): worst d"
+              f"{worst[len('params.'):]} {ratio[worst]:.2f}x; " + ", ".join(
+                  f"d{k[len('params.'):]} {v:.2f}" for k, v in ratio.items()),
+              flush=True)
+    del res
+    argv = FLAG_ARGV[:FLAG_ARGV.index("--superstep")] + [
+        "--superstep", "2", "--steps", str(SP_FLAG_STEPS), "--sample-chars", "0",
+        "--resume", FLAGSHIP, "--sp", "1", "--pp-chunks", str(SP_FLAG_CHUNKS)]
+    trainer = None
+    try:
+        counts, step_ms, cps, bpc, _, trainer = _tp_run(argv, SP_FLAG_STEPS)
+        per_chunk = sp_chunk_launches(trainer, rows, step_key(1235, 785000))
+    finally:
+        if trainer is not None:
+            trainer.mesh.close()
+    print(f"  flagship --sp 1: {SP_FLAG_STEPS} steps, {step_ms:.2f} ms a step "
+          f"over the last {SP_FLAG_STEPS - 2}, {cps:,.0f} chars/s, bits "
+          f"{bpc:.4f}; launches {counts}; a chunk of {rows} rows: {per_chunk} "
+          f"(K3 {per_chunk['lstm_bwd_embed']} launches a call, K6 "
+          f"{per_chunk['lstm_bwd_scan'] // 2})", flush=True)
+    _sp_launch_gate("flagship --sp 1", counts,
+                    sp_plan_launches(flag_train_cfg("bfloat16"), FLAG_S, rows,
+                                     "flagship"),
+                    per_chunk, SP_FLAG_STEPS, SP_FLAG_CHUNKS)
+    if not (np.isfinite(bpc) and bpc < 3.0):
+        fail(f"flagship --sp 1: bits {bpc}")
+    return step_ms
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -4189,6 +4773,11 @@ def main():
     check_budget("phase 11c (the flagship at --tp 1)")
     phase12(runs11b)
     check_budget("phase 12 (cli train --dp 1, --dp 1 --tp 1, gradcheck under --tp 1)")
+    phase13k()
+    phase13a(runs11b)
+    phase13c()
+    phase13d()
+    check_budget("phase 13 (sequence pipelining at D = 1)")
     kernels = []
 
     def add(rec, launches, **kw):
@@ -4302,10 +4891,140 @@ def gate_spread():
     print(json.dumps({"gate_spread": rows}), flush=True)
 
 
+# --sp-spread: the flagship windows of 13d's study, the seeds of 13d, 7b and
+# one more; a stream is "wild" where the plain bf16 path carries the top
+# layer's h more than SPREAD_WILD from fp32
+SPREAD_SEEDS, SPREAD_WILD = (13, 8, 21), 0.1
+
+
+def sp_spread():
+    """``python3 chip_smoke.py --sp-spread``: 13d's bf16 reading against
+    the fp32 whole batch on SPREAD_SEEDS' flagship windows (dropout 0),
+    each as drawn and with its wild streams replaced by calm ones: every
+    gradient over the plain path's drift (7b's rule) for the plain path
+    (whole and in 4 chunks), the kernels (whole, in chunks, SP) and the
+    chunks with K1 per-step or unsplit, K2 per-step, K3 and K6 per-step
+    forced; each chunk's worst reading against fp32 on its own rows; the
+    top layer's h per stream. First, layer 0's h on the first 32 rows
+    from a 128-row and from a 32-row call of K1, and of its per-step
+    design. Prints only; gates nothing."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
+    from eigen_lstm_tpu_torch.parallel.sp import sp_loss_and_grads
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
+
+    phase0()
+    phase1()
+    b, c_ = FLAG_B, SP_FLAG_CHUNKS
+    rows = b // c_
+    cut = lambda a, lo, n: (a[..., lo:lo + n, :] if a.dim() == 3
+                            else a[:, lo:lo + n]).contiguous()
+    cfgs = {d: dataclasses.replace(flag_train_cfg(d), dropout=0.0)
+            for d in ("float32", "bfloat16")}
+    state = {}
+    for d, cfg in cfgs.items():
+        params, _, _, extras = load_checkpoint(FLAGSHIP, cfg, DEVICE)
+        state[d] = (params, extras["stream_h"][:, :b].contiguous(),
+                    extras["stream_c"][:, :b].contiguous())
+    fns = {(d, k): select_cell_fn(k, cfgs[d], b, DEVICE)
+           for d in cfgs for k in ("cuda", "plain")}
+    params16, h_all, c_all = state["bfloat16"]
+    x, _ = bible_window(torch.Generator().manual_seed(SPREAD_SEEDS[0]),
+                        FLAG_S, b)
+    for label, force in (("split", contextlib.nullcontext()),
+                         ("per-step", per_step_tiled(SPLIT_PLAN))):
+        with force:
+            whole, part = (cuda_cell.embed_layer0(
+                params16.layers[0], cut(x, 0, n), cut(h_all, 0, n)[0],
+                cut(c_all, 0, n)[0], cfgs["bfloat16"])[0][:, :rows].float()
+                for n in (b, rows))
+        diff = (whole - part).abs()
+        print(f"  sp spread: K1 ({label}) layer 0 h on rows 0-{rows - 1}, a "
+              f"{b}-row call against a {rows}-row call: {int((diff > 0).sum())} "
+              f"of {diff.numel()} differ, max {float(diff.max()):.3e}",
+              flush=True)
+
+    def run(d, k, x, t, h, c, chunks=1):
+        """(mean gradients, each chunk's gradients, top h) of ``chunks``
+        one-device calls through fns[(d, k)]."""
+        params = state[d][0]
+        n = b // chunks
+        parts, tops = [], []
+        for j in range(chunks):
+            a = [cut(v, j * n, n) for v in (x, t, h, c)]
+            g = loss_and_grads(params, *a, cfgs[d], fns[(d, k)])[3]
+            parts.append({key: v.detach().clone() for key, v in g.named_tensors()})
+            tops.append(top_h(params, a[0], a[2], a[3], cfgs[d], fns[(d, k)]))
+        return ({key: sum(p[key] for p in parts) / chunks for key in parts[0]},
+                parts, torch.cat(tops, dim=1))
+
+    forced = (("K1 per-step", lambda: per_step_tiled(SPLIT_PLAN)),
+              ("K1 unsplit", unsplit_fwd), ("K2 per-step", per_step_tiled),
+              ("K3, K6 per-step", per_step_k6))
+    for seed in SPREAD_SEEDS:
+        x0, t0 = bible_window(torch.Generator().manual_seed(seed), FLAG_S, b)
+        h0, c0 = state["float32"][1:]
+        wild_top = top_h(state["float32"][0], x0, h0, c0, cfgs["float32"],
+                         fns[("float32", "cuda")])
+        wild_d = (top_h(params16, x0, h0, c0, cfgs["bfloat16"],
+                        fns[("bfloat16", "plain")]) - wild_top).abs().amax(dim=(0, 2))
+        wild = [int(i) for i in (wild_d > SPREAD_WILD).nonzero().flatten()]
+        calm = [i for i in range(b) if i not in wild]
+        for replaced in (False, True):
+            x, t, h, c = x0, t0, h0, c0
+            if replaced:
+                idx = torch.arange(b)
+                for k, i in enumerate(wild):
+                    idx[i] = calm[(7 * k + 3) % len(calm)]
+                idx = idx.to(x.device)
+                x, t, h, c = (v[..., idx, :].contiguous() if v.dim() == 3
+                              else v[:, idx].contiguous() for v in (x, t, h, c))
+            g32, g32_parts, top32 = run("float32", "cuda", x, t, h, c, c_)
+            top32 = top_h(state["float32"][0], x, h, c, cfgs["float32"],
+                          fns[("float32", "cuda")])
+            reads = {"plain whole": run("bfloat16", "plain", x, t, h, c),
+                     "plain chunks": run("bfloat16", "plain", x, t, h, c, c_),
+                     "kernels whole": run("bfloat16", "cuda", x, t, h, c),
+                     "kernels chunks": run("bfloat16", "cuda", x, t, h, c, c_)}
+            sp = sp_loss_and_grads(params16, x, t, h, c, cfgs["bfloat16"], c_,
+                                   None, fns[("bfloat16", "cuda")])[3]
+            reads["SP"] = ({k: v.detach().clone() for k, v in sp.named_tensors()},
+                           None, reads["kernels chunks"][2])
+            for label, force in forced:
+                with force():
+                    reads[f"chunks, {label}"] = run("bfloat16", "cuda", x, t, h,
+                                                    c, c_)
+            g_whole = run("float32", "cuda", x, t, h, c)[0]
+            drift = {k: norm_err(v, g_whole[k])
+                     for k, v in reads["plain whole"][0].items()}
+            print(f"  sp spread, seed {seed}"
+                  + (f", {len(wild)} wild streams replaced" if replaced else
+                     f", wild streams {wild}") + ": over the drift, worst "
+                  "(gradient); each chunk's worst against fp32 on its rows; "
+                  "the top layer's h per stream, median and past 0.1",
+                  flush=True)
+            for label, (g, parts, top) in reads.items():
+                ratio = {k: norm_err(v, g_whole[k]) / drift[k] for k, v in g.items()}
+                worst = max(ratio, key=ratio.get)
+                dd = (top - top32).abs().amax(dim=(0, 2))
+                chunks = ("" if parts is None or len(parts) == 1 else "; chunks "
+                          + " ".join(f"{max(norm_err(p[k], q[k]) for k in p):.3g}"
+                                     for p, q in zip(parts, g32_parts)))
+                print(f"    {label}: {ratio[worst]:.2f}x ({worst[len('params.'):]})"
+                      f"{chunks}; h {float(dd.median()):.4f}, "
+                      f"{int((dd > 0.1).sum())}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--gate-spread"]:
         gate_spread()
+    elif sys.argv[1:] == ["--sp-spread"]:
+        sp_spread()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}; the one option is --gate-spread")
+        fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread "
+             f"and --sp-spread")
     else:
         main()

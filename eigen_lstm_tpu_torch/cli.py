@@ -16,15 +16,17 @@ holds the kernels' loss and gradient norm against the model's own loop
 every K supersteps, ``--gradcheck`` runs the finite-difference check once
 before training and ``--gradcheck-every K`` every K supersteps.
 ``train --tp N`` trains tensor-parallel over N devices, ``train --dp N``
-data-parallel, and ``train --dp N --tp M`` on an N x M mesh, one process a
-device (``torchrun --nproc_per_node N*M`` for more than one; on one card,
-or on the CPU, one process needs no launcher). A mesh trains on the
-resident corpus unless ``--stream-data`` asks for streaming, as the JAX
-CLI does; one device streams unless ``--resident-data`` is given.
-``--gradcheck`` and ``--gradcheck-every`` run under a mesh on the
-canonical state; ``--crosscheck`` runs on one device only. ``--sp`` and
-``--pp`` are not ported yet, nor ``bench`` over several devices or
-``bench --profile``.
+data-parallel, ``train --sp N`` sequence-pipelined (the window in N time
+segments, the batch in ``--pp-chunks`` microchunks), and two of them
+together (``--dp N --tp M``, ``--dp N --sp M``, ``--sp N --tp M``) on an
+N x M mesh, one process a device (``torchrun --nproc_per_node N*M`` for
+more than one; on one card, or on the CPU, one process needs no
+launcher). A mesh trains on the resident corpus unless ``--stream-data``
+asks for streaming, as the JAX CLI does; one device streams unless
+``--resident-data`` is given. ``--gradcheck`` and ``--gradcheck-every``
+run under a mesh on the canonical state; ``--crosscheck`` runs on one
+device only. ``--pp`` is not ported yet, nor ``bench`` over several
+devices or ``bench --profile``.
 """
 
 from __future__ import annotations
@@ -139,10 +141,14 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "split into N shards; with --tp M an N x M mesh), "
                         "one process a device: torchrun --nproc_per_node "
                         "N*M for more than one")
-    for flag, what in (("--sp", "sequence-pipelined"),
-                       ("--pp", "pipeline-parallel")):
-        p.add_argument(flag, type=int, default=None, metavar="N",
-                       help=f"{what} over N devices: not ported yet")
+    p.add_argument("--sp", type=int, default=None, metavar="N",
+                   help="sequence-pipeline the BPTT window over N devices "
+                        "(time segments, batch microchunks of --pp-chunks; "
+                        "parallel/sp.py)")
+    p.add_argument("--pp", type=int, default=None, metavar="N",
+                   help="pipeline-parallel over N devices: not ported yet")
+    p.add_argument("--pp-chunks", type=int, default=4,
+                   help="pipeline microbatch chunks (must divide --seq)")
 
 
 def _configs(args):
@@ -185,7 +191,8 @@ def _configs(args):
         eval_every_s=args.eval_every_s, eval_chars=args.eval_chars,
         sample_chars=args.sample_chars, checkpoint_dir=args.ckpt_dir,
         keep_snapshots=args.keep_snapshots, crosscheck_every=args.crosscheck,
-        gradcheck_every=args.gradcheck_every, seed=args.seed + 1,
+        gradcheck_every=args.gradcheck_every, pp_chunks=args.pp_chunks,
+        seed=args.seed + 1,
     )
     return mcfg, dcfg, tcfg
 
@@ -205,14 +212,13 @@ def _parallel_flags(args):
         raise SystemExit("--pp combines only with --dp")
     if sum(map(bool, (args.dp, args.tp, args.sp, args.pp))) > 2:
         raise SystemExit("at most two parallel axes may be combined")
-    asked = [f"--{k} {v}" for k, v in (("sp", args.sp), ("pp", args.pp)) if v]
-    if asked:
-        raise SystemExit(f"{' '.join(asked)}: sequence and pipeline "
-                         f"parallelism are not ported yet (a later slice of "
-                         f"the port)")
-    if (args.dp or args.tp) and args.crosscheck:
-        raise SystemExit("--crosscheck with --dp or --tp: it runs on one "
-                         "device only (the JAX trainer skips it under a mesh)")
+    if args.pp:
+        raise SystemExit(f"--pp {args.pp}: pipeline parallelism is not "
+                         f"ported yet (a later slice of the port)")
+    if (args.dp or args.tp or args.sp) and args.crosscheck:
+        raise SystemExit("--crosscheck with --dp, --tp or --sp: it runs on "
+                         "one device only (the JAX trainer skips it under a "
+                         "mesh)")
 
 
 def _make_trainer(args):
@@ -228,11 +234,15 @@ def _make_trainer(args):
     _parallel_flags(args)
     mcfg, dcfg, tcfg = _configs(args)
     mesh, device = None, args.device
-    if args.dp:
-        mesh = init_mesh(MeshConfig(num_devices=args.dp,
-                                    model_devices=args.tp), args.device)
-        print(f"2-D mesh: {args.dp} data x {args.tp} model devices"
-              if args.tp else f"data-parallel over {args.dp} devices",
+    if args.dp or args.sp:
+        mesh = init_mesh(MeshConfig(num_devices=args.dp, model_devices=args.tp,
+                                    seq_devices=args.sp), args.device)
+        axes = [f"{n} {name}" for n, name in ((args.dp, "data"),
+                                               (args.sp, "seq"),
+                                               (args.tp, "model")) if n]
+        print(f"2-D mesh: {' x '.join(axes)} devices" if len(axes) == 2
+              else f"data-parallel over {args.dp} devices" if args.dp
+              else f"sequence-pipelined over {args.sp} time segments",
               flush=True)
     elif args.tp:
         mesh = init_tp_group(args.tp, args.device)

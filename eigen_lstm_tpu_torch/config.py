@@ -4,10 +4,9 @@ set of flags describe the same model in both packages.
 
 ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX
 package's fields with the same defaults and meanings. ``MeshConfig`` is
-the JAX one with the model axis of ``--tp`` beside its data axis
-(``parallel/mesh.py:init_mesh``). Sequence and pipeline parallelism are not
-ported yet; the ``TrainConfig`` fields that only they read are accepted
-and unused.
+the JAX one with the model axis of ``--tp`` and the seq axis of ``--sp``
+beside its data axis (``parallel/mesh.py:init_mesh``). Pipeline
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -126,7 +125,7 @@ class TrainConfig:
     sample_chars: int = 1000
     checkpoint_dir: Optional[str] = None
     superstep: int = 50
-    pp_chunks: int = 4               # pipeline parallelism: not ported yet
+    pp_chunks: int = 4               # the batch's microchunks under --sp
     crosscheck_every: Optional[int] = None   # in supersteps
     gradcheck_every: Optional[int] = None    # in supersteps
     gradcheck_samples: int = 20
@@ -136,12 +135,14 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The process mesh of data parallelism, alone or with tensor
-    parallelism (``parallel/mesh.py:init_mesh``): ``num_devices`` data rows
-    (the JAX ``MeshConfig``'s field) by ``model_devices`` model columns
-    (None: no model axis, ``--dp`` alone). The axes are "data" and
-    "model", as in the JAX 2-D mesh; the JAX ``data_axis`` name has no
-    counterpart."""
+    """The process mesh of ``parallel/mesh.py:init_mesh``: ``num_devices``
+    data rows (the JAX ``MeshConfig``'s field; None: no data axis), by
+    ``seq_devices`` seq columns (``--sp``; None: no seq axis) or by
+    ``model_devices`` model columns (``--tp``; None: no model axis). A seq
+    axis with a model axis has no data axis (``--sp N --tp M``: N seq rows
+    by M model columns). The axes are "data", "seq" and "model", as in the
+    JAX meshes; the JAX ``data_axis`` name has no counterpart."""
 
-    num_devices: int = 1
+    num_devices: Optional[int] = 1
     model_devices: Optional[int] = None
+    seq_devices: Optional[int] = None

@@ -34,8 +34,9 @@ with h_{-1} = h0 (rounded to the residual type for K6, as ``_bwd_core``
 rounds it); K3 adds dW[ids_t] += dg_c and db.
 
 K3 copies whichever of the JAX package's two layer-0 VJPs the config takes
-(``ops.dispatch.fused_accum_ok``). With ``fused_accum`` (the fused VJP,
-``pallas_cell.py:1031-1042``) db is the sum of the unrounded fp32 dg and
+at the batch of the call (``ops.dispatch.fused_accum_ok``). With
+``fused_accum`` (the fused VJP, ``pallas_cell.py:1031-1042``) db is the
+sum of the unrounded fp32 dg and
 h_{-1} = h0 as it is. Without it (the GEMM fall-back, ``:1044-1066``, which
 the flagship takes in bf16) db is the fp32 sum of dg rounded to the xw
 type, which ``_bwd_kernel`` emits, and h_{-1} = h0 rounded to the residual
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -546,19 +548,36 @@ def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+def layer0_fused_accum(cfg: ModelConfig, batch: int,
+                       fused_accum: Optional[bool] = None) -> bool:
+    """The JAX VJP that K3 copies on a call of ``batch`` rows: ``fused_accum``
+    where given, else the JAX rule at that batch, ``fused_accum_ok``
+    (``pallas_cell.py:874-881``, with b the batch of the ids its kernel
+    sees, ``:1122``): under ``--dp`` or sequence pipelining the kernel sees
+    fewer rows than the global batch, and the gate may flip between the
+    two counts."""
+    if fused_accum is not None:
+        return fused_accum
+    from .dispatch import fused_accum_ok   # dispatch imports this module
+
+    return fused_accum_ok(cfg, batch)
+
+
 def differentiable_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
                                 dropout=None, plain: bool = False,
-                                fused_accum: bool = True):
+                                fused_accum: Optional[bool] = None):
     """``cell_fn.embed_layer0`` of ``ops.dispatch``: (h_out, (hT, cT)) of
     layer 0, h_out the masked stream under ``dropout=(rate, seed)``,
     through ``EmbedLayer0`` when autograd needs a gradient of its inputs,
     else through the forward kernel alone (no residuals). ``fused_accum``
-    picks the JAX VJP that K3 copies (the module docstring). The backward
-    is K12 where the JAX package takes its unroll-2 kernel
+    picks the JAX VJP that K3 copies (the module docstring); None chooses
+    it at this call's batch (``layer0_fused_accum``). The backward is K12
+    where the JAX package takes its unroll-2 kernel
     (``ops.dispatch.bwd_unroll2``: ``EIGEN_LSTM_BWD_UNROLL=2``, read at
     each call as the JAX package reads it), else K3."""
     from .dispatch import bwd_unroll2   # dispatch imports this module
 
+    fused_accum = layer0_fused_accum(cfg, ids.shape[1], fused_accum)
     unroll2 = bwd_unroll2(cfg, ids.shape[0], ids.shape[1], fused_accum,
                           0.0 if dropout is None else dropout[0])
     if _wants_grad(layer.W, layer.U, layer.b, h0, c0):

@@ -222,7 +222,8 @@ def families(cfg: ModelConfig, batch: int):
 
 def _cell_fn(cfg: ModelConfig, batch: int, plain: bool):
     scan, embed = families(cfg, batch)
-    if scan == "xla":
+    xla = scan == "xla"
+    if xla:
         scan, embed = "resident", "embed_fused"
     if scan == "tiled":
         cell_fn = functools.partial(
@@ -238,9 +239,13 @@ def _cell_fn(cfg: ModelConfig, batch: int, plain: bool):
         cell_fn.embed_layer0 = functools.partial(
             cuda_cell_tiled.differentiable_tiled_embed_layer0, plain=plain)
     elif embed is not None:
+        # the layer-0 VJP is chosen at each call, at the batch its kernel
+        # sees, as pallas_embed_layer0 chooses it (pallas_cell.py:1122,
+        # :874-881); where the JAX package takes the XLA scan, the fused
+        # VJP's db
+        kw = {"fused_accum": True} if xla else {}
         cell_fn.embed_layer0 = functools.partial(
-            cuda_cell_bwd.differentiable_embed_layer0, plain=plain,
-            fused_accum=embed == "embed_fused")
+            cuda_cell_bwd.differentiable_embed_layer0, plain=plain, **kw)
     fused_head = functools.partial(head.fused_head_bits, plain=plain)
     fused_head.supported = head.head_supported
     cell_fn.fused_head = fused_head

@@ -52,18 +52,26 @@ def local_batch(dcfg: DataConfig, data: mesh_mod.AxisGroup,
     return dcfg.batch // data.size
 
 
-def pmean(tensors, data: mesh_mod.AxisGroup):
-    """The mean of each tensor over the data axis (``jax.lax.pmean``), in
-    one all-reduce of their concatenation; each comes back in its own type
-    and shape."""
+def psum(tensors, axis: Optional[mesh_mod.AxisGroup], mean: bool = False):
+    """The sum of each tensor over ``axis`` (``jax.lax.psum``; with
+    ``mean``, ``jax.lax.pmean``), in one all-reduce of their
+    concatenation; each comes back in its own type and shape."""
     dtype = torch.promote_types(tensors[0].dtype, torch.float32)
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
-    flat = mesh_mod.all_reduce(flat, data) / data.size
+    flat = mesh_mod.all_reduce(torch.cat([t.reshape(-1).to(dtype)
+                                          for t in tensors]), axis)
+    if mean:
+        flat = flat / axis.size
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
         i += t.numel()
     return out
+
+
+def pmean(tensors, data: mesh_mod.AxisGroup):
+    """The mean of each tensor over the data axis (``jax.lax.pmean``), as
+    ``psum`` packs them."""
+    return psum(tensors, data, mean=True)
 
 
 def dp_train_step(state, x, t, mcfg: ModelConfig, dcfg: DataConfig,

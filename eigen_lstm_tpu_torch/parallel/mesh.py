@@ -5,12 +5,15 @@ over its axes: the counterpart of ``eigen_lstm_tpu/parallel/mesh.py``'s
 One process a device. An axis is an ``AxisGroup``: this process's rank on
 it, the axis size and the ``torch.distributed`` group its collectives run
 on. ``--tp N`` alone is one axis, the model axis, over the default group
-(``init_tp_group``). ``--dp N``, alone or with ``--tp M``, is a
-``ProcessMesh`` of N data rows by M model columns (M = 1 for ``--dp``
-alone), rank = d * M + m, the row-major order of the JAX ``make_mesh_2d``;
-each row is a model group and each column a data group, each a
-``dist.new_group``, so a collective reduces over its own axis and never
-over all N * M ranks.
+(``init_tp_group``). ``--dp N`` or ``--sp N`` alone, either with ``--tp
+M``, and ``--dp N --sp M`` are ``ProcessMesh`` es of rows by columns
+(``init_mesh``): N data rows by M model or seq columns (M = 1 for ``--dp``
+alone), or N seq rows by M model columns (M = 1 for ``--sp`` alone),
+rank = row * M + column, the row-major order of the JAX
+``make_mesh_2d`` (``make_mesh_dp_sp``, ``make_mesh_tp_sp``); each row and
+each column is a ``dist.new_group``, so a collective reduces over its own
+axis and never over all N * M ranks. The seq axis also has point-to-point
+``send`` and ``recv`` between its neighbours and a ``broadcast``.
 
 On the card the groups are NCCL's: the size and rank come from
 ``torchrun``'s environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), or,
@@ -65,19 +68,25 @@ TPGroup = AxisGroup
 
 @dataclasses.dataclass
 class ProcessMesh:
-    """``--dp N`` (``model`` None) or ``--dp N --tp M``: the data axis and
-    the model axis of this process, rank = d * M + m."""
+    """The axes of this process: ``--dp N`` (``model`` and ``seq`` None),
+    ``--dp N --tp M``, ``--dp N --sp M``, ``--sp N`` or ``--sp N --tp M``
+    (``data`` None). rank = (d * S + s) * M + m, an absent axis of size
+    1 and rank 0."""
 
-    data: AxisGroup
+    data: Optional[AxisGroup]
     model: Optional[AxisGroup]
     device: torch.device
     owns: bool = False
     tmpdir: Optional[str] = None
+    seq: Optional[AxisGroup] = None
 
     @property
     def rank(self) -> int:
-        m = self.model
-        return self.data.rank * (m.size if m else 1) + (m.rank if m else 0)
+        r = 0
+        for axis in (self.data, self.seq, self.model):
+            if axis is not None:
+                r = r * axis.size + axis.rank
+        return r
 
     def close(self):
         _close(self)
@@ -146,30 +155,35 @@ def init_tp_group(n: int, device="cuda", store_path: Optional[str] = None,
 
 
 def init_mesh(cfg: MeshConfig, device="cuda") -> ProcessMesh:
-    """The mesh of ``--dp N`` (``cfg.model_devices`` None) or ``--dp N --tp
-    M`` on ``device``, over the run's processes (a process group that is
-    up, ``torchrun``'s, or one process): every process creates every row's
-    and column's group, in the same order, as ``dist.new_group``
-    requires."""
-    m_size, n_data = cfg.model_devices or 1, cfg.num_devices
-    flags = f"--dp {n_data}" + (f" --tp {m_size}" if cfg.model_devices else "")
-    me, dev, owns, tmpdir = _start(n_data * m_size, device, None, None,
-                                   flags, "the mesh")
-    d, m = divmod(me, m_size)
-    data_pg = model_pg = None
-    for col in range(m_size):
-        pg = dist.new_group([row * m_size + col for row in range(n_data)])
-        if col == m:
-            data_pg = pg
-    model = None
-    if cfg.model_devices:
-        for row in range(n_data):
-            pg = dist.new_group([row * m_size + col for col in range(m_size)])
-            if row == d:
-                model_pg = pg
-        model = AxisGroup(m, m_size, dev, pg=model_pg)
-    return ProcessMesh(AxisGroup(d, n_data, dev, pg=data_pg), model, dev,
-                       owns, tmpdir)
+    """The mesh of ``--dp N`` or ``--sp N`` alone or with ``--tp M``, or of
+    ``--dp N --sp M`` (``cfg.num_devices`` None: no data axis), on
+    ``device``, over the
+    run's processes (a process group that is up, ``torchrun``'s, or one
+    process): every process creates every column's group, then every
+    row's, in the same order, as ``dist.new_group`` requires."""
+    axes = [(name, flag, size) for name, flag, size in (
+        ("data", "--dp", cfg.num_devices), ("seq", "--sp", cfg.seq_devices),
+        ("model", "--tp", cfg.model_devices)) if size is not None]
+    if len(axes) != 2 and [name for name, _, _ in axes] not in (["data"], ["seq"]):
+        raise ValueError(f"init_mesh takes --dp or --sp alone or two axes, "
+                         f"not {cfg}")
+    (row_axis, _, n_rows), (col_axis, _, n_cols) = (axes + [(None, "", 1)])[:2]
+    flags = " ".join(f"{flag} {size}" for _, flag, size in axes)
+    me, dev, owns, tmpdir = _start(n_rows * n_cols, device, None, None, flags,
+                                   "the mesh")
+    r, c = divmod(me, n_cols)
+    groups = {}
+    for col in range(n_cols):
+        pg = dist.new_group([row * n_cols + col for row in range(n_rows)])
+        if col == c:
+            groups[row_axis] = AxisGroup(r, n_rows, dev, pg=pg)
+    if col_axis is not None:
+        for row in range(n_rows):
+            pg = dist.new_group([row * n_cols + col for col in range(n_cols)])
+            if row == r:
+                groups[col_axis] = AxisGroup(c, n_cols, dev, pg=pg)
+    return ProcessMesh(groups.get("data"), groups.get("model"), dev, owns,
+                       tmpdir, seq=groups.get("seq"))
 
 
 # --- raw collectives (no autograd): parallel/tp.py wraps them -------------
@@ -209,6 +223,36 @@ def reduce_scatter(x: torch.Tensor, dim: int, group: Optional[AxisGroup]):
     out = src.new_empty((n,) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=group.pg)
     return out.movedim(0, dim).contiguous()
+
+
+def _global_rank(axis: AxisGroup, rank: int) -> int:
+    """The run's rank of the process at ``rank`` on ``axis``."""
+    return rank if axis.pg is None else dist.get_global_rank(axis.pg, rank)
+
+
+def send(x: torch.Tensor, peer: int, axis: AxisGroup):
+    """Send ``x`` to the process at rank ``peer`` of ``axis``, without
+    waiting: returns the request, which the caller waits on, and which
+    holds ``x`` (a buffer the caller no longer writes) until then."""
+    return dist.isend(x.contiguous(), _global_rank(axis, peer), group=axis.pg)
+
+
+def recv(like: torch.Tensor, peer: int, axis: AxisGroup) -> torch.Tensor:
+    """A tensor of ``like``'s shape, type and device received from the
+    process at rank ``peer`` of ``axis``."""
+    out = torch.empty_like(like, memory_format=torch.contiguous_format)
+    dist.recv(out, _global_rank(axis, peer), group=axis.pg)
+    return out
+
+
+def broadcast(x: torch.Tensor, src: int, axis: Optional[AxisGroup]):
+    """``x`` of the process at rank ``src`` of ``axis``, on every process of
+    the axis (a new tensor)."""
+    if axis is None:
+        return x
+    y = x.contiguous().clone()
+    dist.broadcast(y, _global_rank(axis, src), group=axis.pg)
+    return y
 
 
 def all_true(flag: bool, device) -> bool:

@@ -29,13 +29,19 @@ and updates its own shards; the global norm counts by once. Data
 parallelism (``mesh`` a ``parallel.mesh.ProcessMesh`` without a model
 axis, ``parallel/dp.py``) splits the streams over the data axis and
 averages the gradients; with a model axis (``parallel/dp_tp.py``) each row
-of the mesh runs tensor parallelism on its streams. The wrap reset's noise
-comes from a generator seeded with the shard's ranks folded in, as the JAX
-supersteps fold in ``axis_index``. Checkpoints, eval, samples and
-``gradcheck`` work on the canonical state (gathered, then unpermuted), so a
-mesh's checkpoint is an ordinary one; rank 0 writes it. ``crosscheck``
-runs on one device only, as in the JAX trainer. Sequence and pipeline
-parallelism are not ported yet, and are refused when asked for.
+of the mesh runs tensor parallelism on its streams. Sequence pipelining
+(a ``ProcessMesh`` with a seq axis, ``parallel/sp.py``) cuts each window
+into time segments over the seq axis, alone, beside a data axis (each
+data shard pipelines its streams) or beside a model axis (each segment
+runs tensor parallelism). The wrap reset's noise comes from a generator
+seeded with the shard's data and model ranks folded in, as the JAX
+supersteps fold in ``axis_index``; the seq rank is not folded in (the
+state is the same on every segment), so under ``--sp`` alone the noise is
+the single device's stream. Checkpoints, eval, samples and ``gradcheck``
+work on the canonical state (gathered, then unpermuted), so a mesh's
+checkpoint is an ordinary one; rank 0 writes it. ``crosscheck`` runs on
+one device only, as in the JAX trainer. Pipeline parallelism is not
+ported yet, and is refused when asked for.
 """
 
 from __future__ import annotations
@@ -183,29 +189,40 @@ class Trainer:
         keeps the corpus on the host and feeds windows per superstep.
         ``mesh``: a ``parallel.mesh.AxisGroup``, the model axis of tensor
         parallelism, or a ``parallel.mesh.ProcessMesh``, data parallelism
-        alone or with a model axis (the module docstring); the TP family is
-        the one ``ops.dispatch.select_tp_backend`` picks at (config, the
-        batch of a data shard, the model axis's size, cell_fn, device). Any
-        other mesh (sequence or pipeline parallelism) is refused."""
-        self.tp = self.dp = None
+        alone or with a model axis, or sequence pipelining alone or with a
+        data or a model axis (the module docstring); the TP family is the
+        one ``ops.dispatch.select_tp_backend`` picks at (config, the batch
+        of a data shard, the model axis's size, cell_fn, device), and
+        beside a seq axis the torch-op scan, as the JAX ``tp_sp`` mesh
+        takes its XLA scan. Any other mesh (pipeline parallelism) is
+        refused."""
+        self.tp = self.dp = self.sp = None
         model_axis = None
         if isinstance(mesh, mesh_mod.ProcessMesh):
-            from ..parallel import dp as dp_mod
+            self.dp, model_axis, self.sp = mesh.data, mesh.model, mesh.seq
+            if self.sp is not None:
+                from ..parallel import sp as sp_mod
 
-            self.dp, model_axis = mesh.data, mesh.model
-            dp_mod.local_batch(dcfg, self.dp,
-                               "devices" if model_axis is None else "")
+                sp_mod.check_shapes(
+                    mcfg, dcfg, tcfg, self.sp.size,
+                    None if self.dp is None else self.dp.size,
+                    None if model_axis is None else model_axis.size)
+            else:
+                from ..parallel import dp as dp_mod
+
+                dp_mod.local_batch(dcfg, self.dp,
+                                   "devices" if model_axis is None else "")
         elif isinstance(mesh, mesh_mod.AxisGroup):
             model_axis = mesh
         elif mesh is not None:
             raise NotImplementedError(
-                f"mesh training over a {type(mesh).__name__} (sequence or "
-                f"pipeline parallelism): not ported yet")
+                f"mesh training over a {type(mesh).__name__} (pipeline "
+                f"parallelism): not ported yet")
         self.mesh = mesh
         if model_axis is not None:
             from ..ops.dispatch import select_tp_backend
 
-            backend = select_tp_backend(
+            backend = "xla" if self.sp is not None else select_tp_backend(
                 mcfg, dcfg.batch // self.n_data, model_axis.size, cell_fn,
                 device, allow_per_step=self.dp is None)
             self.tp = tp_mod.TPPlan(model_axis, backend,
@@ -225,8 +242,8 @@ class Trainer:
             if axis is not None:
                 seed = cell_ops.hash32(cell_ops.hash32(seed)
                                        ^ cell_ops.hash32(axis.rank))
-        self.noise = (self.generator if mesh is None else
-                      torch.Generator(device=self.device).manual_seed(seed))
+        self.noise = (self.generator if self.dp is None and self.tp is None
+                      else torch.Generator(device=self.device).manual_seed(seed))
         self._best_bpc = None
         self._next_windows = None
         self.crosscheck_failures = 0
@@ -317,6 +334,7 @@ class Trainer:
         Returns (state, metrics), the metrics on the device."""
         from ..parallel import dp as dp_mod
         from ..parallel import dp_tp as dp_tp_mod
+        from ..parallel import sp as sp_mod
 
         steps = self.tcfg.superstep if windows is None else windows.shape[0]
         win = None if windows is None else windows.to(torch.int32)
@@ -328,7 +346,10 @@ class Trainer:
             else:
                 x, t = win[k, :-1], win[k, 1:]
             args = (state, x, t, self.mcfg, self.dcfg, self.tcfg, self.length)
-            if self.dp is None:
+            if self.sp is not None:
+                state, (b, g) = sp_mod.sp_train_step(
+                    *args, self.cell_fn, self.noise, self.sp, self.dp, self.tp)
+            elif self.dp is None:
                 state, (b, g) = train_step(*args, self.cell_fn, self.noise,
                                            self.tp)
             elif self.tp is None:

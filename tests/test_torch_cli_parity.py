@@ -32,9 +32,9 @@ ALICE = os.path.join(ROOT, "data/alice29.txt")
 
 # The port's own differences: it runs on a card or the CPU (--device); its
 # backends are its kernels or their plain versions, where the JAX package
-# picks Pallas or the XLA scan; --pp-chunks waits for the pp.py slice.
+# picks Pallas or the XLA scan.
 PORT_ONLY = {"--device"}
-JAX_ONLY = {"--pp-chunks"}
+JAX_ONLY = set()
 BACKENDS = {"jax": {"auto", "xla", "pallas"}, "port": {"auto", "cuda", "plain"}}
 
 CASES = {
@@ -48,7 +48,7 @@ CASES = {
          "--cell", "standard", "--epochs", "2", "--stride", "50",
          "--no-carry", "--reset-std", "0.1", "--resident-data",
          "--lr-cycle-steps", "100", "--keep-snapshots", "--crosscheck", "5",
-         "--gradcheck-every", "7", "--scan-chunk", "4"],
+         "--gradcheck-every", "7", "--scan-chunk", "4", "--pp-chunks", "2"],
     ],
     "eval": [
         ["--ckpt", "x.npz", "--tie-embeddings", "--batch", "128", "--seq", "256"],

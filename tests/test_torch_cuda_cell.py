@@ -161,7 +161,8 @@ def test_dispatch_backends():
     assert plain.func is cuda_cell_bwd.differentiable_scan_layer
     assert plain.keywords == {"plain": True} and plain.fused_dropout
     assert plain.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
-    assert plain.embed_layer0.keywords == {"plain": True, "fused_accum": True}
+    # the layer-0 VJP is chosen at each call (the kernel's batch)
+    assert plain.embed_layer0.keywords == {"plain": True}
     assert plain.fused_head.keywords == {"plain": True}
     assert plain.fused_head.supported is head.head_supported
     auto = dispatch.select_cell_fn("auto", cfg, 16, "cpu")
@@ -174,6 +175,7 @@ def test_dispatch_backends():
     assert kern.func is cuda_cell_bwd.differentiable_scan_layer
     assert kern.keywords == {"plain": False} and kern.fused_dropout
     assert kern.embed_layer0.func is cuda_cell_bwd.differentiable_embed_layer0
+    # where the JAX package takes the XLA scan: the fused VJP at any batch
     assert kern.embed_layer0.keywords == {"plain": False, "fused_accum": True}
     assert kern.fused_head.func is head.fused_head_bits
     assert kern.fused_head.keywords == {"plain": False}

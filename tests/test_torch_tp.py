@@ -400,24 +400,25 @@ def test_cli_train_tp1_checkpoint_loads_in_both_packages(tmp_path, capsys,
 
 
 def test_cli_refuses_what_tp_does_not_run(capsys):
-    """``--tp 2`` in one process, ``--tp`` beside ``--sp``/``--pp`` (the
-    JAX combination rule for ``--pp``), ``--dp 2 --tp 1`` in one process,
-    ``--crosscheck`` under ``--tp`` (one device only) and ``bench --tp``
-    raise SystemExit with the reason; the trainer refuses a mesh of another
-    parallelism."""
+    """``--tp 2`` in one process, ``--tp`` beside ``--pp`` (the JAX
+    combination rule), ``--dp 2 --tp 1`` and ``--sp 2 --tp 1`` in one
+    process, ``--crosscheck`` under ``--tp`` (one device only) and ``bench
+    --tp`` raise SystemExit with the reason; the trainer refuses a mesh of
+    another parallelism."""
     with pytest.raises(SystemExit, match="--tp 2: the model axis is one process"):
         tcli.main(TP_ARGV + ["--tp", "2"])
     for flag, msg in (("--dp", "--dp 2 --tp 1: the mesh is one process"),
-                      ("--sp", "not ported yet"),
+                      ("--sp", "--sp 2 --tp 1: the mesh is one process"),
                       ("--pp", "--pp combines only with --dp")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(TP_ARGV + ["--tp", "1", flag, "2"])
-    with pytest.raises(SystemExit, match="--crosscheck with --dp or --tp"):
+    with pytest.raises(SystemExit, match="--crosscheck with --dp, --tp or --sp"):
         tcli.main(TP_ARGV + ["--tp", "1", "--crosscheck", "1"])
     with pytest.raises(SystemExit, match="bench over several devices"):
         tcli.main(["bench", "--data", ALICE, "--tp", "1", "--device", "cpu"])
     for flag, msg in (("--dp", "--dp 2: the mesh is one process"),
-                      ("--sp", "not ported yet"), ("--pp", "not ported yet")):
+                      ("--sp", "--sp 2: the mesh is one process"),
+                      ("--pp", "not ported yet")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(TP_ARGV + [flag, "2"])
     with pytest.raises(NotImplementedError, match="mesh training over a object"):

@@ -1,5 +1,6 @@
-"""The cases that tests/test_torch_dp.py and tests/test_torch_dp_tp.py run on
-spawned gloo ranks, and the pool that runs them.
+"""The cases that tests/test_torch_dp.py, tests/test_torch_dp_tp.py and
+tests/test_torch_sp.py run on spawned gloo ranks, and the pool that runs
+them.
 
 For each world size (2 and 4) the cases of every mesh of that size go to
 one spawn of ``tests/torch_dp_worker.py``, once a test run: the first test
@@ -58,6 +59,25 @@ WRAP = dict(cfg=dict(hidden=16, num_layers=1, loss_mode="all", seed=0),
             tcfg=dict(lr=0.1, superstep=4, eval_every_s=1e9))
 WRAP_LEN = 150
 NAN_STREAM = 5     # of 8: shard 1's at D = 2, row 1's on a 2 x 2 mesh
+# tests/test_sp.py:125-166's and tests/test_compositions.py's meshes: the
+# batch in 2 microchunks (1 row a chunk under --dp 2), clip added
+SP_MESH = dict(cfg=dict(hidden=16, num_layers=1, loss_mode="all", seed=0),
+               dcfg=dict(batch=8, seq=8, train_percent=1.0),
+               tcfg=dict(lr=0.1, superstep=3, eval_every_s=1e9, clip_norm=0.1,
+                         pp_chunks=2))
+# tests/test_sp.py:77-111's trajectory: the wrap reset's noise, cursors
+# in [SP_TRAJ_START / 2, SP_TRAJ_START) that wrap after the first
+# superstep and before the fourth (the first, before any wrap, is held to
+# the JAX package, whose noise differs from the port's)
+SP_TRAJ = dict(cfg=dict(hidden=16, num_layers=1, loss_mode="all", seed=3),
+               dcfg=dict(batch=8, seq=8, train_percent=1.0, reset_std=0.1),
+               tcfg=dict(lr=0.1, superstep=3, eval_every_s=1e9, seed=7,
+                         pp_chunks=2))
+SP_TRAJ_LEN, SP_TRAJ_START = 150, 100
+# the gradient cases of tests/test_torch_sp.py: tests/test_sp.py:setup's
+# model and window (vocab 32, hidden 16, S = 16, B = 8)
+SPG_S, SPG_B, SPG_VOCAB = 16, 8, 32
+SPG_KEY = 0x1234567
 CLI_ARGV = ["train", "--data", ALICE, "--hidden", "32", "--batch", "8",
             "--seq", "8", "--steps", "4", "--superstep", "2", "--log-every",
             "2", "--sample-chars", "0", "--eval-chars", "500", "--device",
@@ -113,17 +133,37 @@ def case_state(key):
     base, length, nan = {
         "dp": (DP, 20000, None), "dptp": (DP_TP, 15500, None),
         "drop": (DROP, 20000, None), "skip": (DROP, 20000, NAN_STREAM),
-        "wrap": (WRAP, WRAP_LEN, None),
+        "wrap": (WRAP, WRAP_LEN, None), "dpsp": (SP_MESH, 20000, None),
+        "tpsp": (SP_MESH, 20000, None), "sptraj": (SP_TRAJ, SP_TRAJ_LEN, None),
     }[key.split("_")[0]]
     if key.startswith("skip"):
         base = dict(base, cfg=dict(base["cfg"], dropout=0.0))
     data = corpus(base["cfg"].get("vocab", 256), length)
     seed = sum(map(ord, key.split("_")[0]))
-    return base, data, state_arrays(base["cfg"], base["dcfg"]["batch"],
-                                    len(data), seed, nan)
+    arrs = state_arrays(base["cfg"], base["dcfg"]["batch"], len(data), seed,
+                        nan)
+    if key.startswith("sptraj"):
+        half = SP_TRAJ_START // 2
+        arrs["positions"] = half + arrs["positions"] % half
+    return base, data, arrs
 
 
-# key -> (world size, mesh [n_data, n_model], kind, extra)
+def sp_inputs(key):
+    """(model config, chunks, seq devices, arrays: the parameters under
+    their checkpoint keys, x, t, h, c and the dropout key) of a gradient
+    case ``spg_{layers}_{D}_{C}_{loss mode}[_drop]``."""
+    _, layers, n_seq, n_chunks, mode, *drop = key.split("_")
+    cfg = dict(vocab=SPG_VOCAB, hidden=16, num_layers=int(layers),
+               loss_mode=mode, dropout=0.3 if drop else 0.0, seed=0)
+    arrs = state_arrays(cfg, SPG_B, 1000, sum(map(ord, key)))
+    rng = np.random.default_rng(len(key))
+    for name in ("x", "t"):
+        arrs[name] = rng.integers(0, SPG_VOCAB, (SPG_S, SPG_B)).astype(np.int64)
+    arrs["dropout_key"] = np.array(SPG_KEY if drop else -1)
+    return cfg, int(n_chunks), int(n_seq), arrs
+
+
+# key -> (world size, mesh [n_data, n_model(, n_seq)], kind, extra)
 CASES = {
     "dp_2": (2, [2, None], "train", {}),
     "dp_4": (4, [4, None], "train", {}),
@@ -141,6 +181,16 @@ CASES = {
     "cli_dp2": (2, None, "cli", dict(argv=["--dp", "2"])),
     "cli_tp2": (2, None, "cli", dict(argv=["--tp", "2"])),
     "cli_dp2tp2": (4, None, "cli", dict(argv=["--dp", "2", "--tp", "2"])),
+    "spg_1_2_2_all": (2, [None, None, 2], "sp_grads", {}),
+    "spg_2_2_2_all": (2, [None, None, 2], "sp_grads", {}),
+    "spg_1_4_2_all": (4, [None, None, 4], "sp_grads", {}),
+    "spg_2_2_2_last": (2, [None, None, 2], "sp_grads", {}),
+    "spg_2_2_2_all_drop": (2, [None, None, 2], "sp_grads", {}),
+    "sptraj_2": (2, [None, None, 2], "train", dict(supersteps=4)),
+    "dpsp_22": (4, [2, None, 2], "train", {}),
+    "tpsp_22": (4, [None, 2, 2], "train", {}),
+    "skip_dpsp22": (4, [2, None, 2], "train", {}),
+    "cli_sp2": (2, None, "cli", dict(argv=["--sp", "2"])),
 }
 
 
@@ -152,6 +202,10 @@ def _spec(world, work):
         case = {"kind": kind, "mesh": mesh}
         if kind == "cli":
             case["argv"] = CLI_ARGV + ["--ckpt-dir", str(work / key)] + extra["argv"]
+        elif kind == "sp_grads":
+            cfg, case["chunks"], _, arrs = sp_inputs(key)
+            case["cfg"] = cfg
+            inputs.update((f"{key}/{k}", v) for k, v in arrs.items())
         elif kind in ("train", "gradcheck"):
             base, data, arrs = case_state(key)
             ckpt = str(work / f"{key}.npz")

@@ -1,5 +1,6 @@
-"""One rank of the port's data parallelism on the CPU, for
-tests/test_torch_dp.py and tests/test_torch_dp_tp.py: ``python
+"""One rank of the port's data parallelism and sequence pipelining on the
+CPU, for tests/test_torch_dp.py, tests/test_torch_dp_tp.py and
+tests/test_torch_sp.py: ``python
 tests/torch_dp_worker.py STORE RANK SIZE IN.npz OUT.npz``. The SIZE ranks
 meet over gloo through the FileStore at STORE and run every case of IN.npz
 (a JSON ``spec`` and its numpy inputs), each on the mesh the case names;
@@ -16,19 +17,25 @@ import torch
 
 from eigen_lstm_tpu_torch import ModelConfig, cli
 from eigen_lstm_tpu_torch.config import DataConfig, MeshConfig, TrainConfig
+from eigen_lstm_tpu_torch.models import lstm as model
 from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
 from eigen_lstm_tpu_torch.parallel import mesh as mesh_mod
+from eigen_lstm_tpu_torch.parallel import sp as sp_mod
+from eigen_lstm_tpu_torch.train import checkpoint as ckpt_mod
 from eigen_lstm_tpu_torch.train.trainer import Trainer
 
 
 def make_mesh(case, world):
-    """The case's mesh: [n_data, n_model] a ProcessMesh (n_model None: data
-    parallelism alone), [None, n] the model axis alone over the run."""
-    n_data, n_model = case["mesh"]
-    if n_data is None:
+    """The case's mesh: [n_data, n_model(, n_seq)] a ProcessMesh (n_model
+    None: data parallelism alone), [None, n] the model axis alone over the
+    run, [None, None, n] the seq axis alone."""
+    n_data, n_model, *seq = case["mesh"]
+    n_seq = seq[0] if seq else None
+    if n_data is None and n_seq is None:
         return mesh_mod.AxisGroup(world.rank, world.size, world.device)
     return mesh_mod.init_mesh(MeshConfig(num_devices=n_data,
-                                         model_devices=n_model), "cpu")
+                                         model_devices=n_model,
+                                         seq_devices=n_seq), "cpu")
 
 
 def trainer_of(z, key, case, mesh):
@@ -54,12 +61,15 @@ def put_state(out, key, st):
 
 def train_case(z, key, case, mesh, out):
     """``supersteps`` supersteps from the case's checkpoint: each one's
-    metrics, then the canonical state."""
+    metrics, then the canonical state (of more than one, also after the
+    first under ``{key}/first``)."""
     tr = trainer_of(z, key, case, mesh)
     for k in range(case["supersteps"]):
         tr.state, met = tr.dispatch_superstep()
         for name in ("bits_mean", "gnorm_mean", "gnorm_max"):
             out[f"{key}/{k}/{name}"] = met[name].numpy()
+        if k == 0 and case["supersteps"] > 1:
+            put_state(out, f"{key}/first", tr.canonical_state())
     out[f"{key}/backend"] = np.array(tr.tp.backend if tr.tp else "")
     put_state(out, key, tr.canonical_state())
 
@@ -77,6 +87,26 @@ def gradcheck_case(z, key, case, mesh, out):
     out[f"{key}/ok"] = np.array(ok)
     out[f"{key}/failures"] = np.array(tr.gradcheck_failures)
     out[f"{key}/stdout"] = np.array(buf.getvalue())
+
+
+def sp_grads_case(z, key, case, mesh, out):
+    """``sp_loss_and_grads`` on the case's window over the seq axis, through
+    the plain versions: the loss, the bits, (hT, cT) and every gradient."""
+    cfg = ModelConfig(**case["cfg"])
+    arr = lambda name: z[f"{key}/{name}"]
+    params = ckpt_mod.params_from_numpy(
+        {k: arr(k) for k in ckpt_mod._expected_shapes(cfg)}, cfg, "cpu")
+    x, t, h, c = (torch.from_numpy(arr(k)) for k in ("x", "t", "h", "c"))
+    dkey = int(arr("dropout_key"))
+    loss, (hT, cT), bits, grads = sp_mod.sp_loss_and_grads(
+        params, x, t, h, c, cfg, case["chunks"], mesh.seq,
+        select_cell_fn("plain", cfg, x.shape[1], "cpu"),
+        dropout_key=None if dkey < 0 else dkey)
+    for name, v in (("loss", loss), ("bits", bits), ("hT", hT), ("cT", cT)):
+        out[f"{key}/{name}"] = v.numpy()
+    for name, g in grads.named_tensors():
+        out[f"{key}/grad/{name}"] = g.numpy()
+    out[f"{key}/n_params"] = np.array(len(model.tensors(grads)))
 
 
 def collectives_case(key, mesh, world, out):
@@ -122,6 +152,8 @@ def main():
                 gradcheck_case(z, key, case, mesh, out)
             elif kind == "collectives":
                 collectives_case(key, mesh, world, out)
+            elif kind == "sp_grads":
+                sp_grads_case(z, key, case, mesh, out)
         if world.rank == 0:
             np.savez(dst, **out)
     finally:
