@@ -161,7 +161,8 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          cuDNN; (b) ``cli train --tp 1`` at the bench's configuration, 300
          steps, through K15/K16 and, with EIGEN_LSTM_TP_SEQ=0, K13/K14,
          launches counted, train_bpc against the single-device run's from
-         the same seed, K15's, K16's and K13's shares of the step; (c) the
+         the same seed (K13/K14 for 100 steps, against a single-device run
+         of 100), K15's, K16's and K13's shares of the step; (c) the
          flagship recipe
          at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
          one window's TP loss and eleven gradients, kernels against plain
@@ -192,7 +193,8 @@ Phase 13 sequence pipelining at D = 1 on the paths of 11b and 7c: (k)
          time a call at 32 and 128 rows; (b) ``--dp 1 --sp 1`` at C = 4:
          (a)'s launches and train_bpc within 1e-6; (c) ``--sp 1 --tp 1``
          (the torch-op TP scan, as the JAX tp_sp mesh takes its XLA scan),
-         16 steps in supersteps of 4 after a 4-step warm-up: K11 the only
+         8 steps in supersteps of 4, a 4-step lr warm-up among them (the
+         step time over the second superstep): K11 the only
          kernel, the bits finite and the last superstep's below the
          first's; (d) the flagship's bible.txt window (dropout 0) in 4
          chunks through ``sp_loss_and_grads`` against one device's
@@ -210,6 +212,25 @@ Phase 13 sequence pipelining at D = 1 on the paths of 11b and 7c: (k)
          then 4 steps of the flagship recipe under ``--sp 1``: launches a
          step C times the plans' for a chunk (K1 1, K2 2, K3 2, K6 6), bits
          finite and below 3.0.
+Phase 14 pipeline parallelism at S = 1, the stage's layers through the
+         torch-op scan as the JAX stage mesh takes its XLA scan: (k) K11
+         against its plain version on the stage-stacked ``PPParams`` sets
+         the path updates, the bench's (W padded to 512 rows) and the
+         flagship's (3 layers, W padded to 1024 rows, its accumulators),
+         gated as in 10a; (a) ``cli train --pp 1`` at the bench's
+         configuration with the window's sequence in 4 chunks, 16 steps in
+         supersteps of 4, a 4-step lr warm-up among them: K11 once a step
+         and no other kernel, the bits finite and the last superstep's
+         below the first's, the step time over the last 12 steps beside
+         11b's single device; (b) ``--dp 1 --pp 1``: (a)'s launches and
+         bits within 1e-6; then (a) once more, its step time beside the
+         two before (the host's drift between runs); (c) the flagship's bible.txt window (dropout 0)
+         in 4 chunks through ``pp_loss_and_grads`` at S = 1 against one
+         device's ``loss_and_grads`` with ``cell_fn=None``, fp32 and bf16,
+         no kernel launched: the loss rel 1e-5, every gradient rtol 1e-4 /
+         atol 1e-6 (tests/test_pp.py's), bf16's W of layers >= 1 and Why
+         (each chunk's weight gradient rounded to bf16) within 5 half-ulps
+         of bf16 of their largest entry; the largest differences printed.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -3078,15 +3099,81 @@ def foreach_adagrad(ps, gs, ms, lr, eps):
     return torch._foreach_add(ps, d, alpha=-float(lr)), m2
 
 
-def phase10a(records):
-    """K11 against its plain version on the flagship's weights and Adagrad
-    accumulators, 5b's initial weights and the bench's (1x512), with
-    seeded gradients: m bit for bit, p within one ulp (the ulp differences
-    counted), one launch a call; times beside the bound, the plain version
-    and the ``_foreach`` yardstick."""
-    from eigen_lstm_tpu_torch import ModelConfig
-    from eigen_lstm_tpu_torch.models.lstm import init_params, like, tensors
+def k11_alone_ms(ps, gs, ms, lr, eps):
+    """K11's C launcher alone between CUDA events on the tensors ``ps``,
+    ``gs``, ``ms``, its table and outputs made once: the wrapper's checks,
+    allocations and table left out."""
+    import ctypes
+
+    from eigen_lstm_tpu_torch.ops import _build
+
+    outs = [(torch.empty_like(p), torch.empty_like(mm)) for p, mm in zip(ps, ms)]
+    table = (ctypes.c_uint64 * (6 * len(ps)))(*(
+        v for p, g, mm, (p2, m2) in zip(ps, gs, ms, outs)
+        for v in (p.data_ptr(), g.data_ptr(), mm.data_ptr(), p2.data_ptr(),
+                  m2.data_ptr(), p.numel())))
+    lib = _build.load_library()
+    launched = ctypes.c_int(0)
+    args = (len(ps), table, float(lr), float(eps),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    if lib.adagrad_launch(*args) != 0:
+        fail("adagrad_launch refused the call")
+    return cuda_ms(lambda: lib.adagrad_launch(*args), reps=20)
+
+
+def k11_check(name, params, m, gen, lr, eps):
+    """K11 against its plain version on ``params`` and accumulators ``m``
+    with gradients seeded from ``gen``: m bit for bit, p within one ulp
+    (the ulp differences counted), one launch a call; the wrapper's time,
+    and its C launcher's alone, beside the bound, the plain version and
+    the ``_foreach`` yardstick. Returns the kernels-line record (launches
+    None)."""
+    from eigen_lstm_tpu_torch.models.lstm import like, tensors
     from eigen_lstm_tpu_torch.ops import cuda_adagrad as ca
+
+    grads = like(params, ((torch.randn(t.shape, generator=gen) * 1e-2)
+                          .to(DEVICE) for t in tensors(params)))
+    numel = sum(t.numel() for t in tensors(params))
+    before = ca.adagrad_update_fused.launches
+    pk, mk = ca.adagrad_update_fused(params, grads, m, lr, eps)
+    launches = ca.adagrad_update_fused.launches - before
+    pp, mp = ca.adagrad_update_plain(params, grads, m, lr, eps)
+    torch.cuda.synchronize()
+    m_equal = all(torch.equal(a, b) for a, b in zip(tensors(mk), tensors(mp)))
+    ulps = torch.cat([(a.view(torch.int32).long() - b.view(torch.int32).long())
+                      .abs().flatten() for a, b in zip(tensors(pk), tensors(pp))])
+    max_ulp, n_ulp = int(ulps.max()), int((ulps > 0).sum())
+    err = max(float((a - b).abs().max()) for a, b in zip(tensors(pk), tensors(pp)))
+    shapes = ", ".join("x".join(map(str, t.shape)) for t in tensors(params))
+    print(f"  K11 {name}: {numel:,} parameters in {len(tensors(params))} "
+          f"tensors ({shapes}), {launches} launch; m bit for bit {m_equal}; p "
+          f"within {max_ulp} ulp of plain ({n_ulp} elements differ by an ulp), "
+          f"max |dp| {err:.3e}", flush=True)
+    if launches != 1 or not m_equal or max_ulp > 1:
+        fail(f"K11 {name}: {launches} launches, m equal {m_equal}, p "
+             f"{max_ulp} ulp from the plain version")
+    ps, gs, ms = tensors(params), tensors(grads), tensors(m)
+    ms_k = cuda_ms(lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
+                   reps=20)
+    plain_ms = cuda_ms(lambda: ca.adagrad_update_plain(params, grads, m, lr, eps),
+                       reps=5)
+    lib_ms = cuda_ms(lambda: foreach_adagrad(ps, gs, ms, lr, eps), reps=5)
+    alone_ms = k11_alone_ms(ps, gs, ms, lr, eps)
+    bound_ms, bound_by = adagrad_bound(numel)
+    print(f"  K11 {name}: {ms_k:.4f} ms a step (its C launcher alone "
+          f"{alone_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}), plain "
+          f"{plain_ms:.4f} ms, torch._foreach_* {lib_ms:.4f} ms", flush=True)
+    return dict(name="adagrad", route="cuda", source=ADAGRAD_SOURCE,
+                replaces=ADAGRAD_REPLACES, launches=None, max_abs_err=err,
+                ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+def phase10a(records):
+    """K11 (``k11_check``) on the flagship's weights and Adagrad
+    accumulators, 5b's initial weights and the bench's (1x512)."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.models.lstm import init_params
     from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
     from eigen_lstm_tpu_torch.train.optimizer import adagrad_init
 
@@ -3099,41 +3186,7 @@ def phase10a(records):
     for name, params, m in (("flagship", flag_p, flag_m),
                             ("5b", b5, adagrad_init(b5)),
                             ("bench", bench, adagrad_init(bench))):
-        grads = like(params, ((torch.randn(t.shape, generator=gen) * 1e-2)
-                              .to(DEVICE) for t in tensors(params)))
-        numel = sum(t.numel() for t in tensors(params))
-        before = ca.adagrad_update_fused.launches
-        pk, mk = ca.adagrad_update_fused(params, grads, m, lr, eps)
-        launches = ca.adagrad_update_fused.launches - before
-        pp, mp = ca.adagrad_update_plain(params, grads, m, lr, eps)
-        torch.cuda.synchronize()
-        m_equal = all(torch.equal(a, b) for a, b in zip(tensors(mk), tensors(mp)))
-        ulps = torch.cat([(a.view(torch.int32).long() - b.view(torch.int32).long())
-                          .abs().flatten() for a, b in zip(tensors(pk), tensors(pp))])
-        max_ulp, n_ulp = int(ulps.max()), int((ulps > 0).sum())
-        err = max(float((a - b).abs().max()) for a, b in zip(tensors(pk), tensors(pp)))
-        print(f"  K11 {name}: {numel:,} parameters in {len(tensors(params))} "
-              f"tensors, {launches} launch; m bit for bit {m_equal}; p within "
-              f"{max_ulp} ulp of plain ({n_ulp} elements differ by an ulp), "
-              f"max |dp| {err:.3e}", flush=True)
-        if launches != 1 or not m_equal or max_ulp > 1:
-            fail(f"K11 {name}: {launches} launches, m equal {m_equal}, p "
-                 f"{max_ulp} ulp from the plain version")
-        ps, gs, ms = tensors(params), tensors(grads), tensors(m)
-        ms_k = cuda_ms(lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
-                       reps=20)
-        plain_ms = cuda_ms(lambda: ca.adagrad_update_plain(params, grads, m, lr, eps),
-                           reps=5)
-        lib_ms = cuda_ms(lambda: foreach_adagrad(ps, gs, ms, lr, eps), reps=5)
-        bound_ms, bound_by = adagrad_bound(numel)
-        print(f"  K11 {name}: {ms_k:.4f} ms a step, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain {plain_ms:.4f} ms, torch._foreach_* "
-              f"{lib_ms:.4f} ms", flush=True)
-        records[("10a", name)] = dict(
-            name="adagrad", route="cuda", source=ADAGRAD_SOURCE,
-            replaces=ADAGRAD_REPLACES, launches=None, max_abs_err=err, ms=ms_k,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms)
+        records[("10a", name)] = k11_check(name, params, m, gen, lr, eps)
 
 
 def phase10b(records):
@@ -3469,6 +3522,9 @@ TP_REPLACES = {
     "tp_seq_bwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:125",
 }
 TP_STEPS, TP_SUPERSTEP = 300, 50
+# 11b's per-step TP family (K13/K14, ~157 ms a step, host-bound) runs
+# TP_STEP_STEPS steps and is held to a single-device run of as many
+TP_STEP_STEPS = 100
 # 11b: the root bench's configuration through ``cli train`` (its lr warm-up
 # of 20 steps), 300 steps from the same seed under --tp 1 and on one device
 TP_ARGV = [
@@ -3951,22 +4007,25 @@ def _tp_run(argv, steps):
 
 def phase11b(records):
     """``cli train --tp 1`` at the root bench's configuration, TP_STEPS
-    steps, with EIGEN_LSTM_TP_SEQ unset (K15, K16 once a step) and 0 (K13,
-    K14 S times a step), K11 once a step and none of K1-K10, K12 in both;
-    then the same run on one device. train_bpc in the JAX bench's sanity
-    band and within TP_BPC_TOL of the single-device run's. Returns the
-    launch counts of both TP runs."""
+    steps with EIGEN_LSTM_TP_SEQ unset (K15, K16 once a step) and
+    TP_STEP_STEPS with it 0 (K13, K14 S times a step), K11 once a step and
+    none of K1-K10, K12 in both; then the same run on one device, for
+    TP_STEPS and for TP_STEP_STEPS steps. train_bpc within TP_BPC_TOL of
+    the single-device run's of as many steps, the TP_STEPS runs' in the
+    JAX bench's sanity band. Returns the launch counts of both TP runs."""
     import os
 
     runs = {}
-    for label, env, extra in (("tp seq", None, ["--tp", "1"]),
-                              ("tp step", "0", ["--tp", "1"]),
-                              ("single", None, [])):
+    for label, env, extra, steps in (
+            ("tp seq", None, ["--tp", "1"], TP_STEPS),
+            ("tp step", "0", ["--tp", "1"], TP_STEP_STEPS),
+            ("single", None, [], TP_STEPS),
+            ("single short", None, [], TP_STEP_STEPS)):
         trainer = None
         if env is not None:
             os.environ["EIGEN_LSTM_TP_SEQ"] = env
         try:
-            counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_ARGV + extra, TP_STEPS)
+            counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_ARGV + extra, steps)
         finally:
             os.environ.pop("EIGEN_LSTM_TP_SEQ", None)
             if trainer is not None and trainer.tp is not None:
@@ -3974,29 +4033,36 @@ def phase11b(records):
         runs[label] = (counts, step_ms, bpc, backend)
         print(f"  cli train {' '.join(extra) or '(one device)'}"
               f"{' EIGEN_LSTM_TP_SEQ=' + env if env else ''}: family {backend}, "
-              f"{TP_STEPS} steps, {step_ms:.3f} ms a step over the last "
-              f"{TP_STEPS - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
+              f"{steps} steps, {step_ms:.3f} ms a step over the last "
+              f"{steps - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
               f"launches {counts}", flush=True)
     zero = ("lstm_fwd_embed", "lstm_fwd_scan", "lstm_bwd_embed",
             "lstm_bwd_embed_unroll2", "lstm_bwd_scan", "head_fwd", "head_bwd", "tiled")
     want = {"tp seq": dict(tp_seq_fwd=TP_STEPS, tp_seq_bwd=TP_STEPS, tp_step_fwd=0,
                            tp_step_bwd=0, adagrad=TP_STEPS),
-            "tp step": dict(tp_seq_fwd=0, tp_seq_bwd=0, tp_step_fwd=TP_STEPS * TRAIN_S,
-                            tp_step_bwd=TP_STEPS * TRAIN_S, adagrad=TP_STEPS)}
-    for label, fam in (("tp seq", "pallas_seq"), ("tp step", "pallas")):
+            "tp step": dict(tp_seq_fwd=0, tp_seq_bwd=0,
+                            tp_step_fwd=TP_STEP_STEPS * TRAIN_S,
+                            tp_step_bwd=TP_STEP_STEPS * TRAIN_S,
+                            adagrad=TP_STEP_STEPS)}
+    for label, fam, ref in (("tp seq", "pallas_seq", "single"),
+                            ("tp step", "pallas", "single short")):
         counts, _, bpc, backend = runs[label]
         w = dict(want[label], **{k: 0 for k in zero})
         if counts != w or backend != fam:
             fail(f"cli train --tp 1 ({label}): family {backend} (expected {fam}), "
                  f"launches {counts}, the path gives {w}")
-        ref = runs["single"][2]
-        if not (np.isfinite(bpc) and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]
-                and abs(bpc - ref) <= TP_BPC_TOL):
+        ref_bpc = runs[ref][2]
+        banded = ref == "single"
+        if not (np.isfinite(bpc) and abs(bpc - ref_bpc) <= TP_BPC_TOL and (
+                not banded or SANITY_BAND[0] <= bpc <= SANITY_BAND[1])):
             fail(f"cli train --tp 1 ({label}): train_bpc {bpc:.4f}, the single "
-                 f"device's {ref:.4f} (tol {TP_BPC_TOL:g}), band {SANITY_BAND}")
-    print(f"  --tp 1 train_bpc {runs['tp seq'][2]:.4f} (K15/K16), "
-          f"{runs['tp step'][2]:.4f} (K13/K14), one device {runs['single'][2]:.4f} "
-          f"(tol {TP_BPC_TOL:g}, band {SANITY_BAND}); step "
+                 f"device's {ref_bpc:.4f} over as many steps (tol "
+                 f"{TP_BPC_TOL:g}), band {SANITY_BAND if banded else None}")
+    print(f"  --tp 1 train_bpc {runs['tp seq'][2]:.4f} (K15/K16), one device "
+          f"{runs['single'][2]:.4f} ({TP_STEPS} steps, band {SANITY_BAND}); "
+          f"{runs['tp step'][2]:.4f} (K13/K14), one device "
+          f"{runs['single short'][2]:.4f} ({TP_STEP_STEPS} steps); tol "
+          f"{TP_BPC_TOL:g}; step "
           f"{runs['tp seq'][1]:.3f}, {runs['tp step'][1]:.3f} and "
           f"{runs['single'][1]:.3f} ms", flush=True)
     records[("11b", "step_ms")] = {k: v[1] for k, v in runs.items()}
@@ -4170,9 +4236,9 @@ def phase12(runs11b):
 SP_CHUNKS = (4, 1)
 # 13c: --sp 1 --tp 1 runs the torch-op TP scan (the JAX tp_sp mesh's XLA
 # scan), a launch for each op of each timestep and chunk: 831 ms a step at
-# C = 4 on an H100 (700 W), so 16 steps in supersteps of 4, the lr
-# warm-up cut to 4 steps so that 12 of them update
-SP_TP_STEPS, SP_TP_SUPERSTEP, SP_TP_WARMUP = 16, 4, 4
+# C = 4 on an H100 (700 W), so 8 steps in supersteps of 4, the lr
+# warm-up cut to the first 4 so that the second superstep updates
+SP_TP_STEPS, SP_TP_SUPERSTEP, SP_TP_WARMUP = 8, 4, 4
 # 13d: the flagship's window in C = 4 chunks, then SP_FLAG_STEPS steps of
 # its recipe under --sp 1
 SP_FLAG_CHUNKS, SP_FLAG_STEPS = 4, 4
@@ -4479,38 +4545,51 @@ def phase13a(runs11b):
     return runs
 
 
-def phase13c():
-    """``cli train --sp 1 --tp 1`` at 11b's configuration for SP_TP_STEPS
-    steps in supersteps of SP_TP_SUPERSTEP, SP_TP_WARMUP of them at lr 0:
-    the torch-op TP scan, K11 the only kernel; the bits finite, the last
-    superstep's below the first's."""
+def _superstep_run(extra, steps, superstep, warmup):
+    """``cli train`` at 11b's configuration with ``extra`` (the parallel
+    flags) for ``steps`` steps in supersteps of ``superstep``, an lr
+    warm-up of ``warmup`` steps among them, driven a superstep at a time:
+    (launch counts of the run, ms a step over every superstep but the
+    first, each superstep's bits, the TP family or None)."""
     from eigen_lstm_tpu_torch.cli import _make_trainer, build_parser
 
-    argv = _argv_with(TP_ARGV, steps=SP_TP_STEPS, superstep=SP_TP_SUPERSTEP,
-                      log_every=SP_TP_SUPERSTEP, warmup=SP_TP_WARMUP) + [
-                          "--sp", "1", "--tp", "1"]
+    argv = _argv_with(TP_ARGV, steps=steps, superstep=superstep,
+                      log_every=superstep, warmup=warmup) + extra
     trainer = _make_trainer(build_parser().parse_args(argv))
     try:
         counters = _tp_counters()
         torch.cuda.synchronize()
         before = _launch_counts(counters)
-        t0 = time.perf_counter()
         bits = []
-        for _ in range(SP_TP_STEPS // SP_TP_SUPERSTEP):
+        for i in range(steps // superstep):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
             trainer.state, met = trainer.dispatch_superstep()
             bits.append(float(met["bits_mean"]))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         after = _launch_counts(counters)
-        backend = trainer.tp.backend
+        backend = None if trainer.tp is None else trainer.tp.backend
     finally:
         trainer.mesh.close()
-    counts = {k: after[k] - before[k] for k in after}
-    step_ms = dt * 1e3 / SP_TP_STEPS
-    print(f"  cli train --sp 1 --tp 1: family {backend}, {SP_TP_STEPS} steps "
-          f"in {dt:.2f} s ({step_ms:.2f} ms a step), superstep bits "
-          + " ".join(f"{b:.4f}" for b in bits) + f"; launches {counts}",
-          flush=True)
+    return ({k: after[k] - before[k] for k in after},
+            dt * 1e3 / (steps - superstep), bits, backend)
+
+
+def phase13c():
+    """``cli train --sp 1 --tp 1`` at 11b's configuration for SP_TP_STEPS
+    steps in supersteps of SP_TP_SUPERSTEP, an lr warm-up of SP_TP_WARMUP
+    among them:
+    the torch-op TP scan, K11 the only kernel; the bits finite, the last
+    superstep's below the first's."""
+    counts, step_ms, bits, backend = _superstep_run(
+        ["--sp", "1", "--tp", "1"], SP_TP_STEPS, SP_TP_SUPERSTEP, SP_TP_WARMUP)
+    print(f"  cli train --sp 1 --tp 1: family {backend}, {SP_TP_STEPS} steps, "
+          f"{step_ms:.2f} ms a step over the last "
+          f"{SP_TP_STEPS - SP_TP_SUPERSTEP}, "
+          "superstep bits " + " ".join(f"{b:.4f}" for b in bits)
+          + f"; launches {counts}", flush=True)
     want = dict({k: 0 for k in counts}, adagrad=SP_TP_STEPS)
     if backend != "xla" or counts != want:
         fail(f"--sp 1 --tp 1: family {backend} (expected xla), launches "
@@ -4705,6 +4784,151 @@ def phase13d():
     return step_ms
 
 
+# --- phase 14: pipeline parallelism at S = 1 (the torch-op scan and K11) --
+# 14a/14b: 11b's configuration through cli train --pp 1 with the window's
+# sequence in PP_CHUNKS chunks; as in the JAX package the stage's layers run
+# the torch-op scan (its XLA scan), a launch for each op of each step, so
+# PP_STEPS steps in supersteps of PP_SUPERSTEP, an lr warm-up of PP_WARMUP
+# steps among them
+PP_CHUNKS = 4
+PP_STEPS, PP_SUPERSTEP, PP_WARMUP = 16, 4, 4
+# 14c: the flagship's bible.txt window (dropout 0) in PP_CHUNKS chunks at
+# S = 1 against one device through the same torch-op scan: the loss at
+# rtol 1e-5, the gradients at tests/test_pp.py:58-70's rtol 1e-4 / atol
+# 1e-6; under bf16 the products cut into chunks (W of layers >= 1, Why)
+# round each chunk's weight gradient to bf16 through the cast's VJP where
+# one device rounds the window's once, so those are held within
+# (C + 1) half-ulps of bf16 of their largest entry (parallel/pp.py)
+PP_LOSS_RTOL, PP_GRAD_RTOL, PP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+PP_CHUNK_ROUNDED = ("layers[1].W", "layers[2].W", "Why")
+
+
+def phase14k(records):
+    """K11 (``k11_check``) on the stage-stacked ``PPParams`` that ``--pp``
+    updates: the bench's set (1x512: W padded to max(256, 512) rows, its
+    zero accumulators laid out as the trainer lays them out) and the
+    flagship's (3x1024: W padded to 1024 rows, its checkpoint's
+    accumulators)."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.models.lstm import init_params
+    from eigen_lstm_tpu_torch.parallel import pp as pp_mod
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+    from eigen_lstm_tpu_torch.train.optimizer import adagrad_init
+
+    lr, eps = np.float32(0.02), 1e-10
+    bench_cfg = ModelConfig(hidden=512)
+    bench = init_params(bench_cfg, device=DEVICE)
+    flag_cfg = flag_train_cfg("bfloat16")
+    flag_p, flag_m, _, _ = load_checkpoint(FLAGSHIP, flag_cfg, DEVICE)
+    gen = torch.Generator().manual_seed(14)
+    for name, params, m, cfg in (("bench", bench, adagrad_init(bench), bench_cfg),
+                                 ("flagship", flag_p, flag_m, flag_cfg)):
+        records[("14k", name)] = k11_check(
+            f"{name} PPParams", pp_mod.pp_params_from(params, cfg),
+            pp_mod.pp_params_from(m, cfg), gen, lr, eps)
+
+
+def phase14ab(runs11b):
+    """``cli train --pp 1 --pp-chunks PP_CHUNKS`` (14a), ``--dp 1 --pp 1``
+    (14b) and 14a again at 11b's configuration: K11 once a step and no
+    other kernel, the bits finite and the last superstep's below the
+    first's; 14b's launches 14a's and its bits within DP_BPC_TOL. Returns
+    K11's launches of the three runs."""
+    runs = {}
+    for label, extra in (("pp", ["--pp", "1"]),
+                         ("dp x pp", ["--dp", "1", "--pp", "1"]),
+                         ("pp again", ["--pp", "1"])):
+        counts, step_ms, bits, _ = _superstep_run(
+            extra + ["--pp-chunks", str(PP_CHUNKS)], PP_STEPS, PP_SUPERSTEP,
+            PP_WARMUP)
+        runs[label] = (counts, step_ms, bits)
+        print(f"  cli train {' '.join(extra)} --pp-chunks {PP_CHUNKS}: "
+              f"{PP_STEPS} steps, {step_ms:.2f} ms a step over the last "
+              f"{PP_STEPS - PP_SUPERSTEP} against 11b's single device "
+              f"{runs11b['single'][1]:.3f} ms "
+              f"({step_ms / runs11b['single'][1]:.1f}x), superstep bits "
+              + " ".join(f"{b:.6f}" for b in bits) + f"; launches {counts}",
+              flush=True)
+        want = dict({k: 0 for k in counts}, adagrad=PP_STEPS)
+        if counts != want:
+            fail(f"cli train {' '.join(extra)}: launches {counts}, the path "
+                 f"gives {want} (K11 once a step, the torch-op scan)")
+        if not (all(np.isfinite(bits)) and bits[-1] < bits[0]):
+            fail(f"cli train {' '.join(extra)}: superstep bits {bits}")
+    (ca, ma, ba), (cb, mb, bb), (_, mc, _) = (
+        runs["pp"], runs["dp x pp"], runs["pp again"])
+    gap = max(abs(a - b) for a, b in zip(ba, bb))
+    print(f"  dp x pp: superstep bits against --pp 1's, largest gap {gap:.3g} "
+          f"(tol {DP_BPC_TOL:g}); ms a step --pp 1 {ma:.2f}, --dp 1 --pp 1 "
+          f"{mb:.2f}, --pp 1 again {mc:.2f}", flush=True)
+    if cb != ca or not gap <= DP_BPC_TOL:
+        fail(f"phase 14b: launches {cb} (--pp 1: {ca}), bits gap {gap}")
+    return sum(c["adagrad"] for c, _, _ in runs.values())
+
+
+def phase14c():
+    """The flagship at full width: one bible.txt window from ckpt_best.npz
+    with dropout 0, ``pp_loss_and_grads`` at S = 1 in PP_CHUNKS chunks
+    against one device's ``loss_and_grads`` with ``cell_fn=None`` (the
+    same torch-op scan), fp32 and bf16, no kernel launched: the loss at
+    PP_LOSS_RTOL, each gradient at PP_GRAD_RTOL / PP_GRAD_ATOL, bf16's
+    chunk-rounded ones within (C + 1) half-ulps of bf16 of their largest
+    entry; the largest differences printed."""
+    import dataclasses
+
+    from eigen_lstm_tpu_torch.parallel import pp as pp_mod
+    from eigen_lstm_tpu_torch.train.checkpoint import load_checkpoint
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
+
+    x, t = bible_window(torch.Generator().manual_seed(14), FLAG_S, FLAG_B)
+    counters = _tp_counters()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(flag_train_cfg(dtype), dropout=0.0)
+        params, _, _, extras = load_checkpoint(FLAGSHIP, cfg, DEVICE)
+        h, c = (extras[k][:, :FLAG_B].contiguous()
+                for k in ("stream_h", "stream_c"))
+        torch.cuda.synchronize()
+        before = _launch_counts(counters)
+        t0 = time.perf_counter()
+        loss, (hT, cT), _, grads = pp_mod.pp_loss_and_grads(
+            pp_mod.pp_params_from(params, cfg), x, t, h, c, cfg, PP_CHUNKS,
+            None)
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in _launch_counts(counters).items()
+                    if v != before[k]}
+        t0 = time.perf_counter()
+        l1, (h1, c1), _, g1 = loss_and_grads(params, x, t, h, c, cfg, None)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        rel = abs(float(loss) - float(l1)) / abs(float(l1))
+        state = max(float((a - b).abs().max()) for a, b in ((hT, h1), (cT, c1)))
+        line, bad = [], []
+        got = dict(pp_mod.pp_params_to(grads, cfg).named_tensors())
+        for key, w in g1.named_tensors():
+            g, name = got[key], key[len("params."):]
+            diff = (g - w).abs()
+            gap = norm_err(g, w)
+            if dtype == "bfloat16" and name in PP_CHUNK_ROUNDED:
+                ok = gap <= (PP_CHUNKS + 1) * 2.0**-9
+                rule = f"norm {gap:.2e} (tol {(PP_CHUNKS + 1) * 2.0**-9:.2e})"
+            else:
+                ok = bool((diff <= PP_GRAD_ATOL + PP_GRAD_RTOL * w.abs()).all())
+                rule = f"norm {gap:.2e}"
+            line.append(f"d{name} max {float(diff.max()):.2e} {rule}")
+            if not ok:
+                bad.append(name)
+        print(f"  flagship PP window {dtype} ({PP_CHUNKS} chunks, S = 1): loss "
+              f"{float(loss):.7f}, one device {float(l1):.7f} (rel {rel:.2e}, tol "
+              f"{PP_LOSS_RTOL:g}), final state max {state:.2e}; {pp_s:.2f} s "
+              f"against {one_s:.2f} s; kernels launched {launched or 'none'}; "
+              + ", ".join(line), flush=True)
+        if not rel <= PP_LOSS_RTOL or bad or launched:
+            fail(f"flagship PP window {dtype}: loss rel {rel:.2e}, gradients "
+                 f"past their gate {bad}, launches {launched}")
+        del params, grads, g1, got
+
+
 def main():
     phase0()
     check_budget("phase 0")
@@ -4778,6 +5002,10 @@ def main():
     phase13c()
     phase13d()
     check_budget("phase 13 (sequence pipelining at D = 1)")
+    phase14k(records)
+    pp_adagrad = phase14ab(runs11b)
+    phase14c()
+    check_budget("phase 14 (pipeline parallelism at S = 1)")
     kernels = []
 
     def add(rec, launches, **kw):
@@ -4811,8 +5039,10 @@ def main():
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
         add(records[("9a", name, "bfloat16", 0.0)], count)
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
-    # its B = 64 shapes
+    # its B = 64 shapes; K11 on the bench's stage-stacked set once a step of
+    # phase 14's --pp 1 runs
     add(records[("10a", "bench")], u2_counts["adagrad"])
+    add(records[("14k", "bench")], pp_adagrad, name="adagrad_pp")
     add(records[("10b", 64, "bfloat16", 0.0)],
         u2_counts["lstm_bwd_embed_unroll2"])
     # K13 and K14 on the flagship's --tp 1 run (11c) at its shapes (D = 1);
@@ -4830,11 +5060,11 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _cli_bpc(argv):
-    """train_bpc of ``_tp_run(argv, TP_STEPS)``, its TP group closed."""
+def _cli_bpc(argv, steps=TP_STEPS):
+    """train_bpc of ``_tp_run(argv, steps)``, its TP group closed."""
     trainer = None
     try:
-        *_, bpc, _, trainer = _tp_run(argv, TP_STEPS)
+        *_, bpc, _, trainer = _tp_run(argv, steps)
     finally:
         if trainer is not None and trainer.tp is not None:
             trainer.tp.group.close()
@@ -4848,8 +5078,8 @@ def gate_spread():
     with every batch row in a block, and split (the main path's): phase
     3's flagship bits against the JAX package's, 7b's bf16 gradients over
     their controls (gate 2), 11b's train_bpc of ``--tp 1`` (K15) and of the
-    per-step TP family (K13/K14, once) against the single device's (K1;
-    gate 0.05). Each gate applies as in the main run; the spread over the
+    per-step TP family (K13/K14, once, TP_STEP_STEPS steps) against the
+    single device's over as many steps (K1; gate 0.05). Each gate applies as in the main run; the spread over the
     orders is printed."""
     import os
 
@@ -4860,7 +5090,7 @@ def gate_spread():
     test = split(rawread(CORPUS), 0.95)[1]
     os.environ["EIGEN_LSTM_TP_SEQ"] = "0"
     try:
-        tp_step = _cli_bpc(TP_ARGV + ["--tp", "1"])
+        tp_step = _cli_bpc(TP_ARGV + ["--tp", "1"], TP_STEP_STEPS)
     finally:
         del os.environ["EIGEN_LSTM_TP_SEQ"]
     rows = {}
@@ -4872,11 +5102,12 @@ def gate_spread():
                              f"flagship 3x1024 bf16 ({order})")[2]
             ratios = phase7b()
             single = _cli_bpc(TP_ARGV)
+            short = _cli_bpc(TP_ARGV, TP_STEP_STEPS)
             tp_seq = _cli_bpc(TP_ARGV + ["--tp", "1"])
         rows[order] = dict(
             bits=bpc, rel_jax=abs(bpc - JAX_BPC[FLAGSHIP]) / JAX_BPC[FLAGSHIP],
             ratio_max=max(ratios.values()), single=single, tp_seq=tp_seq,
-            gap_seq=abs(tp_seq - single), gap_step=abs(tp_step - single))
+            gap_seq=abs(tp_seq - single), gap_step=abs(tp_step - short))
         print(f"  gate spread, K1/K15 {order}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in rows[order].items())
             + "; 7b: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()),

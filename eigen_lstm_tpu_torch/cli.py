@@ -17,16 +17,17 @@ every K supersteps, ``--gradcheck`` runs the finite-difference check once
 before training and ``--gradcheck-every K`` every K supersteps.
 ``train --tp N`` trains tensor-parallel over N devices, ``train --dp N``
 data-parallel, ``train --sp N`` sequence-pipelined (the window in N time
-segments, the batch in ``--pp-chunks`` microchunks), and two of them
-together (``--dp N --tp M``, ``--dp N --sp M``, ``--sp N --tp M``) on an
-N x M mesh, one process a device (``torchrun --nproc_per_node N*M`` for
-more than one; on one card, or on the CPU, one process needs no
-launcher). A mesh trains on the resident corpus unless ``--stream-data``
-asks for streaming, as the JAX CLI does; one device streams unless
-``--resident-data`` is given. ``--gradcheck`` and ``--gradcheck-every``
-run under a mesh on the canonical state; ``--crosscheck`` runs on one
-device only. ``--pp`` is not ported yet, nor ``bench`` over several
-devices or ``bench --profile``.
+segments, the batch in ``--pp-chunks`` microchunks), ``train --pp N``
+pipeline-parallel (the layers in N stages, the window's sequence in
+``--pp-chunks`` chunks), and two of them together (``--dp N --tp M``,
+``--dp N --sp M``, ``--sp N --tp M``, ``--dp N --pp M``) on an N x M mesh,
+one process a device (``torchrun --nproc_per_node N*M`` for more than one;
+on one card, or on the CPU, one process needs no launcher). A mesh trains
+on the resident corpus unless ``--stream-data`` asks for streaming, as the
+JAX CLI does; one device streams unless ``--resident-data`` is given.
+``--gradcheck`` and ``--gradcheck-every`` run under a mesh on the
+canonical state; ``--crosscheck`` runs on one device only. ``bench`` over
+several devices and ``bench --profile`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -146,9 +147,15 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "(time segments, batch microchunks of --pp-chunks; "
                         "parallel/sp.py)")
     p.add_argument("--pp", type=int, default=None, metavar="N",
-                   help="pipeline-parallel over N devices: not ported yet")
+                   help="train: pipeline-parallel over N devices (layer "
+                        "blocks over stages, --layers must divide by N; "
+                        "the window's sequence in --pp-chunks chunks; with "
+                        "--dp M an M x N mesh), one process a device: "
+                        "torchrun --nproc_per_node N for N > 1")
     p.add_argument("--pp-chunks", type=int, default=4,
-                   help="pipeline microbatch chunks (must divide --seq)")
+                   help="pipeline chunks: under --pp the window's sequence "
+                        "(must divide --seq), under --sp the batch (must "
+                        "divide it)")
 
 
 def _configs(args):
@@ -206,19 +213,16 @@ def _load(args):
 
 def _parallel_flags(args):
     """The JAX CLI's rules for combining the parallel flags, with its
-    messages (``eigen_lstm_tpu/cli.py:263-266``), then refuses what the
-    port does not run yet."""
+    messages (``eigen_lstm_tpu/cli.py:263-266``), then refuses
+    ``--crosscheck`` under a mesh."""
     if args.pp and (args.tp or args.sp):
         raise SystemExit("--pp combines only with --dp")
     if sum(map(bool, (args.dp, args.tp, args.sp, args.pp))) > 2:
         raise SystemExit("at most two parallel axes may be combined")
-    if args.pp:
-        raise SystemExit(f"--pp {args.pp}: pipeline parallelism is not "
-                         f"ported yet (a later slice of the port)")
-    if (args.dp or args.tp or args.sp) and args.crosscheck:
-        raise SystemExit("--crosscheck with --dp, --tp or --sp: it runs on "
-                         "one device only (the JAX trainer skips it under a "
-                         "mesh)")
+    if (args.dp or args.tp or args.sp or args.pp) and args.crosscheck:
+        raise SystemExit("--crosscheck with --dp, --tp, --sp or --pp: it runs "
+                         "on one device only (the JAX trainer skips it under "
+                         "a mesh)")
 
 
 def _make_trainer(args):
@@ -234,15 +238,18 @@ def _make_trainer(args):
     _parallel_flags(args)
     mcfg, dcfg, tcfg = _configs(args)
     mesh, device = None, args.device
-    if args.dp or args.sp:
+    if args.dp or args.sp or args.pp:
         mesh = init_mesh(MeshConfig(num_devices=args.dp, model_devices=args.tp,
-                                    seq_devices=args.sp), args.device)
+                                    seq_devices=args.sp, stage_devices=args.pp),
+                         args.device)
         axes = [f"{n} {name}" for n, name in ((args.dp, "data"),
                                                (args.sp, "seq"),
+                                               (args.pp, "stage"),
                                                (args.tp, "model")) if n]
         print(f"2-D mesh: {' x '.join(axes)} devices" if len(axes) == 2
               else f"data-parallel over {args.dp} devices" if args.dp
-              else f"sequence-pipelined over {args.sp} time segments",
+              else f"sequence-pipelined over {args.sp} time segments"
+              if args.sp else f"pipeline-parallel over {args.pp} stages",
               flush=True)
     elif args.tp:
         mesh = init_tp_group(args.tp, args.device)

@@ -125,7 +125,7 @@ class TrainConfig:
     sample_chars: int = 1000
     checkpoint_dir: Optional[str] = None
     superstep: int = 50
-    pp_chunks: int = 4               # the batch's microchunks under --sp
+    pp_chunks: int = 4   # --pp: the window's sequence chunks; --sp: the batch's
     crosscheck_every: Optional[int] = None   # in supersteps
     gradcheck_every: Optional[int] = None    # in supersteps
     gradcheck_samples: int = 20
@@ -137,12 +137,15 @@ class TrainConfig:
 class MeshConfig:
     """The process mesh of ``parallel/mesh.py:init_mesh``: ``num_devices``
     data rows (the JAX ``MeshConfig``'s field; None: no data axis), by
-    ``seq_devices`` seq columns (``--sp``; None: no seq axis) or by
+    ``seq_devices`` seq columns (``--sp``; None: no seq axis), by
+    ``stage_devices`` stage columns (``--pp``; None: no stage axis) or by
     ``model_devices`` model columns (``--tp``; None: no model axis). A seq
     axis with a model axis has no data axis (``--sp N --tp M``: N seq rows
-    by M model columns). The axes are "data", "seq" and "model", as in the
-    JAX meshes; the JAX ``data_axis`` name has no counterpart."""
+    by M model columns); a stage axis goes alone or beside a data axis.
+    The axes are "data", "seq", "stage" and "model", as in the JAX meshes;
+    the JAX ``data_axis`` name has no counterpart."""
 
     num_devices: Optional[int] = 1
     model_devices: Optional[int] = None
     seq_devices: Optional[int] = None
+    stage_devices: Optional[int] = None

@@ -50,6 +50,13 @@ class LSTMParams:
         yield "params.Why", self.Why
         yield "params.by", self.by
 
+    def like(self, ts) -> "LSTMParams":
+        """This structure holding ``ts`` in the order of ``named_tensors``."""
+        ts = list(ts)
+        layers = tuple(LayerParams(*ts[3 * i: 3 * i + 3])
+                       for i in range(len(self.layers)))
+        return LSTMParams(layers, ts[-2], ts[-1])
+
     def to(self, dtype: torch.dtype) -> "LSTMParams":
         return LSTMParams(
             tuple(LayerParams(l.W.to(dtype), l.U.to(dtype), l.b.to(dtype))
@@ -60,17 +67,15 @@ class LSTMParams:
 
 def tensors(p: LSTMParams):
     """The parameter set's tensors in checkpoint order (W, U, b of each
-    layer, then Why, by)."""
+    layer, then Why, by), or those of another layout with
+    ``named_tensors`` (``parallel/pp.py:PPParams``)."""
     return [t for _, t in p.named_tensors()]
 
 
 def like(p: LSTMParams, ts) -> LSTMParams:
-    """An ``LSTMParams`` with ``p``'s structure holding ``ts`` in the order
-    of ``tensors``."""
-    ts = list(ts)
-    layers = tuple(LayerParams(*ts[3 * i: 3 * i + 3])
-                   for i in range(len(p.layers)))
-    return LSTMParams(layers, ts[-2], ts[-1])
+    """A parameter set with ``p``'s structure holding ``ts`` in the order
+    of ``tensors`` (``p.like``)."""
+    return p.like(ts)
 
 
 def init_params(

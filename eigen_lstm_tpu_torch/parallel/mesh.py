@@ -5,15 +5,17 @@ over its axes: the counterpart of ``eigen_lstm_tpu/parallel/mesh.py``'s
 One process a device. An axis is an ``AxisGroup``: this process's rank on
 it, the axis size and the ``torch.distributed`` group its collectives run
 on. ``--tp N`` alone is one axis, the model axis, over the default group
-(``init_tp_group``). ``--dp N`` or ``--sp N`` alone, either with ``--tp
-M``, and ``--dp N --sp M`` are ``ProcessMesh`` es of rows by columns
-(``init_mesh``): N data rows by M model or seq columns (M = 1 for ``--dp``
-alone), or N seq rows by M model columns (M = 1 for ``--sp`` alone),
-rank = row * M + column, the row-major order of the JAX
-``make_mesh_2d`` (``make_mesh_dp_sp``, ``make_mesh_tp_sp``); each row and
-each column is a ``dist.new_group``, so a collective reduces over its own
-axis and never over all N * M ranks. The seq axis also has point-to-point
-``send`` and ``recv`` between its neighbours and a ``broadcast``.
+(``init_tp_group``). ``--dp N``, ``--sp N`` or ``--pp N`` alone,
+``--dp N`` or ``--sp N`` with ``--tp M``, ``--dp N --sp M`` and ``--dp N
+--pp M`` are ``ProcessMesh`` es of rows by columns (``init_mesh``): N data
+rows by M model, seq or stage columns (M = 1 for ``--dp`` alone), N seq
+rows by M model columns (M = 1 for ``--sp`` alone), or N stage rows
+(``--pp`` alone), rank = row * M + column, the row-major order of the JAX
+``make_mesh_2d`` (``make_mesh_dp_sp``, ``make_mesh_tp_sp``,
+``make_mesh_dp_pp``); each row and each column is a ``dist.new_group``, so
+a collective reduces over its own axis and never over all N * M ranks. The
+seq and stage axes also have point-to-point ``send`` and ``recv`` between
+neighbours and a ``broadcast``.
 
 On the card the groups are NCCL's: the size and rank come from
 ``torchrun``'s environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), or,
@@ -68,10 +70,11 @@ TPGroup = AxisGroup
 
 @dataclasses.dataclass
 class ProcessMesh:
-    """The axes of this process: ``--dp N`` (``model`` and ``seq`` None),
-    ``--dp N --tp M``, ``--dp N --sp M``, ``--sp N`` or ``--sp N --tp M``
-    (``data`` None). rank = (d * S + s) * M + m, an absent axis of size
-    1 and rank 0."""
+    """The axes of this process: ``--dp N`` (``model``, ``seq`` and
+    ``stage`` None), ``--dp N --tp M``, ``--dp N --sp M``, ``--dp N --pp
+    M``, ``--sp N``, ``--sp N --tp M`` or ``--pp N`` (``data`` None).
+    rank = ((d * S + s) * P + p) * M + m, an absent axis of size 1 and
+    rank 0."""
 
     data: Optional[AxisGroup]
     model: Optional[AxisGroup]
@@ -79,11 +82,12 @@ class ProcessMesh:
     owns: bool = False
     tmpdir: Optional[str] = None
     seq: Optional[AxisGroup] = None
+    stage: Optional[AxisGroup] = None
 
     @property
     def rank(self) -> int:
         r = 0
-        for axis in (self.data, self.seq, self.model):
+        for axis in (self.data, self.seq, self.stage, self.model):
             if axis is not None:
                 r = r * axis.size + axis.rank
         return r
@@ -155,18 +159,22 @@ def init_tp_group(n: int, device="cuda", store_path: Optional[str] = None,
 
 
 def init_mesh(cfg: MeshConfig, device="cuda") -> ProcessMesh:
-    """The mesh of ``--dp N`` or ``--sp N`` alone or with ``--tp M``, or of
-    ``--dp N --sp M`` (``cfg.num_devices`` None: no data axis), on
-    ``device``, over the
-    run's processes (a process group that is up, ``torchrun``'s, or one
+    """The mesh of ``--dp N``, ``--sp N`` or ``--pp N`` alone, of ``--dp
+    N`` or ``--sp N`` with ``--tp M``, or of ``--dp N --sp M`` or ``--dp N
+    --pp M`` (``cfg.num_devices`` None: no data axis), on ``device``, over
+    the run's processes (a process group that is up, ``torchrun``'s, or one
     process): every process creates every column's group, then every
     row's, in the same order, as ``dist.new_group`` requires."""
     axes = [(name, flag, size) for name, flag, size in (
         ("data", "--dp", cfg.num_devices), ("seq", "--sp", cfg.seq_devices),
+        ("stage", "--pp", cfg.stage_devices),
         ("model", "--tp", cfg.model_devices)) if size is not None]
-    if len(axes) != 2 and [name for name, _, _ in axes] not in (["data"], ["seq"]):
-        raise ValueError(f"init_mesh takes --dp or --sp alone or two axes, "
-                         f"not {cfg}")
+    names = [name for name, _, _ in axes]
+    if ((len(axes) != 2 and names not in (["data"], ["seq"], ["stage"]))
+            or ("stage" in names and names not in (["stage"],
+                                                   ["data", "stage"]))):
+        raise ValueError(f"init_mesh takes --dp, --sp or --pp alone or two "
+                         f"axes (--pp only beside --dp), not {cfg}")
     (row_axis, _, n_rows), (col_axis, _, n_cols) = (axes + [(None, "", 1)])[:2]
     flags = " ".join(f"{flag} {size}" for _, flag, size in axes)
     me, dev, owns, tmpdir = _start(n_rows * n_cols, device, None, None, flags,
@@ -183,7 +191,7 @@ def init_mesh(cfg: MeshConfig, device="cuda") -> ProcessMesh:
             if row == r:
                 groups[col_axis] = AxisGroup(c, n_cols, dev, pg=pg)
     return ProcessMesh(groups.get("data"), groups.get("model"), dev, owns,
-                       tmpdir, seq=groups.get("seq"))
+                       tmpdir, seq=groups.get("seq"), stage=groups.get("stage"))
 
 
 # --- raw collectives (no autograd): parallel/tp.py wraps them -------------

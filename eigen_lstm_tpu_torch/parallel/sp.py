@@ -15,15 +15,13 @@ path, as it is not in the JAX package) and its bits from
 step, on the last segment. The loss divides the bits summed over every
 rank by B ("last") or S * B ("all").
 
-The schedule is GPipe's, in eager PyTorch. The forward runs the chunks in
-order, each with its own autograd graph: receive the carry from d - 1, run
-the segment, send the carry to d + 1. The backward runs them in reverse:
-receive the carry's cotangents from d + 1, back-propagate the chunk's loss
-and its outgoing carry together, send the cotangents of its incoming carry
-to d - 1. That is the transpose ``jax.grad`` takes through ``ppermute``, in
-an order the program fixes rather than the autograd engine, so the sends
-and receives of two ranks cannot wait on each other. At D = 1 nothing is
-sent. Then one all-reduce over the seq axis sums every rank's gradients
+The schedule is GPipe's, in eager PyTorch (``parallel/gpipe.py``, which
+``parallel/pp.py`` shares). The forward runs the chunks in order, each with
+its own autograd graph: receive the carry from d - 1, run the segment,
+send the carry to d + 1. The backward runs them in reverse: receive the
+carry's cotangents from d + 1, back-propagate the chunk's loss and its
+outgoing carry together, send the cotangents of its incoming carry to d -
+1. At D = 1 nothing is sent. Then one all-reduce over the seq axis sums every rank's gradients
 and bits, and the last segment's rank broadcasts the window's final (h,
 c), which it assembled chunk by chunk.
 
@@ -71,6 +69,7 @@ from ..models import lstm as model
 from ..ops import cell as cell_ops
 from ..train import trainer as trainer_mod
 from . import dp as dp_mod
+from . import gpipe as gpipe_mod
 from . import mesh as mesh_mod
 from . import tp as tp_mod
 
@@ -147,59 +146,34 @@ def sp_loss_and_grads(params: model.LSTMParams, x, t, h, c, cfg: ModelConfig,
     leaves = [p.detach().requires_grad_() for p in model.tensors(params)]
     p = model.like(params, leaves)
     xs, ts = x[d * seg:(d + 1) * seg], t[d * seg:(d + 1) * seg]
-    bits = torch.zeros((), dtype=cfg.adtype, device=x.device)
     # the window's final (h, c), assembled by the last segment's rank
     final = torch.zeros((2,) + tuple(h.shape), dtype=pd, device=h.device)
-    carry_like = final[:, :, :bs]
-    chunks, sends = [], []
-    with torch.enable_grad():
-        for j in range(n_chunks):
-            rows = slice(j * bs, (j + 1) * bs)
-            if d == 0:
-                carry_in = torch.stack([h[:, rows], c[:, rows]]).to(pd)
-            else:
-                carry_in = mesh_mod.recv(carry_like, d - 1,
-                                         seq_axis).requires_grad_()
-            key = (None if dropout_key is None
-                   else segment_key(dropout_key, d * n_chunks + j))
-            h_top, (hT, cT), head = _segment(
-                p, xs[:, rows].contiguous(), carry_in[0], carry_in[1], cfg,
-                cell_fn, tp, key)
-            objective = None
-            if not only_last or last:
-                hr, tr = ((h_top[-1], ts[-1, rows]) if only_last
-                          else (h_top, ts[:, rows]))
-                chunk_bits = model.softmax_xent_bits(head(hr), tr).sum()
-                bits = bits + chunk_bits.detach().to(bits.dtype)
-                objective = chunk_bits * scale
-            carry_out = torch.stack([hT, cT]).to(pd)
-            if last:
-                final[:, :, rows] = carry_out.detach()
-            else:
-                sends.append(mesh_mod.send(carry_out.detach(), d + 1, seq_axis))
-            chunks.append((objective, carry_out, carry_in))
-        for req in sends:
-            req.wait()
-        sends = []
-        for j in reversed(range(n_chunks)):
-            objective, carry_out, carry_in = chunks[j]
-            chunks[j] = None
-            outs, cots = [], []
-            if objective is not None:
-                outs.append(objective)
-                cots.append(torch.ones_like(objective))
-            if not last:
-                outs.append(carry_out)
-                cots.append(mesh_mod.recv(carry_out, d + 1, seq_axis))
-            torch.autograd.backward(outs, cots)
-            if d > 0:
-                g = carry_in.grad
-                sends.append(mesh_mod.send(
-                    torch.zeros_like(carry_in) if g is None else g, d - 1,
-                    seq_axis))
-    for req in sends:
-        req.wait()
-    grads = [torch.zeros_like(l) if l.grad is None else l.grad for l in leaves]
+    bits = []
+
+    def run_chunk(j, carry_in, _):
+        rows = slice(j * bs, (j + 1) * bs)
+        if carry_in is None:
+            carry_in = torch.stack([h[:, rows], c[:, rows]]).to(pd)
+        key = (None if dropout_key is None
+               else segment_key(dropout_key, d * n_chunks + j))
+        h_top, (hT, cT), head = _segment(
+            p, xs[:, rows].contiguous(), carry_in[0], carry_in[1], cfg,
+            cell_fn, tp, key)
+        objective = None
+        if not only_last or last:
+            hr, tr = ((h_top[-1], ts[-1, rows]) if only_last
+                      else (h_top, ts[:, rows]))
+            chunk_bits = model.softmax_xent_bits(head(hr), tr).sum()
+            bits.append(chunk_bits.detach().to(cfg.adtype))
+            objective = chunk_bits * scale
+        carry_out = torch.stack([hT, cT]).to(pd)
+        if last:
+            final[:, :, rows] = carry_out.detach()
+        return objective, carry_out, None
+
+    gpipe_mod.gpipe(n_chunks, run_chunk, final[:, :, :bs], seq_axis)
+    bits = sum(bits, torch.zeros((), dtype=cfg.adtype, device=x.device))
+    grads = [gpipe_mod.grad_or_zeros(l) for l in leaves]
     *grads, bits = dp_mod.psum(grads + [bits], seq_axis)
     hT, cT = mesh_mod.broadcast(final, n_seq - 1, seq_axis)
     mean_bits = bits / denom

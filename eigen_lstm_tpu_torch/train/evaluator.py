@@ -6,6 +6,13 @@ with the hidden state carried from one chunk to the next; padding past a
 stream's own span is masked out, so every byte is scored exactly once.
 ``evaluate_ensemble_bpc`` scores a probability-space mixture of models the
 same way.
+
+The kernels are re-gated at the eval batch, as the JAX evaluator re-gates
+its Pallas kernels (``eigen_lstm_tpu/train/evaluator.py:93-99``): a split
+smaller than ``eval_batch * chunk`` bytes is scored as one stream, and at a
+batch that is not a multiple of 8, or a hidden width that is not a
+multiple of 128, the model's own loop scores it where the JAX package
+takes its XLA scan.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import lstm as model
+from ..ops.dispatch import _shape_ok
 
 
 def _score_streams(
@@ -72,6 +80,17 @@ def _build_streams(test_data, eval_batch: int, chunk: int, max_chars):
     return x, t, mask, usable, eval_batch, chunk, n_chunks
 
 
+def _regate_cell_fn(cell_fn, cfg: ModelConfig, eval_batch: int):
+    """``cell_fn`` at the eval batch, or None (the model's own loop) where
+    the JAX evaluator drops its kernels: a batch that is not a multiple of
+    8 or a hidden width that is not a multiple of 128
+    (``ops/dispatch.py:_shape_ok``). A function of (eval batch, hidden)
+    alone, chosen before any launch."""
+    if cell_fn is not None and not _shape_ok(cfg, eval_batch):
+        return None
+    return cell_fn
+
+
 def evaluate_bpc(
     params: model.LSTMParams,
     test_data: np.ndarray,
@@ -83,9 +102,8 @@ def evaluate_bpc(
 ) -> float:
     """bits/char on the held-out split; the parameters' device runs it.
     ``max_chars`` caps the scored bytes; ``cell_fn`` is the recurrence
-    backend (``ops.dispatch.select_cell_fn``), used as given. The JAX
-    evaluator re-gates its Pallas kernels for the eval batch's VMEM; the
-    H100 kernels take any batch, so nothing is re-gated here."""
+    backend (``ops.dispatch.select_cell_fn``), re-gated at the batch the
+    split is scored at (``_regate_cell_fn``)."""
     x, t, mask, usable, eval_batch, chunk, n_chunks = _build_streams(
         test_data, eval_batch, chunk, max_chars
     )
@@ -98,7 +116,7 @@ def evaluate_bpc(
         cfg,
         chunk,
         n_chunks,
-        cell_fn,
+        _regate_cell_fn(cell_fn, cfg, eval_batch),
     )
     return float(total) / usable
 
@@ -138,7 +156,8 @@ def evaluate_ensemble_bpc(
     """bits/char of a probability-space ensemble on the held-out split
     (``eigen_lstm_tpu/train/evaluator.py:134-219``). ``members``: a
     sequence of ``(params, cfg, cell_fn)``, architectures free to differ
-    but sharing one vocabulary; each member's ``cell_fn`` is used as given.
+    but sharing one vocabulary; each member's ``cell_fn`` is re-gated at
+    the eval batch (``_regate_cell_fn``).
     The first member's device runs it. One member gives ``evaluate_bpc``'s
     value."""
     if not members:
@@ -150,6 +169,8 @@ def evaluate_ensemble_bpc(
     x, t, mask, usable, eval_batch, chunk, n_chunks = _build_streams(
         test_data, eval_batch, chunk, max_chars)
     dev = members[0][0].Why.device
+    members = [(p, cfg, _regate_cell_fn(cell_fn, cfg, eval_batch))
+               for p, cfg, cell_fn in members]
     total = _score_streams_ensemble(
         members,
         torch.from_numpy(x.astype(np.int32)).to(dev),

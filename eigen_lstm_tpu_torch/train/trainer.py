@@ -33,15 +33,18 @@ of the mesh runs tensor parallelism on its streams. Sequence pipelining
 (a ``ProcessMesh`` with a seq axis, ``parallel/sp.py``) cuts each window
 into time segments over the seq axis, alone, beside a data axis (each
 data shard pipelines its streams) or beside a model axis (each segment
-runs tensor parallelism). The wrap reset's noise comes from a generator
-seeded with the shard's data and model ranks folded in, as the JAX
-supersteps fold in ``axis_index``; the seq rank is not folded in (the
-state is the same on every segment), so under ``--sp`` alone the noise is
-the single device's stream. Checkpoints, eval, samples and ``gradcheck``
-work on the canonical state (gathered, then unpermuted), so a mesh's
-checkpoint is an ordinary one; rank 0 writes it. ``crosscheck`` runs on
-one device only, as in the JAX trainer. Pipeline parallelism is not
-ported yet, and is refused when asked for.
+runs tensor parallelism). Pipeline parallelism (a ``ProcessMesh`` with a
+stage axis, ``parallel/pp.py``) holds a block of layers on each stage and
+pipelines the window's sequence chunks through them, alone or beside a
+data axis (each data shard pipelines its streams; every stage of a shard
+reads the shard's whole batch). The wrap reset's noise comes from a
+generator seeded with the shard's data, model and stage ranks folded in,
+as the JAX supersteps fold in ``axis_index``; the seq rank is not folded
+in (the state is the same on every segment), so under ``--sp`` alone the
+noise is the single device's stream. Checkpoints, eval, samples and
+``gradcheck`` work on the canonical state (gathered, then unpermuted or
+unstacked), so a mesh's checkpoint is an ordinary one; rank 0 writes it.
+``crosscheck`` runs on one device only, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -189,18 +192,26 @@ class Trainer:
         keeps the corpus on the host and feeds windows per superstep.
         ``mesh``: a ``parallel.mesh.AxisGroup``, the model axis of tensor
         parallelism, or a ``parallel.mesh.ProcessMesh``, data parallelism
-        alone or with a model axis, or sequence pipelining alone or with a
-        data or a model axis (the module docstring); the TP family is the
-        one ``ops.dispatch.select_tp_backend`` picks at (config, the batch
-        of a data shard, the model axis's size, cell_fn, device), and
-        beside a seq axis the torch-op scan, as the JAX ``tp_sp`` mesh
-        takes its XLA scan. Any other mesh (pipeline parallelism) is
-        refused."""
-        self.tp = self.dp = self.sp = None
+        alone or with a model axis, sequence pipelining alone or with a
+        data or a model axis, or pipeline parallelism alone or with a data
+        axis (the module docstring); the TP family is the one
+        ``ops.dispatch.select_tp_backend`` picks at (config, the batch of a
+        data shard, the model axis's size, cell_fn, device), and beside a
+        seq axis the torch-op scan, as the JAX ``tp_sp`` mesh takes its
+        XLA scan. Pipeline parallelism trains through the torch-op scan as
+        the JAX stage mesh trains through its XLA scan; ``cell_fn`` then
+        serves the eval. Any other mesh is refused."""
+        self.tp = self.dp = self.sp = self.pp = None
         model_axis = None
         if isinstance(mesh, mesh_mod.ProcessMesh):
-            self.dp, model_axis, self.sp = mesh.data, mesh.model, mesh.seq
-            if self.sp is not None:
+            self.dp, model_axis = mesh.data, mesh.model
+            self.sp, self.pp = mesh.seq, mesh.stage
+            if self.pp is not None:
+                from ..parallel import pp as pp_mod
+
+                pp_mod.check_shapes(mcfg, dcfg, tcfg, self.pp.size,
+                                    None if self.dp is None else self.dp.size)
+            elif self.sp is not None:
                 from ..parallel import sp as sp_mod
 
                 sp_mod.check_shapes(
@@ -216,8 +227,8 @@ class Trainer:
             model_axis = mesh
         elif mesh is not None:
             raise NotImplementedError(
-                f"mesh training over a {type(mesh).__name__} (pipeline "
-                f"parallelism): not ported yet")
+                f"mesh training over a {type(mesh).__name__}: a mesh is a "
+                f"parallel.mesh.AxisGroup or ProcessMesh")
         self.mesh = mesh
         if model_axis is not None:
             from ..ops.dispatch import select_tp_backend
@@ -235,15 +246,16 @@ class Trainer:
         self.length = int(len(train_data))
         # reset noise and sampling draw from this device generator
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-        # the reset noise of a shard: its data rank, then its model rank,
-        # folded into the seed
+        # the reset noise of a shard: its data rank, then its model or
+        # stage rank, folded into the seed
         seed = tcfg.seed
-        for axis in (self.dp, self.tp and self.tp.group):
-            if axis is not None:
-                seed = cell_ops.hash32(cell_ops.hash32(seed)
-                                       ^ cell_ops.hash32(axis.rank))
-        self.noise = (self.generator if self.dp is None and self.tp is None
-                      else torch.Generator(device=self.device).manual_seed(seed))
+        folded = [a for a in (self.dp, self.tp and self.tp.group, self.pp)
+                  if a is not None]
+        for axis in folded:
+            seed = cell_ops.hash32(cell_ops.hash32(seed)
+                                   ^ cell_ops.hash32(axis.rank))
+        self.noise = (torch.Generator(device=self.device).manual_seed(seed)
+                      if folded else self.generator)
         self._best_bpc = None
         self._next_windows = None
         self.crosscheck_failures = 0
@@ -289,7 +301,9 @@ class Trainer:
     def _sharded(self, state: TrainState) -> TrainState:
         """A canonical state as this trainer holds it: under TP this rank's
         shards of the permuted params and accumulators and of (h, c) along
-        the hidden units; under DP its streams of (h, c) and the cursors."""
+        the hidden units; under PP the stage's layers of the stage-stacked
+        params and accumulators and of (h, c); under DP its streams of
+        (h, c) and the cursors."""
         if self.tp is not None:
             rank, size = self.tp.rank, self.tp.size
             shard = lambda p: tp_mod.shard_params(p, self.mcfg, rank, size)
@@ -298,6 +312,10 @@ class Trainer:
             state = TrainState(shard(state.params), shard(state.m),
                                cut(state.h), cut(state.c), state.positions,
                                state.step)
+        if self.pp is not None:
+            from ..parallel import pp as pp_mod
+
+            state = pp_mod.shard_state(state, self.mcfg, self.pp)
         if self.dp is not None:
             from ..parallel import dp as dp_mod
 
@@ -306,12 +324,16 @@ class Trainer:
 
     def canonical_state(self) -> TrainState:
         """The state of a single-device trainer: every shard gathered, the
-        parameters unpermuted (all ranks take part)."""
+        parameters unpermuted or unstacked (all ranks take part)."""
         st = self.state
         if self.dp is not None:
             from ..parallel import dp as dp_mod
 
             st = dp_mod.gather_state(st, self.dp)
+        if self.pp is not None:
+            from ..parallel import pp as pp_mod
+
+            return pp_mod.gather_state(st, self.mcfg, self.pp)
         if self.tp is None:
             return st
         g = self.tp.group
@@ -334,6 +356,7 @@ class Trainer:
         Returns (state, metrics), the metrics on the device."""
         from ..parallel import dp as dp_mod
         from ..parallel import dp_tp as dp_tp_mod
+        from ..parallel import pp as pp_mod
         from ..parallel import sp as sp_mod
 
         steps = self.tcfg.superstep if windows is None else windows.shape[0]
@@ -346,7 +369,10 @@ class Trainer:
             else:
                 x, t = win[k, :-1], win[k, 1:]
             args = (state, x, t, self.mcfg, self.dcfg, self.tcfg, self.length)
-            if self.sp is not None:
+            if self.pp is not None:
+                state, (b, g) = pp_mod.pp_train_step(*args, self.noise,
+                                                     self.pp, self.dp)
+            elif self.sp is not None:
                 state, (b, g) = sp_mod.sp_train_step(
                     *args, self.cell_fn, self.noise, self.sp, self.dp, self.tp)
             elif self.dp is None:
@@ -485,8 +511,10 @@ class Trainer:
         current windows (the JAX ``gradcheck``), at the canonical state
         under any mesh (every rank takes part in the gathers and computes
         the same check). A float64 config on one device or under DP checks
-        the live backward, its ``cell_fn``'s. Any other config checks a
-        float64 shadow without dropout, on the host CPU, through the
+        the live backward, its ``cell_fn``'s. Every other case (another
+        config, or TP or PP, which train through another function, the JAX
+        trainer's rule) checks a float64 shadow without dropout, on the
+        host CPU, through the
         model's own loop: the live kernels are held to that path by
         ``crosscheck``. A failing tensor is counted in
         ``gradcheck_failures`` and printed; under a mesh a failure on any
@@ -500,7 +528,8 @@ class Trainer:
         x, t = x[:s, :b], t[:s, :b]
         h, c = st.h[:, :b], st.c[:, :b]
         params, cfg, cell_fn = st.params, self.mcfg, self.cell_fn
-        if cfg.param_dtype != "float64" or self.tp is not None:
+        if (cfg.param_dtype != "float64" or self.tp is not None
+                or self.pp is not None):
             cfg = dataclasses.replace(
                 cfg, param_dtype="float64", compute_dtype="float64",
                 residual_dtype="float64", dropout=0.0)
@@ -572,7 +601,13 @@ class Trainer:
         return row
 
     def _params(self) -> model.LSTMParams:
-        """The canonical parameters (gathered under TP)."""
+        """The canonical parameters (gathered under TP and PP, all ranks
+        taking part)."""
+        if self.pp is not None:
+            from ..parallel import pp as pp_mod
+
+            return pp_mod.pp_params_to(
+                pp_mod.gather_params(self.state.params, self.pp), self.mcfg)
         return (self.state.params if self.tp is None else
                 tp_mod.unshard_params(self.state.params, self.mcfg,
                                       self.tp.group))

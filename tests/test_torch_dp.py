@@ -155,11 +155,10 @@ def test_cli_resolves_the_data_path_as_the_jax_cli():
 
 
 def test_cli_refusals_carry_the_jax_messages(capsys):
-    """The JAX CLI's combination rules and messages, then the refusal of
-    ``--pp``, which the port does not run yet; ``--dp 2``, ``--sp 2`` and
-    ``--sp 2 --tp 2`` in one process name the launcher; the trainer's
-    batch check is the JAX ``ValueError``; ``crosscheck`` stays on one
-    device."""
+    """The JAX CLI's combination rules and messages; ``--dp 2``, ``--sp
+    2``, ``--dp 2 --pp 2`` and ``--sp 2 --tp 2`` in one process name the
+    launcher; the trainer's batch check is the JAX ``ValueError``;
+    ``crosscheck`` stays on one device."""
     argv = CLI_ARGV[:CLI_ARGV.index("--gradcheck-every")]
     for flags, msg in ((["--tp", "2", "--pp", "2"], "--pp combines only with --dp"),
                        (["--sp", "2", "--pp", "2"], "--pp combines only with --dp"),
@@ -168,14 +167,15 @@ def test_cli_refusals_carry_the_jax_messages(capsys):
                        (["--sp", "2"], "--sp 2: the mesh is one process a "
                                        "device, and this run has 1 \\(start 2 "
                                        "with torchrun --nproc_per_node 2\\)"),
-                       (["--dp", "2", "--pp", "2"], "--pp 2: pipeline parallelism "
-                                                    "is not ported yet"),
+                       (["--dp", "2", "--pp", "2"], "--dp 2 --pp 2: the mesh is one "
+                                                    "process a device, and this run "
+                                                    "has 1 \\(start 4"),
                        (["--tp", "2", "--sp", "2"], "--sp 2 --tp 2: the mesh is one "
                                                     "process a device, and this run "
                                                     "has 1 \\(start 4"),
                        (["--dp", "1", "--crosscheck", "1"],
-                        "--crosscheck with --dp, --tp or --sp: it runs on one "
-                        "device"),
+                        "--crosscheck with --dp, --tp, --sp or --pp: it runs on "
+                        "one device"),
                        (["--dp", "2"], "--dp 2: the mesh is one process a device, "
                                        "and this run has 1 \\(start 2 with torchrun "
                                        "--nproc_per_node 2\\)"),

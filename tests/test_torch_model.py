@@ -110,28 +110,59 @@ def test_build_streams_byte_exact(n, eval_batch, chunk, max_chars):
         np.testing.assert_array_equal(a, b)
 
 
-def test_evaluate_bpc_uses_the_given_cell_fn():
-    """The evaluator never swaps the cell_fn it was given for the model's
-    own loop, not even at a hidden width the kernels refuse (100 % 32 != 0):
-    on the card such a width must reach the kernel's wrapper and raise."""
+def _counting_cell_fn(calls):
+    """The kernels' plain versions, each call recorded in ``calls``."""
     from eigen_lstm_tpu_torch.ops import cuda_cell
-
-    cfg = TConfig(hidden=100, vocab=256, init_std=0.3)
-    p = tmodel.init_params(cfg, device="cpu")
-    calls = []
 
     def embed(*args, **kw):
         calls.append("embed")
         return cuda_cell.embed_layer0_plain(*args, **kw)
 
-    cell_fn = lambda *a, **kw: cuda_cell.scan_layer_plain(*a, **kw)
+    def cell_fn(*args, **kw):
+        calls.append("scan")
+        return cuda_cell.scan_layer_plain(*args, **kw)
+
     cell_fn.embed_layer0 = embed
+    return cell_fn
+
+
+def test_evaluate_bpc_uses_the_given_cell_fn():
+    """The evaluator re-gates the cell_fn at the eval batch as the JAX
+    evaluator does (``_regate_cell_fn``, ``evaluator.py:93-99``): at hidden
+    100 (not a multiple of 128) or at batch 2 (not a multiple of 8) it
+    scores through the model's own loop and never calls the cell_fn; at
+    hidden 128 and batch 8 it calls it, and both give the loop's bits."""
     data = np.random.default_rng(3).integers(0, 256, 300).astype(np.uint8)
-    got = teval.evaluate_bpc(p, data, cfg, eval_batch=2, chunk=16,
-                             cell_fn=cell_fn)
-    want = teval.evaluate_bpc(p, data, cfg, eval_batch=2, chunk=16)
-    assert calls, "the evaluator did not call the cell_fn it was given"
-    np.testing.assert_allclose(got, want, rtol=1e-5)   # fp32, as FP32 above
+    for hidden, batch, used in ((100, 8, False), (128, 2, False),
+                                (128, 8, True)):
+        cfg = TConfig(hidden=hidden, vocab=256, init_std=0.3)
+        p = tmodel.init_params(cfg, device="cpu")
+        calls = []
+        got = teval.evaluate_bpc(p, data, cfg, eval_batch=batch, chunk=16,
+                                 cell_fn=_counting_cell_fn(calls))
+        want = teval.evaluate_bpc(p, data, cfg, eval_batch=batch, chunk=16)
+        assert bool(calls) == used, (hidden, batch, calls)
+        np.testing.assert_allclose(got, want, rtol=1e-5)   # fp32, as FP32 above
+
+
+def test_evaluator_drops_the_cell_fn_when_the_split_is_one_stream():
+    """A split under eval_batch x chunk bytes is scored as one stream
+    (``_build_streams``); at hidden 128 the batch of 1 is not a multiple
+    of 8, so ``evaluate_bpc`` and ``evaluate_ensemble_bpc`` never call the
+    cell_fn they were given (the JAX evaluator's XLA scan) and give the
+    loop's bits."""
+    cfg = TConfig(hidden=128, vocab=256, init_std=0.3)
+    p = tmodel.init_params(cfg, device="cpu")
+    data = np.random.default_rng(4).integers(0, 256, 100).astype(np.uint8)
+    assert teval._build_streams(data, 8, 16, None)[4] == 1
+    calls = []
+    got = teval.evaluate_bpc(p, data, cfg, eval_batch=8, chunk=16,
+                             cell_fn=_counting_cell_fn(calls))
+    ens = teval.evaluate_ensemble_bpc([(p, cfg, _counting_cell_fn(calls))] * 2,
+                                      data, eval_batch=8, chunk=16)
+    assert calls == []
+    want = teval.evaluate_bpc(p, data, cfg, eval_batch=8, chunk=16)
+    np.testing.assert_allclose([got, ens], [want, want], rtol=1e-5)
 
 
 def test_forward_raises_for_training_options():

@@ -345,17 +345,21 @@ def test_cli_sp1_needs_no_launcher(capsys, flags, line):
 
 
 def test_cli_sp_combination_rules_and_refusals():
-    """The JAX CLI's rules with its messages; ``--pp`` is still refused;
-    ``--sp N > 1`` in one process names the launcher, alone and on a 2-D
-    mesh; ``--crosscheck`` stays on one device; ``--pp-chunks`` reaches
-    the TrainConfig."""
+    """The JAX CLI's rules with its messages; ``--pp N > 1`` and ``--sp N >
+    1`` in one process name the launcher, alone and on a 2-D mesh;
+    ``--crosscheck`` stays on one device, under ``--pp`` too;
+    ``--pp-chunks`` reaches the TrainConfig."""
     argv = CLI_ARGV[:CLI_ARGV.index("--gradcheck-every")]
     for flags, msg in (
             (["--sp", "2", "--pp", "2"], "--pp combines only with --dp"),
             (["--dp", "2", "--sp", "2", "--tp", "2"],
              "at most two parallel axes may be combined"),
-            (["--pp", "2"], "--pp 2: pipeline parallelism is not ported yet"),
-            (["--dp", "2", "--pp", "2"], "--pp 2: pipeline parallelism"),
+            (["--pp", "2"], "--pp 2: the mesh is one process a device, and "
+                            "this run has 1 \\(start 2 with torchrun "
+                            "--nproc_per_node 2\\)"),
+            (["--dp", "2", "--pp", "2"], "--dp 2 --pp 2: the mesh is one "
+                                         "process a device, and this run has "
+                                         "1 \\(start 4"),
             (["--sp", "2"], "--sp 2: the mesh is one process a device, "
                             "and this run has 1 \\(start 2 with torchrun "
                             "--nproc_per_node 2\\)"),
@@ -366,7 +370,11 @@ def test_cli_sp_combination_rules_and_refusals():
                                          "process a device, and this run has "
                                          "1 \\(start 4"),
             (["--sp", "1", "--crosscheck", "1"],
-             "--crosscheck with --dp, --tp or --sp: it runs on one device")):
+             "--crosscheck with --dp, --tp, --sp or --pp: it runs on one "
+             "device"),
+            (["--pp", "1", "--crosscheck", "1"],
+             "--crosscheck with --dp, --tp, --sp or --pp: it runs on one "
+             "device")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(argv + flags)
     parse = lambda *a: tcli._configs(tcli.build_parser().parse_args(

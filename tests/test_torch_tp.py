@@ -403,8 +403,9 @@ def test_cli_refuses_what_tp_does_not_run(capsys):
     """``--tp 2`` in one process, ``--tp`` beside ``--pp`` (the JAX
     combination rule), ``--dp 2 --tp 1`` and ``--sp 2 --tp 1`` in one
     process, ``--crosscheck`` under ``--tp`` (one device only) and ``bench
-    --tp`` raise SystemExit with the reason; the trainer refuses a mesh of
-    another parallelism."""
+    --tp`` raise SystemExit with the reason, and ``--dp 2``, ``--sp 2``
+    and ``--pp 2`` in one process name the launcher alike; the trainer
+    refuses a mesh of another type."""
     with pytest.raises(SystemExit, match="--tp 2: the model axis is one process"):
         tcli.main(TP_ARGV + ["--tp", "2"])
     for flag, msg in (("--dp", "--dp 2 --tp 1: the mesh is one process"),
@@ -412,13 +413,14 @@ def test_cli_refuses_what_tp_does_not_run(capsys):
                       ("--pp", "--pp combines only with --dp")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(TP_ARGV + ["--tp", "1", flag, "2"])
-    with pytest.raises(SystemExit, match="--crosscheck with --dp, --tp or --sp"):
+    with pytest.raises(SystemExit,
+                       match="--crosscheck with --dp, --tp, --sp or --pp"):
         tcli.main(TP_ARGV + ["--tp", "1", "--crosscheck", "1"])
     with pytest.raises(SystemExit, match="bench over several devices"):
         tcli.main(["bench", "--data", ALICE, "--tp", "1", "--device", "cpu"])
     for flag, msg in (("--dp", "--dp 2: the mesh is one process"),
                       ("--sp", "--sp 2: the mesh is one process"),
-                      ("--pp", "not ported yet")):
+                      ("--pp", "--pp 2: the mesh is one process")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(TP_ARGV + [flag, "2"])
     with pytest.raises(NotImplementedError, match="mesh training over a object"):

@@ -1,8 +1,8 @@
-"""The cases that tests/test_torch_dp.py, tests/test_torch_dp_tp.py and
-tests/test_torch_sp.py run on spawned gloo ranks, and the pool that runs
-them.
+"""The cases that tests/test_torch_dp.py, tests/test_torch_dp_tp.py,
+tests/test_torch_sp.py and tests/test_torch_pp.py run on spawned gloo
+ranks, and the pool that runs them.
 
-For each world size (2 and 4) the cases of every mesh of that size go to
+For each world size (2, 4 and 8) the cases of every mesh of that size go to
 one spawn of ``tests/torch_dp_worker.py``, once a test run: the first test
 that asks for a world size spawns it under a file lock and later ones, in
 either file and any xdist worker, read its results. Each case starts from
@@ -83,9 +83,33 @@ CLI_ARGV = ["train", "--data", ALICE, "--hidden", "32", "--batch", "8",
             "2", "--sample-chars", "0", "--eval-chars", "500", "--device",
             "cpu", "--lr", "0.05", "--gradcheck-every", "1"]
 GRADCHECK_SAMPLES = 8
+# the gradient cases of tests/test_torch_pp.py: tests/test_pp.py:setup's
+# model and window (vocab 32, hidden 16, S = 8, B = 4)
+PPG_S, PPG_B, PPG_VOCAB = 8, 4, 32
+PPG_KEY = 0x7654321
+# tests/test_pp.py:82-120's training superstep in float64 (3 steps, C = 4,
+# its 3100-byte corpus of bytes 0-30); layers and loss mode from the key
+PP_TRAIN = dict(cfg=dict(vocab=32, hidden=16, seed=0, param_dtype="float64",
+                         compute_dtype="float64"),
+                dcfg=dict(batch=4, seq=8, train_percent=1.0),
+                tcfg=dict(lr=0.1, superstep=3, eval_every_s=1e9,
+                          warmup_steps=0, pp_chunks=4))
+# the data x stage mesh: two layers, the sequence in 2 chunks, clip added
+PP_MESH = dict(cfg=dict(hidden=16, num_layers=2, loss_mode="all", seed=0),
+               dcfg=dict(batch=8, seq=8, train_percent=1.0),
+               tcfg=dict(lr=0.1, superstep=3, eval_every_s=1e9, clip_norm=0.1,
+                         pp_chunks=2))
+# tests/test_pp.py:123-150's checkpoint round trip
+PP_CKPT = dict(cfg=dict(vocab=32, hidden=16, num_layers=2, loss_mode="all",
+                        seed=0),
+               dcfg=dict(batch=4, seq=8, train_percent=1.0),
+               tcfg=dict(lr=0.1, superstep=2, eval_every_s=1e9, pp_chunks=4))
 
 
 def corpus(vocab: int, n: int = 20000) -> np.ndarray:
+    if vocab == 32:
+        # tests/test_pp.py's corpus
+        return np.tile(np.arange(31, dtype=np.uint8), 100)[:n]
     period = 17 if vocab == 256 else 31
     base = np.arange(period, dtype=np.uint8) + (65 if vocab == 256 else 60)
     return np.tile(base, n // period + 1)[:n]
@@ -121,8 +145,8 @@ def write_ckpt(path, arrs, cfg_kw):
                                  arrs.items() if k.startswith("opt")}, cfg, "cpu")
     tckpt.save_checkpoint(path, params, m, 0,
                           positions=arrs["positions"],
-                          stream_h=torch.from_numpy(arrs["h"]),
-                          stream_c=torch.from_numpy(arrs["c"]),
+                          stream_h=torch.from_numpy(arrs["h"]).to(cfg.pdtype),
+                          stream_c=torch.from_numpy(arrs["c"]).to(cfg.pdtype),
                           rng_key=np.array([0, 7], np.uint32),
                           meta={"hidden": cfg.hidden,
                                 "num_layers": cfg.num_layers})
@@ -135,9 +159,15 @@ def case_state(key):
         "drop": (DROP, 20000, None), "skip": (DROP, 20000, NAN_STREAM),
         "wrap": (WRAP, WRAP_LEN, None), "dpsp": (SP_MESH, 20000, None),
         "tpsp": (SP_MESH, 20000, None), "sptraj": (SP_TRAJ, SP_TRAJ_LEN, None),
+        "pptrain": (PP_TRAIN, 3100, None), "dppp": (PP_MESH, 20000, None),
+        "ppckpt": (PP_CKPT, 3100, None),
     }[key.split("_")[0]]
     if key.startswith("skip"):
         base = dict(base, cfg=dict(base["cfg"], dropout=0.0))
+    if key.startswith("pptrain"):
+        _, layers, _, mode = key.split("_")
+        base = dict(base, cfg=dict(base["cfg"], num_layers=int(layers),
+                                   loss_mode=mode))
     data = corpus(base["cfg"].get("vocab", 256), length)
     seed = sum(map(ord, key.split("_")[0]))
     arrs = state_arrays(base["cfg"], base["dcfg"]["batch"], len(data), seed,
@@ -163,7 +193,22 @@ def sp_inputs(key):
     return cfg, int(n_chunks), int(n_seq), arrs
 
 
-# key -> (world size, mesh [n_data, n_model(, n_seq)], kind, extra)
+def pp_inputs(key):
+    """(model config, chunks, stages, arrays: the parameters under their
+    checkpoint keys, x, t, h, c and the dropout key) of a gradient case
+    ``ppg_{layers}_{S}_{C}_{loss mode}[_drop]``."""
+    _, layers, n_stage, n_chunks, mode, *drop = key.split("_")
+    cfg = dict(vocab=PPG_VOCAB, hidden=16, num_layers=int(layers),
+               loss_mode=mode, dropout=0.3 if drop else 0.0, seed=0)
+    arrs = state_arrays(cfg, PPG_B, 1000, sum(map(ord, key)))
+    rng = np.random.default_rng(len(key))
+    for name in ("x", "t"):
+        arrs[name] = rng.integers(0, PPG_VOCAB, (PPG_S, PPG_B)).astype(np.int64)
+    arrs["dropout_key"] = np.array(PPG_KEY if drop else -1)
+    return cfg, int(n_chunks), int(n_stage), arrs
+
+
+# key -> (world size, mesh [n_data, n_model(, n_seq(, n_stage))], kind, extra)
 CASES = {
     "dp_2": (2, [2, None], "train", {}),
     "dp_4": (4, [4, None], "train", {}),
@@ -191,6 +236,22 @@ CASES = {
     "tpsp_22": (4, [None, 2, 2], "train", {}),
     "skip_dpsp22": (4, [2, None, 2], "train", {}),
     "cli_sp2": (2, None, "cli", dict(argv=["--sp", "2"])),
+    # tests/test_pp.py:38-49's (layers, stages, chunks, loss mode)
+    "ppg_2_2_4_all": (2, [None, None, None, 2], "pp_grads", {}),
+    "ppg_4_4_2_all": (4, [None, None, None, 4], "pp_grads", {}),
+    "ppg_8_8_4_all": (8, [None, None, None, 8], "pp_grads", {}),
+    "ppg_4_2_4_all": (2, [None, None, None, 2], "pp_grads", {}),
+    "ppg_8_4_2_all": (4, [None, None, None, 4], "pp_grads", {}),
+    "ppg_4_4_4_last": (4, [None, None, None, 4], "pp_grads", {}),
+    "ppg_4_2_2_last": (2, [None, None, None, 2], "pp_grads", {}),
+    "ppg_2_2_2_all_drop": (2, [None, None, None, 2], "pp_grads", {}),
+    "pptrain_2_2_all": (2, [None, None, None, 2], "train", dict(supersteps=2)),
+    "pptrain_4_2_last": (2, [None, None, None, 2], "train", dict(supersteps=2)),
+    "pptrain_4_4_all": (4, [None, None, None, 4], "train", dict(supersteps=2)),
+    "dppp_22": (4, [2, None, None, 2], "train", {}),
+    "ppckpt_2": (2, [None, None, None, 2], "pp_ckpt", {}),
+    "cli_pp2": (2, None, "cli", dict(argv=["--layers", "2", "--pp", "2",
+                                          "--pp-chunks", "2"])),
 }
 
 
@@ -202,10 +263,15 @@ def _spec(world, work):
         case = {"kind": kind, "mesh": mesh}
         if kind == "cli":
             case["argv"] = CLI_ARGV + ["--ckpt-dir", str(work / key)] + extra["argv"]
-        elif kind == "sp_grads":
-            cfg, case["chunks"], _, arrs = sp_inputs(key)
+        elif kind in ("sp_grads", "pp_grads"):
+            cfg, case["chunks"], _, arrs = (sp_inputs if kind == "sp_grads"
+                                            else pp_inputs)(key)
             case["cfg"] = cfg
             inputs.update((f"{key}/{k}", v) for k, v in arrs.items())
+        elif kind == "pp_ckpt":
+            base, data, _ = case_state(key)
+            case.update(base, save=str(work / f"{key}_saved.npz"))
+            inputs[f"{key}/data"] = data
         elif kind in ("train", "gradcheck"):
             base, data, arrs = case_state(key)
             ckpt = str(work / f"{key}.npz")
@@ -397,19 +463,19 @@ def gradcheck_lines(out, n):
     assert len(lines) == n and all(l.endswith(" ok") for l in lines), lines
 
 
-def check_checkpoints(path, single_path, hidden=32):
+def check_checkpoints(path, single_path, hidden=32, layers=1):
     """The mesh's checkpoint in both packages: the port's arrays equal the
     JAX package's, the step 4, the full batch of cursors and stream state,
     the parameters within 1e-4 of the single device's."""
-    cfg = ModelConfig(hidden=hidden)
+    cfg = ModelConfig(hidden=hidden, num_layers=layers)
     p, m, step, ex = tckpt.load_checkpoint(str(path), cfg, "cpu")
     sp, _, _, _ = tckpt.load_checkpoint(str(single_path), cfg, "cpu")
     assert step == 4 and ex["positions"].shape == (8,)
-    assert tuple(ex["stream_h"].shape) == (1, 8, hidden)
+    assert tuple(ex["stream_h"].shape) == (layers, 8, hidden)
     for (name, a), b in zip(p.named_tensors(), model.tensors(sp)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4,
                                    err_msg=name)
-    like = jmodel.init_params(JConfig(hidden=hidden))
+    like = jmodel.init_params(JConfig(hidden=hidden, num_layers=layers))
     jp, jm, jstep, jex = jckpt.load_checkpoint(str(path), like,
                                                jopt.adagrad_init(like))
     assert jstep == 4

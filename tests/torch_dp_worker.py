@@ -1,6 +1,7 @@
-"""One rank of the port's data parallelism and sequence pipelining on the
-CPU, for tests/test_torch_dp.py, tests/test_torch_dp_tp.py and
-tests/test_torch_sp.py: ``python
+"""One rank of the port's data parallelism, sequence pipelining and
+pipeline parallelism on the CPU, for tests/test_torch_dp.py,
+tests/test_torch_dp_tp.py, tests/test_torch_sp.py and
+tests/test_torch_pp.py: ``python
 tests/torch_dp_worker.py STORE RANK SIZE IN.npz OUT.npz``. The SIZE ranks
 meet over gloo through the FileStore at STORE and run every case of IN.npz
 (a JSON ``spec`` and its numpy inputs), each on the mesh the case names;
@@ -20,22 +21,25 @@ from eigen_lstm_tpu_torch.config import DataConfig, MeshConfig, TrainConfig
 from eigen_lstm_tpu_torch.models import lstm as model
 from eigen_lstm_tpu_torch.ops.dispatch import select_cell_fn
 from eigen_lstm_tpu_torch.parallel import mesh as mesh_mod
+from eigen_lstm_tpu_torch.parallel import pp as pp_mod
 from eigen_lstm_tpu_torch.parallel import sp as sp_mod
 from eigen_lstm_tpu_torch.train import checkpoint as ckpt_mod
 from eigen_lstm_tpu_torch.train.trainer import Trainer
 
 
 def make_mesh(case, world):
-    """The case's mesh: [n_data, n_model(, n_seq)] a ProcessMesh (n_model
-    None: data parallelism alone), [None, n] the model axis alone over the
-    run, [None, None, n] the seq axis alone."""
-    n_data, n_model, *seq = case["mesh"]
-    n_seq = seq[0] if seq else None
-    if n_data is None and n_seq is None:
+    """The case's mesh: [n_data, n_model(, n_seq(, n_stage))] a ProcessMesh
+    (n_model None: data parallelism alone), [None, n] the model axis alone
+    over the run, [None, None, n] the seq axis alone, [None, None, None, n]
+    the stage axis alone."""
+    n_data, n_model, *rest = case["mesh"]
+    n_seq, n_stage = (rest + [None, None])[:2]
+    if n_data is None and n_seq is None and n_stage is None:
         return mesh_mod.AxisGroup(world.rank, world.size, world.device)
     return mesh_mod.init_mesh(MeshConfig(num_devices=n_data,
                                          model_devices=n_model,
-                                         seq_devices=n_seq), "cpu")
+                                         seq_devices=n_seq,
+                                         stage_devices=n_stage), "cpu")
 
 
 def trainer_of(z, key, case, mesh):
@@ -109,6 +113,54 @@ def sp_grads_case(z, key, case, mesh, out):
     out[f"{key}/n_params"] = np.array(len(model.tensors(grads)))
 
 
+def pp_grads_case(z, key, case, mesh, out):
+    """``pp_loss_and_grads`` on the case's window over the stage axis: the
+    loss, the bits, and the stages' (hT, cT) and gradients gathered in
+    the stage-stacked layout."""
+    cfg = ModelConfig(**case["cfg"])
+    arr = lambda name: z[f"{key}/{name}"]
+    params = ckpt_mod.params_from_numpy(
+        {k: arr(k) for k in ckpt_mod._expected_shapes(cfg)}, cfg, "cpu")
+    x, t, h, c = (torch.from_numpy(arr(k)) for k in ("x", "t", "h", "c"))
+    stage = mesh.stage
+    lps = cfg.num_layers // stage.size
+    own = slice(stage.rank * lps, (stage.rank + 1) * lps)
+    dkey = int(arr("dropout_key"))
+    loss, (hT, cT), bits, grads = pp_mod.pp_loss_and_grads(
+        pp_mod.shard_params(pp_mod.pp_params_from(params, cfg), stage), x, t,
+        h[own], c[own], cfg, case["chunks"], stage,
+        dropout_key=None if dkey < 0 else dkey)
+    grads = pp_mod.gather_params(grads, stage)
+    for name, v in (("loss", loss), ("bits", bits),
+                    ("hT", mesh_mod.all_gather(hT, 0, stage)),
+                    ("cT", mesh_mod.all_gather(cT, 0, stage))):
+        out[f"{key}/{name}"] = v.numpy()
+    for name, g in grads.named_tensors():
+        out[f"{key}/grad/{name}"] = g.numpy()
+
+
+def pp_ckpt_case(z, key, case, mesh, out):
+    """A stage-mesh Trainer from its own init: one superstep, its
+    checkpoint, a second Trainer on the mesh restored from it; both
+    canonical states, then one more superstep of each and its bits."""
+    trainers = []
+    for _ in range(2):
+        cfg = ModelConfig(**case["cfg"])
+        trainers.append(Trainer(cfg, DataConfig(**case["dcfg"]),
+                                TrainConfig(**case["tcfg"]), z[f"{key}/data"],
+                                None, mesh=mesh, device="cpu"))
+    a, b = trainers
+    a.state, _ = a.dispatch_superstep()
+    a.save(case["save"])
+    torch.distributed.barrier()   # rank 0 has written the file
+    b.restore(case["save"])
+    out[f"{key}/steps"] = np.array([a.step, b.step])
+    for name, tr in (("a", a), ("b", b)):
+        put_state(out, f"{key}/{name}", tr.canonical_state())
+        tr.state, met = tr.dispatch_superstep()
+        out[f"{key}/{name}/bits_mean"] = met["bits_mean"].numpy()
+
+
 def collectives_case(key, mesh, world, out):
     """Each collective of each axis on tensors that carry the global rank,
     every rank's results gathered: a collective that ran on the default
@@ -154,6 +206,10 @@ def main():
                 collectives_case(key, mesh, world, out)
             elif kind == "sp_grads":
                 sp_grads_case(z, key, case, mesh, out)
+            elif kind == "pp_grads":
+                pp_grads_case(z, key, case, mesh, out)
+            elif kind == "pp_ckpt":
+                pp_ckpt_case(z, key, case, mesh, out)
         if world.rank == 0:
             np.savez(dst, **out)
     finally:
