@@ -232,6 +232,29 @@ Phase 14 pipeline parallelism at S = 1, the stage's layers through the
          (each chunk's weight gradient rounded to bf16) within 5 half-ulps
          of bf16 of their largest entry; the largest differences printed.
 
+Phase 15 K15 and K16 at D > 1 on the one card: the exchange designs'
+         device code, launched as D rank groups of one cooperative launch
+         (``tp_seq_fwd_ranks``, ``tp_seq_bwd_ranks``; the peer table the
+         card's D buffers), at the bench's shapes (1x512, S = 100, B =
+         128, fp32 residuals) for D = 2 and 4 and at the flagship's layer
+         shapes (N = 1024, S = 256) for D = 2, bf16 and fp32, the weights
+         through the TP gate permutation: every rank's every step, forward
+         and reverse, replayed from the kernel's own state (the 1e-4 of
+         11a), the fp32 windows at the bench's shapes against the D-rank
+         plain versions (the flagship's printed beside the D = 1 design's
+         own distance from its plain version); the
+         forward bit for bit the D = 1 cooperative design on the
+         unpermuted weights; 10 calls on the same buffers and, at the
+         bench's shapes, rank 0 given one block (so it lags), each the
+         first call's bits; times
+         beside the bound (the inputs and outputs at the whole width; the
+         exchange's bytes printed apart, with their time at NVLink's
+         rate), the plain versions, cuDNN and the D = 1 cooperative design; a
+         buffer of the library's IPC allocator opened in a child process
+         that loads the library with ctypes alone and writes a pattern
+         the parent reads back; the launches of one D-rank window (one
+         each). Runs on several cards are not part of it.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
 of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
@@ -240,6 +263,7 @@ of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
 near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
+``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone.
 ``python3 chip_smoke.py --sp-spread`` reads 13d's bf16 gradients against
 the fp32 whole batch on three flagship windows, as drawn and with the
 streams that leave fp32 replaced, through the plain path, the kernels on
@@ -3556,11 +3580,12 @@ def tp_step_bound(cfg, b, n, nd, backward: bool):
     return _bound(nbytes, 2 * b * n * 4 * nd, cfg)
 
 
-def tp_seq_bound(cfg, s, b, n, backward: bool):
-    """K15's least time, ms: bytes = U + xw + h0, c0 in, h_seq (fp32), g,
-    c_prev (residual type), hT, cT out; K16's: U + g, c_prev + cT, dh_seq,
-    dhT, dcT in, dg (fp32), dh0, dc0 out; flops = 2*S*B*N*4N for each
-    (K16's dU is a product outside)."""
+def tp_seq_work(cfg, s, b, n, backward: bool):
+    """(bytes, flops) of K15's window at width n: U + xw + h0, c0 in, h_seq
+    (fp32), g, c_prev (residual type), hT, cT out; K16's: U + g, c_prev +
+    cT, dh_seq, dhT, dcT in, dg (fp32), dh0, dc0 out; flops = 2*S*B*N*4N
+    for each (K16's dU is a product outside). D shards of width N/D sum to
+    the same."""
     csz = torch.finfo(cfg.cdtype).bits // 8
     rsz = torch.finfo(cfg.rdtype).bits // 8
     u = n * 4 * n * csz
@@ -3570,7 +3595,12 @@ def tp_seq_bound(cfg, s, b, n, backward: bool):
     else:
         nbytes = (u + s * b * 4 * n * 4 + 2 * b * n * 4 + s * b * n * 4
                   + s * b * 5 * n * rsz + 2 * b * n * 4)
-    return _bound(nbytes, 2 * s * b * n * 4 * n, cfg)
+    return nbytes, 2 * s * b * n * 4 * n
+
+
+def tp_seq_bound(cfg, s, b, n, backward: bool):
+    """K15's or K16's least time, ms (``tp_seq_work``)."""
+    return _bound(*tp_seq_work(cfg, s, b, n, backward), cfg)
 
 
 def _tp_record(name, err, ms, plain_ms, bound, lib_ms):
@@ -4929,8 +4959,335 @@ def phase14c():
         del params, grads, g1, got
 
 
+# --- phase 15: K15/K16's exchange at D > 1, on one card as D rank groups --
+# the one-card launch repeated on the same buffers, each call's bits the first's
+X_REPEATS = 10
+# the IPC round trip: a child process that loads the kernels' library with
+# ctypes alone opens the parent's buffer from its handle and writes a pattern
+IPC_CHILD = """
+import ctypes, sys
+lib = ctypes.CDLL(sys.argv[1])
+handle, words, seed = bytes.fromhex(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+lib.exchange_ipc_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+lib.exchange_write_pattern.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint]
+lib.exchange_ipc_close.argtypes = [ctypes.c_void_p]
+ptr = ctypes.c_void_p()
+for step, err in (("open", lambda: lib.exchange_ipc_open(handle, ctypes.byref(ptr))),
+                  ("write", lambda: lib.exchange_write_pattern(ptr, words, seed)),
+                  ("close", lambda: lib.exchange_ipc_close(ptr))):
+    code = err()
+    if code:
+        print(f"exchange_ipc_{step}: CUDA error {code}")
+        sys.exit(1)
+"""
+
+
+NVLINK_BYTES_PER_S = 450e9   # one direction of a card's NVLink links
+
+
+def exchange_bytes(cfg, s, b, n, d, backward: bool):
+    """The bytes one rank of the D-rank window stores into its D - 1 peers'
+    buffers: the forward's S - 1 exchanges of its h tile (B x nd in the
+    compute type), the backward's S of its partial's peers' chunks (B x nd
+    in fp32 each). They are neither input nor output of the function, so
+    they stay out of its bound (``tp_seq_bound`` at the whole width): on one
+    card they stay in L2, on D cards they cross NVLink, a link of its own,
+    and are printed with their time at NVLink's rate."""
+    nd = n // d
+    size = 4 if backward else torch.finfo(cfg.cdtype).bits // 8
+    return (s if backward else s - 1) * (d - 1) * b * nd * size
+
+
+def ranks_fwd_check(tc, U_cs, xws, h0_full, c0s, cfg, outs, tag):
+    """Every rank's window of the D-rank forward, every step replayed by
+    K13's plain version from the kernel's own state: the full h_{t-1} (the
+    ranks' h_seq side by side, rounded to the compute type) and the rank's
+    c_{t-1}; h_seq, g, c_{t+1} (cT at the last) and hT within STEP_ATOL and
+    TRAIN_TOL normalised, c_prev[0] = c0 bit for bit. Returns the
+    normalised error."""
+    s, b, nd4 = xws[0].shape
+    nd = nd4 // 4
+    h_all = torch.cat([o[0] for o in outs], 2)
+    h_prev = torch.cat([h0_full[None], h_all[:-1]]).reshape(s * b, -1).to(cfg.cdtype)
+    rel = err = 0.0
+    first = True
+    for r, (h_seq, g_seq, c_prev, hT, cT) in enumerate(outs):
+        h2, c2, g = tc.tp_step_plain(U_cs[r], xws[r].reshape(s * b, nd4), h_prev,
+                                     c_prev.reshape(s * b, nd), cfg)
+        c_next = torch.cat([c_prev[1:], cT[None]]).reshape(s * b, nd)
+        pairs = ((h_seq.reshape(s * b, nd), h2), (c_next, c2),
+                 (g_seq.reshape(s * b, nd4), g), (hT, h2[-b:]))
+        rel = max([rel] + [norm_err(a, p) for a, p in pairs])
+        err = max([err] + [max_err(a, p)[0] for a, p in pairs])
+        first = first and torch.equal(c_prev[0], c0s[r].to(c_prev.dtype))
+    torch.cuda.synchronize()
+    print(f"  K15 {tag}: every rank's every step within {err:.3e} of its plain "
+          f"replay (atol {STEP_ATOL:g}; normalised {rel:.3e}, tol {TRAIN_TOL:g}); "
+          f"c_prev[0] {'is' if first else 'is NOT'} c0", flush=True)
+    if not (np.isfinite(err) and err <= STEP_ATOL and rel <= TRAIN_TOL and first):
+        fail(f"K15 {tag}: replay {err:.3e} ({rel:.3e}), c_prev[0] = c0 {first}")
+    return rel
+
+
+def ranks_bwd_replay(U_cs, g_seqs, c_prevs, cTs, dh_seqs, dhTs, dcTs, cfg, dgs_k):
+    """The plain arithmetic of every rank's every reverse step from the
+    kernel's own dg_{t+1} of every rank: the D partials round(dg_{t+1}) @
+    U_r^T, each rank's chunk summed in rank order, then the gate backward
+    with the fp32 dc chain. A list of D (dg, dh0, dc0)."""
+    import functools
+    import operator
+
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+
+    s, _, nd = c_prevs[0].shape
+    f32 = torch.float32
+    rnd = lambda x: x.to(cfg.cdtype).to(f32)
+    parts = [rnd(dg) @ U.to(f32).T for dg, U in zip(dgs_k, U_cs)]   # (S, B, N)
+    out = []
+    for r in range(len(U_cs)):
+        rec = functools.reduce(operator.add, [p[..., r * nd:(r + 1) * nd] for p in parts])
+        dh_rec = torch.cat([rec[1:], dhTs[r][None]])
+        c_seq = torch.cat([c_prevs[r][1:], cTs[r][None]])
+        dc, dgs = dcTs[r], [None] * s
+        for t in reversed(range(s)):
+            dgs[t], dc = cell_ops.gate_bwd(
+                g_seqs[r][t].to(f32), c_seq[t].to(f32), c_prevs[r][t].to(f32),
+                dh_seqs[r][t] + dh_rec[t], dc, nd, cfg.cell_variant)
+        out.append((torch.stack(dgs), rec[0], dc))
+    return out
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+
+
+def ipc_round_trip():
+    """A buffer from the library's IPC allocator, opened from its handle in
+    a child process that loads the library with ctypes alone (no torch),
+    which writes a pattern; the parent reads the pattern back."""
+    import ctypes
+
+    from eigen_lstm_tpu_torch.ops import _build, cuda_tp_seq as ts
+
+    lib = _build.load_library()
+    words, seed = 1 << 18, 0x5EED
+    ptr = ts._alloc(lib, 4 * words)
+    try:
+        handle = ctypes.create_string_buffer(64)
+        ts._ok(lib.exchange_ipc_handle(ptr, handle), "exchange_ipc_handle")
+        child = subprocess.run(
+            [sys.executable, "-c", IPC_CHILD, _build.library_path(),
+             handle.raw.hex(), str(words), str(seed)],
+            capture_output=True, text=True, timeout=120)
+        got = np.zeros(words, np.uint32)
+        ts._ok(lib.exchange_read(got.ctypes.data, ptr, 4 * words), "exchange_read")
+    finally:
+        ts._ok(lib.exchange_free(ptr), "exchange_free")
+    x = np.arange(words, dtype=np.uint32) * np.uint32(0x9E3779B9) ^ np.uint32(seed)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    same = bool(np.array_equal(got, x))
+    print(f"  IPC on one card: a child process (ctypes alone) opened a "
+          f"{4 * words}-byte buffer from its handle and wrote the pattern: exit "
+          f"{child.returncode}, read back {'equal' if same else 'NOT equal'}"
+          + (f"; {child.stdout.strip()} {child.stderr.strip()[-400:]}"
+             if child.returncode else ""), flush=True)
+    if child.returncode != 0 or not same:
+        fail("phase 15: the IPC round trip between two processes failed")
+
+
+def phase15(records, smi):
+    """K15 and K16 at D > 1 on the one card: one cooperative launch of D rank
+    groups (``tp_seq_fwd_ranks``, ``tp_seq_bwd_ranks``), the device code each
+    rank runs on D cards, its peer table the card's D buffers. At the
+    bench's shapes (1x512, S = 100, B = 128, fp32 residuals; the 1x512
+    checkpoint's U and W on a bible.txt window) for D = 2 and 4 and at the
+    flagship's layer shapes (N = 1024, S = 256, B = 128; its layer 1) for
+    D = 2, bf16 and fp32, the weights through the TP gate permutation: every
+    rank's forward step and reverse step replayed from the kernel's own
+    state (TRAIN_TOL), the fp32 windows at the bench's shapes against the
+    D-rank plain versions (where 11a gates K15's and K16's; the flagship's
+    printed beside the D = 1 design's own distance);
+    the forward bit for bit the D = 1 cooperative design on the unpermuted
+    weights; X_REPEATS calls on the same buffers and, at the bench's
+    shapes, a skewed split (rank 0 one block) bit for bit the first call; times beside the bound, the
+    plain versions, cuDNN and the D = 1 cooperative design at the same
+    total shapes. Then the IPC round trip between two processes, and the
+    launch counts of one D-rank window (the bench's bf16 at D = 2)."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.ops import _build, cuda_tp_cell as tc, cuda_tp_seq as ts
+    from eigen_lstm_tpu_torch.parallel.tp import _gate_permutation
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    print(f"  card: {smi}", flush=True)
+    gen = torch.Generator().manual_seed(15)
+    rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
+    lib = _build.load_library()
+    drive, exchanges = None, []
+    for shape, s, b, n, dees in (("bench", TRAIN_S, TRAIN_B, 512, (2, 4)),
+                                 ("flagship", FLAG_S, FLAG_B, 1024, (2,))):
+        if shape == "bench":
+            layer = load_params(H512, train_cfg("float32"), DEVICE).layers[0]
+            x, _ = bible_window(gen, s, b)
+            xw = layer.W[x.long()] + layer.b
+        else:
+            layer = load_params(FLAGSHIP, flag_train_cfg("float32"), DEVICE).layers[1]
+            xw = rand(s, b, 4 * n, sd=0.5) + layer.b
+        for dtype in ("float32", "bfloat16"):
+            t_shape = time.perf_counter()
+            cfg = ModelConfig(hidden=n, compute_dtype=dtype, residual_dtype="float32")
+            U_c = layer.U.to(cfg.cdtype)
+            h0, c0 = torch.tanh(rand(b, n, sd=0.5)), rand(b, n, sd=0.3)
+            # the D = 1 cooperative design on the unpermuted weights
+            with per_step_tiled(SPLIT_PLAN):
+                one = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
+                one_ms = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=2,
+                                 windows=3)
+            dh_full = rand(s, b, n, sd=1e-2)
+            dhT_full, dcT_full = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
+            with per_step_k6():
+                one_b = ts.tp_seq_bwd(U_c, one[1], one[2], one[4], dh_full,
+                                      dhT_full, dcT_full, cfg)
+                one_bms = cuda_ms(lambda: ts.tp_seq_bwd(
+                    U_c, one[1], one[2], one[4], dh_full, dhT_full, dcT_full, cfg),
+                    reps=2, windows=3)
+            # the D = 1 design's own windows against its plain versions
+            one_win = max(norm_err(a, p) for a, p in
+                          zip(one, ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg)))
+            one_bwin = max(norm_err(a, p) for a, p in zip(one_b, ts.tp_seq_bwd_plain(
+                U_c, one[1], one[2], one[4], dh_full, dhT_full, dcT_full, cfg)))
+            h_in = torch.tanh(rand(s, b, n))
+            lib15 = library_ms(n, cfg, h_in, h0, c0)
+            lib16 = library_lstm_bwd(cfg, h_in, h0, c0, dh_full)
+            for d in dees:
+                tag = f"{shape} {dtype} D={d}"
+                nd = n // d
+                perm = torch.as_tensor(_gate_permutation(n, d), device=DEVICE)
+                U_p, xw_p = U_c[:, perm], xw[..., perm]
+                cut = lambda x, r, w: x[..., r * w:(r + 1) * w].contiguous()
+                U_cs = [cut(U_p, r, 4 * nd) for r in range(d)]
+                xws = [cut(xw_p, r, 4 * nd) for r in range(d)]
+                c0s = [cut(c0, r, nd) for r in range(d)]
+                ex = ts.one_card_exchange(b, n, d, cfg.cdtype)
+                exchanges.append(ex)
+                fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
+                rel = ranks_fwd_check(tc, U_cs, xws, h0, c0s, cfg, fwd, tag)
+                plain = ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg)
+                win = max(norm_err(a, p) for o, q in zip(fwd, plain)
+                          for a, p in zip(o, q))
+                # the windows are gated where 11a gates them, in fp32 at the
+                # bench's 100 steps; over the flagship's 256 the fp32 sums'
+                # order carries further: printed beside the D = 1 design's
+                gate_win = dtype == "float32" and shape == "bench"
+                # the D = 1 cooperative design, bit for bit: h_seq, c_prev,
+                # hT, cT side by side, g through the permutation
+                cat = lambda k: torch.cat([o[k] for o in fwd], -1)
+                same1 = [torch.equal(cat(0), one[0]), torch.equal(cat(1), one[1][..., perm]),
+                         torch.equal(cat(2), one[2]), torch.equal(cat(3), one[3]),
+                         torch.equal(cat(4), one[4])]
+                print(f"  K15 {tag}: the window against the D-rank plain version "
+                      f"{win:.3e} ({'gated' if gate_win else 'printed'}, tol "
+                      f"{TRAIN_TOL:g}; the D = 1 design's against its plain "
+                      f"version {one_win:.3e}); bit for bit the D = 1 cooperative "
+                      f"design on the unpermuted weights (h_seq, g, c_prev, hT, "
+                      f"cT): {same1}", flush=True)
+                if not all(same1) or (gate_win and not win <= TRAIN_TOL):
+                    fail(f"K15 {tag}: D = 1 bits {same1}, window {win:.3e}")
+                dhs = [cut(dh_full, r, nd) for r in range(d)]
+                dhTs = [cut(dhT_full, r, nd) for r in range(d)]
+                dcTs = [cut(dcT_full, r, nd) for r in range(d)]
+                bargs = (U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
+                         [o[4] for o in fwd], dhs, dhTs, dcTs, cfg)
+                bwd = ts.tp_seq_bwd_ranks(*bargs, ex)
+                rep = ranks_bwd_replay(*bargs, [o[0] for o in bwd])
+                bplain = ts.tp_seq_bwd_ranks_plain(*bargs)
+                torch.cuda.synchronize()
+                brel = max(norm_err(a, p) for o, q in zip(bwd, rep) for a, p in zip(o, q))
+                bwin = max(norm_err(a, p) for o, q in zip(bwd, bplain) for a, p in zip(o, q))
+                print(f"  K16 {tag}: every rank's every reverse step, dh0, dc0 within "
+                      f"{brel:.3e} of the plain replay from its own dg (tol "
+                      f"{TRAIN_TOL:g}); the window against the D-rank plain version "
+                      f"{bwin:.3e} ({'gated' if gate_win else 'printed'}; the D = 1 "
+                      f"design's against its plain version {one_bwin:.3e})", flush=True)
+                if not (np.isfinite(brel) and brel <= TRAIN_TOL) or (
+                        gate_win and not bwin <= TRAIN_TOL):
+                    fail(f"K16 {tag}: replay {brel:.3e}, window {bwin:.3e}")
+                # repeated calls on the same buffers and, at the bench's
+                # shapes, a lagging rank (one block walks all of rank 0's
+                # tiles: at the flagship's, seconds a call)
+                calls = [(ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
+                          ts.tp_seq_bwd_ranks(*bargs, ex)) for _ in range(X_REPEATS)]
+                skew = ""
+                if shape == "bench":
+                    ctype = 1 if dtype == "bfloat16" else 0
+                    skew_f = [1] + [min(ts.fwd_tiles(b, nd),
+                                        ts._resident(lib, 0, ctype, 0) // d)] * (d - 1)
+                    skew_b = [1] + [min(ts.bwd_tiles(b, n),
+                                        ts._resident(lib, 1, ctype, 0) // d)] * (d - 1)
+                    calls.append((ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex, skew_f),
+                                  ts.tp_seq_bwd_ranks(*bargs, ex, skew_b)))
+                    skew = (f"rank 0 on one block (forward {skew_f}, backward "
+                            f"{skew_b} blocks) and ")
+                torch.cuda.synchronize()
+                same = [_same(f, fwd) and _same(g, bwd) for f, g in calls]
+                print(f"  K15/K16 {tag}: {skew}{X_REPEATS} calls on the same buffers, "
+                      f"each the first call's bits: {sum(same)} of {len(same)}",
+                      flush=True)
+                if not all(same):
+                    fail(f"K15/K16 {tag}: a skewed or repeated call moved the bits: {same}")
+                ms15 = cuda_ms(lambda: ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
+                               reps=2, windows=3)
+                ms16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks(*bargs, ex), reps=2, windows=3)
+                plain15 = cuda_ms(lambda: ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg),
+                                  reps=1, windows=1)
+                plain16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks_plain(*bargs), reps=1, windows=1)
+                b15, b16 = (tp_seq_bound(cfg, s, b, n, False),
+                            tp_seq_bound(cfg, s, b, n, True))
+                x15, x16 = (exchange_bytes(cfg, s, b, n, d, False),
+                            exchange_bytes(cfg, s, b, n, d, True))
+                for k, ms, bd, xb, pl, lb, one_t in (
+                        ("K15", ms15, b15, x15, plain15, lib15, one_ms),
+                        ("K16", ms16, b16, x16, plain16, lib16, one_bms)):
+                    print(f"  {k} {tag}: {ms:.4f} ms a call (1 launch, {d} rank groups), "
+                          f"bound {bd[0]:.5f} ms ({bd[1]}; the inputs and outputs "
+                          f"at the whole width), plain {pl:.4f} ms, cuDNN "
+                          f"{'n/a' if lb is None else f'{lb:.4f} ms'}; the D = 1 "
+                          f"cooperative design at these total shapes {one_t:.4f} ms; "
+                          f"the exchange {xb} bytes a rank to its peers, "
+                          f"{xb / NVLINK_BYTES_PER_S * 1e3:.5f} ms at NVLink's "
+                          f"450 GB/s a direction on D cards", flush=True)
+                for name, err, ms, pl, bd, xb, lb, one_t in (
+                        ("tp_seq_fwd_ranks", rel, ms15, plain15, b15, x15, lib15, one_ms),
+                        ("tp_seq_bwd_ranks", brel, ms16, plain16, b16, x16, lib16, one_bms)):
+                    records[("15", name, shape, dtype, d)] = dict(
+                        _tp_record(name.replace("_ranks", ""), err, ms, pl, bd, lb),
+                        name=name, d1_cooperative_ms=one_t, exchange_bytes=xb,
+                        nvlink_ms=xb / NVLINK_BYTES_PER_S * 1e3)
+                if (shape, dtype, d) == ("bench", "bfloat16", 2):
+                    drive = (U_cs, xws, h0, c0s, cfg, bargs, ex)
+            print(f"  ({shape} {dtype}: {time.perf_counter() - t_shape:.1f} s)", flush=True)
+    ipc_round_trip()
+    # the launches of one D-rank window: the bench's layer at D = 2 in bf16
+    U_cs, xws, h0, c0s, cfg, bargs, ex = drive
+    ts.tp_seq_fwd_ranks.launches = ts.tp_seq_bwd_ranks.launches = 0
+    fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
+    ts.tp_seq_bwd_ranks(U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
+                        [o[4] for o in fwd], *bargs[4:], ex)
+    torch.cuda.synchronize()
+    for ex in exchanges:
+        ex.close()
+    counts = {"tp_seq_fwd_ranks": ts.tp_seq_fwd_ranks.launches,
+              "tp_seq_bwd_ranks": ts.tp_seq_bwd_ranks.launches}
+    print(f"  one D-rank window (the bench's layer, D = 2, bf16): launches "
+          f"{counts}", flush=True)
+    if counts != {"tp_seq_fwd_ranks": 1, "tp_seq_bwd_ranks": 1}:
+        fail(f"phase 15: the D-rank window launched {counts}")
+    return counts
+
+
 def main():
-    phase0()
+    smi = phase0()
     check_budget("phase 0")
     phase1()
     check_budget("phase 1 (build)")
@@ -5006,6 +5363,8 @@ def main():
     pp_adagrad = phase14ab(runs11b)
     phase14c()
     check_budget("phase 14 (pipeline parallelism at S = 1)")
+    x_counts = phase15(records, smi)
+    check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
     kernels = []
 
     def add(rec, launches, **kw):
@@ -5054,6 +5413,10 @@ def main():
         name="tp_step_fwd_cuda_core")
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
         add(records[("11a", name, "bfloat16")], seq_counts[name])
+    # K15 and K16 at D ranks: one D-rank window on the one card (phase 15),
+    # at the bench's shapes, D = 2
+    for name in ("tp_seq_fwd_ranks", "tp_seq_bwd_ranks"):
+        add(records[("15", name, "bench", "bfloat16", 2)], x_counts[name])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5249,13 +5612,23 @@ def sp_spread():
                       f"{int((dd > 0.1).sum())}", flush=True)
 
 
+def exchange_only():
+    """``python3 chip_smoke.py --exchange``: phases 0, 1 and 15 alone."""
+    smi = phase0()
+    phase1()
+    phase15({}, smi)
+    check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--gate-spread"]:
         gate_spread()
     elif sys.argv[1:] == ["--sp-spread"]:
         sp_spread()
+    elif sys.argv[1:] == ["--exchange"]:
+        exchange_only()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread "
-             f"and --sp-spread")
+        fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
+             f"--sp-spread and --exchange")
     else:
         main()

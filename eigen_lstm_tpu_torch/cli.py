@@ -275,7 +275,7 @@ def _make_trainer(args):
                   flush=True)
     except BaseException:
         if mesh is not None:
-            mesh.close()
+            mesh.close(failed=True)
         raise
     return trainer
 
@@ -311,9 +311,14 @@ def cmd_train(args):
     trainer = _make_trainer(args)
     try:
         _train(args, trainer)
-    finally:
+    except BaseException:
+        # no collective on the way out: a peer may be inside a kernel or
+        # a collective that this rank will never join
         if trainer.mesh is not None:
-            trainer.mesh.close()
+            trainer.mesh.close(failed=True)
+        raise
+    if trainer.mesh is not None:
+        trainer.mesh.close()
 
 
 def _train(args, trainer):

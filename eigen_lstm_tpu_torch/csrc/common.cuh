@@ -101,10 +101,20 @@ constexpr int kKS = 8;      // warps splitting the k reduction
 constexpr int kBT = 4;      // batch rows per block
 constexpr int kKT = 256;    // k tile staged in shared memory
 
+// *p, through L2 only (__ldcg) where kL2: for a buffer that other blocks
+// write inside the launch.
+template <bool kL2, typename T>
+__device__ __forceinline__ T tile_load(const T* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return *p;
+}
+
 // The four gate sums s[g] = sum_k round(h[b, k]) * U[k, g*nd + j] over the
 // K-long k axis, with h (B, K) in HT, U (K, 4nd) in CT and round() to CT
 // (nd = K for one device; under tensor parallelism the shard's width).
-template <typename CT, typename HT>
+// kL2: h is written inside the launch (K15's exchange slots), so it is read
+// through L2 only (__ldcg), never through the non-coherent path.
+template <typename CT, typename HT, bool kL2 = false>
 __device__ __forceinline__ bool
 gate_sums_tile(const CT* __restrict__ U, const HT* __restrict__ h, int B,
                int K, int nd, int bx, int by, float s[4], int* b_out,
@@ -130,7 +140,9 @@ gate_sums_tile(const CT* __restrict__ U, const HT* __restrict__ h, int B,
     for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
       const int r = e / klen, kk = e % klen;
       const int b = b0 + r;
-      hs[r][kk] = b < B ? round_to<CT>(to_f32(h[(size_t)b * K + k0 + kk])) : 0.0f;
+      hs[r][kk] = b < B
+          ? round_to<CT>(to_f32(tile_load<kL2>(h + (size_t)b * K + k0 + kk)))
+          : 0.0f;
     }
     __syncthreads();
     for (int kk = w; kk < klen; kk += kKS) {
@@ -171,8 +183,9 @@ gate_sums_tile(const CT* __restrict__ U, const HT* __restrict__ h, int B,
 // The recurrent dh of the reverse step: *dh = sum_k round(dg[b, k]) *
 // UT[k, j] over the K-long gate axis (K = 4nd), with dg (B, K) fp32, UT
 // (K, N) = U^T in CT (read as U^T so that the lanes read coalesced) and
-// round() to CT; j runs over the N-wide h.
-template <typename CT>
+// round() to CT; j runs over the N-wide h. kL2: dg is written inside the
+// launch and read through L2 only, as gate_sums_tile's h.
+template <typename CT, bool kL2 = false>
 __device__ __forceinline__ bool
 rec_tile(const CT* __restrict__ UT, const float* __restrict__ dg, int B,
          int N, int K, int bx, int by, float* dh, int* b_out, int* j_out) {
@@ -193,7 +206,9 @@ rec_tile(const CT* __restrict__ UT, const float* __restrict__ dg, int B,
     for (int e = w * kLanes + lane; e < kBT * klen; e += kKS * kLanes) {
       const int r = e / klen, kk = e % klen;
       const int b = b0 + r;
-      ds[r][kk] = b < B ? round_to<CT>(dg[(size_t)b * K + k0 + kk]) : 0.0f;
+      ds[r][kk] = b < B
+          ? round_to<CT>(tile_load<kL2>(dg + (size_t)b * K + k0 + kk))
+          : 0.0f;
     }
     __syncthreads();
     for (int kk = w; kk < klen; kk += kKS) {

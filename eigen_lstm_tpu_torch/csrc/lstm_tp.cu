@@ -18,7 +18,8 @@
 //       the gate backward _gate_bwd of one step, elementwise: from g, c2,
 //       c_prev, dh, dc (fp32) to dg (B, 4nd) and dc_prev (B, nd), fp32.
 //   tp_seq_fwd_launch (K15) <- pallas_tp_seq.py:_fwd_kernel (:59): the
-//       whole S-step window in one launch, at D = 1. Each step rounds the
+//       whole S-step window in one launch, at D = 1 (at D > 1 see
+//       tp_seq_fwd_ranks_launch below). Each step rounds the
 //       carried h and c to the param type (fp32 here), stores h_seq in the
 //       param type, g and c_prev in the residual type, and hands h on to
 //       the next step through the exchange buffer in the compute type.
@@ -29,7 +30,8 @@
 //       the batch rows a block); elsewhere (fp32) the cooperative design
 //       below.
 //   tp_seq_bwd_launch (K16) <- pallas_tp_seq.py:_bwd_kernel (:125): the
-//       reverse window in one launch, at D = 1: dh_t = dh_seq[t] + (dhT at
+//       reverse window in one launch, at D = 1 (at D > 1 see
+//       tp_seq_bwd_ranks_launch): dh_t = dh_seq[t] + (dhT at
 //       t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, dg in fp32;
 //       then dh0 = round(dg_0) @ U^T and dc0. This is K16's design for fp32
 //       compute and for shapes K6's persistent layout does not take; under
@@ -37,11 +39,18 @@
 //       (ops/cuda_cell_bwd.py:k6_plan), the same recurrence with U in
 //       shared memory and dh_rec on tensor cores: 0.93 ms against this
 //       design's 4.28 at the bench's shapes (PERF.md).
+//   tp_seq_fwd_ranks_launch, tp_seq_bwd_ranks_launch (K15, K16 at D > 1)
+//       <- the same two kernels with their in-kernel exchange
+//       (pallas_tp_seq.py:96-120, :150-177): the cooperative designs below
+//       with the remote copies written as stores into the peers' exchange
+//       buffers, a flag a step raised at system scope, and a barrier a
+//       rank in place of the grid barrier. One launch holds one rank group
+//       on each of D cards (the peers' buffers mapped through CUDA IPC,
+//       csrc/exchange.cu), or D rank groups on one card, the same device
+//       code over the card's D buffers. Only the one-card launch has run:
+//       multi-card runs and NVLink's system-scope ordering are unverified.
 // K13 and K14 run at any D (the all-gather of h sits between launches, in
-// torch.distributed); K15 and K16 only at D = 1, where the TPU kernel's
-// in-kernel exchange writes its own slot (pallas_tp_seq.py:121-122,
-// :178-179). The D > 1 exchange, peer stores over NVLink with flags, waits
-// for a machine with D cards.
+// torch.distributed).
 //
 // What bounds them on the H100. K13 at the flagship's shapes (B = 128,
 // N = 1024, D = 1) is 2*B*N*4nd = 1.07 GFLOP against ~14 MB that it must
@@ -50,7 +59,13 @@
 // bound it, ~1.2 us. K15 and K16 at the bench's (S = 100, B = 128,
 // N = nd = 512) are 2*S*B*N*4nd = 26.8 GFLOP each (K16: dh_rec only, dU is
 // a product outside) against 60-80 MB: operations, 27 us in bf16 and
-// 400 us in fp32 (the formulas are in chip_smoke.py, phase 11a).
+// 400 us in fp32 (the formulas are in chip_smoke.py, phase 11a). At D
+// ranks the D shards' inputs, outputs and work sum to the same, so the
+// bound is the same. The exchange is neither input nor output: a rank
+// stores (S - 1) * (D - 1) * B * nd elements of h in the compute type
+// (K15) and S * (D - 1) * B * nd fp32 partials (K16) into its peers'
+// buffers, in L2 on one card, over NVLink on D cards
+// (chip_smoke.py:exchange_bytes).
 //
 // Design (simple and right first): the step tiles of K2 and K3
 // (common.cuh's gate_sums_tile and rec_tile, with cell and gate_bwd) with
@@ -71,7 +86,16 @@
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
 // does. Under bf16 compute both take the persistent designs named above,
 // with U's rows in shared memory and their products on tensor cores; fp32
-// keeps these.
+// keeps these. At D > 1 both compute types take these cooperative tiles
+// with the exchange (written once, in the simplest kernel that serves
+// both types and any shape; the persistent templates are shared with
+// K1-K3, K6, K8, K9 and K12, whose sums the gates hold): K15's tile sums
+// in K15's order at D = 1 (a unit's order depends on N and kKS, not nd),
+// so its fp32 forward is the D = 1 design's bit for bit; K16 runs two
+// phases a reverse step (the partial over all N columns into the owners'
+// chunks, then each rank's sum of its D chunks in rank order and the gate
+// backward), two rank barriers a step. The groups of a launch wait on
+// each other, so every block must be resident: the launcher refuses more.
 // Every sum has a fixed order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
@@ -290,6 +314,302 @@ tp_seq_bwd(const CT* __restrict__ UT, const RT* __restrict__ gseq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K15 and K16 at D > 1: the exchange. Rank r of D holds U_r, its shard's
+// streams and an exchange buffer in its own device memory; the peer table
+// holds every rank's buffer as this process maps it (its own, and on D
+// cards the peers' through CUDA IPC; on one card D buffers of the card). A
+// launch holds `groups` rank groups of blocks, group g playing rank
+// ranks[g] with its blocks [first, next first): on D cards one group (the
+// process's rank), on one card D groups side by side.
+//
+// A rank's buffer (ops/cuda_tp_seq.py:exchange_layout gives the offsets):
+//   [0, 512)  the header: fwd_flag[kMaxRanks] at 0 and bwd_flag at 64, each
+//             flag the count of exchanges received from that sender, ever
+//             rising (across calls: the host's base); the rank barriers
+//             (count, generation) of the forward at 128, the backward at 256
+//   h_off     the forward's h slots (3, B, N) in the compute type
+//   r_off     the backward's chunks (3, D, B, nd) fp32: [slot][sender]
+constexpr int kMaxRanks = 8;
+constexpr int kFwdFlag = 0, kBwdFlag = 16, kFwdBar = 32, kBwdBar = 64;  // words
+constexpr unsigned long long kTimeoutNs = 60ull * 1000000000ull;
+
+struct PeerTable {
+  unsigned char* buf[kMaxRanks];  // by rank
+};
+
+__device__ __forceinline__ unsigned* words(unsigned char* buf, int off) {
+  return reinterpret_cast<unsigned*>(buf) + off;
+}
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned atom_add_acq_rel_gpu(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spins until `reached()`; a wait past kTimeoutNs traps (the launch fails
+// with an error instead of hanging the card on a peer that never comes).
+template <typename F>
+__device__ __forceinline__ void spin(F reached) {
+  const unsigned long long t0 = now_ns();
+  for (unsigned k = 1; !reached(); ++k)
+    if ((k & 1023u) == 0 && now_ns() - t0 > kTimeoutNs) __trap();
+}
+
+// The barrier of one rank group's nb blocks: a count and a generation in
+// the rank's own buffer, the count back at 0 after each barrier. Each
+// block's stores, to its own memory and its peers', are fenced at system
+// scope before it arrives, so a leader that leaves the barrier may flag
+// them to the peers.
+__device__ __forceinline__ void rank_barrier(unsigned* bar, int nb) {
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    unsigned* count = bar;
+    unsigned* gen = bar + 1;
+    const unsigned g = ld_acquire_gpu(gen);
+    __threadfence_system();
+    if (atom_add_acq_rel_gpu(count, 1u) == static_cast<unsigned>(nb) - 1u) {
+      *reinterpret_cast<volatile unsigned*>(count) = 0u;
+      st_release_gpu(gen, g + 1u);
+    } else {
+      spin([&] { return ld_acquire_gpu(gen) != g; });
+    }
+  }
+  __syncthreads();
+}
+
+// One exchange of rank `me`: every block's stores done (the rank barrier),
+// then the group's first block raises this rank's flag at every peer to
+// `target` (a release at system scope), and every block waits for the
+// D - 1 peers' flags to reach it (acquire loads at system scope) before it
+// reads what they sent. Flags only rise: `target` is the host's base plus
+// the exchange's index, so an earlier call's flags never satisfy a wait.
+__device__ __forceinline__ void exchange(const PeerTable& peers, int me, int D,
+                                         int flag, unsigned* bar, int nb,
+                                         bool leader, unsigned target) {
+  rank_barrier(bar, nb);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    if (leader) {
+      __threadfence_system();
+      for (int q = 0; q < D; ++q)
+        if (q != me) st_release_sys(words(peers.buf[q], flag) + me, target);
+    }
+    const unsigned* mine = words(peers.buf[me], flag);
+    for (int q = 0; q < D; ++q)
+      if (q != me)
+        spin([&] { return static_cast<int>(ld_acquire_sys(mine + q) - target) >= 0; });
+  }
+  __syncthreads();
+}
+
+// The group of this block: its index, its first block and its size.
+template <typename G>
+__device__ __forceinline__ int my_group(const G* g, int groups, int* nb) {
+  int gi = 0;
+  while (gi + 1 < groups && static_cast<int>(blockIdx.x) >= g[gi + 1].first) ++gi;
+  *nb = (gi + 1 < groups ? g[gi + 1].first : static_cast<int>(gridDim.x)) - g[gi].first;
+  return gi;
+}
+
+template <typename CT, typename RT>
+struct SeqFwdGroup {
+  const CT* U;      // (N, 4nd), the rank's shard
+  const float* xw;  // (S, B, 4nd)
+  float* c;         // (B, nd) c0 on entry, the carry
+  float* hseq;      // (S, B, nd)
+  RT* gseq;         // (S, B, 4nd)
+  RT* cprev;        // (S, B, nd)
+  float* hT;
+  float* cT;
+  int rank, first;
+};
+
+template <typename CT, typename RT>
+struct SeqFwdRanks {
+  SeqFwdGroup<CT, RT> g[kMaxRanks];
+};
+
+// K15 at D ranks: the window of every group's rank, K15's tile (the same
+// sums as the D = 1 cooperative design: a unit's order depends on N and
+// kKS, not on nd). Step t reads the full h_{t-1} from its own slot
+// (base + t) % 3 through L2, and stores its tile of h_t, rounded to the
+// compute type, into slot (base + t + 1) % 3, columns [me * nd, +nd), of
+// every rank's buffer, its own too; then the exchange. The last step
+// exchanges nothing. The host copies h0 into slot base % 3 first. Three
+// slots: a rank waits for every peer's flag of step t before step t + 1,
+// so no rank writes a slot a peer still reads.
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+tp_seq_fwd_x(const SeqFwdRanks<CT, RT> a, int groups, const PeerTable peers,
+             int D, unsigned long long base, long long h_off, int S, int B,
+             int N, int nd, int standard) {
+  int nb;
+  const SeqFwdGroup<CT, RT> G = a.g[my_group(a.g, groups, &nb)];
+  const int bi = static_cast<int>(blockIdx.x) - G.first;
+  const int me = G.rank;
+  unsigned char* mine = peers.buf[me];
+  const int tiles_x = nd / kLanes;
+  const int tiles = tiles_x * ((B + kBT - 1) / kBT);
+  const size_t bn = (size_t)B * nd, bn4 = 4 * bn, bN = (size_t)B * N;
+  for (int t = 0; t < S; ++t) {
+    const CT* h_in = reinterpret_cast<const CT*>(mine + h_off) + ((base + t) % 3) * bN;
+    const size_t next = ((base + t + 1) % 3) * bN + (size_t)me * nd;
+    for (int tile = bi; tile < tiles; tile += nb) {
+      float gate[4];
+      int b, j;
+      if (!gate_sums_tile<CT, CT, true>(G.U, h_in, B, N, nd, tile % tiles_x,
+                                        tile / tiles_x, gate, &b, &j))
+        continue;
+      const size_t idx = (size_t)b * nd + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float v = gate[g] + G.xw[t * bn4 + (size_t)b * 4 * nd + (size_t)g * nd + j];
+        gate[g] = g < 3 ? sigmoid(v) : tanhf(v);
+      }
+      const float cp = G.c[idx];
+      G.cprev[t * bn + idx] = from_f32<RT>(cp);
+      float hv, cv;
+      cell(gate, cp, standard, &hv, &cv);
+      G.hseq[t * bn + idx] = hv;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        G.gseq[t * bn4 + (size_t)b * 4 * nd + (size_t)g * nd + j] = from_f32<RT>(gate[g]);
+      G.c[idx] = cv;
+      if (t < S - 1) {
+        const CT hc = from_f32<CT>(hv);
+        for (int q = 0; q < D; ++q)
+          reinterpret_cast<CT*>(peers.buf[q] + h_off)[next + (size_t)b * N + j] = hc;
+      } else {
+        G.hT[idx] = hv;
+        G.cT[idx] = cv;
+      }
+    }
+    if (t < S - 1)
+      exchange(peers, me, D, kFwdFlag, words(mine, kFwdBar), nb, bi == 0,
+               static_cast<unsigned>(base + t + 1));
+  }
+}
+
+template <typename CT, typename RT>
+struct SeqBwdGroup {
+  const CT* UT;         // (4nd, N), the rank's shard transposed
+  const RT* gseq;       // (S, B, 4nd)
+  const RT* cprev;      // (S, B, nd)
+  const float* cT;      // (B, nd)
+  const float* dhseq;   // (S, B, nd)
+  const float* dhT;     // (B, nd)
+  float* dc;            // (B, nd) dcT on entry, dc0 on exit
+  float* dg;            // (S, B, 4nd)
+  float* dh0;           // (B, nd)
+  int rank, first;
+};
+
+template <typename CT, typename RT>
+struct SeqBwdRanks {
+  SeqBwdGroup<CT, RT> g[kMaxRanks];
+};
+
+// K16 at D ranks. Reverse step t < S - 1 (and t = -1, dh0) first has every
+// block of the rank compute rec_tile's partial round(dg_{t+1}) @ U_r^T over
+// all N columns (after a rank barrier: dg_{t+1} is the rank's whole last
+// step), column j going to rank q = j / nd, chunk [w][me] of q's buffer,
+// w = (base + e) % 3 for the window's e-th exchange, e = S - 2 - t; then
+// the exchange; then each rank sums its D chunks in rank order 0..D-1
+// (pallas_tp_seq.py:140's jnp.sum(rbuf[w], axis=0)) into dh_rec, an
+// element a thread, and runs the gate backward (at t = S - 1 dh_rec is
+// dhT, at t = -1 the sum is dh0). Three slots for the same reason as the
+// forward's.
+template <typename CT, typename RT>
+__global__ void __launch_bounds__(kLanes * kKS)
+tp_seq_bwd_x(const SeqBwdRanks<CT, RT> a, int groups, const PeerTable peers,
+             int D, unsigned long long base, long long r_off, int S, int B,
+             int N, int nd, int standard) {
+  int nb;
+  const SeqBwdGroup<CT, RT> G = a.g[my_group(a.g, groups, &nb)];
+  const int bi = static_cast<int>(blockIdx.x) - G.first;
+  const int me = G.rank;
+  unsigned char* mine = peers.buf[me];
+  const int tiles_x = N / kLanes;
+  const int tiles = tiles_x * ((B + kBT - 1) / kBT);
+  const size_t bn = (size_t)B * nd, bn4 = 4 * bn;
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int t = S - 1; t >= -1; --t) {
+    int w = 0;
+    if (t < S - 1) {
+      const unsigned long long e = base + (S - 2 - t);
+      w = static_cast<int>(e % 3);
+      rank_barrier(words(mine, kBwdBar), nb);
+      for (int tile = bi; tile < tiles; tile += nb) {
+        float rec;
+        int b, j;
+        if (!rec_tile<CT, true>(G.UT, G.dg + (t + 1) * bn4, B, N, 4 * nd,
+                                tile % tiles_x, tile / tiles_x, &rec, &b, &j))
+          continue;
+        const int q = j / nd;
+        float* chunk = reinterpret_cast<float*>(peers.buf[q] + r_off) +
+                       ((size_t)w * D + me) * bn;
+        chunk[(size_t)b * nd + (j - q * nd)] = rec;
+      }
+      exchange(peers, me, D, kBwdFlag, words(mine, kBwdBar), nb, bi == 0,
+               static_cast<unsigned>(e + 1));
+    }
+    const float* chunks = reinterpret_cast<const float*>(mine + r_off) + (size_t)w * D * bn;
+    for (size_t idx = (size_t)bi * kLanes * kKS + tid; idx < bn;
+         idx += (size_t)nb * kLanes * kKS) {
+      float rec;
+      if (t == S - 1) {
+        rec = G.dhT[idx];
+      } else {
+        rec = __ldcg(chunks + idx);
+        for (int q = 1; q < D; ++q) rec += __ldcg(chunks + (size_t)q * bn + idx);
+      }
+      if (t == -1) {
+        G.dh0[idx] = rec;
+        continue;
+      }
+      const size_t b = idx / nd, j = idx % nd;
+      const size_t gb = t * bn4 + b * 4 * nd + j;
+      const float ct = t == S - 1 ? G.cT[idx] : to_f32(G.cprev[(t + 1) * bn + idx]);
+      float d[4];
+      gate_bwd(to_f32(G.gseq[gb]), to_f32(G.gseq[gb + nd]),
+               to_f32(G.gseq[gb + 2 * (size_t)nd]),
+               to_f32(G.gseq[gb + 3 * (size_t)nd]), ct,
+               to_f32(G.cprev[t * bn + idx]), G.dhseq[t * bn + idx] + rec,
+               G.dc[idx], standard, d, &G.dc[idx]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) G.dg[gb + (size_t)q * nd] = d[q];
+    }
+  }
+}
+
 // The grid of a cooperative launch of `kernel`: the tiles, at most what is
 // resident at once (a grid barrier waits for every block). 0 and an error
 // code when the card cannot take it.
@@ -400,6 +720,118 @@ int run_seq_bwd(const void* UT, const void* gseq, const void* cprev,
   return static_cast<int>(e);
 }
 
+// The blocks a cooperative launch of `kernel` (256 threads a block) may
+// hold at once on this card, or an error code.
+template <typename K>
+int resident_blocks(K kernel, int* resident) {
+  int grid = 0;
+  const int err = coop_grid(kernel, 1 << 30, &grid);
+  if (err == 0) *resident = grid;
+  return err;
+}
+
+// The checks both D-rank launchers make: groups and D within kMaxRanks,
+// each group a rank of its own below D with at least one block, the shard
+// widths whole tiles, and every block resident at once (the groups wait on
+// each other, so a block that is not resident would never come). Fills
+// first[] and the peer table; returns the blocks or a negative error.
+inline int ranks_grid(int groups, const int* ranks, const int* blocks, int D,
+                      void* const* bufs, int N, int nd, int resident,
+                      int* first, PeerTable* peers) {
+  if (groups < 1 || groups > kMaxRanks || D < 1 || D > kMaxRanks ||
+      N != D * nd || nd % kLanes != 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int total = 0, seen = 0;
+  for (int g = 0; g < groups; ++g) {
+    if (ranks[g] < 0 || ranks[g] >= D || (seen >> ranks[g]) & 1 || blocks[g] < 1)
+      return -static_cast<int>(cudaErrorInvalidValue);
+    seen |= 1 << ranks[g];
+    first[g] = total;
+    total += blocks[g];
+  }
+  if (total > resident) return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  for (int q = 0; q < kMaxRanks; ++q)
+    peers->buf[q] = q < D ? static_cast<unsigned char*>(bufs[q]) : nullptr;
+  return total;
+}
+
+template <typename CT, typename RT>
+int run_seq_fwd_ranks(int groups, const int* ranks, const int* blocks,
+                      const void* const* U, const void* const* xw,
+                      const void* const* h0, void* const* c, void* const* hseq,
+                      void* const* gseq, void* const* cprev, void* const* hT,
+                      void* const* cT, int D, void* const* bufs, long long h_off,
+                      unsigned long long base, int S, int B, int N, int nd,
+                      int standard, cudaStream_t stream) {
+  const auto kernel = tp_seq_fwd_x<CT, RT>;
+  int resident = 0;
+  int err = resident_blocks(kernel, &resident);
+  if (err != 0) return err;
+  SeqFwdRanks<CT, RT> a{};
+  PeerTable peers{};
+  int first[kMaxRanks];
+  const int grid = ranks_grid(groups, ranks, blocks, D, bufs, N, nd, resident,
+                              first, &peers);
+  if (grid < 0) return -grid;
+  const size_t hbytes = (size_t)B * N * sizeof(CT);
+  for (int g = 0; g < groups; ++g) {
+    a.g[g] = SeqFwdGroup<CT, RT>{
+        static_cast<const CT*>(U[g]), static_cast<const float*>(xw[g]),
+        static_cast<float*>(c[g]), static_cast<float*>(hseq[g]),
+        static_cast<RT*>(gseq[g]), static_cast<RT*>(cprev[g]),
+        static_cast<float*>(hT[g]), static_cast<float*>(cT[g]), ranks[g],
+        first[g]};
+    // h0 into the rank's slot base % 3, which no peer writes before this
+    // rank's flag of the call's second step
+    err = static_cast<int>(cudaMemcpyAsync(
+        peers.buf[ranks[g]] + h_off + (base % 3) * hbytes, h0[g], hbytes,
+        cudaMemcpyDeviceToDevice, stream));
+    if (err != 0) return err;
+  }
+  void* args[] = {&a, &groups, &peers, &D, &base, &h_off, &S, &B, &N, &nd,
+                  &standard};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kLanes, kKS),
+      args, 0, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+template <typename CT, typename RT>
+int run_seq_bwd_ranks(int groups, const int* ranks, const int* blocks,
+                      const void* const* UT, const void* const* gseq,
+                      const void* const* cprev, const void* const* cT,
+                      const void* const* dhseq, const void* const* dhT,
+                      void* const* dc, void* const* dg, void* const* dh0, int D,
+                      void* const* bufs, long long r_off, unsigned long long base,
+                      int S, int B, int N, int nd, int standard,
+                      cudaStream_t stream) {
+  const auto kernel = tp_seq_bwd_x<CT, RT>;
+  int resident = 0;
+  const int err = resident_blocks(kernel, &resident);
+  if (err != 0) return err;
+  SeqBwdRanks<CT, RT> a{};
+  PeerTable peers{};
+  int first[kMaxRanks];
+  const int grid = ranks_grid(groups, ranks, blocks, D, bufs, N, nd, resident,
+                              first, &peers);
+  if (grid < 0) return -grid;
+  for (int g = 0; g < groups; ++g)
+    a.g[g] = SeqBwdGroup<CT, RT>{
+        static_cast<const CT*>(UT[g]), static_cast<const RT*>(gseq[g]),
+        static_cast<const RT*>(cprev[g]), static_cast<const float*>(cT[g]),
+        static_cast<const float*>(dhseq[g]), static_cast<const float*>(dhT[g]),
+        static_cast<float*>(dc[g]), static_cast<float*>(dg[g]),
+        static_cast<float*>(dh0[g]), ranks[g], first[g]};
+  void* args[] = {&a, &groups, &peers, &D, &base, &r_off, &S, &B, &N, &nd,
+                  &standard};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kLanes, kKS),
+      args, 0, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // Type codes: 0 = fp32, 1 = bf16. Each launcher makes one launch and
@@ -503,5 +935,78 @@ extern "C" int tp_seq_bwd_launch(int ctype, int rtype, const void* UT,
   if (ctype == 0 && rtype == 1) return f(run_seq_bwd<float, bf>);
   if (ctype == 1 && rtype == 0) return f(run_seq_bwd<bf, float>);
   if (ctype == 1 && rtype == 1) return f(run_seq_bwd<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// K15 and K16 at D ranks (the exchange designs). `groups` rank groups in
+// one cooperative launch, group g playing rank ranks[g] with blocks[g]
+// blocks; each per-group pointer array holds that group's tensors (the
+// shapes of tp_seq_fwd_launch and tp_seq_bwd_launch, N = D * nd, U^T for
+// the backward). bufs holds every rank's exchange buffer by rank, as this
+// process maps it; h_off and r_off are its offsets (exchange_layout in
+// ops/cuda_tp_seq.py); base is the host's count of exchange steps of the
+// buffers before this call (it rises by S a call). Every block must be
+// resident at once: a sum of blocks past tp_seq_ranks_resident's count is
+// refused (cudaErrorCooperativeLaunchTooLarge) before anything runs. The
+// forward copies each group's h0 (B, N) into its rank's slot first. Each
+// adds its launch to *launches.
+extern "C" int tp_seq_fwd_ranks_launch(
+    int ctype, int rtype, int groups, const int* ranks, const int* blocks,
+    const void* const* U, const void* const* xw, const void* const* h0,
+    void* const* c, void* const* hseq, void* const* gseq, void* const* cprev,
+    void* const* hT, void* const* cT, int D, void* const* bufs,
+    long long h_off, unsigned long long base, int S, int B, int N, int nd,
+    int standard, void* stream, int* launches) {
+  const auto f = [&](auto run) {
+    return run(groups, ranks, blocks, U, xw, h0, c, hseq, gseq, cprev, hT, cT,
+               D, bufs, h_off, base, S, B, N, nd, standard,
+               static_cast<cudaStream_t>(stream));
+  };
+  using bf = __nv_bfloat16;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (ctype == 0 && rtype == 0) err = f(run_seq_fwd_ranks<float, float>);
+  if (ctype == 0 && rtype == 1) err = f(run_seq_fwd_ranks<float, bf>);
+  if (ctype == 1 && rtype == 0) err = f(run_seq_fwd_ranks<bf, float>);
+  if (ctype == 1 && rtype == 1) err = f(run_seq_fwd_ranks<bf, bf>);
+  if (err == 0) ++*launches;
+  return err;
+}
+
+extern "C" int tp_seq_bwd_ranks_launch(
+    int ctype, int rtype, int groups, const int* ranks, const int* blocks,
+    const void* const* UT, const void* const* gseq, const void* const* cprev,
+    const void* const* cT, const void* const* dhseq, const void* const* dhT,
+    void* const* dc, void* const* dg, void* const* dh0, int D,
+    void* const* bufs, long long r_off, unsigned long long base, int S, int B,
+    int N, int nd, int standard, void* stream, int* launches) {
+  const auto f = [&](auto run) {
+    return run(groups, ranks, blocks, UT, gseq, cprev, cT, dhseq, dhT, dc, dg,
+               dh0, D, bufs, r_off, base, S, B, N, nd, standard,
+               static_cast<cudaStream_t>(stream));
+  };
+  using bf = __nv_bfloat16;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (ctype == 0 && rtype == 0) err = f(run_seq_bwd_ranks<float, float>);
+  if (ctype == 0 && rtype == 1) err = f(run_seq_bwd_ranks<float, bf>);
+  if (ctype == 1 && rtype == 0) err = f(run_seq_bwd_ranks<bf, float>);
+  if (ctype == 1 && rtype == 1) err = f(run_seq_bwd_ranks<bf, bf>);
+  if (err == 0) ++*launches;
+  return err;
+}
+
+// The blocks of 256 threads one cooperative launch of the D-rank forward
+// (bwd = 0) or backward (bwd = 1) may hold on the current card, into
+// *resident; returns an error code.
+extern "C" int tp_seq_ranks_resident(int bwd, int ctype, int rtype, int* resident) {
+  const auto f = [&](auto fwd_kernel, auto bwd_kernel) {
+    return bwd ? resident_blocks(bwd_kernel, resident)
+               : resident_blocks(fwd_kernel, resident);
+  };
+  using bf = __nv_bfloat16;
+  if (ctype == 0 && rtype == 0) return f(tp_seq_fwd_x<float, float>, tp_seq_bwd_x<float, float>);
+  if (ctype == 0 && rtype == 1) return f(tp_seq_fwd_x<float, bf>, tp_seq_bwd_x<float, bf>);
+  if (ctype == 1 && rtype == 0) return f(tp_seq_fwd_x<bf, float>, tp_seq_bwd_x<bf, float>);
+  if (ctype == 1 && rtype == 1) return f(tp_seq_fwd_x<bf, bf>, tp_seq_bwd_x<bf, bf>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,6 +36,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _Z = ctypes.c_size_t
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)   # an array of pointers, or an out-pointer
+_LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_CP = ctypes.c_char_p                   # an IPC handle's 64 bytes
 _DROP = [_U, _U, _F]   # the dropout's seed (int32 bits), keep threshold, inv
 # (restype, argtypes) of every exported function: c_void_p for pointers and
 # the stream, c_int for ints (an unset argtype would pass a pointer as a
@@ -80,6 +84,19 @@ SIGNATURES = {
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _IP]),
     "tp_seq_bwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),
+    "tp_seq_fwd_ranks_launch": (_I, [_I, _I, _I, _IP, _IP] + [_PP] * 9
+                                + [_I, _PP, _LL, _ULL] + [_I] * 5 + [_P, _IP]),
+    "tp_seq_bwd_ranks_launch": (_I, [_I, _I, _I, _IP, _IP] + [_PP] * 9
+                                + [_I, _PP, _LL, _ULL] + [_I] * 5 + [_P, _IP]),
+    "tp_seq_ranks_resident": (_I, [_I, _I, _I, _IP]),
+    "exchange_alloc": (_I, [_Z, _PP]),
+    "exchange_free": (_I, [_P]),
+    "exchange_ipc_handle": (_I, [_P, _CP]),
+    "exchange_ipc_open": (_I, [_CP, _PP]),
+    "exchange_ipc_close": (_I, [_P]),
+    "exchange_can_access_peer": (_I, [_I, _I, _IP]),
+    "exchange_write_pattern": (_I, [_P, _Z, _U]),
+    "exchange_read": (_I, [_P, _P, _Z]),
 }
 
 

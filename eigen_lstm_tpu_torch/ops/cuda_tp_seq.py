@@ -12,17 +12,15 @@ h_seq in the param type, g (activated) and c_prev in the residual type
 replaces ``_bwd_kernel`` (:125): the reverse window, dh_t = dh_seq[t] +
 (dhT at t = S-1, else the reduce-scattered round(dg_{t+1}) @ U_d^T), the
 gate backward, dg (S, B, 4nd) in fp32, dh0 and dc0. For a CUDA tensor each
-launches its kernel at D = 1, and raises at D > 1:
-the kernels' in-kernel exchange of h across D cards (the TPU kernel's
-remote DMAs) is not written; there is no fall-back. For a CPU tensor each
-runs its plain version, ``tp_seq_fwd_plain`` or ``tp_seq_bwd_plain``: the
-per-step math of ``pallas_tp_cell.py`` over the window with the h exchange
-as an all-gather over the group and the dh partials reduce-scattered, so
-the plain versions are exact at any D. Each wrapper counts its launches in
-``.launches``, one a call.
+launches its kernel, at any D; for a CPU tensor each runs its plain
+version, ``tp_seq_fwd_plain`` or ``tp_seq_bwd_plain``: the per-step math of
+``pallas_tp_cell.py`` over the window with the h exchange as an all-gather
+over the group and the dh partials reduce-scattered, so the plain versions
+are exact at any D. Each wrapper counts its launches in ``.launches``, one
+a call.
 
-K15 has two designs of one function, both behind ``tp_seq_fwd_launch`` of
-``csrc/lstm_tp.cu``. Under bf16 compute, wherever
+At D = 1 K15 has two designs of one function, both behind
+``tp_seq_fwd_launch`` of ``csrc/lstm_tp.cu``. Under bf16 compute, wherever
 ``cuda_cell_tiled.split_fwd_plan`` gives a layout, it is the persistent
 tensor-core forward of K8/K9 (``csrc/fwd_mma.cuh:fwd_persist``: U's rows
 in shared memory, the products on tensor cores, a share of the batch rows
@@ -30,30 +28,57 @@ a block) with K15's own streams: xw in fp32 with the bias, the exchange
 buffer's round(h) in the compute type, h_seq in fp32, g and c_prev =
 c_{t-1} in the residual type; only the order of the product's fp32 sums
 moves. Elsewhere (fp32) it is one cooperative launch of CUDA-core step
-tiles. K16 has two designs of one function too. At D = 1 it is K6's reverse recurrence, so under bf16
-compute, wherever ``cuda_cell_bwd.k6_plan`` gives a layout, it is K6's
-persistent kernel (``lstm_bwd_persist_launch``: U in shared memory, dh_rec
-on tensor cores, dg written in fp32 as well), given K16's c layout without
-a copy of the stream: c_prev advanced by one step as c_seq, c_prev[0] as
-c0 and cT, in fp32, as c_{S-1}. Elsewhere (fp32, or no layout) it is
+tiles. K16 at D = 1 is K6's reverse recurrence, so under bf16 compute,
+wherever ``cuda_cell_bwd.k6_plan`` gives a layout, it is K6's persistent
+kernel (``lstm_bwd_persist_launch``: U in shared memory, dh_rec on tensor
+cores, dg written in fp32 as well), given K16's c layout without a copy of
+the stream: c_prev advanced by one step as c_seq, c_prev[0] as c0 and cT,
+in fp32, as c_{S-1}. Elsewhere (fp32, or no layout) it is
 ``tp_seq_bwd_launch``, one cooperative launch of CUDA-core step tiles over
 U^T.
+
+At D > 1 both take the exchange designs (``tp_seq_fwd_ranks_launch``,
+``tp_seq_bwd_ranks_launch``), in both compute types: the cooperative
+CUDA-core tiles with the TPU kernel's in-kernel exchange written as stores
+into the peers' buffers and flags. K15 stores its tile of h_t into slot
+(t+1) mod 3 of every rank's h buffer and waits for the D-1 peers' flags
+before step t+1 reads; K16 stores column j of its partial round(dg_{t+1})
+@ U_d^T into rank j / nd's chunk, and each rank sums its D chunks in rank
+order. The buffers (``exchange_layout``) are one ``cudaMalloc`` a rank:
+on D cards the group's (``group_exchange``: handles all-gathered over the
+model axis, peers mapped with CUDA IPC, held by the group and released
+when it closes), on one card D of the card's (``one_card_exchange``,
+which the caller passes to each call and closes).
+Flags only rise: each call takes a base from the buffers' count of
+exchange steps (``Exchange.take``), so no call's wait is met by an earlier
+call's flag. ``tp_seq_fwd_ranks`` and ``tp_seq_bwd_ranks`` launch the same
+device code on one card as D rank groups of one launch, group r playing
+rank r, each with a share of the resident blocks (``rank_blocks``, which
+refuses D groups that do not fit; a split may be given, so one rank can
+lag); their plain versions ``tp_seq_*_ranks_plain`` run the D shards in one
+process, the all-gather a concatenation and the reduce-scatter a sum in
+rank order. Nothing on the main path calls them: ``chip_smoke.py`` and the
+tests do.
 
 ``tp_seq_lstm`` is the JAX function of that name: U cast to the compute
 type and xw, h0, c0 to the accumulation type before ``TPSeq``, whose
 backward is ``tp_seq_bwd`` (:305-338): K16 gives dg, dh0, dc0, and dU is
-one product outside, round(h_prev)^T round(dg) over the window with fp32
-sums, h_prev rebuilt from h_seq (all-gathered) and the full h0. dU leaves
-in U's type, the compute type (bf16 under bf16 compute: this family rounds
-dU, the per-step family does not). ``tp_seq_supported`` is the JAX gate
-with its 14 MB VMEM budget, copied to pick the family as the JAX package
-does; the budget describes the TPU, not the card.
+one product outside (``window_dU``), round(h_prev)^T round(dg) over the
+window with fp32 sums, h_prev rebuilt from h_seq (all-gathered) and the
+full h0. dU leaves in U's type, the compute type (bf16 under bf16 compute:
+this family rounds dU, the per-step family does not).
+``tp_seq_supported`` is the JAX gate with its 14 MB VMEM budget, copied to
+pick the family as the JAX package does; the budget describes the TPU,
+not the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+import operator
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -128,20 +153,354 @@ def tp_seq_bwd_plain(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT,
     return torch.stack(dgs), rec, dc
 
 
-def _d1(group, dev, what: str):
-    if group is not None and group.size > 1:
-        raise NotImplementedError(
-            f"{what} at D = {group.size} on {dev}: the kernel's exchange of h "
-            f"across the D cards (the TPU kernel's in-kernel remote copies, "
-            f"pallas_tp_seq.py:96-120, :157-177) is not written; it needs "
-            f"D GPUs")
+def tp_seq_fwd_ranks_plain(U_cs: Sequence, xws: Sequence, h0_full,
+                           c0s: Sequence, cfg: ModelConfig):
+    """The windows of D shards in one process (U_cs, xws and c0s by rank,
+    the full h0): ``tp_seq_fwd_plain``'s steps on every shard, the
+    all-gather a concatenation in rank order. A list of D outputs, each as
+    ``tp_seq_fwd_plain``'s."""
+    af, pd, rd = cuda_cell._acc_dtype(cfg), cfg.pdtype, cfg.rdtype
+    d, s = len(U_cs), xws[0].shape[0]
+    h_full, cs = h0_full.to(cfg.cdtype), [c0.to(af) for c0 in c0s]
+    seqs = [([], [], []) for _ in range(d)]
+    for t in range(s):
+        h2rs = []
+        for r, (hs, gs, cps) in enumerate(seqs):
+            cps.append(cs[r].to(rd))
+            h2, c2, g = tp_step_plain(U_cs[r], xws[r][t], h_full, cs[r], cfg)
+            h2r, c2r = h2.to(pd), c2.to(pd)
+            gs.append(g.to(rd))
+            hs.append(h2r)
+            cs[r] = c2r.to(af)
+            h2rs.append(h2r)
+        h_full = torch.cat([h.to(cfg.cdtype) for h in h2rs], 1)
+    return [(torch.stack(hs), torch.stack(gs), torch.stack(cps), h2rs[r].to(af),
+             cs[r]) for r, (hs, gs, cps) in enumerate(seqs)]
+
+
+def tp_seq_bwd_ranks_plain(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
+                           cTs: Sequence, dh_seqs: Sequence, dhTs: Sequence,
+                           dcTs: Sequence, cfg: ModelConfig):
+    """The reverse windows of D shards in one process (every argument by
+    rank): ``tp_seq_bwd_plain``'s steps on every shard, the reduce-scatter
+    each rank's D chunks of the partials summed in rank order 0..D-1, as
+    the kernel and ``pallas_tp_seq.py:140`` sum them. A list of D (dg, dh0,
+    dc0)."""
+    af = cuda_cell._acc_dtype(cfg)
+    d, s = len(U_cs), g_seqs[0].shape[0]
+    nd = c_prevs[0].shape[-1]
+    dcs, recs = [x.to(af) for x in dcTs], [x.to(af) for x in dhTs]
+    dgs = [[None] * s for _ in range(d)]
+    for t in reversed(range(s)):
+        partials = []
+        for r in range(d):
+            c2 = cTs[r] if t == s - 1 else c_prevs[r][t + 1]
+            dgs[r][t], dcs[r] = tp_step_bwd_plain(
+                g_seqs[r][t], c2, c_prevs[r][t], dh_seqs[r][t].to(af) + recs[r],
+                dcs[r], cfg)
+            partials.append(cell_ops.matmul(dgs[r][t], U_cs[r].T, cfg.cdtype, af))
+        recs = [functools.reduce(operator.add,
+                                 [p[:, r * nd:(r + 1) * nd] for p in partials])
+                for r in range(d)]
+    return [(torch.stack(dgs[r]), recs[r], dcs[r]) for r in range(d)]
+
+
+# --- the exchange of the D > 1 designs --------------------------------------
+
+MAX_RANKS = 8          # csrc/lstm_tp.cu:kMaxRanks
+HEADER_BYTES = 512     # a buffer's flags and rank barriers (lstm_tp.cu)
+SLOTS = 3              # h slots and chunk slots, as the TPU kernel's
+LANES, BATCH_TILE = 32, 4   # a tile's units and batch rows (common.cuh)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeLayout:
+    """Byte offsets in one rank's exchange buffer: the header at 0 (flags,
+    rank barriers), the forward's h slots (SLOTS, B, N) in the compute type
+    at ``h_off``, the backward's chunks (SLOTS, D, B, nd) fp32 at
+    ``r_off``; ``nbytes`` in all."""
+
+    h_off: int
+    r_off: int
+    nbytes: int
+
+
+def _align(x: int, to: int = 256) -> int:
+    return -(-x // to) * to
+
+
+def exchange_layout(b: int, n: int, d: int, csize: int) -> ExchangeLayout:
+    """The layout of a rank's buffer at batch b, width n = D * nd and a
+    compute type of ``csize`` bytes."""
+    if d < 1 or d > MAX_RANKS or n % d:
+        raise ValueError(f"no exchange layout for D = {d}, N = {n}")
+    h_off = HEADER_BYTES
+    r_off = _align(h_off + SLOTS * b * n * csize)
+    return ExchangeLayout(h_off, r_off, _align(r_off + SLOTS * b * n * 4))
+
+
+def fwd_tiles(b: int, nd: int) -> int:
+    return nd // LANES * -(-b // BATCH_TILE)
+
+
+def bwd_tiles(b: int, n: int) -> int:
+    """The backward's product tiles run over all N columns."""
+    return n // LANES * -(-b // BATCH_TILE)
+
+
+def rank_blocks(tiles: int, groups: int, resident: int,
+                blocks: Optional[Sequence[int]] = None) -> List[int]:
+    """The blocks of each of ``groups`` rank groups of one cooperative
+    launch, of which ``resident`` blocks fit the card at once: ``blocks``
+    as given, else an even share, at most ``tiles`` a group. Every block
+    must be resident, since the groups wait on each other: raises
+    ValueError when they do not fit."""
+    if blocks is None:
+        share = resident // groups
+        if share < 1:
+            raise ValueError(f"{groups} rank groups do not fit: the card holds "
+                             f"{resident} blocks of this kernel at once")
+        blocks = [min(tiles, share)] * groups
+    blocks = [int(x) for x in blocks]
+    if len(blocks) != groups or min(blocks) < 1:
+        raise ValueError(f"blocks {blocks}: one count of at least 1 for each "
+                         f"of the {groups} rank groups")
+    if sum(blocks) > resident:
+        raise ValueError(f"{groups} rank groups of {blocks} blocks do not fit: "
+                         f"the card holds {resident} blocks of this kernel at "
+                         f"once, and the groups wait on each other")
+    return blocks
+
+
+def refused_pairs(devices: Sequence[int], can_access):
+    """The pairs (i, j) of ranks whose cards are not the same and where
+    card devices[i] may not reach card devices[j]'s memory
+    (``can_access(dev, peer)``)."""
+    return [(i, j) for i, a in enumerate(devices) for j, c in enumerate(devices)
+            if a != c and not can_access(a, c)]
+
+
+def _ok(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+class Exchange:
+    """The exchange buffers of D ranks at one (B, N, compute type):
+    ``ptrs`` every rank's buffer as this process maps it, ``own`` those it
+    allocated, ``mapped`` the peers' it opened, and the count of exchange
+    steps each direction has taken (a call's base). ``close`` releases
+    them."""
+
+    def __init__(self, lib, key, layout: ExchangeLayout, ptrs, own, mapped=(),
+                 group: Optional[mesh.AxisGroup] = None):
+        self.lib, self.key, self.layout = lib, key, layout
+        self.ptrs, self.own, self.mapped = list(ptrs), list(own), list(mapped)
+        self.group = group
+        self.steps = {"fwd": 0, "bwd": 0}
+
+    def take(self, kind: str, s: int) -> int:
+        """The base of a call of S steps, and the count moved past it."""
+        base = self.steps[kind]
+        self.steps[kind] = base + s
+        return base
+
+    def close(self, failed: bool = False):
+        """Waits for the card, unmaps the peers' buffers and, under a group,
+        waits for every rank to have unmapped this rank's before it frees
+        it. With ``failed`` (the run is ending on an error), or when the
+        card has failed, it runs no collective and frees nothing: a peer
+        may still be inside a kernel that reads the buffers, and the
+        process's end returns them; it raises the card's error, if it
+        found one."""
+        if self.lib is None:
+            return
+        lib, self.lib = self.lib, None
+        err = None
+        if not failed:
+            try:
+                torch.cuda.synchronize()
+            except RuntimeError as e:   # a sticky error: the card has failed
+                failed, err = True, e
+        codes = [("exchange_ipc_close", lib.exchange_ipc_close(p)) for p in self.mapped]
+        if failed:
+            if err is not None:
+                raise err
+            return
+        g = self.group
+        if g is not None and torch.distributed.is_initialized():
+            # no peer may still hold this rank's buffer mapped when it goes
+            mesh.all_reduce(torch.zeros(1, device=g.device), g).item()
+        codes += [("exchange_free", lib.exchange_free(p)) for p in self.own]
+        for what, code in codes:
+            _ok(code, what)
+
+
+def _alloc(lib, nbytes: int) -> int:
+    ptr = ctypes.c_void_p()
+    _ok(lib.exchange_alloc(nbytes, ctypes.byref(ptr)), "exchange_alloc")
+    return ptr.value
+
+
+def one_card_exchange(b: int, n: int, d: int, cdtype) -> Exchange:
+    """The D buffers of the one-card launch at (B, N, D, compute type) on
+    the current card; the caller passes them to every call that shares
+    them and closes them."""
+    lib = _build.load_library()
+    layout = exchange_layout(b, n, d, torch.finfo(cdtype).bits // 8)
+    ptrs = [_alloc(lib, layout.nbytes) for _ in range(d)]
+    return Exchange(lib, (b, n, d, cdtype), layout, ptrs, ptrs)
+
+
+def group_exchange(group: mesh.AxisGroup, b: int, n: int, cdtype) -> Exchange:
+    """The group's buffers at (B, N, D, compute type), made at the first
+    call and held by the group (``group.exchange``) until it closes: this
+    rank allocates its own and exports it; the handles and card numbers
+    are all-gathered over the group; every pair of cards must reach each
+    other's memory (else RuntimeError with the pairs, on every rank); the
+    peers' buffers are then mapped with CUDA IPC."""
+    key = ("tp_seq", b, n, group.size, cdtype)
+    ex = group.exchange.get(key)
+    if ex is not None:
+        return ex
+    lib = _build.load_library()
+    d, me = group.size, group.rank
+    layout = exchange_layout(b, n, d, torch.finfo(cdtype).bits // 8)
+    ptr = _alloc(lib, layout.nbytes)
+    handle = ctypes.create_string_buffer(64)
+    _ok(lib.exchange_ipc_handle(ptr, handle), "exchange_ipc_handle")
+    card = torch.cuda.current_device()
+    row = torch.tensor(list(handle.raw) + list(card.to_bytes(4, "little")),
+                       dtype=torch.uint8, device=group.device)
+    rows = mesh.all_gather(row[None], 0, group).cpu()
+    cards = [int.from_bytes(bytes(r[64:].tolist()), "little") for r in rows]
+
+    def can_access(a, c):
+        out = ctypes.c_int(0)
+        _ok(lib.exchange_can_access_peer(a, c, ctypes.byref(out)),
+            "exchange_can_access_peer")
+        return bool(out.value)
+
+    refused = refused_pairs(cards, can_access)
+    if refused:
+        _ok(lib.exchange_free(ptr), "exchange_free")
+        raise RuntimeError(
+            f"K15/K16 at D = {d}: the cards of ranks {refused} (cards {cards}) "
+            f"cannot reach each other's memory, which the kernels' exchange "
+            f"stores into; run the per-step family (EIGEN_LSTM_TP_SEQ=0) or "
+            f"on cards with peer access")
+    ptrs = []
+    for q in range(d):
+        if q == me:
+            ptrs.append(ptr)
+            continue
+        peer = ctypes.c_void_p()
+        _ok(lib.exchange_ipc_open(bytes(rows[q, :64].tolist()), ctypes.byref(peer)),
+            f"exchange_ipc_open (rank {q})")
+        ptrs.append(peer.value)
+    ex = group.exchange[key] = Exchange(lib, key, layout, ptrs, [ptr],
+                                        [p for q, p in enumerate(ptrs) if q != me],
+                                        group)
+    return ex
+
+
+def _resident(lib, bwd: int, ctype: int, rtype: int) -> int:
+    out = ctypes.c_int(0)
+    _ok(lib.tp_seq_ranks_resident(bwd, ctype, rtype, ctypes.byref(out)),
+        "tp_seq_ranks_resident")
+    return out.value
+
+
+def _ptrs(xs):
+    return (ctypes.c_void_p * len(xs))(*xs)
+
+
+def _ints(xs):
+    return (ctypes.c_int * len(xs))(*xs)
+
+
+def _fwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
+               rtype: int):
+    """One launch of the D-rank forward for the groups of ``ranks``, each
+    with its (U_c, xw, h0_full, c0): (their outputs, the launches)."""
+    s, b, nd4 = ins[0][1].shape
+    nd, n, dev = nd4 // 4, ins[0][2].shape[1], ins[0][1].device
+    d = len(ex.ptrs)
+    blocks = rank_blocks(fwd_tiles(b, nd), len(ranks),
+                         _resident(ex.lib, 0, ctype, rtype), blocks)
+    f32, keep = torch.float32, []
+    e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
+    for U_c, xw, h0_full, c0 in ins:
+        keep.append(dict(
+            U=U_c.to(cfg.cdtype).contiguous(), xw=xw.to(f32).contiguous(),
+            h0=h0_full.to(cfg.cdtype).contiguous(), c=c0.to(f32).clone().contiguous(),
+            hseq=e(s, b, nd), gseq=e(s, b, 4 * nd, dtype=cfg.rdtype),
+            cprev=e(s, b, nd, dtype=cfg.rdtype), hT=e(b, nd), cT=e(b, nd)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("U", "xw", "h0", "c", "hseq", "gseq", "cprev", "hT", "cT")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_fwd_ranks_launch(
+        ctype, rtype, len(ranks), _ints(ranks), _ints(blocks), *cols, d,
+        _ptrs(ex.ptrs), ex.layout.h_off, ex.take("fwd", s), s, b, n, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_fwd_ranks_launch")
+    return [(t["hseq"], t["gseq"], t["cprev"], t["hT"], t["cT"]) for t in keep], \
+        launched.value
+
+
+def _bwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
+               rtype: int):
+    """One launch of the D-rank backward for the groups of ``ranks``, each
+    with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT): (their (dg, dh0,
+    dc0), the launches)."""
+    s, b, nd4 = ins[0][1].shape
+    nd, dev = nd4 // 4, ins[0][1].device
+    n = ins[0][0].shape[0]
+    d = len(ex.ptrs)
+    blocks = rank_blocks(bwd_tiles(b, n), len(ranks),
+                         _resident(ex.lib, 1, ctype, rtype), blocks)
+    f32, keep = torch.float32, []
+    for U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT in ins:
+        keep.append(dict(
+            UT=U_c.to(cfg.cdtype).T.contiguous(), gseq=g_seq.contiguous(),
+            cprev=c_prev.contiguous(), cT=cT.to(f32).contiguous(),
+            dhseq=dh_seq.to(f32).contiguous(), dhT=dhT.to(f32).contiguous(),
+            dc=dcT.to(f32).clone().contiguous(),
+            dg=torch.empty(s, b, 4 * nd, dtype=f32, device=dev),
+            dh0=torch.empty(b, nd, dtype=f32, device=dev)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("UT", "gseq", "cprev", "cT", "dhseq", "dhT", "dc", "dg", "dh0")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_bwd_ranks_launch(
+        ctype, rtype, len(ranks), _ints(ranks), _ints(blocks), *cols, d,
+        _ptrs(ex.ptrs), ex.layout.r_off, ex.take("bwd", s), s, b, n, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_bwd_ranks_launch")
+    return [(t["dg"], t["dh0"], t["dc"]) for t in keep], launched.value
+
+
+def _fwd_types(cfg: ModelConfig, dev, nd: int):
+    ctype = _card(cfg, dev, nd)
+    if cfg.pdtype != torch.float32 or cfg.rdtype not in cuda_cell._TYPE_CODES:
+        raise TypeError(f"K15 takes float32 params and float32/bfloat16 "
+                        f"residuals, not {cfg.param_dtype}/{cfg.residual_dtype}")
+    return ctype, cuda_cell._TYPE_CODES[cfg.rdtype]
+
+
+def _bwd_types(cfg: ModelConfig, dev, nd: int, g_seq, c_prev):
+    ctype = _card(cfg, dev, nd)
+    if g_seq.dtype not in cuda_cell._TYPE_CODES or c_prev.dtype != g_seq.dtype:
+        raise TypeError(f"K16 takes float32/bfloat16 residuals, got "
+                        f"{g_seq.dtype}/{c_prev.dtype}")
+    return ctype, cuda_cell._TYPE_CODES[g_seq.dtype]
 
 
 def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
-    """The TP window: K15 on the card (D = 1), in the design
-    ``cuda_cell_tiled.device_split_fwd_plan`` gives, the plain version on
-    the CPU. Returns as ``tp_seq_fwd_plain``."""
+    """The TP window: K15 on the card, at D = 1 in the design
+    ``cuda_cell_tiled.device_split_fwd_plan`` gives, at D > 1 the exchange
+    design through the group's buffers; the plain version on the CPU.
+    Returns as ``tp_seq_fwd_plain``."""
     s, b, nd4 = xw.shape
     nd = nd4 // 4
     n = h0_full.shape[1]
@@ -151,12 +510,13 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
         _check(name, x, shape, dev)
     if dev.type == "cpu":
         return tp_seq_fwd_plain(U_c, xw, h0_full, c0, cfg, group)
-    _d1(group, dev, "K15")
-    ctype = _card(cfg, dev, nd)
-    if cfg.pdtype != torch.float32 or cfg.rdtype not in cuda_cell._TYPE_CODES:
-        raise TypeError(f"K15 takes float32 params and float32/bfloat16 "
-                        f"residuals, not {cfg.param_dtype}/{cfg.residual_dtype}")
-    rtype = cuda_cell._TYPE_CODES[cfg.rdtype]
+    ctype, rtype = _fwd_types(cfg, dev, nd)
+    if group is not None and group.size > 1:
+        (out,), launched = _fwd_ranks(group_exchange(group, b, n, cfg.cdtype),
+                                      [group.rank], None,
+                                      [(U_c, xw, h0_full, c0)], cfg, ctype, rtype)
+        tp_seq_fwd.launches += launched
+        return out
     lib = _build.load_library()
     layout = ct.device_split_fwd_plan(cfg, b, n)   # D = 1: nd == n
     f32 = torch.float32
@@ -183,9 +543,10 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
 
 def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
-    """The TP reverse window: K16 on the card (D = 1), in the design
-    ``cuda_cell_bwd.device_k6_plan`` gives, the plain version on the CPU.
-    Returns as ``tp_seq_bwd_plain``."""
+    """The TP reverse window: K16 on the card, at D = 1 in the design
+    ``cuda_cell_bwd.device_k6_plan`` gives, at D > 1 the exchange design
+    through the group's buffers; the plain version on the CPU. Returns as
+    ``tp_seq_bwd_plain``."""
     s, b, nd4 = g_seq.shape
     nd = nd4 // 4
     n = U_c.shape[0]
@@ -197,12 +558,13 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
     if dev.type == "cpu":
         return tp_seq_bwd_plain(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg,
                                 group)
-    _d1(group, dev, "K16")
-    ctype = _card(cfg, dev, nd)
-    if g_seq.dtype not in cuda_cell._TYPE_CODES or c_prev.dtype != g_seq.dtype:
-        raise TypeError(f"K16 takes float32/bfloat16 residuals, got "
-                        f"{g_seq.dtype}/{c_prev.dtype}")
-    rtype = cuda_cell._TYPE_CODES[g_seq.dtype]
+    ctype, rtype = _bwd_types(cfg, dev, nd, g_seq, c_prev)
+    if group is not None and group.size > 1:
+        (out,), launched = _bwd_ranks(
+            group_exchange(group, b, n, cfg.cdtype), [group.rank], None,
+            [(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT)], cfg, ctype, rtype)
+        tp_seq_bwd.launches += launched
+        return out
     lib = _build.load_library()
     f32 = torch.float32
     gs, cs = g_seq.contiguous(), c_prev.contiguous()
@@ -243,6 +605,98 @@ tp_seq_fwd.launches = 0
 tp_seq_bwd.launches = 0
 
 
+def _one_card(xs, what: str, exchange: Optional[Exchange], key):
+    """The device of the D shards, one device; on a card, ``exchange`` must
+    be buffers of ``key``."""
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError(f"{what}: the D shards lie on {[x.device for x in xs]}, "
+                         f"not on one device")
+    if dev.type != "cpu" and (exchange is None or exchange.key != key):
+        raise ValueError(f"{what} on {dev} takes the one-card buffers of "
+                         f"(B, N, D, compute type) = {key} "
+                         f"(one_card_exchange), not {exchange and exchange.key}")
+    return dev
+
+
+def tp_seq_fwd_ranks(U_cs: Sequence, xws: Sequence, h0_full, c0s: Sequence,
+                     cfg: ModelConfig, exchange: Optional[Exchange] = None,
+                     blocks: Optional[Sequence[int]] = None):
+    """K15 at D = len(U_cs) ranks on one card: one launch of the exchange
+    design with D rank groups, group r playing rank r on U_cs[r], xws[r],
+    c0s[r] and the full h0, through ``exchange``, the card's D buffers
+    (``one_card_exchange``); ``blocks`` the blocks of each group
+    (``rank_blocks``). The plain version on the CPU. A list of D outputs
+    as ``tp_seq_fwd_plain``'s."""
+    d, (s, b, nd4) = len(U_cs), xws[0].shape
+    nd = nd4 // 4
+    n = h0_full.shape[1]
+    dev = _one_card(list(U_cs) + list(xws) + list(c0s) + [h0_full], "K15",
+                    exchange, (b, n, d, cfg.cdtype))
+    if n != d * nd:
+        raise ValueError(f"K15: h0_full is {n} wide, not D * nd = {d * nd}")
+    for r in range(d):
+        for name, x, shape in (("U", U_cs[r], (n, 4 * nd)), ("xw", xws[r], (s, b, 4 * nd)),
+                               ("c0", c0s[r], (b, nd))):
+            _check(f"{name}[{r}]", x, shape, dev)
+    _check("h0_full", h0_full, (b, n), dev)
+    if dev.type == "cpu":
+        return tp_seq_fwd_ranks_plain(U_cs, xws, h0_full, c0s, cfg)
+    ctype, rtype = _fwd_types(cfg, dev, nd)
+    h0_c = h0_full.to(cfg.cdtype).contiguous()   # one copy for the D groups
+    outs, launched = _fwd_ranks(exchange, list(range(d)), blocks,
+                                [(U_cs[r], xws[r], h0_c, c0s[r]) for r in range(d)],
+                                cfg, ctype, rtype)
+    tp_seq_fwd_ranks.launches += launched
+    return outs
+
+
+def tp_seq_bwd_ranks(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
+                     cTs: Sequence, dh_seqs: Sequence, dhTs: Sequence,
+                     dcTs: Sequence, cfg: ModelConfig,
+                     exchange: Optional[Exchange] = None,
+                     blocks: Optional[Sequence[int]] = None):
+    """K16 at D = len(U_cs) ranks on one card, as ``tp_seq_fwd_ranks``:
+    every argument by rank. A list of D (dg, dh0, dc0)."""
+    d, (s, b, nd4) = len(U_cs), g_seqs[0].shape
+    nd = nd4 // 4
+    n = U_cs[0].shape[0]
+    ins = [(U_cs[r], g_seqs[r], c_prevs[r], cTs[r], dh_seqs[r], dhTs[r], dcTs[r])
+           for r in range(d)]
+    dev = _one_card([x for xs in ins for x in xs], "K16", exchange,
+                    (b, n, d, cfg.cdtype))
+    if n != d * nd:
+        raise ValueError(f"K16: U is {n} wide, not D * nd = {d * nd}")
+    for r, (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT) in enumerate(ins):
+        for name, x, shape in (("U", U_c, (n, 4 * nd)), ("g_seq", g_seq, (s, b, 4 * nd)),
+                               ("c_prev", c_prev, (s, b, nd)), ("cT", cT, (b, nd)),
+                               ("dh_seq", dh_seq, (s, b, nd)), ("dhT", dhT, (b, nd)),
+                               ("dcT", dcT, (b, nd))):
+            _check(f"{name}[{r}]", x, shape, dev)
+    if dev.type == "cpu":
+        return tp_seq_bwd_ranks_plain(U_cs, g_seqs, c_prevs, cTs, dh_seqs, dhTs,
+                                      dcTs, cfg)
+    ctype, rtype = _bwd_types(cfg, dev, nd, g_seqs[0], c_prevs[0])
+    outs, launched = _bwd_ranks(exchange, list(range(d)), blocks, ins, cfg,
+                                ctype, rtype)
+    tp_seq_bwd_ranks.launches += launched
+    return outs
+
+
+tp_seq_fwd_ranks.launches = 0
+tp_seq_bwd_ranks.launches = 0
+
+
+def window_dU(h0_full, h_all, dg, cfg: ModelConfig):
+    """dU of a window, the product outside K16 (``pallas_tp_seq.py:315-325``):
+    round(h_prev)^T round(dg) with fp32 sums, h_prev the full h0, then the
+    full h_seq (S, B, N) but its last step; dg (S, B, 4nd)."""
+    s, b, nd4 = dg.shape
+    h_prev = torch.cat([h0_full[None].to(h_all.dtype), h_all[:-1]])
+    return cell_ops.matmul(h_prev.reshape(s * b, -1).T, dg.reshape(s * b, nd4),
+                           cfg.cdtype, cuda_cell._acc_dtype(cfg))
+
+
 class TPSeq(torch.autograd.Function):
     """The window of one shard, differentiable in U_c, xw, h0_d and c0_d:
     the JAX custom VJP of ``_make_tp_seq``. With ``plain`` both halves run
@@ -269,11 +723,7 @@ class TPSeq(torch.autograd.Function):
         dcT = zeros(cT) if dcT is None else dcT.to(af)
         bwd = tp_seq_bwd_plain if ctx.plain else tp_seq_bwd
         dg, dh0, dc0 = bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg, group)
-        s, b, nd4 = dg.shape
-        h_all = mesh.all_gather(h_seq, 2, group)
-        h_prev = torch.cat([h0_full[None].to(h_all.dtype), h_all[:-1]])
-        dU = cell_ops.matmul(h_prev.reshape(s * b, -1).T, dg.reshape(s * b, nd4),
-                             cfg.cdtype, af)
+        dU = window_dU(h0_full, mesh.all_gather(h_seq, 2, group), dg, cfg)
         xd, hd, cd = ctx.dtypes
         return dU.to(U_c.dtype), dg.to(xd), dh0.to(hd), dc0.to(cd), None, None, None
 

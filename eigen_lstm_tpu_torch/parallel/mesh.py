@@ -26,6 +26,15 @@ mesh whose size differs from the run's process count, or that asks on the
 card for more devices than ``torch.cuda.device_count()``, raises
 ``SystemExit`` with the reason: there is no silent fall-back to one device.
 
+An axis also holds the exchange buffers that K15 and K16 store into at
+D > 1 (``exchange``, made and keyed by ``ops/cuda_tp_seq.py``: one
+``cudaMalloc`` a rank, the peers' mapped through CUDA IPC); closing the
+axis, or the mesh that holds it, releases them before its process group
+ends. ``close(failed=True)``, for a run that ends on an error, runs no
+collective: it unmaps the peers' buffers and leaves the rest to the
+process's end. The process group ends even when releasing a buffer
+raises.
+
 At size 1 the collectives still run through their group, so the code that
 runs is the code of larger axes. ``group=None`` means no group at all,
 size 1 with no collective (the single-device tests of the TP functions).
@@ -49,8 +58,10 @@ from ..config import MeshConfig
 class AxisGroup:
     """One axis of the mesh: this process's rank on it, the axis size, the
     device its shards live on and the process group of its collectives
-    (``pg`` None: the default group, every process of the run). ``close``
-    ends the process group if this object started it."""
+    (``pg`` None: the default group, every process of the run), and the
+    kernels' exchange buffers over it, by key, each with a ``close``.
+    ``close`` releases those, then ends the process group if this object
+    started it (``failed``: the run ends on an error)."""
 
     rank: int
     size: int
@@ -58,9 +69,10 @@ class AxisGroup:
     owns: bool = False
     tmpdir: Optional[str] = None
     pg: Any = None
+    exchange: dict = dataclasses.field(default_factory=dict)
 
-    def close(self):
-        _close(self)
+    def close(self, failed: bool = False):
+        _close(self, failed)
 
 
 # the model axis: the whole run under ``--tp N`` alone, a mesh's row under
@@ -92,17 +104,34 @@ class ProcessMesh:
                 r = r * axis.size + axis.rank
         return r
 
-    def close(self):
-        _close(self)
+    def close(self, failed: bool = False):
+        _close(self, failed)
 
 
-def _close(obj):
-    if obj.owns and dist.is_initialized():
-        dist.destroy_process_group()
-    obj.owns = False
-    if obj.tmpdir:
-        shutil.rmtree(obj.tmpdir, ignore_errors=True)
-        obj.tmpdir = None
+def _close(obj, failed: bool = False):
+    axes = [obj] if isinstance(obj, AxisGroup) else [
+        obj.data, obj.seq, obj.stage, obj.model]
+    err = None
+    try:
+        for axis in axes:
+            if axis is not None:
+                buffers, axis.exchange = list(axis.exchange.values()), {}
+                for b in buffers:
+                    try:
+                        b.close(failed)
+                    except Exception as e:
+                        # the card has failed: the other buffers are
+                        # released without a collective, then it is raised
+                        failed, err = True, err or e
+        if err is not None:
+            raise err
+    finally:
+        if obj.owns and dist.is_initialized():
+            dist.destroy_process_group()
+        obj.owns = False
+        if obj.tmpdir:
+            shutil.rmtree(obj.tmpdir, ignore_errors=True)
+            obj.tmpdir = None
 
 
 def _start(n: int, device, store_path: Optional[str], rank: Optional[int],

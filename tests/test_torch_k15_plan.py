@@ -11,8 +11,9 @@ So under bf16 compute, wherever ``cuda_cell_tiled.split_fwd_plan`` gives a
 layout, it runs the persistent tensor-core forward
 (``csrc/fwd_mma.cuh:fwd_persist`` with K15's streams, through
 ``tp_seq_fwd_launch``); fp32 keeps the cooperative CUDA-core design. At
-D > 1 the wrapper raises: the kernel's exchange of h across the cards is
-not written.
+D > 1 it takes the exchange design through the group's buffers
+(tests/test_torch_tp_seq_exchange.py), and raises before any launch where
+the group's cards cannot reach each other's memory.
 
 The device numbers are an H100 SXM's (132 SMs, 232,448 bytes of shared
 memory a block may opt in to). The routing is checked without a card: the
@@ -36,6 +37,7 @@ from eigen_lstm_tpu_torch import ModelConfig
 from eigen_lstm_tpu_torch.ops import _build, cuda_cell
 from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 from eigen_lstm_tpu_torch.ops import cuda_tp_seq as ts
+from eigen_lstm_tpu_torch.parallel import mesh
 
 SMS, SMEM = 132, 232_448
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -150,17 +152,31 @@ def test_card_path_launches_the_planned_design(routed, dtype, residual):
     assert a[11:18] == (s, b, n, n, 0) + plan
 
 
-def test_d2_still_raises(routed):
-    """A group of two: the in-kernel exchange of h across the cards is not
-    written, so the wrapper raises before any launch."""
+def test_d2_still_raises(routed, monkeypatch):
+    """A group of two whose cards cannot reach each other's memory (cards 0
+    and 1, peer access refused): the exchange design stores into the
+    peer's buffer, so the wrapper raises with the pair and names the
+    per-step family, before any launch, and keeps no buffers."""
     lib = routed[0]
+    lib.exchange_alloc = lambda nbytes, ptr: setattr(ptr._obj, "value", 1 << 40) or 0
+    lib.exchange_ipc_handle = lambda ptr, handle: 0
+    lib.exchange_can_access_peer = lambda dev, peer, can: 0   # *can stays 0
+    lib.exchange_free = lambda ptr: 0
+
+    def two_cards(row, dim, group):
+        other = row.clone()
+        other[0, 64] = 1
+        return torch.cat([row, other], dim)
+
+    monkeypatch.setattr(ts.mesh, "all_gather", two_cards)
+    group = mesh.AxisGroup(0, 2, torch.device("cpu"))
     cfg = _cfg()
     U_c, xw, h0_full, c0 = _meta_window(cfg, 3, 16, 512)
     nd = 256
-    with pytest.raises(NotImplementedError, match="D = 2"):
+    with pytest.raises(RuntimeError, match=r"ranks \[\(0, 1\), \(1, 0\)\].*EIGEN_LSTM_TP_SEQ=0"):
         ts.tp_seq_fwd(U_c[:, :4 * nd], xw[..., :4 * nd], h0_full, c0[:, :nd],
-                      cfg, types.SimpleNamespace(size=2))
-    assert lib.calls == []
+                      cfg, group)
+    assert lib.calls == [] and group.exchange == {}
 
 
 @pytest.mark.parametrize("variant", ["reference", "standard"])

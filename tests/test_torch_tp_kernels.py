@@ -4,8 +4,8 @@ CPU: ``ops/cuda_tp_cell.py`` (K13, K14 and ``TPStep``) against
 and ``ops/cuda_tp_seq.py`` (K15, K16 and ``TPSeq``) at D = 1 against
 ``pallas_tp_seq.py:tp_seq_lstm``, whose Pallas kernels run here in
 interpret mode as ``tests/test_tp_seq.py`` runs them; then the wrappers'
-rules on the card (a CUDA tensor launches or raises; K15 and K16 raise at
-D > 1), with a stand-in CUDA tensor.
+rules on the card (a CUDA tensor launches or raises, at any D), with a
+stand-in CUDA tensor.
 
 Tolerances: fp32 rtol 1e-5 / atol 1e-6 on the forward, 1e-4 / 1e-6 on the
 gradients (``tests/test_tp.py``). float64: the JAX functions compute in
@@ -265,9 +265,9 @@ def test_wrappers_run_plain_on_the_cpu_without_a_launch(monkeypatch):
 
 def test_the_card_launches_or_raises(monkeypatch):
     """On a CUDA tensor each wrapper reaches its kernel's launcher (stubbed
-    to raise) and never its plain version; a float64 model, a shard width
-    off the 32-unit tile, and K15 / K16 at D > 1 raise before any build,
-    the last naming the in-kernel exchange that D cards need."""
+    to raise) and never its plain version, K15 / K16 at D > 1 too (their
+    exchange design, through the group's buffers); a float64 model and a
+    shard width off the 32-unit tile raise before any build."""
     def launcher():
         raise RuntimeError("launcher reached")
 
@@ -294,8 +294,10 @@ def test_the_card_launches_or_raises(monkeypatch):
             call(_cfgs("float64", "reference")[0], None)
     two = TPGroup(rank=0, size=2, device=torch.device("cuda"))
     for call in calls[2:]:
-        with pytest.raises(NotImplementedError, match="exchange of h across the D cards"):
+        with pytest.raises(RuntimeError, match="launcher reached"):
             call(tcfg, two)
+        with pytest.raises(TypeError, match="float32/bfloat16"):
+            call(_cfgs("float64", "reference")[0], two)
     with pytest.raises(ValueError, match="not a multiple of 32"):
         tcell.tp_step_fwd(*_fake(*map(torch.from_numpy, _step_inputs(48, "float32"))),
                           tcfg)
