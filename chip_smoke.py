@@ -54,8 +54,8 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
          parameters, accumulators, cursors and stream state), train_bpc
          beside the JAX package's 2.5572 on its TPU and its CPU value from
-         the same start, the root band, and the same run with K4's
-         CUDA-core design; then each of the first six supersteps' mean
+         the same start and the root band; its first six supersteps
+         again with K4's CUDA-core design; then each of those supersteps' mean
          bits beside the JAX package's and the port's on the CPU from the
          same start (the committed trajectories), against the spread of
          the port's own-start bench over three seeds and the port's own
@@ -232,28 +232,35 @@ Phase 14 pipeline parallelism at S = 1, the stage's layers through the
          (each chunk's weight gradient rounded to bf16) within 5 half-ulps
          of bf16 of their largest entry; the largest differences printed.
 
-Phase 15 K15 and K16 at D > 1 on the one card: the exchange designs'
+Phase 15 K15 and K16 at D > 1 on the one card: the D-rank designs'
          device code, launched as D rank groups of one cooperative launch
          (``tp_seq_fwd_ranks``, ``tp_seq_bwd_ranks``; the peer table the
          card's D buffers), at the bench's shapes (1x512, S = 100, B =
          128, fp32 residuals) for D = 2 and 4 and at the flagship's layer
-         shapes (N = 1024, S = 256) for D = 2, bf16 and fp32, the weights
-         through the TP gate permutation: every rank's every step, forward
-         and reverse, replayed from the kernel's own state (the 1e-4 of
-         11a), the fp32 windows at the bench's shapes against the D-rank
-         plain versions (the flagship's printed beside the D = 1 design's
-         own distance from its plain version); the
-         forward bit for bit the D = 1 cooperative design on the
-         unpermuted weights; 10 calls on the same buffers and, at the
-         bench's shapes, rank 0 given one block (so it lags), each the
-         first call's bits; times
-         beside the bound (the inputs and outputs at the whole width; the
-         exchange's bytes printed apart, with their time at NVLink's
-         rate), the plain versions, cuDNN and the D = 1 cooperative design; a
-         buffer of the library's IPC allocator opened in a child process
-         that loads the library with ctypes alone and writes a pattern
-         the parent reads back; the launches of one D-rank window (one
-         each). Runs on several cards are not part of it.
+         shapes (N = 1024, S = 256) for D = 2, the weights through the TP
+         gate permutation; in bf16 the persistent tensor-core designs the
+         wrappers take (``csrc/lstm_tp_persist.cu``) and the cooperative
+         ones forced, in fp32 the cooperative ones. Each design: every
+         rank's every step, forward and reverse, replayed from the
+         kernel's own state (the 1e-4 of 11a); the forward bit for bit its
+         D = 1 counterpart on the unpermuted weights (the persistent
+         design with the D = 1 layout's rows the D = 1 persistent K15, the
+         cooperative one the D = 1 cooperative design); 10 calls on the
+         same buffers and a lagging rank 0 (persistent: a forward of one
+         block row, replayed, and a backward of the fewest row blocks;
+         cooperative: one block, at the bench's shapes), each the first
+         call's bits; times beside the bound (the inputs and outputs at
+         the whole width; the exchange's bytes printed apart, with their
+         time at NVLink's rate), the plain versions, cuDNN, the D = 1
+         cooperative design and, in bf16, the other design in the same
+         call (the persistent must be faster). The fp32 windows at the
+         bench's shapes against the D-rank plain versions (the rest
+         printed beside the D = 1 design's own distance from its plain
+         version); a buffer of the library's IPC allocator opened in a
+         child process that loads the library with ctypes alone and
+         writes a pattern the parent reads back; the launches and the
+         launchers of one D-rank window in each design (one each). Runs
+         on several cards are not part of it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -1395,10 +1402,11 @@ def bench_means(argv, supersteps):
     return means
 
 
-def bench_from_jax_start(args):
-    """The bench's whole schedule from the JAX bench's step-0 state through
-    the port's bench Trainer on the card: (step on restore, steps run,
-    seconds, the warm-up supersteps' mean bits, train_bpc)."""
+def bench_from_jax_start(args, supersteps=None):
+    """The bench's whole schedule (or its first ``supersteps``) from the JAX
+    bench's step-0 state through the port's bench Trainer on the card:
+    (step on restore, steps run, seconds, the warm-up supersteps' mean
+    bits, the last superstep's mean: train_bpc for the whole schedule)."""
     from eigen_lstm_tpu_torch import bench
 
     trainer = bench.make_trainer(args)
@@ -1407,7 +1415,7 @@ def bench_from_jax_start(args):
     warmup, windows, per_window = bench.schedule(args)
     means = []
     t0 = time.perf_counter()
-    for _ in range(warmup + windows * per_window):
+    for _ in range(warmup + windows * per_window if supersteps is None else supersteps):
         trainer.state, metrics = trainer.dispatch_superstep()
         if len(means) < warmup:
             means.append(float(metrics["bits_mean"]))
@@ -1422,9 +1430,9 @@ def phase6d(own_bpc):
     accumulators, cursors and stream state the JAX PRNG drew, then the same
     steps on the card. train_bpc printed beside the JAX package's on its
     TPU and on the CPU from the same start, the root band and the port's
-    own start (6b). The same run again with K4 on
-    its CUDA-core design, whose bits and lse differ only in the order of
-    fp32 sums (phase 5). Then the first supersteps beside the JAX
+    own start (6b). Its warm-up supersteps again with K4 on its CUDA-core
+    design, whose bits and lse differ only in the order of fp32 sums
+    (phase 5). Then the first supersteps beside the JAX
     package's and the port's on the CPU from the same start (the committed
     trajectories), each difference against two thresholds: the spread of
     the port's own-start bench over SPREAD_SEEDS, and the order spread,
@@ -1438,7 +1446,7 @@ def phase6d(own_bpc):
     args = build_parser().parse_args(bench.DEFAULT_ARGV)
     start, steps, dt, means, bpc = bench_from_jax_start(args)
     with cuda_core_head():
-        _, _, _, means_o, bpc_o = bench_from_jax_start(args)
+        _, _, _, means_o, _ = bench_from_jax_start(args, supersteps=len(means))
     with open(JAX_FULL_TRAJECTORY) as f:
         jax_cpu_bpc = json.load(f)["supersteps"][-1]["bits_mean"]
     lo, hi = bench.BPC_BAND
@@ -1449,9 +1457,7 @@ def phase6d(own_bpc):
           f"TPU: {bpc - JAX_BENCH_BPC:+.4f}, and its {jax_cpu_bpc:.4f} on the "
           f"CPU from the same start: {bpc - jax_cpu_bpc:+.4f}; the root band ({lo}, {hi}) "
           f"{'met' if lo <= bpc <= hi else 'NOT met'}; from the port's own "
-          f"start (6b) {own_bpc}; from the JAX start with K4's CUDA-core "
-          f"design (only the order of the head's fp32 sums differs) "
-          f"{bpc_o:.4f} (reported, not gated)", flush=True)
+          f"start (6b) {own_bpc} (reported, not gated)", flush=True)
     with open(JAX_TRAJECTORY) as f:
         jax_means = [x["bits_mean"] for x in json.load(f)["supersteps"]]
     with open(PORT_CPU_TRAJECTORY) as f:
@@ -5097,6 +5103,113 @@ def ipc_round_trip():
         fail("phase 15: the IPC round trip between two processes failed")
 
 
+@contextlib.contextmanager
+def cooperative_ranks():
+    """K15's and K16's D-rank wrappers take their cooperative design inside
+    the block, whatever ``ranks_fwd_plan`` and ``ranks_bwd_plan`` would
+    choose: for the checks and times of that design where bf16 takes the
+    persistent one."""
+    from eigen_lstm_tpu_torch.ops import cuda_tp_seq as ts
+
+    plans = ts.device_ranks_fwd_plan, ts.device_ranks_bwd_plan
+    ts.device_ranks_fwd_plan = ts.device_ranks_bwd_plan = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        ts.device_ranks_fwd_plan, ts.device_ranks_bwd_plan = plans
+
+
+class CountingLibrary:
+    """The kernels' library, counting the calls of each C entry point made
+    through it (an exchange's ``lib``): which launcher a wrapper took."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args)
+        return call
+
+
+PERSIST_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_persist.cu"
+
+
+def ranks_design(design, tag, U_cs, xws, h0, c0s, bargs, cfg, ex, one_ref, lag):
+    """One D-rank design of K15 and K16 on the one card (the wrappers'
+    choice, or the cooperative design inside ``cooperative_ranks``): every
+    rank's every step replayed; the forward against ``one_ref`` (the D = 1
+    design of the same sums on the unpermuted weights, bit for bit: h_seq,
+    g through ``perm``, c_prev, hT, cT; None: not compared); X_REPEATS
+    calls on the same buffers, each the first call's bits; ``lag`` a
+    lagging group's call: (forward kwargs, backward kwargs, bits) where
+    bits says whether the forward's lag keeps the bits (the cooperative
+    design's split does, the persistent forward's fewer rows move the
+    sums, so its lagging call is replayed instead; the persistent
+    backward's fewer row blocks keep them). Returns (forward outputs,
+    backward outputs, the forward's and backward's replay errors)."""
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell as tc, cuda_tp_seq as ts
+
+    fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
+    rel = ranks_fwd_check(tc, U_cs, xws, h0, c0s, cfg, fwd, f"{tag} {design}")
+    if one_ref is not None:
+        one, perm = one_ref
+        cat = lambda k: torch.cat([o[k] for o in fwd], -1)
+        same1 = [torch.equal(cat(0), one[0]), torch.equal(cat(1), one[1][..., perm]),
+                 torch.equal(cat(2), one[2]), torch.equal(cat(3), one[3]),
+                 torch.equal(cat(4), one[4])]
+        print(f"  K15 {tag} {design}: bit for bit the D = 1 {design} design on the "
+              f"unpermuted weights (h_seq, g, c_prev, hT, cT): {same1}", flush=True)
+        if not all(same1):
+            fail(f"K15 {tag} {design}: the D = 1 design's bits {same1}")
+    bargs = (U_cs, [o[1] for o in fwd], [o[2] for o in fwd], [o[4] for o in fwd]) + bargs
+    bwd = ts.tp_seq_bwd_ranks(*bargs, ex)
+    rep = ranks_bwd_replay(*bargs, [o[0] for o in bwd])
+    torch.cuda.synchronize()
+    brel = max(norm_err(a, p) for o, q in zip(bwd, rep) for a, p in zip(o, q))
+    print(f"  K16 {tag} {design}: every rank's every reverse step, dh0, dc0 within "
+          f"{brel:.3e} of the plain replay from its own dg (tol {TRAIN_TOL:g})",
+          flush=True)
+    if not (np.isfinite(brel) and brel <= TRAIN_TOL):
+        fail(f"K16 {tag} {design}: replay {brel:.3e}")
+    calls = [(ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
+              ts.tp_seq_bwd_ranks(*bargs, ex)) for _ in range(X_REPEATS)]
+    lagged = ""
+    if lag is not None:
+        fkw, bkw, fbits = lag
+        lf = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex, **fkw)
+        lb = ts.tp_seq_bwd_ranks(*bargs, ex, **bkw)
+        if fbits:
+            calls.append((lf, lb))
+        else:
+            calls.append((fwd, lb))
+            lrel = ranks_fwd_check(tc, U_cs, xws, h0, c0s, cfg, lf,
+                                   f"{tag} {design}, lagging rank 0")
+            lbargs = (U_cs, [o[1] for o in lf], [o[2] for o in lf],
+                      [o[4] for o in lf]) + bargs[4:]
+            lb2 = ts.tp_seq_bwd_ranks(*lbargs, ex, **bkw)
+            lrep = ranks_bwd_replay(*lbargs, [o[0] for o in lb2])
+            torch.cuda.synchronize()
+            lbrel = max(norm_err(a, p) for o, q in zip(lb2, lrep) for a, p in zip(o, q))
+            print(f"  K16 {tag} {design}, lagging rank 0 after the lagging forward: "
+                  f"replay {lbrel:.3e} (tol {TRAIN_TOL:g}); the forward's {lrel:.3e}",
+                  flush=True)
+            if not (np.isfinite(lbrel) and lbrel <= TRAIN_TOL):
+                fail(f"K16 {tag} {design} lagging: replay {lbrel:.3e}")
+        lagged = (f"rank 0 lagging (forward {fkw}, backward {bkw}; "
+                  f"{'each' if fbits else 'the backward'} the first call's bits) and ")
+    torch.cuda.synchronize()
+    same = [_same(f, fwd) and _same(g, bwd) for f, g in calls]
+    print(f"  K15/K16 {tag} {design}: {lagged}{X_REPEATS} calls on the same buffers, "
+          f"each the first call's bits: {sum(same)} of {len(same)}", flush=True)
+    if not all(same):
+        fail(f"K15/K16 {tag} {design}: a lagging or repeated call moved the bits: {same}")
+    return fwd, bwd, rel, brel
+
+
 def phase15(records, smi):
     """K15 and K16 at D > 1 on the one card: one cooperative launch of D rank
     groups (``tp_seq_fwd_ranks``, ``tp_seq_bwd_ranks``), the device code each
@@ -5104,19 +5217,26 @@ def phase15(records, smi):
     bench's shapes (1x512, S = 100, B = 128, fp32 residuals; the 1x512
     checkpoint's U and W on a bible.txt window) for D = 2 and 4 and at the
     flagship's layer shapes (N = 1024, S = 256, B = 128; its layer 1) for
-    D = 2, bf16 and fp32, the weights through the TP gate permutation: every
-    rank's forward step and reverse step replayed from the kernel's own
-    state (TRAIN_TOL), the fp32 windows at the bench's shapes against the
-    D-rank plain versions (where 11a gates K15's and K16's; the flagship's
-    printed beside the D = 1 design's own distance);
-    the forward bit for bit the D = 1 cooperative design on the unpermuted
-    weights; X_REPEATS calls on the same buffers and, at the bench's
-    shapes, a skewed split (rank 0 one block) bit for bit the first call; times beside the bound, the
-    plain versions, cuDNN and the D = 1 cooperative design at the same
-    total shapes. Then the IPC round trip between two processes, and the
-    launch counts of one D-rank window (the bench's bf16 at D = 2)."""
+    D = 2, the weights through the TP gate permutation; bf16 in both
+    designs (the persistent one the wrappers take, the cooperative one
+    forced), fp32 in the cooperative one. Each design: every rank's forward
+    step and reverse step replayed from the kernel's own state (TRAIN_TOL);
+    the forward bit for bit its D = 1 counterpart on the unpermuted weights
+    (the persistent design with the D = 1 layout's rows the D = 1
+    persistent K15, the cooperative one the D = 1 cooperative design);
+    X_REPEATS calls on the same buffers and a lagging rank 0 (the
+    persistent design: a forward of one block row and a backward of the
+    fewest row blocks, at every shape; the cooperative: one block, at the
+    bench's shapes), the first call's bits (the persistent forward's lag
+    replayed); times beside the bound, the plain versions, cuDNN, the D = 1
+    designs and, in bf16, the other design timed in the same call (the
+    persistent must be faster). The fp32 windows at the bench's shapes
+    against the D-rank plain versions (where 11a gates K15's and K16's).
+    Then the IPC round trip between two processes, and the launch counts
+    and launchers of one D-rank window in each design (the bench's layer at
+    D = 2, bf16 and fp32)."""
     from eigen_lstm_tpu_torch import ModelConfig
-    from eigen_lstm_tpu_torch.ops import _build, cuda_tp_cell as tc, cuda_tp_seq as ts
+    from eigen_lstm_tpu_torch.ops import _build, cuda_cell_tiled as ct, cuda_tp_seq as ts
     from eigen_lstm_tpu_torch.parallel.tp import _gate_permutation
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
 
@@ -5124,7 +5244,7 @@ def phase15(records, smi):
     gen = torch.Generator().manual_seed(15)
     rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
     lib = _build.load_library()
-    drive, exchanges = None, []
+    drives, exchanges = {}, []
     for shape, s, b, n, dees in (("bench", TRAIN_S, TRAIN_B, 512, (2, 4)),
                                  ("flagship", FLAG_S, FLAG_B, 1024, (2,))):
         if shape == "bench":
@@ -5139,11 +5259,13 @@ def phase15(records, smi):
             cfg = ModelConfig(hidden=n, compute_dtype=dtype, residual_dtype="float32")
             U_c = layer.U.to(cfg.cdtype)
             h0, c0 = torch.tanh(rand(b, n, sd=0.5)), rand(b, n, sd=0.3)
-            # the D = 1 cooperative design on the unpermuted weights
+            # the D = 1 designs on the unpermuted weights: the cooperative
+            # forward, and in bf16 the persistent one the wrapper takes
             with per_step_tiled(SPLIT_PLAN):
                 one = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
                 one_ms = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=2,
                                  windows=3)
+            one_p = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg) if dtype == "bfloat16" else None
             dh_full = rand(s, b, n, sd=1e-2)
             dhT_full, dcT_full = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
             with per_step_k6():
@@ -5169,120 +5291,146 @@ def phase15(records, smi):
                 U_cs = [cut(U_p, r, 4 * nd) for r in range(d)]
                 xws = [cut(xw_p, r, 4 * nd) for r in range(d)]
                 c0s = [cut(c0, r, nd) for r in range(d)]
-                ex = ts.one_card_exchange(b, n, d, cfg.cdtype)
-                exchanges.append(ex)
-                fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
-                rel = ranks_fwd_check(tc, U_cs, xws, h0, c0s, cfg, fwd, tag)
-                plain = ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg)
-                win = max(norm_err(a, p) for o, q in zip(fwd, plain)
-                          for a, p in zip(o, q))
-                # the windows are gated where 11a gates them, in fp32 at the
-                # bench's 100 steps; over the flagship's 256 the fp32 sums'
-                # order carries further: printed beside the D = 1 design's
-                gate_win = dtype == "float32" and shape == "bench"
-                # the D = 1 cooperative design, bit for bit: h_seq, c_prev,
-                # hT, cT side by side, g through the permutation
-                cat = lambda k: torch.cat([o[k] for o in fwd], -1)
-                same1 = [torch.equal(cat(0), one[0]), torch.equal(cat(1), one[1][..., perm]),
-                         torch.equal(cat(2), one[2]), torch.equal(cat(3), one[3]),
-                         torch.equal(cat(4), one[4])]
-                print(f"  K15 {tag}: the window against the D-rank plain version "
-                      f"{win:.3e} ({'gated' if gate_win else 'printed'}, tol "
-                      f"{TRAIN_TOL:g}; the D = 1 design's against its plain "
-                      f"version {one_win:.3e}); bit for bit the D = 1 cooperative "
-                      f"design on the unpermuted weights (h_seq, g, c_prev, hT, "
-                      f"cT): {same1}", flush=True)
-                if not all(same1) or (gate_win and not win <= TRAIN_TOL):
-                    fail(f"K15 {tag}: D = 1 bits {same1}, window {win:.3e}")
                 dhs = [cut(dh_full, r, nd) for r in range(d)]
                 dhTs = [cut(dhT_full, r, nd) for r in range(d)]
                 dcTs = [cut(dcT_full, r, nd) for r in range(d)]
-                bargs = (U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
-                         [o[4] for o in fwd], dhs, dhTs, dcTs, cfg)
-                bwd = ts.tp_seq_bwd_ranks(*bargs, ex)
-                rep = ranks_bwd_replay(*bargs, [o[0] for o in bwd])
+                ex = ts.one_card_exchange(b, n, d, cfg.cdtype)
+                exchanges.append(ex)
+                designs = [("cooperative", cooperative_ranks)]
+                if dtype == "bfloat16":
+                    fplan = ts.device_ranks_fwd_plan(cfg, b, n, d, one_card=True)
+                    bplan = ts.device_ranks_bwd_plan(cfg, b, n, d, one_card=True)
+                    if fplan is None or bplan is None:
+                        fail(f"K15/K16 {tag}: no persistent layout ({fplan}, {bplan})")
+                    designs.insert(0, ("persistent", contextlib.nullcontext))
+                    d1_rows = ct.device_split_fwd_plan(cfg, b, n)[1]
+                    print(f"  K15/K16 {tag}: the persistent layouts, forward (kres, "
+                          f"rows) {fplan} ({d} x {nd // 16} x {-(-b // fplan[1])} "
+                          f"blocks; the D = 1 layout's rows {d1_rows}), backward "
+                          f"(units, rows) {bplan} ({d} x {n // bplan[0]} x "
+                          f"{-(-b // bplan[1])} blocks)", flush=True)
+                times, outs = {}, {}
+                for design, ctx in designs:
+                    if design == "persistent":
+                        lag_f = ts.ranks_fwd_plan(cfg, b, n, d, nd // 16, *ct._device_limits(
+                            torch.cuda.current_device())[1:])
+                        row_blocks = [ts.lag_row_blocks(b, n, d, bplan[0])] + \
+                            [-(-b // bplan[1])] * (d - 1)
+                        lag = (dict(layouts=[lag_f] + [fplan] * (d - 1)),
+                               dict(layouts=[(*bplan, r) for r in row_blocks]), False)
+                        ref = ((one_p, perm) if fplan[1] == d1_rows else None)
+                    else:
+                        ctype = 1 if dtype == "bfloat16" else 0
+                        share = lambda tiles, bwd: [1] + [min(
+                            tiles, ts._resident(lib, bwd, ctype, 0) // d)] * (d - 1)
+                        lag = None if shape != "bench" else (
+                            dict(blocks=share(ts.fwd_tiles(b, nd), 0)),
+                            dict(blocks=share(ts.bwd_tiles(b, n), 1)), True)
+                        ref = (one, perm)
+                    with ctx():
+                        fwd, bwd, rel, brel = ranks_design(
+                            design, tag, U_cs, xws, h0, c0s, (dhs, dhTs, dcTs, cfg), cfg,
+                            ex, ref, lag)
+                        bargs = (U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
+                                 [o[4] for o in fwd], dhs, dhTs, dcTs, cfg)
+                        times[design] = (
+                            cuda_ms(lambda: ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
+                                    reps=2, windows=3),
+                            cuda_ms(lambda: ts.tp_seq_bwd_ranks(*bargs, ex), reps=2,
+                                    windows=3))
+                    outs[design] = (fwd, bwd, rel, brel, bargs)
+                    if (shape, d) == ("bench", 2):
+                        drives[(dtype, design)] = (U_cs, xws, h0, c0s, cfg, bargs[4:], ex)
+                # the windows against the D-rank plain versions: gated where
+                # 11a gates them, in fp32 at the bench's 100 steps; over the
+                # flagship's 256 the fp32 sums' order carries further
+                fwd, bwd, _, _, bargs = outs[designs[0][0]]
+                plain = ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg)
                 bplain = ts.tp_seq_bwd_ranks_plain(*bargs)
-                torch.cuda.synchronize()
-                brel = max(norm_err(a, p) for o, q in zip(bwd, rep) for a, p in zip(o, q))
+                win = max(norm_err(a, p) for o, q in zip(fwd, plain) for a, p in zip(o, q))
                 bwin = max(norm_err(a, p) for o, q in zip(bwd, bplain) for a, p in zip(o, q))
-                print(f"  K16 {tag}: every rank's every reverse step, dh0, dc0 within "
-                      f"{brel:.3e} of the plain replay from its own dg (tol "
-                      f"{TRAIN_TOL:g}); the window against the D-rank plain version "
-                      f"{bwin:.3e} ({'gated' if gate_win else 'printed'}; the D = 1 "
-                      f"design's against its plain version {one_bwin:.3e})", flush=True)
-                if not (np.isfinite(brel) and brel <= TRAIN_TOL) or (
-                        gate_win and not bwin <= TRAIN_TOL):
-                    fail(f"K16 {tag}: replay {brel:.3e}, window {bwin:.3e}")
-                # repeated calls on the same buffers and, at the bench's
-                # shapes, a lagging rank (one block walks all of rank 0's
-                # tiles: at the flagship's, seconds a call)
-                calls = [(ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
-                          ts.tp_seq_bwd_ranks(*bargs, ex)) for _ in range(X_REPEATS)]
-                skew = ""
-                if shape == "bench":
-                    ctype = 1 if dtype == "bfloat16" else 0
-                    skew_f = [1] + [min(ts.fwd_tiles(b, nd),
-                                        ts._resident(lib, 0, ctype, 0) // d)] * (d - 1)
-                    skew_b = [1] + [min(ts.bwd_tiles(b, n),
-                                        ts._resident(lib, 1, ctype, 0) // d)] * (d - 1)
-                    calls.append((ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex, skew_f),
-                                  ts.tp_seq_bwd_ranks(*bargs, ex, skew_b)))
-                    skew = (f"rank 0 on one block (forward {skew_f}, backward "
-                            f"{skew_b} blocks) and ")
-                torch.cuda.synchronize()
-                same = [_same(f, fwd) and _same(g, bwd) for f, g in calls]
-                print(f"  K15/K16 {tag}: {skew}{X_REPEATS} calls on the same buffers, "
-                      f"each the first call's bits: {sum(same)} of {len(same)}",
-                      flush=True)
-                if not all(same):
-                    fail(f"K15/K16 {tag}: a skewed or repeated call moved the bits: {same}")
-                ms15 = cuda_ms(lambda: ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex),
-                               reps=2, windows=3)
-                ms16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks(*bargs, ex), reps=2, windows=3)
+                gate_win = dtype == "float32" and shape == "bench"
+                print(f"  K15/K16 {tag} {designs[0][0]}: the windows against the D-rank "
+                      f"plain versions {win:.3e}, {bwin:.3e} "
+                      f"({'gated' if gate_win else 'printed'}, tol {TRAIN_TOL:g}; the "
+                      f"D = 1 cooperative design's against its plain versions "
+                      f"{one_win:.3e}, {one_bwin:.3e})", flush=True)
+                if gate_win and not (win <= TRAIN_TOL and bwin <= TRAIN_TOL):
+                    fail(f"K15/K16 {tag}: windows {win:.3e}, {bwin:.3e}")
                 plain15 = cuda_ms(lambda: ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg),
                                   reps=1, windows=1)
-                plain16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks_plain(*bargs), reps=1, windows=1)
+                plain16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks_plain(*bargs), reps=1,
+                                  windows=1)
                 b15, b16 = (tp_seq_bound(cfg, s, b, n, False),
                             tp_seq_bound(cfg, s, b, n, True))
                 x15, x16 = (exchange_bytes(cfg, s, b, n, d, False),
                             exchange_bytes(cfg, s, b, n, d, True))
-                for k, ms, bd, xb, pl, lb, one_t in (
-                        ("K15", ms15, b15, x15, plain15, lib15, one_ms),
-                        ("K16", ms16, b16, x16, plain16, lib16, one_bms)):
-                    print(f"  {k} {tag}: {ms:.4f} ms a call (1 launch, {d} rank groups), "
-                          f"bound {bd[0]:.5f} ms ({bd[1]}; the inputs and outputs "
-                          f"at the whole width), plain {pl:.4f} ms, cuDNN "
-                          f"{'n/a' if lb is None else f'{lb:.4f} ms'}; the D = 1 "
-                          f"cooperative design at these total shapes {one_t:.4f} ms; "
-                          f"the exchange {xb} bytes a rank to its peers, "
-                          f"{xb / NVLINK_BYTES_PER_S * 1e3:.5f} ms at NVLink's "
-                          f"450 GB/s a direction on D cards", flush=True)
-                for name, err, ms, pl, bd, xb, lb, one_t in (
-                        ("tp_seq_fwd_ranks", rel, ms15, plain15, b15, x15, lib15, one_ms),
-                        ("tp_seq_bwd_ranks", brel, ms16, plain16, b16, x16, lib16, one_bms)):
-                    records[("15", name, shape, dtype, d)] = dict(
-                        _tp_record(name.replace("_ranks", ""), err, ms, pl, bd, lb),
-                        name=name, d1_cooperative_ms=one_t, exchange_bytes=xb,
-                        nvlink_ms=xb / NVLINK_BYTES_PER_S * 1e3)
-                if (shape, dtype, d) == ("bench", "bfloat16", 2):
-                    drive = (U_cs, xws, h0, c0s, cfg, bargs, ex)
+                for design, _ in designs:
+                    ms15, ms16 = times[design]
+                    _, _, rel, brel, _ = outs[design]
+                    other = [x for x, _ in designs if x != design]
+                    for k, ms, bd, xb, pl, lb, one_t, i in (
+                            ("K15", ms15, b15, x15, plain15, lib15, one_ms, 0),
+                            ("K16", ms16, b16, x16, plain16, lib16, one_bms, 1)):
+                        vs = "".join(f"; the {o} design in the same call "
+                                     f"{times[o][i]:.4f} ms" for o in other)
+                        print(f"  {k} {tag} {design}: {ms:.4f} ms a call (1 launch, {d} "
+                              f"rank groups), bound {bd[0]:.5f} ms ({bd[1]}; the inputs "
+                              f"and outputs at the whole width), plain {pl:.4f} ms, cuDNN "
+                              f"{'n/a' if lb is None else f'{lb:.4f} ms'}; the D = 1 "
+                              f"cooperative design at these total shapes {one_t:.4f} ms"
+                              f"{vs}; the exchange {xb} bytes a rank to its peers, "
+                              f"{xb / NVLINK_BYTES_PER_S * 1e3:.5f} ms at NVLink's "
+                              f"450 GB/s a direction on D cards", flush=True)
+                    suffix = "_x" if design == "cooperative" else ""
+                    for name, err, ms, pl, bd, xb, lb, one_t in (
+                            ("tp_seq_fwd_ranks", rel, ms15, plain15, b15, x15, lib15, one_ms),
+                            ("tp_seq_bwd_ranks", brel, ms16, plain16, b16, x16, lib16, one_bms)):
+                        rec = dict(_tp_record(name.replace("_ranks", ""), err, ms, pl, bd, lb),
+                                   name=name + suffix, design=design,
+                                   d1_cooperative_ms=one_t, exchange_bytes=xb,
+                                   nvlink_ms=xb / NVLINK_BYTES_PER_S * 1e3)
+                        if design == "persistent":
+                            coop = times["cooperative"][name == "tp_seq_bwd_ranks"]
+                            rec.update(source=PERSIST_SOURCE, cooperative_ms=coop)
+                        records[("15", name + suffix, shape, dtype, d)] = rec
+                if "persistent" in times:
+                    slower = [k for k, i in (("K15", 0), ("K16", 1))
+                              if not times["persistent"][i] < times["cooperative"][i]]
+                    if slower:
+                        fail(f"K15/K16 {tag}: the persistent design is not faster than "
+                             f"the cooperative one in the same call: {slower} "
+                             f"{times}")
             print(f"  ({shape} {dtype}: {time.perf_counter() - t_shape:.1f} s)", flush=True)
     ipc_round_trip()
-    # the launches of one D-rank window: the bench's layer at D = 2 in bf16
-    U_cs, xws, h0, c0s, cfg, bargs, ex = drive
-    ts.tp_seq_fwd_ranks.launches = ts.tp_seq_bwd_ranks.launches = 0
-    fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
-    ts.tp_seq_bwd_ranks(U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
-                        [o[4] for o in fwd], *bargs[4:], ex)
-    torch.cuda.synchronize()
+    # the launches of one D-rank window: the bench's layer at D = 2, in bf16
+    # (the persistent design) and fp32 (the cooperative one)
+    counts = {}
+    for dtype, design, launcher in (
+            ("bfloat16", "persistent", "tp_seq_fwd_persist_ranks_launch"),
+            ("float32", "cooperative", "tp_seq_fwd_ranks_launch")):
+        U_cs, xws, h0, c0s, cfg, brest, ex = drives[(dtype, design)]
+        counting = ex.lib = CountingLibrary(ex.lib)
+        ts.tp_seq_fwd_ranks.launches = ts.tp_seq_bwd_ranks.launches = 0
+        fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
+        ts.tp_seq_bwd_ranks(U_cs, [o[1] for o in fwd], [o[2] for o in fwd],
+                            [o[4] for o in fwd], *brest, ex)
+        torch.cuda.synchronize()
+        ex.lib = counting.lib
+        got = {"tp_seq_fwd_ranks": ts.tp_seq_fwd_ranks.launches,
+               "tp_seq_bwd_ranks": ts.tp_seq_bwd_ranks.launches}
+        bwd_launcher = launcher.replace("fwd", "bwd")
+        counting.calls = {k: v for k, v in counting.calls.items() if k.endswith("_launch")}
+        print(f"  one D-rank window (the bench's layer, D = 2, {dtype}): launches "
+              f"{got} through {counting.calls}", flush=True)
+        if got != {"tp_seq_fwd_ranks": 1, "tp_seq_bwd_ranks": 1} or \
+                counting.calls != {launcher: 1, bwd_launcher: 1}:
+            fail(f"phase 15: the D-rank window ({dtype}) launched {got} through "
+                 f"{counting.calls}")
+        suffix = "" if design == "persistent" else "_x"
+        counts.update({k + suffix: v for k, v in got.items()})
     for ex in exchanges:
         ex.close()
-    counts = {"tp_seq_fwd_ranks": ts.tp_seq_fwd_ranks.launches,
-              "tp_seq_bwd_ranks": ts.tp_seq_bwd_ranks.launches}
-    print(f"  one D-rank window (the bench's layer, D = 2, bf16): launches "
-          f"{counts}", flush=True)
-    if counts != {"tp_seq_fwd_ranks": 1, "tp_seq_bwd_ranks": 1}:
-        fail(f"phase 15: the D-rank window launched {counts}")
     return counts
 
 
@@ -5414,9 +5562,11 @@ def main():
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
         add(records[("11a", name, "bfloat16")], seq_counts[name])
     # K15 and K16 at D ranks: one D-rank window on the one card (phase 15),
-    # at the bench's shapes, D = 2
+    # at the bench's shapes, D = 2: in bf16 the persistent design, in fp32
+    # the cooperative one (its bf16 time, forced, beside the persistent's)
     for name in ("tp_seq_fwd_ranks", "tp_seq_bwd_ranks"):
         add(records[("15", name, "bench", "bfloat16", 2)], x_counts[name])
+        add(records[("15", name + "_x", "bench", "float32", 2)], x_counts[name + "_x"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // The tensor-core forward of the port: the step, shared by the persistent
 // forward below (fwd_persist: K8, K9, and under bf16 compute K1, K2 and, at
-// D = 1, K15) and the tensor-core K13 of lstm_tp.cu (tp_step_fwd_mma): one
-// block's product of a step,
+// D = 1, K15; its window at D ranks is lstm_tp_persist.cu's
+// tp_seq_fwd_persist_x) and the tensor-core K13 of lstm_tp.cu
+// (tp_step_fwd_mma): one block's product of a step,
 //
 //   acc = round(h)[b0 .. b0 + rows) @ U[:, the block's 4 x kFUnits columns]
 //
@@ -270,33 +271,56 @@ __device__ __forceinline__ void fwd_products(const FwdTile& f,
 // folded in, the sum acc + xw_t, h_seq in fp32 (K15's param type), and in
 // cseq c_prev[t] = c_{t-1}, the carry before the step's update, in RT; no
 // dropout. hc holds round(h0) in its first half on entry in both.
+//
+// The window itself is fwd_persist_window, whose Step policy says where
+// round(h) lives and what ends a step: GridStep here (hc's two halves, the
+// grid barrier), lstm_tp_persist.cu's RankStep for K15 at D ranks (the
+// exchange buffers' slots, the exchange). It takes the block's place (its
+// first unit j0 and first row b0) and two widths: N, that of h and of U's
+// rows, and the gate stride gs, that of the outputs and of U's and the
+// input stream's gate blocks (N here; a rank's shard width nd at D ranks).
 constexpr int kMaxDevices = 64;
 
-template <typename RT, bool EMBED, bool TP,
+struct GridStep {
+  __nv_bfloat16* hc;  // (2, B, N)
+  size_t bn;          // B * N
+  int N;
+  __device__ __forceinline__ const __nv_bfloat16* hin(int t) const {
+    return hc + (size_t)(t % 2) * bn;
+  }
+  // round(h_t) of row b, unit j
+  __device__ __forceinline__ void put(int t, int b, int j, float h) const {
+    hc[(size_t)((t + 1) % 2) * bn + (size_t)b * N + j] = __float2bfloat16(h);
+  }
+  // h_t is complete before any block reads it
+  __device__ __forceinline__ void sync(int) const {
+    cooperative_groups::this_grid().sync();
+  }
+};
+
+template <typename RT, bool EMBED, bool TP, typename Step,
           typename XT = typename std::conditional<TP, float, __nv_bfloat16>::type,
           typename HT = typename std::conditional<TP, float, RT>::type>
-__global__ void __launch_bounds__(kFThreads, 1)
-fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
-            const XT* __restrict__ xw,             // (S, B, 4N), !EMBED
-            const __nv_bfloat16* __restrict__ W,   // (M, 4N), EMBED
-            const float* __restrict__ bias,        // (4N,), EMBED
-            const int* __restrict__ ids,           // (S, B), EMBED
-            // (2, B, N) round(h): written and read within the launch, so
-            // neither const nor __restrict__ (no non-coherent loads)
-            __nv_bfloat16* hc,
-            float* __restrict__ c,      // (B, N): c0 in, cT out
-            float* __restrict__ hT,     // (B, N)
-            HT* __restrict__ hseq,      // (S, B, N)
-            RT* __restrict__ cseq,      // (S, B, N) or null
-            RT* __restrict__ gseq,      // (S, B, 4N) or null
-            RT* __restrict__ hdrop,     // (S, B, N) under dropout
-            Dropout drop, int S, int B, int N, int rows, int kres, int standard) {
+__device__ __forceinline__ void
+fwd_persist_window(const Step& step,
+                   const __nv_bfloat16* __restrict__ U,   // (N, 4 gs)
+                   const XT* __restrict__ xw,             // (S, B, 4 gs), !EMBED
+                   const __nv_bfloat16* __restrict__ W,   // (M, 4 gs), EMBED
+                   const float* __restrict__ bias,        // (4 gs,), EMBED
+                   const int* __restrict__ ids,           // (S, B), EMBED
+                   float* __restrict__ c,      // (B, gs): c0 in, cT out
+                   float* __restrict__ hT,     // (B, gs)
+                   HT* __restrict__ hseq,      // (S, B, gs)
+                   RT* __restrict__ cseq,      // (S, B, gs) or null
+                   RT* __restrict__ gseq,      // (S, B, 4 gs) or null
+                   RT* __restrict__ hdrop,     // (S, B, gs) under dropout
+                   Dropout drop, int S, int B, int N, int gs, int j0, int b0,
+                   int rows, int kres, int standard) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ring = Us + (size_t)kres * kFUPitch;
-  const FwdTile f = fwd_mma_tile(N, N, blockIdx.x * kFUnits, blockIdx.y * rows, B, rows);
-  const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const FwdTile f = fwd_mma_tile(N, gs, j0, b0, B, rows);
+  const size_t n4 = 4 * (size_t)gs, bn = (size_t)B * gs;
 
   for (int e = threadIdx.x; e < kres * 8; e += kFThreads)
     fwd_u_copy(f, U, Us + (size_t)(e / 8) * kFUPitch, e / 8, e % 8);
@@ -317,14 +341,14 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       const int b = fwd_row(f, p / 4);
-      cr[p] = b < B ? c[(size_t)b * N + fwd_unit(f, (p / 2) % 2, p % 2)] : 0.0f;
+      cr[p] = b < B ? c[(size_t)b * gs + fwd_unit(f, (p / 2) % 2, p % 2)] : 0.0f;
     }
     if (EMBED)
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate)
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          bs[gate][u] = bias[(size_t)gate * N + fwd_unit(f, u / 2, u % 2)];
+          bs[gate][u] = bias[(size_t)gate * gs + fwd_unit(f, u / 2, u % 2)];
     load_inputs(0);
   }
   cp_async_wait<0>();
@@ -332,8 +356,7 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
 
   const int cres = kres / kFKC;
   for (int t = 0; t < S; ++t) {
-    const __nv_bfloat16* hin = hc + (size_t)(t % 2) * bn;
-    __nv_bfloat16* hout = hc + (size_t)((t + 1) % 2) * bn;
+    const __nv_bfloat16* hin = step.hin(t);
     float acc[8][4];
     fwd_products(f, U, hin, Us, cres, ring, acc);
     if (f.owner) {
@@ -350,12 +373,12 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
           s = EMBED ? (s + pin[p][gt]) + bs[gt][2 * uh + e] : s + pin[p][gt];
           gate[gt] = gt < 3 ? sigmoid(s) : tanhf(s);
         }
-        const size_t idx = (size_t)b * N + j, ts = (size_t)t * bn;
+        const size_t idx = (size_t)b * gs + j, ts = (size_t)t * bn;
         if (TP && cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cr[p]);
         float h, cc;
         cell(gate, cr[p], standard, &h, &cc);
         cr[p] = cc;
-        hout[idx] = __float2bfloat16(h);
+        step.put(t, b, j, h);
         hseq[ts + idx] = from_f32<HT>(h);
         if (!TP && drop.on)
           hdrop[ts + idx] = from_f32<RT>(keep_bit(drop, t, idx) ? h * drop.inv : 0.0f);
@@ -363,7 +386,7 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
         if (gseq != nullptr)
 #pragma unroll
           for (int gt = 0; gt < 4; ++gt)
-            gseq[4 * ts + (size_t)b * n4 + (size_t)gt * N + j] = from_f32<RT>(gate[gt]);
+            gseq[4 * ts + (size_t)b * n4 + (size_t)gt * gs + j] = from_f32<RT>(gate[gt]);
         if (t == S - 1) {
           hT[idx] = h;
           c[idx] = cc;
@@ -371,8 +394,33 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
       }
       if (t + 1 < S) load_inputs(t + 1);
     }
-    if (t + 1 < S) grid.sync();  // h_t is complete before any block reads it
+    if (t + 1 < S) step.sync(t);
   }
+}
+
+template <typename RT, bool EMBED, bool TP,
+          typename XT = typename std::conditional<TP, float, __nv_bfloat16>::type,
+          typename HT = typename std::conditional<TP, float, RT>::type>
+__global__ void __launch_bounds__(kFThreads, 1)
+fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
+            const XT* __restrict__ xw,             // (S, B, 4N), !EMBED
+            const __nv_bfloat16* __restrict__ W,   // (M, 4N), EMBED
+            const float* __restrict__ bias,        // (4N,), EMBED
+            const int* __restrict__ ids,           // (S, B), EMBED
+            // (2, B, N) round(h): written and read within the launch, so
+            // neither const nor __restrict__ (no non-coherent loads)
+            __nv_bfloat16* hc,
+            float* __restrict__ c,      // (B, N): c0 in, cT out
+            float* __restrict__ hT,     // (B, N)
+            HT* __restrict__ hseq,      // (S, B, N)
+            RT* __restrict__ cseq,      // (S, B, N) or null
+            RT* __restrict__ gseq,      // (S, B, 4N) or null
+            RT* __restrict__ hdrop,     // (S, B, N) under dropout
+            Dropout drop, int S, int B, int N, int rows, int kres, int standard) {
+  fwd_persist_window<RT, EMBED, TP>(GridStep{hc, (size_t)B * N, N}, U, xw, W, bias,
+                                    ids, c, hT, hseq, cseq, gseq, hdrop, drop, S, B,
+                                    N, N, blockIdx.x * kFUnits, blockIdx.y * rows,
+                                    rows, kres, standard);
 }
 
 // One cooperative launch of fwd_persist<RT, EMBED, TP> on `stream`, rows

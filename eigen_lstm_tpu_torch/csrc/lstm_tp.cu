@@ -39,16 +39,22 @@
 //       (ops/cuda_cell_bwd.py:k6_plan), the same recurrence with U in
 //       shared memory and dh_rec on tensor cores: 0.93 ms against this
 //       design's 4.28 at the bench's shapes (PERF.md).
-//   tp_seq_fwd_ranks_launch, tp_seq_bwd_ranks_launch (K15, K16 at D > 1)
-//       <- the same two kernels with their in-kernel exchange
-//       (pallas_tp_seq.py:96-120, :150-177): the cooperative designs below
-//       with the remote copies written as stores into the peers' exchange
-//       buffers, a flag a step raised at system scope, and a barrier a
-//       rank in place of the grid barrier. One launch holds one rank group
-//       on each of D cards (the peers' buffers mapped through CUDA IPC,
-//       csrc/exchange.cu), or D rank groups on one card, the same device
-//       code over the card's D buffers. Only the one-card launch has run:
-//       multi-card runs and NVLink's system-scope ordering are unverified.
+//   K15 and K16 at D > 1 <- the same two kernels with their in-kernel
+//       exchange (pallas_tp_seq.py:96-120, :150-177): the remote copies
+//       written as stores into the peers' exchange buffers and a flag a step
+//       raised at system scope (exchange.cuh), in place of the grid barrier.
+//       Under bf16 compute, where ops/cuda_tp_seq.py's planners give a
+//       layout, the persistent tensor-core designs of lstm_tp_persist.cu
+//       (tp_seq_fwd_persist_ranks_launch: fwd_mma.cuh's persistent forward
+//       with the exchange as its step's end; tp_seq_bwd_persist_ranks_launch:
+//       K6's persistent reverse step with the reduce-scatter inside);
+//       elsewhere (fp32, shapes no layout takes) the cooperative CUDA-core
+//       tiles (tp_seq_fwd_ranks_launch, tp_seq_bwd_ranks_launch). One launch
+//       holds one rank group on each of D cards (the peers' buffers mapped
+//       through CUDA IPC, csrc/exchange.cu), or D rank groups on one card,
+//       the same device code over the card's D buffers. Only the one-card
+//       launch has run: multi-card runs and NVLink's system-scope ordering
+//       are unverified.
 // K13 and K14 run at any D (the all-gather of h sits between launches, in
 // torch.distributed).
 //
@@ -86,21 +92,24 @@
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
 // does. Under bf16 compute both take the persistent designs named above,
 // with U's rows in shared memory and their products on tensor cores; fp32
-// keeps these. At D > 1 both compute types take these cooperative tiles
-// with the exchange (written once, in the simplest kernel that serves
-// both types and any shape; the persistent templates are shared with
-// K1-K3, K6, K8, K9 and K12, whose sums the gates hold): K15's tile sums
-// in K15's order at D = 1 (a unit's order depends on N and kKS, not nd),
-// so its fp32 forward is the D = 1 design's bit for bit; K16 runs two
-// phases a reverse step (the partial over all N columns into the owners'
-// chunks, then each rank's sum of its D chunks in rank order and the gate
-// backward), two rank barriers a step. The groups of a launch wait on
-// each other, so every block must be resident: the launcher refuses more.
+// keeps these. At D > 1 fp32 and the shapes the persistent designs do not
+// take keep these tiles with the exchange: K15's tile sums in K15's order
+// at D = 1 (a unit's order depends on N and kKS, not nd), so its fp32
+// forward is the D = 1 design's bit for bit; K16 runs two phases a reverse
+// step (the partial over all N columns into the owners' chunks, then each
+// rank's sum of its D chunks in rank order and the gate backward), a rank
+// barrier and an exchange a step. Under bf16 compute at D > 1 the
+// persistent designs (lstm_tp_persist.cu) keep U_r's rows in shared memory and run the
+// products on tensor cores, with the exchange in place of the grid barrier;
+// the D = 1 instantiations of fwd_mma.cuh and lstm_bwd.cu are the same
+// device code. The groups of a launch wait on each other, so every block
+// must be resident: the launchers refuse more.
 // Every sum has a fixed order, so the kernels are deterministic.
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "exchange.cuh"
 #include "fwd_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -315,130 +324,9 @@ tp_seq_bwd(const CT* __restrict__ UT, const RT* __restrict__ gseq,
 }
 
 // ---------------------------------------------------------------------------
-// K15 and K16 at D > 1: the exchange. Rank r of D holds U_r, its shard's
-// streams and an exchange buffer in its own device memory; the peer table
-// holds every rank's buffer as this process maps it (its own, and on D
-// cards the peers' through CUDA IPC; on one card D buffers of the card). A
-// launch holds `groups` rank groups of blocks, group g playing rank
-// ranks[g] with its blocks [first, next first): on D cards one group (the
-// process's rank), on one card D groups side by side.
-//
-// A rank's buffer (ops/cuda_tp_seq.py:exchange_layout gives the offsets):
-//   [0, 512)  the header: fwd_flag[kMaxRanks] at 0 and bwd_flag at 64, each
-//             flag the count of exchanges received from that sender, ever
-//             rising (across calls: the host's base); the rank barriers
-//             (count, generation) of the forward at 128, the backward at 256
-//   h_off     the forward's h slots (3, B, N) in the compute type
-//   r_off     the backward's chunks (3, D, B, nd) fp32: [slot][sender]
-constexpr int kMaxRanks = 8;
-constexpr int kFwdFlag = 0, kBwdFlag = 16, kFwdBar = 32, kBwdBar = 64;  // words
-constexpr unsigned long long kTimeoutNs = 60ull * 1000000000ull;
-
-struct PeerTable {
-  unsigned char* buf[kMaxRanks];  // by rank
-};
-
-__device__ __forceinline__ unsigned* words(unsigned char* buf, int off) {
-  return reinterpret_cast<unsigned*>(buf) + off;
-}
-
-__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_gpu(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned atom_add_acq_rel_gpu(unsigned* p, unsigned v) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
-               : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Spins until `reached()`; a wait past kTimeoutNs traps (the launch fails
-// with an error instead of hanging the card on a peer that never comes).
-template <typename F>
-__device__ __forceinline__ void spin(F reached) {
-  const unsigned long long t0 = now_ns();
-  for (unsigned k = 1; !reached(); ++k)
-    if ((k & 1023u) == 0 && now_ns() - t0 > kTimeoutNs) __trap();
-}
-
-// The barrier of one rank group's nb blocks: a count and a generation in
-// the rank's own buffer, the count back at 0 after each barrier. Each
-// block's stores, to its own memory and its peers', are fenced at system
-// scope before it arrives, so a leader that leaves the barrier may flag
-// them to the peers.
-__device__ __forceinline__ void rank_barrier(unsigned* bar, int nb) {
-  __syncthreads();
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    unsigned* count = bar;
-    unsigned* gen = bar + 1;
-    const unsigned g = ld_acquire_gpu(gen);
-    __threadfence_system();
-    if (atom_add_acq_rel_gpu(count, 1u) == static_cast<unsigned>(nb) - 1u) {
-      *reinterpret_cast<volatile unsigned*>(count) = 0u;
-      st_release_gpu(gen, g + 1u);
-    } else {
-      spin([&] { return ld_acquire_gpu(gen) != g; });
-    }
-  }
-  __syncthreads();
-}
-
-// One exchange of rank `me`: every block's stores done (the rank barrier),
-// then the group's first block raises this rank's flag at every peer to
-// `target` (a release at system scope), and every block waits for the
-// D - 1 peers' flags to reach it (acquire loads at system scope) before it
-// reads what they sent. Flags only rise: `target` is the host's base plus
-// the exchange's index, so an earlier call's flags never satisfy a wait.
-__device__ __forceinline__ void exchange(const PeerTable& peers, int me, int D,
-                                         int flag, unsigned* bar, int nb,
-                                         bool leader, unsigned target) {
-  rank_barrier(bar, nb);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    if (leader) {
-      __threadfence_system();
-      for (int q = 0; q < D; ++q)
-        if (q != me) st_release_sys(words(peers.buf[q], flag) + me, target);
-    }
-    const unsigned* mine = words(peers.buf[me], flag);
-    for (int q = 0; q < D; ++q)
-      if (q != me)
-        spin([&] { return static_cast<int>(ld_acquire_sys(mine + q) - target) >= 0; });
-  }
-  __syncthreads();
-}
-
-// The group of this block: its index, its first block and its size.
-template <typename G>
-__device__ __forceinline__ int my_group(const G* g, int groups, int* nb) {
-  int gi = 0;
-  while (gi + 1 < groups && static_cast<int>(blockIdx.x) >= g[gi + 1].first) ++gi;
-  *nb = (gi + 1 < groups ? g[gi + 1].first : static_cast<int>(gridDim.x)) - g[gi].first;
-  return gi;
-}
-
+// K15 and K16 at D > 1, the cooperative design (fp32 compute, and shapes the
+// persistent designs below do not take): K13's and K3's CUDA-core tiles with
+// the exchange of exchange.cuh in place of the grid barrier.
 template <typename CT, typename RT>
 struct SeqFwdGroup {
   const CT* U;      // (N, 4nd), the rank's shard
@@ -513,7 +401,7 @@ tp_seq_fwd_x(const SeqFwdRanks<CT, RT> a, int groups, const PeerTable peers,
       }
     }
     if (t < S - 1)
-      exchange(peers, me, D, kFwdFlag, words(mine, kFwdBar), nb, bi == 0,
+      exchange(peers, me, D, kFwdFlag, words(mine, kFwdBar), nb,
                static_cast<unsigned>(base + t + 1));
   }
 }
@@ -578,7 +466,7 @@ tp_seq_bwd_x(const SeqBwdRanks<CT, RT> a, int groups, const PeerTable peers,
                        ((size_t)w * D + me) * bn;
         chunk[(size_t)b * nd + (j - q * nd)] = rec;
       }
-      exchange(peers, me, D, kBwdFlag, words(mine, kBwdBar), nb, bi == 0,
+      exchange(peers, me, D, kBwdFlag, words(mine, kBwdBar), nb,
                static_cast<unsigned>(e + 1));
     }
     const float* chunks = reinterpret_cast<const float*>(mine + r_off) + (size_t)w * D * bn;
@@ -615,20 +503,10 @@ tp_seq_bwd_x(const SeqBwdRanks<CT, RT> a, int groups, const PeerTable peers,
 // code when the card cannot take it.
 template <typename K>
 int coop_grid(K kernel, int tiles, int* grid) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kLanes * kKS, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-  return 0;
+  int resident = 0;
+  const int err = resident_with(kernel, kLanes * kKS, 0, &resident);
+  if (err == 0) *grid = tiles < resident ? tiles : resident;
+  return err;
 }
 
 template <typename CT>
@@ -720,41 +598,6 @@ int run_seq_bwd(const void* UT, const void* gseq, const void* cprev,
   return static_cast<int>(e);
 }
 
-// The blocks a cooperative launch of `kernel` (256 threads a block) may
-// hold at once on this card, or an error code.
-template <typename K>
-int resident_blocks(K kernel, int* resident) {
-  int grid = 0;
-  const int err = coop_grid(kernel, 1 << 30, &grid);
-  if (err == 0) *resident = grid;
-  return err;
-}
-
-// The checks both D-rank launchers make: groups and D within kMaxRanks,
-// each group a rank of its own below D with at least one block, the shard
-// widths whole tiles, and every block resident at once (the groups wait on
-// each other, so a block that is not resident would never come). Fills
-// first[] and the peer table; returns the blocks or a negative error.
-inline int ranks_grid(int groups, const int* ranks, const int* blocks, int D,
-                      void* const* bufs, int N, int nd, int resident,
-                      int* first, PeerTable* peers) {
-  if (groups < 1 || groups > kMaxRanks || D < 1 || D > kMaxRanks ||
-      N != D * nd || nd % kLanes != 0)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int total = 0, seen = 0;
-  for (int g = 0; g < groups; ++g) {
-    if (ranks[g] < 0 || ranks[g] >= D || (seen >> ranks[g]) & 1 || blocks[g] < 1)
-      return -static_cast<int>(cudaErrorInvalidValue);
-    seen |= 1 << ranks[g];
-    first[g] = total;
-    total += blocks[g];
-  }
-  if (total > resident) return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  for (int q = 0; q < kMaxRanks; ++q)
-    peers->buf[q] = q < D ? static_cast<unsigned char*>(bufs[q]) : nullptr;
-  return total;
-}
-
 template <typename CT, typename RT>
 int run_seq_fwd_ranks(int groups, const int* ranks, const int* blocks,
                       const void* const* U, const void* const* xw,
@@ -763,9 +606,10 @@ int run_seq_fwd_ranks(int groups, const int* ranks, const int* blocks,
                       void* const* cT, int D, void* const* bufs, long long h_off,
                       unsigned long long base, int S, int B, int N, int nd,
                       int standard, cudaStream_t stream) {
+  if (nd % kLanes != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = tp_seq_fwd_x<CT, RT>;
   int resident = 0;
-  int err = resident_blocks(kernel, &resident);
+  int err = resident_with(kernel, kLanes * kKS, 0, &resident);
   if (err != 0) return err;
   SeqFwdRanks<CT, RT> a{};
   PeerTable peers{};
@@ -773,21 +617,15 @@ int run_seq_fwd_ranks(int groups, const int* ranks, const int* blocks,
   const int grid = ranks_grid(groups, ranks, blocks, D, bufs, N, nd, resident,
                               first, &peers);
   if (grid < 0) return -grid;
-  const size_t hbytes = (size_t)B * N * sizeof(CT);
-  for (int g = 0; g < groups; ++g) {
+  for (int g = 0; g < groups; ++g)
     a.g[g] = SeqFwdGroup<CT, RT>{
         static_cast<const CT*>(U[g]), static_cast<const float*>(xw[g]),
         static_cast<float*>(c[g]), static_cast<float*>(hseq[g]),
         static_cast<RT*>(gseq[g]), static_cast<RT*>(cprev[g]),
         static_cast<float*>(hT[g]), static_cast<float*>(cT[g]), ranks[g],
         first[g]};
-    // h0 into the rank's slot base % 3, which no peer writes before this
-    // rank's flag of the call's second step
-    err = static_cast<int>(cudaMemcpyAsync(
-        peers.buf[ranks[g]] + h_off + (base % 3) * hbytes, h0[g], hbytes,
-        cudaMemcpyDeviceToDevice, stream));
-    if (err != 0) return err;
-  }
+  err = copy_h0(groups, ranks, h0, peers, h_off, base, (size_t)B * N * sizeof(CT), stream);
+  if (err != 0) return err;
   void* args[] = {&a, &groups, &peers, &D, &base, &h_off, &S, &B, &N, &nd,
                   &standard};
   cudaError_t e = cudaLaunchCooperativeKernel(
@@ -806,9 +644,10 @@ int run_seq_bwd_ranks(int groups, const int* ranks, const int* blocks,
                       void* const* bufs, long long r_off, unsigned long long base,
                       int S, int B, int N, int nd, int standard,
                       cudaStream_t stream) {
+  if (nd % kLanes != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = tp_seq_bwd_x<CT, RT>;
   int resident = 0;
-  const int err = resident_blocks(kernel, &resident);
+  const int err = resident_with(kernel, kLanes * kKS, 0, &resident);
   if (err != 0) return err;
   SeqBwdRanks<CT, RT> a{};
   PeerTable peers{};
@@ -1000,8 +839,8 @@ extern "C" int tp_seq_bwd_ranks_launch(
 // *resident; returns an error code.
 extern "C" int tp_seq_ranks_resident(int bwd, int ctype, int rtype, int* resident) {
   const auto f = [&](auto fwd_kernel, auto bwd_kernel) {
-    return bwd ? resident_blocks(bwd_kernel, resident)
-               : resident_blocks(fwd_kernel, resident);
+    return bwd ? resident_with(bwd_kernel, kLanes * kKS, 0, resident)
+               : resident_with(fwd_kernel, kLanes * kKS, 0, resident);
   };
   using bf = __nv_bfloat16;
   if (ctype == 0 && rtype == 0) return f(tp_seq_fwd_x<float, float>, tp_seq_bwd_x<float, float>);

@@ -89,6 +89,13 @@ SIGNATURES = {
     "tp_seq_bwd_ranks_launch": (_I, [_I, _I, _I, _IP, _IP] + [_PP] * 9
                                 + [_I, _PP, _LL, _ULL] + [_I] * 5 + [_P, _IP]),
     "tp_seq_ranks_resident": (_I, [_I, _I, _I, _IP]),
+    "tp_seq_fwd_persist_ranks_launch": (_I, [_I, _I, _IP, _IP, _IP] + [_PP] * 8
+                                        + [_I, _PP, _LL, _ULL] + [_I] * 5
+                                        + [_P, _IP]),
+    "tp_seq_bwd_persist_ranks_launch": (_I, [_I, _I, _IP, _IP] + [_PP] * 10
+                                        + [_I, _PP, _LL, _ULL] + [_I] * 7
+                                        + [_P, _IP]),
+    "tp_seq_bwd_persist_smem_bytes": (_Z, [_I] * 3),
     "exchange_alloc": (_I, [_Z, _PP]),
     "exchange_free": (_I, [_P]),
     "exchange_ipc_handle": (_I, [_P, _CP]),

@@ -250,11 +250,19 @@ def fwd_layout(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int,
     rows = min(b, split_rows(b, blocks, sms)) if split else b
     if blocks * -(-b // rows) > sms:
         return None
+    kres = held_rows(rows, n, smem_limit)
+    return None if kres is None else (kres, rows)
+
+
+def held_rows(rows: int, n: int, smem_limit: int) -> Optional[int]:
+    """The rows of its N x 64 slice of U that a persistent forward block of
+    ``rows`` batch rows holds in shared memory beside its ring (whole
+    KC-row chunks, at most n), None where the ring alone does not fit."""
     free = smem_limit - persist_smem_bytes(rows, n, 0)
     if free < 0:
         return None
     row = 2 * (4 * PERSIST_UNITS + PERSIST_PAD)
-    return min(n, free // row // PERSIST_KC * PERSIST_KC), rows
+    return min(n, free // row // PERSIST_KC * PERSIST_KC)
 
 
 def tiled_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,

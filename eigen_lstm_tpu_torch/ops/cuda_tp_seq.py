@@ -37,28 +37,36 @@ in fp32, as c_{S-1}. Elsewhere (fp32, or no layout) it is
 ``tp_seq_bwd_launch``, one cooperative launch of CUDA-core step tiles over
 U^T.
 
-At D > 1 both take the exchange designs (``tp_seq_fwd_ranks_launch``,
-``tp_seq_bwd_ranks_launch``), in both compute types: the cooperative
-CUDA-core tiles with the TPU kernel's in-kernel exchange written as stores
-into the peers' buffers and flags. K15 stores its tile of h_t into slot
-(t+1) mod 3 of every rank's h buffer and waits for the D-1 peers' flags
-before step t+1 reads; K16 stores column j of its partial round(dg_{t+1})
-@ U_d^T into rank j / nd's chunk, and each rank sums its D chunks in rank
-order. The buffers (``exchange_layout``) are one ``cudaMalloc`` a rank:
-on D cards the group's (``group_exchange``: handles all-gathered over the
-model axis, peers mapped with CUDA IPC, held by the group and released
-when it closes), on one card D of the card's (``one_card_exchange``,
-which the caller passes to each call and closes).
-Flags only rise: each call takes a base from the buffers' count of
-exchange steps (``Exchange.take``), so no call's wait is met by an earlier
-call's flag. ``tp_seq_fwd_ranks`` and ``tp_seq_bwd_ranks`` launch the same
-device code on one card as D rank groups of one launch, group r playing
-rank r, each with a share of the resident blocks (``rank_blocks``, which
-refuses D groups that do not fit; a split may be given, so one rank can
-lag); their plain versions ``tp_seq_*_ranks_plain`` run the D shards in one
-process, the all-gather a concatenation and the reduce-scatter a sum in
-rank order. Nothing on the main path calls them: ``chip_smoke.py`` and the
-tests do.
+At D > 1 both run the TPU kernel's in-kernel exchange: K15 stores its
+tile of h_t into slot (t+1) mod 3 of every rank's h buffer and waits for
+the D ranks' flags before step t+1 reads; K16 stores column j of its
+partial round(dg_{t+1}) @ U_d^T into rank j / nd's chunk, and each rank
+sums its D chunks in rank order. Under bf16 compute, wherever the
+planners give a layout (``ranks_fwd_plan``: (kres, rows);
+``ranks_bwd_plan``: (units, rows); each for the SMs and shared memory one
+rank group may use), these are the persistent tensor-core designs
+(``tp_seq_fwd_persist_ranks_launch``: K15's persistent forward with the
+exchange in place of its grid barrier, the D = 1 layout's rows on one
+card, so its bits are the D = 1 design's; ``tp_seq_bwd_persist_ranks_launch``:
+K6's persistent reverse step, U_r's rows in shared memory, the partials on
+tensor cores, dc in registers, a rank barrier and an exchange a step).
+Elsewhere (fp32, or no layout) they are the cooperative CUDA-core tiles
+(``tp_seq_fwd_ranks_launch``, ``tp_seq_bwd_ranks_launch``). The buffers
+(``exchange_layout``) are one ``cudaMalloc`` a rank: on D cards the
+group's (``group_exchange``: handles all-gathered over the model axis,
+peers mapped with CUDA IPC, held by the group and released when it
+closes), on one card D of the card's (``one_card_exchange``, which the
+caller passes to each call and closes). Flags only rise: each call takes
+a base from the buffers' count of exchange steps (``Exchange.take``), so
+no call's wait is met by an earlier call's flag. ``tp_seq_fwd_ranks`` and
+``tp_seq_bwd_ranks`` launch the same device code on one card as D rank
+groups of one launch, group r playing rank r, each with the card's SMs /
+D (the cooperative design: a share of the resident blocks,
+``rank_blocks``, which refuses D groups that do not fit; a split, or a
+layout a group, may be given, so one rank can lag); their plain versions
+``tp_seq_*_ranks_plain`` run the D shards in one process, the all-gather
+a concatenation and the reduce-scatter a sum in rank order. Nothing on
+the main path calls them: ``chip_smoke.py`` and the tests do.
 
 ``tp_seq_lstm`` is the JAX function of that name: U cast to the compute
 type and xw, h0, c0 to the accumulation type before ``TPSeq``, whose
@@ -207,8 +215,8 @@ def tp_seq_bwd_ranks_plain(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
 
 # --- the exchange of the D > 1 designs --------------------------------------
 
-MAX_RANKS = 8          # csrc/lstm_tp.cu:kMaxRanks
-HEADER_BYTES = 512     # a buffer's flags and rank barriers (lstm_tp.cu)
+MAX_RANKS = 8          # csrc/exchange.cuh:kMaxRanks
+HEADER_BYTES = 512     # a buffer's flags and rank barriers (exchange.cuh)
 SLOTS = 3              # h slots and chunk slots, as the TPU kernel's
 LANES, BATCH_TILE = 32, 4   # a tile's units and batch rows (common.cuh)
 
@@ -420,9 +428,13 @@ def _ints(xs):
 
 
 def _fwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
-               rtype: int):
+               rtype: int, layouts=None):
     """One launch of the D-rank forward for the groups of ``ranks``, each
-    with its (U_c, xw, h0_full, c0): (their outputs, the launches)."""
+    with its (U_c, xw, h0_full, c0): the persistent design with
+    ``layouts`` (a layout a group), else the cooperative one with
+    ``blocks``. (Their outputs, the launches.)"""
+    if layouts is not None:
+        return _fwd_persist_ranks(ex, ranks, layouts, ins, cfg, rtype)
     s, b, nd4 = ins[0][1].shape
     nd, n, dev = nd4 // 4, ins[0][2].shape[1], ins[0][1].device
     d = len(ex.ptrs)
@@ -449,10 +461,12 @@ def _fwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
 
 
 def _bwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
-               rtype: int):
+               rtype: int, layouts=None):
     """One launch of the D-rank backward for the groups of ``ranks``, each
-    with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT): (their (dg, dh0,
-    dc0), the launches)."""
+    with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT), as ``_fwd_ranks``:
+    (their (dg, dh0, dc0), the launches)."""
+    if layouts is not None:
+        return _bwd_persist_ranks(ex, ranks, layouts, ins, cfg, rtype)
     s, b, nd4 = ins[0][1].shape
     nd, dev = nd4 // 4, ins[0][1].device
     n = ins[0][0].shape[0]
@@ -476,6 +490,189 @@ def _bwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
         _ptrs(ex.ptrs), ex.layout.r_off, ex.take("bwd", s), s, b, n, nd,
         int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
     cuda_cell._raise_on(err, "tp_seq_bwd_ranks_launch")
+    return [(t["dg"], t["dh0"], t["dc"]) for t in keep], launched.value
+
+
+# --- the persistent designs at D > 1 (bf16 compute) -------------------------
+# The persistent D-rank backward's tiles (csrc/lstm_tp_persist.cu:tp_seq_bwd_persist_x,
+# bwd_x_smem_bytes): a block of X_THREADS threads owns `units` of X_UNITS
+# output units and tiles of `rows` of X_ROWS batch rows (rows * units at
+# most X_TILE), holds its units' rows of U_r (4nd + X_PAD bf16 each) and a
+# ring of X_RING_ROWS rows of X_KC + X_PAD bf16, whose space the 8 warps'
+# partial sums (rows x units fp32 each) reuse; each thread runs the gate
+# backward of at most GATE_ELEMS of the rank's B x nd elements.
+X_THREADS, X_WARPS, X_KC, X_PAD, X_RING_ROWS, GATE_ELEMS = 256, 8, 128, 8, 192, 8
+X_UNITS, X_ROWS, X_TILE = (64, 32), (16, 32, 64), 2048
+
+
+def ranks_fwd_plan(cfg: ModelConfig, b: int, n: int, d: int, sms: int,
+                   smem_limit: int, rows: Optional[int] = None):
+    """K15's persistent design at D > 1: (kres, rows) of one rank group
+    that may use ``sms`` SMs and ``smem_limit`` bytes of shared memory a
+    block (the card's SMs / D for D groups on one card, the whole card for
+    a group on its own), or None for the cooperative design.
+
+    It needs bf16 compute, N a multiple of the ring's k chunk, nd of 32
+    and at most 128 batch rows. A block owns 16 of the shard's nd units and
+    ``rows`` batch rows: the rows given (the D = 1 layout's, so that its
+    bits can be compared) where the group's (nd / 16) * ceil(B / rows)
+    blocks fit its SMs, else ``cuda_cell_tiled.split_rows`` over the
+    group's own grid. It holds as many rows of its N x 64 slice of U_r as
+    fit beside its ring."""
+    if d < 2 or cfg.cdtype != torch.bfloat16 or n % d:
+        return None
+    nd = n // d
+    if n % ct.PERSIST_KC or nd % 32 or not 1 <= b <= ct.PERSIST_ROWS:
+        return None
+    blocks = nd // ct.PERSIST_UNITS
+    if rows is None or blocks * -(-b // rows) > sms:
+        rows = min(b, ct.split_rows(b, blocks, sms))
+    if blocks * -(-b // rows) > sms:
+        return None
+    kres = ct.held_rows(rows, n, smem_limit)
+    return None if kres is None else (kres, rows)
+
+
+def ranks_bwd_smem_bytes(nd: int, units: int, rows: int) -> int:
+    """Bytes of dynamic shared memory a persistent D-rank backward block
+    takes (csrc/lstm_tp_persist.cu:bwd_x_smem_bytes, which ``_card_limits``
+    holds this to once a card)."""
+    ring = 2 * X_RING_ROWS * (X_KC + X_PAD)
+    return 2 * units * (4 * nd + X_PAD) + max(ring, X_WARPS * rows * units * 4)
+
+
+def ranks_bwd_plan(cfg: ModelConfig, b: int, n: int, d: int, sms: int,
+                   smem_limit: int):
+    """K16's persistent design at D > 1: (units, rows) of one rank group
+    that may use ``sms`` SMs and ``smem_limit`` bytes of shared memory a
+    block, its (N / units) * ceil(B / rows) blocks each holding its units'
+    rows of U_r; None for the cooperative design.
+
+    It needs bf16 compute and nd a multiple of 32. Units: the most of
+    X_UNITS whose rows of U_r fit (a wider group reads the rank's dg_{t+1}
+    from L2 fewer times a step); rows: the fewest of X_ROWS whose grid fits
+    the SMs, each thread then holding at most GATE_ELEMS gate-backward
+    elements (their dc in registers)."""
+    if d < 2 or cfg.cdtype != torch.bfloat16 or n % d:
+        return None
+    nd = n // d
+    if nd % 32:
+        return None
+    for units in X_UNITS:
+        for rows in X_ROWS:
+            if n % units or rows * units > X_TILE:
+                continue
+            blocks = n // units * -(-b // rows)
+            if (blocks <= sms and ranks_bwd_smem_bytes(nd, units, rows) <= smem_limit
+                    and b * nd <= blocks * X_THREADS * GATE_ELEMS):
+                return units, rows
+    return None
+
+
+def lag_row_blocks(b: int, n: int, d: int, units: int) -> int:
+    """The fewest row blocks a persistent backward group of ``units``
+    units may take (each thread at most GATE_ELEMS gate-backward
+    elements): a layout that lags its peers."""
+    return max(1, -(-b * (n // d) // (n // units * X_THREADS * GATE_ELEMS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_limits(index: int):
+    """(SMs, shared memory a block may opt in to) of card ``index``, read
+    once; checks that the library lays out the persistent backward's shared
+    memory as ``ranks_bwd_smem_bytes`` does."""
+    lib = _build.load_library()
+    for nd, units, rows in ((256, 64, 16), (128, 64, 32), (512, 32, 64), (512, 32, 32)):
+        if lib.tp_seq_bwd_persist_smem_bytes(nd, units, rows) != \
+                ranks_bwd_smem_bytes(nd, units, rows):
+            raise RuntimeError("ranks_bwd_smem_bytes disagrees with "
+                               "csrc/lstm_tp_persist.cu's layout")
+    return ct._device_limits(index)
+
+
+def _card_limits():
+    """(SMs, shared memory a block may opt in to) of the current card."""
+    return _checked_limits(torch.cuda.current_device())
+
+
+def device_ranks_fwd_plan(cfg: ModelConfig, b: int, n: int, d: int, one_card: bool):
+    """``ranks_fwd_plan`` on the current card: with ``one_card`` (D groups
+    of one launch) a group takes the card's SMs / D and the D = 1 layout's
+    rows where they fit, else the whole card."""
+    sms, smem = _card_limits()
+    if not one_card:
+        return ranks_fwd_plan(cfg, b, n, d, sms, smem)
+    one = ct.split_fwd_plan(cfg, b, n, sms, smem)
+    return ranks_fwd_plan(cfg, b, n, d, sms // d, smem, None if one is None else one[1])
+
+
+def device_ranks_bwd_plan(cfg: ModelConfig, b: int, n: int, d: int, one_card: bool):
+    """``ranks_bwd_plan`` on the current card, a group taking the card's
+    SMs / D with ``one_card``, else the whole card."""
+    sms, smem = _card_limits()
+    return ranks_bwd_plan(cfg, b, n, d, sms // d if one_card else sms, smem)
+
+
+def _fwd_persist_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig,
+                       rtype: int):
+    """One launch of the persistent D-rank forward for the groups of
+    ``ranks``, group g with its (U_c, xw, h0_full, c0) and layout (kres,
+    rows): (their outputs, the launches)."""
+    s, b, nd4 = ins[0][1].shape
+    nd, n, dev = nd4 // 4, ins[0][2].shape[1], ins[0][1].device
+    f32, bf, keep = torch.float32, torch.bfloat16, []
+    e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
+    for U_c, xw, h0_full, c0 in ins:
+        keep.append(dict(
+            U=ct._aligned(U_c.to(bf)), xw=xw.to(f32).contiguous(),
+            h0=h0_full.to(bf).contiguous(), c=c0.to(f32).clone().contiguous(),
+            hseq=e(s, b, nd), gseq=e(s, b, 4 * nd, dtype=cfg.rdtype),
+            cprev=e(s, b, nd, dtype=cfg.rdtype), hT=e(b, nd)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("U", "xw", "h0", "c", "hseq", "gseq", "cprev", "hT")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_fwd_persist_ranks_launch(
+        rtype, len(ranks), _ints(ranks), _ints([k for k, _ in layouts]),
+        _ints([r for _, r in layouts]), *cols, len(ex.ptrs), _ptrs(ex.ptrs),
+        ex.layout.h_off, ex.take("fwd", s), s, b, n, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_fwd_persist_ranks_launch")
+    # c holds cT on return
+    return [(t["hseq"], t["gseq"], t["cprev"], t["hT"], t["c"]) for t in keep], \
+        launched.value
+
+
+def _bwd_persist_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig,
+                       rtype: int):
+    """One launch of the persistent D-rank backward for the groups of
+    ``ranks``, group g with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT)
+    and layout (units, rows, row_blocks), units and rows the same for all:
+    (their (dg, dh0, dc0), the launches)."""
+    s, b, nd4 = ins[0][1].shape
+    nd, dev = nd4 // 4, ins[0][1].device
+    n = ins[0][0].shape[0]
+    units, rows = layouts[0][:2]
+    if any(tuple(lay[:2]) != (units, rows) for lay in layouts):
+        raise ValueError(f"the groups of one launch take one (units, rows), not {layouts}")
+    f32, bf, keep = torch.float32, torch.bfloat16, []
+    for U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT in ins:
+        keep.append(dict(
+            U=ct._aligned(U_c.to(bf)), gseq=g_seq.contiguous(),
+            cprev=c_prev.contiguous(), cT=cT.to(f32).contiguous(),
+            dhseq=dh_seq.to(f32).contiguous(), dhT=dhT.to(f32).contiguous(),
+            dc=dcT.to(f32).clone().contiguous(),
+            dg=torch.empty(s, b, 4 * nd, dtype=f32, device=dev),
+            dgx=torch.empty(2, b, 4 * nd, dtype=bf, device=dev),
+            dh0=torch.empty(b, nd, dtype=f32, device=dev)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("U", "gseq", "cprev", "cT", "dhseq", "dhT", "dc", "dg", "dgx", "dh0")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_bwd_persist_ranks_launch(
+        rtype, len(ranks), _ints(ranks), _ints([lay[2] for lay in layouts]), *cols,
+        len(ex.ptrs), _ptrs(ex.ptrs), ex.layout.r_off, ex.take("bwd", s), s, b, n,
+        nd, units, rows, int(cfg.cell_variant == "standard"), _stream(dev),
+        ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_bwd_persist_ranks_launch")
     return [(t["dg"], t["dh0"], t["dc"]) for t in keep], launched.value
 
 
@@ -512,9 +709,10 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
         return tp_seq_fwd_plain(U_c, xw, h0_full, c0, cfg, group)
     ctype, rtype = _fwd_types(cfg, dev, nd)
     if group is not None and group.size > 1:
-        (out,), launched = _fwd_ranks(group_exchange(group, b, n, cfg.cdtype),
-                                      [group.rank], None,
-                                      [(U_c, xw, h0_full, c0)], cfg, ctype, rtype)
+        ex = group_exchange(group, b, n, cfg.cdtype)   # raises first without peer access
+        plan = device_ranks_fwd_plan(cfg, b, n, group.size, one_card=False)
+        (out,), launched = _fwd_ranks(ex, [group.rank], None, [(U_c, xw, h0_full, c0)],
+                                      cfg, ctype, rtype, plan and [plan])
         tp_seq_fwd.launches += launched
         return out
     lib = _build.load_library()
@@ -560,9 +758,11 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
                                 group)
     ctype, rtype = _bwd_types(cfg, dev, nd, g_seq, c_prev)
     if group is not None and group.size > 1:
+        ex = group_exchange(group, b, n, cfg.cdtype)
+        plan = device_ranks_bwd_plan(cfg, b, n, group.size, one_card=False)
         (out,), launched = _bwd_ranks(
-            group_exchange(group, b, n, cfg.cdtype), [group.rank], None,
-            [(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT)], cfg, ctype, rtype)
+            ex, [group.rank], None, [(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT)],
+            cfg, ctype, rtype, plan and [(*plan, -(-b // plan[1]))])
         tp_seq_bwd.launches += launched
         return out
     lib = _build.load_library()
@@ -619,15 +819,36 @@ def _one_card(xs, what: str, exchange: Optional[Exchange], key):
     return dev
 
 
+def _one_card_layouts(what, plan, blocks, layouts, d):
+    """The layouts of the D groups for the persistent design, or None for
+    the cooperative one: ``layouts`` as given where the plan gives one (bf16
+    with a layout), None where ``blocks`` (the cooperative design's split)
+    is given, else the plan's layout for every group."""
+    if blocks is not None and layouts is not None:
+        raise ValueError(f"{what}: blocks (the cooperative design's) and layouts "
+                         f"(the persistent design's) both given")
+    if layouts is not None:
+        if plan is None:
+            raise ValueError(f"{what}: layouts {layouts} given where the "
+                             f"persistent design does not run (fp32 or no layout)")
+        if len(layouts) != d:
+            raise ValueError(f"{what}: {len(layouts)} layouts for {d} rank groups")
+        return [tuple(lay) for lay in layouts]
+    return None if blocks is not None or plan is None else [plan] * d
+
+
 def tp_seq_fwd_ranks(U_cs: Sequence, xws: Sequence, h0_full, c0s: Sequence,
                      cfg: ModelConfig, exchange: Optional[Exchange] = None,
-                     blocks: Optional[Sequence[int]] = None):
-    """K15 at D = len(U_cs) ranks on one card: one launch of the exchange
-    design with D rank groups, group r playing rank r on U_cs[r], xws[r],
-    c0s[r] and the full h0, through ``exchange``, the card's D buffers
-    (``one_card_exchange``); ``blocks`` the blocks of each group
-    (``rank_blocks``). The plain version on the CPU. A list of D outputs
-    as ``tp_seq_fwd_plain``'s."""
+                     blocks: Optional[Sequence[int]] = None, layouts=None):
+    """K15 at D = len(U_cs) ranks on one card: one launch of D rank
+    groups, group r playing rank r on U_cs[r], xws[r], c0s[r] and the full
+    h0, through ``exchange``, the card's D buffers (``one_card_exchange``).
+    Under bf16 compute, where ``device_ranks_fwd_plan`` gives a layout, the
+    persistent design, each group with that layout or ``layouts[r]``
+    ((kres, rows), so that one group can lag); elsewhere, or with
+    ``blocks`` (the blocks of each group, ``rank_blocks``), the cooperative
+    design. The plain version on the CPU. A list of D outputs as
+    ``tp_seq_fwd_plain``'s."""
     d, (s, b, nd4) = len(U_cs), xws[0].shape
     nd = nd4 // 4
     n = h0_full.shape[1]
@@ -644,9 +865,10 @@ def tp_seq_fwd_ranks(U_cs: Sequence, xws: Sequence, h0_full, c0s: Sequence,
         return tp_seq_fwd_ranks_plain(U_cs, xws, h0_full, c0s, cfg)
     ctype, rtype = _fwd_types(cfg, dev, nd)
     h0_c = h0_full.to(cfg.cdtype).contiguous()   # one copy for the D groups
-    outs, launched = _fwd_ranks(exchange, list(range(d)), blocks,
-                                [(U_cs[r], xws[r], h0_c, c0s[r]) for r in range(d)],
-                                cfg, ctype, rtype)
+    ins = [(U_cs[r], xws[r], h0_c, c0s[r]) for r in range(d)]
+    plan = device_ranks_fwd_plan(cfg, b, n, d, one_card=True)
+    outs, launched = _fwd_ranks(exchange, list(range(d)), blocks, ins, cfg, ctype,
+                                rtype, _one_card_layouts("K15", plan, blocks, layouts, d))
     tp_seq_fwd_ranks.launches += launched
     return outs
 
@@ -655,9 +877,13 @@ def tp_seq_bwd_ranks(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
                      cTs: Sequence, dh_seqs: Sequence, dhTs: Sequence,
                      dcTs: Sequence, cfg: ModelConfig,
                      exchange: Optional[Exchange] = None,
-                     blocks: Optional[Sequence[int]] = None):
+                     blocks: Optional[Sequence[int]] = None, layouts=None):
     """K16 at D = len(U_cs) ranks on one card, as ``tp_seq_fwd_ranks``:
-    every argument by rank. A list of D (dg, dh0, dc0)."""
+    every argument by rank; the persistent design's layouts are (units,
+    rows, row_blocks) a group, units and rows those of
+    ``device_ranks_bwd_plan`` (row_blocks of ceil(B / rows) by default,
+    fewer so that a group lags, at least ``lag_row_blocks``). A list of D
+    (dg, dh0, dc0)."""
     d, (s, b, nd4) = len(U_cs), g_seqs[0].shape
     nd = nd4 // 4
     n = U_cs[0].shape[0]
@@ -677,8 +903,10 @@ def tp_seq_bwd_ranks(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
         return tp_seq_bwd_ranks_plain(U_cs, g_seqs, c_prevs, cTs, dh_seqs, dhTs,
                                       dcTs, cfg)
     ctype, rtype = _bwd_types(cfg, dev, nd, g_seqs[0], c_prevs[0])
-    outs, launched = _bwd_ranks(exchange, list(range(d)), blocks, ins, cfg,
-                                ctype, rtype)
+    plan = device_ranks_bwd_plan(cfg, b, n, d, one_card=True)
+    plan = plan and (*plan, -(-b // plan[1]))
+    outs, launched = _bwd_ranks(exchange, list(range(d)), blocks, ins, cfg, ctype,
+                                rtype, _one_card_layouts("K16", plan, blocks, layouts, d))
     tp_seq_bwd_ranks.launches += launched
     return outs
 

@@ -55,6 +55,7 @@ from eigen_lstm_tpu_torch.parallel import mesh
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_tp_seq_exchange_worker.py")
 LP_CU = os.path.join(ROOT, "eigen_lstm_tpu_torch", "csrc", "lstm_tp.cu")
+EX_CUH = os.path.join(ROOT, "eigen_lstm_tpu_torch", "csrc", "exchange.cuh")
 RANKS_TIMEOUT_S = 300
 S, B, N = 5, 8, 32
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -277,7 +278,7 @@ def test_backward_sums_the_chunks_in_rank_order(monkeypatch):
 
 
 def _cu_constants():
-    src = open(LP_CU).read()
+    src = open(EX_CUH).read()
     get = lambda name: int(re.search(rf"\b{name}\s*=\s*(\d+)", src).group(1))
     return {k: get(k) for k in ("kMaxRanks", "kFwdFlag", "kBwdFlag", "kFwdBar",
                                 "kBwdBar")}
@@ -285,7 +286,7 @@ def _cu_constants():
 
 def test_layout_matches_the_kernel_source():
     """The header's flags (a word a sender) and barriers (count,
-    generation) lie inside HEADER_BYTES without overlap, as lstm_tp.cu
+    generation) lie inside HEADER_BYTES without overlap, as exchange.cuh
     places them, and MAX_RANKS is the kernel's."""
     k = _cu_constants()
     assert k["kMaxRanks"] == ts.MAX_RANKS
@@ -329,7 +330,7 @@ def _c_expr(src, pattern):
 
 def _kernel_exchanges():
     """The slot and flag rules of ``tp_seq_fwd_x``, ``tp_seq_bwd_x`` and
-    the forward's launcher, read from lstm_tp.cu: fwd(base, s) gives step
+    the forward launchers' h0 copy, read from lstm_tp.cu and exchange.cuh: fwd(base, s) gives step
     t's (slot read, slot written, flag raised; None, None at the last
     step), bwd(base, s) exchange e's (chunk slot, flag), e = 0..S-1 for
     reverse steps S-2..-1, and h0(base) the slot the launcher copies h0
@@ -337,7 +338,8 @@ def _kernel_exchanges():
     src = open(LP_CU).read()
     fsrc = src[src.index("tp_seq_fwd_x(const"):src.index("struct SeqBwdGroup")]
     bsrc = src[src.index("tp_seq_bwd_x(const"):src.index("// The grid of a cooperative")]
-    lsrc = src[src.index("h0 into the rank's slot"):]
+    xsrc = open(EX_CUH).read()
+    lsrc = xsrc[xsrc.index("h0 into the rank's slot"):]
     read = _c_expr(fsrc, r"h_in = [^;]*?\+ \((\([^;]*?\) % 3)\) \* bN;")
     write = _c_expr(fsrc, r"next = \((\([^;]*?\) % 3)\) \* bN")
     fflag = _c_expr(fsrc, r"kFwdBar\),[^;]*?static_cast<unsigned>\(([^;]*?)\)\);")
@@ -640,6 +642,9 @@ class _Library:
 
     def __init__(self, resident=1056):
         self.calls, self.resident, self.next = [], resident, 1 << 40
+        # the card's (SMs, shared memory a block): none, so the persistent
+        # designs take no layout and the cooperative design runs
+        self.limits = (132, 0)
 
     def exchange_alloc(self, nbytes, ptr):
         ptr._obj.value = self.next
@@ -673,6 +678,7 @@ def routed(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "data_ptr", data_ptr)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(ts, "_card", lambda cfg, dev, nd: cuda_cell._TYPE_CODES[cfg.cdtype])
+    monkeypatch.setattr(ts, "_card_limits", lambda: lib.limits)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=7))
