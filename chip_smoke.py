@@ -38,8 +38,12 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          per-step design, which fp32 keeps, held to the same gates; the
          reverse launch and the tail timed apart, the per-step design's call
          in the same run. K4 and K5 take their tensor-core designs in bf16
-         (their CUDA-core designs, which fp32 keeps, held to the same gates
-         and timed in the same call; K5's launches a call gated).
+         (their CUDA-core designs, which fp32 takes, held to the same gates
+         and timed in the same call; K5's launches a call gated). K4 in
+         fp32 (its CUDA-core design: 64-row blocks, 8 x 8 register tiles, a
+         cp.async ring) also at the flagship's T = 32768, N = 1024, each
+         shape gated against its plain version and timed beside the
+         library call, the plain version and the bound.
 Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          gradients through the kernels against the plain path, fp32 and
          bf16; (b) the port's bench (python -m eigen_lstm_tpu_torch.bench)
@@ -83,7 +87,10 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          share, the bits of every step; then 2 fp32 steps from the run's
          state, kernels against plain (fp32 at N = 1024 takes the tiled
          family, as in the JAX package: K8, K9, K10, their launches
-         counted), and both against the plain path in float64. K3 runs the JAX VJP the flagship takes in bf16, the GEMM
+         counted, K8 one a call in its fp32 persistent design), and both
+         against the plain path in float64; then the fp32 flagship step
+         time with K8 in each design (3 steps each, the mean of the last
+         2). K3 runs the JAX VJP the flagship takes in bf16, the GEMM
          fall-back (db from the rounded dg).
 
 Phase 8  generation: K7 against its plain version with the flagship's
@@ -113,7 +120,11 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          per-step design, gated) and cuDNN, and at the eval batch of 16;
          K5 at the 5b shapes against its plain version (gated as in phase
          5) and beside its CUDA-core design;
-         fp32 on the per-step design (gated); (b) one window's
+         in fp32 K8 in its persistent CUDA-core design (one cooperative
+         launch a window, gated) and, forced, its per-step one, both held
+         to the same gates, the persistent design gated faster in the same
+         call, also at the eval batch of 16; K9 and K10 per-step in fp32
+         (gated); (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
          kernels against plain; (c) the 5b recipe through the CLI's
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
@@ -141,7 +152,8 @@ Phase 10 the last two single-card kernels and the modules of this path:
          --gradcheck-every 100`` (0 failures), then ``Trainer.crosscheck``
          at phase 7c's flagship state; (e) the flagship's loss and eleven
          gradients in fp32 with scan_chunk = 64 against 0, with the peak
-         device memory of both; (f) ``evaluate_ensemble_bpc`` of the
+         device memory of both, K8's launches those its plan gives (one a
+         call in fp32); (f) ``evaluate_ensemble_bpc`` of the
          flagship and the 1x512 checkpoint, kernels against plain, K1 one
          launch a chunk and member, K2 one a chunk and layer.
 Phase 11 tensor parallelism on the one card (D = 1) through the four TP
@@ -183,8 +195,9 @@ Phase 13 sequence pipelining at D = 1 on the paths of 11b and 7c: (k)
          replay at the tolerances of 5, 7a and 9a: the bench's K1 and K3,
          the flagship's K1, K2, K3 and K6 in bf16 without dropout and at
          0.35 (K1's and K2's other designs too) and K8, K9 and K10 in
-         fp32, each design and its launches a call against the plans (K3
-         3 at the bench, 2 at the flagship, K6 3); (a) ``cli train --sp
+         fp32 (K8 in its persistent design, one launch a call), each
+         design and its launches a call against the plans (K3 3 at the
+         bench, 2 at the flagship, K6 3); (a) ``cli train --sp
          1`` at the bench's configuration with the batch in 4 and in 1
          microchunks (``--pp-chunks``): launches a step C times the plans'
          for a chunk (K1 1, K3 3) and K11 once, nothing else, one chunk
@@ -1138,6 +1151,8 @@ def phase5(records):
             if not np.isfinite(core_err) or core_err > TRAIN_TOL:
                 fail(f"head_fwd {dtype}, the CUDA-core design: {core_err:.3e}")
             records[("head_fwd_core", dtype)] = core_ms
+        else:
+            k4_fp32(cfg, (Why_c, by, h_c, tg))
         btc = head.bwd_tensor_cores(cfg, n, m)
         if btc != (dtype == "bfloat16"):
             fail(f"head_bwd {dtype}: tensor cores {btc}; these shapes take "
@@ -1184,6 +1199,45 @@ def phase5(records):
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_t)
     return per_call
+
+
+def k4_fp32(cfg, bench):
+    """K4 in fp32, its CUDA-core design, at the bench's shapes (``bench``:
+    Why_c, by, h_c, targets of phase 5's window) and at the flagship's
+    T = 32768, N = 1024 (random h in (-1, 1), Why and by from a seed):
+    bits and lse within TRAIN_TOL (normalised) of the plain version, two
+    launches a call, the time beside the library call (``torch.addmm`` and
+    ``F.cross_entropy``), the plain version and the bound."""
+    from eigen_lstm_tpu_torch.ops import head
+
+    gen = torch.Generator().manual_seed(24)
+    t, n, m = FLAG_S * FLAG_B, 1024, cfg.vocab
+    flag = (((torch.randn(n, m, generator=gen) * 0.05).to(DEVICE)),
+            (torch.randn(m, generator=gen) * 0.3).to(DEVICE),
+            torch.tanh(torch.randn(t, n, generator=gen)).to(DEVICE),
+            torch.randint(0, m, (t,), generator=gen).to(DEVICE))
+    for label, cfg_, (Why_c, by, h_c, tg) in (
+            ("the bench's shapes", cfg, bench),
+            ("the flagship's T", dataclasses.replace(cfg, hidden=n), flag)):
+        t_, n_ = h_c.shape
+        bits_p, lse_p = head.head_fwd_plain(Why_c, by, h_c, tg, cfg_)
+        before = head.head_fwd.launches
+        bits_k, lse_k = head.head_fwd(Why_c, by, h_c, tg, cfg_)
+        calls = head.head_fwd.launches - before
+        err = max(norm_err(bits_k, bits_p), norm_err(lse_k, lse_p))
+        if not np.isfinite(err) or err > TRAIN_TOL or calls != 2:
+            fail(f"head_fwd float32 at {label}: {err:.3e} of plain (tol "
+                 f"{TRAIN_TOL:g}), {calls} launches a call")
+        ms = cuda_ms(lambda: head.head_fwd(Why_c, by, h_c, tg, cfg_), reps=10)
+        plain_ms = cuda_ms(lambda: head.head_fwd_plain(Why_c, by, h_c, tg, cfg_),
+                           reps=2, windows=3)
+        lib_ms = head_library(h_c, Why_c, by, tg)[0]
+        bound_ms, bound_by = head_bound(cfg_, t_, n_, m, False)
+        print(f"  head_fwd float32 at {label} (T={t_}, N={n_}): the CUDA-core "
+              f"design {ms:.4f} ms a call, bits and lse within {err:.3e} of "
+              f"plain (tol {TRAIN_TOL:g}); library {lib_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+              flush=True)
 
 
 # K5's launches a call: the main pass, dby's sum over the blocks, the dWhy
@@ -1496,17 +1550,18 @@ def phase6c():
     At every step the loss and five gradients through the plain versions,
     from the kernel run's own state, are gated; a second run through the
     plain versions alone is printed beside it. Returns the launches of K3
-    and K1, whose per-step designs fp32 takes."""
+    and K1, whose per-step designs fp32 takes, and of K4 (its CUDA-core
+    design, which fp32 takes)."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
-    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
 
     runs = [bench.make_trainer(build_parser().parse_args(
         bench.DEFAULT_ARGV + ["--dtype", "float32", "--backend", backend]))
         for backend in ("cuda", "plain")]
-    k3, k1 = cuda_cell_bwd.embed_layer0_bwd, cuda_cell.embed_layer0
-    k3.launches = k1.launches = 0
+    k3, k1, k4 = cuda_cell_bwd.embed_layer0_bwd, cuda_cell.embed_layer0, head.head_fwd
+    k3.launches = k1.launches = k4.launches = 0
     states = [tr.state for tr in runs]
     k_steps = runs[0].tcfg.superstep
     worst, bits = {}, [[], []]
@@ -1563,7 +1618,13 @@ def phase6c():
     if k1.launches != 2 * TRAJ_STEPS * TRAIN_S:
         fail(f"steps fp32: K1 launched {k1.launches} times, the per-step "
              f"design gives {2 * TRAJ_STEPS * TRAIN_S}")
-    return k3.launches, k1.launches
+    # and two K4 calls a step, each its CUDA-core pass and the partials' sum
+    print(f"  steps fp32: K4 {k4.launches} launches (the CUDA-core design)",
+          flush=True)
+    if k4.launches != 2 * 2 * TRAJ_STEPS:
+        fail(f"steps fp32: K4 launched {k4.launches} times, two calls a step "
+             f"give {2 * 2 * TRAJ_STEPS}")
+    return k3.launches, k1.launches, k4.launches
 
 
 # --- the flagship's training (S = 256, B = 128, N = 1024, M = 256) ---------
@@ -1582,6 +1643,9 @@ FLAG_ARGV = [
     "--warmup", "0", "--clip-norm", "2.0", "--superstep", "50",
     "--steps", str(FLAG_STEPS), "--sample-chars", "0", "--resume", FLAGSHIP,
 ]
+# 7c's fp32 step time: FP32_STEPS steps with K8 in each design, the mean
+# over the last FP32_TIMED
+FP32_STEPS, FP32_TIMED = 3, 2
 # the gradients the JAX custom VJPs and the matmul VJP hand back as bf16
 # values under bf16 compute: every layer's W and U, and Why
 FLAG_ROUNDED = (".W", ".U", ".Why")
@@ -2155,9 +2219,10 @@ def phase7c(per_call, records):
     torch.cuda.synchronize()
     tiled = dict(zip(TILED, cuda_cell_tiled.launches()))
     # two kernel runs a step (the gated loss_and_grads, then train_step),
-    # each K8 once, K9 for layers 1 and 2, K10 for all three, S launches
-    want = {"tiled_fwd_embed": 4 * FLAG_S, "tiled_fwd_scan": 8 * FLAG_S,
-            "tiled_bwd": 12 * FLAG_S}
+    # each K8 once (its plan's launches: one in its fp32 persistent design),
+    # K9 for layers 1 and 2, K10 for all three, S launches
+    want = {"tiled_fwd_embed": 4 * k8_calls(cfg32, FLAG_B, 1024, FLAG_S),
+            "tiled_fwd_scan": 8 * FLAG_S, "tiled_bwd": 12 * FLAG_S}
     print(f"  flagship fp32, 2 steps from the run's state, plain at the same "
           f"seeds: bits rel (tol {LOSS_RTOL['float32']:g}) and gradients "
           f"normalised (tol {TRAIN_TOL:g}) within: "
@@ -2177,6 +2242,29 @@ def phase7c(per_call, records):
         fail(f"flagship fp32 steps: tiled launches {tiled} (the shapes give "
              f"{want}), resident launches {resident} (expected none), "
              f"adagrad {k11.launches} (expected 2)")
+    # the fp32 flagship step (the default dtype at full width) with K8 in
+    # each design, FP32_STEPS steps each from the state above, timed over
+    # the last FP32_TIMED
+    times = {}
+    for label, force in (("its fp32 persistent design", contextlib.nullcontext()),
+                         ("the per-step design", per_step_tiled(F32_PLAN))):
+        s_, took = st, []
+        with force:
+            for _ in range(FP32_STEPS):
+                win = trainer.feeder.next_device_batch()[0].to(torch.int32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s_, _ = train_step(s_, win[:-1], win[1:], cfg32, trainer.dcfg,
+                                   trainer.tcfg, trainer.length, paths[0],
+                                   trainer.generator)
+                torch.cuda.synchronize()
+                took.append(time.perf_counter() - t0)
+        times[label] = 1e3 * statistics.fmean(took[-FP32_TIMED:])
+        del s_
+    print("  flagship fp32 step (3x1024, B=128, S=256, dropout "
+          f"{FLAG_DROP}), the mean of the last {FP32_TIMED} of {FP32_STEPS}: "
+          + ", ".join(f"K8 in {k} {v:.2f} ms" for k, v in times.items()),
+          flush=True)
     return counts, step_ms, tiled, trainer
 
 
@@ -2619,6 +2707,33 @@ def tiled_bwd_design(cfg, b, n):
             f"launch a window)"), True
 
 
+# K8's plan under fp32 compute (``cuda_cell_tiled.tiled_fwd_f32_plan``), the
+# name that ``per_step_tiled`` replaces to force its per-step design
+F32_PLAN = ("device_tiled_fwd_f32_plan",)
+
+
+def k8_design(cfg, b, n):
+    """K8's design at these shapes on this card, as ``tiled_embed_layer0``
+    chooses it (under fp32 compute ``tiled_fwd_f32_plan``, else
+    ``tiled_fwd_plan``): a label, and whether it is persistent (one launch
+    a call)."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (F32_UNITS,
+                                                          device_tiled_fwd_f32_plan)
+
+    layout = device_tiled_fwd_f32_plan(cfg, b, n)
+    if layout is None:
+        return tiled_design(cfg, b, n)
+    return (f"the fp32 persistent design ({n // F32_UNITS} blocks of "
+            f"{F32_UNITS} units and all {b} batch rows, U's slice in shared "
+            f"memory, a ring of {layout.stages} slots of {layout.kc} columns "
+            f"of h, one cooperative launch a window, CUDA cores)"), True
+
+
+def k8_calls(cfg, b, n, s):
+    """K8's launches a call of ``s`` steps as its plan gives them."""
+    return 1 if k8_design(cfg, b, n)[1] else s
+
+
 @contextlib.contextmanager
 def per_step_tiled(names=("device_tiled_fwd_plan",)):
     """The tiled kernels whose plans are ``names`` (K8 and K9's by
@@ -2764,10 +2879,13 @@ def phase9a(records):
             tag = f"{dtype} N={n} S={s} drop {drop:g}"
             dr = [(drop, sd) if drop else None for sd in FLAG_SEEDS]
             design, persistent = tiled_design(run_cfg, b, n)
-            print(f"  tiled_fwd_embed, tiled_fwd_scan {tag}: {design}", flush=True)
-            if persistent != (dtype == "bfloat16"):
-                fail(f"tiled forward {tag}: {design}; these shapes take the "
-                     f"persistent design in bf16 alone")
+            design8, persistent8 = k8_design(run_cfg, b, n)
+            print(f"  tiled_fwd_embed {tag}: {design8}; tiled_fwd_scan: "
+                  f"{design}", flush=True)
+            if persistent != (dtype == "bfloat16") or not persistent8:
+                fail(f"tiled forward {tag}: K8 in {design8}, K9 in {design}; "
+                     f"these shapes take K8's persistent designs in both "
+                     f"types and K9's in bf16 alone")
             out1, out2, xw, rec8, rec9 = tiled_fwd_checks(
                 l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag, per_call)
             seqs = {"tiled_fwd_embed": (l0, x, dr[0]),
@@ -2790,10 +2908,16 @@ def phase9a(records):
                 if any(step_call[k] != s for k in fwd):
                     fail(f"tiled forward {tag}, the per-step design: launches "
                          f"{step_call}, one a step gives {s}")
-            want = 1 if persistent else s
-            if any(per_call[k] != want for k in fwd):
-                fail(f"tiled forward {tag}: launches a call {per_call}, "
-                     f"{design} gives {want}")
+            else:
+                # K8's per-step design, which its fp32 plan keeps for other
+                # shapes and cards, held to the same gates on the same
+                # inputs and timed in this run; the persistent design must
+                # be the faster
+                k8_per_step(l0, x, h0, c0, cfg, dr[0], masks[0], inv, tag, rec8)
+            want = {"tiled_fwd_embed": 1, "tiled_fwd_scan": 1 if persistent else s}
+            if {k: per_call[k] for k in fwd} != want:
+                fail(f"tiled forward {tag}: launches a call {per_call}, the "
+                     f"plans give {want}")
             design10, persistent10 = tiled_bwd_design(run_cfg, b, n)
             print(f"  tiled_bwd {tag}: {design10}", flush=True)
             if persistent10 != (dtype == "bfloat16"):
@@ -2863,6 +2987,8 @@ def phase9a(records):
                       f"{'backward ' if 'bwd' in rec['name'] else ''}"
                       f"{'n/a' if lib is None else f'{lib:.4f} ms'}{line}",
                       flush=True)
+        if dtype == "float32":
+            k8_f32_eval(l0, gen, n, cfg, inv)
         if dtype == "bfloat16":
             calls = per_call
             tiled_eval_times(l0, l1, gen, n, run_cfg)
@@ -2895,6 +3021,74 @@ def phase9a(records):
                   f" design), the CUDA-core design {core:.4f} ms, bound "
                   f"{head_bound(cfg, t, n, m, True)[0]:.5f} ms", flush=True)
     return calls
+
+
+def k8_per_step(l0, x, h0, c0, cfg, dropout, mask, inv, tag, rec):
+    """K8's per-step design under fp32 compute (its plan forced off) on the
+    inputs of ``rec``'s call: ``fwd_check``'s gates, S launches a call, its
+    time in this run into ``rec["per_step_ms"]``; the persistent design's
+    ``rec["ms"]`` must be the smaller."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    s = x.shape[0]
+    step_call = {}
+    with per_step_tiled(F32_PLAN):
+        fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+                  ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, dropout,
+                  mask, inv, tag + " (the per-step design)", step_call,
+                  TILED_SOURCE, timed=False)
+        rec["per_step_ms"] = cuda_ms(lambda: ct.tiled_embed_layer0(
+            l0, x, h0, c0, cfg, residuals=True, dropout=dropout), reps=2, windows=3)
+    if step_call["tiled_fwd_embed"] != s:
+        fail(f"tiled_fwd_embed {tag}, the per-step design: "
+             f"{step_call['tiled_fwd_embed']} launches a call, one a step gives {s}")
+    if not rec["ms"] < rec["per_step_ms"]:
+        fail(f"tiled_fwd_embed {tag}: the persistent design {rec['ms']:.4f} ms "
+             f"is not faster than the per-step design {rec['per_step_ms']:.4f} "
+             f"ms in this call")
+
+
+def k8_f32_eval(l0, gen, n, cfg, inv):
+    """K8 under fp32 compute at the eval batch of 16 (one CHUNK-step
+    window), where its plan takes the persistent design: ``fwd_check``'s
+    gates (every step replayed, with residuals) and one launch a call, then
+    the eval call (no residuals) timed beside the per-step design (forced,
+    held to the same gates, S launches a call) in this run; the persistent
+    design must be the faster."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
+
+    s, b = CHUNK, EVAL_BATCH
+    x = corpus_window(CORPUS, 0.95, gen, s, b)[0]
+    h0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
+    c0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
+    design, persistent = k8_design(cfg, b, n)
+    tag = f"float32 at the eval batch (B={b}, S={s}, N={n})"
+    if not persistent:
+        fail(f"tiled_fwd_embed {tag}: {design}")
+    calls = {}
+    fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+              ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, None, None, inv,
+              tag, calls, timed=False)
+    if calls["tiled_fwd_embed"] != 1:
+        fail(f"tiled_fwd_embed {tag}: {calls['tiled_fwd_embed']} launches a "
+             f"call, {design} gives 1")
+    call = lambda: ct.tiled_embed_layer0(l0, x, h0, c0, cfg)
+    ms = cuda_ms(call, reps=2, windows=3)
+    with per_step_tiled(F32_PLAN):
+        fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+                  ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, None, None,
+                  inv, tag + " (the per-step design)", calls, timed=False)
+        step_ms = cuda_ms(call, reps=2, windows=3)
+    if calls["tiled_fwd_embed"] != s:
+        fail(f"tiled_fwd_embed {tag}, the per-step design: "
+             f"{calls['tiled_fwd_embed']} launches a call, one a step gives {s}")
+    bound_ms, bound_by = bound("embed", cfg, s, b, n, cfg.vocab)
+    print(f"  tiled_fwd_embed {tag}, no residuals: {design}; {ms:.4f} ms a "
+          f"window (1 launch), the per-step design {step_ms:.4f} ms in this "
+          f"run, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    if not ms < step_ms:
+        fail(f"tiled_fwd_embed {tag}: the persistent design {ms:.4f} ms is "
+             f"not faster than the per-step design {step_ms:.4f} ms")
 
 
 def tiled_eval_times(l0, l1, gen, n, cfg):
@@ -3489,9 +3683,14 @@ def phase10e():
     if rel > CHUNK_LOSS_RTOL or max(errs.values()) > CHUNK_GRAD_TOL \
             or not np.isfinite(l1):
         fail("scan_chunk: the chunked loss or gradients out of tolerance")
-    if n1["tiled_fwd_embed"] != 2 * n0["tiled_fwd_embed"]:
-        fail(f"scan_chunk: K8 launched {n1['tiled_fwd_embed']} times chunked, "
-             f"expected twice the unchunked {n0['tiled_fwd_embed']}")
+    # K8 as its plan gives it: one call unchunked, and chunked a call a
+    # chunk, then again in the backward (the checkpointed chunks recomputed)
+    want0 = k8_calls(base, FLAG_B, 1024, FLAG_S)
+    want1 = 2 * FLAG_S // FLAG_CHUNK * k8_calls(base, FLAG_B, 1024, FLAG_CHUNK)
+    if (n0["tiled_fwd_embed"], n1["tiled_fwd_embed"]) != (want0, want1):
+        fail(f"scan_chunk: K8 launched {n0['tiled_fwd_embed']} times "
+             f"unchunked and {n1['tiled_fwd_embed']} chunked, its plan gives "
+             f"{want0} and {want1}")
 
 
 def phase10f(test):
@@ -4388,11 +4587,15 @@ def phase13k():
                     tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT, cfg,
                                     dr[1], masks[1], inv, tag, calls, persistent,
                                     timed=False)
-                    print(f"  {tag}: K8/K9 in {tiled_design(cfg, b, n)[0]}, K10 "
-                          f"in {tiled_bwd_design(cfg, b, n)[0]}; launches a "
+                    print(f"  {tag}: K8 in {k8_design(cfg, b, n)[0]}, K9 in "
+                          f"{tiled_design(cfg, b, n)[0]}, K10 in "
+                          f"{tiled_bwd_design(cfg, b, n)[0]}; launches a "
                           f"call {calls}", flush=True)
-                    if calls != {k: s for k in TILED}:
-                        fail(f"{tag}: launches a call {calls}, one a step each")
+                    want = {k: s for k in TILED}
+                    want["tiled_fwd_embed"] = k8_calls(cfg, b, n, s)
+                    if calls != want:
+                        fail(f"{tag}: launches a call {calls}, the plans give "
+                             f"{want}")
                     continue
                 want = sp_plan_launches(cfg, s, b, where)
                 out1, _ = fwd_check("lstm_fwd_embed", "embed", cuda_cell.embed_layer0,
@@ -4722,7 +4925,8 @@ def phase13d():
     cfg16 = flag_train_cfg("bfloat16")
     cfg32 = flag_train_cfg("float32")
     print(f"  flagship SP window ({SP_FLAG_CHUNKS} chunks of {rows} rows): fp32 "
-          f"K8/K9 in {tiled_design(cfg32, rows, 1024)[0]}, K10 in "
+          f"K8 in {k8_design(cfg32, rows, 1024)[0]}, K9 in "
+          f"{tiled_design(cfg32, rows, 1024)[0]}, K10 in "
           f"{tiled_bwd_design(cfg32, rows, 1024)[0]}; launches {windows['float32']}",
           flush=True)
     print(f"  flagship SP window bf16: K1 in {split_design(cfg16, rows, 1024)[0]}, "
@@ -4730,8 +4934,8 @@ def phase13d():
           f"{k6_design(cfg16, rows, 1024)[0]}; launches {windows['bfloat16']}",
           flush=True)
     c_, s_ = SP_FLAG_CHUNKS, FLAG_S
-    want32 = {"tiled_fwd_embed": c_ * s_, "tiled_fwd_scan": 2 * c_ * s_,
-              "tiled_bwd": 3 * c_ * s_}
+    want32 = {"tiled_fwd_embed": c_ * k8_calls(cfg32, rows, 1024, s_),
+              "tiled_fwd_scan": 2 * c_ * s_, "tiled_bwd": 3 * c_ * s_}
     got32 = {k: windows["float32"][k] for k in TILED}
     if got32 != want32 or windows["float32"]["lstm_fwd_embed"]:
         fail(f"flagship SP fp32 window: tiled launches {got32} (the chunks "
@@ -5463,7 +5667,7 @@ def main():
     check_budget("phase 6b (the bench)")
     phase6d(own_bpc)
     check_budget("phase 6d (the bench from the JAX start)")
-    k3_fp32_launches, k1_fp32_launches = phase6c()
+    k3_fp32_launches, k1_fp32_launches, k4_fp32_launches = phase6c()
     check_budget("phase 6c (100 fp32 training steps)")
     flag_call = phase7a(records)
     check_budget("phase 7a (flagship training kernels against plain)")
@@ -5529,6 +5733,9 @@ def main():
     # K1's per-step design, which fp32 keeps, on 6c's fp32 steps
     add(records[("lstm_fwd_embed", "float32")], k1_fp32_launches,
         name="lstm_fwd_embed_per_step")
+    # K4's CUDA-core design, which fp32 takes, on 6c's fp32 steps
+    add(records[("head_fwd", "float32")], k4_fp32_launches,
+        name="head_fwd_cuda_core")
     # K3 in both designs: the persistent one on the bench (6b, bf16), the
     # per-step one on its fp32 steps (6c)
     add(records[("lstm_bwd_embed", "bfloat16", 0.0)], counts["lstm_bwd_embed"])
@@ -5545,6 +5752,9 @@ def main():
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
         add(records[("9a", name, "bfloat16", 0.0)], count)
+    # K8's fp32 persistent design on the flagship's fp32 steps (7c)
+    add(records[("9a", "tiled_fwd_embed", "float32", 0.0)],
+        fp32_tiled["tiled_fwd_embed"], name="tiled_fwd_embed_fp32")
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
     # its B = 64 shapes; K11 on the bench's stage-stacked set once a step of
     # phase 14's --pp 1 runs

@@ -29,18 +29,13 @@
 // in the C fragments for the row reductions (ops/head.py:fwd_tensor_cores
 // chooses it): 0.057 ms at the bench shapes (PERF.md), still 14x its byte
 // bound, each of the 200 blocks reading all of Why from L2 (51 MB). fp32
-// (TF32 stays off) keeps the first design:
+// (TF32 stays off) takes the CUDA-core design (head_fwd_core): the same
+// 64-row blocks and ring, 8 x 8 register tiles of FFMAs. Either way the
+// block's bits go to a per-block partial that a second launch adds in
+// block order, so the total has a fixed order. The first design, for
+// both types, was one thread a vocabulary column in 32-row blocks.
 //
-// Design. A block owns 32 token rows and one thread per vocabulary column
-// (M <= 256): it stages the rows' h in shared memory, k-tile by k-tile,
-// transposed so each k reads four rows as one float4, and each thread
-// accumulates its column's 32 logits in registers, reading Why (256 KB in
-// bf16, resident in L2) coalesced. The forward's row reductions (max, sum
-// of exp, the target logit) run one warp per 4 rows over shared memory;
-// the block's bits go to a per-block partial that a second launch adds in
-// block order, so the total has a fixed order.
-//
-// The backward's first design was that one too (0.74 ms at the bench
+// The backward's first design was like it (0.74 ms at the bench
 // shapes in either type, PERF.md): 32-row blocks that recomputed the
 // logits against all of Why and read all of a Why^T copy again for dh
 // (~200 MB of L2 reads for a 26 MB function), dlog through an fp32 (T, M)
@@ -60,93 +55,211 @@
 
 namespace {
 
-constexpr int kRows = 32;   // token rows per block
+constexpr int kTRows = 64;  // token rows per block
 constexpr int kCols = 256;  // threads per block = the largest vocabulary
-constexpr int kKt = 32;     // k tile of h staged in shared memory
-constexpr int kPad = 36;    // row pitch of the transposed tile (16-byte aligned)
 constexpr float kInvLn2 = 1.4426950408889634f;
 
-// acc[r] = sum_k h[row0 + r, k] * Why[k, m] for the thread's column m
-// (0 for m >= M and for rows past T).
+// ---------------------------------------------------------------------------
+// The forward on CUDA cores (head_fwd_core): fp32 compute (TF32 stays off),
+// and bf16 where head_fwd_mma does not apply (ops/head.py:fwd_tensor_cores).
+// What held the first design back on this card (one thread a column in
+// 32-row blocks): each of its 400 blocks at the bench's shapes read all of
+// Why from L2 (~205 MB in fp32 for a 13 MB function), h was staged in turns
+// with no copy in flight while it multiplied, and each FMA took a shared
+// load (~20 % of the fp32 peak; 0.2548 ms against this design's 0.1320 in
+// one call, PERF.md). Here a block owns kTRows = 64 token rows (half the
+// Why reads) and all M <= 256 columns. N is walked kHK values at a time:
+// the rows' h chunk (64 x kHK, [row][k] with a pitch of kHK + one 16-byte
+// copy) and Why's (kHK x 256, columns past M zero-filled) arrive by
+// cp.async in a ring of kHStages slots, the next chunk in flight while one
+// is multiplied. The 8 warps form a 2 x 4 grid of 32-row by 64-column warp
+// tiles, and lane (lr, lc) = (lane / 8, lane % 8) a register tile of 8 rows
+// (lr + 4 i of the warp's) by 8 columns (4 lc .. and 32 + 4 lc .. of the
+// warp's): each pair of k is 8 loads of h (the 4 lr of a warp on
+// neighbouring rows, banks apart through the pitch) and 4 16-byte loads of
+// Why (8 lc, the rest broadcast) for 128 FMAs. On the H100 a shared load
+// costs the bytes it hands each lane, broadcast or not, so 8 x 8 tiles (4
+// FMAs a word) keep the shared path as busy as the FMA pipe (16 x 8 tiles,
+// at 255 registers, were tried and were no faster). Two blocks fit an SM (128 registers, no spills): the bench's
+// 200 blocks (T = 12800) run as one wave of 264 slots, the flagship's 512
+// (T = 32768) as two. The logits stay in the register tiles: each row's
+// max and sum of exp over its 8 lanes by shuffles, then over the 4 warp
+// columns through shared memory; the target logit from the one thread that
+// holds it; lse and the row bits from 64 threads, the bits added in row
+// order into the block's partial, which sum_in_order adds in block order.
+// Sums over k run in order. The wrapper pads N and Why's rows to a multiple
+// of 8 with zeros where they are not (16-byte copies); ldm is Why's pitch.
+constexpr int kHK = 32;       // k values a ring slot
+constexpr int kHStages = 2;   // ring slots
+
+// Values of a ring slot's h row: kHK and one 16-byte copy of padding.
 template <typename CT>
-__device__ __forceinline__ void row_logits(const CT* __restrict__ h,
-                                           const CT* __restrict__ Why,
-                                           int row0, int T, int N, int M,
-                                           float (&hsT)[kKt][kPad],
-                                           float (&acc)[kRows]) {
-  const int m = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  for (int k0 = 0; k0 < N; k0 += kKt) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kRows * kKt; e += kCols) {
-      const int r = e / kKt, kk = e % kKt;
-      const int row = row0 + r, k = k0 + kk;
-      hsT[kk][r] = row < T && k < N ? to_f32(h[(size_t)row * N + k]) : 0.0f;
-    }
-    __syncthreads();
-    if (m < M) {
-      const int klen = min(kKt, N - k0);
-      for (int kk = 0; kk < klen; ++kk) {
-        const float wv = to_f32(Why[(size_t)(k0 + kk) * M + m]);
-#pragma unroll
-        for (int r4 = 0; r4 < kRows / 4; ++r4) {
-          const float4 hv = *reinterpret_cast<const float4*>(&hsT[kk][r4 * 4]);
-          acc[r4 * 4 + 0] = fmaf(hv.x, wv, acc[r4 * 4 + 0]);
-          acc[r4 * 4 + 1] = fmaf(hv.y, wv, acc[r4 * 4 + 1]);
-          acc[r4 * 4 + 2] = fmaf(hv.z, wv, acc[r4 * 4 + 2]);
-          acc[r4 * 4 + 3] = fmaf(hv.w, wv, acc[r4 * 4 + 3]);
-        }
-      }
-    }
-  }
+__host__ __device__ constexpr int fwd_core_pitch() { return kHK + 16 / (int)sizeof(CT); }
+
+template <typename CT>
+inline size_t fwd_core_smem_bytes() {
+  return sizeof(CT) * (size_t)kHStages * (kTRows * fwd_core_pitch<CT>() + kHK * kCols);
 }
 
-// grid = ceil(T / 32), block = 256. lse (T,), partial (grid,) bits.
+// Two consecutive values of CT at p, and four, widened to fp32.
+__device__ __forceinline__ void load2(const float* p, float* v) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* v) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+  v[0] = __low2float(x);
+  v[1] = __high2float(x);
+}
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(x.x << 16);
+  v[1] = __uint_as_float(x.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xFFFF0000u);
+}
+
+// grid = ceil(T / kTRows), block = kCols; lse (T,), partial (grid,) bits.
+// N and ldm multiples of 8; M <= ldm.
 template <typename CT>
-__global__ void __launch_bounds__(kCols)
-head_fwd(const CT* __restrict__ h, const CT* __restrict__ Why,
-         const float* __restrict__ by, const int* __restrict__ tgt,
-         float* __restrict__ lse, float* __restrict__ partial, int T, int N,
-         int M) {
-  __shared__ __align__(16) float hsT[kKt][kPad];
-  __shared__ float logits[kRows][kCols + 1];
-  __shared__ float row_bits[kRows];
-  const int row0 = blockIdx.x * kRows;
-  const int m = threadIdx.x;
-  float acc[kRows];
-  row_logits<CT>(h, Why, row0, T, N, M, hsT, acc);
-  if (m < M) {
-    const float bm = by[m];
+__global__ void __launch_bounds__(kCols, 2)
+head_fwd_core(const CT* __restrict__ h,    // (T, N)
+              const CT* __restrict__ Why,  // (N, ldm)
+              const float* __restrict__ by, const int* __restrict__ tgt,
+              float* __restrict__ lse, float* __restrict__ partial, int T,
+              int N, int M, int ldm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float rmax[4][kTRows], rsum[4][kTRows], tlog[kTRows], row_bits[kTRows];
+  CT* ring = reinterpret_cast<CT*>(smem);
+  constexpr int RPT = 8;                        // rows of a thread's tile
+  constexpr int V = 16 / (int)sizeof(CT);       // values of a 16-byte copy
+  constexpr int HP = fwd_core_pitch<CT>();
+  constexpr int hslot = kTRows * HP;            // values of a slot's h chunk
+  constexpr int slot = hslot + kHK * kCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lr = lane / 8, lc = lane % 8, wr = warp / 4, wc = warp % 4;
+  const int rbase = 4 * RPT * wr + lr;          // the block's row of i = 0
+  const int cbase = 64 * wc + 4 * lc;           // the column of b = 0
+  const int row0 = blockIdx.x * kTRows;
+
+  // chunk ch: h's columns ch * kHK.. of the block's rows (rows past T and
+  // k past N zero-filled) and the same rows of Why
+  const auto load_chunk = [&](int ch) {
+    CT* st = ring + (size_t)(ch % kHStages) * slot;
+    const int k0 = ch * kHK;
+    for (int e = tid; e < kTRows * (kHK / V); e += kCols) {
+      const int r = e / (kHK / V), k = k0 + (e % (kHK / V)) * V;
+      const bool in = row0 + r < T && k < N;
+      cp_async_16(st + r * HP + k - k0, in ? h + (size_t)(row0 + r) * N + k : h,
+                  in ? 16 : 0);
+    }
+    for (int e = tid; e < kHK * (kCols / V); e += kCols) {
+      const int kk = e / (kCols / V), col = (e % (kCols / V)) * V;
+      const bool in = k0 + kk < N && col < M;
+      cp_async_16(st + hslot + kk * kCols + col,
+                  in ? Why + (size_t)(k0 + kk) * ldm + col : Why, in ? 16 : 0);
+    }
+  };
+
+  float acc[RPT][8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) logits[r][m] = acc[r] + bm;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[i][b] = 0.0f;
+  const int nchunks = (N + kHK - 1) / kHK;
+#pragma unroll
+  for (int ch = 0; ch < kHStages - 1; ++ch) {
+    if (ch < nchunks) load_chunk(ch);
+    cp_async_commit();
   }
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp * (kRows / 8); r < (warp + 1) * (kRows / 8); ++r) {
-    const int row = row0 + r;
-    float mx = -INFINITY;
-    for (int c = lane; c < M; c += 32) mx = fmaxf(mx, logits[r][c]);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<kHStages - 2>();
+    __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
+    if (ch + kHStages - 1 < nchunks) load_chunk(ch + kHStages - 1);
+    cp_async_commit();
+    const CT* hs = ring + (size_t)(ch % kHStages) * slot + rbase * HP;
+    const CT* ws = ring + (size_t)(ch % kHStages) * slot + hslot + cbase;
 #pragma unroll
-    for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float se = 0.0f;
-    for (int c = lane; c < M; c += 32) se += expf(logits[r][c] - mx);
+    for (int kk = 0; kk < kHK; kk += 2) {
+      float hv[RPT][2], wv[2][8];
 #pragma unroll
-    for (int o = 16; o > 0; o /= 2) se += __shfl_xor_sync(0xffffffffu, se, o);
-    if (lane == 0) {
-      float bits = 0.0f;
-      if (row < T) {
-        const float l = mx + logf(se);
-        lse[row] = l;
-        bits = l - logits[r][tgt[row]];
+      for (int i = 0; i < RPT; ++i) load2(hs + 4 * i * HP + kk, hv[i]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        load4(ws + (kk + j) * kCols, wv[j]);
+        load4(ws + (kk + j) * kCols + 32, wv[j] + 4);
       }
-      row_bits[r] = bits;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int b = 0; b < 8; ++b) acc[i][b] = fmaf(hv[i][j], wv[j][b], acc[i][b]);
     }
   }
+  cp_async_wait<0>();
+
+  // the logits: + by, columns past M out of the reductions
+  const auto colof = [&](int b) { return cbase + (b / 4) * 32 + b % 4; };
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const float bm = colof(b) < M ? by[colof(b)] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i][b] = colof(b) < M ? acc[i][b] + bm : -INFINITY;
+  }
+  // each row's max over the thread's columns, its 8 lanes, then the 4
+  // warp columns; the target's logit from the thread that holds it
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rbase + 4 * i;
+    float mx = acc[i][0];
+#pragma unroll
+    for (int b = 1; b < 8; ++b) mx = fmaxf(mx, acc[i][b]);
+#pragma unroll
+    for (int o = 1; o < 8; o *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lc == 0) rmax[wc][r] = mx;
+    const int tc = row0 + r < T ? tgt[row0 + r] : -1;
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (colof(b) == tc) tlog[r] = acc[i][b];
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rbase + 4 * i;
+    const float mx = fmaxf(fmaxf(rmax[0][r], rmax[1][r]), fmaxf(rmax[2][r], rmax[3][r]));
+    float se = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (colof(b) < M) se += expf(acc[i][b] - mx);
+#pragma unroll
+    for (int o = 1; o < 8; o *= 2) se += __shfl_xor_sync(0xffffffffu, se, o);
+    if (lc == 0) rsum[wc][r] = se;
+  }
+  __syncthreads();
+  if (tid < kTRows) {
+    const int row = row0 + tid;
+    float bits = 0.0f;
+    if (row < T) {
+      const float mx = fmaxf(fmaxf(rmax[0][tid], rmax[1][tid]), fmaxf(rmax[2][tid], rmax[3][tid]));
+      const float l = mx + logf(((rsum[0][tid] + rsum[1][tid]) + rsum[2][tid]) + rsum[3][tid]);
+      lse[row] = l;
+      bits = l - tlog[tid];
+    }
+    row_bits[tid] = bits;
+  }
+  __syncthreads();
+  if (tid == 0) {
     float s = 0.0f;
-    for (int r = 0; r < kRows; ++r) s += row_bits[r];
+    for (int r = 0; r < kTRows; ++r) s += row_bits[r];
     partial[blockIdx.x] = s * kInvLn2;
   }
 }
@@ -166,7 +279,6 @@ head_fwd(const CT* __restrict__ h, const CT* __restrict__ Why,
 // target's logit (written by the lane that holds it), lse and the row's
 // bits; the block's bits are added in row order into its partial, which
 // sum_in_order adds in block order.
-constexpr int kTRows = 64;
 constexpr int kTKC = 64;
 constexpr int kTStages = 2;
 constexpr int kTAPitch = kTKC + 8;    // bf16: odd multiples of 16 bytes, so
@@ -625,29 +737,38 @@ head_bwd_core(const CT* __restrict__ h, const CT* __restrict__ Why,
   }
 }
 
-// The forward: head_fwd_mma when tensor_cores (bf16 only; N a multiple of
-// kTKC, M of 8), else head_fwd; then the partials added in block order.
+// The forward: head_fwd_mma when design is 1 (bf16 only; N a multiple of
+// kTKC, M of 8, Why's pitch M), head_fwd_core when 0 (N and ldm multiples
+// of 8); then the partials added in block order.
 template <typename CT>
 int run_fwd(const void* h, const void* Why, const float* by, const int* tgt,
             float* lse, float* partial, float* bits, int T, int N, int M,
-            int tensor_cores, cudaStream_t stream, int* launches) {
-  int blocks = (T + kRows - 1) / kRows;
+            int ldm, int design, cudaStream_t stream, int* launches) {
+  int blocks = (T + kTRows - 1) / kTRows;
   cudaError_t err = cudaSuccess;
-  if (tensor_cores) {
-    if (sizeof(CT) != 2 || N % kTKC != 0 || M % 8 != 0)
+  if (design == 1) {
+    if (sizeof(CT) != 2 || N % kTKC != 0 || M % 8 != 0 || ldm != M)
       return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = fwd_mma_smem_bytes();
     err = cudaFuncSetAttribute(head_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    blocks = (T + kTRows - 1) / kTRows;
     head_fwd_mma<<<blocks, kCols, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(Why),
         by, tgt, lse, partial, T, N, M);
+  } else if (design == 0) {
+    if (N % 8 != 0 || ldm % 8 != 0 || ldm < M)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = head_fwd_core<CT>;
+    const size_t smem = fwd_core_smem_bytes<CT>();
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, kCols, smem, stream>>>(
+        static_cast<const CT*>(h), static_cast<const CT*>(Why), by, tgt, lse,
+        partial, T, N, M, ldm);
   } else {
-    head_fwd<CT><<<blocks, kCols, 0, stream>>>(static_cast<const CT*>(h),
-                                               static_cast<const CT*>(Why), by,
-                                               tgt, lse, partial, T, N, M);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -715,26 +836,27 @@ int run_bwd(const void* h, const void* Why, const float* by, const int* tgt,
 }  // namespace
 
 // Scratch floats: the forward's per-block partials, the backward's work.
-extern "C" size_t head_fwd_work_floats(int T) { return (T + kRows - 1) / kRows; }
+extern "C" size_t head_fwd_work_floats(int T) { return (T + kTRows - 1) / kTRows; }
 
 extern "C" size_t head_bwd_work_floats(int T, int N, int M) {
   return (size_t)((T + kTRows - 1) / kTRows) * M + atb_work_floats(T, N, M);
 }
 
 // Type code 0 = fp32, 1 = bf16: the type of h and Why. by, lse, bits are
-// fp32; tgt int32. Requires M <= 256. tensor_cores: the tensor-core design
-// (bf16, N a multiple of 64, M of 8; ops/head.py:fwd_tensor_cores), else
-// the CUDA-core one. Adds its launches to *launches.
+// fp32; tgt int32. Requires M <= 256; Why (N, M) with row pitch ldm. design:
+// 1 the tensor-core design (bf16, N a multiple of 64, M of 8, ldm = M;
+// ops/head.py:fwd_tensor_cores), 0 the CUDA-core one (N and ldm multiples
+// of 8). Adds its launches to *launches.
 extern "C" int head_fwd_launch(int ctype, const void* h, const void* Why,
                                const void* by, const void* tgt, void* lse,
                                void* partial, void* bits, int T, int N, int M,
-                               int tensor_cores, void* stream, int* launches) {
+                               int ldm, int design, void* stream, int* launches) {
   if (M > kCols) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [&](auto run) {
     return run(h, Why, static_cast<const float*>(by),
                static_cast<const int*>(tgt), static_cast<float*>(lse),
                static_cast<float*>(partial), static_cast<float*>(bits), T, N,
-               M, tensor_cores, static_cast<cudaStream_t>(stream), launches);
+               M, ldm, design, static_cast<cudaStream_t>(stream), launches);
   };
   if (ctype == 0) return f(run_fwd<float>);
   if (ctype == 1) return f(run_fwd<__nv_bfloat16>);

@@ -61,7 +61,7 @@ SIGNATURES = {
     "lstm_bwd_dWU_launch": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_P, _IP]),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
     "lstm_bwd_persist_smem_bytes": (_Z, [_I, _I]),
-    "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 4 + [_P, _IP]),
+    "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "head_bwd_launch": (_I, [_I] + [_P] * 11 + [_I] * 4 + [_P, _IP]),
     "head_fwd_work_floats": (_Z, [_I]),
     "head_bwd_work_floats": (_Z, [_I] * 3),
@@ -71,6 +71,9 @@ SIGNATURES = {
     "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 6 + _DROP
                               + [_P, _IP]),
     "tiled_fwd_persist_smem_bytes": (_Z, [_I] * 3),
+    "tiled_fwd_embed_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 6 + _DROP
+                                   + [_P, _IP]),
+    "tiled_fwd_f32_smem_bytes": (_Z, [_I] * 4),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
                          + [_P, _IP]),
     "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),

@@ -24,7 +24,11 @@ and shared memory): under bf16 compute, where its grid of N / 16 blocks
 can be resident, one persistent cooperative launch a window with as many
 of U's rows as fit in shared memory and the product on tensor cores;
 elsewhere (fp32 compute, B > 128, a grid too large for the card) one
-launch a step. The resident family's forwards compute the same functions
+launch a step. Under fp32 compute K8 alone has a persistent design of its
+own (``tiled_fwd_f32_plan``: one cooperative launch a window on CUDA
+cores, N / 8 blocks each holding its N x 32 slice of U in shared memory,
+B <= 128, a resident grid); K9 keeps one launch a step there. The
+resident family's forwards compute the same functions
 and take the persistent design through the same launchers under bf16
 compute (``embed_launch`` for K1, ``scan_launch`` for K2), as does K15
 (``cuda_tp_seq``); K1's and K15's blocks take a share of the batch rows
@@ -62,7 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -284,11 +288,77 @@ def split_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
     return fwd_layout(cfg, b, n, sms, smem_limit, split=True)
 
 
+# K8's persistent design under fp32 compute (csrc/lstm_tiled.cu:
+# tiled_fwd_f32_persist, on CUDA cores: TF32 stays off), as the library
+# lays out its shared memory (f32_persist_smem_bytes; ``_device_limits``
+# holds the two equal): a block of F32_THREADS threads owns F32_UNITS
+# hidden units with their four gates and every batch row, holds its N x
+# 4 * F32_UNITS slice of U (fp32) for the window, and streams h through a
+# ring of slots of 32 R rows by KC columns, each row KC + 4 floats, which
+# the F32_SPLIT splits' partial sums (32 R rows x 4 F32_UNITS) reuse; a
+# thread's epilogue owns R = 1, 2 or 4 rows (B <= 32, 64, 128). F32_RINGS:
+# the (KC, slots) the library is built for at each R, in the order the plan
+# tries them (KC 32 for the widths the wider slots do not divide).
+F32_UNITS = 8
+F32_THREADS = 256
+F32_SPLIT = 4    # ways the product splits a chunk's k
+F32_ROWS = 128   # batch rows at most: 4 a thread
+F32_RINGS = {1: ((128, 4), (32, 3)), 2: ((64, 4), (32, 3)), 4: ((64, 2), (32, 3))}
+
+
+def f32_rows_per_thread(b: int) -> int:
+    """Rows of the batch a thread of K8's fp32 persistent design owns."""
+    return 1 if b <= 32 else 2 if b <= 64 else 4
+
+
+def f32_persist_smem_bytes(b: int, n: int, kc: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of K8's fp32 persistent
+    design takes at batch ``b`` and hidden ``n`` with a ring of ``stages``
+    slots of ``kc`` columns."""
+    rows = F32_THREADS // F32_UNITS * f32_rows_per_thread(b)
+    ring, red = stages * rows * (kc + 4), F32_SPLIT * rows * 4 * F32_UNITS
+    return 4 * (n * 4 * F32_UNITS + max(ring, red))
+
+
+class F32Layout(NamedTuple):
+    """K8's fp32 persistent design: a thread owns ``rows`` batch rows, the
+    ring has ``stages`` slots of ``kc`` columns of h."""
+    rows: int
+    kc: int
+    stages: int
+
+
+def tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                       smem_limit: int) -> Optional[F32Layout]:
+    """K8's design under fp32 compute at (batch, hidden) on a device of
+    ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: the persistent CUDA-core design's layout (the first ring of
+    F32_RINGS whose KC divides N and that fits beside the slice of U), or
+    None for the per-step design (also under bf16 compute, whose plan is
+    ``tiled_fwd_plan``).
+
+    The design needs fp32 compute, N a multiple of a ring's KC (32 at
+    least), at most F32_ROWS batch rows, its grid of N / F32_UNITS blocks
+    resident at one an SM, and the whole slice of U with a ring in a
+    block's shared memory (where the grid is resident on an H100 the slice
+    always fits; a card with less shared memory refuses it rather than
+    stream U)."""
+    if cfg.cdtype != torch.float32:
+        return None
+    if not 1 <= b <= F32_ROWS or n // F32_UNITS > sms:
+        return None
+    rows = f32_rows_per_thread(b)
+    ring = next((r for r in F32_RINGS[rows] if n % r[0] == 0
+                 and f32_persist_smem_bytes(b, n, *r) <= smem_limit), None)
+    return None if ring is None else F32Layout(rows, *ring)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent forward's and
-    K10's shared memory as ``persist_smem_bytes`` and
+    once; checks that the library lays out the persistent forward's, K8's
+    fp32 persistent design's and K10's shared memory as
+    ``persist_smem_bytes``, ``f32_persist_smem_bytes`` and
     ``bwd_persist_smem_bytes`` do (the forward's also at K1's split
     layouts: 32 and 16 of 128 rows at N = 512, 64 at N = 1024)."""
     lib = _build.load_library()
@@ -296,6 +366,11 @@ def _device_limits(index: int):
                        (32, 512, 512), (16, 512, 512), (64, 1024, 1024)):
         if lib.tiled_fwd_persist_smem_bytes(b, n, kres) != persist_smem_bytes(b, n, kres):
             raise RuntimeError("persist_smem_bytes disagrees with "
+                               "csrc/lstm_tiled.cu's layout")
+    for b, n, kc, st in ((128, 1024, 64, 2), (16, 1024, 128, 4), (32, 1024, 32, 3),
+                         (64, 512, 64, 4), (100, 1056, 32, 3)):
+        if lib.tiled_fwd_f32_smem_bytes(b, n, kc, st) != f32_persist_smem_bytes(b, n, kc, st):
+            raise RuntimeError("f32_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
     for rows, cres in ((64, 14), (32, 18), (16, 0), (48, 5)):
         if lib.tiled_bwd_persist_smem_bytes(rows, cres) != bwd_persist_smem_bytes(rows, cres):
@@ -308,6 +383,13 @@ def device_tiled_fwd_plan(cfg: ModelConfig, b: int, n: int) -> Optional[int]:
     """``tiled_fwd_plan`` with the current card's SMs and shared-memory
     limit."""
     return tiled_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+def device_tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int):
+    """``tiled_fwd_f32_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tiled_fwd_f32_plan(cfg, b, n,
+                              *_device_limits(torch.cuda.current_device()))
 
 
 def device_split_fwd_plan(cfg: ModelConfig, b: int, n: int):
@@ -403,30 +485,46 @@ def _fwd_result(o, cfg: ModelConfig, residuals: bool):
 
 
 def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
-                 rd: torch.dtype, layout: Tuple[int, int], residuals: bool,
-                 dropout):
-    """One call of K8's launcher, which K1 (``cuda_cell.embed_layer0``)
+                 rd: torch.dtype, layout: Union[Tuple[int, int], F32Layout],
+                 residuals: bool, dropout):
+    """One call of K8's launchers, which K1 (``cuda_cell.embed_layer0``)
     takes too: W and U in the compute type, b in fp32, the sequences in
-    ``rd``, ``layout`` the persistent design's (kres, rows) (kres -1: the
-    per-step design). Adds the launches made to ``counter.launches``, then
-    raises on a failed launch; returns the buffers."""
+    ``rd``; ``layout`` the persistent design's (kres, rows) (kres -1: the
+    per-step design) through ``tiled_fwd_embed_launch``, or an
+    ``F32Layout``: K8's fp32 persistent design through
+    ``tiled_fwd_embed_f32_launch``. Adds the launches made to
+    ``counter.launches``, then raises on a failed launch; returns the
+    buffers."""
     s, b = ids.shape
     n = cfg.hidden
+    f32 = isinstance(layout, F32Layout)
+    if f32 and (cfg.cdtype != torch.float32
+                or layout.rows != f32_rows_per_thread(b)):
+        raise ValueError(f"{layout} is K8's fp32 layout at the batch {b}: "
+                         f"fp32 compute and {f32_rows_per_thread(b)} rows a "
+                         f"thread")
     W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
     ids32 = ids.to(torch.int32).contiguous()
     drop = cuda_cell.drop_scalars(dropout)
     o = _fwd_buffers(h0, c0, s, b, n, cfg, rd, residuals, drop is not None)
     launched = ctypes.c_int(0)
-    err = _build.load_library().tiled_fwd_embed_launch(
-        cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
-        W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(), ids32.data_ptr(),
-        *_ptrs(o), s, b, n, int(cfg.cell_variant == "standard"), *layout,
-        *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(ids.device).cuda_stream,
-        ctypes.byref(launched),
-    )
+    lib = _build.load_library()
+    common = (W_c.data_ptr(), U_c.data_ptr(), bias.data_ptr(), ids32.data_ptr(),
+              *_ptrs(o), s, b, n, int(cfg.cell_variant == "standard"))
+    tail = (*(drop or (0, 0, 0.0)),
+            torch.cuda.current_stream(ids.device).cuda_stream,
+            ctypes.byref(launched))
+    if f32:
+        name = "tiled_fwd_embed_f32_launch"
+        err = lib.tiled_fwd_embed_f32_launch(cuda_cell._TYPE_CODES[rd], *common,
+                                             layout.kc, layout.stages, *tail)
+    else:
+        name = "tiled_fwd_embed_launch"
+        err = lib.tiled_fwd_embed_launch(
+            cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
+            *common, *layout, *tail)
     counter.launches += launched.value
-    cuda_cell._raise_on(err, "tiled_fwd_embed_launch")
+    cuda_cell._raise_on(err, name)
     return o
 
 
@@ -441,9 +539,11 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
                                         dropout)
     _kernel_codes(cfg, ids.device)
     b = ids.shape[1]
+    layout = device_tiled_fwd_f32_plan(cfg, b, cfg.hidden)
+    if layout is None:
+        layout = (_kres_arg(cfg, b, cfg.hidden), b)
     o = embed_launch(tiled_embed_layer0, layer, ids, h0, c0, cfg,
-                     types(cfg)[1], (_kres_arg(cfg, b, cfg.hidden), b),
-                     residuals, dropout)
+                     types(cfg)[1], layout, residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 

@@ -32,16 +32,16 @@ import torch
 from ..config import ModelConfig
 from . import _build
 from . import cuda_cell
+from . import cuda_cell_tiled as ct
 
 LN2 = 0.6931471805599453
-MAX_VOCAB = 256   # one thread per vocabulary column in a 256-thread block
+MAX_VOCAB = 256   # the columns of a 256-thread block
 
 
 def head_supported(cfg: ModelConfig) -> bool:
-    """The kernels' gate: a vocabulary of at most 256 (one thread per
-    column). They take any hidden width and any number of tokens (a ragged
-    row tile is masked); the TPU's alignment and VMEM budget are not carried
-    over."""
+    """The kernels' gate: a vocabulary of at most 256 (a block's columns).
+    They take any hidden width and any number of tokens (a ragged row tile
+    is masked); the TPU's alignment and VMEM budget are not carried over."""
     return cfg.vocab <= MAX_VOCAB
 
 
@@ -53,9 +53,28 @@ TC_KC, TC_COLS = 64, 8
 def fwd_tensor_cores(cfg: ModelConfig, n: int, m: int) -> bool:
     """Whether K4 takes its tensor-core design at hidden ``n`` and
     vocabulary ``m``: bf16 compute (fp32 products keep TF32 off, so fp32
-    keeps the CUDA-core design), N a multiple of TC_KC and M of TC_COLS."""
+    takes the CUDA-core design), N a multiple of TC_KC and M of TC_COLS."""
     return (cfg.cdtype == torch.bfloat16 and n % TC_KC == 0
             and m % TC_COLS == 0 and m <= MAX_VOCAB)
+
+
+# K4's CUDA-core design (csrc/head.cu: head_fwd_core) copies 16 bytes at a
+# time: h's width and Why's row pitch are multiples of CORE_PAD values
+CORE_PAD = 8
+
+
+def core_operands(h_c, Why_c):
+    """h (T, N) and Why (N, M) as K4's CUDA-core design reads them: N and
+    Why's row pitch padded with zeros to multiples of CORE_PAD where they
+    are not (the zeros add nothing to a logit; the kernel masks the columns
+    past M)."""
+    n, m = Why_c.shape
+    pn, pm = -n % CORE_PAD, -m % CORE_PAD
+    if pn:
+        h_c = torch.nn.functional.pad(h_c, (0, pn))
+    if pn or pm:
+        Why_c = torch.nn.functional.pad(Why_c, (0, pm, 0, pn))
+    return h_c, Why_c
 
 
 # K5's tensor-core design: 64-row blocks, dh over N in chunks of 64
@@ -142,14 +161,17 @@ def head_fwd(Why_c, by, h_c, tgt, cfg: ModelConfig):
     lse = torch.empty(t, **f32)
     partial = torch.empty(lib.head_fwd_work_floats(t), **f32)
     bits = torch.empty((), **f32)
-    ins = [x.contiguous() for x in (h_c.to(cfg.cdtype), Why_c.to(cfg.cdtype),
-                                    by.to(torch.float32),
+    design = int(fwd_tensor_cores(cfg, n, cfg.vocab))
+    h_k, Why_k = h_c.to(cfg.cdtype), Why_c.to(cfg.cdtype)
+    if not design:
+        h_k, Why_k = core_operands(h_k, Why_k)
+    ins = [ct._aligned(x) for x in (h_k, Why_k, by.to(torch.float32),
                                     tgt.to(torch.int32))]
     launched = ctypes.c_int(0)
     err = lib.head_fwd_launch(
         ctype, *(x.data_ptr() for x in ins), lse.data_ptr(),
-        partial.data_ptr(), bits.data_ptr(), t, n, cfg.vocab,
-        int(fwd_tensor_cores(cfg, n, cfg.vocab)),
+        partial.data_ptr(), bits.data_ptr(), t, h_k.shape[1], cfg.vocab,
+        Why_k.shape[1], design,
         torch.cuda.current_stream(h_c.device).cuda_stream,
         ctypes.byref(launched),
     )
