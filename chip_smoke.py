@@ -283,7 +283,8 @@ of JAX is imported. The build goes to ``eigen_lstm_tpu_torch/_build/``.
 near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
-``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone.
+``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone,
+``--tiled`` phases 0, 1 and 9a.
 ``python3 chip_smoke.py --sp-spread`` reads 13d's bf16 gradients against
 the fp32 whole batch on three flagship windows, as drawn and with the
 streams that leave fp32 replaced, through the plain path, the kernels on
@@ -1643,8 +1644,8 @@ FLAG_ARGV = [
     "--warmup", "0", "--clip-norm", "2.0", "--superstep", "50",
     "--steps", str(FLAG_STEPS), "--sample-chars", "0", "--resume", FLAGSHIP,
 ]
-# 7c's fp32 step time: FP32_STEPS steps with K8 in each design, the mean
-# over the last FP32_TIMED
+# 7c's fp32 step time: FP32_STEPS steps with K8-K10 in each design, the
+# mean over the last FP32_TIMED
 FP32_STEPS, FP32_TIMED = 3, 2
 # the gradients the JAX custom VJPs and the matmul VJP hand back as bf16
 # values under bf16 compute: every layer's W and U, and Why
@@ -2219,10 +2220,11 @@ def phase7c(per_call, records):
     torch.cuda.synchronize()
     tiled = dict(zip(TILED, cuda_cell_tiled.launches()))
     # two kernel runs a step (the gated loss_and_grads, then train_step),
-    # each K8 once (its plan's launches: one in its fp32 persistent design),
-    # K9 for layers 1 and 2, K10 for all three, S launches
-    want = {"tiled_fwd_embed": 4 * k8_calls(cfg32, FLAG_B, 1024, FLAG_S),
-            "tiled_fwd_scan": 8 * FLAG_S, "tiled_bwd": 12 * FLAG_S}
+    # each K8 once, K9 for layers 1 and 2, K10 for all three, each call
+    # its plan's launches (one in the fp32 persistent designs)
+    fwd_n = tiled_fwd_calls(cfg32, FLAG_B, 1024, FLAG_S)
+    want = {"tiled_fwd_embed": 4 * fwd_n, "tiled_fwd_scan": 8 * fwd_n,
+            "tiled_bwd": 12 * tiled_bwd_calls(cfg32, FLAG_B, 1024, FLAG_S)}
     print(f"  flagship fp32, 2 steps from the run's state, plain at the same "
           f"seeds: bits rel (tol {LOSS_RTOL['float32']:g}) and gradients "
           f"normalised (tol {TRAIN_TOL:g}) within: "
@@ -2242,12 +2244,14 @@ def phase7c(per_call, records):
         fail(f"flagship fp32 steps: tiled launches {tiled} (the shapes give "
              f"{want}), resident launches {resident} (expected none), "
              f"adagrad {k11.launches} (expected 2)")
-    # the fp32 flagship step (the default dtype at full width) with K8 in
-    # each design, FP32_STEPS steps each from the state above, timed over
-    # the last FP32_TIMED
+    # the fp32 flagship step (the default dtype at full width) with K8, K9
+    # and K10 in their fp32 persistent designs and all three forced
+    # per-step, FP32_STEPS steps each from the state above, timed over the
+    # last FP32_TIMED
     times = {}
-    for label, force in (("its fp32 persistent design", contextlib.nullcontext()),
-                         ("the per-step design", per_step_tiled(F32_PLAN))):
+    for label, force in (("their fp32 persistent designs", contextlib.nullcontext()),
+                         ("their per-step designs",
+                          per_step_tiled(FWD_PLANS + BWD_PLANS))):
         s_, took = st, []
         with force:
             for _ in range(FP32_STEPS):
@@ -2263,7 +2267,7 @@ def phase7c(per_call, records):
         del s_
     print("  flagship fp32 step (3x1024, B=128, S=256, dropout "
           f"{FLAG_DROP}), the mean of the last {FP32_TIMED} of {FP32_STEPS}: "
-          + ", ".join(f"K8 in {k} {v:.2f} ms" for k, v in times.items()),
+          + ", ".join(f"K8-K10 in {k} {v:.2f} ms" for k, v in times.items()),
           flush=True)
     return counts, step_ms, tiled, trainer
 
@@ -2521,6 +2525,8 @@ TILED_REPLACES = {
     "tiled_bwd": "eigen_lstm_tpu/ops/pallas_cell_tiled.py:106",
 }
 TILED_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tiled.cu"
+# the tiled kernels' fp32 persistent designs
+TILED_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tiled_f32.cu"
 # the resident design's kernel for the same work, timed beside each
 RESIDENT = {"tiled_fwd_embed": "K1", "tiled_fwd_scan": "K2",
             "tiled_bwd": "K6, with its dU and dh0"}
@@ -2570,16 +2576,18 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
     kernel's own dg_{t+1} with the cotangent rounded to the xw type and
     masked explicitly, dh0 against round(dg_0) @ U^T in fp32, and the
     window against the plain version given the explicitly masked cotangent
-    (fp32 gated, bf16 printed). The persistent design hands out its fp32 dg
-    too: that is held to the replay, and its bf16 dg must be it rounded,
-    bit for bit; the per-step design's bf16 dg is held beyond its own
-    rounding. Returns the record (its time when ``timed``)."""
+    (fp32 gated, bf16 printed). The bf16 persistent design hands out its
+    fp32 dg too: that is held to the replay, and its bf16 dg must be it
+    rounded, bit for bit; the per-step design's bf16 dg is held beyond its
+    own rounding; an fp32 dg (either design) is held as it is. Returns the
+    record (its time when ``timed``)."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
     g_seq, c_seq = fwd_out[3], fwd_out[2]
     s, b, n = c_seq.shape
     _, _, xd = ct.types(cfg)
-    dg32 = torch.empty(s, b, 4 * n, device=DEVICE) if persistent else None
+    dg32 = (torch.empty(s, b, 4 * n, device=DEVICE)
+            if persistent and xd == torch.bfloat16 else None)
     dh0_k = torch.empty(b, n, device=DEVICE)
     before = ct.tiled_bwd.launches
     dg_k, dc_k = ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
@@ -2595,7 +2603,7 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
              f"in the xw type {xd}")
     rep_dg, rep_dh0, rep_dc = reverse_replay(U.to(cfg.cdtype), g_seq, c_seq, c0,
                                              dh_eff, dhT, dcT, cfg, dg_k.float())
-    if persistent:
+    if dg32 is not None:
         dg_err = norm_err(dg32, rep_dg)
         if not torch.equal(dg_k, dg32.to(xd)):
             fail(f"tiled_bwd {tag}: the persistent design's dg_seq is not its "
@@ -2621,7 +2629,8 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
           f"window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
-    rec = dict(name="tiled_bwd", route="cuda", source=TILED_SOURCE,
+    source = TILED_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_F32_SOURCE
+    rec = dict(name="tiled_bwd", route="cuda", source=source,
                replaces=TILED_REPLACES["tiled_bwd"], launches=None,
                max_abs_err=step_err, dg=dg_k)
     if not timed:
@@ -2692,11 +2701,19 @@ def tiled_design(cfg, b, n):
 
 def tiled_bwd_design(cfg, b, n):
     """K10's design at these shapes on this card, as its wrapper chooses
-    it (``cuda_cell_tiled.tiled_bwd_plan``): a label, and whether it is
-    persistent."""
-    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (BWD_KC, BWD_UNITS,
-                                                          device_tiled_bwd_plan)
+    it (``cuda_cell_tiled.tiled_bwd_plan``, under fp32 compute
+    ``tiled_bwd_f32_plan``): a label, and whether it is persistent (one
+    launch a call)."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (
+        BWD_F32_UNITS, BWD_KC, BWD_UNITS, device_tiled_bwd_f32_plan,
+        device_tiled_bwd_plan)
 
+    layout = device_tiled_bwd_f32_plan(cfg, b, n)
+    if layout is not None:
+        return (f"the fp32 persistent design ({n // BWD_F32_UNITS} blocks of "
+                f"{BWD_F32_UNITS} units and all {b} batch rows, U's rows in "
+                f"shared memory, a ring of {layout.stages} slots of dg, one "
+                f"cooperative launch a window, CUDA cores)"), True
     plan = device_tiled_bwd_plan(cfg, b, n)
     if plan is None:
         return "the per-step design (one launch a step)", False
@@ -2707,16 +2724,23 @@ def tiled_bwd_design(cfg, b, n):
             f"launch a window)"), True
 
 
-# K8's plan under fp32 compute (``cuda_cell_tiled.tiled_fwd_f32_plan``), the
-# name that ``per_step_tiled`` replaces to force its per-step design
-F32_PLAN = ("device_tiled_fwd_f32_plan",)
+def tiled_bwd_calls(cfg, b, n, s):
+    """K10's launches a call of ``s`` steps as its plans give them."""
+    return 1 if tiled_bwd_design(cfg, b, n)[1] else s
 
 
-def k8_design(cfg, b, n):
-    """K8's design at these shapes on this card, as ``tiled_embed_layer0``
-    chooses it (under fp32 compute ``tiled_fwd_f32_plan``, else
-    ``tiled_fwd_plan``): a label, and whether it is persistent (one launch
-    a call)."""
+# The plans of the tiled kernels (``cuda_cell_tiled``), the names that
+# ``per_step_tiled`` replaces to force their per-step designs: K8's and
+# K9's under either compute type, K10's
+FWD_PLANS = ("device_tiled_fwd_plan", "device_tiled_fwd_f32_plan")
+BWD_PLANS = ("device_tiled_bwd_plan", "device_tiled_bwd_f32_plan")
+
+
+def tiled_fwd_design(cfg, b, n):
+    """K8's and K9's design at these shapes on this card, as
+    ``tiled_embed_layer0`` and ``tiled_scan_layer`` choose it (under fp32
+    compute ``tiled_fwd_f32_plan``, else ``tiled_fwd_plan``): a label, and
+    whether it is persistent (one launch a call)."""
     from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (F32_UNITS,
                                                           device_tiled_fwd_f32_plan)
 
@@ -2729,17 +2753,19 @@ def k8_design(cfg, b, n):
             f"of h, one cooperative launch a window, CUDA cores)"), True
 
 
-def k8_calls(cfg, b, n, s):
-    """K8's launches a call of ``s`` steps as its plan gives them."""
-    return 1 if k8_design(cfg, b, n)[1] else s
+def tiled_fwd_calls(cfg, b, n, s):
+    """K8's (or K9's) launches a call of ``s`` steps as their plans give
+    them."""
+    return 1 if tiled_fwd_design(cfg, b, n)[1] else s
 
 
 @contextlib.contextmanager
 def per_step_tiled(names=("device_tiled_fwd_plan",)):
-    """The tiled kernels whose plans are ``names`` (K8 and K9's by
-    default; K10's is ``device_tiled_bwd_plan``) take their per-step design
-    inside the block, whatever the plan would choose: for the checks and
-    times of that design where the main path takes the persistent one."""
+    """The tiled kernels whose plans are ``names`` (K8 and K9's under bf16
+    compute, and K2's, by default; FWD_PLANS and BWD_PLANS name the tiled
+    kernels' in both types) take their per-step design inside the block,
+    whatever the plan would choose: for the checks and times of that design
+    where the main path takes the persistent one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
     plans = {name: getattr(ct, name) for name in names}
@@ -2807,8 +2833,9 @@ def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
 
     s, b = x.shape
     n = cfg.hidden
-    # the persistent design's kernel (bf16) lives in fwd_mma.cuh
-    source = FWD_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_SOURCE
+    # the persistent designs' kernels: bf16 in fwd_mma.cuh, fp32 in
+    # lstm_tiled_f32.cu
+    source = FWD_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_F32_SOURCE
     out1, rec8 = fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
                            ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg,
                            dr[0], masks[0], inv, tag, per_call, source,
@@ -2835,12 +2862,13 @@ def phase9a(records):
     """K8, K9 and K10 against their plain versions at the 5b shapes (bf16;
     random weights that make the gates move, as the 5b recipe trains from
     random weights) and at the flagship's fp32 training shapes (its layers
-    0 and 1), without and with dropout 0.35; in bf16 K8 and K9's persistent
-    design and, forced, their per-step one, each held to the same gates
-    and timed in this run, and both at the eval batch of 16; times beside
-    the bound, the plain version, K1/K2/K6 at the same shapes and cuDNN;
-    the heads' launches at the 5b shapes. Returns the launches of one call
-    of each at the 5b shapes."""
+    0 and 1), without and with dropout 0.35; in both types the three
+    kernels' persistent designs (in fp32 their CUDA-core designs) and,
+    forced, their per-step ones, each held to the same gates and timed in
+    this run (the persistent must be the faster), and K8 and K9 at the
+    eval batch of 16; times beside the bound, the plain version, K1/K2/K6
+    at the same shapes and cuDNN; the heads' launches at the 5b shapes.
+    Returns the launches of one call of each at the 5b shapes."""
     from eigen_lstm_tpu_torch.models.lstm import LayerParams
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
@@ -2878,73 +2906,67 @@ def phase9a(records):
         for drop in (0.0, FLAG_DROP):
             tag = f"{dtype} N={n} S={s} drop {drop:g}"
             dr = [(drop, sd) if drop else None for sd in FLAG_SEEDS]
-            design, persistent = tiled_design(run_cfg, b, n)
-            design8, persistent8 = k8_design(run_cfg, b, n)
-            print(f"  tiled_fwd_embed {tag}: {design8}; tiled_fwd_scan: "
-                  f"{design}", flush=True)
-            if persistent != (dtype == "bfloat16") or not persistent8:
-                fail(f"tiled forward {tag}: K8 in {design8}, K9 in {design}; "
-                     f"these shapes take K8's persistent designs in both "
-                     f"types and K9's in bf16 alone")
+            design, persistent = tiled_fwd_design(run_cfg, b, n)
+            print(f"  tiled_fwd_embed, tiled_fwd_scan {tag}: {design}", flush=True)
+            if not persistent:
+                fail(f"tiled forward {tag}: K8 and K9 in {design}; these "
+                     f"shapes take their persistent designs")
             out1, out2, xw, rec8, rec9 = tiled_fwd_checks(
                 l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag, per_call)
             seqs = {"tiled_fwd_embed": (l0, x, dr[0]),
                     "tiled_fwd_scan": (l1, xw, dr[1])}
-            if persistent:
-                # the per-step design, which tiled_fwd_plan keeps for fp32
-                # and other shapes and cards, held to the same gates on the
-                # same inputs and timed in this run
-                step_call = {}
-                with per_step_tiled():
-                    tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks,
-                                     inv, tag + " (the per-step design)",
-                                     step_call, timed=False)
-                    for rec in (rec8, rec9):
-                        lay_, seq, d = seqs[rec["name"]]
-                        rec["per_step_ms"] = cuda_ms(
-                            lambda: fwd[rec["name"]](lay_, seq, h0, c0, run_cfg,
-                                                     residuals=True, dropout=d),
-                            reps=2, windows=3)
-                if any(step_call[k] != s for k in fwd):
-                    fail(f"tiled forward {tag}, the per-step design: launches "
-                         f"{step_call}, one a step gives {s}")
-            else:
-                # K8's per-step design, which its fp32 plan keeps for other
-                # shapes and cards, held to the same gates on the same
-                # inputs and timed in this run; the persistent design must
-                # be the faster
-                k8_per_step(l0, x, h0, c0, cfg, dr[0], masks[0], inv, tag, rec8)
-            want = {"tiled_fwd_embed": 1, "tiled_fwd_scan": 1 if persistent else s}
-            if {k: per_call[k] for k in fwd} != want:
+            # the per-step design, which the plans keep for other shapes
+            # and cards, held to the same gates on the same inputs and
+            # timed in this run
+            step_call = {}
+            with per_step_tiled(FWD_PLANS):
+                tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks,
+                                 inv, tag + " (the per-step design)",
+                                 step_call, timed=False)
+                for rec in (rec8, rec9):
+                    lay_, seq, d = seqs[rec["name"]]
+                    rec["per_step_ms"] = cuda_ms(
+                        lambda: fwd[rec["name"]](lay_, seq, h0, c0, run_cfg,
+                                                 residuals=True, dropout=d),
+                        reps=2, windows=3)
+            if any(step_call[k] != s for k in fwd):
+                fail(f"tiled forward {tag}, the per-step design: launches "
+                     f"{step_call}, one a step gives {s}")
+            if {k: per_call[k] for k in fwd} != {k: 1 for k in fwd}:
                 fail(f"tiled forward {tag}: launches a call {per_call}, the "
-                     f"plans give {want}")
+                     f"plans give one each")
             design10, persistent10 = tiled_bwd_design(run_cfg, b, n)
             print(f"  tiled_bwd {tag}: {design10}", flush=True)
-            if persistent10 != (dtype == "bfloat16"):
+            if not persistent10:
                 fail(f"tiled_bwd {tag}: {design10}; these shapes take the "
-                     f"persistent design in bf16 alone")
+                     f"persistent design")
             bwd_args = (l1.U, out2, h0, c0, dh_seq, dhT, dcT, run_cfg, dr[1],
                         masks[1], inv)
             rec10 = tiled_bwd_check(*bwd_args, tag, per_call, persistent10)
             dg10 = rec10.pop("dg")
-            if per_call["tiled_bwd"] != (1 if persistent10 else s):
+            if per_call["tiled_bwd"] != 1:
                 fail(f"tiled_bwd {tag}: {per_call['tiled_bwd']} launches a "
-                     f"call, {design10} gives {1 if persistent10 else s}")
-            if persistent10:
-                # the per-step design, which tiled_bwd_plan keeps for fp32
-                # and other shapes and cards, held to its gates on the same
-                # inputs and timed in this run; then dU (and dh0) on tensor
-                # cores against _mm
-                step_call = {}
-                with per_step_tiled(("device_tiled_bwd_plan",)):
-                    tiled_bwd_check(*bwd_args, tag + " (the per-step design)",
-                                    step_call, False, timed=False)
-                    rec10["per_step_ms"] = cuda_ms(lambda: ct.tiled_bwd(
-                        l1.U, out2[3], out2[2], c0, dh_seq, dhT, dcT, run_cfg,
-                        dropout=dr[1]), reps=1, windows=3)
-                if step_call["tiled_bwd"] != s:
-                    fail(f"tiled_bwd {tag}, the per-step design: "
-                         f"{step_call['tiled_bwd']} launches, one a step gives {s}")
+                     f"call, {design10} gives 1")
+            # the per-step design, which the plans keep for other shapes
+            # and cards, held to its gates on the same inputs and timed in
+            # this run
+            step_call = {}
+            with per_step_tiled(BWD_PLANS):
+                tiled_bwd_check(*bwd_args, tag + " (the per-step design)",
+                                step_call, False, timed=False)
+                rec10["per_step_ms"] = cuda_ms(lambda: ct.tiled_bwd(
+                    l1.U, out2[3], out2[2], c0, dh_seq, dhT, dcT, run_cfg,
+                    dropout=dr[1]), reps=1, windows=3)
+            if step_call["tiled_bwd"] != s:
+                fail(f"tiled_bwd {tag}, the per-step design: "
+                     f"{step_call['tiled_bwd']} launches, one a step gives {s}")
+            for rec in (rec8, rec9, rec10):
+                if not rec["ms"] < rec["per_step_ms"]:
+                    fail(f"{rec['name']} {tag}: the persistent design "
+                         f"{rec['ms']:.4f} ms is not faster than the per-step "
+                         f"design {rec['per_step_ms']:.4f} ms in this call")
+            if dtype == "bfloat16":
+                # dU (and dh0) on tensor cores against _mm
                 rec10["dU_ms"], rec10["dU_mm_ms"] = tiled_products_check(
                     dg10, out2[0], h0, run_cfg, tag, per_call)
             # the resident kernels at the same shapes (the path's types)
@@ -2988,7 +3010,7 @@ def phase9a(records):
                       f"{'n/a' if lib is None else f'{lib:.4f} ms'}{line}",
                       flush=True)
         if dtype == "float32":
-            k8_f32_eval(l0, gen, n, cfg, inv)
+            tiled_f32_eval(l0, l1, gen, n, cfg, inv)
         if dtype == "bfloat16":
             calls = per_call
             tiled_eval_times(l0, l1, gen, n, run_cfg)
@@ -3023,72 +3045,52 @@ def phase9a(records):
     return calls
 
 
-def k8_per_step(l0, x, h0, c0, cfg, dropout, mask, inv, tag, rec):
-    """K8's per-step design under fp32 compute (its plan forced off) on the
-    inputs of ``rec``'s call: ``fwd_check``'s gates, S launches a call, its
-    time in this run into ``rec["per_step_ms"]``; the persistent design's
-    ``rec["ms"]`` must be the smaller."""
-    from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
-
-    s = x.shape[0]
-    step_call = {}
-    with per_step_tiled(F32_PLAN):
-        fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
-                  ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, dropout,
-                  mask, inv, tag + " (the per-step design)", step_call,
-                  TILED_SOURCE, timed=False)
-        rec["per_step_ms"] = cuda_ms(lambda: ct.tiled_embed_layer0(
-            l0, x, h0, c0, cfg, residuals=True, dropout=dropout), reps=2, windows=3)
-    if step_call["tiled_fwd_embed"] != s:
-        fail(f"tiled_fwd_embed {tag}, the per-step design: "
-             f"{step_call['tiled_fwd_embed']} launches a call, one a step gives {s}")
-    if not rec["ms"] < rec["per_step_ms"]:
-        fail(f"tiled_fwd_embed {tag}: the persistent design {rec['ms']:.4f} ms "
-             f"is not faster than the per-step design {rec['per_step_ms']:.4f} "
-             f"ms in this call")
-
-
-def k8_f32_eval(l0, gen, n, cfg, inv):
-    """K8 under fp32 compute at the eval batch of 16 (one CHUNK-step
-    window), where its plan takes the persistent design: ``fwd_check``'s
-    gates (every step replayed, with residuals) and one launch a call, then
-    the eval call (no residuals) timed beside the per-step design (forced,
-    held to the same gates, S launches a call) in this run; the persistent
-    design must be the faster."""
+def tiled_f32_eval(l0, l1, gen, n, cfg, inv):
+    """K8 and K9 under fp32 compute at the eval batch of 16 (one
+    CHUNK-step window), where their plan takes the persistent design:
+    ``fwd_check``'s gates (every step replayed, with residuals) and one
+    launch a call, then the eval call (no residuals) timed beside the
+    per-step design (forced, held to the same gates, S launches a call) in
+    this run; the persistent design must be the faster."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
     s, b = CHUNK, EVAL_BATCH
     x = corpus_window(CORPUS, 0.95, gen, s, b)[0]
+    xw = (torch.randn(s, b, 4 * n, generator=gen) * 0.3).to(DEVICE)
     h0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
     c0 = (torch.randn(b, n, generator=gen) * 0.1).to(DEVICE)
-    design, persistent = k8_design(cfg, b, n)
+    design, persistent = tiled_fwd_design(cfg, b, n)
     tag = f"float32 at the eval batch (B={b}, S={s}, N={n})"
     if not persistent:
-        fail(f"tiled_fwd_embed {tag}: {design}")
-    calls = {}
-    fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
-              ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, None, None, inv,
-              tag, calls, timed=False)
-    if calls["tiled_fwd_embed"] != 1:
-        fail(f"tiled_fwd_embed {tag}: {calls['tiled_fwd_embed']} launches a "
-             f"call, {design} gives 1")
-    call = lambda: ct.tiled_embed_layer0(l0, x, h0, c0, cfg)
-    ms = cuda_ms(call, reps=2, windows=3)
-    with per_step_tiled(F32_PLAN):
-        fwd_check("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
-                  ct.tiled_embed_layer0_plain, l0, x, h0, c0, cfg, None, None,
-                  inv, tag + " (the per-step design)", calls, timed=False)
-        step_ms = cuda_ms(call, reps=2, windows=3)
-    if calls["tiled_fwd_embed"] != s:
-        fail(f"tiled_fwd_embed {tag}, the per-step design: "
-             f"{calls['tiled_fwd_embed']} launches a call, one a step gives {s}")
-    bound_ms, bound_by = bound("embed", cfg, s, b, n, cfg.vocab)
-    print(f"  tiled_fwd_embed {tag}, no residuals: {design}; {ms:.4f} ms a "
-          f"window (1 launch), the per-step design {step_ms:.4f} ms in this "
-          f"run, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
-    if not ms < step_ms:
-        fail(f"tiled_fwd_embed {tag}: the persistent design {ms:.4f} ms is "
-             f"not faster than the per-step design {step_ms:.4f} ms")
+        fail(f"tiled forward {tag}: {design}")
+    for name, kind, fn, plain, layer, seq in (
+            ("tiled_fwd_embed", "embed", ct.tiled_embed_layer0,
+             ct.tiled_embed_layer0_plain, l0, x),
+            ("tiled_fwd_scan", "scan", ct.tiled_scan_layer,
+             ct.tiled_scan_layer_plain, l1, xw)):
+        calls = {}
+        fwd_check(name, kind, fn, plain, layer, seq, h0, c0, cfg, None, None,
+                  inv, tag, calls, timed=False)
+        if calls[name] != 1:
+            fail(f"{name} {tag}: {calls[name]} launches a call, {design} "
+                 f"gives 1")
+        call = lambda: fn(layer, seq, h0, c0, cfg)
+        ms = cuda_ms(call, reps=2, windows=3)
+        with per_step_tiled(FWD_PLANS):
+            fwd_check(name, kind, fn, plain, layer, seq, h0, c0, cfg, None,
+                      None, inv, tag + " (the per-step design)", calls,
+                      timed=False)
+            step_ms = cuda_ms(call, reps=2, windows=3)
+        if calls[name] != s:
+            fail(f"{name} {tag}, the per-step design: {calls[name]} launches "
+                 f"a call, one a step gives {s}")
+        bound_ms, bound_by = bound(kind, cfg, s, b, n, cfg.vocab)
+        print(f"  {name} {tag}, no residuals: {design}; {ms:.4f} ms a window "
+              f"(1 launch), the per-step design {step_ms:.4f} ms in this run, "
+              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+        if not ms < step_ms:
+            fail(f"{name} {tag}: the persistent design {ms:.4f} ms is not "
+                 f"faster than the per-step design {step_ms:.4f} ms")
 
 
 def tiled_eval_times(l0, l1, gen, n, cfg):
@@ -3683,14 +3685,20 @@ def phase10e():
     if rel > CHUNK_LOSS_RTOL or max(errs.values()) > CHUNK_GRAD_TOL \
             or not np.isfinite(l1):
         fail("scan_chunk: the chunked loss or gradients out of tolerance")
-    # K8 as its plan gives it: one call unchunked, and chunked a call a
-    # chunk, then again in the backward (the checkpointed chunks recomputed)
-    want0 = k8_calls(base, FLAG_B, 1024, FLAG_S)
-    want1 = 2 * FLAG_S // FLAG_CHUNK * k8_calls(base, FLAG_B, 1024, FLAG_CHUNK)
-    if (n0["tiled_fwd_embed"], n1["tiled_fwd_embed"]) != (want0, want1):
-        fail(f"scan_chunk: K8 launched {n0['tiled_fwd_embed']} times "
-             f"unchunked and {n1['tiled_fwd_embed']} chunked, its plan gives "
-             f"{want0} and {want1}")
+    # K8 (layer 0), K9 (layers 1 and 2) and K10 (all three) as their plans
+    # give them: a call a layer unchunked; chunked a call a chunk and
+    # layer, the forwards then again in the backward (the checkpointed
+    # chunks recomputed)
+    chunks = FLAG_S // FLAG_CHUNK
+    fwd0, fwd1 = (tiled_fwd_calls(base, FLAG_B, 1024, s_) for s_ in (FLAG_S, FLAG_CHUNK))
+    bwd0, bwd1 = (tiled_bwd_calls(base, FLAG_B, 1024, s_) for s_ in (FLAG_S, FLAG_CHUNK))
+    want0 = {"tiled_fwd_embed": fwd0, "tiled_fwd_scan": 2 * fwd0,
+             "tiled_bwd": 3 * bwd0}
+    want1 = {"tiled_fwd_embed": 2 * chunks * fwd1,
+             "tiled_fwd_scan": 4 * chunks * fwd1, "tiled_bwd": 3 * chunks * bwd1}
+    if (n0, n1) != (want0, want1):
+        fail(f"scan_chunk: the tiled kernels launched {n0} times unchunked "
+             f"and {n1} chunked, their plans give {want0} and {want1}")
 
 
 def phase10f(test):
@@ -4587,12 +4595,12 @@ def phase13k():
                     tiled_bwd_check(l1.U, out2, h0, c0, dh_seq, dhT, dcT, cfg,
                                     dr[1], masks[1], inv, tag, calls, persistent,
                                     timed=False)
-                    print(f"  {tag}: K8 in {k8_design(cfg, b, n)[0]}, K9 in "
-                          f"{tiled_design(cfg, b, n)[0]}, K10 in "
-                          f"{tiled_bwd_design(cfg, b, n)[0]}; launches a "
+                    print(f"  {tag}: K8 and K9 in {tiled_fwd_design(cfg, b, n)[0]}, "
+                          f"K10 in {tiled_bwd_design(cfg, b, n)[0]}; launches a "
                           f"call {calls}", flush=True)
-                    want = {k: s for k in TILED}
-                    want["tiled_fwd_embed"] = k8_calls(cfg, b, n, s)
+                    fwd_n = tiled_fwd_calls(cfg, b, n, s)
+                    want = {"tiled_fwd_embed": fwd_n, "tiled_fwd_scan": fwd_n,
+                            "tiled_bwd": tiled_bwd_calls(cfg, b, n, s)}
                     if calls != want:
                         fail(f"{tag}: launches a call {calls}, the plans give "
                              f"{want}")
@@ -4925,8 +4933,7 @@ def phase13d():
     cfg16 = flag_train_cfg("bfloat16")
     cfg32 = flag_train_cfg("float32")
     print(f"  flagship SP window ({SP_FLAG_CHUNKS} chunks of {rows} rows): fp32 "
-          f"K8 in {k8_design(cfg32, rows, 1024)[0]}, K9 in "
-          f"{tiled_design(cfg32, rows, 1024)[0]}, K10 in "
+          f"K8 and K9 in {tiled_fwd_design(cfg32, rows, 1024)[0]}, K10 in "
           f"{tiled_bwd_design(cfg32, rows, 1024)[0]}; launches {windows['float32']}",
           flush=True)
     print(f"  flagship SP window bf16: K1 in {split_design(cfg16, rows, 1024)[0]}, "
@@ -4934,8 +4941,9 @@ def phase13d():
           f"{k6_design(cfg16, rows, 1024)[0]}; launches {windows['bfloat16']}",
           flush=True)
     c_, s_ = SP_FLAG_CHUNKS, FLAG_S
-    want32 = {"tiled_fwd_embed": c_ * k8_calls(cfg32, rows, 1024, s_),
-              "tiled_fwd_scan": 2 * c_ * s_, "tiled_bwd": 3 * c_ * s_}
+    fwd_n = tiled_fwd_calls(cfg32, rows, 1024, s_)
+    want32 = {"tiled_fwd_embed": c_ * fwd_n, "tiled_fwd_scan": 2 * c_ * fwd_n,
+              "tiled_bwd": 3 * c_ * tiled_bwd_calls(cfg32, rows, 1024, s_)}
     got32 = {k: windows["float32"][k] for k in TILED}
     if got32 != want32 or windows["float32"]["lstm_fwd_embed"]:
         fail(f"flagship SP fp32 window: tiled launches {got32} (the chunks "
@@ -5752,9 +5760,11 @@ def main():
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),
                         ("tiled_bwd", b5_counts["tiled_bwd"])):
         add(records[("9a", name, "bfloat16", 0.0)], count)
-    # K8's fp32 persistent design on the flagship's fp32 steps (7c)
-    add(records[("9a", "tiled_fwd_embed", "float32", 0.0)],
-        fp32_tiled["tiled_fwd_embed"], name="tiled_fwd_embed_fp32")
+    # K8's, K9's and K10's fp32 persistent designs on the flagship's fp32
+    # steps (7c)
+    for name in TILED:
+        add(records[("9a", name, "float32", 0.0)], fp32_tiled[name],
+            name=f"{name}_fp32")
     # K11 and K12 on the documented unroll-2 run (10c): the bench's set and
     # its B = 64 shapes; K11 on the bench's stage-stacked set once a step of
     # phase 14's --pp 1 runs
@@ -5980,6 +5990,14 @@ def exchange_only():
     check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
 
 
+def tiled_only():
+    """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
+    phase0()
+    phase1()
+    phase9a({})
+    check_budget("phase 9a (the tiled kernels against plain)")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--gate-spread"]:
         gate_spread()
@@ -5987,8 +6005,10 @@ if __name__ == "__main__":
         sp_spread()
     elif sys.argv[1:] == ["--exchange"]:
         exchange_only()
+    elif sys.argv[1:] == ["--tiled"]:
+        tiled_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread and --exchange")
+             f"--sp-spread, --exchange and --tiled")
     else:
         main()

@@ -7,9 +7,10 @@
 //       (layer 0, :429): g = W[ids_t] + round(h_{t-1}) @ U, then + b
 //       (the one-hot rows of [onehot | h] @ [W; U] are a gather, :454-457);
 //       under fp32 compute tiled_fwd_embed_f32_launch, its persistent
-//       CUDA-core design (tiled_fwd_f32_persist, below)
+//       CUDA-core design (lstm_tiled_f32.cu)
 //   tiled_fwd_scan_launch (K9)  <- _fwd_tiled_kernel (layers >= 1, :52):
-//       g = xw_t + round(h_{t-1}) @ U (:73-76)
+//       g = xw_t + round(h_{t-1}) @ U (:73-76); under fp32 compute
+//       tiled_fwd_scan_f32_launch, K8's fp32 design with the xw stream
 //   tiled_bwd_launch (K10)      <- _bwd_tiled_kernel (:106), the reverse
 //       steps shared by both tiled VJPs (bwd_call, :414):
 //       dh_t = round(dg_{t+1}) @ U^T + dh_cot_t (dhT at t = S-1), then the
@@ -19,7 +20,9 @@
 //       dh0 = round(dg_0) @ U^T and the weight gradients are products
 //       outside the kernel in the JAX VJPs (:359-375, :599-623); here dh0
 //       is the persistent K10's last product, and dU is K6's tensor-core
-//       product (lstm_bwd.cu:lstm_bwd_dWU_launch) under bf16 compute.
+//       product (lstm_bwd.cu:lstm_bwd_dWU_launch) under bf16 compute;
+//       under fp32 compute tiled_bwd_f32_launch, its persistent CUDA-core
+//       design (lstm_tiled_f32.cu), dh0 its last product too.
 // The forward epilogue: sigma on i, o, f, tanh on u, the cell update of
 // _cell_fwd ("reference" carries tanh(i*u + f*c_prev), "standard" the raw
 // cell), h_seq and c_seq and the activated gates in the residual type, the
@@ -38,8 +41,8 @@
 // less than the 50 MB L2.
 //
 // K8 and K9 have two designs of one function (ops/cuda_cell_tiled.py:
-// tiled_fwd_plan chooses from the type, the shape and the card), and K8 a
-// third, under fp32 compute (tiled_fwd_f32_plan; described before
+// tiled_fwd_plan chooses from the type, the shape and the card), and a
+// third under fp32 compute (tiled_fwd_f32_plan; lstm_tiled_f32.cu:
 // tiled_fwd_f32_persist). K2 and K1,
 // the resident family's forwards (lstm_fwd.cu), compute K9's and K8's
 // functions, so under bf16 compute ops/cuda_cell.py:scan_layer and
@@ -70,7 +73,9 @@
 // reads by the cluster size), and wgmma in place of mma.sync (B read from
 // shared memory by the tensor cores, no ldmatrix).
 //
-// K10 has two designs of one function as well (tiled_bwd_plan):
+// K10 has two designs of one function as well (tiled_bwd_plan), and a
+// third under fp32 compute (tiled_bwd_f32_plan; lstm_tiled_f32.cu:
+// tiled_bwd_f32_persist):
 //
 // The persistent design (bf16 compute, N a multiple of 32, a resident grid;
 // tiled_bwd_persist), K6's persistent design (lstm_bwd.cu) with U streamed
@@ -89,12 +94,11 @@
 // groups would read dg fewer times but hold less of U; a cluster sharing
 // each dg chunk (TMA multicast) would cut those reads, not built.
 //
-// The per-step design (fp32 compute but K8's where its plan takes it, and
-// the shapes the persistent designs do not take). The TPU kernel streams
-// (N, wt) U tiles
-// through VMEM in a sequential grid and gathers a step's gate chunks in
-// scratch before the cell epilogue; Hopper blocks run in parallel and in
-// no order, so the blocking is turned around:
+// The per-step design (the shapes that no persistent design takes: B >
+// 128, a grid that is not resident, N not a multiple of 32). The TPU
+// kernel streams (N, wt) U tiles through VMEM in a sequential grid and
+// gathers a step's gate chunks in scratch before the cell epilogue; Hopper
+// blocks run in parallel and in no order, so the blocking is turned around:
 //   * a block owns 32 hidden units (one per lane) with all four gate
 //     columns j, N+j, 2N+j, 3N+j, and a batch tile of 8*R rows (R per
 //     warp), so the cell epilogue (the gate backward for K10) runs in
@@ -768,331 +772,6 @@ int run_bwd_persist(const void* U, const void* g_seq, const void* c_seq,
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// K8 under fp32 compute: one persistent cooperative launch a window on CUDA
-// cores (tiled_fwd_f32_persist; ops/cuda_cell_tiled.py:tiled_fwd_f32_plan
-// chooses it). TF32 stays off for fp32 products, so this is the persistent
-// forward's idea (fwd_mma.cuh:fwd_persist) done with FFMAs. What held the
-// per-step design back at the flagship's fp32 shapes (S = 256, B = 128,
-// N = 1024): 256 launches a window, each with its ramp and tail, a grid of
-// 64 blocks on 132 SMs, and every block reading its 512 KB slice of U from
-// L2 every step (32 MB of U a step): ~86 us a step against ~16 us of FFMA
-// at the fp32 peak. U in fp32 (16.8 MB) does not fit one block, but it fits
-// the SMs' shared memory together.
-//
-// A block owns kPUnits = 8 hidden units with their four gate columns (N / 8
-// blocks: 128 at N = 1024, one an SM) and every batch row, and holds its N x
-// 32 slice of U in shared memory for the window ([k][unit][gate], 128 KB at
-// N = 1024), read from device memory once. Each step the rows of
-// round(h_{t-1}) (fp32, B x N: 512 KB at B = 128) arrive through a
-// cp.async.cg ring of KC-column slots, L2 only (other blocks wrote them
-// before the grid barrier). The product splits each chunk's k kPSplit ways:
-// split s = tid / 64 takes a quarter of the chunk, and its thread (pu, pq) =
-// (tid % 4, tid % 64 / 4) a register tile of 2 R rows (pq + 16 i) by 8
-// columns (units 2 pu, 2 pu + 1, four gates each): each 4 values of k are 2
-// R 16-byte loads of h and 8 of U for 64 R FMAs. Split s takes the k with (k
-// mod 32) / 8 = s in every ring layout, so a sum's order does not depend on
-// the batch (32 rows or 128 give a row the same bits). On the H100 a shared
-// load costs the bytes it hands each lane, broadcast or not: the first
-// design of this kernel (4 rows x 4 gates a thread, no split) spent two
-// shared cycles per FFMA cycle; 8 x 8 tiles spend one. After the loop the
-// splits' partial sums meet in the ring's memory and each owner adds them in
-// split order. Thread (u, q) = (tid % 8, tid / 8) owns unit j0 + u of rows q
-// + 32 i, i < R (R = 1, 2, 4 for B <= 32, 64, 128) with all four gates, and
-// runs the epilogue in its registers: (acc + W_row) + b (the W row issued a
-// step ahead, its id two), the gates, the cell, the fp32 carry (in registers
-// for the window), h_t into the other half of hc, the sequences in RT and
-// under dropout the masked stream, as tiled_fwd_step writes them. A grid
-// barrier closes each step. What bounds it then: the loop's shared loads, as
-// busy as its FMAs, and every block reading all of h from L2 each step (64
-// MB over the grid at B = 128). The slice of U always fits where the grid
-// does: N / 8 blocks resident at one an SM need N <= 8 x the SMs (1056 on an
-// H100), whose slice (132 KB) leaves room for a ring; past that (N = 2048,
-// say) the plan refuses and K8 takes the per-step design.
-constexpr int kPUnits = 8;
-constexpr int kPCols = 4 * kPUnits;   // [unit][gate]
-constexpr int kPThreads = 256;
-constexpr int kPRowGroups = kPThreads / kPUnits;   // rows q of a thread, q < 32
-constexpr int kPSplit = 4;            // ways the product splits a chunk's k
-// k of each 32 that a split takes: split s the k with (k mod 32) / 8 = s,
-// whatever the ring's slots, so every layout sums in one order
-constexpr int kPSplitK = 8;
-
-// Floats of a ring row of KC columns: 4 rows' 16 bytes in distinct banks.
-__host__ __device__ constexpr int f32_pitch(int KC) { return KC + 4; }
-
-// Rows a thread owns at batch B: 1, 2 or 4 (B <= 32, 64, 128).
-inline int f32_rows_per_thread(int B) { return B <= 32 ? 1 : B <= 64 ? 2 : 4; }
-
-// Dynamic shared memory of a block at batch B and hidden N with a ring of
-// `stages` slots of KC columns (mirrored by ops/cuda_cell_tiled.py:
-// f32_persist_smem_bytes, which holds itself to tiled_fwd_f32_smem_bytes
-// once a card): the slice of U, then the ring, each slot 32 R rows; the
-// product splits' partial sums (kPSplit x 32 R rows x kPCols) reuse it.
-inline size_t f32_persist_smem_bytes(int B, int N, int KC, int stages) {
-  const size_t rows = (size_t)kPRowGroups * f32_rows_per_thread(B);
-  const size_t ring = stages * rows * f32_pitch(KC), red = kPSplit * rows * kPCols;
-  return sizeof(float) * ((size_t)N * kPCols + (ring > red ? ring : red));
-}
-
-template <typename RT, int R, int KC, int STAGES>
-__global__ void __launch_bounds__(kPThreads, 1)
-tiled_fwd_f32_persist(const float* __restrict__ U,     // (N, 4N)
-                      const float* __restrict__ W,     // (M, 4N)
-                      const float* __restrict__ bias,  // (4N,)
-                      const int* __restrict__ ids,     // (S, B)
-                      // (2, B, N) h: written and read within the launch,
-                      // so neither const nor __restrict__ (no non-coherent loads)
-                      float* hc,
-                      float* __restrict__ c,      // (B, N): c0 in, cT out
-                      float* __restrict__ hT,     // (B, N)
-                      RT* __restrict__ hseq,      // (S, B, N)
-                      RT* __restrict__ cseq,      // (S, B, N) or null
-                      RT* __restrict__ gseq,      // (S, B, 4N) or null
-                      RT* __restrict__ hdrop,     // (S, B, N) under dropout
-                      Dropout drop, int S, int B, int N, int standard) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int P = f32_pitch(KC);
-  constexpr int RR = 2 * R;                 // product rows of a thread
-  static_assert(KC % (kPSplit * kPSplitK) == 0, "a slot holds whole 32-k blocks");
-  float* Us = reinterpret_cast<float*>(smem);        // [k][unit][gate]
-  float* ring = Us + (size_t)N * kPCols;             // STAGES x [32 R][P]
-  float* red = ring;                                 // [split][32 R][kPCols]
-  constexpr int slot = kPRowGroups * R * P;
-  const int tid = threadIdx.x;
-  // the product: split s = tid / 64 takes k s * KQ.. of each chunk;
-  // its thread (pu, pq) = (tid % 4, tid % 64 / 4) units 2 pu, 2 pu + 1 of
-  // rows pq + 16 i, i < 2R
-  const int split = tid / 64, pu = tid % 4, pq = tid % 64 / 4;
-  // the epilogue: thread (u, q) = (tid % 8, tid / 8) owns unit j0 + u of
-  // rows q + 32 i, i < R
-  const int u = tid % kPUnits, q = tid / kPUnits;
-  const int j0 = blockIdx.x * kPUnits, j = j0 + u;
-  const size_t n4 = 4 * (size_t)N, bn = (size_t)B * N;
-  cg::grid_group grid = cg::this_grid();
-
-  // the block's slice of U, once a window: consecutive threads read
-  // consecutive units of one gate row
-  for (int e = tid; e < N * kPCols; e += kPThreads) {
-    const int k = e / kPCols, g = (e / kPUnits) % 4, uu = e % kPUnits;
-    Us[k * kPCols + uu * 4 + g] = U[(size_t)k * n4 + (size_t)g * N + j0 + uu];
-  }
-
-  // of the thread's epilogue rows: pin[i][g] the step's W row term and
-  // nxt[i][g] the next step's (loaded at the start of the step before, so
-  // that the loop hides it), idn[i] the id a step further on, cr[i] the
-  // carry; bs[g]: the bias
-  float cr[R], pin[R][4], nxt[R][4], bs[4];
-  int idn[R];
-  const auto valid = [&](int i) { return q + kPRowGroups * i < B; };
-  const auto id_of = [&](int t, int i) { return ids[(size_t)t * B + q + kPRowGroups * i]; };
-  const auto w_row = [&](int id, float (&dst)[4]) {
-    const float* w = W + (size_t)id * n4 + j;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) dst[g] = w[(size_t)g * N];
-  };
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (!valid(i)) continue;
-    cr[i] = c[(size_t)(q + kPRowGroups * i) * N + j];
-    w_row(id_of(0, i), pin[i]);
-    if (S > 1) idn[i] = id_of(1, i);
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bs[g] = bias[(size_t)g * N + j];
-  __syncthreads();  // the slice of U is in
-
-  const int nchunks = N / KC;
-  for (int t = 0; t < S; ++t) {
-    const float* hin = hc + (size_t)(t % 2) * bn;
-    if (t + 1 < S)
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        if (!valid(i)) continue;
-        w_row(idn[i], nxt[i]);
-        if (t + 2 < S) idn[i] = id_of(t + 2, i);
-      }
-    // chunk ch: columns ch * KC.. of h's B rows
-    const auto load_chunk = [&](int ch) {
-      float* st = ring + (size_t)(ch % STAGES) * slot;
-      for (int e = tid; e < B * (KC / 4); e += kPThreads) {
-        const int r = e / (KC / 4), p = e % (KC / 4);
-        cp_async_16(st + r * P + 4 * p, hin + (size_t)r * N + ch * KC + 4 * p, 16);
-      }
-    };
-    // acc[i][x]: row pq + 16 i, unit 2 pu + x / 4, gate x % 4
-    float acc[RR][8];
-#pragma unroll
-    for (int i = 0; i < RR; ++i)
-#pragma unroll
-      for (int x = 0; x < 8; ++x) acc[i][x] = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < STAGES - 1; ++ch) {
-      if (ch < nchunks) load_chunk(ch);
-      cp_async_commit();
-    }
-    for (int ch = 0; ch < nchunks; ++ch) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
-      if (ch + STAGES - 1 < nchunks) load_chunk(ch + STAGES - 1);
-      cp_async_commit();
-      const float* hs = ring + (size_t)(ch % STAGES) * slot + pq * P + split * kPSplitK;
-      const float* ub = Us + ((size_t)ch * KC + split * kPSplitK) * kPCols + 8 * pu;
-#pragma unroll
-      for (int kb = 0; kb < KC; kb += kPSplit * kPSplitK)
-#pragma unroll
-      for (int kk = kb; kk < kb + kPSplitK; kk += 4) {
-        float4 hv[RR];
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-          hv[i] = *reinterpret_cast<const float4*>(hs + i * (kPRowGroups / 2) * P + kk);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const float4 w0 = *reinterpret_cast<const float4*>(ub + (kk + v) * kPCols);
-          const float4 w1 = *reinterpret_cast<const float4*>(ub + (kk + v) * kPCols + 4);
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < RR; ++i) {
-            const float x = v == 0 ? hv[i].x : v == 1 ? hv[i].y : v == 2 ? hv[i].z : hv[i].w;
-#pragma unroll
-            for (int y = 0; y < 8; ++y) acc[i][y] = fmaf(x, wv[y], acc[i][y]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the ring: reuse it as red
-    // the splits' partial sums meet in shared memory, added in split order
-#pragma unroll
-    for (int i = 0; i < RR; ++i) {
-      float* dst = red + ((size_t)split * kPRowGroups * R + pq + 16 * i) * kPCols + 8 * pu;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (!valid(i)) continue;
-      const int b = q + kPRowGroups * i;
-      constexpr size_t sp = (size_t)kPRowGroups * R * kPCols;   // a split's partials
-      float4 v[kPSplit];
-#pragma unroll
-      for (int x = 0; x < kPSplit; ++x)
-        v[x] = *reinterpret_cast<const float4*>(red + x * sp + (size_t)b * kPCols + 4 * u);
-      const float sums[4] = {((v[0].x + v[1].x) + v[2].x) + v[3].x,
-                             ((v[0].y + v[1].y) + v[2].y) + v[3].y,
-                             ((v[0].z + v[1].z) + v[2].z) + v[3].z,
-                             ((v[0].w + v[1].w) + v[2].w) + v[3].w};
-      float gate[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float s = (sums[g] + pin[i][g]) + bs[g];
-        gate[g] = g < 3 ? sigmoid(s) : tanhf(s);
-      }
-      const size_t idx = (size_t)b * N + j, ts = (size_t)t * bn;
-      float h, cc;
-      cell(gate, cr[i], standard, &h, &cc);
-      cr[i] = cc;
-      hc[(size_t)((t + 1) % 2) * bn + idx] = h;
-      hseq[ts + idx] = from_f32<RT>(h);
-      if (drop.on)
-        hdrop[ts + idx] = from_f32<RT>(keep_bit(drop, t, idx) ? h * drop.inv : 0.0f);
-      if (cseq != nullptr) cseq[ts + idx] = from_f32<RT>(cc);
-      if (gseq != nullptr)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          gseq[4 * ts + (size_t)b * n4 + (size_t)g * N + j] = from_f32<RT>(gate[g]);
-      if (t == S - 1) {
-        hT[idx] = h;
-        c[idx] = cc;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) pin[i][g] = nxt[i][g];
-    // h_t is complete before any block reads it, and the ring's partial
-    // sums are read before the next chunks land; every block reaches it
-    // every step, the last one too
-    grid.sync();
-  }
-}
-
-// One cooperative launch of tiled_fwd_f32_persist<RT, R, KC, STAGES> on
-// `stream`, R the rows a thread owns at B. Returns 0 and adds the launch to
-// *launches, or the error (the grid must be resident at once, or its
-// barrier never opens).
-template <typename RT, int R, int KC, int STAGES>
-int run_fwd_f32(const void* U, const void* W, const float* bias, const int* ids,
-                void* hc, float* c, float* hT, void* hseq, void* cseq, void* gseq,
-                void* hdrop, Dropout drop, int S, int B, int N, int standard,
-                cudaStream_t stream, int* launches) {
-  if (N % KC != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = tiled_fwd_f32_persist<RT, R, KC, STAGES>;
-  const size_t smem = f32_persist_smem_bytes(B, N, KC, STAGES);
-  static int ready[kMaxDevices], coop[kMaxDevices], sms[kMaxDevices];
-  int dev = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
-  if (err == cudaSuccess && !ready[dev]) {
-    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) ready[dev] = 1;
-  }
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kPThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
-  const int grid = N / kPUnits;
-  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const float* u = static_cast<const float*>(U);
-  const float* w = static_cast<const float*>(W);
-  float* h = static_cast<float*>(hc);
-  RT* hs = static_cast<RT*>(hseq);
-  RT* cs = static_cast<RT*>(cseq);
-  RT* gs = static_cast<RT*>(gseq);
-  RT* hd = static_cast<RT*>(hdrop);
-  void* args[] = {&u, &w, &bias, &ids, &h, &c, &hT, &hs, &cs, &gs, &hd,
-                  &drop, &S, &B, &N, &standard};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(grid), dim3(kPThreads), args, smem,
-                                    stream);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ++*launches;
-  return 0;
-}
-
-// The ring layouts the library is built for: (rows a thread, KC, stages),
-// as ops/cuda_cell_tiled.py:F32_RINGS lists them.
-#define F32_LAYOUTS(X) X(1, 128, 4) X(1, 32, 3) X(2, 64, 4) X(2, 32, 3) \
-  X(4, 64, 2) X(4, 32, 3)
-
-template <typename RT>
-int fwd_f32(const void* U, const void* W, const float* bias, const int* ids,
-            void* hc, float* c, float* hT, void* hseq, void* cseq, void* gseq,
-            void* hdrop, Dropout drop, int S, int B, int N, int standard,
-            int kc, int stages, cudaStream_t stream, int* launches) {
-  if (B < 1 || B > kPRowGroups * 4 || S < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [&](auto run) {
-    return run(U, W, bias, ids, hc, c, hT, hseq, cseq, gseq, hdrop, drop, S, B,
-               N, standard, stream, launches);
-  };
-  const int R = f32_rows_per_thread(B);
-#define F32_CASE(r, k, st) \
-  if (R == r && kc == k && stages == st) return f(run_fwd_f32<RT, r, k, st>);
-  F32_LAYOUTS(F32_CASE)
-#undef F32_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 // Type codes: 0 = fp32, 1 = bf16. Every pointer is 16-byte aligned and N a
@@ -1135,36 +814,6 @@ extern "C" int tiled_fwd_scan_launch(
 // `rows` batch rows, at hidden N, with kres resident rows of U.
 extern "C" size_t tiled_fwd_persist_smem_bytes(int rows, int N, int kres) {
   return fwd_smem_bytes(rows, kres);
-}
-
-// K8 under fp32 compute, the persistent CUDA-core design
-// (ops/cuda_cell_tiled.py:tiled_fwd_f32_plan): W (M, 4N), U (N, 4N), bias
-// and c, hT fp32; ids int32 (S, B); hc (2, B, N) fp32 with h0 in its first
-// half; the sequences in the residual type (rtype 0 fp32, 1 bf16); hdrop
-// null for no dropout, else the masked stream of (seed, keep, inv). N a
-// multiple of 32, 1 <= B <= 128. One cooperative launch, added to
-// *launches.
-extern "C" int tiled_fwd_embed_f32_launch(
-    int rtype, const void* W, const void* U, const void* bias, const void* ids,
-    void* hc, void* c, void* hT, void* hseq, void* cseq, void* gseq,
-    void* hdrop, int S, int B, int N, int standard, int kc, int stages,
-    unsigned seed, unsigned keep, float inv, void* stream, int* launches) {
-  const Dropout drop{hdrop != nullptr, seed, keep, inv};
-  const auto f = [&](auto run) {
-    return run(U, W, static_cast<const float*>(bias), static_cast<const int*>(ids),
-               hc, static_cast<float*>(c), static_cast<float*>(hT), hseq, cseq,
-               gseq, hdrop, drop, S, B, N, standard, kc, stages,
-               static_cast<cudaStream_t>(stream), launches);
-  };
-  if (rtype == 0) return f(fwd_f32<float>);
-  if (rtype == 1) return f(fwd_f32<__nv_bfloat16>);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Bytes of dynamic shared memory a block of K8's fp32 persistent design
-// takes at batch B and hidden N.
-extern "C" size_t tiled_fwd_f32_smem_bytes(int B, int N, int kc, int stages) {
-  return f32_persist_smem_bytes(B, N, kc, stages);
 }
 
 // Bytes of dynamic shared memory a persistent K10 block takes with `rows`

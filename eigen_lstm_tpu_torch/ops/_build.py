@@ -74,6 +74,11 @@ SIGNATURES = {
     "tiled_fwd_embed_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 6 + _DROP
                                    + [_P, _IP]),
     "tiled_fwd_f32_smem_bytes": (_Z, [_I] * 4),
+    "tiled_fwd_scan_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
+                                  + [_P, _IP]),
+    "tiled_bwd_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
+                             + [_P, _IP]),
+    "tiled_bwd_f32_smem_bytes": (_Z, [_I] * 3),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
                          + [_P, _IP]),
     "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),

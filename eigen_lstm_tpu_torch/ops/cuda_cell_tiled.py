@@ -3,7 +3,8 @@
 fits a TPU core's VMEM (N >= 2048 in bf16, N >= 1024 in fp32; the families
 are chosen in ``ops/dispatch.py``).
 
-Three kernels of ``csrc/lstm_tiled.cu``, each with a wrapper that
+Three kernels of ``csrc/lstm_tiled.cu`` (their fp32 persistent designs
+in ``csrc/lstm_tiled_f32.cu``), each with a wrapper that
 validates, casts, launches and counts its launches in ``.launches``, and a
 plain version beside it that repeats the kernel's arithmetic step by step;
 a wrapper runs the plain version for a CPU tensor and for a CUDA tensor
@@ -18,27 +19,28 @@ launches the kernel or raises:
   both tiled VJPs, dh_t = round(dg_{t+1}) @ U_c^T + dh_cot_t, then the gate
   backward; returns dg_seq in the xw type and dc0 in fp32.
 
-K8 and K9 have two designs of one function on the card
-(``tiled_fwd_plan`` chooses from the type, the shape and the card's SMs
-and shared memory): under bf16 compute, where its grid of N / 16 blocks
-can be resident, one persistent cooperative launch a window with as many
-of U's rows as fit in shared memory and the product on tensor cores;
-elsewhere (fp32 compute, B > 128, a grid too large for the card) one
-launch a step. Under fp32 compute K8 alone has a persistent design of its
-own (``tiled_fwd_f32_plan``: one cooperative launch a window on CUDA
-cores, N / 8 blocks each holding its N x 32 slice of U in shared memory,
-B <= 128, a resident grid); K9 keeps one launch a step there. The
-resident family's forwards compute the same functions
-and take the persistent design through the same launchers under bf16
-compute (``embed_launch`` for K1, ``scan_launch`` for K2), as does K15
-(``cuda_tp_seq``); K1's and K15's blocks take a share of the batch rows
-where N / 16 blocks would leave most SMs idle (``split_fwd_plan``). K10
-has two such designs too (``tiled_bwd_plan``): under
-bf16 compute, where its grid of (N / 32) * ceil(B / rows) blocks can be
-resident, one persistent cooperative launch a window that also gives dh0,
-with as many chunks of U's rows as fit in shared memory and dh_rec on
-tensor cores; elsewhere one launch a reverse step. The C launchers count
-the launches (1 or S a call).
+K8 and K9 have three designs of one function on the card: under bf16
+compute, where its grid of N / 16 blocks can be resident, one persistent
+cooperative launch a window with as many of U's rows as fit in shared
+memory and the product on tensor cores (``tiled_fwd_plan`` chooses from
+the type, the shape and the card's SMs and shared memory); under fp32
+compute one persistent cooperative launch a window on CUDA cores, N / 8
+blocks each holding its N x 32 slice of U in shared memory
+(``tiled_fwd_f32_plan``: B <= 128, a resident grid); elsewhere (B > 128,
+a grid too large for the card) one launch a step. The resident family's
+forwards compute the same functions and take the bf16 persistent design
+through the same launchers (``embed_launch`` for K1, ``scan_launch`` for
+K2), as does K15 (``cuda_tp_seq``); K1's and K15's blocks take a share of
+the batch rows where N / 16 blocks would leave most SMs idle
+(``split_fwd_plan``). K10 has three such designs too: under bf16 compute
+(``tiled_bwd_plan``), where its grid of (N / 32) * ceil(B / rows) blocks
+can be resident, one persistent cooperative launch a window that also
+gives dh0, with as many chunks of U's rows as fit in shared memory and
+dh_rec on tensor cores; under fp32 compute (``tiled_bwd_f32_plan``) one
+persistent cooperative launch a window on CUDA cores, N / 8 blocks in
+pairs, each holding its pair's 16 rows of U over half the 4N gate columns,
+which also gives dh0; elsewhere one launch a reverse step. The C launchers
+count the launches (1 or S a call).
 
 The types are the tiled JAX functions' (``:222-225``, ``:673``): the
 residual type is fp32 only where ``residual_dtype`` is ``"float32"``, else
@@ -59,7 +61,8 @@ without TF32); dW and dU are handed back rounded to the compute type
 (``:377``, ``:622``) and dxw is dg in the xw type. Under bf16 compute on
 the card dU runs on tensor cores (``tensor_core_dU``: bf16 in, fp32 sums,
 as the JAX product's ``preferred_element_type``, so only the order of the
-sums moves) and dh0 is the persistent K10's own last product.
+sums moves) and dh0 is the persistent K10's own last product, as it is
+of the fp32 persistent K10.
 """
 
 from __future__ import annotations
@@ -288,17 +291,18 @@ def split_fwd_plan(cfg: ModelConfig, b: int, n: int, sms: int,
     return fwd_layout(cfg, b, n, sms, smem_limit, split=True)
 
 
-# K8's persistent design under fp32 compute (csrc/lstm_tiled.cu:
-# tiled_fwd_f32_persist, on CUDA cores: TF32 stays off), as the library
-# lays out its shared memory (f32_persist_smem_bytes; ``_device_limits``
-# holds the two equal): a block of F32_THREADS threads owns F32_UNITS
-# hidden units with their four gates and every batch row, holds its N x
-# 4 * F32_UNITS slice of U (fp32) for the window, and streams h through a
-# ring of slots of 32 R rows by KC columns, each row KC + 4 floats, which
-# the F32_SPLIT splits' partial sums (32 R rows x 4 F32_UNITS) reuse; a
-# thread's epilogue owns R = 1, 2 or 4 rows (B <= 32, 64, 128). F32_RINGS:
-# the (KC, slots) the library is built for at each R, in the order the plan
-# tries them (KC 32 for the widths the wider slots do not divide).
+# K8's and K9's persistent design under fp32 compute
+# (csrc/lstm_tiled_f32.cu: tiled_fwd_f32_persist, on CUDA cores: TF32 stays
+# off), as the library lays out its shared memory (f32_persist_smem_bytes;
+# ``_device_limits`` holds the two equal): a block of F32_THREADS threads
+# owns F32_UNITS hidden units with their four gates and every batch row,
+# holds its N x 4 * F32_UNITS slice of U (fp32) for the window, and streams
+# h through a ring of slots of 32 R rows by KC columns, each row KC + 4
+# floats, which the F32_SPLIT splits' partial sums (32 R rows x 4
+# F32_UNITS) reuse; a thread's epilogue owns R = 1, 2 or 4 rows (B <= 32,
+# 64, 128). F32_RINGS: the (KC, slots) the library is built for at each R,
+# in the order the plan tries them (KC 32 for the widths the wider slots
+# do not divide).
 F32_UNITS = 8
 F32_THREADS = 256
 F32_SPLIT = 4    # ways the product splits a chunk's k
@@ -307,22 +311,23 @@ F32_RINGS = {1: ((128, 4), (32, 3)), 2: ((64, 4), (32, 3)), 4: ((64, 2), (32, 3)
 
 
 def f32_rows_per_thread(b: int) -> int:
-    """Rows of the batch a thread of K8's fp32 persistent design owns."""
+    """Rows of the batch a thread of K8's and K9's fp32 persistent design
+    owns."""
     return 1 if b <= 32 else 2 if b <= 64 else 4
 
 
 def f32_persist_smem_bytes(b: int, n: int, kc: int, stages: int) -> int:
-    """Bytes of dynamic shared memory a block of K8's fp32 persistent
-    design takes at batch ``b`` and hidden ``n`` with a ring of ``stages``
-    slots of ``kc`` columns."""
+    """Bytes of dynamic shared memory a block of K8's and K9's fp32
+    persistent design takes at batch ``b`` and hidden ``n`` with a ring of
+    ``stages`` slots of ``kc`` columns."""
     rows = F32_THREADS // F32_UNITS * f32_rows_per_thread(b)
     ring, red = stages * rows * (kc + 4), F32_SPLIT * rows * 4 * F32_UNITS
     return 4 * (n * 4 * F32_UNITS + max(ring, red))
 
 
 class F32Layout(NamedTuple):
-    """K8's fp32 persistent design: a thread owns ``rows`` batch rows, the
-    ring has ``stages`` slots of ``kc`` columns of h."""
+    """K8's and K9's fp32 persistent design: a thread owns ``rows`` batch
+    rows, the ring has ``stages`` slots of ``kc`` columns of h."""
     rows: int
     kc: int
     stages: int
@@ -330,12 +335,12 @@ class F32Layout(NamedTuple):
 
 def tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
                        smem_limit: int) -> Optional[F32Layout]:
-    """K8's design under fp32 compute at (batch, hidden) on a device of
-    ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
-    memory: the persistent CUDA-core design's layout (the first ring of
-    F32_RINGS whose KC divides N and that fits beside the slice of U), or
-    None for the per-step design (also under bf16 compute, whose plan is
-    ``tiled_fwd_plan``).
+    """K8's and K9's design under fp32 compute at (batch, hidden) on a
+    device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
+    shared memory: the persistent CUDA-core design's layout (the first
+    ring of F32_RINGS whose KC divides N and that fits beside the slice of
+    U), or None for the per-step design (also under bf16 compute, whose
+    plan is ``tiled_fwd_plan``).
 
     The design needs fp32 compute, N a multiple of a ring's KC (32 at
     least), at most F32_ROWS batch rows, its grid of N / F32_UNITS blocks
@@ -356,11 +361,12 @@ def tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent forward's, K8's
-    fp32 persistent design's and K10's shared memory as
-    ``persist_smem_bytes``, ``f32_persist_smem_bytes`` and
-    ``bwd_persist_smem_bytes`` do (the forward's also at K1's split
-    layouts: 32 and 16 of 128 rows at N = 512, 64 at N = 1024)."""
+    once; checks that the library lays out the shared memory of the
+    persistent forward, the fp32 forwards, K10's persistent and K10's fp32
+    persistent designs as ``persist_smem_bytes``,
+    ``f32_persist_smem_bytes``, ``bwd_persist_smem_bytes`` and
+    ``bwd_f32_smem_bytes`` do (the forward's also at K1's split layouts: 32
+    and 16 of 128 rows at N = 512, 64 at N = 1024)."""
     lib = _build.load_library()
     for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0),
                        (32, 512, 512), (16, 512, 512), (64, 1024, 1024)):
@@ -371,11 +377,16 @@ def _device_limits(index: int):
                          (64, 512, 64, 4), (100, 1056, 32, 3)):
         if lib.tiled_fwd_f32_smem_bytes(b, n, kc, st) != f32_persist_smem_bytes(b, n, kc, st):
             raise RuntimeError("f32_persist_smem_bytes disagrees with "
-                               "csrc/lstm_tiled.cu's layout")
+                               "csrc/lstm_tiled_f32.cu's layout")
     for rows, cres in ((64, 14), (32, 18), (16, 0), (48, 5)):
         if lib.tiled_bwd_persist_smem_bytes(rows, cres) != bwd_persist_smem_bytes(rows, cres):
             raise RuntimeError("bwd_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
+    for b, n, st in ((128, 1024, 3), (16, 1024, 6), (32, 1024, 6), (64, 512, 5),
+                     (100, 1056, 2)):
+        if lib.tiled_bwd_f32_smem_bytes(b, n, st) != bwd_f32_smem_bytes(b, n, st):
+            raise RuntimeError("bwd_f32_smem_bytes disagrees with "
+                               "csrc/lstm_tiled_f32.cu's layout")
     return cuda_cell_bwd._device_limits(index)
 
 
@@ -451,10 +462,93 @@ def device_tiled_bwd_plan(cfg: ModelConfig, b: int, n: int):
     return tiled_bwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
 
 
+# K10's persistent design under fp32 compute (csrc/lstm_tiled_f32.cu:
+# tiled_bwd_f32_persist, on CUDA cores: TF32 stays off), as the library
+# lays out its shared memory (bwd_f32_smem_bytes; ``_device_limits`` holds
+# the two equal): blocks of BWD_F32_THREADS threads in pairs, a pair owning
+# 2 BWD_F32_UNITS hidden units and every batch row, its block h the half h
+# of the 4N gate columns and the epilogue of BWD_F32_UNITS of the units; a
+# block holds the pair's U rows over its half (fp32) for the window and
+# streams its half of dg_{t+1} through a ring of slots of 16 RR rows by
+# BWD_F32_KC columns, which the BWD_F32_SPLIT splits' partial sums (16 RR
+# rows x 2 BWD_F32_UNITS) reuse; a thread's product tile has RR = 1, 2, 4
+# or 8 rows (B <= 16, 32, 64, 128). Split s takes the k of its half with
+# (k mod 32) / 4 = s at every batch. BWD_F32_RINGS: the slots the library
+# is built for at each RR, in the order the plan tries them.
+BWD_F32_UNITS = 8
+BWD_F32_THREADS = 256
+BWD_F32_SPLIT = 8    # ways the product splits a half's k: a warp each
+BWD_F32_KC = 64      # gate columns of a ring slot
+BWD_F32_ROWS = 128   # batch rows at most: 8 product rows a thread
+BWD_F32_RINGS = {1: (6,), 2: (6,), 4: (5,), 8: (3, 2)}
+
+
+def bwd_f32_rows_per_thread(b: int) -> int:
+    """Product rows a thread of K10's fp32 persistent design takes at
+    batch ``b``."""
+    return 1 if b <= 16 else 2 if b <= 32 else 4 if b <= 64 else 8
+
+
+def bwd_f32_smem_bytes(b: int, n: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of K10's fp32 persistent
+    design takes at batch ``b`` and hidden ``n`` with ``stages`` ring
+    slots."""
+    rows = 16 * bwd_f32_rows_per_thread(b)
+    pair = 2 * BWD_F32_UNITS
+    ring = stages * rows * BWD_F32_KC
+    red = BWD_F32_SPLIT * rows * pair
+    return 4 * (2 * n * pair + max(ring, red))
+
+
+class BwdF32Layout(NamedTuple):
+    """K10's fp32 persistent design: a thread's product tile has ``rows``
+    batch rows, the ring ``stages`` slots."""
+    rows: int
+    stages: int
+
+
+def tiled_bwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                       smem_limit: int) -> Optional[BwdF32Layout]:
+    """K10's design under fp32 compute at (batch, hidden) on a device of
+    ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: the persistent CUDA-core design's layout (the first ring of
+    BWD_F32_RINGS that fits beside U's rows), or None for the per-step
+    design (also under bf16 compute, whose plan is ``tiled_bwd_plan``).
+
+    The design needs fp32 compute, N a multiple of 32 (whole pairs of
+    blocks), at most BWD_F32_ROWS batch rows, its grid of N /
+    BWD_F32_UNITS blocks resident at one an SM, and its U rows with a ring
+    in a block's shared memory (where the grid is resident on an H100 they
+    fit; a card with less shared memory refuses it)."""
+    if cfg.cdtype != torch.float32 or n % 32 != 0:
+        return None
+    if not 1 <= b <= BWD_F32_ROWS or n // BWD_F32_UNITS > sms:
+        return None
+    rows = bwd_f32_rows_per_thread(b)
+    stages = next((st for st in BWD_F32_RINGS[rows]
+                   if bwd_f32_smem_bytes(b, n, st) <= smem_limit), None)
+    return None if stages is None else BwdF32Layout(rows, stages)
+
+
+def device_tiled_bwd_f32_plan(cfg: ModelConfig, b: int, n: int):
+    """``tiled_bwd_f32_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tiled_bwd_f32_plan(cfg, b, n,
+                              *_device_limits(torch.cuda.current_device()))
+
+
 def _kres_arg(cfg: ModelConfig, b: int, n: int) -> int:
     """The launchers' kres: the plan's, or -1 for the per-step design."""
     kres = device_tiled_fwd_plan(cfg, b, n)
     return -1 if kres is None else kres
+
+
+def _fwd_layout_arg(cfg: ModelConfig, b: int):
+    """K8's and K9's layout at batch ``b``: the fp32 persistent design's
+    (``tiled_fwd_f32_plan``), else (kres, b) of ``tiled_fwd_plan``'s
+    persistent design or, kres -1, the per-step design."""
+    layout = device_tiled_fwd_f32_plan(cfg, b, cfg.hidden)
+    return (_kres_arg(cfg, b, cfg.hidden), b) if layout is None else layout
 
 
 def _fwd_buffers(h0, c0, s, b, n, cfg: ModelConfig, rd: torch.dtype,
@@ -484,6 +578,13 @@ def _fwd_result(o, cfg: ModelConfig, residuals: bool):
                      o["gseq"], o["hdrop"])
 
 
+def _check_f32_layout(layout: F32Layout, cfg: ModelConfig, b: int):
+    """Raises unless ``layout`` is the fp32 forward's at batch ``b``."""
+    if cfg.cdtype != torch.float32 or layout.rows != f32_rows_per_thread(b):
+        raise ValueError(f"{layout} is the fp32 layout at the batch {b}: fp32 "
+                         f"compute and {f32_rows_per_thread(b)} rows a thread")
+
+
 def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
                  rd: torch.dtype, layout: Union[Tuple[int, int], F32Layout],
                  residuals: bool, dropout):
@@ -498,11 +599,8 @@ def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
     s, b = ids.shape
     n = cfg.hidden
     f32 = isinstance(layout, F32Layout)
-    if f32 and (cfg.cdtype != torch.float32
-                or layout.rows != f32_rows_per_thread(b)):
-        raise ValueError(f"{layout} is K8's fp32 layout at the batch {b}: "
-                         f"fp32 compute and {f32_rows_per_thread(b)} rows a "
-                         f"thread")
+    if f32:
+        _check_f32_layout(layout, cfg, b)
     W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
     ids32 = ids.to(torch.int32).contiguous()
     drop = cuda_cell.drop_scalars(dropout)
@@ -538,39 +636,50 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
         return tiled_embed_layer0_plain(layer, ids, h0, c0, cfg, residuals,
                                         dropout)
     _kernel_codes(cfg, ids.device)
-    b = ids.shape[1]
-    layout = device_tiled_fwd_f32_plan(cfg, b, cfg.hidden)
-    if layout is None:
-        layout = (_kres_arg(cfg, b, cfg.hidden), b)
     o = embed_launch(tiled_embed_layer0, layer, ids, h0, c0, cfg,
-                     types(cfg)[1], layout, residuals, dropout)
+                     types(cfg)[1], _fwd_layout_arg(cfg, ids.shape[1]),
+                     residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 
 def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
-                rd: torch.dtype, layout: Tuple[int, int], residuals: bool,
-                dropout):
-    """One call of K9's launcher, which K2 (``cuda_cell.scan_layer``)
+                rd: torch.dtype, layout: Union[Tuple[int, int], F32Layout],
+                residuals: bool, dropout):
+    """One call of K9's launchers, which K2 (``cuda_cell.scan_layer``)
     takes too: U and the xw stream in the compute type, the sequences in
-    ``rd``, ``layout`` the persistent design's (kres, rows) (kres -1: the
-    per-step design). Adds the launches made to ``counter.launches``, then
-    raises on a failed launch; returns the buffers."""
+    ``rd``; ``layout`` the persistent design's (kres, rows) (kres -1: the
+    per-step design) through ``tiled_fwd_scan_launch``, or an
+    ``F32Layout``: the fp32 persistent design through
+    ``tiled_fwd_scan_f32_launch``. Adds the launches made to
+    ``counter.launches``, then raises on a failed launch; returns the
+    buffers."""
     s, b, _ = xw.shape
     n = cfg.hidden
+    f32 = isinstance(layout, F32Layout)
+    if f32:
+        _check_f32_layout(layout, cfg, b)
     U_c = _aligned(layer.U.to(cfg.cdtype))
     xs = _aligned(xw.to(types(cfg)[2]))
     drop = cuda_cell.drop_scalars(dropout)
     o = _fwd_buffers(h0, c0, s, b, n, cfg, rd, residuals, drop is not None)
     launched = ctypes.c_int(0)
-    err = _build.load_library().tiled_fwd_scan_launch(
-        cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
-        U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
-        int(cfg.cell_variant == "standard"), *layout, *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(xw.device).cuda_stream,
-        ctypes.byref(launched),
-    )
+    lib = _build.load_library()
+    common = (U_c.data_ptr(), xs.data_ptr(), *_ptrs(o), s, b, n,
+              int(cfg.cell_variant == "standard"))
+    tail = (*(drop or (0, 0, 0.0)),
+            torch.cuda.current_stream(xw.device).cuda_stream,
+            ctypes.byref(launched))
+    if f32:
+        name = "tiled_fwd_scan_f32_launch"
+        err = lib.tiled_fwd_scan_f32_launch(cuda_cell._TYPE_CODES[rd], *common,
+                                            layout.kc, layout.stages, *tail)
+    else:
+        name = "tiled_fwd_scan_launch"
+        err = lib.tiled_fwd_scan_launch(
+            cuda_cell._TYPE_CODES[cfg.cdtype], cuda_cell._TYPE_CODES[rd],
+            *common, *layout, *tail)
     counter.launches += launched.value
-    cuda_cell._raise_on(err, "tiled_fwd_scan_launch")
+    cuda_cell._raise_on(err, name)
     return o
 
 
@@ -584,9 +693,8 @@ def tiled_scan_layer(layer, xw, h0, c0, cfg: ModelConfig,
         return tiled_scan_layer_plain(layer, xw, h0, c0, cfg, residuals,
                                       dropout)
     _kernel_codes(cfg, xw.device)
-    b = xw.shape[1]
     o = scan_launch(tiled_scan_layer, layer, xw, h0, c0, cfg, types(cfg)[1],
-                    (_kres_arg(cfg, b, cfg.hidden), b), residuals, dropout)
+                    _fwd_layout_arg(cfg, xw.shape[1]), residuals, dropout)
     return _fwd_result(o, cfg, residuals)
 
 
@@ -624,10 +732,10 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
     of the masked stream under ``dropout``), rounded to the xw type here.
     Returns (dg_seq (S, B, 4N) in the xw type, dc0 fp32). ``dh0_out``, a
     (B, N) fp32 tensor, receives dh0 = round(dg_0) @ U_c^T: from the
-    persistent design's own last product, else through ``_mm``. ``dg_out``,
-    an (S, B, 4N) fp32 tensor, receives the persistent design's fp32 dg
-    (the check that its bf16 dg is that rounded); the other designs refuse
-    it."""
+    persistent designs' own last product, else through ``_mm``.
+    ``dg_out``, an (S, B, 4N) fp32 tensor, receives the bf16 persistent
+    design's fp32 dg (the check that its bf16 dg is that rounded); the
+    other designs refuse it."""
     s, b = c_seq.shape[:2]
     n = cfg.hidden
     expected = (("U", U_c, (n, 4 * n)), ("g_seq", g_seq, (s, b, 4 * n)),
@@ -649,9 +757,10 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
             or dg_out.device != c_seq.device or not dg_out.is_contiguous()):
         raise ValueError("dg_out must be a contiguous (S, B, 4N) fp32 tensor "
                          "on the device of the sequences")
+    refused = "dg_out is written by K10's bf16 persistent design alone"
     if c_seq.device.type == "cpu":
         if dg_out is not None:
-            raise ValueError("dg_out is written by K10's persistent design alone")
+            raise ValueError(refused)
         dg, dc = tiled_bwd_plain(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg,
                                  dropout)
         if dh0_out is not None:
@@ -661,33 +770,42 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
     _, rd, xd = types(cfg)
     dev = c_seq.device
     plan = device_tiled_bwd_plan(cfg, b, n)
+    layout = device_tiled_bwd_f32_plan(cfg, b, n)
+    persistent = plan is not None or layout is not None
     if dg_out is not None and plan is None:
-        raise ValueError("dg_out is written by K10's persistent design alone")
-    # the persistent design reads U's rows in place, the per-step one U^T
+        raise ValueError(refused)
+    # the persistent designs read U's rows in place, the per-step one U^T
     U_k = U_c.to(cfg.cdtype)
-    U_k = _aligned(U_k if plan is not None else U_k.t())
+    U_k = _aligned(U_k if persistent else U_k.t())
     seqs = [_aligned(x.to(rd)) for x in (g_seq, c_seq)]
     c0f, dhTf = (x.to(AF).contiguous() for x in (c0, dhT))
     dh = _aligned(dh_seq.to(xd))
     dc = dcT.to(AF).clone().contiguous()
     dg = torch.empty(s, b, 4 * n, dtype=xd, device=dev)
     dh0 = dh0_out
-    if dh0 is None and plan is not None:   # the persistent launch writes it
+    if dh0 is None and persistent:   # the persistent launch writes it
         dh0 = torch.empty(b, n, dtype=AF, device=dev)
     drop = cuda_cell.drop_scalars(dropout)
     launched = ctypes.c_int(0)
-    err = _build.load_library().tiled_bwd_launch(
-        ctype, rtype, U_k.data_ptr(), seqs[0].data_ptr(), seqs[1].data_ptr(),
-        c0f.data_ptr(), dh.data_ptr(), dhTf.data_ptr(), dc.data_ptr(),
-        dg.data_ptr(), None if dg_out is None else dg_out.data_ptr(),
-        None if dh0 is None else dh0.data_ptr(), s, b, n,
-        int(cfg.cell_variant == "standard"), *(plan or (-1, 0)),
-        int(drop is not None), *(drop or (0, 0, 0.0)),
-        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
-    )
+    lib = _build.load_library()
+    ptr = lambda x: None if x is None else x.data_ptr()
+    common = (U_k.data_ptr(), seqs[0].data_ptr(), seqs[1].data_ptr(),
+              c0f.data_ptr(), dh.data_ptr(), dhTf.data_ptr(), dc.data_ptr(),
+              dg.data_ptr())
+    standard = int(cfg.cell_variant == "standard")
+    tail = (int(drop is not None), *(drop or (0, 0, 0.0)),
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    if layout is not None:
+        name = "tiled_bwd_f32_launch"
+        err = lib.tiled_bwd_f32_launch(rtype, *common, dh0.data_ptr(), s, b, n,
+                                       standard, layout.stages, *tail)
+    else:
+        name = "tiled_bwd_launch"
+        err = lib.tiled_bwd_launch(ctype, rtype, *common, ptr(dg_out), ptr(dh0),
+                                   s, b, n, standard, *(plan or (-1, 0)), *tail)
     tiled_bwd.launches += launched.value
-    cuda_cell._raise_on(err, "tiled_bwd_launch")
-    if plan is None and dh0_out is not None:
+    cuda_cell._raise_on(err, name)
+    if not persistent and dh0_out is not None:
         dh0_out.copy_(_mm(dg[0], U_c.T, cfg))
     return dg, dc
 

@@ -194,7 +194,8 @@ def test_build_reports_missing_nvcc(monkeypatch):
     assert re.fullmatch(r"liblstm_kernels_[0-9a-f]{16}\.so", os.path.basename(path))
     assert [os.path.basename(p) for p in _build.sources()] == [
         "adagrad.cu", "exchange.cu", "head.cu", "lstm_bwd.cu", "lstm_fwd.cu",
-        "lstm_tiled.cu", "lstm_tp.cu", "lstm_tp_persist.cu", "sampler.cu"]
+        "lstm_tiled.cu", "lstm_tiled_f32.cu", "lstm_tp.cu", "lstm_tp_persist.cu",
+        "sampler.cu"]
     assert [os.path.basename(p) for p in _build.headers()] == [
         "common.cuh", "exchange.cuh", "fwd_mma.cuh", "mma.cuh"]
 

@@ -114,7 +114,8 @@ def test_device_plan_takes_the_cards_limits(monkeypatch):
 
 class _Library:
     """Stands in for the kernels' library: records each call, returns 0,
-    and counts the fp32 persistent launcher's one launch."""
+    and counts the fp32 persistent launchers' one launch (K8's, and K9's
+    and K10's in tests/test_torch_fp32_tiled_plan.py)."""
 
     def __init__(self):
         self.calls = []
@@ -122,7 +123,7 @@ class _Library:
     def __getattr__(self, name):
         def call(*args):
             self.calls.append((name, args))
-            if name == "tiled_fwd_embed_f32_launch":
+            if name.startswith("tiled_") and name.endswith("_f32_launch"):
                 args[-1]._obj.value += 1
             return 0
         return call
@@ -215,10 +216,11 @@ def test_k8_elsewhere_keeps_tiled_fwd_embed_launch(routed, dtype, b, n, want):
 
 
 def test_other_forwards_keep_their_fp32_routes(routed):
-    """At the flagship's fp32 shapes K9 (``tiled_scan_layer``) keeps its
-    per-step design, K1 and K2 (``cuda_cell``) their launch a step, K15 at
-    D = 1 its cooperative design: none reaches the fp32 persistent
-    launcher."""
+    """At the flagship's fp32 shapes K9 (``tiled_scan_layer``) takes the
+    fp32 persistent design through its own launcher
+    (``tiled_fwd_scan_f32_launch``, the plan's ring); K1 and K2
+    (``cuda_cell``) keep their launch a step, K15 at D = 1 its cooperative
+    design: none of those three reaches an fp32 persistent launcher."""
     lib = routed[0]
     s, b, n = 3, 128, 1024
     cfg = _cfg()
@@ -228,9 +230,10 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     cuda_cell.scan_layer(_layer(n), _e(s, b, 4 * n), h0, c0, cfg)
     ts.tp_seq_fwd(_e(n, 4 * n), _e(s, b, 4 * n), h0, c0, cfg)
     names = [c[0] for c in lib.calls]
-    assert names == ["tiled_fwd_scan_launch", "lstm_fwd_embed_launch",
+    assert names == ["tiled_fwd_scan_f32_launch", "lstm_fwd_embed_launch",
                      "lstm_fwd_scan_launch", "tp_seq_fwd_launch"]
-    assert lib.calls[0][1][15:17] == (-1, b)        # K9: kres -1, per-step
+    plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
+    assert lib.calls[0][1][14:16] == (plan.kc, plan.stages)   # K9: fp32 ring
     assert lib.calls[3][1][16:18] == (-1, 0)        # K15: cooperative
 
 
@@ -299,7 +302,7 @@ def test_k8_kernel_reads_h_through_l2_only_and_barriers_unguarded():
     is neither const nor __restrict__, is read only through the ring's
     cp.async (``cp.async.cg``, L2 only) and never through ``__ldg``; the
     grid barrier closes every step and no barrier sits under a branch."""
-    params, body = _kernel(_source("lstm_tiled.cu"),
+    params, body = _kernel(_source("lstm_tiled_f32.cu"),
                            "tiled_fwd_f32_persist(const float* __restrict__ U")
     assert re.search(r"\n\s*float\* hc,", params)
     code = _strip_comments(body)
@@ -328,7 +331,7 @@ def test_the_barrier_check_sees_a_guarded_barrier():
 def test_kernel_constants_and_layouts_match_the_plan():
     """The block's units, threads and split, the ring's pitch, and the
     layouts the library is built for are the plan's."""
-    src = _source("lstm_tiled.cu")
+    src = _source("lstm_tiled_f32.cu")
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
     assert (const("kPUnits"), const("kPThreads"), const("kPSplit")) == \
         (ct.F32_UNITS, ct.F32_THREADS, ct.F32_SPLIT)
