@@ -34,10 +34,12 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          and the per-step design, both forced, in the same call). K3
          (the fused VJP) without and with dropout 0.35: in bf16 its
          persistent design (one cooperative launch a window and a tensor-core
-         dWU, its bf16 dg its fp32 dg rounded, bit for bit) and, forced, its
-         per-step design, which fp32 keeps, held to the same gates; the
-         reverse launch and the tail timed apart, the per-step design's call
-         in the same run. K4 and K5 take their tensor-core designs in bf16
+         dWU, its bf16 dg its fp32 dg rounded, bit for bit), in fp32 its
+         persistent CUDA-core design (one cooperative launch a window, then
+         dU, dW and db on CUDA cores), and, forced, its per-step design,
+         which refused shapes keep, held to the same gates; the reverse
+         launch and the tail (and dU alone) timed apart, the per-step
+         design's call in the same run (the persistent must be the faster). K4 and K5 take their tensor-core designs in bf16
          (their CUDA-core designs, which fp32 takes, held to the same gates
          and timed in the same call; K5's launches a call gated). K4 in
          fp32 (its CUDA-core design: 64-row blocks, 8 x 8 register tiles, a
@@ -53,7 +55,7 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          kernel's share of the step; (c) 100 steps of the bench's Trainer
          in fp32 through the kernels, each step's loss and gradients held
          against the plain versions from the same state, K3's launches
-         counted (fp32 takes its per-step design); (d) the bench's
+         counted (its fp32 persistent design's); (d) the bench's
          schedule once more from the JAX bench's step-0 state
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
          parameters, accumulators, cursors and stream state), train_bpc
@@ -63,7 +65,14 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          bits beside the JAX package's and the port's on the CPU from the
          same start (the committed trajectories), against the spread of
          the port's own-start bench over three seeds and the port's own
-         order spread, and the first superstep past each (reported).
+         order spread, and the first superstep past each (reported); (e)
+         a 2x512 model in fp32 through the Trainer ``cli train`` builds at
+         the bench's data configuration (``--dtype float32 --layers 2``),
+         20 steps, each step's loss and gradients held against the plain
+         versions from the same state, K3's and K6's launches counted
+         (their fp32 persistent design's), then the median step time of
+         the model, of the model with the per-step K3/K6 forced and of the
+         1x512 bench in fp32, timed alike.
 Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          (a) K1, K2, K3 and K6 (the layers >= 1 backward) against their
          plain versions with the flagship's weights, fp32 and bf16, without
@@ -74,10 +83,11 @@ Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          for K1, the unsplit layout, forced, held to the same gates and
          timed in the same call; K1's bf16-residual run its fp32 run
          rounded); K3's (the GEMM fall-back) and K6's
-         design (persistent in bf16, per-step in fp32) and launches a call,
-         and in bf16 the per-step design held to the same gates on the same
-         inputs, the persistent design's reverse launch and tail timed apart
-         beside its time; K5 against its plain version at T = 32768
+         design (persistent in bf16, the CUDA-core persistent one in fp32)
+         and launches a call, and the per-step design held to the same
+         gates on the same inputs, the persistent design's reverse launch
+         and tail timed apart beside its time (the persistent gated the
+         faster); K5 against its plain version at T = 32768
          (printed) and the heads' times;
          (b) the flagship's loss and eleven gradients with dropout,
          kernels against plain, fp32 and bf16;
@@ -117,7 +127,8 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          tensor-core dU against the fp32 products; times of both designs
          beside the bound,
          the plain version, K1/K2/K6 at the same shapes (K6 on its
-         per-step design, gated) and cuDNN, and at the eval batch of 16;
+         per-step design in bf16, its fp32 persistent one in fp32, gated)
+         and cuDNN, and at the eval batch of 16;
          K5 at the 5b shapes against its plain version (gated as in phase
          5) and beside its CUDA-core design;
          in fp32 K8 in its persistent CUDA-core design (one cooperative
@@ -126,7 +137,10 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          call, also at the eval batch of 16; K9 and K10 per-step in fp32
          (gated); (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
-         kernels against plain; (c) the 5b recipe through the CLI's
+         kernels against plain (in fp32 K3 and K6 take their per-step
+         design, their launches counted, then each held to its plain
+         replay and timed on the model's layers at these shapes); (c) the
+         5b recipe through the CLI's
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
          step time, chars/s, the bits of each superstep, the launches
          against what the shapes give (K8 as many a step as one call of
@@ -142,8 +156,9 @@ Phase 10 the last two single-card kernels and the modules of this path:
          bound, the plain version and ``torch._foreach_*``; (b) the two-step
          layer-0 backward K12 against K3 at the bench's shapes, B = 64 with
          fp32 residuals and B = 128 with bf16 residuals, bf16 (both in the
-         persistent design) and fp32 (both per-step), dropout 0 and 0.35:
-         every output bit for bit; (c) the port's bench
+         persistent design) and fp32 (both in the CUDA-core persistent
+         design, and forced both per-step, timed in the same call), dropout
+         0 and 0.35: every output bit for bit; (c) the port's bench
          at the documented unroll-2 run's configuration (1x512, B = 64),
          with EIGEN_LSTM_BWD_UNROLL=2 (K12, never K3) and without (K3,
          never K12), K1 (16 rows a block) and K11 once a step, train_bpc
@@ -284,7 +299,9 @@ near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
 ``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone,
-``--tiled`` phases 0, 1 and 9a.
+``--tiled`` phases 0, 1 and 9a, ``--groups`` phases 0 and 1 and K3's fp32
+persistent design at the bench's shapes with the other group width forced
+(outputs against the plan's, reverse launches timed side by side).
 ``python3 chip_smoke.py --sp-spread`` reads 13d's bf16 gradients against
 the fp32 whole batch on three flagship windows, as drawn and with the
 streams that leave fp32 replaced, through the plain path, the kernels on
@@ -750,8 +767,10 @@ TRAIN_S, TRAIN_B = 100, 128
 # and bf16, on every fp32 output. The head's dh is stored in bf16 under bf16
 # compute: one ulp there is 2^-8, so its bf16 gate is two ulps.
 TRAIN_TOL = 1e-4
-# K3, K6, K12 and, in bf16, K16: the persistent kernel and the per-step one
+# K3, K6, K12 and, in bf16, K16: the persistent kernel and the per-step one;
+# in fp32 their persistent reverse launch (its tail in lstm_bwd.cu)
 BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_bwd.cu"
+BWD_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_bwd_f32.cu"
 DH_BF16_TOL = 2.0 ** -7
 # Phase 6a, the loss and gradients of one window through the kernels
 # against the plain path: fp32 rel 1e-5 on the loss, 1e-4 normalised on
@@ -919,32 +938,64 @@ def k6_bound(cfg, s, b, n):
 
 def k6_design(cfg, b, n):
     """The design K6, K3 and K12 take at these shapes on this card, as
-    their wrappers choose it (``cuda_cell_bwd.k6_plan``): a label, and
-    whether it is persistent."""
-    from eigen_lstm_tpu_torch.ops.cuda_cell_bwd import device_k6_plan
+    their wrappers choose it (``cuda_cell_bwd.k6_plan`` in bf16,
+    ``k6_f32_plan`` in fp32): a label, and whether it is persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_bwd import (device_k6_f32_plan,
+                                                        device_k6_plan)
 
     plan = device_k6_plan(cfg, b, n)
-    if plan is None:
-        return "the per-step design (one launch a reverse step)", False
-    units, rows = plan
-    groups, parts = n // units, -(-b // rows)
-    return (f"the persistent design ({groups} groups of {units} units x "
-            f"{parts} parts of {rows} batch rows = {groups * parts} blocks, "
-            f"one cooperative launch a window)"), True
+    if plan is not None:
+        units, rows = plan
+        groups, parts = n // units, -(-b // rows)
+        return (f"the persistent design ({groups} groups of {units} units x "
+                f"{parts} parts of {rows} batch rows = {groups * parts} "
+                f"blocks, one cooperative launch a window)"), True
+    layout = device_k6_f32_plan(cfg, b, n)
+    if layout is not None:
+        groups = n // 16
+        return (f"the fp32 persistent design ({groups} groups of 16 units x "
+                f"{layout.blocks} blocks = {groups * layout.blocks} blocks, "
+                f"{layout.rows} product rows a thread, {layout.stages} ring "
+                f"slots, one cooperative launch a window, then the CUDA-core "
+                f"tail)"), True
+    return "the per-step design (one launch a reverse step)", False
 
 
-def persist_split_ms(call, counter, reps: int = 5):
+def bwd_f32_launches(cfg, s, b, m):
+    """K3's (``m`` the vocabulary) or K6's (``m`` 0) launches a call in
+    the fp32 persistent design: the reverse launch, dU (and the sum of its
+    splits where it splits), and for K3 dW and db's two."""
+    n = cfg.hidden
+    return 2 + (atb_splits(s * b, n, 4 * n) > 1) + (3 if m else 0)
+
+
+def persist_split_ms(call, counter, cfg, reps: int = 5):
     """The persistent design's reverse launch and its weight-gradient
-    launches (K6's dU, K3's dWU: the tail), each timed by CUDA events
-    around its C launcher within the wrapper's calls; then the per-step
-    design's whole call on the same inputs (the wrapper's choice
-    overridden here only) and its launches, read from ``counter``, the
-    wrapper. Returns (reverse ms, tail ms, per-step ms, per-step
-    launches), medians."""
+    launches (K6's dU, K3's dWU, and in fp32 K3's db: the tail), each
+    timed by CUDA events around its C launcher within the wrapper's calls
+    (``launchers_ms``); then the per-step design's whole call on the same
+    inputs (the wrapper's choice overridden here only) and its launches,
+    read from ``counter``, the wrapper. Returns (reverse ms, tail ms,
+    per-step ms, per-step launches), medians."""
+    names = (("lstm_bwd_persist_launch", "lstm_bwd_dWU_launch")
+             if cfg.cdtype == torch.bfloat16
+             else ("lstm_bwd_f32_launch", "lstm_bwd_tail_launch"))
+    rev, tail = launchers_ms(call, names, reps)
+    with per_step_k6():
+        before = counter.launches
+        call()
+        launched = counter.launches - before
+        per_step = cuda_ms(call, reps=1, windows=3)
+    return rev, tail, per_step, launched
+
+
+def launchers_ms(call, names, reps: int = 5):
+    """The median time of each C launcher of ``names`` within ``reps``
+    calls of ``call`` (after one call to warm up), CUDA events around
+    it."""
     from eigen_lstm_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    names = ("lstm_bwd_persist_launch", "lstm_bwd_dWU_launch")
     real = {nm: getattr(lib, nm) for nm in names}
     events = {nm: [] for nm in names}
 
@@ -969,30 +1020,25 @@ def persist_split_ms(call, counter, reps: int = 5):
     finally:
         for nm in names:
             setattr(lib, nm, real[nm])
-    rev, tail = (statistics.median(a.elapsed_time(b) for a, b in events[nm])
+    return tuple(statistics.median(a.elapsed_time(b) for a, b in events[nm])
                  for nm in names)
-    with per_step_k6():
-        before = counter.launches
-        call()
-        launched = counter.launches - before
-        per_step = cuda_ms(call, reps=1, windows=3)
-    return rev, tail, per_step, launched
 
 
 @contextlib.contextmanager
 def per_step_k6():
     """K6's, K3's and K12's wrappers take their per-step design inside the
-    block, and K16's its cooperative one, whatever ``k6_plan`` would
-    choose: for the checks and times of that design where the main path
-    takes the persistent one."""
+    block, and K16's its cooperative one, whatever ``k6_plan`` and
+    ``k6_f32_plan`` would choose: for the checks and times of that design
+    where the main path takes a persistent one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
 
-    plan = cuda_cell_bwd.device_k6_plan
+    plans = cuda_cell_bwd.device_k6_plan, cuda_cell_bwd.device_k6_f32_plan
     cuda_cell_bwd.device_k6_plan = lambda *a: None
+    cuda_cell_bwd.device_k6_f32_plan = lambda *a: None
     try:
         yield
     finally:
-        cuda_cell_bwd.device_k6_plan = plan
+        cuda_cell_bwd.device_k6_plan, cuda_cell_bwd.device_k6_f32_plan = plans
 
 
 @contextlib.contextmanager
@@ -1088,9 +1134,9 @@ def phase5(records):
         dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
         lib_ms = library_lstm_bwd(cfg, onehot, h0, c0, dh_seq)
         design, persistent = k6_design(cfg, b, n)
-        if persistent != (dtype == "bfloat16"):
+        if not persistent:
             fail(f"lstm_bwd_embed {dtype}: {design}; the bench's shapes take "
-                 f"the persistent design in bf16 alone")
+                 f"a persistent design in both types")
         for drop in (0.0, FLAG_DROP):
             tag = f"{dtype} drop {drop:g}"
             dr = (drop, FLAG_SEEDS[0]) if drop else None
@@ -1098,10 +1144,10 @@ def phase5(records):
                             dhT, dcT, cfg, dr, mask, inv, tag, per_call)
             rec.update(replaces="eigen_lstm_tpu/ops/pallas_cell.py:556",
                        library_ms=lib_ms)
-            if persistent:
-                rec.update(other_designs("lstm_bwd_embed", layer.U, fwd, x,
-                                         h0, c0, dh_seq, dhT, dcT, cfg, dr,
-                                         mask, inv, tag))
+            rec.update(other_designs("lstm_bwd_embed", layer.U, fwd, x, h0,
+                                     c0, dh_seq, dhT, dcT, cfg, dr, mask, inv,
+                                     tag))
+            faster_than_per_step(rec, tag)
             print(f"  lstm_bwd_embed {tag}: {rec['ms']:.4f} ms per window "
                   f"({per_call['lstm_bwd_embed']} launches), plain "
                   f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
@@ -1551,8 +1597,8 @@ def phase6c():
     At every step the loss and five gradients through the plain versions,
     from the kernel run's own state, are gated; a second run through the
     plain versions alone is printed beside it. Returns the launches of K3
-    and K1, whose per-step designs fp32 takes, and of K4 (its CUDA-core
-    design, which fp32 takes)."""
+    (its fp32 persistent design), K1 (its per-step design, which fp32
+    takes) and K4 (its CUDA-core design, which fp32 takes)."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
@@ -1606,13 +1652,16 @@ def phase6c():
           + ", ".join(f"{key[len('params.'):]} {norm_err(pk[key], pp[key]):.2e}"
                       for key in pp), flush=True)
     # two K3 calls a step (the gated loss_and_grads, then train_step), each
-    # in the per-step design: more than S launches a call
+    # in the fp32 persistent design: one reverse launch and its tail's
+    mcfg = runs[0].mcfg
+    want = bwd_f32_launches(mcfg, TRAIN_S, TRAIN_B, mcfg.vocab)
     per_call = k3.launches / (2 * TRAJ_STEPS)
-    print(f"  steps fp32: K3 {k3.launches} launches, {per_call:g} a call (the "
-          f"per-step design)", flush=True)
-    if per_call != int(per_call) or per_call <= TRAIN_S:
+    print(f"  steps fp32: K3 {k3.launches} launches, {per_call:g} a call "
+          f"({k6_design(mcfg, TRAIN_B, mcfg.hidden)[0]}: {want} a call)",
+          flush=True)
+    if per_call != want:
         fail(f"steps fp32: K3 launched {k3.launches} times in {TRAJ_STEPS} "
-             f"steps, not the per-step design's count")
+             f"steps, not the fp32 persistent design's {want} a call")
     # and two K1 calls a step in its per-step design, which fp32 keeps
     print(f"  steps fp32: K1 {k1.launches} launches (the per-step design)",
           flush=True)
@@ -1626,6 +1675,145 @@ def phase6c():
         fail(f"steps fp32: K4 launched {k4.launches} times, two calls a step "
              f"give {2 * 2 * TRAJ_STEPS}")
     return k3.launches, k1.launches, k4.launches
+
+
+# Phase 6e, a 2x512 model in fp32 at the bench's data configuration (the
+# bench's argv with --dtype float32 --layers 2): LAYERS2_STEPS steps through
+# the kernels, each step's loss and gradients against the plain versions
+# from the kernel run's own state at phase 6a's fp32 tolerances; then
+# STEP_TIMES steps each, timed alike and back to back: the model's, the
+# model's with the per-step K3/K6 forced, and the 1x512 bench's in fp32, for
+# the median step time of each
+LAYERS2_STEPS = 20
+STEP_TIMES = 8
+
+
+def _timed_steps(tr, steps):
+    """``steps`` train_steps of Trainer ``tr`` from its state, each timed
+    on the host clock between synchronisations: ms a step."""
+    from eigen_lstm_tpu_torch.train.trainer import train_step
+
+    times = []
+    for step in range(steps):
+        if step % tr.tcfg.superstep == 0:
+            win = tr.feeder.next_device_batch().to(torch.int32)
+        w = win[step % tr.tcfg.superstep]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, _ = train_step(tr.state, w[:-1], w[1:], tr.mcfg, tr.dcfg,
+                                 tr.tcfg, tr.length, tr.cell_fn, tr.generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase6e(records):
+    """A 2x512 model in fp32 through the Trainer ``cli train`` builds at
+    the bench's data configuration (enwik6, B = 128, S = 100), so K6's fp32
+    persistent design runs where users meet it: LAYERS2_STEPS steps, each
+    step's loss and gradients through the kernels against the plain
+    versions from the kernel run's own state (6a's fp32 tolerances); K3's
+    and K6's launches counted (two calls a step each, the fp32 persistent
+    design's count a call); the median step time beside the same run's
+    steps with the per-step K3/K6 forced and beside the 1x512 bench's in
+    fp32; K6 on the model's layer 1 at these shapes, as phase 7a holds and
+    times it. Returns (K3's launches, K6's launches, the step times)."""
+    from eigen_lstm_tpu_torch import bench
+    from eigen_lstm_tpu_torch.cli import build_parser
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+    from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
+    from eigen_lstm_tpu_torch.train.trainer import loss_and_grads, train_step
+
+    def trainer(layers):
+        return bench.make_trainer(build_parser().parse_args(
+            bench.DEFAULT_ARGV + ["--dtype", "float32", "--layers", str(layers),
+                                  "--backend", "cuda"]))
+
+    tr = trainer(2)
+    cfg = tr.mcfg
+    plain_fn = select_cell_fn("plain", cfg, TRAIN_B, DEVICE)
+    k3, k6 = cuda_cell_bwd.embed_layer0_bwd, cuda_cell_bwd.scan_layer_bwd
+    design, persistent = k6_design(cfg, TRAIN_B, cfg.hidden)
+    print(f"  2x512 fp32: families (layers >= 1, layer 0) "
+          f"{families(cfg, TRAIN_B)}; K3 and K6 in {design}", flush=True)
+    if not persistent:
+        fail(f"2x512 fp32: K3 and K6 in {design}; these shapes take the fp32 "
+             f"persistent design")
+    k3.launches = k6.launches = 0
+    worst = {}
+    t0 = time.perf_counter()
+    for step in range(LAYERS2_STEPS):
+        if step % tr.tcfg.superstep == 0:
+            win = tr.feeder.next_device_batch().to(torch.int32)
+        w = win[step % tr.tcfg.superstep]
+        st = tr.state
+        (_, _, bk, gk), (_, _, bp, gp) = (
+            loss_and_grads(st.params, w[:-1], w[1:], st.h, st.c, cfg, fn)
+            for fn in (tr.cell_fn, plain_fn))
+        errs = {"bits": abs(float(bk) - float(bp)) / abs(float(bp))}
+        errs.update((f"d{key[len('params.'):]}", norm_err(a, b))
+                    for (key, a), (_, b) in
+                    zip(gk.named_tensors(), gp.named_tensors()))
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        tr.state, _ = train_step(st, w[:-1], w[1:], cfg, tr.dcfg, tr.tcfg,
+                                 tr.length, tr.cell_fn, tr.generator)
+    launched = (k3.launches, k6.launches)
+    print(f"  2x512 fp32: {LAYERS2_STEPS} steps through the kernels, each "
+          f"against plain from its state, in {time.perf_counter() - t0:.1f} s; "
+          f"bits rel (tol {LOSS_RTOL['float32']:g}) and gradients normalised "
+          f"(tol {TRAIN_TOL:g}) within: "
+          + ", ".join(f"{key} {err:.3e}" for key, err in worst.items()),
+          flush=True)
+    for key, err in worst.items():
+        tol = LOSS_RTOL["float32"] if key == "bits" else TRAIN_TOL
+        if not np.isfinite(err) or err > tol:
+            fail(f"2x512 fp32 {key}: kernels against plain {err:.3e}")
+    # two calls of each a step (the gated loss_and_grads, then train_step)
+    want = (2 * LAYERS2_STEPS * bwd_f32_launches(cfg, TRAIN_S, TRAIN_B, cfg.vocab),
+            2 * LAYERS2_STEPS * bwd_f32_launches(cfg, TRAIN_S, TRAIN_B, 0))
+    print(f"  2x512 fp32: K3, K6 launches {launched} (the fp32 persistent "
+          f"design gives {want})", flush=True)
+    if launched != want:
+        fail(f"2x512 fp32: K3, K6 launched {launched} times, not {want}")
+    # K6 on this model's layer 1 at these shapes (S = 100, B = 128, N =
+    # 512), from the last window: 7a's gates and times
+    n, s, b = cfg.hidden, TRAIN_S, TRAIN_B
+    l0, l1 = tr.state.params.layers[0], tr.state.params.layers[1]
+    gen = torch.Generator().manual_seed(16)
+    rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
+    h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+    h_in = cuda_cell.embed_layer0(l0, w[:-1], h0, c0, cfg)[0].float()
+    xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
+          .reshape(s, b, 4 * n) + l1.b)
+    out2 = cuda_cell.scan_layer(l1, xw, h0, c0, cfg, residuals=True)
+    dh_seq = rand(s, b, n, sd=1e-3)
+    dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
+    tag = "2x512 layer 1 fp32"
+    rec = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq, dhT,
+                    dcT, cfg, None, None, None, tag, {})
+    rec.update(other_designs("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
+                             dhT, dcT, cfg, None, None, None, tag))
+    faster_than_per_step(rec, tag)
+    lib = library_lstm_bwd(cfg, h_in, h0, c0, dh_seq)
+    rec.update(replaces=REPLACES["lstm_bwd_scan"], library_ms=lib)
+    records[("6e", "lstm_bwd_scan")] = rec
+    print(f"  lstm_bwd_scan {tag}: {rec['ms']:.4f} ms per window, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']}), cuDNN nn.LSTM backward "
+          f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+    # the three step times alike: STEP_TIMES steps each, back to back
+    times = _timed_steps(tr, STEP_TIMES)
+    with per_step_k6():
+        forced = _timed_steps(tr, STEP_TIMES)
+    one = _timed_steps(trainer(1), STEP_TIMES)
+    med = {"2x512": statistics.median(times[2:]),
+           "2x512 per-step K3/K6": statistics.median(forced[2:]),
+           "1x512": statistics.median(one[2:])}
+    print("  fp32 steps (median, host clock around synchronised steps): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()), flush=True)
+    return launched[0], launched[1], med
 
 
 # --- the flagship's training (S = 256, B = 128, N = 1024, M = 256) ---------
@@ -1787,12 +1975,14 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
     takes (``k6_design``): every reverse step replayed from the kernel's
     own dg with the explicitly masked cotangent, and the whole window
     against the plain version given the explicitly masked cotangent (fp32
-    gated, bf16 printed); the persistent design's bf16 dg its fp32 dg
+    gated, bf16 printed); the bf16 persistent design's bf16 dg its fp32 dg
     rounded, bit for bit, and 2 or 3 launches a call (the reverse launch
-    and the weight-gradient product, split or not), the per-step design's
-    more than S. K3 runs the layer-0 VJP the JAX package takes at these
-    shapes (``dispatch.fused_accum_ok``). Returns the record, or with
-    ``timed`` False nothing (the checks alone)."""
+    and the weight-gradient product, split or not), the fp32 persistent
+    design's one reverse launch and its tail's (``bwd_f32_launches``), the
+    per-step design's more than S. K3 runs the layer-0 VJP the JAX package
+    takes at these shapes (``dispatch.fused_accum_ok``). Returns the
+    record, or with ``timed`` False the largest normalised error of the
+    replay (the checks alone)."""
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd
     from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
 
@@ -1810,6 +2000,7 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
         names = ("dg_seq", "dU", "dh0", "dc0")
     kw = {} if ids is None else {"fused_accum": fused_accum_ok(cfg, b)}
     design, persistent = k6_design(cfg, b, n)
+    bf16 = persistent and cfg.cdtype == torch.bfloat16
     dg_k = torch.empty(s, b, 4 * n, device=DEVICE)
     before = kern.launches
     with kept_dgx() as kept:
@@ -1822,11 +2013,14 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
     for label, got in zip(names, out_k):
         if not torch.isfinite(got.float()).all():
             fail(f"{name} {tag} {label}: non-finite values")
-    if persistent != (len(kept) == 1) or (
-            persistent and not torch.equal(kept[0], dg_k.to(torch.bfloat16))):
+    if bf16 != (len(kept) == 1) or (
+            bf16 and not torch.equal(kept[0], dg_k.to(torch.bfloat16))):
         fail(f"{name} {tag}: {design}, {len(kept)} bf16 dg sequences written; "
              f"the persistent design's bf16 dg must be its fp32 dg rounded")
-    if not (2 <= launched <= 3 if persistent else launched > s):
+    m = 0 if ids is None else cfg.vocab
+    if not (2 <= launched <= 3 if bf16 else
+            launched == bwd_f32_launches(cfg, s, b, m) if persistent
+            else launched > s):
         fail(f"{name} {tag}: {design}, {launched} launches a call")
     if ids is not None:
         rep = k3_replay(*args, dh_eff, dhT, dcT, cfg, dg_k, **kw)
@@ -1859,12 +2053,12 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
           f"reverse step and the outputs within {step_err:.3e} (normalised: "
           f"{', '.join(each)}) of the plain replay from the kernel's own dg"
           f"{' with the host mask' if dropout else ''} (tol {TRAIN_TOL:g})"
-          + ("; its bf16 dg its fp32 dg rounded, bit for bit" if persistent
+          + ("; its bf16 dg its fp32 dg rounded, bit for bit" if bf16
              else "") + "; window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
     if not timed:
-        return None
+        return step_err
     call = lambda: kern(*args, dh_seq, dhT, dcT, cfg, dropout=dropout, **kw)
     ms = cuda_ms(call, reps=1, windows=3)
     plain_ms = cuda_ms(lambda: plain(*args, dh_seq, dhT, dcT, cfg,
@@ -1874,40 +2068,42 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
     else:
         bound_ms, bound_by = k6_bound(cfg, s, b, n)
     return dict(name=name, route="cuda",
-                source=BWD_SOURCE,
+                source=BWD_F32_SOURCE if persistent and not bf16 else BWD_SOURCE,
                 launches=None, max_abs_err=step_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
 def other_designs(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg,
                   dropout, mask, inv, tag):
-    """Where K3 (``ids``) or K6 takes the persistent design: the per-step
-    design, which ``k6_plan`` keeps for fp32 and other shapes and cards,
-    held to ``bwd_check``'s gates on the same inputs; the persistent
-    design's reverse launch and tail timed apart, and the per-step design's
-    call in the same run. Returns those times for the record."""
+    """Where K3 (``ids``) or K6 takes a persistent design: the per-step
+    design, which the plans keep for other shapes and cards, held to
+    ``bwd_check``'s gates on the same inputs; the persistent design's
+    reverse launch and tail timed apart (and K3's dU alone), and the
+    per-step design's call in the same run. Returns those times and the
+    per-step design's largest replay error for the record."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
     from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
 
     with per_step_k6():
-        bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg,
-                  dropout, mask, inv, tag + " (the per-step design)", {},
-                  timed=False)
+        old_err = bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT,
+                            cfg, dropout, mask, inv,
+                            tag + " (the per-step design)", {}, timed=False)
     h_seq, c_seq, g_seq = fwd_out[0], fwd_out[2], fwd_out[3]
-    s, b = h_seq.shape[:2]
+    s, b, n = h_seq.shape
     U_c = U.to(cfg.cdtype)
+    fused = fused_accum_ok(cfg, b)
     if ids is None:
         kern = cuda_cell_bwd.scan_layer_bwd
-        call = lambda: kern(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT,
-                            dcT, cfg, dropout=dropout)
+        call = lambda **kw: kern(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT,
+                                 dcT, cfg, dropout=dropout, **kw)
     else:
         kern = cuda_cell_bwd.embed_layer0_bwd
-        call = lambda: kern(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq, dhT,
-                            dcT, cfg, dropout=dropout,
-                            fused_accum=fused_accum_ok(cfg, b))
-    rev, tail, old, old_n = persist_split_ms(call, kern)
+        call = lambda **kw: kern(U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
+                                 dhT, dcT, cfg, dropout=dropout,
+                                 fused_accum=fused, **kw)
+    rev, tail, old, old_n = persist_split_ms(call, kern, cfg)
     what = "dU"
-    if ids is not None:
+    if ids is not None and cfg.cdtype == torch.bfloat16:
         # K3's tail is one product over [one-hot(ids) | h_{t-1}]: the same
         # product without the one-hot rows (K6's) says what dW takes
         from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import tensor_core_dU
@@ -1916,11 +2112,93 @@ def other_designs(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg,
             call()
         du = cuda_ms(lambda: tensor_core_dU(kept[0], h_seq, h0, cfg), reps=5)
         what = f"dW and dU; dU alone {du:.4f} ms"
+    elif ids is not None:
+        # K3's fp32 tail is dU, dW and db: K6's tail (dU alone) on the
+        # same dg says what dW and db take
+        dg = torch.empty(s, b, 4 * n, device=DEVICE)
+        call(dg_out=dg)
+        h_m1 = cuda_cell_bwd._h_minus_1(h0, cfg, fused)
+        du = f32_dU_ms(dg, h_seq, h_m1, cfg)
+        what = f"dU, dW and db; dU alone {du:.4f} ms"
     print(f"  {name} {tag}: reverse launch {rev:.4f} ms ({1e3 * rev / (s + 1):.2f} "
           f"us a step), tail ({what}) {tail:.4f} ms; the per-step design "
           f"{old:.4f} ms in this run ({old_n} launches)", flush=True)
     return dict(reverse_ms=rev, tail_ms=tail, per_step_ms=old,
-                per_step_launches=old_n)
+                per_step_launches=old_n, per_step_err=old_err)
+
+
+def f32_dU_ms(dg, h_seq, h_m1, cfg):
+    """dU = h_prev^T dg alone under fp32 compute, K6's tail in the fp32
+    persistent design (``lstm_bwd_tail_launch`` without ids), on the fp32
+    dg (S, B, 4N) and h_{-1}: ms a call, CUDA events."""
+    import ctypes
+
+    from eigen_lstm_tpu_torch.ops import _build, cuda_cell
+
+    lib = _build.load_library()
+    s, b, n = h_seq.shape
+    h_k = h_seq.to(cfg.rdtype).contiguous()
+    h0_k = h_m1.float().contiguous()
+    out = torch.empty(n, 4 * n, device=DEVICE)
+    work = torch.empty(max(1, lib.lstm_bwd_scan_work_floats(s, b, n)),
+                       device=DEVICE)
+    launched = ctypes.c_int(0)
+
+    def run():
+        err = lib.lstm_bwd_tail_launch(
+            cuda_cell._TYPE_CODES[cfg.rdtype], h_k.data_ptr(), None,
+            h0_k.data_ptr(), dg.data_ptr(), out.data_ptr(), None,
+            work.data_ptr(), s, b, n, 0, 0,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+        if err != 0:
+            fail(f"lstm_bwd_tail_launch (dU alone): error {err}")
+
+    return cuda_ms(run, reps=5)
+
+
+def group_control(U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg):
+    """K3's fp32 persistent design at the bench's shapes with the other
+    group width forced (G = 2 where the plan takes 4: 64 blocks, each
+    reading half of dg_{t+1}), held to the plan's outputs (the same
+    function, another sum order) and its reverse launch timed beside the
+    plan's: what the width buys. Printed, not recorded."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd
+    from eigen_lstm_tpu_torch.ops.dispatch import fused_accum_ok
+
+    h_seq, c_seq, g_seq = fwd_out[0], fwd_out[2], fwd_out[3]
+    s, b, n = h_seq.shape
+    kern = cuda_cell_bwd.embed_layer0_bwd
+    call = lambda: kern(U.to(cfg.cdtype), g_seq, c_seq, h_seq, ids, h0, c0,
+                        dh_seq, dhT, dcT, cfg, fused_accum=fused_accum_ok(cfg, b))
+    plan = cuda_cell_bwd.device_k6_f32_plan(cfg, b, n)
+    other = plan._replace(blocks=2 if plan.blocks == 4 else 4)
+    want = call()
+    real = cuda_cell_bwd.device_k6_f32_plan
+    cuda_cell_bwd.device_k6_f32_plan = lambda *a: other
+    try:
+        got = call()
+        torch.cuda.synchronize()
+        err = max(norm_err(a, w) for a, w in zip(got, want))
+        times, = launchers_ms(call, ("lstm_bwd_f32_launch",))
+    finally:
+        cuda_cell_bwd.device_k6_f32_plan = real
+    mine, = launchers_ms(call, ("lstm_bwd_f32_launch",))
+    print(f"  lstm_bwd_embed float32, G = {other.blocks} forced "
+          f"({n // 16 * other.blocks} blocks): outputs within {err:.3e} of "
+          f"G = {plan.blocks}'s (tol {TRAIN_TOL:g}), reverse launch "
+          f"{times:.4f} ms against G = {plan.blocks}'s {mine:.4f} ms in this "
+          f"call", flush=True)
+    if not np.isfinite(err) or err > TRAIN_TOL:
+        fail(f"lstm_bwd_embed float32, G = {other.blocks} forced: {err:.3e}")
+
+
+def faster_than_per_step(rec, tag):
+    """The persistent design's call must beat the per-step design's, timed
+    in the same run (``other_designs``)."""
+    if not rec["ms"] < rec["per_step_ms"]:
+        fail(f"{rec['name']} {tag}: the persistent design {rec['ms']:.4f} ms "
+             f"is not faster than the per-step design "
+             f"{rec['per_step_ms']:.4f} ms in this call")
 
 
 # The keys of an entry of the kernels line; a record may hold more
@@ -2008,16 +2286,16 @@ def phase7a(records):
             rec6 = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
                              dhT, dcT, cfg, dr[1], masks[1], inv, tag, per_call)
             design, persistent = k6_design(cfg, b, n)
-            if persistent != (dtype == "bfloat16"):
+            if not persistent:
                 fail(f"lstm_bwd_embed, lstm_bwd_scan {tag}: {design}; the "
-                     f"flagship's shapes take the persistent design in bf16 "
-                     f"alone")
-            if persistent:
-                for rec, U, out, ids, i in ((rec3, l0.U, out1, x, 0),
-                                            (rec6, l1.U, out2, None, 1)):
-                    rec.update(other_designs(rec["name"], U, out, ids, h0, c0,
-                                             dh_seq, dhT, dcT, cfg, dr[i],
-                                             masks[i], inv, tag))
+                     f"flagship's shapes take a persistent design in both "
+                     f"types")
+            for rec, U, out, ids, i in ((rec3, l0.U, out1, x, 0),
+                                        (rec6, l1.U, out2, None, 1)):
+                rec.update(other_designs(rec["name"], U, out, ids, h0, c0,
+                                         dh_seq, dhT, dcT, cfg, dr[i],
+                                         masks[i], inv, tag))
+                faster_than_per_step(rec, tag)
             libs = (library_ms(m, cfg, onehot, h0, c0), library_ms(n, cfg, h_in, h0, c0),
                     library_lstm_bwd(cfg, onehot, h0, c0, dh_seq),
                     library_lstm_bwd(cfg, h_in, h0, c0, dh_seq))
@@ -2629,7 +2907,7 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
           f"window against plain with explicit masks ("
           + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32 else
              "bf16, not gated") + "): " + ", ".join(window), flush=True)
-    source = TILED_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_F32_SOURCE
+    source = TILED_SOURCE if cfg.cdtype == torch.bfloat16 else BWD_F32_SOURCE
     rec = dict(name="tiled_bwd", route="cuda", source=source,
                replaces=TILED_REPLACES["tiled_bwd"], launches=None,
                max_abs_err=step_err, dg=dg_k)
@@ -2702,18 +2980,18 @@ def tiled_design(cfg, b, n):
 def tiled_bwd_design(cfg, b, n):
     """K10's design at these shapes on this card, as its wrapper chooses
     it (``cuda_cell_tiled.tiled_bwd_plan``, under fp32 compute
-    ``tiled_bwd_f32_plan``): a label, and whether it is persistent (one
-    launch a call)."""
+    ``tiled_bwd_f32_plan``, K6's fp32 design in pairs): a label, and
+    whether it is persistent (one launch a call)."""
     from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (
-        BWD_F32_UNITS, BWD_KC, BWD_UNITS, device_tiled_bwd_f32_plan,
-        device_tiled_bwd_plan)
+        BWD_KC, BWD_UNITS, device_tiled_bwd_f32_plan, device_tiled_bwd_plan)
 
     layout = device_tiled_bwd_f32_plan(cfg, b, n)
     if layout is not None:
-        return (f"the fp32 persistent design ({n // BWD_F32_UNITS} blocks of "
-                f"{BWD_F32_UNITS} units and all {b} batch rows, U's rows in "
-                f"shared memory, a ring of {layout.stages} slots of dg, one "
-                f"cooperative launch a window, CUDA cores)"), True
+        return (f"K6's fp32 persistent design ({n // 16} pairs of blocks, "
+                f"each block half the gate axis of 16 units and all {b} batch "
+                f"rows, U's rows in shared memory, a ring of {layout.stages} "
+                f"slots of dg, one cooperative launch a window, CUDA "
+                f"cores)"), True
     plan = device_tiled_bwd_plan(cfg, b, n)
     if plan is None:
         return "the per-step design (one launch a step)", False
@@ -2980,9 +3258,12 @@ def phase9a(records):
             res = cuda_cell.scan_layer(l1, xw, h0, c0, run_cfg, residuals=True)
             design6, persistent6 = k6_design(run_cfg, b, n)
             print(f"  lstm_bwd_scan {tag}: {design6}", flush=True)
-            if persistent6:
-                fail(f"lstm_bwd_scan {tag}: the persistent design where the "
-                     f"per-step one applies")
+            # fp32 at N = 1024: the fp32 persistent design; bf16 at N = 2048:
+            # the per-step one
+            if persistent6 != (dtype == "float32"):
+                fail(f"lstm_bwd_scan {tag}: {design6}; these shapes take the "
+                     f"{'fp32 persistent' if dtype == 'float32' else 'per-step'} "
+                     f"design")
             k6 = cuda_ms(lambda: cuda_cell_bwd.scan_layer_bwd(
                 l1.U.to(run_cfg.cdtype), res[3], res[2], res[0], h0, c0, dh_seq,
                 dhT, dcT, run_cfg, dropout=dr[1]), reps=1, windows=3)
@@ -3128,17 +3409,24 @@ def tiled_eval_times(l0, l1, gen, n, cfg):
                  f"persistent design gives 1")
 
 
-def phase9b():
+def phase9b(records):
     """One enwik6 window through ``loss_fn`` of a 2x2048 model (the 5b
     widths at depth 2, so that K9 is on a model path; bf16 with bf16
     residuals, dropout 0.35, the recipe's random initialisation, a random
     carried state): the loss and all eight gradients through the kernels
     against the plain path, gated as phase 7b. The fp32 run, the control,
     keeps fp32 residuals: fp32 compute with bf16 residuals would round h to
-    bf16 where an fp32 sum's order can flip it."""
+    bf16 where an fp32 sum's order can flip it. Its K3 and K6 take their
+    per-step design (N = 2048: neither persistent plan takes it), held to
+    ``bwd_check``'s gates and timed at these shapes (the model's layers,
+    their forward from the window's state). Returns their launches in the
+    fp32 window."""
     import dataclasses
 
     from eigen_lstm_tpu_torch.models.lstm import init_params, step_key
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.ops import cuda_cell_bwd as cb
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
     from eigen_lstm_tpu_torch.ops.dispatch import families, select_cell_fn
     from eigen_lstm_tpu_torch.train.trainer import loss_and_grads
@@ -3164,16 +3452,54 @@ def phase9b():
                  f"one applies")
         for backend in ("cuda", "plain"):
             cell_fn = select_cell_fn(backend, cfg, B5_B, DEVICE)
+            before = (cb.embed_layer0_bwd.launches, cb.scan_layer_bwd.launches)
             loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg,
                                                cell_fn, key)
+            if (dtype, backend) == ("float32", "cuda"):
+                per_step = (cb.embed_layer0_bwd.launches - before[0],
+                            cb.scan_layer_bwd.launches - before[1])
             res[(dtype, backend)] = (loss, dict(grads.named_tensors()))
     torch.cuda.synchronize()
+    print(f"  2x2048 fp32: K3, K6 launches {per_step} (their per-step design)",
+          flush=True)
+    if min(per_step) <= B5_S:
+        fail(f"2x2048 fp32: K3, K6 launched {per_step} times; the per-step "
+             f"design launches more than S a call")
     launched = dict(zip(TILED, ct.launches()))
     print(f"  2x2048: tiled launches {launched}", flush=True)
     if min(launched.values()) <= 0:
         fail(f"2x2048 loss_fn: a tiled kernel was not launched: {launched}")
     compare_paths("2x2048 loss_fn", res, lambda k: k.endswith(FLAG_ROUNDED),
                   vs_drift=FLAG_BF16_VS_DRIFT)
+    # K3 and K6 in fp32, the per-step design this window took, on the
+    # model's layers 0 and 1 at these shapes
+    cfg = dataclasses.replace(base, compute_dtype="float32",
+                              residual_dtype="float32", dropout=0.0)
+    s, b, n, m = B5_S, B5_B, B5_N, cfg.vocab
+    l0, l1 = params.layers[0], params.layers[1]
+    out1 = cuda_cell.embed_layer0(l0, x, h[0], c[0], cfg, residuals=True)
+    h_in = out1[0].float()
+    xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
+          .reshape(s, b, 4 * n) + l1.b)
+    out2 = cuda_cell.scan_layer(l1, xw, h[1], c[1], cfg, residuals=True)
+    dh_seq = (torch.randn(s, b, n, generator=gen) * 1e-3).to(DEVICE)
+    dhT, dcT = ((torch.randn(b, n, generator=gen) * 1e-3).to(DEVICE)
+                for _ in range(2))
+    onehot = torch.nn.functional.one_hot(x.long(), m).float()
+    for name, lay, out, ids, x_in, i in (
+            ("lstm_bwd_embed", l0, out1, x, onehot, 0),
+            ("lstm_bwd_scan", l1, out2, None, h_in, 1)):
+        tag = "2x2048 fp32"
+        rec = bwd_check(name, lay.U, out, ids, h[i], c[i], dh_seq, dhT, dcT,
+                        cfg, None, None, None, tag, {})
+        lib = library_lstm_bwd(cfg, x_in, h[i], c[i], dh_seq)
+        rec.update(replaces=REPLACES[name], library_ms=lib)
+        records[("9b", name)] = rec
+        print(f"  {name} {tag}: {rec['ms']:.4f} ms per window, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}), cuDNN nn.LSTM backward "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+    return per_step
 
 
 def phase9c(per_call, records):
@@ -3423,8 +3749,10 @@ def phase10b(records):
     K12's own dg (as phase 5 holds K3); the window against its plain
     version given the explicitly masked cotangent (fp32 gated, bf16
     printed); dg, dWU, db, dh0 and dc0 equal to K3's bit for bit, both in
-    the persistent design in bf16 and the per-step one in fp32. Times
-    beside K3's and the bound; the launches of one call of each. Returns
+    the persistent design of each type (in fp32 the CUDA-core one) and, in
+    fp32, in the per-step design too, forced, timed in the same call (the
+    persistent must be the faster). Times beside K3's and the bound; the
+    launches of one call of each. Returns
     K12's launches a call at the documented run's shapes (B = 64, bf16,
     fp32 residuals) and K3's."""
     import dataclasses
@@ -3459,60 +3787,71 @@ def phase10b(records):
                                              residuals=True, dropout=dr)
                 fwd = (layer.U.to(cfg.cdtype), out[3], out[2], out[0], x, h0, c0)
                 args = fwd + (dh_seq, dhT, dcT, cfg)
-                res, launched = {}, {}
-                for name, fn in (("K3", cb.embed_layer0_bwd),
-                                 ("K12", cb.embed_layer0_bwd_unroll2)):
-                    dg = torch.empty(s, b, 4 * n, device=DEVICE)
-                    before = fn.launches
-                    res[name] = (dg,) + fn(*args, dg_out=dg, dropout=dr,
-                                           fused_accum=fused)
-                    launched[name] = fn.launches - before
-                design, persistent = k6_design(cfg, b, n)
-                if persistent != (dtype == "bfloat16") or (
-                        persistent and launched["K12"] != launched["K3"]):
-                    fail(f"K12 B={b} {dtype} drop {drop:g}: {design}, "
-                         f"launches {launched}; bf16 takes the persistent "
-                         f"design (both kernels alike), fp32 the per-step one")
-                dg_k, out_k = res["K12"][0], res["K12"][1:]
-                rep = k3_replay(*fwd, dh_eff, dhT, dcT, cfg, dg_k,
-                                fused_accum=fused)
-                out_p = cb.embed_layer0_bwd_unroll2_plain(
-                    *fwd, dh_eff, dhT, dcT, cfg, fused_accum=fused)
-                torch.cuda.synchronize()
                 tag = (f"B={b} {dtype} residual {residual} drop {drop:g} "
                        f"({'fused' if fused else 'fall-back'} VJP)")
-                for label, got in zip(names, out_k):
-                    if not torch.isfinite(got).all():
-                        fail(f"K12 {tag} {label}: non-finite values")
-                step_err = 0.0
-                for label, got, want in (("dg", dg_k, rep[0]),
-                                         ("dh0", out_k[2], rep[1]),
-                                         ("dc0", out_k[3], rep[2]),
-                                         ("dWU", out_k[0], rep[3]),
-                                         ("db", out_k[1], rep[4])):
-                    err = norm_err(got, want)
-                    step_err = max(step_err, err)
-                    if not np.isfinite(err) or err > TRAIN_TOL:
-                        fail(f"K12 {tag} {label}: {err:.3e} of its plain "
-                             f"replay > {TRAIN_TOL:g}")
-                window = []
-                for label, got, want in zip(names, out_k, out_p):
-                    err = norm_err(got, want)
-                    window.append(f"{label} {err:.3e}")
-                    if cfg.cdtype == torch.float32 and err > TRAIN_TOL:
-                        fail(f"K12 {tag} window {label}: {err:.3e} of its "
-                             f"plain version > {TRAIN_TOL:g}")
-                same = [torch.equal(a, b_) for a, b_ in zip(res["K3"], res["K12"])]
-                if not all(same):
-                    fail(f"K12 {tag}: dg, dWU, db, dh0, dc0 equal to K3's: {same}")
-                print(f"  K12 {tag}: every reverse step, dh0, dc0, dWU and db "
-                      f"within {step_err:.3e} (normalised) of the plain replay "
-                      f"from K12's own dg (tol {TRAIN_TOL:g}); window against "
-                      f"its plain version with explicit masks ("
-                      + (f"tol {TRAIN_TOL:g}" if cfg.cdtype == torch.float32
-                         else "bf16, not gated") + "): " + ", ".join(window)
-                      + f"; dg, dWU, db, dh0, dc0 bit for bit K3's, both in "
-                      f"{design}", flush=True)
+
+                def k12_gates(label):
+                    """K3's and K12's calls in the design the wrappers take
+                    here; K12 held to its plain replay, its plain version
+                    and K3's bits. Returns (K12's launches, K3's, the
+                    largest replay error)."""
+                    res, launched = {}, {}
+                    for name, fn in (("K3", cb.embed_layer0_bwd),
+                                     ("K12", cb.embed_layer0_bwd_unroll2)):
+                        dg = torch.empty(s, b, 4 * n, device=DEVICE)
+                        before = fn.launches
+                        res[name] = (dg,) + fn(*args, dg_out=dg, dropout=dr,
+                                               fused_accum=fused)
+                        launched[name] = fn.launches - before
+                    dg_k, out_k = res["K12"][0], res["K12"][1:]
+                    rep = k3_replay(*fwd, dh_eff, dhT, dcT, cfg, dg_k,
+                                    fused_accum=fused)
+                    out_p = cb.embed_layer0_bwd_unroll2_plain(
+                        *fwd, dh_eff, dhT, dcT, cfg, fused_accum=fused)
+                    torch.cuda.synchronize()
+                    for lab, got in zip(names, out_k):
+                        if not torch.isfinite(got).all():
+                            fail(f"K12 {label} {lab}: non-finite values")
+                    step_err = 0.0
+                    for lab, got, want in (("dg", dg_k, rep[0]),
+                                           ("dh0", out_k[2], rep[1]),
+                                           ("dc0", out_k[3], rep[2]),
+                                           ("dWU", out_k[0], rep[3]),
+                                           ("db", out_k[1], rep[4])):
+                        err = norm_err(got, want)
+                        step_err = max(step_err, err)
+                        if not np.isfinite(err) or err > TRAIN_TOL:
+                            fail(f"K12 {label} {lab}: {err:.3e} of its plain "
+                                 f"replay > {TRAIN_TOL:g}")
+                    window = []
+                    for lab, got, want in zip(names, out_k, out_p):
+                        err = norm_err(got, want)
+                        window.append(f"{lab} {err:.3e}")
+                        if cfg.cdtype == torch.float32 and err > TRAIN_TOL:
+                            fail(f"K12 {label} window {lab}: {err:.3e} of its "
+                                 f"plain version > {TRAIN_TOL:g}")
+                    same = [torch.equal(a, b_) for a, b_ in zip(res["K3"], res["K12"])]
+                    if not all(same):
+                        fail(f"K12 {label}: dg, dWU, db, dh0, dc0 equal to "
+                             f"K3's: {same}")
+                    print(f"  K12 {label}: every reverse step, dh0, dc0, dWU "
+                          f"and db within {step_err:.3e} (normalised) of the "
+                          f"plain replay from K12's own dg (tol {TRAIN_TOL:g}); "
+                          f"window against its plain version with explicit "
+                          f"masks (" + (f"tol {TRAIN_TOL:g}"
+                                        if cfg.cdtype == torch.float32
+                                        else "bf16, not gated") + "): "
+                          + ", ".join(window) + f"; dg, dWU, db, dh0, dc0 bit "
+                          f"for bit K3's, both in {k6_design(cfg, b, n)[0]}",
+                          flush=True)
+                    return launched, step_err
+
+                launched, step_err = k12_gates(tag)
+                design, persistent = k6_design(cfg, b, n)
+                if not persistent or launched["K12"] != launched["K3"]:
+                    fail(f"K12 {tag}: {design}, launches {launched}; both "
+                         f"types take a persistent design, both kernels "
+                         f"alike")
                 ms, host = {}, {}
                 for name, fn in (("K3", cb.embed_layer0_bwd),
                                  ("K12", cb.embed_layer0_bwd_unroll2)):
@@ -3524,19 +3863,39 @@ def phase10b(records):
                     call()
                     host[name] = (time.perf_counter() - t0) * 1e3
                     torch.cuda.synchronize()
+                step = ""
+                if dtype == "float32":
+                    # the per-step designs, forced: the same gates, K12 two
+                    # steps a cooperative launch, timed in this call
+                    with per_step_k6():
+                        old, _ = k12_gates(tag + " (the per-step design)")
+                        old_ms = cuda_ms(lambda: cb.embed_layer0_bwd_unroll2(
+                            *args, dropout=dr, fused_accum=fused), reps=1,
+                            windows=3)
+                    if old["K12"] != s // 2 + 1 + bwd_f32_launches(cfg, s, b, cfg.vocab) - 1:
+                        fail(f"K12 {tag}, the per-step design: {old['K12']} "
+                             f"launches a call")
+                    if not ms["K12"] < old_ms:
+                        fail(f"K12 {tag}: the persistent design {ms['K12']:.4f} "
+                             f"ms is not faster than the per-step design "
+                             f"{old_ms:.4f} ms in this call")
+                    step = (f"; the per-step design {old_ms:.4f} ms in this "
+                            f"call ({old['K12']} launches)")
                 plain_ms = cuda_ms(lambda: cb.embed_layer0_bwd_unroll2_plain(
                     *args, dropout=dr, fused_accum=fused), reps=1, windows=2)
                 bound_ms, bound_by = k3_bound(cfg, s, b, n, cfg.vocab)
                 print(f"  K12 {tag}: {ms['K12']:.4f} ms ({launched['K12']} "
                       f"launches) against K3's {ms['K3']:.4f} ms "
-                      f"({launched['K3']} launches), bound {bound_ms:.5f} ms "
+                      f"({launched['K3']} launches; K12/K3 "
+                      f"{ms['K12'] / ms['K3']:.4f}), bound {bound_ms:.5f} ms "
                       f"({bound_by}), plain {plain_ms:.4f} ms, cuDNN nn.LSTM "
                       f"backward {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
                       f"the host issues a call in {host['K12']:.3f} ms (K3 "
-                      f"{host['K3']:.3f} ms)", flush=True)
+                      f"{host['K3']:.3f} ms){step}", flush=True)
                 records[("10b", b, dtype, drop)] = dict(
                     name="lstm_bwd_embed_unroll2", route="cuda",
-                    source=BWD_SOURCE, replaces=K12_REPLACES, launches=None,
+                    source=BWD_SOURCE if dtype == "bfloat16" else BWD_F32_SOURCE,
+                    replaces=K12_REPLACES, launches=None,
                     max_abs_err=step_err, ms=ms["K12"], plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
                 if (b, dtype, drop) == (64, "bfloat16", 0.0):
@@ -5677,6 +6036,8 @@ def main():
     check_budget("phase 6d (the bench from the JAX start)")
     k3_fp32_launches, k1_fp32_launches, k4_fp32_launches = phase6c()
     check_budget("phase 6c (100 fp32 training steps)")
+    _, k6_fp32_launches, _ = phase6e(records)
+    check_budget("phase 6e (a 2x512 model's fp32 steps)")
     flag_call = phase7a(records)
     check_budget("phase 7a (flagship training kernels against plain)")
     phase7b()
@@ -5688,7 +6049,7 @@ def main():
     check_budget("phase 8 (generation)")
     tiled_call = phase9a(records)
     check_budget("phase 9a (tiled kernels against plain)")
-    phase9b()
+    per_step_bwd = phase9b(records)
     check_budget("phase 9b (2x2048 loss and gradients)")
     b5_counts, _ = phase9c(tiled_call, records)
     check_budget("phase 9c (the 5b recipe)")
@@ -5744,13 +6105,23 @@ def main():
     # K4's CUDA-core design, which fp32 takes, on 6c's fp32 steps
     add(records[("head_fwd", "float32")], k4_fp32_launches,
         name="head_fwd_cuda_core")
-    # K3 in both designs: the persistent one on the bench (6b, bf16), the
-    # per-step one on its fp32 steps (6c)
+    # K3 in its three designs: the persistent one on the bench (6b, bf16),
+    # the fp32 persistent one on its fp32 steps (6c), the per-step one on
+    # 9b's fp32 window (N = 2048), held and timed at 9b's shapes
     add(records[("lstm_bwd_embed", "bfloat16", 0.0)], counts["lstm_bwd_embed"])
     add(records[("lstm_bwd_embed", "float32", 0.0)], k3_fp32_launches,
+        name="lstm_bwd_embed_fp32")
+    add(records[("9b", "lstm_bwd_embed")], per_step_bwd[0],
         name="lstm_bwd_embed_per_step")
+    # K6 likewise: the persistent one on the flagship (7c, bf16), the fp32
+    # persistent one on 6e's 2x512 steps (timed on 6e's layer 1), the
+    # per-step one on 9b's fp32 window, held and timed at 9b's shapes
     add(records[("7a", "lstm_bwd_scan", "bfloat16", FLAG_DROP)],
         flag_counts["lstm_bwd_scan"])
+    add(records[("6e", "lstm_bwd_scan")], k6_fp32_launches,
+        name="lstm_bwd_scan_fp32")
+    add(records[("9b", "lstm_bwd_scan")], per_step_bwd[1],
+        name="lstm_bwd_scan_per_step")
     # K7: the persistent design on the CLI's sample (phase 4) and bf16
     # sample_ids (8); the first design, which fp32 keeps, on fp32 sample_ids
     add(records[("gen", "bfloat16", 1)], gen_launches)
@@ -5990,6 +6361,29 @@ def exchange_only():
     check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
 
 
+def groups_only():
+    """``python3 chip_smoke.py --groups``: phases 0 and 1, then K3's fp32
+    persistent design at the bench's shapes with the other group width
+    forced (``group_control``): what the plan's G buys."""
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.train.checkpoint import load_params
+
+    phase0()
+    phase1()
+    cfg = train_cfg("float32")
+    s, b, n = TRAIN_S, TRAIN_B, cfg.hidden
+    gen = torch.Generator().manual_seed(5)
+    layer = load_params(H512, cfg, DEVICE).layers[0]
+    x = bible_window(gen, s, b)[0]
+    rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
+    h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
+    fwd = cuda_cell.embed_layer0(layer, x, h0, c0, cfg, residuals=True)
+    dh_seq = rand(s, b, n, sd=1e-3)
+    dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
+    group_control(layer.U, fwd, x, h0, c0, dh_seq, dhT, dcT, cfg)
+    check_budget("the group-width control")
+
+
 def tiled_only():
     """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
     phase0()
@@ -6007,8 +6401,10 @@ if __name__ == "__main__":
         exchange_only()
     elif sys.argv[1:] == ["--tiled"]:
         tiled_only()
+    elif sys.argv[1:] == ["--groups"]:
+        groups_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread, --exchange and --tiled")
+             f"--sp-spread, --exchange, --tiled and --groups")
     else:
         main()

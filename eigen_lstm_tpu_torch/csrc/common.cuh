@@ -12,6 +12,8 @@
 //     fixed order.
 //
 // Both are deterministic: the same inputs give the same bits on every run.
+// Last, cooperative_fits: the residency check of the fp32 persistent
+// designs' cooperative launches.
 // Everything here has internal linkage (an unnamed namespace), so each
 // translation unit that includes it gets its own copy of every kernel.
 #pragma once
@@ -420,6 +422,35 @@ int run_colsum(const float* X, float* out, float* work, int R, int J,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Opts `kernel` in to `smem` bytes of dynamic shared memory and checks that
+// `grid` blocks of `threads` can be resident at once on the current card
+// (a cooperative launch's grid barrier never opens otherwise): 0 or the
+// error. The fp32 persistent designs' launchers share it.
+inline int cooperative_fits(const void* kernel, int threads, size_t smem, int grid) {
+  constexpr int kDevices = 64;
+  // per card, read once: cooperative launch support and the SMs
+  static int ready[kDevices], coop[kDevices], sms[kDevices];
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !ready[dev]) {
+    err = cudaDeviceGetAttribute(&coop[dev], cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) ready[dev] = 1;
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop[dev]) return static_cast<int>(cudaErrorNotSupported);
+  if (grid > sms[dev] * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   return 0;
 }
 

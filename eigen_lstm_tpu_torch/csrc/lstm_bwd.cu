@@ -1,6 +1,6 @@
 // LSTM backward for Hopper (sm_90a), bound from Python through ctypes
 // (eigen_lstm_tpu_torch/ops/cuda_cell_bwd.py). No PyTorch headers. Three
-// kernels of the JAX package, each with two designs of one function:
+// kernels of the JAX package, each with three designs of one function:
 //   K3  <- pallas_cell.py:_bwd_embed_fused_kernel, layer 0 with its weight
 //          gradients dW, dU, db;
 //   K12 <- pallas_cell.py:_bwd_embed_unroll2_kernel, K3's function bit for
@@ -12,14 +12,19 @@
 // persistent design: one cooperative launch a window, lstm_bwd_persist
 // through lstm_bwd_persist_launch (K12 with its steps in pairs, K3 and K12
 // with db), then their weight gradients on tensor cores through
-// lstm_bwd_dWU_launch (K6 dU; K3 and K12 dW and dU in one product). fp32
-// compute, and shapes the persistent design does not take, keep the per-step
-// design: one launch a reverse step (lstm_bwd_embed_launch,
+// lstm_bwd_dWU_launch (K6 dU; K3 and K12 dW and dU in one product). Under
+// fp32 compute, where a resident grid can hold U's rows in shared memory
+// (B <= 128, N a multiple of 32, N / 16 groups of 2 or 4 blocks the card
+// holds at once: ops/cuda_cell_bwd.py:k6_f32_plan), all three take
+// lstm_bwd_f32.cu's persistent CUDA-core reverse launch, then this file's
+// CUDA-core reductions through lstm_bwd_tail_launch. The shapes neither
+// persistent design takes (N = 2048, B > 128) keep the per-step design:
+// one launch a reverse step (lstm_bwd_embed_launch,
 // lstm_bwd_embed_unroll2_launch with two steps a cooperative launch,
-// lstm_bwd_scan_launch), then CUDA-core reductions. The persistent reverse
-// launch also serves K16, the tensor-parallel window's backward at D = 1
-// (ops/cuda_tp_seq.py), which is K6's reverse recurrence with its dg kept
-// in fp32 and its dU taken outside.
+// lstm_bwd_scan_launch), then the same CUDA-core reductions (run_tail).
+// The persistent reverse launch also serves K16, the tensor-parallel
+// window's backward at D = 1 (ops/cuda_tp_seq.py), which is K6's reverse
+// recurrence with its dg kept in fp32 and its dU taken outside.
 //
 // The reverse step (the gate backward _gate_bwd). For t = S-1 .. 0, with
 // dh_{S-1} carried from dhT and dc from dcT:
@@ -97,10 +102,11 @@
 // recurrence-free loads issued together (the TPU kernel pairs steps to
 // overlap off-path work with the serial chain; here the weight gradients
 // already sit outside the recurrence), so its outputs are K3's bit for bit.
-// Left for later: wgmma in place of mma.sync, TMA multicast of dg_{t+1} over
-// a cluster of blocks that share batch rows (cutting the L2 reads by the
-// cluster size), and fp32 compute (TF32 is off for fp32 products, so the
-// tensor cores cannot serve it).
+// Left for later: wgmma in place of mma.sync, and TMA multicast of dg_{t+1}
+// over a cluster of blocks that share batch rows (cutting the L2 reads by
+// the cluster size). fp32 compute cannot use this kernel (TF32 is off for
+// fp32 products, so the tensor cores cannot serve it): lstm_bwd_f32.cu
+// holds its CUDA-core counterpart.
 //
 // The dropout mask costs no bytes: each thread hashes its own (t, b, j) in
 // the step's epilogue, where it reads dh_seq[t]. Every sum has a fixed
@@ -328,6 +334,30 @@ int run_reverse2(const void* UT, const void* g_seq, const void* c_seq,
   return 0;
 }
 
+// The weight gradients from the (S, B, 4N) fp32 dg sequence: dU =
+// h_prev^T dg into out + M * 4N (rows r < B of h_prev are h0, then
+// h_seq[r - B]); with ids (K3, K12; M > 0) also dW, the one-hot product,
+// into out and db, the column sums (of dg rounded to CT with round_db). The
+// per-step design's tail, and the fp32 persistent design's
+// (lstm_bwd_f32.cu) through lstm_bwd_tail_launch.
+template <typename CT, typename RT>
+int run_tail(const void* h_seq, const int* ids, const float* h0,
+             const float* dg, float* out, float* db, float* work, int S,
+             int B, int N, int M, int round_db, cudaStream_t stream,
+             int* launches) {
+  const int R = S * B, C = 4 * N;
+  int e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg,
+                          out + (size_t)M * C, work, R, N, C, stream, launches);
+  if (e != 0 || ids == nullptr) return e;
+  embed_grad<CT><<<dim3(M, (C + 255) / 256), 256, 0, stream>>>(ids, dg, out, R, C);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+  // the xw type is the compute type on the card (bf16 or fp32)
+  return round_db ? run_colsum<CT>(dg, db, work, R, C, stream, launches)
+                  : run_colsum(dg, db, work, R, C, stream, launches);
+}
+
 // K3 and K12 in the per-step design: the reverse steps, then dU, dW and db.
 template <typename CT, typename RT>
 int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
@@ -337,21 +367,11 @@ int run_bwd(const void* UT, const void* g_seq, const void* c_seq,
             int B, int N, int M, int standard, int round_db, int unroll2,
             Dropout drop, cudaStream_t stream, int* launches) {
   const auto reverse = unroll2 ? run_reverse2<CT, RT> : run_reverse<CT, RT>;
-  int e = reverse(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0, S, B, N,
-                  standard, drop, stream, launches);
+  const int e = reverse(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0, S, B,
+                        N, standard, drop, stream, launches);
   if (e != 0) return e;
-  const int R = S * B, C = 4 * N;
-  // dU = h_prev^T dg: rows r < B of h_prev are h0, then h_seq[r - B]
-  e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg,
-                      dWU + (size_t)M * C, work, R, N, C, stream, launches);
-  if (e != 0) return e;
-  embed_grad<CT><<<dim3(M, (C + 255) / 256), 256, 0, stream>>>(ids, dg, dWU, R, C);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ++*launches;
-  // the xw type is the compute type on the card (bf16 or fp32)
-  return round_db ? run_colsum<CT>(dg, db, work, R, C, stream, launches)
-                  : run_colsum(dg, db, work, R, C, stream, launches);
+  return run_tail<CT, RT>(h_seq, ids, h0, dg, dWU, db, work, S, B, N, M,
+                          round_db, stream, launches);
 }
 
 // K6: the reverse steps, dU over the fp32 dg (round_c(dg) is the xw-type
@@ -367,11 +387,10 @@ int run_bwd_scan(const void* UT, const void* g_seq, const void* c_seq,
   int e = run_reverse<CT, RT>(UT, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0,
                               S, B, N, standard, drop, stream, launches);
   if (e != 0) return e;
-  const int R = S * B;
-  e = run_atb<CT, RT>(h0, static_cast<const RT*>(h_seq), B, dg, dU, work, R,
-                      N, 4 * N, stream, launches);
+  e = run_tail<CT, RT>(h_seq, nullptr, h0, dg, dU, nullptr, work, S, B, N, 0,
+                       0, stream, launches);
   if (e != 0 || dgx == static_cast<void*>(dg)) return e;
-  const size_t n = (size_t)R * 4 * N;
+  const size_t n = (size_t)S * B * 4 * N;
   store_as<CT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       dg, static_cast<CT*>(dgx), n);
   const cudaError_t err = cudaGetLastError();
@@ -862,6 +881,31 @@ extern "C" int lstm_bwd_scan_launch(
   if (ctype == 0 && rtype == 1) return f(run_bwd_scan<float, bf>);
   if (ctype == 1 && rtype == 0) return f(run_bwd_scan<bf, float>);
   if (ctype == 1 && rtype == 1) return f(run_bwd_scan<bf, bf>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The weight gradients from the (S, B, 4N) fp32 dg sequence under fp32
+// compute, as the per-step design takes them after its reverse steps
+// (run_tail): the fp32 persistent design's tail (lstm_bwd_f32.cu). ids null
+// and M 0: K6, dU (N, 4N) into out; else K3 and K12, dWU (M + N, 4N) into
+// out and db (4N,), the sum of dg. h0 is h_{-1} in fp32, h_seq has the
+// residual type (rtype 0 fp32, 1 bf16); work as lstm_bwd_scan_work_floats
+// (K6) or lstm_bwd_embed_work_floats; round_db as lstm_bwd_embed_launch's.
+extern "C" int lstm_bwd_tail_launch(int rtype, const void* h_seq,
+                                    const void* ids, const void* h0,
+                                    const void* dg, void* out, void* db,
+                                    void* work, int S, int B, int N, int M,
+                                    int round_db, void* stream, int* launches) {
+  if (M < 0 || (M > 0) != (ids != nullptr) || (ids != nullptr && db == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [&](auto run) {
+    return run(h_seq, static_cast<const int*>(ids), static_cast<const float*>(h0),
+               static_cast<const float*>(dg), static_cast<float*>(out),
+               static_cast<float*>(db), static_cast<float*>(work), S, B, N, M,
+               round_db, static_cast<cudaStream_t>(stream), launches);
+  };
+  if (rtype == 0) return f(run_tail<float, float>);
+  if (rtype == 1) return f(run_tail<float, __nv_bfloat16>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

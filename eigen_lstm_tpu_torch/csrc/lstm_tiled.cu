@@ -21,8 +21,9 @@
 //       outside the kernel in the JAX VJPs (:359-375, :599-623); here dh0
 //       is the persistent K10's last product, and dU is K6's tensor-core
 //       product (lstm_bwd.cu:lstm_bwd_dWU_launch) under bf16 compute;
-//       under fp32 compute tiled_bwd_f32_launch, its persistent CUDA-core
-//       design (lstm_tiled_f32.cu), dh0 its last product too.
+//       under fp32 compute lstm_bwd_f32_launch, K6's persistent CUDA-core
+//       design at groups of 2 blocks (lstm_bwd_f32.cu), dh0 its last
+//       product too.
 // The forward epilogue: sigma on i, o, f, tanh on u, the cell update of
 // _cell_fwd ("reference" carries tanh(i*u + f*c_prev), "standard" the raw
 // cell), h_seq and c_seq and the activated gates in the residual type, the
@@ -74,8 +75,8 @@
 // shared memory by the tensor cores, no ldmatrix).
 //
 // K10 has two designs of one function as well (tiled_bwd_plan), and a
-// third under fp32 compute (tiled_bwd_f32_plan; lstm_tiled_f32.cu:
-// tiled_bwd_f32_persist):
+// third under fp32 compute (tiled_bwd_f32_plan; K6's lstm_bwd_f32.cu:
+// lstm_bwd_f32_persist at groups of 2 blocks):
 //
 // The persistent design (bf16 compute, N a multiple of 32, a resident grid;
 // tiled_bwd_persist), K6's persistent design (lstm_bwd.cu) with U streamed

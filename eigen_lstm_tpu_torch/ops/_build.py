@@ -59,6 +59,10 @@ SIGNATURES = {
     "lstm_bwd_persist_launch": (_I, [_I] + [_P] * 13 + [_I] * 9 + _DROP
                                 + [_P, _IP]),
     "lstm_bwd_dWU_launch": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_P, _IP]),
+    "lstm_bwd_tail_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
+    "lstm_bwd_f32_launch": (_I, [_I] + [_P] * 10 + [_I] * 8 + _DROP
+                            + [_P, _IP]),
+    "lstm_bwd_f32_smem_bytes": (_Z, [_I] * 4),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
     "lstm_bwd_persist_smem_bytes": (_Z, [_I, _I]),
     "head_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
@@ -76,9 +80,6 @@ SIGNATURES = {
     "tiled_fwd_f32_smem_bytes": (_Z, [_I] * 4),
     "tiled_fwd_scan_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
                                   + [_P, _IP]),
-    "tiled_bwd_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
-                             + [_P, _IP]),
-    "tiled_bwd_f32_smem_bytes": (_Z, [_I] * 3),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
                          + [_P, _IP]),
     "tiled_bwd_persist_smem_bytes": (_Z, [_I] * 2),

@@ -15,19 +15,28 @@ the dU product of ``_bwd_core`` (:393-414), the backward of
 under bf16 compute), dU (N, 4N), dh0 and dc0, fp32. dg_seq is the
 cotangent of xw = x @ W + b, from which autograd takes db, dW and dx.
 
-The three have two designs each (``csrc/lstm_bwd.cu``), the same function.
-Under bf16 compute, where a resident grid can hold U's rows in shared
-memory, they share one persistent kernel: one cooperative launch for the
-reverse steps with tensor-core products (``lstm_bwd_persist_launch``; K12
-takes its steps in pairs, K3 and K12 sum db in it), then the weight
-gradients in one tensor-core product (``lstm_bwd_dWU_launch``: K6's dU, K3's
-and K12's dW and dU). Elsewhere (fp32 compute, or N = 2048 in bf16) each
-takes one launch a reverse step (K12 two steps a cooperative launch) and
-CUDA-core reductions (``lstm_bwd_embed_launch``,
-``lstm_bwd_embed_unroll2_launch``, ``lstm_bwd_scan_launch``). ``k6_plan``
-chooses for all three from the shape, the type and the device's SMs and
-shared memory. For a CUDA tensor each wrapper launches the design its plan
-gives or raises; for a CPU tensor it runs its plain version, which repeats
+The three have three designs each (``csrc/lstm_bwd.cu``,
+``csrc/lstm_bwd_f32.cu``), the same function. Under bf16 compute, where a
+resident grid can hold U's rows in shared memory (``k6_plan``), they share
+one persistent kernel: one cooperative launch for the reverse steps with
+tensor-core products (``lstm_bwd_persist_launch``; K12 takes its steps in
+pairs, K3 and K12 sum db in it), then the weight gradients in one
+tensor-core product (``lstm_bwd_dWU_launch``: K6's dU, K3's and K12's dW
+and dU). Under fp32 compute, where B <= 128 and a resident grid can hold U's
+rows (``k6_f32_plan``: every width of the resident family, the flagship's
+1024 too), they share one persistent CUDA-core kernel: one cooperative
+launch for the reverse steps and dh0 (``lstm_bwd_f32_launch``, groups of 2
+or 4 blocks splitting the gate axis; K12 with its steps in pairs, K3's
+bits; K10, ``cuda_cell_tiled.tiled_bwd``, takes the same launch,
+``reverse_f32``, in pairs of blocks), then the CUDA-core reductions from
+the fp32 dg (``lstm_bwd_tail_launch``: dU; K3's and K12's dW and db).
+Elsewhere (N =
+2048, B > 128) each takes one launch a reverse step (K12 two steps a
+cooperative launch) and the same reductions (``lstm_bwd_embed_launch``,
+``lstm_bwd_embed_unroll2_launch``, ``lstm_bwd_scan_launch``). The two plans
+choose for all three from the shape, the type and the device's SMs and
+shared memory. For a CUDA tensor each wrapper launches the design its plans
+give or raises; for a CPU tensor it runs its plain version, which repeats
 the kernels' arithmetic: dg in fp32 (``_reverse_plain``), rounded to the
 compute type before dh_{t-1} = dg_c @ U_c^T and dU = round(h_{t-1})^T dg_c,
 with h_{-1} = h0 (rounded to the residual type for K6, as ``_bwd_core``
@@ -58,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -194,11 +203,93 @@ def k6_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int):
     return None
 
 
+# The persistent design under fp32 compute (csrc/lstm_bwd_f32.cu:
+# lstm_bwd_f32_persist, on CUDA cores: TF32 stays off), as the library lays
+# out its shared memory (f32_smem_bytes; ``_device_limits`` holds the two
+# equal): groups of G = F32_BLOCKS blocks of F32_THREADS threads, a group
+# owning F32_UNITS hidden units and every batch row, its block p the
+# columns p 4N / G .. of the gate axis and the epilogue of F32_UNITS / G of
+# the units; a block holds the group's U rows over its columns (fp32) for
+# the window and streams its columns of dg_{t+1} through a ring of slots of
+# 16 RR rows by F32_KC columns, which the F32_SPLIT splits' partial sums (16
+# RR rows of F32_RED_PITCH floats) reuse; a thread's product tile has RR =
+# 1, 2, 4 or 8 rows (B <= 16, 32, 64, 128). Split s takes the k of its
+# block with (k mod 32) / 4 = s at every batch, and the G blocks' parts of
+# each sum meet in part order. F32_RINGS: the slots the library is built
+# for at each RR, in the order the plan tries them.
+F32_UNITS = 16
+F32_THREADS = 256
+F32_SPLIT = 8        # ways the product splits a block's k: a warp each
+F32_KC = 64          # gate columns of a ring slot
+F32_RED_PITCH = 20   # floats of a row of partial sums
+F32_ROWS = 128       # batch rows at most: 8 product rows a thread
+F32_BLOCKS = (4, 2)  # blocks a group, in the order the plan tries them
+F32_RINGS = {1: (6,), 2: (6,), 4: (5,), 8: (3, 2)}
+
+
+def f32_rows_per_thread(b: int) -> int:
+    """Product rows a thread of the fp32 persistent design takes at batch
+    ``b``."""
+    return 1 if b <= 16 else 2 if b <= 32 else 4 if b <= 64 else 8
+
+
+def f32_smem_bytes(b: int, n: int, blocks: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of the fp32 persistent
+    design takes at batch ``b`` and hidden ``n``, ``blocks`` blocks a
+    group, with ``stages`` ring slots."""
+    rows = 16 * f32_rows_per_thread(b)
+    ring = stages * rows * F32_KC
+    red = F32_SPLIT * rows * F32_RED_PITCH
+    return 4 * (4 * n // blocks * F32_UNITS + max(ring, red))
+
+
+class F32Plan(NamedTuple):
+    """The fp32 persistent design's layout: ``blocks`` blocks a group of
+    F32_UNITS units, ``rows`` product rows a thread, ``stages`` ring
+    slots."""
+    blocks: int
+    rows: int
+    stages: int
+
+
+def k6_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int,
+                blocks=F32_BLOCKS) -> Optional[F32Plan]:
+    """The design of K6, K3 and K12 under fp32 compute at (batch, hidden)
+    on a device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes
+    of shared memory: the persistent CUDA-core design's layout, or None
+    for the per-step design (also under bf16 compute, whose plan is
+    ``k6_plan``). K10's plan (``cuda_cell_tiled.tiled_bwd_f32_plan``) is
+    this one with ``blocks`` (2,).
+
+    The design needs fp32 compute, N a multiple of 32, at most F32_ROWS
+    batch rows, a grid of N / F32_UNITS groups of G blocks resident at one
+    an SM, and the group's U rows over a block's columns with a ring in a
+    block's shared memory. G is the first of ``blocks`` (4, then 2) whose
+    grid is resident and whose blocks' columns (4N / G) are whole ring
+    slots: 4 at N = 512 (128 blocks), 2 at N = 1024 (128 blocks). The
+    grid does not depend on the batch, so at a given width every batch
+    takes one G, and the sums one order. N = 2048 is refused: its 256
+    blocks at G = 2 are not resident on 132 SMs (and U, 64 MB in fp32,
+    fits no card's shared memory), so it keeps the per-step design."""
+    if cfg.cdtype != torch.float32 or n % 32 != 0:
+        return None
+    if not 1 <= b <= F32_ROWS:
+        return None
+    rows = f32_rows_per_thread(b)
+    for g in blocks:
+        if (4 * n // g) % F32_KC != 0 or n // F32_UNITS * g > sms:
+            continue
+        stages = next((st for st in F32_RINGS[rows]
+                       if f32_smem_bytes(b, n, g, st) <= smem_limit), None)
+        return None if stages is None else F32Plan(g, rows, stages)
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
-    once; checks that the library lays out the persistent design's shared
-    memory as ``persist_smem_bytes`` does."""
+    once; checks that the library lays out the persistent designs' shared
+    memory as ``persist_smem_bytes`` and ``f32_smem_bytes`` do."""
     lib = _build.load_library()
     sms, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
@@ -209,12 +300,23 @@ def _device_limits(index: int):
         if lib.lstm_bwd_persist_smem_bytes(n, units) != persist_smem_bytes(n, units):
             raise RuntimeError("persist_smem_bytes disagrees with "
                                "csrc/lstm_bwd.cu's layout")
+    for b, n, blocks, st in ((128, 1024, 2, 3), (128, 512, 4, 3), (16, 512, 4, 6),
+                             (64, 640, 2, 5), (100, 1056, 2, 2)):
+        if lib.lstm_bwd_f32_smem_bytes(b, n, blocks, st) != f32_smem_bytes(b, n, blocks, st):
+            raise RuntimeError("f32_smem_bytes disagrees with "
+                               "csrc/lstm_bwd_f32.cu's layout")
     return sms.value, smem.value
 
 
 def device_k6_plan(cfg: ModelConfig, b: int, n: int):
     """``k6_plan`` with the current card's SMs and shared-memory limit."""
     return k6_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+def device_k6_f32_plan(cfg: ModelConfig, b: int, n: int) -> Optional[F32Plan]:
+    """``k6_f32_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return k6_f32_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
 
 
 def _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
@@ -306,12 +408,56 @@ def _persist(plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg_out, dh0, out,
     return dgx, err, name
 
 
+def reverse_f32(plan: F32Plan, cfg: ModelConfig, U_k, g_k, c_k, c0_k, dh_k,
+                dhT_k, dc, dg, dh0, dropout, launched, steps: int = 1) -> int:
+    """The fp32 persistent design's reverse launch on the card (K6, K3,
+    K12 with ``steps`` 2, and K10): the S reverse steps into the fp32
+    ``dg``, dc0 into ``dc`` (dcT on entry) and dh0 = dg_0 @ U^T into
+    ``dh0``. U_k (N, 4N) fp32 read in place, g_k and c_k in the residual
+    type. Adds its launch to ``launched``; returns the error code."""
+    s, b, n = c_k.shape
+    # the groups' parts of dh_rec, exchanged within the launch
+    xbuf = torch.empty(plan.blocks * b * n, dtype=torch.float32, device=c_k.device)
+    return _build.load_library().lstm_bwd_f32_launch(
+        cuda_cell._TYPE_CODES[cfg.rdtype], U_k.data_ptr(), g_k.data_ptr(),
+        c_k.data_ptr(), c0_k.data_ptr(), dh_k.data_ptr(), dhT_k.data_ptr(),
+        dc.data_ptr(), dg.data_ptr(), xbuf.data_ptr(), dh0.data_ptr(), s, b, n,
+        plan.blocks, plan.stages, steps,
+        *_launch_args(cfg, dropout, c_k.device), ctypes.byref(launched))
+
+
+def _persist_f32(plan: F32Plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg, dh0,
+                 out, work, dropout, launched, ids=None, db=None,
+                 round_db=False, steps=1):
+    """The fp32 persistent design on the card: the reverse launch into the
+    fp32 ``dg``, then the weight gradients from it into ``out`` (dU, or
+    with ``ids`` dWU and db). ``seqs`` and ``ins`` as ``_kernel_inputs``
+    gives them, with h_{-1} first in ``ins``. Returns (error code, name of
+    the launcher that returned it)."""
+    g_k, c_k, h_k = seqs
+    h_m1, c0_k, dh_k, dhT_k = ins
+    s, b, n = h_k.shape
+    dev = h_k.device
+    err = reverse_f32(plan, cfg, U_k, g_k, c_k, c0_k, dh_k, dhT_k, dc, dg, dh0,
+                      dropout, launched, steps)
+    if err != 0:
+        return err, "lstm_bwd_f32_launch"
+    err = _build.load_library().lstm_bwd_tail_launch(
+        cuda_cell._TYPE_CODES[cfg.rdtype], h_k.data_ptr(),
+        None if ids is None else ids.data_ptr(), h_m1.data_ptr(),
+        dg.data_ptr(), out.data_ptr(), None if db is None else db.data_ptr(),
+        work.data_ptr(), s, b, n, 0 if ids is None else cfg.vocab,
+        int(round_db), torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(launched))
+    return err, "lstm_bwd_tail_launch"
+
+
 def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                dhT, dcT, cfg: ModelConfig, dg_out, dropout, fused_accum: bool):
     """K3 (``unroll2`` False) or K12 on a CUDA tensor, in the design
-    ``k6_plan`` gives, their plain versions on a CPU tensor; returns
-    (outputs, kernel launches, error code, the launcher that returned
-    it)."""
+    ``k6_plan`` (bf16) or ``k6_f32_plan`` (fp32) gives, else the per-step
+    one; their plain versions on a CPU tensor; returns (outputs, kernel
+    launches, error code, the launcher that returned it)."""
     _validate(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT, cfg, dg_out)
     if tuple(ids.shape) != tuple(h_seq.shape[:2]) or ids.device != h_seq.device:
         raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
@@ -330,9 +476,11 @@ def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
     dev = ids.device
     f32 = dict(dtype=torch.float32, device=dev)
     plan = device_k6_plan(cfg, b, n)
+    layout = None if plan is not None else device_k6_f32_plan(cfg, b, n)
     U_k, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
                                     _h_minus_1(h0, cfg, fused_accum), c0,
-                                    dh_seq, dhT, transpose=plan is None)
+                                    dh_seq, dhT,
+                                    transpose=plan is None and layout is None)
     ids32 = ids.to(torch.int32).contiguous()
     dc = dcT.to(torch.float32).clone().contiguous()
     dWU = torch.empty(m + n, 4 * n, **f32)
@@ -347,6 +495,12 @@ def _embed_bwd(unroll2: bool, U_c, g_seq, c_seq, h_seq, ids, h0, c0, dh_seq,
                                 dWU, work, dropout, launched, ids=ids32, db=db,
                                 round_db=not fused_accum,
                                 steps=2 if unroll2 else 1)
+    elif layout is not None:
+        err, name = _persist_f32(layout, cfg, seqs, ins, U_k, dc,
+                                 _dg_scratch(dg_out, s, b, n, dev), dh0, dWU,
+                                 work, dropout, launched, ids=ids32, db=db,
+                                 round_db=not fused_accum,
+                                 steps=2 if unroll2 else 1)
     else:
         dg = _dg_scratch(dg_out, s, b, n, dev)
         name = ("lstm_bwd_embed_unroll2_launch" if unroll2
@@ -412,10 +566,11 @@ def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
     dev = h_seq.device
     f32 = dict(dtype=torch.float32, device=dev)
     plan = device_k6_plan(cfg, b, n)
+    layout = None if plan is not None else device_k6_f32_plan(cfg, b, n)
     # h_{-1} rounded to the residual type, as _bwd_core concatenates it
     U_k, seqs, ins = _kernel_inputs(U_c, (g_seq, c_seq, h_seq), cfg,
                                     h0.to(cfg.rdtype), c0, dh_seq, dhT,
-                                    transpose=plan is None)
+                                    transpose=plan is None and layout is None)
     dc = dcT.to(torch.float32).clone().contiguous()
     dU = torch.empty(n, 4 * n, **f32)
     dh0 = torch.empty(b, n, **f32)
@@ -426,6 +581,11 @@ def scan_layer_bwd(U_c, g_seq, c_seq, h_seq, h0, c0, dh_seq, dhT, dcT,
         # dg_seq written once, in bf16; the fp32 dg only into dg_out
         dgx, err, name = _persist(plan, cfg, seqs, ins, U_k, dc, dg_out, dh0,
                                   dU, work, dropout, launched)
+    elif layout is not None:
+        # dg_seq written once, in fp32, the xw type under fp32 compute
+        dgx = _dg_scratch(dg_out, s, b, n, dev)
+        err, name = _persist_f32(layout, cfg, seqs, ins, U_k, dc, dgx, dh0, dU,
+                                 work, dropout, launched)
     else:
         dg = _dg_scratch(dg_out, s, b, n, dev)
         dgx = (dg if cuda_cell.xw_type(cfg) == torch.float32

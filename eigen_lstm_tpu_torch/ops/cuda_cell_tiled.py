@@ -3,8 +3,9 @@
 fits a TPU core's VMEM (N >= 2048 in bf16, N >= 1024 in fp32; the families
 are chosen in ``ops/dispatch.py``).
 
-Three kernels of ``csrc/lstm_tiled.cu`` (their fp32 persistent designs
-in ``csrc/lstm_tiled_f32.cu``), each with a wrapper that
+Three kernels of ``csrc/lstm_tiled.cu`` (K8's and K9's fp32 persistent
+design in ``csrc/lstm_tiled_f32.cu``, K10's K6's in
+``csrc/lstm_bwd_f32.cu``), each with a wrapper that
 validates, casts, launches and counts its launches in ``.launches``, and a
 plain version beside it that repeats the kernel's arithmetic step by step;
 a wrapper runs the plain version for a CPU tensor and for a CUDA tensor
@@ -36,10 +37,11 @@ the batch rows where N / 16 blocks would leave most SMs idle
 (``tiled_bwd_plan``), where its grid of (N / 32) * ceil(B / rows) blocks
 can be resident, one persistent cooperative launch a window that also
 gives dh0, with as many chunks of U's rows as fit in shared memory and
-dh_rec on tensor cores; under fp32 compute (``tiled_bwd_f32_plan``) one
-persistent cooperative launch a window on CUDA cores, N / 8 blocks in
-pairs, each holding its pair's 16 rows of U over half the 4N gate columns,
-which also gives dh0; elsewhere one launch a reverse step. The C launchers
+dh_rec on tensor cores; under fp32 compute (``tiled_bwd_f32_plan``) K6's
+fp32 persistent design (``cuda_cell_bwd.reverse_f32``): one cooperative
+launch a window on CUDA cores, N / 8 blocks in pairs, each holding its
+pair's 16 rows of U over half the 4N gate columns, which also gives dh0;
+elsewhere one launch a reverse step. The C launchers
 count the launches (1 or S a call).
 
 The types are the tiled JAX functions' (``:222-225``, ``:673``): the
@@ -362,11 +364,11 @@ def tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
     once; checks that the library lays out the shared memory of the
-    persistent forward, the fp32 forwards, K10's persistent and K10's fp32
-    persistent designs as ``persist_smem_bytes``,
-    ``f32_persist_smem_bytes``, ``bwd_persist_smem_bytes`` and
-    ``bwd_f32_smem_bytes`` do (the forward's also at K1's split layouts: 32
-    and 16 of 128 rows at N = 512, 64 at N = 1024)."""
+    persistent forward, the fp32 forwards and K10's persistent design as
+    ``persist_smem_bytes``, ``f32_persist_smem_bytes`` and
+    ``bwd_persist_smem_bytes`` do (the forward's also at K1's split
+    layouts: 32 and 16 of 128 rows at N = 512, 64 at N = 1024), and K10's
+    fp32 design, K6's, through ``cuda_cell_bwd._device_limits``."""
     lib = _build.load_library()
     for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0),
                        (32, 512, 512), (16, 512, 512), (64, 1024, 1024)):
@@ -382,11 +384,6 @@ def _device_limits(index: int):
         if lib.tiled_bwd_persist_smem_bytes(rows, cres) != bwd_persist_smem_bytes(rows, cres):
             raise RuntimeError("bwd_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
-    for b, n, st in ((128, 1024, 3), (16, 1024, 6), (32, 1024, 6), (64, 512, 5),
-                     (100, 1056, 2)):
-        if lib.tiled_bwd_f32_smem_bytes(b, n, st) != bwd_f32_smem_bytes(b, n, st):
-            raise RuntimeError("bwd_f32_smem_bytes disagrees with "
-                               "csrc/lstm_tiled_f32.cu's layout")
     return cuda_cell_bwd._device_limits(index)
 
 
@@ -462,72 +459,15 @@ def device_tiled_bwd_plan(cfg: ModelConfig, b: int, n: int):
     return tiled_bwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
 
 
-# K10's persistent design under fp32 compute (csrc/lstm_tiled_f32.cu:
-# tiled_bwd_f32_persist, on CUDA cores: TF32 stays off), as the library
-# lays out its shared memory (bwd_f32_smem_bytes; ``_device_limits`` holds
-# the two equal): blocks of BWD_F32_THREADS threads in pairs, a pair owning
-# 2 BWD_F32_UNITS hidden units and every batch row, its block h the half h
-# of the 4N gate columns and the epilogue of BWD_F32_UNITS of the units; a
-# block holds the pair's U rows over its half (fp32) for the window and
-# streams its half of dg_{t+1} through a ring of slots of 16 RR rows by
-# BWD_F32_KC columns, which the BWD_F32_SPLIT splits' partial sums (16 RR
-# rows x 2 BWD_F32_UNITS) reuse; a thread's product tile has RR = 1, 2, 4
-# or 8 rows (B <= 16, 32, 64, 128). Split s takes the k of its half with
-# (k mod 32) / 4 = s at every batch. BWD_F32_RINGS: the slots the library
-# is built for at each RR, in the order the plan tries them.
-BWD_F32_UNITS = 8
-BWD_F32_THREADS = 256
-BWD_F32_SPLIT = 8    # ways the product splits a half's k: a warp each
-BWD_F32_KC = 64      # gate columns of a ring slot
-BWD_F32_ROWS = 128   # batch rows at most: 8 product rows a thread
-BWD_F32_RINGS = {1: (6,), 2: (6,), 4: (5,), 8: (3, 2)}
-
-
-def bwd_f32_rows_per_thread(b: int) -> int:
-    """Product rows a thread of K10's fp32 persistent design takes at
-    batch ``b``."""
-    return 1 if b <= 16 else 2 if b <= 32 else 4 if b <= 64 else 8
-
-
-def bwd_f32_smem_bytes(b: int, n: int, stages: int) -> int:
-    """Bytes of dynamic shared memory a block of K10's fp32 persistent
-    design takes at batch ``b`` and hidden ``n`` with ``stages`` ring
-    slots."""
-    rows = 16 * bwd_f32_rows_per_thread(b)
-    pair = 2 * BWD_F32_UNITS
-    ring = stages * rows * BWD_F32_KC
-    red = BWD_F32_SPLIT * rows * pair
-    return 4 * (2 * n * pair + max(ring, red))
-
-
-class BwdF32Layout(NamedTuple):
-    """K10's fp32 persistent design: a thread's product tile has ``rows``
-    batch rows, the ring ``stages`` slots."""
-    rows: int
-    stages: int
-
-
 def tiled_bwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
-                       smem_limit: int) -> Optional[BwdF32Layout]:
+                       smem_limit: int) -> Optional[cuda_cell_bwd.F32Plan]:
     """K10's design under fp32 compute at (batch, hidden) on a device of
     ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
-    memory: the persistent CUDA-core design's layout (the first ring of
-    BWD_F32_RINGS that fits beside U's rows), or None for the per-step
-    design (also under bf16 compute, whose plan is ``tiled_bwd_plan``).
-
-    The design needs fp32 compute, N a multiple of 32 (whole pairs of
-    blocks), at most BWD_F32_ROWS batch rows, its grid of N /
-    BWD_F32_UNITS blocks resident at one an SM, and its U rows with a ring
-    in a block's shared memory (where the grid is resident on an H100 they
-    fit; a card with less shared memory refuses it)."""
-    if cfg.cdtype != torch.float32 or n % 32 != 0:
-        return None
-    if not 1 <= b <= BWD_F32_ROWS or n // BWD_F32_UNITS > sms:
-        return None
-    rows = bwd_f32_rows_per_thread(b)
-    stages = next((st for st in BWD_F32_RINGS[rows]
-                   if bwd_f32_smem_bytes(b, n, st) <= smem_limit), None)
-    return None if stages is None else BwdF32Layout(rows, stages)
+    memory: K6's fp32 persistent design (``cuda_cell_bwd.k6_f32_plan``,
+    csrc/lstm_bwd_f32.cu) in pairs of blocks, each block half of the gate
+    axis (N / 8 blocks), or None for the per-step design (also under bf16
+    compute, whose plan is ``tiled_bwd_plan``)."""
+    return cuda_cell_bwd.k6_f32_plan(cfg, b, n, sms, smem_limit, blocks=(2,))
 
 
 def device_tiled_bwd_f32_plan(cfg: ModelConfig, b: int, n: int):
@@ -796,9 +736,9 @@ def tiled_bwd(U_c, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg: ModelConfig,
     tail = (int(drop is not None), *(drop or (0, 0, 0.0)),
             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     if layout is not None:
-        name = "tiled_bwd_f32_launch"
-        err = lib.tiled_bwd_f32_launch(rtype, *common, dh0.data_ptr(), s, b, n,
-                                       standard, layout.stages, *tail)
+        name = "lstm_bwd_f32_launch"
+        err = cuda_cell_bwd.reverse_f32(layout, cfg, U_k, seqs[0], seqs[1], c0f,
+                                        dh, dhTf, dc, dg, dh0, dropout, launched)
     else:
         name = "tiled_bwd_launch"
         err = lib.tiled_bwd_launch(ctype, rtype, *common, ptr(dg_out), ptr(dh0),

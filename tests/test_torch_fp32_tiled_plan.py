@@ -1,12 +1,14 @@
 """K9 and K10 under fp32 compute: K9's route through the fp32 persistent
 forward (``ops/cuda_cell_tiled.py:tiled_fwd_f32_plan``, K8's design with
 the xw stream), K10's persistent CUDA-core design's plan
-(``tiled_bwd_f32_plan``) and its shared-memory mirror, the launches the
-card paths make, the kernel source's rules, and K10's sum order.
+(``tiled_bwd_f32_plan``, K6's ``cuda_cell_bwd.k6_f32_plan`` in pairs of
+blocks) and its shared-memory mirror, the launches the card paths make,
+the kernel source's rules, and K10's sum order.
 
 Under fp32 compute (TF32 stays off, so CUDA cores) K9 takes one
 cooperative launch a window through ``tiled_fwd_scan_f32_launch``, and K10
-one through ``tiled_bwd_f32_launch``: N / 8 blocks in pairs, a pair owning
+one through K6's ``lstm_bwd_f32_launch`` (csrc/lstm_bwd_f32.cu) at groups
+of 2 blocks: N / 8 blocks in pairs, a pair owning
 16 hidden units and each of its blocks half the 4N gate columns, holding
 the pair's 16 rows of U over its half in shared memory, its half of
 dg_{t+1} streamed through a ring each step, the product split 8 ways over
@@ -39,6 +41,7 @@ from eigen_lstm_tpu_torch import ModelConfig
 from eigen_lstm_tpu_torch.models.lstm import LayerParams
 from eigen_lstm_tpu_torch.ops import _build, cuda_cell
 from eigen_lstm_tpu_torch.ops import cell as cell_ops
+from eigen_lstm_tpu_torch.ops import cuda_cell_bwd as cb
 from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
 import test_torch_fp32_fwd_plan as fwd_plan
@@ -56,24 +59,24 @@ def _cfg(dtype="float32", n=1024, residual="float32", **kw):
 
 
 @pytest.mark.parametrize("b,n,fwd,bwd", [
-    (128, 1024, (4, 64, 2), (8, 3)),    # the flagship's fp32 training window
-    (16, 1024, (1, 128, 4), (1, 6)),    # the flagship's eval batch
-    (32, 1024, (1, 128, 4), (2, 6)),    # a chunk of 32 rows (SP, 4 chunks)
-    (64, 1024, (2, 64, 4), (4, 5)),
-    (100, 1056, (4, 32, 3), (8, 2)),    # 132 blocks: three slots do not fit
+    (128, 1024, (4, 64, 2), (2, 8, 3)),    # the flagship's fp32 training window
+    (16, 1024, (1, 128, 4), (2, 1, 6)),    # the flagship's eval batch
+    (32, 1024, (1, 128, 4), (2, 2, 6)),    # a chunk of 32 rows (SP, 4 chunks)
+    (64, 1024, (2, 64, 4), (2, 4, 5)),
+    (100, 1056, (4, 32, 3), (2, 8, 2)),    # 132 blocks: three slots do not fit
 ])
 def test_plans_take_the_persistent_designs(b, n, fwd, bwd):
     """fp32 with B <= 128 and N / 8 blocks resident: K9's layout is K8's
     (``tiled_fwd_f32_plan``), K10's the product rows a thread takes (1, 2,
-    4, 8 for B <= 16, 32, 64, 128) and the first ring of BWD_F32_RINGS that
-    fits beside U's rows."""
+    4, 8 for B <= 16, 32, 64, 128) and the first ring of K6's F32_RINGS
+    that fits beside U's rows, in pairs of blocks."""
     cfg = _cfg(n=n)
     assert tuple(ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)) == fwd
     layout = ct.tiled_bwd_f32_plan(cfg, b, n, SMS, SMEM)
     assert tuple(layout) == bwd
-    assert ct.bwd_f32_smem_bytes(b, n, layout.stages) <= SMEM
-    assert n // ct.BWD_F32_UNITS <= SMS
-    assert layout.stages in ct.BWD_F32_RINGS[layout.rows]
+    assert cb.f32_smem_bytes(b, n, 2, layout.stages) <= SMEM
+    assert n // cb.F32_UNITS * 2 <= SMS
+    assert layout.stages in cb.F32_RINGS[layout.rows]
 
 
 @pytest.mark.parametrize("dtype,b,n,sms,smem", [
@@ -102,25 +105,25 @@ def test_n_2048_is_refused_not_streamed():
     for plan in (ct.tiled_fwd_f32_plan, ct.tiled_bwd_f32_plan):
         assert plan(cfg, 128, 2048, SMS, SMEM) is None
         assert plan(cfg, 128, 2048, 264, SMEM) is None
-    assert ct.bwd_f32_smem_bytes(128, 2048, 2) > SMEM
-    assert ct.tiled_bwd_f32_plan(cfg, 128, 2048, 264, 1 << 20) == (8, 3)
+    assert cb.f32_smem_bytes(128, 2048, 2, 2) > SMEM
+    assert ct.tiled_bwd_f32_plan(cfg, 128, 2048, 264, 1 << 20) == (2, 8, 3)
 
 
 def test_k10_shared_memory_mirror_arithmetic():
-    """The pair's 16 rows of U over 2N columns (fp32), then the larger of
-    the ring (stages x 16 RR rows x 64 floats) and the splits' partial
-    sums (8 x 16 RR rows x 16 floats)."""
+    """K6's fp32 design in pairs: the pair's 16 rows of U over 2N columns
+    (fp32), then the larger of the ring (stages x 16 RR rows x 64 floats)
+    and the splits' partial sums (8 x 16 RR rows of 20 floats)."""
     for b, rr in ((1, 1), (16, 1), (17, 2), (32, 2), (33, 4), (64, 4),
                   (65, 8), (128, 8)):
-        assert ct.bwd_f32_rows_per_thread(b) == rr
+        assert cb.f32_rows_per_thread(b) == rr
         for n in (256, 512, 1024, 1056):
             for st in (2, 3, 5, 6):
                 rows = 16 * rr
-                want = 4 * (2 * n * 16 + max(st * rows * 64, 8 * rows * 16))
-                assert ct.bwd_f32_smem_bytes(b, n, st) == want
-    assert ct.bwd_f32_smem_bytes(128, 1024, 3) == 131072 + 98304
-    assert ct.bwd_f32_smem_bytes(128, 1056, 3) > SMEM
-    assert ct.bwd_f32_smem_bytes(128, 1056, 2) == 135168 + 65536
+                want = 4 * (2 * n * 16 + max(st * rows * 64, 8 * rows * 20))
+                assert cb.f32_smem_bytes(b, n, 2, st) == want
+    assert cb.f32_smem_bytes(128, 1024, 2, 3) == 131072 + 98304
+    assert cb.f32_smem_bytes(128, 1056, 2, 3) > SMEM
+    assert cb.f32_smem_bytes(128, 1056, 2, 2) == 135168 + 81920
 
 
 def test_device_plans_take_the_cards_limits(monkeypatch):
@@ -211,12 +214,13 @@ def _reverse_args(s, b, n, cfg):
 @pytest.mark.parametrize("residual", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [None, (0.35, -7654321)])
 def test_k10_fp32_launches_the_persistent_design(routed, b, residual, dropout):
-    """fp32 at the flagship's and the SP chunk's batches: one call of
-    ``tiled_bwd_f32_launch`` and nothing else, one launch counted, U (N,
-    4N) read in place (no U^T), the residual sequences in the residual
-    type, dh_seq fp32, dg (S, B, 4N) fp32, dh0 handed to the kernel (its
-    last product: no ``_mm`` after it), the plan's ring, the dropout's
-    scalars; ``dg_out`` is refused."""
+    """fp32 at the flagship's and the SP chunk's batches: one call of K6's
+    ``lstm_bwd_f32_launch`` at groups of 2 blocks, steps 1, and nothing
+    else, one launch counted, U (N, 4N) read in place (no U^T), the
+    residual sequences in the residual type, dh_seq fp32, dg (S, B, 4N)
+    fp32, the pairs' exchange buffer (2 x B x N fp32), dh0 handed to the
+    kernel (its last product: no ``_mm`` after it), the plan's ring, the
+    dropout's scalars; ``dg_out`` is refused."""
     lib, ptr, seen = routed
     s, n = 4, 1024
     cfg = _cfg(residual=residual)
@@ -226,21 +230,23 @@ def test_k10_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     dg, dc = ct.tiled_bwd(U, g, c, c0, dh, dhT, dcT, cfg, dropout=dropout,
                           dh0_out=dh0)
     assert ct.launches() == before[:2] + (before[2] + 1,)
-    assert [c_[0] for c_ in lib.calls] == ["tiled_bwd_f32_launch"]
+    assert [c_[0] for c_ in lib.calls] == ["lstm_bwd_f32_launch"]
     a = lib.calls[0][1]
-    # (rtype, U, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, dh0, S, B, N,
-    #  standard, stages, drop_on, seed, keep, inv, stream, launched)
+    # (rtype, U, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, xbuf, dh0, S, B, N,
+    #  groups, stages, steps, standard, drop_on, seed, keep, inv, stream,
+    #  launched)
     rd = ct.types(cfg)[1]
     assert a[0] == cuda_cell._TYPE_CODES[rd]
     assert a[1] == ptr(U) and tuple(seen[a[1]].shape) == (n, 4 * n)
     for i, shape in ((2, (s, b, 4 * n)), (3, (s, b, n))):
         assert seen[a[i]].dtype == rd and tuple(seen[a[i]].shape) == shape
     assert seen[a[5]].dtype == torch.float32
-    assert a[7] == ptr(dc) and a[8] == ptr(dg) and a[9] == ptr(dh0)
+    assert a[7] == ptr(dc) and a[8] == ptr(dg) and a[10] == ptr(dh0)
+    assert seen[a[9]].dtype == torch.float32 and tuple(seen[a[9]].shape) == (2 * b * n,)
     assert dg.dtype == torch.float32 and tuple(dg.shape) == (s, b, 4 * n)
     layout = ct.tiled_bwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert a[10:15] == (s, b, n, 0, layout.stages)
-    assert a[15:19] == ((int(dropout is not None),)
+    assert a[11:18] == (s, b, n, 2, layout.stages, 1, 0)
+    assert a[18:22] == ((int(dropout is not None),)
                         + (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0)))
     with pytest.raises(ValueError, match="persistent design alone"):
         ct.tiled_bwd(U, g, c, c0, dh, dhT, dcT, cfg, dg_out=_e(s, b, 4 * n))
@@ -268,30 +274,28 @@ def test_k10_elsewhere_keeps_tiled_bwd_launch(routed, dtype, b, n, rows):
 
 
 def test_k10_kernel_reads_dg_through_l2_only_and_barriers_unguarded():
-    """tiled_bwd_f32_persist: dg and dh0 (the pairs' swap buffer), which
-    the launch's blocks write and read, are neither const nor __restrict__;
-    dg is read only through the ring's cp.async (``cp.async.cg``, L2 only)
-    and the swapped sums through ``__ldcg`` after ``__stcg``, never through
-    ``__ldg``; U is read in place (the pair's row, the half's column); the
-    two grid barriers of a step sit under no branch (the product's block
-    barriers sit under the branch on t alone, the same in every thread)."""
-    params, body = fwd_plan._kernel(fwd_plan._source("lstm_tiled_f32.cu"),
-                                    "tiled_bwd_f32_persist(const float* __restrict__ U")
-    assert re.search(r"\n\s*float\* dg, float\* dh0,", params)
+    """K10's fp32 design is K6's lstm_bwd_f32_persist (csrc/lstm_bwd_f32.cuh),
+    and lstm_tiled_f32.cu holds no reverse kernel of its own: dg and xbuf
+    (the pairs' exchange buffer), which the launch's blocks write and
+    read, are neither const nor __restrict__; dg is read only through the
+    ring's cp.async (``cp.async.cg``, L2 only) and the exchanged parts
+    through ``__ldcg`` after ``__stcg``, never through ``__ldg``; U is read
+    in place (the group's row, the block's columns); the grid barriers sit
+    under no branch."""
+    assert "_bwd_" not in fwd_plan._strip_comments(
+        fwd_plan._source("lstm_tiled_f32.cu"))
+    params, body = fwd_plan._kernel(fwd_plan._source("lstm_bwd_f32.cuh"),
+                                    "lstm_bwd_f32_persist(const float* __restrict__ U")
+    assert re.search(r"\n\s*float\* dg, float\* xbuf,", params)
     code = fwd_plan._strip_comments(body)
     assert "__ldg" not in code and "__ldca" not in code
     assert len(re.findall(r"\bdgn\b", code)) == 3
-    assert "const float* dgn = dg + " in code
-    assert re.search(r"cp_async_16\(st \+ r \* kQKC \+ 4 \* \(p \^ \(r % 8\)\),\s*"
+    assert re.search(r"cp_async_16\(st \+ r \* kFKC \+ 4 \* \(p \^ \(r % 8\)\),\s*"
                      r"in \? dgn \+ ", code)
-    assert re.search(r"\bdg\[gb \+", code)              # the one store
     assert len(re.findall(r"\bdg\b", code)) == 2
-    assert "U[(size_t)(p0 + uu) * K + (size_t)half * KH + k]" in code
-    assert "__stcg(dh0 + row(i) + jx, x);" in code
-    assert "mine[i] + __ldcg(dh0 + row(i) + j)" in code
-    assert code.count("grid.sync()") == 2
-    guarded = fwd_plan._barriers_under_conditions(body)
-    assert guarded == ["__syncthreads()"] * 3
+    assert "U[(size_t)(p0 + uu) * K + (size_t)part * KG + k]" in code
+    assert "__stcg(xbuf + " in code and "__ldcg(xbuf + " in code
+    assert fwd_plan._barriers_under_conditions(body) == []
 
 
 def test_k9_shares_the_fp32_forward_and_reads_xw_a_step_ahead():
@@ -306,17 +310,21 @@ def test_k9_shares_the_fp32_forward_and_reads_xw_a_step_ahead():
 
 
 def test_k10_constants_and_layouts_match_the_plan():
-    src = fwd_plan._source("lstm_tiled_f32.cu")
+    """K10's fp32 launch is K6's: its layouts are K6's plan's, and the
+    library exports no launcher of K10's own under fp32 compute."""
+    src = fwd_plan._source("lstm_bwd_f32.cuh")
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-    assert (const("kQUnits"), const("kQThreads"), const("kQSplit"), const("kQKC")) == \
-        (ct.BWD_F32_UNITS, ct.BWD_F32_THREADS, ct.BWD_F32_SPLIT, ct.BWD_F32_KC)
+    assert (const("kFUnits"), const("kFThreads"), const("kFSplit"), const("kFKC")) == \
+        (cb.F32_UNITS, cb.F32_THREADS, cb.F32_SPLIT, cb.F32_KC)
     layouts = re.search(r"#define BWD_F32_LAYOUTS\(X\)(.*?)\n", src).group(1)
     built = {(int(r), int(st)) for r, st in re.findall(r"X\((\d+), (\d+)\)", layouts)}
-    planned = {(r, st) for r, rings in ct.BWD_F32_RINGS.items() for st in rings}
+    planned = {(r, st) for r, rings in cb.F32_RINGS.items() for st in rings}
     assert built == planned
-    for name in ("tiled_fwd_scan_f32_launch", "tiled_bwd_f32_launch",
-                 "tiled_bwd_f32_smem_bytes"):
+    assert "BWD_F32_LAYOUTS" not in fwd_plan._source("lstm_tiled_f32.cu")
+    for name in ("tiled_fwd_scan_f32_launch", "lstm_bwd_f32_launch",
+                 "lstm_bwd_f32_smem_bytes"):
         assert name in _build.SIGNATURES
+    assert not any(name.startswith("tiled_bwd_f32") for name in _build.SIGNATURES)
 
 
 # --- K10's sum order ----------------------------------------------------------
@@ -329,7 +337,7 @@ def split_order_dh_rec(dg, U):
     each step one multiply-add rounded once to fp32 (the product exact in
     fp64), the 8 partials added in split order; then the two halves added.
     dg (B, 4N) and U (N, 4N) fp32."""
-    split, period = ct.BWD_F32_SPLIT, 4 * ct.BWD_F32_SPLIT
+    split, period = cb.F32_SPLIT, 4 * cb.F32_SPLIT
     b, k = dg.shape
     n, kh = U.shape[0], k // 2
     halves = []

@@ -4,8 +4,10 @@ the wrappers on the CPU, and their plain version against the JAX VJP.
 
 Under bf16 compute K3 and K12 take K6's persistent kernel with the layout
 ``k6_plan`` gives (one cooperative launch a window, then one tensor-core
-product for dW and dU); fp32 compute and widths that are not a multiple of
-32 keep the per-step design. The device numbers are an H100 SXM's: 132
+product for dW and dU); under fp32 compute the fp32 persistent kernel with
+the layout ``k6_f32_plan`` gives (one cooperative launch a window, then the
+CUDA-core tail); B > 128, N = 2048 in fp32 and bf16 widths that are not a
+multiple of 32 keep the per-step design. The device numbers are an H100 SXM's: 132
 SMs, 232,448 bytes of shared memory a block may opt in to. The routing is
 checked without a card: the tensors lie on the ``meta`` device and a
 stand-in library records which launchers the wrapper calls, with what
@@ -125,8 +127,10 @@ def test_wrapper_launches_the_plan_s_design(routed, dtype, name, kw, b, fused,
                                             unroll2, plan, smem):
     """bf16: the persistent reverse launch with k6_plan's layout (steps in
     pairs for K12, db summed from the bf16 dg in the GEMM fall-back), then
-    the one product of dW and dU (M one-hot rows); fp32: the per-step
-    launcher, no persistent launch."""
+    the one product of dW and dU (M one-hot rows); fp32: the fp32
+    persistent reverse launch with k6_f32_plan's layout (steps in pairs for
+    K12), then the tail of dU, dW and db from the fp32 dg (db from the dg
+    rounded to the xw type in the GEMM fall-back), no per-step launch."""
     cfg = _cfg(dtype, **kw)
     wrapper = (cuda_cell_bwd.embed_layer0_bwd_unroll2 if unroll2
                else cuda_cell_bwd.embed_layer0_bwd)
@@ -135,9 +139,22 @@ def test_wrapper_launches_the_plan_s_design(routed, dtype, name, kw, b, fused,
     assert tuple(dWU.shape) == (M + n, 4 * n) and tuple(db.shape) == (4 * n,)
     names = [call[0] for call in routed.calls]
     if dtype == "float32":
-        assert names == ["lstm_bwd_embed_work_floats",
-                         "lstm_bwd_embed_unroll2_launch" if unroll2
-                         else "lstm_bwd_embed_launch"]
+        assert names == ["lstm_bwd_embed_work_floats", "lstm_bwd_f32_launch",
+                         "lstm_bwd_tail_launch"]
+        work, rev, tail = (call[1] for call in routed.calls)
+        assert work == (4, b, n, M)
+        layout = cuda_cell_bwd.k6_f32_plan(cfg, b, n, SMS, SMEM)
+        # (rtype, 10 pointers, S, B, N, blocks, stages, steps, standard,
+        #  drop_on, ...): 4 blocks a group at N = 512, 2 at 1024
+        assert layout.blocks == (4 if n == 512 else 2)
+        assert rev[11:18] == (4, b, n, layout.blocks, layout.stages,
+                              2 if unroll2 else 1, 0)
+        assert rev[18] == 0
+        # (rtype, h_seq, ids, h0, dg, out, db, work, S, B, N, M, round_db,
+        #  ...): the fp32 dg the reverse launch wrote
+        assert tail[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
+        assert tail[4] == rev[8]
+        assert tail[8:13] == (4, b, n, M, int(not fused))
         return
     assert names == ["lstm_bwd_embed_work_floats", "lstm_bwd_persist_launch",
                      "lstm_bwd_dWU_launch"]
@@ -149,6 +166,23 @@ def test_wrapper_launches_the_plan_s_design(routed, dtype, name, kw, b, fused,
     assert persist[14:20] == (4, b, n) + plan + (2 if unroll2 else 1,)
     assert persist[21] == int(not fused) and persist[22] == 0
     assert dWU_call[7:11] == (4, b, n, M)
+
+
+@pytest.mark.parametrize("unroll2", [False, True], ids=["K3", "K12"])
+@pytest.mark.parametrize("b,n", [(129, 512), (256, 512), (128, 2048)],
+                         ids=["B129", "B256", "N2048"])
+def test_refused_fp32_shapes_keep_the_per_step_launcher(routed, unroll2, b, n):
+    """fp32 where k6_f32_plan refuses (B > 128; N = 2048, whose 256 blocks
+    are not resident on 132 SMs): the per-step launcher alone, chosen from
+    the shape, no persistent launch."""
+    cfg = _cfg("float32", hidden=n)
+    assert cuda_cell_bwd.k6_f32_plan(cfg, b, n, SMS, SMEM) is None
+    wrapper = (cuda_cell_bwd.embed_layer0_bwd_unroll2 if unroll2
+               else cuda_cell_bwd.embed_layer0_bwd)
+    wrapper(*_meta_args(cfg, 4, b), fused_accum=True)
+    assert [call[0] for call in routed.calls] == [
+        "lstm_bwd_embed_work_floats",
+        "lstm_bwd_embed_unroll2_launch" if unroll2 else "lstm_bwd_embed_launch"]
 
 
 def _inputs(s, b, n, seed):
