@@ -63,9 +63,8 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          the same start and the root band; its first six supersteps
          again with K4's CUDA-core design; then each of those supersteps' mean
          bits beside the JAX package's and the port's on the CPU from the
-         same start (the committed trajectories), against the spread of
-         the port's own-start bench over three seeds and the port's own
-         order spread, and the first superstep past each (reported); (e)
+         same start (the committed trajectories), against the port's own
+         order spread, and the first superstep past it (reported); (e)
          a 2x512 model in fp32 through the Trainer ``cli train`` builds at
          the bench's data configuration (``--dtype float32 --layers 2``),
          20 steps, each step's loss and gradients held against the plain
@@ -178,14 +177,20 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          CUDA-core design, forced, held to the same gate and timed in the
          same call), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
-         with every step replayed (K15 within 1e-4, c_prev[0] = c0; in bf16
-         the persistent tensor-core forward, its cooperative design and the
-         unsplit layout, forced, held to the same gates and timed); K16 in bf16 on K6's persistent kernel
-         (one launch a call), its dg, dh0 and dc0 bit for bit K6's
-         persistent reverse launch on the same inputs, a call with bf16
-         residuals and its cooperative design (forced) held to the replay;
-         times beside the bound, the plain version, ``torch.lstm_cell`` or
-         cuDNN; (b) ``cli train --tp 1`` at the bench's configuration, 300
+         with every step replayed (K15 within 1e-4, c_prev[0] = c0; its
+         persistent design, in bf16 the tensor-core forward, in fp32 K9's
+         CUDA-core kernel in K15's mode, beside its cooperative design and
+         the unsplit layout, forced, held to the same gates and timed); K16
+         on K6's persistent kernel of its type (one launch a call; in bf16
+         its dg, dh0 and dc0 bit for bit K6's persistent reverse launch on
+         the same inputs; in fp32 through lstm_bwd_f32_launch with c_last
+         = cT), a call with bf16 residuals and its cooperative design
+         (forced) held to the replay; in fp32 each persistent design faster
+         than the cooperative one in the same call; times beside the bound,
+         the plain version, ``torch.lstm_cell`` or cuDNN; then the D-rank
+         cooperative kernels at D = 1 (one group) beside the D = 1
+         cooperative kernels, bits, replay and times printed (whether the
+         D = 1 kernels can go); (b) ``cli train --tp 1`` at the bench's configuration, 300
          steps, through K15/K16 and, with EIGEN_LSTM_TP_SEQ=0, K13/K14,
          launches counted, train_bpc against the single-device run's from
          the same seed (K13/K14 for 100 steps, against a single-device run
@@ -193,7 +198,12 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          flagship recipe
          at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
          one window's TP loss and eleven gradients, kernels against plain
-         (the fp32 window's K13 launches, its CUDA-core design, counted).
+         (the fp32 window's K13 launches, its CUDA-core design, counted);
+         (d) ``cli train --tp 1 --dtype float32`` at (b)'s configuration,
+         300 steps, beside the single-device fp32 run: K15 and K16 once a
+         step through their fp32 persistent launchers (counted at the
+         library), K11 once a step, nothing else, train_bpc within 5e-2 of
+         the single device's, the gap printed.
 Phase 12 data parallelism at D = 1 on the paths of 11b, through
          ``cli train`` at the bench's configuration: (a) ``--dp 1
          --stream-data`` (the data group, NCCL's all-reduce and the mean;
@@ -266,29 +276,32 @@ Phase 15 K15 and K16 at D > 1 on the one card: the D-rank designs'
          card's D buffers), at the bench's shapes (1x512, S = 100, B =
          128, fp32 residuals) for D = 2 and 4 and at the flagship's layer
          shapes (N = 1024, S = 256) for D = 2, the weights through the TP
-         gate permutation; in bf16 the persistent tensor-core designs the
-         wrappers take (``csrc/lstm_tp_persist.cu``) and the cooperative
-         ones forced, in fp32 the cooperative ones. Each design: every
+         gate permutation; the persistent designs the wrappers take (in
+         bf16 the tensor-core ones, ``csrc/lstm_tp_persist.cu``; in fp32 the
+         CUDA-core ones, ``csrc/lstm_tp_f32.cu``, ``lstm_tp_f32_bwd.cu``)
+         and the cooperative ones forced. Each design: every
          rank's every step, forward and reverse, replayed from the
          kernel's own state (the 1e-4 of 11a); the forward bit for bit its
          D = 1 counterpart on the unpermuted weights (the persistent
-         design with the D = 1 layout's rows the D = 1 persistent K15, the
-         cooperative one the D = 1 cooperative design); 10 calls on the
-         same buffers and a lagging rank 0 (persistent: a forward of one
-         block row, replayed, and a backward of the fewest row blocks;
-         cooperative: one block, at the bench's shapes), each the first
-         call's bits; times beside the bound (the inputs and outputs at
-         the whole width; the exchange's bytes printed apart, with their
-         time at NVLink's rate), the plain versions, cuDNN, the D = 1
-         cooperative design and, in bf16, the other design in the same
-         call (the persistent must be faster). The fp32 windows at the
+         design with the D = 1 layout's rows, and every fp32 one, the D = 1
+         persistent K15, the cooperative one the D = 1 cooperative design);
+         10 calls on the same buffers and a lagging rank 0 (bf16
+         persistent: a forward of one block row, replayed, and a backward of
+         the fewest row blocks; fp32 persistent: a forward of one block row
+         where the plan splits the batch; cooperative: one block, at the
+         bench's shapes), each the first call's bits; times beside the
+         bound (the inputs and outputs at the whole width; the exchange's
+         bytes printed apart, with their time at NVLink's rate), the plain
+         versions, cuDNN, the D = 1 cooperative design and the other
+         design in the same call (the persistent must be faster). The fp32 windows at the
          bench's shapes against the D-rank plain versions (the rest
          printed beside the D = 1 design's own distance from its plain
          version); a buffer of the library's IPC allocator opened in a
          child process that loads the library with ctypes alone and
          writes a pattern the parent reads back; the launches and the
-         launchers of one D-rank window in each design (one each). Runs
-         on several cards are not part of it.
+         launchers of one D-rank window in each persistent design and, at
+         136 batch rows, which no persistent plan takes, the cooperative
+         one (one each). Runs on several cards are not part of it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Nothing
@@ -299,6 +312,7 @@ near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
 ``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone,
+``--tp-seq`` phases 0, 1, 11a, 11d and 15,
 ``--tiled`` phases 0, 1 and 9a, ``--groups`` phases 0 and 1 and K3's fp32
 persistent design at the bench's shapes with the other group width forced
 (outputs against the plan's, reverse launches timed side by side).
@@ -1481,28 +1495,6 @@ PORT_CPU_TRAJECTORY = "artifacts/bench_jax_start/port_cpu_trajectory.json"
 # and its whole schedule: the last superstep's mean is the JAX package's
 # train_bpc on the CPU from the same start
 JAX_FULL_TRAJECTORY = "artifacts/bench_jax_start/trajectory_full.json"
-# One of phase 6d's thresholds for "the card parts from JAX" at superstep
-# k: the spread (max - min) of superstep k's mean bits over the port's
-# bench from its own start at these seeds
-SPREAD_SEEDS = (0, 1, 2)
-
-
-def bench_means(argv, supersteps):
-    """Mean bits of the first ``supersteps`` supersteps of the port's bench
-    Trainer at ``argv`` (``bench.DEFAULT_ARGV`` plus these), from its own
-    start."""
-    from eigen_lstm_tpu_torch import bench
-    from eigen_lstm_tpu_torch.cli import build_parser
-
-    trainer = bench.make_trainer(build_parser().parse_args(
-        bench.DEFAULT_ARGV + list(argv)))
-    means = []
-    for _ in range(supersteps):
-        trainer.state, metrics = trainer.dispatch_superstep()
-        means.append(float(metrics["bits_mean"]))
-    return means
-
-
 def bench_from_jax_start(args, supersteps=None):
     """The bench's whole schedule (or its first ``supersteps``) from the JAX
     bench's step-0 state through the port's bench Trainer on the card:
@@ -1535,12 +1527,12 @@ def phase6d(own_bpc):
     design, whose bits and lse differ only in the order of fp32 sums
     (phase 5). Then the first supersteps beside the JAX
     package's and the port's on the CPU from the same start (the committed
-    trajectories), each difference against two thresholds: the spread of
-    the port's own-start bench over SPREAD_SEEDS, and the order spread,
-    max - min over the port's three runs from the JAX start (the kernels,
-    the kernels with K4's other design, the plain versions on the CPU),
-    which differ only in the order of fp32 sums; the first superstep past
-    each is named. Reported, not gated."""
+    trajectories), each difference against the order spread, max - min
+    over the port's three runs from the JAX start (the kernels, the kernels
+    with K4's other design, the plain versions on the CPU), which differ
+    only in the order of fp32 sums; the first superstep past it is named.
+    Reported, not gated. (The spread over three own-start seeds, once a
+    second threshold, was cut for the script's time.)"""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
 
@@ -1564,14 +1556,12 @@ def phase6d(own_bpc):
     with open(PORT_CPU_TRAJECTORY) as f:
         cpu_means = [x["bits_mean"] for x in json.load(f)["supersteps"]]
     k = min(len(jax_means), len(cpu_means), len(means))
-    seeds = [bench_means(["--seed", str(sd)], k) for sd in SPREAD_SEEDS]
-    parted = {"seed spread": None, "order spread": None}
+    parted = {"order spread": None}
     for i in range(k):
-        spread = max(x[i] for x in seeds) - min(x[i] for x in seeds)
         own = (means[i], means_o[i], cpu_means[i])
         order = max(own) - min(own)
         diff = means[i] - jax_means[i]
-        for name, thr in (("seed spread", spread), ("order spread", order)):
+        for name, thr in (("order spread", order),):
             if parted[name] is None and abs(diff) > thr:
                 parted[name] = i
         print(f"  6d superstep {i} (steps {i * args.superstep}-"
@@ -1579,11 +1569,9 @@ def phase6d(own_bpc):
               f"{means[i]:.4f}, the JAX package on the CPU {jax_means[i]:.4f} "
               f"(card - JAX {diff:+.4f}), the port on the CPU {cpu_means[i]:.4f} "
               f"(CPU port - JAX {cpu_means[i] - jax_means[i]:+.4f}), the card "
-              f"with K4's CUDA-core design {means_o[i]:.4f}; thresholds: the "
-              f"spread over the port's own-start seeds {SPREAD_SEEDS} "
-              f"{spread:.4f}, the order spread (the port's three runs from this "
-              f"start, which differ only in the order of fp32 sums) "
-              f"{order:.4f}", flush=True)
+              f"with K4's CUDA-core design {means_o[i]:.4f}; threshold: the "
+              f"order spread (the port's three runs from this start, which "
+              f"differ only in the order of fp32 sums) {order:.4f}", flush=True)
     print("  6d: the card's supersteps part from the JAX package's on the CPU "
           + "; ".join(f"beyond the {name} "
                       + (f"first at superstep {i}" if i is not None
@@ -3056,20 +3044,29 @@ def per_step_tiled(names=("device_tiled_fwd_plan",)):
             setattr(ct, name, plan)
 
 
-# K1's and K15's plan (``cuda_cell_tiled.split_fwd_plan``), the name that
-# ``per_step_tiled`` replaces to force their other design
-SPLIT_PLAN = ("device_split_fwd_plan",)
+# K1's and K15's plans (``cuda_cell_tiled.split_fwd_plan``; K15's under
+# fp32 compute ``split_fwd_f32_plan``), the names that ``per_step_tiled``
+# replaces to force their other design
+SPLIT_PLAN = ("device_split_fwd_plan", "device_split_fwd_f32_plan")
 # the persistent tensor-core forward: K2, K8, K9 and, in bf16, K1 and K15
 FWD_SOURCE = "eigen_lstm_tpu_torch/csrc/fwd_mma.cuh"
 
 
-def split_design(cfg, b, n):
-    """K1's and K15's design at these shapes on this card, as their
-    wrappers choose it (``cuda_cell_tiled.split_fwd_plan``): a label, and
-    whether it is persistent."""
-    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (PERSIST_UNITS,
-                                                          device_split_fwd_plan)
+def split_design(cfg, b, n, k15=False):
+    """K1's (or with ``k15`` K15's) design at these shapes on this card, as
+    their wrappers choose it (``cuda_cell_tiled.split_fwd_plan``; under
+    fp32 compute K15's ``split_fwd_f32_plan``): a label, and whether it is
+    persistent."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (
+        PERSIST_UNITS, F32_UNITS, device_split_fwd_f32_plan, device_split_fwd_plan)
 
+    split = device_split_fwd_f32_plan(cfg, b, n) if k15 else None
+    if split is not None:
+        return (f"the fp32 persistent design (K9's kernel in K15's mode: "
+                f"{n // F32_UNITS} x {-(-b // split.rows)} blocks of {F32_UNITS} "
+                f"units and {split.rows} batch rows, {split.per} a thread, a ring of "
+                f"{split.stages} slots of {split.kc} columns, one cooperative launch "
+                f"a window)"), True
     layout = device_split_fwd_plan(cfg, b, n)
     if layout is None:
         return "its other design (K1: one launch a step; K15: cooperative)", False
@@ -3083,21 +3080,25 @@ def split_design(cfg, b, n):
 @contextlib.contextmanager
 def unsplit_fwd():
     """K1's and K15's wrappers take the persistent design with every batch
-    row in a block (K2's layout, ``tiled_fwd_plan``) inside the block: the
-    control of their split layout."""
+    row in a block (K2's layout, ``tiled_fwd_plan``; K15's fp32 design
+    unsplit) inside the block: the control of their split layout."""
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
-    plan = ct.device_split_fwd_plan
+    plans = ct.device_split_fwd_plan, ct.device_split_fwd_f32_plan
 
     def unsplit(cfg, b, n):
         kres = ct.device_tiled_fwd_plan(cfg, b, n)
         return None if kres is None else (kres, b)
 
-    ct.device_split_fwd_plan = unsplit
+    def unsplit32(cfg, b, n):
+        return ct.split_fwd_f32_plan(cfg, b, n, *ct._device_limits(
+            torch.cuda.current_device()), split=False)
+
+    ct.device_split_fwd_plan, ct.device_split_fwd_f32_plan = unsplit, unsplit32
     try:
         yield
     finally:
-        ct.device_split_fwd_plan = plan
+        ct.device_split_fwd_plan, ct.device_split_fwd_f32_plan = plans
 
 
 def tiled_fwd_checks(l0, l1, x, h0, c0, cfg, run_cfg, dr, masks, inv, tag,
@@ -4111,6 +4112,10 @@ def phase10f(test):
 
 # --- phase 11: tensor parallelism at D = 1 (K13-K16) -----------------------
 TP_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp.cu"
+# K15's fp32 designs (D = 1 and D ranks) and K16's at D ranks; at D = 1
+# K16 under fp32 compute is K6's fp32 kernel
+TP_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32.cu"
+TP_F32_BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32_bwd.cu"
 TP_REPLACES = {
     "tp_step_fwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:72",
     "tp_step_bwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:82",
@@ -4295,7 +4300,11 @@ def phase11a(records):
     kernel's own state (TRAIN_TOL, normalised); times beside the bound, the
     plain version and the library yardstick (``torch.lstm_cell`` for K13,
     cuDNN ``nn.LSTM`` forward and backward for K15 and K16, none for K14);
-    K15 beside 100 launches of K13 at the same shapes."""
+    K15 beside 100 launches of K13 at the same shapes. K15 and K16 in both
+    types in their persistent designs, beside their cooperative designs
+    (and K15's unsplit layout) forced, gated faster than the cooperative
+    ones in fp32; then the D-rank cooperative kernels at D = 1
+    (``x_at_d1``)."""
     from eigen_lstm_tpu_torch import ModelConfig
     from eigen_lstm_tpu_torch.ops import cuda_tp_cell as tc, cuda_tp_seq as ts
     from eigen_lstm_tpu_torch.parallel.tp import permute_params_for_tp
@@ -4380,24 +4389,26 @@ def phase11a(records):
         xw = layer.W[x.long()] + layer.b
         h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
         U_c = layer.U.to(cfg.cdtype)
-        design15, persistent15 = split_design(cfg, b, n)
+        design15, persistent15 = split_design(cfg, b, n, k15=True)
         print(f"  K15 {dtype}: {design15}", flush=True)
-        if persistent15 != (dtype == "bfloat16"):
-            fail(f"K15 {dtype}: {design15}; the persistent design in bf16 alone")
+        if not persistent15:
+            fail(f"K15 {dtype}: {design15}; the persistent design in both types")
         fwd_k, step_err = k15_check(ts, tc, U_c, xw, h0, c0, cfg, dtype)
         fwd_p = ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg)
         h_seq, g_seq, c_prev, hT, cT = fwd_k
         win = [norm_err(a, p) for a, p in zip(fwd_k, fwd_p)]
+        # the cooperative design and the unsplit layout, held to the same
+        # gates and timed in this call; the fp32 design's bits do not
+        # depend on its split
         others15 = {}
-        if persistent15:
-            # the cooperative design, which fp32 keeps, and the unsplit
-            # layout, held to the same gates and timed in this call
-            for key, force in (("cooperative", per_step_tiled(SPLIT_PLAN)),
-                               ("unsplit", unsplit_fwd())):
-                with force:
-                    k15_check(ts, tc, U_c, xw, h0, c0, cfg, f"{dtype} ({key})")
-                    others15[key] = cuda_ms(
-                        lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
+        for key, force in (("cooperative", per_step_tiled(SPLIT_PLAN)),
+                           ("unsplit", unsplit_fwd())):
+            with force:
+                out = k15_check(ts, tc, U_c, xw, h0, c0, cfg, f"{dtype} ({key})")[0]
+                others15[key] = cuda_ms(
+                    lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
+            if dtype == "float32" and key == "unsplit" and not _same([out], [fwd_k]):
+                fail("K15 float32: the unsplit layout moved the bits")
         dh_seq = rand(s, b, n, sd=1e-2)
         dhT, dcT = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
         bargs = (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg)
@@ -4422,7 +4433,7 @@ def phase11a(records):
         ts.tp_seq_bwd(*bargs)
         if ts.tp_seq_bwd.launches - before != 1:
             fail(f"K16: {ts.tp_seq_bwd.launches - before} launches a call")
-        coop16 = k16_designs(bwd_k, bargs, cfg) if dtype == "bfloat16" else None
+        coop16 = k16_designs(bwd_k, bargs, cfg)
         ms15 = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
         plain15 = cuda_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg), reps=1, windows=3)
         ms16 = cuda_ms(lambda: ts.tp_seq_bwd(*bargs), reps=5)
@@ -4442,17 +4453,23 @@ def phase11a(records):
                         for k, v in others15.items()), flush=True)
         print(f"  K16 {dtype}: {ms16:.4f} ms a window (1 launch), bound {b16[0]:.5f} ms "
               f"({b16[1]}), plain {plain16:.4f} ms, cuDNN nn.LSTM backward "
-              f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}"
-              + ("" if coop16 is None else
-                 f"; the cooperative CUDA-core design {coop16:.4f} ms"), flush=True)
+              f"{'n/a' if lib16 is None else f'{lib16:.4f} ms'}; the cooperative "
+              f"CUDA-core design {coop16:.4f} ms", flush=True)
+        if dtype == "float32":
+            slower = [k for k, ms, coop in (("K15", ms15, others15["cooperative"]),
+                                            ("K16", ms16, coop16)) if not ms < coop]
+            if slower:
+                fail(f"K15/K16 float32: the persistent design is not faster than the "
+                     f"cooperative one in the same call: {slower}")
+        x_at_d1(ts, U_c, xw, h0, c0, bargs, cfg, others15["cooperative"], coop16,
+                records)
         records[("11a", "tp_seq_fwd", dtype)] = dict(_tp_record(
             "tp_seq_fwd", step_err, ms15, plain15, b15, lib15), **others15)
-        if persistent15:   # the persistent tensor-core forward
-            records[("11a", "tp_seq_fwd", dtype)]["source"] = FWD_SOURCE
-        records[("11a", "tp_seq_bwd", dtype)] = _tp_record(
-            "tp_seq_bwd", bstep, ms16, plain16, b16, lib16)
-        if coop16 is not None:   # bf16: K6's persistent kernel
-            records[("11a", "tp_seq_bwd", dtype)]["source"] = BWD_SOURCE
+        records[("11a", "tp_seq_fwd", dtype)]["source"] = (
+            FWD_SOURCE if dtype == "bfloat16" else TP_F32_SOURCE)
+        records[("11a", "tp_seq_bwd", dtype)] = dict(_tp_record(
+            "tp_seq_bwd", bstep, ms16, plain16, b16, lib16), cooperative_ms=coop16,
+            source=BWD_SOURCE if dtype == "bfloat16" else BWD_F32_SOURCE)
         records[("11a", "k13x100", dtype)] = per_step
 
 
@@ -4490,41 +4507,51 @@ def k15_check(ts, tc, U_c, xw, h0, c0, cfg, tag):
 
 
 def k16_designs(out, bargs, cfg):
-    """K16 under bf16 compute at the bench's shapes, beyond 11a's replay
-    gate: the design it took (K6's persistent kernel, through
-    ``lstm_bwd_persist_launch`` once a call); its dg, dh0 and dc0 equal, bit
-    for bit, to K6's persistent reverse launch (``scan_layer_bwd``) on the
-    same inputs in K6's layout (c_seq = c_prev[1:] then cT, c0 = c_prev[0];
-    exact with these fp32 residuals); a call with bf16 residuals held to
-    the replay from its own dg; and the cooperative CUDA-core design,
-    forced, held to the same replay gate. Returns the latter's time, ms a
-    window."""
+    """K16 at the bench's shapes, beyond 11a's replay gate: the design it
+    took, K6's persistent reverse launch of its type once a call (bf16:
+    ``lstm_bwd_persist_launch``, its dg, dh0 and dc0 bit for bit K6's
+    (``scan_layer_bwd``) on the same inputs in K6's layout, c_seq =
+    c_prev[1:] then cT, c0 = c_prev[0], exact with these fp32 residuals;
+    fp32: ``lstm_bwd_f32_launch`` with c_last the fp32 cT); a call with
+    bf16 residuals (c_{S-1} still the fp32 cT) held to the replay from its
+    own dg; and the cooperative CUDA-core design, forced, held to the same
+    replay gate. Returns the latter's time, ms a window."""
     from eigen_lstm_tpu_torch.ops import _build, cuda_cell_bwd, cuda_tp_seq as ts
 
     U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT = bargs[:7]
     s, b, nd = c_prev.shape
+    f32 = cfg.cdtype == torch.float32
+    name = "lstm_bwd_f32_launch" if f32 else "lstm_bwd_persist_launch"
+    plan = (cuda_cell_bwd.device_k6_f32_plan if f32 else cuda_cell_bwd.device_k6_plan)(
+        cfg, b, nd)
     lib = _build.load_library()
-    real, calls = lib.lstm_bwd_persist_launch, []
-    lib.lstm_bwd_persist_launch = lambda *a: calls.append(a) or real(*a)
+    real, calls = getattr(lib, name), []
+    setattr(lib, name, lambda *a: calls.append(a) or real(*a))
     try:
         ts.tp_seq_bwd(*bargs)
     finally:
-        lib.lstm_bwd_persist_launch = real
-    if len(calls) != 1:
-        fail(f"K16 bf16: {len(calls)} launches of lstm_bwd_persist_launch a "
-             f"call; k6_plan gives {cuda_cell_bwd.device_k6_plan(cfg, b, nd)}")
+        setattr(lib, name, real)
+    # the fp32 launcher's c_last, the bf16 one's cT: c_{S-1} read from cT
+    c_last = len(calls) == 1 and calls[0][5] == cT.data_ptr()
+    print(f"  K16 {cfg.compute_dtype}: {len(calls)} {name} a call (K6's persistent "
+          f"reverse launch, {plan}), c_{{S-1}} {'from' if c_last else 'NOT from'} "
+          f"cT", flush=True)
+    if not c_last:
+        fail(f"K16 {cfg.compute_dtype}: {len(calls)} launches of {name} a call, "
+             f"c_(S-1) from cT {c_last}; the plan gives {plan}")
     c_seq = torch.cat([c_prev[1:], cT[None]])
-    zeros = torch.zeros(s, b, nd, device=DEVICE)
-    dg6 = torch.empty(s, b, 4 * nd, device=DEVICE)
-    _, _, dh0_6, dc0_6 = cuda_cell_bwd.scan_layer_bwd(
-        U_c, g_seq, c_seq, zeros, zeros[0], c_prev[0], dh_seq, dhT, dcT, cfg,
-        dg_out=dg6)
-    torch.cuda.synchronize()
-    same = [torch.equal(a, b_) for a, b_ in zip(out, (dg6, dh0_6, dc0_6))]
-    print(f"  K16 bf16 against K6's persistent reverse launch on the same "
-          f"inputs: dg, dh0, dc0 bit for bit {same}", flush=True)
-    if not all(same):
-        fail(f"K16 bf16: dg, dh0, dc0 not K6's bits: {same}")
+    if not f32:
+        zeros = torch.zeros(s, b, nd, device=DEVICE)
+        dg6 = torch.empty(s, b, 4 * nd, device=DEVICE)
+        _, _, dh0_6, dc0_6 = cuda_cell_bwd.scan_layer_bwd(
+            U_c, g_seq, c_seq, zeros, zeros[0], c_prev[0], dh_seq, dhT, dcT, cfg,
+            dg_out=dg6)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b_) for a, b_ in zip(out, (dg6, dh0_6, dc0_6))]
+        print(f"  K16 bf16 against K6's persistent reverse launch on the same "
+              f"inputs: dg, dh0, dc0 bit for bit {same}", flush=True)
+        if not all(same):
+            fail(f"K16 bf16: dg, dh0, dc0 not K6's bits: {same}")
     # bf16 residuals: c_{S-1} stays the fp32 cT
     g_r, c_r = g_seq.to(torch.bfloat16), c_prev.to(torch.bfloat16)
     out_r = ts.tp_seq_bwd(U_c, g_r, c_r, cT, dh_seq, dhT, dcT, cfg)
@@ -4539,12 +4566,54 @@ def k16_designs(out, bargs, cfg):
     errs = {label: max(norm_err(a, p) for a, p in zip(o, r))
             for label, o, r in (("bf16 residuals", out_r, rep_r),
                                 ("the cooperative design", out_c, rep_c))}
-    print("  K16 bf16, every reverse step, dh0, dc0 against the replay from its "
-          "own dg (tol " + f"{TRAIN_TOL:g}): "
+    print(f"  K16 {cfg.compute_dtype}, every reverse step, dh0, dc0 against the "
+          f"replay from its own dg (tol {TRAIN_TOL:g}): "
           + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
     if not all(np.isfinite(e) and e <= TRAIN_TOL for e in errs.values()):
-        fail(f"K16 bf16: {errs}")
+        fail(f"K16 {cfg.compute_dtype}: {errs}")
     return coop_ms
+
+
+def x_at_d1(ts, U_c, xw, h0, c0, bargs, cfg, coop15_ms, coop16_ms, records):
+    """The D-rank cooperative kernels (``tp_seq_fwd_x``, ``tp_seq_bwd_x``)
+    at D = 1, one rank group on the card's own buffers, beside the D = 1
+    cooperative kernels (``tp_seq_fwd``, ``tp_seq_bwd``), which shapes no
+    plan takes run: the forward's outputs their bits, the backward's every
+    reverse step within TRAIN_TOL of the replay from its own dg (and its
+    bits against the D = 1 kernel's, printed), the times side by side.
+    Printed, not gated: whether the D = 1 kernels can go."""
+    s, b, n4 = xw.shape
+    n = n4 // 4
+    ex = ts.one_card_exchange(b, n, 1, cfg.cdtype)
+    try:
+        with per_step_tiled(SPLIT_PLAN), per_step_k6():
+            one = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
+            xf, = ts.tp_seq_fwd_ranks([U_c], [xw], h0, [c0], cfg, ex)
+            ms_f = cuda_ms(lambda: ts.tp_seq_fwd_ranks([U_c], [xw], h0, [c0], cfg, ex),
+                           reps=5)
+            one_b = ts.tp_seq_bwd(U_c, *one[1:3], one[4], *bargs[4:])
+            xb, = ts.tp_seq_bwd_ranks([U_c], [one[1]], [one[2]], [one[4]],
+                                      *([a] for a in bargs[4:7]), cfg, ex)
+            ms_b = cuda_ms(lambda: ts.tp_seq_bwd_ranks(
+                [U_c], [one[1]], [one[2]], [one[4]], *([a] for a in bargs[4:7]), cfg,
+                ex), reps=5)
+        rep = reverse_replay(U_c, one[1], torch.cat([one[2][1:], one[4][None]]),
+                             one[2][0], *bargs[4:7], cfg, xb[0])
+        torch.cuda.synchronize()
+    finally:
+        ex.close()
+    fbits = [torch.equal(a, p) for a, p in zip(xf, one)]
+    bbits = [torch.equal(a, p) for a, p in zip(xb, one_b)]
+    brel = max(norm_err(a, p) for a, p in zip(xb, rep))
+    print(f"  K15/K16 {cfg.compute_dtype} at D = 1 through the D-rank cooperative "
+          f"kernels (one group): the forward the D = 1 cooperative design's bits "
+          f"{fbits}, the backward's {bbits}, its replay {brel:.3e} (tol "
+          f"{TRAIN_TOL:g}); {ms_f:.4f} and {ms_b:.4f} ms against the D = 1 "
+          f"kernels' {coop15_ms:.4f} and {coop16_ms:.4f} ms in this call (printed, "
+          f"not gated)", flush=True)
+    records[("11a", "x_at_d1", cfg.compute_dtype)] = dict(
+        fwd_bits=all(fbits), bwd_bits=all(bbits), bwd_replay=brel, fwd_ms=ms_f,
+        bwd_ms=ms_b, d1_fwd_ms=coop15_ms, d1_bwd_ms=coop16_ms)
 
 
 def _tp_counters():
@@ -4677,6 +4746,71 @@ def phase11b(records):
           f"{100 * ms / runs['tp step'][1]:.1f} % of the {runs['tp step'][1]:.3f} "
           f"ms per-step --tp 1 step", flush=True)
     return runs
+
+
+# 11d: the same configuration under fp32 compute (the CLI's default dtype),
+# --tp 1 against one device, TP_STEPS steps each
+TP_F32_ARGV = [("float32" if a == "bfloat16" else a) for a in TP_ARGV]
+
+
+def phase11d(records):
+    """``cli train --tp 1 --dtype float32`` at 11b's configuration for
+    TP_STEPS steps beside the single-device fp32 run of as many steps: K15
+    and K16 once a step through their fp32 persistent designs
+    (``tp_seq_fwd_f32_launch``, ``lstm_bwd_f32_launch``, counted at the
+    library), K11 once a step, nothing else; train_bpc within TP_BPC_TOL of
+    the single device's, the gap printed. Returns the TP run's launch
+    counts."""
+    from eigen_lstm_tpu_torch.ops import _build
+
+    runs = {}
+    for label, extra in (("tp seq", ["--tp", "1"]), ("single", [])):
+        trainer, load = None, _build.load_library
+        counting = CountingLibrary(load())
+        _build.load_library = lambda: counting
+        try:
+            counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_F32_ARGV + extra,
+                                                                  TP_STEPS)
+        finally:
+            _build.load_library = load
+            if trainer is not None and trainer.tp is not None:
+                trainer.tp.group.close()
+        runs[label] = (counts, step_ms, bpc, backend, counting.calls)
+        print(f"  cli train {' '.join(extra) or '(one device)'} --dtype float32: family "
+              f"{backend}, {TP_STEPS} steps, {step_ms:.3f} ms a step over the last "
+              f"{TP_STEPS - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
+              f"launches {counts}", flush=True)
+    counts, step_ms, bpc, backend, calls = runs["tp seq"]
+    zero = ("lstm_fwd_embed", "lstm_fwd_scan", "lstm_bwd_embed",
+            "lstm_bwd_embed_unroll2", "lstm_bwd_scan", "head_fwd", "head_bwd", "tiled",
+            "tp_step_fwd", "tp_step_bwd")
+    want = dict({k: 0 for k in zero}, tp_seq_fwd=TP_STEPS, tp_seq_bwd=TP_STEPS,
+                adagrad=TP_STEPS)
+    launchers = {k: calls.get(k, 0) for k in ("tp_seq_fwd_f32_launch",
+                                              "lstm_bwd_f32_launch",
+                                              "tp_seq_fwd_launch", "tp_seq_bwd_launch")}
+    print(f"  --tp 1 --dtype float32: K15 and K16 through {launchers}", flush=True)
+    if counts != want or backend != "pallas_seq" or launchers != {
+            "tp_seq_fwd_f32_launch": TP_STEPS, "lstm_bwd_f32_launch": TP_STEPS,
+            "tp_seq_fwd_launch": 0, "tp_seq_bwd_launch": 0}:
+        fail(f"cli train --tp 1 --dtype float32: family {backend}, launches {counts} "
+             f"through {launchers}, the path gives {want}, the fp32 persistent "
+             f"launchers once a step each")
+    ref = runs["single"][2]
+    gap = bpc - ref
+    print(f"  --tp 1 --dtype float32 train_bpc {bpc:.4f}, one device {ref:.4f} "
+          f"({TP_STEPS} steps): gap {gap:+.5f} (tol {TP_BPC_TOL:g}); step "
+          f"{step_ms:.3f} ms against one device's {runs['single'][1]:.3f}", flush=True)
+    if not (np.isfinite(bpc) and abs(gap) <= TP_BPC_TOL
+            and SANITY_BAND[0] <= bpc <= SANITY_BAND[1]):
+        fail(f"cli train --tp 1 --dtype float32: train_bpc {bpc:.4f}, the single "
+             f"device's {ref:.4f} (tol {TP_BPC_TOL:g}), band {SANITY_BAND}")
+    records[("11d", "step_ms")] = {k: v[1] for k, v in runs.items()}
+    for name in ("tp_seq_fwd", "tp_seq_bwd"):
+        ms = records[("11a", name, "float32")]["ms"]
+        print(f"  {name} float32: {ms:.4f} ms a step, {100 * ms / step_ms:.1f} % of "
+              f"the {step_ms:.3f} ms fp32 --tp 1 step", flush=True)
+    return counts
 
 
 def phase11c(records):
@@ -5788,24 +5922,26 @@ def phase15(records, smi):
     bench's shapes (1x512, S = 100, B = 128, fp32 residuals; the 1x512
     checkpoint's U and W on a bible.txt window) for D = 2 and 4 and at the
     flagship's layer shapes (N = 1024, S = 256, B = 128; its layer 1) for
-    D = 2, the weights through the TP gate permutation; bf16 in both
+    D = 2, the weights through the TP gate permutation; both types in both
     designs (the persistent one the wrappers take, the cooperative one
-    forced), fp32 in the cooperative one. Each design: every rank's forward
+    forced). Each design: every rank's forward
     step and reverse step replayed from the kernel's own state (TRAIN_TOL);
     the forward bit for bit its D = 1 counterpart on the unpermuted weights
-    (the persistent design with the D = 1 layout's rows the D = 1
-    persistent K15, the cooperative one the D = 1 cooperative design);
-    X_REPEATS calls on the same buffers and a lagging rank 0 (the
-    persistent design: a forward of one block row and a backward of the
-    fewest row blocks, at every shape; the cooperative: one block, at the
-    bench's shapes), the first call's bits (the persistent forward's lag
-    replayed); times beside the bound, the plain versions, cuDNN, the D = 1
-    designs and, in bf16, the other design timed in the same call (the
-    persistent must be faster). The fp32 windows at the bench's shapes
-    against the D-rank plain versions (where 11a gates K15's and K16's).
-    Then the IPC round trip between two processes, and the launch counts
-    and launchers of one D-rank window in each design (the bench's layer at
-    D = 2, bf16 and fp32)."""
+    (the bf16 persistent design with the D = 1 layout's rows and the fp32
+    one the D = 1 persistent K15 of their type, the cooperative one the
+    D = 1 cooperative design); X_REPEATS calls on the same buffers and a
+    lagging rank 0 (the bf16 persistent design: a forward of one block
+    row and a backward of the fewest row blocks, at every shape; the fp32
+    one: a forward of one block row where the plan splits the batch; the
+    cooperative: one block, at the bench's shapes), the first call's bits
+    (the bf16 persistent forward's lag replayed); times beside the bound,
+    the plain versions, cuDNN, the D = 1 designs and the other design
+    timed in the same call (the persistent must be faster). The fp32
+    windows at the bench's shapes against the D-rank plain versions (where
+    11a gates K15's and K16's). Then the IPC round trip between two
+    processes, and the launch counts and launchers of one D-rank window in
+    each persistent design (the bench's layer at D = 2, bf16 and fp32) and
+    in the cooperative one at 136 batch rows."""
     from eigen_lstm_tpu_torch import ModelConfig
     from eigen_lstm_tpu_torch.ops import _build, cuda_cell_tiled as ct, cuda_tp_seq as ts
     from eigen_lstm_tpu_torch.parallel.tp import _gate_permutation
@@ -5831,12 +5967,12 @@ def phase15(records, smi):
             U_c = layer.U.to(cfg.cdtype)
             h0, c0 = torch.tanh(rand(b, n, sd=0.5)), rand(b, n, sd=0.3)
             # the D = 1 designs on the unpermuted weights: the cooperative
-            # forward, and in bf16 the persistent one the wrapper takes
+            # forward, and the persistent one the wrapper takes
             with per_step_tiled(SPLIT_PLAN):
                 one = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
                 one_ms = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=2,
                                  windows=3)
-            one_p = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg) if dtype == "bfloat16" else None
+            one_p = ts.tp_seq_fwd(U_c, xw, h0, c0, cfg)
             dh_full = rand(s, b, n, sd=1e-2)
             dhT_full, dcT_full = rand(b, n, sd=1e-2), rand(b, n, sd=1e-2)
             with per_step_k6():
@@ -5867,24 +6003,36 @@ def phase15(records, smi):
                 dcTs = [cut(dcT_full, r, nd) for r in range(d)]
                 ex = ts.one_card_exchange(b, n, d, cfg.cdtype)
                 exchanges.append(ex)
-                designs = [("cooperative", cooperative_ranks)]
+                designs = [("persistent", contextlib.nullcontext),
+                           ("cooperative", cooperative_ranks)]
+                fplan = ts.device_ranks_fwd_plan(cfg, b, n, d, one_card=True)
+                bplan = ts.device_ranks_bwd_plan(cfg, b, n, d, one_card=True)
+                if fplan is None or bplan is None:
+                    fail(f"K15/K16 {tag}: no persistent layout ({fplan}, {bplan})")
                 if dtype == "bfloat16":
-                    fplan = ts.device_ranks_fwd_plan(cfg, b, n, d, one_card=True)
-                    bplan = ts.device_ranks_bwd_plan(cfg, b, n, d, one_card=True)
-                    if fplan is None or bplan is None:
-                        fail(f"K15/K16 {tag}: no persistent layout ({fplan}, {bplan})")
-                    designs.insert(0, ("persistent", contextlib.nullcontext))
                     d1_rows = ct.device_split_fwd_plan(cfg, b, n)[1]
                     print(f"  K15/K16 {tag}: the persistent layouts, forward (kres, "
                           f"rows) {fplan} ({d} x {nd // 16} x {-(-b // fplan[1])} "
                           f"blocks; the D = 1 layout's rows {d1_rows}), backward "
                           f"(units, rows) {bplan} ({d} x {n // bplan[0]} x "
                           f"{-(-b // bplan[1])} blocks)", flush=True)
+                else:
+                    print(f"  K15/K16 {tag}: the fp32 persistent layouts, forward "
+                          f"{fplan} ({d} x {nd // 8} x {-(-b // fplan.rows)} blocks), "
+                          f"backward {bplan} ({d} x {n // 16} x {bplan.blocks} "
+                          f"blocks, the G of a group on one card)", flush=True)
                 times, outs = {}, {}
                 for design, ctx in designs:
-                    if design == "persistent":
-                        lag_f = ts.ranks_fwd_plan(cfg, b, n, d, nd // 16, *ct._device_limits(
-                            torch.cuda.current_device())[1:])
+                    smem = ct._device_limits(torch.cuda.current_device())[1]
+                    if design == "persistent" and dtype == "float32":
+                        # rank 0 with every row in one block row: fewer blocks,
+                        # the same bits (none where the plan holds every row)
+                        lag_f = ct.f32_split_layout(b, n, nd // 8, nd // 8, smem, rows=b)
+                        lag = None if lag_f == fplan else (
+                            dict(layouts=[lag_f] + [fplan] * (d - 1)), {}, True)
+                        ref = (one_p, perm)
+                    elif design == "persistent":
+                        lag_f = ts.ranks_fwd_plan(cfg, b, n, d, nd // 16, smem)
                         row_blocks = [ts.lag_row_blocks(b, n, d, bplan[0])] + \
                             [-(-b // bplan[1])] * (d - 1)
                         lag = (dict(layouts=[lag_f] + [fplan] * (d - 1)),
@@ -5963,7 +6111,10 @@ def phase15(records, smi):
                                    nvlink_ms=xb / NVLINK_BYTES_PER_S * 1e3)
                         if design == "persistent":
                             coop = times["cooperative"][name == "tp_seq_bwd_ranks"]
-                            rec.update(source=PERSIST_SOURCE, cooperative_ms=coop)
+                            f32_src = (TP_F32_SOURCE if name == "tp_seq_fwd_ranks"
+                                       else TP_F32_BWD_SOURCE)
+                            rec.update(source=PERSIST_SOURCE if dtype == "bfloat16"
+                                       else f32_src, cooperative_ms=coop)
                         records[("15", name + suffix, shape, dtype, d)] = rec
                 if "persistent" in times:
                     slower = [k for k, i in (("K15", 0), ("K16", 1))
@@ -5974,13 +6125,26 @@ def phase15(records, smi):
                              f"{times}")
             print(f"  ({shape} {dtype}: {time.perf_counter() - t_shape:.1f} s)", flush=True)
     ipc_round_trip()
-    # the launches of one D-rank window: the bench's layer at D = 2, in bf16
-    # (the persistent design) and fp32 (the cooperative one)
+    # the launches of one D-rank window: the bench's layer at D = 2 in bf16
+    # and fp32 (the persistent designs), and at 136 rows in fp32, which no
+    # persistent plan takes (the cooperative one)
     counts = {}
-    for dtype, design, launcher in (
-            ("bfloat16", "persistent", "tp_seq_fwd_persist_ranks_launch"),
-            ("float32", "cooperative", "tp_seq_fwd_ranks_launch")):
-        U_cs, xws, h0, c0s, cfg, brest, ex = drives[(dtype, design)]
+    U_cs, _, _, _, cfg32, _, _ = drives[("float32", "persistent")]
+    bx, sx, d = 136, 16, len(U_cs)
+    nd = U_cs[0].shape[1] // 4
+    ex_x = ts.one_card_exchange(bx, d * nd, d, cfg32.cdtype)
+    exchanges.append(ex_x)
+    refused = (U_cs, [rand(sx, bx, 4 * nd, sd=0.5) for _ in range(d)],
+               torch.tanh(rand(bx, d * nd, sd=0.5)), [rand(bx, nd, sd=0.3)] * d, cfg32,
+               ([rand(sx, bx, nd, sd=1e-2)] * d, [rand(bx, nd, sd=1e-2)] * d,
+                [rand(bx, nd, sd=1e-2)] * d, cfg32), ex_x)
+    for dtype, drive, launcher, suffix in (
+            ("bfloat16", drives[("bfloat16", "persistent")],
+             "tp_seq_fwd_persist_ranks_launch", ""),
+            ("float32", drives[("float32", "persistent")], "tp_seq_fwd_f32_ranks_launch",
+             "_fp32"),
+            ("float32, 136 rows", refused, "tp_seq_fwd_ranks_launch", "_x")):
+        U_cs, xws, h0, c0s, cfg, brest, ex = drive
         counting = ex.lib = CountingLibrary(ex.lib)
         ts.tp_seq_fwd_ranks.launches = ts.tp_seq_bwd_ranks.launches = 0
         fwd = ts.tp_seq_fwd_ranks(U_cs, xws, h0, c0s, cfg, ex)
@@ -5998,7 +6162,6 @@ def phase15(records, smi):
                 counting.calls != {launcher: 1, bwd_launcher: 1}:
             fail(f"phase 15: the D-rank window ({dtype}) launched {got} through "
                  f"{counting.calls}")
-        suffix = "" if design == "persistent" else "_x"
         counts.update({k + suffix: v for k, v in got.items()})
     for ex in exchanges:
         ex.close()
@@ -6071,6 +6234,8 @@ def main():
     runs11b = phase11b(records)
     seq_counts = runs11b["tp seq"][0]
     check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
+    seq_f32_counts = phase11d(records)
+    check_budget("phase 11d (cli train --tp 1 --dtype float32)")
     flag_tp_counts, k13_core = phase11c(records)
     check_budget("phase 11c (the flagship at --tp 1)")
     phase12(runs11b)
@@ -6152,11 +6317,18 @@ def main():
         name="tp_step_fwd_cuda_core")
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
         add(records[("11a", name, "bfloat16")], seq_counts[name])
-    # K15 and K16 at D ranks: one D-rank window on the one card (phase 15),
-    # at the bench's shapes, D = 2: in bf16 the persistent design, in fp32
-    # the cooperative one (its bf16 time, forced, beside the persistent's)
+    # K15's and K16's fp32 persistent designs on the fp32 --tp 1 run (11d),
+    # timed in 11a
+    for name in ("tp_seq_fwd", "tp_seq_bwd"):
+        add(records[("11a", name, "float32")], seq_f32_counts[name], name=f"{name}_fp32")
+    # K15 and K16 at D ranks: one D-rank window on the one card (phase 15)
+    # at the bench's shapes, D = 2, in each persistent design; the
+    # cooperative one's launches on a window of 136 rows, which no
+    # persistent plan takes, its time at the bench's in fp32 (forced)
     for name in ("tp_seq_fwd_ranks", "tp_seq_bwd_ranks"):
         add(records[("15", name, "bench", "bfloat16", 2)], x_counts[name])
+        add(records[("15", name, "bench", "float32", 2)], x_counts[name + "_fp32"],
+            name=f"{name}_fp32")
         add(records[("15", name + "_x", "bench", "float32", 2)], x_counts[name + "_x"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6384,6 +6556,21 @@ def groups_only():
     check_budget("the group-width control")
 
 
+def tp_seq_only():
+    """``python3 chip_smoke.py --tp-seq``: phases 0, 1, 11a, 11d and 15
+    alone (K13-K16 against plain, the fp32 --tp 1 run, the D-rank
+    windows)."""
+    smi = phase0()
+    phase1()
+    records = {}
+    phase11a(records)
+    check_budget("phase 11a (the TP kernels against plain)")
+    phase11d(records)
+    check_budget("phase 11d (cli train --tp 1 --dtype float32)")
+    phase15(records, smi)
+    check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
+
+
 def tiled_only():
     """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
     phase0()
@@ -6403,8 +6590,10 @@ if __name__ == "__main__":
         tiled_only()
     elif sys.argv[1:] == ["--groups"]:
         groups_only()
+    elif sys.argv[1:] == ["--tp-seq"]:
+        tp_seq_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread, --exchange, --tiled and --groups")
+             f"--sp-spread, --exchange, --tiled, --groups and --tp-seq")
     else:
         main()

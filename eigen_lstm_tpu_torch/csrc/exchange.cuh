@@ -1,8 +1,10 @@
 // The in-kernel exchange of K15 and K16 at D > 1: the peer table, a
-// barrier over one rank's blocks, the exchange of a step and the launchers'
-// residency check, grid and h0 copy, shared by the cooperative tiles (lstm_tp.cu:
-// tp_seq_fwd_x, tp_seq_bwd_x) and the persistent tensor-core designs
-// (lstm_tp_persist.cu: tp_seq_fwd_persist_x, tp_seq_bwd_persist_x).
+// barrier over one rank's blocks, the exchange of a step, the forward's
+// RankStep and the launchers' residency check, grid and h0 copy, shared by
+// the cooperative tiles (lstm_tp.cu: tp_seq_fwd_x, tp_seq_bwd_x), the
+// persistent tensor-core designs (lstm_tp_persist.cu: tp_seq_fwd_persist_x,
+// tp_seq_bwd_persist_x) and the fp32 persistent CUDA-core designs
+// (lstm_tp_f32.cu: tp_seq_fwd_f32_x; lstm_tp_f32_bwd.cu: tp_seq_bwd_f32_x).
 //
 // Rank r of D holds U_r, its shard's streams and an exchange buffer in its
 // own device memory; the peer table holds every rank's buffer as this
@@ -18,14 +20,20 @@
 //             rising (across calls: the host's base); the rank barriers
 //             (count, generation) of the forward at 128, the backward at 256
 //   h_off     the forward's h slots (3, B, N) in the compute type
-//   r_off     the backward's chunks (3, D, B, nd) fp32: [slot][sender]
+//   r_off     the backward's chunks (3, D, P, B, nd) fp32: [slot][sender]
+//             [part], P = the parts a sender sends (the fp32 persistent
+//             backward's G blocks a unit group; 1 in the other designs),
+//             room for kMaxParts under fp32 compute, for one under bf16
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxRanks = 8;
+constexpr int kMaxParts = 4;   // the fp32 persistent backward's G at most
 constexpr int kFwdFlag = 0, kBwdFlag = 16, kFwdBar = 32, kBwdBar = 64;  // words
 constexpr unsigned long long kTimeoutNs = 60ull * 1000000000ull;
 
@@ -155,6 +163,38 @@ __device__ __forceinline__ void exchange(const PeerTable& peers, int me, int D,
   }
   __syncthreads();
 }
+
+// The Step of K15's persistent windows at D ranks (fwd_mma.cuh's bf16
+// window, lstm_tiled_f32.cuh's fp32 one) in place of their grid barrier:
+// step t reads round(h_{t-1}) (B, N) in h's type HT from the rank's own
+// slot (base + t) % 3 and stores its tile of round(h_t) into slot (base +
+// t + 1) % 3, columns [me * nd, +nd), of every rank's buffer, its own too;
+// then the exchange. The last step stores and exchanges nothing (a peer's
+// next call may already hold its h0 in that slot). Three slots: a rank
+// waits for every peer's flag of step t before step t + 1, so no rank
+// writes a slot a peer still reads.
+template <typename HT>
+struct RankStep {
+  const PeerTable& peers;
+  int me, D, N, nd, S;
+  unsigned long long base;
+  long long h_off;
+  size_t bN;        // B * N
+  unsigned* count;  // the rank's forward barrier count
+  int nb;
+  __device__ __forceinline__ const HT* hin(int t) const {
+    return reinterpret_cast<const HT*>(peers.buf[me] + h_off) + ((base + t) % 3) * bN;
+  }
+  __device__ __forceinline__ void put(int t, int b, int j, float h) const {
+    if (t + 1 == S) return;  // the last step exchanges nothing
+    const HT v = from_f32<HT>(h);
+    const size_t at = ((base + t + 1) % 3) * bN + (size_t)b * N + (size_t)me * nd + j;
+    for (int q = 0; q < D; ++q) reinterpret_cast<HT*>(peers.buf[q] + h_off)[at] = v;
+  }
+  __device__ __forceinline__ void sync(int t) const {
+    exchange(peers, me, D, kFwdFlag, count, nb, static_cast<unsigned>(base + t + 1));
+  }
+};
 
 // The group of this block: its index, its first block and its size.
 template <typename G>

@@ -274,25 +274,28 @@ __device__ __forceinline__ void fwd_products(const FwdTile& f,
 //
 // The window itself is fwd_persist_window, whose Step policy says where
 // round(h) lives and what ends a step: GridStep here (hc's two halves, the
-// grid barrier), lstm_tp_persist.cu's RankStep for K15 at D ranks (the
+// grid barrier), exchange.cuh's RankStep for K15 at D ranks (the
 // exchange buffers' slots, the exchange). It takes the block's place (its
 // first unit j0 and first row b0) and two widths: N, that of h and of U's
 // rows, and the gate stride gs, that of the outputs and of U's and the
 // input stream's gate blocks (N here; a rank's shard width nd at D ranks).
 constexpr int kMaxDevices = 64;
 
+// (lstm_tiled_f32.cuh's fp32 window takes it too, with HT = float.)
+template <typename HT>
 struct GridStep {
-  __nv_bfloat16* hc;  // (2, B, N)
-  size_t bn;          // B * N
+  HT* hc;     // (2, B, N)
+  size_t bn;  // B * N
   int N;
-  __device__ __forceinline__ const __nv_bfloat16* hin(int t) const {
+  __device__ __forceinline__ const HT* hin(int t) const {
     return hc + (size_t)(t % 2) * bn;
   }
   // round(h_t) of row b, unit j
   __device__ __forceinline__ void put(int t, int b, int j, float h) const {
-    hc[(size_t)((t + 1) % 2) * bn + (size_t)b * N + j] = __float2bfloat16(h);
+    hc[(size_t)((t + 1) % 2) * bn + (size_t)b * N + j] = from_f32<HT>(h);
   }
-  // h_t is complete before any block reads it
+  // h_t is complete before any block reads it, and the products' shared
+  // memory is free again
   __device__ __forceinline__ void sync(int) const {
     cooperative_groups::this_grid().sync();
   }
@@ -417,7 +420,8 @@ fwd_persist(const __nv_bfloat16* __restrict__ U,   // (N, 4N)
             RT* __restrict__ gseq,      // (S, B, 4N) or null
             RT* __restrict__ hdrop,     // (S, B, N) under dropout
             Dropout drop, int S, int B, int N, int rows, int kres, int standard) {
-  fwd_persist_window<RT, EMBED, TP>(GridStep{hc, (size_t)B * N, N}, U, xw, W, bias,
+  fwd_persist_window<RT, EMBED, TP>(GridStep<__nv_bfloat16>{hc, (size_t)B * N, N},
+                                    U, xw, W, bias,
                                     ids, c, hT, hseq, cseq, gseq, hdrop, drop, S, B,
                                     N, N, blockIdx.x * kFUnits, blockIdx.y * rows,
                                     rows, kres, standard);

@@ -1,6 +1,8 @@
 // The LSTM backward under fp32 compute for Hopper (sm_90a): the persistent
-// CUDA-core reverse design that K6, K3, K12 and K10 share. No PyTorch
-// headers. TF32 stays off for fp32 products, so fp32 keeps the CUDA cores.
+// CUDA-core reverse design that K6, K3, K12, K10 and K16 at D = 1 share
+// (K16 with its cT as c_last), and whose product (f32_load_u_rows,
+// f32_rec_splits, f32_split_sum) K16's D-rank design runs
+// (lstm_tp_f32_bwd.cu). No PyTorch headers. TF32 stays off for fp32 products, so fp32 keeps the CUDA cores.
 // G, the blocks of a group, is a template parameter, so each G is its own
 // set of kernels: lstm_bwd_f32.cu instantiates G = 4 and holds the C
 // launchers, lstm_bwd_f32_pairs.cu G = 2; the two build in parallel. The
@@ -112,12 +114,122 @@ inline size_t f32_smem_bytes(int B, int N, int G, int stages) {
   return sizeof(float) * ((size_t)4 * N / G * kFUnits + (ring > red ? ring : red));
 }
 
+// The group's 16 rows of U over a block's KG columns (part * KG..), once a
+// window, into Us ([k][unit of the group]): consecutive threads read
+// consecutive gate columns of one row. U (rows of K floats) read in place.
+__device__ __forceinline__ void f32_load_u_rows(const float* __restrict__ U,
+                                                float* Us, int K, int KG,
+                                                int p0, int part) {
+  for (int e = threadIdx.x; e < kFUnits * KG; e += kFThreads) {
+    const int uu = e / KG, k = e % KG;
+    Us[(size_t)k * kFUnits + uu] = U[(size_t)(p0 + uu) * K + (size_t)part * KG + k];
+  }
+}
+
+// The block's part of dgn @ U^T for its group's 16 units over its KG
+// columns, split kFSplit ways: dgn is the block's first column of row 0
+// of a (B, K) fp32 dg, written by other blocks before a barrier, so it is
+// read through L2 only (the ring's cp.async.cg); Us as f32_load_u_rows
+// leaves it. On return (after a block barrier) red, the ring's memory,
+// holds split s's partial sum of row b, unit uu at
+// red[(s * 16 RR + b) * kFRedPitch + uu], rows b < 16 RR; the caller adds
+// the splits in split order. The ring's slots are free again once every
+// thread has read red (the caller's next block barrier).
+template <int RR, int STAGES>
+__device__ __forceinline__ void f32_rec_splits(const float* dgn, const float* Us,
+                                               float* ring, int B, int K, int KG) {
+  constexpr int rows = kFRowGroups * RR;        // rows of a ring slot
+  constexpr int slot = rows * kFKC;
+  float* red = ring;                            // [split][rows][kFRedPitch]
+  const int tid = threadIdx.x;
+  const int split = tid / 32, uh = tid % 32 / 16, pq = tid % 16;
+  const int nchunks = KG / kFKC;
+  // chunk ch: columns ch * kFKC.. of the block's rows, vector p of row r
+  // at p ^ (r mod 8); rows past B zero-filled
+  const auto load_chunk = [&](int ch) {
+    float* st = ring + (size_t)(ch % STAGES) * slot;
+    for (int e = tid; e < rows * (kFKC / 4); e += kFThreads) {
+      const int r = e / (kFKC / 4), p = e % (kFKC / 4);
+      const bool in = r < B;
+      cp_async_16(st + r * kFKC + 4 * (p ^ (r % 8)),
+                  in ? dgn + (size_t)r * K + ch * kFKC + 4 * p : dgn,
+                  in ? 16 : 0);
+    }
+  };
+  float acc[RR][8];
+#pragma unroll
+  for (int i = 0; i < RR; ++i)
+#pragma unroll
+    for (int y = 0; y < 8; ++y) acc[i][y] = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < STAGES - 1; ++ch) {
+    if (ch < nchunks) load_chunk(ch);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
+    if (ch + STAGES - 1 < nchunks) load_chunk(ch + STAGES - 1);
+    cp_async_commit();
+    // split s's vectors s and s + 8 (k 4s.. and 32 + 4s.. of the chunk)
+    // of rows pq + 16 i (whose row mod 8 is pq mod 8), and U's units
+    // 8 uh.. at the same k
+    const float* sl = ring + (size_t)(ch % STAGES) * slot + pq * kFKC;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const int vec = split + kFSplit * w;
+      const float* ds = sl + 4 * (vec ^ (pq % 8));
+      const float* ub = Us + ((size_t)ch * kFKC + 4 * vec) * kFUnits + 8 * uh;
+      float4 dv[RR];
+#pragma unroll
+      for (int i = 0; i < RR; ++i)
+        dv[i] = *reinterpret_cast<const float4*>(ds + i * kFRowGroups * kFKC);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float4 w0 = *reinterpret_cast<const float4*>(ub + v * kFUnits);
+        const float4 w1 = *reinterpret_cast<const float4*>(ub + v * kFUnits + 4);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < RR; ++i) {
+          const float x = v == 0 ? dv[i].x : v == 1 ? dv[i].y : v == 2 ? dv[i].z : dv[i].w;
+#pragma unroll
+          for (int y = 0; y < 8; ++y) acc[i][y] = fmaf(x, wv[y], acc[i][y]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: reuse it as red
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    float* dst = red + ((size_t)split * rows + pq + kFRowGroups * i) * kFRedPitch + 8 * uh;
+    *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();
+}
+
+// Split s's partial of row b, unit uu (f32_rec_splits' red) added in split
+// order: the block's part of that dh_rec entry.
+template <int RR>
+__device__ __forceinline__ float f32_split_sum(const float* red, int b, int uu) {
+  constexpr int rows = kFRowGroups * RR;
+  const float* rb = red + (size_t)b * kFRedPitch;
+  float v = rb[uu];
+#pragma unroll
+  for (int s = 1; s < kFSplit; ++s) v += rb[(size_t)s * rows * kFRedPitch + uu];
+  return v;
+}
+
 template <typename RT, int RR, int STAGES, int kSteps, int G>
 __global__ void __launch_bounds__(kFThreads, 1)
 lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
                      const RT* __restrict__ g_seq,      // (S, B, 4N)
                      const RT* __restrict__ c_seq,      // (S, B, N)
                      const float* __restrict__ c0,      // (B, N)
+                     // (B, N) the fp32 c of step S - 1, read in place
+                     // of c_seq[S - 1] (K16's cT), or null
+                     const float* __restrict__ c_last,
                      const float* __restrict__ dh_seq,  // (S, B, N)
                      const float* __restrict__ dhT,     // (B, N)
                      float* __restrict__ dc,            // (B, N): dcT in, dc0 out
@@ -130,8 +242,6 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
   extern __shared__ __align__(16) unsigned char smem[];
   // epilogue rows of a thread: at most RR / 2 (G = 2: 32 rows a pass)
   constexpr int RE = RR > 1 ? RR / 2 : 1;
-  constexpr int rows = kFRowGroups * RR;        // rows of a ring slot
-  constexpr int slot = rows * kFKC;
   static_assert(kFKC == 2 * 4 * kFSplit && kFThreads == 32 * kFSplit,
                 "a warp a split, two 16-byte vectors of a slot row each");
   const int K = 4 * N, KG = K / G;              // gate columns, a block's
@@ -139,21 +249,14 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
   constexpr int RG = kFThreads / EU;            // its rows q + RG i
   float* Us = reinterpret_cast<float*>(smem);   // [k][unit of the group]
   float* ring = Us + (size_t)KG * kFUnits;      // STAGES x [rows][kFKC]
-  float* red = ring;                            // [split][rows][kFRedPitch]
   const int tid = threadIdx.x;
-  const int split = tid / 32, uh = tid % 32 / 16, pq = tid % 16;
   const int u = tid % EU, q = tid / EU;
   const int part = blockIdx.x % G, p0 = (blockIdx.x / G) * kFUnits;
   const int j = p0 + part * EU + u;             // this thread's unit
   const size_t bn = (size_t)B * N, bk = (size_t)B * K;
   cg::grid_group grid = cg::this_grid();
 
-  // U's rows of the group over the block's columns, once a window:
-  // consecutive threads read consecutive gate columns of one row
-  for (int e = tid; e < kFUnits * KG; e += kFThreads) {
-    const int uu = e / KG, k = e % KG;
-    Us[(size_t)k * kFUnits + uu] = U[(size_t)(p0 + uu) * K + (size_t)part * KG + k];
-  }
+  f32_load_u_rows(U, Us, K, KG, p0, part);
 
   // this thread's (b, j): rows q + RG i that lie in the batch; slot p of
   // the inputs holds step t - p's
@@ -171,7 +274,8 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
       const size_t gb = t * bk + (size_t)(q + RG * i) * K + j;
 #pragma unroll
       for (int g = 0; g < 4; ++g) gin[p][i][g] = to_f32(g_seq[gb + (size_t)g * N]);
-      cin[p][i] = to_f32(c_seq[t * bn + idx]);
+      cin[p][i] = t == S - 1 && c_last != nullptr ? c_last[idx]
+                                                  : to_f32(c_seq[t * bn + idx]);
       cpin[p][i] = t > 0 ? to_f32(c_seq[(t - 1) * bn + idx]) : c0[idx];
       dhin[p][i] = dh_seq[t * bn + idx];
     }
@@ -180,72 +284,9 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
   // The block's part of dh_rec = dg_tn @ U^T for the group's 16 units: its
   // own units' parts into mine, the others' stored into xbuf for their
   // owners (L2 only)
-  const int nchunks = KG / kFKC;
   const auto rec = [&](int tn, float (&mine)[RE]) {
-    const float* dgn = dg + (size_t)tn * bk + (size_t)part * KG;
-    // chunk ch: columns ch * kFKC.. of the block's rows, vector p of row r
-    // at p ^ (r mod 8); rows past B zero-filled
-    const auto load_chunk = [&](int ch) {
-      float* st = ring + (size_t)(ch % STAGES) * slot;
-      for (int e = tid; e < rows * (kFKC / 4); e += kFThreads) {
-        const int r = e / (kFKC / 4), p = e % (kFKC / 4);
-        const bool in = r < B;
-        cp_async_16(st + r * kFKC + 4 * (p ^ (r % 8)),
-                    in ? dgn + (size_t)r * K + ch * kFKC + 4 * p : dgn,
-                    in ? 16 : 0);
-      }
-    };
-    float acc[RR][8];
-#pragma unroll
-    for (int i = 0; i < RR; ++i)
-#pragma unroll
-      for (int y = 0; y < 8; ++y) acc[i][y] = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < STAGES - 1; ++ch) {
-      if (ch < nchunks) load_chunk(ch);
-      cp_async_commit();
-    }
-    for (int ch = 0; ch < nchunks; ++ch) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();  // chunk ch is in, and chunk ch - 1's slot is free
-      if (ch + STAGES - 1 < nchunks) load_chunk(ch + STAGES - 1);
-      cp_async_commit();
-      // split s's vectors s and s + 8 (k 4s.. and 32 + 4s.. of the chunk)
-      // of rows pq + 16 i (whose row mod 8 is pq mod 8), and U's units
-      // 8 uh.. at the same k
-      const float* sl = ring + (size_t)(ch % STAGES) * slot + pq * kFKC;
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const int vec = split + kFSplit * w;
-        const float* ds = sl + 4 * (vec ^ (pq % 8));
-        const float* ub = Us + ((size_t)ch * kFKC + 4 * vec) * kFUnits + 8 * uh;
-        float4 dv[RR];
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-          dv[i] = *reinterpret_cast<const float4*>(ds + i * kFRowGroups * kFKC);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const float4 w0 = *reinterpret_cast<const float4*>(ub + v * kFUnits);
-          const float4 w1 = *reinterpret_cast<const float4*>(ub + v * kFUnits + 4);
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < RR; ++i) {
-            const float x = v == 0 ? dv[i].x : v == 1 ? dv[i].y : v == 2 ? dv[i].z : dv[i].w;
-#pragma unroll
-            for (int y = 0; y < 8; ++y) acc[i][y] = fmaf(x, wv[y], acc[i][y]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the ring: reuse it as red
-#pragma unroll
-    for (int i = 0; i < RR; ++i) {
-      float* dst = red + ((size_t)split * rows + pq + kFRowGroups * i) * kFRedPitch + 8 * uh;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();
+    f32_rec_splits<RR, STAGES>(dg + (size_t)tn * bk + (size_t)part * KG, Us, ring,
+                               B, K, KG);
     // each unit's part, the splits added in split order: the thread's own
     // unit kept, the same column of the other blocks' units stored
 #pragma unroll
@@ -253,13 +294,10 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
       mine[i] = 0.0f;
       if (!valid(i)) continue;
       const int b = q + RG * i;
-      const float* rb = red + (size_t)b * kFRedPitch;
 #pragma unroll
       for (int o = 0; o < G; ++o) {
         const int uu = o * EU + u;
-        float v = rb[uu];
-#pragma unroll
-        for (int s = 1; s < kFSplit; ++s) v += rb[(size_t)s * rows * kFRedPitch + uu];
+        const float v = f32_split_sum<RR>(ring, b, uu);
         if (o == part)
           mine[i] = v;
         else
@@ -349,8 +387,8 @@ lstm_bwd_f32_persist(const float* __restrict__ U,       // (N, 4N)
 // the launch to *launches, or the error.
 template <typename RT, int RR, int STAGES, int kSteps, int G>
 int run_f32(const void* U, const void* g_seq, const void* c_seq, const float* c0,
-            const float* dh_seq, const float* dhT, float* dc, float* dg,
-            float* xbuf, float* dh0, Dropout drop, int S, int B, int N,
+            const float* c_last, const float* dh_seq, const float* dhT, float* dc,
+            float* dg, float* xbuf, float* dh0, Dropout drop, int S, int B, int N,
             int standard, cudaStream_t stream, int* launches) {
   const auto kernel = lstm_bwd_f32_persist<RT, RR, STAGES, kSteps, G>;
   const size_t smem = f32_smem_bytes(B, N, G, STAGES);
@@ -361,8 +399,8 @@ int run_f32(const void* U, const void* g_seq, const void* c_seq, const float* c0
   const float* u = static_cast<const float*>(U);
   const RT* gs = static_cast<const RT*>(g_seq);
   const RT* cs = static_cast<const RT*>(c_seq);
-  void* args[] = {&u, &gs, &cs, &c0, &dh_seq, &dhT, &dc, &dg, &xbuf, &dh0,
-                  &drop, &S, &B, &N, &standard};
+  void* args[] = {&u, &gs, &cs, &c0, &c_last, &dh_seq, &dhT, &dc, &dg, &xbuf,
+                  &dh0, &drop, &S, &B, &N, &standard};
   cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kFThreads), args,
       smem, stream);
@@ -378,12 +416,12 @@ int run_f32(const void* U, const void* g_seq, const void* c_seq, const float* c0
 
 template <typename RT, int kSteps, int G>
 int bwd_f32(const void* U, const void* g_seq, const void* c_seq, const float* c0,
-            const float* dh_seq, const float* dhT, float* dc, float* dg,
-            float* xbuf, float* dh0, Dropout drop, int S, int B, int N,
+            const float* c_last, const float* dh_seq, const float* dhT, float* dc,
+            float* dg, float* xbuf, float* dh0, Dropout drop, int S, int B, int N,
             int stages, int standard, cudaStream_t stream, int* launches) {
   const auto f = [&](auto run) {
-    return run(U, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, xbuf, dh0, drop, S, B,
-               N, standard, stream, launches);
+    return run(U, g_seq, c_seq, c0, c_last, dh_seq, dhT, dc, dg, xbuf, dh0, drop,
+               S, B, N, standard, stream, launches);
   };
   const int RR = f32_rows_per_thread(B);
 #define BWD_F32_CASE(r, st) \
@@ -397,15 +435,17 @@ int bwd_f32(const void* U, const void* g_seq, const void* c_seq, const float* c0
 // run time; arguments as lstm_bwd_f32_launch's, which checks them.
 template <int G>
 int launch_groups(int rtype, const void* U, const void* g_seq,
-                  const void* c_seq, const void* c0, const void* dh_seq,
-                  const void* dhT, void* dc, void* dg, void* xbuf, void* dh0,
+                  const void* c_seq, const void* c0, const void* c_last,
+                  const void* dh_seq, const void* dhT, void* dc, void* dg,
+                  void* xbuf, void* dh0,
                   int S, int B, int N, int stages, int steps, int standard,
                   int drop_on, unsigned seed, unsigned keep, float inv,
                   void* stream, int* launches) {
   const Dropout drop{drop_on, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, g_seq, c_seq, static_cast<const float*>(c0),
-               static_cast<const float*>(dh_seq), static_cast<const float*>(dhT),
+               static_cast<const float*>(c_last), static_cast<const float*>(dh_seq),
+               static_cast<const float*>(dhT),
                static_cast<float*>(dc), static_cast<float*>(dg),
                static_cast<float*>(xbuf), static_cast<float*>(dh0), drop, S, B,
                N, stages, standard, static_cast<cudaStream_t>(stream), launches);

@@ -27,29 +27,34 @@
 //       gives a layout, it is the persistent tensor-core forward of
 //       fwd_mma.cuh (fwd_persist with K15's streams: xw fp32, h_seq fp32,
 //       c_prev = c_{t-1}; U's rows in shared memory, mma.sync, a share of
-//       the batch rows a block); elsewhere (fp32) the cooperative design
-//       below.
+//       the batch rows a block); under fp32 compute, where
+//       split_fwd_f32_plan gives one, K9's fp32 persistent kernel in K15's
+//       mode (lstm_tp_f32.cu: tp_seq_fwd_f32_launch); elsewhere the
+//       cooperative design below.
 //   tp_seq_bwd_launch (K16) <- pallas_tp_seq.py:_bwd_kernel (:125): the
 //       reverse window in one launch, at D = 1 (at D > 1 see
 //       tp_seq_bwd_ranks_launch): dh_t = dh_seq[t] + (dhT at
 //       t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, dg in fp32;
-//       then dh0 = round(dg_0) @ U^T and dc0. This is K16's design for fp32
-//       compute and for shapes K6's persistent layout does not take; under
-//       bf16 compute elsewhere K16 is lstm_bwd.cu's persistent kernel
-//       (ops/cuda_cell_bwd.py:k6_plan), the same recurrence with U in
-//       shared memory and dh_rec on tensor cores: 0.93 ms against this
-//       design's 4.28 at the bench's shapes (PERF.md).
+//       then dh0 = round(dg_0) @ U^T and dc0. This is K16's design for the
+//       shapes K6's persistent layouts do not take; elsewhere K16 is K6's
+//       persistent kernel of its type, the same recurrence with U in
+//       shared memory (ops/cuda_cell_bwd.py: k6_plan, lstm_bwd.cu, dh_rec
+//       on tensor cores; k6_f32_plan, lstm_bwd_f32.cu, on CUDA cores): at
+//       the bench's shapes 0.93 ms in bf16 and 1.76 in fp32 against this
+//       design's 4.2 and 4.0 (PERF.md).
 //   K15 and K16 at D > 1 <- the same two kernels with their in-kernel
 //       exchange (pallas_tp_seq.py:96-120, :150-177): the remote copies
 //       written as stores into the peers' exchange buffers and a flag a step
 //       raised at system scope (exchange.cuh), in place of the grid barrier.
-//       Under bf16 compute, where ops/cuda_tp_seq.py's planners give a
-//       layout, the persistent tensor-core designs of lstm_tp_persist.cu
+//       Where ops/cuda_tp_seq.py's planners give a layout, the persistent
+//       designs of the compute type: in bf16 those of lstm_tp_persist.cu
 //       (tp_seq_fwd_persist_ranks_launch: fwd_mma.cuh's persistent forward
 //       with the exchange as its step's end; tp_seq_bwd_persist_ranks_launch:
-//       K6's persistent reverse step with the reduce-scatter inside);
-//       elsewhere (fp32, shapes no layout takes) the cooperative CUDA-core
-//       tiles (tp_seq_fwd_ranks_launch, tp_seq_bwd_ranks_launch). One launch
+//       K6's persistent reverse step with the reduce-scatter inside), in
+//       fp32 their CUDA-core counterparts of lstm_tp_f32.cu and
+//       lstm_tp_f32_bwd.cu; elsewhere (shapes no layout takes) the
+//       cooperative CUDA-core tiles (tp_seq_fwd_ranks_launch,
+//       tp_seq_bwd_ranks_launch). One launch
 //       holds one rank group on each of D cards (the peers' buffers mapped
 //       through CUDA IPC, csrc/exchange.cu), or D rank groups on one card,
 //       the same device code over the card's D buffers. Only the one-card
@@ -90,10 +95,10 @@
 // its one-step lead between devices. U_d stays in L2 across the window
 // (0.5 MB in bf16 at the bench's shapes, of 50 MB) rather than in shared
 // memory; K16 reads U^T (4nd, N) so that the lanes read coalesced, as K3
-// does. Under bf16 compute both take the persistent designs named above,
-// with U's rows in shared memory and their products on tensor cores; fp32
-// keeps these. At D > 1 fp32 and the shapes the persistent designs do not
-// take keep these tiles with the exchange: K15's tile sums in K15's order
+// does. Wherever their plans give a layout both take the persistent
+// designs named above, with U's rows in shared memory; the shapes no plan
+// takes keep these. At D > 1 those shapes keep these tiles with the
+// exchange: K15's tile sums in K15's order
 // at D = 1 (a unit's order depends on N and kKS, not nd), so its fp32
 // forward is the D = 1 design's bit for bit; K16 runs two phases a reverse
 // step (the partial over all N columns into the owners' chunks, then each

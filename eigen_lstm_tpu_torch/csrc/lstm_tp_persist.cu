@@ -3,8 +3,9 @@
 // PyTorch headers. They replace the D > 1 exchange of the TPU kernels
 // pallas_tp_seq.py:_fwd_kernel (:59; the exchange :96-120) and _bwd_kernel
 // (:125; :150-177) under bf16 compute, wherever ops/cuda_tp_seq.py's
-// planners give a layout; fp32 and the shapes they refuse keep lstm_tp.cu's
-// cooperative tiles (tp_seq_fwd_x, tp_seq_bwd_x). Both compute what the
+// planners give a layout; fp32 takes the CUDA-core counterparts of
+// lstm_tp_f32.cu and lstm_tp_f32_bwd.cu, and the shapes no plan takes
+// keep lstm_tp.cu's cooperative tiles (tp_seq_fwd_x, tp_seq_bwd_x). Both compute what the
 // TPU kernels compute: the full h all-gathered each step in the forward,
 // the reduce-scatter of round(dg_{t+1}) @ U_r^T in the backward, each
 // rank's D chunks summed in rank order. The exchange (peer table, flags,
@@ -40,33 +41,9 @@ namespace {
 // columns [r * nd, +nd), of every rank's buffer, its own too, and ends with
 // the exchange. The last step stores and exchanges nothing (a peer's next
 // call may already hold its h0 in that slot); the host copies h0 into slot
-// base % 3 first (copy_h0). With the D = 1 layout's rows a unit's sums
-// are the D = 1 persistent K15's: the same chunks of h and of U's column,
-// the same warps' k steps.
-struct RankStep {
-  const PeerTable& peers;
-  int me, D, N, nd, S;
-  unsigned long long base;
-  long long h_off;
-  size_t bN;        // B * N
-  unsigned* count;  // the rank's forward barrier count
-  int nb;
-  __device__ __forceinline__ const __nv_bfloat16* hin(int t) const {
-    return reinterpret_cast<const __nv_bfloat16*>(peers.buf[me] + h_off) +
-           ((base + t) % 3) * bN;
-  }
-  __device__ __forceinline__ void put(int t, int b, int j, float h) const {
-    if (t + 1 == S) return;  // the last step exchanges nothing
-    const __nv_bfloat16 v = __float2bfloat16(h);
-    const size_t at = ((base + t + 1) % 3) * bN + (size_t)b * N + (size_t)me * nd + j;
-    for (int q = 0; q < D; ++q)
-      reinterpret_cast<__nv_bfloat16*>(peers.buf[q] + h_off)[at] = v;
-  }
-  __device__ __forceinline__ void sync(int t) const {
-    exchange(peers, me, D, kFwdFlag, count, nb, static_cast<unsigned>(base + t + 1));
-  }
-};
-
+// base % 3 first (copy_h0): exchange.cuh's RankStep. With the D = 1
+// layout's rows a unit's sums are the D = 1 persistent K15's: the same
+// chunks of h and of U's column, the same warps' k steps.
 template <typename RT>
 struct PersistFwdGroup {
   const __nv_bfloat16* U;  // (N, 4nd), the rank's shard
@@ -94,8 +71,9 @@ tp_seq_fwd_persist_x(const __grid_constant__ PersistFwdRanks<RT> a, int groups,
   const PersistFwdGroup<RT>& G = a.g[my_group(a.g, groups, &nb)];
   const int bi = static_cast<int>(blockIdx.x) - G.first;
   const int cols = nd / kFUnits;
-  const RankStep step{peers, G.rank, D, N, nd, S, base, h_off, (size_t)B * N,
-                      words(peers.buf[G.rank], kFwdBar), nb};
+  const RankStep<__nv_bfloat16> step{peers, G.rank, D, N, nd, S, base, h_off,
+                                     (size_t)B * N, words(peers.buf[G.rank], kFwdBar),
+                                     nb};
   fwd_persist_window<RT, false, true>(
       step, G.U, G.xw, nullptr, nullptr, nullptr, G.c, G.hT, G.hseq, G.cprev,
       G.gseq, nullptr, Dropout{0, 0, 0, 0.0f}, S, B, N, nd,

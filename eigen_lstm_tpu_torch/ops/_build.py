@@ -60,7 +60,7 @@ SIGNATURES = {
                                 + [_P, _IP]),
     "lstm_bwd_dWU_launch": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_P, _IP]),
     "lstm_bwd_tail_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
-    "lstm_bwd_f32_launch": (_I, [_I] + [_P] * 10 + [_I] * 8 + _DROP
+    "lstm_bwd_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 8 + _DROP
                             + [_P, _IP]),
     "lstm_bwd_f32_smem_bytes": (_Z, [_I] * 4),
     "lstm_bwd_device_limits": (_I, [_IP, _IP]),
@@ -105,6 +105,11 @@ SIGNATURES = {
                                         + [_I, _PP, _LL, _ULL] + [_I] * 7
                                         + [_P, _IP]),
     "tp_seq_bwd_persist_smem_bytes": (_Z, [_I] * 3),
+    "tp_seq_fwd_f32_launch": (_I, [_I] + [_P] * 8 + [_I] * 8 + [_P, _IP]),
+    "tp_seq_fwd_f32_ranks_launch": (_I, [_I, _I, _IP, _IP, _I, _I, _I] + [_PP] * 8
+                                    + [_I, _PP, _LL, _ULL] + [_I] * 5 + [_P, _IP]),
+    "tp_seq_bwd_f32_ranks_launch": (_I, [_I, _I, _IP, _I, _I, _I] + [_PP] * 9
+                                    + [_I, _PP, _LL, _ULL] + [_I] * 5 + [_P, _IP]),
     "exchange_alloc": (_I, [_Z, _PP]),
     "exchange_free": (_I, [_P]),
     "exchange_ipc_handle": (_I, [_P, _CP]),

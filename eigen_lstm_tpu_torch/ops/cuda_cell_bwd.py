@@ -28,7 +28,9 @@ rows (``k6_f32_plan``: every width of the resident family, the flagship's
 launch for the reverse steps and dh0 (``lstm_bwd_f32_launch``, groups of 2
 or 4 blocks splitting the gate axis; K12 with its steps in pairs, K3's
 bits; K10, ``cuda_cell_tiled.tiled_bwd``, takes the same launch,
-``reverse_f32``, in pairs of blocks), then the CUDA-core reductions from
+``reverse_f32``, in pairs of blocks, and K16 at D = 1,
+``cuda_tp_seq.tp_seq_bwd``, with its c_prev advanced a step and cT as
+c_last), then the CUDA-core reductions from
 the fp32 dg (``lstm_bwd_tail_launch``: dU; K3's and K12's dW and db).
 Elsewhere (N =
 2048, B > 128) each takes one launch a reverse step (K12 two steps a
@@ -289,7 +291,9 @@ def k6_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int, smem_limit: int,
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
     once; checks that the library lays out the persistent designs' shared
-    memory as ``persist_smem_bytes`` and ``f32_smem_bytes`` do."""
+    memory as ``persist_smem_bytes`` and ``f32_smem_bytes`` do (the latter
+    also at one block a group and a shard's width: K16's fp32 design at D
+    ranks, ``cuda_tp_seq.ranks_bwd_f32_plan``)."""
     lib = _build.load_library()
     sms, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
@@ -301,7 +305,8 @@ def _device_limits(index: int):
             raise RuntimeError("persist_smem_bytes disagrees with "
                                "csrc/lstm_bwd.cu's layout")
     for b, n, blocks, st in ((128, 1024, 2, 3), (128, 512, 4, 3), (16, 512, 4, 6),
-                             (64, 640, 2, 5), (100, 1056, 2, 2)):
+                             (64, 640, 2, 5), (100, 1056, 2, 2), (128, 512, 1, 3),
+                             (128, 256, 2, 3)):
         if lib.lstm_bwd_f32_smem_bytes(b, n, blocks, st) != f32_smem_bytes(b, n, blocks, st):
             raise RuntimeError("f32_smem_bytes disagrees with "
                                "csrc/lstm_bwd_f32.cu's layout")
@@ -409,21 +414,27 @@ def _persist(plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg_out, dh0, out,
 
 
 def reverse_f32(plan: F32Plan, cfg: ModelConfig, U_k, g_k, c_k, c0_k, dh_k,
-                dhT_k, dc, dg, dh0, dropout, launched, steps: int = 1) -> int:
+                dhT_k, dc, dg, dh0, dropout, launched, steps: int = 1,
+                c_last=None) -> int:
     """The fp32 persistent design's reverse launch on the card (K6, K3,
-    K12 with ``steps`` 2, and K10): the S reverse steps into the fp32
-    ``dg``, dc0 into ``dc`` (dcT on entry) and dh0 = dg_0 @ U^T into
-    ``dh0``. U_k (N, 4N) fp32 read in place, g_k and c_k in the residual
-    type. Adds its launch to ``launched``; returns the error code."""
-    s, b, n = c_k.shape
+    K12 with ``steps`` 2, K10, and K16 at D = 1): the S reverse steps into
+    the fp32 ``dg``, dc0 into ``dc`` (dcT on entry) and dh0 = dg_0 @ U^T
+    into ``dh0``. U_k (N, 4N) fp32 read in place, g_k (S, B, 4N) and c_k in
+    the residual type; ``c_last`` None, or the fp32 c_{S-1} that the kernel
+    reads in place of c_k[S-1] (K16: cT, with c_k its c_prev advanced a
+    step, S - 1 steps long). Adds its launch to ``launched``; returns the
+    error code."""
+    s, b, n4 = g_k.shape
+    n = n4 // 4
     # the groups' parts of dh_rec, exchanged within the launch
-    xbuf = torch.empty(plan.blocks * b * n, dtype=torch.float32, device=c_k.device)
+    xbuf = torch.empty(plan.blocks * b * n, dtype=torch.float32, device=g_k.device)
     return _build.load_library().lstm_bwd_f32_launch(
-        cuda_cell._TYPE_CODES[cfg.rdtype], U_k.data_ptr(), g_k.data_ptr(),
-        c_k.data_ptr(), c0_k.data_ptr(), dh_k.data_ptr(), dhT_k.data_ptr(),
-        dc.data_ptr(), dg.data_ptr(), xbuf.data_ptr(), dh0.data_ptr(), s, b, n,
-        plan.blocks, plan.stages, steps,
-        *_launch_args(cfg, dropout, c_k.device), ctypes.byref(launched))
+        cuda_cell._TYPE_CODES[g_k.dtype], U_k.data_ptr(), g_k.data_ptr(),
+        c_k.data_ptr(), c0_k.data_ptr(),
+        None if c_last is None else c_last.data_ptr(), dh_k.data_ptr(),
+        dhT_k.data_ptr(), dc.data_ptr(), dg.data_ptr(), xbuf.data_ptr(),
+        dh0.data_ptr(), s, b, n, plan.blocks, plan.stages, steps,
+        *_launch_args(cfg, dropout, g_k.device), ctypes.byref(launched))
 
 
 def _persist_f32(plan: F32Plan, cfg: ModelConfig, seqs, ins, U_k, dc, dg, dh0,

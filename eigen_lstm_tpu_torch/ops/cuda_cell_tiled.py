@@ -33,7 +33,11 @@ forwards compute the same functions and take the bf16 persistent design
 through the same launchers (``embed_launch`` for K1, ``scan_launch`` for
 K2), as does K15 (``cuda_tp_seq``); K1's and K15's blocks take a share of
 the batch rows where N / 16 blocks would leave most SMs idle
-(``split_fwd_plan``). K10 has three such designs too: under bf16 compute
+(``split_fwd_plan``). Under fp32 compute K15 takes K9's fp32 persistent
+kernel in K15's mode (``csrc/lstm_tiled_f32.cuh``: h_seq in fp32, c_prev =
+c_{t-1}), its blocks a share of the batch rows where N / 8 blocks would
+leave SMs idle (``split_fwd_f32_plan``, ``f32_split_layout``, which its
+D-rank design shares). K10 has three such designs too: under bf16 compute
 (``tiled_bwd_plan``), where its grid of (N / 32) * ceil(B / rows) blocks
 can be resident, one persistent cooperative launch a window that also
 gives dh0, with as many chunks of U's rows as fit in shared memory and
@@ -360,6 +364,64 @@ def tiled_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
     return None if ring is None else F32Layout(rows, *ring)
 
 
+class F32Split(NamedTuple):
+    """K15's fp32 persistent design (K9's kernel in K15's mode): ``rows``
+    batch rows a block, and the ring of a block of that many rows
+    (``per`` rows a thread, ``stages`` slots of ``kc`` columns)."""
+    rows: int
+    per: int
+    kc: int
+    stages: int
+
+
+def f32_split_rows(b: int, blocks: int, sms: int) -> int:
+    """Batch rows a block of the fp32 persistent forward takes in K15's
+    mode, where ``blocks`` column blocks (N / 8 at D = 1, nd / 8 at D
+    ranks) would leave the ``sms`` SMs idle: every row where the grid
+    reaches half the SMs, else the fewest of 2 and 4 block rows whose grid
+    does (at the bench's N = 512, 64 blocks: 2 rows of 64 batch rows, 128
+    blocks). A row's sums do not depend on the rows its block holds."""
+    for split in (1, 2):
+        rows = -(-b // split)
+        if 2 * blocks * -(-b // rows) >= sms:
+            return rows
+    return -(-b // 4)
+
+
+def f32_split_layout(b: int, n: int, blocks: int, sms: int, smem_limit: int,
+                     rows: Optional[int] = None) -> Optional[F32Split]:
+    """The fp32 persistent forward's layout in K15's mode for ``blocks``
+    column blocks over h of width ``n``: ``rows`` (``f32_split_rows`` by
+    default) batch rows a block, the first ring of F32_RINGS at that many
+    rows whose KC divides N and that fits beside the N x 32 slice of U;
+    None where the grid is not resident at one block an SM or nothing
+    fits."""
+    rows = min(b, rows or f32_split_rows(b, blocks, sms))
+    if blocks * -(-b // rows) > sms:
+        return None
+    per = f32_rows_per_thread(rows)
+    ring = next((r for r in F32_RINGS[per] if n % r[0] == 0
+                 and f32_persist_smem_bytes(rows, n, *r) <= smem_limit), None)
+    return None if ring is None else F32Split(rows, per, *ring)
+
+
+def split_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
+                       smem_limit: int, split: bool = True) -> Optional[F32Split]:
+    """K15's design under fp32 compute at D = 1 (batch, hidden) on a device
+    of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: K9's fp32 persistent kernel in K15's mode with the batch split
+    over block rows (``f32_split_rows``; every row in a block without
+    ``split``), or None for K15's cooperative design (also under bf16
+    compute, whose plan is ``split_fwd_plan``). It needs what
+    ``tiled_fwd_f32_plan`` needs of K9: N a multiple of 32, at most
+    F32_ROWS batch rows, a resident grid, the slice of U and a ring in a
+    block's shared memory."""
+    if cfg.cdtype != torch.float32 or n % 32 or not 1 <= b <= F32_ROWS:
+        return None
+    return f32_split_layout(b, n, n // F32_UNITS, sms, smem_limit,
+                            None if split else b)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
@@ -376,7 +438,7 @@ def _device_limits(index: int):
             raise RuntimeError("persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
     for b, n, kc, st in ((128, 1024, 64, 2), (16, 1024, 128, 4), (32, 1024, 32, 3),
-                         (64, 512, 64, 4), (100, 1056, 32, 3)):
+                         (64, 512, 64, 4), (100, 1056, 32, 3), (50, 512, 64, 4)):
         if lib.tiled_fwd_f32_smem_bytes(b, n, kc, st) != f32_persist_smem_bytes(b, n, kc, st):
             raise RuntimeError("f32_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled_f32.cu's layout")
@@ -404,6 +466,13 @@ def device_split_fwd_plan(cfg: ModelConfig, b: int, n: int):
     """``split_fwd_plan`` with the current card's SMs and shared-memory
     limit."""
     return split_fwd_plan(cfg, b, n, *_device_limits(torch.cuda.current_device()))
+
+
+def device_split_fwd_f32_plan(cfg: ModelConfig, b: int, n: int):
+    """``split_fwd_f32_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return split_fwd_f32_plan(cfg, b, n,
+                              *_device_limits(torch.cuda.current_device()))
 
 
 # The persistent K10's shared-memory layout, as csrc/lstm_tiled.cu lays it

@@ -19,39 +19,56 @@ over the group and the dh partials reduce-scattered, so the plain versions
 are exact at any D. Each wrapper counts its launches in ``.launches``, one
 a call.
 
-At D = 1 K15 has two designs of one function, both behind
-``tp_seq_fwd_launch`` of ``csrc/lstm_tp.cu``. Under bf16 compute, wherever
-``cuda_cell_tiled.split_fwd_plan`` gives a layout, it is the persistent
-tensor-core forward of K8/K9 (``csrc/fwd_mma.cuh:fwd_persist``: U's rows
-in shared memory, the products on tensor cores, a share of the batch rows
-a block) with K15's own streams: xw in fp32 with the bias, the exchange
-buffer's round(h) in the compute type, h_seq in fp32, g and c_prev =
-c_{t-1} in the residual type; only the order of the product's fp32 sums
-moves. Elsewhere (fp32) it is one cooperative launch of CUDA-core step
-tiles. K16 at D = 1 is K6's reverse recurrence, so under bf16 compute,
-wherever ``cuda_cell_bwd.k6_plan`` gives a layout, it is K6's persistent
-kernel (``lstm_bwd_persist_launch``: U in shared memory, dh_rec on tensor
-cores, dg written in fp32 as well), given K16's c layout without a copy of
-the stream: c_prev advanced by one step as c_seq, c_prev[0] as c0 and cT,
-in fp32, as c_{S-1}. Elsewhere (fp32, or no layout) it is
-``tp_seq_bwd_launch``, one cooperative launch of CUDA-core step tiles over
-U^T.
+At D = 1 K15 has three designs of one function. Under bf16 compute,
+wherever ``cuda_cell_tiled.split_fwd_plan`` gives a layout, it is the
+persistent tensor-core forward of K8/K9 (``csrc/fwd_mma.cuh:fwd_persist``
+through ``tp_seq_fwd_launch``: U's rows in shared memory, the products on
+tensor cores, a share of the batch rows a block) with K15's own streams:
+xw in fp32 with the bias, the exchange buffer's round(h) in the compute
+type, h_seq in fp32, g and c_prev = c_{t-1} in the residual type; only the
+order of the product's fp32 sums moves. Under fp32 compute, wherever
+``cuda_cell_tiled.split_fwd_f32_plan`` gives one, it is K9's fp32
+persistent CUDA-core kernel in K15's mode (``csrc/lstm_tiled_f32.cuh``
+through ``tp_seq_fwd_f32_launch``: each block its N x 32 slice of U in
+shared memory, the batch over block rows where N / 8 blocks would leave SMs
+idle, the same streams). Elsewhere it is one cooperative launch of
+CUDA-core step tiles (``tp_seq_fwd_launch`` without a layout). K16 at
+D = 1 is K6's reverse recurrence, so wherever ``cuda_cell_bwd.k6_plan``
+(bf16) or ``k6_f32_plan`` (fp32) gives a layout it is K6's persistent
+kernel of that type (``lstm_bwd_persist_launch``: U in shared memory,
+dh_rec on tensor cores, dg written in fp32 as well;
+``lstm_bwd_f32_launch``: U's rows over a block's gate columns in shared
+memory, dh_rec on CUDA cores), given K16's c layout without a copy of the
+stream: c_prev advanced by one step as c_seq, c_prev[0] as c0 and cT, in
+fp32, as c_{S-1}. Elsewhere it is ``tp_seq_bwd_launch``, one cooperative
+launch of CUDA-core step tiles over U^T. The D-rank cooperative kernels
+run at one group give the D = 1 cooperative kernels' bits, but 1-10 %
+slower at the bench's shapes (PERF.md), so the D = 1 ones stay.
 
 At D > 1 both run the TPU kernel's in-kernel exchange: K15 stores its
 tile of h_t into slot (t+1) mod 3 of every rank's h buffer and waits for
 the D ranks' flags before step t+1 reads; K16 stores column j of its
 partial round(dg_{t+1}) @ U_d^T into rank j / nd's chunk, and each rank
-sums its D chunks in rank order. Under bf16 compute, wherever the
-planners give a layout (``ranks_fwd_plan``: (kres, rows);
-``ranks_bwd_plan``: (units, rows); each for the SMs and shared memory one
-rank group may use), these are the persistent tensor-core designs
-(``tp_seq_fwd_persist_ranks_launch``: K15's persistent forward with the
-exchange in place of its grid barrier, the D = 1 layout's rows on one
-card, so its bits are the D = 1 design's; ``tp_seq_bwd_persist_ranks_launch``:
-K6's persistent reverse step, U_r's rows in shared memory, the partials on
-tensor cores, dc in registers, a rank barrier and an exchange a step).
-Elsewhere (fp32, or no layout) they are the cooperative CUDA-core tiles
-(``tp_seq_fwd_ranks_launch``, ``tp_seq_bwd_ranks_launch``). The buffers
+sums its D chunks in rank order. Wherever the planners give a layout
+(each for the SMs and shared memory one rank group may use) these are
+the persistent designs of the compute type. Under bf16 compute
+(``ranks_fwd_plan``: (kres, rows); ``ranks_bwd_plan``: (units, rows))
+the tensor-core ones (``tp_seq_fwd_persist_ranks_launch``: K15's
+persistent forward with the exchange in place of its grid barrier, the
+D = 1 layout's rows on one card, so its bits are the D = 1 design's;
+``tp_seq_bwd_persist_ranks_launch``: K6's persistent reverse step, U_r's
+rows in shared memory, the partials on tensor cores, dc in registers, a
+rank barrier and an exchange a step). Under fp32 compute
+(``ranks_fwd_f32_plan``: a ``cuda_cell_tiled.F32Split``;
+``ranks_bwd_f32_plan``: a ``cuda_cell_bwd.F32Plan``) the CUDA-core ones
+(``tp_seq_fwd_f32_ranks_launch``: the fp32 K15 window with the exchange,
+the D = 1 fp32 persistent K15's bits; ``tp_seq_bwd_f32_ranks_launch``:
+K6's fp32 reverse step over the rank's 4nd gate columns, N / 16 unit
+groups of G blocks whose G parts go to their owners' chunks and are
+added in part order, then the senders in rank order; G from the SMs a
+rank has on one card, on D cards too). Elsewhere (no layout) they are
+the cooperative CUDA-core tiles (``tp_seq_fwd_ranks_launch``,
+``tp_seq_bwd_ranks_launch``). The buffers
 (``exchange_layout``) are one ``cudaMalloc`` a rank: on D cards the
 group's (``group_exchange``: handles all-gathered over the model axis,
 peers mapped with CUDA IPC, held by the group and released when it
@@ -216,6 +233,7 @@ def tp_seq_bwd_ranks_plain(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
 # --- the exchange of the D > 1 designs --------------------------------------
 
 MAX_RANKS = 8          # csrc/exchange.cuh:kMaxRanks
+MAX_PARTS = 4          # csrc/exchange.cuh:kMaxParts, the fp32 backward's G at most
 HEADER_BYTES = 512     # a buffer's flags and rank barriers (exchange.cuh)
 SLOTS = 3              # h slots and chunk slots, as the TPU kernel's
 LANES, BATCH_TILE = 32, 4   # a tile's units and batch rows (common.cuh)
@@ -225,8 +243,10 @@ LANES, BATCH_TILE = 32, 4   # a tile's units and batch rows (common.cuh)
 class ExchangeLayout:
     """Byte offsets in one rank's exchange buffer: the header at 0 (flags,
     rank barriers), the forward's h slots (SLOTS, B, N) in the compute type
-    at ``h_off``, the backward's chunks (SLOTS, D, B, nd) fp32 at
-    ``r_off``; ``nbytes`` in all."""
+    at ``h_off``, the backward's chunks (SLOTS, D, P, B, nd) fp32 at
+    ``r_off`` (P the parts a sender sends: under fp32 compute room for
+    MAX_PARTS, the fp32 persistent backward's G; else 1); ``nbytes`` in
+    all."""
 
     h_off: int
     r_off: int
@@ -239,12 +259,14 @@ def _align(x: int, to: int = 256) -> int:
 
 def exchange_layout(b: int, n: int, d: int, csize: int) -> ExchangeLayout:
     """The layout of a rank's buffer at batch b, width n = D * nd and a
-    compute type of ``csize`` bytes."""
+    compute type of ``csize`` bytes (4: fp32, whose chunks hold MAX_PARTS
+    parts a sender)."""
     if d < 1 or d > MAX_RANKS or n % d:
         raise ValueError(f"no exchange layout for D = {d}, N = {n}")
+    parts = MAX_PARTS if csize == 4 else 1
     h_off = HEADER_BYTES
     r_off = _align(h_off + SLOTS * b * n * csize)
-    return ExchangeLayout(h_off, r_off, _align(r_off + SLOTS * b * n * 4))
+    return ExchangeLayout(h_off, r_off, _align(r_off + SLOTS * parts * b * n * 4))
 
 
 def fwd_tiles(b: int, nd: int) -> int:
@@ -430,11 +452,12 @@ def _ints(xs):
 def _fwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
                rtype: int, layouts=None):
     """One launch of the D-rank forward for the groups of ``ranks``, each
-    with its (U_c, xw, h0_full, c0): the persistent design with
-    ``layouts`` (a layout a group), else the cooperative one with
+    with its (U_c, xw, h0_full, c0): the persistent design of the compute
+    type with ``layouts`` (a layout a group), else the cooperative one with
     ``blocks``. (Their outputs, the launches.)"""
     if layouts is not None:
-        return _fwd_persist_ranks(ex, ranks, layouts, ins, cfg, rtype)
+        persist = _fwd_f32_ranks if cfg.cdtype == torch.float32 else _fwd_persist_ranks
+        return persist(ex, ranks, layouts, ins, cfg, rtype)
     s, b, nd4 = ins[0][1].shape
     nd, n, dev = nd4 // 4, ins[0][2].shape[1], ins[0][1].device
     d = len(ex.ptrs)
@@ -466,7 +489,8 @@ def _bwd_ranks(ex: Exchange, ranks, blocks, ins, cfg: ModelConfig, ctype: int,
     with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT), as ``_fwd_ranks``:
     (their (dg, dh0, dc0), the launches)."""
     if layouts is not None:
-        return _bwd_persist_ranks(ex, ranks, layouts, ins, cfg, rtype)
+        persist = _bwd_f32_ranks if cfg.cdtype == torch.float32 else _bwd_persist_ranks
+        return persist(ex, ranks, layouts, ins, cfg, rtype)
     s, b, nd4 = ins[0][1].shape
     nd, dev = nd4 // 4, ins[0][1].device
     n = ins[0][0].shape[0]
@@ -596,10 +620,13 @@ def _card_limits():
 
 
 def device_ranks_fwd_plan(cfg: ModelConfig, b: int, n: int, d: int, one_card: bool):
-    """``ranks_fwd_plan`` on the current card: with ``one_card`` (D groups
-    of one launch) a group takes the card's SMs / D and the D = 1 layout's
-    rows where they fit, else the whole card."""
+    """``ranks_fwd_plan`` (bf16) or ``ranks_fwd_f32_plan`` (fp32) on the
+    current card: with ``one_card`` (D groups of one launch) a group takes
+    the card's SMs / D (in bf16 the D = 1 layout's rows where they fit),
+    else the whole card."""
     sms, smem = _card_limits()
+    if cfg.cdtype == torch.float32:
+        return ranks_fwd_f32_plan(cfg, b, n, d, sms // d if one_card else sms, smem)
     if not one_card:
         return ranks_fwd_plan(cfg, b, n, d, sms, smem)
     one = ct.split_fwd_plan(cfg, b, n, sms, smem)
@@ -608,9 +635,23 @@ def device_ranks_fwd_plan(cfg: ModelConfig, b: int, n: int, d: int, one_card: bo
 
 def device_ranks_bwd_plan(cfg: ModelConfig, b: int, n: int, d: int, one_card: bool):
     """``ranks_bwd_plan`` on the current card, a group taking the card's
-    SMs / D with ``one_card``, else the whole card."""
+    SMs / D with ``one_card``, else the whole card; under fp32 compute
+    ``ranks_bwd_f32_plan`` with the card's SMs / D in both cases (its G
+    sets the sum order, so a rank on a card of its own keeps the one-card
+    launch's)."""
     sms, smem = _card_limits()
+    if cfg.cdtype == torch.float32:
+        return ranks_bwd_f32_plan(cfg, b, n, d, sms // d, smem)
     return ranks_bwd_plan(cfg, b, n, d, sms // d if one_card else sms, smem)
+
+
+def _bwd_layout(plan, b: int):
+    """A group's layout from the backward's plan: the fp32 design's as it
+    is, the bf16 persistent one's (units, rows) with its ceil(B / rows) row
+    blocks; None for the cooperative design."""
+    if plan is None or isinstance(plan, cuda_cell_bwd.F32Plan):
+        return plan
+    return (*plan, -(-b // plan[1]))
 
 
 def _fwd_persist_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig,
@@ -676,6 +717,128 @@ def _bwd_persist_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig,
     return [(t["dg"], t["dh0"], t["dc"]) for t in keep], launched.value
 
 
+# --- the persistent designs at D > 1 under fp32 compute ----------------------
+# K15: K9's fp32 persistent kernel in K15's mode (csrc/lstm_tiled_f32.cuh)
+# with exchange.cuh's RankStep (csrc/lstm_tp_f32.cu), its layout
+# ``cuda_cell_tiled.F32Split``; K16: K6's fp32 persistent reverse step with
+# the reduce-scatter inside (csrc/lstm_tp_f32_bwd.cu), its layout
+# ``cuda_cell_bwd.F32Plan`` (G blocks a group of 16 units, product rows a
+# thread, ring slots), each thread running the gate backward of at most
+# F32_GATE_ELEMS of the rank's B x nd elements.
+F32_GROUPS = (4, 2, 1)   # G, in the order the plan tries them
+F32_GATE_ELEMS = 4       # csrc/lstm_tp_f32_bwd.cu:kGMax
+
+
+def ranks_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, d: int, sms: int,
+                       smem_limit: int) -> Optional[ct.F32Split]:
+    """K15's fp32 persistent design at D > 1: the ``F32Split`` of one rank
+    group that may use ``sms`` SMs and ``smem_limit`` bytes of shared
+    memory a block, its nd / 8 column blocks over the batch's block rows
+    (``cuda_cell_tiled.f32_split_layout``), each block holding its N x 32
+    slice of U_r; None for the cooperative design. It needs fp32 compute,
+    N a multiple of 32 and at most 128 batch rows. A unit's sums do not
+    depend on the rows, the ring or nd, so every layout gives the D = 1
+    fp32 persistent K15's bits on the unpermuted weights."""
+    if d < 2 or cfg.cdtype != torch.float32 or n % d:
+        return None
+    nd = n // d
+    if nd % ct.F32_UNITS or n % 32 or not 1 <= b <= ct.F32_ROWS:
+        return None
+    return ct.f32_split_layout(b, n, nd // ct.F32_UNITS, sms, smem_limit)
+
+
+def ranks_bwd_f32_plan(cfg: ModelConfig, b: int, n: int, d: int, sms: int,
+                       smem_limit: int) -> Optional[cuda_cell_bwd.F32Plan]:
+    """K16's fp32 persistent design at D > 1: (G, product rows a thread,
+    ring slots) of one rank group, N / 16 groups of G blocks over the
+    rank's 4nd gate columns, ``sms`` the SMs one rank group has on one card
+    (the card's SMs / D, on D cards too: G sets the sum order). G: the
+    first of F32_GROUPS whose N / 16 x G blocks fit those SMs, whose blocks'
+    4nd / G columns are whole ring slots and whose threads take at most
+    F32_GATE_ELEMS gate-backward elements each; the first ring of
+    ``cuda_cell_bwd.F32_RINGS`` that fits beside U_r's 16 rows over a
+    block's columns (``f32_smem_bytes`` at the shard's width). None for the
+    cooperative design: bf16, more than 128 batch rows, a grid or a block
+    that does not fit (the flagship's layer at D = 2 takes G = 1: its 64 x
+    2 blocks would not be resident beside the other rank's)."""
+    if d < 2 or cfg.cdtype != torch.float32 or n % d:
+        return None
+    nd = n // d
+    if n % cuda_cell_bwd.F32_UNITS or not 1 <= b <= cuda_cell_bwd.F32_ROWS:
+        return None
+    rows = cuda_cell_bwd.f32_rows_per_thread(b)
+    for g in F32_GROUPS:
+        blocks = n // cuda_cell_bwd.F32_UNITS * g
+        if ((4 * nd) % g or (4 * nd // g) % cuda_cell_bwd.F32_KC or blocks > sms
+                or b * nd > blocks * cuda_cell_bwd.F32_THREADS * F32_GATE_ELEMS):
+            continue
+        stages = next((st for st in cuda_cell_bwd.F32_RINGS[rows]
+                       if cuda_cell_bwd.f32_smem_bytes(b, nd, g, st) <= smem_limit), None)
+        return None if stages is None else cuda_cell_bwd.F32Plan(g, rows, stages)
+    return None
+
+
+def _fwd_f32_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig, rtype: int):
+    """One launch of the fp32 persistent D-rank forward for the groups of
+    ``ranks``, group g with its (U_c, xw, h0_full, c0) and ``F32Split``:
+    each group its own rows, every group the ring of the layout with the
+    most rows a thread. (Their outputs, the launches.)"""
+    s, b, nd4 = ins[0][1].shape
+    nd, n, dev = nd4 // 4, ins[0][2].shape[1], ins[0][1].device
+    ring = max(layouts, key=lambda lay: lay.per)
+    f32, keep = torch.float32, []
+    e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
+    for U_c, xw, h0_full, c0 in ins:
+        keep.append(dict(
+            U=U_c.to(f32).contiguous(), xw=ct._aligned(xw.to(f32)),
+            h0=h0_full.to(f32).contiguous(), c=c0.to(f32).clone().contiguous(),
+            hseq=e(s, b, nd), gseq=e(s, b, 4 * nd, dtype=cfg.rdtype),
+            cprev=e(s, b, nd, dtype=cfg.rdtype), hT=e(b, nd)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("U", "xw", "h0", "c", "hseq", "gseq", "cprev", "hT")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_fwd_f32_ranks_launch(
+        rtype, len(ranks), _ints(ranks), _ints([lay.rows for lay in layouts]),
+        ring.per, ring.kc, ring.stages, *cols, len(ex.ptrs), _ptrs(ex.ptrs),
+        ex.layout.h_off, ex.take("fwd", s), s, b, n, nd,
+        int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_fwd_f32_ranks_launch")
+    # c holds cT on return
+    return [(t["hseq"], t["gseq"], t["cprev"], t["hT"], t["c"]) for t in keep], \
+        launched.value
+
+
+def _bwd_f32_ranks(ex: Exchange, ranks, layouts, ins, cfg: ModelConfig, rtype: int):
+    """One launch of the fp32 persistent D-rank backward for the groups of
+    ``ranks``, group g with its (U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT),
+    every group the one ``F32Plan`` of ``layouts``: (their (dg, dh0, dc0),
+    the launches)."""
+    s, b, nd4 = ins[0][1].shape
+    nd, dev = nd4 // 4, ins[0][1].device
+    n = ins[0][0].shape[0]
+    plan = layouts[0]
+    if any(tuple(lay) != tuple(plan) for lay in layouts):
+        raise ValueError(f"the groups of one launch take one layout, not {layouts}")
+    f32, keep = torch.float32, []
+    for U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT in ins:
+        keep.append(dict(
+            U=U_c.to(f32).contiguous(), gseq=g_seq.contiguous(),
+            cprev=c_prev.contiguous(), cT=cT.to(f32).contiguous(),
+            dhseq=dh_seq.to(f32).contiguous(), dhT=dhT.to(f32).contiguous(),
+            dc=dcT.to(f32).clone().contiguous(),
+            dg=torch.empty(s, b, 4 * nd, dtype=f32, device=dev),
+            dh0=torch.empty(b, nd, dtype=f32, device=dev)))
+    cols = [_ptrs([t[k].data_ptr() for t in keep]) for k in
+            ("U", "gseq", "cprev", "cT", "dhseq", "dhT", "dc", "dg", "dh0")]
+    launched = ctypes.c_int(0)
+    err = ex.lib.tp_seq_bwd_f32_ranks_launch(
+        rtype, len(ranks), _ints(ranks), plan.blocks, plan.rows, plan.stages, *cols,
+        len(ex.ptrs), _ptrs(ex.ptrs), ex.layout.r_off, ex.take("bwd", s), s, b, n,
+        nd, int(cfg.cell_variant == "standard"), _stream(dev), ctypes.byref(launched))
+    cuda_cell._raise_on(err, "tp_seq_bwd_f32_ranks_launch")
+    return [(t["dg"], t["dh0"], t["dc"]) for t in keep], launched.value
+
+
 def _fwd_types(cfg: ModelConfig, dev, nd: int):
     ctype = _card(cfg, dev, nd)
     if cfg.pdtype != torch.float32 or cfg.rdtype not in cuda_cell._TYPE_CODES:
@@ -695,9 +858,10 @@ def _bwd_types(cfg: ModelConfig, dev, nd: int, g_seq, c_prev):
 def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
     """The TP window: K15 on the card, at D = 1 in the design
-    ``cuda_cell_tiled.device_split_fwd_plan`` gives, at D > 1 the exchange
-    design through the group's buffers; the plain version on the CPU.
-    Returns as ``tp_seq_fwd_plain``."""
+    ``cuda_cell_tiled.device_split_fwd_f32_plan`` (fp32) or
+    ``device_split_fwd_plan`` (bf16) gives, at D > 1 the exchange design
+    through the group's buffers; the plain version on the CPU. Returns as
+    ``tp_seq_fwd_plain``."""
     s, b, nd4 = xw.shape
     nd = nd4 // 4
     n = h0_full.shape[1]
@@ -716,7 +880,6 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
         tp_seq_fwd.launches += launched
         return out
     lib = _build.load_library()
-    layout = ct.device_split_fwd_plan(cfg, b, n)   # D = 1: nd == n
     f32 = torch.float32
     U_k = ct._aligned(U_c.to(cfg.cdtype))
     xw32 = ct._aligned(xw.to(f32))
@@ -726,24 +889,37 @@ def tp_seq_fwd(U_c, xw, h0_full, c0, cfg: ModelConfig,
     h_seq = torch.empty(s, b, nd, dtype=f32, device=dev)
     g_seq = torch.empty(s, b, 4 * nd, dtype=cfg.rdtype, device=dev)
     c_prev = torch.empty(s, b, nd, dtype=cfg.rdtype, device=dev)
-    hT, cT = (torch.empty(b, nd, dtype=f32, device=dev) for _ in range(2))
+    hT = torch.empty(b, nd, dtype=f32, device=dev)
     launched = ctypes.c_int(0)
-    err = lib.tp_seq_fwd_launch(
-        ctype, rtype, U_k.data_ptr(), xw32.data_ptr(), hbuf.data_ptr(),
-        c.data_ptr(), h_seq.data_ptr(), g_seq.data_ptr(), c_prev.data_ptr(),
-        hT.data_ptr(), cT.data_ptr(), s, b, n, nd,
-        int(cfg.cell_variant == "standard"), *(layout or (-1, 0)),
-        _stream(dev), ctypes.byref(launched))
+    split32 = ct.device_split_fwd_f32_plan(cfg, b, n)   # D = 1: nd == n
+    if split32 is not None:
+        # K9's fp32 persistent kernel in K15's mode; c holds cT on return
+        name, cT = "tp_seq_fwd_f32_launch", c
+        err = lib.tp_seq_fwd_f32_launch(
+            rtype, U_k.data_ptr(), xw32.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
+            hT.data_ptr(), h_seq.data_ptr(), c_prev.data_ptr(), g_seq.data_ptr(),
+            s, b, n, int(cfg.cell_variant == "standard"), *split32, _stream(dev),
+            ctypes.byref(launched))
+    else:
+        name, cT = "tp_seq_fwd_launch", torch.empty(b, nd, dtype=f32, device=dev)
+        layout = ct.device_split_fwd_plan(cfg, b, n)
+        err = lib.tp_seq_fwd_launch(
+            ctype, rtype, U_k.data_ptr(), xw32.data_ptr(), hbuf.data_ptr(),
+            c.data_ptr(), h_seq.data_ptr(), g_seq.data_ptr(), c_prev.data_ptr(),
+            hT.data_ptr(), cT.data_ptr(), s, b, n, nd,
+            int(cfg.cell_variant == "standard"), *(layout or (-1, 0)),
+            _stream(dev), ctypes.byref(launched))
     tp_seq_fwd.launches += launched.value
-    cuda_cell._raise_on(err, "tp_seq_fwd_launch")
+    cuda_cell._raise_on(err, name)
     return h_seq, g_seq, c_prev, hT, cT
 
 
 def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
                group: Optional[mesh.TPGroup] = None):
     """The TP reverse window: K16 on the card, at D = 1 in the design
-    ``cuda_cell_bwd.device_k6_plan`` gives, at D > 1 the exchange design
-    through the group's buffers; the plain version on the CPU. Returns as
+    ``cuda_cell_bwd.device_k6_plan`` (bf16) or ``device_k6_f32_plan``
+    (fp32) gives, at D > 1 the exchange design through the group's
+    buffers; the plain version on the CPU. Returns as
     ``tp_seq_bwd_plain``."""
     s, b, nd4 = g_seq.shape
     nd = nd4 // 4
@@ -759,10 +935,11 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
     ctype, rtype = _bwd_types(cfg, dev, nd, g_seq, c_prev)
     if group is not None and group.size > 1:
         ex = group_exchange(group, b, n, cfg.cdtype)
-        plan = device_ranks_bwd_plan(cfg, b, n, group.size, one_card=False)
+        plan = _bwd_layout(device_ranks_bwd_plan(cfg, b, n, group.size,
+                                                 one_card=False), b)
         (out,), launched = _bwd_ranks(
             ex, [group.rank], None, [(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT)],
-            cfg, ctype, rtype, plan and [(*plan, -(-b // plan[1]))])
+            cfg, ctype, rtype, plan and [plan])
         tp_seq_bwd.launches += launched
         return out
     lib = _build.load_library()
@@ -772,12 +949,15 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
     dc = dcT.to(f32).clone().contiguous()
     dg = torch.empty(s, b, 4 * nd, dtype=f32, device=dev)
     dh0 = torch.empty(b, nd, dtype=f32, device=dev)
+    # K6's persistent reverse launch on K16's c layout, without a copy of
+    # the stream: c_seq = c_prev advanced a step (c_seq[t] = c_prev[t + 1]
+    # below S-1), c0 = c_prev[0] in fp32 and c_{S-1} = cT in fp32; no db,
+    # no dropout, a step at a time; dU stays ``window_dU``'s product
     plan = cuda_cell_bwd.device_k6_plan(cfg, b, nd)
+    plan32 = cuda_cell_bwd.device_k6_f32_plan(cfg, b, nd)
     if plan is not None:
-        # K6's persistent reverse launch: U as it is, c_seq = c_prev advanced
-        # a step (c_seq[t] = c_prev[t + 1] below S-1), c0 = c_prev[0], c_{S-1}
-        # = cT; the fp32 dg into dg, its bf16 rounding (which the next step's
-        # product reads) into a scratch; no db, no dropout, a step at a time
+        # bf16: the fp32 dg into dg, its bf16 rounding (which the next
+        # step's product reads) into a scratch
         name = "lstm_bwd_persist_launch"
         U_k, c0 = U_c.to(torch.bfloat16).contiguous(), cs[0].to(f32)
         dgx = torch.empty(s, b, 4 * nd, dtype=torch.bfloat16, device=dev)
@@ -788,6 +968,12 @@ def tp_seq_bwd(U_c, g_seq, c_prev, cT, dh_seq, dhT, dcT, cfg: ModelConfig,
             None, None, s, b, nd, *plan, 1,
             int(cfg.cell_variant == "standard"), 0, 0, 0, 0, 0.0, _stream(dev),
             ctypes.byref(ctypes.c_int(0)))
+    elif plan32 is not None:
+        # fp32: U read in place, the G parts of dh_rec in the launch's scratch
+        name = "lstm_bwd_f32_launch"
+        err = cuda_cell_bwd.reverse_f32(
+            plan32, cfg, U_c.to(f32).contiguous(), gs, cs[1:], cs[0].to(f32), dh32,
+            dhT32, dc, dg, dh0, None, ctypes.c_int(0), c_last=cT32)
     else:
         name = "tp_seq_bwd_launch"
         UT = U_c.to(cfg.cdtype).T.contiguous()
@@ -830,10 +1016,10 @@ def _one_card_layouts(what, plan, blocks, layouts, d):
     if layouts is not None:
         if plan is None:
             raise ValueError(f"{what}: layouts {layouts} given where the "
-                             f"persistent design does not run (fp32 or no layout)")
+                             f"persistent design does not run (no layout)")
         if len(layouts) != d:
             raise ValueError(f"{what}: {len(layouts)} layouts for {d} rank groups")
-        return [tuple(lay) for lay in layouts]
+        return list(layouts)
     return None if blocks is not None or plan is None else [plan] * d
 
 
@@ -843,12 +1029,12 @@ def tp_seq_fwd_ranks(U_cs: Sequence, xws: Sequence, h0_full, c0s: Sequence,
     """K15 at D = len(U_cs) ranks on one card: one launch of D rank
     groups, group r playing rank r on U_cs[r], xws[r], c0s[r] and the full
     h0, through ``exchange``, the card's D buffers (``one_card_exchange``).
-    Under bf16 compute, where ``device_ranks_fwd_plan`` gives a layout, the
-    persistent design, each group with that layout or ``layouts[r]``
-    ((kres, rows), so that one group can lag); elsewhere, or with
-    ``blocks`` (the blocks of each group, ``rank_blocks``), the cooperative
-    design. The plain version on the CPU. A list of D outputs as
-    ``tp_seq_fwd_plain``'s."""
+    Where ``device_ranks_fwd_plan`` gives a layout, the persistent design
+    of the compute type, each group with that layout or ``layouts[r]``
+    (bf16: (kres, rows); fp32: an ``F32Split``; so that one group can
+    lag); elsewhere, or with ``blocks`` (the blocks of each group,
+    ``rank_blocks``), the cooperative design. The plain version on the
+    CPU. A list of D outputs as ``tp_seq_fwd_plain``'s."""
     d, (s, b, nd4) = len(U_cs), xws[0].shape
     nd = nd4 // 4
     n = h0_full.shape[1]
@@ -879,11 +1065,12 @@ def tp_seq_bwd_ranks(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
                      exchange: Optional[Exchange] = None,
                      blocks: Optional[Sequence[int]] = None, layouts=None):
     """K16 at D = len(U_cs) ranks on one card, as ``tp_seq_fwd_ranks``:
-    every argument by rank; the persistent design's layouts are (units,
-    rows, row_blocks) a group, units and rows those of
+    every argument by rank; the bf16 persistent design's layouts are
+    (units, rows, row_blocks) a group, units and rows those of
     ``device_ranks_bwd_plan`` (row_blocks of ceil(B / rows) by default,
-    fewer so that a group lags, at least ``lag_row_blocks``). A list of D
-    (dg, dh0, dc0)."""
+    fewer so that a group lags, at least ``lag_row_blocks``), the fp32
+    one's the plan's ``F32Plan``, one for every group. A list of D (dg,
+    dh0, dc0)."""
     d, (s, b, nd4) = len(U_cs), g_seqs[0].shape
     nd = nd4 // 4
     n = U_cs[0].shape[0]
@@ -903,8 +1090,7 @@ def tp_seq_bwd_ranks(U_cs: Sequence, g_seqs: Sequence, c_prevs: Sequence,
         return tp_seq_bwd_ranks_plain(U_cs, g_seqs, c_prevs, cTs, dh_seqs, dhTs,
                                       dcTs, cfg)
     ctype, rtype = _bwd_types(cfg, dev, nd, g_seqs[0], c_prevs[0])
-    plan = device_ranks_bwd_plan(cfg, b, n, d, one_card=True)
-    plan = plan and (*plan, -(-b // plan[1]))
+    plan = _bwd_layout(device_ranks_bwd_plan(cfg, b, n, d, one_card=True), b)
     outs, launched = _bwd_ranks(exchange, list(range(d)), blocks, ins, cfg, ctype,
                                 rtype, _one_card_layouts("K16", plan, blocks, layouts, d))
     tp_seq_bwd_ranks.launches += launched

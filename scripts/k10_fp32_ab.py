@@ -1,14 +1,19 @@
 """K10's fp32 persistent design in a checkout of the port, on the card:
-the bits of its outputs and its time, for an A/B of two checkouts.
+the bits of its outputs and its time, for an A/B of two checkouts; and
+the bits of the fp32 persistent designs that share its code, K9's forward
+(``lstm_tiled_f32.cuh``'s window) and K6's reverse launch at groups of 4
+blocks (``lstm_bwd_f32.cuh`` at N = 512).
 
     python3 scripts/k10_fp32_ab.py ROOT OUT.json
         runs ROOT's ``eigen_lstm_tpu_torch.ops.cuda_cell_tiled.tiled_bwd``
         under fp32 compute at the flagship's training shapes (S 256, N
         1024) on inputs made from a seed, in 8 cases (B 128 and 32, fp32
         and bf16 residuals, dropout 0 and 0.35), and writes the sha256 of
-        each case's dg, dc0 and dh0 and its launches; at B 128, fp32
-        residuals and no dropout also the median of 10 whole calls and of
-        10 launches of the C launcher alone (CUDA events);
+        each case's dg, dc0 and dh0 and its launches; in the same cases the
+        sha256 of K9's outputs (``tiled_scan_layer`` with its residuals, N
+        1024) and of K6's (``cuda_cell_bwd.scan_layer_bwd``, S 100, N 512);
+        at B 128, fp32 residuals and no dropout also the median of 10 whole
+        calls and of 10 launches of K10's C launcher alone (CUDA events);
     python3 scripts/k10_fp32_ab.py --compare A.json B.json
         prints which cases give the same bits and the times side by side;
         exits 1 if any case differs.
@@ -39,7 +44,8 @@ def run(root, out):
     import torch
 
     from eigen_lstm_tpu_torch import ModelConfig
-    from eigen_lstm_tpu_torch.ops import _build
+    from eigen_lstm_tpu_torch.models.lstm import LayerParams
+    from eigen_lstm_tpu_torch.ops import _build, cuda_cell_bwd
     from eigen_lstm_tpu_torch.ops import cuda_cell_tiled as ct
 
     if not ct.__file__.startswith(root):
@@ -71,9 +77,29 @@ def run(root, out):
                 dg, dc = call()
                 torch.cuda.synchronize()
                 key = f"B {b}, {residual} residuals, dropout {drop is not None}"
-                res["bits"][key] = [
-                    hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
-                    for x in (dg, dc, dh0)] + [ct.tiled_bwd.launches - before]
+                # bf16 residuals hashed through their exact fp32 values
+                sha = lambda xs: [hashlib.sha256(
+                    (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+                    .tobytes()).hexdigest() for x in xs]
+                res["bits"][key] = sha((dg, dc, dh0)) + [ct.tiled_bwd.launches - before]
+                layer = LayerParams(torch.zeros(1, 4 * n, device="cuda"), U,
+                                    torch.zeros(4 * n, device="cuda"))
+                xw = (r(s, b, 4 * n) * 0.5).cuda()
+                k9 = ct.tiled_scan_layer(layer, xw, c0, c0, cfg, residuals=True,
+                                         dropout=drop)
+                res["bits"]["K9 " + key] = sha([k9[0], *k9[1], *k9[2:]])
+                m = 512
+                cfg6 = ModelConfig(hidden=m, compute_dtype="float32",
+                                   residual_dtype=residual, loss_mode="all")
+                seqs = [x[:100, :, :m].contiguous() for x in (g, c, c, dh)]
+                seqs[0] = g[:100, :, :4 * m].contiguous()
+                k6 = cuda_cell_bwd.scan_layer_bwd(
+                    U[:m, :4 * m].contiguous(), seqs[0], seqs[1], seqs[2],
+                    c0[:, :m].contiguous(), c0[:, :m].contiguous(), seqs[3],
+                    dhT[:, :m].contiguous(), dcT[:, :m].contiguous(), cfg6,
+                    dropout=drop)
+                torch.cuda.synchronize()
+                res["bits"]["K6 " + key] = sha(k6)
                 if (b, residual, drop) == (128, "float32", None):
                     res.update(times(torch, call, _build.load_library(), name))
     json.dump(res, open(out, "w"), indent=1)

@@ -219,23 +219,24 @@ def _args(cfg, s, b, ids=True):
 
 def _check_reverse(a, seen, ptr, cfg, s, b, plan, steps, dropout):
     """lstm_bwd_f32_launch's arguments: (rtype, U, g_seq, c_seq, c0,
-    dh_seq, dhT, dc, dg, xbuf, dh0, S, B, N, groups, stages, steps,
-    standard, drop_on, seed, keep, inv, stream, launched). Returns the
-    fp32 dg's address."""
+    c_last, dh_seq, dhT, dc, dg, xbuf, dh0, S, B, N, groups, stages, steps,
+    standard, drop_on, seed, keep, inv, stream, launched), c_last null
+    (c_{S-1} from the stream). Returns the fp32 dg's address."""
     n = cfg.hidden
     assert a[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
     U = seen[a[1]]
     assert U.dtype == torch.float32 and tuple(U.shape) == (n, 4 * n)  # no U^T
     for i, shape in ((2, (s, b, 4 * n)), (3, (s, b, n))):
         assert seen[a[i]].dtype == cfg.rdtype and tuple(seen[a[i]].shape) == shape
-    for i, shape in ((4, (b, n)), (5, (s, b, n)), (6, (b, n)), (7, (b, n)),
-                     (8, (s, b, 4 * n)), (9, (plan.blocks * b * n,)), (10, (b, n))):
+    assert a[5] is None
+    for i, shape in ((4, (b, n)), (6, (s, b, n)), (7, (b, n)), (8, (b, n)),
+                     (9, (s, b, 4 * n)), (10, (plan.blocks * b * n,)), (11, (b, n))):
         assert seen[a[i]].dtype == torch.float32
         assert tuple(seen[a[i]].shape) == shape, i
-    assert a[11:19] == (s, b, n, plan.blocks, plan.stages, steps, 0,
+    assert a[12:20] == (s, b, n, plan.blocks, plan.stages, steps, 0,
                         int(dropout is not None))
-    assert a[19:22] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
-    return a[8]
+    assert a[20:23] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
+    return a[9]
 
 
 @pytest.mark.parametrize("unroll2", [False, True], ids=["K3", "K12"])
@@ -261,7 +262,7 @@ def test_k3_and_k12_launch_the_fp32_design(routed, unroll2, b, n, residual,
     rev, tail = lib.calls[1][1], lib.calls[2][1]
     dg = _check_reverse(rev, seen, ptr, cfg, s, b, plan, 2 if unroll2 else 1,
                         dropout)
-    assert rev[7] == ptr(dc0) and rev[10] == ptr(dh0)
+    assert rev[8] == ptr(dc0) and rev[11] == ptr(dh0)
     # (rtype, h_seq, ids, h0, dg, out, db, work, S, B, N, M, round_db,
     #  stream, launched)
     assert tail[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
@@ -329,42 +330,54 @@ def test_per_step_control_forces_both_plans_off(routed, monkeypatch):
 def test_kernel_reads_dg_through_l2_only_and_barriers_unguarded():
     """lstm_bwd_f32_persist: dg and xbuf (the groups' parts), which the
     launch's blocks write and read, are neither const nor __restrict__; dg
-    is read only through the ring's cp.async (``cp.async.cg``, L2 only) and
-    the parts through ``__ldcg`` after ``__stcg``, never through ``__ldg``;
-    U is read in place (the group's row, the block's columns); the grid
-    barriers sit under no branch (the product's block barriers sit in
-    ``rec``, called under the branch on t alone, the same in every
-    thread)."""
-    params, body = fwd_plan._kernel(fwd_plan._source("lstm_bwd_f32.cuh"),
-                                    "lstm_bwd_f32_persist(const float* __restrict__ U")
+    is read only through the product's ring (f32_rec_splits: ``cp.async.cg``,
+    L2 only) and the parts through ``__ldcg`` after ``__stcg``, never
+    through ``__ldg``; U is read in place (the group's row, the block's
+    columns: f32_load_u_rows); the grid barriers sit under no branch (the
+    product's block barriers sit in ``rec``, called under the branch on t
+    alone, the same in every thread); c_{S-1} comes from c_last where it is
+    given (K16's cT), else from the stream."""
+    src = fwd_plan._source("lstm_bwd_f32.cuh")
+    params, body = fwd_plan._kernel(src, "lstm_bwd_f32_persist(const float* __restrict__ U")
     assert re.search(r"\n\s*float\* dg, float\* xbuf,", params)
+    assert "const float* __restrict__ c_last," in params
     code = fwd_plan._strip_comments(body)
     assert "__ldg" not in code and "__ldca" not in code
-    assert "const float* dgn = dg + " in code
-    assert len(re.findall(r"\bdgn\b", code)) == 3
+    assert "f32_rec_splits<RR, STAGES>(dg + (size_t)tn * bk + (size_t)part * KG, Us, ring," in code
+    _, splits = fwd_plan._kernel(src, "f32_rec_splits(const float* dgn,")
+    scode = fwd_plan._strip_comments(splits)
+    assert "__ldg" not in scode and len(re.findall(r"\bdgn\b", scode)) == 2
     assert re.search(r"cp_async_16\(st \+ r \* kFKC \+ 4 \* \(p \^ \(r % 8\)\),\s*"
-                     r"in \? dgn \+ ", code)
+                     r"in \? dgn \+ ", scode)
     assert re.search(r"\bdg\[gb \+", code)              # the one store
     assert len(re.findall(r"\bdg\b", code)) == 2
-    assert "U[(size_t)(p0 + uu) * K + (size_t)part * KG + k]" in code
+    _, load = fwd_plan._kernel(src, "f32_load_u_rows(const float* __restrict__ U,")
+    assert "U[(size_t)(p0 + uu) * K + (size_t)part * KG + k]" in load
+    assert "f32_load_u_rows(U, Us, K, KG, p0, part);" in code
     assert len(re.findall(r"\bxbuf\b", code)) == 2
     assert "__stcg(xbuf + ((size_t)part * B + b) * N + p0 + uu, v);" in code
     assert "__ldcg(xbuf + ((size_t)o * B + b) * N + j)" in code
     assert code.count("grid.sync()") == 3
     assert fwd_plan._barriers_under_conditions(body) == []
+    assert fwd_plan._barriers_under_conditions(splits) == []
     assert "if (t < S - 1) rec(t + 1, mine);" in code
+    assert re.search(r"cin\[p\]\[i\] = t == S - 1 && c_last != nullptr \? c_last\[idx\]\s*"
+                     r": to_f32\(c_seq\[t \* bn \+ idx\]\);", code)
 
 
 def test_parts_meet_in_part_order():
     """Each (b, j) adds the G parts in part order, the block's own from its
     registers: ((P_0 + P_1) + P_2) + P_3, the splits of each part added in
-    split order first."""
-    _, body = fwd_plan._kernel(fwd_plan._source("lstm_bwd_f32.cuh"),
-                               "lstm_bwd_f32_persist(const float* __restrict__ U")
+    split order first (f32_split_sum, which K16's D-rank design shares)."""
+    src = fwd_plan._source("lstm_bwd_f32.cuh")
+    _, body = fwd_plan._kernel(src, "lstm_bwd_f32_persist(const float* __restrict__ U")
     code = fwd_plan._strip_comments(body)
     assert "for (int o = 0; o < G; ++o) {" in code
     assert "v = o == 0 ? x : v + x;" in code
-    assert "for (int s = 1; s < kFSplit; ++s) v += rb[(size_t)s * rows * kFRedPitch + uu];" in code
+    assert "const float v = f32_split_sum<RR>(ring, b, uu);" in code
+    _, split_sum = fwd_plan._kernel(src, "f32_split_sum(const float* red, int b, int uu)")
+    assert "for (int s = 1; s < kFSplit; ++s) v += rb[(size_t)s * rows * kFRedPitch + uu];" \
+        in split_sum
 
 
 def test_constants_and_layouts_match_the_plan():

@@ -220,8 +220,10 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     """At the flagship's fp32 shapes K9 (``tiled_scan_layer``) takes the
     fp32 persistent design through its own launcher
     (``tiled_fwd_scan_f32_launch``, the plan's ring); K1 and K2
-    (``cuda_cell``) keep their launch a step, K15 at D = 1 its cooperative
-    design: none of those three reaches an fp32 persistent launcher."""
+    (``cuda_cell``) keep their launch a step; K15 at D = 1 takes the same
+    kernel in K15's mode through a launcher of its own
+    (``tp_seq_fwd_f32_launch``, ``split_fwd_f32_plan``'s layout: N / 8 =
+    128 blocks of every batch row)."""
     lib = routed[0]
     s, b, n = 3, 128, 1024
     cfg = _cfg()
@@ -232,10 +234,12 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     ts.tp_seq_fwd(_e(n, 4 * n), _e(s, b, 4 * n), h0, c0, cfg)
     names = [c[0] for c in lib.calls]
     assert names == ["tiled_fwd_scan_f32_launch", "lstm_fwd_embed_launch",
-                     "lstm_fwd_scan_launch", "tp_seq_fwd_launch"]
+                     "lstm_fwd_scan_launch", "tp_seq_fwd_f32_launch"]
     plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
     assert lib.calls[0][1][14:16] == (plan.kc, plan.stages)   # K9: fp32 ring
-    assert lib.calls[3][1][16:18] == (-1, 0)        # K15: cooperative
+    split = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
+    assert split == (b, plan.rows, plan.kc, plan.stages)      # K15: K9's layout
+    assert lib.calls[3][1][13:17] == tuple(split)
 
 
 def test_embed_launch_refuses_a_mismatched_layout(routed):
@@ -299,20 +303,30 @@ def _barriers_under_conditions(body):
 
 
 def test_k8_kernel_reads_h_through_l2_only_and_barriers_unguarded():
-    """tiled_fwd_f32_persist: hc, which the launch's blocks write and read,
-    is neither const nor __restrict__, is read only through the ring's
-    cp.async (``cp.async.cg``, L2 only) and never through ``__ldg``; the
-    grid barrier closes every step and no barrier sits under a branch."""
-    params, body = _kernel(_source("lstm_tiled_f32.cu"),
-                           "tiled_fwd_f32_persist(const float* __restrict__ U")
+    """tiled_fwd_f32_persist (csrc/lstm_tiled_f32.cuh) runs the window
+    f32_fwd_window over fwd_mma.cuh's GridStep<float>: hc, which the
+    launch's blocks write and read, is neither const nor __restrict__, is
+    read only through the ring's cp.async (``cp.async.cg``, L2 only) and
+    never through ``__ldg``; the grid barrier (the Step's sync) closes
+    every step but the last, on a condition every block evaluates alike,
+    and no block barrier sits under a branch."""
+    src = _source("lstm_tiled_f32.cuh")
+    params, body = _kernel(src, "tiled_fwd_f32_persist(const float* __restrict__ U")
     assert re.search(r"\n\s*float\* hc,", params)
-    code = _strip_comments(body)
+    assert "GridStep<float>{hc, (size_t)B * N, N}" in body
+    mma = _source("fwd_mma.cuh")
+    step = mma[mma.index("struct GridStep {"):mma.index("};", mma.index("struct GridStep {"))]
+    assert re.search(r"\n\s*HT\* hc;", step)
+    assert "return hc + (size_t)(t % 2) * bn;" in step
+    assert _strip_comments(step).count("cooperative_groups::this_grid().sync();") == 1
+    _, window = _kernel(src, "f32_fwd_window(const Step& step,")
+    code = _strip_comments(window)
     assert "__ldg" not in code and "__ldca" not in code
-    assert len(re.findall(r"\bhin\b", code)) == 2
-    assert "const float* hin = hc + " in code
+    assert len(re.findall(r"\bhin\b", code)) == 3   # step.hin, its name, one read
+    assert "const float* hin = step.hin(t);" in code
     assert "cp_async_16(st + r * P + 4 * p, hin + " in code
-    assert code.count("grid.sync()") == 1
-    assert _barriers_under_conditions(body) == []
+    assert code.count("step.sync(t)") == 1 and "if (t + 1 < S) step.sync(t);" in code
+    assert _barriers_under_conditions(window) == []
     assert "cp.async.cg.shared.global" in _source("mma.cuh")
 
 
@@ -332,7 +346,7 @@ def test_the_barrier_check_sees_a_guarded_barrier():
 def test_kernel_constants_and_layouts_match_the_plan():
     """The block's units, threads and split, the ring's pitch, and the
     layouts the library is built for are the plan's."""
-    src = _source("lstm_tiled_f32.cu")
+    src = _source("lstm_tiled_f32.cuh")
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
     assert (const("kPUnits"), const("kPThreads"), const("kPSplit")) == \
         (ct.F32_UNITS, ct.F32_THREADS, ct.F32_SPLIT)

@@ -232,21 +232,22 @@ def test_k10_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     assert ct.launches() == before[:2] + (before[2] + 1,)
     assert [c_[0] for c_ in lib.calls] == ["lstm_bwd_f32_launch"]
     a = lib.calls[0][1]
-    # (rtype, U, g_seq, c_seq, c0, dh_seq, dhT, dc, dg, xbuf, dh0, S, B, N,
-    #  groups, stages, steps, standard, drop_on, seed, keep, inv, stream,
-    #  launched)
+    # (rtype, U, g_seq, c_seq, c0, c_last, dh_seq, dhT, dc, dg, xbuf, dh0,
+    #  S, B, N, groups, stages, steps, standard, drop_on, seed, keep, inv,
+    #  stream, launched): c_last null, c_{S-1} from the stream
     rd = ct.types(cfg)[1]
     assert a[0] == cuda_cell._TYPE_CODES[rd]
     assert a[1] == ptr(U) and tuple(seen[a[1]].shape) == (n, 4 * n)
     for i, shape in ((2, (s, b, 4 * n)), (3, (s, b, n))):
         assert seen[a[i]].dtype == rd and tuple(seen[a[i]].shape) == shape
-    assert seen[a[5]].dtype == torch.float32
-    assert a[7] == ptr(dc) and a[8] == ptr(dg) and a[10] == ptr(dh0)
-    assert seen[a[9]].dtype == torch.float32 and tuple(seen[a[9]].shape) == (2 * b * n,)
+    assert a[5] is None
+    assert seen[a[6]].dtype == torch.float32
+    assert a[8] == ptr(dc) and a[9] == ptr(dg) and a[11] == ptr(dh0)
+    assert seen[a[10]].dtype == torch.float32 and tuple(seen[a[10]].shape) == (2 * b * n,)
     assert dg.dtype == torch.float32 and tuple(dg.shape) == (s, b, 4 * n)
     layout = ct.tiled_bwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert a[11:18] == (s, b, n, 2, layout.stages, 1, 0)
-    assert a[18:22] == ((int(dropout is not None),)
+    assert a[12:19] == (s, b, n, 2, layout.stages, 1, 0)
+    assert a[19:23] == ((int(dropout is not None),)
                         + (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0)))
     with pytest.raises(ValueError, match="persistent design alone"):
         ct.tiled_bwd(U, g, c, c0, dh, dhT, dcT, cfg, dg_out=_e(s, b, 4 * n))
@@ -284,25 +285,32 @@ def test_k10_kernel_reads_dg_through_l2_only_and_barriers_unguarded():
     under no branch."""
     assert "_bwd_" not in fwd_plan._strip_comments(
         fwd_plan._source("lstm_tiled_f32.cu"))
-    params, body = fwd_plan._kernel(fwd_plan._source("lstm_bwd_f32.cuh"),
-                                    "lstm_bwd_f32_persist(const float* __restrict__ U")
+    src = fwd_plan._source("lstm_bwd_f32.cuh")
+    params, body = fwd_plan._kernel(src, "lstm_bwd_f32_persist(const float* __restrict__ U")
     assert re.search(r"\n\s*float\* dg, float\* xbuf,", params)
     code = fwd_plan._strip_comments(body)
     assert "__ldg" not in code and "__ldca" not in code
-    assert len(re.findall(r"\bdgn\b", code)) == 3
+    # dg read through the shared product (f32_rec_splits' ring) and stored once
+    assert "f32_rec_splits<RR, STAGES>(dg + " in code
+    _, splits = fwd_plan._kernel(src, "f32_rec_splits(const float* dgn,")
+    scode = fwd_plan._strip_comments(splits)
+    assert "__ldg" not in scode and len(re.findall(r"\bdgn\b", scode)) == 2
     assert re.search(r"cp_async_16\(st \+ r \* kFKC \+ 4 \* \(p \^ \(r % 8\)\),\s*"
-                     r"in \? dgn \+ ", code)
+                     r"in \? dgn \+ ", scode)
     assert len(re.findall(r"\bdg\b", code)) == 2
-    assert "U[(size_t)(p0 + uu) * K + (size_t)part * KG + k]" in code
+    assert "f32_load_u_rows(U, Us, K, KG, p0, part);" in code
+    assert "U[(size_t)(p0 + uu) * K + (size_t)part * KG + k]" in src
     assert "__stcg(xbuf + " in code and "__ldcg(xbuf + " in code
     assert fwd_plan._barriers_under_conditions(body) == []
+    assert fwd_plan._barriers_under_conditions(splits) == []
 
 
 def test_k9_shares_the_fp32_forward_and_reads_xw_a_step_ahead():
     """K9 is tiled_fwd_f32_persist without EMBED: its input term is xw_t's
-    row, issued a step ahead as K8's W row is, and added as acc + xw."""
-    _, body = fwd_plan._kernel(fwd_plan._source("lstm_tiled_f32.cu"),
-                               "tiled_fwd_f32_persist(const float* __restrict__ U")
+    row, issued a step ahead as K8's W row is, and added as acc + xw (the
+    window f32_fwd_window of csrc/lstm_tiled_f32.cuh, which K15 shares)."""
+    _, body = fwd_plan._kernel(fwd_plan._source("lstm_tiled_f32.cuh"),
+                               "f32_fwd_window(const Step& step,")
     code = fwd_plan._strip_comments(body)
     assert "xw_row(t + 1, i, nxt[i]);" in code
     assert "float s = sums[g] + pin[i][g];" in code

@@ -10,7 +10,10 @@ param type (fp32: the wrapper takes fp32 params only), hT and cT in fp32.
 So under bf16 compute, wherever ``cuda_cell_tiled.split_fwd_plan`` gives a
 layout, it runs the persistent tensor-core forward
 (``csrc/fwd_mma.cuh:fwd_persist`` with K15's streams, through
-``tp_seq_fwd_launch``); fp32 keeps the cooperative CUDA-core design. At
+``tp_seq_fwd_launch``); under fp32 compute, wherever
+``split_fwd_f32_plan`` gives one, K9's fp32 persistent kernel in K15's
+mode (``csrc/lstm_tiled_f32.cuh``, through ``tp_seq_fwd_f32_launch``);
+elsewhere the cooperative CUDA-core design. At
 D > 1 it takes the exchange design through the group's buffers
 (tests/test_torch_tp_seq_exchange.py), and raises before any launch where
 the group's cards cannot reach each other's memory.
@@ -121,12 +124,14 @@ def _meta_window(cfg, s, b, n):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("residual", ["float32", "bfloat16"])
 def test_card_path_launches_the_planned_design(routed, dtype, residual):
-    """The ``--tp 1`` bench shapes: one call of ``tp_seq_fwd_launch`` and
-    one launch counted; U_c and the fp32 xw read in place; the exchange
-    buffer (2, B, N) in the compute type with h0_full stored in its first
-    half; c a copy of c0 in fp32; h_seq fp32, g and c_prev in the residual
-    type, hT and cT fp32, each the wrapper's output; the plan's kres and
-    rows in bf16, -1 (the cooperative design) in fp32."""
+    """The ``--tp 1`` bench shapes: one launcher call and one launch
+    counted; U_c and the fp32 xw read in place; the exchange buffer (2, B,
+    N) in the compute type with h0_full stored in its first half; c a copy
+    of c0 in fp32; h_seq fp32, g and c_prev in the residual type, hT and cT
+    fp32, each the wrapper's output. bf16: ``tp_seq_fwd_launch`` with the
+    plan's kres and rows. fp32: ``tp_seq_fwd_f32_launch``, K9's fp32
+    persistent kernel in K15's mode with ``split_fwd_f32_plan``'s layout
+    (2 block rows of 64: 128 blocks), c coming back as cT."""
     lib, ptr, seen, stores = routed
     cfg = _cfg(dtype, residual)
     s, b, n = 5, 128, 512
@@ -134,8 +139,26 @@ def test_card_path_launches_the_planned_design(routed, dtype, residual):
     before = ts.tp_seq_fwd.launches
     h_seq, g_seq, c_prev, hT, cT = ts.tp_seq_fwd(U_c, xw, h0_full, c0, cfg)
     assert ts.tp_seq_fwd.launches - before == 1
-    assert [c[0] for c in lib.calls] == ["tp_seq_fwd_launch"]
+    assert h_seq.dtype == hT.dtype == cT.dtype == torch.float32
+    assert g_seq.dtype == c_prev.dtype == cfg.rdtype
     a = lib.calls[0][1]
+    if dtype == "float32":
+        assert [c[0] for c in lib.calls] == ["tp_seq_fwd_f32_launch"]
+        # (rtype, U, xw, hbuf, c, hT, hseq, cprev, gseq, S, B, N, standard,
+        #  rows, rows a thread, kc, stages, stream, launched)
+        assert a[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
+        assert a[1] == ptr(U_c) and a[2] == ptr(xw)
+        hbuf, c = seen[a[3]], seen[a[4]]
+        assert hbuf.dtype == torch.float32 and tuple(hbuf.shape) == (2, b, n)
+        assert [(k, v) for p, k, v in stores if p == a[3]] == [(0, h0_full)]
+        assert c.dtype == torch.float32 and a[4] >> 32 != ptr(c0) >> 32
+        assert a[4] == ptr(cT)                       # c holds cT on return
+        assert a[5:9] == tuple(ptr(x) for x in (hT, h_seq, c_prev, g_seq))
+        split = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
+        assert split == (64, 2, 64, 4)
+        assert a[9:17] == (s, b, n, 0) + tuple(split)
+        return
+    assert [c[0] for c in lib.calls] == ["tp_seq_fwd_launch"]
     # (ctype, rtype, U, xw, hbuf, c, hseq, gseq, cprev, hT, cT, S, B, N, nd,
     #  standard, kres, rows, stream, launched)
     assert a[0] == cuda_cell._TYPE_CODES[cfg.cdtype]
@@ -146,10 +169,7 @@ def test_card_path_launches_the_planned_design(routed, dtype, residual):
     assert [(k, v) for p, k, v in stores if p == a[4]] == [(0, h0_full)]
     assert c.dtype == torch.float32 and a[5] >> 32 != ptr(c0) >> 32
     assert a[6:11] == tuple(ptr(x) for x in (h_seq, g_seq, c_prev, hT, cT))
-    assert h_seq.dtype == hT.dtype == cT.dtype == torch.float32
-    assert g_seq.dtype == c_prev.dtype == cfg.rdtype
-    plan = (512, 32) if dtype == "bfloat16" else (-1, 0)
-    assert a[11:18] == (s, b, n, n, 0) + plan
+    assert a[11:18] == (s, b, n, n, 0, 512, 32)
 
 
 def test_d2_still_raises(routed, monkeypatch):

@@ -144,16 +144,18 @@ def test_wrapper_launches_the_plan_s_design(routed, dtype, name, kw, b, fused,
         work, rev, tail = (call[1] for call in routed.calls)
         assert work == (4, b, n, M)
         layout = cuda_cell_bwd.k6_f32_plan(cfg, b, n, SMS, SMEM)
-        # (rtype, 10 pointers, S, B, N, blocks, stages, steps, standard,
-        #  drop_on, ...): 4 blocks a group at N = 512, 2 at 1024
+        # (rtype, 11 pointers, S, B, N, blocks, stages, steps, standard,
+        #  drop_on, ...): 4 blocks a group at N = 512, 2 at 1024; c_last
+        #  null (c_{S-1} from the stream)
         assert layout.blocks == (4 if n == 512 else 2)
-        assert rev[11:18] == (4, b, n, layout.blocks, layout.stages,
+        assert rev[5] is None
+        assert rev[12:19] == (4, b, n, layout.blocks, layout.stages,
                               2 if unroll2 else 1, 0)
-        assert rev[18] == 0
+        assert rev[19] == 0
         # (rtype, h_seq, ids, h0, dg, out, db, work, S, B, N, M, round_db,
         #  ...): the fp32 dg the reverse launch wrote
         assert tail[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
-        assert tail[4] == rev[8]
+        assert tail[4] == rev[9]
         assert tail[8:13] == (4, b, n, M, int(not fused))
         return
     assert names == ["lstm_bwd_embed_work_floats", "lstm_bwd_persist_launch",

@@ -12,10 +12,13 @@ not fit, at D = 1 and at widths the kernels do not take. The routing
 through ``test_torch_tp_seq_exchange``'s stand-in library (tensors on
 ``meta``): under bf16 with a layout the one-card entries and the group
 path on D cards reach the persistent launches, one a call, with the
-planners' layouts (or a lagging group's); fp32, no layout or a
-cooperative split reach ``tp_seq_*_ranks_launch``. The kernel source: the
-persistent kernels' slot and flag rules, read from ``lstm_tp_persist.cu``, are
-the cooperative kernels' (which ``test_torch_tp_seq_exchange`` follows
+planners' layouts (or a lagging group's); fp32 with a layout reaches the
+fp32 persistent launches (tests/test_torch_tp_seq_f32.py holds them); fp32
+past 128 rows, no layout or a cooperative split reach
+``tp_seq_*_ranks_launch``. The kernel source: the persistent kernels' slot
+and flag rules, read from ``exchange.cuh``'s RankStep and
+``lstm_tp_persist.cu``, are the cooperative kernels' (which
+``test_torch_tp_seq_exchange`` follows
 across calls), on the forward's and backward's flag and barrier words;
 the backward's tile constants and kernel table are the planner's.
 """
@@ -34,6 +37,8 @@ from eigen_lstm_tpu_torch.ops import cuda_tp_seq as ts
 from eigen_lstm_tpu_torch.parallel import mesh
 
 PERSIST_CU = LP_CU.replace("lstm_tp.cu", "lstm_tp_persist.cu")
+EX_CUH = LP_CU.replace("lstm_tp.cu", "exchange.cuh")
+FWD_MMA = LP_CU.replace("lstm_tp.cu", "fwd_mma.cuh")
 BWD_END = "// K15 at D ranks on the persistent forward: group g"   # the launcher after it
 SMS, SMEM = 132, 232448        # H100 SXM: SMs, shared memory a block may opt in to
 SHAPES = [(128, 512, 2), (128, 512, 4), (128, 1024, 2)]   # bench D = 2, 4; flagship
@@ -224,11 +229,11 @@ def test_one_card_takes_a_lagging_group(routed):
 
 @pytest.mark.parametrize("case", ["fp32", "no_layout", "blocks"])
 def test_one_card_routes_the_rest_to_the_cooperative_launches(routed, case):
-    """fp32, a card where no layout fits, or a cooperative split given:
-    ``tp_seq_*_ranks_launch``."""
+    """fp32 past 128 batch rows (which no fp32 plan takes), a card where no
+    layout fits, or a cooperative split given: ``tp_seq_*_ranks_launch``."""
     lib, _ = routed
     lib.limits = (SMS, 0 if case == "no_layout" else SMEM)
-    s, b, n, d = 3, 128, 512, 2
+    s, b, n, d = 3, 136 if case == "fp32" else 128, 512, 2
     nd = n // d
     cfg = _cfg(n, "float32" if case == "fp32" else "bfloat16")
     U, xw, h0, c0 = _one_card_inputs(d, s, b, n)
@@ -257,6 +262,7 @@ def test_one_card_refuses_mixed_or_misplaced_layouts(routed):
     with pytest.raises(ValueError, match="2 rank groups"):
         ts.tp_seq_fwd_ranks(U, xw, h0, c0, _cfg(n), ex, layouts=[(512, 32)])
     ex32 = ts.one_card_exchange(b, n, d, torch.float32)
+    lib.limits = (SMS, 0)   # no fp32 layout fits such a card
     with pytest.raises(ValueError, match="does not run"):
         ts.tp_seq_fwd_ranks(U, xw, h0, c0, _cfg(n, "float32"), ex32,
                             layouts=[(512, 32)] * 2)
@@ -266,8 +272,9 @@ def test_one_card_refuses_mixed_or_misplaced_layouts(routed):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_group_path_routes_by_the_plan(routed, dtype):
     """On D cards ``tp_seq_fwd`` and ``tp_seq_bwd`` launch one group, this
-    process's rank, with the layouts of a group on a card of its own under
-    bf16, the cooperative design in fp32; one launch each."""
+    process's rank, with the layouts of a group on a card of its own (the
+    fp32 backward: the G of a group on one card, 132 // D SMs); one launch
+    each."""
     lib, ptr = routed
     lib.limits = (SMS, SMEM)
     s, b, n, d = 3, 128, 512, 2
@@ -289,7 +296,19 @@ def test_group_path_routes_by_the_plan(routed, dtype):
                                                                 before[1] + 1)
     (fname, f), (bname, bw) = lib.calls
     if dtype == "float32":
-        assert (fname, bname) == ("tp_seq_fwd_ranks_launch", "tp_seq_bwd_ranks_launch")
+        assert (fname, bname) == ("tp_seq_fwd_f32_ranks_launch",
+                                  "tp_seq_bwd_f32_ranks_launch")
+        split = ts.ranks_fwd_f32_plan(cfg, b, n, d, SMS, SMEM)
+        plan = ts.ranks_bwd_f32_plan(cfg, b, n, d, SMS // d, SMEM)
+        assert f[:2] == (0, 1) and f[2][0] == 1 and f[3][0] == split.rows
+        assert f[4:7] == split[1:]
+        assert f[15] == d and _arr(f[16], d) == ex.ptrs and f[17:19] == (ex.layout.h_off, 0)
+        assert f[10][0] == ptr(cT) and f[11][0] == ptr(h_seq)
+        assert bw[:2] == (0, 1) and bw[2][0] == 1 and bw[3:6] == tuple(plan)
+        assert bw[15] == d and _arr(bw[16], d) == ex.ptrs
+        assert bw[17:19] == (ex.layout.r_off, 0)
+        assert bw[13][0] == ptr(dg) and bw[14][0] == ptr(dh0)
+        assert ex.steps == {"fwd": s, "bwd": s}
         return
     assert (fname, bname) == ("tp_seq_fwd_persist_ranks_launch",
                               "tp_seq_bwd_persist_ranks_launch")
@@ -312,21 +331,23 @@ def _section(src, start, end):
     return src[a:src.index(end, a)]
 
 
-def _persist_exchanges():
-    """The slot and flag rules of ``RankStep`` (the persistent forward's
-    step end) and ``tp_seq_bwd_persist_x``, read from lstm_tp_persist.cu, as
-    ``_kernel_exchanges`` gives the cooperative kernels': fwd(base, s)
-    step t's (slot read, slot written, flag raised; None, None at the last
+def _persist_exchanges(window=FWD_MMA, bsrc=None):
+    """The slot and flag rules of ``RankStep`` (exchange.cuh: the
+    persistent forwards' step end, whose window ``window`` says at which
+    steps it syncs) and of a persistent backward kernel ``bsrc``
+    (``tp_seq_bwd_persist_x`` of lstm_tp_persist.cu by default), as
+    ``_kernel_exchanges`` gives the cooperative kernels': fwd(base, s) step
+    t's (slot read, slot written, flag raised; None, None at the last
     step), bwd(base, s) the (chunk slot, flag) of exchange e = 0..S-1."""
-    src = open(PERSIST_CU).read()
-    step = _section(src, "struct RankStep {", "template <typename RT>\nstruct PersistFwdGroup")
+    xsrc = open(EX_CUH).read()
+    step = _section(xsrc, "struct RankStep {", "// The group of this block")
     read = _c_expr(step, r"h_off\) \+\s*\((\([^;]*?\) % 3)\) \* bN;")
     write = _c_expr(step, r"at = \((\([^;]*?\) % 3)\) \* bN")
     skip = _c_expr(step, r"if \(([^)]*)\) return;  // the last step")
     flag = _c_expr(step, r"kFwdFlag, count, nb, static_cast<unsigned>\(([^;]*?)\)\);")
-    window = open(LP_CU.replace("lstm_tp.cu", "fwd_mma.cuh")).read()
-    when = _c_expr(window, r"if \(([^)]*)\) step\.sync\(t\);")
-    bsrc = _section(src, "tp_seq_bwd_persist_x(const", BWD_END)
+    when = _c_expr(open(window).read(), r"if \(([^)]*)\) step\.sync\(t\);")
+    if bsrc is None:
+        bsrc = _section(open(PERSIST_CU).read(), "tp_seq_bwd_persist_x(const", BWD_END)
     e_of = _c_expr(bsrc, r"const unsigned long long e = (base \+ \(S - 2 - t\));")
     e_last = _c_expr(bsrc, r"const unsigned long long e = (base \+ \(S - 1\));")
     slots = re.findall(r"const int ws = static_cast<int>\(([^;]*?)\);", bsrc)

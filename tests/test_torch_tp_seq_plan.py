@@ -5,13 +5,15 @@ lets it run on K6's persistent kernel.
 At D = 1 K16 is K6's reverse recurrence: dh_t = dh_seq[t] + (dhT at
 t = S-1, else round(dg_{t+1}) @ U^T), the gate backward, the fp32 dg, then
 dh0 = round(dg_0) @ U^T and dc0. Under bf16 compute it takes K6's
-persistent kernel wherever ``cuda_cell_bwd.k6_plan`` gives a layout, and
-the cooperative CUDA-core design elsewhere. The layouts differ in one
+persistent kernel wherever ``cuda_cell_bwd.k6_plan`` gives a layout, under
+fp32 compute K6's fp32 persistent kernel wherever ``k6_f32_plan`` gives
+one, and the cooperative CUDA-core design elsewhere. The layouts differ in one
 place: K16 gets c_prev (S, B, nd) with c_prev[t] = c_{t-1} and c_{S-1}
 apart, as the fp32 cT; K6 reads c_t = c_seq[t] and
 c_{t-1} = c_seq[t-1] or the fp32 c0. So the wrapper hands the kernel
 c_prev advanced by one step as c_seq, c_prev[0] as c0 and cT as c_{S-1}
-(read in place of c_seq[S-1]), with no copy of the stream. Rounding cT
+(read in place of c_seq[S-1]: the bf16 launcher's cT, the fp32 launcher's
+c_last), with no copy of the stream. Rounding cT
 into a copied stream would change dg under bf16 residuals; the last test
 keeps that trap guarded.
 
@@ -139,14 +141,56 @@ def test_card_path_launches_k6_s_persistent_kernel(routed, residual):
 
 
 def test_fp32_keeps_the_cooperative_design(routed):
-    """fp32 compute: ``tp_seq_bwd_launch`` with U^T, one call."""
+    """fp32 compute at shapes ``k6_f32_plan`` refuses (more than 128 batch
+    rows; N = 2048, whose grid is not resident): ``tp_seq_bwd_launch``
+    with U^T, one call each."""
     lib, ptr = routed
-    cfg = _cfg("float32")
-    x = _meta_args(cfg, 5, 128, 512)
-    ts.tp_seq_bwd(x["U"], x["g"], x["c_prev"], x["cT"], x["dh"], x["dhT"],
-                  x["dcT"], cfg)
-    assert [c[0] for c in lib.calls] == ["tp_seq_bwd_launch"]
-    assert lib.calls[0][1][2] != ptr(x["U"])   # the transposed copy
+    for b, nd in ((136, 512), (128, 2048)):
+        lib.calls.clear()
+        cfg = _cfg("float32", n=nd)
+        assert cuda_cell_bwd.k6_f32_plan(cfg, b, nd, SMS, SMEM) is None
+        x = _meta_args(cfg, 5, b, nd)
+        ts.tp_seq_bwd(x["U"], x["g"], x["c_prev"], x["cT"], x["dh"], x["dhT"],
+                      x["dcT"], cfg)
+        assert [c[0] for c in lib.calls] == ["tp_seq_bwd_launch"]
+        assert lib.calls[0][1][2] != ptr(x["U"])   # the transposed copy
+
+
+@pytest.mark.parametrize("residual", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nd", [(128, 512), (32, 512), (128, 1024)])
+def test_fp32_launches_k6_s_fp32_persistent_kernel(routed, residual, b, nd):
+    """fp32 compute where ``k6_f32_plan`` gives a layout (the --tp 1
+    bench's B = 128, N = 512: G = 4): one call of ``lstm_bwd_f32_launch``
+    and nothing else, with U as it is (N, 4N) fp32, c_seq = c_prev
+    advanced one step, c0 = c_prev[0] in fp32 (the same storage with fp32
+    residuals), c_last = cT (in place of c_seq[S-1]), the dh sequence,
+    dhT, dc (dcT's copy, dc0 on return), the returned fp32 dg, the G parts'
+    scratch, dh0; the plan's G and ring, one step at a time, dropout off."""
+    lib, ptr = routed
+    s = 5
+    cfg = _cfg("float32", residual, n=nd)
+    x = _meta_args(cfg, s, b, nd)
+    dg, dh0, dc0 = ts.tp_seq_bwd(x["U"], x["g"], x["c_prev"], x["cT"], x["dh"],
+                                 x["dhT"], x["dcT"], cfg)
+    assert [c[0] for c in lib.calls] == ["lstm_bwd_f32_launch"]
+    a = lib.calls[0][1]
+    # (rtype, U, g, c_seq, c0, c_last, dh_seq, dhT, dc, dg, xbuf, dh0, S, B,
+    #  N, groups, stages, steps, standard, drop_on, seed, keep, inv, stream,
+    #  launched)
+    plan = cuda_cell_bwd.k6_f32_plan(cfg, b, nd, SMS, SMEM)
+    assert a[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
+    assert a[1] == ptr(x["U"]) and a[2] == ptr(x["g"])
+    assert a[3] == ptr(x["c_prev"]) + b * nd * x["c_prev"].element_size()
+    if residual == "float32":
+        assert a[4] == ptr(x["c_prev"])
+    else:   # c_prev[0] widened to fp32: a tensor of its own
+        assert a[4] >> 32 not in {ptr(v) >> 32 for v in x.values()}
+    assert a[5] == ptr(x["cT"]) and a[6] == ptr(x["dh"]) and a[7] == ptr(x["dhT"])
+    assert a[8] == ptr(dc0) and a[9] == ptr(dg) and a[11] == ptr(dh0)
+    assert a[10] not in (None, ptr(dg))
+    assert dg.dtype == torch.float32 and tuple(dg.shape) == (s, b, 4 * nd)
+    assert a[12:23] == (s, b, nd, plan.blocks, plan.stages, 1, 0, 0, 0, 0, 0.0)
+    assert plan.blocks == (4 if nd == 512 else 2)
 
 
 def _window(cfg, s, b, n, seed):
