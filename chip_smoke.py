@@ -11,14 +11,18 @@ Phase 2  runs each kernel against its plain PyTorch version on the card, at
          replayed by the plain version, the whole window, and the bf16
          residual type; prints errors, times, bounds and the cuDNN LSTM's
          time as a yardstick. K1 and K2 in bf16 take the persistent
-         tensor-core forward (one launch a call, gated); their per-step
-         design, forced, is held to the same gates and timed in the same
-         call.
+         tensor-core forward (one launch a call, gated), K1 in fp32 K8's
+         fp32 persistent CUDA-core forward (one launch a call, gated; K2
+         stays per-step in fp32, S a call); their per-step design, forced,
+         is held to the same gates and timed in the same call.
 Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
          the kernels, with the launch counts reset before and read after
          (K1 one launch a chunk, K2 one a chunk and layer), and once more
          with K2's per-step design forced (one a step); then kernel against
-         plain on a 4096-byte slice; the same for the 1x512 checkpoint.
+         plain on a 4096-byte slice; the same for the 1x512 checkpoint;
+         then ``cli eval`` of the 1x512 checkpoint at its defaults (fp32,
+         100 000 bytes): K1 in its fp32 persistent design, one launch a
+         chunk, against ``--backend plain`` (rel 2e-3), bits < 3.0.
 Phase 4  the CLI's sample path: 1000-byte greedy and T = 0.7 samples of
          the flagship (bf16, B = 1) through ``sample_text``, so through the
          generation kernel K7 in its persistent design, its launches
@@ -29,9 +33,10 @@ Phase 5  the training kernels (layer-0 backward, fused head forward and
          weights, in fp32 and bf16: each reverse step of the backward
          replayed from the kernel's own state, the whole window, times,
          bounds and library yardsticks; K1 at the same shapes without and
-         with dropout, gated as in phase 7a (in bf16 its persistent design
-         with the batch split, one launch a call, beside the unsplit layout
-         and the per-step design, both forced, in the same call). K3
+         with dropout, gated as in phase 7a (in both types its persistent
+         design with the batch split, one launch a call, beside the unsplit
+         layout and the per-step design, both forced, in the same call, the
+         persistent gated the faster than the per-step). K3
          (the fused VJP) without and with dropout 0.35: in bf16 its
          persistent design (one cooperative launch a window and a tensor-core
          dWU, its bf16 dg its fp32 dg rounded, bit for bit), in fp32 its
@@ -55,7 +60,8 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          kernel's share of the step; (c) 100 steps of the bench's Trainer
          in fp32 through the kernels, each step's loss and gradients held
          against the plain versions from the same state, K3's launches
-         counted (its fp32 persistent design's); (d) the bench's
+         counted (its fp32 persistent design's) and K1's (one a call, its
+         fp32 persistent design); (d) the bench's
          schedule once more from the JAX bench's step-0 state
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
          parameters, accumulators, cursors and stream state), train_bpc
@@ -107,13 +113,19 @@ Phase 8  generation: K7 against its plain version with the flagship's
          from primed states: every step replayed by the plain version from
          K7's own state and token (gated), a second call from the same
          state the same bits (gated), the free runs compared (printed); in
-         bf16 its persistent design (gated: fp32 takes the first), and
-         forced the first design and at B = 1 the other product (mma or
-         gemv), held to the same gates; 1000-token calls timed beside the
-         bound, the plain version and the loop backend, every design in
-         the same call (the persistent design gated faster than the first);
-         ``sample_ids`` at B = 128 on the default backend, bf16 (one
-         persistent launch) and fp32 (one launch of the first design).
+         both types its persistent design (gated; fp32's on CUDA cores,
+         ``csrc/sampler_f32.cu``), and forced the first design and at B = 1
+         the other product (bf16: mma or gemv; fp32: ffma), held to the
+         same gates; 1000-token calls timed beside both terms of the bound
+         (operations, and the weights read once at the memory rate), the
+         plain version and the loop backend, every design in the same call
+         (the persistent design gated faster than the first);
+         ``sample_ids`` at B = 128 on the default backend, bf16 and fp32
+         (one persistent launch each), and fp32 at B = 256 (one launch of
+         the first design, which the plan keeps past 128 streams); ``cli
+         sample`` of the flagship at its defaults (fp32, B = 1, T = 1, 1000
+         bytes) and with ``--dtype bfloat16``: one persistent launch each,
+         bytes/s of ``sample_text`` side by side.
 Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          S = 100, bf16, bf16 residuals, enwik6): (a) K8, K9 and K10
          against their plain versions at those shapes, without and with
@@ -136,9 +148,9 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
          call, also at the eval batch of 16; K9 and K10 per-step in fp32
          (gated); (b) one window's
          loss and all gradients of a 2x2048 model with dropout 0.35,
-         kernels against plain (in fp32 K3 and K6 take their per-step
-         design, their launches counted, then each held to its plain
-         replay and timed on the model's layers at these shapes); (c) the
+         kernels against plain (in fp32 K1, K3 and K6 take their per-step
+         design, their launches counted, then K3 and K6 each held to its
+         plain replay and timed on the model's layers at these shapes); (c) the
          5b recipe through the CLI's
          Trainer (its 200 warm-up steps at lr 0, then 100 at lr 0.005):
          step time, chars/s, the bits of each superstep, the launches
@@ -568,16 +580,18 @@ def phase2(test, records):
             check_bf16_residuals(f"{name} {dtype}", kern(
                 layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
                 residuals=True), raw_k)
-            # K1 and K2: the persistent design in bf16, one launch a call,
-            # and (forced) the per-step design, which fp32 keeps, held to
-            # the same gates on the same inputs and timed in this call
+            # K1 and K2: the persistent design, one launch a call (K1 in
+            # both types, K2 in bf16), and (forced) the per-step design,
+            # which K2 keeps in fp32, held to the same gates on the same
+            # inputs and timed in this call
             design, persistent = (split_design if kind == "embed"
                                   else tiled_design)(cfg, b, n)
             print(f"  {name} {dtype}: {design}", flush=True)
-            if persistent != (dtype == "bfloat16") or calls != (1 if persistent else s):
+            expect = kind == "embed" or dtype == "bfloat16"
+            if persistent != expect or calls != (1 if persistent else s):
                 fail(f"{name} {dtype}: {design}, {calls} launches a call; "
-                     f"the eval shapes take the persistent design in bf16 "
-                     f"alone, one launch a call (S in fp32)")
+                     f"the eval shapes take the persistent design (K1 in both "
+                     f"types, K2 in bf16), one launch a call (S elsewhere)")
             if persistent:
                 with per_step_tiled(SPLIT_PLAN if kind == "embed"
                                     else ("device_tiled_fwd_plan",)):
@@ -608,8 +622,8 @@ def phase2(test, records):
                      f"({s} launches)" if persistent else ""), flush=True)
             rec = dict(
                 name=name, route="cuda",
-                source=FWD_SOURCE if persistent else
-                "eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
+                source=(FWD_SOURCE if dtype == "bfloat16" else TILED_F32_SOURCE)
+                if persistent else "eigen_lstm_tpu_torch/csrc/lstm_fwd.cu",
                 replaces=replaces, launches=None, max_abs_err=step_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms,
@@ -694,12 +708,58 @@ def eval_check(path, cfg, test, label):
     return counts, chunks, bpc_k
 
 
+def cli_eval_fp32(test):
+    """``cli eval`` of the 1x512 checkpoint at its defaults (fp32 compute,
+    eval batch 16, 100 000 held-out bytes), so K1 in its fp32 persistent
+    design, one launch a chunk (K1's launches reset before and read
+    after); the same command with ``--backend plain`` beside it: bits/char
+    within BPC_RTOL, below 3.0. Returns K1's launches."""
+    import io
+
+    from eigen_lstm_tpu_torch import ModelConfig, cli
+    from eigen_lstm_tpu_torch.ops import cuda_cell
+    from eigen_lstm_tpu_torch.train.evaluator import _build_streams
+
+    argv = ["eval", "--ckpt", H512, "--data", CORPUS]
+    res = {}
+    for backend in ("auto", "plain"):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_cell.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--backend", backend])
+        torch.cuda.synchronize()
+        bpc = json.loads(buf.getvalue().strip().splitlines()[-1])["test_bpc"]
+        res[backend] = (bpc, time.perf_counter() - t0, cuda_cell.launches()[0])
+    cfg = ModelConfig(hidden=512, num_layers=1, compute_dtype="float32")
+    chunks = _build_streams(test, EVAL_BATCH, CHUNK, PATH_CHARS)[-1]
+    design, persistent = split_design(cfg, EVAL_BATCH, cfg.hidden)
+    (bpc, dt, k1), (bpc_p, dt_p, k1_p) = res["auto"], res["plain"]
+    rel = abs(bpc - bpc_p) / bpc_p
+    print(f"  cli eval bible_h512 (its defaults: fp32, {PATH_CHARS} bytes): "
+          f"bpc {bpc:.6f} in {dt:.3f} s ({PATH_CHARS / dt:,.0f} bytes/s, the "
+          f"checkpoint's load included), --backend plain {bpc_p:.6f} in "
+          f"{dt_p:.3f} s (rel {rel:.2e}, rtol {BPC_RTOL:g}); K1 in {design}: "
+          f"{k1} launches (the path's {chunks} chunks give {chunks}), plain {k1_p}",
+          flush=True)
+    if not persistent or k1 != chunks or k1_p != 0:
+        fail(f"cli eval fp32: K1 in {design}, launched {k1} and {k1_p} times; "
+             f"its fp32 persistent design gives one a chunk ({chunks}), the "
+             f"plain backend none")
+    if rel > BPC_RTOL or not bpc < 3.0:
+        fail(f"cli eval fp32: bpc {bpc} against plain {bpc_p} out of tolerance")
+    return k1
+
+
 def phase3(test):
     """The eval path of both checkpoints; K1 in its persistent design (one
     launch a chunk, both checkpoints), the flagship's K2 in its persistent
     design (one launch a chunk and layer), then once more with K2's
-    per-step design forced (one a step). Returns the launch counts of the
-    first flagship run and K2's launches in the forced one."""
+    per-step design forced (one a step); then ``cli eval`` of the 1x512
+    checkpoint at its default fp32 (``cli_eval_fp32``). Returns the launch
+    counts of the first flagship run, K2's launches in the forced one and
+    K1's in the fp32 ``cli eval``."""
     from eigen_lstm_tpu_torch import ModelConfig
 
     cfg = flagship_cfg("bfloat16")
@@ -722,7 +782,7 @@ def phase3(test):
     eval_check(H512, ModelConfig(hidden=512, num_layers=1,
                                  compute_dtype="bfloat16"),
                test, "bible_h512 1x512 bf16")
-    return counts, step_counts[1]
+    return counts, step_counts[1], cli_eval_fp32(test)
 
 
 SAMPLE_CHARS, LOOP_CHARS = 1000, 200
@@ -1118,9 +1178,9 @@ def phase5(records):
         rand = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd).to(DEVICE)
         h0, c0 = rand(b, n, sd=0.1), rand(b, n, sd=0.1)
         onehot = torch.nn.functional.one_hot(x.long(), m).float()
-        # --- K1 at these shapes, without and with dropout: in bf16 its
-        # persistent design (the batch split, one launch a call) and, in
-        # this call, the unsplit layout and the per-step design (forced)
+        # --- K1 at these shapes, without and with dropout: its persistent
+        # design (the batch split, one launch a call) and, in this call,
+        # the unsplit layout and the per-step design (forced)
         k1_lib = library_ms(m, cfg, onehot, h0, c0)
         for drop in (0.0, FLAG_DROP):
             tag = f"{dtype} drop {drop:g}"
@@ -1585,8 +1645,8 @@ def phase6c():
     At every step the loss and five gradients through the plain versions,
     from the kernel run's own state, are gated; a second run through the
     plain versions alone is printed beside it. Returns the launches of K3
-    (its fp32 persistent design), K1 (its per-step design, which fp32
-    takes) and K4 (its CUDA-core design, which fp32 takes)."""
+    (its fp32 persistent design), K1 (its fp32 persistent design, one
+    launch a call) and K4 (its CUDA-core design, which fp32 takes)."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
     from eigen_lstm_tpu_torch.ops import cuda_cell, cuda_cell_bwd, head
@@ -1650,12 +1710,13 @@ def phase6c():
     if per_call != want:
         fail(f"steps fp32: K3 launched {k3.launches} times in {TRAJ_STEPS} "
              f"steps, not the fp32 persistent design's {want} a call")
-    # and two K1 calls a step in its per-step design, which fp32 keeps
-    print(f"  steps fp32: K1 {k1.launches} launches (the per-step design)",
-          flush=True)
-    if k1.launches != 2 * TRAJ_STEPS * TRAIN_S:
-        fail(f"steps fp32: K1 launched {k1.launches} times, the per-step "
-             f"design gives {2 * TRAJ_STEPS * TRAIN_S}")
+    # and two K1 calls a step in its fp32 persistent design, one launch a
+    # call
+    design, persistent = split_design(mcfg, TRAIN_B, mcfg.hidden)
+    print(f"  steps fp32: K1 {k1.launches} launches ({design})", flush=True)
+    if not persistent or k1.launches != 2 * TRAJ_STEPS:
+        fail(f"steps fp32: K1 launched {k1.launches} times in {design}; its "
+             f"fp32 persistent design gives {2 * TRAJ_STEPS}")
     # and two K4 calls a step, each its CUDA-core pass and the partials' sum
     print(f"  steps fp32: K4 {k4.launches} launches (the CUDA-core design)",
           flush=True)
@@ -1911,27 +1972,26 @@ def k1_designs(layer, x, h0, c0, cfg, dropout, mask, inv, tag, out, rec,
                calls):
     """K1 at training shapes beyond ``fwd_check`` (its output ``out``, its
     record ``rec`` and launches ``calls`` of that call): the design and
-    launches a call (the persistent one in bf16, one launch; S in fp32);
-    the bf16-residual run the fp32 run rounded, bit for bit; in bf16 the
-    per-step design and the unsplit layout (both forced) held to
-    ``fwd_check``'s gates on the same inputs and timed in this call
-    (``rec["per_step_ms"]``, ``rec["unsplit_ms"]``)."""
+    launches a call (the persistent one in both types, one launch); the
+    bf16-residual run the fp32 run rounded, bit for bit; the per-step
+    design and the unsplit layout (both forced) held to ``fwd_check``'s
+    gates on the same inputs and timed in this call (``rec["per_step_ms"]``,
+    ``rec["unsplit_ms"]``), the persistent design gated the faster than the
+    per-step one."""
     from eigen_lstm_tpu_torch.ops import cuda_cell
 
     s, b = x.shape
     design, persistent = split_design(cfg, b, cfg.hidden)
     print(f"  lstm_fwd_embed {tag}: {design}", flush=True)
-    if persistent != (cfg.cdtype == torch.bfloat16) or calls != (1 if persistent else s):
+    if not persistent or calls != 1:
         fail(f"lstm_fwd_embed {tag}: {design}, {calls} launches a call; these "
-             f"shapes take the persistent design in bf16 alone, one launch a "
-             f"call (S in fp32)")
+             f"shapes take the persistent design in both types, one launch a "
+             f"call")
     kern, plain = cuda_cell.embed_layer0, cuda_cell.embed_layer0_plain
     check_bf16_residuals(f"lstm_fwd_embed {tag}", kern(
         layer, x, h0, c0, dataclasses.replace(cfg, residual_dtype="bfloat16"),
         residuals=True, dropout=dropout), out)
-    if not persistent:
-        return
-    rec["source"] = FWD_SOURCE
+    rec["source"] = FWD_SOURCE if cfg.cdtype == torch.bfloat16 else TILED_F32_SOURCE
     for key, label, force, want in (
             ("per_step_ms", "the per-step design", per_step_tiled(SPLIT_PLAN), s),
             ("unsplit_ms", "the unsplit layout", unsplit_fwd(), 1)):
@@ -1945,6 +2005,9 @@ def k1_designs(layer, x, h0, c0, cfg, dropout, mask, inv, tag, out, rec,
         if other["lstm_fwd_embed"] != want:
             fail(f"lstm_fwd_embed {tag}, {label}: {other['lstm_fwd_embed']} "
                  f"launches a call, not {want}")
+    if not rec["ms"] < rec["per_step_ms"]:
+        fail(f"lstm_fwd_embed {tag}: the persistent design ({rec['ms']:.4f} ms) "
+             f"is not faster than the per-step one ({rec['per_step_ms']:.4f})")
 
 
 def design_times(rec, s):
@@ -2671,17 +2734,55 @@ def gen_forced(layout):
         cuda_sampler.device_gen_plan = plan
 
 
+def cli_sample(dtype):
+    """``cli sample`` of the flagship at the CLI's defaults (B = 1, T = 1,
+    1000 bytes, seed 0), ``--dtype`` ``dtype``, with K7's counts reset
+    before and read after and ``sample_text`` timed (host clock between
+    synchronisations; the checkpoint's load not included). Returns (the
+    text, its seconds, K7's launches, the persistent design's)."""
+    import io
+
+    from eigen_lstm_tpu_torch import cli
+    from eigen_lstm_tpu_torch.models import sampler
+    from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
+
+    argv = ["sample", "--ckpt", FLAGSHIP, "--data", CORPUS, "--hidden", "1024",
+            "--layers", "3"] + (["--dtype", dtype] if dtype != "float32" else [])
+    real, took = sampler.sample_text, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = real(*a, **k)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+        return text
+
+    buf = io.StringIO()
+    cs.generate.launches = cs.generate.persistent_launches = 0
+    sampler.sample_text = timed
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        sampler.sample_text = real
+    return (buf.getvalue()[:-1], took[0], cs.generate.launches,
+            cs.generate.persistent_launches)
+
+
 def phase8(test, records):
     """K7 against its plain version with the flagship's weights, fp32 and
     bf16, B = 1 and 128, T = 0 and 0.7, from primed states, every design
-    the card runs (bf16: the persistent design, and forced the first
-    design and, at B = 1, the tensor-core product; fp32: the first
-    design); then the times of 1000-token calls beside the bound, the
-    plain version and the loop backend, every design in the same call;
-    then ``sample_ids`` at B = 128 on the
-    default backend, bf16 (the persistent design) and fp32 (the first),
-    with K7's counts reset before and read after. Returns (the persistent
-    design's launches, the first design's) of those two calls."""
+    the card runs (the persistent design of each type, and forced the
+    first design and, at B = 1, the other product: bf16's tensor-core one,
+    fp32's FFMA one); then the times of 1000-token calls beside the bound,
+    the plain version and the loop backend, every design in the same call;
+    then ``sample_ids`` on the default backend at B = 128 in bf16 and fp32
+    (the persistent design) and in fp32 at B = 256 (the first design, by
+    plan), and ``cli sample`` at its defaults (fp32) and in bf16, with
+    K7's counts reset before and read after each. Returns the launches of
+    those runs: {"bfloat16": the bf16 persistent design's, "float32": the
+    fp32 persistent design's, "first": the first design's}."""
     from eigen_lstm_tpu_torch.models.sampler import sample_ids
     from eigen_lstm_tpu_torch.ops import cuda_sampler as cs
     from eigen_lstm_tpu_torch.train.checkpoint import load_params
@@ -2693,31 +2794,30 @@ def phase8(test, records):
             first, h0, c0 = primed(params, cfg, test, b)
             label, lay = gen_design(cfg, b)
             print(f"  K7 {dtype} B={b}: {label}", flush=True)
-            if (lay is not None) != (dtype == "bfloat16"):
+            if lay is None:
                 fail(f"K7 {dtype} B={b}: {label}; the persistent design in "
-                     f"bf16 alone")
+                     f"both types")
             # the designs this call checks and times: the main path's, then
             # forced the first design and B = 1's other product
-            others = {}
-            if lay is not None:
-                others["first design"] = None
-                if b == 1:
-                    alt = "mma" if lay.design == "gemv" else "gemv"
-                    others[f"{alt} product"] = cs.device_gen_plan(cfg, b, design=alt)
+            others = {"first design": None}
+            if b == 1:
+                alt, = (d for d in cs.GEN_DESIGNS[cfg.cdtype] if d != lay.design)
+                others[f"{alt} product"] = cs.device_gen_plan(cfg, b, design=alt)
             before = (cs.generate.launches, cs.generate.persistent_launches)
             err = max(gen_replay(params, cfg, first, h0, c0, temp,
                                  f"{dtype} B={b} T={temp}")
                       for temp in (0.0, 0.7))
             made = (cs.generate.launches - before[0],
                     cs.generate.persistent_launches - before[1])
-            if made != (4, 4 if lay is not None else 0):
+            if made != (4, 4):
                 fail(f"K7 {dtype} B={b}: {made} (all, persistent) launches "
                      f"in four calls")
+            other_err = {}
             for key, other in others.items():
                 with gen_forced(other):
-                    for temp in (0.0, 0.7):
-                        gen_replay(params, cfg, first, h0, c0, temp,
-                                   f"{dtype} B={b} T={temp} ({key})")
+                    other_err[key] = max(gen_replay(params, cfg, first, h0, c0,
+                                                    temp, f"{dtype} B={b} T={temp} ({key})")
+                                         for temp in (0.0, 0.7))
             n_tok = GEN_TIME_TOKENS
             run = lambda fn, **kw: fn(params, cfg, GEN_SEED, first, h0, c0,
                                       n_tok, 0.7, **kw)
@@ -2743,24 +2843,30 @@ def phase8(test, records):
                   f"({b * n_tok / loop_ms * 1e3:,.0f} bytes/s)"
                   + "".join(f"; {k} {v:.3f} ms" for k, v in times.items())
                   + (" in this call" if times else ""), flush=True)
-            if lay is not None and not ms < times["first design"]:
+            if not ms < times["first design"]:
                 fail(f"K7 {dtype} B={b}: the persistent design ({ms:.3f} ms) "
                      f"is not faster than the first ({times['first design']:.3f})")
-            records[("gen", dtype, b)] = dict(
-                name="gen" if lay is not None else "gen_first_design",
-                route="cuda",
-                source="eigen_lstm_tpu_torch/csrc/sampler.cu",
+            rec = dict(
+                name="gen" if dtype == "bfloat16" else "gen_fp32", route="cuda",
+                source=("eigen_lstm_tpu_torch/csrc/sampler.cu" if dtype == "bfloat16"
+                        else "eigen_lstm_tpu_torch/csrc/sampler_f32.cu"),
                 replaces="eigen_lstm_tpu/ops/pallas_sampler.py:37",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                **{k.replace(" ", "_") + "_ms": v for k, v in times.items()})
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            records[("gen", dtype, b)] = dict(
+                rec, **{k.replace(" ", "_") + "_ms": v for k, v in times.items()})
+            # the first design, forced on these inputs (fp32 B = 128 is its
+            # record: refused shapes take it by plan)
+            records[("gen_first", dtype, b)] = dict(
+                rec, name="gen_first_design", source="eigen_lstm_tpu_torch/csrc/sampler.cu",
+                max_abs_err=other_err["first design"], ms=times["first design"])
     print("  library: no single PyTorch call generates tokens through an "
           "LSTM stack with a draw; the loop backend above is what the port "
           "ran before K7, not a yardstick", flush=True)
-    made = []
-    for dtype in ("bfloat16", "float32"):
+    made = {"bfloat16": 0, "float32": 0, "first": 0}
+    for dtype, b in (("bfloat16", 128), ("float32", 128), ("float32", 256)):
         cfg = flagship_cfg(dtype)
-        first, h0, c0 = primed(params, cfg, test, 128)
+        first, h0, c0 = primed(params, cfg, test, b)
         torch.cuda.synchronize()
         cs.generate.launches = cs.generate.persistent_launches = 0
         t0 = time.perf_counter()
@@ -2770,17 +2876,36 @@ def phase8(test, records):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, persistent = cs.generate.launches, cs.generate.persistent_launches
-        print(f"  sample_ids {dtype} B=128, {GEN_TIME_TOKENS} tokens on the "
+        label, lay = gen_design(cfg, b)
+        print(f"  sample_ids {dtype} B={b}, {GEN_TIME_TOKENS} tokens on the "
               f"default backend: {ids.numel() / dt:,.0f} bytes/s ({dt:.3f} s), "
               f"K7 launched {launches} times, {persistent} in its persistent "
-              f"design", flush=True)
-        want = 1 if dtype == "bfloat16" else 0
-        if (launches != 1 or persistent != want
-                or tuple(ids.shape) != (GEN_TIME_TOKENS, 128)):
-            fail(f"sample_ids {dtype} at B = 128 did not run K7 once in its "
+              f"design ({label})", flush=True)
+        want = int(b <= 128)   # past 128 streams the plan keeps the first design
+        if (launches != 1 or persistent != want or (lay is not None) != bool(want)
+                or tuple(ids.shape) != (GEN_TIME_TOKENS, b)):
+            fail(f"sample_ids {dtype} at B = {b} did not run K7 once in its "
                  f"{'persistent' if want else 'first'} design")
-        made.append(persistent if want else launches)
-    return tuple(made)
+        made[dtype if want else "first"] += launches
+    # the CLI's sample at its defaults (fp32), beside bf16
+    rate = {}
+    for dtype in ("float32", "bfloat16"):
+        text, secs, launches, persistent = cli_sample(dtype)
+        label = gen_design(flagship_cfg(dtype), 1)[0]
+        rate[dtype] = SAMPLE_CHARS / secs
+        print(f"  cli sample --dtype {dtype} (B = 1, T = 1, {SAMPLE_CHARS} "
+              f"bytes): {rate[dtype]:,.1f} bytes/s through sample_text "
+              f"({secs:.3f} s), K7 launched {launches} times, {persistent} in "
+              f"{label}; {text[:60]!r}", flush=True)
+        if len(text) != SAMPLE_CHARS or (launches, persistent) != (1, 1):
+            fail(f"cli sample --dtype {dtype}: {len(text)} bytes, K7 launched "
+                 f"{launches} times, {persistent} persistent; expected "
+                 f"{SAMPLE_CHARS} bytes and one persistent launch")
+        made[dtype] += persistent
+    print(f"  cli sample: fp32 {rate['float32']:,.1f} bytes/s against bf16's "
+          f"{rate['bfloat16']:,.1f} ({rate['float32'] / rate['bfloat16']:.2f}x)",
+          flush=True)
+    return made
 
 
 # --- the tiled-U regime (scripts/run_configs.py 5b: 1x2048, B = 128, S = 100)
@@ -3044,8 +3169,8 @@ def per_step_tiled(names=("device_tiled_fwd_plan",)):
             setattr(ct, name, plan)
 
 
-# K1's and K15's plans (``cuda_cell_tiled.split_fwd_plan``; K15's under
-# fp32 compute ``split_fwd_f32_plan``), the names that ``per_step_tiled``
+# K1's and K15's plans (``cuda_cell_tiled.split_fwd_plan``; under fp32
+# compute ``split_fwd_f32_plan``), the names that ``per_step_tiled``
 # replaces to force their other design
 SPLIT_PLAN = ("device_split_fwd_plan", "device_split_fwd_f32_plan")
 # the persistent tensor-core forward: K2, K8, K9 and, in bf16, K1 and K15
@@ -3055,14 +3180,15 @@ FWD_SOURCE = "eigen_lstm_tpu_torch/csrc/fwd_mma.cuh"
 def split_design(cfg, b, n, k15=False):
     """K1's (or with ``k15`` K15's) design at these shapes on this card, as
     their wrappers choose it (``cuda_cell_tiled.split_fwd_plan``; under
-    fp32 compute K15's ``split_fwd_f32_plan``): a label, and whether it is
+    fp32 compute ``split_fwd_f32_plan``): a label, and whether it is
     persistent."""
     from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (
         PERSIST_UNITS, F32_UNITS, device_split_fwd_f32_plan, device_split_fwd_plan)
 
-    split = device_split_fwd_f32_plan(cfg, b, n) if k15 else None
+    split = device_split_fwd_f32_plan(cfg, b, n)
     if split is not None:
-        return (f"the fp32 persistent design (K9's kernel in K15's mode: "
+        mode = "K9's kernel in K15's mode" if k15 else "K8's kernel in its EMBED mode"
+        return (f"the fp32 persistent design ({mode}: "
                 f"{n // F32_UNITS} x {-(-b // split.rows)} blocks of {F32_UNITS} "
                 f"units and {split.rows} batch rows, {split.per} a thread, a ring of "
                 f"{split.stages} slots of {split.kc} columns, one cooperative launch "
@@ -3417,11 +3543,11 @@ def phase9b(records):
     carried state): the loss and all eight gradients through the kernels
     against the plain path, gated as phase 7b. The fp32 run, the control,
     keeps fp32 residuals: fp32 compute with bf16 residuals would round h to
-    bf16 where an fp32 sum's order can flip it. Its K3 and K6 take their
-    per-step design (N = 2048: neither persistent plan takes it), held to
-    ``bwd_check``'s gates and timed at these shapes (the model's layers,
-    their forward from the window's state). Returns their launches in the
-    fp32 window."""
+    bf16 where an fp32 sum's order can flip it. Its K1, K3 and K6 take their
+    per-step design (N = 2048: no persistent plan takes it; their launches
+    counted), K3 and K6 held to ``bwd_check``'s gates and timed at these
+    shapes (the model's layers, their forward from the window's state).
+    Returns (K3's and K6's launches, K1's) in the fp32 window."""
     import dataclasses
 
     from eigen_lstm_tpu_torch.models.lstm import init_params, step_key
@@ -3453,19 +3579,26 @@ def phase9b(records):
                  f"one applies")
         for backend in ("cuda", "plain"):
             cell_fn = select_cell_fn(backend, cfg, B5_B, DEVICE)
-            before = (cb.embed_layer0_bwd.launches, cb.scan_layer_bwd.launches)
+            before = (cb.embed_layer0_bwd.launches, cb.scan_layer_bwd.launches,
+                      cuda_cell.embed_layer0.launches)
             loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg,
                                                cell_fn, key)
             if (dtype, backend) == ("float32", "cuda"):
                 per_step = (cb.embed_layer0_bwd.launches - before[0],
                             cb.scan_layer_bwd.launches - before[1])
+                k1 = cuda_cell.embed_layer0.launches - before[2]
             res[(dtype, backend)] = (loss, dict(grads.named_tensors()))
     torch.cuda.synchronize()
-    print(f"  2x2048 fp32: K3, K6 launches {per_step} (their per-step design)",
-          flush=True)
+    design1 = split_design(dataclasses.replace(base, compute_dtype="float32"),
+                           B5_B, B5_N)[0]
+    print(f"  2x2048 fp32: K3, K6 launches {per_step} (their per-step design); "
+          f"K1 {k1} ({design1})", flush=True)
     if min(per_step) <= B5_S:
         fail(f"2x2048 fp32: K3, K6 launched {per_step} times; the per-step "
              f"design launches more than S a call")
+    if k1 <= 0 or k1 % B5_S:
+        fail(f"2x2048 fp32: K1 launched {k1} times; its per-step design "
+             f"launches S = {B5_S} a call")
     launched = dict(zip(TILED, ct.launches()))
     print(f"  2x2048: tiled launches {launched}", flush=True)
     if min(launched.values()) <= 0:
@@ -3500,7 +3633,7 @@ def phase9b(records):
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
               f"({rec['bound_by']}), cuDNN nn.LSTM backward "
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
-    return per_step
+    return per_step, k1
 
 
 def phase9c(per_call, records):
@@ -6179,7 +6312,7 @@ def main():
     records = {}
     phase2(test, records)
     check_budget("phase 2 (kernels against plain)")
-    (emb, scan), scan_step = phase3(test)
+    (emb, scan), scan_step, k1_cli_eval = phase3(test)
     check_budget("phase 3 (eval path)")
     gen_launches = phase4()
     check_budget("phase 4 (sampling)")
@@ -6207,12 +6340,12 @@ def main():
     check_budget("phase 7b (flagship loss and gradients)")
     flag_counts, _, fp32_tiled, flag_trainer = phase7c(flag_call, records)
     check_budget("phase 7c (flagship training steps)")
-    gen_new, gen_first = phase8(test, records)
-    gen_launches += gen_new
+    gen_made = phase8(test, records)
+    gen_launches += gen_made["bfloat16"]
     check_budget("phase 8 (generation)")
     tiled_call = phase9a(records)
     check_budget("phase 9a (tiled kernels against plain)")
-    per_step_bwd = phase9b(records)
+    per_step_bwd, k1_per_step = phase9b(records)
     check_budget("phase 9b (2x2048 loss and gradients)")
     b5_counts, _ = phase9c(tiled_call, records)
     check_budget("phase 9c (the 5b recipe)")
@@ -6264,8 +6397,12 @@ def main():
                         ("head_fwd", counts["head_fwd"]),
                         ("head_bwd", counts["head_bwd"])):
         add(records[(name, "bfloat16")], count)
-    # K1's per-step design, which fp32 keeps, on 6c's fp32 steps
-    add(records[("lstm_fwd_embed", "float32")], k1_fp32_launches,
+    # K1's fp32 persistent design on 6c's fp32 steps (timed at 5's bench
+    # shapes) and on 3's fp32 cli eval; its per-step design, which N = 2048
+    # keeps, on 9b's fp32 window (timed forced at 2's eval shapes)
+    add(records[("5", "lstm_fwd_embed", "float32", 0.0)],
+        k1_fp32_launches + k1_cli_eval, name="lstm_fwd_embed_fp32")
+    add(records[("lstm_fwd_embed_per_step", "float32")], k1_per_step,
         name="lstm_fwd_embed_per_step")
     # K4's CUDA-core design, which fp32 takes, on 6c's fp32 steps
     add(records[("head_fwd", "float32")], k4_fp32_launches,
@@ -6287,10 +6424,13 @@ def main():
         name="lstm_bwd_scan_fp32")
     add(records[("9b", "lstm_bwd_scan")], per_step_bwd[1],
         name="lstm_bwd_scan_per_step")
-    # K7: the persistent design on the CLI's sample (phase 4) and bf16
-    # sample_ids (8); the first design, which fp32 keeps, on fp32 sample_ids
+    # K7: the bf16 persistent design on phase 4's sample_text and 8's bf16
+    # sample_ids and cli sample; the fp32 one on 8's cli sample at its
+    # defaults and fp32 sample_ids; the first design on 8's sample_ids at
+    # B = 256, which the plan refuses (timed forced at fp32 B = 128)
     add(records[("gen", "bfloat16", 1)], gen_launches)
-    add(records[("gen", "float32", 128)], gen_first)
+    add(records[("gen", "float32", 1)], gen_made["float32"])
+    add(records[("gen_first", "float32", 128)], gen_made["first"])
     # K8 and K10 on the 5b path (9c), K9 on the flagship's fp32 steps (7c)
     for name, count in (("tiled_fwd_embed", b5_counts["tiled_fwd_embed"]),
                         ("tiled_fwd_scan", fp32_tiled["tiled_fwd_scan"]),

@@ -10,12 +10,15 @@
 //   lstm_fwd_scan_launch  <- _fwd_kernel (K2: layers >= 1, xw = x @ W + b
 //       precomputed outside as one large product):
 //       g = xw_t + round(h_{t-1}) @ U
-// This file is their design for fp32 compute and for the shapes the
-// persistent design does not take (B > 128, N not a multiple of 64, a grid
-// the card cannot hold). Under bf16 compute elsewhere both run on the
-// persistent tensor-core forward of fwd_mma.cuh (fwd_persist, through
-// lstm_tiled.cu's launchers; ops/cuda_cell.py chooses), the same function
-// with the same sum order around the product.
+// This file is their design for the shapes the persistent designs do not
+// take (B > 128, N not a multiple of 64 in bf16 or of 32 in fp32, a grid
+// the card cannot hold) and K2's under fp32 compute. Elsewhere both run on
+// a persistent forward (ops/cuda_cell.py chooses), the same function with
+// the same sum order around the product: under bf16 compute the
+// tensor-core one of fwd_mma.cuh (fwd_persist, through lstm_tiled.cu's
+// launchers), under fp32 compute K1 the CUDA-core one of
+// lstm_tiled_f32.cuh (through lstm_tiled_f32.cu's
+// tiled_fwd_embed_f32_launch).
 // then sigma on i, o, f and tanh on u, and the cell update of _cell_fwd:
 // "reference" carries c2 = tanh(i*u + f*c_prev) with h = o*c2; "standard"
 // carries c_raw with h = o*tanh(c_raw). round() is the compute type (bf16

@@ -75,7 +75,7 @@ SIGNATURES = {
     "tiled_fwd_scan_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 6 + _DROP
                               + [_P, _IP]),
     "tiled_fwd_persist_smem_bytes": (_Z, [_I] * 3),
-    "tiled_fwd_embed_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 6 + _DROP
+    "tiled_fwd_embed_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + _DROP
                                    + [_P, _IP]),
     "tiled_fwd_f32_smem_bytes": (_Z, [_I] * 4),
     "tiled_fwd_scan_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
@@ -88,6 +88,10 @@ SIGNATURES = {
                            + [_P, _IP]),
     "gen_persist_smem_bytes": (_Z, [_I] * 5),
     "gen_persist_work_bytes": (_Z, [_I] * 4),
+    "gen_persist_f32_launch": (_I, [_P] * 12 + [_I] * 7 + [_U, _F] + [_I] * 5
+                               + [_P, _IP]),
+    "gen_persist_f32_smem_bytes": (_Z, [_I] * 5),
+    "gen_persist_f32_work_bytes": (_Z, [_I] * 4),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),

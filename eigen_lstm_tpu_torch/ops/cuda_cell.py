@@ -28,20 +28,27 @@ h_seq and the carried (hT, cT) stay unmasked.
 Each wrapper counts in ``.launches`` the kernel launches it makes: one a
 call in the persistent design, S (one a timestep) in the per-step one.
 The two recurrences compute the functions of K8 and K9
-(``cuda_cell_tiled.tiled_embed_layer0`` and ``tiled_scan_layer``), so under
-bf16 compute, wherever the plan gives a layout, each is their persistent
-kernel (``csrc/fwd_mma.cuh:fwd_persist``: one cooperative launch a window,
-U's rows in shared memory, the products on tensor cores) with this
+(``cuda_cell_tiled.tiled_embed_layer0`` and ``tiled_scan_layer``), so
+wherever a plan gives a layout each is their persistent kernel with this
 module's residual type and streams: only the order of the product's fp32
-sums moves. ``scan_layer`` (K2) takes K9's layout
+sums moves. Under bf16 compute that is ``csrc/fwd_mma.cuh:fwd_persist``
+(one cooperative launch a window, U's rows in shared memory, the products
+on tensor cores): ``scan_layer`` (K2) takes K9's layout
 (``cuda_cell_tiled.tiled_fwd_plan``: N a multiple of 64, B <= 128, a grid
 of N / 16 blocks resident, every batch row in a block); ``embed_layer0``
 (K1) splits the batch over the blocks where N / 16 blocks would leave most
 SMs idle (``cuda_cell_tiled.split_fwd_plan``: 32 of the bench's 128 rows
-at N = 512, 128 blocks). Elsewhere (fp32 compute, B > 128, N not a
-multiple of 64, a grid the card cannot hold) each is ``csrc/lstm_fwd.cu``'s
-one launch a step. The plan decides before the launch; a failed launch
-raises.
+at N = 512, 128 blocks). Under fp32 compute K1 takes K8's fp32 persistent
+kernel (``csrc/lstm_tiled_f32.cuh``: one cooperative launch a window on
+CUDA cores, N / 8 blocks each holding its N x 32 slice of U, TF32 off),
+its batch split over block rows where N / 8 blocks would leave SMs idle
+(``cuda_cell_tiled.split_fwd_f32_plan``: 2 rows of 64 at the bench's
+N = 512, B = 128; 8 rows a block at a 1x512 eval's B = 16; one block row
+at N = 1024); a row's sums do not depend on the rows its block holds.
+Elsewhere (K2 under fp32 compute, B > 128, N not a multiple of 64 in bf16
+or of 32 in fp32, a grid the card cannot hold) each is
+``csrc/lstm_fwd.cu``'s one launch a step. The plan decides before the
+launch; a failed launch raises.
 
 None of these functions is differentiable by itself, and each raises when
 asked for a gradient rather than return a result that autograd cannot
@@ -352,7 +359,9 @@ def embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
     from . import cuda_cell_tiled as ct
 
     lib = _build.load_library()
-    layout = ct.device_split_fwd_plan(cfg, b, n)
+    plan = (ct.device_split_fwd_f32_plan if cfg.cdtype == torch.float32
+            else ct.device_split_fwd_plan)
+    layout = plan(cfg, b, n)
     if layout is not None:   # K8's persistent kernel, K1's residual type
         o = ct.embed_launch(embed_layer0, layer, ids, h0, c0, cfg, cfg.rdtype,
                             layout, residuals, dropout)

@@ -33,11 +33,12 @@ forwards compute the same functions and take the bf16 persistent design
 through the same launchers (``embed_launch`` for K1, ``scan_launch`` for
 K2), as does K15 (``cuda_tp_seq``); K1's and K15's blocks take a share of
 the batch rows where N / 16 blocks would leave most SMs idle
-(``split_fwd_plan``). Under fp32 compute K15 takes K9's fp32 persistent
-kernel in K15's mode (``csrc/lstm_tiled_f32.cuh``: h_seq in fp32, c_prev =
-c_{t-1}), its blocks a share of the batch rows where N / 8 blocks would
-leave SMs idle (``split_fwd_f32_plan``, ``f32_split_layout``, which its
-D-rank design shares). K10 has three such designs too: under bf16 compute
+(``split_fwd_plan``). Under fp32 compute K1 takes K8's fp32 persistent
+kernel through ``embed_launch`` with K1's residual type, and K15 K9's in
+K15's mode (``csrc/lstm_tiled_f32.cuh``: h_seq in fp32, c_prev =
+c_{t-1}), the blocks of both a share of the batch rows where N / 8 blocks
+would leave SMs idle (``split_fwd_f32_plan``, ``f32_split_layout``, which
+K15's D-rank design shares). K10 has three such designs too: under bf16 compute
 (``tiled_bwd_plan``), where its grid of (N / 32) * ceil(B / rows) blocks
 can be resident, one persistent cooperative launch a window that also
 gives dh0, with as many chunks of U's rows as fit in shared memory and
@@ -407,15 +408,18 @@ def f32_split_layout(b: int, n: int, blocks: int, sms: int, smem_limit: int,
 
 def split_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
                        smem_limit: int, split: bool = True) -> Optional[F32Split]:
-    """K15's design under fp32 compute at D = 1 (batch, hidden) on a device
-    of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
-    memory: K9's fp32 persistent kernel in K15's mode with the batch split
-    over block rows (``f32_split_rows``; every row in a block without
-    ``split``), or None for K15's cooperative design (also under bf16
-    compute, whose plan is ``split_fwd_plan``). It needs what
-    ``tiled_fwd_f32_plan`` needs of K9: N a multiple of 32, at most
-    F32_ROWS batch rows, a resident grid, the slice of U and a ring in a
-    block's shared memory."""
+    """K1's and K15's (at D = 1) design under fp32 compute at (batch,
+    hidden) on a device of ``sms`` SMs whose blocks may take ``smem_limit``
+    bytes of shared memory: the fp32 persistent kernel (K8's in its EMBED
+    mode for K1, K9's in K15's mode for K15) with the batch split over
+    block rows (``f32_split_rows``: 2 rows of 64 at the bench's N = 512, B
+    = 128; 8 rows a block at B = 16 there; one block row at N = 1024; every
+    row in a block without ``split``), or None for their other design (K1:
+    one launch a step; K15: cooperative; also under bf16 compute, whose
+    plan is ``split_fwd_plan``). It needs what ``tiled_fwd_f32_plan`` needs
+    of K8 and K9: N a multiple of 32, at most F32_ROWS batch rows, a
+    resident grid, the slice of U and a ring in a block's shared
+    memory."""
     if cfg.cdtype != torch.float32 or n % 32 or not 1 <= b <= F32_ROWS:
         return None
     return f32_split_layout(b, n, n // F32_UNITS, sms, smem_limit,
@@ -594,22 +598,41 @@ def _check_f32_layout(layout: F32Layout, cfg: ModelConfig, b: int):
                          f"compute and {f32_rows_per_thread(b)} rows a thread")
 
 
+def _f32_block_rows(layout: Union[F32Layout, F32Split], cfg: ModelConfig,
+                    b: int) -> F32Split:
+    """The fp32 forward's layout as batch rows a block and its ring: an
+    ``F32Layout`` (K8, K9) holds every row in one block; an ``F32Split``
+    (K1) is checked: fp32 compute, 1 to B rows a block, its rows a thread
+    those of that many rows."""
+    if isinstance(layout, F32Layout):
+        _check_f32_layout(layout, cfg, b)
+        return F32Split(b, *layout)
+    if (cfg.cdtype != torch.float32 or not 1 <= layout.rows <= b
+            or layout.per != f32_rows_per_thread(layout.rows)):
+        raise ValueError(f"{layout} is no fp32 layout at the batch {b}: fp32 "
+                         f"compute, 1 to {b} rows a block, the rows a thread "
+                         f"of that many")
+    return layout
+
+
 def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
-                 rd: torch.dtype, layout: Union[Tuple[int, int], F32Layout],
+                 rd: torch.dtype,
+                 layout: Union[Tuple[int, int], F32Layout, F32Split],
                  residuals: bool, dropout):
     """One call of K8's launchers, which K1 (``cuda_cell.embed_layer0``)
     takes too: W and U in the compute type, b in fp32, the sequences in
     ``rd``; ``layout`` the persistent design's (kres, rows) (kres -1: the
     per-step design) through ``tiled_fwd_embed_launch``, or an
-    ``F32Layout``: K8's fp32 persistent design through
+    ``F32Layout`` (K8: every batch row in a block) or ``F32Split`` (K1: the
+    batch split over block rows): the fp32 persistent design through
     ``tiled_fwd_embed_f32_launch``. Adds the launches made to
     ``counter.launches``, then raises on a failed launch; returns the
     buffers."""
     s, b = ids.shape
     n = cfg.hidden
-    f32 = isinstance(layout, F32Layout)
+    f32 = isinstance(layout, (F32Layout, F32Split))
     if f32:
-        _check_f32_layout(layout, cfg, b)
+        layout = _f32_block_rows(layout, cfg, b)
     W_c, U_c, bias = (_aligned(x) for x in _embed_weights(layer, cfg))
     ids32 = ids.to(torch.int32).contiguous()
     drop = cuda_cell.drop_scalars(dropout)
@@ -624,7 +647,8 @@ def embed_launch(counter, layer, ids, h0, c0, cfg: ModelConfig,
     if f32:
         name = "tiled_fwd_embed_f32_launch"
         err = lib.tiled_fwd_embed_f32_launch(cuda_cell._TYPE_CODES[rd], *common,
-                                             layout.kc, layout.stages, *tail)
+                                             layout.rows, layout.kc,
+                                             layout.stages, *tail)
     else:
         name = "tiled_fwd_embed_launch"
         err = lib.tiled_fwd_embed_launch(

@@ -23,11 +23,15 @@ callers pass a seed, and tests pass the JAX one.
 
 K7 has two designs on the card (``gen_plan`` chooses from the type, the
 batch, the shape and the card's SMs and shared memory, before the launch;
-a failed launch raises): under bf16 compute the persistent design of
-``csrc/sampler.cu`` (``gen_persist``: each block owns fixed columns of
-every layer and of the head for the call and holds as many of their weight
-rows in shared memory as fit, L + 1 grid barriers a token, the products on
-tensor cores, or at B = 1 a gemv), elsewhere the first design
+a failed launch raises): the persistent design of ``csrc/sampler.cuh``
+(``gen_persist``: each block owns fixed columns of every layer and of the
+head for the call and holds as many of their weight rows in shared memory
+as fit, L + 1 grid barriers a token), in bf16 with its products on tensor
+cores or at B = 1 a gemv (``csrc/sampler.cu``), in fp32 on CUDA cores,
+TF32 off: at B = 1 the same gemv on fp32 rows, above it the 8 x 8
+register tiles of K8's fp32 forward (``csrc/sampler_f32.cu``); elsewhere
+(B > 128, N not a multiple of 64, M not a multiple of the head's tile,
+more than 8 layers, more tiles a phase than SMs) the first design
 (``gen_kernel``: partial sums and an epilogue phase a layer, 2L + 1
 barriers a token, the weights streamed from L2 at every token).
 
@@ -60,30 +64,38 @@ def supported(cfg: ModelConfig, batch: int) -> bool:
     type. It streams the weights from device memory and L2 at every token,
     so it has no capacity gate (the TPU's 13 MB VMEM budget,
     ``pallas_sampler.py:121-134``, describes the TPU). Within it
-    ``gen_plan`` picks the persistent design where it gives a layout: bf16
-    compute, N a multiple of 64, M of 64 (32 for B = 1's gemv product), at
-    most 128 streams and 8 layers, each phase's tiles within the SMs; it
-    holds about two thirds of the flagship's weights on chip for the whole
-    call."""
+    ``gen_plan`` picks the persistent design where it gives a layout: N a
+    multiple of 64, M of 64 (32 for the 8-unit tiles: the gemv and the
+    fp32 product), at most 128 streams and 8 layers, each phase's tiles
+    within the SMs; it holds about two thirds of the flagship's bf16
+    weights (a third of its fp32 ones) on chip for the whole call."""
     return (cfg.hidden % 32 == 0 and 0 < cfg.vocab <= MAX_VOCAB
             and batch >= 1 and cfg.cdtype in _TYPE_CODES)
 
 
-# The persistent design's layout, as csrc/sampler.cu lays it out
+# The persistent design's layout, as csrc/sampler.cuh lays it out
 # (gen_smem_bytes; ``_layout_checked`` holds the two equal): each block
-# holds `resident_rows` weight rows ([k][gate][unit], 4 * units + pad bf16
-# a row for the tensor-core product, 4 * units for gemv), then its scratch
-# (the tensor-core ring of ``cuda_cell_tiled.persist_smem_bytes`` for the
-# larger of rows and head_rows; gemv: round(x) of 2N in bf16 and the warps'
-# sums, 9 x 32 fp32), then 128 + 4 * 9 ints (its rows' tokens, its phases'
-# items).
-GEN_UNITS = {"mma": ct.PERSIST_UNITS, "gemv": 8}
-GEN_PITCH = {"mma": 4 * ct.PERSIST_UNITS + ct.PERSIST_PAD, "gemv": 4 * 8}
+# holds `resident_rows` weight rows ([k][gate][unit] in the compute type,
+# 4 * units + pad elements a row for the tensor-core product, 4 * units for
+# gemv and the fp32 product), then its scratch (the tensor-core ring of
+# ``cuda_cell_tiled.persist_smem_bytes`` for the larger of rows and
+# head_rows; gemv: round(x) of 2N in the compute type and the warps' sums,
+# 9 x 32 fp32; the fp32 product: a ring of GEN_F32_STAGES slots, each 32 R
+# rows of h by GEN_F32_KC columns, + 4 floats of pitch, and GEN_F32_KC
+# weight rows, which the 4 splits' partial sums reuse), then 128 + 4 * 9
+# ints (its rows' tokens, its phases' items). The designs of each compute
+# type: (B = 1's, the batch's).
+GEN_UNITS = {"mma": ct.PERSIST_UNITS, "gemv": 8, "ffma": ct.F32_UNITS}
+GEN_PITCH = {"mma": 4 * ct.PERSIST_UNITS + ct.PERSIST_PAD, "gemv": 4 * 8,
+             "ffma": 4 * ct.F32_UNITS}
+GEN_DESIGNS = {torch.bfloat16: ("gemv", "mma"), torch.float32: ("gemv", "ffma")}
+GEN_F32_KC, GEN_F32_STAGES = 32, 3
 GEN_MAX_ROWS, GEN_MAX_LAYERS = ct.PERSIST_ROWS, 8
 
 
 class GenLayout(NamedTuple):
-    design: str          # "mma" (tensor cores) or "gemv" (B = 1)
+    design: str          # "mma" (bf16 tensor cores), "gemv" (B = 1) or
+                         # "ffma" (fp32 CUDA cores)
     units: int           # hidden units of a block's layer tile (x 4 gates)
     rows: int            # batch rows of a layer item
     head_rows: int       # batch rows of a head item (its tile: 4 x units logits)
@@ -106,14 +118,26 @@ def gen_items(ph: int, L: int, b: int, n: int, m: int, units: int,
     return (n if ph < L else m // 4) // units * -(-b // r)
 
 
-def gen_smem_bytes(design: str, rows: int, head_rows: int, n: int,
-                   resident_rows: int) -> int:
-    """A block's dynamic shared memory (``gen_smem_bytes`` of the source)."""
+def gen_scratch_bytes(design: str, rows: int, head_rows: int, n: int,
+                      csize: int) -> int:
+    """The product's shared memory beside the resident rows, elements of
+    ``csize`` bytes (each Product's ``scratch_bytes`` in the source)."""
     if design == "mma":
-        scratch = max(ct.persist_smem_bytes(r, n, 0) for r in (rows, head_rows))
-    else:
-        scratch = 4 * n + 9 * 4 * GEN_UNITS["gemv"] * 4
-    return (2 * GEN_PITCH[design] * resident_rows + scratch
+        return max(ct.persist_smem_bytes(r, n, 0) for r in (rows, head_rows))
+    if design == "gemv":
+        return 2 * n * csize + 9 * 4 * GEN_UNITS["gemv"] * 4
+    r = 32 * ct.f32_rows_per_thread(max(rows, head_rows))
+    ring = GEN_F32_STAGES * (r * (GEN_F32_KC + 4) + GEN_F32_KC * GEN_PITCH["ffma"])
+    return 4 * max(ring, ct.F32_SPLIT * r * GEN_PITCH["ffma"])
+
+
+def gen_smem_bytes(design: str, rows: int, head_rows: int, n: int,
+                   resident_rows: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """A block's dynamic shared memory in compute type ``dtype``
+    (``gen_smem_bytes`` of the source)."""
+    csize = torch.finfo(dtype).bits // 8
+    return (csize * GEN_PITCH[design] * resident_rows
+            + gen_scratch_bytes(design, rows, head_rows, n, csize)
             + (GEN_MAX_ROWS + 4 * (GEN_MAX_LAYERS + 1)) * 4)
 
 
@@ -144,43 +168,52 @@ def gen_plan(cfg: ModelConfig, b: int, sms: int, smem_limit: int,
     blocks may take ``smem_limit`` bytes of shared memory: the persistent
     design's layout, or None for the first design.
 
-    The persistent design needs bf16 compute (the tensor cores; fp32
-    products keep TF32 off), N a multiple of the 64-row chunk, 1 to 8
-    layers, at most 128 streams and 256 bytes, and every phase's items
-    within one a block on a grid of one block a SM. Its product is
-    ``design``, by default "mma" (the tensor-core step of
-    ``csrc/fwd_mma.cuh``: 16 units a tile, M a multiple of 64) and at
+    The persistent design needs bf16 or fp32 compute, N a multiple of the
+    64-row chunk, 1 to 8 layers, at most 128 streams and 256 bytes, and
+    every phase's items within one a block on a grid of one block a SM. Its
+    product is ``design``, one of the type's ``GEN_DESIGNS``: by default at
     B = 1 "gemv" (8 units a tile, M a multiple of 32; it beat the
-    tensor-core product at B = 1 on the H100, PERF.md §6 row 11). A
-    layer item takes ``cuda_cell_tiled.split_rows`` batch rows (all of
-    them where N / 16 tiles reach half the SMs, else fewer, as K1 and K13
-    split), a head item likewise over its M / 64 tiles. A block holds as
-    many weight rows as fit beside its scratch, at most what its items
-    have. Cached: ``generate`` asks for the plan at every call."""
+    tensor-core product at B = 1 on the H100, PERF.md §6 row 11), else in
+    bf16 "mma" (the tensor-core step of ``csrc/fwd_mma.cuh``: 16 units a
+    tile, M a multiple of 64) and in fp32 "ffma" (K8's fp32 product on
+    CUDA cores: 8 units a tile, M a multiple of 32; TF32 stays off). A
+    layer item takes ``cuda_cell_tiled.split_rows`` batch rows under mma
+    (all of them where N / 16 tiles reach half the SMs, else fewer, as K1
+    and K13 split) and ``f32_split_rows`` under ffma (as K1 and K15 split
+    under fp32), a head item likewise over its M / 4 / units tiles. A
+    block holds as many weight rows as fit beside its scratch, at most
+    what its items have. Cached: ``generate`` asks for the plan at every
+    call."""
     n, m, L = cfg.hidden, cfg.vocab, cfg.num_layers
-    if (cfg.cdtype != torch.bfloat16 or n % ct.PERSIST_KC != 0
+    if (cfg.cdtype not in GEN_DESIGNS or n % ct.PERSIST_KC != 0
             or not 1 <= L <= GEN_MAX_LAYERS or not 1 <= b <= GEN_MAX_ROWS
             or not 0 < m <= MAX_VOCAB):
         return None
+    single, batched = GEN_DESIGNS[cfg.cdtype]
     if design is None:
-        # B = 1 falls back to the tensor cores where gemv's tiles do not fit
-        first = gen_plan(cfg, b, sms, smem_limit, "gemv") if b == 1 else None
-        return first or gen_plan(cfg, b, sms, smem_limit, "mma")
+        # B = 1 falls back to the batch's product where gemv's tiles do
+        # not fit
+        first = gen_plan(cfg, b, sms, smem_limit, single) if b == 1 else None
+        return first or gen_plan(cfg, b, sms, smem_limit, batched)
+    if design not in GEN_DESIGNS[cfg.cdtype]:
+        return None
     units = GEN_UNITS[design]
     if m % (4 * units) != 0 or (design == "gemv" and b != 1):
         return None
-    if design == "mma":
-        rows = min(b, ct.split_rows(b, n // units, sms))
-        head_rows = min(b, ct.split_rows(b, m // 4 // units, sms))
-    else:
+    if design == "gemv":
         rows = head_rows = 1
+    else:
+        split = ct.split_rows if design == "mma" else ct.f32_split_rows
+        rows = min(b, split(b, n // units, sms))
+        head_rows = min(b, split(b, m // 4 // units, sms))
     if any(gen_items(ph, L, b, n, m, units, rows, head_rows) > sms
            for ph in range(L + 1)):
         return None
-    free = smem_limit - gen_smem_bytes(design, rows, head_rows, n, 0)
+    free = smem_limit - gen_smem_bytes(design, rows, head_rows, n, 0, cfg.cdtype)
     if free < 0:
         return None
-    fit = free // (2 * GEN_PITCH[design]) // ct.PERSIST_KC * ct.PERSIST_KC
+    row = torch.finfo(cfg.cdtype).bits // 8 * GEN_PITCH[design]
+    fit = free // row // ct.PERSIST_KC * ct.PERSIST_KC
     layout = GenLayout(design, units, rows, head_rows, sms, fit, 0)
     # no more than the most any block's items have
     need = max(sum(gen_K(ph, L, n) for ph, (item, _, _) in
@@ -189,7 +222,7 @@ def gen_plan(cfg: ModelConfig, b: int, sms: int, smem_limit: int,
                for blk in range(sms))
     resident = min(fit, need)
     return layout._replace(resident_rows=resident, smem=gen_smem_bytes(
-        design, rows, head_rows, n, resident))
+        design, rows, head_rows, n, resident, cfg.cdtype))
 
 
 def device_gen_plan(cfg: ModelConfig, b: int,
@@ -201,16 +234,20 @@ def device_gen_plan(cfg: ModelConfig, b: int,
 
 @functools.lru_cache(maxsize=None)
 def _layout_checked() -> bool:
-    """Holds ``gen_smem_bytes`` to the library's layout once a process."""
+    """Holds ``gen_smem_bytes`` to the library's layout once a process, in
+    both compute types."""
     lib = _build.load_library()
-    for design, rows, head_rows, n, res in (("mma", 64, 16, 1024, 1216),
-                                            ("mma", 128, 16, 1024, 1024),
-                                            ("mma", 1, 1, 2048, 0),
-                                            ("gemv", 1, 1, 1024, 3392)):
-        if lib.gen_persist_smem_bytes(int(design == "mma"), rows, head_rows, n,
-                                      res) != gen_smem_bytes(design, rows,
-                                                             head_rows, n, res):
-            raise RuntimeError("gen_smem_bytes disagrees with csrc/sampler.cu's "
+    bf16, f32 = torch.bfloat16, torch.float32
+    for design, rows, head_rows, n, res, dtype in (
+            ("mma", 64, 16, 1024, 1216, bf16), ("mma", 128, 16, 1024, 1024, bf16),
+            ("mma", 1, 1, 2048, 0, bf16), ("gemv", 1, 1, 1024, 3392, bf16),
+            ("gemv", 1, 1, 1024, 1728, f32), ("ffma", 128, 32, 1024, 1280, f32),
+            ("ffma", 16, 16, 512, 0, f32), ("ffma", 64, 32, 1024, 64, f32)):
+        query = (lib.gen_persist_smem_bytes if dtype == bf16
+                 else lib.gen_persist_f32_smem_bytes)
+        if query(int(design != "gemv"), rows, head_rows, n, res) != \
+                gen_smem_bytes(design, rows, head_rows, n, res, dtype):
+            raise RuntimeError("gen_smem_bytes disagrees with csrc/sampler.cuh's "
                                "layout")
     return True
 
@@ -233,6 +270,20 @@ def pack_weights(params, cfg: ModelConfig) -> Packed:
     b = torch.stack([l.b.to(af) for l in params.layers])
     return Packed(WU, b, params.Why.to(cfg.cdtype).contiguous(),
                   params.by.to(af).contiguous())
+
+
+def tile_weights(packed: Packed, cfg: ModelConfig, units: int) -> torch.Tensor:
+    """Every phase's product rows packed tile by tile, as the fp32
+    persistent design reads them (``csrc/sampler.cuh:gen_item``): layer 0's
+    U rows, each later layer's [W; U], then Why, each cut into tiles of
+    ``units`` units x 4 gates (the head's gate stride M / 4), flat in
+    [phase][tile][k][gate][unit] order, so that a block streams its tile's
+    rows from one contiguous span."""
+    n, m = cfg.hidden, cfg.vocab
+    mats = [wu[m:] if l == 0 else wu
+            for l, wu in enumerate(layer_weights(packed.WU, cfg))] + [packed.Why]
+    return torch.cat([w.reshape(w.shape[0], 4, -1, units).permute(2, 0, 1, 3)
+                      .reshape(-1) for w in mats])
 
 
 def layer_weights(WU: torch.Tensor, cfg: ModelConfig) -> List[torch.Tensor]:
@@ -451,18 +502,25 @@ def _launch(params, cfg: ModelConfig, seed: int, first, h0, c0, length: int,
         generate.launches += 1
         return _finish(ids, h, c, cfg, states)
     _layout_checked()
-    work = torch.empty(lib.gen_persist_work_bytes(b, n, m, L),
-                       dtype=torch.uint8, device=dev)
+    # bf16: gen_persist_launch (sampler.cu); fp32: gen_persist_f32_launch
+    # (sampler_f32.cu), its products reading the tile-packed rows; the flag
+    # picks the batch's product over gemv
+    if cfg.cdtype == torch.bfloat16:
+        name, sizes, tiled = "gen_persist_launch", lib.gen_persist_work_bytes, ()
+    else:
+        name, sizes = "gen_persist_f32_launch", lib.gen_persist_f32_work_bytes
+        tiled = (tile_weights(packed, cfg, layout.units),)
+    work = torch.empty(sizes(b, n, m, L), dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
-    err = lib.gen_persist_launch(
-        packed.WU.data_ptr(), packed.b.data_ptr(), packed.Why.data_ptr(),
-        packed.by.data_ptr(), ch.data_ptr(), h.data_ptr(), c.data_ptr(),
-        ids.data_ptr(), work.data_ptr(), *traces, *tail,
-        int(layout.design == "mma"), layout.rows, layout.head_rows,
+    err = getattr(lib, name)(
+        packed.WU.data_ptr(), *(t.data_ptr() for t in tiled), packed.b.data_ptr(),
+        packed.Why.data_ptr(), packed.by.data_ptr(), ch.data_ptr(), h.data_ptr(),
+        c.data_ptr(), ids.data_ptr(), work.data_ptr(), *traces, *tail,
+        int(layout.design != "gemv"), layout.rows, layout.head_rows,
         layout.resident_rows, layout.grid, stream, ctypes.byref(launched))
     generate.launches += launched.value
     generate.persistent_launches += launched.value
-    _raise_on(err, "gen_persist_launch")
+    _raise_on(err, name)
     return _finish(ids, h, c, cfg, states)
 
 

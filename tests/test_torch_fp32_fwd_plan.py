@@ -7,8 +7,9 @@ K8 (``tiled_embed_layer0``) has a third design of its function under fp32
 compute (TF32 stays off, so CUDA cores): one cooperative launch a window,
 N / 8 blocks each holding its N x 32 slice of U in shared memory for the
 window, round(h_{t-1}) streamed through a ring each step, a grid barrier
-between steps. Only K8 takes it: K9, K1, K2 and K15 keep their fp32
-designs. The device numbers are an H100 SXM's (132 SMs, 232,448 bytes of
+between steps. K1 takes it too, through the same launcher with its batch
+split over block rows (tests/test_torch_k1_plan.py), K9 through a launcher
+of its own, K15 in its mode; K2 keeps its fp32 design. The device numbers are an H100 SXM's (132 SMs, 232,448 bytes of
 shared memory a block may opt in to). The routing is checked without a
 card: tensors on ``meta``, ``Tensor.data_ptr`` giving each storage an
 address of its own, a stand-in library recording the calls. The plain
@@ -184,7 +185,7 @@ def test_k8_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     assert [c[0] for c in lib.calls] == ["tiled_fwd_embed_f32_launch"]
     a = lib.calls[0][1]
     # (rtype, W, U, b, ids, hc, c, hT, hseq, cseq, gseq, hdrop, S, B, N,
-    #  standard, kc, stages, seed, keep, inv, stream, launched)
+    #  standard, rows, kc, stages, seed, keep, inv, stream, launched)
     rd = ct.types(cfg)[1]
     assert a[0] == cuda_cell._TYPE_CODES[rd]
     for i, shape in ((1, (256, 4 * n)), (2, (n, 4 * n))):
@@ -197,9 +198,9 @@ def test_k8_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     assert a[8:11] == (ptr(h_seq), ptr(c_seq), ptr(g_seq))
     assert h_seq.dtype == c_seq.dtype == g_seq.dtype == rd
     plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert a[12:18] == (s, b, n, 0, plan.kc, plan.stages)
+    assert a[12:19] == (s, b, n, 0, b, plan.kc, plan.stages)   # every row a block
     assert (a[11] is None) == (dropout is None)
-    assert a[18:21] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
+    assert a[19:22] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
 
 
 @pytest.mark.parametrize("dtype,b,n,want", [
@@ -219,9 +220,10 @@ def test_k8_elsewhere_keeps_tiled_fwd_embed_launch(routed, dtype, b, n, want):
 def test_other_forwards_keep_their_fp32_routes(routed):
     """At the flagship's fp32 shapes K9 (``tiled_scan_layer``) takes the
     fp32 persistent design through its own launcher
-    (``tiled_fwd_scan_f32_launch``, the plan's ring); K1 and K2
-    (``cuda_cell``) keep their launch a step; K15 at D = 1 takes the same
-    kernel in K15's mode through a launcher of its own
+    (``tiled_fwd_scan_f32_launch``, the plan's ring); K1 takes K8's
+    launcher (``split_fwd_f32_plan``'s layout: one block row of 128 at N =
+    1024); K2 (``cuda_cell``) keeps its launch a step; K15 at D = 1 takes
+    the same kernel in K15's mode through a launcher of its own
     (``tp_seq_fwd_f32_launch``, ``split_fwd_f32_plan``'s layout: N / 8 =
     128 blocks of every batch row)."""
     lib = routed[0]
@@ -233,12 +235,13 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     cuda_cell.scan_layer(_layer(n), _e(s, b, 4 * n), h0, c0, cfg)
     ts.tp_seq_fwd(_e(n, 4 * n), _e(s, b, 4 * n), h0, c0, cfg)
     names = [c[0] for c in lib.calls]
-    assert names == ["tiled_fwd_scan_f32_launch", "lstm_fwd_embed_launch",
+    assert names == ["tiled_fwd_scan_f32_launch", "tiled_fwd_embed_f32_launch",
                      "lstm_fwd_scan_launch", "tp_seq_fwd_f32_launch"]
     plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
     assert lib.calls[0][1][14:16] == (plan.kc, plan.stages)   # K9: fp32 ring
     split = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert split == (b, plan.rows, plan.kc, plan.stages)      # K15: K9's layout
+    assert split == (b, plan.rows, plan.kc, plan.stages)      # K1, K15: K9's layout
+    assert lib.calls[1][1][16:19] == (split.rows, split.kc, split.stages)
     assert lib.calls[3][1][13:17] == tuple(split)
 
 

@@ -9,10 +9,16 @@ sequences in the residual type. So under bf16 compute, wherever
 the persistent forward (``tiled_fwd_embed_launch``: one cooperative launch
 a window, U's rows in shared memory, tensor-core products) with K1's own
 residual type, its blocks taking a share of the batch rows where N / 16
-blocks would leave most SMs idle; fp32 compute, B > 128, N not a multiple
-of 64 and a grid the card cannot hold keep K1's launch a step
-(``lstm_fwd_embed_launch``). Both designs sum (acc + W_row) + b, the JAX
-kernel's dot([onehot | h], [W; U]) then + b (``pallas_cell.py:522-528``).
+blocks would leave most SMs idle; under fp32 compute, wherever
+``split_fwd_f32_plan`` gives a layout, K8's fp32 persistent forward
+(``tiled_fwd_embed_f32_launch``: N / 8 blocks of 8 units, CUDA cores) with
+K1's residual type, the batch split over block rows where N / 8 blocks
+would leave SMs idle. B > 128, N not a multiple of 64 (bf16), N = 2048 in
+fp32 and a grid the card cannot hold keep K1's launch a step
+(``lstm_fwd_embed_launch``). Every design sums (acc + W_row) + b, the JAX
+kernel's dot([onehot | h], [W; U]) then + b (``pallas_cell.py:522-528``);
+the fp32 persistent design's k split does not depend on the rows a block
+holds, so its split layouts give the unsplit bits.
 
 The device numbers are an H100 SXM's (132 SMs, 232,448 bytes of shared
 memory a block may opt in to). The routing is checked without a card: the
@@ -33,6 +39,7 @@ from eigen_lstm_tpu import ModelConfig as JConfig
 from eigen_lstm_tpu.models import lstm as jmodel
 from eigen_lstm_tpu.ops.pallas_cell import pallas_embed_layer0
 
+from test_torch_tp_seq_f32 import f32_order_gates
 from eigen_lstm_tpu_torch import ModelConfig
 from eigen_lstm_tpu_torch.models.lstm import LayerParams
 from eigen_lstm_tpu_torch.ops import _build, cuda_cell
@@ -82,7 +89,13 @@ def test_k2_k8_k9_keep_every_row_in_a_block(n, b):
     ("bfloat16", 96, 16),      # N not a multiple of the 64-row chunk
 ])
 def test_per_step_design_elsewhere(dtype, n, b):
-    assert ct.split_fwd_plan(_cfg(dtype, n=n), b, n, SMS, SMEM) is None
+    """The tensor-core plan refuses these; fp32 has a plan of its own,
+    ``split_fwd_f32_plan``, which takes the fp32 shapes here (K1 no longer
+    runs a launch a step there)."""
+    cfg = _cfg(dtype, n=n)
+    assert ct.split_fwd_plan(cfg, b, n, SMS, SMEM) is None
+    f32 = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
+    assert (f32 is not None) == (dtype == "float32")
 
 
 def test_too_few_sms_keep_the_per_step_design():
@@ -102,7 +115,7 @@ class _Library:
     def __getattr__(self, name):
         def call(*args):
             self.calls.append((name, args))
-            if name == "tiled_fwd_embed_launch":
+            if name in ("tiled_fwd_embed_launch", "tiled_fwd_embed_f32_launch"):
                 args[-1]._obj.value += 1
             return 0
         return call
@@ -190,15 +203,172 @@ def test_card_path_launches_the_persistent_kernel(routed, n, b, residual,
                                        ("bfloat16", 512, 160),
                                        ("bfloat16", 96, 16)])
 def test_card_path_keeps_the_per_step_kernel_elsewhere(routed, dtype, n, b):
-    """fp32, B > 128, N not a multiple of 64: ``lstm_fwd_embed_launch``,
-    S launches a call."""
+    """bf16 at B > 128 and N not a multiple of 64: ``lstm_fwd_embed_launch``,
+    S launches a call. fp32 at the bench's shapes, which took it too before
+    K1's fp32 persistent design, now makes one call of
+    ``tiled_fwd_embed_f32_launch`` (its arguments below); the fp32 shapes
+    its plan refuses keep the launch a step (further below)."""
     lib = routed[0]
     s = 4
     layer, ids, h0, c0 = _meta_layer(n, s=s, b=b)
     before = cuda_cell.embed_layer0.launches
     cuda_cell.embed_layer0(layer, ids, h0, c0, _cfg(dtype, n=n))
+    f32 = dtype == "float32"
+    assert [c[0] for c in lib.calls] == (["tiled_fwd_embed_f32_launch"] if f32
+                                         else ["lstm_fwd_embed_launch"])
+    assert cuda_cell.embed_layer0.launches - before == (1 if f32 else s)
+
+
+# --- K1 under fp32 compute: K8's fp32 persistent kernel ----------------------
+
+
+@pytest.mark.parametrize("n,b,want", [
+    (512, 128, (64, 2, 64, 4)),    # the bench: 2 block rows of 64, 128 blocks
+    (1024, 16, (16, 1, 128, 4)),   # the flagship's eval: one block row, 128
+    (512, 16, (8, 1, 128, 4)),     # the 1x512 eval: 8 rows a block, 128 blocks
+    (1024, 128, (128, 4, 64, 2)),  # the flagship's training: one block row
+])
+def test_fp32_plan_splits_the_batch_where_sms_idle(n, b, want):
+    """fp32: ``split_fwd_f32_plan``'s (rows a block, rows a thread, KC,
+    stages), in either residual type; the grid of N / 8 x ceil(B / rows)
+    blocks is resident and reaches half the SMs; the slice of U and the
+    ring fit a block."""
+    for residual in ("float32", "bfloat16"):
+        layout = ct.split_fwd_f32_plan(_cfg("float32", residual, n=n), b, n,
+                                       SMS, SMEM)
+        assert tuple(layout) == want
+    rows, per, kc, stages = want
+    grid = n // ct.F32_UNITS * -(-b // rows)
+    assert SMS // 2 <= grid <= SMS
+    assert per == ct.f32_rows_per_thread(rows)
+    assert ct.f32_persist_smem_bytes(rows, n, kc, stages) <= SMEM
+
+
+@pytest.mark.parametrize("b,n,sms", [
+    (129, 512, SMS),     # past 4 rows a thread
+    (256, 1024, SMS),
+    (16, 2048, SMS),     # 256 blocks on 132 SMs (and a 256 KB slice of U)
+    (128, 1024, 127),    # 128 blocks on 127 SMs
+])
+def test_fp32_plan_refuses(b, n, sms):
+    assert ct.split_fwd_f32_plan(_cfg("float32", n=n), b, n, sms, SMEM) is None
+
+
+@pytest.mark.parametrize("n,b", [(512, 128), (1024, 16), (512, 16)])
+@pytest.mark.parametrize("residual", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [None, (0.35, -1234567)])
+def test_card_path_launches_the_fp32_persistent_kernel(routed, n, b, residual,
+                                                       dropout):
+    """fp32 compute at the bench's and both evals' shapes: one call of
+    ``tiled_fwd_embed_f32_launch`` and nothing else, one launch counted,
+    with K1's residual type (bf16 where the config says so, which the
+    tiled family would not keep), W and U in fp32 cut from one stacked
+    [W; U], b read in place, the ids in int32, hc (2, B, N) fp32, the
+    plan's rows a block and ring, the dropout's scalars."""
+    lib, ptr, seen = routed
+    cfg = _cfg("float32", residual, n=n)
+    s, m = 4, 256
+    layer, ids, h0, c0 = _meta_layer(n, m, s, b)
+    before = cuda_cell.embed_layer0.launches
+    out = cuda_cell.embed_layer0(layer, ids, h0, c0, cfg, residuals=True,
+                                 dropout=dropout)
+    assert cuda_cell.embed_layer0.launches - before == 1
+    assert [c[0] for c in lib.calls] == ["tiled_fwd_embed_f32_launch"]
+    a = lib.calls[0][1]
+    # (rtype, W, U, b, ids, hc, c, hT, hseq, cseq, gseq, hdrop, S, B, N,
+    #  standard, rows, kc, stages, seed, keep, inv, stream, launched)
+    assert a[0] == cuda_cell._TYPE_CODES[cfg.rdtype]
+    for i, dtype, shape in ((1, torch.float32, (m, 4 * n)),
+                            (2, torch.float32, (n, 4 * n)),
+                            (4, torch.int32, (s, b)),
+                            (5, torch.float32, (2, b, n))):
+        assert seen[a[i]].dtype == dtype and tuple(seen[a[i]].shape) == shape
+    assert a[1] >> 32 == a[2] >> 32 and a[3] == ptr(layer.b)
+    h_seq, (hT, cT), c_seq, g_seq = out[:4]
+    assert a[8:11] == (ptr(h_seq), ptr(c_seq), ptr(g_seq))
+    layout = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
+    assert a[12:19] == (s, b, n, 0, layout.rows, layout.kc, layout.stages)
+    assert (a[11] is None) == (dropout is None)
+    assert a[19:22] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
+    assert h_seq.dtype == c_seq.dtype == g_seq.dtype == cfg.rdtype
+    assert hT.dtype == cT.dtype == cfg.pdtype
+    if dropout is not None:
+        assert a[11] == ptr(out[4]) and out[4].dtype == cfg.rdtype
+
+
+@pytest.mark.parametrize("n,b", [(512, 160), (2048, 16)])
+def test_fp32_card_path_keeps_the_per_step_kernel_where_refused(routed, n, b):
+    """fp32 past 128 rows or at N = 2048: ``lstm_fwd_embed_launch``, S
+    launches a call, chosen by the plan before any launch."""
+    lib = routed[0]
+    s = 3
+    layer, ids, h0, c0 = _meta_layer(n, s=s, b=b)
+    before = cuda_cell.embed_layer0.launches
+    cuda_cell.embed_layer0(layer, ids, h0, c0, _cfg("float32", n=n))
     assert [c[0] for c in lib.calls] == ["lstm_fwd_embed_launch"]
     assert cuda_cell.embed_layer0.launches - before == s
+
+
+def test_fp32_layout_is_checked_before_the_launch(routed):
+    """A split layout under bf16 compute, with more rows than the batch, or
+    with rows a thread not those of its rows raises before any launch."""
+    lib = routed[0]
+    b, n = 16, 512
+    layer, ids, h0, c0 = _meta_layer(n, s=3, b=b)
+    for cfg, layout in ((_cfg("bfloat16", n=n), ct.F32Split(8, 1, 128, 4)),
+                        (_cfg("float32", n=n), ct.F32Split(32, 1, 128, 4)),
+                        (_cfg("float32", n=n), ct.F32Split(8, 2, 64, 4))):
+        with pytest.raises(ValueError, match="no fp32 layout"):
+            ct.embed_launch(cuda_cell.embed_layer0, layer, ids, h0, c0, cfg,
+                            cfg.rdtype, layout, False, None)
+    assert lib.calls == []
+
+
+def _f32_window_replay(layer, ids, h0, c0, cfg, rows):
+    """K1's fp32 persistent window replayed in blocks of ``rows`` batch
+    rows: each step's gate sums in the kernel's k-split order
+    (tests/test_torch_tp_seq_f32.py:f32_order_gates), then (acc + W_row) +
+    b, the gates and the cell. Returns (h_seq, g_seq, hT, cT)."""
+    from test_torch_tp_seq_f32 import f32_order_gates
+
+    s, b = ids.shape
+    n = cfg.hidden
+    hs, gs, last = [], [], []
+    for r0 in range(0, b, rows):
+        blk = slice(r0, r0 + rows)
+        h, c, h_rows, g_rows = h0[blk], c0[blk], [], []
+        for t in range(s):
+            acc = f32_order_gates(h, layer.U)
+            g = cell_ops.gate_activations((acc + layer.W[ids[t, blk].long()])
+                                          + layer.b, n)
+            h, c = cell_ops.cell_update(g, c, n, cfg.cell_variant)
+            h_rows.append(h)
+            g_rows.append(g)
+        hs.append(torch.stack(h_rows, 1))
+        gs.append(torch.stack(g_rows, 1))
+        last.append((h, c))
+    cat = lambda xs: torch.cat(xs, 0).transpose(0, 1)
+    return (cat(hs), cat(gs), torch.cat([x[0] for x in last]),
+            torch.cat([x[1] for x in last]))
+
+
+def test_fp32_sum_order_does_not_depend_on_the_rows_a_block_holds():
+    """The fp32 persistent K1's window replayed in its k-split order in
+    blocks of 8, 32 and 128 rows gives one set of bits (a 32-row SP chunk
+    the bits of its rows in the 128-row window, the 1x512 eval's 8 rows a
+    block those of the unsplit layout), within rtol 1e-5 of the plain
+    version, whose order differs."""
+    s, b, n, m = 4, 128, 64, 32
+    layer, ids, h0, c0 = _torch_layer(_inputs(s, b, n, m, 17))
+    cfg = _cfg("float32", n=n, vocab=m)
+    whole = _f32_window_replay(layer, ids, h0, c0, cfg, 128)
+    for rows in (32, 8):
+        part = _f32_window_replay(layer, ids, h0, c0, cfg, rows)
+        for a, w in zip(part, whole):
+            assert torch.equal(a, w), rows
+    plain = cuda_cell.embed_layer0_plain(layer, ids, h0, c0, cfg, residuals=True)
+    for a, w in zip(whole, (plain[0], plain[3], *plain[1])):
+        torch.testing.assert_close(a, w, **F32)
 
 
 def _inputs(s, b, n, m, seed):
