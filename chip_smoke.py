@@ -11,10 +11,10 @@ Phase 2  runs each kernel against its plain PyTorch version on the card, at
          replayed by the plain version, the whole window, and the bf16
          residual type; prints errors, times, bounds and the cuDNN LSTM's
          time as a yardstick. K1 and K2 in bf16 take the persistent
-         tensor-core forward (one launch a call, gated), K1 in fp32 K8's
-         fp32 persistent CUDA-core forward (one launch a call, gated; K2
-         stays per-step in fp32, S a call); their per-step design, forced,
-         is held to the same gates and timed in the same call.
+         tensor-core forward (one launch a call, gated), in fp32 K8's and
+         K9's fp32 persistent CUDA-core forward (one launch a call, gated);
+         their per-step design, forced, is held to the same gates and timed
+         in the same call.
 Phase 3  the path: held-out bits/char of the 3x1024 flagship (bf16) through
          the kernels, with the launch counts reset before and read after
          (K1 one launch a chunk, K2 one a chunk and layer), and once more
@@ -57,36 +57,38 @@ Phase 6  (a) one bible.txt window through loss_fn, loss and all five
          at the root bench.py's schedule, its JSON line, train_bpc against
          the root bench's band (reported) and a sanity band (gated), the
          launch counts of the run against what its shapes give, and each
-         kernel's share of the step; (c) 100 steps of the bench's Trainer
+         kernel's share of the step; (c) 50 steps of the bench's Trainer
          in fp32 through the kernels, each step's loss and gradients held
          against the plain versions from the same state, K3's launches
          counted (its fp32 persistent design's) and K1's (one a call, its
-         fp32 persistent design); (d) the bench's
-         schedule once more from the JAX bench's step-0 state
+         fp32 persistent design); (d) the bench's first six supersteps
+         from the JAX bench's step-0 state
          (``artifacts/bench_jax_start/state0.npz``: the JAX PRNG's
-         parameters, accumulators, cursors and stream state), train_bpc
-         beside the JAX package's 2.5572 on its TPU and its CPU value from
-         the same start and the root band; its first six supersteps
-         again with K4's CUDA-core design; then each of those supersteps' mean
+         parameters, accumulators, cursors and stream state), and again
+         with K4's CUDA-core design; then each of those supersteps' mean
          bits beside the JAX package's and the port's on the CPU from the
          same start (the committed trajectories), against the port's own
          order spread, and the first superstep past it (reported); (e)
          a 2x512 model in fp32 through the Trainer ``cli train`` builds at
          the bench's data configuration (``--dtype float32 --layers 2``),
          20 steps, each step's loss and gradients held against the plain
-         versions from the same state, K3's and K6's launches counted
-         (their fp32 persistent design's), then the median step time of
-         the model, of the model with the per-step K3/K6 forced and of the
-         1x512 bench in fp32, timed alike.
+         versions from the same state, K2's, K3's and K6's launches counted
+         (their fp32 persistent designs': K2 one a call), K2 on the model's
+         layer 1 at these shapes against its plain replay, its per-step
+         design forced, held to the same gates and timed in the same call
+         beside cuDNN and the bound, then the median step time of the
+         model, of the model with the per-step K2 and with the per-step
+         K3/K6 forced and of the 1x512 bench in fp32, timed alike (K2 one
+         launch a step).
 Phase 7  the flagship's training (3x1024, S = 256, B = 128, dropout 0.35):
          (a) K1, K2, K3 and K6 (the layers >= 1 backward) against their
          plain versions with the flagship's weights, fp32 and bf16, without
          and with dropout: every step replayed, the masked streams against
          the numpy keep-mask bit for bit, the backward with explicit masks;
          times, bounds, cuDNN yardsticks; K1's and K2's design (the
-         persistent one in bf16, one launch a call; the per-step one and,
-         for K1, the unsplit layout, forced, held to the same gates and
-         timed in the same call; K1's bf16-residual run its fp32 run
+         persistent one of each type, one launch a call; the per-step one
+         and, for K1, the unsplit layout, forced, held to the same gates
+         and timed in the same call; K1's bf16-residual run its fp32 run
          rounded); K3's (the GEMM fall-back) and K6's
          design (persistent in bf16, the CUDA-core persistent one in fp32)
          and launches a call, and the per-step design held to the same
@@ -118,8 +120,9 @@ Phase 8  generation: K7 against its plain version with the flagship's
          the other product (bf16: mma or gemv; fp32: ffma), held to the
          same gates; 1000-token calls timed beside both terms of the bound
          (operations, and the weights read once at the memory rate), the
-         plain version and the loop backend, every design in the same call
-         (the persistent design gated faster than the first);
+         plain version (one call), the first design in the same call (one
+         window; the persistent design gated faster than it; the other
+         product's and the loop backend's times, settled, not taken);
          ``sample_ids`` at B = 128 on the default backend, bf16 and fp32
          (one persistent launch each), and fp32 at B = 256 (one launch of
          the first design, which the plan keeps past 128 streams); ``cli
@@ -185,9 +188,12 @@ Phase 10 the last two single-card kernels and the modules of this path:
 Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          kernels: (a) K13 and K14 (the per-step pair) at the flagship's
          shapes as one shard of D = 1, 2 and 4 (K13 in bf16 on tensor
-         cores, its kernel and K14's alone timed beside the wrapper calls, and its
+         cores, in fp32 the fp32 step of csrc/lstm_tp_step_f32.cu, its
+         kernel and K14's alone timed beside the wrapper calls, and its
          CUDA-core design, forced, held to the same gate and timed in the
-         same call), K15 and K16 (the window
+         same call; in fp32 at the bench's shapes a window of K13 steps
+         K15's fp32 window bit for bit, and at D = 2 each shard the D = 1
+         window's bits of its units), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
          with every step replayed (K15 within 1e-4, c_prev[0] = c0; its
          persistent design, in bf16 the tensor-core forward, in fp32 K9's
@@ -210,7 +216,9 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          flagship recipe
          at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
          one window's TP loss and eleven gradients, kernels against plain
-         (the fp32 window's K13 launches, its CUDA-core design, counted);
+         (the fp32 window's K13 launches, its fp32 step, counted), then the
+         fp32 window timed with K13 in its fp32 step and, forced, its
+         CUDA-core design (768 launches a window each);
          (d) ``cli train --tp 1 --dtype float32`` at (b)'s configuration,
          300 steps, beside the single-device fp32 run: K15 and K16 once a
          step through their fp32 persistent launchers (counted at the
@@ -324,7 +332,8 @@ near their noise (phase 3's flagship bits, 7b's bf16 gradients, 11b's
 train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
 ``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone,
-``--tp-seq`` phases 0, 1, 11a, 11d and 15,
+``--tp-seq`` phases 0, 1, 11a, 11d and 15, ``--k2-k13`` phases 0, 1, 2,
+6e, 11a and 11c (K2's and K13's designs),
 ``--tiled`` phases 0, 1 and 9a, ``--groups`` phases 0 and 1 and K3's fp32
 persistent design at the bench's shapes with the other group width forced
 (outputs against the plan's, reverse launches timed side by side).
@@ -412,6 +421,29 @@ def cuda_ms(fn, reps: int, windows: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def once_host_ms(fn) -> float:
+    """The host-clock time of one call of ``fn`` between synchronisations:
+    for paths whose host time is the point (the per-step TP family)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def once_ms(fn) -> float:
+    """The CUDA-event time of one call of ``fn``, no warm-up: for plain
+    versions, whose windows of PyTorch ops take tens of ms to seconds (a
+    warm-up call and repeats bought the script's time, no gate)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def phase0() -> str:
@@ -580,21 +612,19 @@ def phase2(test, records):
             check_bf16_residuals(f"{name} {dtype}", kern(
                 layer, seq, h0, c0, flagship_cfg(dtype, "bfloat16"),
                 residuals=True), raw_k)
-            # K1 and K2: the persistent design, one launch a call (K1 in
-            # both types, K2 in bf16), and (forced) the per-step design,
-            # which K2 keeps in fp32, held to the same gates on the same
-            # inputs and timed in this call
+            # K1 and K2: the persistent design of each type, one launch a
+            # call, and (forced) the per-step design, which refused shapes
+            # keep, held to the same gates on the same inputs and timed in
+            # this call
             design, persistent = (split_design if kind == "embed"
-                                  else tiled_design)(cfg, b, n)
+                                  else k2_design)(cfg, b, n)
             print(f"  {name} {dtype}: {design}", flush=True)
-            expect = kind == "embed" or dtype == "bfloat16"
-            if persistent != expect or calls != (1 if persistent else s):
+            if not persistent or calls != 1:
                 fail(f"{name} {dtype}: {design}, {calls} launches a call; "
-                     f"the eval shapes take the persistent design (K1 in both "
-                     f"types, K2 in bf16), one launch a call (S elsewhere)")
+                     f"the eval shapes take the persistent design in both "
+                     f"types, one launch a call")
             if persistent:
-                with per_step_tiled(SPLIT_PLAN if kind == "embed"
-                                    else ("device_tiled_fwd_plan",)):
+                with per_step_tiled(SPLIT_PLAN if kind == "embed" else K2_PLANS):
                     before = kern.launches
                     raw_s, _, err_s = eval_window_check(
                         name, dtype + " (the per-step design)", kern, plain,
@@ -609,8 +639,7 @@ def phase2(test, records):
                     fail(f"{name} {dtype}, the per-step design: {calls_s} "
                          f"launches a call, one a step gives {s}")
             ms = cuda_ms(lambda: kern(layer, seq, h0, c0, cfg), reps=10)
-            plain_ms = cuda_ms(lambda: plain(layer, seq, h0, c0, cfg), reps=2,
-                               windows=3)
+            plain_ms = once_ms(lambda: plain(layer, seq, h0, c0, cfg))
             bound_ms, bound_by = bound(kind, cfg, s, b, n, m)
             lib_ms = library_ms(in_dim, cfg, lib_x, h0, c0)
             print(f"  {name} {dtype}: {ms:.4f} ms per window per layer "
@@ -765,11 +794,11 @@ def phase3(test):
     cfg = flagship_cfg("bfloat16")
     label = "flagship 3x1024 bf16"
     counts, chunks, _ = eval_check(FLAGSHIP, cfg, test, label)
-    with per_step_tiled():
+    with per_step_tiled(K2_PLANS):
         step_counts = eval_check(FLAGSHIP, cfg, test,
                                  label + " (K2's per-step design, forced)")[0]
     upper = cfg.num_layers - 1
-    design, persistent = tiled_design(cfg, EVAL_BATCH, cfg.hidden)
+    design, persistent = k2_design(cfg, EVAL_BATCH, cfg.hidden)
     want = (chunks * upper, chunks * upper * CHUNK)
     print(f"  {label}: K2 in {design}: {counts[1]} launches, forced per-step "
           f"{step_counts[1]} (the shapes give {want[0]} and {want[1]})",
@@ -866,14 +895,14 @@ BF16_ROUNDED = ("params.layers[0].W", "params.layers[0].U", "params.Why")
 # non-finite); the root bench's band (2.40, 2.70), ``bench.BPC_BAND``, is
 # printed with the verdict, which the port's H100 runs do not meet (PERF.md).
 SANITY_BAND = (1.5, 4.5)
-# Phase 6c, 100 steps of the bench's Trainer in fp32 (20 at lr 0, then 80
+# Phase 6c, 50 steps of the bench's Trainer in fp32 (20 at lr 0, then 30
 # Adagrad updates) through the kernels; at each step the loss and the five
 # gradients through the plain versions from the kernel run's own state, at
 # phase 6a's fp32 tolerances. A second run through the plain versions alone
 # is printed, not gated: Adagrad's first updates, with an accumulator of
 # ~1e-9, carry a 1e-7 difference in the gradients to 1e-1 in the
 # parameters within 100 steps, while the bits stay within ~1e-5.
-TRAJ_STEPS = 100
+TRAJ_STEPS = 50   # 100 once; cut for the script's time
 
 
 def norm_err(a, b) -> float:
@@ -1541,10 +1570,8 @@ def phase6b(per_call):
 
 # The JAX bench's step-0 state (tests/jax_bench_start.py writes it with the
 # JAX Trainer.save; tests/test_torch_bench_start.py holds it to the JAX
-# package and to the port's restore) and the JAX package's train_bpc of
-# the bench on its TPU from that start (BENCH_r05.json)
+# package and to the port's restore)
 JAX_BENCH_START = "artifacts/bench_jax_start/state0.npz"
-JAX_BENCH_BPC = 2.5572
 
 
 # The JAX package's first supersteps of the bench on the CPU from that
@@ -1552,65 +1579,50 @@ JAX_BENCH_BPC = 2.5572
 # the plain versions (tests/torch_bench_trajectory.py)
 JAX_TRAJECTORY = "artifacts/bench_jax_start/trajectory.json"
 PORT_CPU_TRAJECTORY = "artifacts/bench_jax_start/port_cpu_trajectory.json"
-# and its whole schedule: the last superstep's mean is the JAX package's
-# train_bpc on the CPU from the same start
-JAX_FULL_TRAJECTORY = "artifacts/bench_jax_start/trajectory_full.json"
-def bench_from_jax_start(args, supersteps=None):
-    """The bench's whole schedule (or its first ``supersteps``) from the JAX
-    bench's step-0 state through the port's bench Trainer on the card:
-    (step on restore, steps run, seconds, the warm-up supersteps' mean
-    bits, the last superstep's mean: train_bpc for the whole schedule)."""
+def bench_from_jax_start(args, supersteps):
+    """The bench's first ``supersteps`` from the JAX bench's step-0 state
+    through the port's bench Trainer on the card: (step on restore, steps
+    run, seconds, each superstep's mean bits)."""
     from eigen_lstm_tpu_torch import bench
 
     trainer = bench.make_trainer(args)
     trainer.restore(JAX_BENCH_START)
     start = trainer.step
-    warmup, windows, per_window = bench.schedule(args)
     means = []
     t0 = time.perf_counter()
-    for _ in range(warmup + windows * per_window if supersteps is None else supersteps):
+    for _ in range(supersteps):
         trainer.state, metrics = trainer.dispatch_superstep()
-        if len(means) < warmup:
-            means.append(float(metrics["bits_mean"]))
+        means.append(float(metrics["bits_mean"]))
     torch.cuda.synchronize()
-    return (start, trainer.step - start, time.perf_counter() - t0, means,
-            float(metrics["bits_mean"]))
+    return start, trainer.step - start, time.perf_counter() - t0, means
 
 
-def phase6d(own_bpc):
-    """The port's bench schedule once more, from the JAX bench's step-0
-    state restored into the port's bench Trainer: the parameters,
+def phase6d():
+    """The bench's warm-up supersteps once more, from the JAX bench's
+    step-0 state restored into the port's bench Trainer: the parameters,
     accumulators, cursors and stream state the JAX PRNG drew, then the same
-    steps on the card. train_bpc printed beside the JAX package's on its
-    TPU and on the CPU from the same start, the root band and the port's
-    own start (6b). Its warm-up supersteps again with K4 on its CUDA-core
-    design, whose bits and lse differ only in the order of fp32 sums
-    (phase 5). Then the first supersteps beside the JAX
-    package's and the port's on the CPU from the same start (the committed
-    trajectories), each difference against the order spread, max - min
-    over the port's three runs from the JAX start (the kernels, the kernels
-    with K4's other design, the plain versions on the CPU), which differ
-    only in the order of fp32 sums; the first superstep past it is named.
-    Reported, not gated. (The spread over three own-start seeds, once a
-    second threshold, was cut for the script's time.)"""
+    steps on the card; and again with K4 on its CUDA-core design, whose
+    bits and lse differ only in the order of fp32 sums (phase 5). Each
+    superstep's mean bits beside the JAX package's and the port's on the
+    CPU from the same start (the committed trajectories), each difference
+    against the order spread, max - min over the port's three runs from the
+    JAX start (the kernels, the kernels with K4's other design, the plain
+    versions on the CPU), which differ only in the order of fp32 sums; the
+    first superstep past it is named. Reported, not gated. (The spread over
+    three own-start seeds, once a second threshold, and the whole
+    schedule from this start, whose train_bpc against the JAX package's
+    is settled (ROADMAP, "Settled"), were cut for the script's time.)"""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
 
     args = build_parser().parse_args(bench.DEFAULT_ARGV)
-    start, steps, dt, means, bpc = bench_from_jax_start(args)
+    warmup = bench.schedule(args)[0]
+    start, steps, dt, means = bench_from_jax_start(args, warmup)
     with cuda_core_head():
-        _, _, _, means_o, _ = bench_from_jax_start(args, supersteps=len(means))
-    with open(JAX_FULL_TRAJECTORY) as f:
-        jax_cpu_bpc = json.load(f)["supersteps"][-1]["bits_mean"]
-    lo, hi = bench.BPC_BAND
+        means_o = bench_from_jax_start(args, warmup)[3]
     print(f"  bench from the JAX start ({JAX_BENCH_START}, step {start} on "
-          f"restore): {steps} steps in {dt:.1f} s; mean bits of the "
-          f"first superstep {means[0]:.4f}, train_bpc {bpc:.4f} (the last "
-          f"superstep's mean) against the JAX package's {JAX_BENCH_BPC} on its "
-          f"TPU: {bpc - JAX_BENCH_BPC:+.4f}, and its {jax_cpu_bpc:.4f} on the "
-          f"CPU from the same start: {bpc - jax_cpu_bpc:+.4f}; the root band ({lo}, {hi}) "
-          f"{'met' if lo <= bpc <= hi else 'NOT met'}; from the port's own "
-          f"start (6b) {own_bpc} (reported, not gated)", flush=True)
+          f"restore): its first {steps} steps ({warmup} supersteps) in {dt:.1f} "
+          f"s, and again with K4's CUDA-core design", flush=True)
     with open(JAX_TRAJECTORY) as f:
         jax_means = [x["bits_mean"] for x in json.load(f)["supersteps"]]
     with open(PORT_CPU_TRAJECTORY) as f:
@@ -1758,15 +1770,18 @@ def _timed_steps(tr, steps):
 
 def phase6e(records):
     """A 2x512 model in fp32 through the Trainer ``cli train`` builds at
-    the bench's data configuration (enwik6, B = 128, S = 100), so K6's fp32
-    persistent design runs where users meet it: LAYERS2_STEPS steps, each
-    step's loss and gradients through the kernels against the plain
-    versions from the kernel run's own state (6a's fp32 tolerances); K3's
-    and K6's launches counted (two calls a step each, the fp32 persistent
-    design's count a call); the median step time beside the same run's
-    steps with the per-step K3/K6 forced and beside the 1x512 bench's in
-    fp32; K6 on the model's layer 1 at these shapes, as phase 7a holds and
-    times it. Returns (K3's launches, K6's launches, the step times)."""
+    the bench's data configuration (enwik6, B = 128, S = 100), so K6's and
+    K2's fp32 persistent designs run where users meet them: LAYERS2_STEPS
+    steps, each step's loss and gradients through the kernels against the
+    plain versions from the kernel run's own state (6a's fp32 tolerances);
+    K2's, K3's and K6's launches counted (two calls a step each, K2 one
+    launch a call, K3 and K6 the fp32 persistent design's count a call);
+    the median step time beside the same run's steps with the per-step K2
+    and the per-step K3/K6 forced and beside the 1x512 bench's in fp32
+    (K2's launches counted in the first: one a step); K2 and K6 on the
+    model's layer 1 at these shapes, as phase 7a holds and times them (K2's
+    per-step design forced and timed in the same call). Returns (K3's
+    launches, K6's launches, K2's launches, the step times)."""
     from eigen_lstm_tpu_torch import bench
     from eigen_lstm_tpu_torch.cli import build_parser
     from eigen_lstm_tpu_torch.ops import cell as cell_ops
@@ -1783,13 +1798,16 @@ def phase6e(records):
     cfg = tr.mcfg
     plain_fn = select_cell_fn("plain", cfg, TRAIN_B, DEVICE)
     k3, k6 = cuda_cell_bwd.embed_layer0_bwd, cuda_cell_bwd.scan_layer_bwd
+    k2 = cuda_cell.scan_layer
     design, persistent = k6_design(cfg, TRAIN_B, cfg.hidden)
+    design2, persistent2 = k2_design(cfg, TRAIN_B, cfg.hidden)
     print(f"  2x512 fp32: families (layers >= 1, layer 0) "
-          f"{families(cfg, TRAIN_B)}; K3 and K6 in {design}", flush=True)
-    if not persistent:
-        fail(f"2x512 fp32: K3 and K6 in {design}; these shapes take the fp32 "
-             f"persistent design")
-    k3.launches = k6.launches = 0
+          f"{families(cfg, TRAIN_B)}; K3 and K6 in {design}; K2 in {design2}",
+          flush=True)
+    if not persistent or not persistent2:
+        fail(f"2x512 fp32: K3 and K6 in {design}, K2 in {design2}; these "
+             f"shapes take the fp32 persistent designs")
+    k3.launches = k6.launches = k2.launches = 0
     worst = {}
     t0 = time.perf_counter()
     for step in range(LAYERS2_STEPS):
@@ -1808,7 +1826,7 @@ def phase6e(records):
             worst[key] = max(worst.get(key, 0.0), err)
         tr.state, _ = train_step(st, w[:-1], w[1:], cfg, tr.dcfg, tr.tcfg,
                                  tr.length, tr.cell_fn, tr.generator)
-    launched = (k3.launches, k6.launches)
+    launched = (k3.launches, k6.launches, k2.launches)
     print(f"  2x512 fp32: {LAYERS2_STEPS} steps through the kernels, each "
           f"against plain from its state, in {time.perf_counter() - t0:.1f} s; "
           f"bits rel (tol {LOSS_RTOL['float32']:g}) and gradients normalised "
@@ -1821,13 +1839,14 @@ def phase6e(records):
             fail(f"2x512 fp32 {key}: kernels against plain {err:.3e}")
     # two calls of each a step (the gated loss_and_grads, then train_step)
     want = (2 * LAYERS2_STEPS * bwd_f32_launches(cfg, TRAIN_S, TRAIN_B, cfg.vocab),
-            2 * LAYERS2_STEPS * bwd_f32_launches(cfg, TRAIN_S, TRAIN_B, 0))
-    print(f"  2x512 fp32: K3, K6 launches {launched} (the fp32 persistent "
-          f"design gives {want})", flush=True)
+            2 * LAYERS2_STEPS * bwd_f32_launches(cfg, TRAIN_S, TRAIN_B, 0),
+            2 * LAYERS2_STEPS)
+    print(f"  2x512 fp32: K3, K6, K2 launches {launched} (the fp32 persistent "
+          f"designs give {want})", flush=True)
     if launched != want:
-        fail(f"2x512 fp32: K3, K6 launched {launched} times, not {want}")
-    # K6 on this model's layer 1 at these shapes (S = 100, B = 128, N =
-    # 512), from the last window: 7a's gates and times
+        fail(f"2x512 fp32: K3, K6, K2 launched {launched} times, not {want}")
+    # K2 and K6 on this model's layer 1 at these shapes (S = 100, B = 128, N
+    # = 512), from the last window: 7a's gates and times
     n, s, b = cfg.hidden, TRAIN_S, TRAIN_B
     l0, l1 = tr.state.params.layers[0], tr.state.params.layers[1]
     gen = torch.Generator().manual_seed(16)
@@ -1836,10 +1855,35 @@ def phase6e(records):
     h_in = cuda_cell.embed_layer0(l0, w[:-1], h0, c0, cfg)[0].float()
     xw = (cell_ops.matmul(h_in.reshape(s * b, n), l1.W, cfg.cdtype)
           .reshape(s, b, 4 * n) + l1.b)
-    out2 = cuda_cell.scan_layer(l1, xw, h0, c0, cfg, residuals=True)
+    tag = "2x512 layer 1 fp32"
+    per_call = {}
+    out2, rec2 = fwd_check("lstm_fwd_scan", "scan", k2, cuda_cell.scan_layer_plain,
+                           l1, xw, h0, c0, cfg, None, None, None, tag, per_call,
+                           source=TILED_F32_SOURCE)
+    if per_call["lstm_fwd_scan"] != 1:
+        fail(f"lstm_fwd_scan {tag}: {per_call['lstm_fwd_scan']} launches a "
+             f"call, its fp32 persistent design gives 1")
+    with per_step_tiled(K2_PLANS):
+        step_call = {}
+        fwd_check("lstm_fwd_scan", "scan", k2, cuda_cell.scan_layer_plain, l1,
+                  xw, h0, c0, cfg, None, None, None, tag + " (the per-step design)",
+                  step_call, timed=False)
+        rec2["per_step_ms"] = cuda_ms(lambda: k2(l1, xw, h0, c0, cfg,
+                                                 residuals=True), reps=2, windows=3)
+    if step_call["lstm_fwd_scan"] != s:
+        fail(f"lstm_fwd_scan {tag}, the per-step design: "
+             f"{step_call['lstm_fwd_scan']} launches, one a step gives {s}")
+    rec2.update(replaces=REPLACES["lstm_fwd_scan"],
+                library_ms=library_ms(n, cfg, h_in, h0, c0))
+    records[("6e", "lstm_fwd_scan")] = rec2
+    lib2 = rec2["library_ms"]
+    print(f"  lstm_fwd_scan {tag}: {rec2['ms']:.4f} ms per window (1 launch), "
+          f"plain {rec2['plain_ms']:.4f} ms, bound {rec2['bound_ms']:.5f} ms "
+          f"({rec2['bound_by']}), cuDNN nn.LSTM "
+          f"{'n/a' if lib2 is None else f'{lib2:.4f} ms'}"
+          + design_times(rec2, s), flush=True)
     dh_seq = rand(s, b, n, sd=1e-3)
     dhT, dcT = rand(b, n, sd=1e-3), rand(b, n, sd=1e-3)
-    tag = "2x512 layer 1 fp32"
     rec = bwd_check("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq, dhT,
                     dcT, cfg, None, None, None, tag, {})
     rec.update(other_designs("lstm_bwd_scan", l1.U, out2, None, h0, c0, dh_seq,
@@ -1852,17 +1896,28 @@ def phase6e(records):
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
           f"({rec['bound_by']}), cuDNN nn.LSTM backward "
           f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
-    # the three step times alike: STEP_TIMES steps each, back to back
+    # the four step times alike: STEP_TIMES steps each, back to back; K2's
+    # launches in the first, one a step
+    k2.launches = 0
     times = _timed_steps(tr, STEP_TIMES)
+    k2_steps = k2.launches
+    with per_step_tiled(K2_PLANS):
+        forced2 = _timed_steps(tr, STEP_TIMES)
     with per_step_k6():
         forced = _timed_steps(tr, STEP_TIMES)
     one = _timed_steps(trainer(1), STEP_TIMES)
     med = {"2x512": statistics.median(times[2:]),
+           "2x512 per-step K2": statistics.median(forced2[2:]),
            "2x512 per-step K3/K6": statistics.median(forced[2:]),
            "1x512": statistics.median(one[2:])}
     print("  fp32 steps (median, host clock around synchronised steps): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()), flush=True)
-    return launched[0], launched[1], med
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+          + f"; K2 launched {k2_steps} times in the first {STEP_TIMES} steps",
+          flush=True)
+    if k2_steps != STEP_TIMES:
+        fail(f"2x512 fp32 steps: K2 launched {k2_steps} times in {STEP_TIMES} "
+             f"steps, one a step")
+    return launched[0], launched[1], launched[2] + k2_steps, med
 
 
 # --- the flagship's training (S = 256, B = 128, N = 1024, M = 256) ---------
@@ -1960,7 +2015,7 @@ def fwd_check(name, kind, kern, plain, layer, seq, h0, c0, cfg, dropout, mask,
     tc = time_cfg or cfg
     call = lambda fn: fn(layer, seq, h0, c0, tc, residuals=True, dropout=dropout)
     ms = cuda_ms(lambda: call(kern), reps=2, windows=3)
-    plain_ms = cuda_ms(lambda: call(plain), reps=1, windows=2)
+    plain_ms = once_ms(lambda: call(plain))
     bound_ms, bound_by = bound(kind, tc, s, b, cfg.hidden, cfg.vocab,
                                train=True, drop=dropout is not None)
     return out, dict(name=name, route="cuda", source=source,
@@ -2112,8 +2167,8 @@ def bwd_check(name, U, fwd_out, ids, h0, c0, dh_seq, dhT, dcT, cfg, dropout,
         return step_err
     call = lambda: kern(*args, dh_seq, dhT, dcT, cfg, dropout=dropout, **kw)
     ms = cuda_ms(call, reps=1, windows=3)
-    plain_ms = cuda_ms(lambda: plain(*args, dh_seq, dhT, dcT, cfg,
-                                     dropout=dropout, **kw), reps=1, windows=2)
+    plain_ms = once_ms(lambda: plain(*args, dh_seq, dhT, dcT, cfg,
+                                     dropout=dropout, **kw))
     if ids is not None:
         bound_ms, bound_by = k3_bound(cfg, s, b, n, cfg.vocab)
     else:
@@ -2304,20 +2359,19 @@ def phase7a(records):
             out2, rec2 = fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
                                    cuda_cell.scan_layer_plain, l1, xw, h0, c0,
                                    cfg, dr[1], masks[1], inv, tag, per_call)
-            design2, persistent2 = tiled_design(cfg, b, n)
+            design2, persistent2 = k2_design(cfg, b, n)
             print(f"  lstm_fwd_scan {tag}: {design2}", flush=True)
-            if persistent2 != (dtype == "bfloat16") or \
-                    per_call["lstm_fwd_scan"] != (1 if persistent2 else s):
+            if not persistent2 or per_call["lstm_fwd_scan"] != 1:
                 fail(f"lstm_fwd_scan {tag}: {design2}, "
                      f"{per_call['lstm_fwd_scan']} launches a call; the "
-                     f"flagship's shapes take the persistent design in bf16 "
-                     f"alone, one launch a call (S in fp32)")
+                     f"flagship's shapes take the persistent design in both "
+                     f"types, one launch a call")
             if persistent2:
-                # K2's per-step design, which fp32 keeps, held to the same
-                # gates on the same inputs and timed in this call
-                rec2["source"] = FWD_SOURCE
+                # K2's per-step design, which refused shapes keep, held to
+                # the same gates on the same inputs and timed in this call
+                rec2["source"] = FWD_SOURCE if dtype == "bfloat16" else TILED_F32_SOURCE
                 step_call = {}
-                with per_step_tiled():
+                with per_step_tiled(K2_PLANS):
                     fwd_check("lstm_fwd_scan", "scan", cuda_cell.scan_layer,
                               cuda_cell.scan_layer_plain, l1, xw, h0, c0, cfg,
                               dr[1], masks[1], inv,
@@ -2776,7 +2830,9 @@ def phase8(test, records):
     the card runs (the persistent design of each type, and forced the
     first design and, at B = 1, the other product: bf16's tensor-core one,
     fp32's FFMA one); then the times of 1000-token calls beside the bound,
-    the plain version and the loop backend, every design in the same call;
+    the plain version (one call), and the first design's in the same call
+    (one window; the other product's, settled, and the loop backend's,
+    the path before K7, no longer timed);
     then ``sample_ids`` on the default backend at B = 128 in bf16 and fp32
     (the persistent design) and in fp32 at B = 256 (the first design, by
     plan), and ``cli sample`` at its defaults (fp32) and in bf16, with
@@ -2822,25 +2878,20 @@ def phase8(test, records):
             run = lambda fn, **kw: fn(params, cfg, GEN_SEED, first, h0, c0,
                                       n_tok, 0.7, **kw)
             ms = cuda_ms(lambda: run(cs.generate), reps=1, windows=3)
-            times = {}
-            for key, other in others.items():
-                with gen_forced(other):
-                    times[key] = cuda_ms(lambda: run(cs.generate), reps=1,
-                                         windows=3)
-            plain_ms = cuda_ms(lambda: run(cs.generate_plain), reps=1,
-                               windows=1)
-            loop_ms = cuda_ms(lambda: sample_ids(params, cfg, None, first, h0,
-                                                 c0, n_tok, 0.7,
-                                                 backend="loop"),
-                              reps=1, windows=1)
+            # the first design, whose time the gate below reads, in one
+            # window; the plain version in one call (seconds of PyTorch ops:
+            # the warm-up call bought nothing); the loop backend, the path
+            # before K7, no longer timed
+            with gen_forced(others["first design"]):
+                times = {"first design": cuda_ms(lambda: run(cs.generate), reps=1,
+                                                 windows=1)}
+            plain_ms = once_ms(lambda: run(cs.generate_plain))
             bound_ms, bound_by, read_ms = gen_bound(cfg, b, n_tok)
             print(f"  K7 {dtype} B={b}, {n_tok} tokens: {ms:.3f} ms "
                   f"({1e3 * ms / n_tok:.2f} us a token, "
                   f"{b * n_tok / ms * 1e3:,.0f} bytes/s), bound "
                   f"{bound_ms:.4f} ms ({bound_by}; the weights read once "
-                  f"{1e3 * read_ms:.2f} us), plain {plain_ms:.1f} ms, the "
-                  f"loop backend {loop_ms:.1f} ms "
-                  f"({b * n_tok / loop_ms * 1e3:,.0f} bytes/s)"
+                  f"{1e3 * read_ms:.2f} us), plain {plain_ms:.1f} ms"
                   + "".join(f"; {k} {v:.3f} ms" for k, v in times.items())
                   + (" in this call" if times else ""), flush=True)
             if not ms < times["first design"]:
@@ -2861,8 +2912,7 @@ def phase8(test, records):
                 rec, name="gen_first_design", source="eigen_lstm_tpu_torch/csrc/sampler.cu",
                 max_abs_err=other_err["first design"], ms=times["first design"])
     print("  library: no single PyTorch call generates tokens through an "
-          "LSTM stack with a draw; the loop backend above is what the port "
-          "ran before K7, not a yardstick", flush=True)
+          "LSTM stack with a draw", flush=True)
     made = {"bfloat16": 0, "float32": 0, "first": 0}
     for dtype, b in (("bfloat16", 128), ("float32", 128), ("float32", 256)):
         cfg = flagship_cfg(dtype)
@@ -3029,8 +3079,8 @@ def tiled_bwd_check(U, fwd_out, h0, c0, dh_seq, dhT, dcT, cfg, dropout, mask,
     rec["ms"] = cuda_ms(lambda: ct.tiled_bwd(U, g_seq, c_seq, c0, dh_seq, dhT,
                                              dcT, cfg, dropout=dropout),
                         reps=1, windows=3)
-    rec["plain_ms"] = cuda_ms(lambda: ct.tiled_bwd_plain(
-        U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg, dropout), reps=1, windows=2)
+    rec["plain_ms"] = once_ms(lambda: ct.tiled_bwd_plain(
+        U, g_seq, c_seq, c0, dh_seq, dhT, dcT, cfg, dropout))
     rec["bound_ms"], rec["bound_by"] = tiled_bound(cfg, s, b, n)
     return rec
 
@@ -3201,6 +3251,31 @@ def split_design(cfg, b, n, k15=False):
             f"blocks of {PERSIST_UNITS} units and {rows} batch rows, {kres} of "
             f"U's {n} rows in shared memory, one cooperative launch a "
             f"window)"), True
+
+
+# K2's plans (``cuda_cell.scan_layer``: ``tiled_fwd_plan`` under bf16
+# compute, ``split_fwd_f32_plan`` under fp32), the names that
+# ``per_step_tiled`` replaces to force its per-step design
+K2_PLANS = ("device_tiled_fwd_plan", "device_split_fwd_f32_plan")
+
+
+def k2_design(cfg, b, n):
+    """K2's design at these shapes on this card, as ``scan_layer`` chooses
+    it (under fp32 compute ``split_fwd_f32_plan``: K9's fp32 kernel with the
+    batch split over block rows; under bf16 ``tiled_fwd_plan``): a label,
+    and whether it is persistent (one launch a call)."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (F32_UNITS,
+                                                          device_split_fwd_f32_plan)
+
+    if cfg.cdtype != torch.float32:
+        return tiled_design(cfg, b, n)
+    split = device_split_fwd_f32_plan(cfg, b, n)
+    if split is None:
+        return "the per-step design (one launch a step)", False
+    return (f"the fp32 persistent design (K9's kernel: {n // F32_UNITS} x "
+            f"{-(-b // split.rows)} blocks of {F32_UNITS} units and {split.rows} "
+            f"batch rows, {split.per} a thread, a ring of {split.stages} slots of "
+            f"{split.kc} columns, one cooperative launch a window)"), True
 
 
 @contextlib.contextmanager
@@ -3543,11 +3618,12 @@ def phase9b(records):
     carried state): the loss and all eight gradients through the kernels
     against the plain path, gated as phase 7b. The fp32 run, the control,
     keeps fp32 residuals: fp32 compute with bf16 residuals would round h to
-    bf16 where an fp32 sum's order can flip it. Its K1, K3 and K6 take their
-    per-step design (N = 2048: no persistent plan takes it; their launches
-    counted), K3 and K6 held to ``bwd_check``'s gates and timed at these
-    shapes (the model's layers, their forward from the window's state).
-    Returns (K3's and K6's launches, K1's) in the fp32 window."""
+    bf16 where an fp32 sum's order can flip it. Its K1, K2, K3 and K6 take
+    their per-step design (N = 2048: no persistent plan takes it; their
+    launches counted), K3 and K6 held to ``bwd_check``'s gates and timed at
+    these shapes (the model's layers, their forward from the window's
+    state). Returns (K3's and K6's launches, K1's, K2's) in the fp32
+    window."""
     import dataclasses
 
     from eigen_lstm_tpu_torch.models.lstm import init_params, step_key
@@ -3580,25 +3656,28 @@ def phase9b(records):
         for backend in ("cuda", "plain"):
             cell_fn = select_cell_fn(backend, cfg, B5_B, DEVICE)
             before = (cb.embed_layer0_bwd.launches, cb.scan_layer_bwd.launches,
-                      cuda_cell.embed_layer0.launches)
+                      cuda_cell.embed_layer0.launches, cuda_cell.scan_layer.launches)
             loss, _, _, grads = loss_and_grads(params, x, t, h, c, cfg,
                                                cell_fn, key)
             if (dtype, backend) == ("float32", "cuda"):
                 per_step = (cb.embed_layer0_bwd.launches - before[0],
                             cb.scan_layer_bwd.launches - before[1])
                 k1 = cuda_cell.embed_layer0.launches - before[2]
+                k2 = cuda_cell.scan_layer.launches - before[3]
             res[(dtype, backend)] = (loss, dict(grads.named_tensors()))
     torch.cuda.synchronize()
     design1 = split_design(dataclasses.replace(base, compute_dtype="float32"),
                            B5_B, B5_N)[0]
+    design2 = k2_design(dataclasses.replace(base, compute_dtype="float32"),
+                        B5_B, B5_N)[0]
     print(f"  2x2048 fp32: K3, K6 launches {per_step} (their per-step design); "
-          f"K1 {k1} ({design1})", flush=True)
+          f"K1 {k1} ({design1}); K2 {k2} ({design2})", flush=True)
     if min(per_step) <= B5_S:
         fail(f"2x2048 fp32: K3, K6 launched {per_step} times; the per-step "
              f"design launches more than S a call")
-    if k1 <= 0 or k1 % B5_S:
-        fail(f"2x2048 fp32: K1 launched {k1} times; its per-step design "
-             f"launches S = {B5_S} a call")
+    if k1 <= 0 or k1 % B5_S or k2 <= 0 or k2 % B5_S:
+        fail(f"2x2048 fp32: K1, K2 launched {k1}, {k2} times; their per-step "
+             f"design launches S = {B5_S} a call")
     launched = dict(zip(TILED, ct.launches()))
     print(f"  2x2048: tiled launches {launched}", flush=True)
     if min(launched.values()) <= 0:
@@ -3633,7 +3712,7 @@ def phase9b(records):
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
               f"({rec['bound_by']}), cuDNN nn.LSTM backward "
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
-    return per_step, k1
+    return per_step, k1, k2
 
 
 def phase9c(per_call, records):
@@ -4015,8 +4094,8 @@ def phase10b(records):
                              f"{old_ms:.4f} ms in this call")
                     step = (f"; the per-step design {old_ms:.4f} ms in this "
                             f"call ({old['K12']} launches)")
-                plain_ms = cuda_ms(lambda: cb.embed_layer0_bwd_unroll2_plain(
-                    *args, dropout=dr, fused_accum=fused), reps=1, windows=2)
+                plain_ms = once_ms(lambda: cb.embed_layer0_bwd_unroll2_plain(
+                    *args, dropout=dr, fused_accum=fused))
                 bound_ms, bound_by = k3_bound(cfg, s, b, n, cfg.vocab)
                 print(f"  K12 {tag}: {ms['K12']:.4f} ms ({launched['K12']} "
                       f"launches) against K3's {ms['K3']:.4f} ms "
@@ -4248,6 +4327,8 @@ TP_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp.cu"
 # K15's fp32 designs (D = 1 and D ranks) and K16's at D ranks; at D = 1
 # K16 under fp32 compute is K6's fp32 kernel
 TP_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32.cu"
+# K13's fp32 step: one step of the fp32 persistent forward in K15's mode
+TP_STEP_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_step_f32.cu"
 TP_F32_BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32_bwd.cu"
 TP_REPLACES = {
     "tp_step_fwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:72",
@@ -4256,9 +4337,11 @@ TP_REPLACES = {
     "tp_seq_bwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:125",
 }
 TP_STEPS, TP_SUPERSTEP = 300, 50
-# 11b's per-step TP family (K13/K14, ~157 ms a step, host-bound) runs
-# TP_STEP_STEPS steps and is held to a single-device run of as many
-TP_STEP_STEPS = 100
+# 11b's per-step TP family (K13/K14, 160-240 ms a step, host-bound) runs
+# TP_STEP_STEPS steps in supersteps of TP_STEP_SUPERSTEP and is held to a
+# single-device run of as many (once 100 steps in supersteps of 50, whose
+# gap read 0.005 against the 0.05 gate; cut for the script's time)
+TP_STEP_STEPS, TP_STEP_SUPERSTEP = 50, 25
 # 11b: the root bench's configuration through ``cli train`` (its lr warm-up
 # of 20 steps), 300 steps from the same seed under --tp 1 and on one device
 TP_ARGV = [
@@ -4338,11 +4421,19 @@ def lstm_cell_ms(cfg, h_full, h_d, c_d, U_d, bias):
 
 
 def k13_design(rows, b, nd):
-    """A label of K13's design as ``tp_step_plan`` chose it."""
-    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import PERSIST_UNITS
+    """A label of K13's design as ``tp_step_plan`` chose it (``rows``: its
+    plan)."""
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import (F32_UNITS, PERSIST_UNITS,
+                                                          F32Split)
 
     if rows is None:
         return "the CUDA-core design (32 units x 4 batch rows a block)"
+    if isinstance(rows, F32Split):
+        grid = nd // F32_UNITS * -(-b // rows.rows)
+        return (f"the fp32 step ({grid} blocks of {F32_UNITS} units and "
+                f"{rows.rows} batch rows, {rows.per} a thread, a ring of "
+                f"{rows.stages} slots of {rows.kc} columns of h and U, U_d read "
+                f"{-(-b // rows.rows)} times a step, CUDA cores)")
     grid = nd // PERSIST_UNITS * -(-b // rows)
     return (f"the tensor-core design ({grid} blocks of {PERSIST_UNITS} units "
             f"and {rows} batch rows, U_d read {-(-b // rows)} times a step)")
@@ -4368,10 +4459,12 @@ def k13_check(tc, U_c, xw, h_full, c_d, cfg, tag):
 
 def k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows):
     """K13's C launcher alone between CUDA events, its buffers made once
-    (``rows``: the tensor-core design's, None for the CUDA-core one)."""
+    (``rows``: the plan, the tensor-core design's rows or the fp32 step's
+    layout; None for the CUDA-core design)."""
     import ctypes
 
     from eigen_lstm_tpu_torch.ops import _build
+    from eigen_lstm_tpu_torch.ops.cuda_cell_tiled import F32Split
 
     b, n = h_full.shape
     nd = c_d.shape[1]
@@ -4379,15 +4472,21 @@ def k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows):
     outs = (torch.empty(b, nd, **f32), torch.empty(b, nd, **f32),
             torch.empty(b, 4 * nd, **f32))
     launched = ctypes.c_int(0)
-    args = ((1 if cfg.cdtype == torch.bfloat16 else 0), U_c.data_ptr(),
-            xw.data_ptr(), h_full.data_ptr(), c_d.data_ptr(),
+    ptrs = (U_c.data_ptr(), xw.data_ptr(), h_full.data_ptr(), c_d.data_ptr(),
             *(o.data_ptr() for o in outs), b, n, nd,
-            int(cfg.cell_variant == "standard"), -1 if rows is None else rows,
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+            int(cfg.cell_variant == "standard"))
+    tail = (torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
     lib = _build.load_library()
-    if lib.tp_step_fwd_launch(*args) != 0:
-        fail("tp_step_fwd_launch refused the call")
-    return cuda_ms(lambda: lib.tp_step_fwd_launch(*args), reps=50)
+    if isinstance(rows, F32Split):
+        name, args = "tp_step_fwd_f32_launch", (*ptrs, *rows, *tail)
+    else:
+        name = "tp_step_fwd_launch"
+        args = ((1 if cfg.cdtype == torch.bfloat16 else 0), *ptrs,
+                -1 if rows is None else rows, *tail)
+    launcher = getattr(lib, name)
+    if launcher(*args) != 0:
+        fail(f"{name} refused the call")
+    return cuda_ms(lambda: launcher(*args), reps=50)
 
 
 def k14_alone_ms(g, c2, c_prev, dh, dc, cfg):
@@ -4412,7 +4511,7 @@ def k14_alone_ms(g, c2, c_prev, dh, dc, cfg):
 def cuda_core_k13():
     """K13's wrapper takes its CUDA-core design inside the block, whatever
     ``tp_step_plan`` would choose: for the check and time of that design
-    where the main path takes the tensor cores."""
+    where the main path takes the tensor cores (bf16) or the fp32 step."""
     from eigen_lstm_tpu_torch.ops import cuda_tp_cell
 
     plan = cuda_tp_cell.device_tp_step_plan
@@ -4462,9 +4561,9 @@ def phase11a(records):
             rows = tc.device_tp_step_plan(cfg, b, n, nd)
             design = k13_design(rows, b, nd)
             print(f"  K13 {dtype} D={ndev} (nd={nd}): {design}", flush=True)
-            if (rows is not None) != (dtype == "bfloat16"):
+            if rows is None:
                 fail(f"K13 {dtype} D={ndev}: {design}; the tensor cores in "
-                     f"bf16 alone")
+                     f"bf16, the fp32 step in fp32")
             out_k, errs13 = k13_check(tc, U_c, xw, h_full, c_d, cfg,
                                       f"{dtype} D={ndev}")
             dh, dc = rand(b, nd, sd=1e-2), rand(b, nd, sd=1e-2)
@@ -4480,18 +4579,16 @@ def phase11a(records):
                 fail(f"K14 {dtype} D={ndev}: {bad}")
             ms13 = cuda_ms(lambda: tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg), reps=50)
             alone13 = k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows)
-            line = ""
-            if rows is not None:
-                # the CUDA-core design, which fp32 keeps, held to the same
-                # gates on the same inputs and timed in this call
-                with cuda_core_k13():
-                    k13_check(tc, U_c, xw, h_full, c_d, cfg,
-                              f"{dtype} D={ndev} (the CUDA-core design)")
-                    core13 = cuda_ms(lambda: tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg),
-                                     reps=50)
-                core_alone = k13_alone_ms(U_c, xw, h_full, c_d, cfg, None)
-                line = (f"; the CUDA-core design {core13:.4f} ms, its kernel "
-                        f"alone {core_alone:.4f} ms, in this call")
+            # the CUDA-core design, which refused shapes keep, held to the
+            # same gates on the same inputs and timed in this call
+            with cuda_core_k13():
+                _, errs_core = k13_check(tc, U_c, xw, h_full, c_d, cfg,
+                                         f"{dtype} D={ndev} (the CUDA-core design)")
+                core13 = cuda_ms(lambda: tc.tp_step_fwd(U_c, xw, h_full, c_d, cfg),
+                                 reps=50)
+            core_alone = k13_alone_ms(U_c, xw, h_full, c_d, cfg, None)
+            line = (f"; the CUDA-core design {core13:.4f} ms, its kernel "
+                    f"alone {core_alone:.4f} ms, in this call")
             plain13 = cuda_ms(lambda: tc.tp_step_plain(U_c, xw, h_full, c_d, cfg), reps=20)
             lib13 = lstm_cell_ms(cfg, h_full, c_d, c_d, U_d, xw[0])
             ms14 = cuda_ms(lambda: tc.tp_step_bwd(out_k[2], out_k[1], c_d, dh, dc, cfg), reps=50)
@@ -4510,6 +4607,11 @@ def phase11a(records):
             records[("11a", "tp_step_fwd", dtype, ndev)] = dict(_tp_record(
                 "tp_step_fwd", max(errs13.values()), ms13, plain13, b13, lib13),
                 alone_ms=alone13)
+            if dtype == "float32":
+                records[("11a", "tp_step_fwd", dtype, ndev)]["source"] = TP_STEP_F32_SOURCE
+            records[("11a", "tp_step_fwd_core", dtype, ndev)] = dict(_tp_record(
+                "tp_step_fwd", max(errs_core.values()), core13, plain13, b13, lib13),
+                alone_ms=core_alone)
             records[("11a", "tp_step_bwd", dtype, ndev)] = dict(_tp_record(
                 "tp_step_bwd", max(errs["K14 dg"], errs["K14 dc_prev"]), ms14,
                 plain14, b14, None), alone_ms=alone14)
@@ -4527,6 +4629,8 @@ def phase11a(records):
         if not persistent15:
             fail(f"K15 {dtype}: {design15}; the persistent design in both types")
         fwd_k, step_err = k15_check(ts, tc, U_c, xw, h0, c0, cfg, dtype)
+        if dtype == "float32":
+            k13_window_check(tc, U_c, xw, h0, c0, cfg, fwd_k)
         fwd_p = ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg)
         h_seq, g_seq, c_prev, hT, cT = fwd_k
         win = [norm_err(a, p) for a, p in zip(fwd_k, fwd_p)]
@@ -4568,9 +4672,9 @@ def phase11a(records):
             fail(f"K16: {ts.tp_seq_bwd.launches - before} launches a call")
         coop16 = k16_designs(bwd_k, bargs, cfg)
         ms15 = cuda_ms(lambda: ts.tp_seq_fwd(U_c, xw, h0, c0, cfg), reps=5)
-        plain15 = cuda_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg), reps=1, windows=3)
+        plain15 = once_ms(lambda: ts.tp_seq_fwd_plain(U_c, xw, h0, c0, cfg))
         ms16 = cuda_ms(lambda: ts.tp_seq_bwd(*bargs), reps=5)
-        plain16 = cuda_ms(lambda: ts.tp_seq_bwd_plain(*bargs), reps=1, windows=3)
+        plain16 = once_ms(lambda: ts.tp_seq_bwd_plain(*bargs))
         h_in = torch.tanh(rand(s, b, n))
         lib15 = library_ms(n, cfg, h_in, h0, c0)
         lib16 = library_lstm_bwd(cfg, h_in, h0, c0, dh_seq)
@@ -4604,6 +4708,57 @@ def phase11a(records):
             "tp_seq_bwd", bstep, ms16, plain16, b16, lib16), cooperative_ms=coop16,
             source=BWD_SOURCE if dtype == "bfloat16" else BWD_F32_SOURCE)
         records[("11a", "k13x100", dtype)] = per_step
+
+
+def k13_window(tc, Us, xws, h0, c0s, cfg):
+    """S steps of K13 on D shards (D = len(Us)), the full h of a step the
+    shards' h2 side by side, each shard's c carried: per shard (h_seq, g,
+    c_prev, hT, cT) as K15's window returns them, and K13's launches."""
+    before = tc.tp_step_fwd.launches
+    h, cs = h0, list(c0s)
+    seqs = [([], [], []) for _ in Us]
+    for t in range(xws[0].shape[0]):
+        hs = []
+        for r, U in enumerate(Us):
+            h2, c2, g = tc.tp_step_fwd(U, xws[r][t], h, cs[r], cfg)
+            for seq, x in zip(seqs[r], (h2, g, cs[r])):
+                seq.append(x)
+            hs.append(h2)
+            cs[r] = c2
+        h = torch.cat(hs, 1)
+    return ([(*(torch.stack(x) for x in seqs[r]), seqs[r][0][-1], cs[r])
+             for r in range(len(Us))], tc.tp_step_fwd.launches - before)
+
+
+def k13_window_check(tc, U_c, xw, h0, c0, cfg, fwd_k):
+    """fp32 at the bench's shapes: a window of K13 steps (the fp32 step, one
+    launch a step) gives K15's fp32 window ``fwd_k`` bit for bit (h_seq,
+    g, c_prev, hT, cT: one k-split order, one epilogue), and at D = 2 each
+    shard of the TP gate permutation's weights gives the D = 1 window's
+    bits of its units."""
+    from eigen_lstm_tpu_torch.parallel.tp import _gate_permutation
+
+    s, b, n = xw.shape[0], xw.shape[1], U_c.shape[0]
+    (one,), launched = k13_window(tc, [U_c], [xw], h0, [c0], cfg)
+    same = [torch.equal(a, w) for a, w in zip(one, fwd_k)]
+    d = 2
+    nd = n // d
+    perm = torch.as_tensor(_gate_permutation(n, d), device=DEVICE)
+    cut = lambda x, r: x[..., perm][..., r * 4 * nd:(r + 1) * 4 * nd].contiguous()
+    units = lambda x, r: x[..., r * nd:(r + 1) * nd]
+    shards, launched2 = k13_window(
+        tc, [cut(U_c, r) for r in range(d)], [cut(xw, r) for r in range(d)], h0,
+        [units(c0, r).contiguous() for r in range(d)], cfg)
+    same2 = [all(torch.equal(a, w) for a, w in zip(
+        shards[r], (units(one[0], r), cut(one[1], r), units(one[2], r),
+                    units(one[3], r), units(one[4], r)))) for r in range(d)]
+    print(f"  K13 float32: a window of {s} steps (the fp32 step, {launched} "
+          f"launches) against K15's fp32 window, bit for bit (h_seq, g, c_prev, "
+          f"hT, cT): {same}; at D = {d} ({launched2} launches) each shard the D = 1 "
+          f"window's bits of its units: {same2}", flush=True)
+    if not all(same) or not all(same2) or launched != s or launched2 != d * s:
+        fail(f"K13 float32 window: {same} against K15, shards {same2}, "
+             f"launches {launched} and {launched2}")
 
 
 def k15_check(ts, tc, U_c, xw, h0, c0, cfg, tag):
@@ -4828,8 +4983,10 @@ def phase11b(records):
         trainer = None
         if env is not None:
             os.environ["EIGEN_LSTM_TP_SEQ"] = env
+        superstep = TP_SUPERSTEP if steps == TP_STEPS else TP_STEP_SUPERSTEP
         try:
-            counts, step_ms, cps, bpc, backend, trainer = _tp_run(TP_ARGV + extra, steps)
+            counts, step_ms, cps, bpc, backend, trainer = _tp_run(
+                _argv_with(TP_ARGV, superstep=superstep) + extra, steps)
         finally:
             os.environ.pop("EIGEN_LSTM_TP_SEQ", None)
             if trainer is not None and trainer.tp is not None:
@@ -4838,7 +4995,7 @@ def phase11b(records):
         print(f"  cli train {' '.join(extra) or '(one device)'}"
               f"{' EIGEN_LSTM_TP_SEQ=' + env if env else ''}: family {backend}, "
               f"{steps} steps, {step_ms:.3f} ms a step over the last "
-              f"{steps - TP_SUPERSTEP}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
+              f"{steps - superstep}, {cps:,.0f} chars/s, train_bpc {bpc:.4f}; "
               f"launches {counts}", flush=True)
     zero = ("lstm_fwd_embed", "lstm_fwd_scan", "lstm_bwd_embed",
             "lstm_bwd_embed_unroll2", "lstm_bwd_scan", "head_fwd", "head_bwd", "tiled")
@@ -4951,8 +5108,11 @@ def phase11c(records):
     steps with dropout 0.35 through K13/K14 (launches counted, bits
     finite and below 3.0); then one bible.txt window's TP loss and eleven
     gradients, the kernels against their plain versions, at phase 7b's
-    rules. Returns the run's launch counts and K13's launches on the fp32
-    window (its CUDA-core design)."""
+    rules; the fp32 window's time (host clock, one call after the gated
+    one) with K13 in its fp32 step beside one with its CUDA-core design
+    forced, and K13's launches a window in each.
+    Returns the run's launch counts and K13's launches on the fp32 window
+    in its fp32 step and in the CUDA-core design (forced)."""
     from eigen_lstm_tpu_torch.models.lstm import step_key
     from eigen_lstm_tpu_torch.ops import cuda_tp_cell
     from eigen_lstm_tpu_torch.parallel import tp as tp_mod
@@ -4995,21 +5155,32 @@ def phase11c(records):
             shard = tp_mod.shard_params(params, cfg, group.rank, group.size)
             h, c = (extras[k][:, :FLAG_B] for k in ("stream_h", "stream_c"))
             for path, plain in (("cuda", False), ("plain", True)):
-                before = cuda_tp_cell.tp_step_fwd.launches
-                loss, _, _, grads = tp_mod.tp_loss_and_grads(
+                window = lambda: tp_mod.tp_loss_and_grads(
                     shard, x, t, h, c, cfg, group, "pallas", key, plain)
+                before = cuda_tp_cell.tp_step_fwd.launches
+                loss, _, _, grads = window()
                 if dtype == "float32" and not plain:
-                    # fp32 keeps K13's CUDA-core design: its launches on
-                    # this window, one a layer and step
-                    core = cuda_tp_cell.tp_step_fwd.launches - before
+                    # K13's fp32 step: its launches on this window, one a
+                    # layer and step; then one more window's time in it and
+                    # one with the CUDA-core design forced, which refused
+                    # shapes keep, and that design's launches
+                    step32 = cuda_tp_cell.tp_step_fwd.launches - before
+                    win_ms = {"fp32 step": once_host_ms(window)}
+                    with cuda_core_k13():
+                        before = cuda_tp_cell.tp_step_fwd.launches
+                        win_ms["CUDA-core design"] = once_host_ms(window)
+                        core = cuda_tp_cell.tp_step_fwd.launches - before
                 grads = tp_mod.unshard_params(grads, cfg, group)
                 res[(dtype, path)] = (loss, dict(grads.named_tensors()))
         torch.cuda.synchronize()
-        print(f"  flagship TP fp32 window: K13 (the CUDA-core design) "
-              f"launched {core} times", flush=True)
-        if core != 3 * FLAG_S:
-            fail(f"flagship TP fp32 window: K13 launched {core} times, the "
-                 f"path gives {3 * FLAG_S}")
+        print(f"  flagship TP fp32 window: K13 in its fp32 step launched "
+              f"{step32} times, forced in its CUDA-core design {core} times; the "
+              f"window (loss and 11 gradients, one call each, host clock) "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in win_ms.items()), flush=True)
+        records[("11c", "tp_window_fp32")] = win_ms
+        if (step32, core) != (3 * FLAG_S, 3 * FLAG_S):
+            fail(f"flagship TP fp32 window: K13 launched {step32} and {core} "
+                 f"times, the path gives {3 * FLAG_S}")
         # the per-step family's bf16 values: W of layers >= 1 (x @ W in the
         # compute type) and Why (the head's product); W0's gather, every U
         # (TPStep hands dU back in fp32) and the biases are not
@@ -5017,7 +5188,7 @@ def phase11c(records):
                       lambda k: k.endswith(".Why") or (k.endswith(".W")
                                                        and "[0]" not in k),
                       vs_drift=FLAG_BF16_VS_DRIFT)
-        return counts, core
+        return counts, step32, core
     finally:
         if trainer is not None:
             trainer.tp.group.close()
@@ -6209,10 +6380,8 @@ def phase15(records, smi):
                       f"{one_win:.3e}, {one_bwin:.3e})", flush=True)
                 if gate_win and not (win <= TRAIN_TOL and bwin <= TRAIN_TOL):
                     fail(f"K15/K16 {tag}: windows {win:.3e}, {bwin:.3e}")
-                plain15 = cuda_ms(lambda: ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg),
-                                  reps=1, windows=1)
-                plain16 = cuda_ms(lambda: ts.tp_seq_bwd_ranks_plain(*bargs), reps=1,
-                                  windows=1)
+                plain15 = once_ms(lambda: ts.tp_seq_fwd_ranks_plain(U_cs, xws, h0, c0s, cfg))
+                plain16 = once_ms(lambda: ts.tp_seq_bwd_ranks_plain(*bargs))
                 b15, b16 = (tp_seq_bound(cfg, s, b, n, False),
                             tp_seq_bound(cfg, s, b, n, True))
                 x15, x16 = (exchange_bytes(cfg, s, b, n, d, False),
@@ -6320,7 +6489,7 @@ def main():
     check_budget("phase 5 (training kernels against plain)")
     phase6a()
     check_budget("phase 6a (loss and gradients, kernels against plain)")
-    counts, step_ms, own_bpc = phase6b(per_call)
+    counts, step_ms, _ = phase6b(per_call)
     for name in ("lstm_fwd_embed", "lstm_bwd_embed", "head_fwd", "head_bwd"):
         ms = (records[("k1_train", "bfloat16")] if name == "lstm_fwd_embed"
               else records[("lstm_bwd_embed", "bfloat16", 0.0)]["ms"]
@@ -6328,11 +6497,11 @@ def main():
         print(f"  {name}: {ms:.4f} ms a step, {100 * ms / step_ms:.1f} % of "
               f"the {step_ms:.3f} ms bench step", flush=True)
     check_budget("phase 6b (the bench)")
-    phase6d(own_bpc)
+    phase6d()
     check_budget("phase 6d (the bench from the JAX start)")
     k3_fp32_launches, k1_fp32_launches, k4_fp32_launches = phase6c()
-    check_budget("phase 6c (100 fp32 training steps)")
-    _, k6_fp32_launches, _ = phase6e(records)
+    check_budget("phase 6c (50 fp32 training steps)")
+    _, k6_fp32_launches, k2_fp32_launches, _ = phase6e(records)
     check_budget("phase 6e (a 2x512 model's fp32 steps)")
     flag_call = phase7a(records)
     check_budget("phase 7a (flagship training kernels against plain)")
@@ -6345,7 +6514,7 @@ def main():
     check_budget("phase 8 (generation)")
     tiled_call = phase9a(records)
     check_budget("phase 9a (tiled kernels against plain)")
-    per_step_bwd, k1_per_step = phase9b(records)
+    per_step_bwd, k1_per_step, k2_per_step = phase9b(records)
     check_budget("phase 9b (2x2048 loss and gradients)")
     b5_counts, _ = phase9c(tiled_call, records)
     check_budget("phase 9c (the 5b recipe)")
@@ -6369,17 +6538,21 @@ def main():
     check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
     seq_f32_counts = phase11d(records)
     check_budget("phase 11d (cli train --tp 1 --dtype float32)")
-    flag_tp_counts, k13_core = phase11c(records)
+    flag_tp_counts, k13_fp32, k13_core = phase11c(records)
     check_budget("phase 11c (the flagship at --tp 1)")
     phase12(runs11b)
     check_budget("phase 12 (cli train --dp 1, --dp 1 --tp 1, gradcheck under --tp 1)")
     phase13k()
+    check_budget("phase 13k (the kernels at a chunk's rows)")
     phase13a(runs11b)
+    check_budget("phase 13a, 13b (cli train --sp 1, --dp 1 --sp 1)")
     phase13c()
+    check_budget("phase 13c (--sp 1 --tp 1)")
     phase13d()
     check_budget("phase 13 (sequence pipelining at D = 1)")
     phase14k(records)
     pp_adagrad = phase14ab(runs11b)
+    check_budget("phase 14k, 14a, 14b (K11 on PP's sets, --pp 1, --dp 1 --pp 1)")
     phase14c()
     check_budget("phase 14 (pipeline parallelism at S = 1)")
     x_counts = phase15(records, smi)
@@ -6404,6 +6577,12 @@ def main():
         k1_fp32_launches + k1_cli_eval, name="lstm_fwd_embed_fp32")
     add(records[("lstm_fwd_embed_per_step", "float32")], k1_per_step,
         name="lstm_fwd_embed_per_step")
+    # K2's fp32 persistent design on 6e's 2x512 fp32 steps (timed at 6e's
+    # layer shapes); its per-step design, which N = 2048 keeps, on 9b's fp32
+    # window (timed forced at 2's eval shapes)
+    add(records[("6e", "lstm_fwd_scan")], k2_fp32_launches, name="lstm_fwd_scan_fp32")
+    add(records[("lstm_fwd_scan_per_step", "float32")], k2_per_step,
+        name="lstm_fwd_scan_per_step_fp32")
     # K4's CUDA-core design, which fp32 takes, on 6c's fp32 steps
     add(records[("head_fwd", "float32")], k4_fp32_launches,
         name="head_fwd_cuda_core")
@@ -6452,8 +6631,11 @@ def main():
     # K15 and K16 on the bench's --tp 1 run (11b) at its shapes
     for name in ("tp_step_fwd", "tp_step_bwd"):
         add(records[("11a", name, "bfloat16", 1)], flag_tp_counts[name])
-    # K13's CUDA-core design, which fp32 keeps, on 11c's fp32 window
-    add(records[("11a", "tp_step_fwd", "float32", 1)], k13_core,
+    # K13's fp32 step on 11c's fp32 window, and its CUDA-core design, which
+    # refused shapes keep, on the same window forced (both timed in 11a)
+    add(records[("11a", "tp_step_fwd", "float32", 1)], k13_fp32,
+        name="tp_step_fwd_fp32")
+    add(records[("11a", "tp_step_fwd_core", "float32", 1)], k13_core,
         name="tp_step_fwd_cuda_core")
     for name in ("tp_seq_fwd", "tp_seq_bwd"):
         add(records[("11a", name, "bfloat16")], seq_counts[name])
@@ -6506,7 +6688,8 @@ def gate_spread():
     test = split(rawread(CORPUS), 0.95)[1]
     os.environ["EIGEN_LSTM_TP_SEQ"] = "0"
     try:
-        tp_step = _cli_bpc(TP_ARGV + ["--tp", "1"], TP_STEP_STEPS)
+        tp_step = _cli_bpc(_argv_with(TP_ARGV, superstep=TP_STEP_SUPERSTEP)
+                           + ["--tp", "1"], TP_STEP_STEPS)
     finally:
         del os.environ["EIGEN_LSTM_TP_SEQ"]
     rows = {}
@@ -6518,7 +6701,8 @@ def gate_spread():
                              f"flagship 3x1024 bf16 ({order})")[2]
             ratios = phase7b()
             single = _cli_bpc(TP_ARGV)
-            short = _cli_bpc(TP_ARGV, TP_STEP_STEPS)
+            short = _cli_bpc(_argv_with(TP_ARGV, superstep=TP_STEP_SUPERSTEP),
+                             TP_STEP_STEPS)
             tp_seq = _cli_bpc(TP_ARGV + ["--tp", "1"])
         rows[order] = dict(
             bits=bpc, rel_jax=abs(bpc - JAX_BPC[FLAGSHIP]) / JAX_BPC[FLAGSHIP],
@@ -6711,6 +6895,25 @@ def tp_seq_only():
     check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
 
 
+def k2_k13_only():
+    """``python3 chip_smoke.py --k2-k13``: phases 0, 1, 2, 6e, 11a and 11c
+    alone: K2 and K13 in both types, their designs checked, timed and
+    counted."""
+    from eigen_lstm_tpu_torch.data.corpus import rawread, split
+
+    phase0()
+    phase1()
+    records = {}
+    phase2(split(rawread(CORPUS), 0.95)[1], records)
+    check_budget("phase 2 (kernels against plain)")
+    phase6e(records)
+    check_budget("phase 6e (a 2x512 model's fp32 steps)")
+    phase11a(records)
+    check_budget("phase 11a (the TP kernels against plain)")
+    phase11c(records)
+    check_budget("phase 11c (the flagship at --tp 1)")
+
+
 def tiled_only():
     """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
     phase0()
@@ -6732,8 +6935,10 @@ if __name__ == "__main__":
         groups_only()
     elif sys.argv[1:] == ["--tp-seq"]:
         tp_seq_only()
+    elif sys.argv[1:] == ["--k2-k13"]:
+        k2_k13_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread, --exchange, --tiled, --groups and --tp-seq")
+             f"--sp-spread, --exchange, --tiled, --groups, --tp-seq and --k2-k13")
     else:
         main()

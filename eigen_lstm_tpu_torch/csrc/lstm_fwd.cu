@@ -11,14 +11,15 @@
 //       precomputed outside as one large product):
 //       g = xw_t + round(h_{t-1}) @ U
 // This file is their design for the shapes the persistent designs do not
-// take (B > 128, N not a multiple of 64 in bf16 or of 32 in fp32, a grid
-// the card cannot hold) and K2's under fp32 compute. Elsewhere both run on
-// a persistent forward (ops/cuda_cell.py chooses), the same function with
+// take (B > 128, N not a multiple of 64 in bf16 or of 32 in fp32, N = 2048
+// in fp32, a grid the card cannot hold). Elsewhere both run on a
+// persistent forward (ops/cuda_cell.py chooses), the same function with
 // the same sum order around the product: under bf16 compute the
 // tensor-core one of fwd_mma.cuh (fwd_persist, through lstm_tiled.cu's
-// launchers), under fp32 compute K1 the CUDA-core one of
-// lstm_tiled_f32.cuh (through lstm_tiled_f32.cu's
-// tiled_fwd_embed_f32_launch).
+// launchers), under fp32 compute the CUDA-core one of lstm_tiled_f32.cuh
+// (K1 through lstm_tiled_f32.cu's tiled_fwd_embed_f32_launch, K2 through
+// its tiled_fwd_scan_f32_launch, both with their batch split over block
+// rows where N / 8 blocks would leave SMs idle).
 // then sigma on i, o, f and tanh on u, and the cell update of _cell_fwd:
 // "reference" carries c2 = tanh(i*u + f*c_prev) with h = o*c2; "standard"
 // carries c_raw with h = o*tanh(c_raw). round() is the compute type (bf16
@@ -46,9 +47,9 @@
 // and meet in shared memory. h_{t-1} comes from h0 at t = 0 and otherwise
 // from an fp32 state buffer that the previous launch wrote; the launcher
 // alternates two buffers so that no block reads what another block of the
-// same launch writes. Under bf16 compute the persistent design of
-// fwd_mma.cuh answers the three costs (one launch a window, U's rows in
-// shared memory, mma.sync); fp32 keeps this design, TF32 off.
+// same launch writes. The persistent designs answer the three costs (one
+// launch a window, U's rows in shared memory, and under bf16 compute
+// mma.sync; under fp32 FFMAs in 8 x 8 register tiles, TF32 off).
 
 #include "common.cuh"
 

@@ -12,17 +12,18 @@
 //       pallas_cell_tiled.py:_fwd_tiled_embed_kernel (layer 0, :429) and
 //       pallas_cell.py:_fwd_embed_kernel (:495): g = (W[ids_t] +
 //       h_{t-1} @ U) + b
-//   tiled_fwd_scan_f32_launch (K9)  <- _fwd_tiled_kernel (layers >= 1,
-//       :52): g = xw_t + h_{t-1} @ U
+//   tiled_fwd_scan_f32_launch (K9, and K2 under fp32 compute) <-
+//       _fwd_tiled_kernel (layers >= 1, :52) and pallas_cell.py:_fwd_kernel
+//       (:184): g = xw_t + h_{t-1} @ U
 //
 // ops/cuda_cell_tiled.py:tiled_fwd_f32_plan chooses them for K8 and K9 for
 // B <= 128, N a multiple of 32 and a grid of N / 8 blocks the card holds at
-// once, every batch row in a block; split_fwd_f32_plan for K1 (ops/
-// cuda_cell.py:embed_layer0), which splits the batch over block rows where
-// N / 8 blocks would leave SMs idle (2 rows of 64 at the bench's N = 512, B
-// = 128; 8 rows a block at a 1x512 eval's B = 16), as K15 does.
+// once, every batch row in a block; split_fwd_f32_plan for K1 and K2 (ops/
+// cuda_cell.py:embed_layer0, scan_layer), which splits the batch over block
+// rows where N / 8 blocks would leave SMs idle (2 rows of 64 at the bench's
+// N = 512, B = 128; 8 rows a block at a 1x512 eval's B = 16), as K15 does.
 // Elsewhere the per-step designs of lstm_tiled.cu (K8, K9) and lstm_fwd.cu
-// (K1) run. The epilogue is that
+// (K1, K2) run. The epilogue is that
 // of lstm_tiled.cu's per-step kernels (common.cuh: cell, keep_bit), so
 // every design computes one function. The kernel and its notes are in
 // lstm_tiled_f32.cuh, which K15's fp32 designs (lstm_tp_f32.cu) share.
@@ -82,19 +83,21 @@ extern "C" int tiled_fwd_embed_f32_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K9 under fp32 compute, the same persistent CUDA-core design with the xw
-// stream (S, B, 4N) fp32 in place of W's rows and the bias: g = xw_t +
-// h_{t-1} @ U. Arguments as tiled_fwd_embed_f32_launch's.
+// K9 under fp32 compute (tiled_fwd_f32_plan, rows = B), and K2 (ops/
+// cuda_cell.py:scan_layer, split_fwd_f32_plan's rows): the same persistent
+// CUDA-core design with the xw stream (S, B, 4N) fp32 in place of W's rows
+// and the bias: g = xw_t + h_{t-1} @ U. Arguments as
+// tiled_fwd_embed_f32_launch's.
 extern "C" int tiled_fwd_scan_f32_launch(
     int rtype, const void* U, const void* xw, void* hc, void* c, void* hT,
     void* hseq, void* cseq, void* gseq, void* hdrop, int S, int B, int N,
-    int standard, int kc, int stages, unsigned seed, unsigned keep, float inv,
-    void* stream, int* launches) {
+    int standard, int rows, int kc, int stages, unsigned seed, unsigned keep,
+    float inv, void* stream, int* launches) {
   const Dropout drop{hdrop != nullptr, seed, keep, inv};
   const auto f = [&](auto run) {
     return run(U, xw, nullptr, nullptr, hc, static_cast<float*>(c),
                static_cast<float*>(hT), hseq, cseq, gseq, hdrop, drop, S, B, N,
-               standard, B, kc, stages, static_cast<cudaStream_t>(stream),
+               standard, rows, kc, stages, static_cast<cudaStream_t>(stream),
                launches);
   };
   if (rtype == 0) return f(fwd_f32<float, false>);

@@ -1,10 +1,12 @@
 // The persistent CUDA-core forward under fp32 compute for Hopper (sm_90a):
-// the design of K8 and K9 (lstm_tiled_f32.cu), of K1 (K8's EMBED mode with
-// K1's residual type and its batch split over block rows, through K8's
-// launcher) and of K15 at D = 1 and at D ranks (lstm_tp_f32.cu), one
-// window function with a Step policy, as fwd_mma.cuh's bf16 window has. No
-// PyTorch headers. TF32 stays off for fp32 products, so fp32 keeps the
-// CUDA cores.
+// the design of K8 and K9 (lstm_tiled_f32.cu), of K1 and K2 (K8's EMBED
+// mode and K9's, each with its own residual type and its batch split over
+// block rows, through K8's and K9's launchers) and of K15 at D = 1 and at
+// D ranks (lstm_tp_f32.cu), one window function with a Step policy, as
+// fwd_mma.cuh's bf16 window has; K13's fp32 step (lstm_tp_step_f32.cu)
+// runs one step of it in K15's mode, with U streamed, in the same sum
+// order. No PyTorch headers. TF32 stays off for fp32 products, so fp32
+// keeps the CUDA cores.
 //
 // K15's mode (TP): the input term is K15's xw stream (fp32, the bias
 // folded in), h_seq is stored in fp32 (the param type) whatever the
@@ -15,14 +17,15 @@
 // fwd_mma.cuh's GridStep<float> (hc's two halves, the grid barrier: K8,
 // K9, K15 at D = 1) or exchange.cuh's RankStep<float> (the exchange
 // buffers' slots, the exchange: K15 at D ranks). A block owns kPUnits
-// units j0.. and `rows` batch rows b0.. (every row for K8 and K9; K1 and
-// K15 split the batch over block rows where N / 8 blocks leave SMs idle:
-// ops/cuda_cell_tiled.py:f32_split_rows). A row's sums do not depend on
-// the rows a block holds, its ring or the width nd (split s sums the k
-// with (k mod 32) / 8 = s in ascending k, whatever the layout), so K1's
-// split gives its unsplit bits (a 32-row SP chunk the bits of those rows
-// in a 128-row window) and K15's D-rank windows give its D = 1 window's
-// bits on the unpermuted weights.
+// units j0.. and `rows` batch rows b0.. (every row for K8 and K9; K1, K2
+// and K15 split the batch over block rows where N / 8 blocks leave SMs
+// idle: ops/cuda_cell_tiled.py:f32_split_rows). A row's sums do not depend
+// on the rows a block holds, its ring or the width nd (split s sums the k
+// with (k mod 32) / 8 = s in ascending k, whatever the layout), so K1's and
+// K2's splits give their unsplit bits (a 32-row SP chunk the bits of those
+// rows in a 128-row window), K15's D-rank windows give its D = 1 window's
+// bits on the unpermuted weights, and a window of K13's fp32 steps gives
+// K15's fp32 window bits.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -12,8 +12,10 @@
 //       tanh on u, the cell update of _cell_fwd; out h2, c2 (B, nd) and the
 //       activated g (B, 4nd), all fp32. Under bf16 compute with B <= 128
 //       it is the tensor-core step of fwd_mma.cuh (tp_step_fwd_mma, below;
-//       ops/cuda_tp_cell.py:tp_step_plan chooses it), elsewhere the
-//       CUDA-core step tile (tp_step_fwd).
+//       ops/cuda_tp_cell.py:tp_step_plan chooses it), under fp32 compute
+//       with B <= 128 one step of the fp32 persistent forward
+//       (lstm_tp_step_f32.cu: tp_step_fwd_f32_launch), elsewhere (the
+//       shapes neither plan takes) the CUDA-core step tile (tp_step_fwd).
 //   tp_step_bwd_launch (K14) <- pallas_tp_cell.py:_step_bwd_kernel (:82):
 //       the gate backward _gate_bwd of one step, elementwise: from g, c2,
 //       c_prev, dh, dc (fp32) to dg (B, 4nd) and dc_prev (B, nd), fp32.
@@ -85,9 +87,11 @@
 // and kBT batch rows; its kKS warps split the N-long reduction over h and
 // meet in shared memory, and the epilogue runs in registers. K13 is one
 // launch a step, a block a tile; that design reads U_d from L2 once per 4
-// batch rows (32 times a step at B = 128, ~256 MB at the flagship's D = 1),
-// so under bf16 compute K13 takes the tensor-core step instead, whose
-// blocks own all the batch rows or a large share of them. K15 and K16 are one cooperative launch a
+// batch rows (32 times a step at B = 128, ~256 MB at the flagship's D = 1
+// in bf16, ~512 MB in fp32), so K13 takes the tensor-core step under bf16
+// compute and the fp32 step (lstm_tp_step_f32.cu) under fp32 instead,
+// whose blocks own all the batch rows or a large share of them. K15 and
+// K16 are one cooperative launch a
 // window, a grid of at most what is resident at once, each block walking
 // the tiles, with a grid barrier between steps; K15 alternates two h
 // buffers (a step reads one, writes the other; after the barrier no block
@@ -684,7 +688,9 @@ int run_seq_bwd_ranks(int groups, const int* ranks, const int* blocks,
 // K13. rows >= 0: the tensor-core design with `rows` batch rows a block
 // (bf16 compute; ops/cuda_tp_cell.py:tp_step_plan gives rows; U and h
 // 16-byte aligned, N a multiple of 64, nd of 16); -1: the CUDA-core
-// design. Adds its launch to *launches.
+// design (the shapes no plan takes; fp32's step, where its plan gives a
+// layout, is lstm_tp_step_f32.cu's launcher). Adds its launch to
+// *launches.
 extern "C" int tp_step_fwd_launch(int ctype, const void* U, const void* xw,
                                   const void* h, const void* c_in,
                                   void* h_out, void* c_out, void* g_out,

@@ -78,7 +78,7 @@ SIGNATURES = {
     "tiled_fwd_embed_f32_launch": (_I, [_I] + [_P] * 11 + [_I] * 7 + _DROP
                                    + [_P, _IP]),
     "tiled_fwd_f32_smem_bytes": (_Z, [_I] * 4),
-    "tiled_fwd_scan_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 6 + _DROP
+    "tiled_fwd_scan_f32_launch": (_I, [_I] + [_P] * 9 + [_I] * 7 + _DROP
                                   + [_P, _IP]),
     "tiled_bwd_launch": (_I, [_I, _I] + [_P] * 10 + [_I] * 7 + _DROP
                          + [_P, _IP]),
@@ -94,6 +94,8 @@ SIGNATURES = {
     "gen_persist_f32_work_bytes": (_Z, [_I] * 4),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
+    "tp_step_fwd_f32_launch": (_I, [_P] * 7 + [_I] * 8 + [_P, _IP]),
+    "tp_step_fwd_f32_smem_bytes": (_Z, [_I] * 3),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _IP]),
     "tp_seq_bwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),

@@ -39,14 +39,14 @@ of N / 16 blocks resident, every batch row in a block); ``embed_layer0``
 (K1) splits the batch over the blocks where N / 16 blocks would leave most
 SMs idle (``cuda_cell_tiled.split_fwd_plan``: 32 of the bench's 128 rows
 at N = 512, 128 blocks). Under fp32 compute K1 takes K8's fp32 persistent
-kernel (``csrc/lstm_tiled_f32.cuh``: one cooperative launch a window on
-CUDA cores, N / 8 blocks each holding its N x 32 slice of U, TF32 off),
-its batch split over block rows where N / 8 blocks would leave SMs idle
-(``cuda_cell_tiled.split_fwd_f32_plan``: 2 rows of 64 at the bench's
-N = 512, B = 128; 8 rows a block at a 1x512 eval's B = 16; one block row
-at N = 1024); a row's sums do not depend on the rows its block holds.
-Elsewhere (K2 under fp32 compute, B > 128, N not a multiple of 64 in bf16
-or of 32 in fp32, a grid the card cannot hold) each is
+kernel and K2 K9's (``csrc/lstm_tiled_f32.cuh``: one cooperative launch a
+window on CUDA cores, N / 8 blocks each holding its N x 32 slice of U,
+TF32 off), the batch of both split over block rows where N / 8 blocks
+would leave SMs idle (``cuda_cell_tiled.split_fwd_f32_plan``: 2 rows of
+64 at the bench's N = 512, B = 128; 8 rows a block at a 1x512 eval's
+B = 16; one block row at N = 1024); a row's sums do not depend on the rows
+its block holds. Elsewhere (B > 128, N not a multiple of 64 in bf16 or of
+32 in fp32, N = 2048 in fp32, a grid the card cannot hold) each is
 ``csrc/lstm_fwd.cu``'s one launch a step. The plan decides before the
 launch; a failed launch raises.
 
@@ -405,10 +405,14 @@ def scan_layer(layer, xw, h0, c0, cfg: ModelConfig, residuals: bool = False,
     from . import cuda_cell_tiled as ct
 
     lib = _build.load_library()
-    kres = ct.device_tiled_fwd_plan(cfg, b, n)
-    if kres is not None:   # K9's persistent kernel, K2's residual type
+    if cfg.cdtype == torch.float32:
+        layout = ct.device_split_fwd_f32_plan(cfg, b, n)
+    else:
+        kres = ct.device_tiled_fwd_plan(cfg, b, n)
+        layout = None if kres is None else (kres, b)
+    if layout is not None:   # K9's persistent kernel, K2's residual type
         o = ct.scan_launch(scan_layer, layer, xw, h0, c0, cfg, cfg.rdtype,
-                           (kres, b), residuals, dropout)
+                           layout, residuals, dropout)
         return _assemble(o["hseq"], o["hT"], o["c"], cfg, residuals,
                          o["cseq"], o["gseq"], o["hdrop"])
     U_c = layer.U.to(cfg.cdtype).contiguous()

@@ -34,11 +34,12 @@ through the same launchers (``embed_launch`` for K1, ``scan_launch`` for
 K2), as does K15 (``cuda_tp_seq``); K1's and K15's blocks take a share of
 the batch rows where N / 16 blocks would leave most SMs idle
 (``split_fwd_plan``). Under fp32 compute K1 takes K8's fp32 persistent
-kernel through ``embed_launch`` with K1's residual type, and K15 K9's in
+kernel through ``embed_launch`` with K1's residual type, K2 K9's through
+``scan_launch`` with K2's residual type and xw stream, and K15 K9's in
 K15's mode (``csrc/lstm_tiled_f32.cuh``: h_seq in fp32, c_prev =
-c_{t-1}), the blocks of both a share of the batch rows where N / 8 blocks
-would leave SMs idle (``split_fwd_f32_plan``, ``f32_split_layout``, which
-K15's D-rank design shares). K10 has three such designs too: under bf16 compute
+c_{t-1}), the blocks of all three a share of the batch rows where N / 8
+blocks would leave SMs idle (``split_fwd_f32_plan``, ``f32_split_layout``,
+which K15's D-rank design and K13's fp32 step share). K10 has three such designs too: under bf16 compute
 (``tiled_bwd_plan``), where its grid of (N / 32) * ceil(B / rows) blocks
 can be resident, one persistent cooperative launch a window that also
 gives dh0, with as many chunks of U's rows as fit in shared memory and
@@ -408,33 +409,56 @@ def f32_split_layout(b: int, n: int, blocks: int, sms: int, smem_limit: int,
 
 def split_fwd_f32_plan(cfg: ModelConfig, b: int, n: int, sms: int,
                        smem_limit: int, split: bool = True) -> Optional[F32Split]:
-    """K1's and K15's (at D = 1) design under fp32 compute at (batch,
+    """K1's, K2's and K15's (at D = 1) design under fp32 compute at (batch,
     hidden) on a device of ``sms`` SMs whose blocks may take ``smem_limit``
     bytes of shared memory: the fp32 persistent kernel (K8's in its EMBED
-    mode for K1, K9's in K15's mode for K15) with the batch split over
-    block rows (``f32_split_rows``: 2 rows of 64 at the bench's N = 512, B
-    = 128; 8 rows a block at B = 16 there; one block row at N = 1024; every
-    row in a block without ``split``), or None for their other design (K1:
-    one launch a step; K15: cooperative; also under bf16 compute, whose
-    plan is ``split_fwd_plan``). It needs what ``tiled_fwd_f32_plan`` needs
-    of K8 and K9: N a multiple of 32, at most F32_ROWS batch rows, a
-    resident grid, the slice of U and a ring in a block's shared
-    memory."""
+    mode for K1, K9's for K2, K9's in K15's mode for K15) with the batch
+    split over block rows (``f32_split_rows``: 2 rows of 64 at the bench's
+    N = 512, B = 128; 8 rows a block at B = 16 there; one block row at N =
+    1024; every row in a block without ``split``), or None for their other
+    design (K1 and K2: one launch a step; K15: cooperative; also under bf16
+    compute, whose plan is ``split_fwd_plan``, K2's ``tiled_fwd_plan``). It
+    needs what ``tiled_fwd_f32_plan`` needs of K8 and K9: N a multiple of
+    32, at most F32_ROWS batch rows, a resident grid, the slice of U and a
+    ring in a block's shared memory (N = 2048's grid is not resident)."""
     if cfg.cdtype != torch.float32 or n % 32 or not 1 <= b <= F32_ROWS:
         return None
     return f32_split_layout(b, n, n // F32_UNITS, sms, smem_limit,
                             None if split else b)
 
 
+# K13's fp32 step (csrc/lstm_tp_step_f32.cu: one step of the fp32
+# persistent forward in K15's mode, planned by ``cuda_tp_cell.tp_step_plan``)
+# as the library lays out its shared memory (step_f32_smem_bytes;
+# ``_device_limits`` holds the two equal): no slice of U is held; a ring of
+# slots, each the block's rows of h_full (32 R rows of KC + 4 floats) and KC
+# rows of U_d's N x 32 slice, which the splits' partial sums (32 R rows of
+# STEP_RED_PITCH floats a split) reuse. STEP_F32_RINGS: the (KC, slots) the
+# library is built for at each R, in the order the plan tries them.
+STEP_RED_PITCH = 4 * F32_UNITS + 8
+STEP_F32_RINGS = {1: ((128, 4), (32, 4)), 2: ((64, 4), (32, 4)),
+                  4: ((64, 4), (32, 4))}
+
+
+def step_f32_smem_bytes(rows: int, kc: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of K13's fp32 step takes at
+    ``rows`` batch rows with a ring of ``stages`` slots of ``kc``
+    columns."""
+    r = F32_THREADS // F32_UNITS * f32_rows_per_thread(rows)
+    ring = stages * (r * (kc + 4) + kc * 4 * F32_UNITS)
+    return 4 * max(ring, F32_SPLIT * r * STEP_RED_PITCH)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int):
     """(SMs, shared memory a block may opt in to) of card ``index``, read
     once; checks that the library lays out the shared memory of the
-    persistent forward, the fp32 forwards and K10's persistent design as
-    ``persist_smem_bytes``, ``f32_persist_smem_bytes`` and
-    ``bwd_persist_smem_bytes`` do (the forward's also at K1's split
-    layouts: 32 and 16 of 128 rows at N = 512, 64 at N = 1024), and K10's
-    fp32 design, K6's, through ``cuda_cell_bwd._device_limits``."""
+    persistent forward, the fp32 forwards, K10's persistent design and
+    K13's fp32 step as ``persist_smem_bytes``, ``f32_persist_smem_bytes``,
+    ``bwd_persist_smem_bytes`` and ``step_f32_smem_bytes`` do (the
+    forward's also at K1's split layouts: 32 and 16 of 128 rows at N =
+    512, 64 at N = 1024), and K10's fp32 design, K6's, through
+    ``cuda_cell_bwd._device_limits``."""
     lib = _build.load_library()
     for b, n, kres in ((128, 2048, 1024), (16, 2048, 1344), (48, 1024, 0),
                        (32, 512, 512), (16, 512, 512), (64, 1024, 1024)):
@@ -450,6 +474,11 @@ def _device_limits(index: int):
         if lib.tiled_bwd_persist_smem_bytes(rows, cres) != bwd_persist_smem_bytes(rows, cres):
             raise RuntimeError("bwd_persist_smem_bytes disagrees with "
                                "csrc/lstm_tiled.cu's layout")
+    for rows, kc, st in ((128, 64, 4), (64, 64, 4), (32, 128, 4), (16, 32, 4),
+                         (100, 32, 4)):
+        if lib.tp_step_fwd_f32_smem_bytes(rows, kc, st) != step_f32_smem_bytes(rows, kc, st):
+            raise RuntimeError("step_f32_smem_bytes disagrees with "
+                               "csrc/lstm_tp_step_f32.cu's layout")
     return cuda_cell_bwd._device_limits(index)
 
 
@@ -602,8 +631,8 @@ def _f32_block_rows(layout: Union[F32Layout, F32Split], cfg: ModelConfig,
                     b: int) -> F32Split:
     """The fp32 forward's layout as batch rows a block and its ring: an
     ``F32Layout`` (K8, K9) holds every row in one block; an ``F32Split``
-    (K1) is checked: fp32 compute, 1 to B rows a block, its rows a thread
-    those of that many rows."""
+    (K1, K2) is checked: fp32 compute, 1 to B rows a block, its rows a
+    thread those of that many rows."""
     if isinstance(layout, F32Layout):
         _check_f32_layout(layout, cfg, b)
         return F32Split(b, *layout)
@@ -676,21 +705,23 @@ def tiled_embed_layer0(layer, ids, h0, c0, cfg: ModelConfig,
 
 
 def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
-                rd: torch.dtype, layout: Union[Tuple[int, int], F32Layout],
+                rd: torch.dtype,
+                layout: Union[Tuple[int, int], F32Layout, F32Split],
                 residuals: bool, dropout):
     """One call of K9's launchers, which K2 (``cuda_cell.scan_layer``)
     takes too: U and the xw stream in the compute type, the sequences in
     ``rd``; ``layout`` the persistent design's (kres, rows) (kres -1: the
     per-step design) through ``tiled_fwd_scan_launch``, or an
-    ``F32Layout``: the fp32 persistent design through
+    ``F32Layout`` (K9: every batch row in a block) or ``F32Split`` (K2: the
+    batch split over block rows): the fp32 persistent design through
     ``tiled_fwd_scan_f32_launch``. Adds the launches made to
     ``counter.launches``, then raises on a failed launch; returns the
     buffers."""
     s, b, _ = xw.shape
     n = cfg.hidden
-    f32 = isinstance(layout, F32Layout)
+    f32 = isinstance(layout, (F32Layout, F32Split))
     if f32:
-        _check_f32_layout(layout, cfg, b)
+        layout = _f32_block_rows(layout, cfg, b)
     U_c = _aligned(layer.U.to(cfg.cdtype))
     xs = _aligned(xw.to(types(cfg)[2]))
     drop = cuda_cell.drop_scalars(dropout)
@@ -705,7 +736,8 @@ def scan_launch(counter, layer, xw, h0, c0, cfg: ModelConfig,
     if f32:
         name = "tiled_fwd_scan_f32_launch"
         err = lib.tiled_fwd_scan_f32_launch(cuda_cell._TYPE_CODES[rd], *common,
-                                            layout.kc, layout.stages, *tail)
+                                            layout.rows, layout.kc,
+                                            layout.stages, *tail)
     else:
         name = "tiled_fwd_scan_launch"
         err = lib.tiled_fwd_scan_launch(

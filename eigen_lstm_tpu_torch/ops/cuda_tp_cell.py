@@ -12,25 +12,36 @@ then the activations and the cell update; it returns (h2, c2, g), with g
 the activated gates, all fp32 (``pallas_tp_cell.py:116``: this family
 keeps g in fp32). ``tp_step_bwd`` (K14) replaces ``_step_bwd_kernel``
 (:82): the gate backward, (g, c2, c_prev, dh, dc) -> (dg, dc_prev) in fp32.
-For a CUDA tensor each launches its kernel of ``csrc/lstm_tp.cu`` or
-raises; for a CPU tensor each runs its plain version, ``tp_step_plain`` or
-``tp_step_bwd_plain`` (``_fwd_math``, ``_bwd_math``), which the card's
-comparisons also call by name. The plain versions compute in the
+For a CUDA tensor each launches its kernel of ``csrc/lstm_tp.cu`` (K13's
+fp32 step: ``csrc/lstm_tp_step_f32.cu``) or raises; for a CPU tensor each
+runs its plain version, ``tp_step_plain`` or ``tp_step_bwd_plain``
+(``_fwd_math``, ``_bwd_math``), which the card's comparisons also call by
+name. The plain versions compute in the
 accumulation type (float64 in the float64 oracle configuration, where the
 JAX functions stay in float32). Each wrapper counts its launches in
 ``.launches``, one a call.
 
-K13 has two designs of one function on the card (``tp_step_plan`` chooses
-from the type, the shape and the card's SMs and shared memory, before the
-launch; a failed launch raises). Under bf16 compute with at most 128 batch
-rows it is the tensor-core step that K8/K9's persistent forward runs each
-step (``csrc/fwd_mma.cuh``): a block owns 16 units of the shard with their
-four gate columns and ``rows`` batch rows, U_d and h_full stream through a
-``cp.async`` ring, the products are ``mma.sync``, so U_d is read ceil(B /
-rows) times a step over the grid. Elsewhere (fp32 compute, B > 128, widths
-the tiles do not take) it is the CUDA-core step tile of K2 with the shard's
-widths, a block 32 units x 4 rows. One launch a call either way; the C
-launcher counts it.
+K13 has three designs of one function on the card (``tp_step_plan``
+chooses from the type, the shape and the card's SMs and shared memory,
+before the launch; a failed launch raises). Under bf16 compute with at most
+128 batch rows it is the tensor-core step that K8/K9's persistent forward
+runs each step (``csrc/fwd_mma.cuh``): a block owns 16 units of the shard
+with their four gate columns and ``rows`` batch rows, U_d and h_full
+stream through a ``cp.async`` ring, the products are ``mma.sync``, so U_d
+is read ceil(B / rows) times a step over the grid. Under fp32 compute with
+at most 128 batch rows it is one step of the fp32 persistent forward
+(``csrc/lstm_tp_step_f32.cu``, the device code of
+``lstm_tiled_f32.cuh:f32_fwd_window`` in K15's mode): a block owns 8 units
+of the shard with their four gate columns and ``rows`` batch rows
+(``cuda_cell_tiled.f32_split_rows`` over nd / 8 column blocks: 128, 64 and
+32 rows at the flagship's D = 1, 2, 4, 128 blocks each time), U_d's
+columns and h_full stream through a ``cp.async.cg`` ring, the products
+are FFMAs in 8 x 8 register tiles (TF32 off) summed in the window's split
+order, so a window of these steps gives K15's fp32 window bits at D = 1
+and a shard's the D = 1 bits on the unpermuted weights. Elsewhere (B >
+128, widths the tiles do not take, a grid the card cannot hold) it is the
+CUDA-core step tile of K2 with the shard's widths, a block 32 units x 4
+rows. One launch a call either way; the C launcher counts it.
 
 ``fused_tp_step`` is the JAX function of that name: the autograd function
 ``TPStep``, whose backward is ``tp_step_bwd`` (:136-154): K14 gives dg and
@@ -49,7 +60,7 @@ JAX package does, not as a capacity limit of the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -112,12 +123,36 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def tp_step_f32_plan(b: int, n: int, nd: int, sms: int,
+                     smem_limit: int) -> Optional[ct.F32Split]:
+    """The fp32 step's layout at (batch, full width n, shard width nd) on a
+    device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
+    shared memory: ``rows`` batch rows a block (``ct.f32_split_rows`` over
+    the nd / 8 column blocks: every row where the grid reaches half the
+    SMs, else 2 or 4 block rows), the rows a thread and the first ring of
+    ``ct.STEP_F32_RINGS`` whose KC divides n and that fits (beside no
+    slice of U: ``ct.step_f32_smem_bytes``); None for B > 128, n
+    not a multiple of 32, nd not of 8, a grid of (nd / 8) x ceil(B / rows)
+    blocks that is not resident at one an SM, or no ring that fits."""
+    if n % 32 or nd % ct.F32_UNITS or not 1 <= b <= ct.F32_ROWS:
+        return None
+    blocks = nd // ct.F32_UNITS
+    rows = min(b, ct.f32_split_rows(b, blocks, sms))
+    if blocks * -(-b // rows) > sms:
+        return None
+    per = ct.f32_rows_per_thread(rows)
+    ring = next((r for r in ct.STEP_F32_RINGS[per] if n % r[0] == 0
+                 and ct.step_f32_smem_bytes(rows, *r) <= smem_limit), None)
+    return None if ring is None else ct.F32Split(rows, per, *ring)
+
+
 def tp_step_plan(cfg: ModelConfig, b: int, n: int, nd: int, sms: int,
-                 smem_limit: int) -> Optional[int]:
+                 smem_limit: int) -> Optional[Union[int, ct.F32Split]]:
     """K13's design at (config, batch, full width n, shard width nd) on a
     device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
-    shared memory: the batch rows a block takes in the tensor-core design,
-    None for the CUDA-core design.
+    shared memory: under bf16 compute the batch rows a block takes in the
+    tensor-core design, under fp32 compute the fp32 step's layout
+    (``tp_step_f32_plan``), None for the CUDA-core design.
 
     The tensor-core design needs bf16 compute (fp32 products keep TF32
     off), n a multiple of the ring's k chunk, nd of the block's units and
@@ -127,6 +162,8 @@ def tp_step_plan(cfg: ModelConfig, b: int, n: int, nd: int, sms: int,
     tiles split 2, 4 or 8 ways) whose grid does, so that the step runs on
     enough SMs to draw on L2 at more than a few blocks' rate; U_d is then
     read ceil(B / rows) times a step over the grid."""
+    if cfg.cdtype == torch.float32:
+        return tp_step_f32_plan(b, n, nd, sms, smem_limit)
     if (cfg.cdtype != torch.bfloat16 or n % ct.PERSIST_KC != 0
             or nd % ct.PERSIST_UNITS != 0 or not 1 <= b <= ct.PERSIST_ROWS):
         return None
@@ -156,20 +193,26 @@ def tp_step_fwd(U, xw, h_full, c_d, cfg: ModelConfig):
         return tp_step_plain(U, xw, h_full, c_d, cfg)
     ctype = _card(cfg, dev, nd)
     lib = _build.load_library()
-    rows = device_tp_step_plan(cfg, b, n, nd)
+    plan = device_tp_step_plan(cfg, b, n, nd)
     f32 = torch.float32
     U_c, h_c = (ct._aligned(x.to(cfg.cdtype)) for x in (U, h_full))
     xw32, c32 = (ct._aligned(x.to(f32)) for x in (xw, c_d))
     h2, c2 = (torch.empty(b, nd, dtype=f32, device=dev) for _ in range(2))
     g = torch.empty(b, 4 * nd, dtype=f32, device=dev)
     launched = ctypes.c_int(0)
-    err = lib.tp_step_fwd_launch(
-        ctype, U_c.data_ptr(), xw32.data_ptr(), h_c.data_ptr(),
-        c32.data_ptr(), h2.data_ptr(), c2.data_ptr(), g.data_ptr(), b, n, nd,
-        int(cfg.cell_variant == "standard"), -1 if rows is None else rows,
-        _stream(dev), ctypes.byref(launched))
+    ptrs = (U_c.data_ptr(), xw32.data_ptr(), h_c.data_ptr(), c32.data_ptr(),
+            h2.data_ptr(), c2.data_ptr(), g.data_ptr(), b, n, nd,
+            int(cfg.cell_variant == "standard"))
+    if isinstance(plan, ct.F32Split):
+        name = "tp_step_fwd_f32_launch"
+        err = lib.tp_step_fwd_f32_launch(*ptrs, *plan, _stream(dev),
+                                         ctypes.byref(launched))
+    else:
+        name = "tp_step_fwd_launch"
+        err = lib.tp_step_fwd_launch(ctype, *ptrs, -1 if plan is None else plan,
+                                     _stream(dev), ctypes.byref(launched))
     tp_step_fwd.launches += launched.value
-    cuda_cell._raise_on(err, "tp_step_fwd_launch")
+    cuda_cell._raise_on(err, name)
     return h2, c2, g
 
 

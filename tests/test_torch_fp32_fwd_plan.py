@@ -9,8 +9,10 @@ N / 8 blocks each holding its N x 32 slice of U in shared memory for the
 window, round(h_{t-1}) streamed through a ring each step, a grid barrier
 between steps. K1 takes it too, through the same launcher with its batch
 split over block rows (tests/test_torch_k1_plan.py), K9 through a launcher
-of its own, K15 in its mode; K2 keeps its fp32 design. The device numbers are an H100 SXM's (132 SMs, 232,448 bytes of
-shared memory a block may opt in to). The routing is checked without a
+of its own, which K2 takes with its batch split the same way
+(tests/test_torch_k2_plan.py), K15 in its mode. The device numbers are an
+H100 SXM's (132 SMs, 232,448 bytes of shared memory a block may opt in
+to). The routing is checked without a
 card: tensors on ``meta``, ``Tensor.data_ptr`` giving each storage an
 address of its own, a stand-in library recording the calls. The plain
 version K8's kernels are held to is held against the JAX
@@ -222,10 +224,11 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     fp32 persistent design through its own launcher
     (``tiled_fwd_scan_f32_launch``, the plan's ring); K1 takes K8's
     launcher (``split_fwd_f32_plan``'s layout: one block row of 128 at N =
-    1024); K2 (``cuda_cell``) keeps its launch a step; K15 at D = 1 takes
-    the same kernel in K15's mode through a launcher of its own
-    (``tp_seq_fwd_f32_launch``, ``split_fwd_f32_plan``'s layout: N / 8 =
-    128 blocks of every batch row)."""
+    1024); K2 (``cuda_cell``) takes K9's launcher with the same layout's
+    rows and ring; K15 at D = 1 takes the same kernel in K15's mode
+    through a launcher of its own (``tp_seq_fwd_f32_launch``,
+    ``split_fwd_f32_plan``'s layout: N / 8 = 128 blocks of every batch
+    row)."""
     lib = routed[0]
     s, b, n = 3, 128, 1024
     cfg = _cfg()
@@ -236,12 +239,13 @@ def test_other_forwards_keep_their_fp32_routes(routed):
     ts.tp_seq_fwd(_e(n, 4 * n), _e(s, b, 4 * n), h0, c0, cfg)
     names = [c[0] for c in lib.calls]
     assert names == ["tiled_fwd_scan_f32_launch", "tiled_fwd_embed_f32_launch",
-                     "lstm_fwd_scan_launch", "tp_seq_fwd_f32_launch"]
+                     "tiled_fwd_scan_f32_launch", "tp_seq_fwd_f32_launch"]
     plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert lib.calls[0][1][14:16] == (plan.kc, plan.stages)   # K9: fp32 ring
+    assert lib.calls[0][1][14:17] == (b, plan.kc, plan.stages)   # K9: fp32 ring
     split = ct.split_fwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert split == (b, plan.rows, plan.kc, plan.stages)      # K1, K15: K9's layout
+    assert split == (b, plan.rows, plan.kc, plan.stages)   # K1, K2, K15: K9's layout
     assert lib.calls[1][1][16:19] == (split.rows, split.kc, split.stages)
+    assert lib.calls[2][1][14:17] == (split.rows, split.kc, split.stages)
     assert lib.calls[3][1][13:17] == tuple(split)
 
 

@@ -148,8 +148,8 @@ def test_k9_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     """fp32 at the flagship's, the eval and the SP chunk's batches: one
     call of ``tiled_fwd_scan_f32_launch`` and nothing else, one launch
     counted, U and the xw stream in fp32, hc (2, B, N) fp32, the outputs'
-    buffers in the residual type, the plan's ring, the dropout's
-    scalars."""
+    buffers in the residual type, every batch row in a block, the plan's
+    ring, the dropout's scalars."""
     lib, ptr, seen = routed
     s, n = 4, 1024
     cfg = _cfg(residual=residual)
@@ -161,7 +161,7 @@ def test_k9_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     assert [c[0] for c in lib.calls] == ["tiled_fwd_scan_f32_launch"]
     a = lib.calls[0][1]
     # (rtype, U, xw, hc, c, hT, hseq, cseq, gseq, hdrop, S, B, N, standard,
-    #  kc, stages, seed, keep, inv, stream, launched)
+    #  rows, kc, stages, seed, keep, inv, stream, launched)
     rd = ct.types(cfg)[1]
     assert a[0] == cuda_cell._TYPE_CODES[rd]
     for i, shape in ((1, (n, 4 * n)), (2, (s, b, 4 * n))):
@@ -172,9 +172,9 @@ def test_k9_fp32_launches_the_persistent_design(routed, b, residual, dropout):
     assert a[6:9] == (ptr(h_seq), ptr(c_seq), ptr(g_seq))
     assert h_seq.dtype == c_seq.dtype == g_seq.dtype == rd
     plan = ct.tiled_fwd_f32_plan(cfg, b, n, SMS, SMEM)
-    assert a[10:16] == (s, b, n, 0, plan.kc, plan.stages)
+    assert a[10:17] == (s, b, n, 0, b, plan.kc, plan.stages)   # every row a block
     assert (a[9] is None) == (dropout is None)
-    assert a[16:19] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
+    assert a[17:20] == (cuda_cell.drop_scalars(dropout) or (0, 0, 0.0))
 
 
 @pytest.mark.parametrize("dtype,b,n,want", [

@@ -206,7 +206,7 @@ def test_a_small_shared_memory_holds_fewer_rows():
 
 
 def test_b1_design_can_be_forced():
-    """chip_smoke.py times B = 1's other product through ``design``."""
+    """chip_smoke.py checks B = 1's other product through ``design``."""
     cfg = _cfg()
     assert cs.gen_plan(cfg, 1, SMS, SMEM, design="mma").design == "mma"
     assert cs.gen_plan(cfg, 1, SMS, SMEM, design="gemv").design == "gemv"
