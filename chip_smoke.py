@@ -193,7 +193,15 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          CUDA-core design, forced, held to the same gate and timed in the
          same call; in fp32 at the bench's shapes a window of K13 steps
          K15's fp32 window bit for bit, and at D = 2 each shard the D = 1
-         window's bits of its units), K15 and K16 (the window
+         window's bits of its units; K14 in the design its plan gives at
+         each shard, against its plain replay, dh_full against the plain
+         product of its own round(dg): in bf16 its fused step, the gate
+         backward with the rank's dh_full in one launch
+         (csrc/lstm_tp_step_bwd.cu), beside its first design (the gate
+         backward alone, then the product outside; forced) in the same
+         call, its bound, the plain pair and the library pair, and faster
+         alone than the first design's pair; in fp32 the first design,
+         the plain pair and the library pair), K15 and K16 (the window
          pair) at the bench's, bf16 and fp32, against their plain versions
          with every step replayed (K15 within 1e-4, c_prev[0] = c0; its
          persistent design, in bf16 the tensor-core forward, in fp32 K9's
@@ -211,14 +219,16 @@ Phase 11 tensor parallelism on the one card (D = 1) through the four TP
          D = 1 kernels can go); (b) ``cli train --tp 1`` at the bench's configuration, 300
          steps, through K15/K16 and, with EIGEN_LSTM_TP_SEQ=0, K13/K14,
          launches counted, train_bpc against the single-device run's from
-         the same seed (K13/K14 for 100 steps, against a single-device run
-         of 100), K15's, K16's and K13's shares of the step; (c) the
-         flagship recipe
-         at --tp 1 for 4 steps through K13/K14 (K13's share printed), then
+         the same seed (K13/K14 for 50 steps, against a single-device run
+         of 50; K14 through its fused step), K15's, K16's and K13's shares
+         of the step; (c) the flagship recipe
+         at --tp 1 for 4 steps through K13/K14 (K14 fused; K13's share and
+         the step beside its reading before K14's fused step), then
          one window's TP loss and eleven gradients, kernels against plain
-         (the fp32 window's K13 launches, its fp32 step, counted), then the
-         fp32 window timed with K13 in its fp32 step and, forced, its
-         CUDA-core design (768 launches a window each);
+         (the fp32 window's K13 and K14 launches counted, K14 all of its
+         first design), then the fp32 window timed with K13 in its fp32
+         step and, forced, its CUDA-core design (768 launches a window
+         each; the window beside its earlier reading);
          (d) ``cli train --tp 1 --dtype float32`` at (b)'s configuration,
          300 steps, beside the single-device fp32 run: K15 and K16 once a
          step through their fp32 persistent launchers (counted at the
@@ -333,7 +343,8 @@ train_bpc gap) with K1 and K15 in three sum orders (their other design,
 the persistent design unsplit, and split) and prints the spread.
 ``python3 chip_smoke.py --exchange`` runs phases 0, 1 and 15 alone,
 ``--tp-seq`` phases 0, 1, 11a, 11d and 15, ``--k2-k13`` phases 0, 1, 2,
-6e, 11a and 11c (K2's and K13's designs),
+6e, 11a and 11c (K2's and K13's designs), ``--k14`` phases 0, 1, 11a, 11b
+and 11c (K14's designs),
 ``--tiled`` phases 0, 1 and 9a, ``--groups`` phases 0 and 1 and K3's fp32
 persistent design at the bench's shapes with the other group width forced
 (outputs against the plan's, reverse launches timed side by side).
@@ -4330,9 +4341,13 @@ TP_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32.cu"
 # K13's fp32 step: one step of the fp32 persistent forward in K15's mode
 TP_STEP_F32_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_step_f32.cu"
 TP_F32_BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_f32_bwd.cu"
+# K14's fused step (bf16): the gate backward and the rank's dh_full in one
+# launch
+TP_STEP_BWD_SOURCE = "eigen_lstm_tpu_torch/csrc/lstm_tp_step_bwd.cu"
 TP_REPLACES = {
     "tp_step_fwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:72",
     "tp_step_bwd": "eigen_lstm_tpu/ops/pallas_tp_cell.py:82",
+    "tp_step_bwd_dh": "eigen_lstm_tpu/ops/pallas_tp_cell.py:82",
     "tp_seq_fwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:59",
     "tp_seq_bwd": "eigen_lstm_tpu/ops/pallas_tp_seq.py:125",
 }
@@ -4359,15 +4374,24 @@ TP_ARGV = [
 TP_BPC_TOL = 5e-2
 # 11c: the flagship recipe under --tp 1, a few steps
 TP_FLAG_STEPS = 4
+# 11c's bf16 step and fp32 window before K14's fused step (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md section 5), printed beside this run's, not
+# gated: both are host-bound
+EARLIER_FLAG_TP_STEP_MS, EARLIER_FLAG_TP_F32_WINDOW_MS = 880.73, 1067.91
 
 
-def tp_step_bound(cfg, b, n, nd, backward: bool):
+def tp_step_bound(cfg, b, n, nd, backward: bool, fused: bool = False):
     """K13's least time, ms: bytes = U_d + h_full (compute type) + xw, c
-    in + h2, c2, g out (fp32); flops = 2*B*N*4nd. K14's: g, c2, c_prev,
-    dh, dc in + dg, dc_prev out (fp32), ~30 flops an element."""
+    in + h2, c2, g out (fp32); flops = 2*B*N*4nd. K14's gate backward: g,
+    c2, c_prev, dh, dc in + dg, dc_prev out (fp32), ~30 flops an element;
+    its fused step (``fused``, bf16) those bytes + U_d in and dh_full out
+    in the compute type, flops = 2*B*N*4nd for dh_full."""
     csz = torch.finfo(cfg.cdtype).bits // 8
     if backward:
-        return _bound(b * nd * 4 * (4 + 4 + 4 + 1), 30 * b * nd,
+        nbytes = b * nd * 4 * (4 + 4 + 4 + 1)
+        if fused:
+            return _bound(nbytes + n * 4 * nd * csz + b * n * csz, 2 * b * n * 4 * nd, cfg)
+        return _bound(nbytes, 30 * b * nd,
                       dataclasses.replace(cfg, compute_dtype="float32"))
     nbytes = n * 4 * nd * csz + b * n * csz + b * 4 * nd * 4 * 2 + b * nd * 4 * 3
     return _bound(nbytes, 2 * b * n * 4 * nd, cfg)
@@ -4489,10 +4513,16 @@ def k13_alone_ms(U_c, xw, h_full, c_d, cfg, rows):
     return cuda_ms(lambda: launcher(*args), reps=50)
 
 
-def k14_alone_ms(g, c2, c_prev, dh, dc, cfg):
-    """K14's C launcher alone between CUDA events, its fp32 inputs and
-    outputs made once: the wrapper's casts and allocations left out."""
+def k14_alone_ms(g, c2, c_prev, dh, dc, cfg, U_c=None):
+    """K14's first design's C launcher alone between CUDA events, its fp32
+    inputs and outputs made once: the wrapper's casts and allocations left
+    out. With ``U_c``, the first design's pair: the launcher, then dh_full
+    by the product outside as the wrapper forms it (``cell_ops.matmul``),
+    captured in a CUDA graph and timed by its replays, so that the host's
+    calls (two launches and the casts' dispatch) do not bound its time:
+    the device time of the pair."""
     from eigen_lstm_tpu_torch.ops import _build
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
 
     b, nd = c2.shape
     ins = [x.to(torch.float32).contiguous() for x in (g, c2, c_prev, dh, dc)]
@@ -4504,7 +4534,171 @@ def k14_alone_ms(g, c2, c_prev, dh, dc, cfg):
     lib = _build.load_library()
     if lib.tp_step_bwd_launch(*args) != 0:
         fail("tp_step_bwd_launch refused the call")
-    return cuda_ms(lambda: lib.tp_step_bwd_launch(*args), reps=50)
+    if U_c is None:
+        return cuda_ms(lambda: lib.tp_step_bwd_launch(*args), reps=50)
+
+    def pair():
+        lib.tp_step_bwd_launch(*args[:-1], torch.cuda.current_stream().cuda_stream)
+        return cell_ops.matmul(outs[0], U_c.T, cfg.cdtype, torch.float32).to(cfg.cdtype)
+    side = torch.cuda.Stream()   # the warm-up off the capture, as torch asks
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pair()
+    return cuda_ms(graph.replay, reps=50)
+
+
+def k14_fused_alone_ms(args, U_c, cfg, plan):
+    """K14's fused C launcher alone between CUDA events (``plan``: its
+    layout; bf16), its inputs, outputs and scratch made once."""
+    import ctypes
+
+    from eigen_lstm_tpu_torch.ops import _build
+
+    ins = [x.to(torch.float32).contiguous() for x in args]
+    b, nd = ins[1].shape
+    n = U_c.shape[0]
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    bf16 = dict(dtype=torch.bfloat16, device=DEVICE)
+    outs = (torch.empty(b, 4 * nd, **f32), torch.empty(b, nd, **f32),
+            torch.empty(b, n, **bf16))
+    dgx = torch.empty(b, 4 * nd, **bf16)
+    xbuf = torch.empty(plan.blocks, b, n, **f32) if plan.blocks > 1 else None
+    launched = ctypes.c_int(0)
+    U_a = U_c.contiguous()
+    call = (*(x.data_ptr() for x in ins), U_a.data_ptr(),
+            *(o.data_ptr() for o in outs), dgx.data_ptr(),
+            None if xbuf is None else xbuf.data_ptr(), b, n, nd,
+            int(cfg.cell_variant == "standard"), *plan,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    lib = _build.load_library()
+    if lib.tp_step_bwd_dh_launch(*call) != 0:
+        fail("tp_step_bwd_dh_launch refused the call")
+    return cuda_ms(lambda: lib.tp_step_bwd_dh_launch(*call), reps=50)
+
+
+@contextlib.contextmanager
+def k14_first_design():
+    """K14's wrapper takes its first design (the gate backward, then the
+    product outside) inside the block, whatever ``tp_step_bwd_plan`` would
+    choose: the same-call control of the fused step in bf16."""
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell as tc
+
+    plan = tc.device_tp_step_bwd_plan
+    tc.device_tp_step_bwd_plan = lambda *a: None
+    try:
+        yield
+    finally:
+        tc.device_tp_step_bwd_plan = plan
+
+
+def k14_check(tc, args, U_c, cfg, tag, fused: bool):
+    """One call of K14 (``tp_step_bwd_dh``) against its plain replay: dg
+    and dc_prev within TRAIN_TOL (normalised) of ``tp_step_bwd_plain`` on
+    the same inputs; dh_full within TRAIN_TOL (normalised) of the plain
+    product of the kernel's own round(dg), in bf16 beyond the one rounding
+    of each sum to bf16 (2^-8 of its magnitude, an ulp, element by
+    element), in the compute type; one launch a call, of the fused step
+    where ``fused``. Returns (the output, the worst gated error)."""
+    from eigen_lstm_tpu_torch.ops import cell as cell_ops
+
+    before = (tc.tp_step_bwd.launches, tc.tp_step_bwd_dh.launches)
+    dg, dcp, dh_full = tc.tp_step_bwd_dh(*args, U_c, cfg)
+    calls = (tc.tp_step_bwd.launches - before[0], tc.tp_step_bwd_dh.launches - before[1])
+    pdg, pdcp = tc.tp_step_bwd_plain(*args, cfg)
+    ref = cell_ops.matmul(dg, U_c.T, cfg.cdtype, torch.float32)
+    torch.cuda.synchronize()
+    errs = {"dg": norm_err(dg, pdg), "dc_prev": norm_err(dcp, pdcp),
+            "dh_full": norm_err(dh_full, ref)}
+    gated = ["dg", "dc_prev", "dh_full"]
+    if cfg.cdtype == torch.bfloat16:
+        past = (dh_full.float() - ref).abs() - 2.0 ** -8 * ref.abs()
+        errs["dh_full past its bf16 rounding"] = float(past.max() / ref.abs().max())
+        gated[2] = "dh_full past its bf16 rounding"
+    print(f"  K14 {tag}: against plain, normalised (tol {TRAIN_TOL:g}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; dh_full {dh_full.dtype}; {calls[0]} launch a call, "
+          f"{calls[1]} of the fused step", flush=True)
+    if calls != (1, int(fused)) or dh_full.dtype != cfg.cdtype or not all(
+            np.isfinite(errs[k]) and errs[k] <= TRAIN_TOL for k in gated):
+        fail(f"K14 {tag}: {errs}, launches {calls}, dh_full {dh_full.dtype}")
+    return (dg, dcp, dh_full), max(errs[k] for k in gated)
+
+
+def k14_library_ms(args, U_c, cfg):
+    """The library pair on the same step, the standard cell: torch's fused
+    LSTM cell backward (``_thnn_fused_lstm_cell_backward_impl``, the gates
+    and U_c's columns permuted to its [i|f|g|o] outside the window), then
+    dh_full by ``torch.matmul`` in the compute type; None where refused."""
+    g, c2, c_prev, dh, dc = args
+    nd = c2.shape[1]
+    perm = torch.cat([torch.arange(q * nd, (q + 1) * nd) for q in (0, 2, 3, 1)]).to(DEVICE)
+    ws, U_l = g[:, perm].contiguous(), U_c[:, perm].contiguous()
+
+    def pair():
+        dgates = torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+            dh, dc, c_prev, c2, ws, False)[0]
+        return torch.matmul(dgates.to(U_l.dtype), U_l.T)
+    try:
+        with torch.no_grad():
+            return cuda_ms(pair, reps=50)
+    except RuntimeError as e:   # the fused cell may not take this type
+        print(f"  library: the fused LSTM cell backward refused: {e}", flush=True)
+        return None
+
+
+def k14_designs(tc, args, U_c, cfg, dtype, ndev, records):
+    """K14 at one flagship shard in the design its plan takes: bf16 the
+    fused step, with the first design forced beside it; fp32 the first
+    design, which it alone has. Each design held to ``k14_check`` and timed
+    in this call beside the plain version and the library pair (a
+    yardstick of the standard cell; none for the reference cell); the
+    fused step beside its bound and its C launcher alone, which must beat
+    the first design's pair alone (its device time, a CUDA graph)."""
+    b, nd = args[1].shape
+    n = U_c.shape[0]
+    plan = tc.device_tp_step_bwd_plan(cfg, b, n, nd)
+    tag = f"{dtype} D={ndev} (nd={nd})"
+    print(f"  K14 {tag}: the plan takes "
+          + ("the first design" if plan is None else
+             f"the fused step {plan} ({n // tc.STEP_BWD_UNITS} groups of "
+             f"{tc.STEP_BWD_UNITS} units x {plan.blocks} parts)"), flush=True)
+    if (plan is None) != (dtype == "float32"):
+        fail(f"K14 {tag}: plan {plan}; bf16 takes the fused step, fp32 the first design")
+    if plan is not None:
+        _, err = k14_check(tc, args, U_c, cfg, f"{tag}, the fused step", True)
+        ms = cuda_ms(lambda: tc.tp_step_bwd_dh(*args, U_c, cfg), reps=50)
+        alone = k14_fused_alone_ms(args, U_c, cfg, plan)
+    with k14_first_design():
+        _, err_first = k14_check(tc, args, U_c, cfg, f"{tag}, the first design", False)
+        first = cuda_ms(lambda: tc.tp_step_bwd_dh(*args, U_c, cfg), reps=50)
+    first_alone = k14_alone_ms(*args, cfg, U_c=U_c)
+    plain = cuda_ms(lambda: tc.tp_step_bwd_dh_plain(*args, U_c, cfg), reps=20)
+    lib = k14_library_ms(args, U_c, cfg)
+    lib_ms = lib if cfg.cell_variant == "standard" else None
+    lib_line = (f"the library pair {'refused' if lib is None else f'{lib:.4f} ms'} "
+                f"(the standard cell; {'none' if lib_ms is None else 'this'} for "
+                f"this {cfg.cell_variant} cell)")
+    first_line = (f"the first design {first:.4f} ms a call (the wrapper; 1 launch "
+                  f"and the product), its pair alone (K14's launcher and the "
+                  f"product, a CUDA graph) {first_alone:.4f} ms")
+    if plan is None:
+        print(f"  K14 {tag}: {first_line}; plain {plain:.4f} ms; {lib_line}", flush=True)
+        return
+    bnd = tp_step_bound(cfg, b, n, nd, True, fused=True)
+    print(f"  K14 {tag}: the fused step {ms:.4f} ms a call (the wrapper; 1 launch), "
+          f"its kernel alone {alone:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
+          f"{first_line}, in this call; plain {plain:.4f} ms; {lib_line}", flush=True)
+    if not alone < first_alone:
+        fail(f"K14 {tag}: the fused step {alone:.4f} ms alone against the first "
+             f"design's pair {first_alone:.4f}: it must beat it")
+    records[("11a", "tp_step_bwd_dh", dtype, ndev)] = dict(
+        _tp_record("tp_step_bwd_dh", err, ms, plain, bnd, lib_ms),
+        source=TP_STEP_BWD_SOURCE, alone_ms=alone, first_ms=first,
+        first_alone_ms=first_alone, library_pair_ms=lib, first_err=err_first)
 
 
 @contextlib.contextmanager
@@ -4601,7 +4795,7 @@ def phase11a(records):
                   f"cast already; 1 launch), its kernel alone {alone13:.4f} ms, "
                   f"bound {b13[0]:.5f} ms ({b13[1]}), plain {plain13:.4f} ms, "
                   f"torch.lstm_cell {'n/a' if lib13 is None else f'{lib13:.4f} ms'}"
-                  f"{line}; K14: {ms14:.4f} "
+                  f"{line}; K14's first design (the gate backward alone): {ms14:.4f} "
                   f"ms (1 launch), its kernel alone {alone14:.4f} ms, bound {b14[0]:.5f} ms ({b14[1]}), plain "
                   f"{plain14:.4f} ms, library n/a", flush=True)
             records[("11a", "tp_step_fwd", dtype, ndev)] = dict(_tp_record(
@@ -4615,6 +4809,8 @@ def phase11a(records):
             records[("11a", "tp_step_bwd", dtype, ndev)] = dict(_tp_record(
                 "tp_step_bwd", max(errs["K14 dg"], errs["K14 dc_prev"]), ms14,
                 plain14, b14, None), alone_ms=alone14)
+            k14_designs(tc, (out_k[2], out_k[1], c_d, dh, dc), U_c, cfg, dtype, ndev,
+                        records)
     s, b = TRAIN_S, TRAIN_B
     for dtype in ("float32", "bfloat16"):
         cfg = ModelConfig(hidden=512, compute_dtype=dtype, residual_dtype="float32")
@@ -4974,7 +5170,9 @@ def phase11b(records):
     JAX bench's sanity band. Returns the launch counts of both TP runs."""
     import os
 
-    runs = {}
+    from eigen_lstm_tpu_torch.ops import cuda_tp_cell
+
+    runs, fused14 = {}, {}
     for label, env, extra, steps in (
             ("tp seq", None, ["--tp", "1"], TP_STEPS),
             ("tp step", "0", ["--tp", "1"], TP_STEP_STEPS),
@@ -4984,6 +5182,7 @@ def phase11b(records):
         if env is not None:
             os.environ["EIGEN_LSTM_TP_SEQ"] = env
         superstep = TP_SUPERSTEP if steps == TP_STEPS else TP_STEP_SUPERSTEP
+        before = cuda_tp_cell.tp_step_bwd_dh.launches
         try:
             counts, step_ms, cps, bpc, backend, trainer = _tp_run(
                 _argv_with(TP_ARGV, superstep=superstep) + extra, steps)
@@ -4991,6 +5190,7 @@ def phase11b(records):
             os.environ.pop("EIGEN_LSTM_TP_SEQ", None)
             if trainer is not None and trainer.tp is not None:
                 trainer.tp.group.close()
+        fused14[label] = cuda_tp_cell.tp_step_bwd_dh.launches - before
         runs[label] = (counts, step_ms, bpc, backend)
         print(f"  cli train {' '.join(extra) or '(one device)'}"
               f"{' EIGEN_LSTM_TP_SEQ=' + env if env else ''}: family {backend}, "
@@ -5012,6 +5212,10 @@ def phase11b(records):
         if counts != w or backend != fam:
             fail(f"cli train --tp 1 ({label}): family {backend} (expected {fam}), "
                  f"launches {counts}, the path gives {w}")
+        if fused14[label] != w["tp_step_bwd"]:
+            fail(f"cli train --tp 1 ({label}): K14's fused step launched "
+                 f"{fused14[label]} times of {w['tp_step_bwd']} (bf16 at N = 512 "
+                 f"takes it)")
         ref_bpc = runs[ref][2]
         banded = ref == "single"
         if not (np.isfinite(bpc) and abs(bpc - ref_bpc) <= TP_BPC_TOL and (
@@ -5022,7 +5226,8 @@ def phase11b(records):
     print(f"  --tp 1 train_bpc {runs['tp seq'][2]:.4f} (K15/K16), one device "
           f"{runs['single'][2]:.4f} ({TP_STEPS} steps, band {SANITY_BAND}); "
           f"{runs['tp step'][2]:.4f} (K13/K14), one device "
-          f"{runs['single short'][2]:.4f} ({TP_STEP_STEPS} steps); tol "
+          f"{runs['single short'][2]:.4f} ({TP_STEP_STEPS} steps; K14's fused step "
+          f"{fused14['tp step']} launches); tol "
           f"{TP_BPC_TOL:g}; step "
           f"{runs['tp seq'][1]:.3f}, {runs['tp step'][1]:.3f} and "
           f"{runs['single'][1]:.3f} ms", flush=True)
@@ -5110,9 +5315,13 @@ def phase11c(records):
     gradients, the kernels against their plain versions, at phase 7b's
     rules; the fp32 window's time (host clock, one call after the gated
     one) with K13 in its fp32 step beside one with its CUDA-core design
-    forced, and K13's launches a window in each.
-    Returns the run's launch counts and K13's launches on the fp32 window
-    in its fp32 step and in the CUDA-core design (forced)."""
+    forced, and K13's launches a window in each; K14's there, all of its
+    first design (the gate backward, then the product outside), which fp32
+    takes. The bf16 step and the fp32 window are printed beside their
+    earlier readings.
+    Returns the run's launch counts (with K14's fused step's), K13's
+    launches on the fp32 window in its fp32 step and in the CUDA-core
+    design (forced), and K14's gate backward's on that window."""
     from eigen_lstm_tpu_torch.models.lstm import step_key
     from eigen_lstm_tpu_torch.ops import cuda_tp_cell
     from eigen_lstm_tpu_torch.parallel import tp as tp_mod
@@ -5123,17 +5332,21 @@ def phase11c(records):
         "--resume", FLAGSHIP, "--tp", "1"]
     trainer = None
     try:
+        fused0 = cuda_tp_cell.tp_step_bwd_dh.launches
         counts, step_ms, cps, bpc, backend, trainer = _tp_run(argv, TP_FLAG_STEPS)
+        fused = cuda_tp_cell.tp_step_bwd_dh.launches - fused0
         group = trainer.tp.group
         print(f"  flagship --tp 1: family {backend}, {TP_FLAG_STEPS} steps, "
-              f"{step_ms:.2f} ms a step over the last {TP_FLAG_STEPS - 2}, "
-              f"{cps:,.0f} chars/s, bits {bpc:.4f}; launches {counts}", flush=True)
+              f"{step_ms:.2f} ms a step over the last {TP_FLAG_STEPS - 2} (before "
+              f"K14's fused step: {EARLIER_FLAG_TP_STEP_MS} ms; host-bound, not gated), "
+              f"{cps:,.0f} chars/s, bits {bpc:.4f}; launches {counts}, {fused} of "
+              f"K14's fused step", flush=True)
         per = TP_FLAG_STEPS * 3 * FLAG_S
         w = dict({k: 0 for k in counts}, tp_step_fwd=per, tp_step_bwd=per,
                  adagrad=TP_FLAG_STEPS)
-        if backend != "pallas" or counts != w:
-            fail(f"flagship --tp 1: family {backend}, launches {counts}, the path "
-                 f"gives {w}")
+        if backend != "pallas" or counts != w or fused != per:
+            fail(f"flagship --tp 1: family {backend}, launches {counts} ({fused} of "
+                 f"K14's fused step), the path gives {w}, K14 fused in bf16")
         if not (np.isfinite(bpc) and bpc < 3.0):
             fail(f"flagship --tp 1: bits {bpc}")
         ms = records[("11a", "tp_step_fwd", "bfloat16", 1)]["ms"] * 3 * FLAG_S
@@ -5141,7 +5354,8 @@ def phase11c(records):
               f"{100 * ms / step_ms:.1f} % of the {step_ms:.2f} ms flagship "
               f"--tp 1 step", flush=True)
         rows = cuda_tp_cell.device_tp_step_plan(trainer.mcfg, FLAG_B, 1024, 1024)
-        print(f"  flagship --tp 1: K13 in {k13_design(rows, FLAG_B, 1024)}",
+        print(f"  flagship --tp 1: K13 in {k13_design(rows, FLAG_B, 1024)}; K14 "
+              f"{cuda_tp_cell.device_tp_step_bwd_plan(trainer.mcfg, FLAG_B, 1024, 1024)}",
               flush=True)
         if rows is None:
             fail("flagship --tp 1: K13 not on the tensor cores in bf16")
@@ -5158,13 +5372,18 @@ def phase11c(records):
                 window = lambda: tp_mod.tp_loss_and_grads(
                     shard, x, t, h, c, cfg, group, "pallas", key, plain)
                 before = cuda_tp_cell.tp_step_fwd.launches
+                before14 = (cuda_tp_cell.tp_step_bwd.launches,
+                            cuda_tp_cell.tp_step_bwd_dh.launches)
                 loss, _, _, grads = window()
                 if dtype == "float32" and not plain:
                     # K13's fp32 step: its launches on this window, one a
                     # layer and step; then one more window's time in it and
                     # one with the CUDA-core design forced, which refused
-                    # shapes keep, and that design's launches
+                    # shapes keep, and that design's launches. K14: its
+                    # first design's launches on this window
                     step32 = cuda_tp_cell.tp_step_fwd.launches - before
+                    k14 = (cuda_tp_cell.tp_step_bwd.launches - before14[0],
+                           cuda_tp_cell.tp_step_bwd_dh.launches - before14[1])
                     win_ms = {"fp32 step": once_host_ms(window)}
                     with cuda_core_k13():
                         before = cuda_tp_cell.tp_step_fwd.launches
@@ -5174,13 +5393,18 @@ def phase11c(records):
                 res[(dtype, path)] = (loss, dict(grads.named_tensors()))
         torch.cuda.synchronize()
         print(f"  flagship TP fp32 window: K13 in its fp32 step launched "
-              f"{step32} times, forced in its CUDA-core design {core} times; the "
-              f"window (loss and 11 gradients, one call each, host clock) "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in win_ms.items()), flush=True)
+              f"{step32} times, forced in its CUDA-core design {core} times; K14 "
+              f"{k14[0]} times ({k14[1]} of its fused step); the window (loss and 11 "
+              f"gradients, one call each, host clock) "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in win_ms.items())
+              + f" (earlier: {EARLIER_FLAG_TP_F32_WINDOW_MS} ms in its fp32 "
+              f"step; host-bound, not gated)", flush=True)
         records[("11c", "tp_window_fp32")] = win_ms
-        if (step32, core) != (3 * FLAG_S, 3 * FLAG_S):
+        win = 3 * FLAG_S
+        if (step32, core) != (win, win) or k14 != (win, 0):
             fail(f"flagship TP fp32 window: K13 launched {step32} and {core} "
-                 f"times, the path gives {3 * FLAG_S}")
+                 f"times, K14 {k14} (of them its fused step), the path gives "
+                 f"{win} of K14's first design")
         # the per-step family's bf16 values: W of layers >= 1 (x @ W in the
         # compute type) and Why (the head's product); W0's gather, every U
         # (TPStep hands dU back in fp32) and the biases are not
@@ -5188,7 +5412,7 @@ def phase11c(records):
                       lambda k: k.endswith(".Why") or (k.endswith(".W")
                                                        and "[0]" not in k),
                       vs_drift=FLAG_BF16_VS_DRIFT)
-        return counts, step32, core
+        return dict(counts, tp_step_bwd_dh=fused), step32, core, k14[0]
     finally:
         if trainer is not None:
             trainer.tp.group.close()
@@ -6538,7 +6762,7 @@ def main():
     check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
     seq_f32_counts = phase11d(records)
     check_budget("phase 11d (cli train --tp 1 --dtype float32)")
-    flag_tp_counts, k13_fp32, k13_core = phase11c(records)
+    flag_tp_counts, k13_fp32, k13_core, k14_fp32 = phase11c(records)
     check_budget("phase 11c (the flagship at --tp 1)")
     phase12(runs11b)
     check_budget("phase 12 (cli train --dp 1, --dp 1 --tp 1, gradcheck under --tp 1)")
@@ -6627,10 +6851,18 @@ def main():
     add(records[("14k", "bench")], pp_adagrad, name="adagrad_pp")
     add(records[("10b", 64, "bfloat16", 0.0)],
         u2_counts["lstm_bwd_embed_unroll2"])
-    # K13 and K14 on the flagship's --tp 1 run (11c) at its shapes (D = 1);
-    # K15 and K16 on the bench's --tp 1 run (11b) at its shapes
-    for name in ("tp_step_fwd", "tp_step_bwd"):
-        add(records[("11a", name, "bfloat16", 1)], flag_tp_counts[name])
+    # K13 and K14's fused step on the flagship's --tp 1 run (11c) at its
+    # shapes (D = 1); K15 and K16 on the bench's --tp 1 run (11b) at its
+    # shapes
+    add(records[("11a", "tp_step_fwd", "bfloat16", 1)], flag_tp_counts["tp_step_fwd"])
+    add(records[("11a", "tp_step_bwd_dh", "bfloat16", 1)], flag_tp_counts["tp_step_bwd_dh"])
+    # K14's gate backward alone (its first design, the product outside):
+    # in bf16 the launches that run gave it, none where the plan takes the
+    # fused step (refused shapes and the forced control in 11a run it); in
+    # fp32, the design the plan takes, on 11c's fp32 window
+    add(records[("11a", "tp_step_bwd", "bfloat16", 1)],
+        flag_tp_counts["tp_step_bwd"] - flag_tp_counts["tp_step_bwd_dh"])
+    add(records[("11a", "tp_step_bwd", "float32", 1)], k14_fp32, name="tp_step_bwd_fp32")
     # K13's fp32 step on 11c's fp32 window, and its CUDA-core design, which
     # refused shapes keep, on the same window forced (both timed in 11a)
     add(records[("11a", "tp_step_fwd", "float32", 1)], k13_fp32,
@@ -6914,6 +7146,20 @@ def k2_k13_only():
     check_budget("phase 11c (the flagship at --tp 1)")
 
 
+def k14_only():
+    """``python3 chip_smoke.py --k14``: phases 0, 1, 11a, 11b and 11c
+    alone: K14 in both types, its designs checked, timed and counted."""
+    phase0()
+    phase1()
+    records = {}
+    phase11a(records)
+    check_budget("phase 11a (the TP kernels against plain)")
+    phase11b(records)
+    check_budget("phase 11b (cli train --tp 1 at the bench's configuration)")
+    phase11c(records)
+    check_budget("phase 11c (the flagship at --tp 1)")
+
+
 def tiled_only():
     """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
     phase0()
@@ -6937,8 +7183,11 @@ if __name__ == "__main__":
         tp_seq_only()
     elif sys.argv[1:] == ["--k2-k13"]:
         k2_k13_only()
+    elif sys.argv[1:] == ["--k14"]:
+        k14_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread, --exchange, --tiled, --groups, --tp-seq and --k2-k13")
+             f"--sp-spread, --exchange, --tiled, --groups, --tp-seq, --k2-k13 "
+             f"and --k14")
     else:
         main()

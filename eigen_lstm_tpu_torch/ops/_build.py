@@ -97,6 +97,8 @@ SIGNATURES = {
     "tp_step_fwd_f32_launch": (_I, [_P] * 7 + [_I] * 8 + [_P, _IP]),
     "tp_step_fwd_f32_smem_bytes": (_Z, [_I] * 3),
     "tp_step_bwd_launch": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+    "tp_step_bwd_dh_launch": (_I, [_P] * 11 + [_I] * 6 + [_P, _IP]),
+    "tp_step_bwd_dh_smem_bytes": (_Z, [_I] * 4),
     "tp_seq_fwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _IP]),
     "tp_seq_bwd_launch": (_I, [_I, _I] + [_P] * 9 + [_I] * 5 + [_P]),
     "tp_seq_fwd_ranks_launch": (_I, [_I, _I, _I, _IP, _IP] + [_PP] * 9

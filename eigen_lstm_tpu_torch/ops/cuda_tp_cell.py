@@ -43,12 +43,26 @@ and a shard's the D = 1 bits on the unpermuted weights. Elsewhere (B >
 CUDA-core step tile of K2 with the shard's widths, a block 32 units x 4
 rows. One launch a call either way; the C launcher counts it.
 
+K14 on the card is ``tp_step_bwd_dh``. Under bf16 compute, where
+``tp_step_bwd_plan`` gives a layout, the gate backward and the VJP's
+dh_full = round(dg) @ U_c^T (:142-146) are one cooperative launch
+(``csrc/lstm_tp_step_bwd.cu``): a grid of N / 64 groups of G blocks, a
+block its group's 64 rows of U_c over 4nd / G gate columns, copied while
+every thread runs its share of the gate backward; after a grid barrier
+each block forms its part of the product with ``mma.sync`` (fp32 sums),
+and the G parts meet in part order, rounded once to bf16. G comes from (N,
+nd) and the card, never from B, so every batch takes one sum order. fp32
+compute and refused shapes (B > 128, widths the layout does not take, a
+grid the card cannot hold) keep the first design: ``tp_step_bwd`` (the
+gate backward alone, ``csrc/lstm_tp.cu``), then the product outside.
+Either way one launch of K14 a call, counted in ``tp_step_bwd.launches``.
+
 ``fused_tp_step`` is the JAX function of that name: the autograd function
-``TPStep``, whose backward is ``tp_step_bwd`` (:136-154): K14 gives dg and
-dc_prev; dh_full = round(dg) @ round(U)^T and dU = round(h_full)^T
-round(dg) are products outside in the compute type with fp32 results, as
-the JAX ``dot_general`` s are. As there, dU comes back in U's type (fp32:
-not rounded) and dh_full in h_full's, the compute type (bf16 under bf16
+``TPStep``, whose backward is ``tp_step_bwd_dh`` (:136-154): dg, dc_prev
+and dh_full = round(dg) @ round(U)^T; dU = round(h_full)^T round(dg) is a
+product outside in the compute type with an fp32 result, as the JAX
+``dot_general`` is. As there, dU comes back in U's type (fp32: not
+rounded) and dh_full in h_full's, the compute type (bf16 under bf16
 compute). The caller casts U to the compute type once a window
 (``parallel/tp.py:_tp_scan_layer``) and hands that U_c to every step beside
 U, as an input autograd does not differentiate: the kernel and dh_full read
@@ -60,7 +74,8 @@ JAX package does, not as a capacity limit of the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+import functools
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -241,8 +256,140 @@ def tp_step_bwd(g, c2, c_prev, dh, dc, cfg: ModelConfig):
     return dg, dcp
 
 
+def _dh_full(dg, U_c, cfg: ModelConfig):
+    """The VJP's dh_full = round(dg) @ U_c^T in the accumulation type, cast
+    to the compute type (h_full's): the product outside the kernels."""
+    return cell_ops.matmul(dg, U_c.T, cfg.cdtype, cuda_cell._acc_dtype(cfg)).to(cfg.cdtype)
+
+
+def tp_step_bwd_dh_plain(g, c2, c_prev, dh, dc, U_c, cfg: ModelConfig):
+    """``_bwd_math`` and the VJP's dh_full: (dg, dc_prev, dh_full)."""
+    dg, dcp = tp_step_bwd_plain(g, c2, c_prev, dh, dc, cfg)
+    return dg, dcp, _dh_full(dg, U_c, cfg)
+
+
+# K14's fused step (csrc/lstm_tp_step_bwd.cu), bf16 compute: a block of
+# 256 threads owns STEP_BWD_UNITS rows of U_c (output units) over 4nd / G
+# gate columns, G the first of STEP_BWD_PARTS whose N / units x G blocks
+# the card holds at one an SM and whose columns are whole chunks of
+# STEP_BWD_KC; round(dg) through a ring of STEP_BWD_STAGES slots of the
+# batch's whole 16-row tiles by STEP_BWD_KC + 8 columns, U_c's rows padded
+# by 8 elements.
+STEP_BWD_UNITS = 64
+STEP_BWD_PARTS = (16, 8, 4, 2, 1)
+STEP_BWD_KC = 64
+STEP_BWD_ROWS = 128
+STEP_BWD_STAGES = (4, 2)
+
+
+class StepBwdPlan(NamedTuple):
+    """K14's layout: ``blocks`` (G) blocks a group of units, a ring of
+    ``stages`` slots."""
+    blocks: int
+    stages: int
+
+
+def step_bwd_smem_bytes(b: int, nd: int, blocks: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of K14's fused step takes at
+    batch ``b`` and shard width ``nd`` (``csrc/lstm_tp_step_bwd.cu``'s
+    layout)."""
+    rows = 16 * -(-b // 16)
+    return 2 * (STEP_BWD_UNITS * (4 * nd // blocks + 8)
+                + stages * rows * (STEP_BWD_KC + 8))
+
+
+def tp_step_bwd_plan(cfg: ModelConfig, b: int, n: int, nd: int, sms: int,
+                     smem_limit: int) -> Optional[StepBwdPlan]:
+    """K14's fused layout at (batch, full width n, shard width nd) on a
+    device of ``sms`` SMs whose blocks may take ``smem_limit`` bytes of
+    shared memory: G from (n, nd) and the SMs alone, then the first ring
+    that fits; None for the first design (the gate backward, then the
+    product outside): fp32 compute, B > 128, n not a multiple of 64, nd not
+    of 16, no G whose grid is resident at one block an SM, or no ring that
+    fits. A fused fp32 step (K16's fp32 D-rank product on CUDA cores) was
+    built and timed on an H100 at the flagship's shard: alone it trailed
+    the first design at D = 1, 2 and 4, and on the fp32 ``--tp 1`` window
+    the two read the same within the host's noise (PERF.md row 14), so
+    fp32 keeps the first design alone."""
+    if cfg.cdtype != torch.bfloat16 or not 1 <= b <= STEP_BWD_ROWS or nd % 16 \
+            or n % STEP_BWD_UNITS:
+        return None
+    blocks = next((g for g in STEP_BWD_PARTS if (4 * nd) % (g * STEP_BWD_KC) == 0
+                   and n // STEP_BWD_UNITS * g <= sms), None)
+    if blocks is None:
+        return None
+    stages = next((st for st in STEP_BWD_STAGES
+                   if step_bwd_smem_bytes(b, nd, blocks, st) <= smem_limit), None)
+    return None if stages is None else StepBwdPlan(blocks, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_bwd_limits(index: int):
+    """``ct._device_limits`` of card ``index``, once checking that the
+    library lays out K14's shared memory as ``step_bwd_smem_bytes``
+    does."""
+    limits = ct._device_limits(index)
+    lib = _build.load_library()
+    for b, nd, blocks, st in ((128, 1024, 8, 4), (40, 512, 16, 2)):
+        if lib.tp_step_bwd_dh_smem_bytes(b, nd, blocks, st) != \
+                step_bwd_smem_bytes(b, nd, blocks, st):
+            raise RuntimeError("step_bwd_smem_bytes disagrees with "
+                               "csrc/lstm_tp_step_bwd.cu's layout")
+    return limits
+
+
+def device_tp_step_bwd_plan(cfg: ModelConfig, b: int, n: int, nd: int):
+    """``tp_step_bwd_plan`` with the current card's SMs and shared-memory
+    limit."""
+    return tp_step_bwd_plan(cfg, b, n, nd,
+                            *_step_bwd_limits(torch.cuda.current_device()))
+
+
+def tp_step_bwd_dh(g, c2, c_prev, dh, dc, U_c, cfg: ModelConfig):
+    """The reverse of one TP step: (dg (B, 4nd), dc_prev (B, nd), dh_full
+    (B, N)), dh_full = round(dg) @ U_c^T in the compute type. On the card
+    K14: its fused step where ``tp_step_bwd_plan`` gives a layout (bf16),
+    else its first design; on the CPU the plain version."""
+    b, nd = c2.shape
+    n = U_c.shape[0]
+    dev = g.device
+    for name, x, shape in (("g", g, (b, 4 * nd)), ("c2", c2, (b, nd)),
+                           ("c_prev", c_prev, (b, nd)), ("dh", dh, (b, nd)),
+                           ("dc", dc, (b, nd)), ("U_c", U_c, (n, 4 * nd))):
+        _check(name, x, shape, dev)
+    if dev.type == "cpu":
+        return tp_step_bwd_dh_plain(g, c2, c_prev, dh, dc, U_c, cfg)
+    _card(cfg, dev, nd)
+    plan = device_tp_step_bwd_plan(cfg, b, n, nd)
+    if plan is None:
+        dg, dcp = tp_step_bwd(g, c2, c_prev, dh, dc, cfg)
+        return dg, dcp, _dh_full(dg, U_c, cfg)
+    lib = _build.load_library()
+    f32 = torch.float32
+    ins = [ct._aligned(x.to(f32)) for x in (g, c2, c_prev, dh, dc)]
+    U_a = ct._aligned(U_c.to(torch.bfloat16))
+    dg = torch.empty(b, 4 * nd, dtype=f32, device=dev)
+    dcp = torch.empty(b, nd, dtype=f32, device=dev)
+    dh_full = torch.empty(b, n, dtype=torch.bfloat16, device=dev)
+    dgx = torch.empty(b, 4 * nd, dtype=torch.bfloat16, device=dev)
+    xbuf = (torch.empty(plan.blocks, b, n, dtype=f32, device=dev)
+            if plan.blocks > 1 else None)
+    launched = ctypes.c_int(0)
+    err = lib.tp_step_bwd_dh_launch(
+        *(x.data_ptr() for x in ins), U_a.data_ptr(), dg.data_ptr(),
+        dcp.data_ptr(), dh_full.data_ptr(), dgx.data_ptr(),
+        None if xbuf is None else xbuf.data_ptr(), b, n, nd,
+        int(cfg.cell_variant == "standard"), *plan, _stream(dev),
+        ctypes.byref(launched))
+    tp_step_bwd.launches += launched.value
+    tp_step_bwd_dh.launches += launched.value
+    cuda_cell._raise_on(err, "tp_step_bwd_dh_launch")
+    return dg, dcp, dh_full
+
+
 tp_step_fwd.launches = 0
-tp_step_bwd.launches = 0
+tp_step_bwd.launches = 0     # K14 in either design
+tp_step_bwd_dh.launches = 0  # K14's fused step alone
 
 
 class TPStep(torch.autograd.Function):
@@ -267,9 +414,8 @@ class TPStep(torch.autograd.Function):
         af = cuda_cell._acc_dtype(cfg)
         dh2 = torch.zeros_like(c2) if dh2 is None else dh2
         dc2 = torch.zeros_like(c2) if dc2 is None else dc2
-        bwd = tp_step_bwd_plain if ctx.plain else tp_step_bwd
-        dg, dcp = bwd(g, c2, c_prev.to(af), dh2.to(af), dc2.to(af), cfg)
-        dh_full = cell_ops.matmul(dg, U_c.T, cfg.cdtype, af)
+        bwd = tp_step_bwd_dh_plain if ctx.plain else tp_step_bwd_dh
+        dg, dcp, dh_full = bwd(g, c2, c_prev.to(af), dh2.to(af), dc2.to(af), U_c, cfg)
         dU = cell_ops.matmul(h_full.T, dg, cfg.cdtype, af)
         return (dU.to(ctx.u_dtype), None, dg.to(ctx.xw_dtype),
                 dh_full.to(h_full.dtype), dcp.to(c_prev.dtype), None, None)

@@ -196,7 +196,8 @@ def test_build_reports_missing_nvcc(monkeypatch):
         "adagrad.cu", "exchange.cu", "head.cu", "lstm_bwd.cu", "lstm_bwd_f32.cu",
         "lstm_bwd_f32_pairs.cu", "lstm_fwd.cu", "lstm_tiled.cu",
         "lstm_tiled_f32.cu", "lstm_tp.cu", "lstm_tp_f32.cu", "lstm_tp_f32_bwd.cu",
-        "lstm_tp_persist.cu", "lstm_tp_step_f32.cu", "sampler.cu", "sampler_f32.cu"]
+        "lstm_tp_persist.cu", "lstm_tp_step_bwd.cu", "lstm_tp_step_f32.cu", "sampler.cu",
+        "sampler_f32.cu"]
     assert [os.path.basename(p) for p in _build.headers()] == [
         "common.cuh", "exchange.cuh", "fwd_mma.cuh", "lstm_bwd_f32.cuh",
         "lstm_tiled_f32.cuh", "mma.cuh", "sampler.cuh"]
