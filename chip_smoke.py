@@ -166,8 +166,13 @@ Phase 9  the tiled-U regime (``scripts/run_configs.py`` 5b: 1x2048, B = 128,
 Phase 10 the last two single-card kernels and the modules of this path:
          (a) the fused Adagrad K11 against its plain version on the
          flagship's weights and accumulators, 5b's and the bench's sets (m
-         bit for bit, p within an ulp, one launch a call), times beside the
-         bound, the plain version and ``torch._foreach_*``; (b) the two-step
+         bit for bit, p within an ulp, one launch a call, the inputs
+         unchanged, the outputs bit for bit those of its first call path,
+         the forced control); its wrapper, the first call path's and
+         ``torch._foreach_*`` timed in turns (A B C C B A, 10 rounds of 50
+         calls; at the bench's set the wrapper must beat the first call
+         path), its C launcher alone beside the bound and the plain
+         version; then its share of 6b's bench step; (b) the two-step
          layer-0 backward K12 against K3 at the bench's shapes, B = 64 with
          fp32 residuals and B = 128 with bf16 residuals, bf16 (both in the
          persistent design) and fp32 (both in the CUDA-core persistent
@@ -345,6 +350,8 @@ the persistent design unsplit, and split) and prints the spread.
 ``--tp-seq`` phases 0, 1, 11a, 11d and 15, ``--k2-k13`` phases 0, 1, 2,
 6e, 11a and 11c (K2's and K13's designs), ``--k14`` phases 0, 1, 11a, 11b
 and 11c (K14's designs),
+``--k11`` phases 0, 1, 10a and 14k (K11 on its five sets) and the host's
+pieces of K11's call,
 ``--tiled`` phases 0, 1 and 9a, ``--groups`` phases 0 and 1 and K3's fp32
 persistent design at the bench's shapes with the other group width forced
 (outputs against the plan's, reverse launches timed side by side).
@@ -3897,22 +3904,65 @@ def k11_alone_ms(ps, gs, ms, lr, eps):
     return cuda_ms(lambda: lib.adagrad_launch(*args), reps=20)
 
 
-def k11_check(name, params, m, gen, lr, eps):
+# K11's timing: the plan's wrapper, its first call path (the forced
+# control) and torch._foreach_* in turns, A B C C B A a round, K11_ROUNDS
+# rounds of windows of K11_REPS calls each, after the same warm-up
+K11_ROUNDS, K11_REPS, K11_WARMUP = 10, 50, 5
+# the first call path's launches made by k11_check (the forced control),
+# held at the end of main to the counter's total: nothing else reaches it
+K11_CONTROL = [0]
+
+
+def interleaved_ms(fns, rounds=K11_ROUNDS, reps=K11_REPS, warmup=K11_WARMUP):
+    """Per-call CUDA-event times of the functions ``fns`` (name -> fn)
+    timed in turns: each round runs a window of ``reps`` calls of each in
+    order, then in reverse order (A B C C B A), after ``warmup`` calls of
+    each. Returns name -> (median, min, max) over the 2 x ``rounds``
+    windows, ms a call."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    names = list(fns)
+    times = {name: [] for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: (statistics.median(t), min(t), max(t))
+            for name, t in times.items()}
+
+
+def k11_check(name, params, m, gen, lr, eps, gate_first: bool = False):
     """K11 against its plain version on ``params`` and accumulators ``m``
     with gradients seeded from ``gen``: m bit for bit, p within one ulp
-    (the ulp differences counted), one launch a call; the wrapper's time,
-    and its C launcher's alone, beside the bound, the plain version and
-    the ``_foreach`` yardstick. Returns the kernels-line record (launches
-    None)."""
+    (the ulp differences counted), one launch a call, the inputs unchanged,
+    and every output bit for bit the first call path's (the forced
+    control, ``adagrad_update_first``). Then the plan's wrapper, the first
+    call path and the ``_foreach`` yardstick timed in turns
+    (``interleaved_ms``; with ``gate_first`` the plan's wrapper must be the
+    faster of the two), its C launcher alone, the bound and the plain
+    version. Returns the kernels-line record (launches None) with the
+    first call path's and the launcher's times beside it."""
     from eigen_lstm_tpu_torch.models.lstm import like, tensors
     from eigen_lstm_tpu_torch.ops import cuda_adagrad as ca
 
     grads = like(params, ((torch.randn(t.shape, generator=gen) * 1e-2)
                           .to(DEVICE) for t in tensors(params)))
     numel = sum(t.numel() for t in tensors(params))
+    ins = tensors(params) + tensors(grads) + tensors(m)
+    before_ins = [t.clone() for t in ins]
+    first0 = ca.adagrad_update_first.launches
     before = ca.adagrad_update_fused.launches
     pk, mk = ca.adagrad_update_fused(params, grads, m, lr, eps)
     launches = ca.adagrad_update_fused.launches - before
+    pf, mf = ca.adagrad_update_first(params, grads, m, lr, eps)
     pp, mp = ca.adagrad_update_plain(params, grads, m, lr, eps)
     torch.cuda.synchronize()
     m_equal = all(torch.equal(a, b) for a, b in zip(tensors(mk), tensors(mp)))
@@ -3920,29 +3970,45 @@ def k11_check(name, params, m, gen, lr, eps):
                       .abs().flatten() for a, b in zip(tensors(pk), tensors(pp))])
     max_ulp, n_ulp = int(ulps.max()), int((ulps > 0).sum())
     err = max(float((a - b).abs().max()) for a, b in zip(tensors(pk), tensors(pp)))
+    as_first = all(torch.equal(a, b) for a, b in zip(tensors(pk) + tensors(mk),
+                                                    tensors(pf) + tensors(mf)))
+    unchanged = all(torch.equal(a, b) for a, b in zip(ins, before_ins))
+    del before_ins
     shapes = ", ".join("x".join(map(str, t.shape)) for t in tensors(params))
     print(f"  K11 {name}: {numel:,} parameters in {len(tensors(params))} "
           f"tensors ({shapes}), {launches} launch; m bit for bit {m_equal}; p "
           f"within {max_ulp} ulp of plain ({n_ulp} elements differ by an ulp), "
-          f"max |dp| {err:.3e}", flush=True)
-    if launches != 1 or not m_equal or max_ulp > 1:
+          f"max |dp| {err:.3e}; the first call path's bits {as_first}; inputs "
+          f"unchanged {unchanged}", flush=True)
+    if launches != 1 or not m_equal or max_ulp > 1 or not as_first or not unchanged:
         fail(f"K11 {name}: {launches} launches, m equal {m_equal}, p "
-             f"{max_ulp} ulp from the plain version")
+             f"{max_ulp} ulp from the plain version, the first call path's "
+             f"bits {as_first}, inputs unchanged {unchanged}")
     ps, gs, ms = tensors(params), tensors(grads), tensors(m)
-    ms_k = cuda_ms(lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
-                   reps=20)
+    t = interleaved_ms({
+        "plan": lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
+        "first": lambda: ca.adagrad_update_first(params, grads, m, lr, eps),
+        "foreach": lambda: foreach_adagrad(ps, gs, ms, lr, eps)})
     plain_ms = cuda_ms(lambda: ca.adagrad_update_plain(params, grads, m, lr, eps),
                        reps=5)
-    lib_ms = cuda_ms(lambda: foreach_adagrad(ps, gs, ms, lr, eps), reps=5)
     alone_ms = k11_alone_ms(ps, gs, ms, lr, eps)
     bound_ms, bound_by = adagrad_bound(numel)
-    print(f"  K11 {name}: {ms_k:.4f} ms a step (its C launcher alone "
-          f"{alone_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}), plain "
-          f"{plain_ms:.4f} ms, torch._foreach_* {lib_ms:.4f} ms", flush=True)
+    K11_CONTROL[0] += ca.adagrad_update_first.launches - first0
+    spread = lambda key: f"{t[key][0]:.4f} ({t[key][1]:.4f}-{t[key][2]:.4f})"
+    print(f"  K11 {name}: wrapper calls, median (min-max) of "
+          f"{2 * K11_ROUNDS} windows of {K11_REPS} in turns: the plan's "
+          f"{spread('plan')} ms, the first call path {spread('first')}, "
+          f"torch._foreach_* {spread('foreach')} (host time, not gated); "
+          f"the C launcher alone {alone_ms:.4f}, bound {bound_ms:.4f} ms "
+          f"({bound_by}), plain {plain_ms:.4f} ms", flush=True)
+    if gate_first and t["plan"][0] >= t["first"][0]:
+        fail(f"K11 {name}: the plan's wrapper ({t['plan'][0]:.4f} ms) is not "
+             f"faster than the first call path ({t['first'][0]:.4f} ms)")
     return dict(name="adagrad", route="cuda", source=ADAGRAD_SOURCE,
                 replaces=ADAGRAD_REPLACES, launches=None, max_abs_err=err,
-                ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms)
+                ms=t["plan"][0], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=t["foreach"][0],
+                first_ms=t["first"][0], alone_ms=alone_ms)
 
 
 def phase10a(records):
@@ -3962,7 +4028,8 @@ def phase10a(records):
     for name, params, m in (("flagship", flag_p, flag_m),
                             ("5b", b5, adagrad_init(b5)),
                             ("bench", bench, adagrad_init(bench))):
-        records[("10a", name)] = k11_check(name, params, m, gen, lr, eps)
+        records[("10a", name)] = k11_check(name, params, m, gen, lr, eps,
+                                           gate_first=name == "bench")
 
 
 def phase10b(records):
@@ -6743,6 +6810,10 @@ def main():
     b5_counts, _ = phase9c(tiled_call, records)
     check_budget("phase 9c (the 5b recipe)")
     phase10a(records)
+    k11 = records[("10a", "bench")]
+    print(f"  K11 at the bench's set: {k11['ms']:.4f} ms a call (its first call "
+          f"path {k11['first_ms']:.4f}), {100 * k11['ms'] / step_ms:.2f} % of 6b's "
+          f"{step_ms:.3f} ms bench step (PR 18's run: 3.245 ms)", flush=True)
     check_budget("phase 10a (fused Adagrad against plain)")
     u2_call = phase10b(records)
     check_budget("phase 10b (the two-step backward against K3)")
@@ -6781,6 +6852,12 @@ def main():
     check_budget("phase 14 (pipeline parallelism at S = 1)")
     x_counts = phase15(records, smi)
     check_budget("phase 15 (K15/K16's exchange at D > 1 on one card)")
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad
+
+    if cuda_adagrad.adagrad_update_first.launches != K11_CONTROL[0]:
+        fail(f"K11's first call path launched "
+             f"{cuda_adagrad.adagrad_update_first.launches} times, "
+             f"{K11_CONTROL[0]} of them in the forced control")
     kernels = []
 
     def add(rec, launches, **kw):
@@ -7160,6 +7237,98 @@ def k14_only():
     check_budget("phase 11c (the flagship at --tp 1)")
 
 
+def host_us(fn, calls: int = 2000, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the host-clock time of ``calls`` calls of
+    ``fn``, µs a call, after a synchronisation (what ``fn`` enqueues on the
+    card is waited for at the end of each repeat)."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times)
+
+
+def k11_host_parts():
+    """The host's pieces of K11's wrapper call on the bench's set (1x512),
+    each timed alone on the host clock (``host_us``), beside the whole call
+    and other ways to make the outputs' views and read the stream: where
+    the host's time of the call goes."""
+    from eigen_lstm_tpu_torch import ModelConfig
+    from eigen_lstm_tpu_torch.models.lstm import init_params, like, tensors
+    from eigen_lstm_tpu_torch.ops import _build
+    from eigen_lstm_tpu_torch.ops import cuda_adagrad as ca
+    from eigen_lstm_tpu_torch.train.optimizer import adagrad_init
+
+    params = init_params(ModelConfig(hidden=512), device=DEVICE)
+    m = adagrad_init(params)
+    grads = like(params, (torch.randn_like(t) * 1e-2 for t in tensors(params)))
+    lr, eps = np.float32(0.02), 1e-10
+    ps, gs, ms = tensors(params), tensors(grads), tensors(m)
+    xs = ps + gs + ms
+    plan = ca.plan_for(ps, gs, ms)
+    dev = ps[0].device
+    arena, arena_m = ps[0].new_empty(plan.total), ps[0].new_empty(plan.total)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan.ins[:] = [x.data_ptr() for x in xs]
+    metas = [torch.empty(p.shape, device="meta") for p in ps]   # no padding here
+    views = plan.views(arena)
+    calls = {
+        "the whole call": lambda: ca.adagrad_update_fused(params, grads, m, lr, eps),
+        "the first call path's whole call": lambda: ca.adagrad_update_first(
+            params, grads, m, lr, eps)}
+    whole = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        whole[name].append(host_us(calls[name]))
+    parts = {
+        "the three tensor lists": lambda: (tensors(params), tensors(grads), tensors(m)),
+        "the plan's key and lookup": lambda: ca.plan_for(ps, gs, ms),
+        "the contiguity check": lambda: all(map(ca._CONTIGUOUS, xs)),
+        "two arenas (new_empty)": lambda: (ps[0].new_empty(plan.total),
+                                           ps[0].new_empty(plan.total)),
+        "the stream (raw)": lambda: ca._stream(dev),
+        "the address table filled": lambda: plan.ins.__setitem__(
+            slice(None), list(map(ca._DATA_PTR, xs))),
+        "the launch (ctypes call, enqueue)": lambda: lib.adagrad_plan_launch(
+            plan.count, plan.ins, plan.layout, arena.data_ptr(), arena_m.data_ptr(),
+            float(lr), float(eps), stream, plan.launched_ref),
+        "2n views (as_strided)": lambda: (plan.views(arena), plan.views(arena)),
+        "two like() calls": lambda: (like(params, views), like(m, views)),
+        # the other ways, not taken
+        "the stream (current_stream)": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "2n views (unflatten_dense_tensors, one call)": lambda: [
+            torch._C._nn.unflatten_dense_tensors(arena, metas) for _ in range(2)],
+        "the three lists through named_tensors": lambda: [
+            [t for _, t in s.named_tensors()] for s in (params, grads, m)],
+    }
+    times = {name: host_us(fn) for name, fn in parts.items()}
+    print("  K11's host pieces at the bench's set, µs a call (host clock, "
+          "median of 5 x 2000 calls; the whole calls in the order plan, "
+          "first, first, plan): " + "; ".join(
+              f"{name} {t[0]:.2f} and {t[1]:.2f}" for name, t in whole.items())
+          + "; " + "; ".join(f"{name} {t:.2f}" for name, t in times.items()),
+          flush=True)
+
+
+def k11_only():
+    """``python3 chip_smoke.py --k11``: phases 0, 1, 10a and 14k alone: K11
+    on its five parameter sets, checked and timed; then the host's pieces
+    of its call (``k11_host_parts``)."""
+    phase0()
+    phase1()
+    records = {}
+    phase10a(records)
+    check_budget("phase 10a (fused Adagrad against plain)")
+    phase14k(records)
+    check_budget("phase 14k (K11 on PP's sets)")
+    k11_host_parts()
+    check_budget("K11's host pieces")
+
+
 def tiled_only():
     """``python3 chip_smoke.py --tiled``: phases 0, 1 and 9a alone."""
     phase0()
@@ -7185,9 +7354,11 @@ if __name__ == "__main__":
         k2_k13_only()
     elif sys.argv[1:] == ["--k14"]:
         k14_only()
+    elif sys.argv[1:] == ["--k11"]:
+        k11_only()
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; the options are --gate-spread, "
-             f"--sp-spread, --exchange, --tiled, --groups, --tp-seq, --k2-k13 "
-             f"and --k14")
+             f"--sp-spread, --exchange, --tiled, --groups, --tp-seq, --k2-k13, "
+             f"--k14 and --k11")
     else:
         main()

@@ -50,6 +50,12 @@ class LSTMParams:
         yield "params.Why", self.Why
         yield "params.by", self.by
 
+    def tensors(self):
+        """The tensors of ``named_tensors``, in its order, without the
+        keys (the optimizer's per-step path)."""
+        return [t for l in self.layers for t in (l.W, l.U, l.b)] + [self.Why,
+                                                                    self.by]
+
     def like(self, ts) -> "LSTMParams":
         """This structure holding ``ts`` in the order of ``named_tensors``."""
         ts = list(ts)
@@ -67,9 +73,9 @@ class LSTMParams:
 
 def tensors(p: LSTMParams):
     """The parameter set's tensors in checkpoint order (W, U, b of each
-    layer, then Why, by), or those of another layout with
-    ``named_tensors`` (``parallel/pp.py:PPParams``)."""
-    return [t for _, t in p.named_tensors()]
+    layer, then Why, by), or those of another layout with ``tensors``
+    (``parallel/pp.py:PPParams``)."""
+    return p.tensors()
 
 
 def like(p: LSTMParams, ts) -> LSTMParams:

@@ -93,6 +93,7 @@ SIGNATURES = {
     "gen_persist_f32_smem_bytes": (_Z, [_I] * 5),
     "gen_persist_f32_work_bytes": (_Z, [_I] * 4),
     "adagrad_launch": (_I, [_I, _P, _F, _F, _P, _IP]),
+    "adagrad_plan_launch": (_I, [_I, _P, _P, _P, _P, _F, _F, _P, _IP]),
     "tp_step_fwd_launch": (_I, [_I] + [_P] * 7 + [_I] * 5 + [_P, _IP]),
     "tp_step_fwd_f32_launch": (_I, [_P] * 7 + [_I] * 8 + [_P, _IP]),
     "tp_step_fwd_f32_smem_bytes": (_Z, [_I] * 3),

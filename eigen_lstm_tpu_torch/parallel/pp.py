@@ -91,6 +91,9 @@ class PPParams:
         for name in ("W_pad", "U", "b", "Why", "by"):
             yield name, getattr(self, name)
 
+    def tensors(self):
+        return [self.W_pad, self.U, self.b, self.Why, self.by]
+
     def like(self, ts) -> "PPParams":
         return PPParams(*ts)
 
